@@ -1,0 +1,248 @@
+"""Time kernels A, B and E on the card over their launch shapes.
+
+    python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
+        [--a-sizes 256,1000,1800] [--only a,b,e] [--reps 10] [--out FILE]
+        [--sass DIR]
+
+Needs a CUDA device and nvcc. Prints the card's name and power limit
+(as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+gives them), then one JSON line per launch shape: B over thread blocks
+and rows per thread, E over output tiles, thread blocks and K. Each
+shape is first checked bitwise against the kernel's plain version on a
+ragged 1001 x 999 grid, then timed with CUDA events over ``--reps``
+launches on the model's ``size`` x ``size`` plate (far larger than the
+50 MB L2, so every launch reads device memory). A, whose grid must fit
+in shared memory, runs over its halo depth D on each of the
+``--a-sizes`` plates: a 20-step launch with the residual (one converge
+window of the default check interval), checked bitwise against its
+plain version on the same plate first. ``ms_per_step`` is the time per
+launch over the steps it advances. The values in
+``ops/hopper_params.py`` marked "measured" come from this sweep.
+``--sass DIR`` also writes each kernel library's machine code
+(``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
+instructions in each loop body, found by its backward branch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from parallel_heat_tpu_torch.kernels import build
+from parallel_heat_tpu_torch.models import HeatPlate2D
+from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+from parallel_heat_tpu_torch.ops.hopper_params import params
+
+CX = CY = 0.1
+B_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (128, 2)]
+B_ROWS = [4, 8, 16]
+E_TILES = [(32, 112), (64, 112), (96, 112), (128, 112), (64, 128),
+           (128, 128), (64, 240)]
+E_BLOCKS = [(32, 8), (32, 16), (32, 32)]
+E_KS = [4, 6, 8, 10, 12, 16]
+A_DEPTHS = [1, 2, 4, 8]
+A_STEPS = 20
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of one ``fn()`` over ``reps`` calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bits(dev):
+    return torch.empty(1, dtype=torch.int32, device=dev)
+
+
+def _check_b(small, block, rows) -> bool:
+    out, want = torch.empty_like(small), torch.empty_like(small)
+    bits = _bits(small.device)
+    sk._launch_b(small, out, bits, CX, CY, block, rows)
+    res = sk.strip_step_plain(small, want, cx=CX, cy=CY)
+    return bool(torch.equal(out, want)
+                and torch.equal(sk._residual_view(bits), res))
+
+
+def _check_e(small, k, tile, block) -> bool:
+    out, want = torch.empty_like(small), torch.empty_like(small)
+    bits = _bits(small.device)
+    sk._launch_e(small, out, k, bits, CX, CY, tile, block)
+    res = sk.temporal_steps_plain(small, want, k, cx=CX, cy=CY)
+    return bool(torch.equal(out, want)
+                and torch.equal(sk._residual_view(bits), res))
+
+
+def sweep_a(sizes, reps: int):
+    """Yield one dict per (plate size, halo depth) of kernel A."""
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for size in sizes:
+        u = HeatPlate2D(size, size).init_grid(dev)
+        v, want = torch.empty_like(u), torch.empty_like(u)
+        rp = sk.resident_steps_plain(u, want, A_STEPS, cx=CX, cy=CY)
+        for d in A_DEPTHS:
+            tile = p.a_tile((size, size), d)
+            if tile is None:
+                continue
+            xch = torch.empty((2, size, size), device=dev)
+            bits = _bits(dev)
+
+            def launch():
+                sk._launch_a(u, v, A_STEPS, xch, bits, CX, CY, d, tile,
+                             p.a_block)
+
+            launch()
+            ok = bool(torch.equal(v, want)
+                      and torch.equal(sk._residual_view(bits), rp))
+            ms = time_ms(launch, reps * 5)
+            yield {"kernel": "heat_a_resident", "size": size, "depth": d,
+                   "tile": list(tile), "k": A_STEPS,
+                   "smem_bytes": p.a_smem_bytes(tile, d), "bitwise": ok,
+                   "ms": ms, "ms_per_step": ms / A_STEPS,
+                   "default": d == p.a_depth}
+
+
+def sweep(size: int, reps: int):
+    """Yield one dict per launch shape of B and E."""
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    small = torch.from_numpy(
+        (rng.standard_normal((1001, 999)) * 10).astype(np.float32)).to(dev)
+    u = HeatPlate2D(size, size).init_grid(dev)
+    v = torch.empty_like(u)
+    bits = _bits(dev)
+    for block in B_BLOCKS:
+        for rows in B_ROWS:
+            ok = _check_b(small, block, rows)
+            ms = time_ms(lambda: sk._launch_b(u, v, bits, CX, CY, block,
+                                              rows), reps)
+            yield {"kernel": "heat_b_step", "block": list(block),
+                   "rows_per_thread": rows, "k": 1, "bitwise": ok,
+                   "ms": ms, "ms_per_step": ms,
+                   "default": (block == p.b_block
+                               and rows == p.b_rows_per_thread)}
+    for tile in E_TILES:
+        for k in E_KS:
+            smem = p.e_smem_bytes(k, tile) + p.static_smem_bytes
+            if smem > p.smem_per_block_max:
+                continue
+            per_sm = p.smem_per_sm // (smem + p.smem_reserved_per_block)
+            for block in E_BLOCKS:
+                ok = _check_e(small, k, tile, block)
+                ms = time_ms(lambda: sk._launch_e(u, v, k, None, CX, CY,
+                                                  tile, block), reps)
+                yield {"kernel": "heat_e_temporal", "tile": list(tile),
+                       "block": list(block), "k": k, "smem_bytes": smem,
+                       "blocks_per_sm_by_smem": per_sm, "bitwise": ok,
+                       "ms": ms, "ms_per_step": ms / k,
+                       "default": (tile == p.e_tile and block == p.e_block
+                                   and k == p.e_k_default)}
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_BRANCH = re.compile(r"BRA (0x[0-9a-f]+)")
+
+
+def sass_loops(sass: str):
+    """``[(start, end, instructions)]`` of each backward branch's loop body
+    in a ``cuobjdump -sass`` listing."""
+    instrs = [(int(a, 16), text) for a, text in _SASS_LINE.findall(sass)]
+    loops = []
+    for addr, text in instrs:
+        m = _BRANCH.search(text)
+        if m and int(m.group(1), 16) < addr:
+            start = int(m.group(1), 16)
+            body = [t for a, t in instrs if start <= a <= addr]
+            loops.append((hex(start), hex(addr), len(body)))
+    return loops
+
+
+def dump_sass(out_dir: str):
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    os.makedirs(out_dir, exist_ok=True)
+    for name, path in build.build().items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        with open(os.path.join(out_dir, f"{name}.sass"), "w") as fp:
+            fp.write(sass)
+        print(json.dumps({"sass": name, "loops": sass_loops(sass)}),
+              flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--size", type=int, default=16384)
+    ap.add_argument("--a-sizes", default="256,1000,1800",
+                    help="comma-separated plate sizes for kernel A")
+    ap.add_argument("--only", default="a,b,e",
+                    help="comma-separated kernels to sweep (a, b, e)")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON lines to this file")
+    ap.add_argument("--sass", default=None, metavar="DIR",
+                    help="write each kernel's machine code to DIR")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    print(card_line(), flush=True)
+    if args.sass:
+        dump_sass(args.sass)
+    only = set(args.only.split(","))
+    rows = []
+    if only & {"b", "e"}:
+        for row in sweep(args.size, args.reps):
+            if {"heat_b_step": "b",
+                    "heat_e_temporal": "e"}[row["kernel"]] not in only:
+                continue
+            row["size"] = args.size
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    if "a" in only:
+        sizes = [int(x) for x in args.a_sizes.split(",")]
+        for row in sweep_a(sizes, args.reps):
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    bad = [r for r in rows if not r["bitwise"]]
+    for key in sorted({(r["kernel"], r["size"]) for r in rows}):
+        best = min((r for r in rows if (r["kernel"], r["size"]) == key
+                    and r["bitwise"]), key=lambda r: r["ms_per_step"],
+                   default=None)
+        print(json.dumps({"best": best}), flush=True)
+    if args.out:
+        with open(args.out, "w") as fp:
+            for row in rows:
+                fp.write(json.dumps(row) + "\n")
+    if bad:
+        print(f"bench_kernels: {len(bad)} launch shapes disagree with the "
+              f"plain version", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,94 @@
+"""Command-line interface of the port.
+
+The flags and output lines are the JAX CLI's (``parallel_heat_tpu.cli``)
+for the fields this package has: banner, grid line, converged-at or
+did-not-converge, elapsed time, and the ``.dat`` dump.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="parallel_heat_tpu_torch",
+        description="Jacobi heat-diffusion solver on PyTorch and CUDA",
+    )
+    ap.add_argument("--nx", type=int, default=20, help="grid rows (NXPROB)")
+    ap.add_argument("--ny", type=int, default=20, help="grid cols (NYPROB)")
+    ap.add_argument("--steps", type=int, default=10_000,
+                    help="step count (exact in fixed mode, cap in converge)")
+    ap.add_argument("--converge", action="store_true",
+                    help="stop when max |du| < eps (CONVERGE build flag)")
+    ap.add_argument("--eps", type=float, default=1e-3)
+    ap.add_argument("--check-interval", type=int, default=20,
+                    help="steps between convergence checks (STEP macro)")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "cuda", "torch"],
+                    help="cuda: the hand-written Hopper kernels; torch: the "
+                         "textbook stencil in plain PyTorch; auto: cuda on "
+                         "a GPU device, torch on the CPU")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (cuda:0), 'cuda:N' or 'cpu'; without a GPU "
+                         "the run fails unless 'cpu' is given")
+    ap.add_argument("--out", default=None,
+                    help="write the final grid as a .dat file")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the resolved path (backend, kernel, tile, "
+                         "K) and exit without running")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from parallel_heat_tpu_torch import HeatConfig, solve
+
+    config = HeatConfig(nx=args.nx, ny=args.ny, steps=args.steps,
+                        converge=args.converge, eps=args.eps,
+                        check_interval=args.check_interval,
+                        backend=args.backend, device=args.device)
+    try:
+        config.validate()
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.explain:
+        from parallel_heat_tpu_torch.solver import explain
+
+        for key, val in explain(config).items():
+            print(f"{key}: {val}")
+        return 0
+
+    print("Starting parallel_heat_tpu_torch on 1 device(s), mesh (1, 1).")
+    if config.converge:
+        print(f"Grid size: {config.nx}x{config.ny}  "
+              f"Time steps: - (converge, eps={config.eps:g})")
+    else:
+        print(f"Grid size: {config.nx}x{config.ny}  "
+              f"Time steps: {config.steps}")
+    try:
+        result = solve(config)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if config.converge:
+        if result.converged:
+            print(f"Converged after {result.steps_run} steps")
+        else:
+            print(f"Did not converge (ran {result.steps_run} steps, "
+                  f"residual {result.residual:g})")
+    print(f"Elapsed time {result.elapsed_s:.6f} secs")
+    if args.out:
+        from parallel_heat_tpu_torch.utils.io import write_dat
+
+        write_dat(args.out, result.grid)
+        print(f"Final grid written to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,74 @@
+// Shared device code of the heat kernels (heat_b_step.cu,
+// heat_e_temporal.cu).
+//
+// Arithmetic contract: every kernel evaluates the factored 5-point
+// combine of ops/stencil.py::combine_2d,
+//     ((a0*c) + (cx*(up+down))) + (cy*(left+right)),
+// one correctly rounded float32 operation at a time. The __fmul_rn and
+// __fadd_rn intrinsics keep nvcc from contracting a multiply and an add
+// into an FMA, which eager PyTorch never does; so a kernel is bitwise
+// equal to its plain PyTorch version, and K steps of heat_e_temporal are
+// bitwise K launches of heat_b_step.
+//
+// Residual contract: the max over interior cells of |new - old|, taken
+// on the uint32 bit pattern of the non-negative float. For non-negative
+// floats that order is the numeric order, and every NaN (0x7fc00000 and
+// up once the sign is cleared) sorts above +inf (0x7f800000): a
+// diverging run reports NaN, as jnp.max and torch.max do, where fmaxf
+// would drop it. Max is exact and order-free, so the result does not
+// depend on which block finishes first.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ float heat_combine(float c, float up, float down,
+                                              float left, float right,
+                                              float a0, float cx, float cy) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a0, c),
+                             __fmul_rn(cx, __fadd_rn(up, down))),
+                   __fmul_rn(cy, __fadd_rn(left, right)));
+}
+
+// Bit pattern of |new - old|, the residual's ordering key.
+__device__ __forceinline__ uint32_t heat_diff_bits(float v, float c) {
+  return __float_as_uint(fabsf(__fsub_rn(v, c)));
+}
+
+__device__ __forceinline__ uint32_t heat_warp_max(uint32_t v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Block-wide max of `v` into *res. Every thread of the block must call
+// it (it synchronises), and the block size must be a multiple of 32 and
+// at most 1024. *res is zeroed by the host entry point before the
+// launch. The plain load skips the atomic when *res already holds at
+// least `v`: *res only grows, so a stale read can only cost an atomic,
+// never lose a maximum.
+__device__ __forceinline__ void heat_block_max(uint32_t v, uint32_t* res) {
+  __shared__ uint32_t warp_part[32];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = (blockDim.x * blockDim.y) >> 5;
+  v = heat_warp_max(v);
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < n_warps ? warp_part[lane] : 0u;
+    v = heat_warp_max(v);
+    if (lane == 0 && v != 0u) {
+      const uint32_t seen = *reinterpret_cast<volatile uint32_t*>(res);
+      if (v > seen) atomicMax(res, v);
+    }
+  }
+}
+
+// Dirichlet interior test for global cell (i, j) of an m x n grid.
+__device__ __forceinline__ bool heat_is_interior(int64_t i, int64_t j,
+                                                 int64_t m, int64_t n) {
+  return i >= 1 && i <= m - 2 && j >= 1 && j <= n - 2;
+}

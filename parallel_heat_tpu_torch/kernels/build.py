@@ -1,0 +1,152 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``csrc/`` is compiled on first use, by one
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+call, into a shared library with a plain C interface under
+``parallel_heat_tpu_torch/build/`` (listed in ``.gitignore``). The file
+name carries a digest of the sources and flags, so an edited source is
+rebuilt and never mixed with a stale library. :func:`build` starts one
+nvcc per missing library, all at once, and waits for all of them.
+
+There is no fallback: when nvcc is missing or a source does not
+compile, :class:`BuildError` carries nvcc's stderr to the caller.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+
+# Entry point -> (source, argtypes). Pointers and the stream are
+# c_void_p: anything narrower would cut a 64-bit address.
+KERNELS = {
+    "heat_a_resident": ("heat_a_resident.cu",
+                        [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                         _I32, _I32, _I32, _F32, _F32, _F32, _P]),
+    "heat_b_step": ("heat_b_step.cu",
+                    [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                     _F32, _F32, _F32, _P]),
+    "heat_c_tiled": ("heat_c_tiled.cu",
+                     [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
+                      _F32, _F32, _F32, _P]),
+    "heat_e_temporal": ("heat_e_temporal.cu",
+                        [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
+                         _I32, _F32, _F32, _F32, _P]),
+    "heat_e_uni_temporal": ("heat_e_uni_temporal.cu",
+                            [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                             _I32, _I32, _F32, _F32, _F32, _P]),
+    "heat_i_tile_temporal": ("heat_i_tile_temporal.cu",
+                             [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                              _I32, _F32, _F32, _F32, _P]),
+    "heat_i_uni_tile_temporal": ("heat_i_uni_tile_temporal.cu",
+                                 [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                                  _I32, _F32, _F32, _F32, _P]),
+}
+_COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh")
+
+# nvcc's stderr of each build in this process (ptxas register and
+# shared-memory report), by kernel name.
+BUILD_LOG: Dict[str, str] = {}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class BuildError(RuntimeError):
+    """A kernel could not be built or loaded."""
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise BuildError("nvcc not found (on PATH or under "
+                         "/usr/local/cuda/bin): the CUDA kernels cannot "
+                         "be built on this machine")
+    return path
+
+
+def library_path(name: str) -> Path:
+    source, _ = KERNELS[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (source,) + _COMMON:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> Dict[str, Path]:
+    """Build the named kernels (all by default) that are not built yet,
+    one nvcc process per source, started together. Returns the library
+    path of each name; raises :class:`BuildError` with nvcc's stderr."""
+    names = names or tuple(KERNELS)
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name in names if not paths[name].exists()]
+    if not todo:
+        return paths
+    compiler = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in todo:
+            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / KERNELS[name][0])]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            BUILD_LOG[name] = out + err
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n"
+                              f"{err}")
+            else:
+                os.replace(tmp, paths[name])
+        if failed:
+            raise BuildError("\n".join(failed))
+    finally:
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build(name)[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise BuildError(f"cannot load {path}: {e}") from e
+            fn = getattr(lib, name)
+            fn.argtypes = KERNELS[name][1]
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib

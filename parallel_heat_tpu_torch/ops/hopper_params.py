@@ -1,0 +1,179 @@
+"""Tile shapes, temporal depth and shared-memory budget for the H100.
+
+Each value says where it comes from: ``data sheet`` (NVIDIA's H100 SXM
+data sheet and Hopper tuning notes), ``measured`` (the fastest
+bitwise-correct launch shape of the sweep ``python -m
+parallel_heat_tpu_torch.bench_kernels`` on an H100 80GB HBM3 at its
+700 W limit, 16384^2 float32 plate; PERF.md has the numbers) or
+``chosen`` (a budget rule, not swept). No number here comes from the
+TPU tables of the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class HopperParams:
+    # --- the card (data sheet) ---------------------------------------------
+    # Shared memory one block may use (227 KB), and one SM holds (228 KB),
+    # less the 1 KB the runtime reserves per resident block.
+    smem_per_block_max: int = 232_448
+    smem_per_sm: int = 233_472
+    smem_reserved_per_block: int = 1_024
+    hbm_bytes_per_s: float = 3.35e12
+    # float32 outside the tensor cores; an FMA counts as two operations.
+    fp32_flops_per_s: float = 67e12
+
+    # --- kernel A: heat_a_resident (data sheet; block chosen; D measured) -
+    # One cooperative launch holds the whole grid in shared memory: one
+    # block of 32 x 32 threads on each SM it uses (132 SMs on the H100
+    # SXM), each block a tile and its D-deep frame in two ping-pong
+    # buffers of (TY+2D) x (TX+2D) floats, with one grid-wide barrier per
+    # D steps. a_tile() picks the tile. D = 4 from the sweep of D = 1, 2,
+    # 4, 8 (bench_kernels --only a): D = 8 ran 10% faster at 1000^2 but
+    # fits no grid past about 1760^2, against 1845^2 at D = 4.
+    sm_count: int = 132
+    a_block: tuple = (32, 32)
+    a_depth: int = 4
+
+    # --- kernel B: heat_b_step (measured) ----------------------------------
+    # 128 x 2 threads, each walking 16 consecutive rows of one column with
+    # the rows above and below kept in registers: a 128-wide by 32-row
+    # tile per block, so warps read whole 128-byte lines. The sweep's
+    # other shapes with 16 rows per thread came within 8%; 4 rows per
+    # thread cost up to 45% more.
+    b_block: tuple = (128, 2)
+    b_rows_per_thread: int = 16
+
+    # --- kernels E and E-uni: heat_e_temporal, heat_e_uni_temporal
+    # (measured on E; blocks per SM chosen) ---------------------------------
+    # Output tile (rows, cols), thread block and depth K. Per cell-step E
+    # moves about 8*(1+2K/TY)*(1+2K/TX)/K bytes through HBM: at 96 x 112
+    # and K = 8 that is 1.33 B against B's 8. A 112-wide tile makes the
+    # shared tile 128 columns wide at K = 8, four full warps per row. Two
+    # ping-pong buffers of (TY+2K) x (TX+2K) floats fit twice per SM up
+    # to K = 8 at this tile, which is what e_k_max() allows.
+    e_tile: tuple = (96, 112)
+    e_block: tuple = (32, 8)
+    e_k_default: int = 8
+    e_min_blocks_per_sm: int = 2
+
+    # --- kernels I and I-uni: heat_i_tile_temporal and
+    # heat_i_uni_tile_temporal (chosen) --------------------------------------
+    # One thread per band column, 128 threads (four warps) a block, so a
+    # band is 128 - 2K output columns at depth K (1 <= K <= 8, the
+    # kernels' range). Rows are cut into segments so that the launch
+    # holds about i_blocks_per_sm blocks per SM (2048 threads), but not
+    # below i_seg_rows_min rows: a segment recomputes 2K rows.
+    i_band_threads: int = 128
+    i_k_default: int = 8
+    i_k_max: int = 8
+    i_blocks_per_sm: int = 16
+    i_seg_rows_min: int = 64
+
+    # --- kernel C: heat_c_tiled (chosen) -----------------------------------
+    # Output tile (rows, cols) and thread block: a 32 x 128 tile plus its
+    # one-cell ring, 17 KB of shared memory, so several blocks stay
+    # resident per SM; each warp takes 32 neighbouring columns of a row.
+    c_tile: tuple = (32, 128)
+    c_block: tuple = (32, 8)
+    # Static shared memory of every kernel: the 32-slot residual
+    # reduction scratch of csrc/heat_common.cuh.
+    static_smem_bytes: int = 128
+
+    def e_smem_bytes(self, k: int, tile=None) -> int:
+        """Dynamic shared memory of one E block at depth ``k``."""
+        ty, tx = tile or self.e_tile
+        return 2 * (ty + 2 * k) * (tx + 2 * k) * 4
+
+    @functools.lru_cache(maxsize=8)
+    def e_k_max(self, tile=None) -> int:
+        """Deepest K whose two ping-pong buffers still leave
+        ``e_min_blocks_per_sm`` blocks resident on one SM."""
+        per_block = min(self.smem_per_block_max,
+                        self.smem_per_sm // self.e_min_blocks_per_sm
+                        - self.smem_reserved_per_block)
+        k = 0
+        while (self.e_smem_bytes(k + 1, tile) + self.static_smem_bytes
+               <= per_block):
+            k += 1
+        return k
+
+    def uni_fits(self, shape) -> bool:
+        """Do the uniform-load kernels (E-uni, I-uni) take an ``(m, n)``
+        grid? Their copies are 16 bytes wide, so the width must be a
+        multiple of 4 floats (E's tile width is one, by construction)."""
+        return shape[1] % 4 == 0
+
+    def i_launch(self, shape, k):
+        """Kernel I's ``(band output columns, segment rows)`` at depth
+        ``k`` for an ``(m, n)`` grid."""
+        m, n = shape
+        tile_x = self.i_band_threads - 2 * k
+        bands = -(-n // tile_x)
+        segments = -(-self.sm_count * self.i_blocks_per_sm // bands)
+        return tile_x, max(self.i_seg_rows_min, -(-m // segments))
+
+    def a_smem_bytes(self, tile, depth=None) -> int:
+        """Dynamic shared memory of one A block at ``tile``."""
+        ty, tx = tile
+        d = self.a_depth if depth is None else depth
+        return 2 * (ty + 2 * d) * (tx + 2 * d) * 4
+
+    @functools.lru_cache(maxsize=64)
+    def a_tile(self, shape, depth=None):
+        """Kernel A's tile ``(rows, cols)`` for an ``(m, n)`` grid, or None
+        when the grid does not fit resident: at most one block per SM,
+        each within one block's shared memory.
+
+        Among the tiles that fit, the one with the fewest cells per thread
+        and step, averaged over a group of D steps on the shrinking framed
+        region (the step's critical path), then the fewest blocks (each
+        one waits at every grid-wide barrier), then the least shared
+        memory, then the widest (whole 128-byte rows for the warps)."""
+        m, n = shape
+        d = self.a_depth if depth is None else depth
+        bx, by = self.a_block
+        budget = self.smem_per_block_max - self.static_smem_bytes
+        if m * n * 8 > self.sm_count * budget:
+            return None
+
+        def fits(lo, mult, cap):
+            # lo, and the next sizes whose framed extent fills whole
+            # passes of `mult` threads, capped at cap.
+            out = {lo, -(-lo // mult) * mult}
+            out.add(-(-(lo + 2 * (d - 1)) // mult) * mult - 2 * (d - 1))
+            return sorted({min(x, cap) for x in out if x >= lo})
+
+        def passes(ty, tx):
+            return sum(-(-(ty + 2 * (d - s)) // by) * -(-(tx + 2 * (d - s))
+                                                        // bx)
+                       for s in range(1, d + 1)) / d
+
+        best, best_key = None, None
+        widths = {n} | {w for q in range(1, n // bx + 2)
+                        for w in (q * bx, q * bx - 2 * (d - 1)) if 0 < w < n}
+        for tx in sorted(widths):
+            n_col = -(-n // tx)
+            rows_max = self.sm_count // n_col
+            if rows_max == 0:
+                continue
+            for ty in fits(-(-m // rows_max), by, m):
+                tile = (ty, tx)
+                smem = self.a_smem_bytes(tile, d)
+                if smem > budget:
+                    continue
+                key = (passes(ty, tx), n_col * -(-m // ty), smem, -tx)
+                if best_key is None or key < best_key:
+                    best, best_key = tile, key
+        return best
+
+
+_PARAMS = HopperParams()
+
+
+def params() -> HopperParams:
+    return _PARAMS

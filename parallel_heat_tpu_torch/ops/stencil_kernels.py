@@ -1,0 +1,554 @@
+"""Kernels A, B, C, E, E-uni, I and I-uni: wrappers, plain versions,
+picker and multistep.
+
+The port of the 2D single-device part of
+``parallel_heat_tpu/ops/pallas_stencil.py``:
+
+- :func:`resident_steps` launches ``heat_a_resident``
+  (csrc/heat_a_resident.cu), the counterpart of
+  ``heat_a_vmem_multistep``: any number of steps in one launch with the
+  whole grid resident in shared memory, residual of the last step
+  optional;
+- :func:`strip_step` launches ``heat_b_step`` (csrc/heat_b_step.cu), the
+  counterpart of ``heat_b_strip``: one step plus the residual;
+- :func:`tiled_step` launches ``heat_c_tiled`` (csrc/heat_c_tiled.cu),
+  the counterpart of ``heat_c_tiled``: the same step through 2D tiles
+  staged in shared memory;
+- :func:`temporal_steps` launches ``heat_e_temporal``
+  (csrc/heat_e_temporal.cu), the counterpart of ``heat_e_temporal_strip``:
+  K steps per pass, residual of the last step optional;
+- :func:`temporal_steps_uni` launches ``heat_e_uni_temporal``
+  (csrc/heat_e_uni_temporal.cu), the counterpart of
+  ``heat_e_uni_temporal_strip``: E with a uniform, vectorised load;
+- :func:`tile_temporal_steps` launches ``heat_i_tile_temporal``
+  (csrc/heat_i_tile_temporal.cu), the counterpart of
+  ``heat_i_tile_temporal``: K steps per pass over column bands streamed
+  down the grid, and :func:`tile_temporal_steps_uni` launches its
+  uniform-load form ``heat_i_uni_tile_temporal``;
+- the ``*_plain`` functions compute the same functions in plain PyTorch,
+  with :func:`~.stencil.combine_2d` in the kernels' operation order, so a
+  kernel and its plain version agree bitwise on the card.
+
+A wrapper takes its plain version only because the tensor it was given
+lies on the CPU. For a CUDA tensor it launches the kernel or raises:
+there is no fallback. Each wrapper counts its launches in
+:data:`counts` (and each plain version its calls), so a run can show
+which path carried it.
+
+Every wrapper writes into a caller-allocated ``out`` (distinct from
+``u``): the solver ping-pongs two device buffers instead of allocating
+a grid per step.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import torch
+
+from parallel_heat_tpu_torch import tune
+from parallel_heat_tpu_torch.ops.hopper_params import params
+from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
+
+# Launches of each kernel and calls of each plain version, since the
+# last reset_counts().
+counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
+          "heat_e_temporal": 0, "heat_e_uni_temporal": 0,
+          "heat_i_tile_temporal": 0, "heat_i_uni_tile_temporal": 0,
+          "resident_steps_plain": 0, "strip_step_plain": 0,
+          "tiled_step_plain": 0, "temporal_steps_plain": 0,
+          "temporal_steps_uni_plain": 0, "tile_temporal_steps_plain": 0,
+          "tile_temporal_steps_uni_plain": 0}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
+
+
+def _check(u: torch.Tensor, out: torch.Tensor) -> None:
+    if u.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {u.device}")
+    if u.dtype != torch.float32 or out.dtype != torch.float32:
+        raise TypeError(f"float32 grids only, got {u.dtype} -> {out.dtype}")
+    if u.dim() != 2 or min(u.shape) < 3:
+        raise ValueError(f"need a 2D grid of at least 3x3, got "
+                         f"{tuple(u.shape)}")
+    if out.shape != u.shape:
+        raise ValueError(f"out shape {tuple(out.shape)} != grid shape "
+                         f"{tuple(u.shape)}")
+    if u.device != out.device:
+        raise ValueError(f"u on {u.device}, out on {out.device}")
+    if not (u.is_contiguous() and out.is_contiguous()):
+        raise ValueError("u and out must be contiguous")
+    if u.data_ptr() == out.data_ptr():
+        raise ValueError("out must be a different buffer from u")
+    if (u.device.type == "cuda"
+            and u.device.index != torch.cuda.current_device()):
+        raise ValueError(f"grid on {u.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _raise_on_error(lib, name: str, code: int) -> None:
+    if code != 0:
+        reason = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError {code} "
+                           f"({reason})")
+
+
+def _residual_view(bits: torch.Tensor) -> torch.Tensor:
+    """The kernel's residual bit pattern as a 0-d float32 tensor."""
+    return bits.view(torch.float32).reshape(())
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _plain_step(u, out, a0, cx, cy) -> torch.Tensor:
+    c = u[1:-1, 1:-1]
+    new = combine_2d(c, u[:-2, 1:-1], u[2:, 1:-1], u[1:-1, :-2],
+                     u[1:-1, 2:], a0, cx, cy)
+    out.copy_(u)
+    out[1:-1, 1:-1] = new
+    return (new - c).abs().max()
+
+
+def strip_step_plain(u: torch.Tensor, out: torch.Tensor, *, cx: float,
+                     cy: float) -> torch.Tensor:
+    """Plain version of :func:`strip_step`: one step of ``u`` into
+    ``out``; returns the interior max-norm residual (0-d, NaN-propagating)."""
+    counts["strip_step_plain"] += 1
+    return _plain_step(u, out, *coeffs_f32(cx, cy))
+
+
+def tiled_step_plain(u: torch.Tensor, out: torch.Tensor, *, cx: float,
+                     cy: float) -> torch.Tensor:
+    """Plain version of :func:`tiled_step`: as :func:`strip_step_plain`."""
+    counts["tiled_step_plain"] += 1
+    return _plain_step(u, out, *coeffs_f32(cx, cy))
+
+
+def _plain_steps(u, out, k, with_residual, cx, cy):
+    """``k`` plain steps of ``u``, the last one landing in ``out``; the
+    last step's residual, or None without ``with_residual``."""
+    coeffs = coeffs_f32(cx, cy)
+    tmp = torch.empty_like(u) if k > 1 else None
+    src = u
+    for s in range(k):
+        dst = out if (k - 1 - s) % 2 == 0 else tmp
+        res = _plain_step(src, dst, *coeffs)
+        src = dst
+    return res if with_residual else None
+
+
+def temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
+                         with_residual: bool = True, *, cx: float,
+                         cy: float) -> Optional[torch.Tensor]:
+    """Plain version of :func:`temporal_steps`: ``k`` plain steps of
+    ``u``, the last one landing in ``out``; the last step's residual, or
+    None without ``with_residual``."""
+    counts["temporal_steps_plain"] += 1
+    return _plain_steps(u, out, k, with_residual, cx, cy)
+
+
+def temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor, k: int,
+                             with_residual: bool = True, *, cx: float,
+                             cy: float) -> Optional[torch.Tensor]:
+    """Plain version of :func:`temporal_steps_uni`: as
+    :func:`temporal_steps_plain`."""
+    counts["temporal_steps_uni_plain"] += 1
+    return _plain_steps(u, out, k, with_residual, cx, cy)
+
+
+def tile_temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
+                              with_residual: bool = True, *, cx: float,
+                              cy: float) -> Optional[torch.Tensor]:
+    """Plain version of :func:`tile_temporal_steps`: as
+    :func:`temporal_steps_plain`."""
+    counts["tile_temporal_steps_plain"] += 1
+    return _plain_steps(u, out, k, with_residual, cx, cy)
+
+
+def tile_temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor,
+                                  k: int, with_residual: bool = True, *,
+                                  cx: float,
+                                  cy: float) -> Optional[torch.Tensor]:
+    """Plain version of :func:`tile_temporal_steps_uni`: as
+    :func:`temporal_steps_plain`."""
+    counts["tile_temporal_steps_uni_plain"] += 1
+    return _plain_steps(u, out, k, with_residual, cx, cy)
+
+
+def resident_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
+                         with_residual: bool = True, *, cx: float,
+                         cy: float) -> Optional[torch.Tensor]:
+    """Plain version of :func:`resident_steps`: as
+    :func:`temporal_steps_plain`, for any ``k >= 1``."""
+    counts["resident_steps_plain"] += 1
+    return _plain_steps(u, out, k, with_residual, cx, cy)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _stream(u: torch.Tensor) -> int:
+    return torch.cuda.current_stream(u.device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch_a(u, out, k, xch, bits, cx, cy, depth, tile, block) -> None:
+    """One cooperative launch of ``heat_a_resident`` at the given halo
+    depth, tile and thread block (``bits`` None: no residual; ``xch`` the
+    exchange planes, None when ``k <= depth``); raises if the launch is
+    refused. Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load("heat_a_resident")
+    code = lib.heat_a_resident(
+        u.data_ptr(), out.data_ptr(), _ptr(xch), _ptr(bits), u.shape[0],
+        u.shape[1], k, depth, tile[0], tile[1], block[0], block[1],
+        *coeffs_f32(cx, cy), _stream(u))
+    _raise_on_error(lib, "heat_a_resident", code)
+
+
+def _launch_b(u, out, bits, cx, cy, block, rows_per_thread) -> None:
+    """One launch of ``heat_b_step`` at the given thread block; raises
+    if the launch is refused. Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load("heat_b_step")
+    code = lib.heat_b_step(
+        u.data_ptr(), out.data_ptr(), bits.data_ptr(), u.shape[0],
+        u.shape[1], block[0], block[1], rows_per_thread,
+        *coeffs_f32(cx, cy), _stream(u))
+    _raise_on_error(lib, "heat_b_step", code)
+
+
+def _launch_c(u, out, bits, cx, cy, tile, block) -> None:
+    """One launch of ``heat_c_tiled`` at the given tile and thread block;
+    raises if the launch is refused. Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load("heat_c_tiled")
+    code = lib.heat_c_tiled(
+        u.data_ptr(), out.data_ptr(), bits.data_ptr(), u.shape[0],
+        u.shape[1], tile[0], tile[1], block[0], block[1],
+        *coeffs_f32(cx, cy), _stream(u))
+    _raise_on_error(lib, "heat_c_tiled", code)
+
+
+def _launch_e(u, out, k, bits, cx, cy, tile, block,
+              name="heat_e_temporal") -> None:
+    """One launch of ``heat_e_temporal`` (or, by ``name``, of
+    ``heat_e_uni_temporal``, which takes the same arguments) at the given
+    tile and thread block (``bits`` None: no residual); raises if the
+    launch is refused. Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load(name)
+    code = getattr(lib, name)(
+        u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0], u.shape[1],
+        k, tile[0], tile[1], block[0], block[1], *coeffs_f32(cx, cy),
+        _stream(u))
+    _raise_on_error(lib, name, code)
+
+
+def _launch_i(u, out, k, bits, cx, cy, tile_x, seg_rows, block_x,
+              name="heat_i_tile_temporal") -> None:
+    """One launch of ``heat_i_tile_temporal`` (or, by ``name``, of
+    ``heat_i_uni_tile_temporal``, which takes the same arguments) over
+    bands of ``tile_x`` columns and segments of ``seg_rows`` rows
+    (``bits`` None: no residual); raises if the launch is refused.
+    Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load(name)
+    code = getattr(lib, name)(
+        u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0], u.shape[1],
+        k, tile_x, seg_rows, block_x, *coeffs_f32(cx, cy), _stream(u))
+    _raise_on_error(lib, name, code)
+
+
+def resident_steps(u: torch.Tensor, out: torch.Tensor, k: int,
+                   with_residual: bool = True, *, cx: float,
+                   cy: float) -> Optional[torch.Tensor]:
+    """Kernel A: ``k`` steps of ``u`` into ``out`` in one launch, the
+    whole grid resident in shared memory; returns the last step's
+    residual (0-d float32 tensor) or None without ``with_residual``.
+    Raises ValueError for a grid that does not fit resident on the card
+    (:meth:`~.hopper_params.HopperParams.a_tile`)."""
+    _check(u, out)
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    p = params()
+    tile = p.a_tile(tuple(u.shape))
+    if tile is None:
+        raise ValueError(f"grid {tuple(u.shape)} does not fit resident in "
+                         f"the card's shared memory (kernel A)")
+    if u.device.type == "cpu":
+        return resident_steps_plain(u, out, k, with_residual, cx=cx, cy=cy)
+    # The exchange planes are freed when this returns, before the kernel
+    # ends: the caching allocator reuses them only in the order of the
+    # current stream, which the kernel runs on.
+    xch = (torch.empty((2,) + tuple(u.shape), dtype=torch.float32,
+                       device=u.device) if k > p.a_depth else None)
+    bits = (torch.empty(1, dtype=torch.int32, device=u.device)
+            if with_residual else None)
+    _launch_a(u, out, k, xch, bits, cx, cy, p.a_depth, tile, p.a_block)
+    counts["heat_a_resident"] += 1
+    return _residual_view(bits) if bits is not None else None
+
+
+def strip_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
+               cy: float) -> torch.Tensor:
+    """Kernel B: one step of ``u`` into ``out`` plus the interior
+    max-norm residual, a 0-d float32 tensor on ``u``'s device."""
+    _check(u, out)
+    if u.device.type == "cpu":
+        return strip_step_plain(u, out, cx=cx, cy=cy)
+    p = params()
+    bits = torch.empty(1, dtype=torch.int32, device=u.device)
+    _launch_b(u, out, bits, cx, cy, p.b_block, p.b_rows_per_thread)
+    counts["heat_b_step"] += 1
+    return _residual_view(bits)
+
+
+def tiled_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
+               cy: float) -> torch.Tensor:
+    """Kernel C: one step of ``u`` into ``out`` through 2D tiles staged
+    in shared memory, plus the interior max-norm residual, a 0-d float32
+    tensor on ``u``'s device."""
+    _check(u, out)
+    if u.device.type == "cpu":
+        return tiled_step_plain(u, out, cx=cx, cy=cy)
+    p = params()
+    bits = torch.empty(1, dtype=torch.int32, device=u.device)
+    _launch_c(u, out, bits, cx, cy, p.c_tile, p.c_block)
+    counts["heat_c_tiled"] += 1
+    return _residual_view(bits)
+
+
+def _temporal(name, plain, u, out, k, with_residual, cx, cy):
+    _check(u, out)
+    p = params()
+    if not 1 <= k <= p.e_k_max():
+        raise ValueError(f"k must be in [1, {p.e_k_max()}] (shared-memory "
+                         f"budget at tile {p.e_tile}), got {k}")
+    if name == "heat_e_uni_temporal" and not p.uni_fits(tuple(u.shape)):
+        raise ValueError(f"kernel E-uni needs a grid width that is a "
+                         f"multiple of 4, got {tuple(u.shape)}")
+    if u.device.type == "cpu":
+        return plain(u, out, k, with_residual, cx=cx, cy=cy)
+    if name == "heat_e_uni_temporal" and u.data_ptr() % 16:
+        raise ValueError("kernel E-uni needs a 16-byte aligned grid")
+    bits = (torch.empty(1, dtype=torch.int32, device=u.device)
+            if with_residual else None)
+    _launch_e(u, out, k, bits, cx, cy, p.e_tile, p.e_block, name)
+    counts[name] += 1
+    return _residual_view(bits) if bits is not None else None
+
+
+def temporal_steps(u: torch.Tensor, out: torch.Tensor, k: int,
+                   with_residual: bool = True, *, cx: float,
+                   cy: float) -> Optional[torch.Tensor]:
+    """Kernel E: ``k`` steps of ``u`` into ``out`` in one pass through
+    global memory; returns the last step's residual (0-d float32 tensor)
+    or None without ``with_residual``."""
+    return _temporal("heat_e_temporal", temporal_steps_plain, u, out, k,
+                     with_residual, cx, cy)
+
+
+def temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
+                       with_residual: bool = True, *, cx: float,
+                       cy: float) -> Optional[torch.Tensor]:
+    """Kernel E-uni: :func:`temporal_steps` with a uniform, vectorised
+    load; bitwise the same grid and residual. Takes grids whose width is
+    a multiple of 4 (ValueError otherwise)."""
+    return _temporal("heat_e_uni_temporal", temporal_steps_uni_plain, u,
+                     out, k, with_residual, cx, cy)
+
+
+def _tile_temporal(name, plain, u, out, k, with_residual, cx, cy):
+    _check(u, out)
+    p = params()
+    if not 1 <= k <= p.i_k_max:
+        raise ValueError(f"k must be in [1, {p.i_k_max}], got {k}")
+    uni = name == "heat_i_uni_tile_temporal"
+    if uni and not p.uni_fits(tuple(u.shape)):
+        raise ValueError(f"kernel I-uni needs a grid width that is a "
+                         f"multiple of 4, got {tuple(u.shape)}")
+    if u.device.type == "cpu":
+        return plain(u, out, k, with_residual, cx=cx, cy=cy)
+    if uni and u.data_ptr() % 16:
+        raise ValueError("kernel I-uni needs a 16-byte aligned grid")
+    bits = (torch.empty(1, dtype=torch.int32, device=u.device)
+            if with_residual else None)
+    tile_x, seg_rows = p.i_launch(tuple(u.shape), k)
+    _launch_i(u, out, k, bits, cx, cy, tile_x, seg_rows, p.i_band_threads,
+              name)
+    counts[name] += 1
+    return _residual_view(bits) if bits is not None else None
+
+
+def tile_temporal_steps(u: torch.Tensor, out: torch.Tensor, k: int,
+                        with_residual: bool = True, *, cx: float,
+                        cy: float) -> Optional[torch.Tensor]:
+    """Kernel I: ``k`` steps (at most 8) of ``u`` into ``out`` in one pass
+    through global memory, over column bands streamed down the grid;
+    bitwise the grid and residual of :func:`temporal_steps`."""
+    return _tile_temporal("heat_i_tile_temporal", tile_temporal_steps_plain,
+                          u, out, k, with_residual, cx, cy)
+
+
+def tile_temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
+                            with_residual: bool = True, *, cx: float,
+                            cy: float) -> Optional[torch.Tensor]:
+    """Kernel I-uni: :func:`tile_temporal_steps` with a uniform,
+    vectorised load. Takes grids whose width is a multiple of 4
+    (ValueError otherwise)."""
+    return _tile_temporal("heat_i_uni_tile_temporal",
+                          tile_temporal_steps_uni_plain, u, out, k,
+                          with_residual, cx, cy)
+
+
+# ---------------------------------------------------------------------------
+# The decision site and the multistep
+# ---------------------------------------------------------------------------
+
+def pick_single_2d(shape):
+    """The 2D single-device kernel decision: ``(kind, detail)`` with kind
+    in {"A", "E-uni", "E", "I-uni", "I", "B", "C", "torch"}.
+
+    The one decision site: :func:`single_grid_multistep` executes its
+    result and ``solver.explain`` reports it. By default a grid that fits
+    resident in the card's shared memory takes A (as the JAX package's
+    takes A where the grid fits in VMEM), any other grid E-uni where its
+    width allows, else E. A choice pinned with
+    ``tune.force("single_2d", ...)`` wins when it is feasible for the
+    geometry; an infeasible pin (A on a grid too large, E-uni or I-uni on
+    a width that is not a multiple of 4) warns and the default decides.
+    """
+    choice = tune.forced("single_2d")
+    if choice is not None:
+        resolved = _resolve_single_2d(choice, shape)
+        if resolved is not None:
+            return resolved
+        warnings.warn(f"tune[single_2d]: forced choice {choice!r} "
+                      f"infeasible at {tuple(shape)}; using the default",
+                      RuntimeWarning, stacklevel=2)
+    return (_resolve_single_2d("A", shape)
+            or _resolve_single_2d("E-uni", shape)
+            or _resolve_single_2d("E", shape))
+
+
+def _resolve_single_2d(choice, shape):
+    p = params()
+    if choice == "torch":
+        return "torch", None
+    if choice == "A":
+        tile = p.a_tile(tuple(shape))
+        return (("A", {"tile": tile, "depth": p.a_depth,
+                       "block": p.a_block}) if tile else None)
+    if choice in ("E-uni", "I-uni") and not p.uni_fits(tuple(shape)):
+        return None
+    if choice in ("E", "E-uni"):
+        return choice, {"k": p.e_k_default, "tile": p.e_tile,
+                        "block": p.e_block}
+    if choice in ("I", "I-uni"):
+        tile_x, seg_rows = p.i_launch(tuple(shape), p.i_k_default)
+        return choice, {"k": p.i_k_default, "band": tile_x,
+                        "segment": seg_rows}
+    if choice == "C":
+        return "C", {"tile": p.c_tile, "block": p.c_block}
+    return "B", {"block": p.b_block, "rows_per_thread": p.b_rows_per_thread}
+
+
+def _chunked_multistep(temporal, K: int):
+    """Lift a k-step kernel ``temporal(u, out, k, with_residual) -> res``
+    (any ``1 <= k <= K``) to ``(multi_step, multi_step_residual)``.
+
+    An n-step advance runs ``n // kk`` passes of ``kk = min(K, n)``
+    steps and one remainder pass; only the pass that executes the
+    chunk's last step computes the residual.
+    """
+
+    def _run(u, v, n, want_res):
+        kk = min(K, n)
+        full, rem = divmod(n, kk)
+        res = None
+        for i in range(full):
+            res = temporal(u, v, kk, want_res and rem == 0 and i == full - 1)
+            u, v = v, u
+        if rem:
+            res = temporal(u, v, rem, want_res)
+            u, v = v, u
+        return u, v, res
+
+    def multi_step(u, v, n):
+        u, v, _ = _run(u, v, n, False)
+        return u, v
+
+    def multi_step_residual(u, v, n):
+        return _run(u, v, n, True)
+
+    return multi_step, multi_step_residual
+
+
+_KERNEL_OF = {"A": "heat_a_resident", "B": "heat_b_step",
+              "C": "heat_c_tiled", "E": "heat_e_temporal",
+              "E-uni": "heat_e_uni_temporal", "I": "heat_i_tile_temporal",
+              "I-uni": "heat_i_uni_tile_temporal"}
+
+
+def single_grid_multistep(config):
+    """``(multi_step(u, v, n) -> (u, v), multi_step_residual(u, v, n) ->
+    (u, v, res))`` for one device: ``u`` holds the state, ``v`` is the
+    spare buffer, and each returns them swapped as the steps left them.
+
+    The kernel comes from :func:`pick_single_2d`. The kernel library of
+    a CUDA run is loaded here, before any clock starts.
+    """
+    from parallel_heat_tpu_torch.solver import steps_to_multistep
+
+    kind, detail = pick_single_2d(config.shape)
+    cx, cy = float(config.cx), float(config.cy)
+    if kind == "torch":
+        from parallel_heat_tpu_torch.solver import torch_multistep
+
+        return torch_multistep(cx, cy)
+    if torch.device(config.device).type == "cuda":
+        from parallel_heat_tpu_torch.kernels.build import load
+
+        load(_KERNEL_OF[kind])
+    if kind == "A":
+        # One launch per chunk, however many steps it holds.
+        def multi_step(u, v, n):
+            resident_steps(u, v, n, False, cx=cx, cy=cy)
+            return v, u
+
+        def multi_step_residual(u, v, n):
+            res = resident_steps(u, v, n, True, cx=cx, cy=cy)
+            return v, u, res
+
+        return multi_step, multi_step_residual
+    if kind in ("E", "E-uni", "I", "I-uni"):
+        launch = {"E": temporal_steps, "E-uni": temporal_steps_uni,
+                  "I": tile_temporal_steps,
+                  "I-uni": tile_temporal_steps_uni}[kind]
+
+        def temporal(u, v, k, want_res):
+            return launch(u, v, k, want_res, cx=cx, cy=cy)
+
+        return _chunked_multistep(temporal, detail["k"])
+    launch = strip_step if kind == "B" else tiled_step
+
+    def step(u, v):
+        return launch(u, v, cx=cx, cy=cy)
+
+    return steps_to_multistep(step, step)

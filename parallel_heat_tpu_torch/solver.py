@@ -1,0 +1,287 @@
+"""The solver: the port of ``parallel_heat_tpu/solver.py`` for 2D,
+one device, explicit scheme.
+
+The JAX package compiles the whole run into one XLA program. Here the
+run is a Python loop over kernel launches on one CUDA stream:
+
+- fixed-step mode launches the steps and reads nothing back until the
+  end;
+- converge mode advances ``check_interval`` steps per window and reads
+  the window's residual to the host once per window — one device sync
+  per window, under exactly the JAX loop's rule (continue while
+  ``res >= eps and k < full_steps``, ``res`` starting at +inf; after the
+  loop ``converged = res < eps``; the tail of ``steps % check_interval``
+  steps runs only when not converged). A NaN residual therefore ends the
+  loop, as ``lax.while_loop`` does.
+
+The grid lives in two device buffers that the loop ping-pongs in place
+(the reference's ``old = 1-old`` swap): each launch reads one and writes
+the other, and no grid is allocated per step.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import warnings
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from parallel_heat_tpu_torch import tune
+from parallel_heat_tpu_torch.config import HeatConfig
+from parallel_heat_tpu_torch.models import HeatPlate2D
+from parallel_heat_tpu_torch.ops.stencil import step_2d, step_2d_residual
+from parallel_heat_tpu_torch.utils.timing import Timer
+
+
+@dataclass
+class HeatResult:
+    """Outcome of one simulation run."""
+
+    grid: torch.Tensor
+    steps_run: int
+    converged: Optional[bool]
+    residual: Optional[float]
+    elapsed_s: float
+
+    def to_numpy(self) -> np.ndarray:
+        """Copy the final grid to host memory."""
+        return self.grid.detach().cpu().numpy()
+
+
+def model_for(config: HeatConfig) -> HeatPlate2D:
+    return HeatPlate2D(config.nx, config.ny, config.cx, config.cy)
+
+
+def resolve_device(config: HeatConfig,
+                   device: Optional[str] = None) -> torch.device:
+    """The device a run uses: ``device`` if given, else ``config.device``.
+    A CUDA device without a usable GPU raises; the CPU is used only when
+    asked for."""
+    dev = torch.device(device if device is not None else config.device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' (CLI: "
+                "--device cpu) to run the plain PyTorch versions on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", 0)
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _resolve_backend(config: HeatConfig, dev: torch.device) -> str:
+    if config.backend != "auto":
+        return config.backend
+    return "cuda" if dev.type == "cuda" else "torch"
+
+
+def steps_to_multistep(step, step_residual):
+    """Lift one-step functions ``step(u, out)`` and ``step_residual(u,
+    out) -> res`` to the ping-pong multistep interface of
+    :func:`~parallel_heat_tpu_torch.ops.stencil_kernels.single_grid_multistep`."""
+
+    def multi_step(u, v, k):
+        for _ in range(k):
+            step(u, v)
+            u, v = v, u
+        return u, v
+
+    def multi_step_residual(u, v, k):
+        # k-1 plain steps, then one with the residual: the residual is
+        # the diff of the chunk's last step.
+        u, v = multi_step(u, v, k - 1)
+        res = step_residual(u, v)
+        return v, u, res
+
+    return multi_step, multi_step_residual
+
+
+def torch_multistep(cx: float, cy: float):
+    """The "torch" backend: the textbook stencil of ``ops/stencil.py``."""
+
+    def step(u, out):
+        out.copy_(step_2d(u, cx, cy))
+
+    def step_residual(u, out):
+        new, res = step_2d_residual(u, cx, cy)
+        out.copy_(new)
+        return res
+
+    return steps_to_multistep(step, step_residual)
+
+
+def _make_loop(multi_step, multi_step_residual, config: HeatConfig):
+    """Build ``run(u, v) -> (grid, steps_run, converged, residual)``.
+
+    ``u`` holds the initial state and ``v`` is a spare buffer of the same
+    shape; this function encodes only the stepping and convergence
+    policy. ``converged``/``residual`` are None in fixed mode.
+    """
+    steps = config.steps
+
+    if not config.converge:
+
+        def run_fixed(u, v):
+            if steps > 0:
+                u, v = multi_step(u, v, steps)
+            return u, steps, None, None
+
+        return run_fixed
+
+    ci = config.check_interval
+    # The JAX loop compares the float32 residual with eps as float32.
+    eps = float(np.float32(config.eps))
+    n_full = steps // ci
+    rem = steps % ci
+    full_steps = n_full * ci
+
+    def run_converge(u, v):
+        k = 0
+        res = math.inf
+        while res >= eps and k < full_steps:
+            u, v, r = multi_step_residual(u, v, ci)
+            res = float(r)  # the window's one host sync
+            k += ci
+        converged = res < eps
+        if rem > 0 and not converged:
+            # Tail steps past the last full window, uninspected.
+            u, v = multi_step(u, v, rem)
+            k += rem
+        return u, k, converged, res
+
+    return run_converge
+
+
+def _single_multistep(config: HeatConfig, backend: str):
+    """(multi_step, multi_step_residual) on the full grid, one device."""
+    if backend == "cuda":
+        from parallel_heat_tpu_torch.ops import stencil_kernels
+
+        return stencil_kernels.single_grid_multistep(config)
+    return torch_multistep(float(config.cx), float(config.cy))
+
+
+def _prepare_initial(config: HeatConfig, initial,
+                     dev: torch.device) -> torch.Tensor:
+    """Default, validate, place, and copy (the loop writes the buffers in
+    place, so a caller's array is never touched)."""
+    if initial is None:
+        return model_for(config).init_grid(dev)
+    if tuple(initial.shape) != config.shape:
+        raise ValueError(f"initial grid shape {tuple(initial.shape)} does "
+                         f"not match config shape {config.shape}")
+    return torch.as_tensor(initial).to(device=dev, dtype=torch.float32,
+                                       copy=True).contiguous()
+
+
+def _device_scope(dev: torch.device):
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _warn_if_diverged(res: Optional[float], steps_run: int,
+                      checked: bool) -> None:
+    """A non-finite converge-mode residual means the scheme blew up and
+    the loop stopped early with ``converged=False``: say so. ``checked``
+    is False when no window ran (the +inf seed is not a measurement)."""
+    if checked and res is not None and not math.isfinite(res):
+        warnings.warn(
+            f"simulation diverged: non-finite residual after {steps_run} "
+            f"steps (coefficient sum past the stability bound?); grid "
+            f"values are garbage, boundary cells remain exact",
+            RuntimeWarning,
+        )
+
+
+def explain(config: HeatConfig, device: Optional[str] = None) -> dict:
+    """Resolve, without running or building anything, which path a
+    config takes: device, backend and the kernel the picker chooses.
+    The CLI prints it for ``--explain``."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    config = config.validate()
+    name = device if device is not None else config.device
+    dev = torch.device(name)
+    backend = _resolve_backend(config, dev)
+    out = {
+        "backend": backend,
+        "device": str(dev),
+        "dtype": config.dtype,
+        "shape": config.shape,
+        "mode": "converge" if config.converge else "fixed",
+    }
+    if backend == "torch":
+        out["path"] = "textbook torch stencil"
+        return out
+    kind, detail = sk.pick_single_2d(config.shape)
+    plain = " (plain version on the CPU)" if dev.type == "cpu" else ""
+    if kind == "A":
+        ty, tx = detail["tile"]
+        blocks = -(-config.shape[0] // ty) * -(-config.shape[1] // tx)
+        out["path"] = (f"kernel A (heat_a_resident, grid resident in shared "
+                       f"memory) tile={ty}x{tx} depth={detail['depth']} "
+                       f"blocks={blocks}" + plain)
+    elif kind == "E":
+        ty, tx = detail["tile"]
+        out["path"] = (f"kernel E (heat_e_temporal, K-step temporal) "
+                       f"tile={ty}x{tx} K={detail['k']}" + plain)
+    elif kind == "E-uni":
+        ty, tx = detail["tile"]
+        out["path"] = (f"kernel E-uni (heat_e_uni_temporal, K-step "
+                       f"temporal, uniform load) tile={ty}x{tx} "
+                       f"K={detail['k']}" + plain)
+    elif kind in ("I", "I-uni"):
+        name = ("heat_i_tile_temporal" if kind == "I"
+                else "heat_i_uni_tile_temporal")
+        out["path"] = (f"kernel {kind} ({name}, K-step temporal over "
+                       f"column bands) band={detail['band']} "
+                       f"segment={detail['segment']} K={detail['k']}"
+                       + plain)
+    elif kind == "B":
+        bx, by = detail["block"]
+        out["path"] = (f"kernel B (heat_b_step, one step) tile="
+                       f"{by * detail['rows_per_thread']}x{bx}" + plain)
+    elif kind == "C":
+        ty, tx = detail["tile"]
+        out["path"] = (f"kernel C (heat_c_tiled, one step, shared-memory "
+                       f"tiles) tile={ty}x{tx}" + plain)
+    else:
+        out["path"] = "textbook torch stencil"
+    forced = tune.forced("single_2d")
+    out["decided_by"] = {"single_2d": {
+        "source": "forced" if forced == kind else "default-order",
+        "choice": kind}}
+    return out
+
+
+def solve(config: HeatConfig, initial=None,
+          device: Optional[str] = None) -> HeatResult:
+    """Run one simulation end to end. The main entry point.
+
+    Runs on ``device`` if given, else ``config.device`` (default
+    ``cuda:0``); the CPU runs only when asked for. ``initial`` (a tensor
+    or array) defaults to the model's polynomial initial condition and is
+    copied first. The kernels are built and loaded before the clock
+    starts, so ``elapsed_s`` covers the step loop only, ended by a device
+    synchronisation.
+    """
+    config = config.validate()
+    dev = resolve_device(config, device)
+    config = config.replace(device=str(dev))
+    backend = _resolve_backend(config, dev)
+    with _device_scope(dev):
+        multi_step, multi_step_residual = _single_multistep(config, backend)
+        run = _make_loop(multi_step, multi_step_residual, config)
+        u = _prepare_initial(config, initial, dev)
+        v = torch.empty_like(u)
+        with Timer(dev) as timer:
+            grid, steps_run, converged, residual = run(u, v)
+    _warn_if_diverged(residual, steps_run,
+                      config.converge and steps_run >= config.check_interval)
+    return HeatResult(grid=grid, steps_run=steps_run, converged=converged,
+                      residual=residual, elapsed_s=timer.elapsed_s)

@@ -1,0 +1,42 @@
+"""Pin a kernel decision: the port of ``parallel_heat_tpu.tune.force``.
+
+Tests and ``chip_smoke.py`` drive each kernel through the real
+``solve()`` by pinning the ``single_2d`` decision site for the extent of
+a ``with`` block. The pinned choice still goes through the picker's
+feasibility check. The measured tuning DB of the JAX package is not
+ported yet (ROADMAP queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Dict, Optional
+
+SITE_CHOICES = {"single_2d": ("A", "E-uni", "E", "I-uni", "I", "B", "C",
+                               "torch")}
+
+_force_var: contextvars.ContextVar[Optional[Dict[str, str]]] = \
+    contextvars.ContextVar("pht_torch_tune_force", default=None)
+
+
+@contextlib.contextmanager
+def force(site: str, choice: str):
+    """Pin ``site``'s decision to ``choice`` inside the block."""
+    if site not in SITE_CHOICES:
+        raise ValueError(f"unknown tune site {site!r}")
+    if choice not in SITE_CHOICES[site]:
+        raise ValueError(f"choice {choice!r} outside site {site!r}'s "
+                         f"vocabulary {SITE_CHOICES[site]}")
+    nxt = dict(_force_var.get() or {})
+    nxt[site] = choice
+    token = _force_var.set(nxt)
+    try:
+        yield
+    finally:
+        _force_var.reset(token)
+
+
+def forced(site: str) -> Optional[str]:
+    """The choice pinned for ``site`` in this context, or None."""
+    return (_force_var.get() or {}).get(site)

@@ -1,0 +1,196 @@
+"""The CUDA kernels of the PyTorch port on the card.
+
+Every test here needs an NVIDIA GPU and nvcc, carries the ``cuda``
+marker and skips elsewhere. The file imports nothing of JAX, so it runs
+on a machine that has only PyTorch, without the repository's conftest
+(which sets JAX up)::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
+
+Tolerance: none. On the card each kernel is bitwise equal to its plain
+PyTorch version (both round every float32 operation in the same order),
+A(K), E(K), E-uni(K), I(K) and I-uni(K) bitwise equal to K launches of
+B, and C bitwise equal to B. Every kernel is also run with cx != cy, so
+a swap of the two axes cannot pass.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from parallel_heat_tpu_torch import HeatConfig, solve, tune
+from parallel_heat_tpu_torch.kernels import build
+from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+from parallel_heat_tpu_torch.ops.hopper_params import params
+
+pytestmark = pytest.mark.cuda
+CX = CY = 0.1
+COEFFS = [(0.1, 0.1), (0.1, 0.2)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    try:
+        build.nvcc()
+    except build.BuildError as e:
+        pytest.skip(f"needs nvcc to build the kernels: {e}")
+    return torch.device("cuda", 0)
+
+
+def _rand(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * 10).astype(np.float32)).to(dev)
+
+
+def _b_launches(u, k, cx, cy):
+    src, dst = u.clone(), torch.empty_like(u)
+    for _ in range(k):
+        rb = sk.strip_step(src, dst, cx=cx, cy=cy)
+        src, dst = dst, src
+    return src, rb
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("shape", [(1001, 999), (3, 3), (5, 4099)])
+def test_b_bitwise_equal_to_plain(card, shape, cx, cy):
+    u = _rand(shape, 0, card)
+    got, want = torch.empty_like(u), torch.empty_like(u)
+    r = sk.strip_step(u, got, cx=cx, cy=cy)
+    rp = sk.strip_step_plain(u, want, cx=cx, cy=cy)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("shape", [(1001, 999), (3, 3), (5, 4099),
+                                   (300, 4096)])
+def test_c_bitwise_equal_to_b_and_plain(card, shape, cx, cy):
+    u = _rand(shape, 4, card)
+    got, want, b = (torch.empty_like(u) for _ in range(3))
+    r = sk.tiled_step(u, got, cx=cx, cy=cy)
+    rp = sk.tiled_step_plain(u, want, cx=cx, cy=cy)
+    rb = sk.strip_step(u, b, cx=cx, cy=cy)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+    assert torch.equal(got, b) and torch.equal(r, rb)
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("k", [1, 2, 3, 5, None])
+@pytest.mark.parametrize("shape", [(1001, 1000), (70, 300), (300, 4096)])
+def test_e_uni_bitwise_equal_to_e_and_plain(card, shape, k, cx, cy):
+    k = k or params().e_k_default
+    u = _rand(shape, 5, card)
+    got, e, want = (torch.empty_like(u) for _ in range(3))
+    r = sk.temporal_steps_uni(u, got, k, cx=cx, cy=cy)
+    re_ = sk.temporal_steps(u, e, k, cx=cx, cy=cy)
+    rp = sk.temporal_steps_uni_plain(u, want, k, cx=cx, cy=cy)
+    src, rb = _b_launches(u, k, cx, cy)
+    assert torch.equal(got, e) and torch.equal(r, re_)
+    assert torch.equal(got, src) and torch.equal(r, rb)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("k", [1, 2, 5, None])
+@pytest.mark.parametrize("shape", [(1001, 999), (70, 300)])
+def test_e_bitwise_equal_to_k_b_launches_and_plain(card, shape, k, cx, cy):
+    k = k or params().e_k_default
+    u = _rand(shape, 1, card)
+    got = torch.empty_like(u)
+    r = sk.temporal_steps(u, got, k, cx=cx, cy=cy)
+    src, rb = _b_launches(u, k, cx, cy)
+    want = torch.empty_like(u)
+    rp = sk.temporal_steps_plain(u, want, k, cx=cx, cy=cy)
+    assert torch.equal(got, src) and torch.equal(r, rb)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("k", [1, 2, 7, 20])
+@pytest.mark.parametrize("shape", [(1001, 999), (70, 300), (20, 20),
+                                   (1800, 1800), (107, 210), (5, 4099)])
+def test_a_bitwise_equal_to_k_b_launches_and_plain(card, shape, k, cx, cy):
+    u = _rand(shape, 3, card)
+    got = torch.empty_like(u)
+    r = sk.resident_steps(u, got, k, cx=cx, cy=cy)
+    src, rb = _b_launches(u, k, cx, cy)
+    want = torch.empty_like(u)
+    rp = sk.resident_steps_plain(u, want, k, cx=cx, cy=cy)
+    assert torch.equal(got, src) and torch.equal(r, rb)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+    nores = torch.empty_like(u)
+    assert sk.resident_steps(u, nores, k, False, cx=cx, cy=cy) is None
+    assert torch.equal(got, nores)
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("shape", [(1001, 1000), (70, 300), (300, 4096),
+                                   (3, 8), (517, 1028)])
+def test_i_bitwise_equal_to_e_and_plain(card, shape, k, cx, cy, uniform):
+    u = _rand(shape, 6, card)
+    got, e, want = (torch.empty_like(u) for _ in range(3))
+    if uniform:
+        launch, plain = sk.tile_temporal_steps_uni, \
+            sk.tile_temporal_steps_uni_plain
+    else:
+        launch, plain = sk.tile_temporal_steps, sk.tile_temporal_steps_plain
+    r = launch(u, got, k, cx=cx, cy=cy)
+    re_ = sk.temporal_steps(u, e, k, cx=cx, cy=cy)
+    rp = plain(u, want, k, cx=cx, cy=cy)
+    src, rb = _b_launches(u, k, cx, cy)
+    assert torch.equal(got, src) and torch.equal(r, rb)
+    assert torch.equal(got, e) and torch.equal(r, re_)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+
+
+def test_nan_reaches_every_residual(card):
+    u = _rand((300, 500), 2, card)
+    u[100, 200] = float("nan")
+    for launch in (lambda o: sk.strip_step(u, o, cx=CX, cy=CY),
+                   lambda o: sk.tiled_step(u, o, cx=CX, cy=CY),
+                   lambda o: sk.temporal_steps(u, o, 4, cx=CX, cy=CY),
+                   lambda o: sk.temporal_steps_uni(u, o, 4, cx=CX, cy=CY),
+                   lambda o: sk.tile_temporal_steps(u, o, 4, cx=CX, cy=CY),
+                   lambda o: sk.tile_temporal_steps_uni(u, o, 4, cx=CX,
+                                                        cy=CY),
+                   lambda o: sk.resident_steps(u, o, 4, cx=CX, cy=CY)):
+        out = torch.empty_like(u)
+        assert math.isnan(float(launch(out)))
+        assert torch.equal(out[0], u[0]) and torch.equal(out[:, -1], u[:, -1])
+
+
+_COUNTER = {"A": "heat_a_resident", "E": "heat_e_temporal",
+            "E-uni": "heat_e_uni_temporal", "I": "heat_i_tile_temporal",
+            "I-uni": "heat_i_uni_tile_temporal", "B": "heat_b_step",
+            "C": "heat_c_tiled"}
+
+
+@pytest.mark.parametrize("cfg", [
+    # Runs all 57 steps (eps below any residual), tail included.
+    HeatConfig(nx=300, ny=200, steps=57, converge=True, eps=1e-9),
+    # Converges at step 1980, leaving the loop through res < eps.
+    HeatConfig(nx=20, ny=20, steps=10000, converge=True, eps=1e-3),
+    HeatConfig(nx=64, ny=48, cx=0.1, cy=0.2, steps=100),
+], ids=["tail", "converges", "unequal"])
+def test_solve_on_the_card_matches_the_cpu_bitwise(card, cfg):
+    cpu = solve(cfg.replace(backend="cuda"), device="cpu")
+    if cfg.converge and cfg.eps == 1e-3:
+        assert cpu.converged and cpu.steps_run == 1980
+    for choice in _COUNTER:
+        sk.reset_counts()
+        with tune.force("single_2d", choice):
+            res = solve(cfg)
+        assert res.grid.device.type == "cuda"
+        assert all(n == 0 for name, n in sk.counts.items()
+                   if name.endswith("_plain"))
+        assert sk.counts[_COUNTER[choice]] > 0
+        assert (res.steps_run, res.converged) == (cpu.steps_run,
+                                                 cpu.converged)
+        assert res.residual == cpu.residual
+        assert np.array_equal(res.to_numpy(), cpu.to_numpy())

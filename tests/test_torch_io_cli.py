@@ -1,0 +1,218 @@
+"""The PyTorch port's I/O, CLI, config and state carry-over against the
+JAX package.
+
+Tolerances: ``.dat`` files are compared byte for byte (the two writers
+format the same float32 values); grids that went through the port's
+kernel plain versions are held to ``rtol=1e-4, atol=1e-3``, the JAX
+package's own pallas-vs-jnp solve contract (``tests/test_pallas.py``),
+and grids of the textbook ``torch`` backend to ``rtol=1e-5, atol=1e-3``
+(``tests/test_solver.py``'s oracle contract). A grid read back from a
+``.dat`` file is off by at most the ``%6.1f`` rounding, 0.05, plus one
+float32 ulp of the value for parsing the decimal back.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import parallel_heat_tpu as jx
+from parallel_heat_tpu.utils import io as jio
+from parallel_heat_tpu_torch import HeatConfig, convert, solve
+from parallel_heat_tpu_torch import cli
+from parallel_heat_tpu_torch import config as tconfig
+from parallel_heat_tpu_torch.utils import io as tio
+
+KERNEL_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+def _assert_dat_close(back, u, rounds=1):
+    u = np.asarray(u, dtype=np.float32)
+    tol = rounds * (0.05 + np.spacing(np.abs(u)))
+    assert np.all(np.abs(back.astype(np.float64) - u) <= tol)
+
+
+def _rand(shape, seed, scale=1000.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,seed", [((7, 5), 0), ((33, 48), 1),
+                                        ((1, 9), 2)])
+def test_dat_bytes_identical_to_jax(tmp_path, shape, seed):
+    u = _rand(shape, seed)
+    u[0, 0] = -0.05  # a value on the rounding boundary of "%6.1f"
+    ours, theirs = tmp_path / "ours.dat", tmp_path / "theirs.dat"
+    tio.write_dat(ours, torch.from_numpy(u))
+    jio.write_dat(theirs, u, use_native=False)
+    assert ours.read_bytes() == theirs.read_bytes()
+    back = tio.read_dat(ours)
+    assert back.shape == shape and back.dtype == np.float32
+    np.testing.assert_array_equal(back, jio.read_dat(theirs, use_native=False))
+    _assert_dat_close(back, u)
+
+
+def test_dat_of_a_solve_round_trips(tmp_path):
+    res = solve(HeatConfig(nx=40, ny=30, steps=50, backend="cuda"),
+                device="cpu")
+    path = tmp_path / "final.dat"
+    tio.write_dat(path, res.grid)
+    back = tio.read_dat(path)
+    _assert_dat_close(back, res.to_numpy())
+    with pytest.raises(ValueError, match="2D-only"):
+        tio.write_dat(path, np.zeros((2, 2, 2), np.float32))
+
+
+def _cli_lines(capsys, argv):
+    rc = cli.main(argv)
+    out = capsys.readouterr()
+    return rc, out.out.splitlines(), out.err
+
+
+@pytest.mark.parametrize("extra", [[], ["--converge", "--eps", "1e-3",
+                                        "--steps", "10000"]])
+def test_cli_runs_on_the_cpu_like_the_jax_cli(tmp_path, capsys, extra):
+    from parallel_heat_tpu import cli as jcli
+
+    base = ["--nx", "20", "--ny", "20", "--steps", "300"] + extra
+    ours, theirs = tmp_path / "ours.dat", tmp_path / "theirs.dat"
+    rc, lines, err = _cli_lines(capsys, base + ["--device", "cpu",
+                                                "--out", str(ours)])
+    assert rc == 0, err
+    jrc = jcli.main(base + ["--backend", "jnp", "--out", str(theirs)])
+    jlines = capsys.readouterr().out.splitlines()
+    assert jrc == 0
+    assert lines[0] == ("Starting parallel_heat_tpu_torch on 1 device(s), "
+                        "mesh (1, 1).")
+    assert jlines[0].startswith("Starting parallel_heat_tpu on 1 device(s)")
+
+    def drop_times(ls):
+        return [ln for ln in ls[1:] if not ln.startswith("Elapsed time ")]
+
+    # Grid line, converged-at line and the .dat line agree (the paths
+    # differ by name only).
+    assert ([ln.replace("ours", "X") for ln in drop_times(lines)]
+            == [ln.replace("theirs", "X") for ln in drop_times(jlines)])
+    assert any(ln.startswith("Elapsed time ") for ln in lines)
+    _assert_dat_close(tio.read_dat(ours), tio.read_dat(theirs), rounds=2)
+
+
+def test_cli_explain_and_errors(capsys):
+    rc, lines, _ = _cli_lines(capsys, ["--nx", "64", "--ny", "64",
+                                       "--backend", "cuda", "--device",
+                                       "cpu", "--explain"])
+    assert rc == 0
+    assert "backend: cuda" in lines
+    # A 64^2 grid fits resident in shared memory: kernel A.
+    assert any(ln.startswith("path: kernel A") for ln in lines)
+    rc, _, err = _cli_lines(capsys, ["--nx", "2", "--device", "cpu"])
+    assert rc == 2 and "at least 3 cells" in err
+
+
+def test_solve_without_a_card_raises_unless_cpu_is_asked(monkeypatch,
+                                                         capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = HeatConfig(nx=16, ny=16, steps=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(cfg.replace(device="cuda:0"))
+    assert solve(cfg, device="cpu").steps_run == 3
+    rc, lines, err = _cli_lines(capsys, ["--nx", "16", "--ny", "16",
+                                         "--steps", "3"])
+    assert rc == 1 and "no CUDA device" in err
+    assert not any(ln.startswith("Elapsed") for ln in lines)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "auto"])
+def test_from_jax_reproduces_the_jax_final_grid(backend):
+    jcfg = jx.HeatConfig(nx=48, ny=40, steps=120, backend=backend)
+    ref = jx.solve(jcfg)
+    cfg, grid = convert.from_jax(dataclasses.asdict(jcfg), None,
+                                 device="cpu")
+    assert grid is None
+    assert (cfg.nx, cfg.ny, cfg.steps, cfg.cx, cfg.cy) == (48, 40, 120,
+                                                          0.1, 0.1)
+    res = solve(cfg, device="cpu")
+    assert res.steps_run == ref.steps_run
+    np.testing.assert_allclose(res.to_numpy(), np.asarray(ref.grid),
+                               **KERNEL_TOL)
+
+
+def test_from_jax_carries_a_grid_across():
+    # 60 steps in JAX, the next 60 in the port == 120 steps in JAX.
+    kw = dict(nx=36, ny=52, backend="jnp")
+    half = jx.solve(jx.HeatConfig(steps=60, **kw))
+    full = jx.solve(jx.HeatConfig(steps=120, **kw))
+    fields = dataclasses.asdict(jx.HeatConfig(steps=60, **kw))
+    cfg, grid = convert.from_jax(fields, np.asarray(half.grid), device="cpu")
+    assert grid.dtype == torch.float32 and grid.device.type == "cpu"
+    np.testing.assert_array_equal(grid.numpy(), np.asarray(half.grid))
+    res = solve(cfg, initial=grid, device="cpu")
+    np.testing.assert_allclose(res.to_numpy(), np.asarray(full.grid),
+                               rtol=1e-5, atol=1e-3)
+    with pytest.raises(ValueError, match="does not match"):
+        convert.from_jax(fields, np.zeros((3, 3), np.float32), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("mesh_shape", (2, 2)),
+                                         ("scheme", "backward_euler"),
+                                         ("accumulate", "f32"),
+                                         ("nz", 8)])
+def test_from_jax_refuses_jax_only_features(field, value):
+    fields = dataclasses.asdict(jx.HeatConfig(nx=16, ny=16))
+    fields[field] = value
+    with pytest.raises(ValueError, match=f"{field}=.*not implemented"):
+        convert.from_jax(fields, None, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64", "float16"])
+def test_validate_rejects_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
+        HeatConfig(dtype=dtype).validate()
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"nx": 2}, "at least 3"), ({"steps": -1}, "steps"),
+    ({"converge": True, "check_interval": 0}, "check_interval"),
+    ({"converge": True, "eps": 0.0}, "eps"),
+    ({"backend": "pallas"}, "backend"), ({"device": "tpu"}, "device"),
+    ({"device": "cuda:x"}, "device")])
+def test_validate_rejects_bad_fields(kw, match):
+    with pytest.raises(ValueError, match=match):
+        HeatConfig(**kw).validate()
+
+
+def test_validate_warns_past_the_stability_bound():
+    with pytest.warns(RuntimeWarning, match="stability"):
+        HeatConfig(cx=0.3, cy=0.3).validate()
+
+
+def test_from_dict_and_json():
+    cfg = HeatConfig(nx=30, ny=20, steps=7, converge=True, device="cpu")
+    assert HeatConfig.from_json(cfg.to_json()) == cfg
+    with pytest.raises(ValueError, match="unknown HeatConfig fields"):
+        HeatConfig.from_dict({"nx": 8, "colour": "red"})
+    with pytest.raises(ValueError, match="mesh_shape=.*not implemented"):
+        HeatConfig.from_dict({"nx": 8, "mesh_shape": [2, 4]})
+    # JAX-only fields at their JAX defaults mean the same run: accepted.
+    assert HeatConfig.from_dict({"nx": 8, "mesh_shape": None,
+                                 "scheme": "explicit"}).nx == 8
+
+
+def test_every_field_is_classified_once():
+    names = [f.name for f in dataclasses.fields(HeatConfig)]
+    sem, obs = tconfig.SEMANTIC_FIELDS, tconfig.OBSERVATION_ONLY_FIELDS
+    assert sorted(sem + obs) == sorted(names)
+    assert not set(sem) & set(obs)
+    # The shared names are the JAX package's, classified the same way.
+    from parallel_heat_tpu import config as jconfig
+
+    assert set(sem) - {"device"} <= set(jconfig.SEMANTIC_FIELDS)
+    jax_fields = {f.name for f in dataclasses.fields(jx.HeatConfig)}
+    assert set(names) - {"device"} <= jax_fields
+    assert set(tconfig.JAX_ONLY_DEFAULTS) == jax_fields - set(names)
+    defaults = {f.name: f.default for f in dataclasses.fields(jx.HeatConfig)}
+    for name, value in tconfig.JAX_ONLY_DEFAULTS.items():
+        assert defaults[name] == value, name

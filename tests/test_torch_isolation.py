@@ -1,0 +1,90 @@
+"""The PyTorch port stands alone: it imports nothing of JAX and nothing
+of the JAX package ``parallel_heat_tpu``, and neither does
+``chip_smoke.py``. Checked twice: statically, by walking every import
+statement, and live, in a subprocess where importing ``jax`` or
+``parallel_heat_tpu`` fails."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "parallel_heat_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "parallel_heat_tpu")
+
+
+def _sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_import(path):
+    bad = [f"{path.relative_to(ROOT)}:{line}: {mod}"
+           for line, mod in _imported_modules(path)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+_BLOCKED_RUN = """
+import sys
+for name in ("jax", "jaxlib", "parallel_heat_tpu"):
+    sys.modules[name] = None  # any import of these now raises
+import parallel_heat_tpu_torch as pt
+import chip_smoke  # noqa: F401
+res = pt.solve(pt.HeatConfig(nx=32, ny=32, steps=40, backend="cuda"),
+               device="cpu")
+assert res.steps_run == 40 and tuple(res.grid.shape) == (32, 32)
+assert not any(m.split(".")[0] in ("jax", "jaxlib")
+               for m, v in sys.modules.items() if v is not None)
+print("ok", float(res.grid.sum()))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    return env
+
+
+def test_package_runs_with_jax_unimportable():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok ")
+
+
+def test_chip_smoke_refuses_to_run_without_a_card_or_the_repo(tmp_path):
+    # Alone in a directory, without the package beside it, and on a
+    # machine without CUDA, the smoke test must fail and print no result.
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,8 +1,8 @@
-"""Time kernels A, B and E on the card over their launch shapes.
+"""Time kernels A, B, E, D and F on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
-        [--a-sizes 256,1000,1800] [--only a,b,e] [--reps 10] [--out FILE]
-        [--sass DIR]
+        [--a-sizes 256,1000,1800] [--size-3d 512] [--only a,b,e,d,f]
+        [--reps 10] [--out FILE] [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -15,8 +15,12 @@ launches on the model's ``size`` x ``size`` plate (far larger than the
 in shared memory, runs over its halo depth D on each of the
 ``--a-sizes`` plates: a 20-step launch with the residual (one converge
 window of the default check interval), checked bitwise against its
-plain version on the same plate first. ``ms_per_step`` is the time per
-launch over the steps it advances. The values in
+plain version on the same plate first. The 3D kernels run on the
+``--size-3d`` cube, after the same check on a ragged 67 x 130 x 201
+grid with cx, cy, cz = 0.1, 0.15, 0.05: D over thread blocks and planes
+per thread, F over thread blocks, rows per thread (its tile is the
+block's extended tile less the K-deep halo) and K. ``ms_per_step`` is
+the time per launch over the steps it advances. The values in
 ``ops/hopper_params.py`` marked "measured" come from this sweep.
 ``--sass DIR`` also writes each kernel library's machine code
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
@@ -36,11 +40,12 @@ import numpy as np
 import torch
 
 from parallel_heat_tpu_torch.kernels import build
-from parallel_heat_tpu_torch.models import HeatPlate2D
+from parallel_heat_tpu_torch.models import HeatPlate2D, HeatPlate3D
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
 from parallel_heat_tpu_torch.ops.hopper_params import params
 
-CX = CY = 0.1
+CX = CY = CZ = 0.1
 B_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (128, 2)]
 B_ROWS = [4, 8, 16]
 E_TILES = [(32, 112), (64, 112), (96, 112), (128, 112), (64, 128),
@@ -49,6 +54,15 @@ E_BLOCKS = [(32, 8), (32, 16), (32, 32)]
 E_KS = [4, 6, 8, 10, 12, 16]
 A_DEPTHS = [1, 2, 4, 8]
 A_STEPS = 20
+D_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (64, 8), (128, 2), (128, 4)]
+D_PLANES = [4, 8, 16, 32, 64]
+# (block, rows per thread), at most 512 threads: extended tiles of
+# 32 x 16, 32 x 24, 32 x 32, 32 x 48, 32 x 64, 64 x 16 and 64 x 32 cells
+# (Z x Y).
+F_SHAPES = [((32, 16), 1), ((32, 8), 2), ((32, 4), 4), ((32, 12), 2),
+            ((32, 6), 4), ((32, 16), 2), ((32, 8), 4), ((32, 12), 4),
+            ((32, 16), 4), ((64, 8), 2), ((64, 4), 4), ((64, 8), 4)]
+COEFFS_3D = (0.1, 0.15, 0.05)
 
 
 def card_line() -> str:
@@ -163,6 +177,52 @@ def sweep(size: int, reps: int):
                                    and k == p.e_k_default)}
 
 
+def sweep_3d(size: int, reps: int, only=("d", "f")):
+    """Yield one dict per launch shape of D and F (those in ``only``) on a
+    ``size``^3 cube."""
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    small = torch.from_numpy((rng.standard_normal((67, 130, 201)) * 10)
+                             .astype(np.float32)).to(dev)
+    kw = dict(zip(("cx", "cy", "cz"), COEFFS_3D))
+    u = HeatPlate3D(size, size, size).init_grid(dev)
+    v = torch.empty_like(u)
+    bits = _bits(dev)
+    want = torch.empty_like(small)
+    rp = sk3.slab_step_3d_plain(small, want, **kw)
+    for block in D_BLOCKS if "d" in only else []:
+        for planes in D_PLANES:
+            out = torch.empty_like(small)
+            sk3._launch_d(small, out, bits, *COEFFS_3D, block, planes)
+            ok = bool(torch.equal(out, want)
+                      and torch.equal(sk._residual_view(bits), rp))
+            ms = time_ms(lambda: sk3._launch_d(u, v, bits, CX, CY, CZ, block,
+                                               planes), reps)
+            yield {"kernel": "heat_d_step3d", "block": list(block),
+                   "planes": planes, "k": 1, "bitwise": ok, "ms": ms,
+                   "ms_per_step": ms,
+                   "default": block == p.d_block and planes == p.d_planes}
+    for block, rows in F_SHAPES if "f" in only else []:
+        for k in range(1, p.f_k_max(block, rows) + 1):
+            want = torch.empty_like(small)
+            rp = sk3.xslab_steps_3d_plain(small, want, k, **kw)
+            out = torch.empty_like(small)
+            _, _, seg = p.f_launch(tuple(small.shape), k, block, rows)
+            sk3._launch_f(small, out, k, bits, *COEFFS_3D, block, rows, seg)
+            ok = bool(torch.equal(out, want)
+                      and torch.equal(sk._residual_view(bits), rp))
+            _, _, seg = p.f_launch(tuple(u.shape), k, block, rows)
+            ms = time_ms(lambda: sk3._launch_f(u, v, k, None, CX, CY, CZ,
+                                               block, rows, seg), reps)
+            yield {"kernel": "heat_f_temporal3d", "block": list(block),
+                   "rows": rows, "k": k, "segment": seg,
+                   "smem_bytes": p.f_smem_bytes(k, block, rows),
+                   "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                   "default": (block == p.f_block and rows == p.f_rows
+                               and k == p.f_k_default)}
+
+
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"BRA (0x[0-9a-f]+)")
 
@@ -198,8 +258,10 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=16384)
     ap.add_argument("--a-sizes", default="256,1000,1800",
                     help="comma-separated plate sizes for kernel A")
-    ap.add_argument("--only", default="a,b,e",
-                    help="comma-separated kernels to sweep (a, b, e)")
+    ap.add_argument("--size-3d", type=int, default=512,
+                    help="cube edge for kernels D and F")
+    ap.add_argument("--only", default="a,b,e,d,f",
+                    help="comma-separated kernels to sweep (a, b, e, d, f)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -225,6 +287,11 @@ def main(argv=None) -> int:
     if "a" in only:
         sizes = [int(x) for x in args.a_sizes.split(",")]
         for row in sweep_a(sizes, args.reps):
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    if only & {"d", "f"}:
+        for row in sweep_3d(args.size_3d, args.reps, only):
+            row["size"] = args.size_3d
             rows.append(row)
             print(json.dumps(row), flush=True)
     bad = [r for r in rows if not r["bitwise"]]

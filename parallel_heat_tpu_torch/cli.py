@@ -2,7 +2,8 @@
 
 The flags and output lines are the JAX CLI's (``parallel_heat_tpu.cli``)
 for the fields this package has: banner, grid line, converged-at or
-did-not-converge, elapsed time, and the ``.dat`` dump.
+did-not-converge, elapsed time, and the grid dump (``.dat`` for a 2D
+grid, ``.npy`` for a 3D one or a path ending in ``.npy``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--nx", type=int, default=20, help="grid rows (NXPROB)")
     ap.add_argument("--ny", type=int, default=20, help="grid cols (NYPROB)")
+    ap.add_argument("--nz", type=int, default=None,
+                    help="grid depth; enables the 3D 7-point stencil")
     ap.add_argument("--steps", type=int, default=10_000,
                     help="step count (exact in fixed mode, cap in converge)")
     ap.add_argument("--converge", action="store_true",
@@ -26,6 +29,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eps", type=float, default=1e-3)
     ap.add_argument("--check-interval", type=int, default=20,
                     help="steps between convergence checks (STEP macro)")
+    ap.add_argument("--cx", type=float, default=0.1)
+    ap.add_argument("--cy", type=float, default=0.1)
+    ap.add_argument("--cz", type=float, default=0.1)
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "cuda", "torch"],
                     help="cuda: the hand-written Hopper kernels; torch: the "
@@ -35,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'cuda' (cuda:0), 'cuda:N' or 'cpu'; without a GPU "
                          "the run fails unless 'cpu' is given")
     ap.add_argument("--out", default=None,
-                    help="write the final grid as a .dat file")
+                    help="write the final grid: a .dat file for a 2D grid, "
+                         ".npy for a 3D grid or a path ending in .npy")
     ap.add_argument("--explain", action="store_true",
                     help="print the resolved path (backend, kernel, tile, "
                          "K) and exit without running")
@@ -47,7 +54,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from parallel_heat_tpu_torch import HeatConfig, solve
 
-    config = HeatConfig(nx=args.nx, ny=args.ny, steps=args.steps,
+    config = HeatConfig(nx=args.nx, ny=args.ny, nz=args.nz, cx=args.cx,
+                        cy=args.cy, cz=args.cz, steps=args.steps,
                         converge=args.converge, eps=args.eps,
                         check_interval=args.check_interval,
                         backend=args.backend, device=args.device)
@@ -64,12 +72,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
 
     print("Starting parallel_heat_tpu_torch on 1 device(s), mesh (1, 1).")
+    grid = "x".join(map(str, config.shape))
     if config.converge:
-        print(f"Grid size: {config.nx}x{config.ny}  "
+        print(f"Grid size: {grid}  "
               f"Time steps: - (converge, eps={config.eps:g})")
     else:
-        print(f"Grid size: {config.nx}x{config.ny}  "
-              f"Time steps: {config.steps}")
+        print(f"Grid size: {grid}  Time steps: {config.steps}")
     try:
         result = solve(config)
     except RuntimeError as e:
@@ -83,11 +91,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"residual {result.residual:g})")
     print(f"Elapsed time {result.elapsed_s:.6f} secs")
     if args.out:
-        from parallel_heat_tpu_torch.utils.io import write_dat
-
-        write_dat(args.out, result.grid)
-        print(f"Final grid written to {args.out}")
+        written = _write_grid(args.out, result.grid)
+        print(f"Final grid written to {written}")
     return 0
+
+
+def _write_grid(path: str, grid) -> str:
+    """Write the grid; returns the path actually written (a 3D grid has
+    no .dat form and is stored as .npy, as the JAX CLI does)."""
+    import numpy as np
+
+    path = str(path)
+    arr = grid.detach().cpu().numpy()
+    if path.endswith(".npy") or arr.ndim != 2:
+        if not path.endswith(".npy"):
+            path += ".npy"
+        np.save(path, arr)
+        return path
+    from parallel_heat_tpu_torch.utils.io import write_dat
+
+    write_dat(path, arr)
+    return path
 
 
 if __name__ == "__main__":

@@ -10,8 +10,10 @@ implements, so one spec runs on either package. What differs:
 - ``device`` is new: where the grid lives and the steps run
   (``"cuda"`` means ``cuda:0``; ``"cpu"`` must be asked for);
 - ``dtype`` accepts only ``"float32"`` in this slice;
+- ``nz`` set makes the run 3D (7-point stencil, coefficients
+  ``cx, cy, cz``), as in the JAX package;
 - the fields of the JAX package that this one does not implement yet
-  (3D, meshes, implicit schemes, observers) are rejected by
+  (meshes, implicit schemes, observers) are rejected by
   :meth:`HeatConfig.from_dict` when they are set away from their
   defaults, instead of being dropped silently.
 """
@@ -22,7 +24,7 @@ import dataclasses
 import json
 import warnings
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 _VALID_DTYPES = ("float32",)
 _VALID_BACKENDS = ("auto", "cuda", "torch")
@@ -35,7 +37,7 @@ _VALID_BACKENDS = ("auto", "cuda", "torch")
 # that never change a bit of the grid (none exist in this slice yet).
 # ``device`` is semantic: it selects the kernel or its plain version.
 SEMANTIC_FIELDS = (
-    "nx", "ny", "cx", "cy",
+    "nx", "ny", "nz", "cx", "cy", "cz",
     "steps", "converge", "eps", "check_interval",
     "dtype", "backend", "device",
 )
@@ -46,8 +48,6 @@ OBSERVATION_ONLY_FIELDS: Tuple[str, ...] = ()
 # values means the same run on both packages; any other value names a
 # feature this package would silently drop, so from_dict refuses it.
 JAX_ONLY_DEFAULTS = {
-    "nz": None,
-    "cz": 0.1,
     "mesh_shape": None,
     "overlap": True,
     "halo_depth": None,
@@ -67,7 +67,7 @@ JAX_ONLY_DEFAULTS = {
 
 @dataclass(frozen=True)
 class HeatConfig:
-    """Full runtime configuration of one 2D simulation.
+    """Full runtime configuration of one 2D or 3D simulation.
 
     Defaults mirror the JAX package (and through it the reference's
     in-source macros: ``NXPROB=NYPROB=20``, ``STEP=20``, ``cx=cy=0.1``).
@@ -76,10 +76,12 @@ class HeatConfig:
     # Grid extent (cells including the fixed Dirichlet boundary).
     nx: int = 20
     ny: int = 20
+    nz: Optional[int] = None  # set for the 3D 7-point stencil
 
-    # Diffusion coefficients.
+    # Diffusion coefficients (cz is read only in 3D).
     cx: float = 0.1
     cy: float = 0.1
+    cz: float = 0.1
 
     # Stepping. `steps` is the exact step count in fixed mode and the
     # upper bound in converge mode.
@@ -98,11 +100,19 @@ class HeatConfig:
     device: str = "cuda"
 
     @property
-    def shape(self) -> Tuple[int, int]:
+    def ndim(self) -> int:
+        return 3 if self.nz is not None else 2
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        if self.ndim == 3:
+            return (self.nx, self.ny, self.nz)
         return (self.nx, self.ny)
 
     @property
-    def coefficients(self) -> Tuple[float, float]:
+    def coefficients(self) -> Tuple[float, ...]:
+        if self.ndim == 3:
+            return (self.cx, self.cy, self.cz)
         return (self.cx, self.cy)
 
     def stability_margin(self) -> float:
@@ -119,7 +129,8 @@ class HeatConfig:
                 f"(values blow up to inf)",
                 RuntimeWarning,
             )
-        if self.nx < 3 or self.ny < 3:
+        if self.nx < 3 or self.ny < 3 or (self.nz is not None
+                                          and self.nz < 3):
             raise ValueError(
                 f"grid must be at least 3 cells per axis, got {self.shape}")
         if self.steps < 0:
@@ -166,7 +177,8 @@ class HeatConfig:
             raise ValueError(
                 f"{', '.join(off)}: not implemented in "
                 f"parallel_heat_tpu_torch yet (see ROADMAP.md queue 1); "
-                f"only the 2D single-device explicit float32 path is")
+                f"only the single-device explicit float32 path (2D or "
+                f"3D) is")
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(d) - known)
         if unknown:

@@ -24,10 +24,11 @@ def from_jax(config_fields: dict, grid: Optional[np.ndarray],
              device: str = "cuda") -> Tuple[HeatConfig, Optional[torch.Tensor]]:
     """``(HeatConfig, grid tensor or None)`` for this package.
 
-    JAX-only fields set away from their defaults (a mesh, 3D, an implicit
-    scheme, observers, ...) are refused, as :meth:`HeatConfig.from_dict`
-    does. The grid, when given, is checked against the config's shape and
-    copied to ``device`` as float32.
+    2D and 3D (``nz`` set) configs carry across. JAX-only fields set away
+    from their defaults (a mesh, an implicit scheme, observers, ...) are
+    refused, as :meth:`HeatConfig.from_dict` does. The grid, when given,
+    is checked against the config's shape and copied to ``device`` as
+    float32.
     """
     fields = dict(config_fields)
     backend = fields.get("backend", "auto")

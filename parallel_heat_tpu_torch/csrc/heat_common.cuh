@@ -1,5 +1,5 @@
-// Shared device code of the heat kernels (heat_b_step.cu,
-// heat_e_temporal.cu).
+// Shared device code of the heat kernels (2D: heat_a ... heat_i; 3D:
+// heat_d_step3d.cu, heat_f_temporal3d.cu).
 //
 // Arithmetic contract: every kernel evaluates the factored 5-point
 // combine of ops/stencil.py::combine_2d,
@@ -8,7 +8,10 @@
 // __fadd_rn intrinsics keep nvcc from contracting a multiply and an add
 // into an FMA, which eager PyTorch never does; so a kernel is bitwise
 // equal to its plain PyTorch version, and K steps of heat_e_temporal are
-// bitwise K launches of heat_b_step.
+// bitwise K launches of heat_b_step. The 3D kernels evaluate the 7-point
+// combine of ops/stencil.py::combine_3d the same way,
+//     (((a0*c) + (cx*(xm+xp))) + (cy*(ym+yp))) + (cz*(zm+zp)),
+// so K steps of heat_f_temporal3d are bitwise K launches of heat_d_step3d.
 //
 // Residual contract: the max over interior cells of |new - old|, taken
 // on the uint32 bit pattern of the non-negative float. For non-negative
@@ -29,6 +32,16 @@ __device__ __forceinline__ float heat_combine(float c, float up, float down,
   return __fadd_rn(__fadd_rn(__fmul_rn(a0, c),
                              __fmul_rn(cx, __fadd_rn(up, down))),
                    __fmul_rn(cy, __fadd_rn(left, right)));
+}
+
+__device__ __forceinline__ float heat_combine3(float c, float xm, float xp,
+                                               float ym, float yp, float zm,
+                                               float zp, float a0, float cx,
+                                               float cy, float cz) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(a0, c), __fmul_rn(cx, __fadd_rn(xm, xp))),
+                __fmul_rn(cy, __fadd_rn(ym, yp))),
+      __fmul_rn(cz, __fadd_rn(zm, zp)));
 }
 
 // Bit pattern of |new - old|, the residual's ordering key.

@@ -58,6 +58,12 @@ KERNELS = {
     "heat_i_uni_tile_temporal": ("heat_i_uni_tile_temporal.cu",
                                  [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                                   _I32, _F32, _F32, _F32, _P]),
+    "heat_d_step3d": ("heat_d_step3d.cu",
+                      [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
+                       _F32, _F32, _F32, _F32, _P]),
+    "heat_f_temporal3d": ("heat_f_temporal3d.cu",
+                          [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
+                           _I32, _I32, _F32, _F32, _F32, _F32, _P]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh")
 

@@ -4,7 +4,8 @@ Each value says where it comes from: ``data sheet`` (NVIDIA's H100 SXM
 data sheet and Hopper tuning notes), ``measured`` (the fastest
 bitwise-correct launch shape of the sweep ``python -m
 parallel_heat_tpu_torch.bench_kernels`` on an H100 80GB HBM3 at its
-700 W limit, 16384^2 float32 plate; PERF.md has the numbers) or
+700 W limit, 16384^2 float32 plate, 512^3 volume for D and F; PERF.md
+has the numbers) or
 ``chosen`` (a budget rule, not swept). No number here comes from the
 TPU tables of the JAX package.
 """
@@ -83,6 +84,74 @@ class HopperParams:
     # Static shared memory of every kernel: the 32-slot residual
     # reduction scratch of csrc/heat_common.cuh.
     static_smem_bytes: int = 128
+
+    # --- kernel D: heat_d_step3d (measured) -------------------------------
+    # Thread block (along Z, along Y): each thread walks d_planes
+    # consecutive X planes of one (y, z) column, x-1, x and x+1 in
+    # registers, and reads its Y and Z neighbours from global memory
+    # through L1, as B does in 2D. No shared memory beyond the residual
+    # scratch, so L1 keeps the SM's whole 256 KB. 32 x 4 threads and 16
+    # planes were the fastest of the sweep at 512^3; every block shape
+    # with 16 to 64 planes came within 7%, 4 planes cost up to 55% more.
+    d_block: tuple = (32, 4)
+    d_planes: int = 16
+
+    # --- kernel F: heat_f_temporal3d (block, rows and K measured;
+    # prefetch, waves and segments chosen) ---------------------------------
+    # A (Y, Z) tile with a K-deep halo on its four sides, streamed down X
+    # with all K levels in flight: f_block = (along Z, along Y) threads,
+    # each thread f_rows consecutive rows of one z, so the extended tile
+    # is f_block[0] wide and f_block[1] * f_rows rows deep. Shared memory
+    # per block: f_prefetch + 2 input planes and two planes for each
+    # level 1 .. K-1, each plane padded by one row above and below
+    # (csrc/heat_f_temporal3d.cu's kFPrefetch must equal f_prefetch). K
+    # is compiled for 1 .. 8, rows for 1, 2 and 4. X is cut into segments
+    # so that the launch holds about f_waves blocks per SM, but not below
+    # f_seg_planes_min planes: a segment recomputes 2K planes. 64 x 8
+    # threads of 4 rows (a 64 x 32 extended tile, 58 x 26 output cells at
+    # K = 3) were the fastest per step of the sweep at 512^3; 32 x 16 of
+    # 4 rows came within 1%, one row per thread (the kernel's first
+    # design) cost 1.2x and more, K = 2 and K = 4 1.2x.
+    f_block: tuple = (64, 8)
+    f_rows: int = 4
+    f_prefetch: int = 6
+    f_k_default: int = 3
+    f_k_compiled: int = 8
+    f_waves: int = 8
+    f_seg_planes_min: int = 64
+
+    def f_extent(self, block=None, rows=None):
+        """Kernel F's extended tile ``(rows along Y, cells along Z)``."""
+        bz, by = block or self.f_block
+        return by * (rows or self.f_rows), bz
+
+    def f_smem_bytes(self, k: int, block=None, rows=None) -> int:
+        """Dynamic shared memory of one F block at depth ``k``."""
+        wy, wz = self.f_extent(block, rows)
+        return (self.f_prefetch + 2 + 2 * (k - 1)) * (wy + 2) * wz * 4
+
+    @functools.lru_cache(maxsize=16)
+    def f_k_max(self, block=None, rows=None) -> int:
+        """Deepest K that the source compiles, that leaves the tile at
+        least one output cell per axis, and whose planes fit one block's
+        shared memory."""
+        wy, wz = self.f_extent(block, rows)
+        k = 0
+        while (k + 1 <= self.f_k_compiled and 2 * (k + 1) < min(wy, wz)
+               and self.f_smem_bytes(k + 1, block, rows)
+               + self.static_smem_bytes <= self.smem_per_block_max):
+            k += 1
+        return k
+
+    def f_launch(self, shape, k, block=None, rows=None):
+        """Kernel F's ``(tile_y, tile_z, segment planes)`` at depth ``k``
+        for an ``(X, Y, Z)`` grid."""
+        x, y, z = shape
+        wy, wz = self.f_extent(block, rows)
+        tile_y, tile_z = wy - 2 * k, wz - 2 * k
+        tiles = -(-y // tile_y) * -(-z // tile_z)
+        segments = -(-self.sm_count * self.f_waves // tiles)
+        return tile_y, tile_z, max(self.f_seg_planes_min, -(-x // segments))
 
     def e_smem_bytes(self, k: int, tile=None) -> int:
         """Dynamic shared memory of one E block at depth ``k``."""

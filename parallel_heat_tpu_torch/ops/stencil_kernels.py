@@ -52,14 +52,17 @@ from parallel_heat_tpu_torch.ops.hopper_params import params
 from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
 
 # Launches of each kernel and calls of each plain version, since the
-# last reset_counts().
+# last reset_counts(); the 3D kernels of stencil_kernels_3d count here
+# too, so one registry covers every kernel of the port.
 counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "heat_e_temporal": 0, "heat_e_uni_temporal": 0,
           "heat_i_tile_temporal": 0, "heat_i_uni_tile_temporal": 0,
+          "heat_d_step3d": 0, "heat_f_temporal3d": 0,
           "resident_steps_plain": 0, "strip_step_plain": 0,
           "tiled_step_plain": 0, "temporal_steps_plain": 0,
           "temporal_steps_uni_plain": 0, "tile_temporal_steps_plain": 0,
-          "tile_temporal_steps_uni_plain": 0}
+          "tile_temporal_steps_uni_plain": 0, "slab_step_3d_plain": 0,
+          "xslab_steps_3d_plain": 0}
 
 
 def reset_counts() -> None:
@@ -67,14 +70,14 @@ def reset_counts() -> None:
         counts[name] = 0
 
 
-def _check(u: torch.Tensor, out: torch.Tensor) -> None:
+def _check(u: torch.Tensor, out: torch.Tensor, ndim: int = 2) -> None:
     if u.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {u.device}")
     if u.dtype != torch.float32 or out.dtype != torch.float32:
         raise TypeError(f"float32 grids only, got {u.dtype} -> {out.dtype}")
-    if u.dim() != 2 or min(u.shape) < 3:
-        raise ValueError(f"need a 2D grid of at least 3x3, got "
-                         f"{tuple(u.shape)}")
+    if u.dim() != ndim or min(u.shape) < 3:
+        raise ValueError(f"need a {ndim}D grid of at least 3 cells per "
+                         f"axis, got {tuple(u.shape)}")
     if out.shape != u.shape:
         raise ValueError(f"out shape {tuple(out.shape)} != grid shape "
                          f"{tuple(u.shape)}")
@@ -130,17 +133,23 @@ def tiled_step_plain(u: torch.Tensor, out: torch.Tensor, *, cx: float,
     return _plain_step(u, out, *coeffs_f32(cx, cy))
 
 
-def _plain_steps(u, out, k, with_residual, cx, cy):
-    """``k`` plain steps of ``u``, the last one landing in ``out``; the
-    last step's residual, or None without ``with_residual``."""
-    coeffs = coeffs_f32(cx, cy)
+def _plain_steps(u, out, k, with_residual, step):
+    """``k`` plain steps ``step(src, dst) -> res`` of ``u``, the last one
+    landing in ``out``; the last step's residual, or None without
+    ``with_residual``."""
     tmp = torch.empty_like(u) if k > 1 else None
     src = u
     for s in range(k):
         dst = out if (k - 1 - s) % 2 == 0 else tmp
-        res = _plain_step(src, dst, *coeffs)
+        res = step(src, dst)
         src = dst
     return res if with_residual else None
+
+
+def _plain_steps_2d(u, out, k, with_residual, cx, cy):
+    coeffs = coeffs_f32(cx, cy)
+    return _plain_steps(u, out, k, with_residual,
+                        lambda src, dst: _plain_step(src, dst, *coeffs))
 
 
 def temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
@@ -150,7 +159,7 @@ def temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
     ``u``, the last one landing in ``out``; the last step's residual, or
     None without ``with_residual``."""
     counts["temporal_steps_plain"] += 1
-    return _plain_steps(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
 
 
 def temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor, k: int,
@@ -159,7 +168,7 @@ def temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor, k: int,
     """Plain version of :func:`temporal_steps_uni`: as
     :func:`temporal_steps_plain`."""
     counts["temporal_steps_uni_plain"] += 1
-    return _plain_steps(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
 
 
 def tile_temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
@@ -168,7 +177,7 @@ def tile_temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
     """Plain version of :func:`tile_temporal_steps`: as
     :func:`temporal_steps_plain`."""
     counts["tile_temporal_steps_plain"] += 1
-    return _plain_steps(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
 
 
 def tile_temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor,
@@ -178,7 +187,7 @@ def tile_temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor,
     """Plain version of :func:`tile_temporal_steps_uni`: as
     :func:`temporal_steps_plain`."""
     counts["tile_temporal_steps_uni_plain"] += 1
-    return _plain_steps(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
 
 
 def resident_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
@@ -187,7 +196,7 @@ def resident_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
     """Plain version of :func:`resident_steps`: as
     :func:`temporal_steps_plain`, for any ``k >= 1``."""
     counts["resident_steps_plain"] += 1
-    return _plain_steps(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
 
 
 # ---------------------------------------------------------------------------

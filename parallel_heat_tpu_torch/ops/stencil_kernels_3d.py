@@ -1,0 +1,203 @@
+"""Kernels D and F: wrappers, plain versions, picker and multistep.
+
+The port of the 3D single-device part of
+``parallel_heat_tpu/ops/pallas_stencil.py``:
+
+- :func:`slab_step_3d` launches ``heat_d_step3d``
+  (csrc/heat_d_step3d.cu), the counterpart of ``heat_d_slab_3d``: one
+  7-point step plus the interior max-norm residual;
+- :func:`xslab_steps_3d` launches ``heat_f_temporal3d``
+  (csrc/heat_f_temporal3d.cu), the counterpart of ``heat_f_xslab_3d``:
+  K steps per pass, residual of the last step optional;
+- :func:`slab_step_3d_plain` and :func:`xslab_steps_3d_plain` compute the
+  same functions in plain PyTorch, with :func:`~.stencil.combine_3d` in
+  the kernels' operation order, so a kernel and its plain version agree
+  bitwise on the card, and F(K) is bitwise K launches of D.
+
+As in :mod:`.stencil_kernels`, a wrapper takes its plain version only
+because the tensor it was given lies on the CPU; a CUDA tensor goes
+through the kernel or the call raises. Launches and plain calls count in
+the same registry, :data:`.stencil_kernels.counts`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from parallel_heat_tpu_torch import tune
+from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+from parallel_heat_tpu_torch.ops.hopper_params import params
+from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32, combine_3d
+
+counts = sk.counts
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _plain_step_3d(u, out, a0, cx, cy, cz) -> torch.Tensor:
+    c = u[1:-1, 1:-1, 1:-1]
+    new = combine_3d(c, u[:-2, 1:-1, 1:-1], u[2:, 1:-1, 1:-1],
+                     u[1:-1, :-2, 1:-1], u[1:-1, 2:, 1:-1],
+                     u[1:-1, 1:-1, :-2], u[1:-1, 1:-1, 2:], a0, cx, cy, cz)
+    out.copy_(u)
+    out[1:-1, 1:-1, 1:-1] = new
+    return (new - c).abs().max()
+
+
+def slab_step_3d_plain(u: torch.Tensor, out: torch.Tensor, *, cx: float,
+                       cy: float, cz: float) -> torch.Tensor:
+    """Plain version of :func:`slab_step_3d`: one step of ``u`` into
+    ``out``; returns the interior max-norm residual (0-d,
+    NaN-propagating)."""
+    counts["slab_step_3d_plain"] += 1
+    return _plain_step_3d(u, out, *coeffs3_f32(cx, cy, cz))
+
+
+def xslab_steps_3d_plain(u: torch.Tensor, out: torch.Tensor, k: int,
+                         with_residual: bool = True, *, cx: float, cy: float,
+                         cz: float) -> Optional[torch.Tensor]:
+    """Plain version of :func:`xslab_steps_3d`: ``k`` plain steps of
+    ``u``, the last one landing in ``out``; the last step's residual, or
+    None without ``with_residual``."""
+    counts["xslab_steps_3d_plain"] += 1
+    coeffs = coeffs3_f32(cx, cy, cz)
+    return sk._plain_steps(u, out, k, with_residual,
+                           lambda src, dst: _plain_step_3d(src, dst, *coeffs))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _launch_d(u, out, bits, cx, cy, cz, block, planes) -> None:
+    """One launch of ``heat_d_step3d`` with thread block ``block`` =
+    (along Z, along Y), each thread walking ``planes`` X planes; raises
+    if the launch is refused. Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load("heat_d_step3d")
+    code = lib.heat_d_step3d(
+        u.data_ptr(), out.data_ptr(), bits.data_ptr(), *u.shape, block[0],
+        block[1], planes, *coeffs3_f32(cx, cy, cz), sk._stream(u))
+    sk._raise_on_error(lib, "heat_d_step3d", code)
+
+
+def _launch_f(u, out, k, bits, cx, cy, cz, block, rows, seg) -> None:
+    """One launch of ``heat_f_temporal3d`` at depth ``k`` with blocks of
+    ``block`` = (along Z, along Y) threads, each ``rows`` rows deep, over
+    segments of ``seg`` X planes (``bits`` None: no residual); raises if
+    the launch is refused. Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load("heat_f_temporal3d")
+    code = lib.heat_f_temporal3d(
+        u.data_ptr(), out.data_ptr(), sk._ptr(bits), *u.shape, k, block[0],
+        block[1], rows, seg, *coeffs3_f32(cx, cy, cz), sk._stream(u))
+    sk._raise_on_error(lib, "heat_f_temporal3d", code)
+
+
+def slab_step_3d(u: torch.Tensor, out: torch.Tensor, *, cx: float,
+                 cy: float, cz: float) -> torch.Tensor:
+    """Kernel D: one 7-point step of ``u`` into ``out`` plus the interior
+    max-norm residual, a 0-d float32 tensor on ``u``'s device."""
+    sk._check(u, out, ndim=3)
+    if u.device.type == "cpu":
+        return slab_step_3d_plain(u, out, cx=cx, cy=cy, cz=cz)
+    p = params()
+    bits = torch.empty(1, dtype=torch.int32, device=u.device)
+    _launch_d(u, out, bits, cx, cy, cz, p.d_block, p.d_planes)
+    counts["heat_d_step3d"] += 1
+    return sk._residual_view(bits)
+
+
+def xslab_steps_3d(u: torch.Tensor, out: torch.Tensor, k: int,
+                   with_residual: bool = True, *, cx: float, cy: float,
+                   cz: float) -> Optional[torch.Tensor]:
+    """Kernel F: ``k`` 7-point steps of ``u`` into ``out`` in one pass
+    through global memory; returns the last step's residual (0-d float32
+    tensor) or None without ``with_residual``. Bitwise ``k`` launches of
+    :func:`slab_step_3d`."""
+    sk._check(u, out, ndim=3)
+    p = params()
+    if not 1 <= k <= p.f_k_max():
+        raise ValueError(f"k must be in [1, {p.f_k_max()}] (kernel F at "
+                         f"block {p.f_block}), got {k}")
+    if u.device.type == "cpu":
+        return xslab_steps_3d_plain(u, out, k, with_residual, cx=cx, cy=cy,
+                                    cz=cz)
+    bits = (torch.empty(1, dtype=torch.int32, device=u.device)
+            if with_residual else None)
+    _, _, seg = p.f_launch(tuple(u.shape), k)
+    _launch_f(u, out, k, bits, cx, cy, cz, p.f_block, p.f_rows, seg)
+    counts["heat_f_temporal3d"] += 1
+    return sk._residual_view(bits) if bits is not None else None
+
+
+# ---------------------------------------------------------------------------
+# The decision site and the multistep
+# ---------------------------------------------------------------------------
+
+def pick_single_3d(shape):
+    """The 3D single-device kernel decision: ``(kind, detail)`` with kind
+    in {"F", "D", "torch"}.
+
+    The one decision site: :func:`single_grid_multistep_3d` executes its
+    result and ``solver.explain`` reports it. The default is F, the JAX
+    package's first choice. Both kernels take every grid of at least 3
+    cells per axis (ValueError otherwise), so a choice pinned with
+    ``tune.force("single_3d", ...)`` is always feasible; that pin is how
+    D runs at all.
+    """
+    if len(shape) != 3 or min(shape) < 3:
+        raise ValueError(f"need a 3D grid of at least 3 cells per axis, "
+                         f"got {tuple(shape)}")
+    p = params()
+    choice = tune.forced("single_3d") or "F"
+    if choice == "torch":
+        return "torch", None
+    if choice == "F":
+        k = p.f_k_default
+        tile_y, tile_z, seg = p.f_launch(tuple(shape), k)
+        return "F", {"k": k, "tile": (tile_y, tile_z), "block": p.f_block,
+                     "rows": p.f_rows, "segment": seg}
+    return "D", {"block": p.d_block, "planes": p.d_planes}
+
+
+_KERNEL_OF = {"D": "heat_d_step3d", "F": "heat_f_temporal3d"}
+
+
+def single_grid_multistep_3d(config):
+    """``(multi_step(u, v, n) -> (u, v), multi_step_residual(u, v, n) ->
+    (u, v, res))`` for one device, 3D: the interface of
+    :func:`.stencil_kernels.single_grid_multistep`.
+
+    The kernel comes from :func:`pick_single_3d`; F is lifted to any
+    number of steps by the same :func:`.stencil_kernels._chunked_multistep`
+    as the 2D K-step kernels, as in the JAX package. The kernel library
+    of a CUDA run is loaded here, before any clock starts.
+    """
+    from parallel_heat_tpu_torch.solver import (steps_to_multistep,
+                                                torch_multistep)
+
+    kind, detail = pick_single_3d(config.shape)
+    cx, cy, cz = float(config.cx), float(config.cy), float(config.cz)
+    if kind == "torch":
+        return torch_multistep(cx, cy, cz)
+    if torch.device(config.device).type == "cuda":
+        from parallel_heat_tpu_torch.kernels.build import load
+
+        load(_KERNEL_OF[kind])
+    if kind == "F":
+        def temporal(u, v, k, want_res):
+            return xslab_steps_3d(u, v, k, want_res, cx=cx, cy=cy, cz=cz)
+
+        return sk._chunked_multistep(temporal, detail["k"])
+
+    def step(u, v):
+        return slab_step_3d(u, v, cx=cx, cy=cy, cz=cz)
+
+    return steps_to_multistep(step, step)

@@ -1,5 +1,5 @@
-"""The solver: the port of ``parallel_heat_tpu/solver.py`` for 2D,
-one device, explicit scheme.
+"""The solver: the port of ``parallel_heat_tpu/solver.py`` for 2D and
+3D, one device, explicit scheme.
 
 The JAX package compiles the whole run into one XLA program. Here the
 run is a Python loop over kernel launches on one CUDA stream:
@@ -32,8 +32,9 @@ import torch
 
 from parallel_heat_tpu_torch import tune
 from parallel_heat_tpu_torch.config import HeatConfig
-from parallel_heat_tpu_torch.models import HeatPlate2D
-from parallel_heat_tpu_torch.ops.stencil import step_2d, step_2d_residual
+from parallel_heat_tpu_torch.models import HeatPlate2D, HeatPlate3D
+from parallel_heat_tpu_torch.ops.stencil import (step_2d, step_2d_residual,
+                                                 step_3d, step_3d_residual)
 from parallel_heat_tpu_torch.utils.timing import Timer
 
 
@@ -52,7 +53,10 @@ class HeatResult:
         return self.grid.detach().cpu().numpy()
 
 
-def model_for(config: HeatConfig) -> HeatPlate2D:
+def model_for(config: HeatConfig):
+    if config.ndim == 3:
+        return HeatPlate3D(config.nx, config.ny, config.nz, config.cx,
+                           config.cy, config.cz)
     return HeatPlate2D(config.nx, config.ny, config.cx, config.cy)
 
 
@@ -101,14 +105,19 @@ def steps_to_multistep(step, step_residual):
     return multi_step, multi_step_residual
 
 
-def torch_multistep(cx: float, cy: float):
-    """The "torch" backend: the textbook stencil of ``ops/stencil.py``."""
+def torch_multistep(cx: float, cy: float, cz: Optional[float] = None):
+    """The "torch" backend: the textbook stencil of ``ops/stencil.py``,
+    3D when ``cz`` is given."""
+    if cz is None:
+        one, one_residual, coeffs = step_2d, step_2d_residual, (cx, cy)
+    else:
+        one, one_residual, coeffs = step_3d, step_3d_residual, (cx, cy, cz)
 
     def step(u, out):
-        out.copy_(step_2d(u, cx, cy))
+        out.copy_(one(u, *coeffs))
 
     def step_residual(u, out):
-        new, res = step_2d_residual(u, cx, cy)
+        new, res = one_residual(u, *coeffs)
         out.copy_(new)
         return res
 
@@ -160,10 +169,14 @@ def _make_loop(multi_step, multi_step_residual, config: HeatConfig):
 def _single_multistep(config: HeatConfig, backend: str):
     """(multi_step, multi_step_residual) on the full grid, one device."""
     if backend == "cuda":
+        if config.ndim == 3:
+            from parallel_heat_tpu_torch.ops import stencil_kernels_3d
+
+            return stencil_kernels_3d.single_grid_multistep_3d(config)
         from parallel_heat_tpu_torch.ops import stencil_kernels
 
         return stencil_kernels.single_grid_multistep(config)
-    return torch_multistep(float(config.cx), float(config.cy))
+    return torch_multistep(*map(float, config.coefficients))
 
 
 def _prepare_initial(config: HeatConfig, initial,
@@ -218,8 +231,10 @@ def explain(config: HeatConfig, device: Optional[str] = None) -> dict:
     if backend == "torch":
         out["path"] = "textbook torch stencil"
         return out
-    kind, detail = sk.pick_single_2d(config.shape)
     plain = " (plain version on the CPU)" if dev.type == "cpu" else ""
+    if config.ndim == 3:
+        return _explain_3d(config, out, plain)
+    kind, detail = sk.pick_single_2d(config.shape)
     if kind == "A":
         ty, tx = detail["tile"]
         blocks = -(-config.shape[0] // ty) * -(-config.shape[1] // tx)
@@ -254,6 +269,31 @@ def explain(config: HeatConfig, device: Optional[str] = None) -> dict:
         out["path"] = "textbook torch stencil"
     forced = tune.forced("single_2d")
     out["decided_by"] = {"single_2d": {
+        "source": "forced" if forced == kind else "default-order",
+        "choice": kind}}
+    return out
+
+
+def _explain_3d(config: HeatConfig, out: dict, plain: str) -> dict:
+    from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+
+    kind, detail = sk3.pick_single_3d(config.shape)
+    if kind == "F":
+        ty, tz = detail["tile"]
+        bz, by = detail["block"]
+        out["path"] = (f"kernel F (heat_f_temporal3d, K-step temporal, "
+                       f"(Y, Z) tiles streamed down X) tile={ty}x{tz} "
+                       f"block={bz}x{by} rows={detail['rows']} "
+                       f"segment={detail['segment']} K={detail['k']}"
+                       + plain)
+    elif kind == "D":
+        bz, by = detail["block"]
+        out["path"] = (f"kernel D (heat_d_step3d, one step) block={bz}x{by} "
+                       f"planes={detail['planes']}" + plain)
+    else:
+        out["path"] = "textbook torch stencil"
+    forced = tune.forced("single_3d")
+    out["decided_by"] = {"single_3d": {
         "source": "forced" if forced == kind else "default-order",
         "choice": kind}}
     return out

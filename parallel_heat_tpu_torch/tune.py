@@ -1,10 +1,18 @@
 """Pin a kernel decision: the port of ``parallel_heat_tpu.tune.force``.
 
 Tests and ``chip_smoke.py`` drive each kernel through the real
-``solve()`` by pinning the ``single_2d`` decision site for the extent of
-a ``with`` block. The pinned choice still goes through the picker's
-feasibility check. The measured tuning DB of the JAX package is not
-ported yet (ROADMAP queue 1 item 11).
+``solve()`` by pinning a decision site for the extent of a ``with``
+block: ``single_2d`` (the 2D picker) or ``single_3d`` (the 3D picker).
+The pinned choice still goes through the picker's feasibility check.
+
+``single_3d`` exists for the same reason as the 2D site. The JAX package
+reaches kernel D only where kernel F declines a geometry; on the card
+F's tiled design declines no grid of 3^3 or more, so the pin is the only
+way to drive D through ``solve()``. It changes no result: F(K) is
+bitwise K launches of D.
+
+The measured tuning DB of the JAX package is not ported yet (ROADMAP
+queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -14,7 +22,8 @@ import contextvars
 from typing import Dict, Optional
 
 SITE_CHOICES = {"single_2d": ("A", "E-uni", "E", "I-uni", "I", "B", "C",
-                               "torch")}
+                               "torch"),
+                "single_3d": ("F", "D", "torch")}
 
 _force_var: contextvars.ContextVar[Optional[Dict[str, str]]] = \
     contextvars.ContextVar("pht_torch_tune_force", default=None)

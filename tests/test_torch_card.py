@@ -10,8 +10,9 @@ on a machine that has only PyTorch, without the repository's conftest
 Tolerance: none. On the card each kernel is bitwise equal to its plain
 PyTorch version (both round every float32 operation in the same order),
 A(K), E(K), E-uni(K), I(K) and I-uni(K) bitwise equal to K launches of
-B, and C bitwise equal to B. Every kernel is also run with cx != cy, so
-a swap of the two axes cannot pass.
+B, C bitwise equal to B, and in 3D F(K) bitwise equal to K launches of
+D. Every kernel is also run with unequal coefficients, so a swap of two
+axes cannot pass.
 """
 
 import math
@@ -23,6 +24,7 @@ import torch
 from parallel_heat_tpu_torch import HeatConfig, solve, tune
 from parallel_heat_tpu_torch.kernels import build
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
 from parallel_heat_tpu_torch.ops.hopper_params import params
 
 pytestmark = pytest.mark.cuda
@@ -190,6 +192,91 @@ def test_solve_on_the_card_matches_the_cpu_bitwise(card, cfg):
         assert all(n == 0 for name, n in sk.counts.items()
                    if name.endswith("_plain"))
         assert sk.counts[_COUNTER[choice]] > 0
+        assert (res.steps_run, res.converged) == (cpu.steps_run,
+                                                 cpu.converged)
+        assert res.residual == cpu.residual
+        assert np.array_equal(res.to_numpy(), cpu.to_numpy())
+
+
+COEFFS_3D = [(0.1, 0.1, 0.1), (0.1, 0.15, 0.05)]
+SHAPES_3D = [(67, 130, 201), (5, 3, 300), (3, 3, 3), (40, 37, 70),
+             (130, 9, 33)]
+
+
+def _kw3(coeffs):
+    return dict(zip(("cx", "cy", "cz"), coeffs))
+
+
+def _d_launches(u, k, kw):
+    src, dst = u.clone(), torch.empty_like(u)
+    for _ in range(k):
+        rd = sk3.slab_step_3d(src, dst, **kw)
+        src, dst = dst, src
+    return src, rd
+
+
+@pytest.mark.parametrize("coeffs", COEFFS_3D)
+@pytest.mark.parametrize("shape", SHAPES_3D)
+def test_d_bitwise_equal_to_plain(card, shape, coeffs):
+    u = _rand(shape, 7, card)
+    got, want = torch.empty_like(u), torch.empty_like(u)
+    r = sk3.slab_step_3d(u, got, **_kw3(coeffs))
+    rp = sk3.slab_step_3d_plain(u, want, **_kw3(coeffs))
+    assert torch.equal(got, want) and torch.equal(r, rp)
+
+
+@pytest.mark.parametrize("coeffs", COEFFS_3D)
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, None])
+@pytest.mark.parametrize("shape", SHAPES_3D)
+def test_f_bitwise_equal_to_k_d_launches_and_plain(card, shape, k, coeffs):
+    k = k or params().f_k_default
+    kw = _kw3(coeffs)
+    u = _rand(shape, 8, card)
+    got, want, nores = (torch.empty_like(u) for _ in range(3))
+    r = sk3.xslab_steps_3d(u, got, k, **kw)
+    src, rd = _d_launches(u, k, kw)
+    rp = sk3.xslab_steps_3d_plain(u, want, k, **kw)
+    assert torch.equal(got, src) and torch.equal(r, rd)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+    assert sk3.xslab_steps_3d(u, nores, k, False, **kw) is None
+    assert torch.equal(got, nores)
+
+
+def test_nan_reaches_the_3d_residuals(card):
+    u = _rand((60, 70, 90), 9, card)
+    u[30, 30, 30] = float("nan")
+    kw = dict(cx=0.1, cy=0.1, cz=0.1)
+    for launch in (lambda o: sk3.slab_step_3d(u, o, **kw),
+                   lambda o: sk3.xslab_steps_3d(u, o, 1, **kw),
+                   lambda o: sk3.xslab_steps_3d(u, o, 4, **kw)):
+        out = torch.empty_like(u)
+        assert math.isnan(float(launch(out)))
+        for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1],
+                   np.s_[:, :, 0], np.s_[:, :, -1]):
+            assert torch.equal(out[sl], u[sl])
+
+
+_COUNTER_3D = {"F": "heat_f_temporal3d", "D": "heat_d_step3d"}
+
+
+@pytest.mark.parametrize("cfg", [
+    # Runs all 57 steps (eps below any residual), tail included.
+    HeatConfig(nx=30, ny=20, nz=40, steps=57, converge=True, eps=1e-9),
+    # Converges at step 360, leaving the loop through res < eps.
+    HeatConfig(nx=10, ny=10, nz=10, steps=5000, converge=True, eps=1e-3),
+    HeatConfig(nx=40, ny=33, nz=71, cx=0.1, cy=0.15, cz=0.05, steps=50),
+], ids=["tail", "converges", "unequal"])
+def test_solve_3d_on_the_card_matches_the_cpu_bitwise(card, cfg):
+    cpu = solve(cfg.replace(backend="cuda"), device="cpu")
+    if cfg.converge and cfg.eps == 1e-3:
+        assert cpu.converged and cpu.steps_run == 360
+    for choice, kernel in _COUNTER_3D.items():
+        sk.reset_counts()
+        with tune.force("single_3d", choice):
+            res = solve(cfg)
+        assert res.grid.device.type == "cuda"
+        assert sk.counts[kernel] > 0
+        assert all(n == 0 for name, n in sk.counts.items() if name != kernel)
         assert (res.steps_run, res.converged) == (cpu.steps_run,
                                                  cpu.converged)
         assert res.residual == cpu.residual

@@ -159,7 +159,7 @@ def test_from_jax_carries_a_grid_across():
 @pytest.mark.parametrize("field,value", [("mesh_shape", (2, 2)),
                                          ("scheme", "backward_euler"),
                                          ("accumulate", "f32"),
-                                         ("nz", 8)])
+                                         ("halo_depth", 4)])
 def test_from_jax_refuses_jax_only_features(field, value):
     fields = dataclasses.asdict(jx.HeatConfig(nx=16, ny=16))
     fields[field] = value

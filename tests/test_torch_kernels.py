@@ -30,6 +30,7 @@ import torch
 from parallel_heat_tpu.ops import pallas_stencil as ps
 from parallel_heat_tpu_torch.kernels import build
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
 from parallel_heat_tpu_torch.ops.hopper_params import params
 
 CX = CY = 0.1
@@ -257,12 +258,16 @@ def test_wrappers_count_their_calls_on_the_cpu():
     sk.temporal_steps_uni(u, torch.empty_like(u), 2, cx=CX, cy=CY)
     sk.tile_temporal_steps(u, torch.empty_like(u), 2, cx=CX, cy=CY)
     sk.tile_temporal_steps_uni(u, torch.empty_like(u), 2, cx=CX, cy=CY)
-    # On the CPU the plain versions run; the kernels never launch.
+    u3 = torch.from_numpy(_rand((6, 5, 7), seed=7))
+    sk3.slab_step_3d(u3, torch.empty_like(u3), cx=CX, cy=CY, cz=0.05)
+    sk3.xslab_steps_3d(u3, torch.empty_like(u3), 2, cx=CX, cy=CY, cz=0.05)
+    # On the CPU the plain versions run; the kernels never launch. One
+    # registry holds all nine kernels and their plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
                if name.endswith("_plain"))
-    assert len(sk.counts) == 14
+    assert len(sk.counts) == 18
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",
@@ -413,6 +418,6 @@ def test_library_path_tracks_source_digest():
     b = build.library_path("heat_e_temporal")
     assert a.parent == build.BUILD_DIR and a != b
     names = {build.library_path(name).name for name in build.KERNELS}
-    assert len(names) == len(build.KERNELS) == 7
+    assert len(names) == len(build.KERNELS) == 9
     assert a.name.startswith("libheat_b_step-") and a.suffix == ".so"
     assert build.library_path("heat_b_step") == a

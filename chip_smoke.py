@@ -80,6 +80,52 @@ prints the card's name and power limit, then one JSON line per phase:
    ``torch.profiler`` (``device_ms``); that is the ``ms`` of the
    ``kernels`` line.
 
+7. kernels_ens — M (``heat_m_ensemble``) against its plain version,
+   bitwise, grids and ``(B,)`` residuals, with and without the residual,
+   on random members: B in {1, 3, 64}, members of 512^2 (the main
+   path's), 107x210 and 24x20 (one block per member) and, for B = 3,
+   1000^2; K in {1, 7, 20}; also cx = 0.1, cy = 0.2; each checked member
+   bitwise ``heat_a_resident`` on that member alone; the main path's one
+   launch, (64, 512, 512) at K = 400 without the residual, likewise; and
+   one member seeded with a NaN (only its residual is NaN, the other
+   members' bits untouched);
+8. kernels_mg — ``heat_mg_restrict`` and ``heat_mg_prolong`` against
+   their plain versions, bitwise, on random float32 arrays: fine 4098^2,
+   1001x999, 514^2, 34x34, 5x4 and 4099x4097, and every pair of
+   neighbouring levels of the main path's hierarchy (512^2 <-> 257^2,
+   257^2 <-> 129^2, ..., 9^2 <-> 5^2: a 512^2 grid has a 510^2 interior);
+   even and odd fine interiors both, a stack of three, ring exactly
+   zero;
+9. ensemble — ``EnsembleSolver`` at full width: 64 members of 512^2 (the
+   size of ``bench.py --row ensemble512``), 400 fixed steps, path M, one
+   launch, every member bitwise the solo ``solve()``; aggregate
+   Mcells*steps/s for B = 1, 8, 64 beside the time of B solo solves one
+   after the other; and converge mode, 8 members whose initial grids are
+   scaled to converge at different windows, of 20^2 (the reference's
+   small case) and of 256^2 under a step cap that is no multiple of the
+   check interval: grid, steps_run, converged and residual of every
+   member identical to its solo run, M's launches as the dispatches
+   predict, at least one compaction;
+10. implicit — ``solve()`` at 512^2, ``scheme="backward_euler"``,
+   cx = cy = 22.5 (the ``implicit512`` row of ``bench.py``), 20 steps,
+   full coarsening, and ``crank_nicolson``: ``backend="cuda"`` (the
+   transfer kernels) against ``backend="torch"`` on the card, bitwise;
+   the Dirichlet ring bit-exact; one step of each scheme held to its
+   linear system in float64, ``max|b - A x| <= 1.05 * mg_tol * max|b|``
+   (1.05: the float32 solve's rounding on top of its own verdict);
+   cycles and host syncs per step, and each transfer kernel's launches
+   as the cycles predict;
+11. timing_ens_mg — ms per launch (CUDA events, and the card's own time
+   from ``torch.profiler``) of M at (64, 512, 512) with K = 400 (the
+   main path's one launch; the ``kernels`` line takes this row) and with
+   K = 20 and the residuals (a converge window), and of restrict and
+   prolong at 4098^2 <-> 2050^2 and at the main path's finest pair,
+   512^2 <-> 257^2 (the ``kernels`` line takes this one), each beside
+   its plain version, its bound and a PyTorch yardstick (``conv2d``,
+   zero-padded, chained K times for M, ``conv2d`` with the
+   full-weighting weights at stride 2 for restrict, ``conv_transpose2d``
+   with the bilinear weights for prolong, TF32 off).
+
 Then a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
 before the last line; without a CUDA device it exits 2 at once.
@@ -111,6 +157,25 @@ PAST_2_31 = (1291, 1299, 1301)   # 2.18e9 cells: int64 offsets needed
 OPS_PER_CELL_STEP = 7       # 3 multiplies + 4 adds of combine_2d
 OPS_PER_CELL_STEP_3D = 10   # 4 multiplies + 6 adds of combine_3d
 OPS_PER_RESIDUAL_CELL = 2   # subtract + max (the abs is a bit clear)
+ENS_B = 64               # bench.py --row ensemble512: 64 members
+ENS_N = 512              # of 512^2,
+ENS_STEPS = 400          # 400 fixed steps
+# Converge mode: (member size, step cap, base grid). Eight members, the
+# base grid times ENS_SCALES, converge at different windows: the
+# residual scales with the grid. 20^2 is the plate, as in the reference's
+# small case; 256^2 is uniform noise in [0, 100), whose residual falls
+# fast enough that six of the eight converge under the cap.
+ENS_CONV = ((20, 10000, "plate"), (256, 1990, "noise"))
+ENS_SCALES = (1.0, 0.5, 0.01, 2.0, 0.001, 1e-4, 3.0, 1e-5)
+IMP_N = 512              # bench.py --row implicit512: 512^2,
+IMP_STEPS = 20           # 20 steps at
+IMP_C = 22.5             # cx = cy = 22.5, 100x the explicit stable step
+# Fine shapes (ring included) the transfer kernels are checked at, beside
+# every level of the main path's hierarchy but its coarsest.
+MG_FINE = ((4098, 4098), (1001, 999), (514, 514), (34, 34), (5, 4),
+           (4099, 4097))
+# Timed: a large level, and the main path's finest (the kernels line).
+MG_TIMED = ((4098, 4098), (IMP_N, IMP_N))
 TPU = "parallel_heat_tpu/ops/pallas_stencil.py"
 # Kernel -> (its tune.force choice, the TPU kernel's builder it replaces),
 # at site single_2d for KERNELS_2D and single_3d for KERNELS_3D.
@@ -127,7 +192,12 @@ KERNELS_3D = {
     "heat_f_temporal3d": ("F", TPU + ":3932"),
     "heat_d_step3d": ("D", TPU + ":3708"),
 }
-KERNELS = {**KERNELS_2D, **KERNELS_3D}
+KERNELS_ENS_MG = {
+    "heat_m_ensemble": ("M", "parallel_heat_tpu/ops/batched.py:97"),
+    "heat_mg_restrict": (None, "parallel_heat_tpu/ops/multigrid.py:225"),
+    "heat_mg_prolong": (None, "parallel_heat_tpu/ops/multigrid.py:256"),
+}
+KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG}
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
 
@@ -332,8 +402,8 @@ def _reference_f64(nx, ny, steps):
 
 def _profiled(fn):
     """Run ``fn()`` once under torch.profiler, recording the card only.
-    Returns the wall seconds and the device milliseconds of each event
-    name (kernels, memsets, copies)."""
+    Returns the wall seconds and, by event name (kernels, memsets,
+    copies), the device milliseconds and the number of records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -345,14 +415,37 @@ def _profiled(fn):
         wall = time.perf_counter() - t0
     per = {}
     for e in prof.key_averages():
-        per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        ms, n = per.get(e.key, (0.0, 0))
+        per[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return wall, per
+
+
+def _device_ms(launch, name, made=20):
+    """``{"device_ms", "profiler_records", "profiled_launches"}``: the
+    mean device milliseconds of one launch of kernel ``name``, from a
+    trace of ``made`` back-to-back calls of ``launch()``, over the
+    records the trace holds. On the measuring machine a trace loses one
+    to three records whatever their number (of five launches it kept
+    two), so a sum over the launches made would read low, and twenty
+    launches keep the loss small. A trace that kept fewer than 70% of
+    them is taken again, twice at most, and then refused: the mean of so
+    few could read anything."""
+    for _ in range(3):
+        _, per = _profiled(lambda: [launch() for _ in range(made)])
+        hits = [v for key, v in per.items()
+                if re.search(rf"(^|\W){name}_kernel\b", key)]
+        records = sum(n for _, n in hits)
+        if made * 0.7 <= records <= made:
+            return {"device_ms": sum(ms for ms, _ in hits) / records,
+                    "profiler_records": records, "profiled_launches": made}
+    raise SmokeFailure(f"the profiler kept {records} records of {made} "
+                       f"launches of {name}, three times over")
 
 
 def _busy(solve_once, label):
     """The card's busy share of one profiled run of ``solve_once``."""
     wall, per = _profiled(solve_once)
-    busy_ms = sum(per.values())
+    busy_ms = sum(ms for ms, _ in per.values())
     check(busy_ms > 0, f"{label}: the profiler saw no device time")
     return {"wall_s": wall, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / 1e3 / wall}
@@ -876,17 +969,11 @@ def phase_timing(dev):
     for name in TEMPORAL:
         runs[name] = (BIG, lambda u, v, f=launchers[name][0]: f(
             u, v, k, False, **kw))
-    reps = 10
     for name, (size, launch) in runs.items():
         u = HeatPlate2D(size, size).init_grid(dev)
         v = torch.empty_like(u)
         launch(u, v)
-        _, per = _profiled(lambda: [launch(u, v) for _ in range(reps)])
-        rows[name]["device_ms"] = sum(
-            t for key, t in per.items()
-            if re.search(rf"(^|\W){name}_kernel\b", key)) / reps
-        check(rows[name]["device_ms"] > 0,
-              f"the profiler saw no {name} launch")
+        rows[name].update(_device_ms(lambda: launch(u, v), name))
         del u, v
     emit({"phase": "timing", "kernels": rows})
     return rows
@@ -942,15 +1029,486 @@ def phase_timing_3d(dev):
             "plain_ms": _time_ms(plain, 3),
             "library_ms": _time_ms(lambda: conv_steps(x, steps), 5, 1),
             **_bound(8 * CUBE ** 3, ops)}
-        _, per = _profiled(lambda: [kernel() for _ in range(10)])
-        rows[name]["device_ms"] = sum(
-            t for key, t in per.items()
-            if re.search(rf"(^|\W){name}_kernel\b", key)) / 10
-        check(rows[name]["device_ms"] > 0,
-              f"the profiler saw no {name} launch")
+        rows[name].update(_device_ms(kernel, name))
     del u, v, x
     torch.cuda.empty_cache()
     emit({"phase": "timing_3d", "kernels": rows})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The ensemble (kernel M) and implicit stepping (restrict, prolong)
+# ---------------------------------------------------------------------------
+
+def _rand_on(dev, shape, seed, scale=10.0):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+
+def _check_m(u, k, kw):
+    """Kernel M at depth ``k`` on the stack ``u`` against its plain
+    version, with and without the residual, and its first, middle and
+    last member against kernel A on that member alone. Returns the max
+    |diff| against the plain version."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import batched
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    ok, pk, nores = (torch.empty_like(u) for _ in range(3))
+    rk = batched.ensemble_steps(u, ok, k, True, **kw)
+    rp = batched.ensemble_steps_plain(u, pk, k, True, **kw)
+    check(batched.ensemble_steps(u, nores, k, False, **kw) is None,
+          "M without the residual returned one")
+    torch.cuda.synchronize()
+    d = float((ok - pk).abs().max())
+    where = f"heat_m_ensemble(K={k}) at {tuple(u.shape)} {kw}"
+    check(torch.equal(ok, pk) and torch.equal(rk, rp),
+          f"{where} != its plain version: max diff {d}, residuals "
+          f"{rk.tolist()} vs {rp.tolist()}")
+    check(torch.equal(ok, nores), f"{where}: grid depends on with_residual")
+    for b in sorted({0, u.shape[0] // 2, u.shape[0] - 1}):
+        one = torch.empty_like(u[b])
+        ra = sk.resident_steps(u[b].contiguous(), one, k, True, **kw)
+        check(torch.equal(one, ok[b]) and same_float(ra, rk[b]),
+              f"{where}: member {b} != heat_a_resident on it alone")
+    return d
+
+
+def phase_kernels_ens(dev):
+    """M against its plain version and against A, member by member;
+    returns the max |diff|."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import batched
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    equal = dict(cx=CX, cy=CY)
+    unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
+    err, report = 0.0, []
+    plan = [(b, (ENS_N, ENS_N)) for b in (1, 3, ENS_B)]
+    plan += [(b, shape) for shape in ((107, 210), (24, 20))
+             for b in (3, ENS_B)]
+    plan.append((3, (CONV, CONV)))
+    for batch, shape in plan:
+        u = _rand_on(dev, (batch,) + shape, seed=batch + shape[0])
+        for kw in (equal, unequal):
+            for k in (1, 7, WINDOW):
+                err = max(err, _check_m(u, k, kw))
+        launch = params().m_plan(batch, shape)
+        report.append({"members": batch, "shape": list(shape),
+                       "k": [1, 7, WINDOW], "coeffs": [equal, unequal],
+                       "tile": list(launch["tile"]),
+                       "tiles": launch["tiles"], "groups": launch["groups"],
+                       "bitwise": True})
+        del u
+        torch.cuda.empty_cache()
+    # The fixed main path's one launch: the full stack at K = 400, no
+    # residual.
+    u = _rand_on(dev, (ENS_B, ENS_N, ENS_N), seed=ENS_STEPS)
+    err = max(err, _check_m(u, ENS_STEPS, equal))
+    report.append({"members": ENS_B, "shape": [ENS_N, ENS_N],
+                   "k": [ENS_STEPS], "coeffs": [equal], "bitwise": True})
+    del u
+    torch.cuda.empty_cache()
+    # One diverging member: only its residual is NaN, and the others'
+    # bits are those of the clean run.
+    u = _rand_on(dev, (5, ENS_N, ENS_N), seed=5)
+    clean, out = torch.empty_like(u), torch.empty_like(u)
+    batched.ensemble_steps(u, clean, 7, **equal)
+    u[2, ENS_N // 5, ENS_N // 5] = float("nan")
+    res = batched.ensemble_steps(u, out, 7, **equal)
+    nan = torch.isnan(res).tolist()
+    check(nan == [False, False, True, False, False],
+          f"a NaN in member 2 gave NaN residuals {nan}")
+    check(all(torch.equal(out[b], clean[b]) for b in (0, 1, 3, 4)),
+          "a NaN in member 2 changed another member's bits")
+    check(torch.equal(out[2, 0], u[2, 0])
+          and torch.equal(out[2, :, -1], u[2, :, -1]),
+          "a diverging member moved its Dirichlet boundary")
+    emit({"phase": "kernels_ens", "ok": True, "checks": report,
+          "nan_residuals": [float(r) for r in res], "max_abs_err": err})
+    return {"heat_m_ensemble": err}
+
+
+def _ring_is_zero(t) -> bool:
+    return not bool(t[..., 0, :].any() or t[..., -1, :].any()
+                    or t[..., :, 0].any() or t[..., :, -1].any())
+
+
+def _coarse_of(fine):
+    return ((fine[0] - 2) // 2 + 2, (fine[1] - 2) // 2 + 2)
+
+
+def phase_kernels_mg(dev):
+    """Restrict and prolong against their plain versions; returns the max
+    |diff| each."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import multigrid as mg
+
+    from parallel_heat_tpu_torch.config import multigrid_level_shapes
+
+    err = {"heat_mg_restrict": 0.0, "heat_mg_prolong": 0.0}
+    report = []
+    path = multigrid_level_shapes((IMP_N, IMP_N))
+    pairs = [(fine, _coarse_of(fine)) for fine in MG_FINE]
+    on_path = list(zip(path[:-1], path[1:]))
+    pairs += on_path
+    for fine, coarse in pairs:
+        fine, coarse = tuple(fine), tuple(coarse)
+        for lead in ((), (3,)):
+            if lead and fine[0] * fine[1] > 2_000_000:
+                continue
+            r = _rand_on(dev, lead + fine, seed=fine[0])
+            got = mg.restrict(r, coarse)
+            want = mg.restrict_full_weighting(r, coarse)
+            c = _rand_on(dev, lead + coarse, seed=fine[1])
+            c[..., 0, :] = c[..., -1, :] = 0
+            c[..., :, 0] = c[..., :, -1] = 0
+            back = mg.prolong(c, fine)
+            back_want = mg.prolong_bilinear(c, (fine[0] - 2, fine[1] - 2))
+            torch.cuda.synchronize()
+            err["heat_mg_restrict"] = max(err["heat_mg_restrict"],
+                                          float((got - want).abs().max()))
+            err["heat_mg_prolong"] = max(
+                err["heat_mg_prolong"], float((back - back_want).abs().max()))
+            where = f"at {lead + fine} <-> {lead + coarse}"
+            check(torch.equal(got, want),
+                  f"heat_mg_restrict != its plain version {where}")
+            check(torch.equal(back, back_want),
+                  f"heat_mg_prolong != its plain version {where}")
+            check(_ring_is_zero(got) and _ring_is_zero(back),
+                  f"a transfer kernel left a non-zero ring {where}")
+            report.append({"fine": list(lead + fine),
+                           "coarse": list(lead + coarse),
+                           "on_main_path": (fine, coarse) in on_path,
+                           "fine_interior_odd": [(fine[0] - 2) % 2 == 1,
+                                                 (fine[1] - 2) % 2 == 1],
+                           "bitwise": True, "ring_zero": True})
+            del r, c, got, want, back, back_want
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_mg", "ok": True, "checks": report,
+          "max_abs_err": err})
+    return err
+
+
+def _only(counts, allowed, label):
+    for name, n in counts.items():
+        check(name in allowed or n == 0,
+              f"{label}: {name} ran {n} times off the path")
+
+
+def _member_inits(dev, n, scales, base="plate"):
+    import torch
+
+    from parallel_heat_tpu_torch.models import HeatPlate2D
+
+    if base == "plate":
+        grid = HeatPlate2D(n, n).init_grid(dev)
+    else:
+        rng = np.random.default_rng(7)
+        grid = torch.from_numpy(
+            (rng.random((n, n)) * 100).astype(np.float32)).to(dev)
+    return torch.stack([grid * s for s in scales])
+
+
+def _solo_all(cfg, inits):
+    """solve() of every member, one after the other: the results and the
+    sum of their elapsed times."""
+    from parallel_heat_tpu_torch import solve
+
+    runs = [solve(cfg, initial=inits[i]) for i in range(inits.shape[0])]
+    return runs, sum(r.elapsed_s for r in runs)
+
+
+def phase_ensemble(dev):
+    """EnsembleSolver at full width, fixed and converge; returns M's
+    launches in the 64 x 512^2 fixed run."""
+    import torch
+
+    from parallel_heat_tpu_torch import (EnsembleConfig, EnsembleSolver,
+                                         HeatConfig)
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    cfg = HeatConfig(nx=ENS_N, ny=ENS_N, steps=ENS_STEPS)
+    inits = _member_inits(dev, ENS_N,
+                          [1.0 + i / ENS_B for i in range(ENS_B)])
+    solo, _ = _solo_all(cfg, inits)
+    fixed = {}
+    for batch in (1, 8, ENS_B):
+        es = EnsembleSolver(cfg, batch)
+        check(es.path == "M", f"ensemble path {es.path!r}, not 'M'")
+        # The first run of a stack size pays for its buffers' cudaMalloc:
+        # the second is the one counted and timed.
+        es.solve(initials=inits[:batch])
+        sk.reset_counts()
+        res = es.solve(initials=inits[:batch])
+        counts = dict(sk.counts)
+        check(counts["heat_m_ensemble"] == 1,
+              f"{batch} x {ENS_N}^2 fixed: {counts['heat_m_ensemble']} "
+              f"launches of M, 1 expected")
+        _only(counts, {"heat_m_ensemble"}, f"ensemble fixed B={batch}")
+        check(tuple(res.grids.shape) == (batch, ENS_N, ENS_N)
+              and bool(torch.isfinite(res.grids).all()),
+              "ensemble grids: wrong shape or non-finite")
+        check(res.steps_run.tolist() == [ENS_STEPS] * batch,
+              f"steps_run {res.steps_run.tolist()}")
+        for i in range(batch):
+            check(torch.equal(res.grids[i], solo[i].grid),
+                  f"member {i} of {batch} != its solo solve()")
+        solo_s = sum(r.elapsed_s for r in solo[:batch])
+        cells = batch * ENS_N * ENS_N * ENS_STEPS / 1e6
+        fixed[batch] = {"elapsed_s": res.elapsed_s,
+                        "mcells_steps_per_s": cells / res.elapsed_s,
+                        "solo_solves_s": solo_s,
+                        "solo_mcells_steps_per_s": cells / solo_s,
+                        "launches": counts["heat_m_ensemble"]}
+        if batch == ENS_B:
+            launches = counts["heat_m_ensemble"]
+        del res
+    del inits, solo
+    torch.cuda.empty_cache()
+    # Converge mode: per-member verdicts, freeze and compaction.
+    ens = EnsembleConfig(members=len(ENS_SCALES))
+    conv = {}
+    for n, cap, base in ENS_CONV:
+        ccfg = HeatConfig(nx=n, ny=n, steps=cap, converge=True,
+                          check_interval=WINDOW, eps=1e-3)
+        inits = _member_inits(dev, n, ENS_SCALES, base)
+        solo, solo_s = _solo_all(ccfg, inits)
+        es = EnsembleSolver(ccfg, ens)
+        check(es.path == "M", f"ensemble path {es.path!r}, not 'M'")
+        # The first run loads PyTorch's own small kernels (where, all,
+        # cat, ...), some milliseconds each: the second is the one
+        # counted and timed. Each dispatch launches M once per window it
+        # holds.
+        es.solve(initials=inits)
+        steps_seen = [0]
+        sk.reset_counts()
+        res = es.solve(initials=inits,
+                       on_boundary=lambda b: steps_seen.append(b.step))
+        counts = dict(sk.counts)
+        full = cap // WINDOW * WINDOW
+        expect = sum(min(ens.window_rounds, (full - k) // WINDOW)
+                     for k in steps_seen[:-1])
+        tail = bool(cap % WINDOW) and not bool(res.converged.all())
+        check(counts["heat_m_ensemble"] == expect + tail,
+              f"{n}^2 converge: {counts['heat_m_ensemble']} launches of M, "
+              f"{expect + tail} predicted from the dispatches")
+        _only(counts, {"heat_m_ensemble"}, f"ensemble converge {n}^2")
+        for i, s in enumerate(solo):
+            check(torch.equal(res.grids[i], s.grid)
+                  and int(res.steps_run[i]) == s.steps_run
+                  and bool(res.converged[i]) == s.converged
+                  and same_float(res.residual[i], s.residual),
+                  f"{n}^2 converge member {i}: {int(res.steps_run[i])} "
+                  f"steps, converged {bool(res.converged[i])}, residual "
+                  f"{float(res.residual[i])}; solo: {s.steps_run}, "
+                  f"{s.converged}, {s.residual}")
+        check(len(res.compactions) >= 1, f"{n}^2 converge never compacted")
+        check(len(set(res.steps_run.tolist())) > 2,
+              f"{n}^2 members all stopped together")
+        conv[f"{n}^2"] = {
+            "steps_run": res.steps_run.tolist(),
+            "converged": res.converged.tolist(),
+            "residual": res.residual.tolist(),
+            "compactions": [list(c) for c in res.compactions],
+            "dispatches": len(steps_seen) - 1,
+            "launches": counts["heat_m_ensemble"],
+            "elapsed_s": res.elapsed_s, "solo_solves_s": solo_s}
+    emit({"phase": "ensemble", "ok": True, "path": "M",
+          "members": ENS_B, "shape": [ENS_N, ENS_N], "steps": ENS_STEPS,
+          "fixed": fixed, "converge": conv,
+          "members_bitwise_solo": True})
+    return {"heat_m_ensemble": launches}
+
+
+def _linear_system_gap(scheme, u0, new, c):
+    """``max|b - A x| / max|b|`` of one implicit step from ``u0`` to
+    ``new`` in float64: ``A = I - theta L``; backward Euler has b = u0,
+    x = u'; Crank-Nicolson b = 2 u0, x = u' + u0."""
+    u0, new = u0.double(), new.double()
+    theta, b, x = ((1.0, u0, new) if scheme == "backward_euler"
+                   else (0.5, 2.0 * u0, new + u0))
+    ci = x[1:-1, 1:-1]
+    lap = (c * (x[2:, 1:-1] + x[:-2, 1:-1] - 2 * ci)
+           + c * (x[1:-1, 2:] + x[1:-1, :-2] - 2 * ci))
+    gap = (b[1:-1, 1:-1] - (ci - theta * lap)).abs().max()
+    return float(gap / b[1:-1, 1:-1].abs().max())
+
+
+def phase_implicit(dev):
+    """Implicit solve() at 512^2; returns each transfer kernel's launches
+    in the backward-Euler run."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, solve
+    from parallel_heat_tpu_torch.config import multigrid_level_shapes
+    from parallel_heat_tpu_torch.ops import multigrid as mg
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    levels = len(multigrid_level_shapes((IMP_N, IMP_N)))
+    # Positive random values, the ring included: a moved Dirichlet cell
+    # would show.
+    u0 = _rand_on(dev, (IMP_N, IMP_N), seed=11).abs() + 1.0
+    transfers = {"heat_mg_restrict", "heat_mg_prolong"}
+    out, launches = {}, None
+    for scheme in ("backward_euler", "crank_nicolson"):
+        cfg = HeatConfig(nx=IMP_N, ny=IMP_N, cx=IMP_C, cy=IMP_C,
+                         steps=IMP_STEPS, scheme=scheme)
+        sk.reset_counts()
+        mg.reset_stats()
+        res = solve(cfg.replace(backend="cuda"), initial=u0)
+        counts, stats = dict(sk.counts), dict(mg.stats)
+        label = f"implicit {scheme}"
+        check(stats["steps"] == IMP_STEPS == res.steps_run,
+              f"{label}: {stats['steps']} steps counted")
+        per_cycle = levels - 1
+        for name in transfers:
+            check(counts[name] == stats["cycles"] * per_cycle > 0,
+                  f"{label}: {counts[name]} launches of {name}, "
+                  f"{stats['cycles']} cycles x {per_cycle} predicted")
+        _only(counts, transfers, label)
+        check(tuple(res.grid.shape) == (IMP_N, IMP_N)
+              and bool(torch.isfinite(res.grid).all()),
+              f"{label}: wrong shape or non-finite grid")
+        for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+            check(torch.equal(res.grid[sl], u0[sl]),
+                  f"{label} moved the Dirichlet ring")
+        sk.reset_counts()
+        plain = solve(cfg.replace(backend="torch"), initial=u0)
+        check(sk.counts["heat_mg_restrict"] == 0
+              and sk.counts["restrict_full_weighting"] > 0,
+              f"{label}: backend torch did not take the plain transfers")
+        check(torch.equal(res.grid, plain.grid),
+              f"{label}: backend cuda != backend torch on the card")
+        one = solve(cfg.replace(backend="cuda", steps=1), initial=u0)
+        gap = _linear_system_gap(scheme, u0, one.grid, IMP_C)
+        check(gap <= 1.05 * cfg.mg_tol,
+              f"{label}: one step leaves max|b - A x| = {gap} max|b|, "
+              f"over 1.05 * mg_tol = {1.05 * cfg.mg_tol}")
+        out[scheme] = {
+            "elapsed_s": res.elapsed_s, "torch_backend_elapsed_s":
+            plain.elapsed_s, "cycles_per_step": stats["cycles"] / IMP_STEPS,
+            "host_syncs_per_step": stats["host_syncs"] / IMP_STEPS,
+            "launches": {name: counts[name] for name in sorted(transfers)},
+            "linear_system_gap_f64": gap, "bitwise_cuda_vs_torch": True,
+            "ring_bit_exact": True}
+        if launches is None:
+            launches = {name: counts[name] for name in transfers}
+            busy = _busy(lambda: solve(cfg.replace(backend="cuda"),
+                                       initial=u0),
+                         "implicit profiled")
+    emit({"phase": "implicit", "ok": True, "shape": [IMP_N, IMP_N],
+          "steps": IMP_STEPS, "cx": IMP_C, "cy": IMP_C, "levels": levels,
+          "mg_tol": cfg.mg_tol, **out, "profiled_backward_euler": busy})
+    return launches
+
+
+def phase_timing_ens_mg(dev):
+    """ms per launch of M, restrict and prolong, their plain versions and
+    their conv yardsticks, each beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallel_heat_tpu_torch.ops import batched
+    from parallel_heat_tpu_torch.ops import multigrid as mg
+    from parallel_heat_tpu_torch.ops.stencil import coeffs_f32
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(cx=CX, cy=CY)
+    a0, cx, cy = coeffs_f32(CX, CY)
+    w5 = torch.tensor([[0.0, cx, 0.0], [cy, a0, cy], [0.0, cx, 0.0]],
+                      dtype=torch.float32, device=dev).view(1, 1, 3, 3)
+    rows = {}
+    # M at the ensemble main path's stack: the fixed run's one launch
+    # (K = 400, no residual: the row of the kernels line) and one 20-step
+    # window with the residuals (a converge window).
+    u = _member_inits(dev, ENS_N, [1.0 + i / ENS_B for i in range(ENS_B)])
+    v = torch.empty_like(u)
+    x = u.view(ENS_B, 1, ENS_N, ENS_N)
+
+    def conv_steps(n):
+        # Zero-padded, so that 400 steps keep the shape: a yardstick for
+        # the arithmetic, not the Dirichlet update.
+        y = x
+        for _ in range(n):
+            y = F.conv2d(y, w5, padding=1)
+        return y
+
+    interior = ENS_B * (ENS_N - 2) * (ENS_N - 2)
+    m_rows = {}
+    for k, residual, reps in ((ENS_STEPS, False, 5), (WINDOW, True, 20)):
+        def launch_m():
+            return batched.ensemble_steps(u, v, k, residual, **kw)
+
+        m_rows[k] = {
+            "shape": [ENS_B, ENS_N, ENS_N], "k": k, "residual": residual,
+            "ms": _time_ms(launch_m, reps, 2),
+            "plain_ms": _time_ms(lambda: batched.ensemble_steps_plain(
+                u, v, k, residual, **kw), 2),
+            "library_ms": _time_ms(lambda: conv_steps(k), 3, 1),
+            **_bound(8 * ENS_B * ENS_N * ENS_N,
+                     (OPS_PER_CELL_STEP * k
+                      + OPS_PER_RESIDUAL_CELL * residual) * interior)}
+        m_rows[k].update(_device_ms(launch_m, "heat_m_ensemble"))
+    rows["heat_m_ensemble"] = m_rows[ENS_STEPS]
+    del u, v, x
+    torch.cuda.empty_cache()
+    # Restrict and prolong. Restrict: 2 multiplies and 2 adds for each of
+    # 4 [1 2 1]/4 passes a coarse cell; prolong: 0, 2, 2 or 6 operations
+    # a fine cell by the parity of its row and column, 2.5 on average.
+    w_fw = torch.tensor([[1.0, 2.0, 1.0], [2.0, 4.0, 2.0], [1.0, 2.0, 1.0]],
+                        dtype=torch.float32, device=dev).view(1, 1, 3, 3)
+    w_bl = w_fw / 4.0
+    w_fw = w_fw / 16.0
+    by_size = {}
+    for fine in MG_TIMED:
+        coarse = _coarse_of(fine)
+        r = _rand_on(dev, fine, seed=1)
+        c = _rand_on(dev, coarse, seed=2)
+        c[0] = c[-1] = 0
+        c[:, 0] = c[:, -1] = 0
+        nbytes = 4 * (fine[0] * fine[1] + coarse[0] * coarse[1])
+        cells_c = (coarse[0] - 2) * (coarse[1] - 2)
+        cells_f = (fine[0] - 2) * (fine[1] - 2)
+        rx = r[1:, 1:].contiguous().view(1, 1, fine[0] - 1, fine[1] - 1)
+        cx_ = c[1:-1, 1:-1].contiguous().view(1, 1, coarse[0] - 2,
+                                              coarse[1] - 2)
+        timed = {
+            "heat_mg_restrict": (
+                lambda: mg.restrict(r, coarse),
+                lambda: mg.restrict_full_weighting(r, coarse),
+                lambda: F.conv2d(rx, w_fw, stride=2), 16 * cells_c),
+            "heat_mg_prolong": (
+                lambda: mg.prolong(c, fine),
+                lambda: mg.prolong_bilinear(c, (fine[0] - 2, fine[1] - 2)),
+                lambda: F.conv_transpose2d(cx_, w_bl, stride=2),
+                2.5 * cells_f),
+        }
+        size = {}
+        for name, (kernel, plain, library, ops) in timed.items():
+            size[name] = {
+                "fine": list(fine), "coarse": list(coarse),
+                "ms": _time_ms(kernel, 50, 5),
+                "plain_ms": _time_ms(plain, 5, 1),
+                "library_ms": _time_ms(library, 10, 2),
+                **_bound(nbytes, ops)}
+            size[name].update(_device_ms(kernel, name))
+        by_size["x".join(map(str, fine))] = size
+        del r, c, rx, cx_
+    torch.cuda.empty_cache()
+    # The kernels line takes the main path's shape, the last of MG_TIMED.
+    rows.update(size)
+    emit({"phase": "timing_ens_mg", "kernels": {
+        **{f"heat_m_ensemble@k{k}": row for k, row in m_rows.items()}, **{
+            f"{name}@{key}": row for key, size in by_size.items()
+            for name, row in size.items()}}})
     return rows
 
 
@@ -976,8 +1534,13 @@ def main() -> int:
         launches.update(phase_main_path_3d())
         phase_converge_3d()
         phase_cli()
+        err.update(phase_kernels_ens(dev))
+        err.update(phase_kernels_mg(dev))
+        launches.update(phase_ensemble(dev))
+        launches.update(phase_implicit(dev))
         t = phase_timing(dev)
         t.update(phase_timing_3d(dev))
+        t.update(phase_timing_ens_mg(dev))
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)

@@ -3,15 +3,22 @@
 The JAX package ``parallel_heat_tpu`` is the reference; this package
 computes the same runs on an NVIDIA H100 (Hopper, sm_90a) with PyTorch
 and hand-written CUDA kernels, and never imports JAX or the JAX package.
-It carries ``solve(HeatConfig)`` on one device, explicit scheme,
-float32, fixed-step and converge-to-eps: 2D through the seven kernels of
-the 2D picker (``ops/stencil_kernels.py``) and 3D (``nz`` set) through
+It carries ``solve(HeatConfig)`` on one device, float32, fixed-step and
+converge-to-eps: the explicit scheme in 2D through the seven kernels of
+the 2D picker (``ops/stencil_kernels.py``) and in 3D (``nz`` set) through
 kernel F (``heat_f_temporal3d``, K steps per pass) and kernel D
-(``heat_d_step3d``, one step; ``ops/stencil_kernels_3d.py``). Entry
-points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
+(``heat_d_step3d``, one step; ``ops/stencil_kernels_3d.py``); the
+implicit schemes (``scheme="backward_euler" | "crank_nicolson"``, 2D)
+through a multigrid V-cycle per step whose transfer operators are the
+kernels ``heat_mg_restrict`` and ``heat_mg_prolong``
+(``ops/multigrid.py``); and ``EnsembleSolver(config, B)``, B member
+grids of one config advanced together, through kernel M
+(``heat_m_ensemble``, ``ops/batched.py``) where it admits. Entry points
+run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 """
 
-from parallel_heat_tpu_torch.config import HeatConfig
+from parallel_heat_tpu_torch.config import EnsembleConfig, HeatConfig
+from parallel_heat_tpu_torch.ensemble import EnsembleResult, EnsembleSolver
 from parallel_heat_tpu_torch.models import HeatPlate2D, HeatPlate3D
 from parallel_heat_tpu_torch.solver import (
     HeatResult,
@@ -22,6 +29,9 @@ from parallel_heat_tpu_torch.solver import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "EnsembleConfig",
+    "EnsembleResult",
+    "EnsembleSolver",
     "HeatConfig",
     "HeatPlate2D",
     "HeatPlate3D",

@@ -1,8 +1,9 @@
-"""Time kernels A, B, E, D and F on the card over their launch shapes.
+"""Time kernels A, B, E, D, F, M and the multigrid transfer kernels on
+the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
-        [--a-sizes 256,1000,1800] [--size-3d 512] [--only a,b,e,d,f]
-        [--reps 10] [--out FILE] [--sass DIR]
+        [--a-sizes 256,1000,1800] [--size-3d 512]
+        [--only a,b,e,d,f,m,mg] [--reps 10] [--out FILE] [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -20,7 +21,16 @@ plain version on the same plate first. The 3D kernels run on the
 grid with cx, cy, cz = 0.1, 0.15, 0.05: D over thread blocks and planes
 per thread, F over thread blocks, rows per thread (its tile is the
 block's extended tile less the K-deep halo) and K. ``ms_per_step`` is
-the time per launch over the steps it advances. The values in
+the time per launch over the steps it advances. ``--only m`` sweeps
+kernel M on stacks of 64 members of 512^2 and of 128^2 (20 steps with
+the residuals, one converge window): the tilings of a member that
+``hopper_params.m_tilings`` models as cheapest at halo depths 2, 4 and
+8, a spread of group sizes, and, where a member fits one block, the
+one-block-per-member launch over thread blocks. ``--only mg`` sweeps the
+thread block of ``heat_mg_restrict`` and ``heat_mg_prolong`` at 4098^2
+<-> 2050^2 and 512^2 <-> 257^2 (the finest pair of a 512^2 implicit
+run). Both check every launch shape bitwise
+against the plain version first. The values in
 ``ops/hopper_params.py`` marked "measured" come from this sweep.
 ``--sass DIR`` also writes each kernel library's machine code
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
@@ -41,6 +51,8 @@ import torch
 
 from parallel_heat_tpu_torch.kernels import build
 from parallel_heat_tpu_torch.models import HeatPlate2D, HeatPlate3D
+from parallel_heat_tpu_torch.ops import batched
+from parallel_heat_tpu_torch.ops import multigrid as mg
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
 from parallel_heat_tpu_torch.ops.hopper_params import params
@@ -63,6 +75,15 @@ F_SHAPES = [((32, 16), 1), ((32, 8), 2), ((32, 4), 4), ((32, 12), 2),
             ((32, 6), 4), ((32, 16), 2), ((32, 8), 4), ((32, 12), 4),
             ((32, 16), 4), ((64, 8), 2), ((64, 4), 4), ((64, 8), 4)]
 COEFFS_3D = (0.1, 0.15, 0.05)
+M_BATCH = 64
+M_SIZES = [512, 128]
+M_DEPTHS = [2, 4, 8]
+M_BEST = 5                      # modelled-cheapest tilings per depth
+M_TILES = [2, 4, 8, 16, 24, 32, 44, 64, 128]   # and these group sizes
+M_SOLO_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 8), (64, 16)]
+MG_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 4), (64, 8),
+             (128, 2), (128, 4), (256, 1)]
+MG_FINE = [(4098, 4098), (512, 512)]
 
 
 def card_line() -> str:
@@ -223,6 +244,87 @@ def sweep_3d(size: int, reps: int, only=("d", "f")):
                                and k == p.f_k_default)}
 
 
+def sweep_m(reps: int):
+    """Yield one dict per (member size, launch plan) of kernel M."""
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    for size in M_SIZES:
+        shape = (size, size)
+        u = torch.from_numpy((rng.standard_normal((M_BATCH,) + shape) * 10)
+                             .astype(np.float32)).to(dev)
+        v, want = torch.empty_like(u), torch.empty_like(u)
+        rp = batched.ensemble_steps_plain(u, want, A_STEPS, cx=CX, cy=CY)
+        default = p.m_plan(M_BATCH, shape)
+        plans = [p.m_solo_plan(M_BATCH, shape, block)
+                 for block in M_SOLO_BLOCKS]
+        for d in M_DEPTHS:
+            tilings = sorted(p.m_tilings(M_BATCH, shape, d),
+                             key=lambda t: t["cost"])
+            plans += tilings[:M_BEST]
+            for tiles in M_TILES:
+                plans += [t for t in tilings[M_BEST:]
+                          if t["tiles"] == tiles][:1]
+        bits = torch.empty(M_BATCH, dtype=torch.int32, device=dev)
+        for plan in plans:
+            if plan is None:
+                continue
+            xch = batched.exchange_planes(u, A_STEPS, plan)
+
+            def launch():
+                batched._launch_m(u, v, A_STEPS, xch, bits, CX, CY, plan)
+
+            launch()
+            ok = bool(torch.equal(v, want)
+                      and torch.equal(bits.view(torch.float32), rp))
+            ms = time_ms(launch, reps)
+            same = all(plan[key] == default[key]
+                       for key in ("tile", "depth", "block"))
+            yield {"kernel": "heat_m_ensemble", "size": size,
+                   "members": M_BATCH, "tile": list(plan["tile"]),
+                   "depth": plan["depth"], "tiles": plan["tiles"],
+                   "groups": plan["groups"], "block": list(plan["block"]),
+                   "model_cost": plan.get("cost"), "k": A_STEPS,
+                   "smem_bytes": p.m_smem_bytes(plan["tile"], plan["depth"]),
+                   "bitwise": ok, "ms": ms, "ms_per_step": ms / A_STEPS,
+                   "default": same}
+        del u, v, want
+
+
+def sweep_mg(reps: int):
+    """Yield one dict per (kernel, fine shape, thread block) of the
+    multigrid transfer kernels."""
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    for fine in MG_FINE:
+        coarse = ((fine[0] - 2) // 2 + 2, (fine[1] - 2) // 2 + 2)
+        r = torch.from_numpy((rng.standard_normal(fine) * 10)
+                             .astype(np.float32)).to(dev)
+        c = torch.from_numpy((rng.standard_normal(coarse) * 10)
+                             .astype(np.float32)).to(dev)
+        c[0] = c[-1] = 0
+        c[:, 0] = c[:, -1] = 0
+        cases = {
+            "heat_mg_restrict": (r, torch.empty(coarse, device=dev),
+                                 mg.restrict_full_weighting(r, coarse)),
+            "heat_mg_prolong": (c, torch.empty(fine, device=dev),
+                                mg.prolong_bilinear(c, (fine[0] - 2,
+                                                        fine[1] - 2))),
+        }
+        for name, (src, dst, want) in cases.items():
+            for block in MG_BLOCKS:
+                dst.fill_(float("nan"))
+                mg._launch_transfer(name, src, dst, 1, block)
+                ok = bool(torch.equal(dst, want))
+                ms = time_ms(lambda: mg._launch_transfer(name, src, dst, 1,
+                                                         block), reps * 5)
+                yield {"kernel": name, "size": fine[0], "fine": list(fine),
+                       "coarse": list(coarse), "block": list(block), "k": 1,
+                       "bitwise": ok, "ms": ms, "ms_per_step": ms,
+                       "default": block == p.mg_block}
+
+
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"BRA (0x[0-9a-f]+)")
 
@@ -261,7 +363,8 @@ def main(argv=None) -> int:
     ap.add_argument("--size-3d", type=int, default=512,
                     help="cube edge for kernels D and F")
     ap.add_argument("--only", default="a,b,e,d,f",
-                    help="comma-separated kernels to sweep (a, b, e, d, f)")
+                    help="comma-separated kernels to sweep (a, b, e, d, f, "
+                         "m, mg)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -292,6 +395,10 @@ def main(argv=None) -> int:
     if only & {"d", "f"}:
         for row in sweep_3d(args.size_3d, args.reps, only):
             row["size"] = args.size_3d
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    for key, run in (("m", sweep_m), ("mg", sweep_mg)):
+        for row in run(args.reps) if key in only else []:
             rows.append(row)
             print(json.dumps(row), flush=True)
     bad = [r for r in rows if not r["bitwise"]]

@@ -3,7 +3,10 @@
 The flags and output lines are the JAX CLI's (``parallel_heat_tpu.cli``)
 for the fields this package has: banner, grid line, converged-at or
 did-not-converge, elapsed time, and the grid dump (``.dat`` for a 2D
-grid, ``.npy`` for a 3D one or a path ending in ``.npy``).
+grid, ``.npy`` for a 3D one or a path ending in ``.npy``). ``--ensemble
+B`` runs B members of the config through the ensemble engine and prints
+one line per member, as the JAX CLI does; ``--scheme`` and the ``--mg-*``
+flags select the implicit integrators.
 """
 
 from __future__ import annotations
@@ -32,6 +35,30 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cx", type=float, default=0.1)
     ap.add_argument("--cy", type=float, default=0.1)
     ap.add_argument("--cz", type=float, default=0.1)
+    ap.add_argument("--scheme", default="explicit",
+                    choices=("explicit", "backward_euler",
+                             "crank_nicolson"),
+                    help="time integrator: the explicit Jacobi update "
+                         "(step capped by the stability bound), or an "
+                         "unconditionally stable implicit scheme whose "
+                         "per-step linear solve is a geometric-multigrid "
+                         "V-cycle (2D)")
+    ap.add_argument("--mg-tol", type=float, default=None,
+                    help="implicit schemes: per-step relative residual "
+                         "target of the V-cycle iteration (default 1e-3)")
+    ap.add_argument("--mg-cycles", type=int, default=None,
+                    help="implicit schemes: V-cycle cap per step "
+                         "(default 50)")
+    ap.add_argument("--mg-smooth", type=int, default=None,
+                    help="implicit schemes: weighted-Jacobi pre/post "
+                         "sweeps per level (default 1)")
+    ap.add_argument("--mg-levels", type=int, default=None,
+                    help="implicit schemes: hierarchy depth cap "
+                         "(default: coarsen fully)")
+    ap.add_argument("--ensemble", type=int, default=None, metavar="B",
+                    help="run B independent members of this config as one "
+                         "batched ensemble; --out then writes the stacked "
+                         "(B, ...) member grids as one .npy file")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "cuda", "torch"],
                     help="cuda: the hand-written Hopper kernels; torch: the "
@@ -58,18 +85,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         cy=args.cy, cz=args.cz, steps=args.steps,
                         converge=args.converge, eps=args.eps,
                         check_interval=args.check_interval,
-                        backend=args.backend, device=args.device)
+                        backend=args.backend, device=args.device,
+                        scheme=args.scheme,
+                        # Only the knobs given: unset ones keep their
+                        # defaults, which --scheme explicit requires.
+                        **{k: v for k, v in (("mg_tol", args.mg_tol),
+                                             ("mg_cycles", args.mg_cycles),
+                                             ("mg_smooth", args.mg_smooth),
+                                             ("mg_levels", args.mg_levels))
+                           if v is not None})
     try:
         config.validate()
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.ensemble is not None and args.ensemble < 1:
+        print(f"error: --ensemble must be >= 1, got {args.ensemble}",
+              file=sys.stderr)
+        return 2
     if args.explain:
         from parallel_heat_tpu_torch.solver import explain
 
-        for key, val in explain(config).items():
+        for key, val in explain(config, ensemble=args.ensemble).items():
             print(f"{key}: {val}")
         return 0
+    if args.ensemble is not None:
+        return _run_ensemble(args, config)
 
     print("Starting parallel_heat_tpu_torch on 1 device(s), mesh (1, 1).")
     grid = "x".join(map(str, config.shape))
@@ -93,6 +134,40 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.out:
         written = _write_grid(args.out, result.grid)
         print(f"Final grid written to {written}")
+    return 0
+
+
+def _run_ensemble(args, config) -> int:
+    """The --ensemble B path: one batched run, one line per member."""
+    import numpy as np
+
+    from parallel_heat_tpu_torch import EnsembleSolver
+
+    print(f"Starting parallel_heat_tpu_torch ensemble: {args.ensemble} "
+          f"member(s) of {'x'.join(map(str, config.shape))}, "
+          + (f"converge eps={config.eps:g}" if config.converge
+             else f"{config.steps} steps"))
+    try:
+        result = EnsembleSolver(config, args.ensemble).solve()
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    for i in range(result.members):
+        line = f"member {i}: {int(result.steps_run[i])} steps"
+        if result.converged is not None:
+            line += (f", converged={bool(result.converged[i])}, "
+                     f"residual={float(result.residual[i]):g}")
+        print(line)
+    if result.compactions:
+        print("compactions: " + ", ".join(
+            f"step {k}: {a}->{b}" for k, a, b in result.compactions))
+    print(f"Elapsed time {result.elapsed_s:.6f} secs")
+    if args.out:
+        path = args.out
+        if not path.endswith(".npy"):
+            path += ".npy"
+        np.save(path, result.to_numpy())
+        print(f"Stacked member grids written to {path}")
     return 0
 
 

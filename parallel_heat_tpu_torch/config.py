@@ -12,10 +12,15 @@ implements, so one spec runs on either package. What differs:
 - ``dtype`` accepts only ``"float32"`` in this slice;
 - ``nz`` set makes the run 3D (7-point stencil, coefficients
   ``cx, cy, cz``), as in the JAX package;
+- ``scheme`` and the ``mg_*`` knobs select the implicit integrators
+  (backward Euler, Crank-Nicolson: one multigrid V-cycle solve per
+  step, ``ops/multigrid.py``) exactly as in the JAX package;
 - the fields of the JAX package that this one does not implement yet
-  (meshes, implicit schemes, observers) are rejected by
-  :meth:`HeatConfig.from_dict` when they are set away from their
-  defaults, instead of being dropped silently.
+  (meshes, observers) are rejected by :meth:`HeatConfig.from_dict` when
+  they are set away from their defaults, instead of being dropped
+  silently.
+
+:class:`EnsembleConfig` is the JAX package's, field for field.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ from typing import Optional, Tuple
 
 _VALID_DTYPES = ("float32",)
 _VALID_BACKENDS = ("auto", "cuda", "torch")
+# "explicit" is the forward-Euler Jacobi update, whose step is capped by
+# the stability bound; the implicit schemes solve (I - theta*L) u' = b
+# every step and are unconditionally stable.
+_VALID_SCHEMES = ("explicit", "backward_euler", "crank_nicolson")
 
 # --- cache-key partition ---------------------------------------------------
 #
@@ -40,6 +49,7 @@ SEMANTIC_FIELDS = (
     "nx", "ny", "nz", "cx", "cy", "cz",
     "steps", "converge", "eps", "check_interval",
     "dtype", "backend", "device",
+    "scheme", "mg_tol", "mg_cycles", "mg_smooth", "mg_levels",
 )
 OBSERVATION_ONLY_FIELDS: Tuple[str, ...] = ()
 
@@ -53,16 +63,94 @@ JAX_ONLY_DEFAULTS = {
     "halo_depth": None,
     "halo_overlap": None,
     "accumulate": "storage",
-    "scheme": "explicit",
-    "mg_tol": 1e-3,
-    "mg_cycles": 50,
-    "mg_smooth": 1,
-    "mg_levels": None,
     "mg_partition": "auto",
     "guard_interval": None,
     "diag_interval": None,
     "pipeline_depth": None,
 }
+
+# --- ensemble cache-key partition -----------------------------------------
+#
+# The same discipline for EnsembleConfig: SEMANTIC fields shape what the
+# batched member programs compute; ORCHESTRATION fields shape only the
+# host's dispatch schedule (windows per dispatch, when the live batch is
+# compacted) and cannot move a member's trajectory.
+ENSEMBLE_SEMANTIC_FIELDS = ("members",)
+ENSEMBLE_ORCHESTRATION_FIELDS = ("compact_threshold", "window_rounds")
+
+
+@dataclass(frozen=True)
+class EnsembleConfig:
+    """Configuration of one batched ensemble run (``ensemble/``).
+
+    ``members`` is B, the extent of the leading member axis: B
+    independent grids of one :class:`HeatConfig` run as one program. The
+    other knobs are orchestration only: they move dispatch boundaries
+    and compaction points, never a member's arithmetic.
+    """
+
+    members: int = 1
+
+    # Converge mode: when the live fraction of the current batch drops
+    # strictly below this at a dispatch boundary, finished members are
+    # parked and the live ones packed into a smaller batch. None = never.
+    compact_threshold: Optional[float] = 0.5
+
+    # Converge mode: check windows per dispatch, i.e. between two reads
+    # of the per-member verdicts on the host. A member freezes at its
+    # own converging window however many windows share a dispatch.
+    window_rounds: int = 4
+
+    def validate(self) -> "EnsembleConfig":
+        if self.members < 1:
+            raise ValueError(
+                f"ensemble members must be >= 1, got {self.members}")
+        if self.compact_threshold is not None and not (
+                0.0 < self.compact_threshold <= 1.0):
+            raise ValueError(
+                f"compact_threshold must be in (0, 1] (or None to "
+                f"disable compaction), got {self.compact_threshold}")
+        if self.window_rounds < 1:
+            raise ValueError(
+                f"window_rounds must be >= 1, got {self.window_rounds}")
+        return self
+
+    def orchestration_free(self) -> "EnsembleConfig":
+        """Every orchestration-only field reset to its default."""
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        kw = {name: defaults[name] for name in ENSEMBLE_ORCHESTRATION_FIELDS
+              if getattr(self, name) != defaults[name]}
+        return self.replace(**kw) if kw else self
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @classmethod
+    def from_json(cls, s: str) -> "EnsembleConfig":
+        return cls(**json.loads(s)).validate()
+
+    def replace(self, **kw) -> "EnsembleConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def multigrid_level_shapes(shape, mg_levels: Optional[int] = None,
+                           min_interior: int = 3) -> list:
+    """The geometric-multigrid hierarchy of a 2D grid ``shape`` (cells
+    including the Dirichlet ring): ``[(nx0, ny0), (nx1, ny1), ...]``
+    finest first, each level's interior the floor-half of the previous
+    (``m -> m // 2``, the vertex map ``fine = 2*coarse + 1``, defined for
+    any interior size), until an interior would drop below
+    ``min_interior`` or ``mg_levels`` levels exist. The one source of the
+    hierarchy for the V-cycle and ``solver.explain``."""
+    nx, ny = int(shape[0]), int(shape[1])
+    levels = [(nx, ny)]
+    while mg_levels is None or len(levels) < mg_levels:
+        mi, ni = levels[-1][0] - 2, levels[-1][1] - 2
+        mc, nc = mi // 2, ni // 2
+        if mc < min_interior or nc < min_interior:
+            break
+        levels.append((mc + 2, nc + 2))
+    return levels
 
 
 @dataclass(frozen=True)
@@ -99,6 +187,21 @@ class HeatConfig:
     # Where the grid lives: "cuda" (= cuda:0), "cuda:N" or "cpu".
     device: str = "cuda"
 
+    # Time integrator: "explicit", or "backward_euler" /
+    # "crank_nicolson", which solve (I - theta*L) u' = b every step with
+    # a geometric-multigrid V-cycle (2D only) and take coefficients far
+    # past the explicit bound.
+    scheme: str = "explicit"
+    # Implicit-solve knobs; they must stay at their defaults for
+    # scheme="explicit". Cycles stop when
+    # max|b - A u| <= mg_tol * max|b| or after mg_cycles cycles;
+    # mg_smooth weighted-Jacobi sweeps before and after each coarse
+    # correction; mg_levels caps the hierarchy (None: coarsen fully).
+    mg_tol: float = 1e-3
+    mg_cycles: int = 50
+    mg_smooth: int = 1
+    mg_levels: Optional[int] = None
+
     @property
     def ndim(self) -> int:
         return 3 if self.nz is not None else 2
@@ -121,12 +224,16 @@ class HeatConfig:
         return 0.5 - sum(self.coefficients)
 
     def validate(self) -> "HeatConfig":
-        if self.stability_margin() < 0.0:
+        if self.scheme == "explicit" and self.stability_margin() < 0.0:
             # Warn, never error: instability can be the thing studied.
+            # The implicit schemes are unconditionally stable.
             warnings.warn(
                 f"coefficient sum {sum(self.coefficients):g} exceeds the "
                 f"stability bound 1/2 — the explicit scheme will diverge "
-                f"(values blow up to inf)",
+                f"(values blow up to inf); to take steps this large, "
+                f"switch to the implicit integrator: "
+                f"scheme='backward_euler' (--scheme backward_euler), "
+                f"which is unconditionally stable",
                 RuntimeWarning,
             )
         if self.nx < 3 or self.ny < 3 or (self.nz is not None
@@ -154,6 +261,41 @@ class HeatConfig:
                 or (dev.startswith("cuda:") and dev[5:].isdigit())):
             raise ValueError(
                 f"device must be 'cuda', 'cuda:N' or 'cpu', got {dev!r}")
+        if self.scheme not in _VALID_SCHEMES:
+            raise ValueError(
+                f"scheme must be one of {_VALID_SCHEMES}, got "
+                f"{self.scheme!r}")
+        if self.mg_tol <= 0.0:
+            raise ValueError(f"mg_tol must be > 0, got {self.mg_tol}")
+        if self.mg_cycles < 1:
+            raise ValueError(
+                f"mg_cycles must be >= 1, got {self.mg_cycles}")
+        if self.mg_smooth < 1:
+            raise ValueError(
+                f"mg_smooth must be >= 1, got {self.mg_smooth}")
+        if self.mg_levels is not None and self.mg_levels < 1:
+            raise ValueError(
+                f"mg_levels must be >= 1 (or None for full "
+                f"coarsening), got {self.mg_levels}")
+        if self.scheme == "explicit":
+            # Inert knobs stay at their defaults: a loud decline, not a
+            # silent no-op.
+            defaults = HeatConfig()
+            off = [n for n in ("mg_tol", "mg_cycles", "mg_smooth",
+                               "mg_levels")
+                   if getattr(self, n) != getattr(defaults, n)]
+            if off:
+                raise ValueError(
+                    f"{', '.join(off)} only apply to the implicit "
+                    f"schemes (scheme='backward_euler' or "
+                    f"'crank_nicolson'); scheme='explicit' takes no "
+                    f"multigrid knobs")
+        elif self.ndim != 2:
+            raise ValueError(
+                f"scheme={self.scheme!r} is 2D-only in this "
+                f"build: the 3D multigrid transfer operators are "
+                f"not yet built (the 5-point V-cycle is — use "
+                f"nz=None)")
         return self
 
     # --- (de)serialization -------------------------------------------------
@@ -177,8 +319,7 @@ class HeatConfig:
             raise ValueError(
                 f"{', '.join(off)}: not implemented in "
                 f"parallel_heat_tpu_torch yet (see ROADMAP.md queue 1); "
-                f"only the single-device explicit float32 path (2D or "
-                f"3D) is")
+                f"only the single-device float32 paths are")
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(d) - known)
         if unknown:

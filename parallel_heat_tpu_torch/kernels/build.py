@@ -64,6 +64,15 @@ KERNELS = {
     "heat_f_temporal3d": ("heat_f_temporal3d.cu",
                           [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                            _I32, _I32, _F32, _F32, _F32, _F32, _P]),
+    "heat_m_ensemble": ("heat_m_ensemble.cu",
+                        [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
+                         _I32, _I32, _I32, _I32, _F32, _F32, _F32, _P]),
+    "heat_mg_restrict": ("heat_mg_restrict.cu",
+                         [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
+                          _P]),
+    "heat_mg_prolong": ("heat_mg_prolong.cu",
+                        [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
+                         _P]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh")
 

@@ -120,6 +120,99 @@ class HopperParams:
     f_waves: int = 8
     f_seg_planes_min: int = 64
 
+    # --- kernel M: heat_m_ensemble (depths measured; cost model chosen) ---
+    # A member is cut into tiles as kernel A cuts its grid, with A's
+    # thread block; a group of one block per tile holds one member, and
+    # sm_count // tiles groups walk the members. m_plan() picks the tile
+    # and the halo depth by the modelled cost of a launch in cell visits
+    # per thread: rounds of members times the visits of one step, plus
+    # m_sync_visits for each grid-wide barrier and exchange. In the sweep
+    # (bench_kernels --only m, 64 members of 512^2, 20 steps) depth 8 ran
+    # 10% faster than depth 4 at the same tile (0.580 against 0.643 ms at
+    # 128 x 171), depth 2 slower than either, and of two tiles of one
+    # cost the taller ran up to 10% faster (more rows a thread, so more
+    # cells from registers); the model ranks the twelve-tile plans first,
+    # as measured, but not their order among themselves (0.58-0.62 ms at
+    # depth 8). A member whose framed tile fits one block runs one block
+    # per member with a one-cell frame and thread blocks of
+    # m_solo_rows_per_thread rows a thread (at 128^2 every block shape
+    # from 32 x 16 to 64 x 16 came within 8% of 32 x 32).
+    m_depths: tuple = (4, 8)
+    m_sync_visits: int = 50
+    m_solo_rows_per_thread: int = 4
+
+    # --- kernels heat_mg_restrict and heat_mg_prolong (chosen) ------------
+    # One output cell a thread; a warp takes 32 neighbouring columns.
+    mg_block: tuple = (32, 8)
+
+    def m_smem_bytes(self, tile, depth) -> int:
+        """Dynamic shared memory of one M block at ``tile``."""
+        ty, tx = tile
+        return 2 * (ty + 2 * depth) * (tx + 2 * depth) * 4
+
+    def m_solo_plan(self, batch, shape, block=None):
+        """Kernel M's launch of one block per member, or None when a
+        member with its one-cell frame does not fit one block."""
+        m, n = shape
+        budget = self.smem_per_block_max - self.static_smem_bytes
+        if self.m_smem_bytes((m, n), 1) > budget:
+            return None
+        rows = -(-(m + 2) // self.m_solo_rows_per_thread)
+        return {"tile": (m, n), "depth": 1, "tiles": 1, "groups": batch,
+                "block": block or (32, max(1, min(32, rows)))}
+
+    def m_tilings(self, batch, shape, depth=None):
+        """Every launch of kernel M that cuts a member of ``(m, n)`` into
+        two or more equal tiles (the last ones cut at the edge), at most
+        ``sm_count`` of them, each within one block's shared memory: a
+        list of plans, each with its modelled ``cost`` in cell visits
+        per thread, ``rounds * (visits per step + m_sync_visits /
+        depth)``."""
+        m, n = shape
+        d = self.a_depth if depth is None else depth
+        bx, by = self.a_block
+        budget = self.smem_per_block_max - self.static_smem_bytes
+        plans = []
+        for n_col in range(1, min(n, self.sm_count) + 1):
+            tx = -(-n // n_col)
+            if -(-n // tx) != n_col:
+                continue
+            for n_row in range(1, min(m, self.sm_count // n_col) + 1):
+                ty = -(-m // n_row)
+                tiles = n_col * n_row
+                if (-(-m // ty) != n_row or tiles == 1
+                        or self.m_smem_bytes((ty, tx), d) > budget):
+                    continue
+                groups = min(batch, self.sm_count // tiles)
+                visits = sum(-(-(ty + 2 * (d - s)) // by)
+                             * -(-(tx + 2 * (d - s)) // bx)
+                             for s in range(1, d + 1)) / d
+                plans.append({
+                    "tile": (ty, tx), "depth": d, "tiles": tiles,
+                    "groups": groups, "block": self.a_block,
+                    "cost": -(-batch // groups)
+                    * (visits + self.m_sync_visits / d)})
+        return plans
+
+    @functools.lru_cache(maxsize=64)
+    def m_plan(self, batch, shape):
+        """Kernel M's launch for ``batch`` members of ``(m, n)``:
+        ``{"tile", "depth", "tiles", "groups", "block"}``, or None when a
+        member does not fit resident on the card.
+
+        A member that fits one block takes :meth:`m_solo_plan` (``tiles
+        == 1``, ``groups == batch``). Otherwise ``groups`` groups of
+        ``tiles`` blocks take the members in rounds, and the plan is the
+        tiling of :meth:`m_tilings`, over the depths ``m_depths``, with
+        the least cost, then the fewest blocks, then the tallest tile."""
+        solo = self.m_solo_plan(batch, tuple(shape))
+        if solo is not None:
+            return solo
+        return min((p for d in self.m_depths
+                    for p in self.m_tilings(batch, tuple(shape), d)),
+                   key=lambda p: (p["cost"], p["groups"] * p["tiles"],
+                                  -p["tile"][0]), default=None)
+
     def f_extent(self, block=None, rows=None):
         """Kernel F's extended tile ``(rows along Y, cells along Z)``."""
         bz, by = block or self.f_block

@@ -1,0 +1,479 @@
+"""Geometric-multigrid V-cycle behind the implicit time integrators.
+
+The port of ``parallel_heat_tpu/ops/multigrid.py``, single device. The
+implicit schemes (``HeatConfig.scheme = "backward_euler" |
+"crank_nicolson"``) solve, every step, the linear system
+
+    A u' = b,   A = I - theta*L,   L u = cx*(uE + uW - 2u)
+                                       + cy*(uN + uS - 2u)
+
+(theta = 1 for backward Euler with ``b = u``; theta = 1/2 for
+Crank-Nicolson), which is unconditionally stable. The solver is a
+textbook V(nu, nu) cycle: weighted-Jacobi smoothing (omega = 0.8),
+full-weighting restriction centred on the vertex map ``fine = 2*coarse +
+1``, bilinear prolongation, rediscretised coarse operators (level ``l``
+carries ``theta*c / 4**l``) and ``_COARSE_SWEEPS`` extra sweeps on the
+coarsest level. Cycles repeat until ``max|b - A u| <= mg_tol * max|b|``
+or ``mg_cycles`` ran. Everything is float32, and the state is written
+once per step, interior only.
+
+As in the JAX package, the smoother, the residual and the norms are plain
+array code; the two transfer operators are kernels:
+
+- :func:`restrict` launches ``heat_mg_restrict``
+  (csrc/heat_mg_restrict.cu), the counterpart of the Pallas kernel of
+  that name; its plain version is :func:`restrict_full_weighting`;
+- :func:`prolong` launches ``heat_mg_prolong`` (csrc/heat_mg_prolong.cu);
+  its plain version is :func:`prolong_bilinear`.
+
+Each wrapper takes its plain version only because the tensor it was given
+lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+:func:`transfer_ops` is the one decision site: the wrappers for
+``backend="cuda"``, the plain versions for ``backend="torch"``. A kernel
+and its plain version agree bitwise (every multiply is by a power of two
+and the adds associate alike), so the two backends do.
+
+Every level operation takes full arrays (Dirichlet ring included) with
+any number of leading member axes, so the ensemble engine's batched
+V-cycle is this same code on a ``(B, M, N)`` stack: a member of it is
+bitwise the solo solve (:func:`_step_fn` freezes each member at its own
+cycle verdict).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from parallel_heat_tpu_torch.config import HeatConfig, multigrid_level_shapes
+from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+from parallel_heat_tpu_torch.ops.hopper_params import params
+
+# Weighted-Jacobi damping, fixed: it shapes the rate of convergence, never
+# the converged answer.
+_OMEGA = 0.8
+
+# Extra smoothing sweeps in place of an exact coarsest-level solve: the
+# rediscretised coefficients shrink 4x per level, so the coarsest operator
+# is strongly diagonally dominant.
+_COARSE_SWEEPS = 8
+
+# What the step solves of this process did since the last reset_stats():
+# implicit steps, V-cycles, and reads of a device value on the host (one
+# per evaluation of the cycle loop's stopping test).
+stats = {"steps": 0, "cycles": 0, "host_syncs": 0}
+
+
+def reset_stats() -> None:
+    for name in stats:
+        stats[name] = 0
+
+
+def scheme_theta(scheme: str) -> float:
+    """The implicit weight theta of ``A = I - theta*L``."""
+    return 0.5 if scheme == "crank_nicolson" else 1.0
+
+
+def level_coefficients(config: HeatConfig):
+    """``[(shape, ax, ay), ...]`` finest first: the hierarchy's shapes
+    (``config.multigrid_level_shapes``) with the rediscretised operator
+    coefficients ``theta*c / 4**l``."""
+    theta = scheme_theta(config.scheme)
+    shapes = multigrid_level_shapes(config.shape, config.mg_levels)
+    return [(s, theta * config.cx / 4.0 ** l, theta * config.cy / 4.0 ** l)
+            for l, s in enumerate(shapes)]
+
+
+# ---------------------------------------------------------------------------
+# Level operations (full float32 arrays with the ring; leading member axes
+# allowed)
+# ---------------------------------------------------------------------------
+
+def _lap_interior(u, ax: float, ay: float):
+    """``theta*L u`` on the interior, in the JAX package's spelling
+    ``(up - c) + (down - c)``: no multiply inside the neighbour sums and
+    one multiply per axis term."""
+    c = u[..., 1:-1, 1:-1]
+    tx = ax * ((u[..., 2:, 1:-1] - c) + (u[..., :-2, 1:-1] - c))
+    ty = ay * ((u[..., 1:-1, 2:] - c) + (u[..., 1:-1, :-2] - c))
+    return tx + ty
+
+
+def apply_A_interior(u, ax: float, ay: float):
+    """``(I - theta*L) u`` on the interior of a full level array."""
+    return u[..., 1:-1, 1:-1] - _lap_interior(u, ax, ay)
+
+
+def residual_interior(u, b, ax: float, ay: float):
+    """``b - A u`` on the interior, spelled ``(b - u) + theta*L u``."""
+    return ((b[..., 1:-1, 1:-1] - u[..., 1:-1, 1:-1])
+            + _lap_interior(u, ax, ay))
+
+
+def _max_abs(x):
+    """Max-norm over the last two axes (NaN-propagating)."""
+    return x.abs().amax(dim=(-2, -1))
+
+
+def residual_norm(u, b, ax: float, ay: float):
+    """Interior max-norm of ``b - A u``: the V-cycle's convergence
+    quantity, one value per member."""
+    return _max_abs(residual_interior(u, b, ax, ay))
+
+
+def smooth(u, b, ax: float, ay: float):
+    """One weighted-Jacobi sweep ``u += omega * (b - A u) / diag A`` into
+    a new array; the ring is carried over untouched."""
+    d = 1.0 + 2.0 * ax + 2.0 * ay
+    new = (u[..., 1:-1, 1:-1]
+           + (_OMEGA / d) * residual_interior(u, b, ax, ay))
+    out = u.clone()
+    out[..., 1:-1, 1:-1] = new
+    return out
+
+
+def _pad_ring(x):
+    return F.pad(x, (1, 1, 1, 1))
+
+
+def _restrict_interior(r, mc: int, nc: int):
+    """The full-weighting interior expression: coarse interior vertex
+    ``j`` sits at fine full index ``2j + 2``; the 1/16 tensor stencil as
+    two [1 2 1]/4 passes, rows first, associated ``(a + 2b) + c``."""
+    rows = 0.25 * (r[..., 1:2 * mc:2, :] + 2.0 * r[..., 2:2 * mc + 2:2, :]
+                   + r[..., 3:2 * mc + 3:2, :])
+    return 0.25 * (rows[..., 1:2 * nc:2] + 2.0 * rows[..., 2:2 * nc + 2:2]
+                   + rows[..., 3:2 * nc + 3:2])
+
+
+def restrict_full_weighting(r, coarse_shape: Tuple[int, int]):
+    """Plain version of :func:`restrict`: full-weighting restriction of a
+    full fine array ``r`` (ring included) onto the full coarse array
+    (zero ring)."""
+    sk.counts["restrict_full_weighting"] += 1
+    mc, nc = coarse_shape[0] - 2, coarse_shape[1] - 2
+    return _pad_ring(_restrict_interior(r, mc, nc))
+
+
+def _prolong_rows(c, mf: int):
+    """Bilinear interpolation along the second-to-last axis: full coarse
+    rows (ring included, ``mc + 2``) to ``mf`` fine interior rows. Odd
+    fine rows copy their coarse row; even fine rows average the two
+    flanking coarse rows (the ring supplies the Dirichlet zero)."""
+    mc = c.shape[-2] - 2
+    ev = 0.5 * (c[..., 0:mc + 1, :] + c[..., 1:mc + 2, :])  # rows 0, 2, ..
+    od = c[..., 1:mc + 1, :]                                 # rows 1, 3, ..
+    core = torch.stack([ev[..., :mc, :], od], dim=-2).reshape(
+        c.shape[:-2] + (2 * mc, c.shape[-1]))
+    if mf == 2 * mc + 1:
+        core = torch.cat([core, ev[..., mc:mc + 1, :]], dim=-2)
+    return core
+
+
+def prolong_bilinear(c, fine_interior: Tuple[int, int]):
+    """Plain version of :func:`prolong`: bilinear prolongation of a full
+    coarse array (ring included) to a full fine array with a zero ring,
+    the correction to add to the fine iterate. Row pass first; the column
+    pass averages two row-pass results."""
+    sk.counts["prolong_bilinear"] += 1
+    mf, nf = fine_interior
+    rows = _prolong_rows(c, mf)
+    cols = _prolong_rows(rows.transpose(-1, -2), nf).transpose(-1, -2)
+    return _pad_ring(cols)
+
+
+# ---------------------------------------------------------------------------
+# The transfer kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _check_transfer(x: torch.Tensor, out_shape, what: str):
+    """Validate a transfer's input; returns ``(batch, leading shape)``."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: float32 arrays only, got {x.dtype}")
+    if x.dim() < 2 or min(x.shape[-2:]) < 3 or min(out_shape) < 3:
+        raise ValueError(f"{what}: need full arrays of at least 3 x 3 (one "
+                         f"interior cell), got {tuple(x.shape)} -> "
+                         f"{tuple(out_shape)}")
+    lead = tuple(x.shape[:-2])
+    batch = 1
+    for n in lead:
+        batch *= n
+    if batch < 1:
+        raise ValueError(f"{what}: empty batch {tuple(x.shape)}")
+    if (x.device.type == "cuda"
+            and x.device.index != torch.cuda.current_device()):
+        raise ValueError(f"array on {x.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return batch, lead
+
+
+def _launch_transfer(name, src, dst, batch, block) -> None:
+    """One launch of ``heat_mg_restrict`` or ``heat_mg_prolong`` (they
+    take the same arguments) from the ``batch`` arrays of ``src`` into
+    those of ``dst``; raises if the launch is refused. Checks nothing and
+    counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load(name)
+    code = getattr(lib, name)(
+        src.data_ptr(), dst.data_ptr(), batch, src.shape[-2], src.shape[-1],
+        dst.shape[-2], dst.shape[-1], block[0], block[1], sk._stream(src))
+    sk._raise_on_error(lib, name, code)
+
+
+def restrict(r: torch.Tensor, coarse_shape: Tuple[int, int]) -> torch.Tensor:
+    """Kernel ``heat_mg_restrict``: full-weighting restriction of the full
+    fine array ``r`` (ring included; leading member axes allowed) onto a
+    new full coarse array of ``coarse_shape`` with a zero ring."""
+    coarse_shape = tuple(int(n) for n in coarse_shape)
+    batch, lead = _check_transfer(r, coarse_shape, "restrict")
+    mc, nc = coarse_shape[0] - 2, coarse_shape[1] - 2
+    if 2 * mc > r.shape[-2] - 2 or 2 * nc > r.shape[-1] - 2:
+        raise ValueError(f"restrict: coarse interior {(mc, nc)} is more "
+                         f"than half the fine interior of "
+                         f"{tuple(r.shape[-2:])}")
+    if r.device.type == "cpu":
+        return restrict_full_weighting(r, coarse_shape)
+    r = r.contiguous()
+    out = torch.empty(lead + coarse_shape, dtype=torch.float32,
+                      device=r.device)
+    _launch_transfer("heat_mg_restrict", r, out, batch, params().mg_block)
+    sk.counts["heat_mg_restrict"] += 1
+    return out
+
+
+def prolong(c: torch.Tensor, fine_shape: Tuple[int, int]) -> torch.Tensor:
+    """Kernel ``heat_mg_prolong``: bilinear prolongation of the full
+    coarse array ``c`` (ring included; leading member axes allowed) onto a
+    new full fine array of ``fine_shape`` with a zero ring. Each fine
+    interior extent must be twice the coarse one, or one more."""
+    fine_shape = tuple(int(n) for n in fine_shape)
+    batch, lead = _check_transfer(c, fine_shape, "prolong")
+    for nf, nc in zip(fine_shape, c.shape[-2:]):
+        if (nf - 2) - 2 * (nc - 2) not in (0, 1):
+            raise ValueError(f"prolong: fine shape {fine_shape} is not "
+                             f"twice the coarse interior of "
+                             f"{tuple(c.shape[-2:])}, or one more")
+    if c.device.type == "cpu":
+        return prolong_bilinear(c, (fine_shape[0] - 2, fine_shape[1] - 2))
+    c = c.contiguous()
+    out = torch.empty(lead + fine_shape, dtype=torch.float32,
+                      device=c.device)
+    _launch_transfer("heat_mg_prolong", c, out, batch, params().mg_block)
+    sk.counts["heat_mg_prolong"] += 1
+    return out
+
+
+def transfer_ops(backend: str):
+    """``(restrict(r, coarse_shape), prolong(c, fine_shape))``: the one
+    decision site for the transfer spelling. ``backend="cuda"`` takes the
+    kernels' wrappers (which serve a CPU tensor with their plain
+    versions), ``backend="torch"`` the plain versions."""
+    if backend == "cuda":
+        return restrict, prolong
+    return (restrict_full_weighting,
+            lambda c, fine_shape: prolong_bilinear(
+                c, (fine_shape[0] - 2, fine_shape[1] - 2)))
+
+
+# ---------------------------------------------------------------------------
+# The V-cycle and the implicit step
+# ---------------------------------------------------------------------------
+
+def _cycle_from_levels(levels, nu: int, restrict, prolong):
+    """``vcycle(u, b) -> u`` over an explicit ``[(shape, ax, ay), ...]``
+    hierarchy (finest first)."""
+
+    def cycle(l, u, b):
+        shape, ax, ay = levels[l]
+        for _ in range(nu):
+            u = smooth(u, b, ax, ay)
+        if l + 1 < len(levels):
+            cshape = levels[l + 1][0]
+            r = _pad_ring(residual_interior(u, b, ax, ay))
+            ec = cycle(l + 1, u.new_zeros(u.shape[:-2] + tuple(cshape)),
+                       restrict(r, cshape))
+            # The prolonged correction carries a zero ring, so the
+            # boundary bits of u are exact through the add.
+            u = u + prolong(ec, shape)
+            for _ in range(nu):
+                u = smooth(u, b, ax, ay)
+        else:
+            for _ in range(_COARSE_SWEEPS):
+                u = smooth(u, b, ax, ay)
+        return u
+
+    return lambda u, b: cycle(0, u, b)
+
+
+def _vcycle_fn(config: HeatConfig, backend: str):
+    """``vcycle(u, b) -> u`` for the finest level."""
+    restrict_, prolong_ = transfer_ops(backend)
+    return _cycle_from_levels(level_coefficients(config), config.mg_smooth,
+                              restrict_, prolong_)
+
+
+def _rhs_fn(config: HeatConfig):
+    """``(rhs(u) -> b, finish(x, u) -> u')`` for the scheme. Backward
+    Euler solves ``A u' = u``. Crank-Nicolson solves ``(I - L/2) v = 2u``
+    and sets ``u' = v - u``, algebraically ``(I - L/2) u' = (I + L/2) u``
+    with an exact right-hand side and finish, as the JAX package does."""
+    if config.scheme == "crank_nicolson":
+        return (lambda u: 2.0 * u), (lambda x, u: x - u)
+    return (lambda u: u), (lambda x, u: x)
+
+
+def _solve(config: HeatConfig, backend: str, tally=stats):
+    """``solve(b) -> (x, cycles, res0, bmax, trace)``: V-cycles from the
+    initial guess ``b`` until every member's verdict, under the rule of
+    the JAX loop (continue while ``res > tol`` and ``cycles <
+    mg_cycles``, per member; a NaN residual ends it). A member that is
+    done keeps its iterate, residual and cycle count while the others go
+    on. One read of a device value per evaluation of the stopping test,
+    counted with the cycles in ``tally``. ``trace`` is the list of
+    per-cycle residuals."""
+    _, ax, ay = level_coefficients(config)[0]
+    vcycle = _vcycle_fn(config, backend)
+    tol_rel = config.mg_tol
+    max_cycles = config.mg_cycles
+
+    def solve(b):
+        batched = b.dim() > 2
+        bmax = _max_abs(b[..., 1:-1, 1:-1])
+        tol = tol_rel * bmax
+        x = b
+        res0 = res = residual_norm(b, b, ax, ay)
+        cycles = torch.zeros_like(res, dtype=torch.int32)
+        trace = []
+        while True:
+            live = (res > tol) & (cycles < max_cycles)
+            tally["host_syncs"] += 1
+            if not bool(live.any()):
+                break
+            x_new = vcycle(x, b)
+            res_new = residual_norm(x_new, b, ax, ay)
+            if batched:
+                x = torch.where(live[..., None, None], x_new, x)
+                res = torch.where(live, res_new, res)
+            else:
+                x, res = x_new, res_new
+            cycles = cycles + live.to(torch.int32)
+            trace.append(res)
+            tally["cycles"] += 1
+        return x, cycles, res0, bmax, trace
+
+    return solve
+
+
+def _step_fn(config: HeatConfig, backend: str):
+    """One implicit step ``step(u, out) -> res`` from ``u`` into the
+    distinct buffer ``out``, where ``res`` is the interior max-norm of
+    the update (per member), the converge mode's quantity. Builds b,
+    cycles to the verdict, and writes the interior once; the ring is
+    carried over."""
+    solve = _solve(config, backend)
+    rhs, finish = _rhs_fn(config)
+
+    def step(u, out):
+        b = rhs(u)
+        x = solve(b)[0]
+        new = finish(x, u)[..., 1:-1, 1:-1]
+        res = _max_abs(new - u[..., 1:-1, 1:-1])
+        out.copy_(u)
+        out[..., 1:-1, 1:-1] = new
+        stats["steps"] += 1
+        return res
+
+    return step
+
+
+def implicit_multistep(config: HeatConfig, backend: str = "torch"):
+    """``(multi_step(u, v, n) -> (u, v), multi_step_residual(u, v, n) ->
+    (u, v, res))``, the implicit counterpart of the explicit multistep
+    families, consumed by the same loops: ``u`` holds the state, ``v`` is
+    the spare buffer, and each returns them swapped as the steps left
+    them. The residual is ``max |u' - u|`` over the interior of the last
+    step. The transfer kernels of a CUDA run are loaded here, before any
+    clock starts."""
+    from parallel_heat_tpu_torch.solver import steps_to_multistep
+
+    if backend == "cuda" and torch.device(config.device).type == "cuda":
+        from parallel_heat_tpu_torch.kernels.build import load
+
+        load("heat_mg_restrict")
+        load("heat_mg_prolong")
+    step = _step_fn(config, backend)
+    return steps_to_multistep(step, step)
+
+
+# ---------------------------------------------------------------------------
+# Observation only
+# ---------------------------------------------------------------------------
+
+def cycle_trace(config: HeatConfig, grid, max_cycles=None,
+                backend: str = "torch") -> dict:
+    """Re-solve ONE implicit step from ``grid`` (a 2D tensor, never
+    advanced) with the step's own loop and verdict, and report the cycle
+    count, the per-cycle residuals and the mean contraction factor; the
+    JAX package's ``cycle_trace`` keys. ``max_cycles`` caps the budget
+    only when given."""
+    config = config.validate()
+    if max_cycles is not None:
+        config = config.replace(mg_cycles=min(config.mg_cycles,
+                                              int(max_cycles)))
+    rhs, _ = _rhs_fn(config)
+    u = torch.as_tensor(grid, dtype=torch.float32)
+    # Observation only: its cycles do not join the run's counts.
+    tally = {"cycles": 0, "host_syncs": 0}
+    _, cycles, res0, bmax, trace = _solve(config, backend, tally)(rhs(u))
+    r0, bmax = float(res0), float(bmax)
+    tol = config.mg_tol * bmax
+    used = [float(r) for r in trace]
+    ratios, prev = [], r0
+    for r in used:
+        if prev > 0.0:
+            ratios.append(r / prev)
+        prev = r
+    contraction = None
+    if ratios:
+        p = 1.0
+        for q in ratios:
+            p *= q
+        contraction = p ** (1.0 / len(ratios))
+    return {"cycles": int(cycles), "tol": tol,
+            "residual_first": r0,
+            "residual_last": used[-1] if used else r0,
+            "residuals": used,
+            "contraction": contraction,
+            "levels": len(multigrid_level_shapes(config.shape,
+                                                 config.mg_levels)),
+            "converged": bool(used[-1] <= tol if used else r0 <= tol)}
+
+
+def explain_hierarchy(config: HeatConfig, backend: str) -> dict:
+    """The resolved implicit path for ``solver.explain``: scheme, theta,
+    the level hierarchy, the smoother, the transfers and the stopping
+    rule, from the structures :func:`implicit_multistep` builds."""
+    levels = level_coefficients(config)
+    if backend == "cuda":
+        transfers = ("cuda heat_mg_restrict/heat_mg_prolong (one thread "
+                     "per output cell)")
+    else:
+        transfers = "torch full-weighting/bilinear"
+    return {
+        "scheme": config.scheme,
+        "theta": scheme_theta(config.scheme),
+        "levels": [{"shape": list(s), "cx": ax, "cy": ay}
+                   for s, ax, ay in levels],
+        "smoother": (f"weighted-Jacobi(omega={_OMEGA}) "
+                     f"V({config.mg_smooth},{config.mg_smooth}), "
+                     f"{_COARSE_SWEEPS} coarsest sweeps"),
+        "transfers": transfers,
+        "cycle_stop": (f"max|b - A u| <= {config.mg_tol:g} * max|b| "
+                       f"or {config.mg_cycles} cycles"),
+        "sharding": "single device",
+    }

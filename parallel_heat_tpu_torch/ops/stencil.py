@@ -70,31 +70,33 @@ def combine_3d(c, xm, xp, ym, yp, zm, zp, a0: float, cx: float, cy: float,
 
 def stencil_interior_2d(u: torch.Tensor, cx: float, cy: float):
     """Textbook 5-point update of every cell that has four neighbours:
-    ``(m, n) -> (m-2, n-2)``."""
+    ``(m, n) -> (m-2, n-2)``. As every function of this module, it takes
+    leading member axes: a ``(B, m, n)`` stack is B grids."""
     u = u.to(torch.float32)
-    c = u[1:-1, 1:-1]
+    c = u[..., 1:-1, 1:-1]
     return (
         c
-        + cx * (u[2:, 1:-1] + u[:-2, 1:-1] - 2.0 * c)
-        + cy * (u[1:-1, 2:] + u[1:-1, :-2] - 2.0 * c)
+        + cx * (u[..., 2:, 1:-1] + u[..., :-2, 1:-1] - 2.0 * c)
+        + cy * (u[..., 1:-1, 2:] + u[..., 1:-1, :-2] - 2.0 * c)
     )
 
 
 def step_2d(u: torch.Tensor, cx: float, cy: float) -> torch.Tensor:
     """One full-grid step: interior updated, boundary carried over."""
     out = u.clone()
-    out[1:-1, 1:-1] = stencil_interior_2d(u, cx, cy).to(u.dtype)
+    out[..., 1:-1, 1:-1] = stencil_interior_2d(u, cx, cy).to(u.dtype)
     return out
 
 
 def step_2d_residual(u: torch.Tensor, cx: float, cy: float):
     """One step plus the max-norm residual ``max |u' - u|`` over the
-    interior (a 0-d float32 tensor; NaN if any update is NaN)."""
-    old = u[1:-1, 1:-1].to(torch.float32)
+    interior (a float32 tensor, 0-d for one grid and one value per member
+    for a stack; NaN if any update is NaN)."""
+    old = u[..., 1:-1, 1:-1].to(torch.float32)
     new = stencil_interior_2d(u, cx, cy)
-    residual = (new - old).abs().max()
+    residual = (new - old).abs().amax(dim=(-2, -1))
     out = u.clone()
-    out[1:-1, 1:-1] = new.to(u.dtype)
+    out[..., 1:-1, 1:-1] = new.to(u.dtype)
     return out, residual
 
 
@@ -102,12 +104,12 @@ def stencil_interior_3d(u: torch.Tensor, cx: float, cy: float, cz: float):
     """Textbook 7-point update of every cell that has six neighbours:
     ``(m, n, p) -> (m-2, n-2, p-2)``."""
     u = u.to(torch.float32)
-    c = u[1:-1, 1:-1, 1:-1]
+    c = u[..., 1:-1, 1:-1, 1:-1]
     return (
         c
-        + cx * (u[2:, 1:-1, 1:-1] + u[:-2, 1:-1, 1:-1] - 2.0 * c)
-        + cy * (u[1:-1, 2:, 1:-1] + u[1:-1, :-2, 1:-1] - 2.0 * c)
-        + cz * (u[1:-1, 1:-1, 2:] + u[1:-1, 1:-1, :-2] - 2.0 * c)
+        + cx * (u[..., 2:, 1:-1, 1:-1] + u[..., :-2, 1:-1, 1:-1] - 2.0 * c)
+        + cy * (u[..., 1:-1, 2:, 1:-1] + u[..., 1:-1, :-2, 1:-1] - 2.0 * c)
+        + cz * (u[..., 1:-1, 1:-1, 2:] + u[..., 1:-1, 1:-1, :-2] - 2.0 * c)
     )
 
 
@@ -115,16 +117,17 @@ def step_3d(u: torch.Tensor, cx: float, cy: float,
             cz: float) -> torch.Tensor:
     """One full-grid 3D step: interior updated, faces carried over."""
     out = u.clone()
-    out[1:-1, 1:-1, 1:-1] = stencil_interior_3d(u, cx, cy, cz).to(u.dtype)
+    out[..., 1:-1, 1:-1, 1:-1] = stencil_interior_3d(u, cx, cy,
+                                                     cz).to(u.dtype)
     return out
 
 
 def step_3d_residual(u: torch.Tensor, cx: float, cy: float, cz: float):
-    """One 3D step plus the interior max-norm residual (0-d float32,
-    NaN-propagating)."""
-    old = u[1:-1, 1:-1, 1:-1].to(torch.float32)
+    """One 3D step plus the interior max-norm residual (float32, 0-d for
+    one grid and one value per member for a stack; NaN-propagating)."""
+    old = u[..., 1:-1, 1:-1, 1:-1].to(torch.float32)
     new = stencil_interior_3d(u, cx, cy, cz)
-    residual = (new - old).abs().max()
+    residual = (new - old).abs().amax(dim=(-3, -2, -1))
     out = u.clone()
-    out[1:-1, 1:-1, 1:-1] = new.to(u.dtype)
+    out[..., 1:-1, 1:-1, 1:-1] = new.to(u.dtype)
     return out, residual

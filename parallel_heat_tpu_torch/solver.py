@@ -1,5 +1,6 @@
 """The solver: the port of ``parallel_heat_tpu/solver.py`` for 2D and
-3D, one device, explicit scheme.
+3D, one device: the explicit scheme, and in 2D the implicit schemes
+(one multigrid V-cycle solve per step, ``ops/multigrid.py``).
 
 The JAX package compiles the whole run into one XLA program. Here the
 run is a Python loop over kernel launches on one CUDA stream:
@@ -78,7 +79,7 @@ def resolve_device(config: HeatConfig,
     return dev
 
 
-def _resolve_backend(config: HeatConfig, dev: torch.device) -> str:
+def resolve_backend(config: HeatConfig, dev: torch.device) -> str:
     if config.backend != "auto":
         return config.backend
     return "cuda" if dev.type == "cuda" else "torch"
@@ -166,8 +167,15 @@ def _make_loop(multi_step, multi_step_residual, config: HeatConfig):
     return run_converge
 
 
-def _single_multistep(config: HeatConfig, backend: str):
+def single_multistep(config: HeatConfig, backend: str):
     """(multi_step, multi_step_residual) on the full grid, one device."""
+    if config.scheme != "explicit":
+        # Implicit schemes: every step is a multigrid V-cycle solve. The
+        # one dispatch site; the ensemble engine's general path comes
+        # through here too.
+        from parallel_heat_tpu_torch.ops import multigrid
+
+        return multigrid.implicit_multistep(config, backend)
     if backend == "cuda":
         if config.ndim == 3:
             from parallel_heat_tpu_torch.ops import stencil_kernels_3d
@@ -192,7 +200,7 @@ def _prepare_initial(config: HeatConfig, initial,
                                        copy=True).contiguous()
 
 
-def _device_scope(dev: torch.device):
+def device_scope(dev: torch.device):
     return (torch.cuda.device(dev) if dev.type == "cuda"
             else contextlib.nullcontext())
 
@@ -211,23 +219,52 @@ def _warn_if_diverged(res: Optional[float], steps_run: int,
         )
 
 
-def explain(config: HeatConfig, device: Optional[str] = None) -> dict:
+def explain(config: HeatConfig, device: Optional[str] = None,
+            ensemble: Optional[int] = None) -> dict:
     """Resolve, without running or building anything, which path a
     config takes: device, backend and the kernel the picker chooses.
-    The CLI prints it for ``--explain``."""
+    The CLI prints it for ``--explain``. ``ensemble`` (a member count B)
+    adds the ensemble engine's resolved path for this config, the
+    decision ``ensemble.engine.ensemble_path`` executes, and the packing
+    verdict (``ensemble.engine.packable``)."""
     from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 
     config = config.validate()
     name = device if device is not None else config.device
     dev = torch.device(name)
-    backend = _resolve_backend(config, dev)
+    config = config.replace(device=str(dev))
+    backend = resolve_backend(config, dev)
     out = {
         "backend": backend,
         "device": str(dev),
         "dtype": config.dtype,
         "shape": config.shape,
         "mode": "converge" if config.converge else "fixed",
+        "scheme": config.scheme,
     }
+    if ensemble is not None:
+        from parallel_heat_tpu_torch.ensemble.engine import (ensemble_path,
+                                                             packable)
+
+        ok, reason = packable(config)
+        out["ensemble"] = {
+            "members": int(ensemble),
+            "path": ("kernel M (heat_m_ensemble, member-batched resident "
+                     "multi-step)"
+                     if ensemble_path(config) == "M"
+                     else "vmap over the torch multistep family"),
+            "packable": ok,
+            "packable_reason": reason,
+        }
+    if config.scheme != "explicit":
+        from parallel_heat_tpu_torch.ops import multigrid
+
+        mg = multigrid.explain_hierarchy(config, backend)
+        out["multigrid"] = mg
+        out["path"] = (f"implicit {config.scheme}: multigrid V-cycle per "
+                       f"step ({len(mg['levels'])} levels, "
+                       f"{mg['smoother']}, {mg['transfers']})")
+        return out
     if backend == "torch":
         out["path"] = "textbook torch stencil"
         return out
@@ -313,9 +350,9 @@ def solve(config: HeatConfig, initial=None,
     config = config.validate()
     dev = resolve_device(config, device)
     config = config.replace(device=str(dev))
-    backend = _resolve_backend(config, dev)
-    with _device_scope(dev):
-        multi_step, multi_step_residual = _single_multistep(config, backend)
+    backend = resolve_backend(config, dev)
+    with device_scope(dev):
+        multi_step, multi_step_residual = single_multistep(config, backend)
         run = _make_loop(multi_step, multi_step_residual, config)
         u = _prepare_initial(config, initial, dev)
         v = torch.empty_like(u)

@@ -2,7 +2,8 @@
 
 Tests and ``chip_smoke.py`` drive each kernel through the real
 ``solve()`` by pinning a decision site for the extent of a ``with``
-block: ``single_2d`` (the 2D picker) or ``single_3d`` (the 3D picker).
+block: ``single_2d`` (the 2D picker), ``single_3d`` (the 3D picker) or
+``ensemble_2d`` (the ensemble engine's batched-kernel decision).
 The pinned choice still goes through the picker's feasibility check.
 
 ``single_3d`` exists for the same reason as the 2D site. The JAX package
@@ -23,7 +24,8 @@ from typing import Dict, Optional
 
 SITE_CHOICES = {"single_2d": ("A", "E-uni", "E", "I-uni", "I", "B", "C",
                                "torch"),
-                "single_3d": ("F", "D", "torch")}
+                "single_3d": ("F", "D", "torch"),
+                "ensemble_2d": ("M", "vmap")}
 
 _force_var: contextvars.ContextVar[Optional[Dict[str, str]]] = \
     contextvars.ContextVar("pht_torch_tune_force", default=None)

@@ -12,7 +12,10 @@ PyTorch version (both round every float32 operation in the same order),
 A(K), E(K), E-uni(K), I(K) and I-uni(K) bitwise equal to K launches of
 B, C bitwise equal to B, and in 3D F(K) bitwise equal to K launches of
 D. Every kernel is also run with unequal coefficients, so a swap of two
-axes cannot pass.
+axes cannot pass. Each member of a launch of M is bitwise a launch of A
+on that member alone; restriction and prolongation are bitwise their
+plain versions, so an implicit run under ``backend="cuda"`` is bitwise
+the one under ``backend="torch"``.
 """
 
 import math
@@ -21,8 +24,11 @@ import numpy as np
 import pytest
 import torch
 
-from parallel_heat_tpu_torch import HeatConfig, solve, tune
+from parallel_heat_tpu_torch import (EnsembleConfig, EnsembleSolver,
+                                     HeatConfig, solve, tune)
 from parallel_heat_tpu_torch.kernels import build
+from parallel_heat_tpu_torch.ops import batched
+from parallel_heat_tpu_torch.ops import multigrid as mg
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
 from parallel_heat_tpu_torch.ops.hopper_params import params
@@ -281,3 +287,116 @@ def test_solve_3d_on_the_card_matches_the_cpu_bitwise(card, cfg):
                                                  cpu.converged)
         assert res.residual == cpu.residual
         assert np.array_equal(res.to_numpy(), cpu.to_numpy())
+
+
+# ---------------------------------------------------------------------------
+# Kernel M and the ensemble engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("k", [1, 4, 7, 20])
+@pytest.mark.parametrize("batch,shape", [
+    (1, (512, 512)), (3, (512, 512)), (64, (512, 512)), (3, (107, 210)),
+    (3, (1000, 1000)), (64, (24, 20)), (13, (170, 170)), (200, (128, 128)),
+    (5, (3, 3))])
+def test_m_bitwise_equal_to_plain_and_to_a_per_member(card, batch, shape, k,
+                                                      cx, cy):
+    u = _rand((batch,) + shape, 10, card)
+    got, want, nores = (torch.empty_like(u) for _ in range(3))
+    r = batched.ensemble_steps(u, got, k, cx=cx, cy=cy)
+    rp = batched.ensemble_steps_plain(u, want, k, cx=cx, cy=cy)
+    assert torch.equal(got, want) and torch.equal(r, rp)
+    assert batched.ensemble_steps(u, nores, k, False, cx=cx, cy=cy) is None
+    assert torch.equal(got, nores)
+    for b in {0, batch // 2, batch - 1}:
+        one = torch.empty_like(u[b])
+        ra = sk.resident_steps(u[b].contiguous(), one, k, cx=cx, cy=cy)
+        assert torch.equal(one, got[b]) and torch.equal(ra, r[b])
+
+
+def test_m_nan_reaches_only_its_members_residual(card):
+    u = _rand((5, 512, 512), 11, card)
+    clean = torch.empty_like(u)
+    batched.ensemble_steps(u, clean, 7, cx=CX, cy=CY)
+    u[2, 100, 100] = float("nan")
+    out = torch.empty_like(u)
+    r = batched.ensemble_steps(u, out, 7, cx=CX, cy=CY)
+    assert torch.isnan(r).tolist() == [False, False, True, False, False]
+    for b in (0, 1, 3, 4):
+        assert torch.equal(out[b], clean[b])
+
+
+@pytest.mark.parametrize("cfg,scales", [
+    (HeatConfig(nx=20, ny=20, steps=3000, converge=True, eps=1e-3),
+     (1, 0.5, 0.01, 2, 0.001, 1e-4, 3, 1e-5)),
+    (HeatConfig(nx=200, ny=180, steps=53, converge=True, eps=1e-9),
+     (1, 2, 3)),
+    (HeatConfig(nx=300, ny=300, cx=0.1, cy=0.2, steps=90), (1, 2, 3, 4)),
+], ids=["converges", "tail", "fixed"])
+def test_ensemble_on_the_card_matches_solo_and_the_cpu_bitwise(card, cfg,
+                                                               scales):
+    base = solve(cfg.replace(steps=0, converge=False)).grid
+    inits = torch.stack([base * s for s in scales])
+    ens = EnsembleConfig(members=len(scales), window_rounds=3)
+    sk.reset_counts()
+    es = EnsembleSolver(cfg, ens)
+    assert es.path == "M"
+    got = es.solve(initials=inits)
+    assert sk.counts["heat_m_ensemble"] > 0
+    assert sk.counts["ensemble_steps_plain"] == 0
+    cpu = EnsembleSolver(cfg.replace(backend="cuda"), ens,
+                         device="cpu").solve(initials=inits.cpu())
+    assert np.array_equal(got.to_numpy(), cpu.to_numpy())
+    assert got.steps_run.tolist() == cpu.steps_run.tolist()
+    assert got.compactions == cpu.compactions
+    for i in range(len(scales)):
+        solo = solve(cfg, initial=inits[i])
+        assert torch.equal(got.grids[i], solo.grid)
+        assert int(got.steps_run[i]) == solo.steps_run
+        if cfg.converge:
+            assert bool(got.converged[i]) == solo.converged
+            assert float(got.residual[i]) == solo.residual
+
+
+# ---------------------------------------------------------------------------
+# The multigrid transfer kernels and implicit stepping
+# ---------------------------------------------------------------------------
+
+FINE = [(4098, 4098), (1001, 999), (34, 34), (5, 4), (4099, 4097),
+        (514, 514), (35, 1030), (512, 512), (257, 257)]
+# Every shape alone, and the smaller ones as a stack of three.
+FINE_AND_LEAD = ([(fine, ()) for fine in FINE]
+                 + [(fine, (3,)) for fine in FINE if fine[0] < 2000])
+
+
+@pytest.mark.parametrize("fine,lead", FINE_AND_LEAD)
+def test_restrict_and_prolong_bitwise_equal_to_plain(card, fine, lead):
+    coarse = ((fine[0] - 2) // 2 + 2, (fine[1] - 2) // 2 + 2)
+    r = _rand(lead + fine, 12, card)
+    got = mg.restrict(r, coarse)
+    assert torch.equal(got, mg.restrict_full_weighting(r, coarse))
+    c = _rand(lead + coarse, 13, card)
+    c[..., 0, :] = c[..., -1, :] = 0
+    c[..., :, 0] = c[..., :, -1] = 0
+    back = mg.prolong(c, fine)
+    assert torch.equal(back, mg.prolong_bilinear(c, (fine[0] - 2,
+                                                     fine[1] - 2)))
+    for t in (got, back):
+        assert not (t[..., 0, :].any() or t[..., -1, :].any()
+                    or t[..., :, 0].any() or t[..., :, -1].any())
+
+
+@pytest.mark.parametrize("scheme", ["backward_euler", "crank_nicolson"])
+def test_implicit_on_the_card_cuda_equals_torch_bitwise(card, scheme):
+    cfg = HeatConfig(nx=130, ny=97, cx=22.5, cy=22.5, steps=4, scheme=scheme)
+    sk.reset_counts()
+    a = solve(cfg.replace(backend="cuda"))
+    assert sk.counts["heat_mg_restrict"] > 0
+    assert sk.counts["heat_mg_restrict"] == sk.counts["heat_mg_prolong"]
+    assert sk.counts["restrict_full_weighting"] == 0
+    b = solve(cfg.replace(backend="torch"))
+    assert torch.equal(a.grid, b.grid)
+    inits = torch.stack([a.grid, b.grid * 3, torch.zeros_like(a.grid)])
+    ens = EnsembleSolver(cfg, 3).solve(initials=inits)
+    for i in range(3):
+        assert torch.equal(ens.grids[i], solve(cfg, initial=inits[i]).grid)

@@ -157,7 +157,7 @@ def test_from_jax_carries_a_grid_across():
 
 
 @pytest.mark.parametrize("field,value", [("mesh_shape", (2, 2)),
-                                         ("scheme", "backward_euler"),
+                                         ("mg_partition", "replicated"),
                                          ("accumulate", "f32"),
                                          ("halo_depth", 4)])
 def test_from_jax_refuses_jax_only_features(field, value):

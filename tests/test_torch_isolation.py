@@ -20,6 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "parallel_heat_tpu")
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.name for f in files}
+    assert {"batched.py", "multigrid.py", "engine.py"} <= names
     return files
 
 
@@ -54,6 +56,17 @@ import chip_smoke  # noqa: F401
 res = pt.solve(pt.HeatConfig(nx=32, ny=32, steps=40, backend="cuda"),
                device="cpu")
 assert res.steps_run == 40 and tuple(res.grid.shape) == (32, 32)
+# The ensemble engine (kernel M's module) and the implicit V-cycle (the
+# transfer kernels' module), each through its entry point.
+from parallel_heat_tpu_torch.ensemble import engine
+from parallel_heat_tpu_torch.ops import batched, multigrid
+ens = pt.EnsembleSolver(pt.HeatConfig(nx=16, ny=16, steps=9, backend="cuda",
+                                      device="cpu"), 3)
+assert ens.path == "M" and ens.solve().members == 3
+imp = pt.solve(pt.HeatConfig(nx=18, ny=18, cx=22.5, cy=22.5, steps=2,
+                             scheme="backward_euler", backend="cuda"),
+               device="cpu")
+assert imp.steps_run == 2 and multigrid.stats["steps"] == 2
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m, v in sys.modules.items() if v is not None)
 print("ok", float(res.grid.sum()))

@@ -261,13 +261,18 @@ def test_wrappers_count_their_calls_on_the_cpu():
     u3 = torch.from_numpy(_rand((6, 5, 7), seed=7))
     sk3.slab_step_3d(u3, torch.empty_like(u3), cx=CX, cy=CY, cz=0.05)
     sk3.xslab_steps_3d(u3, torch.empty_like(u3), 2, cx=CX, cy=CY, cz=0.05)
+    from parallel_heat_tpu_torch.ops import batched, multigrid
+
+    ub = torch.from_numpy(_rand((2, 9, 11), seed=8))
+    batched.ensemble_steps(ub, torch.empty_like(ub), 2, cx=CX, cy=CY)
+    multigrid.prolong(multigrid.restrict(ub, (5, 6)), (9, 11))
     # On the CPU the plain versions run; the kernels never launch. One
-    # registry holds all nine kernels and their plain versions.
+    # registry holds all twelve kernels and their plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
-               if name.endswith("_plain"))
-    assert len(sk.counts) == 18
+               if not name.startswith("heat_"))
+    assert len(sk.counts) == 24
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",
@@ -418,6 +423,6 @@ def test_library_path_tracks_source_digest():
     b = build.library_path("heat_e_temporal")
     assert a.parent == build.BUILD_DIR and a != b
     names = {build.library_path(name).name for name in build.KERNELS}
-    assert len(names) == len(build.KERNELS) == 9
+    assert len(names) == len(build.KERNELS) == 12
     assert a.name.startswith("libheat_b_step-") and a.suffix == ".so"
     assert build.library_path("heat_b_step") == a

@@ -126,6 +126,41 @@ prints the card's name and power limit, then one JSON line per phase:
    full-weighting weights at stride 2 for restrict, ``conv_transpose2d``
    with the bilinear weights for prolong, TF32 off).
 
+12. kernels_g — the sharded block kernels G-uni
+   (``heat_g_block_uniform``), G-fuse (``heat_g_block_fused``), G-circ
+   (``heat_g_block_circular``), G (``heat_g_block_padded``) and the band
+   fix (``heat_g_band_fix``) against their plain versions, each other and
+   kernel E's K steps of the global grid on the same cells, all bitwise
+   (grids and residuals), with the exchange's pieces built by the port's
+   own exchange from seeded random grids: the main path's 16384 x 8192
+   blocks of 32768^2 on (2, 4) (a corner block and one with neighbours on
+   three sides) at K = 8; every 500 x 250 block of 1000^2 on (2, 4) at K
+   in {1, 3, 8}; 16 x 24 blocks (exactly 2K rows) at K = 8; cx = cy = 0.1
+   and cx = 0.1, cy = 0.2. The deferred bulk plus the band, spliced in
+   place, must be the monolithic kernel, grid and max residual; a
+   NaN-seeded block gives NaN residuals with its ring intact;
+13. sharded_main_path — ``solve(HeatConfig(nx=32768, ny=32768, steps=200,
+   mesh_shape=(2, 4)))`` under the default resolution (K = 8, overlap:
+   G-uni bulk + band, 200 launches each), with ``halo_overlap="phase"``,
+   and pinned to G-fuse, G-circ and G (``tune.force("block_temporal_2d",
+   ...)``), counts set to 0 before each run and read after, every grid
+   bitwise the one-block run; busy shares of one profiled repeat of the
+   sharded and the one-block run; and 16384^2 on (2, 2), bitwise the
+   16384^2 main path;
+14. sharded_converge — 1000^2 on (2, 4) to eps=1e-3 (rounds of 8 + 8 + 4
+   a window), 20^2 on (2, 2) (converges at step 1980; the monolithic
+   round) and 256^2 on (2, 2) at halo depth 1 (G at K = 1 each step):
+   steps_run, converged, residual and grid identical to one block;
+15. cli_sharded — ``--nx 256 --ny 256 --steps 100 --mesh 2,2 --out
+   <tmp>.dat`` writes the one-block grid's bytes;
+16. timing_g — ms per launch (CUDA events, and the card's own time from
+   ``torch.profiler``) of each G kernel at the main path's block, 16384 x
+   8192 at K = 8 without the residual: the deferred bulk of G-uni (the
+   ``kernels`` line's row), G-uni, G-fuse, G-circ and G monolithic and the
+   band kernel, each beside its plain version, its bound and ``conv2d``
+   chained K times on the framed block (TF32 off); the exchange's own time
+   per round (both phases, 8 blocks) and one whole overlapped round.
+
 Then a ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
 before the last line; without a CUDA device it exits 2 at once.
@@ -197,7 +232,21 @@ KERNELS_ENS_MG = {
     "heat_mg_restrict": (None, "parallel_heat_tpu/ops/multigrid.py:225"),
     "heat_mg_prolong": (None, "parallel_heat_tpu/ops/multigrid.py:256"),
 }
-KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG}
+# The sharded 2D path: BASELINE.md's north star, 32768^2 on 8 chips, as a
+# (2, 4) mesh of 16384 x 8192 blocks, here all on the one card.
+SHARD_N = 32768
+SHARD_MESH = (2, 4)
+SHARD_CONV = (2, 4)          # the converge phase's mesh at 1000^2
+# Kernel -> (its tune.force choice at site block_temporal_2d, the TPU
+# kernel's builder it replaces).
+KERNELS_G = {
+    "heat_g_block_uniform": ("G-uni", TPU + ":1827"),
+    "heat_g_block_fused": ("G-fuse", TPU + ":1560"),
+    "heat_g_block_circular": ("G-circ", TPU + ":1343"),
+    "heat_g_block_padded": ("G", TPU + ":1135"),
+    "heat_g_band_fix": (None, TPU + ":2093"),
+}
+KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G}
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
 
@@ -1512,6 +1561,477 @@ def phase_timing_ens_mg(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The sharded 2D path (kernels G-uni, G-fuse, G-circ, G and the band fix)
+# ---------------------------------------------------------------------------
+
+def _g_plain(skb, kind):
+    return {"G-uni": skb.block_uniform_plain, "G-fuse": skb.block_fused_plain,
+            "G-circ": skb.block_circular_plain,
+            "G": skb.block_padded_plain}[kind]
+
+
+def _check_g_block(dev, xch, b, us, k, kw, e_out, err):
+    """Every G kind at depth ``k`` on block ``b`` (the exchange ``xch``
+    has run both phases) against its plain version, the others, and
+    ``heat_e_temporal``'s K steps of the global grid on the same cells;
+    and the deferred bulk plus the band, spliced in place, against the
+    monolithic kernel, grid and max residual."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+
+    bx, by = us[b].shape
+    o = xch.mesh.origin(b, (bx, by))
+    g_kw = dict(origin=o, **kw)
+    want = e_out[o[0]:o[0] + bx, o[1]:o[1] + by]
+    exts = {}
+    for kind, how in (("G-circ", xch.assemble_circular),
+                      ("G", xch.assemble_padded)):
+        exts[kind] = torch.empty((bx + 2 * k, by + 2 * k), device=dev)
+        how(b, us[b], exts[kind])
+    first = None
+    for kind, name in skb.KERNEL_OF.items():
+        if kind == "G-uni" and by % 4:
+            continue
+        args = (exts[kind],) if kind in exts else (us[b], *xch.pieces(b))
+        got, ref, nores = (torch.empty((bx, by), device=dev)
+                           for _ in range(3))
+        r = skb.LAUNCH[kind](*args, got, k, True, **g_kw)
+        skb.LAUNCH[kind](*args, nores, k, False, **g_kw)
+        rp = _g_plain(skb, kind)(*args, ref, k, True, **g_kw)
+        torch.cuda.synchronize()
+        d = max(float((got - ref).abs().max()),
+                float((got - want).abs().max()))
+        err[name] = max(err[name], d)
+        where = f"{name}(K={k}) on block {o} of {kw['grid_shape']} {kw}"
+        check(torch.equal(got, ref) and same_float(r, rp),
+              f"{where} != its plain version: max diff {d}, residual "
+              f"{float(r)} vs {float(rp)}")
+        check(torch.equal(got, want),
+              f"{where} != heat_e_temporal(K={k}) on the global grid")
+        check(torch.equal(got, nores), f"{where}: grid depends on "
+              f"with_residual")
+        if first is None:
+            first = r
+        check(same_float(r, first), f"{where}: residual {float(r)} differs "
+              f"from the other kinds' {float(first)}")
+        if kind in ("G-uni", "G-fuse") and bx >= 2 * k:
+            split = torch.full((bx, by), float("nan"), device=dev)
+            plain = torch.full((bx, by), float("nan"), device=dev)
+            tail = xch.tail[b]
+            rb = skb.LAUNCH[kind](us[b], tail, None, None, split, k, True,
+                                  **g_kw)
+            rf = skb.band_fix(us[b], *xch.pieces(b), split, k, True, **g_kw)
+            rpb = _g_plain(skb, kind)(us[b], tail, None, None, plain, k,
+                                      True, **g_kw)
+            rpf = skb.band_fix_plain(us[b], *xch.pieces(b), plain, k, True,
+                                     **g_kw)
+            torch.cuda.synchronize()
+            err["heat_g_band_fix"] = max(err["heat_g_band_fix"],
+                                         float((split - plain).abs().max()))
+            check(torch.equal(split, plain) and same_float(rb, rpb)
+                  and same_float(rf, rpf),
+                  f"{where}: deferred bulk or band != its plain version")
+            check(torch.equal(split, got)
+                  and same_float(torch.maximum(rb, rf), r),
+                  f"{where}: deferred bulk + band != the monolithic kernel "
+                  f"(residuals {float(rb)}, {float(rf)} vs {float(r)})")
+
+
+def phase_kernels_g(dev):
+    """The five G kernels against their plain versions, each other and
+    kernel E, on blocks cut from seeded random global grids with the
+    exchange pieces built by the port's own exchange; returns max |diff|
+    each."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    err = {name: 0.0 for name in KERNELS_G}
+    equal = dict(cx=CX, cy=CY)
+    unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # (grid, mesh, depths, block indices): the main path's 16384 x 8192
+    # blocks (corner (0, 0) and (1, 2), which has neighbours on three
+    # sides); every 500 x 250 block of 1000^2 on (2, 4), whose width is no
+    # multiple of 4; and 16 x 24 blocks at K = 8, exactly 2K rows.
+    plan = [((SHARD_N, SHARD_N), SHARD_MESH, [8], [0, 6]),
+            ((CONV, CONV), SHARD_CONV, [1, 3, 8], list(range(8))),
+            ((32, 48), (2, 2), [8], list(range(4)))]
+    report = []
+    for grid, mesh_shape, ks, blocks in plan:
+        g = torch.randn(grid, generator=gen, device=dev) * 10
+        mesh = HeatMesh(mesh_shape, dev)
+        us = mesh.split(g)
+        for k in ks:
+            xch = temporal.DeepExchange2D(mesh, mesh.block_shape(grid), k, dev)
+            xch.phase1(us)
+            xch.phase2(us)
+            for coeffs in (equal, unequal):
+                e_out = torch.empty_like(g)
+                sk.temporal_steps(g, e_out, k, **coeffs)
+                for b in blocks:
+                    _check_g_block(dev, xch, b, us, k,
+                                   dict(grid_shape=grid, **coeffs), e_out,
+                                   err)
+                del e_out
+            del xch
+        report.append({"grid": list(grid), "mesh": list(mesh_shape),
+                       "block": list(mesh.block_shape(grid)), "k": ks,
+                       "blocks": blocks, "coeffs": [equal, unequal],
+                       "bitwise_plain_each_other_and_e": True,
+                       "deferred_plus_band_is_monolithic": True})
+        del g, us
+        torch.cuda.empty_cache()
+    # A diverging block: one NaN next to the ring of corner block (0, 0),
+    # blocks 252 wide so that every kind takes them.
+    nan_grid = (CONV, 1008)
+    g = torch.randn(nan_grid, generator=gen, device=dev) * 10
+    g[2, 3] = float("nan")
+    mesh = HeatMesh(SHARD_CONV, dev)
+    us = mesh.split(g)
+    xch = temporal.DeepExchange2D(mesh, mesh.block_shape(g.shape), 8, dev)
+    xch.phase1(us)
+    xch.phase2(us)
+    kw = dict(origin=(0, 0), grid_shape=nan_grid, **equal)
+    nan_res = {}
+    for kind, name in skb.KERNEL_OF.items():
+        out = torch.empty_like(us[0])
+        if kind in ("G-circ", "G"):
+            ext = torch.empty((us[0].shape[0] + 16, us[0].shape[1] + 16),
+                              device=dev)
+            (xch.assemble_circular if kind == "G-circ"
+             else xch.assemble_padded)(0, us[0], ext)
+            r = skb.LAUNCH[kind](ext, out, 8, True, **kw)
+        else:
+            r = skb.LAUNCH[kind](us[0], *xch.pieces(0), out, 8, True, **kw)
+        nan_res[name] = float(r)
+        check(math.isnan(nan_res[name]), f"NaN-seeded block gave {name} "
+              f"residual {nan_res[name]}, not NaN")
+        check(torch.equal(out[0], us[0][0])
+              and torch.equal(out[:, 0], us[0][:, 0]),
+              f"a diverging block moved the Dirichlet ring ({name})")
+    out = torch.empty_like(us[0])
+    nan_res["heat_g_band_fix"] = float(skb.band_fix(us[0], *xch.pieces(0),
+                                                    out, 8, True, **kw))
+    check(math.isnan(nan_res["heat_g_band_fix"]),
+          "NaN-seeded block gave a band residual that is not NaN")
+    check(torch.equal(out[0], us[0][0]), "the band kernel moved the ring")
+    del g, us, xch
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_g", "ok": True, "checks": report,
+          "nan_residual": nan_res, "max_abs_err": err})
+    return err
+
+
+def _sharded_run(cfg, expect, label, force=None):
+    """solve(cfg) with the counts set to 0 just before and read just
+    after; the launches must be exactly ``expect`` and every other kernel
+    and plain version must not have run."""
+    from parallel_heat_tpu_torch import solve, tune
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    sk.reset_counts()
+    if force is None:
+        res = solve(cfg)
+    else:
+        with tune.force("block_temporal_2d", force):
+            res = solve(cfg)
+    counts = dict(sk.counts)
+    for name, n in counts.items():
+        check(n == expect.get(name, 0),
+              f"{label}: {name} ran {n} times, {expect.get(name, 0)} "
+              f"expected")
+    return res, counts
+
+
+def phase_sharded_main_path():
+    """32768^2 on a (2, 4) mesh, 200 steps: the default resolution (K = 8,
+    overlap, G-uni bulk + band), the phase schedule and each other G kind
+    pinned, every grid bitwise the one-block run; and 16384^2 on (2, 2)
+    bitwise the 16384^2 main path. Returns each G kernel's launches."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, explain, solve
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    k = params().g_k_default
+    one_cfg = HeatConfig(nx=SHARD_N, ny=SHARD_N, steps=MAIN_STEPS)
+    cfg = one_cfg.replace(mesh_shape=SHARD_MESH)
+    resolved = explain(cfg)
+    check(resolved["halo_depth"] == f"{k} (auto)"
+          and resolved["halo_overlap"] == "overlap (auto)"
+          and resolved["decided_by"]["block_temporal_2d"]["choice"]
+          == "G-uni", f"32768^2 on (2, 4) resolved to {resolved}")
+    one = solve(one_cfg)
+    check(bool(torch.isfinite(one.grid).all()), "non-finite grid")
+    cells = SHARD_N * SHARD_N * MAIN_STEPS / 1e6
+    n = (MAIN_STEPS // k) * math.prod(SHARD_MESH)
+    runs = [("default", cfg, None, {"heat_g_block_uniform": n,
+                                     "heat_g_band_fix": n}),
+            ("phase", cfg.replace(halo_overlap="phase"), None,
+             {"heat_g_block_uniform": n}),
+            ("G-fuse", cfg, "G-fuse", {"heat_g_block_fused": n,
+                                       "heat_g_band_fix": n}),
+            ("G-circ", cfg, "G-circ", {"heat_g_block_circular": n}),
+            ("G", cfg, "G", {"heat_g_block_padded": n})]
+    out, launches = {}, {}
+    for label, c, force, expect in runs:
+        res, counts = _sharded_run(c, expect, f"32768^2 (2, 4) {label}",
+                                   force)
+        check(res.steps_run == MAIN_STEPS
+              and tuple(res.grid.shape) == (SHARD_N, SHARD_N),
+              f"32768^2 (2, 4) {label}: {res.steps_run} steps, shape "
+              f"{tuple(res.grid.shape)}")
+        check(torch.equal(res.grid, one.grid),
+              f"32768^2 (2, 4) {label} differs from the one-block run")
+        out[label] = {"elapsed_s": res.elapsed_s,
+                      "mcells_steps_per_s": cells / res.elapsed_s,
+                      "launches": {name: counts[name] for name in expect}}
+        if label in ("default", "G-fuse", "G-circ", "G"):
+            for name in expect:
+                launches.setdefault(name, counts[name])
+        del res
+        torch.cuda.empty_cache()
+    busy = _busy(lambda: solve(cfg), "32768^2 (2, 4) profiled")
+    busy_one = _busy(lambda: solve(one_cfg), "32768^2 one block profiled")
+    one_s = one.elapsed_s
+    del one
+    torch.cuda.empty_cache()
+    # 16384^2 on (2, 2): the existing main path's grid, bitwise.
+    big = HeatConfig(nx=BIG, ny=BIG, steps=MAIN_STEPS)
+    n4 = (MAIN_STEPS // k) * 4
+    res, _ = _sharded_run(big.replace(mesh_shape=(2, 2)),
+                          {"heat_g_block_uniform": n4,
+                           "heat_g_band_fix": n4}, "16384^2 (2, 2)")
+    check(torch.equal(res.grid, solve(big).grid),
+          "16384^2 on (2, 2) differs from the 16384^2 main path's grid")
+    emit({"phase": "sharded_main_path", "ok": True,
+          "shape": [SHARD_N, SHARD_N], "mesh": list(SHARD_MESH),
+          "block": [SHARD_N // SHARD_MESH[0], SHARD_N // SHARD_MESH[1]],
+          "steps": MAIN_STEPS, "resolved": resolved["path"],
+          "one_block": {"elapsed_s": one_s,
+                        "mcells_steps_per_s": cells / one_s},
+          "runs": out, "bitwise_one_block": True,
+          "profiled_default": busy, "profiled_one_block": busy_one,
+          "bitwise_16384_2x2": True,
+          "elapsed_s_16384_2x2": res.elapsed_s})
+    return launches
+
+
+def phase_sharded_converge():
+    """Converge mode on a mesh: 1000^2 on (2, 4) (rounds of 8 + 8 + 4 a
+    window, G-fuse + band), 20^2 on (2, 2) (blocks of 10 rows: the
+    monolithic round) and 256^2 on (2, 2) at halo depth 1 (G at K = 1),
+    each identical to its one-block run."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, solve
+
+    base = dict(steps=10000, converge=True, check_interval=WINDOW, eps=1e-3)
+    windows = 10000 // WINDOW
+    per_window = len([8, 8, 4]) * math.prod(SHARD_CONV)
+    cases = [
+        ("1000^2 (2, 4)", HeatConfig(nx=CONV, ny=CONV, mesh_shape=SHARD_CONV,
+                                     **base),
+         {"heat_g_block_fused": windows * per_window,
+          "heat_g_band_fix": windows * per_window}),
+        # Blocks of 10 rows: the K = 8 rounds run the monolithic kernel,
+        # the depth-4 remainder round (10 >= 2 * 4) bulk and band.
+        ("20^2 (2, 2)", HeatConfig(nx=20, ny=20, mesh_shape=(2, 2), **base),
+         {"heat_g_block_fused": 99 * 3 * 4, "heat_g_band_fix": 99 * 4}),
+        ("256^2 (2, 2) depth 1", HeatConfig(nx=256, ny=256, steps=MAIN_STEPS,
+                                            mesh_shape=(2, 2), halo_depth=1),
+         {"heat_g_block_uniform": MAIN_STEPS * 4,
+          "heat_g_band_fix": MAIN_STEPS * 4})]
+    out = {}
+    for label, cfg, expect in cases:
+        one = solve(cfg.replace(mesh_shape=None, halo_depth=None))
+        res, _ = _sharded_run(cfg, expect, label)
+        check((res.steps_run, res.converged) == (one.steps_run, one.converged)
+              and same_float(res.residual if res.residual is not None
+                             else 0.0,
+                             one.residual if one.residual is not None
+                             else 0.0)
+              and torch.equal(res.grid, one.grid),
+              f"{label}: {res.steps_run} steps, converged {res.converged}, "
+              f"residual {res.residual}; one block: {one.steps_run}, "
+              f"{one.converged}, {one.residual}")
+        out[label] = {"steps_run": res.steps_run,
+                      "converged": res.converged, "residual": res.residual,
+                      "elapsed_s": res.elapsed_s,
+                      "one_block_elapsed_s": one.elapsed_s,
+                      "launches": expect}
+    check(out["20^2 (2, 2)"]["steps_run"] == 1980
+          and out["20^2 (2, 2)"]["converged"],
+          f"20^2 on (2, 2) did not converge at step 1980: {out}")
+    check(out["1000^2 (2, 4)"]["steps_run"] == 10000,
+          f"1000^2 on (2, 4) ran {out['1000^2 (2, 4)']['steps_run']} steps")
+    emit({"phase": "sharded_converge", "ok": True, **out,
+          "identical_to_one_block": True})
+
+
+def phase_cli_sharded():
+    """The CLI on a (2, 2) mesh writes the one-block grid."""
+    from parallel_heat_tpu_torch import HeatConfig, solve
+    from parallel_heat_tpu_torch.utils.io import read_dat, write_dat
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.dat")
+        cmd = [sys.executable, "-m", "parallel_heat_tpu_torch", "--nx", "256",
+               "--ny", "256", "--steps", "100", "--mesh", "2,2", "--out",
+               path]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0,
+              f"sharded CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        grid = solve(HeatConfig(nx=256, ny=256, steps=100)).to_numpy()
+        ref = os.path.join(tmp, "ref.dat")
+        write_dat(ref, grid)
+        with open(path, "rb") as a, open(ref, "rb") as b:
+            check(a.read() == b.read(),
+                  "the sharded CLI's .dat differs from the one-block grid")
+        check(read_dat(path).shape == (256, 256), "read_dat shape")
+    emit({"phase": "cli_sharded", "ok": True,
+          "stdout": proc.stdout.strip().splitlines()})
+
+
+def _interior_cells(origin, shape, grid):
+    """Cells of the block ``shape`` at ``origin`` in the grid's interior."""
+    rows = (min(origin[0] + shape[0], grid[0] - 1) - max(origin[0], 1))
+    cols = (min(origin[1] + shape[1], grid[1] - 1) - max(origin[1], 1))
+    return max(rows, 0) * max(cols, 0)
+
+
+def phase_timing_g(dev):
+    """ms per launch of each G kernel at the main path's block (16384 x
+    8192, K = 8, no residual, as the rounds between check windows launch
+    them), its plain version, its bound and a conv2d yardstick; and the
+    exchange's own time per round."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallel_heat_tpu_torch.models import HeatPlate2D
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.ops.stencil import coeffs_f32
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = params().g_k_default
+    grid = (SHARD_N, SHARD_N)
+    mesh = HeatMesh(SHARD_MESH, dev)
+    bx, by = mesh.block_shape(grid)
+    plate = HeatPlate2D(*grid)
+    us = [plate.init_block(dev, mesh.origin(b, (bx, by)), (bx, by))
+          for b in range(mesh.size)]
+    xch = temporal.DeepExchange2D(mesh, (bx, by), k, dev)
+
+    def exchange():
+        xch.phase1(us)
+        xch.phase2(us)
+
+    exchange_ms = _time_ms(exchange, 20, 2)
+    b = mesh.index((1, 1))
+    o = mesh.origin(b, (bx, by))
+    kw = dict(origin=o, grid_shape=grid, cx=CX, cy=CY)
+    tail, hn, hs = xch.pieces(b)
+    ext_c = torch.empty((bx + 2 * k, by + 2 * k), device=dev)
+    ext_p = torch.empty_like(ext_c)
+    xch.assemble_circular(b, us[b], ext_c)
+    xch.assemble_padded(b, us[b], ext_p)
+    assemble_ms = _time_ms(lambda: xch.assemble_circular(b, us[b], ext_c),
+                           10, 2)
+    v = torch.empty((bx, by), device=dev)
+    a0, cx, cy = coeffs_f32(CX, CY)
+    w = torch.tensor([[0.0, cx, 0.0], [cy, a0, cy], [0.0, cx, 0.0]],
+                     dtype=torch.float32, device=dev).view(1, 1, 3, 3)
+
+    def conv_steps(x):
+        for _ in range(k):
+            x = F.conv2d(x, w)
+        return x
+
+    frame = ext_p.view(1, 1, bx + 2 * k, by + 2 * k)
+    lead = ext_p[k:k + bx].contiguous().view(1, 1, bx, by + 2 * k)
+    bands = torch.stack([ext_p[:3 * k], ext_p[bx - k:]]).view(
+        2, 1, 3 * k, by + 2 * k)
+    f = 4  # bytes a float32
+    piece_bytes = f * (bx * 2 * k + 2 * k * (by + 2 * k))
+    ops = OPS_PER_CELL_STEP * k
+    inner = _interior_cells(o, (bx, by), grid)
+    bulk_inner = _interior_cells((o[0] + k, o[1]), (bx - 2 * k, by), grid)
+    band_inner = inner - bulk_inner
+    mono = (f * 2 * bx * by + piece_bytes, ops * inner)
+    assembled = (f * ((bx + 2 * k) * (by + 2 * k) + bx * by), ops * inner)
+    timed = {
+        # The main path's launch of G-uni: the deferred bulk.
+        "heat_g_block_uniform": (
+            lambda: skb.block_uniform(us[b], tail, None, None, v, k, False,
+                                      **kw),
+            lambda: skb.block_uniform_plain(us[b], tail, None, None, v, k,
+                                            False, **kw),
+            lambda: conv_steps(lead),
+            (f * (bx * by + bx * 2 * k + (bx - 2 * k) * by),
+             ops * bulk_inner)),
+        "heat_g_block_uniform@monolithic": (
+            lambda: skb.block_uniform(us[b], tail, hn, hs, v, k, False, **kw),
+            lambda: skb.block_uniform_plain(us[b], tail, hn, hs, v, k, False,
+                                            **kw),
+            lambda: conv_steps(frame), mono),
+        "heat_g_block_fused": (
+            lambda: skb.block_fused(us[b], tail, hn, hs, v, k, False, **kw),
+            lambda: skb.block_fused_plain(us[b], tail, hn, hs, v, k, False,
+                                          **kw),
+            lambda: conv_steps(frame), mono),
+        "heat_g_block_circular": (
+            lambda: skb.block_circular(ext_c, v, k, False, **kw),
+            lambda: skb.block_circular_plain(ext_c, v, k, False, **kw),
+            lambda: conv_steps(frame), assembled),
+        "heat_g_block_padded": (
+            lambda: skb.block_padded(ext_p, v, k, False, **kw),
+            lambda: skb.block_padded_plain(ext_p, v, k, False, **kw),
+            lambda: conv_steps(frame), assembled),
+        "heat_g_band_fix": (
+            lambda: skb.band_fix(us[b], tail, hn, hs, v, k, False, **kw),
+            lambda: skb.band_fix_plain(us[b], tail, hn, hs, v, k, False,
+                                       **kw),
+            lambda: conv_steps(bands),
+            (f * (2 * 2 * k * by + 2 * 2 * k * 2 * k + 2 * k * (by + 2 * k)
+                  + 2 * k * by), ops * band_inner)),
+    }
+    rows = {}
+    for key, (kernel, plain, library, (nbytes, nops)) in timed.items():
+        name = key.split("@")[0]
+        rows[key] = {"block": [bx, by], "k": k,
+                     "ms": _time_ms(kernel, 20, 3),
+                     "plain_ms": _time_ms(plain, 2, 1),
+                     "library_ms": _time_ms(library, 5, 1),
+                     **_bound(nbytes, nops)}
+        rows[key].update(_device_ms(kernel, name))
+    # One whole overlapped round of the 8 blocks (phase 1, 8 bulks, phase
+    # 2, 8 bands), by events.
+    vs = [torch.empty_like(u) for u in us]
+    round_fn = temporal._cuda_round_2d(xch, "G-uni", "overlap",
+                                       grid_shape=grid, cx=CX, cy=CY)
+    round_ms = _time_ms(lambda: round_fn(us, vs, False), 10, 2)
+    del us, vs, xch, ext_c, ext_p, v, frame, lead, bands
+    torch.cuda.empty_cache()
+    emit({"phase": "timing_g", "kernels": rows,
+          "exchange_ms_per_round": exchange_ms,
+          "assemble_ms_per_block": assemble_ms,
+          "round_ms": round_ms,
+          "redundant_cell_share": 2 * k * (bx + by + 2 * k) / (bx * by),
+          "band_share_of_cells": 2 * k / bx})
+    return {name: row for name, row in rows.items() if "@" not in name}
+
+
 def main() -> int:
     import torch
 
@@ -1538,9 +2058,14 @@ def main() -> int:
         err.update(phase_kernels_mg(dev))
         launches.update(phase_ensemble(dev))
         launches.update(phase_implicit(dev))
+        err.update(phase_kernels_g(dev))
+        launches.update(phase_sharded_main_path())
+        phase_sharded_converge()
+        phase_cli_sharded()
         t = phase_timing(dev)
         t.update(phase_timing_3d(dev))
         t.update(phase_timing_ens_mg(dev))
+        t.update(phase_timing_g(dev))
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)

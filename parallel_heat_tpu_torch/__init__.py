@@ -13,13 +13,19 @@ through a multigrid V-cycle per step whose transfer operators are the
 kernels ``heat_mg_restrict`` and ``heat_mg_prolong``
 (``ops/multigrid.py``); and ``EnsembleSolver(config, B)``, B member
 grids of one config advanced together, through kernel M
-(``heat_m_ensemble``, ``ops/batched.py``) where it admits. Entry points
-run on ``cuda:0`` unless the caller passes ``device="cpu"``.
+(``heat_m_ensemble``, ``ops/batched.py``) where it admits. A 2D
+explicit config with ``mesh_shape`` runs cut over a mesh of blocks
+(:class:`HeatMesh`, every block on the run's one device) by K-deep halo
+exchanges and rounds of the sharded kernels ``heat_g_*``
+(``ops/stencil_kernels_block.py``, ``parallel/temporal.py``), bitwise a
+one-block run. Entry points run on ``cuda:0`` unless the caller passes
+``device="cpu"``.
 """
 
 from parallel_heat_tpu_torch.config import EnsembleConfig, HeatConfig
 from parallel_heat_tpu_torch.ensemble import EnsembleResult, EnsembleSolver
 from parallel_heat_tpu_torch.models import HeatPlate2D, HeatPlate3D
+from parallel_heat_tpu_torch.parallel.mesh import HeatMesh, pick_mesh_shape
 from parallel_heat_tpu_torch.solver import (
     HeatResult,
     explain,
@@ -33,10 +39,12 @@ __all__ = [
     "EnsembleResult",
     "EnsembleSolver",
     "HeatConfig",
+    "HeatMesh",
     "HeatPlate2D",
     "HeatPlate3D",
     "HeatResult",
     "explain",
+    "pick_mesh_shape",
     "solve",
     "__version__",
 ]

@@ -1,9 +1,9 @@
-"""Time kernels A, B, E, D, F, M and the multigrid transfer kernels on
-the card over their launch shapes.
+"""Time kernels A, B, E, D, F, M, the multigrid transfer kernels and the
+sharded block kernels G on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
         [--a-sizes 256,1000,1800] [--size-3d 512]
-        [--only a,b,e,d,f,m,mg] [--reps 10] [--out FILE] [--sass DIR]
+        [--only a,b,e,d,f,m,mg,g] [--reps 10] [--out FILE] [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -30,7 +30,13 @@ one-block-per-member launch over thread blocks. ``--only mg`` sweeps the
 thread block of ``heat_mg_restrict`` and ``heat_mg_prolong`` at 4098^2
 <-> 2050^2 and 512^2 <-> 257^2 (the finest pair of a 512^2 implicit
 run). Both check every launch shape bitwise
-against the plain version first. The values in
+against the plain version first. ``--only g`` sweeps the sharded path's
+G kernels at the main path's block, 16384 x 8192 of 32768^2 on a (2, 4)
+mesh: the deferred bulk of G-uni (the launch the default overlapped
+round makes) over output tiles, thread blocks and K, and the band kernel
+over tile widths and thread blocks at K = 8, each launch shape first
+checked bitwise against the plain version on a 500 x 252 block of
+1000 x 1008 on (2, 4). The values in
 ``ops/hopper_params.py`` marked "measured" come from this sweep.
 ``--sass DIR`` also writes each kernel library's machine code
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
@@ -84,6 +90,12 @@ M_SOLO_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 8), (64, 16)]
 MG_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 4), (64, 8),
              (128, 2), (128, 4), (256, 1)]
 MG_FINE = [(4098, 4098), (512, 512)]
+G_GRID, G_MESH = (32768, 32768), (2, 4)    # the sharded main path
+G_TILES = [(64, 112), (96, 112), (128, 112), (64, 128), (128, 128),
+           (64, 240)]
+G_BLOCKS = [(32, 8), (32, 16), (32, 32)]
+G_KS = [4, 6, 8]
+G_BAND_TILES = [112, 240, 496]
 
 
 def card_line() -> str:
@@ -329,6 +341,104 @@ _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"BRA (0x[0-9a-f]+)")
 
 
+def _g_setup(dev, grid, mesh_shape, k, blocks=None):
+    """The blocks of the plate ``grid`` on ``mesh_shape`` (or the given
+    ``blocks``), and the K-deep exchange after both phases."""
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    mesh = HeatMesh(mesh_shape, dev)
+    bs = mesh.block_shape(grid)
+    if blocks is None:
+        plate = HeatPlate2D(*grid)
+        blocks = [plate.init_block(dev, mesh.origin(b, bs), bs)
+                  for b in range(mesh.size)]
+    xch = temporal.DeepExchange2D(mesh, bs, k, dev)
+    xch.phase1(blocks)
+    xch.phase2(blocks)
+    return mesh, blocks, xch
+
+
+def sweep_g(reps: int):
+    """Yield one dict per launch shape of G-uni's deferred bulk and of the
+    band kernel at the sharded main path's block."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    small_grid = (1000, 1008)
+    small = torch.from_numpy((rng.standard_normal(small_grid) * 10)
+                             .astype(np.float32)).to(dev)
+    s_mesh = HeatMesh(G_MESH, dev)
+    s_blocks = s_mesh.split(small)
+    big_mesh, big_blocks, _ = _g_setup(dev, G_GRID, G_MESH, 1)
+    b = big_mesh.index((1, 1))
+    sb = s_mesh.index((1, 1))
+    size = "x".join(map(str, big_mesh.block_shape(G_GRID)))
+    for k in G_KS:
+        _, _, s_xch = _g_setup(dev, small_grid, G_MESH, k, s_blocks)
+        _, _, xch = _g_setup(dev, G_GRID, G_MESH, k, big_blocks)
+        s_kw = dict(origin=s_mesh.origin(sb, s_blocks[sb].shape),
+                    grid_shape=small_grid, cx=CX, cy=CY)
+        kw = dict(origin=big_mesh.origin(b, big_blocks[b].shape),
+                  grid_shape=G_GRID, cx=CX, cy=CY)
+        s_tail, s_hn, s_hs = s_xch.pieces(sb)
+        tail, hn, hs = xch.pieces(b)
+        want = torch.full_like(s_blocks[sb], float("nan"))
+        rp = skb.block_uniform_plain(s_blocks[sb], s_tail, None, None, want,
+                                     k, **s_kw)
+        out = torch.full_like(big_blocks[b], float("nan"))
+        for tile in G_TILES:
+            smem = p.e_smem_bytes(k, tile) + p.static_smem_bytes
+            if smem > p.smem_per_block_max:
+                continue
+            per_sm = p.smem_per_sm // (smem + p.smem_reserved_per_block)
+            for block in G_BLOCKS:
+                geo = tile + block
+                got = torch.full_like(want, float("nan"))
+                r = skb._launch("heat_g_block_uniform",
+                                (s_blocks[sb], s_tail, None, None), got, k,
+                                True, geometry=geo, **s_kw)
+                ok = bool(torch.equal(got[k:-k], want[k:-k])
+                          and torch.equal(r, rp))
+                ms = time_ms(lambda: skb._launch(
+                    "heat_g_block_uniform", (big_blocks[b], tail, None,
+                                             None), out, k, False,
+                    geometry=geo, **kw), reps)
+                yield {"kernel": "heat_g_block_uniform", "mode": "bulk",
+                       "size": size, "tile": list(tile),
+                       "block": list(block), "k": k, "smem_bytes": smem,
+                       "blocks_per_sm_by_smem": per_sm, "bitwise": ok,
+                       "ms": ms, "ms_per_step": ms / k,
+                       "default": (tile == p.g_tile and block == p.g_block
+                                   and k == p.g_k_default)}
+        if k != p.g_k_default:
+            continue
+        band_want = torch.full_like(s_blocks[sb], float("nan"))
+        rbp = skb.band_fix_plain(s_blocks[sb], s_tail, s_hn, s_hs, band_want,
+                                 k, **s_kw)
+        for tile_x in G_BAND_TILES:
+            for block in G_BLOCKS:
+                geo = (tile_x,) + block
+                got = torch.full_like(band_want, float("nan"))
+                r = skb._launch("heat_g_band_fix",
+                                (s_blocks[sb], s_tail, s_hn, s_hs), got, k,
+                                True, geometry=geo, **s_kw)
+                ok = bool(torch.equal(got.nan_to_num(7.0),
+                                      band_want.nan_to_num(7.0))
+                          and torch.equal(r, rbp))
+                ms = time_ms(lambda: skb._launch(
+                    "heat_g_band_fix", (big_blocks[b], tail, hn, hs), out,
+                    k, False, geometry=geo, **kw), reps)
+                yield {"kernel": "heat_g_band_fix", "size": size,
+                       "tile_x": tile_x, "block": list(block), "k": k,
+                       "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                       "default": (tile_x == p.g_band_tile_x
+                                   and block == p.g_band_block)}
+
+
 def sass_loops(sass: str):
     """``[(start, end, instructions)]`` of each backward branch's loop body
     in a ``cuobjdump -sass`` listing."""
@@ -364,7 +474,7 @@ def main(argv=None) -> int:
                     help="cube edge for kernels D and F")
     ap.add_argument("--only", default="a,b,e,d,f",
                     help="comma-separated kernels to sweep (a, b, e, d, f, "
-                         "m, mg)")
+                         "m, mg, g)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -397,7 +507,7 @@ def main(argv=None) -> int:
             row["size"] = args.size_3d
             rows.append(row)
             print(json.dumps(row), flush=True)
-    for key, run in (("m", sweep_m), ("mg", sweep_mg)):
+    for key, run in (("m", sweep_m), ("mg", sweep_mg), ("g", sweep_g)):
         for row in run(args.reps) if key in only else []:
             rows.append(row)
             print(json.dumps(row), flush=True)

@@ -6,7 +6,9 @@ did-not-converge, elapsed time, and the grid dump (``.dat`` for a 2D
 grid, ``.npy`` for a 3D one or a path ending in ``.npy``). ``--ensemble
 B`` runs B members of the config through the ensemble engine and prints
 one line per member, as the JAX CLI does; ``--scheme`` and the ``--mg-*``
-flags select the implicit integrators.
+flags select the implicit integrators; ``--mesh``, ``--no-overlap``,
+``--halo-depth`` and ``--halo-overlap`` cut a 2D run over a mesh of
+blocks, all on the run's one device (``auto`` is the one-device mesh).
 """
 
 from __future__ import annotations
@@ -64,6 +66,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda: the hand-written Hopper kernels; torch: the "
                          "textbook stencil in plain PyTorch; auto: cuda on "
                          "a GPU device, torch on the CPU")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh of blocks, e.g. '2,4' (default: one block; "
+                         "'auto' factorizes the one device this package "
+                         "runs on, so it gives (1, 1)); every block lives "
+                         "on --device")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="per-step (halo depth 1) torch path: pad the "
+                         "block with its halos instead of the "
+                         "interior/edge split")
+    ap.add_argument("--halo-depth", default="auto", metavar="K",
+                    help="exchange K-deep halos once per K steps (sharded "
+                         "runs). 'auto' takes kernel G's depth under "
+                         "backend cuda where the blocks hold it, else 1; "
+                         "see --explain")
+    ap.add_argument("--halo-overlap", default="auto",
+                    choices=("auto", "phase", "overlap", "pipeline"),
+                    help="schedule of the K-deep rounds (bitwise the same "
+                         "results): 'phase' runs both exchange phases, "
+                         "then the kernel; 'overlap' runs the bulk between "
+                         "them and the edge bands after; 'pipeline' is not "
+                         "ported yet; 'auto' is 'overlap'")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (cuda:0), 'cuda:N' or 'cpu'; without a GPU "
                          "the run fails unless 'cpu' is given")
@@ -76,17 +99,45 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _parse_mesh(arg: Optional[str], ndim: int):
+    """``--mesh``: None, 'auto' (the one device: all ones) or 'dx,dy'."""
+    if arg is None:
+        return None
+    if arg == "auto":
+        from parallel_heat_tpu_torch.parallel.mesh import pick_mesh_shape
+
+        return pick_mesh_shape(1, ndim)
+    try:
+        return tuple(int(x) for x in arg.split(","))
+    except ValueError:
+        raise SystemExit(f"invalid --mesh {arg!r}: expected e.g. '2,4'")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     from parallel_heat_tpu_torch import HeatConfig, solve
 
+    if args.halo_depth == "auto":
+        halo_depth = None
+    else:
+        try:
+            halo_depth = int(args.halo_depth)
+        except ValueError:
+            print(f"error: --halo-depth must be an integer or 'auto', got "
+                  f"{args.halo_depth!r}", file=sys.stderr)
+            return 2
     config = HeatConfig(nx=args.nx, ny=args.ny, nz=args.nz, cx=args.cx,
                         cy=args.cy, cz=args.cz, steps=args.steps,
                         converge=args.converge, eps=args.eps,
                         check_interval=args.check_interval,
                         backend=args.backend, device=args.device,
                         scheme=args.scheme,
+                        mesh_shape=_parse_mesh(
+                            args.mesh, 2 if args.nz is None else 3),
+                        overlap=not args.no_overlap, halo_depth=halo_depth,
+                        halo_overlap=(None if args.halo_overlap == "auto"
+                                      else args.halo_overlap),
                         # Only the knobs given: unset ones keep their
                         # defaults, which --scheme explicit requires.
                         **{k: v for k, v in (("mg_tol", args.mg_tol),
@@ -96,7 +147,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                            if v is not None})
     try:
         config.validate()
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.ensemble is not None and args.ensemble < 1:
@@ -112,7 +163,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.ensemble is not None:
         return _run_ensemble(args, config)
 
-    print("Starting parallel_heat_tpu_torch on 1 device(s), mesh (1, 1).")
+    print(f"Starting parallel_heat_tpu_torch on 1 device(s), mesh "
+          f"{config.mesh_or_unit()}.")
     grid = "x".join(map(str, config.shape))
     if config.converge:
         print(f"Grid size: {grid}  "

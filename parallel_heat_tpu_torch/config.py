@@ -15,10 +15,17 @@ implements, so one spec runs on either package. What differs:
 - ``scheme`` and the ``mg_*`` knobs select the implicit integrators
   (backward Euler, Crank-Nicolson: one multigrid V-cycle solve per
   step, ``ops/multigrid.py``) exactly as in the JAX package;
+- ``mesh_shape``, ``overlap``, ``halo_depth`` and ``halo_overlap`` cut a
+  2D explicit run over a mesh of blocks (``parallel/``), all on the
+  run's one device in this slice. ``halo_depth`` auto resolves to
+  kernel G's depth under ``backend="cuda"`` and to 1 otherwise; an
+  explicit depth past what the G kernels take is refused under
+  ``"cuda"``. A 3D mesh, an implicit scheme on a mesh and the
+  ``"pipeline"`` schedule are refused, naming the ROADMAP.md item;
 - the fields of the JAX package that this one does not implement yet
-  (meshes, observers) are rejected by :meth:`HeatConfig.from_dict` when
-  they are set away from their defaults, instead of being dropped
-  silently.
+  (observers, f32chunk accumulation, the partitioned V-cycle) are
+  rejected by :meth:`HeatConfig.from_dict` when they are set away from
+  their defaults, instead of being dropped silently.
 
 :class:`EnsembleConfig` is the JAX package's, field for field.
 """
@@ -37,6 +44,7 @@ _VALID_BACKENDS = ("auto", "cuda", "torch")
 # the stability bound; the implicit schemes solve (I - theta*L) u' = b
 # every step and are unconditionally stable.
 _VALID_SCHEMES = ("explicit", "backward_euler", "crank_nicolson")
+_VALID_HALO_OVERLAP = (None, "auto", "phase", "overlap", "pipeline")
 
 # --- cache-key partition ---------------------------------------------------
 #
@@ -49,6 +57,7 @@ SEMANTIC_FIELDS = (
     "nx", "ny", "nz", "cx", "cy", "cz",
     "steps", "converge", "eps", "check_interval",
     "dtype", "backend", "device",
+    "mesh_shape", "overlap", "halo_depth", "halo_overlap",
     "scheme", "mg_tol", "mg_cycles", "mg_smooth", "mg_levels",
 )
 OBSERVATION_ONLY_FIELDS: Tuple[str, ...] = ()
@@ -58,10 +67,6 @@ OBSERVATION_ONLY_FIELDS: Tuple[str, ...] = ()
 # values means the same run on both packages; any other value names a
 # feature this package would silently drop, so from_dict refuses it.
 JAX_ONLY_DEFAULTS = {
-    "mesh_shape": None,
-    "overlap": True,
-    "halo_depth": None,
-    "halo_overlap": None,
     "accumulate": "storage",
     "mg_partition": "auto",
     "guard_interval": None,
@@ -133,6 +138,30 @@ class EnsembleConfig:
         return dataclasses.replace(self, **kw)
 
 
+def _mesh_hint(config) -> str:
+    """The divisibility error's hint: the mesh shapes of the same device
+    count that divide the grid, or the nearest divisible grid sizes."""
+    from parallel_heat_tpu_torch.parallel.mesh import divisible_factorizations
+
+    mesh = config.mesh_or_unit()
+    n_dev = 1
+    for d in mesh:
+        n_dev *= d
+    valid = divisible_factorizations(n_dev, config.shape)
+    if valid:
+        return (f"; valid {n_dev}-device mesh shapes for this grid: "
+                + ", ".join(str(v) for v in valid[:8])
+                + (" ..." if len(valid) > 8 else ""))
+    near = []
+    for n, d, name in zip(config.shape, mesh, "xyz"):
+        if n % d != 0:
+            lo, hi = (n // d) * d, (n // d + 1) * d
+            near.append(f"n{name}={hi}" if lo == 0
+                        else f"n{name}={lo} or {hi}")
+    return (f"; no factorization of {n_dev} devices divides this grid — "
+            f"nearest divisible sizes: " + ", ".join(near))
+
+
 def multigrid_level_shapes(shape, mg_levels: Optional[int] = None,
                            min_interior: int = 3) -> list:
     """The geometric-multigrid hierarchy of a 2D grid ``shape`` (cells
@@ -187,6 +216,21 @@ class HeatConfig:
     # Where the grid lives: "cuda" (= cuda:0), "cuda:N" or "cpu".
     device: str = "cuda"
 
+    # Device mesh (dx, dy) cutting the grid into dx x dy blocks, or None
+    # for one block. Every block lives on `device` in this slice.
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    # The per-step (halo_depth 1) torch path's interior/edge split: the
+    # block's interior is computed from the block alone.
+    overlap: bool = True
+    # Steps per halo exchange: K-deep halos once per K steps. None =
+    # auto: hopper_params.g_k_default under backend "cuda" on a mesh
+    # whose blocks hold it, else 1.
+    halo_depth: Optional[int] = None
+    # Schedule of the K-deep rounds: "phase" (both exchange phases, then
+    # the kernel), "overlap" (the bulk between the phases, then the
+    # bands) or None/"auto" (= "overlap"). Bitwise equal results.
+    halo_overlap: Optional[str] = None
+
     # Time integrator: "explicit", or "backward_euler" /
     # "crank_nicolson", which solve (I - theta*L) u' = b every step with
     # a geometric-multigrid V-cycle (2D only) and take coefficients far
@@ -201,6 +245,12 @@ class HeatConfig:
     mg_cycles: int = 50
     mg_smooth: int = 1
     mg_levels: Optional[int] = None
+
+    def __post_init__(self):
+        # A JSON spec gives the mesh as a list; keep the config hashable.
+        if self.mesh_shape is not None:
+            object.__setattr__(self, "mesh_shape",
+                               tuple(int(d) for d in self.mesh_shape))
 
     @property
     def ndim(self) -> int:
@@ -217,6 +267,19 @@ class HeatConfig:
         if self.ndim == 3:
             return (self.cx, self.cy, self.cz)
         return (self.cx, self.cy)
+
+    def mesh_or_unit(self) -> Tuple[int, ...]:
+        """The mesh shape, the all-ones mesh when none is set."""
+        if self.mesh_shape is None:
+            return (1,) * self.ndim
+        return tuple(self.mesh_shape)
+
+    def is_sharded(self) -> bool:
+        return any(d > 1 for d in self.mesh_or_unit())
+
+    def block_shape(self) -> Tuple[int, ...]:
+        """The extent of one block of the mesh."""
+        return tuple(n // d for n, d in zip(self.shape, self.mesh_or_unit()))
 
     def stability_margin(self) -> float:
         """``1/2 - (cx + cy)``: negative means the explicit scheme
@@ -277,6 +340,7 @@ class HeatConfig:
             raise ValueError(
                 f"mg_levels must be >= 1 (or None for full "
                 f"coarsening), got {self.mg_levels}")
+        self._validate_mesh()
         if self.scheme == "explicit":
             # Inert knobs stay at their defaults: a loud decline, not a
             # silent no-op.
@@ -298,6 +362,78 @@ class HeatConfig:
                 f"nz=None)")
         return self
 
+    def _validate_mesh(self) -> None:
+        """The mesh fields: the JAX package's rules, the cuda depth rule,
+        and this slice's refusals."""
+        mesh = self.mesh_or_unit()
+        if len(mesh) != self.ndim:
+            raise ValueError(f"mesh_shape {mesh} rank does not match grid "
+                             f"rank {self.ndim}")
+        if any(d < 1 for d in mesh):
+            raise ValueError(f"mesh_shape entries must be >= 1, got {mesh}")
+        for n, d, name in zip(self.shape, mesh, "xyz"):
+            if n % d != 0:
+                raise ValueError(f"grid n{name}={n} is not divisible by "
+                                 f"mesh d{name}={d}" + _mesh_hint(self))
+        if self.halo_depth is not None and self.halo_depth < 1:
+            raise ValueError(f"halo_depth must be >= 1 (or None for auto), "
+                             f"got {self.halo_depth}")
+        if self.halo_overlap not in _VALID_HALO_OVERLAP:
+            raise ValueError(f"halo_overlap must be one of 'auto'/None, "
+                             f"'phase', 'overlap', 'pipeline', got "
+                             f"{self.halo_overlap!r}")
+        if self.scheme != "explicit":
+            # The JAX package's inert-knob rules for the implicit schemes.
+            if self.halo_depth not in (None, 1):
+                raise ValueError(
+                    f"halo_depth={self.halo_depth} is an explicit-scheme "
+                    f"exchange schedule (K steps per round); it does not "
+                    f"apply to scheme={self.scheme!r} — drop the flag")
+            if self.halo_overlap not in (None, "auto"):
+                raise ValueError(
+                    f"halo_overlap={self.halo_overlap!r} schedules the "
+                    f"explicit temporal rounds; it does not apply to "
+                    f"scheme={self.scheme!r} — drop the flag")
+            if not self.overlap:
+                raise ValueError(
+                    f"overlap=False schedules the explicit per-step "
+                    f"interior/edge split; it does not apply to "
+                    f"scheme={self.scheme!r} — drop the flag")
+        if not self.is_sharded():
+            return
+        if self.ndim == 3:
+            raise ValueError(
+                f"a 3D mesh {mesh} is not ported yet: the sharded 3D path "
+                f"(kernels H, H-fused, band_fix_3d) is the next slice, "
+                f"ROADMAP.md queue 1 item 8")
+        if self.scheme != "explicit":
+            raise ValueError(
+                f"scheme={self.scheme!r} on a mesh is not ported yet "
+                f"(ROADMAP.md queue 1 item 9, sharded implicit); run it on "
+                f"one block (mesh_shape=None)")
+        if self.halo_overlap == "pipeline":
+            raise NotImplementedError(
+                "halo_overlap='pipeline' (the double-buffered edge-strip "
+                "rounds, _panel_strips_2d) is not ported yet: ROADMAP.md "
+                "queue 1 item 8; use 'overlap' or 'phase' (bitwise the "
+                "same results)")
+        if self.halo_depth is not None and self.halo_depth > 1:
+            bmin = min(self.block_shape())
+            if self.halo_depth > bmin:
+                # Deeper than a block: a neighbour owns too few cells.
+                raise ValueError(f"halo_depth={self.halo_depth} exceeds the "
+                                 f"smallest block extent {bmin}")
+            if self.backend == "cuda":
+                from parallel_heat_tpu_torch.ops.hopper_params import params
+
+                k_max = params().g_k_max()
+                if self.halo_depth > k_max:
+                    raise ValueError(
+                        f"backend='cuda' takes halo_depth <= {k_max} (the "
+                        f"G kernels' shared-memory bound at tile "
+                        f"{params().g_tile}), got {self.halo_depth}; deeper "
+                        f"rounds run under backend='torch'")
+
     # --- (de)serialization -------------------------------------------------
 
     def to_json(self) -> str:
@@ -318,8 +454,7 @@ class HeatConfig:
         if off:
             raise ValueError(
                 f"{', '.join(off)}: not implemented in "
-                f"parallel_heat_tpu_torch yet (see ROADMAP.md queue 1); "
-                f"only the single-device float32 paths are")
+                f"parallel_heat_tpu_torch yet (see ROADMAP.md queue 1)")
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(d) - known)
         if unknown:

@@ -28,12 +28,16 @@ def from_jax(config_fields: dict, grid: Optional[np.ndarray],
     ``ensemble_fields``, ``(HeatConfig, EnsembleConfig, stacked grids or
     None)``.
 
-    2D and 3D (``nz`` set) configs carry across, ``scheme`` and the
-    ``mg_*`` knobs included. JAX-only fields set away from their defaults
-    (a mesh, observers, ...) are refused, as
+    2D and 3D (``nz`` set) configs carry across, ``scheme``, the
+    ``mg_*`` knobs and the mesh fields (``mesh_shape``, ``overlap``,
+    ``halo_depth``, ``halo_overlap``) included. JAX-only fields set away
+    from their defaults (observers, ...) are refused, as
     :meth:`HeatConfig.from_dict` does. The grid, when given, is checked
     against the config's shape (``(B, *shape)`` for an ensemble of B
-    members) and copied to ``device`` as float32.
+    members) and copied to ``device`` as float32; the global grid of a
+    sharded config (``np.asarray`` of a JAX sharded array gathers it)
+    comes back split into this package's blocks, a list in the mesh's
+    row-major order that ``solve(config, initial=blocks)`` takes.
     """
     fields = dict(config_fields)
     backend = fields.get("backend", "auto")
@@ -54,6 +58,10 @@ def from_jax(config_fields: dict, grid: Optional[np.ndarray],
             raise ValueError(f"grid shape {arr.shape} does not match the "
                              f"expected shape {want}")
         tensor = torch.tensor(arr, dtype=torch.float32, device=device)
+        if ensemble is None and config.is_sharded():
+            from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+            tensor = HeatMesh(config.mesh_shape, device).split(tensor)
     if ensemble is not None:
         return config, ensemble, tensor
     return config, tensor

@@ -1,0 +1,226 @@
+// Shared code of the sharded 2D block kernels heat_g_block_padded.cu,
+// heat_g_block_circular.cu, heat_g_block_fused.cu, heat_g_block_uniform.cu
+// and heat_g_band_fix.cu: K Jacobi steps on one bx x by block of an
+// m x n grid cut over a device mesh, from the block and the K-deep halo
+// its neighbours sent (parallel/temporal.py), with the residual of the
+// last step.
+//
+// Replaces the kernel-G family of parallel_heat_tpu/ops/pallas_stencil.py
+// (_build_temporal_block, _build_temporal_block_circular,
+// _build_temporal_block_fused, _build_temporal_block_uniform,
+// _build_band_fix_2d). Each TPU builder keeps its own entry point here.
+//
+// Bound on the H100: a round reads the block once and writes its core
+// once for K steps, plus each tile's K-deep frame, about
+// 8*(1+2K/TY)*(1+2K/TX)/K bytes per cell-step (kernel E's), plus the
+// tail and halo pieces, 4*(2K*bx + 2K*(by+2K)) bytes a block. Across the
+// mesh a block also recomputes 2K(bx+by+2K) cells per round that its
+// neighbours own, under 0.3% of a 16384 x 8192 block at K = 8; the
+// design keeps that share small by taking K deep and by never assembling
+// the extended block in HBM (the fused and uniform forms gather the
+// pieces straight into shared memory). Below the bytes lies E's
+// instruction issue in the shared-memory step loop, which the family
+// shares with E line for line.
+//
+// Design. The step phase is kernel E's (heat_temporal.cuh): tiles of
+// TY x TX output cells with a K-deep frame on all four sides, ping-pong
+// in shared memory, the last step written straight to global memory and
+// the residual folded by atomicMax on the float's bits. Cells outside
+// the global interior are copied, never recomputed, so the Dirichlet
+// ring stays bit-exact even in a diverging run, and a block's K steps are
+// bitwise kernel E's K steps on the same cells of the global grid (the
+// TPU kernels pin the ring multiplicatively and re-pin it afterwards;
+// this family needs neither). What is new is the load: a block's framed
+// tile is gathered in global coordinates (row_off, col_off of the
+// block's cell (0, 0), int64) from
+//   - u, the block, for its own cells;
+//   - tail = [hi | lo] (bx x 2K): hi for global columns
+//     [col_off+by, col_off+by+K), lo for [col_off-K, col_off) -- the
+//     circular order of pallas_stencil.py:1648-1650;
+//   - halo_n / halo_s (K x (by+2K)), the K rows above and below, corners
+//     included, their columns in the same circular order [u | hi | lo];
+//   - zero outside the global grid, and beyond the block's K-deep frame
+//     (a ragged last tile reaches past it; those cells are K or more
+//     cells from any output and never reach one in K steps).
+// The assembled layouts read one buffer instead: circular (the pieces
+// stacked as [halo_n ; u | hi | lo ; halo_s]) and padded ([lo | u | hi]
+// between the halo rows, the JAX package's exchange_halos_deep_2d).
+// The deferred bulk (halo_n = halo_s = null) writes only output rows
+// [K, bx-K), whose K-step cone stays inside the block; the band kernel
+// writes rows [0, K) and [bx-K, bx) from two (3K) x (TX+2K) windows into
+// the bulk's output in place. Each counts the residual of exactly the
+// rows it writes, so max(bulk, band) is the monolithic kernel's residual.
+
+#pragma once
+
+#include "heat_temporal.cuh"
+
+enum HeatGLayout { kHeatGFused = 0, kHeatGCircular = 1, kHeatGPadded = 2 };
+
+// The address of block-local cell (lr, lc), -K <= lr < bx + K and
+// -K <= lc < by + K, in the layout's buffers; null where the fused
+// layout has no halo row (the deferred bulk), which loads as 0.
+template <int kLayout>
+__device__ __forceinline__ const float* heat_g_src(
+    const float* u, const float* tail, const float* hn, const float* hs,
+    int64_t bx, int64_t by, int k, int64_t lr, int64_t lc) {
+  const int64_t w = by + 2 * k;  // a halo row, or an assembled row
+  if (kLayout == kHeatGPadded) return u + (lr + k) * w + (lc + k);
+  const int64_t cc = lc < 0 ? lc + w : lc;  // circular column
+  if (kLayout == kHeatGCircular) return u + (lr + k) * w + cc;
+  if (lr < 0) return hn != nullptr ? hn + (lr + k) * w + cc : nullptr;
+  if (lr >= bx) return hs != nullptr ? hs + (lr - bx) * w + cc : nullptr;
+  if (lc >= 0 && lc < by) return u + lr * by + lc;
+  return tail + lr * (2 * k) + (cc - by);
+}
+
+// The parameters of every G kernel, and their names: each entry point
+// defines its own __global__ function (so a profile names it) whose body
+// is heat_g_tile with its layout and load.
+#define HEAT_G_PARAMS                                                       \
+  const float *__restrict__ u, const float *__restrict__ tail,              \
+      const float *__restrict__ hn, const float *__restrict__ hs,           \
+      float *__restrict__ out, uint32_t *res, int64_t m, int64_t n,         \
+      int64_t bx, int64_t by, int64_t row_off, int64_t col_off, int k,      \
+      int64_t r_begin0, int64_t r_begin1, int64_t rows,                     \
+      int64_t n_col_tiles, int tile_y, int tile_x, float a0, float cx,      \
+      float cy
+#define HEAT_G_ARGS                                                         \
+  u, tail, hn, hs, out, res, m, n, bx, by, row_off, col_off, k, r_begin0,   \
+      r_begin1, rows, n_col_tiles, tile_y, tile_x, a0, cx, cy
+
+typedef void (*HeatGKernel)(const float*, const float*, const float*,
+                            const float*, float*, uint32_t*, int64_t,
+                            int64_t, int64_t, int64_t, int64_t, int64_t, int,
+                            int64_t, int64_t, int64_t, int64_t, int, int,
+                            float, float, float);
+
+// One block of the launch: the output tile of TY x TX cells whose first
+// row is block row r0 and first column c0, in region blockIdx.y (its
+// first row r_begin0 or r_begin1, `rows` rows long), K steps, written to
+// `out` (bx x by) and its residual folded into *res.
+template <int kLayout, bool kUni>
+__device__ __forceinline__ void heat_g_tile(HEAT_G_PARAMS) {
+  extern __shared__ __align__(16) float smem[];
+  const int sy = tile_y + 2 * k;
+  const int sw = tile_x + 2 * k;
+  // The uniform load puts the core columns on 16-byte boundaries, as
+  // kernel E-uni does.
+  const int pad = kUni ? (4 - k % 4) % 4 : 0;
+  const int sx = kUni ? (pad + sw + 3) / 4 * 4 : sw;
+  float* src = smem + pad;
+  float* dst = src + sy * sx;
+  const int64_t region = blockIdx.y == 0 ? r_begin0 : r_begin1;
+  const int64_t r0 = region + (blockIdx.x / n_col_tiles) * tile_y;
+  const int64_t c0 = (blockIdx.x % n_col_tiles) * tile_x;
+  // Block-local coordinates of shared cell (0, 0).
+  const int64_t lr0 = r0 - k;
+  const int64_t lc0 = c0 - k;
+
+  // Does the framed tile lie inside the block? Then each of its rows is
+  // one run of one buffer, whatever the layout.
+  const bool inside = lr0 >= 0 && lr0 + sy <= bx && lc0 >= 0 &&
+                      lc0 + sw <= by;
+  if (kUni && inside) {
+    // Kernel E-uni's load from u: 16-byte copies for the core columns
+    // and no test per copy.
+    const int vecs = tile_x / 4;
+    for (int r = threadIdx.y; r < sy; r += blockDim.y) {
+      const float* g = u + (lr0 + r) * by + lc0;
+      float* s = src + r * sx;
+      for (int v = threadIdx.x; v < vecs; v += blockDim.x)
+        __pipeline_memcpy_async(s + k + 4 * v, g + k + 4 * v, 16);
+      for (int e = threadIdx.x; e < 2 * k; e += blockDim.x) {
+        const int c = e < k ? e : tile_x + e;
+        __pipeline_memcpy_async(s + c, g + c, 4);
+      }
+    }
+  } else if (inside) {
+    // Kernel E's load of an interior tile: one 4-byte copy per cell,
+    // from the row's start in the layout's buffer.
+    for (int r = threadIdx.y; r < sy; r += blockDim.y) {
+      const float* g =
+          heat_g_src<kLayout>(u, tail, hn, hs, bx, by, k, lr0 + r, lc0);
+      for (int c = threadIdx.x; c < sw; c += blockDim.x)
+        __pipeline_memcpy_async(src + r * sx + c, g + c, 4);
+    }
+  } else {
+    // A tile at the block's edge: one checked 4-byte copy per cell from
+    // the piece that holds it, zero-filled where none does.
+    for (int r = threadIdx.y; r < sy; r += blockDim.y) {
+      const int64_t lr = lr0 + r;
+      const int64_t gi = row_off + lr;
+      const bool row_in = gi >= 0 && gi < m && lr >= -k && lr < bx + k;
+      for (int c = threadIdx.x; c < sw; c += blockDim.x) {
+        const int64_t lc = lc0 + c;
+        const int64_t gj = col_off + lc;
+        const float* p =
+            row_in && gj >= 0 && gj < n && lc >= -k && lc < by + k
+                ? heat_g_src<kLayout>(u, tail, hn, hs, bx, by, k, lr, lc)
+                : nullptr;
+        __pipeline_memcpy_async(src + r * sx + c, p != nullptr ? p : u, 4,
+                                p != nullptr ? 0 : 4);
+      }
+    }
+  }
+  __pipeline_commit();
+
+  // The tile's output rows and columns, cut at the region's and the
+  // block's end.
+  const int64_t r_left = region + rows - r0;
+  const int64_t c_left = by - c0;
+  const int w_r1 = k + static_cast<int>(r_left < tile_y ? r_left : tile_y);
+  const int w_c1 = k + static_cast<int>(c_left < tile_x ? c_left : tile_x);
+  heat_tile_steps(src, dst, sx, sy, sw, row_off + lr0, col_off + lc0, m, n,
+                  k, k, w_r1, w_c1, a0, cx, cy, out, lr0 * by + lc0, by,
+                  res);
+}
+
+// Checks the arguments, zeroes *res, and launches `kernel` over
+// `regions` (1 or 2) row regions of `rows` rows each, starting at block
+// rows r_begin0 and r_begin1, on `stream`. Returns a cudaError_t: 0, or
+// the reason the launch was refused.
+// `kernel` is the entry point's __global__ function; `uni` says whether
+// its body loads as kernel E-uni does (shared rows padded to 16 bytes).
+inline int heat_g_launch(HeatGKernel kernel, bool uni, const float* u,
+                         const float* tail, const float* hn, const float* hs,
+                         float* out, uint32_t* res, int64_t m, int64_t n,
+                         int64_t bx, int64_t by, int64_t row_off,
+                         int64_t col_off, int k, int64_t r_begin0,
+                         int64_t r_begin1, int64_t rows, int regions,
+                         int tile_y, int tile_x, int block_x, int block_y,
+                         float a0, float cx, float cy, void* stream) {
+  const int threads = block_x * block_y;
+  if (m < 3 || n < 3 || bx < 1 || by < 1 || k < 1 || k > bx || k > by ||
+      row_off < 0 || col_off < 0 || row_off + bx > m || col_off + by > n ||
+      rows < 1 || r_begin0 < 0 || r_begin1 + rows > bx || regions < 1 ||
+      regions > 2 || tile_y < 1 || tile_x < 1 || block_x < 1 ||
+      block_y < 1 || threads % 32 != 0 || threads > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (uni && (by % 4 != 0 || tile_x % 4 != 0 ||
+              reinterpret_cast<uintptr_t>(u) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_col_tiles = (by + tile_x - 1) / tile_x;
+  const int64_t blocks = n_col_tiles * ((rows + tile_y - 1) / tile_y);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int pad = uni ? (4 - k % 4) % 4 : 0;
+  const size_t sw = static_cast<size_t>(tile_x + 2 * k);
+  const size_t sx = uni ? (pad + sw + 3) / 4 * 4 : sw;
+  const size_t smem =
+      sizeof(float) * (2 * static_cast<size_t>(tile_y + 2 * k) * sx +
+                       (uni ? 4 : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (res != nullptr) {
+    err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(static_cast<unsigned>(blocks), regions),
+           dim3(block_x, block_y), smem, s>>>(
+      u, tail, hn, hs, out, res, m, n, bx, by, row_off, col_off, k, r_begin0,
+      r_begin1, rows, n_col_tiles, tile_y, tile_x, a0, cx, cy);
+  return static_cast<int>(cudaGetLastError());
+}

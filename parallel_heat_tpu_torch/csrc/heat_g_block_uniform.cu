@@ -1,0 +1,43 @@
+// heat_g_block_uniform — heat_g_block_fused with kernel E-uni's uniform,
+// vectorised load: bitwise the same outputs.
+//
+// Replaces: parallel_heat_tpu/ops/pallas_stencil.py::
+// _build_temporal_block_uniform (pallas_call name "heat_g_block_uniform",
+// defined at :1827, call :2050), with and without defer_ns.
+//
+// Bound on the H100, and the design: heat_g.cuh. The TPU builder issues
+// every strip's window the same way so that its DMA schedule has no
+// branch; here a tile whose K-framed window lies inside the block (nearly
+// every tile of a large block) loads its core columns from u as 16-byte
+// cp.async copies and its frame columns as 4-byte ones, with no test per
+// copy, as E-uni loads; tiles at the block's edge take the fused form's
+// checked per-cell load of the pieces. Takes blocks whose width is a
+// multiple of 4 and a 16-byte aligned u.
+
+#include "heat_g.cuh"
+
+__global__ void __launch_bounds__(1024)
+    heat_g_block_uniform_kernel(HEAT_G_PARAMS) {
+  heat_g_tile<kHeatGFused, true>(HEAT_G_ARGS);
+}
+
+// As heat_g_block_fused; by and tile_x must be multiples of 4 and `u`
+// 16-byte aligned.
+extern "C" int heat_g_block_uniform(
+    const float* u, const float* tail, const float* halo_n,
+    const float* halo_s, float* out, uint32_t* res, int64_t m, int64_t n,
+    int64_t bx, int64_t by, int64_t row_off, int64_t col_off, int k,
+    int tile_y, int tile_x, int block_x, int block_y, float a0, float cx,
+    float cy, void* stream) {
+  if ((halo_n == nullptr) != (halo_s == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool defer = halo_n == nullptr;
+  return heat_g_launch(
+      heat_g_block_uniform_kernel, true, u, tail, halo_n, halo_s, out, res, m,
+      n, bx, by, row_off, col_off, k, defer ? k : 0, 0, defer ? bx - 2 * k : bx,
+      1, tile_y, tile_x, block_x, block_y, a0, cx, cy, stream);
+}
+
+extern "C" const char* heat_g_block_uniform_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,6 +1,7 @@
 // Shared device code of the K-step temporal kernels (heat_e_temporal.cu,
-// heat_e_uni_temporal.cu): the step phase that follows a block's load of
-// its framed tile. The two kernels differ only in how they load.
+// heat_e_uni_temporal.cu, and through heat_g.cuh the sharded block
+// kernels heat_g_*.cu): the step phase that follows a block's load of
+// its framed tile. The kernels differ only in how they load.
 // heat_a_resident.cu steps its resident tiles with heat_e_tile_step_any.
 
 #pragma once
@@ -70,16 +71,20 @@ __device__ __forceinline__ void heat_e_tile_step_any(
 }
 
 // Steps 1 .. K of one block, after its load of the framed tile was
-// issued (cp.async) and committed: `src` holds sy rows of sw = TX + 2K
-// cells at a row stride of sx floats, and shared cell (0, 0) is global
-// cell (gy0, gx0). Waits for the load, runs the K steps ping-ponging
-// between src and dst, writes the central tile to `out` and, with `res`
-// non-null, reduces the last step's residual into *res. Every thread of
-// the block must call it.
-__device__ __forceinline__ void heat_e_steps(
+// issued (cp.async) and committed: `src` holds sy rows of sw cells at a
+// row stride of sx floats, and shared cell (0, 0) is global cell (gy0,
+// gx0) of an m x n grid, whose interior decides update or copy. Waits
+// for the load, runs the K steps ping-ponging between src and dst, and
+// writes the last step's tile rows [w_r0, w_r1) and columns [k, w_c1)
+// to out[base + r * ld + c]; with `res` non-null it reduces the
+// residual of exactly those cells into *res. Every thread of the block
+// must call it. heat_e_steps writes into the grid itself; the sharded
+// block kernels (heat_g.cuh) write into a block of it.
+__device__ __forceinline__ void heat_tile_steps(
     float* src, float* dst, int sx, int sy, int sw, int64_t gy0,
-    int64_t gx0, int64_t m, int64_t n, int k, int tile_y, int tile_x,
-    float a0, float cx, float cy, float* __restrict__ out, uint32_t* res) {
+    int64_t gx0, int64_t m, int64_t n, int k, int w_r0, int w_r1, int w_c1,
+    float a0, float cx, float cy, float* __restrict__ out, int64_t base,
+    int64_t ld, uint32_t* res) {
   // The grid's interior, rows 1 .. m-2 and columns 1 .. n-2, in tile
   // coordinates (clamped to the tile, so an empty range stays empty).
   const int r_lo = heat_clamp_local(1 - gy0, 0, sy);
@@ -106,13 +111,24 @@ __device__ __forceinline__ void heat_e_steps(
     dst = t;
   }
 
-  // Step K: the central tile, cut at the grid's edge, written to global
-  // memory, with the residual.
-  const int r_end = heat_clamp_local(m - gy0, 0, k + tile_y);
-  const int c_end = heat_clamp_local(n - gx0, 0, k + tile_x);
+  // Step K: the rows and columns asked for, written to global memory,
+  // with the residual.
   uint32_t rmax = 0u;
-  heat_e_tile_step_any<true>(edge, src, out, sx, gy0 * n + gx0, n,
-                             max(t_r0, k), min(t_r1, r_end), k, c_end, r_lo,
+  heat_e_tile_step_any<true>(edge, src, out, sx, base, ld,
+                             max(t_r0, w_r0), min(t_r1, w_r1), k, w_c1, r_lo,
                              r_hi, c_lo, c_hi, a0, cx, cy, &rmax);
   if (res != nullptr) heat_block_max(rmax, res);
+}
+
+// heat_tile_steps for a tile of the grid itself (kernels E and E-uni):
+// the central TY x TX tile, cut at the grid's edge, lands in `out`, an
+// m x n grid like the input.
+__device__ __forceinline__ void heat_e_steps(
+    float* src, float* dst, int sx, int sy, int sw, int64_t gy0,
+    int64_t gx0, int64_t m, int64_t n, int k, int tile_y, int tile_x,
+    float a0, float cx, float cy, float* __restrict__ out, uint32_t* res) {
+  const int r_end = heat_clamp_local(m - gy0, 0, k + tile_y);
+  const int c_end = heat_clamp_local(n - gx0, 0, k + tile_x);
+  heat_tile_steps(src, dst, sx, sy, sw, gy0, gx0, m, n, k, k, r_end, c_end,
+                  a0, cx, cy, out, gy0 * n + gx0, n, res);
 }

@@ -75,8 +75,10 @@ def packable(config: HeatConfig):
     code). Streaming kernels have no batched twin and run solo."""
     try:
         config = config.validate()
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         return False, f"invalid config: {e}"
+    if config.is_sharded():
+        return False, "sharded configs run solo (no member axis across a mesh)"
     backend = resolve_backend(config, torch.device(config.device))
     if config.scheme != "explicit":
         return True, ("vmap over the implicit V-cycle multistep "
@@ -216,6 +218,11 @@ class EnsembleSolver:
         elif isinstance(ensemble, int):
             ensemble = EnsembleConfig(members=ensemble)
         config = config.validate()
+        if config.is_sharded():
+            raise ValueError(
+                "EnsembleSolver is single-device per member: sharded "
+                "mesh_shape configs run solo (the member axis does not "
+                "span a mesh)")
         self.device = resolve_device(config, device)
         self.config = config.replace(device=str(self.device))
         self.ensemble = ensemble.validate()

@@ -73,8 +73,26 @@ KERNELS = {
     "heat_mg_prolong": ("heat_mg_prolong.cu",
                         [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
                          _P]),
+    # The sharded 2D block kernels (csrc/heat_g.cuh): the pieces form
+    # takes u, tail, halo_n, halo_s, the assembled forms one buffer.
+    "heat_g_block_padded": ("heat_g_block_padded.cu",
+                            [_P, _P, _P] + [_I64] * 6 + [_I32] * 5
+                            + [_F32] * 3 + [_P]),
+    "heat_g_block_circular": ("heat_g_block_circular.cu",
+                              [_P, _P, _P] + [_I64] * 6 + [_I32] * 5
+                              + [_F32] * 3 + [_P]),
+    "heat_g_block_fused": ("heat_g_block_fused.cu",
+                           [_P] * 6 + [_I64] * 6 + [_I32] * 5 + [_F32] * 3
+                           + [_P]),
+    "heat_g_block_uniform": ("heat_g_block_uniform.cu",
+                             [_P] * 6 + [_I64] * 6 + [_I32] * 5
+                             + [_F32] * 3 + [_P]),
+    "heat_g_band_fix": ("heat_g_band_fix.cu",
+                        [_P] * 6 + [_I64] * 6 + [_I32] * 4 + [_F32] * 3
+                        + [_P]),
 }
-_COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh")
+_COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
+           "heat_g.cuh")
 
 # nvcc's stderr of each build in this process (ptxas register and
 # shared-memory report), by kernel name.

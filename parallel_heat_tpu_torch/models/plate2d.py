@@ -39,9 +39,20 @@ class HeatPlate2D:
         are bitwise equal (and equal to the float64 oracle while the
         factors stay below 2^24, i.e. for nx, ny <= 8192).
         """
+        return self.init_block(device, (0, 0), (self.nx, self.ny), dtype)
+
+    def init_block(self, device, origin, shape,
+                   dtype=torch.float32) -> torch.Tensor:
+        """The ``shape`` block of :meth:`init_grid` whose cell (0, 0) is
+        global cell ``origin``, built alone: the same float32 operations
+        on the same values (the global indices are exact in float32), so
+        the blocks of a mesh are bitwise the slices of the full grid and
+        no full-grid temporary is needed."""
         nx, ny = self.nx, self.ny
-        ix = torch.arange(nx, dtype=torch.float32, device=device)
-        iy = torch.arange(ny, dtype=torch.float32, device=device)
+        ix = torch.arange(origin[0], origin[0] + shape[0],
+                          dtype=torch.float32, device=device)
+        iy = torch.arange(origin[1], origin[1] + shape[1],
+                          dtype=torch.float32, device=device)
         fx = ix * (nx - ix - 1)
         fy = iy * (ny - iy - 1)
         return (fx[:, None] * fy[None, :]).to(dtype)

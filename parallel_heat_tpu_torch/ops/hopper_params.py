@@ -141,6 +141,23 @@ class HopperParams:
     m_sync_visits: int = 50
     m_solo_rows_per_thread: int = 4
 
+    # --- the sharded block kernels heat_g_* (measured) -------------------
+    # A block's output tile (rows, cols), thread block and default depth
+    # K; g_k_max() is the deepest K that keeps e_min_blocks_per_sm blocks
+    # resident. The G family runs E's step phase on the tiles of one
+    # block (csrc/heat_g.cuh), and the sweep (bench_kernels --only g, the
+    # deferred bulk of G-uni at the 16384 x 8192 block of 32768^2 on a
+    # (2, 4) mesh, H100 80GB HBM3 at 700 W) found E's shape fastest there
+    # too: 1.257 ms at 96 x 112, 32 x 8 threads and K = 8 (0.157 ms a
+    # step), the other 53 shapes 0.166-0.324 ms a step. The band kernel
+    # cuts its K-row bands into tiles of g_band_tile_x columns: 240 with
+    # 32 x 16 threads took 0.0196 ms, 112 with 32 x 8 0.0301 ms.
+    g_tile: tuple = (96, 112)
+    g_block: tuple = (32, 8)
+    g_k_default: int = 8
+    g_band_tile_x: int = 240
+    g_band_block: tuple = (32, 16)
+
     # --- kernels heat_mg_restrict and heat_mg_prolong (chosen) ------------
     # One output cell a thread; a warp takes 32 neighbouring columns.
     mg_block: tuple = (32, 8)
@@ -263,6 +280,12 @@ class HopperParams:
                <= per_block):
             k += 1
         return k
+
+    def g_k_max(self) -> int:
+        """Deepest K a G kernel takes at ``g_tile``: E's shared-memory
+        rule (two ping-pong framed tiles, e_min_blocks_per_sm blocks per
+        SM)."""
+        return self.e_k_max(self.g_tile)
 
     def uni_fits(self, shape) -> bool:
         """Do the uniform-load kernels (E-uni, I-uni) take an ``(m, n)``

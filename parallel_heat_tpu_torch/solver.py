@@ -1,6 +1,12 @@
 """The solver: the port of ``parallel_heat_tpu/solver.py`` for 2D and
-3D, one device: the explicit scheme, and in 2D the implicit schemes
-(one multigrid V-cycle solve per step, ``ops/multigrid.py``).
+3D: the explicit scheme, and in 2D the implicit schemes (one multigrid
+V-cycle solve per step, ``ops/multigrid.py``), on one block; and the 2D
+explicit scheme cut over a mesh of blocks (``mesh_shape``), every block
+on the run's one device, by K-deep rounds (``parallel/temporal.py``)
+or, at depth 1 under the torch backend, the per-step exchange
+(``parallel/halo.py``). A sharded run's grid is assembled from its
+blocks after the clock stops, and its residual is the max over the
+blocks, taken on the card and read once per check window.
 
 The JAX package compiles the whole run into one XLA program. Here the
 run is a Python loop over kernel launches on one CUDA stream:
@@ -167,6 +173,67 @@ def _make_loop(multi_step, multi_step_residual, config: HeatConfig):
     return run_converge
 
 
+def _resolve_halo_depth(config: HeatConfig, backend: str) -> int:
+    """``halo_depth`` None (auto) resolved: kernel G's default depth
+    (``hopper_params.g_k_default``) under backend "cuda" on a mesh whose
+    blocks hold it, else 1 (the per-step exchange under "torch"; G at
+    K = 1 under "cuda"). Explicit values win."""
+    if config.halo_depth is not None:
+        return config.halo_depth
+    if (config.scheme != "explicit" or not config.is_sharded()
+            or backend != "cuda"):
+        return 1
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    k = params().g_k_default
+    return k if min(config.block_shape()) >= k else 1
+
+
+def _resolved(config: HeatConfig, backend: str) -> HeatConfig:
+    """The config with a concrete ``halo_depth`` and ``halo_overlap``:
+    the one place auto is substituted, shared by :func:`solve` and
+    :func:`explain`. Single-block configs pass through."""
+    if not config.is_sharded():
+        return config
+    from parallel_heat_tpu_torch.parallel.temporal import (
+        resolve_halo_overlap)
+
+    return config.replace(
+        halo_depth=_resolve_halo_depth(config, backend),
+        halo_overlap=resolve_halo_overlap(config, backend)).validate()
+
+
+def sharded_multistep(config: HeatConfig, mesh, backend: str):
+    """(multi_step, multi_step_residual) on the block lists of ``mesh``,
+    for a resolved config: the K-deep rounds, or at depth 1 under the
+    torch backend the per-step exchange (with ``overlap``'s
+    interior/edge split). The kernel libraries of a CUDA run are loaded
+    here, before any clock starts."""
+    from parallel_heat_tpu_torch.parallel import halo, temporal
+
+    if config.halo_depth == 1 and backend == "torch":
+        kw = dict(grid_shape=config.shape, cx=float(config.cx),
+                  cy=float(config.cy), overlap=config.overlap)
+
+        def step(us, vs):
+            halo.block_step_2d(mesh, us, vs, **kw)
+
+        def step_residual(us, vs):
+            return halo.block_step_2d_residual(mesh, us, vs, **kw)
+
+        return steps_to_multistep(step, step_residual)
+    if backend == "cuda" and mesh.device.type == "cuda":
+        from parallel_heat_tpu_torch.kernels.build import load
+        from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+
+        kind, detail = skb.pick_block_temporal_2d(config.block_shape(),
+                                                  config.halo_depth)
+        if detail is not None:
+            load(detail["kernel"])
+            load(skb.BAND)
+    return temporal.block_temporal_multistep(config, mesh, backend)
+
+
 def single_multistep(config: HeatConfig, backend: str):
     """(multi_step, multi_step_residual) on the full grid, one device."""
     if config.scheme != "explicit":
@@ -185,6 +252,30 @@ def single_multistep(config: HeatConfig, backend: str):
 
         return stencil_kernels.single_grid_multistep(config)
     return torch_multistep(*map(float, config.coefficients))
+
+
+def _prepare_blocks(config: HeatConfig, mesh, initial):
+    """The blocks of a sharded run: built per block from the model (no
+    full-grid temporary), split from a full ``initial`` grid, or copied
+    from a list of ``initial`` blocks in the mesh's row-major order."""
+    bs = config.block_shape()
+    if initial is None:
+        model = model_for(config)
+        return [model.init_block(mesh.device, mesh.origin(b, bs), bs)
+                for b in range(mesh.size)]
+    if isinstance(initial, (list, tuple)):
+        if len(initial) != mesh.size or any(
+                tuple(t.shape) != bs for t in initial):
+            raise ValueError(f"initial blocks must be {mesh.size} arrays of "
+                             f"{bs}, the blocks of mesh {mesh.shape}")
+        return [torch.as_tensor(t).to(device=mesh.device,
+                                      dtype=torch.float32,
+                                      copy=True).contiguous()
+                for t in initial]
+    if tuple(initial.shape) != config.shape:
+        raise ValueError(f"initial grid shape {tuple(initial.shape)} does "
+                         f"not match config shape {config.shape}")
+    return mesh.split(torch.as_tensor(initial))
 
 
 def _prepare_initial(config: HeatConfig, initial,
@@ -265,10 +356,12 @@ def explain(config: HeatConfig, device: Optional[str] = None,
                        f"step ({len(mg['levels'])} levels, "
                        f"{mg['smoother']}, {mg['transfers']})")
         return out
+    plain = " (plain version on the CPU)" if dev.type == "cpu" else ""
+    if config.is_sharded():
+        return _explain_sharded(config, out, backend, plain)
     if backend == "torch":
         out["path"] = "textbook torch stencil"
         return out
-    plain = " (plain version on the CPU)" if dev.type == "cpu" else ""
     if config.ndim == 3:
         return _explain_3d(config, out, plain)
     kind, detail = sk.pick_single_2d(config.shape)
@@ -308,6 +401,56 @@ def explain(config: HeatConfig, device: Optional[str] = None,
     out["decided_by"] = {"single_2d": {
         "source": "forced" if forced == kind else "default-order",
         "choice": kind}}
+    return out
+
+
+def _explain_sharded(config: HeatConfig, out: dict, backend: str,
+                     plain: str) -> dict:
+    """The sharded 2D path: mesh, blocks, the resolved depth and schedule
+    ("(auto)" where they were resolved), and the round's kernels."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+
+    res = _resolved(config, backend)
+    k, mode = res.halo_depth, res.halo_overlap
+    bx, by = res.block_shape()
+    out["mesh"] = res.mesh_shape
+    out["block_shape"] = (bx, by)
+    out["blocks_on"] = f"{out['device']} (every block of the mesh)"
+    out["halo_depth"] = f"{k} (auto)" if config.halo_depth is None else k
+    out["halo_overlap"] = (f"{mode} (auto)"
+                           if config.halo_overlap in (None, "auto")
+                           else mode)
+    if backend == "torch" and k == 1:
+        form = ("interior/edge split" if config.overlap
+                else "padded block")
+        out["path"] = (f"per-step 1-deep halo exchange, textbook torch "
+                       f"stencil ({form})")
+        return out
+    kind, detail = skb.pick_block_temporal_2d((bx, by), k)
+    forced = tune.forced("block_temporal_2d")
+    out["decided_by"] = {"block_temporal_2d": {
+        "source": "forced" if forced == kind else "default-order",
+        "choice": kind}}
+    if kind == "torch":
+        out["path"] = (f"K-deep rounds (K={k}), textbook torch stencil, "
+                       f"{mode} schedule")
+        return out
+    why = ""
+    if kind == "G-fuse" and forced is None:
+        why = (f"; G-fuse, not G-uni: block width {by} is not a multiple "
+               f"of 4 (G-uni's 16-byte loads)")
+    if skb.pick_block_temporal_2d_deferred(kind, (bx, by), k, mode):
+        round_ = (f"overlapped round: deferred bulk {detail['kernel']} "
+                  f"(rows [{k}, {bx - k}) from u and the column tail) + "
+                  f"band kernel {skb.BAND}")
+    else:
+        reason = (f"; the block has {bx} rows, fewer than 2K = {2 * k}, so "
+                  f"the monolithic round runs" if mode == "overlap"
+                  and kind in ("G-uni", "G-fuse") else "")
+        round_ = f"monolithic round: {detail['kernel']}{reason}"
+    ty, tx = detail["tile"]
+    out["path"] = (f"kernel {kind} ({round_}), K-deep rounds K={k}, "
+                   f"tile={ty}x{tx}{why}" + plain)
     return out
 
 
@@ -352,12 +495,25 @@ def solve(config: HeatConfig, initial=None,
     config = config.replace(device=str(dev))
     backend = resolve_backend(config, dev)
     with device_scope(dev):
-        multi_step, multi_step_residual = single_multistep(config, backend)
+        if config.is_sharded():
+            from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+            config = _resolved(config, backend)
+            mesh = HeatMesh(config.mesh_shape, dev)
+            multi_step, multi_step_residual = sharded_multistep(
+                config, mesh, backend)
+            u = _prepare_blocks(config, mesh, initial)
+            v = [torch.empty_like(b) for b in u]
+        else:
+            multi_step, multi_step_residual = single_multistep(config,
+                                                               backend)
+            u = _prepare_initial(config, initial, dev)
+            v = torch.empty_like(u)
         run = _make_loop(multi_step, multi_step_residual, config)
-        u = _prepare_initial(config, initial, dev)
-        v = torch.empty_like(u)
         with Timer(dev) as timer:
             grid, steps_run, converged, residual = run(u, v)
+        if config.is_sharded():
+            grid = mesh.assemble(grid)
     _warn_if_diverged(residual, steps_run,
                       config.converge and steps_run >= config.check_interval)
     return HeatResult(grid=grid, steps_run=steps_run, converged=converged,

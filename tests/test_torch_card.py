@@ -15,7 +15,11 @@ D. Every kernel is also run with unequal coefficients, so a swap of two
 axes cannot pass. Each member of a launch of M is bitwise a launch of A
 on that member alone; restriction and prolongation are bitwise their
 plain versions, so an implicit run under ``backend="cuda"`` is bitwise
-the one under ``backend="torch"``.
+the one under ``backend="torch"``. Each sharded block kernel (G-uni,
+G-fuse, G-circ, G, the band fix) is bitwise its plain version, the
+others, and kernel E's K steps on the same cells of the global grid; a
+sharded ``solve()`` is bitwise the one-block run on the card and the
+plain versions' run on the CPU.
 """
 
 import math
@@ -400,3 +404,80 @@ def test_implicit_on_the_card_cuda_equals_torch_bitwise(card, scheme):
     ens = EnsembleSolver(cfg, 3).solve(initials=inits)
     for i in range(3):
         assert torch.equal(ens.grids[i], solve(cfg, initial=inits[i]).grid)
+
+
+# ---------------------------------------------------------------------------
+# The sharded block kernels (G family) and the sharded path
+# ---------------------------------------------------------------------------
+
+G_CASES = [((32, 48), (2, 2), 8), ((1000, 1000), (2, 4), 3),
+           ((1001, 998), (7, 2), 1), ((48, 72), (3, 3), 8)]
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("grid,mesh_shape,k", G_CASES)
+def test_g_kernels_bitwise_plain_each_other_and_e(card, grid, mesh_shape, k,
+                                                  cx, cy):
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    g = _rand(grid, 13, card)
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(g)
+    bs = mesh.block_shape(grid)
+    pieces = temporal.exchange_halos_fused_2d(mesh, us, k)
+    exts = {"G-circ": temporal.exchange_halos_circular_2d(mesh, us, k),
+            "G": temporal.exchange_halos_deep_2d(mesh, us, k)}
+    e_out = torch.empty_like(g)
+    sk.temporal_steps(g, e_out, k, cx=cx, cy=cy)
+    plain = {"G-uni": skb.block_uniform_plain, "G-fuse": skb.block_fused_plain,
+             "G-circ": skb.block_circular_plain, "G": skb.block_padded_plain}
+    for b in range(mesh.size):
+        o = mesh.origin(b, bs)
+        kw = dict(origin=o, grid_shape=grid, cx=cx, cy=cy)
+        want = e_out[o[0]:o[0] + bs[0], o[1]:o[1] + bs[1]]
+        res = None
+        for kind in skb.KERNEL_OF:
+            if kind == "G-uni" and bs[1] % 4:
+                continue
+            args = (exts[kind][b],) if kind in exts else (us[b], *pieces[b])
+            got, ref = torch.empty(bs, device=card), torch.empty(bs,
+                                                                 device=card)
+            r = skb.LAUNCH[kind](*args, got, k, **kw)
+            rp = plain[kind](*args, ref, k, **kw)
+            assert torch.equal(got, ref) and torch.equal(r, rp), kind
+            assert torch.equal(got, want), kind
+            res = r if res is None else res
+            assert torch.equal(r, res), kind
+            if kind in ("G-uni", "G-fuse") and bs[0] >= 2 * k:
+                split = torch.full(bs, float("nan"), device=card)
+                rb = skb.LAUNCH[kind](us[b], pieces[b][0], None, None, split,
+                                      k, **kw)
+                rf = skb.band_fix(us[b], *pieces[b], split, k, **kw)
+                assert torch.equal(split, got)
+                assert torch.equal(torch.maximum(rb, rf), r)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(nx=1000, ny=1000, steps=101, mesh_shape=(2, 4)),
+    dict(nx=512, ny=512, steps=200, mesh_shape=(2, 2), halo_overlap="phase"),
+    dict(nx=256, ny=256, steps=50, mesh_shape=(2, 2), halo_depth=1),
+    dict(nx=20, ny=20, steps=10_000, converge=True, mesh_shape=(2, 2)),
+    dict(nx=1000, ny=1000, steps=400, converge=True, check_interval=20,
+         eps=1e-9, mesh_shape=(2, 4))])
+def test_sharded_solve_on_the_card_matches_one_block_bitwise(card, cfg):
+    sk.reset_counts()
+    got = solve(HeatConfig(**cfg))
+    assert sum(n for name, n in sk.counts.items()
+               if name.startswith("heat_g_")) > 0
+    assert not any(n for name, n in sk.counts.items()
+                   if name.endswith("_plain"))
+    one = solve(HeatConfig(**{**cfg, "mesh_shape": None,
+                              "halo_overlap": None, "halo_depth": None}))
+    cpu = solve(HeatConfig(**cfg, backend="cuda"), device="cpu")
+    assert torch.equal(got.grid, one.grid)
+    assert np.array_equal(got.to_numpy(), cpu.to_numpy())
+    assert (got.steps_run, got.converged) == (one.steps_run, one.converged)
+    if cfg.get("converge"):
+        assert got.residual == one.residual == cpu.residual

@@ -156,10 +156,10 @@ def test_from_jax_carries_a_grid_across():
         convert.from_jax(fields, np.zeros((3, 3), np.float32), device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("mesh_shape", (2, 2)),
+@pytest.mark.parametrize("field,value", [("guard_interval", 5),
                                          ("mg_partition", "replicated"),
                                          ("accumulate", "f32"),
-                                         ("halo_depth", 4)])
+                                         ("pipeline_depth", 2)])
 def test_from_jax_refuses_jax_only_features(field, value):
     fields = dataclasses.asdict(jx.HeatConfig(nx=16, ny=16))
     fields[field] = value
@@ -194,11 +194,14 @@ def test_from_dict_and_json():
     assert HeatConfig.from_json(cfg.to_json()) == cfg
     with pytest.raises(ValueError, match="unknown HeatConfig fields"):
         HeatConfig.from_dict({"nx": 8, "colour": "red"})
-    with pytest.raises(ValueError, match="mesh_shape=.*not implemented"):
-        HeatConfig.from_dict({"nx": 8, "mesh_shape": [2, 4]})
+    with pytest.raises(ValueError, match="accumulate=.*not implemented"):
+        HeatConfig.from_dict({"nx": 8, "accumulate": "f32chunk"})
     # JAX-only fields at their JAX defaults mean the same run: accepted.
-    assert HeatConfig.from_dict({"nx": 8, "mesh_shape": None,
+    assert HeatConfig.from_dict({"nx": 8, "accumulate": "storage",
                                  "scheme": "explicit"}).nx == 8
+    # The mesh fields are this package's too; a JSON list becomes a tuple.
+    assert HeatConfig.from_dict({"nx": 8, "ny": 8, "mesh_shape": [2, 4],
+                                 "halo_depth": 2}).mesh_shape == (2, 4)
 
 
 def test_every_field_is_classified_once():

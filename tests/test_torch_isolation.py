@@ -21,7 +21,8 @@ def _sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     names = {f.name for f in files}
-    assert {"batched.py", "multigrid.py", "engine.py"} <= names
+    assert {"batched.py", "multigrid.py", "engine.py", "mesh.py", "halo.py",
+            "temporal.py", "stencil_kernels_block.py"} <= names
     return files
 
 
@@ -51,6 +52,7 @@ _BLOCKED_RUN = """
 import sys
 for name in ("jax", "jaxlib", "parallel_heat_tpu"):
     sys.modules[name] = None  # any import of these now raises
+import torch
 import parallel_heat_tpu_torch as pt
 import chip_smoke  # noqa: F401
 res = pt.solve(pt.HeatConfig(nx=32, ny=32, steps=40, backend="cuda"),
@@ -67,6 +69,13 @@ imp = pt.solve(pt.HeatConfig(nx=18, ny=18, cx=22.5, cy=22.5, steps=2,
                              scheme="backward_euler", backend="cuda"),
                device="cpu")
 assert imp.steps_run == 2 and multigrid.stats["steps"] == 2
+# The sharded path (the G kernels' module and the mesh package), through
+# solve().
+from parallel_heat_tpu_torch.ops import stencil_kernels_block
+from parallel_heat_tpu_torch.parallel import halo, mesh, temporal
+shard = pt.solve(pt.HeatConfig(nx=32, ny=32, steps=40, backend="cuda",
+                               mesh_shape=(2, 2)), device="cpu")
+assert torch.equal(shard.grid, res.grid)
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m, v in sys.modules.items() if v is not None)
 print("ok", float(res.grid.sum()))

@@ -266,13 +266,28 @@ def test_wrappers_count_their_calls_on_the_cpu():
     ub = torch.from_numpy(_rand((2, 9, 11), seed=8))
     batched.ensemble_steps(ub, torch.empty_like(ub), 2, cx=CX, cy=CY)
     multigrid.prolong(multigrid.restrict(ub, (5, 6)), (9, 11))
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    mesh = HeatMesh((2, 1))
+    us = mesh.split(torch.from_numpy(_rand((16, 8), seed=9)))
+    tail, hn, hs = temporal.exchange_halos_fused_2d(mesh, us, 2)[0]
+    ext = temporal.exchange_halos_circular_2d(mesh, us, 2)[0]
+    kw = dict(origin=(0, 0), grid_shape=(16, 8), cx=CX, cy=CY)
+    out = torch.empty(8, 8)
+    skb.block_fused(us[0], tail, hn, hs, out, 2, **kw)
+    skb.block_uniform(us[0], tail, None, None, out, 2, **kw)
+    skb.band_fix(us[0], tail, hn, hs, out, 2, **kw)
+    skb.block_circular(ext, out, 2, **kw)
+    skb.block_padded(ext, out, 2, **kw)
     # On the CPU the plain versions run; the kernels never launch. One
-    # registry holds all twelve kernels and their plain versions.
+    # registry holds all seventeen kernels and their plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
                if not name.startswith("heat_"))
-    assert len(sk.counts) == 24
+    assert len(sk.counts) == 34
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",
@@ -423,6 +438,6 @@ def test_library_path_tracks_source_digest():
     b = build.library_path("heat_e_temporal")
     assert a.parent == build.BUILD_DIR and a != b
     names = {build.library_path(name).name for name in build.KERNELS}
-    assert len(names) == len(build.KERNELS) == 12
+    assert len(names) == len(build.KERNELS) == 17
     assert a.name.startswith("libheat_b_step-") and a.suffix == ".so"
     assert build.library_path("heat_b_step") == a

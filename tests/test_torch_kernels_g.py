@@ -1,0 +1,294 @@
+"""The sharded block kernels of the PyTorch port (G-uni, G-fuse, G-circ,
+G and the band fix) against the JAX package's kernel-G builders.
+
+On the CPU the port's wrappers run their plain PyTorch versions (the
+CUDA kernels are held bitwise to those versions on the card by
+``chip_smoke.py`` and ``tests/test_torch_card.py``). Here the plain
+versions are held to the JAX package's Pallas builders
+``_build_temporal_block_uniform``, ``_build_temporal_block_fused``,
+``_build_temporal_block_circular``, ``_build_temporal_block`` and
+``_build_band_fix_2d``, run in interpret mode as ``tests/test_temporal.py``
+runs them, at K = 8 (the builders' f32 depth), on one block at a time.
+The operands are cut out of a seeded global grid with numpy, as the
+exchange delivers them, for a corner, an edge and an interior block of a
+(3, 3) mesh, with cx = cy and cx != cy; the port's own exchange must give
+the same operands bitwise.
+
+Tolerances: ``rtol=1e-5, atol=1e-5`` on grids and ``rtol=1e-4`` on
+residuals, the few-ulp contract of ``tests/test_torch_kernels.py``: the
+JAX kernels pin the Dirichlet ring by multiplying with coefficient
+vectors and XLA:CPU may contract multiply-adds into FMAs, where the port
+selects and rounds every operation. The Dirichlet cells of a block are
+held bit-exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from parallel_heat_tpu.ops import pallas_stencil as ps
+from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+from parallel_heat_tpu_torch.parallel import temporal
+from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+K = 8
+MESH = (3, 3)
+BLOCK = (16, 24)
+GRID = (MESH[0] * BLOCK[0], MESH[1] * BLOCK[1])
+BLOCKS = {"corner": 0, "edge": 1, "interior": 4}
+COEFFS = [(0.1, 0.1), (0.1, 0.2)]
+
+
+def _grid(seed=11):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(GRID) * 10).astype(np.float32)
+
+
+def _at(g, rows, cols):
+    """``g[rows][:, cols]`` with zeros outside the grid."""
+    out = np.zeros((len(rows), len(cols)), np.float32)
+    for i, r in enumerate(rows):
+        for j, c in enumerate(cols):
+            if 0 <= r < g.shape[0] and 0 <= c < g.shape[1]:
+                out[i, j] = g[r, c]
+    return out
+
+
+def _pieces_np(g, b, k=K):
+    """Block ``b``'s ``u``, tail ``[hi | lo]`` and halo rows (circular
+    columns ``[u | hi | lo]``), cut from the global grid in numpy."""
+    bx, by = BLOCK
+    r0, c0 = (b // MESH[1]) * bx, (b % MESH[1]) * by
+    rows = list(range(r0, r0 + bx))
+    circ = (list(range(c0, c0 + by + k))
+            + list(range(c0 - k, c0)))
+    u = g[r0:r0 + bx, c0:c0 + by].copy()
+    tail = np.concatenate([_at(g, rows, range(c0 + by, c0 + by + k)),
+                           _at(g, rows, range(c0 - k, c0))], axis=1)
+    hn = _at(g, range(r0 - k, r0), circ)
+    hs = _at(g, range(r0 + bx, r0 + bx + k), circ)
+    return (r0, c0), u, tail, hn, hs
+
+
+def _close_grid(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _close_res(got, want):
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+
+
+def _ring_exact(out, u, origin, rows=slice(None)):
+    """The block's cells on the global Dirichlet ring kept their values."""
+    r0, c0 = origin
+    bx, by = BLOCK
+    gr = r0 + np.arange(bx)[:, None]
+    gc = c0 + np.arange(by)[None, :]
+    ring = ((gr == 0) | (gr == GRID[0] - 1) | (gc == 0)
+            | (gc == GRID[1] - 1))
+    ring = np.broadcast_to(ring, (bx, by)).copy()
+    keep = np.zeros((bx, by), bool)
+    keep[rows] = True
+    sel = ring & keep
+    np.testing.assert_array_equal(np.asarray(out)[sel], u[sel])
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("where", sorted(BLOCKS))
+def test_port_exchange_delivers_the_numpy_pieces(where):
+    g = _grid()
+    b = BLOCKS[where]
+    mesh = HeatMesh(MESH)
+    us = mesh.split(torch.from_numpy(g))
+    tail, hn, hs = temporal.exchange_halos_fused_2d(mesh, us, K)[b]
+    _, u, w_tail, w_hn, w_hs = _pieces_np(g, b)
+    for got, want in ((us[b], u), (tail, w_tail), (hn, w_hn), (hs, w_hs)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    circ = temporal.exchange_halos_circular_2d(mesh, us, K)[b]
+    np.testing.assert_array_equal(
+        circ.numpy(), np.concatenate(
+            [w_hn, np.concatenate([u, w_tail], axis=1), w_hs], axis=0))
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("where", sorted(BLOCKS))
+@pytest.mark.parametrize("kind", ["G-uni", "G-fuse"])
+def test_pieces_kernel_matches_jax_builder(kind, where, cx, cy):
+    builder = (ps._build_temporal_block_uniform if kind == "G-uni"
+               else ps._build_temporal_block_fused)
+    origin, u, tail, hn, hs = _pieces_np(_grid(), BLOCKS[where])
+    fn = builder(BLOCK, "float32", cx, cy, GRID, K)
+    want, wres = fn(jnp.asarray(u), jnp.asarray(tail), jnp.asarray(hn),
+                    jnp.asarray(hs), *origin)
+    out = torch.empty(BLOCK)
+    res = skb.LAUNCH[kind](_t(u), _t(tail), _t(hn), _t(hs), out, K,
+                           origin=origin, grid_shape=GRID, cx=cx, cy=cy)
+    _close_grid(out.numpy(), want)
+    _close_res(res, wres)
+    _ring_exact(out.numpy(), u, origin)
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("where", sorted(BLOCKS))
+@pytest.mark.parametrize("kind", ["G-uni", "G-fuse"])
+def test_deferred_bulk_matches_jax_builder(kind, where, cx, cy):
+    builder = (ps._build_temporal_block_uniform if kind == "G-uni"
+               else ps._build_temporal_block_fused)
+    origin, u, tail, _, _ = _pieces_np(_grid(), BLOCKS[where])
+    fn = builder(BLOCK, "float32", cx, cy, GRID, K, defer_ns=True)
+    want, wres = fn(jnp.asarray(u), jnp.asarray(tail), *origin)
+    out = torch.full(BLOCK, float("nan"))
+    res = skb.LAUNCH[kind](_t(u), _t(tail), None, None, out, K,
+                           origin=origin, grid_shape=GRID, cx=cx, cy=cy)
+    rows = slice(K, BLOCK[0] - K)
+    _close_grid(out.numpy()[rows], np.asarray(want)[rows])
+    _close_res(res, wres)
+    _ring_exact(out.numpy(), u, origin, rows)
+    # The bulk writes no band row.
+    assert np.isnan(out.numpy()[:K]).all() and np.isnan(
+        out.numpy()[-K:]).all()
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("where", sorted(BLOCKS))
+def test_band_fix_matches_jax_builder(where, cx, cy):
+    origin, u, tail, hn, hs = _pieces_np(_grid(), BLOCKS[where])
+    fn = ps._build_band_fix_2d(BLOCK, "float32", cx, cy, GRID, K)
+    want, wres = fn(jnp.asarray(u), jnp.asarray(tail), jnp.asarray(hn),
+                    jnp.asarray(hs), *origin)
+    out = torch.full(BLOCK, float("nan"))
+    res = skb.band_fix(_t(u), _t(tail), _t(hn), _t(hs), out, K,
+                       origin=origin, grid_shape=GRID, cx=cx, cy=cy)
+    got = np.concatenate([out.numpy()[:K], out.numpy()[-K:]])
+    _close_grid(got, want)
+    _close_res(res, wres)
+    # In place: the rows between the bands are untouched.
+    assert np.isnan(out.numpy()[K:-K]).all()
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("where", sorted(BLOCKS))
+@pytest.mark.parametrize("kind", ["G-circ", "G"])
+def test_assembled_kernel_matches_jax_builder(kind, where, cx, cy):
+    origin, u, tail, hn, hs = _pieces_np(_grid(), BLOCKS[where])
+    bx, by = BLOCK
+    circ = np.concatenate([hn, np.concatenate([u, tail], axis=1), hs])
+    if kind == "G-circ":
+        ext = circ
+        fn = ps._build_temporal_block_circular(BLOCK, "float32", cx, cy,
+                                               GRID, K)
+        want, wres = fn(jnp.asarray(ext), *origin)
+    else:
+        ext = skb.padded_of_circular(_t(circ), by, K).numpy()
+        fn = ps._build_temporal_block(BLOCK, "float32", cx, cy, GRID, K)
+        wide = np.zeros((bx + 2 * K, fn.padded_width), np.float32)
+        wide[:, :by + 2 * K] = ext
+        rows, wres = fn(jnp.asarray(wide), origin[0], origin[1] - K)
+        want = np.asarray(rows)[:, K:K + by]
+    out = torch.empty(BLOCK)
+    res = skb.LAUNCH[kind](_t(ext), out, K, origin=origin, grid_shape=GRID,
+                           cx=cx, cy=cy)
+    _close_grid(out.numpy(), want)
+    _close_res(res, wres)
+    _ring_exact(out.numpy(), u, origin)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("where", sorted(BLOCKS))
+def test_plain_kinds_bitwise_each_other_and_one_grid_steps(where, k):
+    """Every form, and the deferred bulk spliced with the band, is
+    bitwise the others and bitwise k plain steps of the global grid (the
+    chain the card holds the kernels to: G(K) is E(K) on the block)."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    g = _grid(seed=3)
+    mesh = HeatMesh(MESH)
+    b = BLOCKS[where]
+    us = mesh.split(torch.from_numpy(g))
+    origin = mesh.origin(b, BLOCK)
+    tail, hn, hs = temporal.exchange_halos_fused_2d(mesh, us, k)[b]
+    kw = dict(origin=origin, grid_shape=GRID, cx=0.1, cy=0.2)
+    e_out = torch.empty(GRID)
+    sk.temporal_steps(torch.from_numpy(g), e_out, k, cx=0.1, cy=0.2)
+    want = e_out[origin[0]:origin[0] + BLOCK[0],
+                 origin[1]:origin[1] + BLOCK[1]]
+    outs = {}
+    for kind in ("G-uni", "G-fuse"):
+        outs[kind] = torch.empty(BLOCK)
+        res = skb.LAUNCH[kind](us[b], tail, hn, hs, outs[kind], k, **kw)
+        split = torch.empty(BLOCK)
+        r_bulk = skb.LAUNCH[kind](us[b], tail, None, None, split, k, **kw)
+        r_band = skb.band_fix(us[b], tail, hn, hs, split, k, **kw)
+        assert torch.equal(split, outs[kind])
+        assert float(torch.maximum(r_bulk, r_band)) == float(res)
+    circ = temporal.exchange_halos_circular_2d(mesh, us, k)[b]
+    pad = temporal.exchange_halos_deep_2d(mesh, us, k)[b]
+    for kind, ext in (("G-circ", circ), ("G", pad)):
+        outs[kind] = torch.empty(BLOCK)
+        skb.LAUNCH[kind](ext, outs[kind], k, **kw)
+    for kind, out in outs.items():
+        assert torch.equal(out, want), kind
+
+
+def test_nan_block_gives_nan_residual_and_keeps_the_ring():
+    g = _grid(seed=5)
+    g[1, 30] = np.nan  # in the corner block (0, 1) next to the ring
+    mesh = HeatMesh(MESH)
+    us = mesh.split(torch.from_numpy(g))
+    b = 1
+    tail, hn, hs = temporal.exchange_halos_fused_2d(mesh, us, K)[b]
+    out = torch.empty(BLOCK)
+    res = skb.block_fused(us[b], tail, hn, hs, out, K,
+                          origin=mesh.origin(b, BLOCK), grid_shape=GRID,
+                          cx=0.1, cy=0.1)
+    assert np.isnan(float(res))
+    np.testing.assert_array_equal(out[0].numpy(), us[b][0].numpy())
+
+
+def test_wrappers_refuse_bad_operands():
+    u = torch.zeros(BLOCK)
+    tail, hn = torch.zeros((16, 2 * K)), torch.zeros((K, 24 + 2 * K))
+    kw = dict(origin=(0, 0), grid_shape=GRID, cx=0.1, cy=0.1)
+    with pytest.raises(ValueError, match="both halo rows, or neither"):
+        skb.block_fused(u, tail, hn, None, torch.empty(BLOCK), K, **kw)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        skb.block_uniform(torch.zeros((16, 22)), torch.zeros((16, 2 * K)),
+                          None, None, torch.empty((16, 22)), K, **kw)
+    with pytest.raises(ValueError, match="2k"):
+        skb.block_fused(torch.zeros((12, 24)), torch.zeros((12, 2 * K)),
+                        None, None, torch.empty((12, 24)), K, **kw)
+    with pytest.raises(ValueError, match="tail shape"):
+        skb.block_fused(u, torch.zeros((16, K)), hn, hn,
+                        torch.empty(BLOCK), K, **kw)
+    with pytest.raises(ValueError, match="u shape"):
+        skb.block_fused(torch.zeros((16, 20)), tail, hn, hn,
+                        torch.empty(BLOCK), K, **kw)
+    with pytest.raises(ValueError, match="does not lie in the grid"):
+        skb.block_fused(u, tail, hn, hn, torch.empty(BLOCK), K,
+                        **{**kw, "origin": (40, 0)})
+
+
+def test_picker_default_forced_and_refused():
+    from parallel_heat_tpu_torch import tune
+
+    assert skb.pick_block_temporal_2d((16, 24), 8)[0] == "G-uni"
+    assert skb.pick_block_temporal_2d((500, 250), 8)[0] == "G-fuse"
+    for kind in ("G-circ", "G", "torch"):
+        with tune.force("block_temporal_2d", kind):
+            assert skb.pick_block_temporal_2d((16, 24), 8)[0] == kind
+    with tune.force("block_temporal_2d", "G-uni"):
+        with pytest.raises(ValueError, match="infeasible"):
+            skb.pick_block_temporal_2d((500, 250), 8)
+    assert skb.pick_block_temporal_2d_deferred("G-uni", (16, 24), 8,
+                                               "overlap")
+    assert not skb.pick_block_temporal_2d_deferred("G-uni", (10, 24), 8,
+                                                   "overlap")
+    assert not skb.pick_block_temporal_2d_deferred("G-uni", (16, 24), 8,
+                                                   "phase")
+    assert not skb.pick_block_temporal_2d_deferred("G-circ", (16, 24), 8,
+                                                   "overlap")

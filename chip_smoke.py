@@ -160,8 +160,43 @@ prints the card's name and power limit, then one JSON line per phase:
    band kernel, each beside its plain version, its bound and ``conv2d``
    chained K times on the framed block (TF32 off); the exchange's own time
    per round (both phases, 8 blocks) and one whole overlapped round.
+17. kernels_h — the sharded 3D block kernels H-fused
+   (``heat_h_block_3d_fused``, monolithic and as the deferred bulk), H
+   (``heat_h_block_3d``) and the band fix (``heat_h_band_fix_3d``) against
+   their plain versions, each other and kernel F's K steps of the global
+   grid on the same cells, all bitwise (grids and residuals), the pieces
+   built by the port's own three-phase exchange from seeded random grids:
+   the main path's 512^3 blocks of 1024^3 on (2, 2, 2) at K = h_k_default;
+   the corner, edge, face and interior blocks of 201 x 129 x 270 on
+   (3, 3, 3) at K in {1, 3, h_k_default, h_k_max}, both coefficient sets;
+   blocks of 6 x-planes (an empty bulk at K = 3, no deferral at K = 6); a
+   z-free (2, 4, 1) and an x-free (1, 2, 2) mesh. The deferred bulk writes
+   no band plane; bulk plus band, spliced in place, is the monolithic
+   kernel; a NaN-seeded block gives NaN residuals with its faces intact;
+18. sharded_main_path_3d — ``solve(HeatConfig(nx=ny=nz=1024, steps=200,
+   mesh_shape=(2, 2, 2)))`` under the default resolution (H-fused, the
+   monolithic round), with ``halo_overlap="phase"``, and pinned to H and
+   H-defer (``tune.force("block_temporal_3d", ...)``), counts set to 0
+   before each run and read after, every grid bitwise the one-block F
+   run, Mcells*steps/s and the ratio to it; busy shares of one profiled
+   repeat of the sharded and the one-block run; then 512^3 on (2, 2, 2)
+   and on (2, 4, 1), bitwise their one-block run;
+19. sharded_converge_3d — 64^3 on (2, 2, 2) in converge mode (2000-step
+   cap, check_interval 20), 10^3 on (2, 2, 2) (blocks of 5: the auto depth
+   capped by the block; converges at step 360) and 64^3 at halo depth 1
+   (H-fused at K = 1): steps_run, converged, residual and grid identical
+   to one block;
+20. cli_sharded_3d — ``--nx 64 --ny 64 --nz 64 --steps 100 --mesh 2,2,2
+   --out <tmp>.npy`` writes the one-block grid;
+21. timing_h — ms per launch (CUDA events, and the card's own time from
+   ``torch.profiler``) of each H kernel at the main path's block, 512^3 at
+   K = h_k_default without the residual: H-fused monolithic (the
+   ``kernels`` line's row), its deferred bulk, H and the band kernel, each
+   beside its plain version, its bound and ``conv3d`` chained K times on
+   the framed block (TF32 off); the exchange's time and copies per round
+   (three phases, 8 blocks), one whole monolithic round.
 
-Then a ``{"kernels": [...]}`` line and, last, the
+Then a ``{"kernels": [...]}`` line (all twenty kernels) and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
 before the last line; without a CUDA device it exits 2 at once.
 """
@@ -246,7 +281,19 @@ KERNELS_G = {
     "heat_g_block_padded": ("G", TPU + ":1135"),
     "heat_g_band_fix": (None, TPU + ":2093"),
 }
-KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G}
+# The sharded 3D path: 1024^3 on (2, 2, 2), blocks of BASELINE config 5's
+# 512^3 (4 GiB a copy, the bytes of the 2D path's 32768^2).
+SHARD3_N = 1024
+SHARD3_MESH = (2, 2, 2)
+# Kernel -> (its tune.force choice at site block_temporal_3d, the TPU
+# kernel's builder it replaces).
+KERNELS_H = {
+    "heat_h_block_3d_fused": ("H-fused", TPU + ":4579"),
+    "heat_h_block_3d": ("H", TPU + ":4353"),
+    "heat_h_band_fix_3d": ("H-defer", TPU + ":4934"),
+}
+KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G,
+           **KERNELS_H}
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
 
@@ -2032,6 +2079,491 @@ def phase_timing_g(dev):
     return {name: row for name, row in rows.items() if "@" not in name}
 
 
+# ---------------------------------------------------------------------------
+# The sharded 3D path (kernels H-fused, H and the 3D band fix)
+# ---------------------------------------------------------------------------
+
+def _check_h_block(dev, xch, b, us, k, kw, f_out, err):
+    """Every H form at depth ``k`` on block ``b`` (the exchange ``xch`` has
+    run all three phases) against its plain version, the others and
+    ``heat_f_temporal3d``'s K steps of the global grid on the same cells;
+    and, where x is sharded and the block has 2K x-planes, the deferred
+    bulk plus the band, spliced in place, against the monolithic kernel,
+    grid and max residual."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+
+    bs = tuple(us[b].shape)
+    o = xch.mesh.origin(b, bs)
+    h_kw = dict(origin=o, **kw)
+    want = f_out[tuple(slice(a, a + n) for a, n in zip(o, bs))]
+    ext = torch.empty(xch.circular_shape, device=dev)
+    xch.assemble_circular(b, us[b], ext)
+    pieces = xch.pieces(b)
+    where = f"(K={k}) on block {o} of {kw['grid_shape']} {kw}"
+    runs = {
+        "heat_h_block_3d_fused": (
+            lambda out, r: skb3.h_block_fused(us[b], *pieces, out, k, r,
+                                              **h_kw),
+            lambda out: skb3.h_block_fused_plain(us[b], *pieces, out, k,
+                                                 **h_kw)),
+        "heat_h_block_3d": (
+            lambda out, r: skb3.h_block(ext, out, k, r, **h_kw),
+            lambda out: skb3.h_block_plain(ext, out, k, **h_kw))}
+    first = None
+    for name, (launch, plain) in runs.items():
+        got, ref, nores = (torch.empty(bs, device=dev) for _ in range(3))
+        r = launch(got, True)
+        launch(nores, False)
+        rp = plain(ref)
+        torch.cuda.synchronize()
+        d = max(float((got - ref).abs().max()),
+                float((got - want).abs().max()))
+        err[name] = max(err[name], d)
+        check(torch.equal(got, ref) and same_float(r, rp),
+              f"{name}{where} != its plain version: max diff {d}, "
+              f"residual {float(r)} vs {float(rp)}")
+        check(torch.equal(got, want),
+              f"{name}{where} != heat_f_temporal3d(K={k}) on the global grid")
+        check(torch.equal(got, nores),
+              f"{name}{where}: grid depends on with_residual")
+        if first is None:
+            first = (got, r)
+        check(same_float(r, first[1]), f"{name}{where}: residual {float(r)} "
+              f"differs from H-fused's {float(first[1])}")
+    if xch.halos[0] and bs[0] >= 2 * k:
+        zt, yt, _, _ = pieces
+        split, plain = (torch.full(bs, float("nan"), device=dev)
+                        for _ in range(2))
+        rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k, True,
+                                defer_x=True, **h_kw)
+        check(bool(torch.isnan(split[:k]).all()
+                   and torch.isnan(split[bs[0] - k:]).all()),
+              f"the deferred bulk{where} wrote a band plane")
+        rf = skb3.h_band_fix(us[b], *pieces, split, k, True, **h_kw)
+        rpb = skb3.h_block_fused_plain(us[b], zt, yt, None, None, plain, k,
+                                       defer_x=True, **h_kw)
+        rpf = skb3.h_band_fix_plain(us[b], *pieces, plain, k, **h_kw)
+        torch.cuda.synchronize()
+        err["heat_h_band_fix_3d"] = max(err["heat_h_band_fix_3d"], float(
+            (split - plain).nan_to_num(float("inf")).abs().max()))
+        check(torch.equal(split, plain) and same_float(rb, rpb)
+              and same_float(rf, rpf),
+              f"deferred bulk or band{where} != its plain version")
+        check(torch.equal(split, first[0])
+              and same_float(torch.maximum(rb, rf), first[1]),
+              f"deferred bulk + band{where} != the monolithic kernel "
+              f"(residuals {float(rb)}, {float(rf)} vs {float(first[1])})")
+
+
+def phase_kernels_h(dev):
+    """The three H kernels against their plain versions, each other and
+    kernel F, on blocks cut from seeded random global grids with the
+    exchange pieces built by the port's own exchange; returns max |diff|
+    each."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    ks = sorted({1, 3, p.h_k_default, p.h_k_max()})
+    err = {name: 0.0 for name in KERNELS_H}
+    equal = dict(cx=CX, cy=CY, cz=CX)
+    unequal = dict(zip(("cx", "cy", "cz"), UNEQUAL_3D))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # (mesh, block, depths, blocks, coefficient sets): the main path's
+    # 512^3 blocks of 1024^3 (two corners); a ragged (3, 3, 3) mesh, its
+    # corner, edge, face and interior blocks; blocks of 6 x-planes (2K at
+    # K = 3: an empty bulk; under 2K beyond); a z-free (2, 4, 1) and an
+    # x-free (1, 2, 2) mesh.
+    plan = [(SHARD3_MESH, (SHARD3_N // 2,) * 3, [p.h_k_default], [0, 7],
+             [equal]),
+            ((3, 3, 3), (67, 43, 90), ks, [0, 9, 12, 13], [equal, unequal]),
+            ((2, 2, 2), (6, 50, 70), [1, 3, 6], list(range(8)), [unequal]),
+            ((2, 4, 1), (40, 33, 97), ks, [0, 5], [unequal]),
+            ((1, 2, 2), (50, 30, 40), [2, 5], [0, 3], [unequal])]
+    report = []
+    for mesh_shape, block, depths, blocks, coeff_sets in plan:
+        grid = tuple(m * b for m, b in zip(mesh_shape, block))
+        g = torch.randn(grid, generator=gen, device=dev) * 10
+        mesh = HeatMesh(mesh_shape, dev)
+        us = mesh.split(g)
+        for k in depths:
+            xch = temporal3d.DeepExchange3D(mesh, block, k, dev)
+            xch.lead(us)
+            xch.last(us)
+            for coeffs in coeff_sets:
+                f_out = torch.empty_like(g)
+                sk3.xslab_steps_3d(g, f_out, k, **coeffs)
+                for b in blocks:
+                    _check_h_block(dev, xch, b, us, k,
+                                   dict(grid_shape=grid, **coeffs), f_out,
+                                   err)
+                del f_out
+            del xch
+        report.append({"grid": list(grid), "mesh": list(mesh_shape),
+                       "block": list(block), "k": depths, "blocks": blocks,
+                       "coeffs": coeff_sets,
+                       "bitwise_plain_each_other_and_f": True,
+                       "deferred_plus_band_is_monolithic": True})
+        del g, us
+        torch.cuda.empty_cache()
+    # A diverging block: one NaN next to the faces of corner block 0.
+    g = torch.randn((80, 80, 80), generator=gen, device=dev) * 10
+    g[2, 3, 1] = float("nan")
+    mesh = HeatMesh(SHARD3_MESH, dev)
+    us = mesh.split(g)
+    k = p.h_k_default
+    xch = temporal3d.DeepExchange3D(mesh, (40, 40, 40), k, dev)
+    xch.lead(us)
+    xch.last(us)
+    kw = dict(origin=(0, 0, 0), grid_shape=(80, 80, 80), **equal)
+    ext = torch.empty(xch.circular_shape, device=dev)
+    xch.assemble_circular(0, us[0], ext)
+    nan_res = {}
+    for name, launch in (
+            ("heat_h_block_3d_fused", lambda o: skb3.h_block_fused(
+                us[0], *xch.pieces(0), o, k, True, **kw)),
+            ("heat_h_block_3d", lambda o: skb3.h_block(ext, o, k, True,
+                                                       **kw)),
+            ("heat_h_band_fix_3d", lambda o: skb3.h_band_fix(
+                us[0], *xch.pieces(0), o, k, True, **kw))):
+        out = torch.empty_like(us[0])
+        nan_res[name] = float(launch(out))
+        check(math.isnan(nan_res[name]), f"NaN-seeded block gave {name} "
+              f"residual {nan_res[name]}, not NaN")
+        check(torch.equal(out[0], us[0][0])
+              and torch.equal(out[:k, 0], us[0][:k, 0])
+              and torch.equal(out[:k, :, 0], us[0][:k, :, 0]),
+              f"a diverging block moved a Dirichlet face ({name})")
+    del g, us, xch, ext
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_h", "ok": True, "checks": report,
+          "nan_residual": nan_res, "max_abs_err": err})
+    return err
+
+
+def _sharded_run_3d(cfg, expect, label, force=None):
+    """solve(cfg) with the counts set to 0 just before and read just
+    after, pinned at site block_temporal_3d when ``force`` is given; the
+    launches must be exactly ``expect``."""
+    from parallel_heat_tpu_torch import solve, tune
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    sk.reset_counts()
+    if force is None:
+        res = solve(cfg)
+    else:
+        with tune.force("block_temporal_3d", force):
+            res = solve(cfg)
+    counts = dict(sk.counts)
+    for name, n in counts.items():
+        check(n == expect.get(name, 0),
+              f"{label}: {name} ran {n} times, {expect.get(name, 0)} "
+              f"expected")
+    return res, counts
+
+
+def phase_sharded_main_path_3d():
+    """1024^3 on (2, 2, 2), 200 steps: the default resolution (H-fused,
+    monolithic), the phase schedule, pinned H and H-defer, every grid
+    bitwise the one-block F run; then 512^3 on (2, 2, 2) and on (2, 4, 1)
+    bitwise their one-block runs. Returns each H kernel's launches."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, explain, solve
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    k = params().h_k_default
+    n = SHARD3_N
+    one_cfg = HeatConfig(nx=n, ny=n, nz=n, steps=MAIN_STEPS)
+    cfg = one_cfg.replace(mesh_shape=SHARD3_MESH)
+    resolved = explain(cfg)
+    check(resolved["halo_depth"] == f"{k} (auto)"
+          and resolved["decided_by"]["block_temporal_3d"]["choice"]
+          == "H-fused", f"{n}^3 on {SHARD3_MESH} resolved to {resolved}")
+    one = solve(one_cfg)
+    check(bool(torch.isfinite(one.grid).all()), "non-finite 3D grid")
+    cells = n ** 3 * MAIN_STEPS / 1e6
+    blocks = math.prod(SHARD3_MESH)
+    rounds = -(-MAIN_STEPS // k)
+    per = rounds * blocks
+    runs = [("default", cfg, None, {"heat_h_block_3d_fused": per}),
+            ("phase", cfg.replace(halo_overlap="phase"), None,
+             {"heat_h_block_3d_fused": per}),
+            ("H", cfg, "H", {"heat_h_block_3d": per}),
+            ("H-defer", cfg, "H-defer", {"heat_h_block_3d_fused": per,
+                                         "heat_h_band_fix_3d": per})]
+    out, launches = {}, {}
+    one_s = one.elapsed_s
+    for label, c, force, expect in runs:
+        res, counts = _sharded_run_3d(c, expect, f"{n}^3 {label}", force)
+        check(res.steps_run == MAIN_STEPS
+              and tuple(res.grid.shape) == (n,) * 3,
+              f"{n}^3 {label}: {res.steps_run} steps, shape "
+              f"{tuple(res.grid.shape)}")
+        check(torch.equal(res.grid, one.grid),
+              f"{n}^3 on {SHARD3_MESH} {label} differs from the one-block "
+              f"run")
+        out[label] = {"elapsed_s": res.elapsed_s,
+                      "mcells_steps_per_s": cells / res.elapsed_s,
+                      "ratio_to_one_block": res.elapsed_s / one_s,
+                      "launches": {name: counts[name] for name in expect}}
+        if label != "phase":
+            for name in expect:
+                launches.setdefault(name, counts[name])
+        del res
+        torch.cuda.empty_cache()
+    del one
+    torch.cuda.empty_cache()
+    busy = _busy(lambda: solve(cfg), f"{n}^3 on {SHARD3_MESH} profiled")
+    busy_one = _busy(lambda: solve(one_cfg), f"{n}^3 one block profiled")
+    # 512^3 on (2, 2, 2) (256^3 blocks, the JAX package's flagship block)
+    # and on the z-free (2, 4, 1).
+    small = {}
+    cube = HeatConfig(nx=CUBE, ny=CUBE, nz=CUBE, steps=MAIN_STEPS)
+    ref = solve(cube)
+    for mesh_shape in ((2, 2, 2), (2, 4, 1)):
+        label = f"{CUBE}^3 on {mesh_shape}"
+        res, counts = _sharded_run_3d(
+            cube.replace(mesh_shape=mesh_shape),
+            {"heat_h_block_3d_fused": rounds * math.prod(mesh_shape)}, label)
+        check(torch.equal(res.grid, ref.grid),
+              f"{label} differs from the one-block run")
+        small[label] = {"elapsed_s": res.elapsed_s,
+                        "mcells_steps_per_s":
+                            CUBE ** 3 * MAIN_STEPS / 1e6 / res.elapsed_s,
+                        "ratio_to_one_block": res.elapsed_s / ref.elapsed_s,
+                        "one_block_elapsed_s": ref.elapsed_s}
+        del res
+    del ref
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded_main_path_3d", "ok": True,
+          "shape": [n] * 3, "mesh": list(SHARD3_MESH),
+          "block": [n // d for d in SHARD3_MESH], "steps": MAIN_STEPS,
+          "k": k, "resolved": resolved["path"],
+          "one_block": {"elapsed_s": one_s,
+                        "mcells_steps_per_s": cells / one_s},
+          "runs": out, "bitwise_one_block": True,
+          "profiled_default": busy, "profiled_one_block": busy_one,
+          "cube_512": small})
+    return launches
+
+
+def phase_sharded_converge_3d():
+    """Converge mode and depth 1 on a 3D mesh, each identical to its
+    one-block run: 64^3 on (2, 2, 2) (rounds of 3 + ... + 2 a window), 10^3
+    on (2, 2, 2) (blocks of 5: the auto depth is capped at the block;
+    converges at step 360) and 64^3 at halo depth 1 (H at K = 1)."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, solve
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    k = params().h_k_default
+    base = dict(converge=True, check_interval=WINDOW, eps=1e-3,
+                mesh_shape=SHARD3_MESH)
+    per_window = -(-WINDOW // k) * 8
+    cases = [
+        ("64^3 (2, 2, 2)", HeatConfig(nx=64, ny=64, nz=64, steps=2000,
+                                      **base),
+         {"heat_h_block_3d_fused": 2000 // WINDOW * per_window}),
+        ("10^3 (2, 2, 2)", HeatConfig(nx=10, ny=10, nz=10, steps=5000,
+                                      **base),
+         {"heat_h_block_3d_fused": 360 // WINDOW * per_window}),
+        ("64^3 (2, 2, 2) depth 1", HeatConfig(nx=64, ny=64, nz=64,
+                                              steps=MAIN_STEPS,
+                                              mesh_shape=SHARD3_MESH,
+                                              halo_depth=1),
+         {"heat_h_block_3d_fused": MAIN_STEPS * 8})]
+    out = {}
+    for label, cfg, expect in cases:
+        one = solve(cfg.replace(mesh_shape=None, halo_depth=None))
+        res, _ = _sharded_run_3d(cfg, expect, label)
+        check((res.steps_run, res.converged) == (one.steps_run, one.converged)
+              and same_float(res.residual if res.residual is not None
+                             else 0.0,
+                             one.residual if one.residual is not None
+                             else 0.0)
+              and torch.equal(res.grid, one.grid),
+              f"{label}: {res.steps_run} steps, converged {res.converged}, "
+              f"residual {res.residual}; one block: {one.steps_run}, "
+              f"{one.converged}, {one.residual}")
+        out[label] = {"steps_run": res.steps_run,
+                      "converged": res.converged, "residual": res.residual,
+                      "elapsed_s": res.elapsed_s,
+                      "one_block_elapsed_s": one.elapsed_s,
+                      "launches": expect}
+    check(out["10^3 (2, 2, 2)"]["steps_run"] == 360
+          and out["10^3 (2, 2, 2)"]["converged"],
+          f"10^3 on (2, 2, 2) did not converge at step 360: {out}")
+    emit({"phase": "sharded_converge_3d", "ok": True, **out,
+          "identical_to_one_block": True})
+
+
+def phase_cli_sharded_3d():
+    """The CLI on a (2, 2, 2) mesh writes the one-block grid."""
+    from parallel_heat_tpu_torch import HeatConfig, solve
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh3d.npy")
+        cmd = [sys.executable, "-m", "parallel_heat_tpu_torch", "--nx", "64",
+               "--ny", "64", "--nz", "64", "--steps", "100", "--mesh",
+               "2,2,2", "--out", path]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0,
+              f"3D sharded CLI exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        grid = solve(HeatConfig(nx=64, ny=64, nz=64, steps=100)).to_numpy()
+        check(np.array_equal(np.load(path), grid),
+              "the 3D sharded CLI's .npy differs from the one-block grid")
+    emit({"phase": "cli_sharded_3d", "ok": True,
+          "stdout": proc.stdout.strip().splitlines()})
+
+
+def _interior_cells_3d(origin, shape, grid):
+    """Cells of the block ``shape`` at ``origin`` in the grid's interior."""
+    return math.prod(max(min(o + s, n - 1) - max(o, 1), 0)
+                     for o, s, n in zip(origin, shape, grid))
+
+
+def phase_timing_h(dev):
+    """ms per launch of each H kernel at the main path's block (512^3 of
+    1024^3 on (2, 2, 2), K = h_k_default, no residual, as the rounds
+    between check windows launch them), its plain version, its bound and
+    a conv3d yardstick; the exchange's own time per round and one whole
+    monolithic round of the 8 blocks."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallel_heat_tpu_torch.models import HeatPlate3D
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = params().h_k_default
+    grid = (SHARD3_N,) * 3
+    mesh = HeatMesh(SHARD3_MESH, dev)
+    bs = mesh.block_shape(grid)
+    bx, by, bz = bs
+    plate = HeatPlate3D(*grid)
+    us = [plate.init_block(dev, mesh.origin(b, bs), bs)
+          for b in range(mesh.size)]
+    xch = temporal3d.DeepExchange3D(mesh, bs, k, dev)
+
+    def exchange():
+        xch.lead(us)
+        xch.last(us)
+
+    exchange_ms = _time_ms(exchange, 20, 2)
+    b = mesh.size - 1
+    o = mesh.origin(b, bs)
+    kw = dict(origin=o, grid_shape=grid, cx=CX, cy=CY, cz=CX)
+    zt, yt, xlo, xhi = xch.pieces(b)
+    ext = torch.empty(xch.circular_shape, device=dev)
+    xch.assemble_circular(b, us[b], ext)
+    assemble_ms = _time_ms(lambda: xch.assemble_circular(b, us[b], ext), 10,
+                           2)
+    frame = torch.zeros(tuple(n + 2 * k for n in bs), device=dev)
+    xch.assemble_padded(b, us[b], frame)
+    v = torch.empty(bs, device=dev)
+    a0, cx, cy, cz = coeffs3_f32(CX, CY, CX)
+    w = torch.zeros((3, 3, 3), dtype=torch.float32, device=dev)
+    w[1, 1, 1] = a0
+    w[0, 1, 1] = w[2, 1, 1] = cx
+    w[1, 0, 1] = w[1, 2, 1] = cy
+    w[1, 1, 0] = w[1, 1, 2] = cz
+    w = w.view(1, 1, 3, 3, 3)
+
+    def conv_steps(x):
+        for _ in range(k):
+            x = F.conv3d(x, w)
+        return x
+
+    framed = frame.view(1, 1, *frame.shape)
+    lead = frame[k:k + bx].contiguous().view(1, 1, bx, by + 2 * k,
+                                             bz + 2 * k)
+    bands = torch.stack([frame[:3 * k], frame[bx - k:]]).view(
+        2, 1, 3 * k, by + 2 * k, bz + 2 * k)
+    f = 4  # bytes a float32
+    ops = OPS_PER_CELL_STEP_3D * k
+    inner = _interior_cells_3d(o, bs, grid)
+    bulk_inner = _interior_cells_3d((o[0] + k,) + o[1:], (bx - 2 * k, by, bz),
+                                    grid)
+    plane = by * bz
+    tails = bx * by * 2 * k + bx * 2 * k * (bz + 2 * k)
+    slabs = 2 * k * (by + 2 * k) * (bz + 2 * k)
+    timed = {
+        # The main path's launch: the monolithic fused round.
+        "heat_h_block_3d_fused": (
+            lambda: skb3.h_block_fused(us[b], zt, yt, xlo, xhi, v, k, False,
+                                       **kw),
+            lambda: skb3.h_block_fused_plain(us[b], zt, yt, xlo, xhi, v, k,
+                                             False, **kw),
+            lambda: conv_steps(framed),
+            (f * (2 * bx * plane + tails + slabs), ops * inner)),
+        "heat_h_block_3d_fused@bulk": (
+            lambda: skb3.h_block_fused(us[b], zt, yt, None, None, v, k,
+                                       False, defer_x=True, **kw),
+            lambda: skb3.h_block_fused_plain(us[b], zt, yt, None, None, v,
+                                             k, False, defer_x=True, **kw),
+            lambda: conv_steps(lead),
+            (f * ((2 * bx - 2 * k) * plane + tails), ops * bulk_inner)),
+        "heat_h_block_3d": (
+            lambda: skb3.h_block(ext, v, k, False, **kw),
+            lambda: skb3.h_block_plain(ext, v, k, False, **kw),
+            lambda: conv_steps(framed),
+            (f * (math.prod(xch.circular_shape) + bx * plane),
+             ops * inner)),
+        "heat_h_band_fix_3d": (
+            lambda: skb3.h_band_fix(us[b], zt, yt, xlo, xhi, v, k, False,
+                                    **kw),
+            lambda: skb3.h_band_fix_plain(us[b], zt, yt, xlo, xhi, v, k,
+                                          False, **kw),
+            lambda: conv_steps(bands),
+            (f * (4 * k * plane + tails * 4 * k // bx + slabs
+                  + 2 * k * plane), ops * (inner - bulk_inner))),
+    }
+    rows = {}
+    for key, (kernel, plain, library, (nbytes, nops)) in timed.items():
+        name = key.split("@")[0]
+        rows[key] = {"block": list(bs), "k": k,
+                     "ms": _time_ms(kernel, 20, 3),
+                     "plain_ms": _time_ms(plain, 2, 1),
+                     "library_ms": _time_ms(library, 5, 1),
+                     **_bound(nbytes, nops)}
+        rows[key].update(_device_ms(kernel, name))
+    # One whole monolithic round of the 8 blocks (the three phases and 8
+    # launches of H-fused), by events.
+    vs = [torch.empty_like(u) for u in us]
+    round_fn = temporal3d.cuda_round_3d(xch, "H-fused", "overlap",
+                                        grid_shape=grid, cx=CX, cy=CY, cz=CX)
+    round_ms = _time_ms(lambda: round_fn(us, vs, False), 10, 2)
+    copies = xch.copies
+    del us, vs, xch, ext, v, frame, framed, lead, bands
+    torch.cuda.empty_cache()
+    emit({"phase": "timing_h", "kernels": rows,
+          "exchange_ms_per_round": exchange_ms,
+          "exchange_copies_per_round": copies,
+          "host_launches_per_round": mesh.size + copies,
+          "assemble_ms_per_block": assemble_ms,
+          "round_ms": round_ms,
+          "redundant_cell_share": (math.prod(n + 2 * k for n in bs)
+                                   - math.prod(bs)) / math.prod(bs),
+          "band_share_of_cells": 2 * k / bx})
+    return {name: row for name, row in rows.items() if "@" not in name}
+
+
 def main() -> int:
     import torch
 
@@ -2062,10 +2594,15 @@ def main() -> int:
         launches.update(phase_sharded_main_path())
         phase_sharded_converge()
         phase_cli_sharded()
+        err.update(phase_kernels_h(dev))
+        launches.update(phase_sharded_main_path_3d())
+        phase_sharded_converge_3d()
+        phase_cli_sharded_3d()
         t = phase_timing(dev)
         t.update(phase_timing_3d(dev))
         t.update(phase_timing_ens_mg(dev))
         t.update(phase_timing_g(dev))
+        t.update(phase_timing_h(dev))
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)

@@ -13,12 +13,13 @@ through a multigrid V-cycle per step whose transfer operators are the
 kernels ``heat_mg_restrict`` and ``heat_mg_prolong``
 (``ops/multigrid.py``); and ``EnsembleSolver(config, B)``, B member
 grids of one config advanced together, through kernel M
-(``heat_m_ensemble``, ``ops/batched.py``) where it admits. A 2D
-explicit config with ``mesh_shape`` runs cut over a mesh of blocks
+(``heat_m_ensemble``, ``ops/batched.py``) where it admits. An explicit
+config with ``mesh_shape`` runs cut over a mesh of blocks
 (:class:`HeatMesh`, every block on the run's one device) by K-deep halo
-exchanges and rounds of the sharded kernels ``heat_g_*``
-(``ops/stencil_kernels_block.py``, ``parallel/temporal.py``), bitwise a
-one-block run. Entry points run on ``cuda:0`` unless the caller passes
+exchanges and rounds of the sharded kernels: ``heat_g_*`` in 2D
+(``ops/stencil_kernels_block.py``, ``parallel/temporal.py``) and
+``heat_h_*`` in 3D (``ops/stencil_kernels_block_3d.py``,
+``parallel/temporal3d.py``), bitwise a one-block run. Entry points run on ``cuda:0`` unless the caller passes
 ``device="cpu"``.
 """
 

@@ -1,9 +1,9 @@
 """Time kernels A, B, E, D, F, M, the multigrid transfer kernels and the
-sharded block kernels G on the card over their launch shapes.
+sharded block kernels G and H on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
         [--a-sizes 256,1000,1800] [--size-3d 512]
-        [--only a,b,e,d,f,m,mg,g] [--reps 10] [--out FILE] [--sass DIR]
+        [--only a,b,e,d,f,m,mg,g,h] [--reps 10] [--out FILE] [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -36,7 +36,15 @@ mesh: the deferred bulk of G-uni (the launch the default overlapped
 round makes) over output tiles, thread blocks and K, and the band kernel
 over tile widths and thread blocks at K = 8, each launch shape first
 checked bitwise against the plain version on a 500 x 252 block of
-1000 x 1008 on (2, 4). The values in
+1000 x 1008 on (2, 4). ``--only h`` sweeps the sharded 3D path's H
+kernels at the main path's block, 512^3 of 1024^3 on a (2, 2, 2) mesh:
+the deferred bulk of H-fused over thread blocks, rows per thread and K
+(the segment of ``hopper_params.h_launch``), then over X segments at the
+fastest shape per step; and, at the defaults, the monolithic H-fused,
+H and the band kernel, and kernel F on a 512^3 grid, the yardstick of
+the step phase they share. Each launch shape is first checked bitwise
+against the plain version on the interior block of a (3, 3, 3) mesh of
+21 x 30 x 70 blocks. The values in
 ``ops/hopper_params.py`` marked "measured" come from this sweep.
 ``--sass DIR`` also writes each kernel library's machine code
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
@@ -96,6 +104,8 @@ G_TILES = [(64, 112), (96, 112), (128, 112), (64, 128), (128, 128),
 G_BLOCKS = [(32, 8), (32, 16), (32, 32)]
 G_KS = [4, 6, 8]
 G_BAND_TILES = [112, 240, 496]
+H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)   # the sharded 3D main path
+H_SEGMENTS = [32, 64, 86, 128, 171, 256, 512]
 
 
 def card_line() -> str:
@@ -439,6 +449,123 @@ def sweep_g(reps: int):
                                    and block == p.g_band_block)}
 
 
+def _h_setup(dev, grid, mesh_shape, k, blocks):
+    """The K-deep 3D exchange of ``blocks`` after all three phases."""
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    mesh = HeatMesh(mesh_shape, dev)
+    xch = temporal3d.DeepExchange3D(mesh, mesh.block_shape(grid), k, dev)
+    xch.lead(blocks)
+    xch.last(blocks)
+    return mesh, xch
+
+
+def sweep_h(reps: int):
+    """Yield one dict per launch shape of H-fused's deferred bulk at the
+    sharded 3D main path's block, then the defaults' other launches."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    s_mesh_shape, s_block = (3, 3, 3), (21, 30, 70)
+    s_grid = tuple(m * b for m, b in zip(s_mesh_shape, s_block))
+    s_us = HeatMesh(s_mesh_shape, dev).split(torch.from_numpy(
+        (rng.standard_normal(s_grid) * 10).astype(np.float32)).to(dev))
+    sb = 13                                     # the interior block
+    mesh = HeatMesh(H_MESH, dev)
+    bs = mesh.block_shape(H_GRID)
+    plate = HeatPlate3D(*H_GRID)
+    us = [plate.init_block(dev, mesh.origin(b, bs), bs)
+          for b in range(mesh.size)]
+    b = mesh.size - 1
+    size = "x".join(map(str, bs))
+    kw3 = dict(zip(("cx", "cy", "cz"), COEFFS_3D))
+    kw = dict(cx=CX, cy=CY, cz=CZ)
+    out = torch.empty(bs, device=dev)
+    best = None
+    for k in range(1, p.h_k_compiled + 1):
+        s_mesh, s_xch = _h_setup(dev, s_grid, s_mesh_shape, k, s_us)
+        _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
+        s_kw = dict(origin=s_mesh.origin(sb, s_block), grid_shape=s_grid,
+                    **kw3)
+        big_kw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw)
+        zt, yt, _, _ = s_xch.pieces(sb)
+        want = torch.full(s_block, float("nan"), device=dev)
+        rp = skb3.h_block_fused_plain(s_us[sb], zt, yt, None, None, want, k,
+                                      defer_x=True, **s_kw)
+        bzt, byt, _, _ = xch.pieces(b)
+        for block, rows in F_SHAPES:
+            if k > p.h_k_max(block, rows):
+                continue
+            seg = p.h_launch(bs, k, bs[0] - 2 * k, block, rows)
+            geo = (block[0], block[1], rows)
+            got = torch.full_like(want, float("nan"))
+            r = skb3._launch("heat_h_block_3d_fused", (s_us[sb], zt, yt, None,
+                                                       None), got, k, True,
+                             mid=(k, k, k, 1), geometry=geo + (
+                                 p.h_launch(s_block, k, s_block[0] - 2 * k,
+                                            block, rows),), **s_kw)
+            ok = bool(torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+                      and torch.equal(r, rp))
+            ms = time_ms(lambda: skb3._launch(
+                "heat_h_block_3d_fused", (us[b], bzt, byt, None, None), out,
+                k, False, mid=(k, k, k, 1), geometry=geo + (seg,), **big_kw),
+                reps)
+            row = {"kernel": "heat_h_block_3d_fused", "mode": "bulk",
+                   "size": size, "block": list(block), "rows": rows, "k": k,
+                   "segment": seg,
+                   "smem_bytes": p.f_smem_bytes(k, block, rows),
+                   "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                   "default": (block == p.h_block and rows == p.h_rows
+                               and k == p.h_k_default)}
+            if ok and (best is None or row["ms_per_step"]
+                       < best["ms_per_step"]):
+                best = row
+            yield row
+        del s_xch, xch
+    # The X segment at the fastest shape per step.
+    k, block, rows = best["k"], tuple(best["block"]), best["rows"]
+    _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
+    bzt, byt, xlo, xhi = xch.pieces(b)
+    big_kw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw)
+    for seg in H_SEGMENTS:
+        ms = time_ms(lambda: skb3._launch(
+            "heat_h_block_3d_fused", (us[b], bzt, byt, None, None), out, k,
+            False, mid=(k, k, k, 1), geometry=(block[0], block[1], rows, seg),
+            **big_kw), reps)
+        yield {"kernel": "heat_h_block_3d_fused", "mode": "bulk-segment",
+               "size": size, "block": list(block), "rows": rows, "k": k,
+               "segment": seg, "bitwise": best["bitwise"], "ms": ms,
+               "ms_per_step": ms / k, "default": False}
+    # The defaults' monolithic, assembled and band launches, and F.
+    k = p.h_k_default
+    _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
+    pieces = xch.pieces(b)
+    ext = torch.empty(xch.circular_shape, device=dev)
+    xch.assemble_circular(b, us[b], ext)
+    big_kw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw)
+    cube = HeatPlate3D(*bs).init_grid(dev)
+    cube_out = torch.empty_like(cube)
+    for name, mode, fn in (
+            ("heat_h_block_3d_fused", "monolithic",
+             lambda: skb3.h_block_fused(us[b], *pieces, out, k, False,
+                                        **big_kw)),
+            ("heat_h_block_3d", "monolithic",
+             lambda: skb3.h_block(ext, out, k, False, **big_kw)),
+            ("heat_h_band_fix_3d", "band",
+             lambda: skb3.h_band_fix(us[b], *pieces, out, k, False,
+                                     **big_kw)),
+            ("heat_f_temporal3d", "one grid",
+             lambda: sk3.xslab_steps_3d(cube, cube_out, k, False, **kw))):
+        ms = time_ms(fn, reps)
+        yield {"kernel": name, "mode": mode, "size": size, "k": k,
+               "bitwise": True, "ms": ms, "ms_per_step": ms / k,
+               "default": True}
+
+
 def sass_loops(sass: str):
     """``[(start, end, instructions)]`` of each backward branch's loop body
     in a ``cuobjdump -sass`` listing."""
@@ -474,7 +601,7 @@ def main(argv=None) -> int:
                     help="cube edge for kernels D and F")
     ap.add_argument("--only", default="a,b,e,d,f",
                     help="comma-separated kernels to sweep (a, b, e, d, f, "
-                         "m, mg, g)")
+                         "m, mg, g, h)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -507,13 +634,16 @@ def main(argv=None) -> int:
             row["size"] = args.size_3d
             rows.append(row)
             print(json.dumps(row), flush=True)
-    for key, run in (("m", sweep_m), ("mg", sweep_mg), ("g", sweep_g)):
+    for key, run in (("m", sweep_m), ("mg", sweep_mg), ("g", sweep_g),
+                     ("h", sweep_h)):
         for row in run(args.reps) if key in only else []:
             rows.append(row)
             print(json.dumps(row), flush=True)
     bad = [r for r in rows if not r["bitwise"]]
-    for key in sorted({(r["kernel"], r["size"]) for r in rows}):
-        best = min((r for r in rows if (r["kernel"], r["size"]) == key
+    for key in sorted({(r["kernel"], r["size"], r.get("mode", ""))
+                       for r in rows}):
+        best = min((r for r in rows
+                    if (r["kernel"], r["size"], r.get("mode", "")) == key
                     and r["bitwise"]), key=lambda r: r["ms_per_step"],
                    default=None)
         print(json.dumps({"best": best}), flush=True)

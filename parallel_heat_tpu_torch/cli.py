@@ -7,8 +7,9 @@ grid, ``.npy`` for a 3D one or a path ending in ``.npy``). ``--ensemble
 B`` runs B members of the config through the ensemble engine and prints
 one line per member, as the JAX CLI does; ``--scheme`` and the ``--mg-*``
 flags select the implicit integrators; ``--mesh``, ``--no-overlap``,
-``--halo-depth`` and ``--halo-overlap`` cut a 2D run over a mesh of
-blocks, all on the run's one device (``auto`` is the one-device mesh).
+``--halo-depth`` and ``--halo-overlap`` cut a run over a mesh of blocks
+(``--mesh dx,dy``, or ``dx,dy,dz`` with ``--nz``), all on the run's one
+device (``auto`` is the one-device mesh).
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "textbook stencil in plain PyTorch; auto: cuda on "
                          "a GPU device, torch on the CPU")
     ap.add_argument("--mesh", default=None,
-                    help="mesh of blocks, e.g. '2,4' (default: one block; "
+                    help="mesh of blocks, e.g. '2,4', or '2,2,2' with --nz "
+                         "(default: one block; "
                          "'auto' factorizes the one device this package "
                          "runs on, so it gives (1, 1)); every block lives "
                          "on --device")
@@ -77,9 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "interior/edge split")
     ap.add_argument("--halo-depth", default="auto", metavar="K",
                     help="exchange K-deep halos once per K steps (sharded "
-                         "runs). 'auto' takes kernel G's depth under "
-                         "backend cuda where the blocks hold it, else 1; "
-                         "see --explain")
+                         "runs). 'auto' takes kernel G's depth (2D) or "
+                         "kernel H's (3D) under backend cuda where the "
+                         "blocks hold it, else 1; see --explain")
     ap.add_argument("--halo-overlap", default="auto",
                     choices=("auto", "phase", "overlap", "pipeline"),
                     help="schedule of the K-deep rounds (bitwise the same "
@@ -100,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _parse_mesh(arg: Optional[str], ndim: int):
-    """``--mesh``: None, 'auto' (the one device: all ones) or 'dx,dy'."""
+    """``--mesh``: None, 'auto' (the one device: all ones), 'dx,dy' or
+    'dx,dy,dz'."""
     if arg is None:
         return None
     if arg == "auto":

@@ -16,12 +16,13 @@ implements, so one spec runs on either package. What differs:
   (backward Euler, Crank-Nicolson: one multigrid V-cycle solve per
   step, ``ops/multigrid.py``) exactly as in the JAX package;
 - ``mesh_shape``, ``overlap``, ``halo_depth`` and ``halo_overlap`` cut a
-  2D explicit run over a mesh of blocks (``parallel/``), all on the
-  run's one device in this slice. ``halo_depth`` auto resolves to
-  kernel G's depth under ``backend="cuda"`` and to 1 otherwise; an
-  explicit depth past what the G kernels take is refused under
-  ``"cuda"``. A 3D mesh, an implicit scheme on a mesh and the
-  ``"pipeline"`` schedule are refused, naming the ROADMAP.md item;
+  2D or 3D explicit run over a mesh of blocks (``parallel/``), all on
+  the run's one device in this slice. ``halo_depth`` auto resolves to
+  kernel G's depth (2D) or kernel H's (3D, capped at the smallest block
+  extent) under ``backend="cuda"`` and to 1 otherwise; an explicit depth
+  past what the G or H kernels take is refused under ``"cuda"``. An
+  implicit scheme on a mesh and the ``"pipeline"`` schedule are
+  refused, naming the ROADMAP.md item;
 - the fields of the JAX package that this one does not implement yet
   (observers, f32chunk accumulation, the partitioned V-cycle) are
   rejected by :meth:`HeatConfig.from_dict` when they are set away from
@@ -216,8 +217,8 @@ class HeatConfig:
     # Where the grid lives: "cuda" (= cuda:0), "cuda:N" or "cpu".
     device: str = "cuda"
 
-    # Device mesh (dx, dy) cutting the grid into dx x dy blocks, or None
-    # for one block. Every block lives on `device` in this slice.
+    # Device mesh (dx, dy) or (dx, dy, dz) cutting the grid into blocks,
+    # or None for one block. Every block lives on `device` in this slice.
     mesh_shape: Optional[Tuple[int, ...]] = None
     # The per-step (halo_depth 1) torch path's interior/edge split: the
     # block's interior is computed from the block alone.
@@ -401,11 +402,6 @@ class HeatConfig:
                     f"scheme={self.scheme!r} — drop the flag")
         if not self.is_sharded():
             return
-        if self.ndim == 3:
-            raise ValueError(
-                f"a 3D mesh {mesh} is not ported yet: the sharded 3D path "
-                f"(kernels H, H-fused, band_fix_3d) is the next slice, "
-                f"ROADMAP.md queue 1 item 8")
         if self.scheme != "explicit":
             raise ValueError(
                 f"scheme={self.scheme!r} on a mesh is not ported yet "
@@ -426,13 +422,19 @@ class HeatConfig:
             if self.backend == "cuda":
                 from parallel_heat_tpu_torch.ops.hopper_params import params
 
-                k_max = params().g_k_max()
+                p = params()
+                if self.ndim == 2:
+                    k_max, why = p.g_k_max(), (f"the G kernels' shared-memory "
+                                               f"bound at tile {p.g_tile}")
+                else:
+                    k_max, why = p.h_k_max(), (
+                        f"the H kernels' compiled depths and shared memory "
+                        f"at block {p.h_block}, {p.h_rows} rows a thread")
                 if self.halo_depth > k_max:
                     raise ValueError(
-                        f"backend='cuda' takes halo_depth <= {k_max} (the "
-                        f"G kernels' shared-memory bound at tile "
-                        f"{params().g_tile}), got {self.halo_depth}; deeper "
-                        f"rounds run under backend='torch'")
+                        f"backend='cuda' takes halo_depth <= {k_max} "
+                        f"({why}), got {self.halo_depth}; deeper rounds run "
+                        f"under backend='torch'")
 
     # --- (de)serialization -------------------------------------------------
 

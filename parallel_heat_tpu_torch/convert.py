@@ -36,8 +36,8 @@ def from_jax(config_fields: dict, grid: Optional[np.ndarray],
     against the config's shape (``(B, *shape)`` for an ensemble of B
     members) and copied to ``device`` as float32; the global grid of a
     sharded config (``np.asarray`` of a JAX sharded array gathers it)
-    comes back split into this package's blocks, a list in the mesh's
-    row-major order that ``solve(config, initial=blocks)`` takes.
+    comes back split into this package's blocks (2D or 3D), a list in the
+    mesh's row-major order that ``solve(config, initial=blocks)`` takes.
     """
     fields = dict(config_fields)
     backend = fields.get("backend", "auto")

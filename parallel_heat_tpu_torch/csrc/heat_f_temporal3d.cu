@@ -22,24 +22,9 @@
 // 1 MiB, and a block here has at most 227 KB of shared memory, so the
 // (Y, Z) plane is tiled too: a block owns a tile of output cells plus a
 // K-deep halo on its four sides, the extended tile, and a segment of
-// output planes [x0, x1). It streams the input planes [x0 - K, x1 + K)
-// through shared memory, one plane per iteration (cp.async, a ring of
-// kFPrefetch planes in flight), and in the iteration that brings input
-// plane t it advances every level at once: level s (the grid after s
-// steps) at plane t - s, for s = 1 .. K, so level K comes out K planes
-// behind the input. This is kernel I's scheme (heat_band.cuh) with
-// planes for rows:
-//   - a thread owns R consecutive rows of one z of the extended tile and
-//     keeps those cells' last three planes of levels 0 .. K-1 in
-//     registers, which give their X neighbours and, inside the thread,
-//     their Y neighbours;
-//   - Z neighbours, and the Y neighbours past a thread's first and last
-//     row, come from shared memory, where each level keeps its last two
-//     planes, by the input plane's parity; each plane is padded by one
-//     row above and below, so the neighbour reads need no test;
-//   - one barrier per input plane orders it all: a level's plane is read
-//     by its neighbours in the next iteration, from the slot that was not
-//     written in this one.
+// output planes [x0, x1), and streams the input planes [x0 - K, x1 + K)
+// through shared memory with all K levels in flight: the step phase of
+// heat_temporal3d.cuh, which the sharded block kernels heat_h_* share.
 // One row per thread (R = 1, one thread per cell, 1024-thread blocks)
 // was the first design: one block per SM meeting at every plane's
 // barrier, four shared reads per cell-step, 1.4x slower at 512^3
@@ -55,94 +40,21 @@
 // heat_d_step3d, which makes K steps bitwise K launches of D. Offsets
 // are int64.
 
-#include <cuda_pipeline.h>
-
-#include "heat_common.cuh"
-
-// Input planes prefetched ahead of the one being stepped, and the input
-// ring's slots: the planes in flight plus the current and the previous.
-// ops/hopper_params.py's f_prefetch must equal kFPrefetch.
-constexpr int kFPrefetch = 6;
-constexpr int kFSlots = kFPrefetch + 2;
-
-// Levels 1 .. K of one input plane t: level s at plane t - s, for this
-// thread's R cells (rows row0 .. row0+R-1 of the extended tile, one z).
-// up, mid and down hold those cells' last three planes of levels
-// 0 .. K-1; `prev0` points at input plane t - 1 at this thread's first
-// cell (level 0's neighbours), `lev` at levels 1 .. K-1, two planes each
-// by parity (`par` is t's), with `me` this thread's first cell and `bz`
-// the row length of a plane of `ps` floats. A cell's Y neighbours inside
-// the thread come from registers, the ones past its first and last row
-// and its Z neighbours from shared memory. Bit r of `yz_in` says row r's
-// cell is inside the grid's (Y, Z) interior, bit r of `out_rows` that it
-// is this block's to write. With kPlanesIn the K planes made are all
-// interior planes of the grid and are not tested. `out_cell` is where
-// row 0's level K goes (row r's at r * nz past it), or null when plane
-// t - K is not this block's to write.
-template <int K, int R, bool kPlanesIn>
-__device__ __forceinline__ void heat_f_levels(
-    float (&up)[K][R], float (&mid)[K][R], float (&down)[K][R],
-    const float* prev0, float* lev, int ps, int me, int bz, int par,
-    int64_t t, int64_t nx, unsigned yz_in, unsigned out_rows,
-    float* out_cell, int64_t nz, float a0, float cx, float cy, float cz,
-    uint32_t* rmax) {
-#pragma unroll
-  for (int s = 1; s <= K; ++s) {
-    // Level s-1 at plane t - s: this thread's cells in mid[s-1], the
-    // neighbours' in shared memory (written in the last iteration).
-    const float* nb =
-        s == 1 ? prev0 : lev + ((s - 2) * 2 + (par ^ 1)) * ps + me;
-    const bool x_in = kPlanesIn || (t - s >= 1 && t - s <= nx - 2);
-    float v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float cc = mid[s - 1][r];
-      const float ym = r > 0 ? mid[s - 1][r - 1] : nb[-bz];
-      const float yp = r + 1 < R ? mid[s - 1][r + 1] : nb[R * bz];
-      const bool in = x_in && ((yz_in >> r) & 1u);
-      v[r] = in ? heat_combine3(cc, up[s - 1][r], down[s - 1][r], ym, yp,
-                                nb[r * bz - 1], nb[r * bz + 1], a0, cx, cy,
-                                cz)
-                : cc;
-    }
-    if (s < K) {
-      float* dst = lev + ((s - 1) * 2 + par) * ps + me;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        dst[r * bz] = v[r];
-        up[s][r] = mid[s][r];
-        mid[s][r] = down[s][r];
-        down[s][r] = v[r];
-      }
-    } else if (out_cell != nullptr) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if ((out_rows >> r) & 1u) {
-          out_cell[r * nz] = v[r];
-          if (x_in && ((yz_in >> r) & 1u))
-            *rmax = max(*rmax, heat_diff_bits(v[r], mid[K - 1][r]));
-        }
-      }
-    }
-  }
-}
+#include "heat_temporal3d.cuh"
 
 // One block: the (Y, Z) tile and the X segment of blockIdx.x. blockDim
-// is (bz, by): the extended tile is bz wide and by * R rows deep.
+// is (bz, by): the extended tile is bz wide and by * R rows deep. The
+// step phase is heat_temporal3d.cuh's; the load reads u, zero-filled
+// outside the grid.
 template <int K, int R>
 __global__ void __launch_bounds__(512)
 heat_f_temporal3d_kernel(const float* __restrict__ u, float* __restrict__ out,
                          uint32_t* res, int64_t nx, int64_t ny, int64_t nz,
                          int64_t tiles_z, int64_t tiles_y, int seg, float a0,
                          float cx, float cy, float cz) {
-  extern __shared__ __align__(16) float smem[];
   const int bz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
-  const int ps = (wy + 2) * bz;              // a plane and its two pad rows
-  float* ring = smem;                        // kFSlots input planes
-  float* lev = smem + kFSlots * ps;          // levels 1 .. K-1, two each
   const int row0 = threadIdx.y * R;          // this thread's first row
-  const int me = bz + row0 * bz + threadIdx.x;
   const int64_t b = blockIdx.x;
   const int64_t tz = b % tiles_z;
   const int64_t ty = (b / tiles_z) % tiles_y;
@@ -164,64 +76,20 @@ heat_f_temporal3d_kernel(const float* __restrict__ u, float* __restrict__ out,
   }
   const int64_t plane = ny * nz;
   const int64_t col = gy0 * nz + gz;  // offset of row 0's cell in a plane
-  const int64_t t0 = x0 - K, t1 = x1 + K;
 
-  // Input plane t0 + i lives in ring slot i % kFSlots. Outside the grid
-  // a cell is zero-filled.
-  auto load = [&](int slot, int64_t t) {
+  // Outside the grid a cell is zero-filled.
+  auto load = [&](float* dst, int64_t t) {
     const bool t_in = t >= 0 && t < nx;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const bool in = t_in && ((cell_in >> r) & 1u);
-      __pipeline_memcpy_async(ring + slot * ps + me + r * bz,
+      __pipeline_memcpy_async(dst + r * bz,
                               in ? u + t * plane + col + r * nz : u, 4,
                               in ? 0 : 4);
     }
   };
-  for (int i = 0; i < kFPrefetch; ++i) {
-    if (t0 + i < t1) load(i, t0 + i);
-    __pipeline_commit();
-  }
-  float up[K][R], mid[K][R], down[K][R];
-#pragma unroll
-  for (int s = 0; s < K; ++s)
-#pragma unroll
-    for (int r = 0; r < R; ++r) up[s][r] = mid[s][r] = down[s][r] = 0.f;
-  uint32_t rmax = 0u;
-  int cur = 0;  // ring slot of plane t
-  for (int64_t t = t0; t < t1; ++t) {
-    // Plane t has landed, for every thread once past the barrier, which
-    // also ends the last iteration's reads of the slot refilled next.
-    __pipeline_wait_prior(kFPrefetch - 1);
-    __syncthreads();
-    const int prev = cur == 0 ? kFSlots - 1 : cur - 1;
-    if (t + kFPrefetch < t1) {
-      int next = cur + kFPrefetch;
-      if (next >= kFSlots) next -= kFSlots;
-      load(next, t + kFPrefetch);
-    }
-    __pipeline_commit();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      up[0][r] = mid[0][r];
-      mid[0][r] = down[0][r];
-      down[0][r] = ring[cur * ps + me + r * bz];
-    }
-    float* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
-                          ? out + (t - K) * plane + col
-                          : nullptr;
-    const int par = static_cast<int>(t & 1);
-    if (t - K >= 1 && t - 1 <= nx - 2)
-      heat_f_levels<K, R, true>(up, mid, down, ring + prev * ps + me, lev, ps,
-                                me, bz, par, t, nx, yz_in, out_rows, out_cell,
-                                nz, a0, cx, cy, cz, &rmax);
-    else
-      heat_f_levels<K, R, false>(up, mid, down, ring + prev * ps + me, lev,
-                                 ps, me, bz, par, t, nx, yz_in, out_rows,
-                                 out_cell, nz, a0, cx, cy, cz, &rmax);
-    cur = cur + 1 == kFSlots ? 0 : cur + 1;
-  }
-  if (res != nullptr) heat_block_max(rmax, res);
+  heat_t3d_stream<K, R>(load, x0, x1, 0, nx, yz_in, out_rows, out, plane, col,
+                        nz, a0, cx, cy, cz, res);
 }
 
 using HeatFKernel = void (*)(const float*, float*, uint32_t*, int64_t,
@@ -262,8 +130,7 @@ extern "C" int heat_f_temporal3d(const float* u, float* out, uint32_t* res,
   const int64_t tiles_y = (ny + wy - 2 * k - 1) / (wy - 2 * k);
   const int64_t blocks = tiles_z * tiles_y * ((nx + seg - 1) / seg);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (kFSlots + 2 * (k - 1)) * (wy + 2) * block_z;
+  const int smem = heat_t3d_smem_bytes(k, wy, block_z);
   const HeatFKernel kernel = kHeatFKernels[r_index][k - 1];
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

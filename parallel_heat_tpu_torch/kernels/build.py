@@ -90,9 +90,20 @@ KERNELS = {
     "heat_g_band_fix": ("heat_g_band_fix.cu",
                         [_P] * 6 + [_I64] * 6 + [_I32] * 4 + [_F32] * 3
                         + [_P]),
+    # The sharded 3D block kernels (csrc/heat_h.cuh): grid, block and
+    # origin (9 int64), then halos, (defer_x,) k, thread block and rows.
+    "heat_h_block_3d": ("heat_h_block_3d.cu",
+                        [_P] * 3 + [_I64] * 9 + [_I32] * 7 + [_I64]
+                        + [_F32] * 4 + [_P]),
+    "heat_h_block_3d_fused": ("heat_h_block_3d_fused.cu",
+                              [_P] * 7 + [_I64] * 9 + [_I32] * 8 + [_I64]
+                              + [_F32] * 4 + [_P]),
+    "heat_h_band_fix_3d": ("heat_h_band_fix_3d.cu",
+                           [_P] * 7 + [_I64] * 9 + [_I32] * 7 + [_F32] * 4
+                           + [_P]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
-           "heat_g.cuh")
+           "heat_g.cuh", "heat_temporal3d.cuh", "heat_h.cuh")
 
 # nvcc's stderr of each build in this process (ptxas register and
 # shared-memory report), by kernel name.

@@ -50,12 +50,19 @@ class HeatPlate3D:
         are bitwise equal. The two products round, so a cell may differ
         from the float64 oracle by an ulp.
         """
-        nx, ny, nz = self.shape
-        fx = torch.arange(nx, dtype=torch.float32, device=device)
-        fy = torch.arange(ny, dtype=torch.float32, device=device)
-        fz = torch.arange(nz, dtype=torch.float32, device=device)
-        fx = fx * (nx - fx - 1)
-        fy = fy * (ny - fy - 1)
-        fz = fz * (nz - fz - 1)
-        return (fx[:, None, None] * fy[None, :, None]
-                * fz[None, None, :]).to(dtype)
+        return self.init_block(device, (0, 0, 0), self.shape, dtype)
+
+    def init_block(self, device, origin, shape,
+                   dtype=torch.float32) -> torch.Tensor:
+        """The ``shape`` block of :meth:`init_grid` whose cell (0, 0, 0) is
+        global cell ``origin``, built alone (the counterpart of the JAX
+        package's ``HeatPlate3D.init_block``): the same float32 operations
+        on the same values (the global indices are exact in float32), so
+        the blocks of a mesh are bitwise the slices of the full grid and
+        no full-grid temporary is needed."""
+        f = []
+        for o, s, n in zip(origin, shape, self.shape):
+            i = torch.arange(o, o + s, dtype=torch.float32, device=device)
+            f.append(i * (n - i - 1))
+        return (f[0][:, None, None] * f[1][None, :, None]
+                * f[2][None, None, :]).to(dtype)

@@ -158,6 +158,28 @@ class HopperParams:
     g_band_tile_x: int = 240
     g_band_block: tuple = (32, 16)
 
+    # --- the sharded 3D block kernels heat_h_* (block, rows and K
+    # measured; prefetch, waves and segments chosen) ----------------------
+    # F's step phase on the (Y, Z) tiles of one block (csrc/heat_h.cuh):
+    # h_block = (along Z, along Y) threads, h_rows rows a thread, depth
+    # h_k_default, X segments of about h_waves blocks per SM but not below
+    # h_seg_planes_min planes. The prefetch is F's (f_prefetch, the step
+    # phase's compiled kFPrefetch), K is compiled for 1 .. h_k_compiled,
+    # rows for 1, 2 and 4. The sweep
+    # bench_kernels --only h (H-fused's deferred bulk at the 512^3 block
+    # of 1024^3 on a (2, 2, 2) mesh, H100 80GB HBM3 at 700 W) found 32 x 16
+    # threads of 2 rows at K = 3 fastest per step, 1.1745 ms a launch
+    # (0.392 ms a step), against 1.2106 at F's 64 x 8 of 4 rows; K = 4
+    # 0.392 a step, K = 2 and 5 and up slower; segments of 64 to 171
+    # planes within 2%, 512 23% slower. A 32-wide tile leaves more tiles
+    # wholly inside the block, which load as F does (81% against 70%).
+    h_block: tuple = (32, 16)
+    h_rows: int = 2
+    h_k_default: int = 3
+    h_k_compiled: int = 8
+    h_waves: int = 8
+    h_seg_planes_min: int = 64
+
     # --- kernels heat_mg_restrict and heat_mg_prolong (chosen) ------------
     # One output cell a thread; a warp takes 32 neighbouring columns.
     mg_block: tuple = (32, 8)
@@ -262,6 +284,30 @@ class HopperParams:
         tiles = -(-y // tile_y) * -(-z // tile_z)
         segments = -(-self.sm_count * self.f_waves // tiles)
         return tile_y, tile_z, max(self.f_seg_planes_min, -(-x // segments))
+
+    @functools.lru_cache(maxsize=16)
+    def h_k_max(self, block=None, rows=None) -> int:
+        """Deepest K an H kernel takes at ``h_block`` and ``h_rows``: the
+        compiled depths, at least one output cell per axis of the tile,
+        and F's planes within one block's shared memory."""
+        block, rows = block or self.h_block, rows or self.h_rows
+        wy, wz = self.f_extent(block, rows)
+        k = 0
+        while (k + 1 <= self.h_k_compiled and 2 * (k + 1) < min(wy, wz)
+               and self.f_smem_bytes(k + 1, block, rows)
+               + self.static_smem_bytes <= self.smem_per_block_max):
+            k += 1
+        return k
+
+    def h_launch(self, block_shape, k, planes, block=None, rows=None) -> int:
+        """The X segment of an H launch at depth ``k`` over ``planes``
+        output planes of a ``(bx, by, bz)`` block: about ``h_waves``
+        blocks per SM, at least ``h_seg_planes_min`` planes."""
+        _, by, bz = block_shape
+        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+        tiles = -(-by // (wy - 2 * k)) * -(-bz // (wz - 2 * k))
+        segments = -(-self.sm_count * self.h_waves // tiles)
+        return max(self.h_seg_planes_min, -(-planes // segments))
 
     def e_smem_bytes(self, k: int, tile=None) -> int:
         """Dynamic shared memory of one E block at depth ``k``."""

@@ -54,8 +54,9 @@ from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
 # Launches of each kernel and calls of each plain version, since the
 # last reset_counts(); the 3D kernels of stencil_kernels_3d, kernel M of
 # ops/batched.py, the transfer kernels of ops/multigrid.py and the
-# sharded block kernels of ops/stencil_kernels_block.py count here too,
-# so one registry covers every kernel of the port.
+# sharded block kernels of ops/stencil_kernels_block.py (2D) and
+# ops/stencil_kernels_block_3d.py (3D) count here too, so one registry
+# covers every kernel of the port.
 counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "heat_e_temporal": 0, "heat_e_uni_temporal": 0,
           "heat_i_tile_temporal": 0, "heat_i_uni_tile_temporal": 0,
@@ -63,7 +64,9 @@ counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "heat_m_ensemble": 0, "heat_mg_restrict": 0, "heat_mg_prolong": 0,
           "heat_g_block_padded": 0, "heat_g_block_circular": 0,
           "heat_g_block_fused": 0, "heat_g_block_uniform": 0,
-          "heat_g_band_fix": 0, "resident_steps_plain": 0,
+          "heat_g_band_fix": 0, "heat_h_block_3d": 0,
+          "heat_h_block_3d_fused": 0, "heat_h_band_fix_3d": 0,
+          "resident_steps_plain": 0,
           "strip_step_plain": 0,
           "tiled_step_plain": 0, "temporal_steps_plain": 0,
           "temporal_steps_uni_plain": 0, "tile_temporal_steps_plain": 0,
@@ -72,7 +75,8 @@ counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "restrict_full_weighting": 0, "prolong_bilinear": 0,
           "block_padded_plain": 0, "block_circular_plain": 0,
           "block_fused_plain": 0, "block_uniform_plain": 0,
-          "band_fix_plain": 0}
+          "band_fix_plain": 0, "h_block_plain": 0,
+          "h_block_fused_plain": 0, "h_band_fix_plain": 0}
 
 
 def reset_counts() -> None:

@@ -92,59 +92,78 @@ def _frame_of_pieces(u, tail, halo_n, halo_s, k):
 
 def _in_grid(ext, origin, grid_shape, k):
     """``ext`` with every cell outside the global grid set to 0 (the
-    kernels load nothing there)."""
-    m, n = grid_shape
+    kernels load nothing there); ``origin - k`` is the global index of
+    its cell (0, ...). Any rank: the 3D kernels' plain versions share
+    it."""
     dev = ext.device
-    rows = origin[0] - k + torch.arange(ext.shape[0], device=dev)
-    cols = origin[1] - k + torch.arange(ext.shape[1], device=dev)
-    inside = (((rows >= 0) & (rows < m))[:, None]
-              & ((cols >= 0) & (cols < n))[None, :])
+    inside = None
+    for axis, (o, n) in enumerate(zip(origin, grid_shape)):
+        idx = o - k + torch.arange(ext.shape[axis], device=dev)
+        m = ((idx >= 0) & (idx < n)).view(
+            [-1 if a == axis else 1 for a in range(ext.dim())])
+        inside = m if inside is None else inside & m
     return torch.where(inside, ext, torch.zeros((), device=dev))
 
 
-def _frontier(win, k, start, grid_shape, coeffs, with_residual):
-    """``k`` steps of the window ``win`` in place, its outer ring never
+def _frontier(win, k, start, grid_shape, combine, coeffs, with_residual):
+    """``k`` steps of the window ``win`` in place, its outer shell never
     updated and cells outside the global interior copied (``start`` is
-    the global ``(row, col)`` of ``win[0, 0]``); the last step's
-    ``|new - old|`` over the window's inner region, 0 where copied, or
-    None without ``with_residual``."""
-    m, n = grid_shape
+    the global index of its cell (0, ...)); ``combine(c, lo0, hi0, lo1,
+    hi1, ..., *coeffs)`` is the update, its neighbours axis by axis. The
+    last step's ``|new - old|`` over the window's inner region, 0 where
+    copied, or None without ``with_residual``."""
     dev = win.device
-    rows = start[0] + 1 + torch.arange(win.shape[0] - 2, device=dev)
-    cols = start[1] + 1 + torch.arange(win.shape[1] - 2, device=dev)
-    mask = (((rows >= 1) & (rows <= m - 2))[:, None]
-            & ((cols >= 1) & (cols <= n - 2))[None, :])
+    nd = win.dim()
+    inner = (slice(1, -1),) * nd
+    mask = None
+    for axis, (s, n) in enumerate(zip(start, grid_shape)):
+        idx = s + 1 + torch.arange(win.shape[axis] - 2, device=dev)
+        m = ((idx >= 1) & (idx <= n - 2)).view(
+            [-1 if a == axis else 1 for a in range(nd)])
+        mask = m if mask is None else mask & m
+
+    def shifted(axis, lo):
+        sl = list(inner)
+        sl[axis] = slice(None, -2) if lo else slice(2, None)
+        return win[tuple(sl)]
+
     diff = None
     for s in range(k):
-        c = win[1:-1, 1:-1]
-        new = torch.where(mask, combine_2d(c, win[:-2, 1:-1], win[2:, 1:-1],
-                                           win[1:-1, :-2], win[1:-1, 2:],
-                                           *coeffs), c)
+        c = win[inner]
+        pairs = [shifted(a, lo) for a in range(nd) for lo in (True, False)]
+        new = torch.where(mask, combine(c, *pairs, *coeffs), c)
         if with_residual and s == k - 1:
-            diff = torch.where(mask, (new - c).abs(), torch.zeros((),
-                                                                  device=dev))
-        win[1:-1, 1:-1] = new
+            diff = torch.where(mask, (new - c).abs(),
+                               torch.zeros((), device=dev))
+        win[inner] = new
     return diff
 
 
-def _steps_plain(ext, out, k, with_residual, origin, grid_shape, cx, cy,
-                 windows):
+def _steps_plain(ext, out, k, with_residual, origin, grid_shape, windows,
+                 combine, coeffs):
     """Run ``k`` steps on each window ``(w0, w1)`` of the padded frame's
-    rows (a copy) and write its rows ``[w0 + k, w1 - k)``, block rows
-    ``[w0, w1 - 2k)``, into ``out``; the max residual over the written
-    cells, or None."""
-    coeffs = coeffs_f32(cx, cy)
+    leading axis (a copy) and write its slabs ``[w0 + k, w1 - k)``, block
+    slabs ``[w0, w1 - 2k)``, into ``out``; the max residual over the
+    written cells, or None. Any rank."""
     ext = _in_grid(ext, origin, grid_shape, k)
-    by = out.shape[1]
+    core = tuple(slice(k, k + b) for b in out.shape[1:])
+    inner = tuple(slice(k - 1, k - 1 + b) for b in out.shape[1:])
     res = []
     for w0, w1 in windows:
         win = ext[w0:w1].clone()
-        diff = _frontier(win, k, (origin[0] - k + w0, origin[1] - k),
-                         grid_shape, coeffs, with_residual)
-        out[w0:w1 - 2 * k] = win[k:w1 - w0 - k, k:k + by]
+        diff = _frontier(win, k, (origin[0] - k + w0,)
+                         + tuple(o - k for o in origin[1:]), grid_shape,
+                         combine, coeffs, with_residual)
+        out[w0:w1 - 2 * k] = win[(slice(k, w1 - w0 - k),) + core]
         if with_residual:
-            res.append(diff[k - 1:w1 - w0 - k - 1, k - 1:k - 1 + by].max())
+            res.append(diff[(slice(k - 1, w1 - w0 - k - 1),) + inner].max())
     return torch.stack(res).amax() if with_residual else None
+
+
+def _steps_plain_2d(ext, out, k, with_residual, origin, grid_shape, cx, cy,
+                    windows):
+    return _steps_plain(ext, out, k, with_residual, origin, grid_shape,
+                        windows, combine_2d, coeffs_f32(cx, cy))
 
 
 def _block_rows(bx, k, defer):
@@ -156,17 +175,17 @@ def block_padded_plain(ext, out, k, with_residual=True, *, origin,
                        grid_shape, cx, cy) -> Optional[torch.Tensor]:
     """Plain version of :func:`block_padded`."""
     counts["block_padded_plain"] += 1
-    return _steps_plain(ext, out, k, with_residual, origin, grid_shape, cx,
-                        cy, _block_rows(out.shape[0], k, False))
+    return _steps_plain_2d(ext, out, k, with_residual, origin, grid_shape,
+                           cx, cy, _block_rows(out.shape[0], k, False))
 
 
 def block_circular_plain(ext, out, k, with_residual=True, *, origin,
                          grid_shape, cx, cy) -> Optional[torch.Tensor]:
     """Plain version of :func:`block_circular`."""
     counts["block_circular_plain"] += 1
-    return _steps_plain(padded_of_circular(ext, out.shape[1], k), out, k,
-                        with_residual, origin, grid_shape, cx, cy,
-                        _block_rows(out.shape[0], k, False))
+    return _steps_plain_2d(padded_of_circular(ext, out.shape[1], k), out, k,
+                           with_residual, origin, grid_shape, cx, cy,
+                           _block_rows(out.shape[0], k, False))
 
 
 def _pieces_plain(u, tail, halo_n, halo_s, out, k, with_residual, origin,
@@ -174,9 +193,9 @@ def _pieces_plain(u, tail, halo_n, halo_s, out, k, with_residual, origin,
     defer = halo_n is None
     if defer and u.shape[0] == 2 * k:
         return u.new_zeros(()) if with_residual else None
-    return _steps_plain(_frame_of_pieces(u, tail, halo_n, halo_s, k), out, k,
-                        with_residual, origin, grid_shape, cx, cy,
-                        _block_rows(u.shape[0], k, defer))
+    return _steps_plain_2d(_frame_of_pieces(u, tail, halo_n, halo_s, k), out,
+                           k, with_residual, origin, grid_shape, cx, cy,
+                           _block_rows(u.shape[0], k, defer))
 
 
 def block_fused_plain(u, tail, halo_n, halo_s, out, k, with_residual=True, *,
@@ -202,9 +221,9 @@ def band_fix_plain(u, tail, halo_n, halo_s, out, k, with_residual=True, *,
     the frame, each giving its middle ``k`` rows."""
     counts["band_fix_plain"] += 1
     bx = u.shape[0]
-    return _steps_plain(_frame_of_pieces(u, tail, halo_n, halo_s, k), out, k,
-                        with_residual, origin, grid_shape, cx, cy,
-                        [(0, 3 * k), (bx - k, bx + 2 * k)])
+    return _steps_plain_2d(_frame_of_pieces(u, tail, halo_n, halo_s, k), out,
+                           k, with_residual, origin, grid_shape, cx, cy,
+                           [(0, 3 * k), (bx - k, bx + 2 * k)])
 
 
 # ---------------------------------------------------------------------------

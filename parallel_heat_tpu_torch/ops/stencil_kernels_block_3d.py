@@ -1,0 +1,410 @@
+"""Kernels H, H-fused and the 3D band fix: wrappers, plain versions and
+the pickers of the sharded 3D round.
+
+The port of the kernel-H family of ``parallel_heat_tpu/ops/pallas_stencil.py``
+(csrc/heat_h.cuh has the design). Each advances one ``(bx, by, bz)``
+block of an ``(nx, ny, nz)`` grid cut over a mesh by ``k`` steps, from
+the block and the K-deep halo its neighbours sent
+(``parallel/temporal3d.py``), and returns the residual of the last step
+over the planes it writes. A halo exists only on the axes along which
+the block does not span the grid (:func:`halos_of`), as in the JAX
+package:
+
+- :func:`h_block_fused` launches ``heat_h_block_3d_fused``, the
+  counterpart of ``heat_h_block_3d_fused``: the block ``u``, its z tail
+  ``[hi | lo]`` ``(bx, by, 2k)``, its y tail ``(bx, 2k, bz + 2hz)`` and
+  the x slabs ``xlo``/``xhi`` ``(k, by + 2hy, bz + 2hz)`` (y and z in the
+  circular order ``[u | hi | lo]``) as separate operands, None for an
+  unsharded axis; with ``defer_x``, the deferred bulk of the overlapped
+  round: planes ``[k, bx - k)`` only, no x slab read;
+- :func:`h_block` launches ``heat_h_block_3d``, the counterpart of
+  ``heat_h_block_3d``: one assembled circular block ``(bx + 2hx,
+  by + 2hy, bz + 2hz)``, x in the order ``[lo | u | hi]``;
+- :func:`h_band_fix` launches ``heat_h_band_fix_3d``, the counterpart of
+  ``heat_h_band_fix_3d``: planes ``[0, k)`` and ``[bx - k, bx)`` of the
+  same K steps, written into the bulk's output in place;
+- the ``*_plain`` functions compute the same in plain PyTorch: they
+  assemble the padded frame ``(bx + 2k, by + 2k, bz + 2k)`` with zeros
+  outside the global grid and take ``k`` masked steps of
+  :func:`~.stencil.combine_3d`, cells outside the global interior copied,
+  exactly the kernels' rounding, so a kernel and its plain version agree
+  bitwise on the card, and a block's K steps are bitwise kernel F's on
+  the same cells of the global grid.
+
+``origin`` is the global ``(x, y, z)`` of the block's cell (0, 0, 0) for
+every form. Each wrapper takes its plain version only for a tensor that
+lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+Launches and plain calls count in :data:`~.stencil_kernels.counts`.
+
+:func:`pick_block_temporal_3d` is the round's kernel decision and
+:func:`pick_block_temporal_3d_deferred` says whether a round is split
+into bulk and band.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Optional
+
+import torch
+
+from parallel_heat_tpu_torch import tune
+from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+from parallel_heat_tpu_torch.ops.hopper_params import params
+from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32, combine_3d
+from parallel_heat_tpu_torch.ops.stencil_kernels import (_ptr,
+                                                         _raise_on_error,
+                                                         _residual_view,
+                                                         _stream, counts)
+
+# The round's kernel vocabulary (tune site "block_temporal_3d"): the
+# monolithic fused round, the assembled block, the deferred bulk plus the
+# band pair; "torch" runs the textbook rounds of parallel/temporal3d.py.
+H_KINDS = ("H-fused", "H", "H-defer", "torch")
+KERNEL_OF = {"H-fused": "heat_h_block_3d_fused", "H": "heat_h_block_3d",
+             "H-defer": "heat_h_block_3d_fused"}
+BAND = "heat_h_band_fix_3d"
+
+
+def halos_of(block_shape, grid_shape, k: int):
+    """``(hx, hy, hz)``: ``k`` on the axes along which the block does not
+    span the grid (the sharded ones), 0 on the others."""
+    return tuple(k if b < n else 0 for b, n in zip(block_shape, grid_shape))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _copy_padded(dst, src, parts) -> None:
+    """``dst.copy_(src)`` with each axis ``a`` of ``parts`` (``{a: (b,
+    h)}``, ``b`` cells of u and ``h`` of each halo) reordered from the
+    circular order ``[u | hi | lo]`` to the padded ``[lo | u | hi]``: one
+    copy per combination of the axes' three runs, nothing concatenated."""
+    runs = []
+    for axis in range(src.dim()):
+        b, h = parts.get(axis, (0, 0))
+        runs.append([(slice(None), slice(None))] if not h else
+                    [(slice(b + h, b + 2 * h), slice(0, h)),
+                     (slice(0, b), slice(h, h + b)),
+                     (slice(b, b + h), slice(h + b, b + 2 * h))])
+    for combo in itertools.product(*runs):
+        dst[tuple(d for _, d in combo)].copy_(src[tuple(s for s, _ in combo)])
+
+
+def padded_lead(f, u, ztail, ytail, k) -> None:
+    """Write planes ``[k, k + bx)`` of the padded frame ``f`` ``(bx + 2k,
+    by + 2k, bz + 2k)`` (every axis ``[lo | u | hi]``) from the block and
+    its tails (None for an unsharded axis: those cells are not
+    written)."""
+    bx, by, bz = u.shape
+    hz = k if ztail is not None else 0
+    mid = f[k:k + bx]
+    mid[:, k:k + by, k:k + bz].copy_(u)
+    if ztail is not None:
+        mid[:, k:k + by, :k].copy_(ztail[..., k:])
+        mid[:, k:k + by, k + bz:].copy_(ztail[..., :k])
+    if ytail is not None:
+        zs = slice(k - hz, k + bz + hz)
+        _copy_padded(mid[:, k + by:, zs], ytail[:, :k], {2: (bz, hz)})
+        _copy_padded(mid[:, :k, zs], ytail[:, k:], {2: (bz, hz)})
+
+
+def padded_slabs(f, xlo, xhi, k) -> None:
+    """Write planes ``[0, k)`` and ``[k + bx, bx + 2k)`` of the padded
+    frame ``f`` from the x slabs (y and z circular)."""
+    by, bz = f.shape[1] - 2 * k, f.shape[2] - 2 * k
+    hy, hz = (xlo.shape[1] - by) // 2, (xlo.shape[2] - bz) // 2
+    for slab, dst in ((xlo, f[:k]), (xhi, f[f.shape[0] - k:])):
+        _copy_padded(dst[:, k - hy:k + by + hy, k - hz:k + bz + hz], slab,
+                     {1: (by, hy), 2: (bz, hz)})
+
+
+def _frame_of_pieces(u, ztail, ytail, xlo, xhi, k):
+    """The padded frame of the pieces, zeros where no piece is given."""
+    f = u.new_zeros(tuple(b + 2 * k for b in u.shape))
+    padded_lead(f, u, ztail, ytail, k)
+    if xlo is not None:
+        padded_slabs(f, xlo, xhi, k)
+    return f
+
+
+def _pieces_of_circular(ext, block_shape, halos):
+    """``(u, ztail, ytail, xlo, xhi)`` views of an assembled circular
+    block, None for an unsharded axis."""
+    bx, by, bz = block_shape
+    hx, hy, hz = halos
+    core = ext[hx:hx + bx]
+    return (core[:, :by, :bz], core[:, :by, bz:] if hz else None,
+            core[:, by:] if hy else None, ext[:hx] if hx else None,
+            ext[hx + bx:] if hx else None)
+
+
+def _steps_plain(frame, out, k, with_residual, origin, grid_shape, cx, cy,
+                 cz, windows):
+    """The 2D module's windowed plain steps (``_steps_plain``, any rank)
+    with the 7-point combine."""
+    return skb._steps_plain(frame, out, k, with_residual, origin, grid_shape,
+                            windows, combine_3d, coeffs3_f32(cx, cy, cz))
+
+
+def _block_planes(bx, k, defer):
+    """The frame planes of the monolithic kernel or of the deferred bulk."""
+    return [(k, k + bx)] if defer else [(0, bx + 2 * k)]
+
+
+def h_block_fused_plain(u, ztail, ytail, xlo, xhi, out, k,
+                        with_residual=True, *, defer_x=False, origin,
+                        grid_shape, cx, cy, cz) -> Optional[torch.Tensor]:
+    """Plain version of :func:`h_block_fused`."""
+    counts["h_block_fused_plain"] += 1
+    if defer_x and u.shape[0] == 2 * k:
+        return u.new_zeros(()) if with_residual else None
+    return _steps_plain(
+        _frame_of_pieces(u, ztail, ytail, None if defer_x else xlo,
+                         None if defer_x else xhi, k),
+        out, k, with_residual, origin, grid_shape, cx, cy, cz,
+        _block_planes(u.shape[0], k, defer_x))
+
+
+def h_block_plain(ext, out, k, with_residual=True, *, origin, grid_shape,
+                  cx, cy, cz) -> Optional[torch.Tensor]:
+    """Plain version of :func:`h_block`."""
+    counts["h_block_plain"] += 1
+    halos = halos_of(out.shape, grid_shape, k)
+    return _steps_plain(
+        _frame_of_pieces(*_pieces_of_circular(ext, out.shape, halos), k),
+        out, k, with_residual, origin, grid_shape, cx, cy, cz,
+        _block_planes(out.shape[0], k, False))
+
+
+def h_band_fix_plain(u, ztail, ytail, xlo, xhi, out, k, with_residual=True,
+                     *, origin, grid_shape, cx, cy,
+                     cz) -> Optional[torch.Tensor]:
+    """Plain version of :func:`h_band_fix`: the two ``3k``-plane windows
+    of the frame, each giving its middle ``k`` planes."""
+    counts["h_band_fix_plain"] += 1
+    bx = u.shape[0]
+    return _steps_plain(_frame_of_pieces(u, ztail, ytail, xlo, xhi, k), out,
+                        k, with_residual, origin, grid_shape, cx, cy, cz,
+                        [(0, 3 * k), (bx - k, bx + 2 * k)])
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_block(out, k, origin, grid_shape, tensors):
+    """Shape, type, device and layout checks common to the three kernels;
+    ``tensors`` maps a name to ``(tensor or None, expected shape or None
+    when the tensor must be None)``."""
+    if out.dim() != 3:
+        raise ValueError(f"out must be a 3D block, got {tuple(out.shape)}")
+    if len(grid_shape) != 3 or min(grid_shape) < 3:
+        raise ValueError(f"need a 3D grid of at least 3 cells per axis, got "
+                         f"{tuple(grid_shape)}")
+    if not 1 <= k <= min(out.shape):
+        raise ValueError(f"k must be in [1, min(block)] = [1, "
+                         f"{min(out.shape)}], got {k}")
+    if any(o < 0 or o + b > n
+           for o, b, n in zip(origin, out.shape, grid_shape)):
+        raise ValueError(f"block {tuple(out.shape)} at {tuple(origin)} does "
+                         f"not lie in the grid {tuple(grid_shape)}")
+    for name, (t, shape) in {"out": (out, tuple(out.shape)),
+                             **tensors}.items():
+        if shape is None:
+            if t is not None:
+                raise ValueError(f"{name} must be None: the block spans the "
+                                 f"grid along its axis (no halo there)")
+            continue
+        if t is None:
+            raise ValueError(f"{name} {shape} is needed: the block does not "
+                             f"span the grid along its axis")
+        if t.dtype != torch.float32:
+            raise TypeError(f"float32 only, got {name} {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if t.device != out.device:
+            raise ValueError(f"{name} on {t.device}, out on {out.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name != "out" and t.data_ptr() == out.data_ptr():
+            raise ValueError(f"out must be a different buffer from {name}")
+    if out.device.type == "cuda":
+        if out.device.index != torch.cuda.current_device():
+            raise ValueError(f"block on {out.device} but the current device "
+                             f"is cuda:{torch.cuda.current_device()}")
+        if not 1 <= k <= params().h_k_max():
+            raise ValueError(f"k must be in [1, {params().h_k_max()}] "
+                             f"(the H kernels' compiled depths and shared "
+                             f"memory at block {params().h_block}), got {k}")
+    elif out.device.type != "cpu":
+        raise ValueError(f"unsupported device {out.device}")
+
+
+def _pieces(out, u, ztail, ytail, xlo, xhi, k, halos, with_x=True):
+    """The pieces' expected shapes (None: the piece must be None)."""
+    bx, by, bz = out.shape
+    hx, hy, hz = halos
+    ye, ze = by + 2 * hy, bz + 2 * hz
+    slab = (k, ye, ze) if hx and with_x else None
+    return {"u": (u, (bx, by, bz)),
+            "ztail": (ztail, (bx, by, 2 * k) if hz else None),
+            "ytail": (ytail, (bx, 2 * k, ze) if hy else None),
+            "xlo": (xlo, slab), "xhi": (xhi, slab)}
+
+
+def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
+            cy, cz, mid, geometry):
+    """Launch kernel ``name`` on ``args`` (its leading pointers) into
+    ``out``; ``mid`` the int arguments between the origin and k (halos,
+    and defer_x for the fused form), ``geometry`` those after k (thread
+    block, rows per thread and, but for the band, the X segment). Checks
+    nothing; counts the launch. Returns the residual view or None."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load(name)
+    bits = (torch.empty(1, dtype=torch.int32, device=out.device)
+            if with_residual else None)
+    code = getattr(lib, name)(
+        *[_ptr(t) for t in args], out.data_ptr(), _ptr(bits), *grid_shape,
+        *out.shape, *origin, *mid, k, *geometry, *coeffs3_f32(cx, cy, cz),
+        _stream(out))
+    _raise_on_error(lib, name, code)
+    counts[name] += 1
+    return _residual_view(bits) if bits is not None else None
+
+
+def _geometry(block_shape, k, planes, segment=True):
+    p = params()
+    geo = (p.h_block[0], p.h_block[1], p.h_rows)
+    return geo + (p.h_launch(block_shape, k, planes),) if segment else geo
+
+
+def h_block(ext: torch.Tensor, out: torch.Tensor, k: int,
+            with_residual: bool = True, *, origin, grid_shape, cx: float,
+            cy: float, cz: float) -> Optional[torch.Tensor]:
+    """Kernel H: ``k`` steps of the block whose circular extended block
+    ``ext`` (``(bx + 2hx, by + 2hy, bz + 2hz)``, :func:`halos_of`) is
+    given, into ``out`` ``(bx, by, bz)``; the block's residual (0-d
+    float32) or None."""
+    halos = halos_of(out.shape, grid_shape, k)
+    bx, by, bz = out.shape
+    _check_block(out, k, origin, grid_shape, {
+        "ext": (ext, tuple(b + 2 * h for b, h in zip(out.shape, halos)))})
+    if out.device.type == "cpu":
+        return h_block_plain(ext, out, k, with_residual, origin=origin,
+                             grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
+    return _launch("heat_h_block_3d", (ext,), out, k, with_residual,
+                   origin=origin, grid_shape=grid_shape, cx=cx, cy=cy, cz=cz,
+                   mid=halos, geometry=_geometry(out.shape, k, bx))
+
+
+def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
+                  ytail: Optional[torch.Tensor], xlo: Optional[torch.Tensor],
+                  xhi: Optional[torch.Tensor], out: torch.Tensor, k: int,
+                  with_residual: bool = True, *, defer_x: bool = False,
+                  origin, grid_shape, cx: float, cy: float,
+                  cz: float) -> Optional[torch.Tensor]:
+    """Kernel H-fused: ``k`` steps of block ``u`` ``(bx, by, bz)`` into
+    ``out`` from its pieces (a piece of an unsharded axis is None); the
+    residual (0-d float32) or None. With ``defer_x``, the deferred bulk:
+    planes ``[k, bx - k)`` of ``out`` and their residual only, reading no
+    x slab (give None for both); ``bx`` must be at least ``2k``."""
+    halos = halos_of(u.shape, grid_shape, k)
+    _check_block(out, k, origin, grid_shape,
+                 _pieces(out, u, ztail, ytail, xlo, xhi, k, halos,
+                         with_x=not defer_x))
+    bx = out.shape[0]
+    if defer_x and bx < 2 * k:
+        raise ValueError(f"the deferred bulk needs at least 2k = {2 * k} "
+                         f"x-planes, got a block of {bx}")
+    if out.device.type == "cpu":
+        return h_block_fused_plain(u, ztail, ytail, xlo, xhi, out, k,
+                                   with_residual, defer_x=defer_x,
+                                   origin=origin, grid_shape=grid_shape,
+                                   cx=cx, cy=cy, cz=cz)
+    if defer_x and bx == 2 * k:
+        # The bands are the whole block: the bulk has no plane to write.
+        return (torch.zeros((), dtype=torch.float32, device=out.device)
+                if with_residual else None)
+    planes = bx - 2 * k if defer_x else bx
+    return _launch("heat_h_block_3d_fused", (u, ztail, ytail, xlo, xhi), out,
+                   k, with_residual, origin=origin, grid_shape=grid_shape,
+                   cx=cx, cy=cy, cz=cz, mid=halos + (int(defer_x),),
+                   geometry=_geometry(out.shape, k, planes))
+
+
+def h_band_fix(u: torch.Tensor, ztail: Optional[torch.Tensor],
+               ytail: Optional[torch.Tensor], xlo: torch.Tensor,
+               xhi: torch.Tensor, out: torch.Tensor, k: int,
+               with_residual: bool = True, *, origin, grid_shape, cx: float,
+               cy: float, cz: float) -> Optional[torch.Tensor]:
+    """The band kernel: planes ``[0, k)`` and ``[bx - k, bx)`` of ``k``
+    steps of block ``u``, written into ``out`` in place (the other planes
+    are left as they are); the residual of exactly those planes (0-d
+    float32) or None. x must be sharded (the slabs given) and ``bx`` at
+    least ``2k``."""
+    halos = halos_of(u.shape, grid_shape, k)
+    if not halos[0]:
+        raise ValueError("the band kernel needs the x slabs: the block spans "
+                         "the grid along x")
+    _check_block(out, k, origin, grid_shape,
+                 _pieces(out, u, ztail, ytail, xlo, xhi, k, halos))
+    if out.shape[0] < 2 * k:
+        raise ValueError(f"the band kernel needs at least 2k = {2 * k} "
+                         f"x-planes, got a block of {out.shape[0]}")
+    if out.device.type == "cpu":
+        return h_band_fix_plain(u, ztail, ytail, xlo, xhi, out, k,
+                                with_residual, origin=origin,
+                                grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
+    return _launch(BAND, (u, ztail, ytail, xlo, xhi), out, k, with_residual,
+                   origin=origin, grid_shape=grid_shape, cx=cx, cy=cy, cz=cz,
+                   mid=halos, geometry=_geometry(out.shape, k, k, False))
+
+
+# ---------------------------------------------------------------------------
+# The decision sites
+# ---------------------------------------------------------------------------
+
+def pick_block_temporal_3d(block_shape, k: int):
+    """The sharded 3D round's kernel decision at depth ``k`` for blocks of
+    ``block_shape``: ``(kind, detail)`` with kind in :data:`H_KINDS`.
+
+    The one decision site: ``parallel/temporal3d.py`` executes its result
+    and ``solver.explain`` reports it. By default H-fused, whose round is
+    monolithic on one process (:func:`pick_block_temporal_3d_deferred`).
+    H (the assembled block, one more full-block copy a round), H-defer
+    (the deferred bulk plus the band pair) and the torch rounds run only
+    when pinned with ``tune.force("block_temporal_3d", ...)``. A pinned
+    choice that the geometry refuses raises ValueError.
+    """
+    choice = tune.forced("block_temporal_3d") or "H-fused"
+    if choice == "torch":
+        return "torch", None
+    p = params()
+    if not 1 <= k <= min(p.h_k_max(), *block_shape):
+        raise ValueError(
+            f"tune[block_temporal_3d]: choice {choice!r} is infeasible for "
+            f"blocks {tuple(block_shape)} at K={k} (K must be in [1, "
+            f"{p.h_k_max()}] and at most the smallest block extent)")
+    return choice, {"k": k, "block": p.h_block, "rows": p.h_rows,
+                    "kernel": KERNEL_OF[choice]}
+
+
+def pick_block_temporal_3d_deferred(kind: str, block_shape, mesh_shape,
+                                    k: int, mode: str) -> bool:
+    """Is a round of ``kind`` at depth ``k`` split into the deferred bulk
+    and the band kernel?
+
+    The JAX package's gate (``pick_block_temporal_3d_deferred``): only
+    when x is sharded and the run spans several processes, because the 3D
+    band pass costs a share of the round that pays only when the x hop is
+    slow (there, ~11% of a round at the 256^3 block). This package runs
+    one process, so the default H-fused round is monolithic under every
+    schedule; the split runs only when pinned (``H-defer``), under the
+    ``overlap`` schedule, with x sharded and at least ``2k`` x-planes a
+    block (a block of exactly ``2k`` is deferred with an empty bulk);
+    elsewhere the pinned kind runs the monolithic fused round."""
+    return (kind == "H-defer" and mode == "overlap" and mesh_shape[0] > 1
+            and block_shape[0] >= 2 * k)

@@ -52,9 +52,10 @@ blocks on the card, read once per check window by the solver.
   kernel runs after both phases. One CUDA stream carries all of it in
   this slice; side streams that overlap the phase-2 copies with the
   bulk are later work.
-- ``backend="torch"`` (:func:`block_multistep_2d`): the textbook rounds
+- ``backend="torch"`` (:func:`block_multistep`): the textbook rounds
   (``_block_multistep`` and ``_block_multistep_deferred``) on the padded
-  block, bitwise a one-device torch run.
+  block, bitwise a one-device torch run. They are rank-generic and serve
+  the 3D rounds of ``parallel/temporal3d.py`` too.
 
 The ``pipeline`` schedule (``_pallas_pipeline_2d``) is not ported yet
 (ROADMAP.md queue 1 item 8); ``config.validate()`` refuses it.
@@ -83,6 +84,7 @@ class DeepExchange2D:
             raise ValueError(f"halo depth {k} outside [1, min(block)] for "
                              f"blocks {tuple(block_shape)}")
         self.mesh, self.k, self.bx, self.by = mesh, k, bx, by
+        self.block_shape = (bx, by)
         size = mesh.size
         self.tail = [torch.zeros((bx, 2 * k), dtype=dtype, device=device)
                      for _ in range(size)]
@@ -119,6 +121,9 @@ class DeepExchange2D:
             if s is not None:
                 self.halo_s[b][:, :by].copy_(us[s][:k])
                 self.halo_s[b][:, by:].copy_(self.tail[s][:k])
+
+    # The phases the overlapped round runs before its bulk, and after.
+    lead, last = phase1, phase2
 
     def pieces(self, b: int):
         """``(tail, halo_n, halo_s)`` of block ``b``."""
@@ -196,98 +201,108 @@ def exchange_halos_deep_2d(mesh: HeatMesh, us, k: int):
 
 
 # ---------------------------------------------------------------------------
-# The textbook rounds (backend "torch")
+# The textbook rounds (backend "torch"), any rank
 # ---------------------------------------------------------------------------
 
 def _region_inner_mask(shape, starts, grid_shape) -> torch.Tensor:
-    """Global-interior mask of a window's inner region ``win[1:-1,
-    1:-1]``, the window's cell (0, 0) at global ``starts``."""
-    masks = []
-    for p, s, n in zip(shape, starts, grid_shape):
+    """Global-interior mask of a window's inner region ``win[1:-1, ...]``,
+    the window's cell (0, ...) at global ``starts``."""
+    mask = None
+    for axis, (p, s, n) in enumerate(zip(shape, starts, grid_shape)):
         idx = s + 1 + torch.arange(p - 2)
-        masks.append((idx >= 1) & (idx <= n - 2))
-    return masks[0][:, None] & masks[1][None, :]
+        m = ((idx >= 1) & (idx <= n - 2)).view(
+            [-1 if a == axis else 1 for a in range(len(shape))])
+        mask = m if mask is None else mask & m
+    return mask
 
 
-def _frontier_steps(win, k, starts, grid_shape, cx, cy, need_diff):
-    """``k`` masked textbook steps of the window ``win`` in place, only its
-    inner region updated: cells within L1 distance ``k - j`` of the data
-    it was seeded with stay exact through step j. Returns the last step's
-    masked ``|new - old|`` over the inner region with ``need_diff``."""
+def _frontier_steps(win, k, starts, grid_shape, stencil, need_diff):
+    """``k`` masked textbook steps (``stencil(win)`` is the update of the
+    inner region) of the window ``win`` in place, only its inner region
+    updated: cells within L1 distance ``k - j`` of the data it was seeded
+    with stay exact through step j. Returns the last step's masked
+    ``|new - old|`` over the inner region with ``need_diff``."""
     mask = _region_inner_mask(win.shape, starts, grid_shape).to(win.device)
+    inner = (slice(1, -1),) * win.dim()
     zero = torch.zeros((), device=win.device)
     diff = None
     for j in range(k):
-        new = stencil_interior_2d(win, cx, cy)
-        cur = win[1:-1, 1:-1]
+        new = stencil(win)
+        cur = win[inner]
         if need_diff and j == k - 1:
             diff = torch.where(mask, (new - cur).abs(), zero)
-        win[1:-1, 1:-1] = torch.where(mask, new, cur)
+        win[inner] = torch.where(mask, new, cur)
     return diff
 
 
-def _block_multistep(ext, out, k, origin, grid_shape, cx, cy,
+def _block_multistep(ext, out, k, origin, grid_shape, stencil,
                      with_residual):
     """The monolithic round on one block: ``k`` steps of its padded block
     ``ext`` (in place), the exact core into ``out``; the residual of the
     last step over the core, or None."""
-    bx, by = out.shape
-    diff = _frontier_steps(ext, k, (origin[0] - k, origin[1] - k),
-                           grid_shape, cx, cy, with_residual)
-    out.copy_(ext[k:k + bx, k:k + by])
-    return (diff[k - 1:k - 1 + bx, k - 1:k - 1 + by].max()
+    core = tuple(slice(k, k + b) for b in out.shape)
+    diff = _frontier_steps(ext, k, tuple(o - k for o in origin), grid_shape,
+                           stencil, with_residual)
+    out.copy_(ext[core])
+    return (diff[tuple(slice(k - 1, k - 1 + b) for b in out.shape)].max()
             if with_residual else None)
 
 
-def _block_multistep_deferred(ext, out, k, origin, grid_shape, cx, cy,
+def _block_multistep_deferred(ext, out, k, origin, grid_shape, stencil,
                               with_residual, part):
     """One part of the overlapped round on one block, from copies of
     windows of its padded block ``ext``: ``part="bulk"`` steps the middle
-    rows (phase-1 data alone) and writes output rows ``[k, bx - k)``;
-    ``part="bands"`` steps the two ``3k``-row windows at the top and the
-    bottom and writes rows ``[0, k)`` and ``[bx - k, bx)``. Every cell's
-    value is the monolithic round's, so the two are bitwise equal, and so
-    is the max of the parts' residuals."""
-    bx, by = out.shape
-    windows = ([(k, bx)] if part == "bulk"
-               else [(0, 3 * k), (bx - k, 3 * k)])
+    slabs along the leading axis (the lead phases' data alone) and writes
+    output slabs ``[k, b0 - k)``; ``part="bands"`` steps the two
+    ``3k``-slab windows at the two ends and writes slabs ``[0, k)`` and
+    ``[b0 - k, b0)``. Every cell's value is the monolithic round's, so
+    the two are bitwise equal, and so is the max of the parts'
+    residuals."""
+    b0 = out.shape[0]
+    core = tuple(slice(k, k + b) for b in out.shape[1:])
+    inner = tuple(slice(k - 1, k - 1 + b) for b in out.shape[1:])
+    windows = ([(k, b0)] if part == "bulk"
+               else [(0, 3 * k), (b0 - k, 3 * k)])
     res = []
     for w0, rows in windows:
         if rows == 2 * k:
-            continue  # a block of 2k rows: the bulk is empty
+            continue  # a block of 2k slabs: the bulk is empty
         win = ext[w0:w0 + rows].clone()
-        diff = _frontier_steps(win, k, (origin[0] - k + w0, origin[1] - k),
-                               grid_shape, cx, cy, with_residual)
-        out[w0:w0 + rows - 2 * k] = win[k:rows - k, k:k + by]
+        diff = _frontier_steps(
+            win, k, (origin[0] - k + w0,) + tuple(o - k for o in origin[1:]),
+            grid_shape, stencil, with_residual)
+        out[w0:w0 + rows - 2 * k] = win[(slice(k, rows - k),) + core]
         if with_residual:
-            res.append(diff[k - 1:rows - k - 1, k - 1:k - 1 + by].max())
+            res.append(diff[(slice(k - 1, rows - k - 1),) + inner].max())
     return torch.stack(res).amax() if with_residual and res else None
 
 
-def block_multistep_2d(xch: DeepExchange2D, exts, us, vs, *, grid_shape, cx,
-                       cy, with_residual=False, overlap=False):
+def block_multistep(xch, exts, us, vs, *, grid_shape, stencil,
+                    with_residual=False, overlap=False):
     """One textbook round of every block: ``k = xch.k`` steps of ``us``
-    into ``vs``, through the padded blocks ``exts`` (buffers, rewritten).
-    ``overlap`` runs the deferred round where a block has at least
-    ``2k`` rows: the bulk of every block between the two exchange phases.
-    Returns the global residual or None."""
+    into ``vs``, through the padded blocks ``exts`` (buffers, rewritten),
+    for the exchange ``xch`` of either rank (:class:`DeepExchange2D` or
+    ``temporal3d.DeepExchange3D``). ``overlap`` runs the deferred round
+    where a block has at least ``2k`` slabs along the leading axis: the
+    bulk of every block between the lead phases and the last. Returns the
+    global residual or None."""
     k, mesh = xch.k, xch.mesh
-    bx, by = us[0].shape
-    deferred = overlap and bx >= 2 * k
+    shape = tuple(us[0].shape)
+    deferred = overlap and shape[0] >= 2 * k
     res: List[torch.Tensor] = []
 
     def run(b, fn, *extra):
-        r = fn(exts[b], vs[b], k, mesh.origin(b, (bx, by)), grid_shape, cx,
-               cy, with_residual, *extra)
+        r = fn(exts[b], vs[b], k, mesh.origin(b, shape), grid_shape,
+               stencil, with_residual, *extra)
         if r is not None:
             res.append(r)
 
-    xch.phase1(us)
+    xch.lead(us)
     for b in range(mesh.size):
         xch.assemble_padded_lead(b, us[b], exts[b])
         if deferred:
             run(b, _block_multistep_deferred, "bulk")
-    xch.phase2(us)
+    xch.last(us)
     for b in range(mesh.size):
         xch.assemble_padded_rows(b, exts[b])
         if deferred:
@@ -297,17 +312,17 @@ def block_multistep_2d(xch: DeepExchange2D, exts, us, vs, *, grid_shape, cx,
     return torch.stack(res).amax() if with_residual else None
 
 
-def _torch_round_2d(xch: DeepExchange2D, mode: str, *, grid_shape, cx, cy):
+def _torch_round(xch, mode: str, *, grid_shape, stencil):
     """The textbook round at depth ``xch.k``: ``fn(us, vs, want_res) ->
     residual or None``, through padded blocks allocated here, once."""
     k, mesh = xch.k, xch.mesh
-    exts = [torch.zeros((xch.bx + 2 * k, xch.by + 2 * k), device=mesh.device)
-            for _ in range(mesh.size)]
+    exts = [torch.zeros(tuple(b + 2 * k for b in xch.block_shape),
+                        device=mesh.device) for _ in range(mesh.size)]
 
     def fn(us, vs, want_res):
-        return block_multistep_2d(xch, exts, us, vs, grid_shape=grid_shape,
-                                  cx=cx, cy=cy, with_residual=want_res,
-                                  overlap=mode == "overlap")
+        return block_multistep(xch, exts, us, vs, grid_shape=grid_shape,
+                               stencil=stencil, with_residual=want_res,
+                               overlap=mode == "overlap")
 
     return fn
 
@@ -375,30 +390,43 @@ def _cuda_round_2d(xch: DeepExchange2D, kind: str, mode: str, *, grid_shape,
 def block_temporal_multistep(config, mesh: HeatMesh, backend: str):
     """``(multi_step(us, vs, n) -> (us, vs), multi_step_residual(us, vs, n)
     -> (us, vs, res))`` on the block lists ``us`` (the state) and ``vs``
-    (spares), by K-deep rounds, ``K = config.halo_depth``.
+    (spares), by K-deep rounds, ``K = config.halo_depth``, in 2D or in 3D
+    (``parallel/temporal3d.py``) by ``config.ndim``.
 
     ``backend`` is resolved ("cuda" or "torch"). The kernel is picked
     once; a round of each depth the run's chunks need (K, and the
     remainders) is built here with its exchange buffers and kept for the
     run (any other depth on its first use).
     """
-    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
-
     K = config.halo_depth
     mode = resolve_halo_overlap(config, backend)
     block_shape = mesh.block_shape(config.shape)
-    kind = (skb.pick_block_temporal_2d(block_shape, K)[0]
-            if backend == "cuda" else "torch")
-    kw = dict(grid_shape=config.shape, cx=float(config.cx),
-              cy=float(config.cy))
+    coeffs = tuple(float(c) for c in config.coefficients)
+    kw = dict(zip(("cx", "cy", "cz"), coeffs), grid_shape=config.shape)
+    if config.ndim == 3:
+        from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as sk
+        from parallel_heat_tpu_torch.ops.stencil import stencil_interior_3d
+        from parallel_heat_tpu_torch.parallel import temporal3d
+
+        exchange, cuda_round = (temporal3d.DeepExchange3D,
+                                temporal3d.cuda_round_3d)
+        pick, interior = sk.pick_block_temporal_3d, stencil_interior_3d
+    else:
+        from parallel_heat_tpu_torch.ops import stencil_kernels_block as sk
+
+        exchange, cuda_round = DeepExchange2D, _cuda_round_2d
+        pick, interior = sk.pick_block_temporal_2d, stencil_interior_2d
+    kind = pick(block_shape, K)[0] if backend == "cuda" else "torch"
     rounds = {}
 
     def round_of(depth):
         if depth not in rounds:
-            xch = DeepExchange2D(mesh, block_shape, depth, mesh.device)
-            rounds[depth] = (_torch_round_2d(xch, mode, **kw)
-                             if kind == "torch"
-                             else _cuda_round_2d(xch, kind, mode, **kw))
+            xch = exchange(mesh, block_shape, depth, mesh.device)
+            rounds[depth] = (
+                _torch_round(xch, mode, grid_shape=config.shape,
+                             stencil=lambda w: interior(w, *coeffs))
+                if kind == "torch"
+                else cuda_round(xch, kind, mode, **kw))
         return rounds[depth]
 
     # The depths this run's chunks need, built (buffers allocated) now,

@@ -1,10 +1,11 @@
 """The solver: the port of ``parallel_heat_tpu/solver.py`` for 2D and
 3D: the explicit scheme, and in 2D the implicit schemes (one multigrid
-V-cycle solve per step, ``ops/multigrid.py``), on one block; and the 2D
-explicit scheme cut over a mesh of blocks (``mesh_shape``), every block
-on the run's one device, by K-deep rounds (``parallel/temporal.py``)
-or, at depth 1 under the torch backend, the per-step exchange
-(``parallel/halo.py``). A sharded run's grid is assembled from its
+V-cycle solve per step, ``ops/multigrid.py``), on one block; and the
+explicit scheme cut over a mesh of blocks (``mesh_shape``, 2D or 3D),
+every block on the run's one device, by K-deep rounds
+(``parallel/temporal.py``, ``parallel/temporal3d.py``) or, at depth 1
+under the torch backend, the per-step exchange (``parallel/halo.py``,
+``parallel/halo3d.py``). A sharded run's grid is assembled from its
 blocks after the clock stops, and its residual is the max over the
 blocks, taken on the card and read once per check window.
 
@@ -174,10 +175,12 @@ def _make_loop(multi_step, multi_step_residual, config: HeatConfig):
 
 
 def _resolve_halo_depth(config: HeatConfig, backend: str) -> int:
-    """``halo_depth`` None (auto) resolved: kernel G's default depth
-    (``hopper_params.g_k_default``) under backend "cuda" on a mesh whose
-    blocks hold it, else 1 (the per-step exchange under "torch"; G at
-    K = 1 under "cuda"). Explicit values win."""
+    """``halo_depth`` None (auto) resolved under backend "cuda" on a mesh:
+    in 2D kernel G's default depth (``hopper_params.g_k_default``) where
+    the blocks hold it, else 1 (G at K = 1); in 3D kernel H's
+    (``h_k_default``) capped at the smallest block extent, as the JAX
+    package caps its depth sweep (``solver.py:114-156``). Under "torch",
+    1 (the per-step exchange). Explicit values win."""
     if config.halo_depth is not None:
         return config.halo_depth
     if (config.scheme != "explicit" or not config.is_sharded()
@@ -185,8 +188,11 @@ def _resolve_halo_depth(config: HeatConfig, backend: str) -> int:
         return 1
     from parallel_heat_tpu_torch.ops.hopper_params import params
 
+    bmin = min(config.block_shape())
+    if config.ndim == 3:
+        return min(params().h_k_default, bmin)
     k = params().g_k_default
-    return k if min(config.block_shape()) >= k else 1
+    return k if bmin >= k else 1
 
 
 def _resolved(config: HeatConfig, backend: str) -> HeatConfig:
@@ -209,25 +215,42 @@ def sharded_multistep(config: HeatConfig, mesh, backend: str):
     torch backend the per-step exchange (with ``overlap``'s
     interior/edge split). The kernel libraries of a CUDA run are loaded
     here, before any clock starts."""
-    from parallel_heat_tpu_torch.parallel import halo, temporal
+    from parallel_heat_tpu_torch.parallel import temporal
 
     if config.halo_depth == 1 and backend == "torch":
-        kw = dict(grid_shape=config.shape, cx=float(config.cx),
-                  cy=float(config.cy), overlap=config.overlap)
+        kw = dict(zip(("cx", "cy", "cz"), map(float, config.coefficients)),
+                  grid_shape=config.shape, overlap=config.overlap)
+        if config.ndim == 3:
+            from parallel_heat_tpu_torch.parallel import halo3d
+
+            one, one_residual = (halo3d.block_step_3d,
+                                 halo3d.block_step_3d_residual)
+        else:
+            from parallel_heat_tpu_torch.parallel import halo
+
+            one, one_residual = (halo.block_step_2d,
+                                 halo.block_step_2d_residual)
 
         def step(us, vs):
-            halo.block_step_2d(mesh, us, vs, **kw)
+            one(mesh, us, vs, **kw)
 
         def step_residual(us, vs):
-            return halo.block_step_2d_residual(mesh, us, vs, **kw)
+            return one_residual(mesh, us, vs, **kw)
 
         return steps_to_multistep(step, step_residual)
     if backend == "cuda" and mesh.device.type == "cuda":
         from parallel_heat_tpu_torch.kernels.build import load
-        from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
-        kind, detail = skb.pick_block_temporal_2d(config.block_shape(),
-                                                  config.halo_depth)
+        if config.ndim == 3:
+            from parallel_heat_tpu_torch.ops import (
+                stencil_kernels_block_3d as skb)
+
+            pick = skb.pick_block_temporal_3d
+        else:
+            from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+
+            pick = skb.pick_block_temporal_2d
+        kind, detail = pick(config.block_shape(), config.halo_depth)
         if detail is not None:
             load(detail["kernel"])
             load(skb.BAND)
@@ -406,26 +429,28 @@ def explain(config: HeatConfig, device: Optional[str] = None,
 
 def _explain_sharded(config: HeatConfig, out: dict, backend: str,
                      plain: str) -> dict:
-    """The sharded 2D path: mesh, blocks, the resolved depth and schedule
+    """The sharded path: mesh, blocks, the resolved depth and schedule
     ("(auto)" where they were resolved), and the round's kernels."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
     res = _resolved(config, backend)
     k, mode = res.halo_depth, res.halo_overlap
-    bx, by = res.block_shape()
     out["mesh"] = res.mesh_shape
-    out["block_shape"] = (bx, by)
+    out["block_shape"] = res.block_shape()
     out["blocks_on"] = f"{out['device']} (every block of the mesh)"
     out["halo_depth"] = f"{k} (auto)" if config.halo_depth is None else k
     out["halo_overlap"] = (f"{mode} (auto)"
                            if config.halo_overlap in (None, "auto")
                            else mode)
     if backend == "torch" and k == 1:
-        form = ("interior/edge split" if config.overlap
+        form = ("interior/edge split" if config.overlap and res.ndim == 2
                 else "padded block")
         out["path"] = (f"per-step 1-deep halo exchange, textbook torch "
                        f"stencil ({form})")
         return out
+    if res.ndim == 3:
+        return _explain_sharded_3d(res, out, k, mode, plain)
+    bx, by = res.block_shape()
     kind, detail = skb.pick_block_temporal_2d((bx, by), k)
     forced = tune.forced("block_temporal_2d")
     out["decided_by"] = {"block_temporal_2d": {
@@ -451,6 +476,46 @@ def _explain_sharded(config: HeatConfig, out: dict, backend: str,
     ty, tx = detail["tile"]
     out["path"] = (f"kernel {kind} ({round_}), K-deep rounds K={k}, "
                    f"tile={ty}x{tx}{why}" + plain)
+    return out
+
+
+def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
+                        plain: str) -> dict:
+    """The sharded 3D path's round (the counterpart of the JAX package's
+    kernel-H report, ``solver.py:823-846``)."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+
+    bs = res.block_shape()
+    kind, detail = skb3.pick_block_temporal_3d(bs, k)
+    forced = tune.forced("block_temporal_3d")
+    out["decided_by"] = {"block_temporal_3d": {
+        "source": "forced" if forced == kind else "default-order",
+        "choice": kind}}
+    if kind == "torch":
+        out["path"] = (f"K-deep 3D rounds (K={k}), textbook torch stencil, "
+                       f"{mode} schedule")
+        return out
+    halos = skb3.halos_of(bs, res.shape, k)
+    if skb3.pick_block_temporal_3d_deferred(kind, bs, res.mesh_shape, k,
+                                            mode):
+        round_ = (f"overlapped round: deferred bulk {detail['kernel']} "
+                  f"(x-planes [{k}, {bs[0] - k}) from u and the z and y "
+                  f"tails) + band kernel {skb3.BAND}")
+    elif kind == "H":
+        round_ = (f"monolithic round: {detail['kernel']} on the assembled "
+                  f"circular block")
+    else:
+        why = ("the deferred x bands run only when pinned (H-defer): the "
+               "JAX package takes them only across processes"
+               if kind == "H-fused" else
+               "the overlapped round needs the overlap schedule, a sharded "
+               "x axis and at least 2K x-planes a block")
+        round_ = (f"monolithic round: {detail['kernel']}, pieces gathered "
+                  f"in the kernel; {why}")
+    bz, by = detail["block"]
+    out["path"] = (f"kernel {kind} ({round_}), K-deep 3D rounds K={k}, "
+                   f"halos={halos}, block={bz}x{by} threads of "
+                   f"{detail['rows']} rows" + plain)
     return out
 
 

@@ -3,10 +3,11 @@
 Tests and ``chip_smoke.py`` drive each kernel through the real
 ``solve()`` by pinning a decision site for the extent of a ``with``
 block: ``single_2d`` (the 2D picker), ``single_3d`` (the 3D picker),
-``ensemble_2d`` (the ensemble engine's batched-kernel decision) or
+``ensemble_2d`` (the ensemble engine's batched-kernel decision),
 ``block_temporal_2d`` (the sharded 2D round's kernel: G-circ and G run
-only when pinned). The pinned choice still goes through the picker's
-feasibility check.
+only when pinned) or ``block_temporal_3d`` (the sharded 3D round's: H
+and the deferred pair H-defer run only when pinned). The pinned choice
+still goes through the picker's feasibility check.
 
 ``single_3d`` exists for the same reason as the 2D site. The JAX package
 reaches kernel D only where kernel F declines a geometry; on the card
@@ -29,7 +30,8 @@ SITE_CHOICES = {"single_2d": ("A", "E-uni", "E", "I-uni", "I", "B", "C",
                 "single_3d": ("F", "D", "torch"),
                 "ensemble_2d": ("M", "vmap"),
                 "block_temporal_2d": ("G-uni", "G-fuse", "G-circ", "G",
-                                      "torch")}
+                                      "torch"),
+                "block_temporal_3d": ("H-fused", "H", "H-defer", "torch")}
 
 _force_var: contextvars.ContextVar[Optional[Dict[str, str]]] = \
     contextvars.ContextVar("pht_torch_tune_force", default=None)

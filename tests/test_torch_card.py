@@ -17,9 +17,10 @@ on that member alone; restriction and prolongation are bitwise their
 plain versions, so an implicit run under ``backend="cuda"`` is bitwise
 the one under ``backend="torch"``. Each sharded block kernel (G-uni,
 G-fuse, G-circ, G, the band fix) is bitwise its plain version, the
-others, and kernel E's K steps on the same cells of the global grid; a
-sharded ``solve()`` is bitwise the one-block run on the card and the
-plain versions' run on the CPU.
+others, and kernel E's K steps on the same cells of the global grid; so
+is each 3D one (H-fused, H, the deferred bulk with the band fix) against
+kernel F's; a sharded ``solve()``, 2D or 3D, is bitwise the one-block
+run on the card and the plain versions' run on the CPU.
 """
 
 import math
@@ -471,6 +472,89 @@ def test_sharded_solve_on_the_card_matches_one_block_bitwise(card, cfg):
     got = solve(HeatConfig(**cfg))
     assert sum(n for name, n in sk.counts.items()
                if name.startswith("heat_g_")) > 0
+    assert not any(n for name, n in sk.counts.items()
+                   if name.endswith("_plain"))
+    one = solve(HeatConfig(**{**cfg, "mesh_shape": None,
+                              "halo_overlap": None, "halo_depth": None}))
+    cpu = solve(HeatConfig(**cfg, backend="cuda"), device="cpu")
+    assert torch.equal(got.grid, one.grid)
+    assert np.array_equal(got.to_numpy(), cpu.to_numpy())
+    assert (got.steps_run, got.converged) == (one.steps_run, one.converged)
+    if cfg.get("converge"):
+        assert got.residual == one.residual == cpu.residual
+
+
+# ---------------------------------------------------------------------------
+# The sharded 3D block kernels (H family) and the sharded 3D path
+# ---------------------------------------------------------------------------
+
+H_CASES = [((2, 2, 2), (64, 64, 64), 3), ((3, 3, 3), (37, 45, 80), 8),
+           ((2, 4, 1), (40, 33, 97), 1), ((1, 2, 2), (50, 30, 40), 5),
+           ((2, 2, 2), (6, 50, 70), 3)]
+
+
+@pytest.mark.parametrize("coeffs", [(0.1, 0.1, 0.1), (0.1, 0.15, 0.05)])
+@pytest.mark.parametrize("mesh_shape,block,k", H_CASES)
+def test_h_kernels_bitwise_plain_each_other_and_f(card, mesh_shape, block, k,
+                                                  coeffs):
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    grid = tuple(m * b for m, b in zip(mesh_shape, block))
+    g = _rand(grid, 17, card)
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(g)
+    pieces = temporal3d.exchange_halos_fused_3d(mesh, us, k)
+    circ = temporal3d.exchange_halos_circular_3d(mesh, us, k)
+    kw3 = dict(zip(("cx", "cy", "cz"), coeffs))
+    f_out = torch.empty_like(g)
+    sk3.xslab_steps_3d(g, f_out, k, **kw3)
+    for b in range(mesh.size):
+        o = mesh.origin(b, block)
+        kw = dict(origin=o, grid_shape=grid, **kw3)
+        want = f_out[tuple(slice(a, a + n) for a, n in zip(o, block))]
+        got, ref = (torch.empty(block, device=card) for _ in range(2))
+        r = skb3.h_block_fused(us[b], *pieces[b], got, k, **kw)
+        rp = skb3.h_block_fused_plain(us[b], *pieces[b], ref, k, **kw)
+        assert torch.equal(got, ref) and torch.equal(r, rp)
+        assert torch.equal(got, want)
+        h, hp = (torch.empty(block, device=card) for _ in range(2))
+        rh = skb3.h_block(circ[b], h, k, **kw)
+        rhp = skb3.h_block_plain(circ[b], hp, k, **kw)
+        assert torch.equal(h, hp) and torch.equal(rh, rhp)
+        assert torch.equal(h, want) and torch.equal(rh, r)
+        if mesh_shape[0] > 1 and block[0] >= 2 * k:
+            zt, yt, _, _ = pieces[b]
+            split = torch.full(block, float("nan"), device=card)
+            rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k,
+                                    defer_x=True, **kw)
+            rf = skb3.h_band_fix(us[b], *pieces[b], split, k, **kw)
+            assert torch.equal(split, got)
+            assert torch.equal(torch.maximum(rb, rf), r)
+
+
+@pytest.mark.parametrize("cfg,force", [
+    (dict(nx=256, ny=256, nz=256, steps=101, mesh_shape=(2, 2, 2)), None),
+    (dict(nx=128, ny=128, nz=96, steps=50, mesh_shape=(2, 4, 1),
+          halo_overlap="phase"), None),
+    (dict(nx=128, ny=128, nz=128, steps=41, mesh_shape=(2, 2, 2)), "H"),
+    (dict(nx=128, ny=128, nz=128, steps=41, mesh_shape=(2, 2, 2)),
+     "H-defer"),
+    (dict(nx=64, ny=64, nz=64, steps=30, mesh_shape=(2, 2, 2),
+          halo_depth=1), None),
+    (dict(nx=10, ny=10, nz=10, steps=5000, converge=True,
+          mesh_shape=(2, 2, 2)), None)])
+def test_sharded_3d_solve_on_the_card_matches_one_block_bitwise(card, cfg,
+                                                                force):
+    sk.reset_counts()
+    if force is None:
+        got = solve(HeatConfig(**cfg))
+    else:
+        with tune.force("block_temporal_3d", force):
+            got = solve(HeatConfig(**cfg))
+    assert sum(n for name, n in sk.counts.items()
+               if name.startswith("heat_h_")) > 0
     assert not any(n for name, n in sk.counts.items()
                    if name.endswith("_plain"))
     one = solve(HeatConfig(**{**cfg, "mesh_shape": None,

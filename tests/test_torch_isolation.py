@@ -22,7 +22,8 @@ def _sources():
     assert len(files) > 10
     names = {f.name for f in files}
     assert {"batched.py", "multigrid.py", "engine.py", "mesh.py", "halo.py",
-            "temporal.py", "stencil_kernels_block.py"} <= names
+            "temporal.py", "stencil_kernels_block.py", "halo3d.py",
+            "temporal3d.py", "stencil_kernels_block_3d.py"} <= names
     return files
 
 
@@ -76,6 +77,12 @@ from parallel_heat_tpu_torch.parallel import halo, mesh, temporal
 shard = pt.solve(pt.HeatConfig(nx=32, ny=32, steps=40, backend="cuda",
                                mesh_shape=(2, 2)), device="cpu")
 assert torch.equal(shard.grid, res.grid)
+# The sharded 3D path (the H kernels' module), through solve().
+from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d
+from parallel_heat_tpu_torch.parallel import halo3d, temporal3d
+cfg3 = pt.HeatConfig(nx=12, ny=12, nz=12, steps=7, backend="cuda")
+shard3 = pt.solve(cfg3.replace(mesh_shape=(2, 2, 2)), device="cpu")
+assert torch.equal(shard3.grid, pt.solve(cfg3, device="cpu").grid)
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m, v in sys.modules.items() if v is not None)
 print("ok", float(res.grid.sum()))

@@ -281,13 +281,25 @@ def test_wrappers_count_their_calls_on_the_cpu():
     skb.band_fix(us[0], tail, hn, hs, out, 2, **kw)
     skb.block_circular(ext, out, 2, **kw)
     skb.block_padded(ext, out, 2, **kw)
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal3d
+
+    mesh3 = HeatMesh((2, 1, 1))
+    us3 = mesh3.split(torch.from_numpy(_rand((8, 5, 6), seed=10)))
+    zt, yt, xlo, xhi = temporal3d.exchange_halos_fused_3d(mesh3, us3, 2)[0]
+    ext3 = temporal3d.exchange_halos_circular_3d(mesh3, us3, 2)[0]
+    kw3 = dict(origin=(0, 0, 0), grid_shape=(8, 5, 6), cx=CX, cy=CY, cz=0.05)
+    out3 = torch.empty(4, 5, 6)
+    skb3.h_block_fused(us3[0], zt, yt, xlo, xhi, out3, 2, **kw3)
+    skb3.h_band_fix(us3[0], zt, yt, xlo, xhi, out3, 2, **kw3)
+    skb3.h_block(ext3, out3, 2, **kw3)
     # On the CPU the plain versions run; the kernels never launch. One
-    # registry holds all seventeen kernels and their plain versions.
+    # registry holds all twenty kernels and their plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
                if not name.startswith("heat_"))
-    assert len(sk.counts) == 34
+    assert len(sk.counts) == 40
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",
@@ -438,6 +450,6 @@ def test_library_path_tracks_source_digest():
     b = build.library_path("heat_e_temporal")
     assert a.parent == build.BUILD_DIR and a != b
     names = {build.library_path(name).name for name in build.KERNELS}
-    assert len(names) == len(build.KERNELS) == 17
+    assert len(names) == len(build.KERNELS) == 20
     assert a.name.startswith("libheat_b_step-") and a.suffix == ".so"
     assert build.library_path("heat_b_step") == a

@@ -233,8 +233,8 @@ def test_validation_mirrors_jax_and_refuses_what_is_not_ported():
         HeatConfig(mesh_shape=(2, 2), halo_overlap="later").validate()
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         HeatConfig(mesh_shape=(2, 2), halo_overlap="pipeline").validate()
-    with pytest.raises(ValueError, match="3D mesh .* next slice"):
-        HeatConfig(nx=8, ny=8, nz=8, mesh_shape=(2, 1, 1)).validate()
+    # A 3D mesh is ported (tests/test_torch_sharded3d.py).
+    HeatConfig(nx=8, ny=8, nz=8, mesh_shape=(2, 1, 1)).validate()
     with pytest.raises(ValueError, match="queue 1 item 9"):
         HeatConfig(nx=18, ny=18, cx=22.5, cy=22.5, scheme="backward_euler",
                    mesh_shape=(2, 1)).validate()

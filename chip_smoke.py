@@ -10,7 +10,10 @@ prints the card's name and power limit, then one JSON line per phase:
 
 1. build — every kernel of the main path is built from ``csrc/`` with
    nvcc for sm_90a (one nvcc per source, started together), timed, with
-   the ptxas register/shared-memory report;
+   ptxas's report of registers, spills and static shared memory for each
+   template instance by name (``<K, R, ...>``) and the instances that
+   spill; the H-fused instance the sharded 3D main path launches must not
+   spill;
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -161,18 +164,21 @@ prints the card's name and power limit, then one JSON line per phase:
    chained K times on the framed block (TF32 off); the exchange's own time
    per round (both phases, 8 blocks) and one whole overlapped round.
 17. kernels_h — the sharded 3D block kernels H-fused
-   (``heat_h_block_3d_fused``, monolithic and as the deferred bulk), H
+   (``heat_h_block_3d_fused``, monolithic and as the deferred bulk, under
+   the cp.async load and, where the geometry takes it, the TMA load), H
    (``heat_h_block_3d``) and the band fix (``heat_h_band_fix_3d``) against
    their plain versions, each other and kernel F's K steps of the global
    grid on the same cells, all bitwise (grids and residuals), the pieces
    built by the port's own three-phase exchange from seeded random grids:
    the main path's 512^3 blocks of 1024^3 on (2, 2, 2) at K = h_k_default;
    the corner, edge, face and interior blocks of 201 x 129 x 270 on
-   (3, 3, 3) at K in {1, 3, h_k_default, h_k_max}, both coefficient sets;
-   blocks of 6 x-planes (an empty bulk at K = 3, no deferral at K = 6); a
-   z-free (2, 4, 1) and an x-free (1, 2, 2) mesh. The deferred bulk writes
-   no band plane; bulk plus band, spliced in place, is the monolithic
-   kernel; a NaN-seeded block gives NaN residuals with its faces intact;
+   (3, 3, 3) at K in {1, 3, h_k_default, h_k_max}, both coefficient sets,
+   and of 201 x 210 x 276 (blocks that take TMA) at every compiled K;
+   blocks of 6 x-planes, 6 x 50 x 70 and 6 x 70 x 72 (an empty bulk at
+   K = 3, no deferral at K = 6); a z-free (2, 4, 1) mesh, blocks of
+   40 x 33 x 97 and 40 x 66 x 96; an x-free (1, 2, 2) mesh. The deferred bulk writes no band plane; bulk
+   plus band, spliced in place, is the monolithic kernel; a NaN-seeded
+   block gives NaN residuals with its faces intact under both loads;
 18. sharded_main_path_3d — ``solve(HeatConfig(nx=ny=nz=1024, steps=200,
    mesh_shape=(2, 2, 2)))`` under the default resolution (H-fused, the
    monolithic round), with ``halo_overlap="phase"``, and pinned to H and
@@ -193,8 +199,12 @@ prints the card's name and power limit, then one JSON line per phase:
    K = h_k_default without the residual: H-fused monolithic (the
    ``kernels`` line's row), its deferred bulk, H and the band kernel, each
    beside its plain version, its bound and ``conv3d`` chained K times on
-   the framed block (TF32 off); the exchange's time and copies per round
-   (three phases, 8 blocks), one whole monolithic round.
+   the framed block (TF32 off); for H-fused also its earlier design's
+   time, its launch
+   under each load and its interior and edge tiles launched alone (the
+   µs each kind adds per tile), and the occupancy of its main-path
+   instance; the exchange's time and copies per round (three phases, 8
+   blocks), one whole monolithic round.
 
 Then a ``{"kernels": [...]}`` line (all twenty kernels) and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
@@ -332,13 +342,34 @@ def phase_build():
     seconds = time.perf_counter() - t0
     for name in build.KERNELS:
         build.load(name)
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "Used" in ln or "spill" in ln]
-             for name, log in build.BUILD_LOG.items()}
+    # ptxas's report by template instance: <K, R, ...> -> [registers,
+    # spill stores, spill loads, static shared bytes].
+    # (An earlier run's build left its report beside the library.)
+    ptxas = {name: {r["instance"].partition("<")[2].rstrip(">") or
+                    r["instance"]: [r.get("registers"),
+                                    r.get("spill_stores"),
+                                    r.get("spill_loads"),
+                                    r.get("smem_bytes")]
+                    for r in build.ptxas_report(build.build_log(name))}
+             for name in build.KERNELS}
+    spilling = {name: [a for a, row in rows.items() if row[1]]
+                for name, rows in ptxas.items()}
+    # The instance the sharded 3D main path launches must not spill.
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    hp = params()
+    tma = skb3.h_load((SHARD3_N // 2,) * 3, hp.h_k_default) == "tma"
+    main = f"{hp.h_k_default}, {hp.h_rows}, {'true' if tma else 'false'}"
+    fused = ptxas["heat_h_block_3d_fused"]
+    check(main in fused and fused[main][1] == 0,
+          f"H-fused's main-path instance <{main}> spills or is missing "
+          f"from the ptxas report: {fused.get(main)}")
     emit({"phase": "build", "seconds": seconds,
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
-          "ptxas": ptxas})
+          "main_path_h_instance": main,
+          "spilling_instances": spilling, "ptxas": ptxas})
 
 
 def _launchers(sk):
@@ -2093,6 +2124,7 @@ def _check_h_block(dev, xch, b, us, k, kw, f_out, err):
     import torch
 
     from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
 
     bs = tuple(us[b].shape)
     o = xch.mesh.origin(b, bs)
@@ -2102,17 +2134,28 @@ def _check_h_block(dev, xch, b, us, k, kw, f_out, err):
     xch.assemble_circular(b, us[b], ext)
     pieces = xch.pieces(b)
     where = f"(K={k}) on block {o} of {kw['grid_shape']} {kw}"
+    # H-fused under each plane load its geometry takes: cp.async always,
+    # TMA where skb3.h_load chooses it.
+    loads = ["cp.async"] + (["tma"] if skb3.h_load(bs, k, us[b]) == "tma"
+                            else [])
+    if "tma" in loads:   # the rule holds a tile inside the block
+        check(params().h_tiles(bs, k)[0] > 0,
+              f"the TMA load at K={k} on a {bs} block runs in no tile")
     runs = {
-        "heat_h_block_3d_fused": (
-            lambda out, r: skb3.h_block_fused(us[b], *pieces, out, k, r,
-                                              **h_kw),
+        **{("heat_h_block_3d_fused", load): (
+            lambda out, r, load=load: skb3.h_block_fused(
+                us[b], *pieces, out, k, r, load=load, **h_kw),
             lambda out: skb3.h_block_fused_plain(us[b], *pieces, out, k,
-                                                 **h_kw)),
-        "heat_h_block_3d": (
+                                                 **h_kw))
+           for load in loads},
+        ("heat_h_block_3d", None): (
             lambda out, r: skb3.h_block(ext, out, k, r, **h_kw),
             lambda out: skb3.h_block_plain(ext, out, k, **h_kw))}
     first = None
-    for name, (launch, plain) in runs.items():
+    for (name, load), (launch, plain) in runs.items():
+        where = (f"(K={k}, {load} load) on block {o} of {kw['grid_shape']} "
+                 f"{kw}" if load else f"(K={k}) on block {o} of "
+                 f"{kw['grid_shape']} {kw}")
         got, ref, nores = (torch.empty(bs, device=dev) for _ in range(3))
         r = launch(got, True)
         launch(nores, False)
@@ -2132,29 +2175,35 @@ def _check_h_block(dev, xch, b, us, k, kw, f_out, err):
             first = (got, r)
         check(same_float(r, first[1]), f"{name}{where}: residual {float(r)} "
               f"differs from H-fused's {float(first[1])}")
+    where = f"(K={k}) on block {o} of {kw['grid_shape']} {kw}"
     if xch.halos[0] and bs[0] >= 2 * k:
         zt, yt, _, _ = pieces
-        split, plain = (torch.full(bs, float("nan"), device=dev)
-                        for _ in range(2))
-        rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k, True,
-                                defer_x=True, **h_kw)
-        check(bool(torch.isnan(split[:k]).all()
-                   and torch.isnan(split[bs[0] - k:]).all()),
-              f"the deferred bulk{where} wrote a band plane")
-        rf = skb3.h_band_fix(us[b], *pieces, split, k, True, **h_kw)
+        plain = torch.full(bs, float("nan"), device=dev)
         rpb = skb3.h_block_fused_plain(us[b], zt, yt, None, None, plain, k,
                                        defer_x=True, **h_kw)
         rpf = skb3.h_band_fix_plain(us[b], *pieces, plain, k, **h_kw)
-        torch.cuda.synchronize()
-        err["heat_h_band_fix_3d"] = max(err["heat_h_band_fix_3d"], float(
-            (split - plain).nan_to_num(float("inf")).abs().max()))
-        check(torch.equal(split, plain) and same_float(rb, rpb)
-              and same_float(rf, rpf),
-              f"deferred bulk or band{where} != its plain version")
-        check(torch.equal(split, first[0])
-              and same_float(torch.maximum(rb, rf), first[1]),
-              f"deferred bulk + band{where} != the monolithic kernel "
-              f"(residuals {float(rb)}, {float(rf)} vs {float(first[1])})")
+        for load in loads:
+            split = torch.full(bs, float("nan"), device=dev)
+            rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k,
+                                    True, defer_x=True, load=load, **h_kw)
+            check(bool(torch.isnan(split[:k]).all()
+                       and torch.isnan(split[bs[0] - k:]).all()),
+                  f"the deferred bulk ({load} load){where} wrote a band "
+                  f"plane")
+            rf = skb3.h_band_fix(us[b], *pieces, split, k, True, **h_kw)
+            torch.cuda.synchronize()
+            err["heat_h_band_fix_3d"] = max(err["heat_h_band_fix_3d"], float(
+                (split - plain).nan_to_num(float("inf")).abs().max()))
+            check(torch.equal(split, plain) and same_float(rb, rpb)
+                  and same_float(rf, rpf),
+                  f"deferred bulk ({load} load) or band{where} != its plain "
+                  f"version")
+            check(torch.equal(split, first[0])
+                  and same_float(torch.maximum(rb, rf), first[1]),
+                  f"deferred bulk ({load} load) + band{where} != the "
+                  f"monolithic kernel (residuals {float(rb)}, {float(rf)} "
+                  f"vs {float(first[1])})")
+    return loads
 
 
 def phase_kernels_h(dev):
@@ -2172,27 +2221,43 @@ def phase_kernels_h(dev):
 
     p = params()
     ks = sorted({1, 3, p.h_k_default, p.h_k_max()})
+    every_k = list(range(1, p.h_k_max() + 1))
     err = {name: 0.0 for name in KERNELS_H}
     equal = dict(cx=CX, cy=CY, cz=CX)
     unequal = dict(zip(("cx", "cy", "cz"), UNEQUAL_3D))
     gen = torch.Generator(device=dev).manual_seed(5)
-    # (mesh, block, depths, blocks, coefficient sets): the main path's
-    # 512^3 blocks of 1024^3 (two corners); a ragged (3, 3, 3) mesh, its
-    # corner, edge, face and interior blocks; blocks of 6 x-planes (2K at
-    # K = 3: an empty bulk; under 2K beyond); a z-free (2, 4, 1) and an
-    # x-free (1, 2, 2) mesh.
+    # (mesh, block, depths, blocks, coefficient sets, does H-fused take
+    # the TMA load): the main path's 512^3 blocks of 1024^3 (two
+    # corners); a ragged (3, 3, 3) mesh, its corner, edge, face and
+    # interior blocks: 67 x 43 x 90 (the cp.async load only: bz % 4 != 0
+    # and no tile inside the block) and 67 x 128 x 92 (both loads, every
+    # compiled K: the TMA load runs in the tiles inside a block, and a
+    # block holds one where it has 2w - 3K cells along each axis, w the
+    # extended tile's 64 x 32); blocks of 6 x-planes (2K at K = 3: an
+    # empty bulk; under 2K beyond), 6 x 50 x 70 and 6 x 128 x 72; a
+    # z-free (2, 4, 1) mesh, 40 x 33 x 97 and 40 x 128 x 96; and an
+    # x-free (1, 2, 2) mesh whose blocks hold no inner tile (cp.async
+    # only).
     plan = [(SHARD3_MESH, (SHARD3_N // 2,) * 3, [p.h_k_default], [0, 7],
-             [equal]),
-            ((3, 3, 3), (67, 43, 90), ks, [0, 9, 12, 13], [equal, unequal]),
-            ((2, 2, 2), (6, 50, 70), [1, 3, 6], list(range(8)), [unequal]),
-            ((2, 4, 1), (40, 33, 97), ks, [0, 5], [unequal]),
-            ((1, 2, 2), (50, 30, 40), [2, 5], [0, 3], [unequal])]
+             [equal], True),
+            ((3, 3, 3), (67, 43, 90), ks, [0, 9, 12, 13], [equal, unequal],
+             False),
+            ((3, 3, 3), (67, 128, 92), every_k, [0, 9, 12, 13], [unequal],
+             True),
+            ((2, 2, 2), (6, 50, 70), [1, 3, 6], list(range(8)), [unequal],
+             False),
+            ((2, 2, 2), (6, 128, 72), [1, 3, 6], list(range(8)), [unequal],
+             True),
+            ((2, 4, 1), (40, 33, 97), ks, [0, 5], [unequal], False),
+            ((2, 4, 1), (40, 128, 96), ks, [0, 5], [unequal], True),
+            ((1, 2, 2), (50, 30, 40), [2, 5], [0, 3], [unequal], False)]
     report = []
-    for mesh_shape, block, depths, blocks, coeff_sets in plan:
+    for mesh_shape, block, depths, blocks, coeff_sets, tma in plan:
         grid = tuple(m * b for m, b in zip(mesh_shape, block))
         g = torch.randn(grid, generator=gen, device=dev) * 10
         mesh = HeatMesh(mesh_shape, dev)
         us = mesh.split(g)
+        loads_by_k = {}
         for k in depths:
             xch = temporal3d.DeepExchange3D(mesh, block, k, dev)
             xch.lead(us)
@@ -2201,48 +2266,74 @@ def phase_kernels_h(dev):
                 f_out = torch.empty_like(g)
                 sk3.xslab_steps_3d(g, f_out, k, **coeffs)
                 for b in blocks:
-                    _check_h_block(dev, xch, b, us, k,
-                                   dict(grid_shape=grid, **coeffs), f_out,
-                                   err)
+                    loads = _check_h_block(dev, xch, b, us, k,
+                                           dict(grid_shape=grid, **coeffs),
+                                           f_out, err)
+                    check(("tma" in loads) == tma,
+                          f"H-fused's loads {loads} at K={k} on a {block} "
+                          f"block: the TMA load expected {tma}")
+                    loads_by_k[str(k)] = loads
                 del f_out
             del xch
         report.append({"grid": list(grid), "mesh": list(mesh_shape),
                        "block": list(block), "k": depths, "blocks": blocks,
-                       "coeffs": coeff_sets,
+                       "coeffs": coeff_sets, "fused_loads": loads_by_k,
                        "bitwise_plain_each_other_and_f": True,
                        "deferred_plus_band_is_monolithic": True})
         del g, us
         torch.cuda.empty_cache()
-    # A diverging block: one NaN next to the faces of corner block 0.
-    g = torch.randn((80, 80, 80), generator=gen, device=dev) * 10
-    g[2, 3, 1] = float("nan")
-    mesh = HeatMesh(SHARD3_MESH, dev)
-    us = mesh.split(g)
+    # Diverging blocks: one NaN next to the faces of corner block 0 of
+    # 80^3 (40^3 blocks: the cp.async load), and of 40 x 256 x 256, whose
+    # 20 x 128 x 128 blocks hold tiles inside them (the TMA load), with a
+    # second NaN in such a tile (output rows [58, 116) and columns
+    # [26, 52) at K = 3).
     k = p.h_k_default
-    xch = temporal3d.DeepExchange3D(mesh, (40, 40, 40), k, dev)
-    xch.lead(us)
-    xch.last(us)
-    kw = dict(origin=(0, 0, 0), grid_shape=(80, 80, 80), **equal)
-    ext = torch.empty(xch.circular_shape, device=dev)
-    xch.assemble_circular(0, us[0], ext)
     nan_res = {}
-    for name, launch in (
-            ("heat_h_block_3d_fused", lambda o: skb3.h_block_fused(
-                us[0], *xch.pieces(0), o, k, True, **kw)),
-            ("heat_h_block_3d", lambda o: skb3.h_block(ext, o, k, True,
-                                                       **kw)),
-            ("heat_h_band_fix_3d", lambda o: skb3.h_band_fix(
-                us[0], *xch.pieces(0), o, k, True, **kw))):
-        out = torch.empty_like(us[0])
-        nan_res[name] = float(launch(out))
-        check(math.isnan(nan_res[name]), f"NaN-seeded block gave {name} "
-              f"residual {nan_res[name]}, not NaN")
-        check(torch.equal(out[0], us[0][0])
-              and torch.equal(out[:k, 0], us[0][:k, 0])
-              and torch.equal(out[:k, :, 0], us[0][:k, :, 0]),
-              f"a diverging block moved a Dirichlet face ({name})")
-    del g, us, xch, ext
-    torch.cuda.empty_cache()
+    for grid, nans, load in (((80, 80, 80), [(2, 3, 1)], "cp.async"),
+                             ((40, 256, 256), [(2, 3, 1), (2, 70, 40)],
+                              "tma")):
+        g = torch.randn(grid, generator=gen, device=dev) * 10
+        for c in nans:
+            g[c] = float("nan")
+        mesh = HeatMesh(SHARD3_MESH, dev)
+        us = mesh.split(g)
+        bs = tuple(us[0].shape)
+        xch = temporal3d.DeepExchange3D(mesh, bs, k, dev)
+        xch.lead(us)
+        xch.last(us)
+        kw = dict(origin=(0, 0, 0), grid_shape=grid, **equal)
+        ext = torch.empty(xch.circular_shape, device=dev)
+        xch.assemble_circular(0, us[0], ext)
+        check(skb3.h_load(bs, k, us[0]) == load
+              and (p.h_tiles(bs, k)[0] > 0) == (load == "tma"),
+              f"the NaN-seeded {bs} block should take the {load} load")
+        plain = torch.empty_like(us[0])
+        skb3.h_block_fused_plain(us[0], *xch.pieces(0), plain, k, **kw)
+        for name, launch in (
+                ("heat_h_block_3d_fused", lambda o: skb3.h_block_fused(
+                    us[0], *xch.pieces(0), o, k, True, **kw)),
+                ("heat_h_block_3d_fused@cp.async",
+                 lambda o: skb3.h_block_fused(us[0], *xch.pieces(0), o, k,
+                                              True, load="cp.async", **kw)),
+                ("heat_h_block_3d", lambda o: skb3.h_block(ext, o, k, True,
+                                                           **kw)),
+                ("heat_h_band_fix_3d", lambda o: skb3.h_band_fix(
+                    us[0], *xch.pieces(0), o, k, True, **kw))):
+            out = torch.empty_like(us[0])
+            key = f"{name}@{'x'.join(map(str, bs))}"
+            nan_res[key] = float(launch(out))
+            check(math.isnan(nan_res[key]), f"NaN-seeded block gave {key} "
+                  f"residual {nan_res[key]}, not NaN")
+            check(torch.equal(out[0], us[0][0])
+                  and torch.equal(out[:k, 0], us[0][:k, 0])
+                  and torch.equal(out[:k, :, 0], us[0][:k, :, 0]),
+                  f"a diverging block moved a Dirichlet face ({key})")
+            if name != "heat_h_band_fix_3d":   # the band writes 2K planes
+                check(torch.equal(out.nan_to_num(7.0),
+                                  plain.nan_to_num(7.0)),
+                      f"a diverging block: {key} != its plain version")
+        del g, us, xch, ext, plain
+        torch.cuda.empty_cache()
     emit({"phase": "kernels_h", "ok": True, "checks": report,
           "nan_residual": nan_res, "max_abs_err": err})
     return err
@@ -2433,6 +2524,78 @@ def _interior_cells_3d(origin, shape, grid):
                      for o, s, n in zip(origin, shape, grid))
 
 
+# H-fused's device time at the main path's block before the TMA load and
+# the edge tiles' fixed pointers (a piece chosen per cell and plane, 32 x
+# 16 threads of 2 rows; NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6).
+H_FUSED_EARLIER_MS = 1.164
+
+
+def _h_fused_loads_and_tiles(u, pieces, v, k, kw):
+    """H-fused's monolithic launch at the main block under each load, and
+    the time of each kind of (Y, Z) tile by difference: a second block of
+    the same X extent and as many tiles, all at its edge (one tile along
+    Y, by = wy - 2K, so the same segments and waves), gives an edge
+    tile's time; the main block's launch less its edge tiles' share, an
+    interior tile's. By CUDA events in turns; with the earlier design's
+    time and the occupancy of the instance the main path launches."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    bx, by, bz = u.shape
+    load = skb3.h_load(u.shape, k, u)
+    interior, edge = p.h_tiles(u.shape, k)
+    wy, wz = p.f_extent(p.h_block, p.h_rows)
+    e_shape = (bx, wy - 2 * k, (interior + edge) * (wz - 2 * k))
+    check(p.h_tiles(e_shape, k) == (0, interior + edge)
+          and p.h_launch(e_shape, k, bx) == p.h_launch(u.shape, k, bx),
+          f"the edge-tile block {e_shape} does not match the main block's "
+          f"tiles and segments")
+    gen = torch.Generator(device=u.device).manual_seed(9)
+    e_grid = tuple(2 * n for n in e_shape)
+    ebx, eby, ebz = e_shape
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=u.device)
+
+    e_u, e_v = rand(*e_shape), torch.empty(e_shape, device=u.device)
+    e_pieces = (rand(ebx, eby, 2 * k), rand(ebx, 2 * k, ebz + 2 * k),
+                rand(k, eby + 2 * k, ebz + 2 * k),
+                rand(k, eby + 2 * k, ebz + 2 * k))
+    e_kw = dict(kw, origin=e_shape, grid_shape=e_grid)
+    runs = {f"{ld}@main": (lambda ld=ld: skb3.h_block_fused(
+                u, *pieces, v, k, False, load=ld, **kw))
+            for ld in dict.fromkeys((load, "cp.async"))}
+    runs["cp.async@edge_block"] = lambda: skb3.h_block_fused(
+        e_u, *e_pieces, e_v, k, False, **e_kw)
+    ms = {key: [] for key in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            ms[key].append(_time_ms(runs[key], 20, 3))
+    ms = {key: sum(t) / len(t) for key, t in ms.items()}
+    segments = -(-bx // p.h_launch(u.shape, k, bx))
+    edge_us = ms["cp.async@edge_block"] * 1e3 / ((interior + edge)
+                                                 * segments)
+    out = {"load": load, "earlier_design_device_ms": H_FUSED_EARLIER_MS,
+           "tiles_interior": interior, "tiles_edge": edge,
+           "segments": segments, "edge_block": list(e_shape),
+           "ms_by_run": ms,
+           "occupancy_blocks_per_sm": {
+               ld: skb3.h_fused_occupancy(k, ld)
+               for ld in dict.fromkeys((load, "cp.async"))},
+           "us_per_tile_segment_edge": edge_us}
+    for ld in dict.fromkeys((load, "cp.async")):
+        inner_us = ((ms[f"{ld}@main"] * 1e3 - edge * segments * edge_us)
+                    / (interior * segments)) if interior else None
+        out[f"us_per_tile_segment_interior_{ld}"] = inner_us
+        out[f"edge_over_interior_{ld}"] = (edge_us / inner_us
+                                           if inner_us else None)
+    del e_u, e_v, e_pieces
+    return out
+
+
 def phase_timing_h(dev):
     """ms per launch of each H kernel at the main path's block (512^3 of
     1024^3 on (2, 2, 2), K = h_k_default, no residual, as the rounds
@@ -2543,6 +2706,8 @@ def phase_timing_h(dev):
                      "library_ms": _time_ms(library, 5, 1),
                      **_bound(nbytes, nops)}
         rows[key].update(_device_ms(kernel, name))
+    rows["heat_h_block_3d_fused"].update(_h_fused_loads_and_tiles(
+        us[b], (zt, yt, xlo, xhi), v, k, kw))
     # One whole monolithic round of the 8 blocks (the three phases and 8
     # launches of H-fused), by events.
     vs = [torch.empty_like(u) for u in us]

@@ -39,12 +39,13 @@ checked bitwise against the plain version on a 500 x 252 block of
 1000 x 1008 on (2, 4). ``--only h`` sweeps the sharded 3D path's H
 kernels at the main path's block, 512^3 of 1024^3 on a (2, 2, 2) mesh:
 the deferred bulk of H-fused over thread blocks, rows per thread and K
-(the segment of ``hopper_params.h_launch``), then over X segments at the
+(the segment of ``hopper_params.h_launch``; the TMA load wherever the
+geometry takes it), then over X segments at the
 fastest shape per step; and, at the defaults, the monolithic H-fused,
 H and the band kernel, and kernel F on a 512^3 grid, the yardstick of
 the step phase they share. Each launch shape is first checked bitwise
 against the plain version on the interior block of a (3, 3, 3) mesh of
-21 x 30 x 70 blocks. The values in
+21 x 128 x 256 blocks. The values in
 ``ops/hopper_params.py`` marked "measured" come from this sweep.
 ``--sass DIR`` also writes each kernel library's machine code
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
@@ -106,6 +107,8 @@ G_KS = [4, 6, 8]
 G_BAND_TILES = [112, 240, 496]
 H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)   # the sharded 3D main path
 H_SEGMENTS = [32, 64, 86, 128, 171, 256, 512]
+# H's launch shapes: F's, and 64-wide tiles of one row a thread.
+H_SHAPES = F_SHAPES + [((64, 8), 1), ((96, 4), 4), ((128, 4), 4)]
 
 
 def card_line() -> str:
@@ -470,7 +473,11 @@ def sweep_h(reps: int):
     p = params()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(0)
-    s_mesh_shape, s_block = (3, 3, 3), (21, 30, 70)
+    # The check block holds a tile inside it at every shape of
+    # h_tma_rows rows (2w - 3K cells along each axis for an extended tile
+    # w wide), so that the TMA load is checked wherever the main block
+    # takes it.
+    s_mesh_shape, s_block = (3, 3, 3), (21, 128, 256)
     s_grid = tuple(m * b for m, b in zip(s_mesh_shape, s_block))
     s_us = HeatMesh(s_mesh_shape, dev).split(torch.from_numpy(
         (rng.standard_normal(s_grid) * 10).astype(np.float32)).to(dev))
@@ -497,27 +504,30 @@ def sweep_h(reps: int):
         rp = skb3.h_block_fused_plain(s_us[sb], zt, yt, None, None, want, k,
                                       defer_x=True, **s_kw)
         bzt, byt, _, _ = xch.pieces(b)
-        for block, rows in F_SHAPES:
+        for block, rows in H_SHAPES:
             if k > p.h_k_max(block, rows):
                 continue
             seg = p.h_launch(bs, k, bs[0] - 2 * k, block, rows)
             geo = (block[0], block[1], rows)
+            tma = int(p.h_tma_fits(bs, k, block, rows)
+                      and p.h_tma_fits(s_block, k, block, rows))
+            mid = (k, k, k, 1, tma)
             got = torch.full_like(want, float("nan"))
             r = skb3._launch("heat_h_block_3d_fused", (s_us[sb], zt, yt, None,
                                                        None), got, k, True,
-                             mid=(k, k, k, 1), geometry=geo + (
+                             mid=mid, geometry=geo + (
                                  p.h_launch(s_block, k, s_block[0] - 2 * k,
                                             block, rows),), **s_kw)
             ok = bool(torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
                       and torch.equal(r, rp))
             ms = time_ms(lambda: skb3._launch(
                 "heat_h_block_3d_fused", (us[b], bzt, byt, None, None), out,
-                k, False, mid=(k, k, k, 1), geometry=geo + (seg,), **big_kw),
-                reps)
+                k, False, mid=mid, geometry=geo + (seg,), **big_kw), reps)
             row = {"kernel": "heat_h_block_3d_fused", "mode": "bulk",
                    "size": size, "block": list(block), "rows": rows, "k": k,
-                   "segment": seg,
-                   "smem_bytes": p.f_smem_bytes(k, block, rows),
+                   "load": "tma" if tma else "cp.async", "segment": seg,
+                   "smem_bytes": (p.h_tma_smem_bytes(k, block, rows) if tma
+                                  else p.f_smem_bytes(k, block, rows)),
                    "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
                    "default": (block == p.h_block and rows == p.h_rows
                                and k == p.h_k_default)}
@@ -531,14 +541,16 @@ def sweep_h(reps: int):
     _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
     bzt, byt, xlo, xhi = xch.pieces(b)
     big_kw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw)
+    mid = (k, k, k, 1, int(best["load"] == "tma"))
     for seg in H_SEGMENTS:
         ms = time_ms(lambda: skb3._launch(
             "heat_h_block_3d_fused", (us[b], bzt, byt, None, None), out, k,
-            False, mid=(k, k, k, 1), geometry=(block[0], block[1], rows, seg),
+            False, mid=mid, geometry=(block[0], block[1], rows, seg),
             **big_kw), reps)
         yield {"kernel": "heat_h_block_3d_fused", "mode": "bulk-segment",
                "size": size, "block": list(block), "rows": rows, "k": k,
-               "segment": seg, "bitwise": best["bitwise"], "ms": ms,
+               "load": best["load"], "segment": seg,
+               "bitwise": best["bitwise"], "ms": ms,
                "ms_per_step": ms / k, "default": False}
     # The defaults' monolithic, assembled and band launches, and F.
     k = p.h_k_default
@@ -553,6 +565,9 @@ def sweep_h(reps: int):
             ("heat_h_block_3d_fused", "monolithic",
              lambda: skb3.h_block_fused(us[b], *pieces, out, k, False,
                                         **big_kw)),
+            ("heat_h_block_3d_fused", "monolithic cp.async",
+             lambda: skb3.h_block_fused(us[b], *pieces, out, k, False,
+                                        load="cp.async", **big_kw)),
             ("heat_h_block_3d", "monolithic",
              lambda: skb3.h_block(ext, out, k, False, **big_kw)),
             ("heat_h_band_fix_3d", "band",

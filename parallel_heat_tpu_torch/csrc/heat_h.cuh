@@ -37,11 +37,23 @@
 //     (a ragged last tile reaches past it; those cells are K or more
 //     cells from any output and never reach one in K steps).
 // A tile whose extended (Y, Z) tile lies inside the block loads a plane
-// as F does, one run per row; the piece of a cell is chosen, per cell
-// and plane, only in the tiles at the block's (Y, Z) edges, and the two
-// kinds of tile run two copies of the step loop. (With both loads in one
-// loop H-fused took 1.30 ms where F takes 0.90 at a 512^3 block and
-// K = 3: PERF.md.)
+// as F does, one run per row, or, in the fused form where the block's
+// row is a multiple of 16 bytes (bz % 4 == 0) and the block holds such a
+// tile at this K (heat_h_tma_fits), by TMA: one box of the block's
+// tensor map per plane (the extended tile 4 cells wider: a box starts at
+// a multiple of 4 cells), issued by
+// one thread (heat_t3d_stream_tma), the x slabs' planes still by
+// cp.async (their rows, bz + 2hz floats, are not a multiple of 16 bytes
+// as TMA needs). A tile at the block's (Y, Z) edge fixes, once for
+// the run, each row's piece (u, ztail or ytail: the row's y fixes it in
+// the ytail, the thread's z elsewhere) as a pointer at the piece's plane
+// 0 and the piece's plane stride, and its offset in an x-slab plane, so a
+// plane costs a row one 32 x 32-bit multiply-add and a 4-byte cp.async.
+// The kinds of tile run separate copies of the step loop, so the edge
+// tiles' pointers cost the others no registers. (With a piece chosen per
+// cell and plane, in int64, an edge tile took about twice an interior
+// tile's time and H-fused 1.164 ms where F takes 0.885 at a 512^3 block
+// and K = 3: PERF.md.)
 // An unsharded axis (the block spans the grid along it) has no halo: its
 // cells past the block lie outside the grid. The assembled form reads one
 // buffer, the JAX package's circular block: x in the order [lo | u | hi],
@@ -56,15 +68,27 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "heat_temporal3d.cuh"
 
 enum HeatHLayout { kHeatHPieces = 0, kHeatHCircular = 1 };
+
+// Plane strides, in floats, of the pieces: u (by * bz), ztail (by * 2K),
+// ytail (2K * Ze) and an x slab or a plane of the assembled block
+// (Ye * Ze); the launcher keeps each under 2^31.
+struct HeatHStrides {
+  int32_t u, zt, yt, slab;
+};
 
 // The parameters of every H kernel, and their names: each entry point
 // defines its own __global__ function (so a profile names it) whose body
 // is heat_h_body with its layout. Regions (blockIdx.y) start at output
 // planes r_begin0 and r_begin1, `rows` planes each, cut into segments
-// of `seg` planes.
+// of `seg` planes. The fused form's kernel takes one more parameter,
+// `umap`, the block's tensor map for the TMA load (read by its kTma
+// instances only), a __grid_constant__ parameter whose address the TMA
+// instruction takes.
 #define HEAT_H_PARAMS                                                       \
   const float *__restrict__ u, const float *__restrict__ zt,                \
       const float *__restrict__ yt, const float *__restrict__ xlo,          \
@@ -72,28 +96,43 @@ enum HeatHLayout { kHeatHPieces = 0, kHeatHCircular = 1 };
       uint32_t *res, int64_t nx, int64_t ny, int64_t nz, int64_t bx,        \
       int64_t by, int64_t bz, int64_t ox, int64_t oy, int64_t oz, int hx,   \
       int hy, int hz, int64_t r_begin0, int64_t r_begin1, int64_t rows,     \
-      int64_t seg, int64_t tiles_z, int64_t tiles_y, float a0, float cx,    \
-      float cy, float cz
+      int64_t seg, int64_t tiles_z, int64_t tiles_y, HeatHStrides st,       \
+      float a0, float cx, float cy, float cz
 #define HEAT_H_ARGS                                                         \
   u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz, hx,    \
-      hy, hz, r_begin0, r_begin1, rows, seg, tiles_z, tiles_y, a0, cx, cy,  \
-      cz
+      hy, hz, r_begin0, r_begin1, rows, seg, tiles_z, tiles_y, st, a0, cx,  \
+      cy, cz
 
 typedef void (*HeatHKernel)(const float*, const float*, const float*,
                             const float*, const float*, float*, uint32_t*,
                             int64_t, int64_t, int64_t, int64_t, int64_t,
                             int64_t, int64_t, int64_t, int64_t, int, int,
                             int, int64_t, int64_t, int64_t, int64_t,
-                            int64_t, int64_t, float, float, float, float);
+                            int64_t, int64_t, HeatHStrides, float, float,
+                            float, float);
+typedef void (*HeatHFusedKernel)(const float*, const float*, const float*,
+                                 const float*, const float*, float*,
+                                 uint32_t*, int64_t, int64_t, int64_t,
+                                 int64_t, int64_t, int64_t, int64_t,
+                                 int64_t, int64_t, int, int, int, int64_t,
+                                 int64_t, int64_t, int64_t, int64_t,
+                                 int64_t, HeatHStrides, float, float, float,
+                                 float, const CUtensorMap);
 
 // The compiled depths 1 .. kHMaxK (ops/hopper_params.py h_k_compiled)
-// and rows per thread 1, 2, 4.
+// and rows per thread 1, 2, 4; the TMA load only at kHTmaRows rows
+// (h_tma_rows, the chosen h_rows).
 constexpr int kHMaxK = 8;
+constexpr int kHTmaRows = 4;
 
 // One thread block: the (Y, Z) tile, segment and region of blockIdx;
-// blockDim is (wz, by) and the extended tile wz x (by * R) cells.
-template <int K, int R, int kLayout>
-__device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS) {
+// blockDim is (wz, by) and the extended tile wz x (by * R) cells. kTma:
+// the tiles inside the block load by TMA from `umap` (the fused layout
+// only; null elsewhere).
+template <int K, int R, int kLayout, bool kTma = false>
+__device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
+                                            const CUtensorMap* umap) {
+  static_assert(!kTma || kLayout == kHeatHPieces, "TMA reads u's planes");
   const int wz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
   const int row0 = threadIdx.y * R;          // this thread's first row
@@ -107,9 +146,9 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS) {
   const int64_t lz = tz * (wz - 2 * K) - K + threadIdx.x;
   const int64_t ly0 = ty * (wy - 2 * K) - K + row0;
   const bool z_out = threadIdx.x >= K && threadIdx.x < wz - K;
-  const int64_t ye = by + 2 * hy, ze = bz + 2 * hz;
+  const int64_t ze = bz + 2 * hz;
   const int64_t gz = oz + lz;
-  const int64_t k2 = 2 * K;
+  const int k2 = 2 * K;
   // Per row: inside the grid and the K-deep frame, inside the (Y, Z)
   // interior, this block's to write.
   unsigned cell_in = 0u, yz_in = 0u, out_rows = 0u;
@@ -126,24 +165,44 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS) {
                                       row0 + r < wy - K && ly < by &&
                                       lz < bz) << r;
   }
-  const int64_t pu = by * bz, pz = by * k2, py = k2 * ze, px = ye * ze;
+  const bool circ = kLayout == kHeatHCircular;
   // Does the extended tile lie inside the block's (Y, Z) extent? Then a
   // plane is one run per row of u (of the assembled block), as in F, or
-  // of an x slab. The two kinds of tile take two copies of the step loop,
-  // so the per-cell choice of the edge tiles costs the others no
-  // registers.
+  // of an x slab; or, with kTma, one box of u's tensor map.
   const int64_t ty0 = ty * (wy - 2 * K) - K, tz0 = tz * (wz - 2 * K) - K;
   if (ty0 >= 0 && ty0 + wy <= by && tz0 >= 0 && tz0 + wz <= bz) {
-    const bool circ = kLayout == kHeatHCircular;
-    const float* core = circ ? u + hx * px + ly0 * ze + lz : u + ly0 * bz + lz;
-    const int64_t core_plane = circ ? px : pu, core_row = circ ? ze : bz;
     const int64_t slab_col = ly0 * ze + lz;
+    if constexpr (kTma) {
+      // The x slabs' planes inside the grid by cp.async; u's planes, and
+      // the planes outside the grid (boxes past the map's x extent, so
+      // zeros), by TMA.
+      auto slab = [&](float* dst, int row, int64_t t) {
+        if ((t >= 0 && t < bx) || ox + t < 0 || ox + t >= nx) return false;
+        const float* p =
+            (t < 0 ? xlo + (t + K) * st.slab : xhi + (t - bx) * st.slab) +
+            slab_col;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          __pipeline_memcpy_async(dst + r * row, p + r * ze, 4);
+        return true;
+      };
+      heat_t3d_stream_tma<K, R>(umap, static_cast<int>(tz0),
+                                static_cast<int>(ty0), slab, x0, x1, ox, nx,
+                                yz_in, out_rows, out, by * bz, ly0 * bz + lz,
+                                bz, a0, cx, cy, cz, res);
+      return;
+    }
+    const float* core = circ ? u + static_cast<int64_t>(hx) * st.slab + slab_col
+                             : u + ly0 * bz + lz;
+    const int64_t core_plane = circ ? st.slab : st.u;
+    const int64_t core_row = circ ? ze : bz;
     auto load = [&](float* dst, int64_t t) {
       const bool in_block = t >= 0 && t < bx;
       const bool x_in = ox + t >= 0 && ox + t < nx;
       const float* p = in_block || (circ && x_in) ? core + t * core_plane
                        : !x_in ? nullptr
-                       : (t < 0 ? xlo + (t + K) * px : xhi + (t - bx) * px) +
+                       : (t < 0 ? xlo + (t + K) * st.slab
+                                : xhi + (t - bx) * st.slab) +
                              slab_col;
       const int64_t row = in_block || circ ? core_row : ze;
 #pragma unroll
@@ -151,103 +210,240 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS) {
         __pipeline_memcpy_async(dst + r * wz, p != nullptr ? p + r * row : u,
                                 4, p != nullptr ? 0 : 4);
     };
-    heat_t3d_stream<K, R>(load, x0, x1, ox, nx, yz_in, out_rows, out, pu,
-                          ly0 * bz + lz, bz, a0, cx, cy, cz, res);
+    heat_t3d_stream<K, R>(load, x0, x1, ox, nx, yz_in, out_rows, out,
+                          by * bz, ly0 * bz + lz, bz, a0, cx, cy, cz, res);
     return;
   }
-  // A tile at the block's (Y, Z) edge. Per row, which x-interior piece
-  // holds the cell (2 bits: u, ztail, ytail) at which offset of its
-  // plane, and the cell's offset in an x-slab plane (of the assembled
-  // block too). The launcher keeps a plane under 2^31 cells.
-  unsigned piece = 0u;
-  int32_t ioff[R], xoff[R];
+  // A tile at the block's (Y, Z) edge. Per row, fixed for the run: where
+  // its cell lies in an x-interior plane, as a pointer at plane 0 of its
+  // piece (u, ztail or ytail) and that piece's plane stride, and the
+  // cell's offset in an x-slab plane (of the assembled block too). A
+  // cell outside the grid or the K-deep frame is zero-filled.
+  const float* src[R];
+  int32_t pstride[R], xoff[R];
+  const int64_t ye = by + 2 * hy;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int64_t ly = ly0 + r;
     const int64_t yc = ly < 0 ? ly + ye : ly;  // circular y
     const int64_t zc = lz < 0 ? lz + ze : lz;  // circular z
     xoff[r] = static_cast<int32_t>(yc * ze + zc);
-    int64_t off;
-    if (ly >= 0 && ly < by) {
+    if (circ) {
+      src[r] = u;
+      pstride[r] = 0;
+    } else if (ly >= 0 && ly < by) {
       if (lz >= 0 && lz < bz) {
-        off = ly * bz + lz;
+        src[r] = u + (ly * bz + lz);
+        pstride[r] = st.u;
       } else {
-        piece |= 1u << (2 * r);
-        off = ly * k2 + (lz >= bz ? lz - bz : lz + k2);
+        src[r] = zt + (ly * k2 + (lz >= bz ? lz - bz : lz + k2));
+        pstride[r] = st.zt;
       }
     } else {
-      piece |= 2u << (2 * r);
-      off = (ly >= by ? ly - by : ly + k2) * ze + zc;
+      src[r] = yt + ((ly >= by ? ly - by : ly + k2) * ze + zc);
+      pstride[r] = st.yt;
     }
-    ioff[r] = static_cast<int32_t>(off);
+    if (!((cell_in >> r) & 1u)) src[r] = nullptr;
   }
 
-  // Block-local input plane t of this thread's cells; zero-filled where
-  // no piece holds a cell.
+  // Block-local input plane t of this thread's cells.
   auto load = [&](float* dst, int64_t t) {
     const bool x_in = ox + t >= 0 && ox + t < nx;
-    const float* slab = kLayout == kHeatHCircular ? u + (t + hx) * px
-                        : t < 0                   ? xlo + (t + K) * px
-                                                  : xhi + (t - bx) * px;
-    const bool from_slab = kLayout == kHeatHCircular || t < 0 || t >= bx;
+    if (circ || t < 0 || t >= bx) {
+      const float* slab = circ    ? u + (t + hx) * st.slab
+                          : t < 0 ? xlo + (t + K) * st.slab
+                                  : xhi + (t - bx) * st.slab;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const bool in = x_in && ((cell_in >> r) & 1u);
-      const unsigned w = (piece >> (2 * r)) & 3u;
-      const float* p = !in        ? u
-                       : from_slab ? slab + xoff[r]
-                       : w == 0u   ? u + t * pu + ioff[r]
-                       : w == 1u   ? zt + t * pz + ioff[r]
-                                   : yt + t * py + ioff[r];
-      __pipeline_memcpy_async(dst + r * wz, p, 4, in ? 0 : 4);
+      for (int r = 0; r < R; ++r) {
+        const bool in = x_in && src[r] != nullptr;
+        __pipeline_memcpy_async(dst + r * wz, in ? slab + xoff[r] : u, 4,
+                                in ? 0 : 4);
+      }
+    } else {
+      const int32_t ti = static_cast<int32_t>(t);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool in = src[r] != nullptr;
+        __pipeline_memcpy_async(
+            dst + r * wz,
+            in ? src[r] + static_cast<int64_t>(ti) * pstride[r] : u, 4,
+            in ? 0 : 4);
+      }
     }
   };
-  heat_t3d_stream<K, R>(load, x0, x1, ox, nx, yz_in, out_rows, out, pu,
+  heat_t3d_stream<K, R>(load, x0, x1, ox, nx, yz_in, out_rows, out, by * bz,
                         ly0 * bz + lz, bz, a0, cx, cy, cz, res);
 }
 
-// The instance table of one entry point: kHeatH[r_index][k - 1].
+// The instance table of one entry point: kHeatH[r_index][k - 1]; the
+// _OF form for a kernel with a third template argument A.
 #define HEAT_H_DEPTHS(KERNEL, R)                                           \
   {KERNEL<1, R>, KERNEL<2, R>, KERNEL<3, R>, KERNEL<4, R>, KERNEL<5, R>,   \
    KERNEL<6, R>, KERNEL<7, R>, KERNEL<8, R>}
 #define HEAT_H_TABLE(KERNEL)                                               \
   {HEAT_H_DEPTHS(KERNEL, 1), HEAT_H_DEPTHS(KERNEL, 2),                     \
    HEAT_H_DEPTHS(KERNEL, 4)}
+#define HEAT_H_DEPTHS_OF(KERNEL, R, A)                                     \
+  {KERNEL<1, R, A>, KERNEL<2, R, A>, KERNEL<3, R, A>, KERNEL<4, R, A>,     \
+   KERNEL<5, R, A>, KERNEL<6, R, A>, KERNEL<7, R, A>, KERNEL<8, R, A>}
+#define HEAT_H_TABLE_OF(KERNEL, A)                                         \
+  {HEAT_H_DEPTHS_OF(KERNEL, 1, A), HEAT_H_DEPTHS_OF(KERNEL, 2, A),         \
+   HEAT_H_DEPTHS_OF(KERNEL, 4, A)}
 
-// Checks the arguments, zeroes *res, and launches the table's instance
-// for (k, rows) over `regions` (1 or 2) regions of `rows_x` output planes
-// each, starting at planes r_begin0 and r_begin1, in segments of `seg`
-// planes, with thread blocks of block_z x block_y threads of `rows` rows
-// each, on `stream`. Returns a cudaError_t: 0, or the reason the launch
-// was refused.
-inline int heat_h_launch(const HeatHKernel (&table)[3][kHMaxK],
-                         const float* u, const float* zt, const float* yt,
-                         const float* xlo, const float* xhi, float* out,
-                         uint32_t* res, int64_t nx, int64_t ny, int64_t nz,
-                         int64_t bx, int64_t by, int64_t bz, int64_t ox,
-                         int64_t oy, int64_t oz, int hx, int hy, int hz,
-                         int k, int64_t r_begin0, int64_t r_begin1,
-                         int64_t rows_x, int regions, int block_z,
-                         int block_y, int rows, int64_t seg, float a0,
-                         float cx, float cy, float cz, void* stream) {
-  const int r_index = rows == 1 ? 0 : rows == 2 ? 1 : rows == 4 ? 2 : -1;
+// The table's index of `rows` rows a thread, or -1.
+inline int heat_h_rows_index(int rows) {
+  return rows == 1 ? 0 : rows == 2 ? 1 : rows == 4 ? 2 : -1;
+}
+
+// The instance of table (k, rows), or null where none is compiled.
+template <typename Kernel>
+inline Kernel heat_h_pick(const Kernel (&table)[3][kHMaxK], int k,
+                          int rows) {
+  const int r = heat_h_rows_index(rows);
+  return r < 0 || k < 1 || k > kHMaxK ? nullptr : table[r][k - 1];
+}
+
+// Does an axis of n cells hold a tile whose extended range, w cells
+// from t (w - 2k) - k, lies inside it? The first tile that starts at 0
+// or past is the one to try.
+inline bool heat_h_holds_tile(int64_t n, int w, int k) {
+  const int64_t step = w - 2 * k;
+  const int64_t first = (k + step - 1) / step;
+  return first * step - k + w <= n;
+}
+
+// Does the TMA plane load run for a block of by x bz cells at u under
+// thread blocks of block_z x block_y threads of `rows` rows at depth k?
+// TMA needs u's rows and address to be multiples of 16 bytes, and its
+// instances are compiled at kHTmaRows rows. A box is the extended tile
+// 4 cells wider (at most 256), and only a tile whose extended tile lies
+// inside the block takes it, so the block must hold one. The launcher
+// takes TMA only when the caller asks (the wrappers ask by this same
+// rule, ops/hopper_params.py h_tma_fits) and refuses it elsewhere.
+inline bool heat_h_tma_fits(const float* u, int64_t by, int64_t bz,
+                            int block_z, int block_y, int rows, int k) {
+  return bz % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+         rows == kHTmaRows && block_z + 4 <= 256 && bz >= block_z + 4 &&
+         heat_h_holds_tile(by, block_y * rows, k) &&
+         heat_h_holds_tile(bz, block_z, k);
+}
+
+// Error codes past cudaError_t's: cuTensorMapEncodeTiled's CUresult, or
+// that of fetching it from the driver, plus this base.
+constexpr int kHeatHEncodeError = 100000;
+
+typedef CUresult (*HeatEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The tensor map of the bx x by x bz block u (innermost z first), boxes
+// of (block_z + 4) x (block_y * rows) x 1 cells (heat_t3d_stream_tma),
+// zeros outside the block. The
+// driver's encoder is fetched through the runtime, so nothing links
+// against the driver library. Returns 0 or an error code.
+inline int heat_h_encode_map(CUtensorMap* map, const float* u, int64_t bx,
+                             int64_t by, int64_t bz, int block_z,
+                             int block_y, int rows) {
+  static HeatEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return kHeatHEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+    encode = reinterpret_cast<HeatEncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bz),
+                              static_cast<cuuint64_t>(by),
+                              static_cast<cuuint64_t>(bx)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bz) * 4,
+                                 static_cast<cuuint64_t>(by * bz) * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(block_z + 4),
+                             static_cast<cuuint32_t>(block_y * rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(u), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kHeatHEncodeError + static_cast<int>(r);
+}
+
+// The message of an entry point's error code.
+inline const char* heat_h_error_string(int code) {
+  if (code >= kHeatHEncodeError)
+    return "cuTensorMapEncodeTiled failed (CUresult = code - 100000)";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Dynamic shared memory of an H launch: the step phase's planes; for the
+// TMA form the larger of the TMA ring's layout (its inner tiles) and the
+// cp.async ring's (its edge tiles), as ops/hopper_params.py h_k_max
+// counts them.
+inline int heat_h_smem_bytes(int k, int wy, int block_z, bool tma) {
+  const int planes = heat_t3d_smem_bytes(k, wy, block_z);
+  const int boxes = heat_t3d_tma_smem_bytes(k, wy, block_z);
+  return tma && boxes > planes ? boxes : planes;
+}
+
+// Checks the arguments, zeroes *res, and launches `kernel`, the entry
+// point's instance for (k, rows) (null where none is compiled), over
+// `regions` (1 or 2) regions of `rows_x` output planes each, starting at
+// planes r_begin0 and r_begin1, in segments of `seg` planes, with thread
+// blocks of block_z x block_y threads of `rows` rows each, on `stream`.
+// A HeatHFusedKernel also takes u's tensor map: encoded for tma (a kTma
+// instance; heat_h_tma_fits must hold), zeros and unread otherwise.
+// Returns a cudaError_t: 0, or the reason the launch was refused; or an
+// encoding error (heat_h_error_string).
+template <typename Kernel>
+inline int heat_h_launch(Kernel kernel, bool tma, const float* u,
+                         const float* zt, const float* yt, const float* xlo,
+                         const float* xhi, float* out, uint32_t* res,
+                         int64_t nx, int64_t ny, int64_t nz, int64_t bx,
+                         int64_t by, int64_t bz, int64_t ox, int64_t oy,
+                         int64_t oz, int hx, int hy, int hz, int k,
+                         int64_t r_begin0, int64_t r_begin1, int64_t rows_x,
+                         int regions, int block_z, int block_y, int rows,
+                         int64_t seg, float a0, float cx, float cy, float cz,
+                         void* stream) {
+  constexpr bool kFused = std::is_same<Kernel, HeatHFusedKernel>::value;
   const int wy = block_y * rows;
   const auto halo_ok = [k](int h) { return h == 0 || h == k; };
-  if (nx < 3 || ny < 3 || nz < 3 || bx < 1 || by < 1 || bz < 1 || k < 1 ||
-      k > kHMaxK || ox < 0 || oy < 0 || oz < 0 || ox + bx > nx ||
-      oy + by > ny || oz + bz > nz || !halo_ok(hx) || !halo_ok(hy) ||
-      !halo_ok(hz) || r_index < 0 || block_y < 1 || block_z % 32 != 0 ||
+  const int64_t ye = by + 2 * hy, ze = bz + 2 * hz;
+  if (kernel == nullptr || nx < 3 || ny < 3 || nz < 3 || bx < 1 || by < 1 ||
+      bz < 1 || k < 1 || k > kHMaxK || ox < 0 || oy < 0 || oz < 0 ||
+      ox + bx > nx || oy + by > ny || oz + bz > nz || !halo_ok(hx) ||
+      !halo_ok(hy) || !halo_ok(hz) || block_y < 1 || block_z % 32 != 0 ||
       block_z <= 2 * k || wy <= 2 * k || block_z * block_y > 512 ||
       seg < 1 || rows_x < 1 || r_begin0 < 0 || r_begin1 + rows_x > bx ||
-      regions < 1 || regions > 2 ||
-      (by + 2 * hy) * (bz + 2 * hz) > 0x7fffffffLL)
+      regions < 1 || regions > 2 || ye * ze > 0x7fffffffLL ||
+      (tma && (!kFused || !heat_h_tma_fits(u, by, bz, block_z, block_y,
+                                           rows, k))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles_z = (bz + block_z - 2 * k - 1) / (block_z - 2 * k);
   const int64_t tiles_y = (by + wy - 2 * k - 1) / (wy - 2 * k);
   const int64_t blocks = tiles_z * tiles_y * ((rows_x + seg - 1) / seg);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = heat_t3d_smem_bytes(k, wy, block_z);
-  const HeatHKernel kernel = table[r_index][k - 1];
+  const HeatHStrides st = {static_cast<int32_t>(by * bz),
+                           static_cast<int32_t>(by * 2 * k),
+                           static_cast<int32_t>(2 * k * ze),
+                           static_cast<int32_t>(ye * ze)};
+  CUtensorMap map = {};
+  if (tma) {
+    const int err = heat_h_encode_map(&map, u, bx, by, bz, block_z, block_y,
+                                      rows);
+    if (err != 0) return err;
+  }
+  const int smem = heat_h_smem_bytes(k, wy, block_z, tma);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -256,10 +452,17 @@ inline int heat_h_launch(const HeatHKernel (&table)[3][kHMaxK],
     err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(static_cast<unsigned>(blocks), regions),
-           dim3(block_z, block_y), smem, s>>>(
-      u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz, hx,
-      hy, hz, r_begin0, r_begin1, rows_x, seg, tiles_z, tiles_y, a0, cx, cy,
-      cz);
+  const dim3 grid(static_cast<unsigned>(blocks), regions);
+  const dim3 block(block_z, block_y);
+  if constexpr (kFused)
+    kernel<<<grid, block, smem, s>>>(
+        u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz,
+        hx, hy, hz, r_begin0, r_begin1, rows_x, seg, tiles_z, tiles_y, st,
+        a0, cx, cy, cz, map);
+  else
+    kernel<<<grid, block, smem, s>>>(
+        u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz,
+        hx, hy, hz, r_begin0, r_begin1, rows_x, seg, tiles_z, tiles_y, st,
+        a0, cx, cy, cz);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,7 @@
 template <int K, int R>
 __global__ void __launch_bounds__(512)
     heat_h_band_fix_3d_kernel(HEAT_H_PARAMS) {
-  heat_h_body<K, R, kHeatHPieces>(HEAT_H_ARGS);
+  heat_h_body<K, R, kHeatHPieces>(HEAT_H_ARGS, nullptr);
 }
 
 static const HeatHKernel kHeatHBand[3][kHMaxK] =
@@ -41,12 +41,12 @@ extern "C" int heat_h_band_fix_3d(
   if ((hz != 0) != (ztail != nullptr) || (hy != 0) != (ytail != nullptr) ||
       hx != k || xlo == nullptr || xhi == nullptr || bx < 2 * k)
     return static_cast<int>(cudaErrorInvalidValue);
-  return heat_h_launch(kHeatHBand, u, ztail, ytail, xlo, xhi, out, res, nx,
-                       ny, nz, bx, by, bz, ox, oy, oz, hx, hy, hz, k, 0,
-                       bx - k, k, 2, block_z, block_y, rows, k, a0, cx, cy,
-                       cz, stream);
+  return heat_h_launch(heat_h_pick(kHeatHBand, k, rows), false, u, ztail,
+                       ytail, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox,
+                       oy, oz, hx, hy, hz, k, 0, bx - k, k, 2, block_z,
+                       block_y, rows, k, a0, cx, cy, cz, stream);
 }
 
 extern "C" const char* heat_h_band_fix_3d_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return heat_h_error_string(code);
 }

@@ -15,8 +15,9 @@
 #include "heat_h.cuh"
 
 template <int K, int R>
-__global__ void __launch_bounds__(512) heat_h_block_3d_kernel(HEAT_H_PARAMS) {
-  heat_h_body<K, R, kHeatHCircular>(HEAT_H_ARGS);
+__global__ void __launch_bounds__(512)
+    heat_h_block_3d_kernel(HEAT_H_PARAMS) {
+  heat_h_body<K, R, kHeatHCircular>(HEAT_H_ARGS, nullptr);
 }
 
 static const HeatHKernel kHeatH[3][kHMaxK] =
@@ -37,12 +38,12 @@ extern "C" int heat_h_block_3d(const float* ext, float* out, uint32_t* res,
                                int hy, int hz, int k, int block_z,
                                int block_y, int rows, int64_t seg, float a0,
                                float cx, float cy, float cz, void* stream) {
-  return heat_h_launch(kHeatH, ext, nullptr, nullptr, nullptr, nullptr, out,
-                       res, nx, ny, nz, bx, by, bz, ox, oy, oz, hx, hy, hz, k,
-                       0, 0, bx, 1, block_z, block_y, rows, seg, a0, cx, cy,
-                       cz, stream);
+  return heat_h_launch(heat_h_pick(kHeatH, k, rows), false, ext, nullptr,
+                       nullptr, nullptr, nullptr, out, res, nx, ny, nz, bx,
+                       by, bz, ox, oy, oz, hx, hy, hz, k, 0, 0, bx, 1,
+                       block_z, block_y, rows, seg, a0, cx, cy, cz, stream);
 }
 
 extern "C" const char* heat_h_block_3d_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return heat_h_error_string(code);
 }

@@ -31,9 +31,17 @@
 // spreads one cell per level and never reaches the output tile; cells
 // outside the global interior are copied, never computed, and every step
 // rounds to float32 like a launch of heat_d_step3d.
+//
+// heat_t3d_stream_tma is the same loop with the input planes brought by
+// the Tensor Memory Accelerator: one thread asks for a plane's whole
+// extended tile, a box of the caller's tensor map, and an mbarrier per
+// ring slot says when it has landed, so no other thread issues a load or
+// computes an address for it (heat_h.cuh's fused kernel, on the tiles
+// that lie inside its block).
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
 #include <cuda_pipeline.h>
 
 #include "heat_common.cuh"
@@ -120,7 +128,7 @@ __device__ __forceinline__ void heat_t3d_stream(
     unsigned yz_in, unsigned out_rows, float* out, int64_t out_plane,
     int64_t out_col, int64_t out_row, float a0, float cx, float cy, float cz,
     uint32_t* res) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const int bz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
   const int ps = (wy + 2) * bz;              // a plane and its two pad rows
@@ -175,6 +183,206 @@ __device__ __forceinline__ void heat_t3d_stream(
     cur = cur + 1 == kFSlots ? 0 : cur + 1;
   }
   if (res != nullptr) heat_block_max(rmax, res);
+}
+
+// --- The Tensor Memory Accelerator and mbarriers (PTX for sm_90) --------
+
+__device__ __forceinline__ uint32_t heat_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void heat_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   heat_smem_addr(bar))
+               : "memory");
+}
+
+// One arrival that also expects `bytes` from the async proxy.
+__device__ __forceinline__ void heat_mbar_expect(uint64_t* bar,
+                                                 uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(heat_smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void heat_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   heat_smem_addr(bar))
+               : "memory");
+}
+
+// Until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void heat_mbar_wait(uint64_t* bar,
+                                               uint32_t parity) {
+  const uint32_t addr = heat_smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// The box of `map` at coordinates (c0, c1, c2), innermost first, into
+// shared memory at dst (128-byte aligned); its bytes complete on `bar`.
+// Cells outside the tensor arrive as zeros.
+__device__ __forceinline__ void heat_tma_load_3d(float* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int c0,
+                                                 int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(heat_smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(heat_smem_addr(bar)),
+      "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The TMA ring (heat_t3d_stream_tma): kTmaPrefetch planes in flight, one
+// box each, so fewer than cp.async's kFPrefetch, and its slots' layout.
+// A box starts at a z that is a multiple of 4 cells (16 bytes: TMA
+// faults on a box whose innermost start is not), so it is 4 cells wider
+// than the tile, and a row of a slot is row = wz + 4 floats; the tile's
+// first cell lies zoff = z0 % 4 cells into its row. A slot holds a lead
+// of at least one row, 128-byte aligned, so that the box lands aligned
+// and row 0's upper neighbour reads stay in the slot, the wy rows and a
+// bottom row for the last row's lower neighbours, rounded up to 128
+// bytes.
+constexpr int kTmaPrefetch = 4;
+constexpr int kTmaSlots = kTmaPrefetch + 2;
+
+struct HeatTmaPlane {
+  int row, lead, ps;  // floats
+};
+
+__host__ __device__ constexpr HeatTmaPlane heat_tma_plane(int wy, int wz) {
+  return {wz + 4, (wz + 4 + 31) / 32 * 32,
+          ((wz + 4 + 31) / 32 * 32 + (wy + 1) * (wz + 4) + 31) / 32 * 32};
+}
+
+// heat_t3d_stream with the input planes brought by TMA. Input plane t of
+// the caller's coordinates is the box of `map` at (z0 - z0 % 4, y0, t): a
+// (wz + 4) x wy box (blockDim.x + 4 by blockDim.y * R) of one plane,
+// zeros where it lies outside the tensor; it lands in its ring slot past
+// the slot's lead. The planes that the map does not hold come as in
+// heat_t3d_stream, from every thread's cp.async: `slab(dst, row, t)`
+// issues this thread's copies of plane t (row r's to dst + r * row) and
+// returns true, or returns false for a plane of the map. The step phase
+// is heat_t3d_stream's, heat_f_levels with the slots' row length, so the
+// bits are.
+//
+// Ordering. Slot s has one mbarrier, armed once per plane it receives:
+// by the box's bytes (a TMA plane) or by a plain arrival (a cp.async
+// plane, whose copies every thread waits for as before); a thread waits
+// on the slot of plane t with the parity of the slot's use, the lap of
+// the ring. A slot is refilled after the barrier that ends the last reads
+// of its old plane, and the leader's proxy fence orders those generic
+// reads (and any cp.async writes into the slot) before the async write.
+template <int K, int R, class Slab>
+__device__ __forceinline__ void heat_t3d_stream_tma(
+    const CUtensorMap* map, int z0, int y0, Slab slab, int64_t x0,
+    int64_t x1, int64_t gx, int64_t nx, unsigned yz_in, unsigned out_rows,
+    float* out, int64_t out_plane, int64_t out_col, int64_t out_row,
+    float a0, float cx, float cy, float cz, uint32_t* res) {
+  extern __shared__ __align__(128) float smem[];
+  const int wy = blockDim.y * R;             // extended tile rows
+  const HeatTmaPlane pl = heat_tma_plane(wy, blockDim.x);
+  const int row = pl.row, ps = pl.ps;
+  // kTmaSlots input planes from the first 128-byte boundary, the levels,
+  // then the slots' mbarriers (heat_t3d_tma_smem_bytes). An offset into
+  // smem, not an address rounded as an integer, so that the compiler
+  // still knows the ring for shared memory (LDS and STS, not generic
+  // loads and stores).
+  float* ring = smem + ((128 - (heat_smem_addr(smem) & 127)) & 127) / 4;
+  float* lev = ring + kTmaSlots * ps;        // levels 1 .. K-1, two each
+  uint64_t* full = reinterpret_cast<uint64_t*>(lev + 2 * (K - 1) * ps);
+  const int zoff = z0 & 3;
+  const int me = pl.lead + threadIdx.y * R * row + zoff + threadIdx.x;
+  const int64_t t0 = x0 - K, t1 = x1 + K;
+  const bool leader = threadIdx.x == 0 && threadIdx.y == 0;
+  const uint32_t box_bytes = static_cast<uint32_t>(sizeof(float) * wy * row);
+  if (leader) {
+    for (int i = 0; i < kTmaSlots; ++i) heat_mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto fetch = [&](int slot, int64_t t) {
+    float* plane = ring + slot * ps;
+    if (slab(plane + me, row, t)) {
+      if (leader) heat_mbar_arrive(&full[slot]);
+    } else if (leader) {
+      heat_mbar_expect(&full[slot], box_bytes);
+      heat_tma_load_3d(plane + pl.lead, map, &full[slot], z0 - zoff, y0,
+                       static_cast<int>(t));
+    }
+  };
+
+  // Input plane t0 + i lives in ring slot i % kTmaSlots.
+  for (int i = 0; i < kTmaPrefetch; ++i) {
+    if (t0 + i < t1) fetch(i, t0 + i);
+    __pipeline_commit();
+  }
+  float up[K][R], mid[K][R], down[K][R];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+#pragma unroll
+    for (int r = 0; r < R; ++r) up[s][r] = mid[s][r] = down[s][r] = 0.f;
+  uint32_t rmax = 0u;
+  int cur = 0;          // ring slot of plane t
+  uint32_t lap = 0u;    // parity of the ring's lap: of slot cur's use
+  for (int64_t t = t0; t < t1; ++t) {
+    // Plane t has landed, for every thread once past the barrier, which
+    // also ends the last iteration's reads of the slot refilled next.
+    __pipeline_wait_prior(kTmaPrefetch - 1);
+    heat_mbar_wait(&full[cur], lap);
+    __syncthreads();
+    const int prev = cur == 0 ? kTmaSlots - 1 : cur - 1;
+    if (t + kTmaPrefetch < t1) {
+      int next = cur + kTmaPrefetch;
+      if (next >= kTmaSlots) next -= kTmaSlots;
+      if (leader) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fetch(next, t + kTmaPrefetch);
+    }
+    __pipeline_commit();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      up[0][r] = mid[0][r];
+      mid[0][r] = down[0][r];
+      down[0][r] = ring[cur * ps + me + r * row];
+    }
+    float* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
+                          ? out + (t - K) * out_plane + out_col
+                          : nullptr;
+    const int par = static_cast<int>(t & 1);
+    const int64_t g = gx + t;
+    if (g - K >= 1 && g - 1 <= nx - 2)
+      heat_f_levels<K, R, true>(up, mid, down, ring + prev * ps + me, lev, ps,
+                                me, row, par, g, nx, yz_in, out_rows,
+                                out_cell, out_row, a0, cx, cy, cz, &rmax);
+    else
+      heat_f_levels<K, R, false>(up, mid, down, ring + prev * ps + me, lev,
+                                 ps, me, row, par, g, nx, yz_in, out_rows,
+                                 out_cell, out_row, a0, cx, cy, cz, &rmax);
+    if (++cur == kTmaSlots) {
+      cur = 0;
+      lap ^= 1u;
+    }
+  }
+  if (res != nullptr) heat_block_max(rmax, res);
+}
+
+// Dynamic shared memory of one heat_t3d_stream_tma block at depth k,
+// extended tile wy x wz: the planes, 128 bytes to align them, the
+// mbarriers.
+inline int heat_t3d_tma_smem_bytes(int k, int wy, int wz) {
+  return static_cast<int>(sizeof(float)) * (kTmaSlots + 2 * (k - 1)) *
+             heat_tma_plane(wy, wz).ps +
+         128 + static_cast<int>(sizeof(uint64_t)) * kTmaSlots;
 }
 
 // Dynamic shared memory of one block at depth k, extended tile wy x bz.

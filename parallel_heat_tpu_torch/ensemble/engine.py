@@ -138,7 +138,10 @@ def _converge_dispatch(msr, keeps_input: bool, ci: int, eps: float,
         new.copy_(torch.where(done.view(mask_shape), old, new))
         res = torch.where(done, res, r)
         steps_at = torch.where(done, steps_at, k)
-        done = done | (r < eps)
+        # Done once the residual is not above eps: a NaN stops the member
+        # as it stops the solo loop (``while res >= eps``); whether it
+        # converged is ``res < eps``, read where the member parks.
+        done = done | ~(r >= eps)
         u, v = new, spare
     return u, v, done, res, steps_at, k
 
@@ -374,13 +377,15 @@ class EnsembleSolver:
             done_h = np.zeros(B, bool)
             res_h = np.full(B, np.inf, np.float64)
             steps_h = np.full(B, k0, np.int64)
-        # Members already done on entry are parked at once (a resumed
-        # ensemble must not advance finished members).
-        if done_h.any():
-            for i in np.where(done_h)[0]:
+        # Members converged on entry are parked at once (a resumed
+        # ensemble must not advance finished members); diverged ones ride
+        # along frozen, as in the run that saved the state.
+        conv_h = done_h & (res_h < eps)
+        if conv_h.any():
+            for i in np.where(conv_h)[0]:
                 parked[int(i)] = (u[int(i)].clone(), int(steps_h[i]),
                                   float(res_h[i]), True)
-            order = [int(i) for i in np.where(~done_h)[0]]
+            order = [int(i) for i in np.where(~conv_h)[0]]
             if order:
                 u = u[torch.as_tensor(order, device=dev)]
         v = torch.empty_like(u)
@@ -406,7 +411,8 @@ class EnsembleSolver:
             """The in-batch verdict state of the current `order`. Frozen
             members ride along (masked update) until a compaction parks
             them."""
-            return (torch.zeros(len(order), dtype=torch.bool, device=dev),
+            return (torch.tensor([bool(done_h[i]) for i in order],
+                                 dtype=torch.bool, device=dev),
                     torch.tensor([res_h[i] for i in order],
                                  dtype=torch.float32, device=dev),
                     torch.tensor([steps_h[i] for i in order],
@@ -448,13 +454,14 @@ class EnsembleSolver:
                     order=tuple(order)))
             if live == 0:
                 break
-            if thresh is not None and live < cur_B and \
-                    live / cur_B < thresh:
-                # Compaction: park finished members, keep the live ones
-                # in a smaller batch. Member trajectories are invariant
-                # to this (masked freeze against physical removal).
-                live_pos = [int(p) for p in np.where(~done)[0]]
-                for pos in np.where(done)[0]:
+            conv = done & (res_w < eps)
+            if thresh is not None and conv.any() and live / cur_B < thresh:
+                # Compaction: park converged members, keep the others in
+                # a smaller batch. Member trajectories are invariant to
+                # this (masked freeze against physical removal). A
+                # diverged member stays, frozen, for the drain's tail.
+                live_pos = [int(p) for p in np.where(~conv)[0]]
+                for pos in np.where(conv)[0]:
                     parked[order[int(pos)]] = (
                         u[int(pos)].clone(), int(steps_w[pos]),
                         float(res_w[pos]), True)
@@ -466,27 +473,30 @@ class EnsembleSolver:
                 done_d, res_d, steps_d = verdicts_to_device()
 
         # Drain the batch: converged members park with their latched
-        # verdicts; the rest run the rem leftover steps past the last
-        # full window (the solo loop's uninspected tail) and park
+        # verdicts; the rest run the rem leftover steps past their last
+        # window (the solo loop's uninspected tail: past the last full
+        # window, or past the window whose residual was NaN) and park
         # unconverged.
         if order:
-            done = np.array([done_h[i] for i in order])
-            # The tail applies only to members that ran out of full
-            # windows without converging, and only when this call reached
-            # the end of the window budget (a resumed, already complete
-            # state must not run it again).
-            if rem > 0 and k < total and not done.all():
+            conv = np.array([bool(done_h[i]) and res_h[i] < eps
+                             for i in order])
+            # The tail applies only to members that stopped without
+            # converging, and only when this call reached the end of the
+            # window budget (a resumed, already complete state must not
+            # run it again).
+            if rem > 0 and k < total and not conv.all():
                 old = u if keeps_input else u.clone()
                 new, _ = ms(u, v, rem)
-                keep = torch.as_tensor(done, device=dev).view(
+                keep = torch.as_tensor(conv, device=dev).view(
                     (-1,) + (1,) * config.ndim)
                 u = torch.where(keep, old, new)
-                for orig in (o for pos, o in enumerate(order)
-                             if not done[pos]):
-                    steps_h[orig] = full_steps + rem
+                for pos, orig in enumerate(order):
+                    if not conv[pos]:
+                        steps_h[orig] = (steps_h[orig] if done_h[orig]
+                                         else full_steps) + rem
             for pos, orig in enumerate(order):
                 parked[orig] = (u[pos], int(steps_h[orig]),
-                                float(res_h[orig]), bool(done_h[orig]))
+                                float(res_h[orig]), bool(conv[pos]))
 
         grids = torch.stack([parked[i][0] for i in range(B)])
         steps_run = np.array([parked[i][1] for i in range(B)], np.int64)

@@ -1,12 +1,18 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
+``python -m parallel_heat_tpu_torch.kernels.build [NAME ...]`` builds the
+named kernels (all by default) and prints ptxas's report of each template
+instance, by name: registers, spill stores and loads, stack and static
+shared memory (:func:`ptxas_report`).
+
 Each source under ``csrc/`` is compiled on first use, by one
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 call, into a shared library with a plain C interface under
 ``parallel_heat_tpu_torch/build/`` (listed in ``.gitignore``). The file
 name carries a digest of the sources and flags, so an edited source is
-rebuilt and never mixed with a stale library. :func:`build` starts one
-nvcc per missing library, all at once, and waits for all of them.
+rebuilt and never mixed with a stale library; nvcc's report is kept
+beside it (:func:`build_log`). :func:`build` starts one nvcc per missing
+library, all at once, and waits for all of them.
 
 There is no fallback: when nvcc is missing or a source does not
 compile, :class:`BuildError` carries nvcc's stderr to the caller.
@@ -18,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -91,12 +98,13 @@ KERNELS = {
                         [_P] * 6 + [_I64] * 6 + [_I32] * 4 + [_F32] * 3
                         + [_P]),
     # The sharded 3D block kernels (csrc/heat_h.cuh): grid, block and
-    # origin (9 int64), then halos, (defer_x,) k, thread block and rows.
+    # origin (9 int64), then halos, (defer_x, tma,) k, thread block and
+    # rows.
     "heat_h_block_3d": ("heat_h_block_3d.cu",
                         [_P] * 3 + [_I64] * 9 + [_I32] * 7 + [_I64]
                         + [_F32] * 4 + [_P]),
     "heat_h_block_3d_fused": ("heat_h_block_3d_fused.cu",
-                              [_P] * 7 + [_I64] * 9 + [_I32] * 8 + [_I64]
+                              [_P] * 7 + [_I64] * 9 + [_I32] * 9 + [_I64]
                               + [_F32] * 4 + [_P]),
     "heat_h_band_fix_3d": ("heat_h_band_fix_3d.cu",
                            [_P] * 7 + [_I64] * 9 + [_I32] * 7 + [_F32] * 4
@@ -105,12 +113,74 @@ KERNELS = {
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
            "heat_g.cuh", "heat_temporal3d.cuh", "heat_h.cuh")
 
-# nvcc's stderr of each build in this process (ptxas register and
-# shared-memory report), by kernel name.
+# nvcc's output of each build in this process (ptxas register and
+# shared-memory report), by kernel name; also written beside the library.
 BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+# A ptxas report line ("-Xptxas -v"), and a template instance's mangled
+# name: _Z<len><name>I<args>E... with args L<type><value>E.
+_PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(_Z\w+)'?")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                         r"(?:, (\d+) bytes smem)?")
+_TEMPLATE_ARG = re.compile(r"L([a-z])(n?\d+)E")
+
+
+def demangle(symbol: str) -> str:
+    """``name<a, b, ...>`` of a mangled function template instance whose
+    arguments are integers or booleans (``_Z29heat_..._kernelILi3ELi2ELb1EE``
+    gives ``heat_..._kernel<3, 2, true>``); the symbol itself when it is
+    not one."""
+    m = re.match(r"_Z(\d+)", symbol)
+    if m is None:
+        return symbol
+    start = m.end()
+    name = symbol[start:start + int(m.group(1))]
+    rest = symbol[start + len(name):]
+    if not rest.startswith("I"):
+        return name
+    args, pos = [], 1
+    while True:
+        a = _TEMPLATE_ARG.match(rest, pos)
+        if a is None:
+            break
+        kind, value = a.group(1), a.group(2).replace("n", "-")
+        args.append(("true" if value == "1" else "false") if kind == "b"
+                    else value)
+        pos = a.end()
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_report(log: str):
+    """Per kernel instance of one nvcc log (``-Xptxas -v``): ``{"instance":
+    demangled name, "registers", "spill_stores", "spill_loads",
+    "stack_bytes", "smem_bytes"}`` (bytes; smem the static shared
+    memory), in the order ptxas reports them."""
+    rows, cur = {}, None
+    for line in log.splitlines():
+        e = _PTXAS_ENTRY.search(line)
+        if e is not None:
+            cur = rows.setdefault(e.group(1), {"instance": demangle(
+                e.group(1))})
+            continue
+        if cur is None:
+            continue
+        s = _PTXAS_SPILL.search(line)
+        if s is not None:
+            cur.update(stack_bytes=int(s.group(1)),
+                       spill_stores=int(s.group(2)),
+                       spill_loads=int(s.group(3)))
+        u = _PTXAS_USED.search(line)
+        if u is not None:
+            cur.update(registers=int(u.group(1)),
+                       smem_bytes=int(u.group(2) or 0))
+    return list(rows.values())
 
 
 class BuildError(RuntimeError):
@@ -134,6 +204,16 @@ def library_path(name: str) -> Path:
     for f in (source,) + _COMMON:
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas's report) of the build of kernel ``name``'s
+    current library, from this process or from the file an earlier build
+    left beside the library; "" when neither has it."""
+    if name in BUILD_LOG:
+        return BUILD_LOG[name]
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(*names: str) -> Dict[str, Path]:
@@ -164,6 +244,7 @@ def build(*names: str) -> Dict[str, Path]:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n"
                               f"{err}")
             else:
+                paths[name].with_suffix(".log").write_text(out + err)
                 os.replace(tmp, paths[name])
         if failed:
             raise BuildError("\n".join(failed))
@@ -194,3 +275,23 @@ def load(name: str) -> ctypes.CDLL:
             err.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def main(argv=None) -> int:
+    import json
+    import sys
+
+    names = tuple(sys.argv[1:] if argv is None else argv)
+    for name in names or tuple(KERNELS):
+        if name not in KERNELS:
+            raise SystemExit(f"unknown kernel {name!r}; one of {list(KERNELS)}")
+    for name, path in build(*names).items():
+        rows = ptxas_report(build_log(name))
+        print(json.dumps({"kernel": name, "library": path.name,
+                          "instances": rows or "no report kept"}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
+

@@ -164,21 +164,31 @@ class HopperParams:
     # h_block = (along Z, along Y) threads, h_rows rows a thread, depth
     # h_k_default, X segments of about h_waves blocks per SM but not below
     # h_seg_planes_min planes. The prefetch is F's (f_prefetch, the step
-    # phase's compiled kFPrefetch), K is compiled for 1 .. h_k_compiled,
-    # rows for 1, 2 and 4. The sweep
-    # bench_kernels --only h (H-fused's deferred bulk at the 512^3 block
-    # of 1024^3 on a (2, 2, 2) mesh, H100 80GB HBM3 at 700 W) found 32 x 16
-    # threads of 2 rows at K = 3 fastest per step, 1.1745 ms a launch
-    # (0.392 ms a step), against 1.2106 at F's 64 x 8 of 4 rows; K = 4
-    # 0.392 a step, K = 2 and 5 and up slower; segments of 64 to 171
-    # planes within 2%, 512 23% slower. A 32-wide tile leaves more tiles
-    # wholly inside the block, which load as F does (81% against 70%).
+    # phase's compiled kFPrefetch) for the cp.async load, h_tma_prefetch
+    # for the TMA load; K is compiled for 1 .. h_k_compiled, rows for 1,
+    # 2 and 4. The sweep bench_kernels --only h (H-fused's deferred bulk
+    # at the 512^3 block of 1024^3 on a (2, 2, 2) mesh, the TMA load where
+    # the geometry takes it, H100 80GB HBM3 at 700 W) found 32 x 16
+    # threads of 4 rows at K = 3 fastest per step, 1.0345 ms a launch
+    # (0.3448 ms a step), against 1.1354 at 32 x 16 of 2 rows (cp.async;
+    # 1.1745 while edge tiles chose a piece per cell); 64 x 8 of 4 rows
+    # 0.3490 a step, K = 2 and 4 0.3796 and 0.3676; segments of 64 to 128
+    # planes within 2%, 512 42% slower. With each edge row's piece fixed
+    # for the run, the taller tile (26 x 58 output cells of 32 x 64) pays.
     h_block: tuple = (32, 16)
-    h_rows: int = 2
+    h_rows: int = 4
     h_k_default: int = 3
     h_k_compiled: int = 8
     h_waves: int = 8
     h_seg_planes_min: int = 64
+    # H-fused's TMA plane load (chosen): h_tma_prefetch boxes in flight
+    # (csrc/heat_temporal3d.cuh's kTmaPrefetch must equal it), each 4
+    # cells wider than the extended tile, since a box starts at a z that
+    # is a multiple of 4 cells (h_tma_smem_bytes has the layout); its
+    # instances are compiled at h_tma_rows rows a thread only
+    # (csrc/heat_h.cuh's kHTmaRows must equal it).
+    h_tma_prefetch: int = 4
+    h_tma_rows: int = 4
 
     # --- kernels heat_mg_restrict and heat_mg_prolong (chosen) ------------
     # One output cell a thread; a warp takes 32 neighbouring columns.
@@ -294,10 +304,68 @@ class HopperParams:
         wy, wz = self.f_extent(block, rows)
         k = 0
         while (k + 1 <= self.h_k_compiled and 2 * (k + 1) < min(wy, wz)
-               and self.f_smem_bytes(k + 1, block, rows)
+               and max(self.f_smem_bytes(k + 1, block, rows),
+                       self.h_tma_smem_bytes(k + 1, block, rows))
                + self.static_smem_bytes <= self.smem_per_block_max):
             k += 1
         return k
+
+    def h_tma_smem_bytes(self, k: int, block=None, rows=None) -> int:
+        """Dynamic shared memory of one H-fused block at depth ``k`` under
+        the TMA load (csrc/heat_temporal3d.cuh heat_t3d_tma_smem_bytes):
+        h_tma_prefetch + 2 input planes and two planes for each level
+        1 .. K-1, each a lead of at least one row and 128-byte aligned,
+        the tile's rows of wz + 4 cells and a bottom row, rounded up to
+        128 bytes; 128 bytes of alignment and one 8-byte mbarrier a
+        slot."""
+        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+        row = wz + 4
+        lead = -(-row // 32) * 32
+        plane = -(-(lead + (wy + 1) * row) // 32) * 32
+        slots = self.h_tma_prefetch + 2
+        return 4 * (slots + 2 * (k - 1)) * plane + 128 + 8 * slots
+
+    def h_tma_fits(self, block_shape, k: int, block=None,
+                   rows=None) -> bool:
+        """Do the tiles inside a ``(bx, by, bz)`` block take H-fused's TMA
+        plane load at depth ``k``? TMA copies rows of a multiple of 16
+        bytes, so ``bz % 4 == 0``; its instances take ``h_tma_rows`` rows
+        a thread; and at least one tile must lie inside the block
+        (:meth:`h_tiles`), or no tile would run it. Elsewhere the tiles
+        take the per-cell cp.async load. ``csrc/heat_h.cuh``
+        ``heat_h_tma_fits`` is the same rule, with the block's address a
+        multiple of 16 bytes."""
+        _, by, bz = block_shape
+        wy, wz = self.h_tma_box(block, rows)
+        return (bz % 4 == 0 and (rows or self.h_rows) == self.h_tma_rows
+                and bz >= wz and wz <= 256
+                and self.h_tiles(block_shape, k, block, rows)[0] > 0)
+
+    def h_tiles(self, block_shape, k: int, block=None, rows=None):
+        """``(interior, edge)``: the (Y, Z) tiles of an H launch at depth
+        ``k`` on a ``(bx, by, bz)`` block whose extended tile lies inside
+        the block, and the others (csrc/heat_h.cuh's split). Tile ``t``
+        of width ``w`` (extended) covers ``[t (w - 2k) - k, ... + w)``,
+        so tile 0 never lies inside; at the defaults and K = 3 a block
+        holds one from 2w - 3K cells on, 119 x 55 (Y, Z)."""
+        _, by, bz = block_shape
+        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+
+        def inside(n, w):
+            tiles = -(-n // (w - 2 * k))
+            return tiles, sum(1 for t in range(1, tiles)
+                              if t * (w - 2 * k) - k >= 0
+                              and t * (w - 2 * k) - k + w <= n)
+
+        (ny, iy), (nz, iz) = inside(by, wy), inside(bz, wz)
+        return iy * iz, ny * nz - iy * iz
+
+    def h_tma_box(self, block=None, rows=None):
+        """The TMA load's box ``(rows along Y, cells along Z)``: the
+        extended tile, 4 cells wider, since a box starts at a z that is a
+        multiple of 4 cells."""
+        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+        return wy, wz + 4
 
     def h_launch(self, block_shape, k, planes, block=None, rows=None) -> int:
         """The X segment of an H launch at depth ``k`` over ``planes``

@@ -16,7 +16,9 @@ package:
   the x slabs ``xlo``/``xhi`` ``(k, by + 2hy, bz + 2hz)`` (y and z in the
   circular order ``[u | hi | lo]``) as separate operands, None for an
   unsharded axis; with ``defer_x``, the deferred bulk of the overlapped
-  round: planes ``[k, bx - k)`` only, no x slab read;
+  round: planes ``[k, bx - k)`` only, no x slab read. Its tiles inside
+  the block load u's planes by TMA where the geometry allows it
+  (:func:`h_load`), by a cp.async per cell elsewhere;
 - :func:`h_block` launches ``heat_h_block_3d``, the counterpart of
   ``heat_h_block_3d``: one assembled circular block ``(bx + 2hx,
   by + 2hy, bz + 2hz)``, x in the order ``[lo | u | hi]``;
@@ -64,6 +66,18 @@ H_KINDS = ("H-fused", "H", "H-defer", "torch")
 KERNEL_OF = {"H-fused": "heat_h_block_3d_fused", "H": "heat_h_block_3d",
              "H-defer": "heat_h_block_3d_fused"}
 BAND = "heat_h_band_fix_3d"
+LOADS = ("tma", "cp.async")
+
+
+def h_load(block_shape, k: int, u: Optional[torch.Tensor] = None) -> str:
+    """The plane load of H-fused's tiles inside a ``block_shape`` block
+    (of ``u``, when given) at depth ``k``: ``"tma"`` where
+    :meth:`~.hopper_params.HopperParams.h_tma_fits` holds and u's address
+    is a multiple of 16 bytes, else ``"cp.async"``. Geometry alone
+    decides; the launch refuses TMA elsewhere and nothing falls back."""
+    fits = params().h_tma_fits(tuple(block_shape), k)
+    return ("tma" if fits and (u is None or u.data_ptr() % 16 == 0)
+            else "cp.async")
 
 
 def halos_of(block_shape, grid_shape, k: int):
@@ -258,9 +272,10 @@ def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
             cy, cz, mid, geometry):
     """Launch kernel ``name`` on ``args`` (its leading pointers) into
     ``out``; ``mid`` the int arguments between the origin and k (halos,
-    and defer_x for the fused form), ``geometry`` those after k (thread
-    block, rows per thread and, but for the band, the X segment). Checks
-    nothing; counts the launch. Returns the residual view or None."""
+    and defer_x and tma for the fused form), ``geometry`` those after k
+    (thread block, rows per thread and, but for the band, the X
+    segment). Checks nothing; counts the launch. Returns the residual
+    view or None."""
     from parallel_heat_tpu_torch.kernels.build import load
 
     lib = load(name)
@@ -273,6 +288,27 @@ def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
     _raise_on_error(lib, name, code)
     counts[name] += 1
     return _residual_view(bits) if bits is not None else None
+
+
+def h_fused_occupancy(k: int, load: str, block=None, rows=None) -> int:
+    """Thread blocks of H-fused's ``(k, rows, load)`` instance that one SM
+    of the current card holds at once (the CUDA occupancy calculator at
+    the launch's shared memory); builds the kernel if needed."""
+    import ctypes
+
+    from parallel_heat_tpu_torch.kernels.build import load as load_lib
+
+    p = params()
+    (bz, by), rows = block or p.h_block, rows or p.h_rows
+    lib = load_lib("heat_h_block_3d_fused")
+    fn = lib.heat_h_block_3d_fused_occupancy
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    _raise_on_error(lib, "heat_h_block_3d_fused",
+                    fn(k, rows, int(load == "tma"), bz, by,
+                       ctypes.addressof(blocks)))
+    return blocks.value
 
 
 def _geometry(block_shape, k, planes, segment=True):
@@ -304,13 +340,16 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
                   ytail: Optional[torch.Tensor], xlo: Optional[torch.Tensor],
                   xhi: Optional[torch.Tensor], out: torch.Tensor, k: int,
                   with_residual: bool = True, *, defer_x: bool = False,
-                  origin, grid_shape, cx: float, cy: float,
-                  cz: float) -> Optional[torch.Tensor]:
+                  load: Optional[str] = None, origin, grid_shape, cx: float,
+                  cy: float, cz: float) -> Optional[torch.Tensor]:
     """Kernel H-fused: ``k`` steps of block ``u`` ``(bx, by, bz)`` into
     ``out`` from its pieces (a piece of an unsharded axis is None); the
     residual (0-d float32) or None. With ``defer_x``, the deferred bulk:
     planes ``[k, bx - k)`` of ``out`` and their residual only, reading no
-    x slab (give None for both); ``bx`` must be at least ``2k``."""
+    x slab (give None for both); ``bx`` must be at least ``2k``. ``load``
+    (one of :data:`LOADS`) pins the plane load of the tiles inside the
+    block, which :func:`h_load` chooses by default; ``"tma"`` where the
+    geometry refuses it raises. Both loads give the same bits."""
     halos = halos_of(u.shape, grid_shape, k)
     _check_block(out, k, origin, grid_shape,
                  _pieces(out, u, ztail, ytail, xlo, xhi, k, halos,
@@ -319,6 +358,18 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
     if defer_x and bx < 2 * k:
         raise ValueError(f"the deferred bulk needs at least 2k = {2 * k} "
                          f"x-planes, got a block of {bx}")
+    fits = h_load(u.shape, k, u)
+    if load is None:
+        load = fits
+    elif load not in LOADS:
+        raise ValueError(f"load must be one of {LOADS}, got {load!r}")
+    elif load == "tma" and fits != "tma":
+        p = params()
+        raise ValueError(
+            f"the TMA load needs bz % 4 == 0, {p.h_tma_rows} rows a thread, "
+            f"a tile inside the block at K={k} (extended tile "
+            f"{p.f_extent(p.h_block, p.h_rows)} (Y, Z)) and a 16-byte "
+            f"aligned block; got a block of {tuple(u.shape)}")
     if out.device.type == "cpu":
         return h_block_fused_plain(u, ztail, ytail, xlo, xhi, out, k,
                                    with_residual, defer_x=defer_x,
@@ -331,7 +382,8 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
     planes = bx - 2 * k if defer_x else bx
     return _launch("heat_h_block_3d_fused", (u, ztail, ytail, xlo, xhi), out,
                    k, with_residual, origin=origin, grid_shape=grid_shape,
-                   cx=cx, cy=cy, cz=cz, mid=halos + (int(defer_x),),
+                   cx=cx, cy=cy, cz=cz,
+                   mid=halos + (int(defer_x), int(load == "tma")),
                    geometry=_geometry(out.shape, k, planes))
 
 
@@ -388,8 +440,11 @@ def pick_block_temporal_3d(block_shape, k: int):
             f"tune[block_temporal_3d]: choice {choice!r} is infeasible for "
             f"blocks {tuple(block_shape)} at K={k} (K must be in [1, "
             f"{p.h_k_max()}] and at most the smallest block extent)")
-    return choice, {"k": k, "block": p.h_block, "rows": p.h_rows,
-                    "kernel": KERNEL_OF[choice]}
+    detail = {"k": k, "block": p.h_block, "rows": p.h_rows,
+              "kernel": KERNEL_OF[choice]}
+    if choice != "H":
+        detail["load"] = h_load(block_shape, k)
+    return choice, detail
 
 
 def pick_block_temporal_3d_deferred(kind: str, block_shape, mesh_shape,

@@ -484,6 +484,7 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
     """The sharded 3D path's round (the counterpart of the JAX package's
     kernel-H report, ``solver.py:823-846``)."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
 
     bs = res.block_shape()
     kind, detail = skb3.pick_block_temporal_3d(bs, k)
@@ -513,9 +514,22 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
         round_ = (f"monolithic round: {detail['kernel']}, pieces gathered "
                   f"in the kernel; {why}")
     bz, by = detail["block"]
+    load = ""
+    if "load" in detail:
+        hp = params()
+        wy, wz = hp.h_tma_box(detail["block"], detail["rows"])
+        ty, tz = hp.f_extent(detail["block"], detail["rows"])
+        least = f"{2 * ty - 3 * k}x{max(2 * tz - 3 * k, wz)}"
+        load = (f", tiles inside the block load by TMA (one {wy}x{wz} "
+                f"(Y, Z) box a plane; bz % 4 == 0 and a tile inside the "
+                f"block)" if detail["load"] == "tma"
+                else f", tiles inside the block load by cp.async per cell "
+                f"(TMA needs bz % 4 == 0 and a block of at least {least} "
+                f"(Y, Z) cells at K={k}, which holds a tile, got "
+                f"{bs[1]}x{bs[2]})")
     out["path"] = (f"kernel {kind} ({round_}), K-deep 3D rounds K={k}, "
                    f"halos={halos}, block={bz}x{by} threads of "
-                   f"{detail['rows']} rows" + plain)
+                   f"{detail['rows']} rows{load}" + plain)
     return out
 
 

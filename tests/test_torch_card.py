@@ -488,9 +488,11 @@ def test_sharded_solve_on_the_card_matches_one_block_bitwise(card, cfg):
 # The sharded 3D block kernels (H family) and the sharded 3D path
 # ---------------------------------------------------------------------------
 
+# (40, 128, 128) holds tiles inside it (the TMA load) at every K.
 H_CASES = [((2, 2, 2), (64, 64, 64), 3), ((3, 3, 3), (37, 45, 80), 8),
            ((2, 4, 1), (40, 33, 97), 1), ((1, 2, 2), (50, 30, 40), 5),
-           ((2, 2, 2), (6, 50, 70), 3)]
+           ((2, 2, 2), (6, 50, 70), 3), ((2, 2, 2), (40, 128, 128), 3),
+           ((2, 2, 2), (40, 128, 128), 1)]
 
 
 @pytest.mark.parametrize("coeffs", [(0.1, 0.1, 0.1), (0.1, 0.15, 0.05)])
@@ -514,11 +516,16 @@ def test_h_kernels_bitwise_plain_each_other_and_f(card, mesh_shape, block, k,
         o = mesh.origin(b, block)
         kw = dict(origin=o, grid_shape=grid, **kw3)
         want = f_out[tuple(slice(a, a + n) for a, n in zip(o, block))]
-        got, ref = (torch.empty(block, device=card) for _ in range(2))
-        r = skb3.h_block_fused(us[b], *pieces[b], got, k, **kw)
+        ref = torch.empty(block, device=card)
         rp = skb3.h_block_fused_plain(us[b], *pieces[b], ref, k, **kw)
-        assert torch.equal(got, ref) and torch.equal(r, rp)
-        assert torch.equal(got, want)
+        # H-fused under each load the geometry takes (skb3.h_load).
+        for load in dict.fromkeys(("cp.async",
+                                   skb3.h_load(block, k, us[b]))):
+            got = torch.empty(block, device=card)
+            r = skb3.h_block_fused(us[b], *pieces[b], got, k, load=load,
+                                   **kw)
+            assert torch.equal(got, ref) and torch.equal(r, rp), load
+            assert torch.equal(got, want), load
         h, hp = (torch.empty(block, device=card) for _ in range(2))
         rh = skb3.h_block(circ[b], h, k, **kw)
         rhp = skb3.h_block_plain(circ[b], hp, k, **kw)

@@ -359,3 +359,135 @@ def test_packable_verdicts():
     assert not ok and "no member-bitwise batched twin" in reason
     ok, reason = packable(HeatConfig(nx=2))
     assert not ok and reason.startswith("invalid config")
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_diverging_member_stops_where_its_solo_solve_stops(backend):
+    # cx + cy = 0.8 is past the explicit scheme's stability bound, so the
+    # plate's member diverges and its residual turns NaN; its solo solve()
+    # stops at that window (``while res >= eps``). The zero member and the
+    # 1e-30 one converge in the first window. Each member is held to the
+    # JAX package's solo solve(), not to its ensemble, which runs the
+    # diverged member on to the end: steps_run and converged to the solo
+    # run on the same path, a finite grid to the jnp solo run. A diverged
+    # grid is inf and NaN wherever the blow-up got first, by each path's
+    # own roundings (the Pallas kernel in interpret mode lets XLA:CPU
+    # contract multiply-adds, kernel M's plain version factors the
+    # combine): there only its Dirichlet ring is held to JAX's, and the
+    # grid is held bitwise to the port's solo run on the same path.
+    kw = dict(nx=20, ny=20, cx=0.4, cy=0.4, steps=300, converge=True)
+    jcfg = jx.HeatConfig(backend={"torch": "jnp", "cuda": "pallas"}[backend],
+                         **kw)
+    cfg = convert.from_jax(dataclasses.asdict(jcfg), None, device="cpu")[0]
+    base = EnsembleSolver(cfg, 1).initial_grids()[0].numpy()
+    inits = np.stack([base * np.float32(s) for s in (1.0, 0.0, 1e-30)])
+    with pytest.warns(RuntimeWarning, match="diverged"):
+        got = EnsembleSolver(cfg, 3).solve(initials=inits)
+    assert ensemble_path(cfg) == {"torch": "vmap", "cuda": "M"}[backend]
+    for i in range(3):
+        want = jx.solve(jcfg, initial=inits[i])
+        textbook = jx.solve(jcfg.replace(backend="jnp"), initial=inits[i])
+        solo = solve(cfg, initial=inits[i])
+        assert int(got.steps_run[i]) == want.steps_run == solo.steps_run, i
+        assert want.steps_run == textbook.steps_run, i
+        assert bool(got.converged[i]) == bool(want.converged), i
+        assert bool(got.converged[i]) == solo.converged, i
+        ref = np.asarray(textbook.grid)
+        if np.isfinite(ref).all():
+            np.testing.assert_allclose(got.grids[i].numpy(), ref,
+                                       **GRID_TOL)
+        else:
+            assert not np.isfinite(got.grids[i].numpy()).all(), i
+            _assert_ring_exact(got.grids[i].numpy()[None], ref[None])
+        assert np.array_equal(got.grids[i].numpy(), solo.grid.numpy(),
+                              equal_nan=True), i
+    assert got.steps_run.tolist()[0] < 300
+    assert got.converged.tolist() == [False, True, True]
+    assert np.isnan(got.residual[0])
+
+
+# Five members of the unstable 20^2 plate (cx + cy = 0.8), checked every
+# 10 steps of 305: the plate scaled 1e12, 1 and 1e6 diverge (their
+# residuals turn NaN at steps 100, 140 and 120), 0 and 1e-30 converge at
+# step 10. Under compact_threshold 0.5 the first compaction comes at step
+# 100, when member 0 has just latched on its NaN: it parks the two
+# converged members and keeps member 0, diverged, in the batch beside
+# the two live ones.
+DIVERGE_SCALES = (1e12, 1.0, 0.0, 1e-30, 1e6)
+
+
+def _diverging(backend):
+    cfg = HeatConfig(nx=20, ny=20, cx=0.4, cy=0.4, steps=305, converge=True,
+                     check_interval=10, backend=backend, device="cpu")
+    base = EnsembleSolver(cfg, 1).initial_grids()[0].numpy()
+    inits = np.stack([base * np.float32(s) for s in DIVERGE_SCALES])
+    ens = EnsembleConfig(members=len(DIVERGE_SCALES), window_rounds=1,
+                         compact_threshold=0.5)
+    return cfg, inits, ens
+
+
+def _assert_members_are_solo_runs(cfg, inits, got):
+    for i, init in enumerate(inits):
+        solo = solve(cfg, initial=init)
+        assert int(got.steps_run[i]) == solo.steps_run, i
+        assert bool(got.converged[i]) == solo.converged, i
+        assert np.array_equal(got.grids[i].numpy(), solo.grid.numpy(),
+                              equal_nan=True), i
+
+
+def _assert_same_run(a, b):
+    assert np.array_equal(a.grids.numpy(), b.grids.numpy(), equal_nan=True)
+    assert a.steps_run.tolist() == b.steps_run.tolist()
+    assert a.converged.tolist() == b.converged.tolist()
+    assert np.array_equal(a.residual, b.residual, equal_nan=True)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_diverged_member_at_a_compaction_stops_where_its_solo_solve_stops(
+        backend):
+    cfg, inits, ens = _diverging(backend)
+    seen = []
+    with pytest.warns(RuntimeWarning, match="diverged"):
+        got = EnsembleSolver(cfg, ens).solve(
+            initials=inits, on_boundary=lambda b: seen.append(
+                (b.step, b.batch, b.order)))
+    # The compaction at step 100 kept member 0, latched on its NaN, in a
+    # batch of three.
+    assert got.compactions == [(100, 5, 3)]
+    assert (110, 3, (0, 1, 4)) in seen
+    assert got.steps_run.tolist() == [105, 145, 10, 10, 125]
+    assert got.converged.tolist() == [False, False, True, True, False]
+    _assert_members_are_solo_runs(cfg, inits, got)
+    # Compaction changes no member's run.
+    with pytest.warns(RuntimeWarning, match="diverged"):
+        flat = EnsembleSolver(cfg, dataclasses.replace(
+            ens, compact_threshold=None)).solve(initials=inits)
+    assert flat.compactions == []
+    _assert_same_run(got, flat)
+
+
+@pytest.mark.parametrize("at", [100, 110], ids=["at-nan", "past-compaction"])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_resume_after_a_member_diverged_is_bitwise(backend, at):
+    # A state saved at the boundary of member 0's NaN window (before the
+    # compaction that follows it), or one window on, when member 0 rides
+    # diverged in the compacted batch: the resumed run is the whole
+    # run, and each member its solo solve().
+    cfg, inits, ens = _diverging(backend)
+    with pytest.warns(RuntimeWarning, match="diverged"):
+        whole = EnsembleSolver(cfg, ens).solve(initials=inits)
+
+    def stop(boundary):
+        if boundary.step == at:
+            raise EnsembleInterrupted("deadline", boundary.assemble())
+
+    with pytest.raises(EnsembleInterrupted) as caught:
+        EnsembleSolver(cfg, ens).solve(initials=inits, on_boundary=stop)
+    state = caught.value.state
+    assert state["k"] == at
+    assert state["done"].tolist() == [True, False, True, True, False]
+    assert np.isnan(state["res"][0])
+    with pytest.warns(RuntimeWarning, match="diverged"):
+        resumed = EnsembleSolver(cfg, ens).solve(state=state)
+    _assert_same_run(resumed, whole)
+    _assert_members_are_solo_runs(cfg, inits, resumed)

@@ -21,15 +21,18 @@ XLA:CPU may contract multiply-adds into FMAs, where the port rounds every
 operation. The Dirichlet cells of a block are held bit-exact.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from parallel_heat_tpu.ops import pallas_stencil as ps
-from parallel_heat_tpu_torch import tune
+from parallel_heat_tpu_torch import HeatConfig, explain, tune
 from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
 from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+from parallel_heat_tpu_torch.ops.hopper_params import params
 from parallel_heat_tpu_torch.parallel import temporal3d
 from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
@@ -55,8 +58,8 @@ def _at(g, xs, ys, zs):
     for i, x in enumerate(xs):
         for j, y in enumerate(ys):
             for m, z in enumerate(zs):
-                if (0 <= x < GRID[0] and 0 <= y < GRID[1]
-                        and 0 <= z < GRID[2]):
+                if (0 <= x < g.shape[0] and 0 <= y < g.shape[1]
+                        and 0 <= z < g.shape[2]):
                     out[i, j, m] = g[x, y, z]
     return out
 
@@ -75,22 +78,24 @@ def _take(g, xs, ys, zs):
     for i, x in enumerate(xs):
         for j, y in enumerate(ys):
             for m, z in enumerate(zs):
-                if ok(x, GRID[0]) and ok(y, GRID[1]) and ok(z, GRID[2]):
+                if (ok(x, g.shape[0]) and ok(y, g.shape[1])
+                        and ok(z, g.shape[2])):
                     out[i, j, m] = g[x, y, z]
     return out
 
 
-def _origin(b):
-    c = HeatMesh(MESH).coords(b)
-    return tuple(ci * bi for ci, bi in zip(c, BLOCK))
+def _origin(b, mesh=MESH, block=BLOCK):
+    c = HeatMesh(mesh).coords(b)
+    return tuple(ci * bi for ci, bi in zip(c, block))
 
 
-def _pieces_np(g, b, k, tail_y=None, tail_z=None):
+def _pieces_np(g, b, k, tail_y=None, tail_z=None, mesh=MESH, block=BLOCK):
     """Block ``b``'s ``u``, z tail, y tail and x slabs cut from the global
-    grid in numpy; tails ``2k`` wide (the port's) unless given (JAX's)."""
+    grid ``g`` of a ``mesh`` of ``block`` blocks in numpy; tails ``2k``
+    wide (the port's) unless given (JAX's)."""
     tail_y, tail_z = tail_y or 2 * k, tail_z or 2 * k
-    bx, by, bz = BLOCK
-    ox, oy, oz = _origin(b)
+    bx, by, bz = block
+    ox, oy, oz = _origin(b, mesh, block)
     xs = list(range(ox, ox + bx))
     ys = list(range(oy, oy + by))
     zc = _circ(oz, bz, k, tail_z)
@@ -364,3 +369,194 @@ def test_init_block_is_the_slice_of_init_grid():
         o = mesh.origin(b, bs)
         want = full[tuple(slice(a, a + n) for a, n in zip(o, bs))]
         assert torch.equal(plate.init_block("cpu", o, bs), want)
+
+
+# --- The plane load of H-fused's tiles inside a block -----------------------
+
+@pytest.mark.parametrize("shape,k,load", [
+    ((512, 512, 512), 3, "tma"),    # the sharded 3D main path's block
+    ((6, 128, 72), 3, "tma"),
+    ((20, 128, 128), 3, "tma"),
+    ((67, 128, 92), 1, "tma"),
+    ((67, 124, 92), 1, "cp.async"),  # by under 2 * 64 - 3 = 125 rows
+    ((67, 124, 92), 2, "tma"),       # 2 * 64 - 6 = 122
+    ((50, 128, 52), 3, "cp.async"),  # bz under 2 * 32 - 9 = 55
+    ((50, 128, 56), 3, "tma"),
+    ((67, 70, 92), 3, "cp.async"),   # holds a box, but no tile inside it
+    ((67, 70, 90), 3, "cp.async"),   # bz % 4 != 0: rows not 16-byte
+    ((40, 128, 97), 3, "cp.async"),  # multiples
+    ((50, 60, 40), 3, "cp.async"),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_load_is_chosen_by_geometry(shape, k, load):
+    # The box: the extended tile (64 x 32 cells at the defaults), 4 cells
+    # wider along z, since a box starts at a multiple of 4 cells.
+    assert params().f_extent(params().h_block, params().h_rows) == (64, 32)
+    assert params().h_tma_box() == (64, 36)
+    assert skb3.h_load(shape, k) == load
+    assert params().h_tma_fits(shape, k) == (load == "tma")
+    # TMA runs in the tiles inside the block: the rule holds one.
+    assert (params().h_tiles(shape, k)[0] > 0) >= (load == "tma")
+    # The TMA instances take h_tma_rows rows a thread only.
+    assert not params().h_tma_fits(shape, k, rows=2)
+    # A block at an address that is not a multiple of 16 bytes takes the
+    # cp.async load whatever its shape.
+    thin = (2,) + shape[1:]
+    base = torch.zeros(math.prod(thin) + 1)
+    assert skb3.h_load(thin, k, base[1:].view(thin)) == "cp.async"
+    assert skb3.h_load(thin, k, base[:-1].view(thin)) == load
+
+
+def _tiles_brute(n, w, k):
+    """(tiles, tiles whose extended range [start, start + w) lies in
+    [0, n)) of one axis, tile t starting at t (w - 2k) - k."""
+    tiles = -(-n // (w - 2 * k))
+    return tiles, sum(1 for t in range(tiles)
+                      if 0 <= t * (w - 2 * k) - k
+                      and t * (w - 2 * k) - k + w <= n)
+
+
+@pytest.mark.parametrize("block,rows", [((32, 16), 4), ((32, 8), 2),
+                                        ((64, 4), 4)])
+def test_tile_split_and_tma_rule_agree_with_enumeration(block, rows):
+    p = params()
+    wy, wz = p.f_extent(block, rows)
+    for k in range(1, p.h_k_compiled + 1):
+        if 2 * k >= min(wy, wz):
+            continue
+        for by in range(1, 3 * wy, 7):
+            for bz in range(4, 3 * wz, 4):
+                (ny, iy), (nz, iz) = (_tiles_brute(by, wy, k),
+                                      _tiles_brute(bz, wz, k))
+                got = p.h_tiles((9, by, bz), k, block, rows)
+                assert got == (iy * iz, ny * nz - iy * iz), (k, by, bz)
+                # The closed form of csrc/heat_h.cuh's heat_h_tma_fits:
+                # the first tile that starts at 0 or past ends in the block.
+                def holds(n, w):
+                    step = w - 2 * k
+                    return -(-k // step) * step - k + w <= n
+
+                c_rule = (rows == p.h_tma_rows and wz + 4 <= 256
+                          and bz >= wz + 4 and holds(by, wy)
+                          and holds(bz, wz))
+                assert p.h_tma_fits((9, by, bz), k, block, rows) == c_rule
+                if c_rule:
+                    assert got[0] > 0
+
+
+def test_pinned_load_is_checked_and_gives_the_same_bits():
+    g = _grid()
+    b, k = BLOCKS["interior"], 3
+    u, zt, yt, xlo, xhi = map(_t, _pieces_np(g, b, k))
+    kw = _kw(b, COEFFS[1])
+    assert skb3.h_load(BLOCK, k, u) == "cp.async"
+    with pytest.raises(ValueError, match="TMA load needs bz % 4 == 0"):
+        skb3.h_block_fused(u, zt, yt, xlo, xhi, torch.empty(BLOCK), k,
+                           load="tma", **kw)
+    with pytest.raises(ValueError, match="load must be one of"):
+        skb3.h_block_fused(u, zt, yt, xlo, xhi, torch.empty(BLOCK), k,
+                           load="bulk", **kw)
+    pinned, default = torch.empty(BLOCK), torch.empty(BLOCK)
+    r_pinned = skb3.h_block_fused(u, zt, yt, xlo, xhi, pinned, k,
+                                  load="cp.async", **kw)
+    r_default = skb3.h_block_fused(u, zt, yt, xlo, xhi, default, k, **kw)
+    assert torch.equal(pinned, default) and torch.equal(r_pinned, r_default)
+
+
+@pytest.mark.parametrize("n,nz,load", [(256, 256, "tma"), (256, 264, "tma"),
+                                       (256, 260, "cp.async"),
+                                       (128, 128, "cp.async")])
+def test_explain_names_the_load(n, nz, load):
+    cfg = HeatConfig(nx=n, ny=n, nz=nz, steps=6, mesh_shape=(2, 2, 2),
+                     backend="cuda", device="cpu")
+    out = explain(cfg)
+    kind, detail = skb3.pick_block_temporal_3d(cfg.block_shape(), 3)
+    assert kind == "H-fused" and detail["load"] == load
+    if load == "tma":
+        assert ("tiles inside the block load by TMA (one 64x36 (Y, Z) box "
+                "a plane; bz % 4 == 0 and a tile inside the block)"
+                ) in out["path"]
+    else:
+        assert ("tiles inside the block load by cp.async per cell (TMA "
+                "needs bz % 4 == 0 and a block of at least 119x55 (Y, Z) "
+                f"cells at K=3, which holds a tile, got {n // 2}x{nz // 2})"
+                ) in out["path"]
+    with tune.force("block_temporal_3d", "H"):
+        assert "load" not in explain(cfg)["path"]
+
+
+# A mesh whose blocks hold a tile inside them at K = 3 (2 * 64 - 9 rows,
+# 2 * 32 - 9 columns, a multiple of 4), so that the card takes the TMA
+# load there.
+TMA_MESH, TMA_BLOCK = (2, 2, 2), (6, 120, 56)
+
+
+@pytest.mark.parametrize("b", [0, 7])
+@pytest.mark.parametrize("defer", [False, True], ids=["monolithic", "bulk"])
+def test_fused_at_a_tma_geometry_matches_jax_builder(b, defer):
+    k = params().h_k_default
+    coeffs = COEFFS[1]
+    grid = tuple(m * n for m, n in zip(TMA_MESH, TMA_BLOCK))
+    assert skb3.h_load(TMA_BLOCK, k) == "tma"
+    g = (np.random.default_rng(7).standard_normal(grid) * 10).astype(
+        np.float32)
+    fn = ps._build_temporal_block_3d_fused(TMA_BLOCK, "float32", *coeffs,
+                                           grid, k, (k, k, k),
+                                           defer_x=defer)
+    jp = _pieces_np(g, b, k, fn.tail_y, fn.tail_z, TMA_MESH, TMA_BLOCK)
+    o = _origin(b, TMA_MESH, TMA_BLOCK)
+    want, wres = fn(*map(jnp.asarray, jp[:3] if defer else jp),
+                    o[0] - k, o[1], o[2])
+    u, zt, yt, xlo, xhi = _pieces_np(g, b, k, mesh=TMA_MESH,
+                                     block=TMA_BLOCK)
+    out = torch.full(TMA_BLOCK, float("nan"))
+    res = skb3.h_block_fused(
+        _t(u), _t(zt), _t(yt), None if defer else _t(xlo),
+        None if defer else _t(xhi), out, k, defer_x=defer, origin=o,
+        grid_shape=grid, **dict(zip(("cx", "cy", "cz"), coeffs)))
+    planes = slice(k, TMA_BLOCK[0] - k) if defer else slice(None)
+    _close_grid(out.numpy()[planes], np.asarray(want)[planes])
+    _close_res(res, wres)
+
+
+def test_ptxas_report_names_each_instance():
+    from parallel_heat_tpu_torch.kernels import build
+
+    sym = ("_Z28heat_h_block_3d_fused_kernelILi3ELi2ELb1EEvPKfS1_S1_S1_S1_"
+           "PfPj")
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {sym}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 62 registers, used 1 barriers, 128 bytes "
+        "smem, 688 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_Z22heat_h_block_3d_kernelILi8ELi4EEvPKf' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_Z22heat_h_block_3d_kernelILi8ELi4EEvPKf",
+        "    8 bytes stack frame, 80 bytes spill stores, 144 bytes spill "
+        "loads",
+        "ptxas info    : Used 128 registers, 400 bytes cmem[0]"])
+    assert build.demangle(sym) == "heat_h_block_3d_fused_kernel<3, 2, true>"
+    assert build.demangle("heat_plain") == "heat_plain"
+    assert build.ptxas_report(log) == [
+        {"instance": "heat_h_block_3d_fused_kernel<3, 2, true>",
+         "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+         "registers": 62, "smem_bytes": 128},
+        {"instance": "heat_h_block_3d_kernel<8, 4>", "stack_bytes": 8,
+         "spill_stores": 80, "spill_loads": 144, "registers": 128,
+         "smem_bytes": 0}]
+
+
+def test_build_report_is_kept_beside_the_library(tmp_path, monkeypatch):
+    from parallel_heat_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_LOG", {})
+    name = "heat_h_block_3d_fused"
+    assert build.build_log(name) == ""
+    log = "ptxas info    : Used 90 registers"
+    build.library_path(name).with_suffix(".log").write_text(log)
+    assert build.build_log(name) == log   # a build by an earlier process
+    build.BUILD_LOG[name] = "this process"
+    assert build.build_log(name) == "this process"

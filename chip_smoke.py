@@ -12,8 +12,10 @@ prints the card's name and power limit, then one JSON line per phase:
    nvcc for sm_90a (one nvcc per source, started together), timed, with
    ptxas's report of registers, spills and static shared memory for each
    template instance by name (``<K, R, ...>``) and the instances that
-   spill; the H-fused instance the sharded 3D main path launches must not
-   spill;
+   spill; the H-fused instance the sharded 3D main path launches, and the
+   G-uni and G-fuse kernels the sharded 2D main path launches, must not
+   spill (the G kernels' registers and blocks an SM at the main path's
+   shape are printed);
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -137,11 +139,17 @@ prints the card's name and power limit, then one JSON line per phase:
    (grids and residuals), with the exchange's pieces built by the port's
    own exchange from seeded random grids: the main path's 16384 x 8192
    blocks of 32768^2 on (2, 4) (a corner block and one with neighbours on
-   three sides) at K = 8; every 500 x 250 block of 1000^2 on (2, 4) at K
-   in {1, 3, 8}; 16 x 24 blocks (exactly 2K rows) at K = 8; cx = cy = 0.1
-   and cx = 0.1, cy = 0.2. The deferred bulk plus the band, spliced in
-   place, must be the monolithic kernel, grid and max residual; a
-   NaN-seeded block gives NaN residuals with its ring intact;
+   three sides) at K = 8; every 500 x 252 block of 1000 x 1008 and every
+   500 x 250 block of 1000^2 on (2, 4) at every compiled K (1 ..
+   g_k_max); 16 x 24 blocks (exactly 2K rows) at K = 8; cx = cy = 0.1
+   and cx = 0.1, cy = 0.2. Each grid's blocks must hold, at each K, tiles
+   of every kind they are there for (``hopper_params.g_tile_kinds``:
+   tiles inside the block and at its edge, a ragged last row and column
+   tile, tiles reaching past the grid's interior, and on the 250-wide
+   blocks a last group of 2 columns). The deferred bulk plus the band,
+   spliced in place, must be the monolithic kernel, grid and max
+   residual; a NaN-seeded block gives NaN residuals with its ring
+   intact;
 13. sharded_main_path — ``solve(HeatConfig(nx=32768, ny=32768, steps=200,
    mesh_shape=(2, 4)))`` under the default resolution (K = 8, overlap:
    G-uni bulk + band, 200 launches each), with ``halo_overlap="phase"``,
@@ -161,8 +169,10 @@ prints the card's name and power limit, then one JSON line per phase:
    8192 at K = 8 without the residual: the deferred bulk of G-uni (the
    ``kernels`` line's row), G-uni, G-fuse, G-circ and G monolithic and the
    band kernel, each beside its plain version, its bound and ``conv2d``
-   chained K times on the framed block (TF32 off); the exchange's own time
-   per round (both phases, 8 blocks) and one whole overlapped round.
+   chained K times on the framed block (TF32 off), G-uni's and G-fuse's
+   beside their time before the register-blocked step loop; the
+   exchange's own time per round (both phases, 8 blocks) and one whole
+   overlapped round.
 17. kernels_h — the sharded 3D block kernels H-fused
    (``heat_h_block_3d_fused``, monolithic and as the deferred bulk, under
    the cp.async load and, where the geometry takes it, the TMA load), H
@@ -365,10 +375,26 @@ def phase_build():
     check(main in fused and fused[main][1] == 0,
           f"H-fused's main-path instance <{main}> spills or is missing "
           f"from the ptxas report: {fused.get(main)}")
+    # Nor may the G-uni and G-fuse kernels the sharded 2D main path
+    # launches (one instance each); their registers, and the blocks an SM
+    # holds at the main path's depth, tile and thread block.
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+
+    g_main = {}
+    for name in ("heat_g_block_uniform", "heat_g_block_fused"):
+        row = ptxas[name].get(name + "_kernel")
+        check(row is not None and row[1] == 0,
+              f"{name}'s kernel spills or is missing from the ptxas "
+              f"report: {row}")
+        g_main[name] = {"registers": row[0], "spill_stores": row[1],
+                        "k": hp.g_k_default, "tile": list(hp.g_tile),
+                        "block": list(hp.g_block),
+                        "blocks_per_sm": skb.g_occupancy(
+                            name, hp.g_k_default)}
     emit({"phase": "build", "seconds": seconds,
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
-          "main_path_h_instance": main,
+          "main_path_h_instance": main, "main_path_g": g_main,
           "spilling_instances": spilling, "ptxas": ptxas})
 
 
@@ -1726,6 +1752,7 @@ def phase_kernels_g(dev):
 
     from parallel_heat_tpu_torch.ops import stencil_kernels as sk
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.ops.hopper_params import params
     from parallel_heat_tpu_torch.parallel import temporal
     from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
@@ -1733,20 +1760,53 @@ def phase_kernels_g(dev):
     equal = dict(cx=CX, cy=CY)
     unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
     gen = torch.Generator(device=dev).manual_seed(4)
-    # (grid, mesh, depths, block indices): the main path's 16384 x 8192
-    # blocks (corner (0, 0) and (1, 2), which has neighbours on three
-    # sides); every 500 x 250 block of 1000^2 on (2, 4), whose width is no
-    # multiple of 4; and 16 x 24 blocks at K = 8, exactly 2K rows.
-    plan = [((SHARD_N, SHARD_N), SHARD_MESH, [8], [0, 6]),
-            ((CONV, CONV), SHARD_CONV, [1, 3, 8], list(range(8))),
-            ((32, 48), (2, 2), [8], list(range(4)))]
+    p = params()
+    every_k = list(range(1, p.g_k_max() + 1))
+    # (grid, mesh, depths, block indices, the tile kinds each depth must
+    # run; csrc/heat_g.cuh's branches, counted by hopper_params
+    # g_tile_kinds over the monolithic, deferred-bulk and band launches):
+    # the main path's 16384 x 8192 blocks (corner (0, 0) and (1, 2), which
+    # has neighbours on three sides) at its K; every 500 x 252 block of
+    # 1000 x 1008 on (2, 4) (every kind, G-uni included) and every 500 x
+    # 250 block of 1000^2 on (2, 4) (a width that is no multiple of 4: a
+    # last tile of 26 columns ends in a part group) at every compiled K;
+    # and 16 x 24 blocks at K = 8, exactly 2K rows.
+    common = ("inside", "block_edge", "ragged_rows", "ragged_cols",
+              "global_edge")
+    plan = [((SHARD_N, SHARD_N), SHARD_MESH, [p.g_k_default], [0, 6],
+             common),
+            ((CONV, 1008), SHARD_CONV, every_k, list(range(8)), common),
+            ((CONV, CONV), SHARD_CONV, every_k, list(range(8)),
+             common + ("partial_group",)),
+            ((32, 48), (2, 2), [8], list(range(4)),
+             ("block_edge", "global_edge"))]
     report = []
-    for grid, mesh_shape, ks, blocks in plan:
+    for grid, mesh_shape, ks, blocks, need in plan:
         g = torch.randn(grid, generator=gen, device=dev) * 10
         mesh = HeatMesh(mesh_shape, dev)
         us = mesh.split(g)
+        bx, by = mesh.block_shape(grid)
+        tiles = {}
         for k in ks:
-            xch = temporal.DeepExchange2D(mesh, mesh.block_shape(grid), k, dev)
+            kinds = dict.fromkeys(need, 0)
+            for b in blocks:
+                o = mesh.origin(b, (bx, by))
+                launches = [p.g_tile_kinds((bx, by), k, origin=o,
+                                           grid_shape=grid)]
+                if bx >= 2 * k:
+                    launches += [
+                        p.g_tile_kinds((bx, by), k, [(k, bx - 2 * k)],
+                                       origin=o, grid_shape=grid),
+                        p.g_tile_kinds((bx, by), k, [(0, k), (bx - k, k)],
+                                       (k, p.g_band_tile_x), o, grid)]
+                for counted in launches:
+                    for kind in need:
+                        kinds[kind] += counted[kind]
+            check(all(kinds.values()), f"the check blocks of {grid} on "
+                  f"{mesh_shape} at K={k} run no tile of some kind they are "
+                  f"there for: {kinds}")
+            tiles[k] = kinds
+            xch = temporal.DeepExchange2D(mesh, (bx, by), k, dev)
             xch.phase1(us)
             xch.phase2(us)
             for coeffs in (equal, unequal):
@@ -1759,8 +1819,8 @@ def phase_kernels_g(dev):
                 del e_out
             del xch
         report.append({"grid": list(grid), "mesh": list(mesh_shape),
-                       "block": list(mesh.block_shape(grid)), "k": ks,
-                       "blocks": blocks, "coeffs": [equal, unequal],
+                       "block": [bx, by], "k": ks, "blocks": blocks,
+                       "coeffs": [equal, unequal], "tile_kinds": tiles,
                        "bitwise_plain_each_other_and_e": True,
                        "deferred_plus_band_is_monolithic": True})
         del g, us
@@ -1985,6 +2045,13 @@ def _interior_cells(origin, shape, grid):
     return max(rows, 0) * max(cols, 0)
 
 
+# The device time of G-uni's deferred bulk and of G-fuse monolithic at the
+# main path's block before the register-blocked step loop (E's column
+# walk; NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6).
+G_UNI_EARLIER_MS = 1.263
+G_FUSE_EARLIER_MS = 1.335
+
+
 def phase_timing_g(dev):
     """ms per launch of each G kernel at the main path's block (16384 x
     8192, K = 8, no residual, as the rounds between check windows launch
@@ -2093,6 +2160,10 @@ def phase_timing_g(dev):
                      "library_ms": _time_ms(library, 5, 1),
                      **_bound(nbytes, nops)}
         rows[key].update(_device_ms(kernel, name))
+    rows["heat_g_block_uniform"]["earlier_design_device_ms"] = \
+        G_UNI_EARLIER_MS
+    rows["heat_g_block_fused"]["earlier_design_device_ms"] = \
+        G_FUSE_EARLIER_MS
     # One whole overlapped round of the 8 blocks (phase 1, 8 bulks, phase
     # 2, 8 bands), by events.
     vs = [torch.empty_like(u) for u in us]

@@ -33,10 +33,13 @@ run). Both check every launch shape bitwise
 against the plain version first. ``--only g`` sweeps the sharded path's
 G kernels at the main path's block, 16384 x 8192 of 32768^2 on a (2, 4)
 mesh: the deferred bulk of G-uni (the launch the default overlapped
-round makes) over output tiles, thread blocks and K, and the band kernel
-over tile widths and thread blocks at K = 8, each launch shape first
-checked bitwise against the plain version on a 500 x 252 block of
-1000 x 1008 on (2, 4). ``--only h`` sweeps the sharded 3D path's H
+round makes) over output tiles, thread blocks (32 lanes by 4, 8 or 16
+warps, so rows a warp and warps an SM; ``occupancy`` is the blocks an SM
+the card holds with the kernel's registers) and K, G-fuse monolithic over
+the same shapes at the default K, and the band kernel over tile widths
+and thread blocks at K = 8, each launch shape first checked bitwise
+against the plain version on a 500 x 252 block of 1000 x 1008 on (2, 4).
+``--only h`` sweeps the sharded 3D path's H
 kernels at the main path's block, 512^3 of 1024^3 on a (2, 2, 2) mesh:
 the deferred bulk of H-fused over thread blocks, rows per thread and K
 (the segment of ``hopper_params.h_launch``; the TMA load wherever the
@@ -100,9 +103,12 @@ MG_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 4), (64, 8),
              (128, 2), (128, 4), (256, 1)]
 MG_FINE = [(4098, 4098), (512, 512)]
 G_GRID, G_MESH = (32768, 32768), (2, 4)    # the sharded main path
-G_TILES = [(64, 112), (96, 112), (128, 112), (64, 128), (128, 128),
-           (64, 240)]
-G_BLOCKS = [(32, 8), (32, 16), (32, 32)]
+# G's output tiles: 112 columns make a K = 8 framed row 128 floats, one
+# pass of 32 lanes of 4 columns, 240 two passes; the rows span 1 to 4
+# blocks an SM by shared memory at K = 8.
+G_TILES = [(32, 112), (56, 112), (96, 112), (200, 112), (40, 240),
+           (96, 240)]
+G_BLOCKS = [(32, 4), (32, 8), (32, 16)]
 G_KS = [4, 6, 8]
 G_BAND_TILES = [112, 240, 496]
 H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)   # the sharded 3D main path
@@ -373,8 +379,10 @@ def _g_setup(dev, grid, mesh_shape, k, blocks=None):
 
 
 def sweep_g(reps: int):
-    """Yield one dict per launch shape of G-uni's deferred bulk and of the
-    band kernel at the sharded main path's block."""
+    """Yield one dict per launch shape of G-uni's deferred bulk, of G-fuse
+    monolithic and of the band kernel at the sharded main path's block:
+    output tile, thread block (so rows a warp: more warps an SM, or more
+    rows a warp) and K, with the blocks an SM the card holds."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
     from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
@@ -397,53 +405,66 @@ def sweep_g(reps: int):
                     grid_shape=small_grid, cx=CX, cy=CY)
         kw = dict(origin=big_mesh.origin(b, big_blocks[b].shape),
                   grid_shape=G_GRID, cx=CX, cy=CY)
-        s_tail, s_hn, s_hs = s_xch.pieces(sb)
-        tail, hn, hs = xch.pieces(b)
-        want = torch.full_like(s_blocks[sb], float("nan"))
-        rp = skb.block_uniform_plain(s_blocks[sb], s_tail, None, None, want,
-                                     k, **s_kw)
+        s_pieces, pieces = s_xch.pieces(sb), xch.pieces(b)
+        wants = {}
+        for mode, halos in (("bulk", (None, None)),
+                            ("monolithic", s_pieces[1:])):
+            want = torch.full_like(s_blocks[sb], float("nan"))
+            r = skb.block_fused_plain(s_blocks[sb], s_pieces[0], *halos,
+                                      want, k, **s_kw)
+            wants[mode] = (want, r)
         out = torch.full_like(big_blocks[b], float("nan"))
-        for tile in G_TILES:
-            smem = p.e_smem_bytes(k, tile) + p.static_smem_bytes
-            if smem > p.smem_per_block_max:
-                continue
-            per_sm = p.smem_per_sm // (smem + p.smem_reserved_per_block)
-            for block in G_BLOCKS:
-                geo = tile + block
-                got = torch.full_like(want, float("nan"))
-                r = skb._launch("heat_g_block_uniform",
-                                (s_blocks[sb], s_tail, None, None), got, k,
-                                True, geometry=geo, **s_kw)
-                ok = bool(torch.equal(got[k:-k], want[k:-k])
-                          and torch.equal(r, rp))
-                ms = time_ms(lambda: skb._launch(
-                    "heat_g_block_uniform", (big_blocks[b], tail, None,
-                                             None), out, k, False,
-                    geometry=geo, **kw), reps)
-                yield {"kernel": "heat_g_block_uniform", "mode": "bulk",
-                       "size": size, "tile": list(tile),
-                       "block": list(block), "k": k, "smem_bytes": smem,
-                       "blocks_per_sm_by_smem": per_sm, "bitwise": ok,
-                       "ms": ms, "ms_per_step": ms / k,
-                       "default": (tile == p.g_tile and block == p.g_block
-                                   and k == p.g_k_default)}
+        runs = [("heat_g_block_uniform", "bulk")]
+        if k == p.g_k_default:
+            runs.append(("heat_g_block_fused", "monolithic"))
+        for name, mode in runs:
+            halos = (None, None) if mode == "bulk" else pieces[1:]
+            s_halos = (None, None) if mode == "bulk" else s_pieces[1:]
+            want, rp = wants[mode]
+            rows = slice(k, -k) if mode == "bulk" else slice(None)
+            for tile in G_TILES:
+                smem = p.g_smem_bytes(k, tile)
+                if smem + p.static_smem_bytes > p.smem_per_block_max:
+                    continue
+                for block in G_BLOCKS:
+                    geo = tile + block
+                    got = torch.full_like(want, float("nan"))
+                    r = skb._launch(name, (s_blocks[sb], s_pieces[0],
+                                           *s_halos), got, k, True,
+                                    geometry=geo, **s_kw)
+                    ok = bool(torch.equal(got[rows], want[rows])
+                              and torch.equal(r, rp))
+                    ms = time_ms(lambda: skb._launch(
+                        name, (big_blocks[b], pieces[0], *halos), out, k,
+                        False, geometry=geo, **kw), reps)
+                    yield {"kernel": name, "mode": mode, "size": size,
+                           "tile": list(tile), "block": list(block), "k": k,
+                           "rows_per_warp": p.g_run(k, tile, block),
+                           "smem_bytes": smem,
+                           "blocks_per_sm_by_smem_threads":
+                               p.g_blocks_per_sm(k, tile, block),
+                           "occupancy": skb.g_occupancy(name, k, tile,
+                                                        block),
+                           "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                           "default": (tile == p.g_tile
+                                       and block == p.g_block
+                                       and k == p.g_k_default)}
         if k != p.g_k_default:
             continue
         band_want = torch.full_like(s_blocks[sb], float("nan"))
-        rbp = skb.band_fix_plain(s_blocks[sb], s_tail, s_hn, s_hs, band_want,
-                                 k, **s_kw)
+        rbp = skb.band_fix_plain(s_blocks[sb], *s_pieces, band_want, k,
+                                 **s_kw)
         for tile_x in G_BAND_TILES:
             for block in G_BLOCKS:
                 geo = (tile_x,) + block
                 got = torch.full_like(band_want, float("nan"))
-                r = skb._launch("heat_g_band_fix",
-                                (s_blocks[sb], s_tail, s_hn, s_hs), got, k,
-                                True, geometry=geo, **s_kw)
+                r = skb._launch("heat_g_band_fix", (s_blocks[sb], *s_pieces),
+                                got, k, True, geometry=geo, **s_kw)
                 ok = bool(torch.equal(got.nan_to_num(7.0),
                                       band_want.nan_to_num(7.0))
                           and torch.equal(r, rbp))
                 ms = time_ms(lambda: skb._launch(
-                    "heat_g_band_fix", (big_blocks[b], tail, hn, hs), out,
+                    "heat_g_band_fix", (big_blocks[b], *pieces), out,
                     k, False, geometry=geo, **kw), reps)
                 yield {"kernel": "heat_g_band_fix", "size": size,
                        "tile_x": tile_x, "block": list(block), "k": k,

@@ -8,16 +8,17 @@
 // Bound on the H100, and the design: heat_g.cuh. One launch of two row
 // regions (blockIdx.y): tiles of K x TX output cells whose framed
 // (3K) x (TX+2K) windows read the halo rows, the block's edge rows and
-// the tail, with the fused form's per-cell load and E's step phase. The
-// rows land in the deferred bulk's output buffer in place (the TPU
-// kernel returns them and the caller splices them in), so no splice copy
-// is needed. 2K of bx rows: under 0.1% of a 16384-row block's cells, in
+// the tail, with the fused form's per-cell load and the family's
+// register-blocked step loop (a 256-column window row is two passes of
+// 32 groups). The rows land in the deferred bulk's output buffer in
+// place (the TPU kernel returns them and the caller splices them in), so
+// no splice copy is needed. 2K of bx rows: under 0.1% of a 16384-row block's cells, in
 // 2 x 35 blocks at the default 240-column tiles (ops/hopper_params.py),
 // one wave, so its time is close to a launch's.
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kHeatGMaxThreads)
     heat_g_band_fix_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGFused, false>(HEAT_G_ARGS);
 }

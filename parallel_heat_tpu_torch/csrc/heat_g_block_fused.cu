@@ -10,13 +10,17 @@
 // Bound on the H100, and the design: heat_g.cuh. This form reads u, the
 // tail [hi | lo] and the halo rows straight into shared memory, one
 // checked 4-byte cp.async per cell as kernel E does, so the extended
-// block is never written to HBM. With halo_n = halo_s = null it writes
+// block is never written to HBM. Its shared rows are padded as the
+// uniform form's are, so the step loop's 16-byte groups line up although
+// the block's rows in HBM need not; the last step writes a group with
+// one 16-byte store where the block's width allows it (a multiple of 4),
+// else cell by cell. With halo_n = halo_s = null it writes
 // only rows [K, bx-K) and their residual (heat_g_band_fix writes the
 // rest), so it reads nothing of the exchange's second phase.
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kHeatGMaxThreads)
     heat_g_block_fused_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGFused, false>(HEAT_G_ARGS);
 }
@@ -40,6 +44,15 @@ extern "C" int heat_g_block_fused(
       heat_g_block_fused_kernel, false, u, tail, halo_n, halo_s, out, res, m, n,
       bx, by, row_off, col_off, k, defer ? k : 0, 0, defer ? bx - 2 * k : bx, 1,
       tile_y, tile_x, block_x, block_y, a0, cx, cy, stream);
+}
+
+// Thread blocks of this kernel that one SM holds at once at depth k, tile
+// and thread block, into *blocks. Returns a cudaError_t.
+extern "C" int heat_g_block_fused_occupancy(int k, int tile_y,
+                                            int tile_x, int block_x,
+                                            int block_y, int* blocks) {
+  return heat_g_occupancy(heat_g_block_fused_kernel, k, tile_y, tile_x,
+                          block_x, block_y, blocks);
 }
 
 extern "C" const char* heat_g_block_fused_error_string(int code) {

@@ -16,7 +16,7 @@
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kHeatGMaxThreads)
     heat_g_block_uniform_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGFused, true>(HEAT_G_ARGS);
 }
@@ -36,6 +36,15 @@ extern "C" int heat_g_block_uniform(
       heat_g_block_uniform_kernel, true, u, tail, halo_n, halo_s, out, res, m,
       n, bx, by, row_off, col_off, k, defer ? k : 0, 0, defer ? bx - 2 * k : bx,
       1, tile_y, tile_x, block_x, block_y, a0, cx, cy, stream);
+}
+
+// Thread blocks of this kernel that one SM holds at once at depth k, tile
+// and thread block, into *blocks. Returns a cudaError_t.
+extern "C" int heat_g_block_uniform_occupancy(int k, int tile_y,
+                                              int tile_x, int block_x,
+                                              int block_y, int* blocks) {
+  return heat_g_occupancy(heat_g_block_uniform_kernel, k, tile_y, tile_x,
+                          block_x, block_y, blocks);
 }
 
 extern "C" const char* heat_g_block_uniform_error_string(int code) {

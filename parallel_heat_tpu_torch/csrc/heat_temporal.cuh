@@ -1,7 +1,8 @@
 // Shared device code of the K-step temporal kernels (heat_e_temporal.cu,
-// heat_e_uni_temporal.cu, and through heat_g.cuh the sharded block
-// kernels heat_g_*.cu): the step phase that follows a block's load of
-// its framed tile. The kernels differ only in how they load.
+// heat_e_uni_temporal.cu): the step phase that follows a block's load of
+// its framed tile. The kernels differ only in how they load. (The
+// sharded block kernels heat_g_*.cu step with their own register-blocked
+// loop, heat_g.cuh.)
 // heat_a_resident.cu steps its resident tiles with heat_e_tile_step_any.
 
 #pragma once

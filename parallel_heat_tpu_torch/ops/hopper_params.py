@@ -142,21 +142,34 @@ class HopperParams:
     m_solo_rows_per_thread: int = 4
 
     # --- the sharded block kernels heat_g_* (measured) -------------------
-    # A block's output tile (rows, cols), thread block and default depth
-    # K; g_k_max() is the deepest K that keeps e_min_blocks_per_sm blocks
-    # resident. The G family runs E's step phase on the tiles of one
-    # block (csrc/heat_g.cuh), and the sweep (bench_kernels --only g, the
-    # deferred bulk of G-uni at the 16384 x 8192 block of 32768^2 on a
-    # (2, 4) mesh, H100 80GB HBM3 at 700 W) found E's shape fastest there
-    # too: 1.257 ms at 96 x 112, 32 x 8 threads and K = 8 (0.157 ms a
-    # step), the other 53 shapes 0.166-0.324 ms a step. The band kernel
-    # cuts its K-row bands into tiles of g_band_tile_x columns: 240 with
-    # 32 x 16 threads took 0.0196 ms, 112 with 32 x 8 0.0301 ms.
+    # A block's output tile (rows, cols), thread block (32 lanes x warps)
+    # and default depth K. The family's register-blocked step loop
+    # (csrc/heat_g.cuh) gives each lane 4 adjacent columns of its warp's
+    # run of ceil((TY + 2K) / warps) rows; g_takes() is the launch shapes
+    # it takes (at most g_max_warps warps: the kernels' 512-thread launch
+    # bound lets them hold their 97-98 registers without spilling).
+    # g_k_max() is the deepest K that keeps e_min_blocks_per_sm blocks
+    # resident by shared memory (g_smem_bytes: two buffers of TY + 2K
+    # rows, each padded to g_row_floats). The sweep (bench_kernels --only
+    # g, the 16384 x 8192 block of 32768^2 on a (2, 4) mesh, NVIDIA H100
+    # 80GB HBM3 at 700 W) found 96 x 112, 32 x 8 threads (14 rows a warp)
+    # and K = 8 fastest: 0.930 ms for G-uni's deferred bulk and 0.953 for
+    # G-fuse monolithic, the other 17 shapes at K = 8 1.02-2.35 ms (32 x
+    # 16 threads hold one block an SM: 1.311); K = 4 and 6 took 0.146 and
+    # 0.127 ms a step against 0.116. (E's column walk, the loop before,
+    # took 1.263 ms at this shape.) Persistent blocks that walk the tiles
+    # with the next tile's load in flight into a third buffer lost (1.187
+    # ms at best, 56 x 112, against 0.978 here, in the sweep before the
+    # loop's last row was peeled). The band kernel cuts its K-row bands
+    # into tiles of g_band_tile_x columns; a launch takes 0.013 ms on the
+    # card, less than the host's time per launch, so the sweep's events
+    # (0.017-0.045 ms) cannot rank its thread blocks.
     g_tile: tuple = (96, 112)
     g_block: tuple = (32, 8)
     g_k_default: int = 8
+    g_max_warps: int = 16
     g_band_tile_x: int = 240
-    g_band_block: tuple = (32, 16)
+    g_band_block: tuple = (32, 8)
 
     # --- the sharded 3D block kernels heat_h_* (block, rows and K
     # measured; prefetch, waves and segments chosen) ----------------------
@@ -395,11 +408,98 @@ class HopperParams:
             k += 1
         return k
 
-    def g_k_max(self) -> int:
-        """Deepest K a G kernel takes at ``g_tile``: E's shared-memory
-        rule (two ping-pong framed tiles, e_min_blocks_per_sm blocks per
-        SM)."""
-        return self.e_k_max(self.g_tile)
+    def g_takes(self, tile, block) -> bool:
+        """Does the G family's step loop take output tiles of ``tile``
+        ``(rows, cols)`` under thread blocks of ``block`` ``(lanes,
+        warps)``? A row of threads is one warp, so 32 lanes; at most
+        ``g_max_warps`` warps (the kernels' launch bound of 512 threads
+        lets them take up to 128 registers a thread); the tile's width a
+        multiple of 4, so that every tile's core starts a group of 4
+        columns. ``csrc/heat_g.cuh`` ``heat_g_takes`` is the same rule."""
+        (ty, tx), (bx, by) = tile, block
+        return ty >= 1 and tx >= 4 and tx % 4 == 0 and bx == 32 and (
+            1 <= by <= self.g_max_warps)
+
+    def g_run(self, k: int, tile=None, block=None) -> int:
+        """Rows of the framed tile that one warp walks at depth ``k``."""
+        ty = (tile or self.g_tile)[0]
+        return -(-(ty + 2 * k) // (block or self.g_block)[1])
+
+    def g_row_floats(self, k: int, tile_x=None) -> int:
+        """Row stride in floats of a G block's shared buffers at depth
+        ``k``: the framed row ``tile_x + 2k`` after a pad of ``(4 - k % 4)
+        % 4`` that puts the core's first column on a 16-byte boundary,
+        rounded up to 4 (``csrc/heat_g.cuh`` ``heat_g_row_floats``)."""
+        tx = self.g_tile[1] if tile_x is None else tile_x
+        return -(-((4 - k % 4) % 4 + tx + 2 * k) // 4) * 4
+
+    def g_smem_bytes(self, k: int, tile=None) -> int:
+        """Dynamic shared memory of one G block at depth ``k``: two
+        buffers of ``tile_y + 2k`` padded rows."""
+        ty, tx = tile or self.g_tile
+        return 2 * (ty + 2 * k) * self.g_row_floats(k, tx) * 4
+
+    def g_blocks_per_sm(self, k: int, tile=None, block=None) -> int:
+        """Blocks of a G launch that one SM holds by shared memory and
+        threads (2048 a SM); registers may hold fewer (the build phase of
+        ``chip_smoke.py`` asks the card)."""
+        bx, by = block or self.g_block
+        by_smem = self.smem_per_sm // (self.g_smem_bytes(k, tile)
+                                       + self.static_smem_bytes
+                                       + self.smem_reserved_per_block)
+        return min(by_smem, 2048 // (bx * by))
+
+    def g_tile_kinds(self, block_shape, k: int, regions=None, tile=None,
+                     origin=None, grid_shape=None) -> dict:
+        """The tiles of a G launch at depth ``k`` on a ``(bx, by)`` block,
+        counted by the branches of ``csrc/heat_g.cuh`` they run:
+        ``inside`` (the framed tile lies inside the block: one run of one
+        buffer a row) and ``block_edge`` (the checked per-cell load),
+        ``ragged_rows`` and ``ragged_cols`` (the last row or column tile
+        cut short), ``partial_group`` (a tile whose last output group has
+        fewer than 4 columns: the cell-by-cell last store) and, given the
+        block's ``origin`` in a grid of ``grid_shape``, ``global_edge``
+        (the framed tile reaches past the grid's interior: the step loop's
+        copy branch). ``regions`` lists ``(first row, rows)``: the whole
+        block by default (the monolithic kernel)."""
+        bx, by = block_shape
+        ty, tx = tile or self.g_tile
+        kinds = dict.fromkeys(("tiles", "inside", "block_edge",
+                               "ragged_rows", "ragged_cols",
+                               "partial_group", "global_edge"), 0)
+        for begin, rows in regions or [(0, bx)]:
+            for r0 in range(begin, begin + rows, ty):
+                for c0 in range(0, by, tx):
+                    h, w = min(ty, begin + rows - r0), min(tx, by - c0)
+                    lr0, lc0 = r0 - k, c0 - k
+                    inside = (lr0 >= 0 and lr0 + ty + 2 * k <= bx
+                              and lc0 >= 0 and lc0 + tx + 2 * k <= by)
+                    kinds["tiles"] += 1
+                    kinds["inside" if inside else "block_edge"] += 1
+                    kinds["ragged_rows"] += h < ty
+                    kinds["ragged_cols"] += w < tx
+                    kinds["partial_group"] += w % 4 != 0
+                    if origin is not None:
+                        gy, gx = origin[0] + lr0, origin[1] + lc0
+                        kinds["global_edge"] += (
+                            gy < 1 or gx < 1
+                            or gy + ty + 2 * k > grid_shape[0] - 1
+                            or gx + tx + 2 * k > grid_shape[1] - 1)
+        return kinds
+
+    @functools.lru_cache(maxsize=8)
+    def g_k_max(self, tile=None) -> int:
+        """Deepest K a G kernel takes at ``tile`` (``g_tile``): the two
+        buffers of :meth:`g_smem_bytes` within one block's shared memory
+        and ``e_min_blocks_per_sm`` blocks resident on one SM (E's rule)."""
+        per_block = min(self.smem_per_block_max,
+                        self.smem_per_sm // self.e_min_blocks_per_sm
+                        - self.smem_reserved_per_block)
+        k = 0
+        while (self.g_smem_bytes(k + 1, tile) + self.static_smem_bytes
+               <= per_block):
+            k += 1
+        return k
 
     def uni_fits(self, shape) -> bool:
         """Do the uniform-load kernels (E-uni, I-uni) take an ``(m, n)``

@@ -474,8 +474,11 @@ def _explain_sharded(config: HeatConfig, out: dict, backend: str,
                   and kind in ("G-uni", "G-fuse") else "")
         round_ = f"monolithic round: {detail['kernel']}{reason}"
     ty, tx = detail["tile"]
+    lanes, warps = detail["block"]
     out["path"] = (f"kernel {kind} ({round_}), K-deep rounds K={k}, "
-                   f"tile={ty}x{tx}{why}" + plain)
+                   f"tile={ty}x{tx}, {lanes}x{warps} threads (a lane 4 "
+                   f"columns of its warp's {detail['rows_per_warp']} rows)"
+                   f"{why}" + plain)
     return out
 
 

@@ -292,3 +292,134 @@ def test_picker_default_forced_and_refused():
                                                    "phase")
     assert not skb.pick_block_temporal_2d_deferred("G-circ", (16, 24), 8,
                                                    "overlap")
+
+
+# ---------------------------------------------------------------------------
+# The register-blocked step loop's rules (csrc/heat_g.cuh): shared memory,
+# blocks an SM, depth, launch shapes, tile kinds
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", range(1, 13))
+@pytest.mark.parametrize("tile_x", [4, 28, 112, 240])
+def test_g_rows_put_the_core_on_a_16_byte_boundary(k, tile_x):
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    sx = params().g_row_floats(k, tile_x)
+    pad = (4 - k % 4) % 4
+    assert (pad + k) % 4 == 0  # tile column k starts a group
+    assert sx % 4 == 0 and pad + tile_x + 2 * k <= sx < pad + tile_x + 2 * k + 4
+
+
+def test_g_smem_blocks_per_sm_and_k_max():
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    ty, tx = p.g_tile
+    for k in range(1, 10):
+        assert p.g_smem_bytes(k) == 2 * (ty + 2 * k) * p.g_row_floats(k) * 4
+    # At 96 x 112: K = 8 is a 112 x 128 framed tile, two buffers of 56 KiB.
+    assert p.g_row_floats(8) == 128 and p.g_smem_bytes(8) == 114_688
+    k_max = p.g_k_max()
+    assert k_max == 8
+    per_block = (p.smem_per_sm // p.e_min_blocks_per_sm
+                 - p.smem_reserved_per_block)
+    assert p.g_smem_bytes(k_max) + p.static_smem_bytes <= per_block
+    assert p.g_smem_bytes(k_max + 1) + p.static_smem_bytes > per_block
+    assert p.g_blocks_per_sm(k_max) >= p.e_min_blocks_per_sm
+    assert p.g_blocks_per_sm(k_max + 1) < p.e_min_blocks_per_sm
+    # Threads cap it too: 32 x 16 threads, 512 a block, four a SM.
+    assert p.g_blocks_per_sm(1, (8, 112), (32, 16)) == 4
+    # A smaller tile fits more blocks and deeper K.
+    assert p.g_blocks_per_sm(8, (56, 112), (32, 4)) == 3
+    assert p.g_blocks_per_sm(8, (32, 112), (32, 4)) == 4
+    assert p.g_k_max((32, 112)) > k_max
+    # Rows a warp: ceil((TY + 2K) / warps).
+    assert p.g_run(8) == 14 and p.g_run(1, (96, 112), (32, 16)) == 7
+
+
+@pytest.mark.parametrize("tile,block,ok", [
+    ((96, 112), (32, 8), True),
+    ((40, 240), (32, 16), True),
+    ((1, 4), (32, 1), True),
+    ((96, 110), (32, 8), False),    # width not a multiple of 4
+    ((96, 2), (32, 8), False),
+    ((0, 112), (32, 8), False),
+    ((96, 112), (16, 16), False),   # a row of threads must be a warp
+    ((96, 112), (64, 4), False),
+    ((96, 112), (32, 17), False),   # over the 512-thread launch bound
+    ((96, 112), (32, 32), False),
+    ((96, 112), (32, 0), False),
+])
+def test_g_takes_the_loops_launch_shapes(tile, block, ok):
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    assert params().g_takes(tile, block) is ok
+
+
+def test_g_defaults_are_shapes_the_loop_takes():
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    assert p.g_takes(p.g_tile, p.g_block)
+    for k in range(1, p.g_k_max() + 1):
+        assert p.g_takes((k, p.g_band_tile_x), p.g_band_block)
+
+
+@pytest.mark.parametrize("name,geometry", [
+    ("heat_g_block_uniform", (96, 110, 32, 8)),
+    ("heat_g_block_fused", (96, 112, 16, 16)),
+    ("heat_g_block_circular", (96, 112, 32, 32)),
+    ("heat_g_band_fix", (238, 32, 16)),
+])
+def test_launch_refuses_shapes_the_loop_cannot_take(name, geometry):
+    u = torch.zeros(BLOCK)
+    kw = dict(origin=(0, 0), grid_shape=GRID, cx=0.1, cy=0.1)
+    with pytest.raises(ValueError, match="does not take"):
+        skb._launch(name, (u,), torch.empty(BLOCK), K, True,
+                    geometry=geometry, **kw)
+
+
+def test_g_tile_kinds_count_the_branches():
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    # 500 x 250 blocks at K = 8: 6 x 3 tiles of 96 x 112, the last row
+    # tile 20 rows, the last column tile 26 columns (a group of 2).
+    kinds = p.g_tile_kinds((500, 250), 8, origin=(0, 250),
+                           grid_shape=(1000, 1000))
+    assert kinds["tiles"] == 18
+    assert kinds["inside"] + kinds["block_edge"] == 18
+    assert kinds["inside"] == 4  # row tiles 1-4 of column tile 1
+    assert kinds["ragged_rows"] == 3 and kinds["ragged_cols"] == 6
+    assert kinds["partial_group"] == 6
+    assert kinds["global_edge"] == 3  # the top row of tiles
+    assert p.g_tile_kinds((500, 252), 8)["partial_group"] == 0
+    # The deferred bulk's region and the band's windows.
+    bulk = p.g_tile_kinds((16384, 8192), 8, [(8, 16384 - 16)])
+    assert bulk["tiles"] == 171 * 74 and bulk["ragged_rows"] == 74
+    band = p.g_tile_kinds((16384, 8192), 8, [(0, 8), (16376, 8)],
+                          (8, p.g_band_tile_x))
+    assert band["tiles"] == 2 * 35 and band["inside"] == 0
+
+
+def test_picker_and_explain_name_the_kernel_and_its_shape():
+    from parallel_heat_tpu_torch import HeatConfig, explain
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    kind, detail = skb.pick_block_temporal_2d((16384, 8192), 8)
+    assert kind == "G-uni" and detail["kernel"] == "heat_g_block_uniform"
+    assert detail["tile"] == p.g_tile and detail["block"] == p.g_block
+    assert detail["rows_per_warp"] == p.g_run(8)
+    out = explain(HeatConfig(nx=32768, ny=32768, steps=200,
+                             mesh_shape=(2, 4), backend="cuda"),
+                  device="cpu")
+    ty, tx = p.g_tile
+    lanes, warps = p.g_block
+    assert "heat_g_block_uniform" in out["path"]
+    assert f"tile={ty}x{tx}, {lanes}x{warps} threads" in out["path"]
+    assert f"warp's {p.g_run(8)} rows" in out["path"]
+    fuse = explain(HeatConfig(nx=1000, ny=1000, mesh_shape=(2, 4),
+                              backend="cuda"), device="cpu")
+    assert "heat_g_block_fused" in fuse["path"]
+    assert f"{lanes}x{warps} threads" in fuse["path"]

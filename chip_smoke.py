@@ -12,10 +12,12 @@ prints the card's name and power limit, then one JSON line per phase:
    nvcc for sm_90a (one nvcc per source, started together), timed, with
    ptxas's report of registers, spills and static shared memory for each
    template instance by name (``<K, R, ...>``) and the instances that
-   spill; the H-fused instance the sharded 3D main path launches, and the
-   G-uni and G-fuse kernels the sharded 2D main path launches, must not
-   spill (the G kernels' registers and blocks an SM at the main path's
-   shape are printed);
+   spill; the E and E-uni instances the one-device 2D main path
+   launches, the H-fused instance the sharded 3D main path launches, and
+   the G-uni and G-fuse kernels the sharded 2D main path launches, must
+   not spill (the E and G kernels' registers and blocks an SM at the main
+   path's shape are printed; a second run from the cached build reads
+   nvcc's report kept beside each library);
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -28,7 +30,15 @@ prints the card's name and power limit, then one JSON line per phase:
    launches of B and their plain versions: K in {1, 3, K_default} on
    4096^2 and 1001x999, K in {4, K_default} with the residual on 1000^2
    (the launches of a 20-step converge window) and K_default on
-   16384^2. A (``heat_a_resident``)
+   16384^2. E and E-uni also at every compiled K (1 .. ``e_k_max``),
+   against each other too, on grids that run every branch of the tile
+   loop and the loads
+   (``hopper_params.e_tile_kinds``, asserted per grid and K: tiles
+   inside the grid and at each of its four edges, ragged last row and
+   column tiles, E-uni's TMA boxes with negative starts and past the far
+   edges, the step loop's copy branch, last groups of 1, 2 and 3
+   columns): 1001x1000, 1001x999, 333x1001, 250x1002, and 20x24 and
+   21x23, smaller than one tile. A (``heat_a_resident``)
    likewise at K in {1, 4, 7, 20} on 1000^2 (20 = one converge window,
    its launch on the main path; 7 ends in a part group of steps), K = 20
    on 1001x999 and on 1800^2 (near the largest grid it takes), and K in
@@ -77,7 +87,10 @@ prints the card's name and power limit, then one JSON line per phase:
    interior update only) with CUDA events, at the shape and depth of the
    kernel's launch on the main path: B, C, E, E-uni, I and I-uni at
    16384^2, A at 1000^2 with K = 20, D and F (K_default) at 512^3 with
-   ``conv3d`` and its 7-point weights as the yardstick. Events around
+   ``conv3d`` and its 7-point weights as the yardstick; E and E-uni
+   beside their time before the register-blocked tile loop, and E-uni's
+   device time at K = 4, 6 and 8, with the line's slope (a step) and
+   intercept (the fixed share of a launch). Events around
    back-to-back
    launches time the host when it is the slower side (A's 20-step launch
    at 1000^2 takes about as long on the card as its wrapper on the
@@ -375,25 +388,33 @@ def phase_build():
     check(main in fused and fused[main][1] == 0,
           f"H-fused's main-path instance <{main}> spills or is missing "
           f"from the ptxas report: {fused.get(main)}")
-    # Nor may the G-uni and G-fuse kernels the sharded 2D main path
-    # launches (one instance each); their registers, and the blocks an SM
-    # holds at the main path's depth, tile and thread block.
-    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    # Nor may the kernels on the register-blocked tile loop that the
+    # sharded 2D main path (G-uni, G-fuse) and the one-device main path (E,
+    # E-uni) launch, one instance each; their registers, and the blocks an
+    # SM holds at the main path's depth, tile and thread block.
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 
-    g_main = {}
-    for name in ("heat_g_block_uniform", "heat_g_block_fused"):
-        row = ptxas[name].get(name + "_kernel")
-        check(row is not None and row[1] == 0,
-              f"{name}'s kernel spills or is missing from the ptxas "
-              f"report: {row}")
-        g_main[name] = {"registers": row[0], "spill_stores": row[1],
-                        "k": hp.g_k_default, "tile": list(hp.g_tile),
-                        "block": list(hp.g_block),
-                        "blocks_per_sm": skb.g_occupancy(
-                            name, hp.g_k_default)}
+    def loop_main(names, k, tile, block):
+        out = {}
+        for name in names:
+            row = ptxas[name].get(name + "_kernel")
+            check(row is not None and row[1] == 0,
+                  f"{name}'s kernel spills or is missing from the ptxas "
+                  f"report: {row}")
+            out[name] = {"registers": row[0], "spill_stores": row[1],
+                         "k": k, "tile": list(tile), "block": list(block),
+                         "blocks_per_sm": sk.loop_occupancy(name, k, tile,
+                                                            block)}
+        return out
+
+    g_main = loop_main(("heat_g_block_uniform", "heat_g_block_fused"),
+                       hp.g_k_default, hp.g_tile, hp.g_block)
+    e_main = loop_main(("heat_e_temporal", "heat_e_uni_temporal"),
+                       hp.e_k_default, hp.e_tile, hp.e_block)
     emit({"phase": "build", "seconds": seconds,
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
+          "main_path_e": e_main,
           "main_path_h_instance": main, "main_path_g": g_main,
           "spilling_instances": spilling, "ptxas": ptxas})
 
@@ -449,8 +470,8 @@ def _check_one_step(sk, name, u, kw, err):
 
 def _check_multi(sk, name, u, k, kw, err):
     """K-step kernel ``name`` (A, E, E-uni, I or I-uni) at depth ``k``
-    against k
-    launches of B and its plain version, with and without the residual."""
+    against k launches of B and its plain version, with and without the
+    residual."""
     import torch
 
     launch, plain = _launchers(sk)[name]
@@ -472,6 +493,25 @@ def _check_multi(sk, name, u, k, kw, err):
     check(torch.equal(ok, nores), f"{where}: grid depends on with_residual")
 
 
+def _check_e_pair(sk, u, k, kw, err):
+    """E and, where the width allows it, E-uni at depth ``k``: each
+    against k launches of B and its plain version, with and without the
+    residual, and against each other, grid and residual."""
+    import torch
+
+    _check_multi(sk, "heat_e_temporal", u, k, kw, err)
+    if u.shape[1] % 4:
+        return
+    _check_multi(sk, "heat_e_uni_temporal", u, k, kw, err)
+    want, got = torch.empty_like(u), torch.full_like(u, float("nan"))
+    rw = sk.temporal_steps(u, want, k, True, **kw)
+    r = sk.temporal_steps_uni(u, got, k, True, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and same_float(r, rw),
+          f"heat_e_uni_temporal(K={k}) at {tuple(u.shape)} {kw} != "
+          f"heat_e_temporal")
+
+
 def phase_kernels(dev):
     """Kernels against their plain versions; returns max |diff| each."""
     import torch
@@ -485,6 +525,7 @@ def phase_kernels(dev):
     equal = dict(cx=CX, cy=CY)
     unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
     e_ks = sorted({1, 3, k_default})
+    every_k = list(range(1, params().e_k_max() + 1))
     # (shape, coefficient pairs, one-step?, depths of E, E-uni, I and
     # I-uni, depths of A)
     plan = [
@@ -517,6 +558,37 @@ def phase_kernels(dev):
                        "a_k": a_ks, "bitwise": True})
         del u
         torch.cuda.empty_cache()
+    # E and E-uni at every compiled K on grids chosen for the branches of
+    # the tile loop and the loads (csrc/heat_temporal.cuh,
+    # heat_e_uni_temporal.cu), each grid asserted to run at every K the
+    # tile kinds it is there for: (shape, coefficient pairs, kinds).
+    edges = ("top", "left", "bottom", "right", "ragged_rows", "ragged_cols",
+             "copies")
+    whole = ("inside", "interior") + edges
+    e_plan = [((1001, 1000), [equal, unequal], whole),
+              ((1001, 999), [equal, unequal], whole + ("partial_group",)),
+              ((333, 1001), [equal], ("inside", "partial_group")),
+              ((250, 1002), [equal], ("inside", "partial_group")),
+              ((20, 24), [equal, unequal], edges),
+              ((21, 23), [equal, unequal], edges + ("partial_group",))]
+    for shape, coeffs, need in e_plan:
+        u = torch.from_numpy(
+            (rng.standard_normal(shape) * 10).astype(np.float32)).to(dev)
+        kinds = {}
+        for k in every_k:
+            kinds[k] = params().e_tile_kinds(shape, k)
+            check(all(kinds[k][kind] for kind in need)
+                  and (kinds[k]["tiles"] == 1) == (shape[0] < 96),
+                  f"{shape} at K={k} runs no tile of some kind it is there "
+                  f"for ({need}): {kinds[k]}")
+            for kw in coeffs:
+                _check_e_pair(sk, u, k, kw, err)
+        report.append({"shape": list(shape), "coeffs": coeffs,
+                       "temporal": ["heat_e_temporal"] + (
+                           ["heat_e_uni_temporal"]
+                           if params().uni_fits(shape) else []),
+                       "k": every_k, "tile_kinds": kinds, "bitwise": True})
+        del u
     # A diverging grid: one NaN in the interior.
     u = torch.from_numpy(
         (rng.standard_normal((515, 776)) * 10).astype(np.float32)).to(dev)
@@ -573,16 +645,17 @@ def _profiled(fn):
     return wall, per
 
 
-def _device_ms(launch, name, made=20):
+def _device_ms(launch, name, made=40):
     """``{"device_ms", "profiler_records", "profiled_launches"}``: the
     mean device milliseconds of one launch of kernel ``name``, from a
     trace of ``made`` back-to-back calls of ``launch()``, over the
-    records the trace holds. On the measuring machine a trace loses one
-    to three records whatever their number (of five launches it kept
-    two), so a sum over the launches made would read low, and twenty
-    launches keep the loss small. A trace that kept fewer than 70% of
-    them is taken again, twice at most, and then refused: the mean of so
-    few could read anything."""
+    records the trace holds. On the measuring machine a trace loses a
+    few records whatever their number, more the longer the process has
+    run (one early in this script, five near its end, of 20 launches and
+    of 40 alike), so a sum over the launches made would read low, and
+    forty launches keep the loss small. A trace that kept fewer than 70%
+    of them is taken again, twice at most, and then refused: the mean of
+    so few could read anything."""
     for _ in range(3):
         _, per = _profiled(lambda: [launch() for _ in range(made)])
         hits = [v for key, v in per.items()
@@ -1045,9 +1118,20 @@ def _bound(nbytes, ops):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# The device time of E and E-uni at the main path's 16384^2, K = 8, no
+# residual, before the register-blocked tile loop (the column walk, and
+# E-uni's cp.async load; NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+# section 6).
+E_EARLIER_MS = 2.759
+E_UNI_EARLIER_MS = 2.522
+
+
 def phase_timing(dev):
     """ms per launch of each kernel, its plain version and the conv2d
-    yardstick, at the shape and depth of the kernel's main-path launch."""
+    yardstick, at the shape and depth of the kernel's main-path launch;
+    for E and E-uni also their time before the tile loop, and E-uni's
+    launch at K = 4, 6 and 8 (the fixed share of a launch, by the K
+    ladder)."""
     import torch
     import torch.nn.functional as F
 
@@ -1128,6 +1212,25 @@ def phase_timing(dev):
         launch(u, v)
         rows[name].update(_device_ms(lambda: launch(u, v), name))
         del u, v
+    rows["heat_e_temporal"]["earlier_design_device_ms"] = E_EARLIER_MS
+    rows["heat_e_uni_temporal"]["earlier_design_device_ms"] = \
+        E_UNI_EARLIER_MS
+    # E-uni's K ladder, its device ms at K = 4, 6, 8: the slope is a step,
+    # the intercept the launch's fixed share (its tiles' load and last
+    # store, and the launch).
+    u = HeatPlate2D(BIG, BIG).init_grid(dev)
+    v = torch.empty_like(u)
+    ladder = {}
+    for kk in (4, 6, 8):
+        def run(kk=kk):
+            sk.temporal_steps_uni(u, v, kk, False, **kw)
+        run()
+        ladder[f"k{kk}"] = _device_ms(run, "heat_e_uni_temporal")["device_ms"]
+    step, fixed = np.polyfit([4, 6, 8], [ladder[f"k{kk}"]
+                                         for kk in (4, 6, 8)], 1)
+    ladder.update(step_ms=float(step), fixed_ms=float(fixed))
+    rows["heat_e_uni_temporal"]["k_ladder_device_ms"] = ladder
+    del u, v
     emit({"phase": "timing", "kernels": rows})
     return rows
 

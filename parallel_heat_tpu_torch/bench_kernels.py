@@ -8,11 +8,14 @@ sharded block kernels G and H on the card over their launch shapes.
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
 gives them), then one JSON line per launch shape: B over thread blocks
-and rows per thread, E over output tiles, thread blocks and K. Each
-shape is first checked bitwise against the kernel's plain version on a
-ragged 1001 x 999 grid, then timed with CUDA events over ``--reps``
-launches on the model's ``size`` x ``size`` plate (far larger than the
-50 MB L2, so every launch reads device memory). A, whose grid must fit
+and rows per thread; E and E-uni over output tiles, thread blocks (32
+lanes by 4, 8 or 16 warps, with the blocks an SM the card holds,
+``occupancy``) and K up to ``e_k_max``.
+Each shape is first checked bitwise against the kernel's plain version,
+grid and residual, on a ragged 1001 x 999 grid (E-uni: 1001 x 1000),
+then timed with CUDA events over ``--reps`` launches on the model's
+``size`` x ``size`` plate (far larger than the 50 MB L2, so every launch
+reads device memory). A, whose grid must fit
 in shared memory, runs over its halo depth D on each of the
 ``--a-sizes`` plates: a 20-step launch with the residual (one converge
 window of the default check interval), checked bitwise against its
@@ -80,7 +83,7 @@ B_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (128, 2)]
 B_ROWS = [4, 8, 16]
 E_TILES = [(32, 112), (64, 112), (96, 112), (128, 112), (64, 128),
            (128, 128), (64, 240)]
-E_BLOCKS = [(32, 8), (32, 16), (32, 32)]
+E_BLOCKS = [(32, 4), (32, 8), (32, 16)]
 E_KS = [4, 6, 8, 10, 12, 16]
 A_DEPTHS = [1, 2, 4, 8]
 A_STEPS = 20
@@ -152,11 +155,13 @@ def _check_b(small, block, rows) -> bool:
                 and torch.equal(sk._residual_view(bits), res))
 
 
-def _check_e(small, k, tile, block) -> bool:
-    out, want = torch.empty_like(small), torch.empty_like(small)
+def _check_e(small, want, res, k, tile, block, name) -> bool:
+    """Kernel ``name`` (E or E-uni) at depth ``k``, tile and thread block
+    on ``small`` against its plain version's grid ``want`` and residual
+    ``res``."""
+    out = torch.full_like(small, float("nan"))
     bits = _bits(small.device)
-    sk._launch_e(small, out, k, bits, CX, CY, tile, block)
-    res = sk.temporal_steps_plain(small, want, k, cx=CX, cy=CY)
+    sk._launch_e(small, out, k, bits, CX, CY, tile, block, name)
     return bool(torch.equal(out, want)
                 and torch.equal(sk._residual_view(bits), res))
 
@@ -192,12 +197,15 @@ def sweep_a(sizes, reps: int):
 
 
 def sweep(size: int, reps: int):
-    """Yield one dict per launch shape of B and E."""
+    """Yield one dict per launch shape of B, E and E-uni."""
     p = params()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(0)
     small = torch.from_numpy(
         (rng.standard_normal((1001, 999)) * 10).astype(np.float32)).to(dev)
+    # E-uni's check grid: a width that is a multiple of 4.
+    small_uni = torch.from_numpy(
+        (rng.standard_normal((1001, 1000)) * 10).astype(np.float32)).to(dev)
     u = HeatPlate2D(size, size).init_grid(dev)
     v = torch.empty_like(u)
     bits = _bits(dev)
@@ -211,22 +219,32 @@ def sweep(size: int, reps: int):
                    "ms": ms, "ms_per_step": ms,
                    "default": (block == p.b_block
                                and rows == p.b_rows_per_thread)}
+    wants = {}
     for tile in E_TILES:
-        for k in E_KS:
-            smem = p.e_smem_bytes(k, tile) + p.static_smem_bytes
-            if smem > p.smem_per_block_max:
-                continue
-            per_sm = p.smem_per_sm // (smem + p.smem_reserved_per_block)
+        for k in (k for k in E_KS if k <= p.e_k_max(tile)):
+            for grid in (small, small_uni):
+                if (id(grid), k) not in wants:
+                    want = torch.empty_like(grid)
+                    res = sk.temporal_steps_plain(grid, want, k, cx=CX,
+                                                  cy=CY)
+                    wants[id(grid), k] = (want, res)
             for block in E_BLOCKS:
-                ok = _check_e(small, k, tile, block)
-                ms = time_ms(lambda: sk._launch_e(u, v, k, None, CX, CY,
-                                                  tile, block), reps)
-                yield {"kernel": "heat_e_temporal", "tile": list(tile),
-                       "block": list(block), "k": k, "smem_bytes": smem,
-                       "blocks_per_sm_by_smem": per_sm, "bitwise": ok,
-                       "ms": ms, "ms_per_step": ms / k,
-                       "default": (tile == p.e_tile and block == p.e_block
-                                   and k == p.e_k_default)}
+                for name, grid in (("heat_e_temporal", small),
+                                   ("heat_e_uni_temporal", small_uni)):
+                    ok = _check_e(grid, *wants[id(grid), k], k, tile, block,
+                                  name)
+                    ms = time_ms(lambda: sk._launch_e(
+                        u, v, k, None, CX, CY, tile, block, name), reps)
+                    yield {"kernel": name, "tile": list(tile),
+                           "block": list(block), "k": k,
+                           "smem_bytes": p.e_smem_bytes(
+                               k, tile, tma=name == "heat_e_uni_temporal"),
+                           "occupancy": sk.loop_occupancy(name, k, tile,
+                                                          block),
+                           "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                           "default": (tile == p.e_tile
+                                       and block == p.e_block
+                                       and k == p.e_k_default)}
 
 
 def sweep_3d(size: int, reps: int, only=("d", "f")):
@@ -443,8 +461,8 @@ def sweep_g(reps: int):
                            "smem_bytes": smem,
                            "blocks_per_sm_by_smem_threads":
                                p.g_blocks_per_sm(k, tile, block),
-                           "occupancy": skb.g_occupancy(name, k, tile,
-                                                        block),
+                           "occupancy": sk.loop_occupancy(name, k, tile,
+                                                          block),
                            "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
                            "default": (tile == p.g_tile
                                        and block == p.g_block
@@ -654,8 +672,8 @@ def main(argv=None) -> int:
     rows = []
     if only & {"b", "e"}:
         for row in sweep(args.size, args.reps):
-            if {"heat_b_step": "b",
-                    "heat_e_temporal": "e"}[row["kernel"]] not in only:
+            if {"heat_b_step": "b", "heat_e_temporal": "e",
+                    "heat_e_uni_temporal": "e"}[row["kernel"]] not in only:
                 continue
             row["size"] = args.size
             rows.append(row)

@@ -27,10 +27,10 @@
 //     read from HBM once and written once per launch;
 //   - the steps run in groups of D. Within a group the frame's valid
 //     region shrinks by one cell per side and step, as in heat_e_temporal,
-//     and only the region the tile still needs is updated, by
-//     heat_e_temporal's own step (heat_temporal.cuh: a run of rows per
-//     thread with the rows above and below in registers, no test in a
-//     block whose framed tile lies inside the interior). After each
+//     and only the region the tile still needs is updated, by the
+//     column walk of heat_temporal.cuh (heat_e_tile_step: a run of rows
+//     per thread with the rows above and below in registers, no test in
+//     a block whose framed tile lies inside the interior). After each
 //     group but the last, a block writes its tile's D-deep edge band to a
 //     global exchange plane, the whole grid synchronises
 //     (cooperative_groups grid.sync(), which also orders the writes), and
@@ -106,8 +106,8 @@ heat_a_resident_kernel(const float* __restrict__ u, float* __restrict__ out,
     // A group of j <= d steps from a frame of depth d. Step s updates the
     // region j - s cells around the tile, which the frame's shrinking
     // valid region (s cells in from its edge) always contains, so the
-    // tile is exact after the group. The steps are heat_e_temporal's
-    // (heat_temporal.cuh).
+    // tile is exact after the group. The steps are the column walk of
+    // heat_temporal.cuh (heat_e_tile_step).
     const int j = min(d, k - done);
     for (int s = 1; s <= j; ++s) {
       const int e = d - (j - s);

@@ -18,7 +18,7 @@
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(kHeatGMaxThreads)
+__global__ void __launch_bounds__(kHeatMaxThreads)
     heat_g_band_fix_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGFused, false>(HEAT_G_ARGS);
 }

@@ -15,7 +15,7 @@
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(kHeatGMaxThreads)
+__global__ void __launch_bounds__(kHeatMaxThreads)
     heat_g_block_circular_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGCircular, false>(HEAT_G_ARGS);
 }

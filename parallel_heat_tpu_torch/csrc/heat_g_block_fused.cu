@@ -20,7 +20,7 @@
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(kHeatGMaxThreads)
+__global__ void __launch_bounds__(kHeatMaxThreads)
     heat_g_block_fused_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGFused, false>(HEAT_G_ARGS);
 }
@@ -51,8 +51,8 @@ extern "C" int heat_g_block_fused(
 extern "C" int heat_g_block_fused_occupancy(int k, int tile_y,
                                             int tile_x, int block_x,
                                             int block_y, int* blocks) {
-  return heat_g_occupancy(heat_g_block_fused_kernel, k, tile_y, tile_x,
-                          block_x, block_y, blocks);
+  return heat_loop_occupancy(heat_g_block_fused_kernel, k, tile_y, tile_x,
+                             block_x, block_y, 0, blocks);
 }
 
 extern "C" const char* heat_g_block_fused_error_string(int code) {

@@ -14,7 +14,7 @@
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(kHeatGMaxThreads)
+__global__ void __launch_bounds__(kHeatMaxThreads)
     heat_g_block_padded_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGPadded, false>(HEAT_G_ARGS);
 }

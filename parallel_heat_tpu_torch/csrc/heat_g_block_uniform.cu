@@ -16,7 +16,7 @@
 
 #include "heat_g.cuh"
 
-__global__ void __launch_bounds__(kHeatGMaxThreads)
+__global__ void __launch_bounds__(kHeatMaxThreads)
     heat_g_block_uniform_kernel(HEAT_G_PARAMS) {
   heat_g_tile<kHeatGFused, true>(HEAT_G_ARGS);
 }
@@ -43,8 +43,8 @@ extern "C" int heat_g_block_uniform(
 extern "C" int heat_g_block_uniform_occupancy(int k, int tile_y,
                                               int tile_x, int block_x,
                                               int block_y, int* blocks) {
-  return heat_g_occupancy(heat_g_block_uniform_kernel, k, tile_y, tile_x,
-                          block_x, block_y, blocks);
+  return heat_loop_occupancy(heat_g_block_uniform_kernel, k, tile_y, tile_x,
+                             block_x, block_y, 0, blocks);
 }
 
 extern "C" const char* heat_g_block_uniform_error_string(int code) {

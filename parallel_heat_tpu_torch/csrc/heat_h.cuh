@@ -328,40 +328,13 @@ inline bool heat_h_tma_fits(const float* u, int64_t by, int64_t bz,
          heat_h_holds_tile(bz, block_z, k);
 }
 
-// Error codes past cudaError_t's: cuTensorMapEncodeTiled's CUresult, or
-// that of fetching it from the driver, plus this base.
-constexpr int kHeatHEncodeError = 100000;
-
-typedef CUresult (*HeatEncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
 // The tensor map of the bx x by x bz block u (innermost z first), boxes
 // of (block_z + 4) x (block_y * rows) x 1 cells (heat_t3d_stream_tma),
-// zeros outside the block. The
-// driver's encoder is fetched through the runtime, so nothing links
-// against the driver library. Returns 0 or an error code.
+// zeros outside the block. Returns 0 or an error code
+// (heat_tma_error_string).
 inline int heat_h_encode_map(CUtensorMap* map, const float* u, int64_t bx,
                              int64_t by, int64_t bz, int block_z,
                              int block_y, int rows) {
-  static HeatEncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return kHeatHEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
-    encode = reinterpret_cast<HeatEncodeTiled>(fn);
-  }
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bz),
                               static_cast<cuuint64_t>(by),
                               static_cast<cuuint64_t>(bx)};
@@ -369,20 +342,7 @@ inline int heat_h_encode_map(CUtensorMap* map, const float* u, int64_t bx,
                                  static_cast<cuuint64_t>(by * bz) * 4};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(block_z + 4),
                              static_cast<cuuint32_t>(block_y * rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(u), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kHeatHEncodeError + static_cast<int>(r);
-}
-
-// The message of an entry point's error code.
-inline const char* heat_h_error_string(int code) {
-  if (code >= kHeatHEncodeError)
-    return "cuTensorMapEncodeTiled failed (CUresult = code - 100000)";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return heat_tma_encode(map, u, 3, dims, strides, box);
 }
 
 // Dynamic shared memory of an H launch: the step phase's planes; for the
@@ -403,7 +363,7 @@ inline int heat_h_smem_bytes(int k, int wy, int block_z, bool tma) {
 // A HeatHFusedKernel also takes u's tensor map: encoded for tma (a kTma
 // instance; heat_h_tma_fits must hold), zeros and unread otherwise.
 // Returns a cudaError_t: 0, or the reason the launch was refused; or an
-// encoding error (heat_h_error_string).
+// encoding error (heat_tma_error_string).
 template <typename Kernel>
 inline int heat_h_launch(Kernel kernel, bool tma, const float* u,
                          const float* zt, const float* yt, const float* xlo,

@@ -48,5 +48,5 @@ extern "C" int heat_h_band_fix_3d(
 }
 
 extern "C" const char* heat_h_band_fix_3d_error_string(int code) {
-  return heat_h_error_string(code);
+  return heat_tma_error_string(code);
 }

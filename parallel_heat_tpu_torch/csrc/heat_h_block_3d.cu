@@ -45,5 +45,5 @@ extern "C" int heat_h_block_3d(const float* ext, float* out, uint32_t* res,
 }
 
 extern "C" const char* heat_h_block_3d_error_string(int code) {
-  return heat_h_error_string(code);
+  return heat_tma_error_string(code);
 }

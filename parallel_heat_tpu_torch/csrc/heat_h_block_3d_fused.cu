@@ -87,5 +87,5 @@ extern "C" int heat_h_block_3d_fused_occupancy(int k, int rows, int tma,
 }
 
 extern "C" const char* heat_h_block_3d_fused_error_string(int code) {
-  return heat_h_error_string(code);
+  return heat_tma_error_string(code);
 }

@@ -39,10 +39,11 @@
 //     step reads a cell's four neighbours, also for the Dirichlet cells
 //     it then copies) and all K steps in one group. The kernel is the
 //     same, compiled without the cooperative parts (kCoop = false);
-//   - the step is heat_e_temporal's (heat_temporal.cuh), as in
-//     heat_a_resident: global boundary cells are copied, every step
-//     rounds to float32 with heat_combine's operation order, the last
-//     step writes straight to the output and reduces the member's
+//   - the step is the column walk of heat_temporal.cuh
+//     (heat_e_tile_step), as in heat_a_resident: global boundary cells
+//     are copied, every step rounds to float32 with heat_combine's
+//     operation order, the last step writes straight to the output and
+//     reduces the member's
 //     residual into res[b] (heat_common.cuh: atomicMax on the bit
 //     pattern, NaN above +inf). So a member of a launch is bitwise a
 //     launch of heat_a_resident, and of K launches of heat_b_step, on

@@ -1,9 +1,49 @@
-// Shared device code of the K-step temporal kernels (heat_e_temporal.cu,
-// heat_e_uni_temporal.cu): the step phase that follows a block's load of
-// its framed tile. The kernels differ only in how they load. (The
-// sharded block kernels heat_g_*.cu step with their own register-blocked
-// loop, heat_g.cuh.)
-// heat_a_resident.cu steps its resident tiles with heat_e_tile_step_any.
+// Shared device code of the 2D K-step kernels: the step phases that follow
+// a block's load of its framed tile.
+//
+//   - The register-blocked tile loop (heat_rows, heat_tile_steps): the
+//     step phase of kernels E and E-uni (heat_e_temporal.cu,
+//     heat_e_uni_temporal.cu, through heat_e_steps) and of the sharded
+//     block kernels G (heat_g.cuh). A kernel brings its load and the
+//     wait for it; the K steps, the last store and the residual are this
+//     loop's, so a G block's K steps are bitwise E's on the same cells.
+//   - The column walk (heat_e_tile_step): a thread walks a run of rows of
+//     one column with the rows above and below in registers. Kernels A
+//     and M (heat_a_resident.cu, heat_m_ensemble.cu) still step with it;
+//     E stepped with it before the tile loop.
+//
+// The tile loop. A warp walks a run of rows of the tile, each lane owning
+// a group of 4 adjacent columns with the rows above, at and below it in
+// float4 registers. Per row a lane reads the row below with one 16-byte
+// load, takes the cell left of its group from the lane to its left and the
+// cell right of it from the lane to its right (warp shuffles; lanes 0 and
+// 31 read that one cell from shared memory) and stores its 4 results with
+// one 16-byte store: 8 bytes of shared traffic and about 10 instructions a
+// cell-step, 7 of them the combine's rounded operations (the column walk:
+// 16 bytes and about 15). Shared rows are padded so that the core columns
+// start on a 16-byte boundary (tile column K at a multiple of 4 floats,
+// heat_row_pad and heat_row_floats) in every layout.
+//
+// Why the bits hold. A step updates the whole 4-column groups that cover
+// its valid region (columns [s, TX+2K-s) at step s), so it also writes up
+// to 3 cells on each side that lie outside the K-step cone of the outputs,
+// computed from stale or never-loaded cells. That changes no output bit: a
+// cell valid at step s reads only cells valid at step s-1, so no value
+// from outside the cone ever reaches a cell that is written out, and the
+// last step stores (and counts in the residual) exactly the output cells.
+// Cells outside the global interior are copied, never recomputed, so the
+// Dirichlet ring stays bit-exact even in a diverging run, and every step
+// rounds to float32 like a launch of heat_b_step: K steps of the loop are
+// bitwise K launches of B.
+//
+// Launch shapes (heat_loop_takes; ops/hopper_params.py loop_takes is the
+// same rule): thread blocks of 32 x W threads, W <= 16, one warp per row
+// of threads, so that the shuffles stay inside a row of lanes; output
+// tiles TX a multiple of 4, so that every tile's core starts a group. A
+// warp's run of rows is ceil((TY+2K) / W); a row wider than 32 groups is
+// walked in passes of 32. The kernels are __launch_bounds__(512), so that
+// they may take up to 128 registers a thread and the float4 rows never
+// spill (at the 64 a 1024-thread bound allows, they did).
 
 #pragma once
 
@@ -15,6 +55,8 @@
 __device__ __forceinline__ int heat_clamp_local(int64_t v, int lo, int hi) {
   return static_cast<int>(v < lo ? lo : (v > hi ? hi : v));
 }
+
+// --- The column walk (kernels A and M) ----------------------------------
 
 // One step over rows [r0, r1) and columns [c0, c1) of the shared tile
 // (row stride sx), for this thread's rows. An inner step writes dst, a
@@ -71,41 +113,244 @@ __device__ __forceinline__ void heat_e_tile_step_any(
                                    r_lo, r_hi, c_lo, c_hi, a0, cx, cy, rmax);
 }
 
+// --- The register-blocked tile loop (kernels E, E-uni and G) -------------
+
+// One row of lanes: the launch shapes' thread block is 32 x W, W at most
+// kHeatMaxWarps.
+constexpr int kHeatLanes = 32;
+constexpr int kHeatMaxWarps = 16;
+constexpr int kHeatMaxThreads = kHeatLanes * kHeatMaxWarps;
+constexpr unsigned kHeatFullWarp = 0xffffffffu;
+
+// Shared-memory layout of one buffer at depth k and tile width tile_x: the
+// row stride in floats (a multiple of 4) and the pad that puts tile
+// column k on a 16-byte boundary. ops/hopper_params.py row_floats is the
+// same rule.
+__host__ __device__ __forceinline__ int heat_row_pad(int k) {
+  return (4 - k % 4) % 4;
+}
+__host__ __device__ __forceinline__ int heat_row_floats(int k, int tile_x) {
+  return (heat_row_pad(k) + tile_x + 2 * k + 3) / 4 * 4;
+}
+
+// The launch shapes the loop takes (ops/hopper_params.py loop_takes is
+// the same rule): rows of 32 lanes, at most kHeatMaxWarps of them, output
+// tiles whose width is a multiple of 4.
+inline bool heat_loop_takes(int tile_y, int tile_x, int block_x,
+                            int block_y) {
+  return tile_y >= 1 && tile_x >= 4 && tile_x % 4 == 0 &&
+         block_x == kHeatLanes && block_y >= 1 && block_y <= kHeatMaxWarps;
+}
+
+// Two buffers of tile_y + 2k rows of heat_row_floats (the loop's layout;
+// ops/hopper_params.py loop_smem_bytes).
+inline size_t heat_loop_smem_bytes(int k, int tile_y, int tile_x) {
+  return sizeof(float) * 2 * static_cast<size_t>(tile_y + 2 * k) *
+         static_cast<size_t>(heat_row_floats(k, tile_x));
+}
+
+// Thread blocks of `kernel`, a kernel of this loop launched at depth k,
+// tile and thread block with `extra` bytes of dynamic shared memory past
+// the loop's two buffers, that one SM holds at once, into *blocks (the
+// CUDA occupancy calculator, registers included). Returns a cudaError_t.
+template <typename Kernel>
+inline int heat_loop_occupancy(Kernel kernel, int k, int tile_y, int tile_x,
+                               int block_x, int block_y, size_t extra,
+                               int* blocks) {
+  if (blocks == nullptr || k < 1 ||
+      !heat_loop_takes(tile_y, tile_x, block_x, block_y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = heat_loop_smem_bytes(k, tile_y, tile_x) + extra;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, block_x * block_y, smem));
+}
+
+// One step of this warp's rows [r0, r1) over the 4-column groups
+// [g0, g1) of the shared tile: group g holds shared floats [4g, 4g+4) of
+// each row, tile columns [4g - pad, 4g - pad + 4). src and dst are
+// 16-byte aligned buffers with a row stride of sx floats. Lanes take the
+// groups in passes of 32; every lane of the warp runs every pass, so the
+// shuffles see the whole warp, and a lane past g1 loads its own group
+// (or the row's last) and stores nothing. An inner step writes dst. The
+// last step (kLast) writes the grid in global memory instead, tile cell
+// (r, c) at out[base + r * ld + c], for the columns below c_end only,
+// 16 bytes at a time where vec_out says the address allows it, and folds
+// the residual's bit pattern of exactly those cells into rmax. With
+// kEdge the tile reaches past the grid's interior, rows [r_lo, r_hi] and
+// columns [c_lo, c_hi] in tile coordinates, and the cells outside it are
+// copied; without it every cell is updated and nothing is tested.
+template <bool kLast, bool kEdge>
+__device__ __forceinline__ void heat_rows(
+    const float* __restrict__ src, float* __restrict__ dst,
+    float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
+    bool vec_out, int r0, int r1, int g0, int g1, int c_end, int r_lo,
+    int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
+    uint32_t& rmax) {
+  if (r0 >= r1) return;  // uniform across the warp
+  const int lane = static_cast<int>(threadIdx.x);
+  const int sx4 = sx >> 2;
+  const float4* __restrict__ s4 = reinterpret_cast<const float4*>(src);
+  for (int gb = g0; gb < g1; gb += kHeatLanes) {
+    const int g = gb + lane;
+    const bool active = g < g1;
+    const int gl = min(g, sx4 - 1);
+    const int c = 4 * gl - pad;  // the group's first tile column
+    // Lane 31 reads the cell right of its group from shared memory, lane
+    // 0 the cell left of its own (row r's float before or after the
+    // group: the row above's last or the row below's first where the
+    // group ends the row; r >= 1 and r + 1 < rows always). The other lanes
+    // read lane 0's cell too, a broadcast: one load for the warp, with no
+    // branch around it.
+    const int e_col = lane == kHeatLanes - 1 ? 4 * gl + 4 : 4 * gb - 1;
+    bool ci0 = true, ci1 = true, ci2 = true, ci3 = true;
+    if (kEdge) {
+      ci0 = c >= c_lo && c <= c_hi;
+      ci1 = c + 1 >= c_lo && c + 1 <= c_hi;
+      ci2 = c + 2 >= c_lo && c + 2 <= c_hi;
+      ci3 = c + 3 >= c_lo && c + 3 <= c_hi;
+    }
+    bool st0 = false, st1 = false, st2 = false, st3 = false;
+    if (kLast) {
+      st0 = active && c < c_end;
+      st1 = active && c + 1 < c_end;
+      st2 = active && c + 2 < c_end;
+      st3 = active && c + 3 < c_end;
+    }
+    const float4* p = s4 + gl;
+    float4 up = p[(r0 - 1) * sx4];
+    float4 cc = p[r0 * sx4];
+    float4 dn = p[(r0 + 1) * sx4];
+    const float* pe = src + r0 * sx + e_col;
+    float* q = kLast ? out + (base + static_cast<int64_t>(r0) * ld + c)
+                     : dst + (r0 * sx + 4 * gl);
+    // Row r from the rows above, at and below it in registers; the row
+    // below the next is read ahead by the loop, which stops one row short
+    // so that the read stays inside the rows (r1 < rows), and the last
+    // row runs on its own.
+    auto row = [&](int r) {
+      const float e = *pe;
+      float lf = __shfl_up_sync(kHeatFullWarp, cc.w, 1);
+      float rt = __shfl_down_sync(kHeatFullWarp, cc.x, 1);
+      if (lane == 0) lf = e;
+      if (lane == kHeatLanes - 1) rt = e;
+      float4 v;
+      v.x = heat_combine(cc.x, up.x, dn.x, lf, cc.y, a0, cx, cy);
+      v.y = heat_combine(cc.y, up.y, dn.y, cc.x, cc.z, a0, cx, cy);
+      v.z = heat_combine(cc.z, up.z, dn.z, cc.y, cc.w, a0, cx, cy);
+      v.w = heat_combine(cc.w, up.w, dn.w, cc.z, rt, a0, cx, cy);
+      const bool rin = !kEdge || (r >= r_lo && r <= r_hi);
+      const bool in0 = rin && ci0, in1 = rin && ci1, in2 = rin && ci2,
+                 in3 = rin && ci3;
+      if (kEdge) {
+        v.x = in0 ? v.x : cc.x;
+        v.y = in1 ? v.y : cc.y;
+        v.z = in2 ? v.z : cc.z;
+        v.w = in3 ? v.w : cc.w;
+      }
+      if (kLast) {
+        if (st0 && in0) rmax = max(rmax, heat_diff_bits(v.x, cc.x));
+        if (st1 && in1) rmax = max(rmax, heat_diff_bits(v.y, cc.y));
+        if (st2 && in2) rmax = max(rmax, heat_diff_bits(v.z, cc.z));
+        if (st3 && in3) rmax = max(rmax, heat_diff_bits(v.w, cc.w));
+        if (vec_out && st3) {
+          *reinterpret_cast<float4*>(q) = v;
+        } else {
+          if (st0) q[0] = v.x;
+          if (st1) q[1] = v.y;
+          if (st2) q[2] = v.z;
+          if (st3) q[3] = v.w;
+        }
+        q += ld;
+      } else {
+        if (active) *reinterpret_cast<float4*>(q) = v;
+        q += sx;
+      }
+      pe += sx;
+    };
+    int r = r0;
+#pragma unroll 4
+    for (; r < r1 - 1; ++r) {
+      const float4 nx = p[(r + 2) * sx4];
+      row(r);
+      up = cc;
+      cc = dn;
+      dn = nx;
+    }
+    row(r);
+  }
+}
+
+// heat_rows with kEdge chosen at run time (uniform per block).
+template <bool kLast>
+__device__ __forceinline__ void heat_rows_any(
+    bool edge, const float* __restrict__ src, float* __restrict__ dst,
+    float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
+    bool vec_out, int r0, int r1, int g0, int g1, int c_end, int r_lo,
+    int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
+    uint32_t& rmax) {
+  if (edge)
+    heat_rows<kLast, true>(src, dst, out, sx, pad, base, ld, vec_out, r0, r1,
+                           g0, g1, c_end, r_lo, r_hi, c_lo, c_hi, a0, cx, cy,
+                           rmax);
+  else
+    heat_rows<kLast, false>(src, dst, out, sx, pad, base, ld, vec_out, r0,
+                            r1, g0, g1, c_end, r_lo, r_hi, c_lo, c_hi, a0,
+                            cx, cy, rmax);
+}
+
+// The wait of a load issued with cp.async and committed: each thread's
+// own copies, then the block's.
+struct HeatCpAsyncWait {
+  __device__ __forceinline__ void operator()() const {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+};
+
 // Steps 1 .. K of one block, after its load of the framed tile was
-// issued (cp.async) and committed: `src` holds sy rows of sw cells at a
-// row stride of sx floats, and shared cell (0, 0) is global cell (gy0,
-// gx0) of an m x n grid, whose interior decides update or copy. Waits
-// for the load, runs the K steps ping-ponging between src and dst, and
-// writes the last step's tile rows [w_r0, w_r1) and columns [k, w_c1)
-// to out[base + r * ld + c]; with `res` non-null it reduces the
-// residual of exactly those cells into *res. Every thread of the block
-// must call it. heat_e_steps writes into the grid itself; the sharded
-// block kernels (heat_g.cuh) write into a block of it.
+// issued: buffer `src` holds sy rows of sw cells, tile cell (r, c) at
+// src[r * sx + pad + c], and shared cell (0, 0) is global cell (gy0, gx0)
+// of an m x n grid, whose interior decides update or copy. `wait_load()`,
+// which every thread calls, returns once the load has landed for the
+// whole block. Runs the K steps ping-ponging between src and dst, and
+// writes the last step's tile rows [w_r0, w_r1) and columns [k, w_c1) to
+// out[base + r * ld + c]; with `res` non-null it reduces the residual of
+// exactly those cells into *res. Every thread of the block must call it.
+template <class Wait>
 __device__ __forceinline__ void heat_tile_steps(
-    float* src, float* dst, int sx, int sy, int sw, int64_t gy0,
+    float* src, float* dst, int sx, int pad, int sy, int sw, int64_t gy0,
     int64_t gx0, int64_t m, int64_t n, int k, int w_r0, int w_r1, int w_c1,
     float a0, float cx, float cy, float* __restrict__ out, int64_t base,
-    int64_t ld, uint32_t* res) {
+    int64_t ld, uint32_t* res, Wait wait_load) {
   // The grid's interior, rows 1 .. m-2 and columns 1 .. n-2, in tile
   // coordinates (clamped to the tile, so an empty range stays empty).
   const int r_lo = heat_clamp_local(1 - gy0, 0, sy);
   const int r_hi = heat_clamp_local(m - 2 - gy0, -1, sy - 1);
   const int c_lo = heat_clamp_local(1 - gx0, 0, sw);
   const int c_hi = heat_clamp_local(n - 2 - gx0, -1, sw - 1);
-  // This thread's run of rows.
+  // This warp's run of rows.
   const int run = (sy + blockDim.y - 1) / blockDim.y;
   const int t_r0 = threadIdx.y * run;
   const int t_r1 = min(t_r0 + run, sy);
   // Does the tile reach past the interior? Uniform across the block.
   const bool edge = r_lo > 0 || r_hi < sy - 1 || c_lo > 0 || c_hi < sw - 1;
-  __pipeline_wait_prior(0);
-  __syncthreads();
+  // Can the last step store a group as one 16-byte write? Uniform too.
+  const bool vec_out =
+      ld % 4 == 0 && (reinterpret_cast<uint64_t>(out) +
+                      4 * static_cast<uint64_t>(base - pad)) % 16 == 0;
+  wait_load();
 
-  // Steps 1 .. K-1 over the shrinking valid region.
+  uint32_t rmax = 0u;
+  // Steps 1 .. K-1 over the whole groups that cover the valid region.
   for (int s = 1; s < k; ++s) {
-    heat_e_tile_step_any<false>(edge, src, dst, sx, 0, sx, max(t_r0, s),
-                                min(t_r1, sy - s), s, sw - s, r_lo, r_hi,
-                                c_lo, c_hi, a0, cx, cy, nullptr);
+    heat_rows_any<false>(edge, src, dst, nullptr, sx, pad, 0, 0, false,
+                         max(t_r0, s), min(t_r1, sy - s), (pad + s) / 4,
+                         (pad + sw - s + 3) / 4, 0, r_lo, r_hi, c_lo, c_hi,
+                         a0, cx, cy, rmax);
     __syncthreads();
     float* t = src;
     src = dst;
@@ -114,22 +359,43 @@ __device__ __forceinline__ void heat_tile_steps(
 
   // Step K: the rows and columns asked for, written to global memory,
   // with the residual.
-  uint32_t rmax = 0u;
-  heat_e_tile_step_any<true>(edge, src, out, sx, base, ld,
-                             max(t_r0, w_r0), min(t_r1, w_r1), k, w_c1, r_lo,
-                             r_hi, c_lo, c_hi, a0, cx, cy, &rmax);
+  heat_rows_any<true>(edge, src, nullptr, out, sx, pad, base, ld, vec_out,
+                      max(t_r0, w_r0), min(t_r1, w_r1), (pad + k) / 4,
+                      (pad + w_c1 + 3) / 4, w_c1, r_lo, r_hi, c_lo, c_hi, a0,
+                      cx, cy, rmax);
   if (res != nullptr) heat_block_max(rmax, res);
 }
 
-// heat_tile_steps for a tile of the grid itself (kernels E and E-uni):
-// the central TY x TX tile, cut at the grid's edge, lands in `out`, an
-// m x n grid like the input.
+// --- Kernels E and E-uni ------------------------------------------------
+
+// heat_tile_steps for a tile of the grid itself: blockIdx.x is the tile,
+// row-major over n_col_tiles columns of tiles; shared cell (0, 0) is
+// global cell (gy0, gx0) = (row tile * TY - K, column tile * TX - K); the
+// central TY x TX tile, cut at the grid's edge, lands in `out`, an m x n
+// grid like the input.
+template <class Wait>
 __device__ __forceinline__ void heat_e_steps(
-    float* src, float* dst, int sx, int sy, int sw, int64_t gy0,
+    float* src, float* dst, int sx, int pad, int sy, int sw, int64_t gy0,
     int64_t gx0, int64_t m, int64_t n, int k, int tile_y, int tile_x,
-    float a0, float cx, float cy, float* __restrict__ out, uint32_t* res) {
+    float a0, float cx, float cy, float* __restrict__ out, uint32_t* res,
+    Wait wait_load) {
   const int r_end = heat_clamp_local(m - gy0, 0, k + tile_y);
   const int c_end = heat_clamp_local(n - gx0, 0, k + tile_x);
-  heat_tile_steps(src, dst, sx, sy, sw, gy0, gx0, m, n, k, k, r_end, c_end,
-                  a0, cx, cy, out, gy0 * n + gx0, n, res);
+  heat_tile_steps(src, dst, sx, pad, sy, sw, gy0, gx0, m, n, k, k, r_end,
+                  c_end, a0, cx, cy, out, gy0 * n + gx0, n, res, wait_load);
+}
+
+// The checks of an E or E-uni launch: the grid, K, the launch shape the
+// loop takes, and a grid of tiles that fits one launch. Sets
+// *n_col_tiles and *blocks. Returns a cudaError_t.
+inline int heat_e_geometry(int64_t m, int64_t n, int k, int tile_y,
+                           int tile_x, int block_x, int block_y,
+                           int64_t* n_col_tiles, int64_t* blocks) {
+  if (m < 3 || n < 3 || k < 1 ||
+      !heat_loop_takes(tile_y, tile_x, block_x, block_y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *n_col_tiles = (n + tile_x - 1) / tile_x;
+  *blocks = *n_col_tiles * ((m + tile_y - 1) / tile_y);
+  return *blocks > 0x7fffffffLL ? static_cast<int>(cudaErrorInvalidValue)
+                                : 0;
 }

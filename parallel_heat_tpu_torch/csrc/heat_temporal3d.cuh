@@ -41,10 +41,10 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
 #include <cuda_pipeline.h>
 
 #include "heat_common.cuh"
+#include "heat_tma.cuh"
 
 // Input planes prefetched ahead of the one being stepped, and the input
 // ring's slots: the planes in flight plus the current and the previous.
@@ -185,64 +185,6 @@ __device__ __forceinline__ void heat_t3d_stream(
   if (res != nullptr) heat_block_max(rmax, res);
 }
 
-// --- The Tensor Memory Accelerator and mbarriers (PTX for sm_90) --------
-
-__device__ __forceinline__ uint32_t heat_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void heat_mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   heat_smem_addr(bar))
-               : "memory");
-}
-
-// One arrival that also expects `bytes` from the async proxy.
-__device__ __forceinline__ void heat_mbar_expect(uint64_t* bar,
-                                                 uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(heat_smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void heat_mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   heat_smem_addr(bar))
-               : "memory");
-}
-
-// Until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void heat_mbar_wait(uint64_t* bar,
-                                               uint32_t parity) {
-  const uint32_t addr = heat_smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// The box of `map` at coordinates (c0, c1, c2), innermost first, into
-// shared memory at dst (128-byte aligned); its bytes complete on `bar`.
-// Cells outside the tensor arrive as zeros.
-__device__ __forceinline__ void heat_tma_load_3d(float* dst,
-                                                 const CUtensorMap* map,
-                                                 uint64_t* bar, int c0,
-                                                 int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(heat_smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(heat_smem_addr(bar)),
-      "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
 // The TMA ring (heat_t3d_stream_tma): kTmaPrefetch planes in flight, one
 // box each, so fewer than cp.async's kFPrefetch, and its slots' layout.
 // A box starts at a z that is a multiple of 4 cells (16 bytes: TMA
@@ -308,7 +250,7 @@ __device__ __forceinline__ void heat_t3d_stream_tma(
   const uint32_t box_bytes = static_cast<uint32_t>(sizeof(float) * wy * row);
   if (leader) {
     for (int i = 0; i < kTmaSlots; ++i) heat_mbar_init(&full[i]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    heat_mbar_init_fence();
   }
   __syncthreads();
   auto fetch = [&](int slot, int64_t t) {

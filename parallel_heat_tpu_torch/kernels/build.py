@@ -111,7 +111,7 @@ KERNELS = {
                            + [_P]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
-           "heat_g.cuh", "heat_temporal3d.cuh", "heat_h.cuh")
+           "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh")
 
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.

@@ -49,14 +49,32 @@ class HopperParams:
     b_block: tuple = (128, 2)
     b_rows_per_thread: int = 16
 
+    # --- the register-blocked tile loop of kernels E, E-uni and G
+    # (csrc/heat_temporal.cuh; chosen) --------------------------------------
+    # A lane owns 4 adjacent columns of its warp's run of rows in float4
+    # registers; loop_takes() is the launch shapes it takes: 32 lanes by at
+    # most loop_max_warps warps (the kernels' 512-thread launch bound lets
+    # them hold their 90-98 registers without spilling), tiles whose width
+    # is a multiple of 4. Shared rows are padded to row_floats().
+    loop_max_warps: int = 16
+
     # --- kernels E and E-uni: heat_e_temporal, heat_e_uni_temporal
-    # (measured on E; blocks per SM chosen) ---------------------------------
-    # Output tile (rows, cols), thread block and depth K. Per cell-step E
+    # (measured; blocks per SM chosen) --------------------------------------
+    # Output tile (rows, cols), thread block (32 lanes x warps) and depth
+    # K; E-uni loads each tile as one TMA box (e_box). Per cell-step E
     # moves about 8*(1+2K/TY)*(1+2K/TX)/K bytes through HBM: at 96 x 112
     # and K = 8 that is 1.33 B against B's 8. A 112-wide tile makes the
-    # shared tile 128 columns wide at K = 8, four full warps per row. Two
-    # ping-pong buffers of (TY+2K) x (TX+2K) floats fit twice per SM up
-    # to K = 8 at this tile, which is what e_k_max() allows.
+    # shared row 128 floats at K = 8, one pass of 32 lanes of 4 columns.
+    # Two ping-pong buffers of TY+2K padded rows fit twice per SM up to
+    # K = 8 at this tile, which is what e_k_max() allows. The sweep
+    # (bench_kernels --only e, 16384^2, NVIDIA H100 80GB HBM3 at 700 W)
+    # found 96 x 112, 32 x 8 threads (14 rows a warp) and K = 8 fastest a
+    # step, of 7 tiles, 3 thread blocks and K = 4 .. 16, for E, for E-uni
+    # and for E-uni under its earlier load (16-byte cp.async copies,
+    # removed): 1.7715, 1.5190 and 1.7875 ms; 32 x 4 threads 2.1165,
+    # 1.7333 and 2.1636, 32 x 16 (one block an SM) 2.7144, 2.3249 and
+    # 2.577. TMA won by the launch's fixed share: E-uni took 0.880, 1.190
+    # and 1.519 ms at K = 4, 6, 8, by cp.async 1.126, 1.460 and 1.788.
     e_tile: tuple = (96, 112)
     e_block: tuple = (32, 8)
     e_k_default: int = 8
@@ -143,14 +161,12 @@ class HopperParams:
 
     # --- the sharded block kernels heat_g_* (measured) -------------------
     # A block's output tile (rows, cols), thread block (32 lanes x warps)
-    # and default depth K. The family's register-blocked step loop
-    # (csrc/heat_g.cuh) gives each lane 4 adjacent columns of its warp's
-    # run of ceil((TY + 2K) / warps) rows; g_takes() is the launch shapes
-    # it takes (at most g_max_warps warps: the kernels' 512-thread launch
-    # bound lets them hold their 97-98 registers without spilling).
+    # and default depth K. The register-blocked tile loop
+    # (csrc/heat_temporal.cuh) gives each lane 4 adjacent columns of its
+    # warp's run of ceil((TY + 2K) / warps) rows (loop_takes()).
     # g_k_max() is the deepest K that keeps e_min_blocks_per_sm blocks
     # resident by shared memory (g_smem_bytes: two buffers of TY + 2K
-    # rows, each padded to g_row_floats). The sweep (bench_kernels --only
+    # rows, each padded to row_floats). The sweep (bench_kernels --only
     # g, the 16384 x 8192 block of 32768^2 on a (2, 4) mesh, NVIDIA H100
     # 80GB HBM3 at 700 W) found 96 x 112, 32 x 8 threads (14 rows a warp)
     # and K = 8 fastest: 0.930 ms for G-uni's deferred bulk and 0.953 for
@@ -167,7 +183,6 @@ class HopperParams:
     g_tile: tuple = (96, 112)
     g_block: tuple = (32, 8)
     g_k_default: int = 8
-    g_max_warps: int = 16
     g_band_tile_x: int = 240
     g_band_block: tuple = (32, 8)
 
@@ -390,54 +405,123 @@ class HopperParams:
         segments = -(-self.sm_count * self.h_waves // tiles)
         return max(self.h_seg_planes_min, -(-planes // segments))
 
-    def e_smem_bytes(self, k: int, tile=None) -> int:
-        """Dynamic shared memory of one E block at depth ``k``."""
-        ty, tx = tile or self.e_tile
-        return 2 * (ty + 2 * k) * (tx + 2 * k) * 4
+    def loop_takes(self, tile, block) -> bool:
+        """Does the register-blocked tile loop (kernels E, E-uni and G)
+        take output tiles of ``tile`` ``(rows, cols)`` under thread blocks
+        of ``block`` ``(lanes, warps)``? A row of threads is one warp, so
+        32 lanes; at most ``loop_max_warps`` warps (the kernels' launch
+        bound of 512 threads lets them take up to 128 registers a thread);
+        the tile's width a multiple of 4, so that every tile's core starts
+        a group of 4 columns. ``csrc/heat_temporal.cuh``
+        ``heat_loop_takes`` is the same rule."""
+        (ty, tx), (bx, by) = tile, block
+        return ty >= 1 and tx >= 4 and tx % 4 == 0 and bx == 32 and (
+            1 <= by <= self.loop_max_warps)
+
+    @staticmethod
+    def row_floats(k: int, tile_x: int) -> int:
+        """Row stride in floats of the tile loop's shared buffers at depth
+        ``k``: the framed row ``tile_x + 2k`` after a pad of ``(4 - k % 4)
+        % 4`` that puts the core's first column on a 16-byte boundary,
+        rounded up to 4 (``csrc/heat_temporal.cuh`` ``heat_row_floats``)."""
+        return -(-((4 - k % 4) % 4 + tile_x + 2 * k) // 4) * 4
+
+    def loop_smem_bytes(self, k: int, tile) -> int:
+        """Dynamic shared memory of one block of the tile loop at depth
+        ``k``: two buffers of ``tile_y + 2k`` padded rows."""
+        ty, tx = tile
+        return 2 * (ty + 2 * k) * self.row_floats(k, tx) * 4
+
+    def e_smem_bytes(self, k: int, tile=None, tma=False) -> int:
+        """Dynamic shared memory of one E block (or with ``tma`` one E-uni
+        block) at depth ``k``: the loop's two buffers, and for E-uni's TMA
+        box 128 bytes to align them and its 8-byte mbarrier."""
+        return (self.loop_smem_bytes(k, tile or self.e_tile)
+                + (128 + 8 if tma else 0))
+
+    def _per_block_smem(self) -> int:
+        """Shared memory a block may take so that ``e_min_blocks_per_sm``
+        blocks stay resident on one SM."""
+        return min(self.smem_per_block_max,
+                   self.smem_per_sm // self.e_min_blocks_per_sm
+                   - self.smem_reserved_per_block)
 
     @functools.lru_cache(maxsize=8)
     def e_k_max(self, tile=None) -> int:
-        """Deepest K whose two ping-pong buffers still leave
-        ``e_min_blocks_per_sm`` blocks resident on one SM."""
-        per_block = min(self.smem_per_block_max,
-                        self.smem_per_sm // self.e_min_blocks_per_sm
-                        - self.smem_reserved_per_block)
+        """Deepest K at which E and E-uni keep ``e_min_blocks_per_sm``
+        blocks resident on one SM and E-uni's box fits a TMA load
+        (:meth:`e_box_fits`)."""
         k = 0
-        while (self.e_smem_bytes(k + 1, tile) + self.static_smem_bytes
-               <= per_block):
+        while (self.e_smem_bytes(k + 1, tile, tma=True)
+               + self.static_smem_bytes <= self._per_block_smem()
+               and self.e_box_fits(k + 1, tile)):
             k += 1
         return k
 
-    def g_takes(self, tile, block) -> bool:
-        """Does the G family's step loop take output tiles of ``tile``
-        ``(rows, cols)`` under thread blocks of ``block`` ``(lanes,
-        warps)``? A row of threads is one warp, so 32 lanes; at most
-        ``g_max_warps`` warps (the kernels' launch bound of 512 threads
-        lets them take up to 128 registers a thread); the tile's width a
-        multiple of 4, so that every tile's core starts a group of 4
-        columns. ``csrc/heat_g.cuh`` ``heat_g_takes`` is the same rule."""
-        (ty, tx), (bx, by) = tile, block
-        return ty >= 1 and tx >= 4 and tx % 4 == 0 and bx == 32 and (
-            1 <= by <= self.g_max_warps)
+    def e_box(self, k: int, row_tile=0, col_tile=0, tile=None):
+        """E-uni's TMA box of tile ``(row_tile, col_tile)`` at depth ``k``:
+        ``(y0, x0, rows, cols)``, its first grid cell and its extent. The
+        framed tile, widened on the left by the pad that puts tile column
+        ``k`` on a 16-byte boundary and on the right to a multiple of 4
+        floats: the shared buffer's layout (:meth:`row_floats`). Cells
+        outside the grid come as zeros."""
+        ty, tx = tile or self.e_tile
+        pad = (4 - k % 4) % 4
+        return (row_tile * ty - k, col_tile * tx - k - pad, ty + 2 * k,
+                self.row_floats(k, tx))
+
+    def e_box_fits(self, k: int, tile=None) -> bool:
+        """Does E-uni's box fit TMA's 256 cells a dimension at depth
+        ``k``? (``csrc/heat_e_uni_temporal.cu`` ``heat_e_uni_tma_fits``.)"""
+        _, _, rows, cols = self.e_box(k, tile=tile)
+        return rows <= 256 and cols <= 256
+
+    def e_tile_kinds(self, shape, k: int, tile=None) -> dict:
+        """The tiles of an E or E-uni launch at depth ``k`` on an ``(m,
+        n)`` grid, counted by the branches they run: ``inside`` (the framed
+        tile lies inside the grid: E's test-free cp.async load) and
+        ``grid_edge`` (the others: E's checked per-cell load; E-uni's TMA
+        box partly outside the grid, zero-filled), of those ``top``,
+        ``left``, ``bottom`` and ``right`` (the frame reaches past that
+        side of the grid: a box with a negative start, or past the far
+        edge); ``ragged_rows`` and ``ragged_cols`` (the last row or column
+        tile cut short); ``partial_group`` (a tile whose last output group
+        has fewer than 4 columns: the cell-by-cell last store);
+        ``interior`` and ``copies`` (the framed tile lies inside the
+        grid's interior, or reaches past it: the step loop's copy
+        branch)."""
+        m, n = shape
+        ty, tx = tile or self.e_tile
+        sy, sw = ty + 2 * k, tx + 2 * k
+        kinds = dict.fromkeys(("tiles", "inside", "grid_edge", "top", "left",
+                               "bottom", "right", "ragged_rows",
+                               "ragged_cols", "partial_group", "interior",
+                               "copies"), 0)
+        for r0 in range(0, m, ty):
+            for c0 in range(0, n, tx):
+                y0, x0 = r0 - k, c0 - k
+                side = {"top": y0 < 0, "left": x0 < 0,
+                        "bottom": y0 + sy > m, "right": x0 + sw > n}
+                kinds["tiles"] += 1
+                kinds["grid_edge" if any(side.values()) else "inside"] += 1
+                for name, hit in side.items():
+                    kinds[name] += hit
+                kinds["ragged_rows"] += m - r0 < ty
+                kinds["ragged_cols"] += n - c0 < tx
+                kinds["partial_group"] += min(tx, n - c0) % 4 != 0
+                kinds["copies" if (y0 < 1 or x0 < 1 or y0 + sy > m - 1
+                                   or x0 + sw > n - 1) else "interior"] += 1
+        return kinds
 
     def g_run(self, k: int, tile=None, block=None) -> int:
         """Rows of the framed tile that one warp walks at depth ``k``."""
         ty = (tile or self.g_tile)[0]
         return -(-(ty + 2 * k) // (block or self.g_block)[1])
 
-    def g_row_floats(self, k: int, tile_x=None) -> int:
-        """Row stride in floats of a G block's shared buffers at depth
-        ``k``: the framed row ``tile_x + 2k`` after a pad of ``(4 - k % 4)
-        % 4`` that puts the core's first column on a 16-byte boundary,
-        rounded up to 4 (``csrc/heat_g.cuh`` ``heat_g_row_floats``)."""
-        tx = self.g_tile[1] if tile_x is None else tile_x
-        return -(-((4 - k % 4) % 4 + tx + 2 * k) // 4) * 4
-
     def g_smem_bytes(self, k: int, tile=None) -> int:
-        """Dynamic shared memory of one G block at depth ``k``: two
-        buffers of ``tile_y + 2k`` padded rows."""
-        ty, tx = tile or self.g_tile
-        return 2 * (ty + 2 * k) * self.g_row_floats(k, tx) * 4
+        """Dynamic shared memory of one G block at depth ``k``: the tile
+        loop's two buffers of ``tile_y + 2k`` padded rows."""
+        return self.loop_smem_bytes(k, tile or self.g_tile)
 
     def g_blocks_per_sm(self, k: int, tile=None, block=None) -> int:
         """Blocks of a G launch that one SM holds by shared memory and
@@ -492,9 +576,7 @@ class HopperParams:
         """Deepest K a G kernel takes at ``tile`` (``g_tile``): the two
         buffers of :meth:`g_smem_bytes` within one block's shared memory
         and ``e_min_blocks_per_sm`` blocks resident on one SM (E's rule)."""
-        per_block = min(self.smem_per_block_max,
-                        self.smem_per_sm // self.e_min_blocks_per_sm
-                        - self.smem_reserved_per_block)
+        per_block = self._per_block_smem()
         k = 0
         while (self.g_smem_bytes(k + 1, tile) + self.static_smem_bytes
                <= per_block):

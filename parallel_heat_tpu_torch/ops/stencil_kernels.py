@@ -19,7 +19,10 @@ The port of the 2D single-device part of
   K steps per pass, residual of the last step optional;
 - :func:`temporal_steps_uni` launches ``heat_e_uni_temporal``
   (csrc/heat_e_uni_temporal.cu), the counterpart of
-  ``heat_e_uni_temporal_strip``: E with a uniform, vectorised load;
+  ``heat_e_uni_temporal_strip``: E with a uniform load, each tile one TMA
+  box of the grid; E and E-uni step with the register-blocked tile loop
+  of csrc/heat_temporal.cuh, whose launch shapes are
+  :meth:`~.hopper_params.HopperParams.loop_takes`;
 - :func:`tile_temporal_steps` launches ``heat_i_tile_temporal``
   (csrc/heat_i_tile_temporal.cu), the counterpart of
   ``heat_i_tile_temporal``: K steps per pass over column bands streamed
@@ -271,15 +274,50 @@ def _launch_e(u, out, k, bits, cx, cy, tile, block,
     """One launch of ``heat_e_temporal`` (or, by ``name``, of
     ``heat_e_uni_temporal``, which takes the same arguments) at the given
     tile and thread block (``bits`` None: no residual); raises if the
-    launch is refused. Checks nothing and counts nothing."""
+    launch is refused. Checks only the launch shape
+    (:meth:`~.hopper_params.HopperParams.loop_takes`, the launchers' own
+    rule) and E-uni's TMA box; counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
+    p = params()
+    if not p.loop_takes(tuple(tile), tuple(block)):
+        raise ValueError(f"{name}: the step loop does not take tiles of "
+                         f"{tuple(tile)} under thread blocks of "
+                         f"{tuple(block)} (32 lanes by 1 to "
+                         f"{p.loop_max_warps} warps, a tile width that is "
+                         f"a multiple of 4)")
+    if name == "heat_e_uni_temporal" and not p.e_box_fits(k, tuple(tile)):
+        raise ValueError(f"{name}: the TMA box of a {tuple(tile)} tile at "
+                         f"K={k}, {p.e_box(k, tile=tuple(tile))[2:]} cells, "
+                         f"exceeds 256 cells a dimension")
     lib = load(name)
     code = getattr(lib, name)(
         u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0], u.shape[1],
         k, tile[0], tile[1], block[0], block[1], *coeffs_f32(cx, cy),
         _stream(u))
     _raise_on_error(lib, name, code)
+
+
+def loop_occupancy(name: str, k: int, tile, block) -> int:
+    """Thread blocks of kernel ``name``, one on the register-blocked tile
+    loop with an occupancy entry point (``heat_e_temporal``,
+    ``heat_e_uni_temporal``, ``heat_g_block_uniform``,
+    ``heat_g_block_fused``), that one SM of the current card holds at once
+    at depth ``k``, ``tile`` and ``block``: the CUDA occupancy calculator
+    at the launch's shared memory, registers included. Builds the kernel
+    if needed."""
+    import ctypes
+
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    lib = load(name)
+    fn = getattr(lib, f"{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    code = fn(k, tile[0], tile[1], block[0], block[1], ctypes.byref(blocks))
+    _raise_on_error(lib, name, code)
+    return blocks.value
 
 
 def _launch_i(u, out, k, bits, cx, cy, tile_x, seg_rows, block_x,
@@ -390,9 +428,9 @@ def temporal_steps(u: torch.Tensor, out: torch.Tensor, k: int,
 def temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
                        with_residual: bool = True, *, cx: float,
                        cy: float) -> Optional[torch.Tensor]:
-    """Kernel E-uni: :func:`temporal_steps` with a uniform, vectorised
-    load; bitwise the same grid and residual. Takes grids whose width is
-    a multiple of 4 (ValueError otherwise)."""
+    """Kernel E-uni: :func:`temporal_steps` with a uniform load, each tile
+    one TMA box of the grid; bitwise the same grid and residual. Takes
+    grids whose width is a multiple of 4 (ValueError otherwise)."""
     return _temporal("heat_e_uni_temporal", temporal_steps_uni_plain, u,
                      out, k, with_residual, cx, cy)
 

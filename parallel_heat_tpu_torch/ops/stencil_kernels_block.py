@@ -25,10 +25,11 @@ returns the residual of the last step over the rows it writes:
 - :func:`band_fix` launches ``heat_g_band_fix``, the counterpart of
   ``heat_g_band_fix_2d``: rows ``[0, k)`` and ``[bx - k, bx)`` of the
   same K steps, written into the bulk's output in place (no splice copy);
-- every kernel steps with the family's register-blocked loop
-  (``csrc/heat_g.cuh``): thread blocks of 32 lanes by ``W`` warps, each
-  lane 4 adjacent columns of its warp's run of rows; the launch shapes it
-  takes are :meth:`~.hopper_params.HopperParams.g_takes`, checked at every
+- every kernel steps with the register-blocked tile loop it shares with
+  kernels E and E-uni (``csrc/heat_temporal.cuh``): thread blocks of 32
+  lanes by ``W`` warps, each lane 4 adjacent columns of its warp's run of
+  rows; the launch shapes it takes are
+  :meth:`~.hopper_params.HopperParams.loop_takes`, checked at every
   launch;
 - the ``*_plain`` functions compute the same in plain PyTorch: they
   assemble the padded frame with zeros outside the global grid and take
@@ -290,7 +291,7 @@ def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
     """Launch kernel ``name`` on ``args`` (its leading pointers) into
     ``out``; ``geometry`` the launch's int arguments after k (tile and
     thread block; the band kernel's tile is k rows of its tile_x). Checks
-    only the launch shape (:meth:`~.hopper_params.HopperParams.g_takes`,
+    only the launch shape (:meth:`~.hopper_params.HopperParams.loop_takes`,
     the launcher's own rule); counts the launch. Returns the residual
     view or None."""
     from parallel_heat_tpu_torch.kernels.build import load
@@ -298,10 +299,10 @@ def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
     p = params()
     tile = (k,) + tuple(geometry[:1]) if name == BAND else tuple(geometry[:2])
     block = tuple(geometry[-2:])
-    if not p.g_takes(tile, block):
+    if not p.loop_takes(tile, block):
         raise ValueError(f"{name}: the step loop does not take tiles of "
                          f"{tile} under thread blocks of {block} (32 lanes "
-                         f"by 1 to {p.g_max_warps} warps, a tile width "
+                         f"by 1 to {p.loop_max_warps} warps, a tile width "
                          f"that is a multiple of 4)")
     lib = load(name)
     bits = (torch.empty(1, dtype=torch.int32, device=out.device)
@@ -430,28 +431,6 @@ def band_fix(u: torch.Tensor, tail: torch.Tensor, halo_n: torch.Tensor,
     return _launch(BAND, (u, tail, halo_n, halo_s), out, k, with_residual,
                    origin=origin, grid_shape=grid_shape, cx=cx, cy=cy,
                    geometry=(p.g_band_tile_x,) + tuple(p.g_band_block))
-
-
-def g_occupancy(name: str, k: int, tile=None, block=None) -> int:
-    """Thread blocks of kernel ``name`` (``heat_g_block_uniform`` or
-    ``heat_g_block_fused``) that one SM of the current card holds at once
-    at depth ``k``, ``tile`` and ``block`` (the params' by default): the
-    CUDA occupancy calculator at the launch's shared memory, registers
-    included. Builds the kernel if needed."""
-    import ctypes
-
-    from parallel_heat_tpu_torch.kernels.build import load
-
-    p = params()
-    (ty, tx), (lanes, warps) = tile or p.g_tile, block or p.g_block
-    lib = load(name)
-    fn = getattr(lib, f"{name}_occupancy")
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    blocks = ctypes.c_int(0)
-    _raise_on_error(lib, name, fn(k, ty, tx, lanes, warps,
-                                  ctypes.addressof(blocks)))
-    return blocks.value
 
 
 LAUNCH = {"G-uni": block_uniform, "G-fuse": block_fused,

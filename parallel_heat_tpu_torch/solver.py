@@ -394,15 +394,14 @@ def explain(config: HeatConfig, device: Optional[str] = None,
         out["path"] = (f"kernel A (heat_a_resident, grid resident in shared "
                        f"memory) tile={ty}x{tx} depth={detail['depth']} "
                        f"blocks={blocks}" + plain)
-    elif kind == "E":
+    elif kind in ("E", "E-uni"):
         ty, tx = detail["tile"]
-        out["path"] = (f"kernel E (heat_e_temporal, K-step temporal) "
-                       f"tile={ty}x{tx} K={detail['k']}" + plain)
-    elif kind == "E-uni":
-        ty, tx = detail["tile"]
-        out["path"] = (f"kernel E-uni (heat_e_uni_temporal, K-step "
-                       f"temporal, uniform load) tile={ty}x{tx} "
-                       f"K={detail['k']}" + plain)
+        lanes, warps = detail["block"]
+        what = ("heat_e_temporal, K-step temporal, cp.async load"
+                if kind == "E" else "heat_e_uni_temporal, K-step temporal, "
+                "uniform TMA load")
+        out["path"] = (f"kernel {kind} ({what}) tile={ty}x{tx}, "
+                       f"{lanes}x{warps} threads K={detail['k']}" + plain)
     elif kind in ("I", "I-uni"):
         name = ("heat_i_tile_temporal" if kind == "I"
                 else "heat_i_uni_tile_temporal")

@@ -93,7 +93,8 @@ def test_c_bitwise_equal_to_b_and_plain(card, shape, cx, cy):
 
 @pytest.mark.parametrize("cx,cy", COEFFS)
 @pytest.mark.parametrize("k", [1, 2, 3, 5, None])
-@pytest.mark.parametrize("shape", [(1001, 1000), (70, 300), (300, 4096)])
+@pytest.mark.parametrize("shape", [(1001, 1000), (70, 300), (300, 4096),
+                                   (20, 24)])
 def test_e_uni_bitwise_equal_to_e_and_plain(card, shape, k, cx, cy):
     k = k or params().e_k_default
     u = _rand(shape, 5, card)
@@ -109,7 +110,7 @@ def test_e_uni_bitwise_equal_to_e_and_plain(card, shape, k, cx, cy):
 
 @pytest.mark.parametrize("cx,cy", COEFFS)
 @pytest.mark.parametrize("k", [1, 2, 5, None])
-@pytest.mark.parametrize("shape", [(1001, 999), (70, 300)])
+@pytest.mark.parametrize("shape", [(1001, 999), (70, 300), (21, 23)])
 def test_e_bitwise_equal_to_k_b_launches_and_plain(card, shape, k, cx, cy):
     k = k or params().e_k_default
     u = _rand(shape, 1, card)

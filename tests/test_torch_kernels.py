@@ -453,3 +453,133 @@ def test_library_path_tracks_source_digest():
     assert len(names) == len(build.KERNELS) == 20
     assert a.name.startswith("libheat_b_step-") and a.suffix == ".so"
     assert build.library_path("heat_b_step") == a
+
+
+# ---------------------------------------------------------------------------
+# Kernels E and E-uni on the register-blocked tile loop
+# (csrc/heat_temporal.cuh): launch shapes, shared memory, tile kinds and
+# E-uni's TMA box
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile,block,ok", [
+    ((96, 112), (32, 8), True),
+    ((64, 240), (32, 16), True),
+    ((8, 4), (32, 1), True),
+    ((96, 110), (32, 8), False),    # width not a multiple of 4
+    ((0, 112), (32, 8), False),
+    ((96, 112), (64, 4), False),    # a row of threads must be a warp
+    ((96, 112), (32, 17), False),   # over the 512-thread launch bound
+    ((96, 112), (32, 32), False),   # 1024 threads: the column walk's shape
+])
+def test_e_launch_shapes_are_the_loops(tile, block, ok):
+    p = params()
+    assert p.loop_takes(tile, block) is ok
+    if not ok:
+        u = torch.zeros((64, 128))
+        for name in ("heat_e_temporal", "heat_e_uni_temporal"):
+            with pytest.raises(ValueError, match="does not take"):
+                sk._launch_e(u, torch.empty_like(u), 2, None, CX, CY, tile,
+                             block, name)
+
+
+def test_e_defaults_are_a_shape_the_loop_takes():
+    p = params()
+    assert p.loop_takes(p.e_tile, p.e_block)
+    assert all(p.e_box_fits(k) for k in range(1, p.e_k_max() + 1))
+
+
+def test_e_smem_and_k_max_on_padded_rows():
+    p = params()
+    ty, tx = p.e_tile
+    for k in range(1, 10):
+        assert p.e_smem_bytes(k) == 2 * (ty + 2 * k) * p.row_floats(k, tx) * 4
+        assert p.e_smem_bytes(k, tma=True) == p.e_smem_bytes(k) + 136
+    # 96 x 112 at K = 8: 112 rows of 128 floats, two buffers of 56 KiB.
+    assert p.e_smem_bytes(8) == 114_688
+    # K = 9 pads to 136 floats a row: 124,032 bytes, one block an SM.
+    assert p.e_smem_bytes(9) == 124_032
+    assert p.e_k_max() == 8
+    per_block = (p.smem_per_sm // p.e_min_blocks_per_sm
+                 - p.smem_reserved_per_block)
+    assert p.e_smem_bytes(8, tma=True) + p.static_smem_bytes <= per_block
+    # A smaller tile goes deeper; a 240-wide one stops where its box
+    # would pass 256 floats.
+    assert p.e_k_max((32, 112)) > 8
+    assert p.row_floats(8, 240) == 256 and p.e_box_fits(8, (32, 240))
+    assert not p.e_box_fits(9, (32, 240))
+    assert p.e_k_max((32, 240)) == 8
+
+
+def test_e_tile_kinds_count_the_branches():
+    p = params()
+    # 1001 x 999 at K = 8: 11 x 9 tiles of 96 x 112; the last row tile 41
+    # rows, the last column tile 103 columns (a last group of 3).
+    kinds = p.e_tile_kinds((1001, 999), 8)
+    assert kinds["tiles"] == 99
+    # Inside: row tiles 1-9 (9 * 96 + 104 = 968 <= 1001) by column tiles
+    # 1-7 (7 * 112 + 120 = 904 <= 999).
+    assert kinds["inside"] == 9 * 7 and kinds["grid_edge"] == 99 - 63
+    assert kinds["top"] == kinds["bottom"] == 9
+    assert kinds["left"] == kinds["right"] == 11
+    assert kinds["ragged_rows"] == 9 and kinds["ragged_cols"] == 11
+    assert kinds["partial_group"] == 11
+    assert kinds["interior"] == 63 and kinds["copies"] == 36
+    # A width that is a multiple of 4 ends in no part group.
+    assert p.e_tile_kinds((1001, 1000), 8)["partial_group"] == 0
+    # A grid smaller than one tile: one tile at all four edges.
+    for shape in ((20, 24), (21, 23)):
+        one = p.e_tile_kinds(shape, 3)
+        assert one["tiles"] == one["grid_edge"] == 1
+        assert one["top"] == one["left"] == one["bottom"] == one["right"] == 1
+        assert one["partial_group"] == (shape[1] % 4 != 0)
+    # 16384^2: 171 x 147 tiles, the last row tile 64 rows, the last
+    # column tile 32 columns.
+    big = p.e_tile_kinds((16384, 16384), 8)
+    assert big["tiles"] == 171 * 147
+    assert big["ragged_rows"] == 147 and big["ragged_cols"] == 171
+    assert big["inside"] == 169 * 145
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("tile", [(96, 112), (32, 240), (8, 4)])
+def test_e_box_covers_the_framed_tile_on_16_byte_columns(k, tile):
+    p = params()
+    ty, tx = tile
+    pad = (4 - k % 4) % 4
+    for r, c in ((0, 0), (0, 1), (3, 2)):
+        y0, x0, rows, cols = p.e_box(k, r, c, tile)
+        # The framed tile: rows [r TY - K, + TY + 2K), columns
+        # [c TX - K, + TX + 2K), inside the box.
+        assert y0 == r * ty - k and rows == ty + 2 * k
+        assert x0 <= c * tx - k and c * tx + tx + k <= x0 + cols
+        # The box starts on a 16-byte column (negative for column tile
+        # 0), is a whole number of 16-byte rows, and tile column K lands
+        # on a 16-byte boundary of its shared row.
+        assert x0 % 4 == 0 and cols % 4 == 0
+        assert (c * tx - x0) % 4 == 0 and c * tx - x0 == k + pad
+        assert cols == p.row_floats(k, tx)
+
+
+def test_e_uni_launch_refuses_a_box_past_256_cells():
+    u = torch.zeros((64, 256))
+    with pytest.raises(ValueError, match="TMA box"):
+        sk._launch_e(u, torch.empty_like(u), 9, None, CX, CY, (32, 240),
+                     (32, 8), "heat_e_uni_temporal")
+
+
+def test_pick_and_explain_name_e_uni_load_and_shape():
+    from parallel_heat_tpu_torch import HeatConfig, explain
+
+    p = params()
+    kind, detail = sk.pick_single_2d((16384, 16384))
+    assert kind == "E-uni" and detail["block"] == p.e_block
+    ty, tx = p.e_tile
+    lanes, warps = p.e_block
+    out = explain(HeatConfig(nx=16384, ny=16384, steps=200, backend="cuda"),
+                  device="cpu")
+    assert "heat_e_uni_temporal" in out["path"]
+    assert "uniform TMA load" in out["path"]
+    assert f"tile={ty}x{tx}, {lanes}x{warps} threads" in out["path"]
+    e = explain(HeatConfig(nx=4099, ny=4099, steps=200, backend="cuda"),
+                device="cpu")
+    assert "heat_e_temporal" in e["path"] and "cp.async load" in e["path"]

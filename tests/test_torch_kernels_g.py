@@ -295,8 +295,8 @@ def test_picker_default_forced_and_refused():
 
 
 # ---------------------------------------------------------------------------
-# The register-blocked step loop's rules (csrc/heat_g.cuh): shared memory,
-# blocks an SM, depth, launch shapes, tile kinds
+# The register-blocked tile loop's rules (csrc/heat_temporal.cuh): shared
+# memory, blocks an SM, depth, launch shapes, tile kinds
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("k", range(1, 13))
@@ -304,7 +304,7 @@ def test_picker_default_forced_and_refused():
 def test_g_rows_put_the_core_on_a_16_byte_boundary(k, tile_x):
     from parallel_heat_tpu_torch.ops.hopper_params import params
 
-    sx = params().g_row_floats(k, tile_x)
+    sx = params().row_floats(k, tile_x)
     pad = (4 - k % 4) % 4
     assert (pad + k) % 4 == 0  # tile column k starts a group
     assert sx % 4 == 0 and pad + tile_x + 2 * k <= sx < pad + tile_x + 2 * k + 4
@@ -316,9 +316,9 @@ def test_g_smem_blocks_per_sm_and_k_max():
     p = params()
     ty, tx = p.g_tile
     for k in range(1, 10):
-        assert p.g_smem_bytes(k) == 2 * (ty + 2 * k) * p.g_row_floats(k) * 4
+        assert p.g_smem_bytes(k) == 2 * (ty + 2 * k) * p.row_floats(k, tx) * 4
     # At 96 x 112: K = 8 is a 112 x 128 framed tile, two buffers of 56 KiB.
-    assert p.g_row_floats(8) == 128 and p.g_smem_bytes(8) == 114_688
+    assert p.row_floats(8, tx) == 128 and p.g_smem_bytes(8) == 114_688
     k_max = p.g_k_max()
     assert k_max == 8
     per_block = (p.smem_per_sm // p.e_min_blocks_per_sm
@@ -353,16 +353,16 @@ def test_g_smem_blocks_per_sm_and_k_max():
 def test_g_takes_the_loops_launch_shapes(tile, block, ok):
     from parallel_heat_tpu_torch.ops.hopper_params import params
 
-    assert params().g_takes(tile, block) is ok
+    assert params().loop_takes(tile, block) is ok
 
 
 def test_g_defaults_are_shapes_the_loop_takes():
     from parallel_heat_tpu_torch.ops.hopper_params import params
 
     p = params()
-    assert p.g_takes(p.g_tile, p.g_block)
+    assert p.loop_takes(p.g_tile, p.g_block)
     for k in range(1, p.g_k_max() + 1):
-        assert p.g_takes((k, p.g_band_tile_x), p.g_band_block)
+        assert p.loop_takes((k, p.g_band_tile_x), p.g_band_block)
 
 
 @pytest.mark.parametrize("name,geometry", [

@@ -13,9 +13,9 @@ prints the card's name and power limit, then one JSON line per phase:
    ptxas's report of registers, spills and static shared memory for each
    template instance by name (``<K, R, ...>``) and the instances that
    spill; the E and E-uni instances the one-device 2D main path
-   launches, the H-fused instance the sharded 3D main path launches, and
-   the G-uni and G-fuse kernels the sharded 2D main path launches, must
-   not spill (the E and G kernels' registers and blocks an SM at the main
+   launches, F's instance the one-device 3D main path launches, the
+   H-fused instance the sharded 3D main path launches, and the G-uni and
+   G-fuse kernels the sharded 2D main path launches, must not spill (the E and G kernels' registers and blocks an SM at the main
    path's shape are printed; a second run from the cached build reads
    nvcc's report kept beside each library);
 2. kernels — each kernel against its plain PyTorch version on the card,
@@ -46,13 +46,20 @@ prints the card's name and power limit, then one JSON line per phase:
    depths (both pairs). Last a NaN-seeded grid, which must give a NaN
    residual from every kernel with the boundary intact;
 2b. kernels_3d — D (``heat_d_step3d``) against its plain version and F
-   (``heat_f_temporal3d``) at K in {1, 3, K_default, K_max}, with and
+   (``heat_f_temporal3d``) at every compiled K (1 .. 8; past the default
+   shape's deepest K at ``hopper_params.f_shape``'s), under each plane load
+   its grid takes (TMA where nz % 4 == 0, and cp.async), with and
    without the residual, against K launches of D and its plain version,
-   all bitwise, on the main path's 512^3, a ragged 67x130x201 and a
-   5x3x300 slab thinner than one tile (these two also with cx, cy, cz =
-   0.1, 0.15, 0.05); a NaN-seeded grid (NaN residual, faces intact); and
-   1291x1299x1301, past 2^31 cells, F(K_default) against K_default
-   launches of D only;
+   all bitwise, on the main path's 512^3, the ragged 67x130x204 and
+   67x130x201 and a 5x3x300 slab thinner than one tile (these three also
+   with cx, cy, cz = 0.1, 0.15, 0.05), each grid asserted to run at
+   every K the tile kinds it is there for (``hopper_params.f_tile_kinds``:
+   interior tiles, tiles past each of the four (Y, Z) sides, ragged last
+   tiles, last groups of 1 to 3 cells); F's launcher against
+   ``hopper_params.f_takes`` on a table of legal and illegal launch
+   shapes; a NaN-seeded grid under both loads (NaN residual, faces
+   intact); and 1291x1299x1304 (both loads) and 1291x1299x1301, past
+   2^31 cells, F(K_default) against K_default launches of D only;
 3. main path — ``solve(HeatConfig(nx=16384, ny=16384, steps=200))``
    with the default pick (kernel E-uni) and again under
    ``tune.force("single_2d", ...)`` for E, I, I-uni, B and C: launch
@@ -87,7 +94,10 @@ prints the card's name and power limit, then one JSON line per phase:
    interior update only) with CUDA events, at the shape and depth of the
    kernel's launch on the main path: B, C, E, E-uni, I and I-uni at
    16384^2, A at 1000^2 with K = 20, D and F (K_default) at 512^3 with
-   ``conv3d`` and its 7-point weights as the yardstick; E and E-uni
+   ``conv3d`` and its 7-point weights as the yardstick; F beside its
+   time before the register-blocked plane loop, its device time at
+   K = 1 .. 4 (a step and the launch's fixed share) and under each load
+   in turns at 512^3 and 512x512x508; E and E-uni
    beside their time before the register-blocked tile loop, and E-uni's
    device time at K = 4, 6 and 8, with the line's slope (a step) and
    intercept (the fixed share of a launch). Events around
@@ -256,7 +266,9 @@ CONV = 1000              # BASELINE Table 7's grid: the converge path
 WINDOW = 20              # its check_interval: steps per launch of A
 CUBE = 512               # BASELINE config 5's 512^3: the 3D main path
 UNEQUAL_3D = (0.1, 0.15, 0.05)
-PAST_2_31 = (1291, 1299, 1301)   # 2.18e9 cells: int64 offsets needed
+# Past 2^31 cells (2.19e9 and 2.18e9: int64 offsets needed), one grid for
+# each of F's loads: rows of a multiple of 16 bytes (TMA) and not.
+PAST_2_31 = ((1291, 1299, 1304), (1291, 1299, 1301))
 OPS_PER_CELL_STEP = 7       # 3 multiplies + 4 adds of combine_2d
 OPS_PER_CELL_STEP_3D = 10   # 4 multiplies + 6 adds of combine_3d
 OPS_PER_RESIDUAL_CELL = 2   # subtract + max (the abs is a bit clear)
@@ -411,10 +423,31 @@ def phase_build():
                        hp.g_k_default, hp.g_tile, hp.g_block)
     e_main = loop_main(("heat_e_temporal", "heat_e_uni_temporal"),
                        hp.e_k_default, hp.e_tile, hp.e_block)
+    # Nor may F's instance that the one-device 3D main path (512^3, TMA)
+    # launches, or its stack hold the plane loop's registers.
+    from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+
+    f_load = sk3.f_load((CUBE,) * 3)
+    f_inst = (f"{hp.f_k_default}, {hp.f_rows}, "
+              f"{'true' if f_load == 'tma' else 'false'}")
+    f_row = ptxas["heat_f_temporal3d"].get(f_inst)
+    check(f_row is not None and f_row[1] == 0,
+          f"F's main-path instance <{f_inst}> spills or is missing from "
+          f"the ptxas report: {f_row}")
+    f_stack = {r["instance"]: r.get("stack_bytes") for r in
+               build.ptxas_report(build.build_log("heat_f_temporal3d"))}
+    f_main = {"instance": f_inst, "registers": f_row[0],
+              "spill_stores": f_row[1],
+              "stack_bytes": [b for i, b in f_stack.items()
+                              if i.endswith(f"<{f_inst}>")],
+              "k": hp.f_k_default, "block": list(hp.f_block),
+              "rows": hp.f_rows, "load": f_load,
+              "smem_bytes": hp.f_smem_bytes(hp.f_k_default),
+              "blocks_per_sm": sk3.f_occupancy(hp.f_k_default, f_load)}
     emit({"phase": "build", "seconds": seconds,
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
-          "main_path_e": e_main,
+          "main_path_e": e_main, "main_path_f": f_main,
           "main_path_h_instance": main, "main_path_g": g_main,
           "spilling_instances": spilling, "ptxas": ptxas})
 
@@ -863,64 +896,117 @@ def _check_d(sk3, u, kw, err):
     check(_faces_intact(ok, u), f"{where} moved a Dirichlet face")
 
 
-def _check_f(sk3, u, k, kw, err):
-    """Kernel F at depth ``k`` against k launches of D and its plain
-    version, with and without the residual."""
+def _check_f(sk3, u, k, kw, err, load, plain=True):
+    """Kernel F at depth ``k`` under ``load`` (at the launch shape
+    ``hopper_params.f_shape`` gives ``k``) against k launches of D and
+    (with ``plain``) its plain version, with and without the residual."""
     import torch
 
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
     ok, nores = torch.empty_like(u), torch.empty_like(u)
-    rk = sk3.xslab_steps_3d(u, ok, k, True, **kw)
-    sk3.xslab_steps_3d(u, nores, k, False, **kw)
+    rk = sk3.xslab_steps_3d(u, ok, k, True, load=load, **kw)
+    sk3.xslab_steps_3d(u, nores, k, False, load=load, **kw)
     src, rd = _d_launches(sk3, u, k, kw)
-    pk = torch.empty_like(u)
-    rp = sk3.xslab_steps_3d_plain(u, pk, k, True, **kw)
     torch.cuda.synchronize()
-    d = max(float((ok - pk).abs().max()), float((ok - src).abs().max()))
-    err["heat_f_temporal3d"] = max(err["heat_f_temporal3d"], d)
-    where = f"heat_f_temporal3d(K={k}) at {tuple(u.shape)} {kw}"
+    d = float((ok - src).abs().max())
+    where = (f"heat_f_temporal3d(K={k}, {load}, {params().f_shape(k)}) at "
+             f"{tuple(u.shape)} {kw}")
     check(torch.equal(ok, src) and same_float(rk, rd),
-          f"{where} != {k} launches of heat_d_step3d: max diff {d}")
-    check(torch.equal(ok, pk) and same_float(rk, rp),
-          f"{where} != its plain version: max diff {d}")
+          f"{where} != {k} launches of heat_d_step3d: max diff {d}, "
+          f"residual {float(rk)} vs {float(rd)}")
     check(torch.equal(ok, nores), f"{where}: grid depends on with_residual")
+    del nores, src
+    if plain:
+        pk = torch.empty_like(u)
+        rp = sk3.xslab_steps_3d_plain(u, pk, k, True, **kw)
+        torch.cuda.synchronize()
+        d = max(d, float((ok - pk).abs().max()))
+        check(torch.equal(ok, pk) and same_float(rk, rp),
+              f"{where} != its plain version: max diff {d}")
+    err["heat_f_temporal3d"] = max(err["heat_f_temporal3d"], d)
+
+
+# F's launch shapes for the shape rule's check on the card, (lanes,
+# warps), rows, K: legal and not (csrc/heat_temporal3d.cuh heat_f_takes
+# against hopper_params.f_takes).
+F_SHAPE_RULE = [((32, 16), 2, 3), ((32, 8), 4, 3), ((32, 16), 1, 7),
+                ((32, 1), 4, 1), ((32, 16), 4, 3), ((32, 17), 2, 3),
+                ((64, 8), 2, 3), ((32, 8), 3, 3), ((32, 4), 1, 2),
+                ((32, 2), 2, 2), ((32, 8), 4, 9), ((32, 8), 4, 0)]
 
 
 def phase_kernels_3d(dev):
     """D and F against their plain versions and F(K) against K launches
-    of D; returns max |diff| each."""
+    of D, F at every compiled K under each load its grid takes, on grids
+    that run every tile kind they are there for; returns max |diff|
+    each."""
     import torch
 
     from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
     from parallel_heat_tpu_torch.ops.hopper_params import params
 
     p = params()
-    ks = sorted({1, 3, p.f_k_default, p.f_k_max()})
+    every_k = list(range(1, p.f_k_compiled + 1))
     gen = torch.Generator(device=dev).manual_seed(3)
     err = {name: 0.0 for name in KERNELS_3D}
     equal = dict(cx=CX, cy=CY, cz=CX)
     unequal = dict(zip(("cx", "cy", "cz"), UNEQUAL_3D))
-    plan = [((CUBE, CUBE, CUBE), [equal]),
-            ((67, 130, 201), [equal, unequal]),
-            ((5, 3, 300), [equal, unequal])]
+    sides = ("edge", "top", "left", "bottom", "right", "ragged_z")
+    # (shape, coefficients, depths, tile kinds asserted at every depth)
+    plan = [((CUBE, CUBE, CUBE), [equal], every_k, ("interior",) + sides),
+            ((67, 130, 204), [equal, unequal], every_k, sides),
+            ((67, 130, 201), [equal, unequal], every_k,
+             sides + ("partial_group",)),
+            ((5, 3, 300), [equal, unequal], [1, 3, p.f_k_max()], sides)]
     report = []
-    for shape, coeffs in plan:
+    for shape, coeffs, ks, need in plan:
         u = torch.randn(shape, generator=gen, device=dev) * 10
+        loads = [sk3.f_load(shape, u)] + (["cp.async"] if sk3.f_load(
+            shape, u) == "tma" else [])
+        kinds = {}
+        for k in ks:
+            block, rows, _ = p.f_shape(k)
+            kinds[k] = p.f_tile_kinds(shape, k, block, rows)
+            check(all(kinds[k][kind] for kind in need),
+                  f"{shape} at K={k} runs no tile of some kind it is there "
+                  f"for ({need}): {kinds[k]}")
         for kw in coeffs:
             _check_d(sk3, u, kw, err)
             for k in ks:
-                _check_f(sk3, u, k, kw, err)
+                for load in loads:
+                    _check_f(sk3, u, k, kw, err, load)
         report.append({"shape": list(shape), "coeffs": coeffs, "k": ks,
+                       "loads": loads, "tile_kinds": kinds,
+                       "shapes": {k: p.f_shape(k) for k in ks},
                        "bitwise": True})
         del u
         torch.cuda.empty_cache()
+    # The launch shapes the C launcher takes are hopper_params.f_takes'.
+    u = torch.randn((8, 40, 44), generator=gen, device=dev)
+    o = torch.empty_like(u)
+    for block, rows, k in F_SHAPE_RULE:
+        try:
+            sk3._launch_f(u, o, k, None, CX, CY, CX, block, rows, 8,
+                          "cp.async", 2)
+            taken = True
+        except RuntimeError:
+            taken = False
+        check(taken == p.f_takes(block, rows, k),
+              f"F's launcher {'took' if taken else 'refused'} {block} x "
+              f"{rows} rows at K={k}; f_takes says {p.f_takes(block, rows, k)}")
+    torch.cuda.synchronize()
+    report.append({"shape_rule": F_SHAPE_RULE, "agrees": True})
     # A diverging grid: one NaN in the interior.
-    u = torch.randn((60, 70, 90), generator=gen, device=dev) * 10
+    u = torch.randn((60, 70, 92), generator=gen, device=dev) * 10
     u[30, 30, 30] = float("nan")
     nan_res = {}
     for name, launch in (
             ("heat_d_step3d", lambda o: sk3.slab_step_3d(u, o, **equal)),
             ("heat_f_temporal3d", lambda o: sk3.xslab_steps_3d(
-                u, o, p.f_k_default, True, **equal))):
+                u, o, p.f_k_default, True, **equal)),
+            ("heat_f_temporal3d cp.async", lambda o: sk3.xslab_steps_3d(
+                u, o, p.f_k_default, True, load="cp.async", **equal))):
         o = torch.empty_like(u)
         nan_res[name] = float(launch(o))
         check(math.isnan(nan_res[name]),
@@ -929,25 +1015,19 @@ def phase_kernels_3d(dev):
         check(_faces_intact(o, u),
               f"a diverging grid moved a Dirichlet face ({name})")
     del u
-    # Past 2^31 cells: F(K_default) against K_default launches of D (four
-    # grids of 8.7 GB; no plain version, for memory).
-    big = PAST_2_31
-    k = p.f_k_default
-    u = torch.randn(big, generator=gen, device=dev)
-    ok = torch.empty_like(u)
-    rk = sk3.xslab_steps_3d(u, ok, k, True, **equal)
-    src, rd = _d_launches(sk3, u, k, equal)
-    torch.cuda.synchronize()
-    d = float((ok - src).abs().max())
-    err["heat_f_temporal3d"] = max(err["heat_f_temporal3d"], d)
-    check(torch.equal(ok, src) and same_float(rk, rd),
-          f"heat_f_temporal3d(K={k}) at {big} != {k} launches of "
-          f"heat_d_step3d: max diff {d}, residual {float(rk)} vs "
-          f"{float(rd)}")
-    report.append({"shape": list(big), "cells": math.prod(big), "k": [k],
-                   "against": "heat_d_step3d launches", "bitwise": True})
-    del u, ok, src
-    torch.cuda.empty_cache()
+    # Past 2^31 cells: F(K_default) against K_default launches of D under
+    # each load (four grids of 8.7 GB; no plain version, for memory).
+    for big in PAST_2_31:
+        u = torch.randn(big, generator=gen, device=dev)
+        loads = [sk3.f_load(big, u)] + (["cp.async"] if sk3.f_load(
+            big, u) == "tma" else [])
+        for load in loads:
+            _check_f(sk3, u, p.f_k_default, equal, err, load, plain=False)
+        report.append({"shape": list(big), "cells": math.prod(big),
+                       "k": [p.f_k_default], "loads": loads,
+                       "against": "heat_d_step3d launches", "bitwise": True})
+        del u
+        torch.cuda.empty_cache()
     emit({"phase": "kernels_3d", "ok": True, "checks": report,
           "nan_residual": nan_res, "max_abs_err": err})
     return err
@@ -1235,9 +1315,18 @@ def phase_timing(dev):
     return rows
 
 
+# The device time of F at the main path's 512^3, K = 3, no residual,
+# before the register-blocked plane loop (NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md section 6).
+F_EARLIER_MS = 0.885
+
+
 def phase_timing_3d(dev):
     """ms per launch of D and F (K_default), their plain versions and the
-    conv3d yardstick at the 3D main path's 512^3."""
+    conv3d yardstick at the 3D main path's 512^3; for F also its time
+    before the plane loop, its device time at K = 1 .. 4 (the K ladder:
+    a step, and the launch's fixed share), and under each load at 512^3
+    and 512 x 512 x 508."""
     import torch
     import torch.nn.functional as F
 
@@ -1246,7 +1335,8 @@ def phase_timing_3d(dev):
     from parallel_heat_tpu_torch.ops.hopper_params import params
     from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32
 
-    k = params().f_k_default
+    p = params()
+    k = p.f_k_default
     kw = dict(cx=CX, cy=CY, cz=CX)
     a0, cx, cy, cz = coeffs3_f32(CX, CY, CX)
     torch.backends.cudnn.allow_tf32 = False
@@ -1286,8 +1376,41 @@ def phase_timing_3d(dev):
             "library_ms": _time_ms(lambda: conv_steps(x, steps), 5, 1),
             **_bound(8 * CUBE ** 3, ops)}
         rows[name].update(_device_ms(kernel, name))
+    f_row = rows["heat_f_temporal3d"]
+    f_row["earlier_design_device_ms"] = F_EARLIER_MS
+    f_row["load"] = sk3.f_load(u.shape, u)
+    # F's K ladder, device ms at K = 1 .. 4: the slope is a step, the
+    # intercept the launch's fixed share (its planes' halo and the
+    # launch).
+    ladder = {}
+    ks = [kk for kk in (1, 2, 3, 4) if kk <= p.f_k_max()]
+    for kk in ks:
+        def run(kk=kk):
+            sk3.xslab_steps_3d(u, v, kk, False, **kw)
+        run()
+        ladder[f"k{kk}"] = _device_ms(run, "heat_f_temporal3d")["device_ms"]
+    step, fixed = np.polyfit(ks, [ladder[f"k{kk}"] for kk in ks], 1)
+    ladder.update(step_ms=float(step), fixed_ms=float(fixed))
+    f_row["k_ladder_device_ms"] = ladder
     del u, v, x
     torch.cuda.empty_cache()
+    # F under each load, in turns (TMA, cp.async, cp.async, TMA), at the
+    # main path's 512^3 and at 512 x 512 x 508.
+    loads = {}
+    for shape in ((CUBE, CUBE, CUBE), (CUBE, CUBE, CUBE - 4)):
+        u = HeatPlate3D(*shape).init_grid(dev)
+        v = torch.empty_like(u)
+        times = {"tma": [], "cp.async": []}
+        for load in ("tma", "cp.async", "cp.async", "tma"):
+            def run(load=load):
+                sk3.xslab_steps_3d(u, v, k, False, load=load, **kw)
+            run()
+            times[load].append(_device_ms(run, "heat_f_temporal3d")
+                               ["device_ms"])
+        loads["x".join(map(str, shape))] = times
+        del u, v
+        torch.cuda.empty_cache()
+    f_row["loads_device_ms"] = loads
     emit({"phase": "timing_3d", "kernels": rows})
     return rows
 
@@ -2721,7 +2844,7 @@ def _h_fused_loads_and_tiles(u, pieces, v, k, kw):
     bx, by, bz = u.shape
     load = skb3.h_load(u.shape, k, u)
     interior, edge = p.h_tiles(u.shape, k)
-    wy, wz = p.f_extent(p.h_block, p.h_rows)
+    wy, wz = p.h_extent()
     e_shape = (bx, wy - 2 * k, (interior + edge) * (wz - 2 * k))
     check(p.h_tiles(e_shape, k) == (0, interior + edge)
           and p.h_launch(e_shape, k, bx) == p.h_launch(u.shape, k, bx),

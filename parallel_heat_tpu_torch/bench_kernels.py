@@ -22,8 +22,12 @@ window of the default check interval), checked bitwise against its
 plain version on the same plate first. The 3D kernels run on the
 ``--size-3d`` cube, after the same check on a ragged 67 x 130 x 201
 grid with cx, cy, cz = 0.1, 0.15, 0.05: D over thread blocks and planes
-per thread, F over thread blocks, rows per thread (its tile is the
-block's extended tile less the K-deep halo) and K. ``ms_per_step`` is
+per thread; F over thread blocks (32 lanes by 4 to 16 warps), rows per
+thread (its extended tile is 128 cells along Z by warps x rows), K and
+both plane loads (TMA and cp.async, each shape checked on a 67 x 130 x
+204 grid and, for cp.async, a 67 x 130 x 201 one), with the blocks an
+SM the card holds (``occupancy``), then over X segments and prefetch
+depths at the fastest TMA shape a step. ``ms_per_step`` is
 the time per launch over the steps it advances. ``--only m`` sweeps
 kernel M on stacks of 64 members of 512^2 and of 128^2 (20 steps with
 the residuals, one converge window): the tilings of a member that
@@ -55,7 +59,16 @@ against the plain version on the interior block of a (3, 3, 3) mesh of
 ``ops/hopper_params.py`` marked "measured" come from this sweep.
 ``--sass DIR`` also writes each kernel library's machine code
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
-instructions in each loop body, found by its backward branch.
+instructions in each loop body, found by its backward branch, and for
+kernel F's instances at the default K the instructions, shuffles and
+shared-memory bytes per cell-step of its plane loop (``sass_f``);
+``--turns TREE`` times the default paths' kernels (F under both
+loads, D, H-fused, H, E-uni, G-uni's bulk) in another checkout at TREE
+and in this one, in turns (TREE, this, this, TREE), each in its own
+process, and prints the sharded 3D picks of both.
+``--sass-of LIB`` reads F's machine code from another tree's library
+(``python -m parallel_heat_tpu_torch.bench_kernels --sass DIR --sass-of
+OTHER/parallel_heat_tpu_torch/build/libheat_f_temporal3d-*.so``).
 """
 
 from __future__ import annotations
@@ -89,12 +102,13 @@ A_DEPTHS = [1, 2, 4, 8]
 A_STEPS = 20
 D_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (64, 8), (128, 2), (128, 4)]
 D_PLANES = [4, 8, 16, 32, 64]
-# (block, rows per thread), at most 512 threads: extended tiles of
-# 32 x 16, 32 x 24, 32 x 32, 32 x 48, 32 x 64, 64 x 16 and 64 x 32 cells
-# (Z x Y).
-F_SHAPES = [((32, 16), 1), ((32, 8), 2), ((32, 4), 4), ((32, 12), 2),
-            ((32, 6), 4), ((32, 16), 2), ((32, 8), 4), ((32, 12), 4),
-            ((32, 16), 4), ((64, 8), 2), ((64, 4), 4), ((64, 8), 4)]
+# F's launch shapes, (32 lanes x warps, rows a thread): extended tiles of
+# 128 cells along Z by 16 to 32 rows along Y.
+F_SHAPES = [((32, 16), 1), ((32, 8), 2), ((32, 12), 2), ((32, 16), 2),
+            ((32, 4), 4), ((32, 6), 4), ((32, 8), 4)]
+F_KS = [1, 2, 3, 4, 5, 6]
+F_SEGMENTS = [32, 48, 64, 86, 128, 171, 256, 512]
+F_PREFETCH = [1, 2, 3, 4, 6, 8]
 COEFFS_3D = (0.1, 0.15, 0.05)
 M_BATCH = 64
 M_SIZES = [512, 128]
@@ -116,8 +130,13 @@ G_KS = [4, 6, 8]
 G_BAND_TILES = [112, 240, 496]
 H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)   # the sharded 3D main path
 H_SEGMENTS = [32, 64, 86, 128, 171, 256, 512]
-# H's launch shapes: F's, and 64-wide tiles of one row a thread.
-H_SHAPES = F_SHAPES + [((64, 8), 1), ((96, 4), 4), ((128, 4), 4)]
+TURN_CUBE, TURN_PLATE = 512, 16384   # --turns: F and D, E-uni
+# H's launch shapes, (along Z, along Y) threads and rows a thread: at most
+# 512 threads, extended tiles of 32 x 16 to 128 x 16 cells (Z x Y).
+H_SHAPES = [((32, 16), 1), ((32, 8), 2), ((32, 4), 4), ((32, 12), 2),
+            ((32, 6), 4), ((32, 16), 2), ((32, 8), 4), ((32, 12), 4),
+            ((32, 16), 4), ((64, 8), 2), ((64, 4), 4), ((64, 8), 4),
+            ((64, 8), 1), ((96, 4), 4), ((128, 4), 4)]
 
 
 def card_line() -> str:
@@ -273,24 +292,82 @@ def sweep_3d(size: int, reps: int, only=("d", "f")):
                    "planes": planes, "k": 1, "bitwise": ok, "ms": ms,
                    "ms_per_step": ms,
                    "default": block == p.d_block and planes == p.d_planes}
-    for block, rows in F_SHAPES if "f" in only else []:
-        for k in range(1, p.f_k_max(block, rows) + 1):
-            want = torch.empty_like(small)
-            rp = sk3.xslab_steps_3d_plain(small, want, k, **kw)
-            out = torch.empty_like(small)
-            _, _, seg = p.f_launch(tuple(small.shape), k, block, rows)
-            sk3._launch_f(small, out, k, bits, *COEFFS_3D, block, rows, seg)
-            ok = bool(torch.equal(out, want)
-                      and torch.equal(sk._residual_view(bits), rp))
-            _, _, seg = p.f_launch(tuple(u.shape), k, block, rows)
-            ms = time_ms(lambda: sk3._launch_f(u, v, k, None, CX, CY, CZ,
-                                               block, rows, seg), reps)
-            yield {"kernel": "heat_f_temporal3d", "block": list(block),
-                   "rows": rows, "k": k, "segment": seg,
-                   "smem_bytes": p.f_smem_bytes(k, block, rows),
-                   "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
-                   "default": (block == p.f_block and rows == p.f_rows
-                               and k == p.f_k_default)}
+    if "f" in only:
+        yield from _sweep_f(u, v, kw, reps)
+
+
+def _sweep_f(u, v, kw, reps: int):
+    """Kernel F over launch shapes, K and both loads on the cube ``u``,
+    then over segments and prefetch depths at the fastest shape a step;
+    each launch shape first checked bitwise against the plain version on
+    a 67 x 130 x 204 grid (both loads) and a 67 x 130 x 201 one
+    (cp.async)."""
+    p = params()
+    dev = u.device
+    rng = np.random.default_rng(1)
+    checks = {nz: torch.from_numpy((rng.standard_normal((67, 130, nz)) * 10)
+                                   .astype(np.float32)).to(dev)
+              for nz in (204, 201)}
+    bits = _bits(dev)
+    wants = {}
+
+    def checked(k, block, rows, load, seg=None, prefetch=None):
+        ok = True
+        for nz, small in checks.items():
+            if load == "tma" and nz % 4:
+                continue
+            if (nz, k) not in wants:
+                want = torch.empty_like(small)
+                res = sk3.xslab_steps_3d_plain(small, want, k, **kw)
+                wants[nz, k] = (want, res)
+            want, res = wants[nz, k]
+            out = torch.full_like(small, float("nan"))
+            _, _, s_seg = p.f_launch(tuple(small.shape), k, block, rows)
+            sk3._launch_f(small, out, k, bits, *COEFFS_3D, block, rows,
+                          seg or s_seg, load, prefetch)
+            ok = ok and bool(torch.equal(out, want) and torch.equal(
+                sk._residual_view(bits), res))
+        return ok
+
+    def row(k, block, rows, load, mode, seg=None, prefetch=None):
+        ok = checked(k, block, rows, load, seg, prefetch)
+        seg = seg or p.f_launch(tuple(u.shape), k, block, rows)[2]
+        prefetch = prefetch or p.f_prefetch
+        ms = time_ms(lambda: sk3._launch_f(u, v, k, None, CX, CY, CZ, block,
+                                           rows, seg, load, prefetch), reps)
+        return {"kernel": "heat_f_temporal3d", "mode": mode,
+                "block": list(block), "rows": rows, "k": k, "load": load,
+                "segment": seg, "prefetch": prefetch,
+                "smem_bytes": p.f_smem_bytes(k, block, rows, prefetch),
+                "occupancy": sk3.f_occupancy(k, load, block, rows, prefetch),
+                "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                "default": (block == p.f_block and rows == p.f_rows
+                            and k == p.f_k_default
+                            and seg == p.f_launch(tuple(u.shape), k)[2]
+                            and prefetch == p.f_prefetch)}
+
+    best = None
+    for block, rows in F_SHAPES:
+        for k in (k for k in F_KS if k <= p.f_k_max(block, rows)):
+            for load in sk3.LOADS:
+                r = row(k, block, rows, load, load)
+                if r["bitwise"] and load == "tma" and (
+                        best is None or r["ms_per_step"]
+                        < best["ms_per_step"]):
+                    best = r
+                yield r
+    if best is None:
+        return
+    block, rows, k = tuple(best["block"]), best["rows"], best["k"]
+    for seg in F_SEGMENTS:
+        for load in sk3.LOADS:
+            yield row(k, block, rows, load, f"{load} segments", seg=seg)
+    for prefetch in F_PREFETCH:
+        if k > p.f_k_max(block, rows, prefetch):
+            continue
+        for load in sk3.LOADS:
+            yield row(k, block, rows, load, f"{load} prefetch",
+                      prefetch=prefetch)
 
 
 def sweep_m(reps: int):
@@ -375,7 +452,7 @@ def sweep_mg(reps: int):
 
 
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-_BRANCH = re.compile(r"BRA (0x[0-9a-f]+)")
+_BRANCH = re.compile(r"BRA(?:\.[A-Z.]+)? (?:!?U?P\d, )?(0x[0-9a-f]+)")
 
 
 def _g_setup(dev, grid, mesh_shape, k, blocks=None):
@@ -566,7 +643,7 @@ def sweep_h(reps: int):
                    "size": size, "block": list(block), "rows": rows, "k": k,
                    "load": "tma" if tma else "cp.async", "segment": seg,
                    "smem_bytes": (p.h_tma_smem_bytes(k, block, rows) if tma
-                                  else p.f_smem_bytes(k, block, rows)),
+                                  else p.h_smem_bytes(k, block, rows)),
                    "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
                    "default": (block == p.h_block and rows == p.h_rows
                                and k == p.h_k_default)}
@@ -634,16 +711,206 @@ def sass_loops(sass: str):
     return loops
 
 
-def dump_sass(out_dir: str):
+_FUNCTION = re.compile(r"Function : (\S+)")
+_F_INSTANCE = re.compile(
+    r"heat_f_temporal3d_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+_SHARED = re.compile(r"^(LDS|STS)(?:\.U)?(?:\.(32|64|128))?\b")
+
+
+def _sass_op(text: str) -> str:
+    words = text.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def _sass_counts(instrs, lo: int, hi: int) -> dict:
+    """Instructions, FMUL, FFMA, SHFL and bytes of shared memory read or
+    written in addresses ``[lo, hi)`` of ``[(address, text)]``."""
+    ops = [_sass_op(t) for a, t in instrs if lo <= a < hi]
+    shared = sum(int(m.group(2) or 32) // 8 for m in map(_SHARED.match, ops)
+                 if m)
+    return {"instructions": len(ops),
+            "fmul": sum(op.startswith("FMUL") for op in ops),
+            "ffma": sum(op.startswith("FFMA") for op in ops),
+            "shfl": sum(op.startswith("SHFL") for op in ops),
+            "shared_bytes": shared}
+
+
+def sass_f_report(sass: str, k: int):
+    """Per instance of kernel F at depth ``k`` in a ``cuobjdump -sass``
+    listing: its size, its plane loop (the largest loop), and the step of
+    one plane on the test-free path, a cell-step being 4 FMUL of the
+    combine. A plane's levels are compiled twice, test-free and checked
+    (cells past the interior copied), as the two sides of a branch: a
+    conditional branch to one body, which the other body skips with an
+    unconditional branch, both with the same FMUL. ``inner`` is the
+    smaller of the first such pair in the plane loop (the last level's
+    stores and residual included, both sides of their branches), and
+    ``plane`` adds what the loop runs for a plane before that branch
+    (the wait for the plane, the barrier, the next plane's load, the
+    ring's slot): per cell-step, instructions, shuffles and bytes of
+    shared memory."""
+    out = []
+    for chunk in re.split(r"(?=\n\s*Function : )", sass):
+        name = _FUNCTION.search(chunk)
+        inst = name and _F_INSTANCE.search(name.group(1))
+        if not inst or int(inst.group(1)) != k:
+            continue
+        instrs = [(int(a, 16), t) for a, t in _SASS_LINE.findall(chunk)]
+        loops = sorted(sass_loops(chunk), key=lambda lp: -lp[2])
+        row = {"instance": name.group(1), "k": k,
+               "rows": int(inst.group(2)),
+               "tma": inst.group(3) == "1" if inst.group(3) else None,
+               "instructions": len(instrs), "loops": loops[:4]}
+        if loops:
+            lo, hi = int(loops[0][0], 16), int(loops[0][1], 16)
+            row["plane_loop"] = _sass_counts(instrs, lo, hi + 1)
+            for i, (a, t) in enumerate(instrs):
+                m = _BRANCH.search(t)
+                if not (lo <= a <= hi and t.startswith("@") and m):
+                    continue
+                x = int(m.group(1), 16)
+                skip = [(b, _BRANCH.search(u)) for b, u in instrs
+                        if a < b < x and not u.startswith("@")
+                        and _BRANCH.search(u)]
+                if x <= a or not skip:
+                    continue
+                b, mb = skip[-1]
+                y = int(mb.group(1), 16)
+                first = _sass_counts(instrs, a + 1, x)
+                second = _sass_counts(instrs, x, y)
+                if y <= x or not first["fmul"] or (
+                        first["fmul"] != second["fmul"]):
+                    continue
+                body = min(first, second, key=lambda c: c["instructions"])
+                pre = _sass_counts(instrs, lo, a + 1)
+                cells = body["fmul"] / 4
+                row["inner"] = body
+                row["plane_overhead"] = pre
+                row["inner_per_cell_step"] = {
+                    key: body[key] / cells
+                    for key in ("instructions", "shfl", "shared_bytes")}
+                row["plane_per_cell_step"] = {
+                    key: (body[key] + pre[key]) / cells
+                    for key in ("instructions", "shfl", "shared_bytes")}
+                break
+        out.append(row)
+    return out
+
+
+def dump_sass(out_dir: str, libraries=None):
+    """Write each kernel library's SASS to ``out_dir`` and print its
+    loops; for kernel F also :func:`sass_f_report` at the default K.
+    ``libraries`` (name -> path) defaults to this tree's builds."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     os.makedirs(out_dir, exist_ok=True)
-    for name, path in build.build().items():
+    for name, path in (libraries or build.build()).items():
         sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         with open(os.path.join(out_dir, f"{name}.sass"), "w") as fp:
             fp.write(sass)
         print(json.dumps({"sass": name, "loops": sass_loops(sass)}),
               flush=True)
+        if name == "heat_f_temporal3d":
+            for row in sass_f_report(sass, params().f_k_default):
+                print(json.dumps({"sass_f": row}), flush=True)
+
+
+def turn_times(reps: int) -> dict:
+    """Device ms (CUDA events over ``reps`` launches, three times) of the
+    default paths' kernels in whatever tree ``parallel_heat_tpu_torch``
+    is imported from: F at 512^3, K = 3 (and its cp.async load where the
+    tree has one), D at 512^3, H-fused monolithic and H at the 512^3
+    block of 1024^3 on (2, 2, 2), E-uni at 16384^2, K = 8, and G-uni's
+    deferred bulk at the 16384 x 8192 block of 32768^2 on (2, 4); and the
+    sharded 3D picks."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kw3 = dict(cx=CX, cy=CY, cz=CZ)
+    kw2 = dict(cx=CX, cy=CY)
+    runs = {}
+    cube = HeatPlate3D(*(TURN_CUBE,) * 3).init_grid(dev)
+    cube_out = torch.empty_like(cube)
+    runs["F"] = lambda: sk3.xslab_steps_3d(cube, cube_out, 3, False, **kw3)
+    if hasattr(sk3, "f_load"):
+        runs["F cp.async"] = lambda: sk3.xslab_steps_3d(
+            cube, cube_out, 3, False, load="cp.async", **kw3)
+    runs["D"] = lambda: sk3.slab_step_3d(cube, cube_out, **kw3)
+    mesh = HeatMesh(H_MESH, dev)
+    bs = mesh.block_shape(H_GRID)
+    plate = HeatPlate3D(*H_GRID)
+    us = [plate.init_block(dev, mesh.origin(b, bs), bs)
+          for b in range(mesh.size)]
+    b = mesh.size - 1
+    _, xch = _h_setup(dev, H_GRID, H_MESH, 3, us)
+    pieces = xch.pieces(b)
+    ext = torch.empty(xch.circular_shape, device=dev)
+    xch.assemble_circular(b, us[b], ext)
+    out = torch.empty(bs, device=dev)
+    hkw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw3)
+    runs["H-fused"] = lambda: skb3.h_block_fused(us[b], *pieces, out, 3,
+                                                 False, **hkw)
+    runs["H"] = lambda: skb3.h_block(ext, out, 3, False, **hkw)
+    grid = HeatPlate2D(TURN_PLATE, TURN_PLATE).init_grid(dev)
+    grid_out = torch.empty_like(grid)
+    runs["E-uni"] = lambda: sk.temporal_steps_uni(grid, grid_out, 8, False,
+                                                  **kw2)
+    g_mesh = HeatMesh(G_MESH, dev)
+    g_bs = g_mesh.block_shape(G_GRID)
+    g_plate = HeatPlate2D(*G_GRID)
+    gb = g_mesh.index((1, 1))
+    g_us = [g_plate.init_block(dev, g_mesh.origin(i, g_bs), g_bs)
+            for i in range(g_mesh.size)]
+    g_xch = temporal.DeepExchange2D(g_mesh, g_bs, 8, dev)
+    g_xch.phase1(g_us)
+    g_xch.phase2(g_us)
+    tail, _, _ = g_xch.pieces(gb)
+    g_out = torch.empty(g_bs, device=dev)
+    gkw = dict(origin=g_mesh.origin(gb, g_bs), grid_shape=G_GRID, **kw2)
+    runs["G-uni bulk"] = lambda: skb.block_uniform(g_us[gb], tail, None,
+                                                   None, g_out, 8, False,
+                                                   **gkw)
+    times = {name: [] for name in runs}
+    for _ in range(3):
+        for name, fn in runs.items():
+            times[name].append(time_ms(fn, reps))
+    return {"ms": times,
+            "picks": {"h_k_max": p.h_k_max(), "h_load": skb3.h_load(bs, 3),
+                      "h_launch": p.h_launch(bs, 3, bs[0]),
+                      "block_temporal_3d": repr(
+                          skb3.pick_block_temporal_3d(bs, 3))}}
+
+
+def turns(other: str, reps: int):
+    """:func:`turn_times` in the tree at ``other`` and in this one, in
+    turns (other, this, this, other), each in its own process; yields one
+    dict per kernel with the four runs' mean times."""
+    this = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trees = [os.path.abspath(other), this, this, os.path.abspath(other)]
+    runs = []
+    for tree in trees:
+        env = dict(os.environ, PYTHONPATH=tree + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--turn-of",
+             str(reps)], cwd=tree, env=env, capture_output=True, text=True,
+            timeout=1800)
+        if proc.returncode != 0:
+            raise RuntimeError(f"turn in {tree} failed:\n{proc.stderr}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for name in runs[1]["ms"]:
+        ms = [float(np.mean(r["ms"][name])) if name in r["ms"] else None
+              for r in runs]
+        row = {"turns": name, "order": ["other", "this", "this", "other"],
+               "ms": ms}
+        if None not in ms:
+            row["this_over_other"] = (ms[1] + ms[2]) / (ms[0] + ms[3])
+        yield row
+    yield {"picks": [r["picks"] for r in runs]}
 
 
 def main(argv=None) -> int:
@@ -661,13 +928,28 @@ def main(argv=None) -> int:
                     help="also write the JSON lines to this file")
     ap.add_argument("--sass", default=None, metavar="DIR",
                     help="write each kernel's machine code to DIR")
+    ap.add_argument("--turns", default=None, metavar="TREE",
+                    help="time the default paths' kernels in TREE (another "
+                         "checkout's root) and in this tree, in turns")
+    ap.add_argument("--turn-of", default=None, type=int,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sass-of", default=None, metavar="LIB",
+                    help="with --sass: read kernel F's machine code from "
+                         "this library (another tree's build) instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
         return 2
+    if args.turn_of:
+        print(json.dumps(turn_times(args.turn_of)), flush=True)
+        return 0
     print(card_line(), flush=True)
+    if args.turns:
+        for row in turns(args.turns, args.reps * 2):
+            print(json.dumps(row), flush=True)
     if args.sass:
-        dump_sass(args.sass)
+        dump_sass(args.sass, args.sass_of and {"heat_f_temporal3d":
+                                               args.sass_of})
     only = set(args.only.split(","))
     rows = []
     if only & {"b", "e"}:

@@ -335,14 +335,8 @@ inline bool heat_h_tma_fits(const float* u, int64_t by, int64_t bz,
 inline int heat_h_encode_map(CUtensorMap* map, const float* u, int64_t bx,
                              int64_t by, int64_t bz, int block_z,
                              int block_y, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bz),
-                              static_cast<cuuint64_t>(by),
-                              static_cast<cuuint64_t>(bx)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bz) * 4,
-                                 static_cast<cuuint64_t>(by * bz) * 4};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(block_z + 4),
-                             static_cast<cuuint32_t>(block_y * rows), 1};
-  return heat_tma_encode(map, u, 3, dims, strides, box);
+  return heat_tma_encode_3d(map, u, bx, by, bz, block_z + 4,
+                            block_y * rows);
 }
 
 // Dynamic shared memory of an H launch: the step phase's planes; for the

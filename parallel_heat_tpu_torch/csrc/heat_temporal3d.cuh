@@ -1,14 +1,20 @@
-// The step phase of the 3D K-step kernels: heat_f_temporal3d.cu (one
-// grid) and the sharded block kernels of heat_h.cuh (heat_h_block_3d.cu,
-// heat_h_block_3d_fused.cu, heat_h_band_fix_3d.cu). One arithmetic for
-// all of them, so a block's K steps through any of them are bitwise F's
-// K steps on the same cells.
+// The step phases of the 3D K-step kernels. One arithmetic for all of
+// them, so a block's K steps through any of them are bitwise kernel F's K
+// steps on the same cells:
+//   - heat_f_levels with its plane loops heat_t3d_stream and
+//     heat_t3d_stream_tma, one z cell a thread: the sharded block kernels
+//     of heat_h.cuh (heat_h_block_3d.cu, heat_h_block_3d_fused.cu,
+//     heat_h_band_fix_3d.cu);
+//   - HeatFLoop (below), the register-blocked plane loop of kernel F
+//     (heat_f_temporal3d.cu): a lane owns 4 z cells of R rows in float4
+//     registers, so neighbours come by shuffle and from registers, and
+//     each plane's tile arrives as one TMA box.
 //
-// A thread block owns a (Y, Z) tile of output cells plus a K-deep halo on
-// its four sides, the extended tile, and a segment of output planes
-// [x0, x1). It streams the input planes [x0 - K, x1 + K) through shared
-// memory, one plane per iteration (cp.async, a ring of kFPrefetch planes
-// in flight), and in the iteration that brings input plane t it advances
+// heat_f_levels. A thread block owns a (Y, Z) tile of output cells plus a
+// K-deep halo on its four sides, the extended tile, and a segment of
+// output planes [x0, x1). It streams the input planes [x0 - K, x1 + K)
+// through shared memory, one plane per iteration (cp.async, a ring of
+// kFPrefetch planes in flight), and in the iteration that brings input plane t it advances
 // every level at once: level s (the grid after s steps) at plane t - s,
 // for s = 1 .. K, so level K comes out K planes behind the input. This is
 // kernel I's scheme (heat_band.cuh) with planes for rows:
@@ -37,7 +43,11 @@
 // extended tile, a box of the caller's tensor map, and an mbarrier per
 // ring slot says when it has landed, so no other thread issues a load or
 // computes an address for it (heat_h.cuh's fused kernel, on the tiles
-// that lie inside its block).
+// that lie inside its block). At K = 3 and 4 rows a thread its
+// test-free step compiles to 27 instructions and 12.7 bytes of shared
+// memory a cell-step, 40 and 15 with the plane's load and barrier
+// (bench_kernels --sass; PERF.md), on 1.36 cells stepped per output cell
+// at 64 x 32 extended tiles.
 
 #pragma once
 
@@ -48,7 +58,7 @@
 
 // Input planes prefetched ahead of the one being stepped, and the input
 // ring's slots: the planes in flight plus the current and the previous.
-// ops/hopper_params.py's f_prefetch must equal kFPrefetch.
+// ops/hopper_params.py's h_prefetch must equal kFPrefetch.
 constexpr int kFPrefetch = 6;
 constexpr int kFSlots = kFPrefetch + 2;
 
@@ -332,3 +342,309 @@ inline int heat_t3d_smem_bytes(int k, int wy, int bz) {
   return static_cast<int>(sizeof(float)) * (kFSlots + 2 * (k - 1)) *
          (wy + 2) * bz;
 }
+
+// --- Kernel F's register-blocked plane loop (heat_f_temporal3d.cu) ------
+//
+// The 3D analog of heat_temporal.cuh's tile loop. A thread block is 32
+// lanes by W warps; the extended tile is kFWidth = 128 cells along Z by
+// W * R rows along Y, and its input planes stream down X with all K
+// levels in flight, as in heat_t3d_stream:
+//   - a lane owns a group of 4 adjacent z cells of R consecutive rows, one
+//     float4 a row, so a warp spans one 128-cell row of the tile; Z
+//     neighbours come from the lanes beside it (warp shuffles). Lane 0's
+//     left and lane 31's right neighbour lie outside the K-step cone of
+//     the outputs, and take the lane's own cell;
+//   - Y neighbours inside a thread's R rows are registers; only its first
+//     and last rows go to shared memory, per level and plane, for the
+//     warps above and below, which read them back as float4 (the level
+//     buffers hold those edge rows only, two per warp and level, by the
+//     plane's parity, with a pad row at each end);
+//   - X neighbours are registers: per level the planes below, at and
+//     above the one being stepped, three float4 arrays that the plane
+//     loop, unrolled by 3, renames instead of copying (12 K R floats a
+//     thread: 72 at K = 3, R = 2, where the instance takes 122 registers
+//     of the 128 its 512-thread launch bound allows; at K = 4 it spills,
+//     so R = 2 and K = 3 are the defaults, and 4 rows a thread are
+//     compiled for 8 warps at most, which lets them take 255);
+//   - level 0's Y neighbours come from the previous input plane, which
+//     stays in its ring slot; one block barrier per plane orders it all.
+// Shared traffic per level and R rows: two float4 read and two written
+// at the thread's edge rows, two shuffles per group: at K = 3 and R = 2
+// the test-free step compiles to 15.9 instructions a cell-step, 10 of
+// them the combine's rounded operations, and 6.7 bytes of shared memory;
+// 18.0 and 8 with the plane's wait, barrier and refill (bench_kernels
+// --sass; PERF.md).
+//
+// The tile's output cells are rows [K, W R - K) and cells [P, 128 - P)
+// with P = heat_f_pad(K), the halo rounded up to a whole group, so that a
+// tile's first cell along Z, z0 = tile * (128 - 2P) - P, is a multiple of
+// 4 and a plane's tile is one TMA box of the grid (nz % 4 == 0).
+//
+// Why the bits hold. Every step updates whole groups and rows, so it also
+// writes cells outside the K-step cone of the outputs: cells [0, s) and
+// [128 - s, 128) of a row at level s (lane 0 and 31's borrowed
+// neighbours), the rows [0, s) and [W R - s, W R) (the pad rows), and
+// the planes the stream has not yet reached (zeros at the start). A cell
+// valid at level s reads only cells valid at level s - 1, so none of
+// those values reaches an output (P >= K along Z, K rows along Y, K
+// planes along X). Cells outside the global interior are copied, never
+// computed, and cells outside the grid load as 0, so the Dirichlet faces
+// stay bit-exact and every step rounds to float32 like a launch of
+// heat_d_step3d: K steps are bitwise K launches of D.
+//
+// The planes arrive in a ring of `prefetch` + 2 slots, each a lead row,
+// the tile's rows and a tail row (the lead and tail are the first and
+// last rows' level-0 neighbours, never written); slot s completes an
+// mbarrier per use. By TMA (kTma) one thread asks for a plane's tile as
+// one box of a 3D tensor map of the grid, zero-filled outside it; by
+// cp.async every thread copies its own cells, 4 bytes each with zero fill
+// outside the grid, and arrives on the slot's barrier once they have
+// landed (heat_cp_async_arrive). Both wait on the barrier, then on the
+// block's.
+
+constexpr int kFLanes = 32;
+constexpr int kFWidth = 4 * kFLanes;  // cells of the extended tile along Z
+constexpr int kFMaxK = 8;             // ops/hopper_params.py f_k_compiled
+constexpr int kFMaxPrefetch = 8;      // ops/hopper_params.py f_prefetch_max
+
+// The halo along Z at depth k: k rounded up to a whole group.
+__host__ __device__ constexpr int heat_f_pad(int k) { return (k + 3) / 4 * 4; }
+
+// Warps a thread block of `rows` rows a thread may have: 16 (512
+// threads, up to 128 registers), or 8 at 4 rows, whose instances take up
+// to 255 (their launch bound).
+__host__ __device__ constexpr int heat_f_max_warps(int rows) {
+  return rows == 4 ? 8 : 16;
+}
+
+// The launch shapes the loop takes (ops/hopper_params.py f_takes is the
+// same rule): 32 lanes by W warps of 1, 2 or 4 rows a thread, at most
+// heat_f_max_warps(rows) warps, depth 1 .. kFMaxK, and at least one
+// output row (2k < W R; along Z the tile has 128 - 2 heat_f_pad(k) >= 112
+// output cells).
+inline bool heat_f_takes(int block_x, int block_y, int rows, int k) {
+  return block_x == kFLanes && (rows == 1 || rows == 2 || rows == 4) &&
+         block_y >= 1 && block_y <= heat_f_max_warps(rows) && k >= 1 &&
+         k <= kFMaxK && 2 * k < block_y * rows;
+}
+
+// Floats of a ring slot (a lead row, wy rows, a tail row) and of a level
+// buffer (min(R, 2) edge rows a warp and two pad rows).
+__host__ __device__ constexpr int heat_f_slot_floats(int wy) {
+  return (wy + 2) * kFWidth;
+}
+__host__ __device__ constexpr int heat_f_edge_floats(int warps, int rows) {
+  return ((rows < 2 ? rows : 2) * warps + 2) * kFWidth;
+}
+
+// Dynamic shared memory of one F block (ops/hopper_params.py
+// f_smem_bytes): 128 bytes to align the ring, prefetch + 2 slots, two
+// level buffers for each level 1 .. k-1, an 8-byte mbarrier a slot.
+inline int heat_f_smem_bytes(int k, int warps, int rows, int prefetch) {
+  return 4 * ((prefetch + 2) * heat_f_slot_floats(warps * rows) +
+              2 * (k - 1) * heat_f_edge_floats(warps, rows)) +
+         128 + 8 * (prefetch + 2);
+}
+
+// One thread's state of the loop. The kernel fills the geometry; run()
+// streams the planes.
+template <int K, int R, bool kTma>
+struct HeatFLoop {
+  static constexpr int kEdgeRows = R < 2 ? R : 2;
+  const float* u;            // the grid (the cp.async load)
+  const CUtensorMap* map;    // its tensor map (the TMA load)
+  float* out;
+  int64_t nx, nz, plane;     // plane: ny * nz
+  int64_t x0, x1;            // output planes of this block
+  int z0, y0;                // the tile's first cell (TMA coordinates)
+  float a0, cx, cy, cz;
+  bool vec_out, leader, has_out;
+  float* ring;               // slot 0, 128-byte aligned
+  float* lev;                // level 1's buffer of parity 0
+  uint64_t* full;            // the slots' mbarriers
+  int slots, prefetch, slot_f, edge_f;
+  int own;                   // this thread's first cell in a slot
+  int lev_first, lev_last;   // its first and last row in a level buffer
+  int lev_up, lev_dn;        // the rows above its first and below its last
+  int64_t src;               // its first cell's offset in a plane
+  unsigned cin;              // bit 4r + j: cell (r, j) lies in the grid
+  unsigned yin, zin;         // row r, cell j inside the global interior
+  unsigned yout, zout;       // row r, cell j an output of this tile
+  uint32_t box_bytes;
+  int cur;                   // ring slot of the plane being stepped
+  uint32_t lap;              // parity of slot cur's use
+  uint32_t rmax;
+
+  // Input plane t into ring slot `slot`: zeros outside the grid.
+  __device__ __forceinline__ void fetch(int slot, int64_t t) {
+    if constexpr (kTma) {
+      if (leader) {
+        heat_mbar_expect(&full[slot], box_bytes);
+        heat_tma_load_3d(ring + slot * slot_f + kFWidth, map, &full[slot],
+                         z0, y0, static_cast<int>(t));
+      }
+    } else {
+      float* dst = ring + slot * slot_f + own;
+      const bool t_in = t >= 0 && t < nx;
+      const int64_t base = t * plane + src;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = t_in && ((cin >> (4 * r + j)) & 1u);
+          __pipeline_memcpy_async(dst + r * kFWidth + j,
+                                  in ? u + (base + r * nz + j) : u, 4,
+                                  in ? 0 : 4);
+        }
+      heat_cp_async_arrive(&full[slot]);
+    }
+  }
+
+  // Levels 1 .. K of input plane t (level s at plane t - s) from the
+  // planes below (U), at (M) and above (D) each level's cells; level 0's
+  // D is plane t, read here from slot cur. Level s < K lands in D[s] and
+  // its edge rows in the level buffer of t's parity; level K is written
+  // out where plane t - K is this block's. kCheck: some cell may lie
+  // outside the global interior (a tile at the grid's edge, or a plane
+  // at its X faces); without it every cell is updated.
+  template <bool kCheck>
+  __device__ __forceinline__ void levels(float4 (&U)[K][R],
+                                         float4 (&M)[K][R],
+                                         float4 (&D)[K][R], int prev,
+                                         int64_t t) {
+    const float4* cur4 =
+        reinterpret_cast<const float4*>(ring + cur * slot_f + own);
+#pragma unroll
+    for (int r = 0; r < R; ++r) D[0][r] = cur4[r * (kFWidth / 4)];
+    const float* prev_p = ring + prev * slot_f + own;
+    const int par = static_cast<int>(t & 1);
+    float* out_p = has_out && t - K >= x0 && t - K < x1
+                       ? out + ((t - K) * plane + src)
+                       : nullptr;
+#pragma unroll
+    for (int s = 1; s <= K; ++s) {
+      // Level s-1 at plane t - s: M[s-1]; the neighbours of its first and
+      // last rows in the warps above and below, from shared memory.
+      float4 yu, yd;
+      if (s == 1) {
+        yu = *reinterpret_cast<const float4*>(prev_p - kFWidth);
+        yd = *reinterpret_cast<const float4*>(prev_p + R * kFWidth);
+      } else {
+        const float* nb = lev + ((s - 2) * 2 + (par ^ 1)) * edge_f;
+        yu = *reinterpret_cast<const float4*>(nb + lev_up);
+        yd = *reinterpret_cast<const float4*>(nb + lev_dn);
+      }
+      const bool x_in = !kCheck || (t - s >= 1 && t - s <= nx - 2);
+      float4 v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 c = M[s - 1][r];
+        const float4 xm = U[s - 1][r];
+        const float4 xp = D[s - 1][r];
+        const float4 ym = r > 0 ? M[s - 1][r - 1] : yu;
+        const float4 yp = r + 1 < R ? M[s - 1][r + 1] : yd;
+        const float zl = __shfl_up_sync(0xffffffffu, c.w, 1);
+        const float zr = __shfl_down_sync(0xffffffffu, c.x, 1);
+        float4 n;
+        n.x = heat_combine3(c.x, xm.x, xp.x, ym.x, yp.x, zl, c.y, a0, cx,
+                            cy, cz);
+        n.y = heat_combine3(c.y, xm.y, xp.y, ym.y, yp.y, c.x, c.z, a0, cx,
+                            cy, cz);
+        n.z = heat_combine3(c.z, xm.z, xp.z, ym.z, yp.z, c.y, c.w, a0, cx,
+                            cy, cz);
+        n.w = heat_combine3(c.w, xm.w, xp.w, ym.w, yp.w, c.z, zr, a0, cx,
+                            cy, cz);
+        if (kCheck) {
+          const bool row_in = x_in && ((yin >> r) & 1u);
+          n.x = row_in && (zin & 1u) ? n.x : c.x;
+          n.y = row_in && (zin & 2u) ? n.y : c.y;
+          n.z = row_in && (zin & 4u) ? n.z : c.z;
+          n.w = row_in && (zin & 8u) ? n.w : c.w;
+        }
+        v[r] = n;
+      }
+      if (s < K) {
+        float* dst = lev + ((s - 1) * 2 + par) * edge_f;
+        *reinterpret_cast<float4*>(dst + lev_first) = v[0];
+        if (R > 1) *reinterpret_cast<float4*>(dst + lev_last) = v[R - 1];
+#pragma unroll
+        for (int r = 0; r < R; ++r) D[s][r] = v[r];
+      } else if (out_p != nullptr) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (!((yout >> r) & 1u)) continue;
+          const float4 c = M[K - 1][r];
+          const unsigned in =
+              kCheck ? (x_in && ((yin >> r) & 1u) ? zout & zin : 0u) : zout;
+          if (in & 1u) rmax = max(rmax, heat_diff_bits(v[r].x, c.x));
+          if (in & 2u) rmax = max(rmax, heat_diff_bits(v[r].y, c.y));
+          if (in & 4u) rmax = max(rmax, heat_diff_bits(v[r].z, c.z));
+          if (in & 8u) rmax = max(rmax, heat_diff_bits(v[r].w, c.w));
+          float* q = out_p + r * nz;
+          if (vec_out && zout == 0xfu) {
+            *reinterpret_cast<float4*>(q) = v[r];
+          } else {
+            if (zout & 1u) q[0] = v[r].x;
+            if (zout & 2u) q[1] = v[r].y;
+            if (zout & 4u) q[2] = v[r].z;
+            if (zout & 8u) q[3] = v[r].w;
+          }
+        }
+      }
+    }
+  }
+
+  // One input plane t: wait for it, refill the slot freed by the last
+  // plane, step. kEdge: the tile reaches past the global interior.
+  template <bool kEdge>
+  __device__ __forceinline__ void plane_step(float4 (&U)[K][R],
+                                             float4 (&M)[K][R],
+                                             float4 (&D)[K][R], int64_t t,
+                                             int64_t t1) {
+    // Plane t has landed, for every thread once past the barrier, which
+    // also ends the last plane's reads of the slot refilled next.
+    heat_mbar_wait(&full[cur], lap);
+    __syncthreads();
+    const int prev = cur == 0 ? slots - 1 : cur - 1;
+    if (t + prefetch < t1) {
+      int next = cur + prefetch;
+      if (next >= slots) next -= slots;
+      if (kTma && leader)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fetch(next, t + prefetch);
+    }
+    if (kEdge || !(t - K >= 1 && t - 1 <= nx - 2))
+      levels<true>(U, M, D, prev, t);
+    else
+      levels<false>(U, M, D, prev, t);
+    if (++cur == slots) {
+      cur = 0;
+      lap ^= 1u;
+    }
+  }
+
+  // The block's input planes [x0 - K, x1 + K), after the barriers were
+  // initialised. The plane loop is unrolled by 3, so that the three
+  // planes of each level are renamed instead of copied.
+  template <bool kEdge>
+  __device__ __forceinline__ void run() {
+    const int64_t t0 = x0 - K, t1 = x1 + K;
+    // Input plane t0 + i lives in ring slot i % slots.
+    for (int i = 0; i < prefetch; ++i)
+      if (t0 + i < t1) fetch(i, t0 + i);
+    float4 A[K][R], B[K][R], C[K][R];
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r) A[s][r] = B[s][r] = C[s][r] = zero;
+    for (int64_t t = t0; t < t1;) {
+      plane_step<kEdge>(A, B, C, t, t1);
+      if (++t >= t1) break;
+      plane_step<kEdge>(B, C, A, t, t1);
+      if (++t >= t1) break;
+      plane_step<kEdge>(C, A, B, t, t1);
+      ++t;
+    }
+  }
+};

@@ -1,8 +1,9 @@
 // The Tensor Memory Accelerator (TMA) and mbarriers, for the kernels that
 // load a tile as one box of a tensor map: heat_e_uni_temporal.cu (2D, a
-// framed tile of the grid) and the sharded 3D kernels of heat_h.cuh (a
-// plane of a block's extended tile, heat_temporal3d.cuh's
-// heat_t3d_stream_tma). Device side: the PTX of sm_90 for mbarriers and
+// framed tile of the grid), heat_f_temporal3d.cu (a plane of a tile of
+// the grid, heat_temporal3d.cuh's heat_f_stream) and the sharded 3D
+// kernels of heat_h.cuh (a plane of a block's extended tile,
+// heat_temporal3d.cuh's heat_t3d_stream_tma). Device side: the PTX of sm_90 for mbarriers and
 // cp.async.bulk.tensor. Host side: the tensor-map encoder, fetched from
 // the driver through the runtime, so that nothing links against the
 // driver library.
@@ -23,6 +24,25 @@ __device__ __forceinline__ uint32_t heat_smem_addr(const void* p) {
 __device__ __forceinline__ void heat_mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
                    heat_smem_addr(bar))
+               : "memory");
+}
+
+// An mbarrier whose phase completes on `count` arrivals: kernel F's
+// cp.async load, where every thread of the block arrives once its own
+// copies have landed (heat_cp_async_arrive).
+__device__ __forceinline__ void heat_mbar_init_count(uint64_t* bar,
+                                                     uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   heat_smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before it
+// has landed (noinc: the arrival counts against the barrier's count).
+__device__ __forceinline__ void heat_cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(heat_smem_addr(bar))
                : "memory");
 }
 
@@ -133,6 +153,24 @@ inline int heat_tma_encode(CUtensorMap* map, const float* data, int rank,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kHeatTmaEncodeError + static_cast<int>(r);
+}
+
+// The tensor map of the n0 x n1 x n2 float32 array `data` (n2 innermost
+// and contiguous, n2 % 4 == 0 so that its strides are multiples of 16
+// bytes), boxes of box_z x box_y x 1 cells (innermost first), zeros
+// outside the array: a plane's tile of a 3D grid or block (heat_h.cuh's
+// heat_h_encode_map, heat_f_temporal3d.cu). Returns 0 or an error code.
+inline int heat_tma_encode_3d(CUtensorMap* map, const float* data,
+                              int64_t n0, int64_t n1, int64_t n2, int box_z,
+                              int box_y) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n2),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n0)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n2) * 4,
+                                 static_cast<cuuint64_t>(n1 * n2) * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_z),
+                             static_cast<cuuint32_t>(box_y), 1};
+  return heat_tma_encode(map, data, 3, dims, strides, box);
 }
 
 // The message of an entry point's error code: a cudaError_t, or one of

@@ -68,9 +68,10 @@ KERNELS = {
     "heat_d_step3d": ("heat_d_step3d.cu",
                       [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                        _F32, _F32, _F32, _F32, _P]),
+    # grid, k, thread block (lanes, warps), rows, segment, prefetch, tma
     "heat_f_temporal3d": ("heat_f_temporal3d.cu",
-                          [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
-                           _I32, _I32, _F32, _F32, _F32, _F32, _P]),
+                          [_P, _P, _P, _I64, _I64, _I64] + [_I32] * 7
+                          + [_F32] * 4 + [_P]),
     "heat_m_ensemble": ("heat_m_ensemble.cu",
                         [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                          _I32, _I32, _I32, _I32, _F32, _F32, _F32, _P]),

@@ -114,29 +114,46 @@ class HopperParams:
     d_block: tuple = (32, 4)
     d_planes: int = 16
 
-    # --- kernel F: heat_f_temporal3d (block, rows and K measured;
-    # prefetch, waves and segments chosen) ---------------------------------
-    # A (Y, Z) tile with a K-deep halo on its four sides, streamed down X
-    # with all K levels in flight: f_block = (along Z, along Y) threads,
-    # each thread f_rows consecutive rows of one z, so the extended tile
-    # is f_block[0] wide and f_block[1] * f_rows rows deep. Shared memory
-    # per block: f_prefetch + 2 input planes and two planes for each
-    # level 1 .. K-1, each plane padded by one row above and below
-    # (csrc/heat_f_temporal3d.cu's kFPrefetch must equal f_prefetch). K
-    # is compiled for 1 .. 8, rows for 1, 2 and 4. X is cut into segments
-    # so that the launch holds about f_waves blocks per SM, but not below
-    # f_seg_planes_min planes: a segment recomputes 2K planes. 64 x 8
-    # threads of 4 rows (a 64 x 32 extended tile, 58 x 26 output cells at
-    # K = 3) were the fastest per step of the sweep at 512^3; 32 x 16 of
-    # 4 rows came within 1%, one row per thread (the kernel's first
-    # design) cost 1.2x and more, K = 2 and K = 4 1.2x.
-    f_block: tuple = (64, 8)
-    f_rows: int = 4
-    f_prefetch: int = 6
+    # --- kernel F: heat_f_temporal3d (shape, rows, K, prefetch and
+    # segments measured; the shape rule chosen) ---------------------------
+    # The register-blocked plane loop (csrc/heat_temporal3d.cuh
+    # HeatFLoop): a (Y, Z) tile streamed down X with all K levels in
+    # flight; f_block = (32 lanes, warps), each lane 4 adjacent z cells of
+    # f_rows consecutive rows, so the extended tile is 128 cells along Z
+    # by warps * f_rows rows, and the output tile that less K rows a side
+    # along Y and f_pad(K) cells a side along Z (f_tile). f_takes() is the
+    # launch shapes the loop takes. Shared memory per block
+    # (f_smem_bytes): f_prefetch + 2 input planes of the tile and two
+    # edge-row buffers for each level 1 .. K-1. K is compiled for 1 ..
+    # f_k_compiled, rows for 1, 2 and 4. X is cut into segments so that
+    # the launch holds about f_waves blocks per SM, but not below
+    # f_seg_planes_min planes: a segment recomputes 2K planes. Each plane
+    # arrives by TMA where nz % 4 == 0 (f_load), else by cp.async.
+    # The sweep (bench_kernels --only f, 512^3, NVIDIA H100 80GB HBM3 at
+    # 700 W, all 106 launches bitwise) found 32 x 16 threads of 2 rows at
+    # K = 3 under TMA fastest a step: 0.5574 ms a launch (0.1858 a step),
+    # 0.7577 by cp.async; 32 x 12 of 2 rows 0.2101 a step, 32 x 8 of 4
+    # rows 0.2299, 32 x 16 of 1 row 0.2866; K = 2 0.2305 a step, K = 4
+    # 0.2647 (its instance spills). One block of 16 warps an SM (122
+    # registers). Segments of 48 to 64 planes came within 1% (32: 2.7%
+    # slower, 512: 22%); 3 to 6 planes in flight within 1%, 1 plane 15%
+    # slower.
+    # Past the default shape's deepest K (f_k_max(), 4: K = 4 is the last
+    # whose planes fit, and it spills) F launches at the first of
+    # f_deep_shapes that takes K (f_shape): at K = 5 to 8 in the sweep
+    # 32 x 8 of 4 rows came within 5% of the best shape that takes K
+    # (0.3837 against 0.3669 ms a step at K = 5), and it takes every K
+    # through 8 (at K = 8 with 3 planes in flight).
+    f_block: tuple = (32, 16)
+    f_rows: int = 2
+    f_deep_shapes: tuple = (((32, 8), 4), ((32, 16), 1))
+    f_prefetch: int = 4
+    f_prefetch_max: int = 8
     f_k_default: int = 3
     f_k_compiled: int = 8
     f_waves: int = 8
     f_seg_planes_min: int = 64
+    f_width: int = 128
 
     # --- kernel M: heat_m_ensemble (depths measured; cost model chosen) ---
     # A member is cut into tiles as kernel A cuts its grid, with A's
@@ -188,10 +205,11 @@ class HopperParams:
 
     # --- the sharded 3D block kernels heat_h_* (block, rows and K
     # measured; prefetch, waves and segments chosen) ----------------------
-    # F's step phase on the (Y, Z) tiles of one block (csrc/heat_h.cuh):
+    # The step phase heat_f_levels on the (Y, Z) tiles of one block
+    # (csrc/heat_h.cuh), one z cell a thread:
     # h_block = (along Z, along Y) threads, h_rows rows a thread, depth
     # h_k_default, X segments of about h_waves blocks per SM but not below
-    # h_seg_planes_min planes. The prefetch is F's (f_prefetch, the step
+    # h_seg_planes_min planes. The prefetch is h_prefetch (the step
     # phase's compiled kFPrefetch) for the cp.async load, h_tma_prefetch
     # for the TMA load; K is compiled for 1 .. h_k_compiled, rows for 1,
     # 2 and 4. The sweep bench_kernels --only h (H-fused's deferred bulk
@@ -205,6 +223,9 @@ class HopperParams:
     # for the run, the taller tile (26 x 58 output cells of 32 x 64) pays.
     h_block: tuple = (32, 16)
     h_rows: int = 4
+    # The cp.async ring's planes in flight (csrc/heat_temporal3d.cuh's
+    # kFPrefetch must equal it).
+    h_prefetch: int = 6
     h_k_default: int = 3
     h_k_compiled: int = 8
     h_waves: int = 8
@@ -292,47 +313,154 @@ class HopperParams:
 
     def f_extent(self, block=None, rows=None):
         """Kernel F's extended tile ``(rows along Y, cells along Z)``."""
-        bz, by = block or self.f_block
-        return by * (rows or self.f_rows), bz
+        _, warps = block or self.f_block
+        return warps * (rows or self.f_rows), self.f_width
 
-    def f_smem_bytes(self, k: int, block=None, rows=None) -> int:
-        """Dynamic shared memory of one F block at depth ``k``."""
-        wy, wz = self.f_extent(block, rows)
-        return (self.f_prefetch + 2 + 2 * (k - 1)) * (wy + 2) * wz * 4
+    @staticmethod
+    def f_pad(k: int) -> int:
+        """Kernel F's halo along Z at depth ``k``: ``k`` rounded up to a
+        group of 4 cells, so that a tile's box starts on 16 bytes
+        (``csrc/heat_temporal3d.cuh`` ``heat_f_pad``)."""
+        return -(-k // 4) * 4
 
-    @functools.lru_cache(maxsize=16)
-    def f_k_max(self, block=None, rows=None) -> int:
-        """Deepest K that the source compiles, that leaves the tile at
-        least one output cell per axis, and whose planes fit one block's
-        shared memory."""
+    def f_tile(self, k: int, block=None, rows=None):
+        """Kernel F's output tile ``(rows along Y, cells along Z)`` at
+        depth ``k``."""
         wy, wz = self.f_extent(block, rows)
+        return wy - 2 * k, wz - 2 * self.f_pad(k)
+
+    def f_takes(self, block, rows, k: int) -> bool:
+        """Does F's plane loop take thread blocks of ``block`` ``(lanes,
+        warps)`` with ``rows`` rows a thread at depth ``k``? 32 lanes (a
+        warp spans the tile's 128 cells along Z), 1, 2 or 4 rows, at most
+        16 warps (8 at 4 rows, whose instances may take up to 255
+        registers), a compiled depth, and an output row (2k < warps *
+        rows). ``csrc/heat_temporal3d.cuh`` ``heat_f_takes`` is the same
+        rule."""
+        lanes, warps = block
+        return (lanes == 32 and rows in (1, 2, 4)
+                and 1 <= warps <= (8 if rows == 4 else 16)
+                and 1 <= k <= self.f_k_compiled and 2 * k < warps * rows)
+
+    def f_smem_bytes(self, k: int, block=None, rows=None,
+                     prefetch=None) -> int:
+        """Dynamic shared memory of one F block at depth ``k``
+        (``csrc/heat_temporal3d.cuh`` ``heat_f_smem_bytes``): 128 bytes
+        to align the ring; ``prefetch + 2`` input planes of the extended
+        tile, each with a lead and a tail row; two buffers for each level
+        1 .. K-1 of ``min(rows, 2)`` edge rows a warp and two pad rows;
+        an 8-byte mbarrier a plane."""
+        _, warps = block or self.f_block
+        rows = rows or self.f_rows
+        slots = (prefetch or self.f_prefetch) + 2
+        wy, wz = self.f_extent(block, rows)
+        edge = (min(rows, 2) * warps + 2) * wz
+        return (4 * (slots * (wy + 2) * wz + 2 * (k - 1) * edge) + 128
+                + 8 * slots)
+
+    @functools.lru_cache(maxsize=64)
+    def f_k_max(self, block=None, rows=None, prefetch=None) -> int:
+        """Deepest K that F's shape takes (:meth:`f_takes`, so compiled
+        and leaving an output row) and whose planes fit one block's shared
+        memory."""
+        block, rows = block or self.f_block, rows or self.f_rows
         k = 0
-        while (k + 1 <= self.f_k_compiled and 2 * (k + 1) < min(wy, wz)
-               and self.f_smem_bytes(k + 1, block, rows)
+        while (self.f_takes(block, rows, k + 1)
+               and self.f_smem_bytes(k + 1, block, rows, prefetch)
                + self.static_smem_bytes <= self.smem_per_block_max):
             k += 1
         return k
 
+    @functools.lru_cache(maxsize=16)
+    def f_shape(self, k: int):
+        """``(block, rows, prefetch)``: F's launch shape at depth ``k``,
+        the default (``f_block``, ``f_rows``, ``f_prefetch``) where it
+        takes ``k``, else the first of ``f_deep_shapes`` that does with
+        the most planes in flight that fit, up to ``f_prefetch``; None
+        where no shape takes ``k``."""
+        if 1 <= k <= self.f_k_max():
+            return self.f_block, self.f_rows, self.f_prefetch
+        for block, rows in self.f_deep_shapes:
+            for prefetch in range(self.f_prefetch, 0, -1):
+                if k <= self.f_k_max(block, rows, prefetch):
+                    return block, rows, prefetch
+        return None
+
+    def f_tma_fits(self, shape) -> bool:
+        """Does an ``(X, Y, Z)`` grid take F's TMA plane load? A tensor
+        map's strides are multiples of 16 bytes, so ``nz % 4 == 0`` (the
+        box, 128 cells by the tile's rows, always fits TMA's 256 a
+        dimension); the launch also needs the grid 16-byte aligned."""
+        return shape[2] % 4 == 0
+
     def f_launch(self, shape, k, block=None, rows=None):
         """Kernel F's ``(tile_y, tile_z, segment planes)`` at depth ``k``
-        for an ``(X, Y, Z)`` grid."""
+        for an ``(X, Y, Z)`` grid, at :meth:`f_shape`'s block and rows by
+        default."""
+        if block is None:
+            block, rows, _ = self.f_shape(k)
         x, y, z = shape
-        wy, wz = self.f_extent(block, rows)
-        tile_y, tile_z = wy - 2 * k, wz - 2 * k
+        tile_y, tile_z = self.f_tile(k, block, rows)
         tiles = -(-y // tile_y) * -(-z // tile_z)
         segments = -(-self.sm_count * self.f_waves // tiles)
         return tile_y, tile_z, max(self.f_seg_planes_min, -(-x // segments))
+
+    def f_tile_kinds(self, shape, k: int, block=None, rows=None) -> dict:
+        """The tiles of an F launch at depth ``k`` on an ``(X, Y, Z)``
+        grid, counted by the branches they run: ``interior`` (the extended
+        tile lies inside the grid's interior: the test-free step) and
+        ``edge`` (it reaches past it: cells copied), of those ``top``,
+        ``left``, ``bottom`` and ``right`` (the tile's box reaches past
+        that side of the grid along Y or Z: zeros from TMA, or zero-filled
+        copies), ``ragged_y`` and ``ragged_z`` (the last tile cut short)
+        and ``partial_group`` (a tile whose last output group along Z has
+        fewer than 4 cells: cell-by-cell stores)."""
+        _, ny, nz = shape
+        wy, wz = self.f_extent(block, rows)
+        ty, tz = self.f_tile(k, block, rows)
+        pad = self.f_pad(k)
+        kinds = dict.fromkeys(("tiles", "interior", "edge", "top", "left",
+                               "bottom", "right", "ragged_y", "ragged_z",
+                               "partial_group"), 0)
+        for a in range(0, ny, ty):
+            for c in range(0, nz, tz):
+                y0, z0 = a - k, c - pad
+                kinds["tiles"] += 1
+                kinds["top"] += y0 < 0
+                kinds["left"] += z0 < 0
+                kinds["bottom"] += y0 + wy > ny
+                kinds["right"] += z0 + wz > nz
+                kinds["edge" if (y0 < 1 or z0 < 1 or y0 + wy > ny - 1
+                                 or z0 + wz > nz - 1) else "interior"] += 1
+                kinds["ragged_y"] += ny - a < ty
+                kinds["ragged_z"] += nz - c < tz
+                kinds["partial_group"] += min(tz, nz - c) % 4 != 0
+        return kinds
+
+    def h_extent(self, block=None, rows=None):
+        """An H kernel's extended tile ``(rows along Y, cells along Z)``:
+        ``block`` = (along Z, along Y) threads, ``rows`` rows a thread."""
+        bz, by = block or self.h_block
+        return by * (rows or self.h_rows), bz
+
+    def h_smem_bytes(self, k: int, block=None, rows=None) -> int:
+        """Dynamic shared memory of one H block at depth ``k`` under the
+        cp.async load (csrc/heat_temporal3d.cuh heat_t3d_smem_bytes):
+        h_prefetch + 2 input planes and two planes for each level
+        1 .. K-1, each padded by one row above and below."""
+        wy, wz = self.h_extent(block, rows)
+        return (self.h_prefetch + 2 + 2 * (k - 1)) * (wy + 2) * wz * 4
 
     @functools.lru_cache(maxsize=16)
     def h_k_max(self, block=None, rows=None) -> int:
         """Deepest K an H kernel takes at ``h_block`` and ``h_rows``: the
         compiled depths, at least one output cell per axis of the tile,
-        and F's planes within one block's shared memory."""
+        and the planes within one block's shared memory."""
         block, rows = block or self.h_block, rows or self.h_rows
-        wy, wz = self.f_extent(block, rows)
+        wy, wz = self.h_extent(block, rows)
         k = 0
         while (k + 1 <= self.h_k_compiled and 2 * (k + 1) < min(wy, wz)
-               and max(self.f_smem_bytes(k + 1, block, rows),
+               and max(self.h_smem_bytes(k + 1, block, rows),
                        self.h_tma_smem_bytes(k + 1, block, rows))
                + self.static_smem_bytes <= self.smem_per_block_max):
             k += 1
@@ -346,7 +474,7 @@ class HopperParams:
         the tile's rows of wz + 4 cells and a bottom row, rounded up to
         128 bytes; 128 bytes of alignment and one 8-byte mbarrier a
         slot."""
-        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+        wy, wz = self.h_extent(block, rows)
         row = wz + 4
         lead = -(-row // 32) * 32
         plane = -(-(lead + (wy + 1) * row) // 32) * 32
@@ -377,7 +505,7 @@ class HopperParams:
         so tile 0 never lies inside; at the defaults and K = 3 a block
         holds one from 2w - 3K cells on, 119 x 55 (Y, Z)."""
         _, by, bz = block_shape
-        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+        wy, wz = self.h_extent(block, rows)
 
         def inside(n, w):
             tiles = -(-n // (w - 2 * k))
@@ -392,7 +520,7 @@ class HopperParams:
         """The TMA load's box ``(rows along Y, cells along Z)``: the
         extended tile, 4 cells wider, since a box starts at a z that is a
         multiple of 4 cells."""
-        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+        wy, wz = self.h_extent(block, rows)
         return wy, wz + 4
 
     def h_launch(self, block_shape, k, planes, block=None, rows=None) -> int:
@@ -400,7 +528,7 @@ class HopperParams:
         output planes of a ``(bx, by, bz)`` block: about ``h_waves``
         blocks per SM, at least ``h_seg_planes_min`` planes."""
         _, by, bz = block_shape
-        wy, wz = self.f_extent(block or self.h_block, rows or self.h_rows)
+        wy, wz = self.h_extent(block, rows)
         tiles = -(-by // (wy - 2 * k)) * -(-bz // (wz - 2 * k))
         segments = -(-self.sm_count * self.h_waves // tiles)
         return max(self.h_seg_planes_min, -(-planes // segments))

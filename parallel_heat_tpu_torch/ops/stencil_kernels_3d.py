@@ -8,7 +8,8 @@ The port of the 3D single-device part of
   7-point step plus the interior max-norm residual;
 - :func:`xslab_steps_3d` launches ``heat_f_temporal3d``
   (csrc/heat_f_temporal3d.cu), the counterpart of ``heat_f_xslab_3d``:
-  K steps per pass, residual of the last step optional;
+  K steps per pass, residual of the last step optional, each plane's tile
+  by TMA where the grid takes it, else by cp.async (:func:`f_load`);
 - :func:`slab_step_3d_plain` and :func:`xslab_steps_3d_plain` compute the
   same functions in plain PyTorch, with :func:`~.stencil.combine_3d` in
   the kernels' operation order, so a kernel and its plain version agree
@@ -32,6 +33,20 @@ from parallel_heat_tpu_torch.ops.hopper_params import params
 from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32, combine_3d
 
 counts = sk.counts
+
+LOADS = ("tma", "cp.async")
+
+
+def f_load(shape, u: Optional[torch.Tensor] = None) -> str:
+    """Kernel F's plane load for an ``(X, Y, Z)`` grid (of ``u``, when
+    given): ``"tma"`` where
+    :meth:`~.hopper_params.HopperParams.f_tma_fits` holds (``nz % 4 ==
+    0``) and u's address is a multiple of 16 bytes, else ``"cp.async"``.
+    Geometry alone decides; the launch refuses TMA elsewhere and nothing
+    falls back."""
+    fits = params().f_tma_fits(tuple(shape))
+    return ("tma" if fits and (u is None or u.data_ptr() % 16 == 0)
+            else "cp.async")
 
 
 # ---------------------------------------------------------------------------
@@ -86,18 +101,46 @@ def _launch_d(u, out, bits, cx, cy, cz, block, planes) -> None:
     sk._raise_on_error(lib, "heat_d_step3d", code)
 
 
-def _launch_f(u, out, k, bits, cx, cy, cz, block, rows, seg) -> None:
-    """One launch of ``heat_f_temporal3d`` at depth ``k`` with blocks of
-    ``block`` = (along Z, along Y) threads, each ``rows`` rows deep, over
-    segments of ``seg`` X planes (``bits`` None: no residual); raises if
-    the launch is refused. Checks nothing and counts nothing."""
-    from parallel_heat_tpu_torch.kernels.build import load
+def _launch_f(u, out, k, bits, cx, cy, cz, block, rows, seg, load,
+              prefetch=None) -> None:
+    """One launch of ``heat_f_temporal3d`` at depth ``k`` with thread
+    blocks of ``block`` = (32 lanes, warps), each thread ``rows`` rows
+    deep, over segments of ``seg`` X planes, each plane's tile by
+    ``load`` ("tma" or "cp.async"), ``prefetch`` planes in flight
+    (``f_prefetch`` by default; ``bits`` None: no residual); raises if the
+    launch is refused. Checks nothing and counts nothing."""
+    from parallel_heat_tpu_torch.kernels.build import load as load_lib
 
-    lib = load("heat_f_temporal3d")
+    lib = load_lib("heat_f_temporal3d")
     code = lib.heat_f_temporal3d(
         u.data_ptr(), out.data_ptr(), sk._ptr(bits), *u.shape, k, block[0],
-        block[1], rows, seg, *coeffs3_f32(cx, cy, cz), sk._stream(u))
+        block[1], rows, seg, prefetch or params().f_prefetch,
+        int(load == "tma"), *coeffs3_f32(cx, cy, cz), sk._stream(u))
     sk._raise_on_error(lib, "heat_f_temporal3d", code)
+
+
+def f_occupancy(k: int, load: str, block=None, rows=None,
+                prefetch=None) -> int:
+    """Thread blocks of F's ``(k, rows, load)`` instance that one SM of
+    the current card holds at once (the CUDA occupancy calculator at the
+    launch's shared memory, registers included); builds the kernel if
+    needed."""
+    import ctypes
+
+    from parallel_heat_tpu_torch.kernels.build import load as load_lib
+
+    p = params()
+    (_, warps), rows = block or p.f_block, rows or p.f_rows
+    lib = load_lib("heat_f_temporal3d")
+    fn = lib.heat_f_temporal3d_occupancy
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    sk._raise_on_error(lib, "heat_f_temporal3d",
+                       fn(k, warps, rows, int(load == "tma"),
+                          prefetch or p.f_prefetch,
+                          ctypes.addressof(blocks)))
+    return blocks.value
 
 
 def slab_step_3d(u: torch.Tensor, out: torch.Tensor, *, cx: float,
@@ -116,23 +159,36 @@ def slab_step_3d(u: torch.Tensor, out: torch.Tensor, *, cx: float,
 
 def xslab_steps_3d(u: torch.Tensor, out: torch.Tensor, k: int,
                    with_residual: bool = True, *, cx: float, cy: float,
-                   cz: float) -> Optional[torch.Tensor]:
+                   cz: float, load: Optional[str] = None
+                   ) -> Optional[torch.Tensor]:
     """Kernel F: ``k`` 7-point steps of ``u`` into ``out`` in one pass
     through global memory; returns the last step's residual (0-d float32
     tensor) or None without ``with_residual``. Bitwise ``k`` launches of
-    :func:`slab_step_3d`."""
+    :func:`slab_step_3d`. ``load`` pins the plane load ("tma" or
+    "cp.async"); by default :func:`f_load` picks it, and "tma" where the
+    grid does not take it raises. Every compiled depth runs, at the launch
+    shape :meth:`~.hopper_params.HopperParams.f_shape` gives it."""
     sk._check(u, out, ndim=3)
     p = params()
-    if not 1 <= k <= p.f_k_max():
-        raise ValueError(f"k must be in [1, {p.f_k_max()}] (kernel F at "
-                         f"block {p.f_block}), got {k}")
+    if not 1 <= k <= p.f_k_compiled:
+        raise ValueError(f"k must be in [1, {p.f_k_compiled}] (kernel F's "
+                         f"compiled depths), got {k}")
+    fits = f_load(u.shape, u)
+    if load is None:
+        load = fits
+    elif load not in LOADS:
+        raise ValueError(f"load must be one of {LOADS}, got {load!r}")
+    elif load == "tma" and fits != "tma":
+        raise ValueError(f"the TMA load needs nz % 4 == 0 and a 16-byte "
+                         f"aligned grid; got {tuple(u.shape)}")
     if u.device.type == "cpu":
         return xslab_steps_3d_plain(u, out, k, with_residual, cx=cx, cy=cy,
                                     cz=cz)
     bits = (torch.empty(1, dtype=torch.int32, device=u.device)
             if with_residual else None)
-    _, _, seg = p.f_launch(tuple(u.shape), k)
-    _launch_f(u, out, k, bits, cx, cy, cz, p.f_block, p.f_rows, seg)
+    block, rows, prefetch = p.f_shape(k)
+    _, _, seg = p.f_launch(tuple(u.shape), k, block, rows)
+    _launch_f(u, out, k, bits, cx, cy, cz, block, rows, seg, load, prefetch)
     counts["heat_f_temporal3d"] += 1
     return sk._residual_view(bits) if bits is not None else None
 
@@ -147,8 +203,9 @@ def pick_single_3d(shape):
 
     The one decision site: :func:`single_grid_multistep_3d` executes its
     result and ``solver.explain`` reports it. The default is F, the JAX
-    package's first choice. Both kernels take every grid of at least 3
-    cells per axis (ValueError otherwise), so a choice pinned with
+    package's first choice, its plane load :func:`f_load`'s (TMA where
+    ``nz % 4 == 0``). Both kernels take every grid of at least 3 cells
+    per axis (ValueError otherwise), so a choice pinned with
     ``tune.force("single_3d", ...)`` is always feasible; that pin is how
     D runs at all.
     """
@@ -163,7 +220,8 @@ def pick_single_3d(shape):
         k = p.f_k_default
         tile_y, tile_z, seg = p.f_launch(tuple(shape), k)
         return "F", {"k": k, "tile": (tile_y, tile_z), "block": p.f_block,
-                     "rows": p.f_rows, "segment": seg}
+                     "rows": p.f_rows, "segment": seg,
+                     "load": f_load(shape)}
     return "D", {"block": p.d_block, "planes": p.d_planes}
 
 

@@ -368,7 +368,7 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
         raise ValueError(
             f"the TMA load needs bz % 4 == 0, {p.h_tma_rows} rows a thread, "
             f"a tile inside the block at K={k} (extended tile "
-            f"{p.f_extent(p.h_block, p.h_rows)} (Y, Z)) and a 16-byte "
+            f"{p.h_extent()} (Y, Z)) and a 16-byte "
             f"aligned block; got a block of {tuple(u.shape)}")
     if out.device.type == "cpu":
         return h_block_fused_plain(u, ztail, ytail, xlo, xhi, out, k,

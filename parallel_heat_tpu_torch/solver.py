@@ -520,7 +520,7 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
     if "load" in detail:
         hp = params()
         wy, wz = hp.h_tma_box(detail["block"], detail["rows"])
-        ty, tz = hp.f_extent(detail["block"], detail["rows"])
+        ty, tz = hp.h_extent(detail["block"], detail["rows"])
         least = f"{2 * ty - 3 * k}x{max(2 * tz - 3 * k, wz)}"
         load = (f", tiles inside the block load by TMA (one {wy}x{wz} "
                 f"(Y, Z) box a plane; bz % 4 == 0 and a tile inside the "
@@ -537,16 +537,22 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
 
 def _explain_3d(config: HeatConfig, out: dict, plain: str) -> dict:
     from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
 
     kind, detail = sk3.pick_single_3d(config.shape)
     if kind == "F":
         ty, tz = detail["tile"]
-        bz, by = detail["block"]
+        lanes, warps = detail["block"]
+        wy, wz = params().f_extent(detail["block"], detail["rows"])
+        load = (f"load=tma (one {wy}x{wz} (Y, Z) box a plane)"
+                if detail["load"] == "tma" else
+                f"load=cp.async (per cell; TMA needs nz % 4 == 0, got "
+                f"nz={config.shape[2]})")
         out["path"] = (f"kernel F (heat_f_temporal3d, K-step temporal, "
                        f"(Y, Z) tiles streamed down X) tile={ty}x{tz} "
-                       f"block={bz}x{by} rows={detail['rows']} "
-                       f"segment={detail['segment']} K={detail['k']}"
-                       + plain)
+                       f"block={lanes}x{warps} rows={detail['rows']} "
+                       f"segment={detail['segment']} K={detail['k']} "
+                       f"{load}" + plain)
     elif kind == "D":
         bz, by = detail["block"]
         out["path"] = (f"kernel D (heat_d_step3d, one step) block={bz}x{by} "

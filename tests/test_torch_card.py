@@ -239,19 +239,21 @@ def test_d_bitwise_equal_to_plain(card, shape, coeffs):
 
 @pytest.mark.parametrize("coeffs", COEFFS_3D)
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 8, None])
-@pytest.mark.parametrize("shape", SHAPES_3D)
+@pytest.mark.parametrize("shape", SHAPES_3D + [(67, 130, 204), (9, 70, 252)])
 def test_f_bitwise_equal_to_k_d_launches_and_plain(card, shape, k, coeffs):
     k = k or params().f_k_default
     kw = _kw3(coeffs)
     u = _rand(shape, 8, card)
-    got, want, nores = (torch.empty_like(u) for _ in range(3))
-    r = sk3.xslab_steps_3d(u, got, k, **kw)
-    src, rd = _d_launches(u, k, kw)
-    rp = sk3.xslab_steps_3d_plain(u, want, k, **kw)
-    assert torch.equal(got, src) and torch.equal(r, rd)
-    assert torch.equal(got, want) and torch.equal(r, rp)
-    assert sk3.xslab_steps_3d(u, nores, k, False, **kw) is None
-    assert torch.equal(got, nores)
+    for load in ["cp.async"] + (["tma"] if shape[2] % 4 == 0 else []):
+        got, want, nores = (torch.empty_like(u) for _ in range(3))
+        r = sk3.xslab_steps_3d(u, got, k, load=load, **kw)
+        src, rd = _d_launches(u, k, kw)
+        rp = sk3.xslab_steps_3d_plain(u, want, k, **kw)
+        assert torch.equal(got, src) and torch.equal(r, rd)
+        assert torch.equal(got, want) and torch.equal(r, rp)
+        assert sk3.xslab_steps_3d(u, nores, k, False, load=load,
+                                  **kw) is None
+        assert torch.equal(got, nores)
 
 
 def test_nan_reaches_the_3d_residuals(card):

@@ -209,7 +209,7 @@ def test_3d_wrappers_reject_bad_inputs(case):
     elif case == "rank":
         u, out = torch.zeros((6, 5)), torch.empty((6, 5))
     elif case == "k":
-        k = params().f_k_max() + 1
+        k = params().f_k_compiled + 1
     sk.reset_counts()
     with pytest.raises((TypeError, ValueError)):
         sk3.xslab_steps_3d(u, out, k, cx=0.1, cy=0.1, cz=0.1)
@@ -229,7 +229,9 @@ def test_pick_single_3d_default_and_forced():
     assert (kind, detail) == ("F", {"k": p.f_k_default,
                                     "tile": (tile_y, tile_z),
                                     "block": p.f_block, "rows": p.f_rows,
-                                    "segment": seg})
+                                    "segment": seg, "load": "tma"})
+    # 32 x 128 extended tiles at K = 3: 26 x 120 output cells.
+    assert (tile_y, tile_z) == (26, 120)
     # F's tiled design takes every grid of 3^3 and more.
     for shape in [(3, 3, 3), (5, 3, 300), (67, 130, 201)]:
         assert sk3.pick_single_3d(shape)[0] == "F"
@@ -254,22 +256,206 @@ def test_pick_single_3d_default_and_forced():
 @pytest.mark.parametrize("k", [1, 3, 8])
 def test_f_launch_covers_the_grid_within_the_card(shape, k):
     p = params()
-    tile_y, tile_z, seg = p.f_launch(shape, k)
-    wy, wz = p.f_extent()
-    assert (wy, wz) == (p.f_block[1] * p.f_rows, p.f_block[0])
-    assert (tile_y, tile_z) == (wy - 2 * k, wz - 2 * k)
+    block, rows, prefetch = p.f_shape(k)
+    assert p.f_takes(block, rows, k)
+    assert k <= p.f_k_max(block, rows, prefetch)
+    tile_y, tile_z, seg = p.f_launch(shape, k, block, rows)
+    wy, wz = p.f_extent(block, rows)
+    assert (wy, wz) == (block[1] * rows, 128)
+    # K rows a side along Y; K rounded up to a group of 4 along Z, so a
+    # tile's box starts on 16 bytes.
+    assert (tile_y, tile_z) == (wy - 2 * k, wz - 2 * (-(-k // 4) * 4))
+    assert (tile_y, tile_z) == p.f_tile(k, block, rows)
+    assert tile_z % 4 == 0 and p.f_pad(k) % 4 == 0 and p.f_pad(k) >= k
     assert seg >= p.f_seg_planes_min
     blocks = -(-shape[1] // tile_y) * -(-shape[2] // tile_z) \
         * -(-shape[0] // seg)
     assert blocks < 2 ** 31
-    assert p.f_smem_bytes(k) + p.static_smem_bytes <= p.smem_per_block_max
+    assert (p.f_smem_bytes(k, block, rows, prefetch) + p.static_smem_bytes
+            <= p.smem_per_block_max)
 
 
 def test_hopper_params_3d_budget():
     p = params()
     assert 1 <= p.f_k_default <= p.f_k_max() <= p.f_k_compiled
-    bz, by = p.f_block
-    assert bz % 32 == 0 and bz * by <= 512 and p.f_rows in (1, 2, 4)
+    lanes, warps = p.f_block
+    assert lanes == 32 and p.f_rows in (1, 2, 4)
+    assert warps <= (8 if p.f_rows == 4 else 16)
+    assert p.f_takes(p.f_block, p.f_rows, p.f_k_default)
+    assert 1 <= p.f_prefetch <= p.f_prefetch_max
     assert p.d_block[0] * p.d_block[1] % 32 == 0
     assert (p.f_smem_bytes(p.f_k_max()) + p.static_smem_bytes
             <= p.smem_per_block_max)
+    assert (p.f_smem_bytes(p.f_k_max() + 1) + p.static_smem_bytes
+            > p.smem_per_block_max)
+    # Every compiled depth has a launch shape: the default's up to its
+    # deepest K, a deeper one past it.
+    for k in range(1, p.f_k_compiled + 1):
+        block, rows, prefetch = p.f_shape(k)
+        assert p.f_takes(block, rows, k)
+        assert k <= p.f_k_max(block, rows, prefetch)
+        if k <= p.f_k_max():
+            assert (block, rows, prefetch) == (p.f_block, p.f_rows,
+                                               p.f_prefetch)
+        else:
+            assert (block, rows) in p.f_deep_shapes
+        assert p.f_launch((64, 64, 64), k)[:2] == p.f_tile(k, block, rows)
+    assert p.f_shape(p.f_k_compiled + 1) is None
+
+
+# (lanes, warps), rows, K, taken: the shape rule of csrc/heat_temporal3d.cuh
+# heat_f_takes, which hopper_params.f_takes restates (chip_smoke.py holds
+# the C launcher to f_takes on the card).
+F_SHAPE_TABLE = [
+    ((32, 16), 2, 3, True), ((32, 8), 4, 3, True), ((32, 16), 1, 7, True),
+    ((32, 1), 4, 1, True), ((32, 12), 2, 8, True), ((32, 8), 4, 8, True),
+    ((32, 16), 4, 3, False),   # 4 rows: at most 8 warps
+    ((32, 17), 2, 3, False),   # at most 16 warps
+    ((64, 8), 2, 3, False),    # a warp spans the tile's 128 cells
+    ((32, 8), 3, 3, False),    # 1, 2 or 4 rows
+    ((32, 4), 1, 2, False),    # no output row: 2K = W R
+    ((32, 2), 2, 2, False),
+    ((32, 8), 4, 9, False),    # compiled depths 1 .. 8
+    ((32, 8), 4, 0, False),
+    ((32, 0), 2, 1, False),
+]
+
+
+@pytest.mark.parametrize("block,rows,k,taken", F_SHAPE_TABLE,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_f_shape_rule(block, rows, k, taken):
+    assert params().f_takes(block, rows, k) == taken
+
+
+def test_f_shape_rule_is_the_launchers():
+    # The constants of the C rule, read from its source: 32 lanes, the
+    # warps a block of `rows` rows may have, the compiled depths.
+    from pathlib import Path
+
+    src = (Path(sk3.__file__).parents[1] / "csrc"
+           / "heat_temporal3d.cuh").read_text()
+    assert "constexpr int kFLanes = 32;" in src
+    assert "constexpr int kFWidth = 4 * kFLanes;" in src
+    assert f"constexpr int kFMaxK = {params().f_k_compiled};" in src
+    assert (f"constexpr int kFMaxPrefetch = {params().f_prefetch_max};"
+            in src)
+    assert "return rows == 4 ? 8 : 16;" in src
+    assert params().f_width == 128
+
+
+@pytest.mark.parametrize("shape,load", [
+    ((512, 512, 512), "tma"), ((512, 512, 508), "tma"),
+    ((67, 130, 204), "tma"), ((5, 3, 300), "tma"), ((3, 3, 4), "tma"),
+    ((67, 130, 201), "cp.async"), ((512, 512, 510), "cp.async"),
+    ((3, 3, 3), "cp.async"), ((1291, 1299, 1301), "cp.async"),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_f_load_is_chosen_by_nz(shape, load):
+    # TMA needs 16-byte strides: nz % 4 == 0.
+    assert sk3.f_load(shape) == load
+    assert params().f_tma_fits(shape) == (load == "tma")
+    assert sk3.pick_single_3d(shape)[1]["load"] == load
+    from parallel_heat_tpu_torch import HeatConfig
+    from parallel_heat_tpu_torch.solver import explain
+
+    cfg = HeatConfig(nx=shape[0], ny=shape[1], nz=shape[2], steps=6,
+                     backend="cuda")
+    assert f"load={load}" in explain(cfg, device="cpu")["path"]
+    # A grid at an address that is not a multiple of 16 bytes takes the
+    # cp.async load whatever its shape.
+    thin = (3,) + shape[1:]
+    base = torch.zeros(int(np.prod(thin)) + 1)
+    assert sk3.f_load(thin, base[1:].view(thin)) == "cp.async"
+    assert sk3.f_load(thin, base[:-1].view(thin)) == load
+
+
+def test_xslab_load_argument():
+    u = torch.from_numpy(_rand((6, 5, 7), seed=4))
+    out = torch.empty_like(u)
+    sk.reset_counts()
+    with pytest.raises(ValueError, match="TMA load needs nz % 4 == 0"):
+        sk3.xslab_steps_3d(u, out, 2, load="tma", cx=0.1, cy=0.1, cz=0.1)
+    with pytest.raises(ValueError, match="load must be one of"):
+        sk3.xslab_steps_3d(u, out, 2, load="bulk", cx=0.1, cy=0.1, cz=0.1)
+    assert all(n == 0 for n in sk.counts.values())
+    # On the CPU every load runs the plain version.
+    u8 = torch.from_numpy(_rand((6, 5, 8), seed=4))
+    got = {}
+    for load in (None, "tma", "cp.async"):
+        o = torch.empty_like(u8)
+        r = sk3.xslab_steps_3d(u8, o, 3, load=load, cx=0.1, cy=0.1, cz=0.1)
+        got[load] = (o, float(r))
+    assert sk.counts["xslab_steps_3d_plain"] == 3
+    for load in ("tma", "cp.async"):
+        assert torch.equal(got[load][0], got[None][0])
+        assert got[load][1] == got[None][1]
+
+
+def test_h_parameters_are_not_moved_by_f():
+    # The sharded 3D kernels keep their own launch shapes and budgets:
+    # the values before F's plane loop had its own parameters.
+    p = params()
+    assert p.h_extent() == (64, 32)
+    assert p.h_prefetch == 6 and p.h_tma_prefetch == 4
+    assert p.h_k_max() == 8
+    assert [p.h_tma_smem_bytes(k) for k in range(1, 9)] == [
+        58544, 78000, 97456, 116912, 136368, 155824, 175280, 194736]
+    assert [p.h_smem_bytes(k) for k in range(1, 9)] == [
+        67584, 84480, 101376, 118272, 135168, 152064, 168960, 185856]
+    assert [p.h_launch((512, 512, 512), k, 512) for k in range(1, 9)] == [
+        74, 74, 86, 103, 103, 103, 128, 171]
+    assert p.h_tma_box() == (64, 36)
+    assert p.h_tiles((512, 512, 512), 3) == (126, 54)
+    assert [p.h_k_max(b, r) for b, r in [((32, 16), 4), ((32, 8), 2),
+                                         ((64, 4), 4), ((64, 8), 1)]] == [
+        8, 7, 7, 3]
+
+
+def test_explain_names_f_its_k_tile_and_load():
+    from parallel_heat_tpu_torch import HeatConfig
+    from parallel_heat_tpu_torch.solver import explain
+
+    p = params()
+    path = explain(HeatConfig(nx=512, ny=512, nz=512, steps=10,
+                              backend="cuda"), device="cpu")["path"]
+    k = p.f_k_default
+    ty, tz = p.f_tile(k)
+    wy, wz = p.f_extent()
+    assert path.startswith("kernel F (heat_f_temporal3d")
+    assert f"K={k}" in path and f"tile={ty}x{tz}" in path
+    assert f"block={p.f_block[0]}x{p.f_block[1]} rows={p.f_rows}" in path
+    assert f"load=tma (one {wy}x{wz} (Y, Z) box a plane)" in path
+    with tune.force("single_3d", "D"):
+        path = explain(HeatConfig(nx=512, ny=512, nz=511, steps=10,
+                                  backend="cuda"), device="cpu")["path"]
+    assert path.startswith("kernel D (heat_d_step3d")
+
+
+def _tile_kinds_brute(shape, k, block, rows):
+    p = params()
+    _, ny, nz = shape
+    wy, wz = p.f_extent(block, rows)
+    ty, tz = p.f_tile(k, block, rows)
+    tiles = []
+    for a in range(-(-ny // ty)):
+        for c in range(-(-nz // tz)):
+            y0, z0 = a * ty - k, c * tz - p.f_pad(k)
+            ys = [y for y in range(y0, y0 + wy)]
+            zs = [z for z in range(z0, z0 + wz)]
+            tiles.append(all(1 <= y <= ny - 2 for y in ys)
+                         and all(1 <= z <= nz - 2 for z in zs))
+    return len(tiles), sum(tiles)
+
+
+@pytest.mark.parametrize("shape,k", [((5, 512, 512), 3), ((5, 130, 204), 1),
+                                     ((5, 130, 201), 6), ((5, 3, 300), 3),
+                                     ((5, 70, 252), 3)])
+def test_f_tile_kinds_count_the_tiles(shape, k):
+    p = params()
+    block, rows, _ = p.f_shape(k)
+    kinds = p.f_tile_kinds(shape, k, block, rows)
+    tiles, interior = _tile_kinds_brute(shape, k, block, rows)
+    assert kinds["tiles"] == tiles
+    assert kinds["interior"] == interior
+    assert kinds["edge"] == tiles - interior
+    assert kinds["top"] == -(-shape[2] // p.f_tile(k, block, rows)[1])

@@ -390,7 +390,7 @@ def test_init_block_is_the_slice_of_init_grid():
 def test_load_is_chosen_by_geometry(shape, k, load):
     # The box: the extended tile (64 x 32 cells at the defaults), 4 cells
     # wider along z, since a box starts at a multiple of 4 cells.
-    assert params().f_extent(params().h_block, params().h_rows) == (64, 32)
+    assert params().h_extent(params().h_block, params().h_rows) == (64, 32)
     assert params().h_tma_box() == (64, 36)
     assert skb3.h_load(shape, k) == load
     assert params().h_tma_fits(shape, k) == (load == "tma")
@@ -419,7 +419,7 @@ def _tiles_brute(n, w, k):
                                         ((64, 4), 4)])
 def test_tile_split_and_tma_rule_agree_with_enumeration(block, rows):
     p = params()
-    wy, wz = p.f_extent(block, rows)
+    wy, wz = p.h_extent(block, rows)
     for k in range(1, p.h_k_compiled + 1):
         if 2 * k >= min(wy, wz):
             continue

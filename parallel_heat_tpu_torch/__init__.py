@@ -30,6 +30,7 @@ from parallel_heat_tpu_torch.parallel.mesh import HeatMesh, pick_mesh_shape
 from parallel_heat_tpu_torch.solver import (
     HeatResult,
     explain,
+    make_initial_grid,
     solve,
 )
 
@@ -45,6 +46,7 @@ __all__ = [
     "HeatPlate3D",
     "HeatResult",
     "explain",
+    "make_initial_grid",
     "pick_mesh_shape",
     "solve",
     "__version__",

@@ -9,7 +9,10 @@ one line per member, as the JAX CLI does; ``--scheme`` and the ``--mg-*``
 flags select the implicit integrators; ``--mesh``, ``--no-overlap``,
 ``--halo-depth`` and ``--halo-overlap`` cut a run over a mesh of blocks
 (``--mesh dx,dy``, or ``dx,dy,dz`` with ``--nz``), all on the run's one
-device (``auto`` is the one-device mesh).
+device (``auto`` is the one-device mesh). ``--initial-out`` writes the
+initial grid as ``--out`` writes the final one, ``--quiet`` prints no
+progress lines, and ``--dtype`` takes the JAX CLI's names, of which this
+package runs ``float32`` and refuses the others (``HeatConfig.validate``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cx", type=float, default=0.1)
     ap.add_argument("--cy", type=float, default=0.1)
     ap.add_argument("--cz", type=float, default=0.1)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16", "float64"],
+                    help="storage dtype; only float32 runs in this package "
+                         "(bfloat16 and float64 are refused)")
     ap.add_argument("--scheme", default="explicit",
                     choices=("explicit", "backward_euler",
                              "crank_nicolson"),
@@ -95,9 +102,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default=None,
                     help="write the final grid: a .dat file for a 2D grid, "
                          ".npy for a 3D grid or a path ending in .npy")
+    ap.add_argument("--initial-out", default=None, metavar="FILE",
+                    help="write the initial grid, as --out writes the "
+                         "final one (reference: initial_im.dat)")
     ap.add_argument("--explain", action="store_true",
                     help="print the resolved path (backend, kernel, tile, "
                          "K) and exit without running")
+    ap.add_argument("--quiet", action="store_true",
+                    help="print no progress lines (errors still go to "
+                         "stderr)")
     return ap
 
 
@@ -134,7 +147,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         cy=args.cy, cz=args.cz, steps=args.steps,
                         converge=args.converge, eps=args.eps,
                         check_interval=args.check_interval,
-                        backend=args.backend, device=args.device,
+                        dtype=args.dtype, backend=args.backend, device=args.device,
                         scheme=args.scheme,
                         mesh_shape=_parse_mesh(
                             args.mesh, 2 if args.nz is None else 3),
@@ -164,31 +177,41 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"{key}: {val}")
         return 0
     if args.ensemble is not None:
+        if args.initial_out:
+            print("error: --ensemble does not take --initial-out",
+                  file=sys.stderr)
+            return 2
         return _run_ensemble(args, config)
 
-    print(f"Starting parallel_heat_tpu_torch on 1 device(s), mesh "
-          f"{config.mesh_or_unit()}.")
+    from parallel_heat_tpu_torch.solver import make_initial_grid
+
+    say = (lambda *a: None) if args.quiet else print
+    say(f"Starting parallel_heat_tpu_torch on 1 device(s), mesh "
+        f"{config.mesh_or_unit()}.")
     grid = "x".join(map(str, config.shape))
     if config.converge:
-        print(f"Grid size: {grid}  "
-              f"Time steps: - (converge, eps={config.eps:g})")
+        say(f"Grid size: {grid}  "
+            f"Time steps: - (converge, eps={config.eps:g})")
     else:
-        print(f"Grid size: {grid}  Time steps: {config.steps}")
+        say(f"Grid size: {grid}  Time steps: {config.steps}")
     try:
+        if args.initial_out:
+            written = _write_grid(args.initial_out, make_initial_grid(config))
+            say(f"Initial grid written to {written}")
         result = solve(config)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if config.converge:
         if result.converged:
-            print(f"Converged after {result.steps_run} steps")
+            say(f"Converged after {result.steps_run} steps")
         else:
-            print(f"Did not converge (ran {result.steps_run} steps, "
-                  f"residual {result.residual:g})")
-    print(f"Elapsed time {result.elapsed_s:.6f} secs")
+            say(f"Did not converge (ran {result.steps_run} steps, "
+                f"residual {result.residual:g})")
+    say(f"Elapsed time {result.elapsed_s:.6f} secs")
     if args.out:
         written = _write_grid(args.out, result.grid)
-        print(f"Final grid written to {written}")
+        say(f"Final grid written to {written}")
     return 0
 
 
@@ -198,7 +221,8 @@ def _run_ensemble(args, config) -> int:
 
     from parallel_heat_tpu_torch import EnsembleSolver
 
-    print(f"Starting parallel_heat_tpu_torch ensemble: {args.ensemble} "
+    say = (lambda *a: None) if args.quiet else print
+    say(f"Starting parallel_heat_tpu_torch ensemble: {args.ensemble} "
           f"member(s) of {'x'.join(map(str, config.shape))}, "
           + (f"converge eps={config.eps:g}" if config.converge
              else f"{config.steps} steps"))
@@ -212,17 +236,17 @@ def _run_ensemble(args, config) -> int:
         if result.converged is not None:
             line += (f", converged={bool(result.converged[i])}, "
                      f"residual={float(result.residual[i]):g}")
-        print(line)
+        say(line)
     if result.compactions:
-        print("compactions: " + ", ".join(
+        say("compactions: " + ", ".join(
             f"step {k}: {a}->{b}" for k, a, b in result.compactions))
-    print(f"Elapsed time {result.elapsed_s:.6f} secs")
+    say(f"Elapsed time {result.elapsed_s:.6f} secs")
     if args.out:
         path = args.out
         if not path.endswith(".npy"):
             path += ".npy"
         np.save(path, result.to_numpy())
-        print(f"Stacked member grids written to {path}")
+        say(f"Stacked member grids written to {path}")
     return 0
 
 

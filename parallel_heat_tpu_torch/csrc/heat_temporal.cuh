@@ -67,8 +67,10 @@ __device__ __forceinline__ int heat_clamp_local(int64_t v, int lo, int hi) {
 // past the grid's interior, rows [r_lo, r_hi] and columns [c_lo, c_hi]
 // in tile coordinates, and the cells outside it are copied; without it
 // every cell is updated and nothing is tested. The combine is computed
-// everywhere and selected, which keeps the loop free of branches.
-template <bool kLast, bool kEdge>
+// everywhere and selected, which keeps the loop free of branches. kCopy
+// (the anatomy probe's copy_step variant only) puts a copy in the
+// combine's place.
+template <bool kLast, bool kEdge, bool kCopy = false>
 __device__ __forceinline__ void heat_e_tile_step(
     const float* __restrict__ src, float* __restrict__ dst, int sx,
     int64_t base, int64_t ld, int r0, int r1, int c0, int c1, int r_lo,
@@ -84,7 +86,8 @@ __device__ __forceinline__ void heat_e_tile_step(
     float* q = kLast ? dst + (base + r0 * ld + c) : dst + (r0 * sx + c);
     for (int r = r0; r < r1; ++r) {
       const float down = *pd;
-      const float w = heat_combine(cc, up, down, p[-1], p[1], a0, cx, cy);
+      const float w =
+          kCopy ? cc : heat_combine(cc, up, down, p[-1], p[1], a0, cx, cy);
       const bool in = !kEdge || (col_in && r >= r_lo && r <= r_hi);
       const float v = kEdge ? (in ? w : cc) : w;
       if (kLast && in) *rmax = max(*rmax, heat_diff_bits(v, cc));
@@ -99,18 +102,20 @@ __device__ __forceinline__ void heat_e_tile_step(
 }
 
 // heat_e_tile_step with kEdge chosen at run time (uniform per block).
-template <bool kLast>
+template <bool kLast, bool kCopy = false>
 __device__ __forceinline__ void heat_e_tile_step_any(
     bool edge, const float* __restrict__ src, float* __restrict__ dst,
     int sx, int64_t base, int64_t ld, int r0, int r1, int c0, int c1,
     int r_lo, int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
     uint32_t* rmax) {
   if (edge)
-    heat_e_tile_step<kLast, true>(src, dst, sx, base, ld, r0, r1, c0, c1,
-                                  r_lo, r_hi, c_lo, c_hi, a0, cx, cy, rmax);
+    heat_e_tile_step<kLast, true, kCopy>(src, dst, sx, base, ld, r0, r1, c0,
+                                         c1, r_lo, r_hi, c_lo, c_hi, a0, cx,
+                                         cy, rmax);
   else
-    heat_e_tile_step<kLast, false>(src, dst, sx, base, ld, r0, r1, c0, c1,
-                                   r_lo, r_hi, c_lo, c_hi, a0, cx, cy, rmax);
+    heat_e_tile_step<kLast, false, kCopy>(src, dst, sx, base, ld, r0, r1, c0,
+                                          c1, r_lo, r_hi, c_lo, c_hi, a0, cx,
+                                          cy, rmax);
 }
 
 // --- The register-blocked tile loop (kernels E, E-uni and G) -------------

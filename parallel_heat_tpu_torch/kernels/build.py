@@ -111,8 +111,16 @@ KERNELS = {
                            [_P] * 7 + [_I64] * 9 + [_I32] * 7 + [_F32] * 4
                            + [_P]),
 }
+# The measurement tools' kernels (parallel_heat_tpu_torch/tools/): built
+# and loaded like the kernels above, but no path of the solver runs them.
+TOOLS = {
+    # variant, then heat_a_resident's arguments
+    "heat_probe_kernel": ("heat_probe_kernel.cu",
+                          [_I32] + KERNELS["heat_a_resident"][1]),
+}
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
-           "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh")
+           "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
+           "heat_a.cuh")
 
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.
@@ -199,8 +207,13 @@ def nvcc() -> str:
     return path
 
 
+def _entry(name: str):
+    """``(source, argtypes)`` of a kernel or a tool's kernel."""
+    return KERNELS[name] if name in KERNELS else TOOLS[name]
+
+
 def library_path(name: str) -> Path:
-    source, _ = KERNELS[name]
+    source, _ = _entry(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (source,) + _COMMON:
         h.update((CSRC / f).read_bytes())
@@ -218,7 +231,8 @@ def build_log(name: str) -> str:
 
 
 def build(*names: str) -> Dict[str, Path]:
-    """Build the named kernels (all by default) that are not built yet,
+    """Build the named kernels (all of :data:`KERNELS` by default; a
+    tool's kernel of :data:`TOOLS` by name) that are not built yet,
     one nvcc process per source, started together. Returns the library
     path of each name; raises :class:`BuildError` with nvcc's stderr."""
     names = names or tuple(KERNELS)
@@ -233,7 +247,7 @@ def build(*names: str) -> Dict[str, Path]:
         for name in todo:
             tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
             cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / KERNELS[name][0])]
+                   str(CSRC / _entry(name)[0])]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
@@ -269,7 +283,7 @@ def load(name: str) -> ctypes.CDLL:
             except OSError as e:
                 raise BuildError(f"cannot load {path}: {e}") from e
             fn = getattr(lib, name)
-            fn.argtypes = KERNELS[name][1]
+            fn.argtypes = _entry(name)[1]
             fn.restype = ctypes.c_int
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
@@ -284,8 +298,9 @@ def main(argv=None) -> int:
 
     names = tuple(sys.argv[1:] if argv is None else argv)
     for name in names or tuple(KERNELS):
-        if name not in KERNELS:
-            raise SystemExit(f"unknown kernel {name!r}; one of {list(KERNELS)}")
+        if name not in KERNELS and name not in TOOLS:
+            raise SystemExit(f"unknown kernel {name!r}; one of "
+                             f"{list(KERNELS) + list(TOOLS)}")
     for name, path in build(*names).items():
         rows = ptxas_report(build_log(name))
         print(json.dumps({"kernel": name, "library": path.name,

@@ -344,26 +344,50 @@ def resident_steps(u: torch.Tensor, out: torch.Tensor, k: int,
     residual (0-d float32 tensor) or None without ``with_residual``.
     Raises ValueError for a grid that does not fit resident on the card
     (:meth:`~.hopper_params.HopperParams.a_tile`)."""
+    launch = _a_checked(u, out, k)
+    if u.device.type == "cpu":
+        return resident_steps_plain(u, out, k, with_residual, cx=cx, cy=cy)
+    xch, bits = a_scratch(u, k, launch, with_residual)
+    _launch_a(u, out, k, xch, bits, cx, cy, launch["depth"], launch["tile"],
+              launch["block"])
+    counts["heat_a_resident"] += 1
+    return _residual_view(bits) if bits is not None else None
+
+
+def a_launch(shape):
+    """Kernel A's launch for an ``(m, n)`` grid: ``{"tile", "depth",
+    "block"}``, or None when the grid does not fit resident on the card
+    (:meth:`~.hopper_params.HopperParams.a_tile`)."""
+    p = params()
+    tile = p.a_tile(tuple(shape))
+    return ({"tile": tile, "depth": p.a_depth, "block": p.a_block}
+            if tile else None)
+
+
+def _a_checked(u, out, k):
+    """The checks of a launch of A (or of its anatomy probe's variants)
+    on ``u`` into ``out`` at depth ``k``; returns :func:`a_launch`."""
     _check(u, out)
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
-    p = params()
-    tile = p.a_tile(tuple(u.shape))
-    if tile is None:
+    launch = a_launch(tuple(u.shape))
+    if launch is None:
         raise ValueError(f"grid {tuple(u.shape)} does not fit resident in "
                          f"the card's shared memory (kernel A)")
-    if u.device.type == "cpu":
-        return resident_steps_plain(u, out, k, with_residual, cx=cx, cy=cy)
-    # The exchange planes are freed when this returns, before the kernel
-    # ends: the caching allocator reuses them only in the order of the
-    # current stream, which the kernel runs on.
+    return launch
+
+
+def a_scratch(u, k, launch, with_residual):
+    """``(xch, bits)``: the exchange planes of a launch of A (None when
+    ``k`` is within one halo depth) and its residual's bits (None without
+    ``with_residual``). The planes are freed when the caller returns,
+    before the kernel ends: the caching allocator reuses them only in the
+    order of the current stream, which the kernel runs on."""
     xch = (torch.empty((2,) + tuple(u.shape), dtype=torch.float32,
-                       device=u.device) if k > p.a_depth else None)
+                       device=u.device) if k > launch["depth"] else None)
     bits = (torch.empty(1, dtype=torch.int32, device=u.device)
             if with_residual else None)
-    _launch_a(u, out, k, xch, bits, cx, cy, p.a_depth, tile, p.a_block)
-    counts["heat_a_resident"] += 1
-    return _residual_view(bits) if bits is not None else None
+    return xch, bits
 
 
 def strip_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
@@ -513,9 +537,8 @@ def _resolve_single_2d(choice, shape):
     if choice == "torch":
         return "torch", None
     if choice == "A":
-        tile = p.a_tile(tuple(shape))
-        return (("A", {"tile": tile, "depth": p.a_depth,
-                       "block": p.a_block}) if tile else None)
+        launch = a_launch(shape)
+        return ("A", launch) if launch else None
     if choice in ("E-uni", "I-uni") and not p.uni_fits(tuple(shape)):
         return None
     if choice in ("E", "E-uni"):

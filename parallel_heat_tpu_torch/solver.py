@@ -301,6 +301,17 @@ def _prepare_blocks(config: HeatConfig, mesh, initial):
     return mesh.split(torch.as_tensor(initial))
 
 
+def make_initial_grid(config: HeatConfig,
+                      device: Optional[str] = None) -> torch.Tensor:
+    """The model's initial grid of ``config`` (the polynomial plate of
+    ``models.plate2d`` or ``plate3d``), whole, on ``device`` if given,
+    else ``config.device``: the grid :func:`solve` starts from when it is
+    given none, bitwise the JAX package's ``make_initial_grid``. A
+    sharded config's grid is the assembled one."""
+    config = config.validate()
+    return model_for(config).init_grid(resolve_device(config, device))
+
+
 def _prepare_initial(config: HeatConfig, initial,
                      dev: torch.device) -> torch.Tensor:
     """Default, validate, place, and copy (the loop writes the buffers in

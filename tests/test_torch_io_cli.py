@@ -98,6 +98,65 @@ def test_cli_runs_on_the_cpu_like_the_jax_cli(tmp_path, capsys, extra):
     _assert_dat_close(tio.read_dat(ours), tio.read_dat(theirs), rounds=2)
 
 
+@pytest.mark.parametrize("flags", [["--initial-out"], ["--quiet"],
+                                   ["--dtype", "float32"],
+                                   ["--quiet", "--initial-out",
+                                    "--converge"]])
+def test_cli_flags_write_the_jax_clis_bytes(tmp_path, capsys, flags):
+    from parallel_heat_tpu import cli as jcli
+
+    base = ["--nx", "20", "--ny", "20", "--steps", "300"]
+    extra = [f for f in flags if f != "--initial-out"]
+    runs = {}
+    for name, main, tail in (("ours", cli.main, ["--device", "cpu"]),
+                             ("theirs", jcli.main, ["--backend", "jnp"])):
+        argv = base + extra + tail + ["--out", str(tmp_path / f"{name}.dat")]
+        if "--initial-out" in flags:
+            argv += ["--initial-out", str(tmp_path / f"{name}_0.dat")]
+        rc = main(argv)
+        out = capsys.readouterr()
+        assert rc == 0, out.err
+        runs[name] = out.out.splitlines()
+    for stem in ["", "_0"] if "--initial-out" in flags else [""]:
+        ours = (tmp_path / f"ours{stem}.dat").read_bytes()
+        assert ours == (tmp_path / f"theirs{stem}.dat").read_bytes()
+    if "--quiet" in flags:
+        assert runs["ours"] == runs["theirs"] == []
+    elif "--initial-out" in flags:
+        assert f"Initial grid written to {tmp_path / 'ours_0.dat'}" in \
+            runs["ours"]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_cli_refuses_other_dtypes(capsys, dtype):
+    rc, lines, err = _cli_lines(capsys, ["--nx", "20", "--ny", "20",
+                                         "--device", "cpu", "--dtype",
+                                         dtype])
+    assert rc == 2 and lines == []
+    assert "ROADMAP queue 1 item 3" in err
+
+
+def test_cli_ensemble_refuses_initial_out(capsys, tmp_path):
+    rc, _, err = _cli_lines(capsys, ["--nx", "20", "--ny", "20",
+                                     "--device", "cpu", "--ensemble", "2",
+                                     "--initial-out",
+                                     str(tmp_path / "i.dat")])
+    assert rc == 2 and "--initial-out" in err
+
+
+@pytest.mark.parametrize("shape", [(20, 20), (33, 17), (6, 7, 9)])
+def test_make_initial_grid_is_the_jax_packages(shape):
+    from parallel_heat_tpu.solver import make_initial_grid as jmake
+
+    from parallel_heat_tpu_torch import make_initial_grid
+
+    dims = dict(zip(("nx", "ny", "nz"), shape))
+    ours = make_initial_grid(HeatConfig(**dims), device="cpu")
+    theirs = np.asarray(jmake(jx.HeatConfig(**dims)))
+    assert ours.dtype == torch.float32 and tuple(ours.shape) == shape
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+
+
 def test_cli_explain_and_errors(capsys):
     rc, lines, _ = _cli_lines(capsys, ["--nx", "64", "--ny", "64",
                                        "--backend", "cuda", "--device",

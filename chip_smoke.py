@@ -15,9 +15,12 @@ prints the card's name and power limit, then one JSON line per phase:
    spill; the E and E-uni instances the one-device 2D main path
    launches, F's instance the one-device 3D main path launches, the
    H-fused instance the sharded 3D main path launches, and the G-uni and
-   G-fuse kernels the sharded 2D main path launches, must not spill (the E and G kernels' registers and blocks an SM at the main
-   path's shape are printed; a second run from the cached build reads
-   nvcc's report kept beside each library);
+   G-fuse kernels the sharded 2D main path launches, must not spill (the
+   E and G kernels' registers and blocks an SM at the main path's shape
+   are printed; a second run from the cached build reads nvcc's report
+   kept beside each library), nor may any instance of A, M or A's
+   anatomy probe (``heat_probe_kernel``, also built here), whose
+   registers and spills are printed;
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -40,11 +43,16 @@ prints the card's name and power limit, then one JSON line per phase:
    columns): 1001x1000, 1001x999, 333x1001, 250x1002, and 20x24 and
    21x23, smaller than one tile. A (``heat_a_resident``)
    likewise at K in {1, 4, 7, 20} on 1000^2 (20 = one converge window,
-   its launch on the main path; 7 ends in a part group of steps), K = 20
-   on 1001x999 and on 1800^2 (near the largest grid it takes), and K in
-   {1, 7, 20} on 107x210, whose last tiles are narrower than two halo
-   depths (both pairs). Last a NaN-seeded grid, which must give a NaN
-   residual from every kernel with the boundary intact;
+   its launch on the main path; 7 ends in a part group of steps), K in
+   {1, 5, 20} on 1001x999, K = 20 on 1859^2 (the largest square grid it
+   takes), K in {1, 7, 20} on 107x210, whose tiles are at most two halo
+   depths tall, K in {1, 3, 4, 5, 8, 9, 20} on 20x24 (one tile) and K in
+   {1, 9, 20} on 4099x7 (one column of tiles 7 wide), the grids between
+   them asserted to run every tile kind of A's step phase and exchange
+   (``hopper_params.a_tile_kinds``); and at K = 20 at every halo depth
+   1 .. 8 on 1000^2 at the tile the picker takes for it. Last a
+   NaN-seeded grid, which must give a NaN residual from every kernel
+   with the boundary intact;
 2b. kernels_3d — D (``heat_d_step3d``) against its plain version and F
    (``heat_f_temporal3d``) at every compiled K (1 .. 8; past the default
    shape's deepest K at ``hopper_params.f_shape``'s), under each plane load
@@ -111,9 +119,12 @@ prints the card's name and power limit, then one JSON line per phase:
 7. kernels_ens — M (``heat_m_ensemble``) against its plain version,
    bitwise, grids and ``(B,)`` residuals, with and without the residual,
    on random members: B in {1, 3, 64}, members of 512^2 (the main
-   path's), 107x210 and 24x20 (one block per member) and, for B = 3,
-   1000^2; K in {1, 7, 20}; also cx = 0.1, cy = 0.2; each checked member
-   bitwise ``heat_a_resident`` on that member alone; the main path's one
+   path's), 107x210 and 24x20 (one block per member), B = 8 of 20^2 and
+   166^2 (one block per member, the largest) and of 167^2 and 256^2
+   (cooperative tilings) and, for B = 3, 1000^2; K in {1, 7, 20}; also
+   cx = 0.1, cy = 0.2; each checked member bitwise ``heat_a_resident``
+   on that member alone; M at each halo depth of ``m_depths`` under its
+   best-modelled tiling on 5 members of 512^2; the main path's one
    launch, (64, 512, 512) at K = 400 without the residual, likewise; and
    one member seeded with a NaN (only its residual is NaN, the other
    members' bits untouched);
@@ -146,7 +157,9 @@ prints the card's name and power limit, then one JSON line per phase:
 11. timing_ens_mg — ms per launch (CUDA events, and the card's own time
    from ``torch.profiler``) of M at (64, 512, 512) with K = 400 (the
    main path's one launch; the ``kernels`` line takes this row) and with
-   K = 20 and the residuals (a converge window), and of restrict and
+   K = 20 and the residuals (a converge window), and at K = 20 with the
+   residuals on 8 members of 20^2 (one block each) and of 256^2 (a
+   cooperative tiling), and of restrict and
    prolong at 4098^2 <-> 2050^2 and at the main path's finest pair,
    512^2 <-> 257^2 (the ``kernels`` line takes this one), each beside
    its plain version, its bound and a PyTorch yardstick (``conv2d``,
@@ -237,9 +250,16 @@ prints the card's name and power limit, then one JSON line per phase:
    under each load and its interior and edge tiles launched alone (the
    µs each kind adds per tile), and the occupancy of its main-path
    instance; the exchange's time and copies per round (three phases, 8
-   blocks), one whole monolithic round.
+   blocks), one whole monolithic round;
+22. probe_kernel — kernel A's anatomy probe (``tools/kernel_probe.py``,
+   ``heat_probe_kernel``) at 1000^2: its ``full`` variant bitwise A's
+   plain version, then every variant at K = 20 and 2000 (a step by the
+   slope, the launch's fixed share by the intercept, what each cut
+   saves a step) and A's device time at K = 1, 2, 4, 8 and 20.
 
-Then a ``{"kernels": [...]}`` line (all twenty kernels) and, last, the
+Then a ``{"kernels": [...]}`` line (all twenty kernels, and the probe's
+kernel with its own run's launches and A's plain version, bound and
+yardstick) and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
 before the last line; without a CUDA device it exits 2 at once.
 """
@@ -263,6 +283,7 @@ UNEQUAL = (0.1, 0.2)
 BIG = 16384              # BASELINE's "16k^2" grid: the main-path size
 MAIN_STEPS = 200
 CONV = 1000              # BASELINE Table 7's grid: the converge path
+A_LARGEST = 1859         # the largest square grid kernel A takes
 WINDOW = 20              # its check_interval: steps per launch of A
 CUBE = 512               # BASELINE config 5's 512^3: the 3D main path
 UNEQUAL_3D = (0.1, 0.15, 0.05)
@@ -281,6 +302,7 @@ ENS_STEPS = 400          # 400 fixed steps
 # small case; 256^2 is uniform noise in [0, 100), whose residual falls
 # fast enough that six of the eight converge under the cap.
 ENS_CONV = ((20, 10000, "plate"), (256, 1990, "noise"))
+M_SOLO_LARGEST = 166     # the largest square member kernel M runs a block
 ENS_SCALES = (1.0, 0.5, 0.01, 2.0, 0.001, 1e-4, 3.0, 1e-5)
 IMP_N = 512              # bench.py --row implicit512: 512^2,
 IMP_STEPS = 20           # 20 steps at
@@ -339,6 +361,8 @@ KERNELS_H = {
 }
 KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G,
            **KERNELS_H}
+# The measurement tools' kernel: kernel A's anatomy probe.
+PROBE = {"heat_probe_kernel": (None, "tools/kernel_probe.py:27")}
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
 
@@ -373,9 +397,10 @@ def phase_build():
     from parallel_heat_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    paths = build.build(*build.KERNELS)
+    names = tuple(build.KERNELS) + tuple(build.TOOLS)
+    paths = build.build(*names)
     seconds = time.perf_counter() - t0
-    for name in build.KERNELS:
+    for name in names:
         build.load(name)
     # ptxas's report by template instance: <K, R, ...> -> [registers,
     # spill stores, spill loads, static shared bytes].
@@ -386,7 +411,7 @@ def phase_build():
                                     r.get("spill_loads"),
                                     r.get("smem_bytes")]
                     for r in build.ptxas_report(build.build_log(name))}
-             for name in build.KERNELS}
+             for name in names}
     spilling = {name: [a for a, row in rows.items() if row[1]]
                 for name, rows in ptxas.items()}
     # The instance the sharded 3D main path launches must not spill.
@@ -444,7 +469,16 @@ def phase_build():
               "rows": hp.f_rows, "load": f_load,
               "smem_bytes": hp.f_smem_bytes(hp.f_k_default),
               "blocks_per_sm": sk3.f_occupancy(hp.f_k_default, f_load)}
+    # Nor may any instance of A or M (nor A's in the anatomy probe); their
+    # registers and spills.
+    resident = {name: ptxas[name] for name in
+                ("heat_a_resident", "heat_m_ensemble", "heat_probe_kernel")}
+    for name, rows in resident.items():
+        check(rows and all(row[1] == 0 and row[2] == 0
+                           for row in rows.values()),
+              f"an instance of {name} spills or none is reported: {rows}")
     emit({"phase": "build", "seconds": seconds,
+          "a_and_m_instances": resident,
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
           "main_path_e": e_main, "main_path_f": f_main,
@@ -563,11 +597,13 @@ def phase_kernels(dev):
     # I-uni, depths of A)
     plan = [
         ((4096, 4096), [equal], True, e_ks, []),
-        ((1001, 999), [equal, unequal], True, e_ks, [WINDOW]),
+        ((1001, 999), [equal, unequal], True, e_ks, [1, 5, WINDOW]),
         ((CONV, CONV), [equal, unequal], True, sorted({4, k_default}),
          [1, 4, 7, WINDOW]),
-        ((1800, 1800), [equal], False, [], [WINDOW]),
+        ((A_LARGEST, A_LARGEST), [equal], False, [], [WINDOW]),
         ((107, 210), [equal, unequal], False, [], [1, 7, WINDOW]),
+        ((20, 24), [equal, unequal], False, [], [1, 3, 4, 5, 8, 9, WINDOW]),
+        ((4099, 7), [equal], False, [], [1, 9, WINDOW]),
         ((BIG, BIG), [equal], True, [k_default], []),
     ]
     report = []
@@ -591,6 +627,37 @@ def phase_kernels(dev):
                        "a_k": a_ks, "bitwise": True})
         del u
         torch.cuda.empty_cache()
+    # A's grids run every branch of its step phase and exchange
+    # (hopper_params.a_tile_kinds: tiles inside the interior and past each
+    # side, ragged last rows and columns, last groups of 1 to 3 columns,
+    # bands written whole); and A at every halo depth at the converge
+    # path's 1000^2, at the tile the picker takes for that depth.
+    a_kinds = {}
+    for shape in [entry[0] for entry in plan if entry[4]]:
+        for kind, count in params().a_tile_kinds(shape).items():
+            a_kinds[kind] = a_kinds.get(kind, 0) + count
+    check(all(a_kinds.values()),
+          f"A's check grids run no tile of some kind: {a_kinds}")
+    report.append({"a_tile_kinds": a_kinds})
+    u = torch.from_numpy(
+        (rng.standard_normal((CONV, CONV)) * 10).astype(np.float32)).to(dev)
+    a_depths = {}
+    for d in range(1, 9):
+        tile = params().a_tile((CONV, CONV), d)
+        want, got = torch.empty_like(u), torch.full_like(u, float("nan"))
+        rp = sk.resident_steps_plain(u, want, WINDOW, True, **unequal)
+        xch = torch.empty((2, CONV, CONV), device=dev)
+        bits = torch.empty(1, dtype=torch.int32, device=dev)
+        sk._launch_a(u, got, WINDOW, xch, bits, *UNEQUAL, d, tile,
+                     params().a_block)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want)
+              and same_float(sk._residual_view(bits), rp),
+              f"heat_a_resident(K={WINDOW}) at depth {d}, tile {tile} != its "
+              f"plain version")
+        a_depths[d] = list(tile)
+    report.append({"a_depths": a_depths, "k": WINDOW, "bitwise": True})
+    del u
     # E and E-uni at every compiled K on grids chosen for the branches of
     # the tile loop and the loads (csrc/heat_temporal.cuh,
     # heat_e_uni_temporal.cu), each grid asserted to run at every K the
@@ -1468,9 +1535,13 @@ def phase_kernels_ens(dev):
     equal = dict(cx=CX, cy=CY)
     unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
     err, report = 0.0, []
+    # Members of one block each (107 x 210, 24 x 20, 20^2, and 166^2, the
+    # largest) and cooperative tilings (512^2, 167^2, 256^2, 1000^2).
     plan = [(b, (ENS_N, ENS_N)) for b in (1, 3, ENS_B)]
     plan += [(b, shape) for shape in ((107, 210), (24, 20))
              for b in (3, ENS_B)]
+    plan += [(8, (20, 20)), (8, (M_SOLO_LARGEST, M_SOLO_LARGEST)),
+             (8, (M_SOLO_LARGEST + 1, M_SOLO_LARGEST + 1)), (8, (256, 256))]
     plan.append((3, (CONV, CONV)))
     for batch, shape in plan:
         u = _rand_on(dev, (batch,) + shape, seed=batch + shape[0])
@@ -1478,6 +1549,8 @@ def phase_kernels_ens(dev):
             for k in (1, 7, WINDOW):
                 err = max(err, _check_m(u, k, kw))
         launch = params().m_plan(batch, shape)
+        check((launch["tiles"] == 1) == (shape[0] <= M_SOLO_LARGEST),
+              f"M's plan at {shape}: {launch}")
         report.append({"members": batch, "shape": list(shape),
                        "k": [1, 7, WINDOW], "coeffs": [equal, unequal],
                        "tile": list(launch["tile"]),
@@ -1485,6 +1558,27 @@ def phase_kernels_ens(dev):
                        "bitwise": True})
         del u
         torch.cuda.empty_cache()
+    # M at each of its halo depths, under the tiling the model ranks
+    # first there, on 5 members of 512^2, against the plain version.
+    u = _rand_on(dev, (5, ENS_N, ENS_N), seed=11)
+    want = torch.empty_like(u)
+    rp = batched.ensemble_steps_plain(u, want, 17, True, **unequal)
+    for d in params().m_depths:
+        tiling = min(params().m_tilings(5, (ENS_N, ENS_N), d),
+                     key=lambda t: t["cost"])
+        got = torch.full_like(u, float("nan"))
+        bits = torch.empty(5, dtype=torch.int32, device=dev)
+        batched._launch_m(u, got, 17, batched.exchange_planes(u, 17, tiling),
+                          bits, *UNEQUAL, tiling)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want)
+              and torch.equal(bits.view(torch.float32), rp),
+              f"heat_m_ensemble(K=17) at depth {d} under {tiling} != its "
+              f"plain version")
+        report.append({"members": 5, "shape": [ENS_N, ENS_N], "k": [17],
+                       "depth": d, "tile": list(tiling["tile"]),
+                       "bitwise": True})
+    del u, want
     # The fixed main path's one launch: the full stack at K = 400, no
     # residual.
     u = _rand_on(dev, (ENS_B, ENS_N, ENS_N), seed=ENS_STEPS)
@@ -1796,6 +1890,7 @@ def phase_timing_ens_mg(dev):
 
     from parallel_heat_tpu_torch.ops import batched
     from parallel_heat_tpu_torch.ops import multigrid as mg
+    from parallel_heat_tpu_torch.ops.hopper_params import params
     from parallel_heat_tpu_torch.ops.stencil import coeffs_f32
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1839,6 +1934,23 @@ def phase_timing_ens_mg(dev):
     rows["heat_m_ensemble"] = m_rows[ENS_STEPS]
     del u, v, x
     torch.cuda.empty_cache()
+    # M on 8 small members, one converge window: 20^2 one block a member,
+    # 256^2 a cooperative tiling.
+    small = {}
+    for members, size in ((8, 20), (8, 256)):
+        u = _rand_on(dev, (members, size, size), seed=size)
+        v = torch.empty_like(u)
+
+        def launch_small():
+            return batched.ensemble_steps(u, v, WINDOW, True, **kw)
+
+        plan = params().m_plan(members, (size, size))
+        small[f"heat_m_ensemble@{members}x{size}^2"] = {
+            "shape": [members, size, size], "k": WINDOW, "residual": True,
+            "tiles": plan["tiles"], "tile": list(plan["tile"]),
+            "ms": _time_ms(launch_small, 20, 2),
+            **_device_ms(launch_small, "heat_m_ensemble")}
+        del u, v
     # Restrict and prolong. Restrict: 2 multiplies and 2 adds for each of
     # 4 [1 2 1]/4 passes a coarse cell; prolong: 0, 2, 2 or 6 operations
     # a fine cell by the parity of its row and column, 2.5 on average.
@@ -1885,10 +1997,43 @@ def phase_timing_ens_mg(dev):
     # The kernels line takes the main path's shape, the last of MG_TIMED.
     rows.update(size)
     emit({"phase": "timing_ens_mg", "kernels": {
-        **{f"heat_m_ensemble@k{k}": row for k, row in m_rows.items()}, **{
+        **{f"heat_m_ensemble@k{k}": row for k, row in m_rows.items()},
+        **small, **{
             f"{name}@{key}": row for key, size in by_size.items()
             for name, row in size.items()}}})
     return rows
+
+
+def phase_probe_kernel(dev):
+    """The anatomy probe of kernel A (``tools/kernel_probe.py``,
+    ``heat_probe_kernel``) at the converge path's 1000^2: its ``full``
+    variant against A's plain version, bitwise, then every variant at
+    K = 20 and 2000 and A's K ladder; returns the probe's launches, its
+    ``full`` variant's device ms at K = 20 and its max |diff|."""
+    import torch
+
+    from parallel_heat_tpu_torch.models import HeatPlate2D
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.tools import kernel_probe as kp
+
+    kw = dict(cx=CX, cy=CY)
+    u = HeatPlate2D(CONV, CONV).init_grid(dev)
+    got, want = torch.full_like(u, float("nan")), torch.empty_like(u)
+    rk = kp.probe_steps("full", u, got, WINDOW, True, **kw)
+    rp = sk.resident_steps_plain(u, want, WINDOW, True, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want) and same_float(rk, rp),
+          f"heat_probe_kernel's full variant != A's plain version: max diff "
+          f"{err}")
+    kp.counts["heat_probe_kernel"] = 0
+    rows = list(kp.anatomy(CONV, (WINDOW, 2000), (1, 2, 4, 8, WINDOW)))
+    launches = kp.counts["heat_probe_kernel"]
+    check(launches > 0 and {r.get("probe") for r in rows} >= set(
+        kp.VARIANTS), f"the probe ran {launches} launches: {rows}")
+    emit({"phase": "probe_kernel", "launches": launches, "rows": rows})
+    return {"launches": launches, "max_abs_err": err,
+            "device_ms": rows[0]["device_ms"][f"k{WINDOW}"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3065,10 +3210,17 @@ def main() -> int:
         t.update(phase_timing_ens_mg(dev))
         t.update(phase_timing_g(dev))
         t.update(phase_timing_h(dev))
+        probe = phase_probe_kernel(dev)
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
+    # The probe's line: its own run's launches and time, A's plain version,
+    # bound and yardstick (the same function at the same shape).
+    launches["heat_probe_kernel"] = probe["launches"]
+    err["heat_probe_kernel"] = probe["max_abs_err"]
+    t["heat_probe_kernel"] = {**t["heat_a_resident"],
+                              "device_ms": probe["device_ms"]}
     src = "parallel_heat_tpu_torch/csrc/"
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src + name + ".cu",
@@ -3077,7 +3229,7 @@ def main() -> int:
          "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
          "bound_by": t[name]["bound_by"],
          "library_ms": t[name]["library_ms"]}
-        for name, (_, replaces) in KERNELS.items()]})
+        for name, (_, replaces) in {**KERNELS, **PROBE}.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

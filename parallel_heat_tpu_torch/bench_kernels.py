@@ -2,7 +2,7 @@
 sharded block kernels G and H on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
-        [--a-sizes 256,1000,1800] [--size-3d 512]
+        [--a-sizes 256,1000,1859] [--size-3d 512]
         [--only a,b,e,d,f,m,mg,g,h] [--reps 10] [--out FILE] [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
@@ -16,10 +16,12 @@ grid and residual, on a ragged 1001 x 999 grid (E-uni: 1001 x 1000),
 then timed with CUDA events over ``--reps`` launches on the model's
 ``size`` x ``size`` plate (far larger than the 50 MB L2, so every launch
 reads device memory). A, whose grid must fit
-in shared memory, runs over its halo depth D on each of the
+in shared memory, runs over its halo depth D, thread block (32 lanes by
+4, 8 or 16 warps) and blocks an SM (1 or 2), at the tile
+``hopper_params.a_tile`` picks for them, on each of the
 ``--a-sizes`` plates: a 20-step launch with the residual (one converge
 window of the default check interval), checked bitwise against its
-plain version on the same plate first. The 3D kernels run on the
+plain version on the same plate first and timed by ``torch.profiler``. The 3D kernels run on the
 ``--size-3d`` cube, after the same check on a ragged 67 x 130 x 201
 grid with cx, cy, cz = 0.1, 0.15, 0.05: D over thread blocks and planes
 per thread; F over thread blocks (32 lanes by 4 to 16 warps), rows per
@@ -31,9 +33,10 @@ depths at the fastest TMA shape a step. ``ms_per_step`` is
 the time per launch over the steps it advances. ``--only m`` sweeps
 kernel M on stacks of 64 members of 512^2 and of 128^2 (20 steps with
 the residuals, one converge window): the tilings of a member that
-``hopper_params.m_tilings`` models as cheapest at halo depths 2, 4 and
-8, a spread of group sizes, and, where a member fits one block, the
-one-block-per-member launch over thread blocks. ``--only mg`` sweeps the
+``hopper_params.m_tilings`` models as cheapest at halo depths 4 and 8
+under each of A's thread blocks and blocks an SM, a spread of tile
+counts, and, where a member fits one block, the one-block-per-member
+launch over thread blocks. ``--only mg`` sweeps the
 thread block of ``heat_mg_restrict`` and ``heat_mg_prolong`` at 4098^2
 <-> 2050^2 and 512^2 <-> 257^2 (the finest pair of a 512^2 implicit
 run). Both check every launch shape bitwise
@@ -61,14 +64,18 @@ against the plain version on the interior block of a (3, 3, 3) mesh of
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
 instructions in each loop body, found by its backward branch, and for
 kernel F's instances at the default K the instructions, shuffles and
-shared-memory bytes per cell-step of its plane loop (``sass_f``);
+shared-memory bytes per cell-step of its plane loop (``sass_f``), for
+kernel A the same of each loop that steps cells and of its test-free
+inner step (``sass_a``);
 ``--turns TREE`` times the default paths' kernels (F under both
-loads, D, H-fused, H, E-uni, G-uni's bulk) in another checkout at TREE
+loads, D, H-fused, H, E-uni, G-uni's bulk, A at 1000^2 and M at 64 x
+512^2) in another checkout at TREE
 and in this one, in turns (TREE, this, this, TREE), each in its own
 process, and prints the sharded 3D picks of both.
-``--sass-of LIB`` reads F's machine code from another tree's library
-(``python -m parallel_heat_tpu_torch.bench_kernels --sass DIR --sass-of
-OTHER/parallel_heat_tpu_torch/build/libheat_f_temporal3d-*.so``).
+``--sass-of LIB`` reads one kernel's machine code from another tree's
+library instead (``python -m parallel_heat_tpu_torch.bench_kernels
+--sass DIR --sass-of
+OTHER/parallel_heat_tpu_torch/build/libheat_a_resident-*.so``).
 """
 
 from __future__ import annotations
@@ -98,8 +105,11 @@ E_TILES = [(32, 112), (64, 112), (96, 112), (128, 112), (64, 128),
            (128, 128), (64, 240)]
 E_BLOCKS = [(32, 4), (32, 8), (32, 16)]
 E_KS = [4, 6, 8, 10, 12, 16]
-A_DEPTHS = [1, 2, 4, 8]
+A_DEPTHS = [2, 4, 8]
 A_STEPS = 20
+# A's and M's thread blocks (32 lanes x warps) and blocks an SM: 16 warps
+# a block take the SM's registers; 8 or 4 leave room for a second block.
+A_SHAPES = [((32, 16), 1), ((32, 8), 1), ((32, 8), 2), ((32, 4), 2)]
 D_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (64, 8), (128, 2), (128, 4)]
 D_PLANES = [4, 8, 16, 32, 64]
 # F's launch shapes, (32 lanes x warps, rows a thread): extended tiles of
@@ -112,10 +122,10 @@ F_PREFETCH = [1, 2, 3, 4, 6, 8]
 COEFFS_3D = (0.1, 0.15, 0.05)
 M_BATCH = 64
 M_SIZES = [512, 128]
-M_DEPTHS = [2, 4, 8]
-M_BEST = 5                      # modelled-cheapest tilings per depth
-M_TILES = [2, 4, 8, 16, 24, 32, 44, 64, 128]   # and these group sizes
-M_SOLO_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 8), (64, 16)]
+M_DEPTHS = [4, 8]
+M_BEST = 3                      # modelled-cheapest tilings per depth
+M_TILES = [4, 8, 12, 16, 24, 44]   # and these tile counts
+M_SOLO_BLOCKS = [(32, 4), (32, 8), (32, 16)]
 MG_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 4), (64, 8),
              (128, 2), (128, 4), (256, 1)]
 MG_FINE = [(4098, 4098), (512, 512)]
@@ -185,34 +195,69 @@ def _check_e(small, want, res, k, tile, block, name) -> bool:
                 and torch.equal(sk._residual_view(bits), res))
 
 
+def device_ms(fn, instance: str, made: int = 40) -> float:
+    """Mean device milliseconds of one launch of the kernel whose name
+    holds ``instance`` (``heat_a_resident_kernel<0>``), from a
+    ``torch.profiler`` trace of ``made`` calls of ``fn()``, over the
+    records the trace kept (a trace may lose a few; one that kept fewer
+    than 70% is taken again, twice at most, then refused). For kernels
+    of a few microseconds, whose launches the host cannot issue as fast
+    as the card runs them, so that CUDA events would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(made):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if re.search(re.escape(instance), e.key)]
+        records = sum(e.count for e in hits)
+        if made * 0.7 <= records <= made:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / records
+    raise RuntimeError(f"the profiler kept {records} records of {made} "
+                       f"launches of {instance}, three times over")
+
+
 def sweep_a(sizes, reps: int):
-    """Yield one dict per (plate size, halo depth) of kernel A."""
+    """Yield one dict per (plate size, halo depth, thread block, blocks an
+    SM) of kernel A: the tile ``hopper_params.a_tile`` picks for them, a
+    20-step launch with the residual checked bitwise against the plain
+    version, then its device time (``torch.profiler``)."""
     p = params()
     dev = torch.device("cuda", torch.cuda.current_device())
     for size in sizes:
         u = HeatPlate2D(size, size).init_grid(dev)
         v, want = torch.empty_like(u), torch.empty_like(u)
         rp = sk.resident_steps_plain(u, want, A_STEPS, cx=CX, cy=CY)
+        xch = torch.empty((2, size, size), device=dev)
+        bits = _bits(dev)
         for d in A_DEPTHS:
-            tile = p.a_tile((size, size), d)
-            if tile is None:
-                continue
-            xch = torch.empty((2, size, size), device=dev)
-            bits = _bits(dev)
+            for block, per_sm in A_SHAPES:
+                tile = p.a_tile((size, size), d, block, per_sm)
+                if tile is None:
+                    continue
 
-            def launch():
-                sk._launch_a(u, v, A_STEPS, xch, bits, CX, CY, d, tile,
-                             p.a_block)
+                def launch():
+                    sk._launch_a(u, v, A_STEPS, xch, bits, CX, CY, d, tile,
+                                 block)
 
-            launch()
-            ok = bool(torch.equal(v, want)
-                      and torch.equal(sk._residual_view(bits), rp))
-            ms = time_ms(launch, reps * 5)
-            yield {"kernel": "heat_a_resident", "size": size, "depth": d,
-                   "tile": list(tile), "k": A_STEPS,
-                   "smem_bytes": p.a_smem_bytes(tile, d), "bitwise": ok,
-                   "ms": ms, "ms_per_step": ms / A_STEPS,
-                   "default": d == p.a_depth}
+                v.fill_(float("nan"))
+                launch()
+                ok = bool(torch.equal(v, want)
+                          and torch.equal(sk._residual_view(bits), rp))
+                ms = device_ms(launch, "heat_a_resident_kernel<0>")
+                blocks = -(-size // tile[0]) * -(-size // tile[1])
+                yield {"kernel": "heat_a_resident", "size": size,
+                       "depth": d, "tile": list(tile), "block": list(block),
+                       "per_sm": per_sm, "blocks": blocks, "k": A_STEPS,
+                       "model_step": p.a_step_cost(tile, d, block),
+                       "smem_bytes": p.a_smem_bytes(tile, d), "bitwise": ok,
+                       "ms": ms, "ms_per_step": ms / A_STEPS,
+                       "default": (d, tuple(block), per_sm) == (
+                           p.a_depth, p.a_block, p.a_per_sm)}
 
 
 def sweep(size: int, reps: int):
@@ -385,12 +430,13 @@ def sweep_m(reps: int):
         plans = [p.m_solo_plan(M_BATCH, shape, block)
                  for block in M_SOLO_BLOCKS]
         for d in M_DEPTHS:
-            tilings = sorted(p.m_tilings(M_BATCH, shape, d),
-                             key=lambda t: t["cost"])
-            plans += tilings[:M_BEST]
-            for tiles in M_TILES:
-                plans += [t for t in tilings[M_BEST:]
-                          if t["tiles"] == tiles][:1]
+            for block, per_sm in A_SHAPES:
+                tilings = sorted(p.m_tilings(M_BATCH, shape, d, block,
+                                             per_sm), key=lambda t: t["cost"])
+                plans += tilings[:M_BEST]
+                for tiles in M_TILES:
+                    plans += [t for t in tilings[M_BEST:]
+                              if t["tiles"] == tiles][:1]
         bits = torch.empty(M_BATCH, dtype=torch.int32, device=dev)
         for plan in plans:
             if plan is None:
@@ -400,16 +446,18 @@ def sweep_m(reps: int):
             def launch():
                 batched._launch_m(u, v, A_STEPS, xch, bits, CX, CY, plan)
 
+            v.fill_(float("nan"))
             launch()
             ok = bool(torch.equal(v, want)
                       and torch.equal(bits.view(torch.float32), rp))
             ms = time_ms(launch, reps)
             same = all(plan[key] == default[key]
-                       for key in ("tile", "depth", "block"))
+                       for key in ("tile", "depth", "block", "groups"))
             yield {"kernel": "heat_m_ensemble", "size": size,
                    "members": M_BATCH, "tile": list(plan["tile"]),
                    "depth": plan["depth"], "tiles": plan["tiles"],
                    "groups": plan["groups"], "block": list(plan["block"]),
+                   "per_sm": plan.get("per_sm"),
                    "model_cost": plan.get("cost"), "k": A_STEPS,
                    "smem_bytes": p.m_smem_bytes(plan["tile"], plan["depth"]),
                    "bitwise": ok, "ms": ms, "ms_per_step": ms / A_STEPS,
@@ -797,6 +845,46 @@ def sass_f_report(sass: str, k: int):
     return out
 
 
+_A_INSTANCE = re.compile(r"heat_a_resident_kernel(?:ILi0EE|P)")
+
+
+def sass_a_report(sass: str):
+    """Per instance of kernel A that computes A's function (``<0>``, or
+    the untemplated kernel of an earlier tree) in a ``cuobjdump -sass``
+    listing: each loop that steps cells (3 FMUL a cell-step: the
+    combine's three multiplies), with its instructions, shuffles and
+    shared-memory bytes a cell-step and whether it stores to global
+    memory (the last step's loop); and ``step_per_cell_step``, those of
+    the cheapest loop that does not (the test-free inner step)."""
+    out = []
+    for chunk in re.split(r"(?=\n\s*Function : )", sass):
+        name = _FUNCTION.search(chunk)
+        if not name or not _A_INSTANCE.search(name.group(1)):
+            continue
+        instrs = [(int(a, 16), t) for a, t in _SASS_LINE.findall(chunk)]
+        loops = []
+        for lo, hi, _ in sass_loops(chunk):
+            lo, hi = int(lo, 16), int(hi, 16)
+            c = _sass_counts(instrs, lo, hi + 1)
+            if not c["fmul"]:
+                continue
+            cells = c["fmul"] / 3
+            loops.append({
+                "at": hex(lo), "instructions": c["instructions"],
+                "cells": cells,
+                "global_store": any(_sass_op(t).startswith("STG")
+                                    for a, t in instrs if lo <= a <= hi),
+                "per_cell_step": {key: c[key] / cells for key in
+                                  ("instructions", "shfl", "shared_bytes")}})
+        inner = [lp for lp in loops if not lp["global_store"]]
+        out.append({"instance": name.group(1), "instructions": len(instrs),
+                    "loops": loops,
+                    "step_per_cell_step": min(
+                        (lp["per_cell_step"] for lp in inner),
+                        key=lambda c: c["instructions"], default=None)})
+    return out
+
+
 def dump_sass(out_dir: str, libraries=None):
     """Write each kernel library's SASS to ``out_dir`` and print its
     loops; for kernel F also :func:`sass_f_report` at the default K.
@@ -813,6 +901,9 @@ def dump_sass(out_dir: str, libraries=None):
         if name == "heat_f_temporal3d":
             for row in sass_f_report(sass, params().f_k_default):
                 print(json.dumps({"sass_f": row}), flush=True)
+        if name == "heat_a_resident":
+            for row in sass_a_report(sass):
+                print(json.dumps({"sass_a": row}), flush=True)
 
 
 def turn_times(reps: int) -> dict:
@@ -820,9 +911,10 @@ def turn_times(reps: int) -> dict:
     default paths' kernels in whatever tree ``parallel_heat_tpu_torch``
     is imported from: F at 512^3, K = 3 (and its cp.async load where the
     tree has one), D at 512^3, H-fused monolithic and H at the 512^3
-    block of 1024^3 on (2, 2, 2), E-uni at 16384^2, K = 8, and G-uni's
-    deferred bulk at the 16384 x 8192 block of 32768^2 on (2, 4); and the
-    sharded 3D picks."""
+    block of 1024^3 on (2, 2, 2), E-uni at 16384^2, K = 8, G-uni's
+    deferred bulk at the 16384 x 8192 block of 32768^2 on (2, 4), A at
+    1000^2 (K = 20, residual) and M at 64 x 512^2 (K = 400), these two by
+    ``torch.profiler``; and the sharded 3D picks."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
     from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
     from parallel_heat_tpu_torch.parallel import temporal
@@ -874,10 +966,25 @@ def turn_times(reps: int) -> dict:
     runs["G-uni bulk"] = lambda: skb.block_uniform(g_us[gb], tail, None,
                                                    None, g_out, 8, False,
                                                    **gkw)
-    times = {name: [] for name in runs}
+    # A at the converge path's 1000^2 (one 20-step window, residual) and
+    # M at the ensemble path's 64 x 512^2 (K = 400): device time, since
+    # A's launch is shorter than the host's time to issue one.
+    a_grid = HeatPlate2D(1000, 1000).init_grid(dev)
+    a_out = torch.empty_like(a_grid)
+    stack = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (64, 512, 512)) * 10).astype(np.float32)).to(dev)
+    stack_out = torch.empty_like(stack)
+    by_device = {
+        "A": (lambda: sk.resident_steps(a_grid, a_out, 20, True, **kw2),
+              "heat_a_resident_kernel"),
+        "M": (lambda: batched.ensemble_steps(stack, stack_out, 400, False,
+                                             **kw2), "heat_m_ensemble_kernel")}
+    times = {name: [] for name in list(runs) + list(by_device)}
     for _ in range(3):
         for name, fn in runs.items():
             times[name].append(time_ms(fn, reps))
+        for name, (fn, kernel) in by_device.items():
+            times[name].append(device_ms(fn, kernel))
     return {"ms": times,
             "picks": {"h_k_max": p.h_k_max(), "h_load": skb3.h_load(bs, 3),
                       "h_launch": p.h_launch(bs, 3, bs[0]),
@@ -916,7 +1023,7 @@ def turns(other: str, reps: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=16384)
-    ap.add_argument("--a-sizes", default="256,1000,1800",
+    ap.add_argument("--a-sizes", default="256,1000,1859",
                     help="comma-separated plate sizes for kernel A")
     ap.add_argument("--size-3d", type=int, default=512,
                     help="cube edge for kernels D and F")
@@ -934,8 +1041,8 @@ def main(argv=None) -> int:
     ap.add_argument("--turn-of", default=None, type=int,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sass-of", default=None, metavar="LIB",
-                    help="with --sass: read kernel F's machine code from "
-                         "this library (another tree's build) instead")
+                    help="with --sass: read only this library (another "
+                         "tree's build, lib<kernel>-<digest>.so) instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
@@ -948,8 +1055,9 @@ def main(argv=None) -> int:
         for row in turns(args.turns, args.reps * 2):
             print(json.dumps(row), flush=True)
     if args.sass:
-        dump_sass(args.sass, args.sass_of and {"heat_f_temporal3d":
-                                               args.sass_of})
+        dump_sass(args.sass, args.sass_of and {
+            re.match(r"lib(heat_\w+?)-[0-9a-f]{16}\.so$",
+                     os.path.basename(args.sass_of)).group(1): args.sass_of})
     only = set(args.only.split(","))
     rows = []
     if only & {"b", "e"}:

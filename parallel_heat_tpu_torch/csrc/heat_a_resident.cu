@@ -10,41 +10,48 @@
 // The arithmetic is 7 float32 operations per cell-step. At the sizes
 // this kernel takes (a grid that fits in the card's shared memory, up to
 // about 3.4 M cells) neither is what holds it: a step of 1000^2 is 7 M
-// operations, about 0.1 us of the card's float32 rate. What costs is the
-// grid-wide barrier, a few microseconds, and the issue of each thread's
-// few cells per step.
+// operations, about 0.1 us of the card's float32 rate. What costs is
+// the issue of each thread's cells per step, the exchange between groups
+// of steps and the grid-wide barrier (the anatomy probe,
+// tools/kernel_probe.py, measures each; PERF.md has the split).
 //
 // Design: the TPU kernel keeps the whole double-buffered grid in one
 // core's 128 MiB of VMEM and loops K steps with no trip to HBM. An H100
 // has 227 KB of shared memory per block, but 132 SMs of it, about 30 MB
 // in all, so:
-//   - the launch is cooperative: one block of 32 x 32 threads on each SM
-//     it uses, all resident at once, each owning one tile of the grid
-//     (ops/hopper_params.py picks the tile so that the blocks cover the
-//     grid and fit on the card, or declines);
+//   - the launch is cooperative: one block of 32 lanes by W warps on each
+//     SM it uses, all resident at once, each owning one tile of the grid
+//     (ops/hopper_params.py a_tile and a_block pick the tile and W so that
+//     the blocks cover the grid and fit on the card, or decline);
 //   - a block keeps its tile and a D-deep frame around it in two shared
 //     buffers and ping-pongs between them for K steps, so the grid is
-//     read from HBM once and written once per launch;
-//   - the steps run in groups of D. Within a group the frame's valid
-//     region shrinks by one cell per side and step, as in heat_e_temporal,
-//     and only the region the tile still needs is updated, by the
-//     column walk of heat_temporal.cuh (heat_e_tile_step: a run of rows
-//     per thread with the rows above and below in registers, no test in
-//     a block whose framed tile lies inside the interior). After each
-//     group but the last, a block writes its tile's D-deep edge band to a
-//     global exchange plane, the whole grid synchronises
-//     (cooperative_groups grid.sync(), which also orders the writes), and
-//     each block reads its frame back from the neighbours' bands. So the
-//     grid-wide barrier comes once per D steps, for some redundant work
-//     on the frame. The planes alternate by group, so one barrier per
-//     group is enough: a plane is rewritten two groups later, after every
-//     block has passed the barrier that ends its reads. The plane is read
-//     and written at L2 (__ldcg/__stcg), never through a stale L1 line;
-//   - the last step writes the tile straight to the output grid and
-//     reduces the residual as heat_b_step does (heat_common.cuh);
+//     read from HBM once (4-byte cp.async copies) and written once per
+//     launch;
+//   - the steps run in groups of D, each step through the register-
+//     blocked tile loop of heat_temporal.cuh (heat_rows: a warp a run of
+//     rows, a lane 4 adjacent columns in float4 registers, neighbours by
+//     shuffle, no test in a block whose framed tile lies inside the
+//     interior), on the frame's valid region, which shrinks by one cell a
+//     side and step (heat_a.cuh heat_a_steps). After each group but the
+//     last, a block writes its tile's D-deep edge band to a global
+//     exchange plane, the whole grid synchronises (cooperative_groups
+//     grid.sync(), which also orders the writes), and each block reads its
+//     frame back from the neighbours' bands, every thread issuing its
+//     loads before it stores any. So the grid-wide barrier comes once per
+//     D steps, for some redundant work on the frame. The planes alternate
+//     by group, so one barrier per group is enough: a plane is rewritten
+//     two groups later, after every block has passed the barrier that
+//     ends its reads. The plane is read and written at L2
+//     (__ldcg/__stcg), never through a stale L1 line. The probe put the
+//     barrier at about a tenth of a step, under the share that would pay
+//     for waiting on neighbour flags instead, so the grid barrier stays;
+//   - the last step writes the tile straight to the output grid (16 bytes
+//     a group where the grid's width allows it) and reduces the residual
+//     as heat_b_step does (heat_common.cuh);
 //   - global boundary cells are copied, never recomputed, and every
 //     step rounds to float32 like a launch of heat_b_step, which makes a
-//     launch of K steps bitwise K launches of B.
+//     launch of K steps bitwise K launches of B. heat_a.cuh says why the
+//     cells the loop computes outside a group's cone reach no output.
 // The grid is at most a few million cells, so indices are int32; the
 // entry point refuses a grid whose two exchange planes pass 2^31 cells.
 

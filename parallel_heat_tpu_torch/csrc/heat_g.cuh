@@ -20,9 +20,10 @@
 // the extended block in HBM (the fused and uniform forms gather the
 // pieces straight into shared memory). Below the bytes lie the step
 // loop's shared-memory traffic and instruction issue: with the column
-// walk (heat_temporal.cuh's heat_e_tile_step) each cell-step read three
-// operands from shared memory and stored one, 16 bytes and about 14
-// instructions, which held the family at 4x its byte bound.
+// walk (a thread a run of rows of one column, since removed) each
+// cell-step read three operands from shared memory and stored one, 16
+// bytes and about 14 instructions, which held the family at 4x its byte
+// bound.
 //
 // Design. Tiles of TY x TX output cells with a K-deep frame on all four
 // sides, ping-pong in shared memory, the last step written straight to

@@ -1,16 +1,13 @@
-// Shared device code of the 2D K-step kernels: the step phases that follow
-// a block's load of its framed tile.
-//
-//   - The register-blocked tile loop (heat_rows, heat_tile_steps): the
-//     step phase of kernels E and E-uni (heat_e_temporal.cu,
-//     heat_e_uni_temporal.cu, through heat_e_steps) and of the sharded
-//     block kernels G (heat_g.cuh). A kernel brings its load and the
-//     wait for it; the K steps, the last store and the residual are this
-//     loop's, so a G block's K steps are bitwise E's on the same cells.
-//   - The column walk (heat_e_tile_step): a thread walks a run of rows of
-//     one column with the rows above and below in registers. Kernels A
-//     and M (heat_a_resident.cu, heat_m_ensemble.cu) still step with it;
-//     E stepped with it before the tile loop.
+// Shared device code of the 2D K-step kernels: the register-blocked tile
+// loop (heat_rows, heat_tile_steps), the step phase that follows a
+// block's load of its framed tile. Kernels E and E-uni
+// (heat_e_temporal.cu, heat_e_uni_temporal.cu, through heat_e_steps) and
+// the sharded block kernels G (heat_g.cuh) step through heat_tile_steps:
+// a kernel brings its load and the wait for it; the K steps, the last
+// store and the residual are this loop's, so a G block's K steps are
+// bitwise E's on the same cells. Kernels A and M (heat_a.cuh) step
+// through heat_rows in groups, with an exchange of the frame between
+// groups.
 //
 // The tile loop. A warp walks a run of rows of the tile, each lane owning
 // a group of 4 adjacent columns with the rows above, at and below it in
@@ -19,8 +16,9 @@
 // cell right of it from the lane to its right (warp shuffles; lanes 0 and
 // 31 read that one cell from shared memory) and stores its 4 results with
 // one 16-byte store: 8 bytes of shared traffic and about 10 instructions a
-// cell-step, 7 of them the combine's rounded operations (the column walk:
-// 16 bytes and about 15). Shared rows are padded so that the core columns
+// cell-step, 7 of them the combine's rounded operations (the column walk
+// it replaced, a thread a run of rows of one column: 16 bytes and about
+// 15). Shared rows are padded so that the core columns
 // start on a 16-byte boundary (tile column K at a multiple of 4 floats,
 // heat_row_pad and heat_row_floats) in every layout.
 //
@@ -56,69 +54,7 @@ __device__ __forceinline__ int heat_clamp_local(int64_t v, int lo, int hi) {
   return static_cast<int>(v < lo ? lo : (v > hi ? hi : v));
 }
 
-// --- The column walk (kernels A and M) ----------------------------------
-
-// One step over rows [r0, r1) and columns [c0, c1) of the shared tile
-// (row stride sx), for this thread's rows. An inner step writes dst, a
-// tile of the same layout as src. The last step (kLast) writes the grid
-// in global memory instead, cell (r, c) of the tile at
-// dst[base + r * ld + c], and folds
-// the residual's bit pattern into *rmax. With kEdge the tile reaches
-// past the grid's interior, rows [r_lo, r_hi] and columns [c_lo, c_hi]
-// in tile coordinates, and the cells outside it are copied; without it
-// every cell is updated and nothing is tested. The combine is computed
-// everywhere and selected, which keeps the loop free of branches. kCopy
-// (the anatomy probe's copy_step variant only) puts a copy in the
-// combine's place.
-template <bool kLast, bool kEdge, bool kCopy = false>
-__device__ __forceinline__ void heat_e_tile_step(
-    const float* __restrict__ src, float* __restrict__ dst, int sx,
-    int64_t base, int64_t ld, int r0, int r1, int c0, int c1, int r_lo,
-    int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
-    uint32_t* rmax) {
-  if (r0 >= r1) return;
-  for (int c = c0 + static_cast<int>(threadIdx.x); c < c1; c += blockDim.x) {
-    const bool col_in = !kEdge || (c >= c_lo && c <= c_hi);
-    const float* p = src + r0 * sx + c;  // row r
-    const float* pd = p + sx;            // row r + 1
-    float up = p[-sx];
-    float cc = *p;
-    float* q = kLast ? dst + (base + r0 * ld + c) : dst + (r0 * sx + c);
-    for (int r = r0; r < r1; ++r) {
-      const float down = *pd;
-      const float w =
-          kCopy ? cc : heat_combine(cc, up, down, p[-1], p[1], a0, cx, cy);
-      const bool in = !kEdge || (col_in && r >= r_lo && r <= r_hi);
-      const float v = kEdge ? (in ? w : cc) : w;
-      if (kLast && in) *rmax = max(*rmax, heat_diff_bits(v, cc));
-      *q = v;
-      if (kLast) q += ld; else q += sx;
-      p = pd;
-      pd += sx;
-      up = cc;
-      cc = down;
-    }
-  }
-}
-
-// heat_e_tile_step with kEdge chosen at run time (uniform per block).
-template <bool kLast, bool kCopy = false>
-__device__ __forceinline__ void heat_e_tile_step_any(
-    bool edge, const float* __restrict__ src, float* __restrict__ dst,
-    int sx, int64_t base, int64_t ld, int r0, int r1, int c0, int c1,
-    int r_lo, int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
-    uint32_t* rmax) {
-  if (edge)
-    heat_e_tile_step<kLast, true, kCopy>(src, dst, sx, base, ld, r0, r1, c0,
-                                         c1, r_lo, r_hi, c_lo, c_hi, a0, cx,
-                                         cy, rmax);
-  else
-    heat_e_tile_step<kLast, false, kCopy>(src, dst, sx, base, ld, r0, r1, c0,
-                                          c1, r_lo, r_hi, c_lo, c_hi, a0, cx,
-                                          cy, rmax);
-}
-
-// --- The register-blocked tile loop (kernels E, E-uni and G) -------------
+// --- The register-blocked tile loop ---------------------------------------
 
 // One row of lanes: the launch shapes' thread block is 32 x W, W at most
 // kHeatMaxWarps.
@@ -187,8 +123,10 @@ inline int heat_loop_occupancy(Kernel kernel, int k, int tile_y, int tile_x,
 // the residual's bit pattern of exactly those cells into rmax. With
 // kEdge the tile reaches past the grid's interior, rows [r_lo, r_hi] and
 // columns [c_lo, c_hi] in tile coordinates, and the cells outside it are
-// copied; without it every cell is updated and nothing is tested.
-template <bool kLast, bool kEdge>
+// copied; without it every cell is updated and nothing is tested. kCopy
+// (kernel A's anatomy probe only, heat_a.cuh) puts a copy in the
+// combine's place.
+template <bool kLast, bool kEdge, bool kCopy = false>
 __device__ __forceinline__ void heat_rows(
     const float* __restrict__ src, float* __restrict__ dst,
     float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
@@ -243,10 +181,14 @@ __device__ __forceinline__ void heat_rows(
       if (lane == 0) lf = e;
       if (lane == kHeatLanes - 1) rt = e;
       float4 v;
-      v.x = heat_combine(cc.x, up.x, dn.x, lf, cc.y, a0, cx, cy);
-      v.y = heat_combine(cc.y, up.y, dn.y, cc.x, cc.z, a0, cx, cy);
-      v.z = heat_combine(cc.z, up.z, dn.z, cc.y, cc.w, a0, cx, cy);
-      v.w = heat_combine(cc.w, up.w, dn.w, cc.z, rt, a0, cx, cy);
+      if constexpr (kCopy) {
+        v = cc;
+      } else {
+        v.x = heat_combine(cc.x, up.x, dn.x, lf, cc.y, a0, cx, cy);
+        v.y = heat_combine(cc.y, up.y, dn.y, cc.x, cc.z, a0, cx, cy);
+        v.z = heat_combine(cc.z, up.z, dn.z, cc.y, cc.w, a0, cx, cy);
+        v.w = heat_combine(cc.w, up.w, dn.w, cc.z, rt, a0, cx, cy);
+      }
       const bool rin = !kEdge || (r >= r_lo && r <= r_hi);
       const bool in0 = rin && ci0, in1 = rin && ci1, in2 = rin && ci2,
                  in3 = rin && ci3;
@@ -290,7 +232,7 @@ __device__ __forceinline__ void heat_rows(
 }
 
 // heat_rows with kEdge chosen at run time (uniform per block).
-template <bool kLast>
+template <bool kLast, bool kCopy = false>
 __device__ __forceinline__ void heat_rows_any(
     bool edge, const float* __restrict__ src, float* __restrict__ dst,
     float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
@@ -298,13 +240,13 @@ __device__ __forceinline__ void heat_rows_any(
     int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
     uint32_t& rmax) {
   if (edge)
-    heat_rows<kLast, true>(src, dst, out, sx, pad, base, ld, vec_out, r0, r1,
-                           g0, g1, c_end, r_lo, r_hi, c_lo, c_hi, a0, cx, cy,
-                           rmax);
+    heat_rows<kLast, true, kCopy>(src, dst, out, sx, pad, base, ld, vec_out,
+                                  r0, r1, g0, g1, c_end, r_lo, r_hi, c_lo,
+                                  c_hi, a0, cx, cy, rmax);
   else
-    heat_rows<kLast, false>(src, dst, out, sx, pad, base, ld, vec_out, r0,
-                            r1, g0, g1, c_end, r_lo, r_hi, c_lo, c_hi, a0,
-                            cx, cy, rmax);
+    heat_rows<kLast, false, kCopy>(src, dst, out, sx, pad, base, ld, vec_out,
+                                   r0, r1, g0, g1, c_end, r_lo, r_hi, c_lo,
+                                   c_hi, a0, cx, cy, rmax);
 }
 
 // The wait of a load issued with cp.async and committed: each thread's

@@ -30,15 +30,21 @@ class HopperParams:
 
     # --- kernel A: heat_a_resident (data sheet; block chosen; D measured) -
     # One cooperative launch holds the whole grid in shared memory: one
-    # block of 32 x 32 threads on each SM it uses (132 SMs on the H100
-    # SXM), each block a tile and its D-deep frame in two ping-pong
-    # buffers of (TY+2D) x (TX+2D) floats, with one grid-wide barrier per
-    # D steps. a_tile() picks the tile. D = 4 from the sweep of D = 1, 2,
-    # 4, 8 (bench_kernels --only a): D = 8 ran 10% faster at 1000^2 but
-    # fits no grid past about 1760^2, against 1845^2 at D = 4.
+    # block of 32 lanes by a_block[1] warps on each SM it uses (132 SMs on
+    # the H100 SXM), each block a tile and its D-deep frame in two
+    # ping-pong buffers of the tile loop's padded rows (loop_smem_bytes),
+    # with one grid-wide barrier and exchange per D steps. a_tile() picks
+    # the tile by a_step_cost(): row visits of the busiest warp times its
+    # passes of 32 lanes, each pass a_run_visits more for its start, and
+    # m_sync_visits / D for a group's exchange and barrier. D = 4 from the
+    # sweep of D = 1, 2, 4, 8 (bench_kernels --only a) on the column walk
+    # this loop replaced: D = 8 ran 10% faster at 1000^2 but fits no grid
+    # past about 1760^2, against 1845^2 at D = 4.
     sm_count: int = 132
-    a_block: tuple = (32, 32)
+    a_block: tuple = (32, 16)
+    a_per_sm: int = 1
     a_depth: int = 4
+    a_run_visits: int = 2
 
     # --- kernel B: heat_b_step (measured) ----------------------------------
     # 128 x 2 threads, each walking 16 consecutive rows of one column with
@@ -155,26 +161,21 @@ class HopperParams:
     f_seg_planes_min: int = 64
     f_width: int = 128
 
-    # --- kernel M: heat_m_ensemble (depths measured; cost model chosen) ---
-    # A member is cut into tiles as kernel A cuts its grid, with A's
-    # thread block; a group of one block per tile holds one member, and
-    # sm_count // tiles groups walk the members. m_plan() picks the tile
-    # and the halo depth by the modelled cost of a launch in cell visits
-    # per thread: rounds of members times the visits of one step, plus
-    # m_sync_visits for each grid-wide barrier and exchange. In the sweep
-    # (bench_kernels --only m, 64 members of 512^2, 20 steps) depth 8 ran
-    # 10% faster than depth 4 at the same tile (0.580 against 0.643 ms at
-    # 128 x 171), depth 2 slower than either, and of two tiles of one
-    # cost the taller ran up to 10% faster (more rows a thread, so more
-    # cells from registers); the model ranks the twelve-tile plans first,
-    # as measured, but not their order among themselves (0.58-0.62 ms at
-    # depth 8). A member whose framed tile fits one block runs one block
-    # per member with a one-cell frame and thread blocks of
-    # m_solo_rows_per_thread rows a thread (at 128^2 every block shape
-    # from 32 x 16 to 64 x 16 came within 8% of 32 x 32).
+    # --- kernel M: heat_m_ensemble (cost model chosen; depths measured) ---
+    # A member is cut into tiles as kernel A cuts its grid, on A's step
+    # phase and thread block; a group of one block per tile holds one
+    # member, and sm_count // tiles groups walk the members. m_plan()
+    # picks the tile and the halo depth by the modelled cost of a launch:
+    # rounds of members times A's modelled step (a_step_cost, in row
+    # visits of a warp), plus m_sync_visits for each grid-wide barrier and
+    # exchange, a group of D steps. A member whose framed tile fits one
+    # block runs one block per member with a one-cell frame and thread
+    # blocks of about m_solo_rows_per_thread rows a warp.
+    m_block: tuple = (32, 16)
+    m_per_sm: int = 1
     m_depths: tuple = (4, 8)
-    m_sync_visits: int = 50
-    m_solo_rows_per_thread: int = 4
+    m_sync_visits: int = 25
+    m_solo_rows_per_thread: int = 8
 
     # --- the sharded block kernels heat_g_* (measured) -------------------
     # A block's output tile (rows, cols), thread block (32 lanes x warps)
@@ -244,52 +245,59 @@ class HopperParams:
     mg_block: tuple = (32, 8)
 
     def m_smem_bytes(self, tile, depth) -> int:
-        """Dynamic shared memory of one M block at ``tile``."""
-        ty, tx = tile
-        return 2 * (ty + 2 * depth) * (tx + 2 * depth) * 4
+        """Dynamic shared memory of one M block at ``tile``: the tile
+        loop's two buffers at the halo depth (:meth:`loop_smem_bytes`)."""
+        return self.loop_smem_bytes(depth, tile)
 
     def m_solo_plan(self, batch, shape, block=None):
         """Kernel M's launch of one block per member, or None when a
-        member with its one-cell frame does not fit one block."""
+        member with its one-cell frame does not fit one block: the tile is
+        the member (:meth:`a_takes`)."""
         m, n = shape
+        tile = (m, n)
         budget = self.smem_per_block_max - self.static_smem_bytes
-        if self.m_smem_bytes((m, n), 1) > budget:
+        if self.m_smem_bytes(tile, 1) > budget:
             return None
-        rows = -(-(m + 2) // self.m_solo_rows_per_thread)
-        return {"tile": (m, n), "depth": 1, "tiles": 1, "groups": batch,
-                "block": block or (32, max(1, min(32, rows)))}
+        warps = -(-(m + 2) // self.m_solo_rows_per_thread)
+        return {"tile": tile, "depth": 1, "tiles": 1, "groups": batch,
+                "block": block or (32, max(1, min(self.loop_max_warps,
+                                                  warps)))}
 
-    def m_tilings(self, batch, shape, depth=None):
+    def m_tilings(self, batch, shape, depth=None, block=None, per_sm=None):
         """Every launch of kernel M that cuts a member of ``(m, n)`` into
-        two or more equal tiles (the last ones cut at the edge), at most
-        ``sm_count`` of them, each within one block's shared memory: a
-        list of plans, each with its modelled ``cost`` in cell visits
-        per thread, ``rounds * (visits per step + m_sync_visits /
-        depth)``."""
+        two or more tiles (the last ones cut at the edge), at most
+        ``sm_count`` of them, each within one block's shared memory and
+        of a width :meth:`a_takes` takes, ``per_sm`` blocks of ``block``
+        an SM (``m_per_sm``, ``m_block``): a list of plans, each with its
+        modelled ``cost``, ``rounds * (per_sm * a_step_cost +
+        m_sync_visits / depth)``: the blocks of an SM share its issue."""
         m, n = shape
         d = self.a_depth if depth is None else depth
-        bx, by = self.a_block
-        budget = self.smem_per_block_max - self.static_smem_bytes
+        block = block or self.m_block
+        per_sm = per_sm or self.m_per_sm
+        budget = self.resident_budget(per_sm)
+        slots = self.sm_count * per_sm
         plans = []
-        for n_col in range(1, min(n, self.sm_count) + 1):
-            tx = -(-n // n_col)
-            if -(-n // tx) != n_col:
-                continue
-            for n_row in range(1, min(m, self.sm_count // n_col) + 1):
+        if not self.resident_fits(block, per_sm):
+            return plans
+        widths = sorted({-(-(-(-n // q)) // 4) * 4
+                         for q in range(1, min(slots, n) + 1)})
+        for tx in widths:
+            n_col = -(-n // tx)
+            tx = min(tx, n)
+            for n_row in range(1, min(m, slots // n_col) + 1):
                 ty = -(-m // n_row)
                 tiles = n_col * n_row
                 if (-(-m // ty) != n_row or tiles == 1
                         or self.m_smem_bytes((ty, tx), d) > budget):
                     continue
-                groups = min(batch, self.sm_count // tiles)
-                visits = sum(-(-(ty + 2 * (d - s)) // by)
-                             * -(-(tx + 2 * (d - s)) // bx)
-                             for s in range(1, d + 1)) / d
+                groups = min(batch, slots // tiles)
+                step = self.a_step_cost((ty, tx), d, block)
                 plans.append({
                     "tile": (ty, tx), "depth": d, "tiles": tiles,
-                    "groups": groups, "block": self.a_block,
+                    "groups": groups, "block": block, "per_sm": per_sm,
                     "cost": -(-batch // groups)
-                    * (visits + self.m_sync_visits / d)})
+                    * (per_sm * step + self.m_sync_visits / d)})
         return plans
 
     @functools.lru_cache(maxsize=64)
@@ -727,58 +735,146 @@ class HopperParams:
         return tile_x, max(self.i_seg_rows_min, -(-m // segments))
 
     def a_smem_bytes(self, tile, depth=None) -> int:
-        """Dynamic shared memory of one A block at ``tile``."""
+        """Dynamic shared memory of one A block at ``tile``: the tile
+        loop's two buffers at the halo depth (:meth:`loop_smem_bytes`)."""
+        return self.loop_smem_bytes(self.a_depth if depth is None else depth,
+                                    tile)
+
+    def a_takes(self, shape, tile, block) -> bool:
+        """Does the step phase of kernels A and M take tiles of ``tile`` on
+        an ``(m, n)`` grid under thread blocks of ``block``? The tile
+        loop's rule (:meth:`loop_takes`), but a tile as wide as the grid,
+        one column of tiles, may have any width: the rule's multiple of 4
+        puts every tile's first column on a group, and the only tile of a
+        column starts at column 0. ``csrc/heat_a.cuh`` ``heat_a_takes`` is
+        the same rule."""
+        ty, tx = tile
+        return (self.loop_takes((ty, -(-tx // 4) * 4), block)
+                and (tx % 4 == 0 or tx >= shape[1]))
+
+    def a_step_cost(self, tile, depth=None, block=None) -> float:
+        """Kernel A's modelled cost of a step of one block at ``tile``: row
+        visits of the busiest warp (its run of the framed tile's rows)
+        times its passes of 32 lanes over the 4-column groups the step
+        updates, each pass ``a_run_visits`` more for its start, averaged
+        over a group of ``depth`` steps on the shrinking region
+        (``csrc/heat_a.cuh`` heat_a_steps)."""
         ty, tx = tile
         d = self.a_depth if depth is None else depth
-        return 2 * (ty + 2 * d) * (tx + 2 * d) * 4
+        warps = (block or self.a_block)[1]
+        pad = (4 - d % 4) % 4
+        sh, sw = ty + 2 * d, tx + 2 * d
+        run = -(-sh // warps)
+        cost = 0
+        for s in range(1, d + 1):
+            groups = (pad + sw - s + 3) // 4 - (pad + s) // 4
+            cost += ((min(run, sh - 2 * s) + self.a_run_visits)
+                     * -(-groups // 32))
+        return cost / d
 
-    @functools.lru_cache(maxsize=64)
-    def a_tile(self, shape, depth=None):
+    def resident_budget(self, per_sm: int) -> int:
+        """Dynamic shared memory a block of A or M may take so that
+        ``per_sm`` of them stay resident on one SM."""
+        return (min(self.smem_per_block_max,
+                    self.smem_per_sm // per_sm - self.smem_reserved_per_block)
+                - self.static_smem_bytes)
+
+    def resident_fits(self, block, per_sm: int) -> bool:
+        """Do ``per_sm`` blocks of ``block`` threads of A or M fit one SM
+        by threads (2048) and registers (65,536; the kernels take up to
+        128 a thread under their 512-thread launch bound)?"""
+        threads = block[0] * block[1]
+        return per_sm * threads <= 2048 and per_sm * threads * 128 <= 65536
+
+    @functools.lru_cache(maxsize=256)
+    def a_tile(self, shape, depth=None, block=None, per_sm=None):
         """Kernel A's tile ``(rows, cols)`` for an ``(m, n)`` grid, or None
-        when the grid does not fit resident: at most one block per SM,
-        each within one block's shared memory.
+        when the grid does not fit resident: at most ``per_sm`` blocks of
+        ``block`` an SM (``a_per_sm``, ``a_block``), each within its share
+        of the SM's shared memory (:meth:`resident_budget`), on a launch
+        shape that A's step phase takes (:meth:`a_takes`).
 
-        Among the tiles that fit, the one with the fewest cells per thread
-        and step, averaged over a group of D steps on the shrinking framed
-        region (the step's critical path), then the fewest blocks (each
-        one waits at every grid-wide barrier), then the least shared
-        memory, then the widest (whole 128-byte rows for the warps)."""
+        The widths are those of every count of tile columns, rounded up
+        to a multiple of 4 (the grid's width for one column); the heights those of every count of tile rows
+        the card has room for, and the least one whose framed rows fill
+        whole runs of the warps. Among the tiles that fit,
+        the one with the least modelled step (:meth:`a_step_cost`, and
+        for two or more blocks ``m_sync_visits / depth`` for the exchange
+        and barrier a group), then the fewest blocks (each one waits at
+        every grid-wide barrier), then the least shared memory, then the
+        widest."""
         m, n = shape
         d = self.a_depth if depth is None else depth
-        bx, by = self.a_block
-        budget = self.smem_per_block_max - self.static_smem_bytes
-        if m * n * 8 > self.sm_count * budget:
+        block = block or self.a_block
+        per_sm = per_sm or self.a_per_sm
+        warps = block[1]
+        budget = self.resident_budget(per_sm)
+        slots = self.sm_count * per_sm
+        if (m * n * 8 > slots * budget
+                or not self.resident_fits(block, per_sm)):
             return None
-
-        def fits(lo, mult, cap):
-            # lo, and the next sizes whose framed extent fills whole
-            # passes of `mult` threads, capped at cap.
-            out = {lo, -(-lo // mult) * mult}
-            out.add(-(-(lo + 2 * (d - 1)) // mult) * mult - 2 * (d - 1))
-            return sorted({min(x, cap) for x in out if x >= lo})
-
-        def passes(ty, tx):
-            return sum(-(-(ty + 2 * (d - s)) // by) * -(-(tx + 2 * (d - s))
-                                                        // bx)
-                       for s in range(1, d + 1)) / d
-
+        widths = sorted({-(-(-(-n // q)) // 4) * 4
+                         for q in range(1, min(slots, n) + 1)})
         best, best_key = None, None
-        widths = {n} | {w for q in range(1, n // bx + 2)
-                        for w in (q * bx, q * bx - 2 * (d - 1)) if 0 < w < n}
-        for tx in sorted(widths):
+        for tx in widths:
             n_col = -(-n // tx)
-            rows_max = self.sm_count // n_col
+            rows_max = slots // n_col
             if rows_max == 0:
                 continue
-            for ty in fits(-(-m // rows_max), by, m):
+            tx = min(tx, n)
+            lo = -(-m // rows_max)
+            heights = {-(-m // r) for r in range(1, min(m, rows_max) + 1)}
+            heights.add(min(m, -(-(lo + 2 * d) // warps) * warps - 2 * d))
+            for ty in sorted(h for h in heights if h >= lo):
                 tile = (ty, tx)
                 smem = self.a_smem_bytes(tile, d)
-                if smem > budget:
+                if smem > budget or not self.a_takes(shape, tile, block):
                     continue
-                key = (passes(ty, tx), n_col * -(-m // ty), smem, -tx)
+                blocks = n_col * -(-m // ty)
+                key = (self.a_step_cost(tile, d, block)
+                       + (self.m_sync_visits / d if blocks > 1 else 0),
+                       blocks, smem, -tx)
                 if best_key is None or key < best_key:
                     best, best_key = tile, key
         return best
+
+    def a_tile_kinds(self, shape, depth=None, tile=None) -> dict:
+        """The tiles of an A launch on an ``(m, n)`` grid, counted by the
+        branches of ``csrc/heat_a.cuh`` they run: ``interior`` (the framed
+        tile lies inside the grid's interior: the test-free step) and
+        ``copies`` (it reaches past it: the step's copy branch), of those
+        ``top``, ``left``, ``bottom`` and ``right`` (the frame reaches past
+        that side of the grid: zero-filled loads, frame cells left out of
+        the exchange); ``ragged_rows`` and ``ragged_cols`` (the last row or
+        column of tiles cut short); ``partial_group`` (a tile whose last
+        group has fewer than 4 columns: the cell-by-cell last store);
+        ``whole_band_rows`` and ``whole_band_cols`` (a tile at most 2D
+        tall or wide, whose band the exchange writes whole)."""
+        m, n = shape
+        d = self.a_depth if depth is None else depth
+        ty, tx = tile or self.a_tile(tuple(shape), d)
+        kinds = dict.fromkeys(("tiles", "interior", "copies", "top", "left",
+                               "bottom", "right", "ragged_rows",
+                               "ragged_cols", "partial_group",
+                               "whole_band_rows", "whole_band_cols"), 0)
+        for i0 in range(0, m, ty):
+            for j0 in range(0, n, tx):
+                h, w = min(ty, m - i0), min(tx, n - j0)
+                y0, x0 = i0 - d, j0 - d
+                y1, x1 = i0 + h + d, j0 + w + d
+                kinds["tiles"] += 1
+                kinds["top"] += y0 < 0
+                kinds["left"] += x0 < 0
+                kinds["bottom"] += y1 > m
+                kinds["right"] += x1 > n
+                kinds["copies" if (y0 < 1 or x0 < 1 or y1 > m - 1
+                                   or x1 > n - 1) else "interior"] += 1
+                kinds["ragged_rows"] += h < ty
+                kinds["ragged_cols"] += w < tx
+                kinds["partial_group"] += w % 4 != 0
+                kinds["whole_band_rows"] += h <= 2 * d
+                kinds["whole_band_cols"] += w <= 2 * d
+        return kinds
 
 
 _PARAMS = HopperParams()

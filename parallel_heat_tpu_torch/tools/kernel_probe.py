@@ -32,14 +32,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import subprocess
 import sys
 from typing import Optional
 
 import numpy as np
 import torch
 
+from parallel_heat_tpu_torch.bench_kernels import card_line, device_ms
+from parallel_heat_tpu_torch.bench_kernels import time_ms as events_ms
 from parallel_heat_tpu_torch.models import HeatPlate2D
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 from parallel_heat_tpu_torch.ops.stencil import coeffs_f32
@@ -81,52 +81,6 @@ def probe_steps(variant: str, u: torch.Tensor, out: torch.Tensor, k: int,
     sk._raise_on_error(lib, "heat_probe_kernel", code)
     counts["heat_probe_kernel"] += 1
     return sk._residual_view(bits) if bits is not None else None
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def events_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean time of one ``fn()`` over ``reps`` calls by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, instance: str, made: int = 40) -> float:
-    """Mean device milliseconds of one launch of the kernel whose name
-    holds ``instance`` (``heat_a_resident_kernel<0>``), from a
-    ``torch.profiler`` trace of ``made`` calls of ``fn()``, over the
-    records the trace kept (a trace may lose a few; one that kept fewer
-    than 70% is taken again, twice at most, then refused)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(made):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if re.search(re.escape(instance), e.key)]
-        records = sum(e.count for e in hits)
-        if made * 0.7 <= records <= made:
-            return sum(e.self_device_time_total for e in hits) / 1e3 / records
-    raise RuntimeError(f"the profiler kept {records} records of {made} "
-                       f"launches of {instance}, three times over")
 
 
 def _fit(ks, ms):

@@ -141,6 +141,21 @@ def test_a_bitwise_equal_to_k_b_launches_and_plain(card, shape, k, cx, cy):
     assert torch.equal(got, nores)
 
 
+def test_probe_full_is_a_and_every_variant_launches(card):
+    from parallel_heat_tpu_torch.tools import kernel_probe as kp
+
+    u = _rand((1000, 1000), 4, card)
+    want, got = torch.empty_like(u), torch.empty_like(u)
+    ra = sk.resident_steps(u, want, 20, cx=0.1, cy=0.2)
+    r = kp.probe_steps("full", u, got, 20, cx=0.1, cy=0.2)
+    assert torch.equal(got, want) and torch.equal(r, ra)
+    for variant in kp.VARIANTS[1:]:
+        out = torch.empty_like(u)
+        res = kp.probe_steps(variant, u, out, 20, cx=0.1, cy=0.2)
+        torch.cuda.synchronize()
+        assert res is not None and out.shape == u.shape
+
+
 @pytest.mark.parametrize("uniform", [False, True])
 @pytest.mark.parametrize("cx,cy", COEFFS)
 @pytest.mark.parametrize("k", [1, 3, 4, 8])

@@ -16,9 +16,9 @@ grid and residual, on a ragged 1001 x 999 grid (E-uni: 1001 x 1000),
 then timed with CUDA events over ``--reps`` launches on the model's
 ``size`` x ``size`` plate (far larger than the 50 MB L2, so every launch
 reads device memory). A, whose grid must fit
-in shared memory, runs over its halo depth D, thread block (32 lanes by
-4, 8 or 16 warps) and blocks an SM (1 or 2), at the tile
-``hopper_params.a_tile`` picks for them, on each of the
+in shared memory, runs over its halo depth D and thread block (32 lanes
+by 4, 8 or 16 warps), at the tile ``hopper_params.a_tile`` picks for
+them, on each of the
 ``--a-sizes`` plates: a 20-step launch with the residual (one converge
 window of the default check interval), checked bitwise against its
 plain version on the same plate first and timed by ``torch.profiler``. The 3D kernels run on the
@@ -34,9 +34,9 @@ the time per launch over the steps it advances. ``--only m`` sweeps
 kernel M on stacks of 64 members of 512^2 and of 128^2 (20 steps with
 the residuals, one converge window): the tilings of a member that
 ``hopper_params.m_tilings`` models as cheapest at halo depths 4 and 8
-under each of A's thread blocks and blocks an SM, a spread of tile
-counts, and, where a member fits one block, the one-block-per-member
-launch over thread blocks. ``--only mg`` sweeps the
+under each of A's thread blocks, a spread of tile counts, and, where a
+member fits one block, the one-block-per-member launch over thread
+blocks. ``--only mg`` sweeps the
 thread block of ``heat_mg_restrict`` and ``heat_mg_prolong`` at 4098^2
 <-> 2050^2 and 512^2 <-> 257^2 (the finest pair of a 512^2 implicit
 run). Both check every launch shape bitwise
@@ -107,9 +107,7 @@ E_BLOCKS = [(32, 4), (32, 8), (32, 16)]
 E_KS = [4, 6, 8, 10, 12, 16]
 A_DEPTHS = [2, 4, 8]
 A_STEPS = 20
-# A's and M's thread blocks (32 lanes x warps) and blocks an SM: 16 warps
-# a block take the SM's registers; 8 or 4 leave room for a second block.
-A_SHAPES = [((32, 16), 1), ((32, 8), 1), ((32, 8), 2), ((32, 4), 2)]
+A_BLOCKS = [(32, 16), (32, 8), (32, 4)]    # A's and M's, 32 lanes x warps
 D_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (64, 8), (128, 2), (128, 4)]
 D_PLANES = [4, 8, 16, 32, 64]
 # F's launch shapes, (32 lanes x warps, rows a thread): extended tiles of
@@ -222,10 +220,10 @@ def device_ms(fn, instance: str, made: int = 40) -> float:
 
 
 def sweep_a(sizes, reps: int):
-    """Yield one dict per (plate size, halo depth, thread block, blocks an
-    SM) of kernel A: the tile ``hopper_params.a_tile`` picks for them, a
-    20-step launch with the residual checked bitwise against the plain
-    version, then its device time (``torch.profiler``)."""
+    """Yield one dict per (plate size, halo depth, thread block) of kernel
+    A: the tile ``hopper_params.a_tile`` picks for them, a 20-step launch
+    with the residual checked bitwise against the plain version, then its
+    device time (``torch.profiler``)."""
     p = params()
     dev = torch.device("cuda", torch.cuda.current_device())
     for size in sizes:
@@ -235,8 +233,8 @@ def sweep_a(sizes, reps: int):
         xch = torch.empty((2, size, size), device=dev)
         bits = _bits(dev)
         for d in A_DEPTHS:
-            for block, per_sm in A_SHAPES:
-                tile = p.a_tile((size, size), d, block, per_sm)
+            for block in A_BLOCKS:
+                tile = p.a_tile((size, size), d, block)
                 if tile is None:
                     continue
 
@@ -252,12 +250,12 @@ def sweep_a(sizes, reps: int):
                 blocks = -(-size // tile[0]) * -(-size // tile[1])
                 yield {"kernel": "heat_a_resident", "size": size,
                        "depth": d, "tile": list(tile), "block": list(block),
-                       "per_sm": per_sm, "blocks": blocks, "k": A_STEPS,
+                       "blocks": blocks, "k": A_STEPS,
                        "model_step": p.a_step_cost(tile, d, block),
                        "smem_bytes": p.a_smem_bytes(tile, d), "bitwise": ok,
                        "ms": ms, "ms_per_step": ms / A_STEPS,
-                       "default": (d, tuple(block), per_sm) == (
-                           p.a_depth, p.a_block, p.a_per_sm)}
+                       "default": (d, tuple(block)) == (p.a_depth,
+                                                        p.a_block)}
 
 
 def sweep(size: int, reps: int):
@@ -430,9 +428,9 @@ def sweep_m(reps: int):
         plans = [p.m_solo_plan(M_BATCH, shape, block)
                  for block in M_SOLO_BLOCKS]
         for d in M_DEPTHS:
-            for block, per_sm in A_SHAPES:
-                tilings = sorted(p.m_tilings(M_BATCH, shape, d, block,
-                                             per_sm), key=lambda t: t["cost"])
+            for block in A_BLOCKS:
+                tilings = sorted(p.m_tilings(M_BATCH, shape, d, block),
+                                 key=lambda t: t["cost"])
                 plans += tilings[:M_BEST]
                 for tiles in M_TILES:
                     plans += [t for t in tilings[M_BEST:]
@@ -457,7 +455,6 @@ def sweep_m(reps: int):
                    "members": M_BATCH, "tile": list(plan["tile"]),
                    "depth": plan["depth"], "tiles": plan["tiles"],
                    "groups": plan["groups"], "block": list(plan["block"]),
-                   "per_sm": plan.get("per_sm"),
                    "model_cost": plan.get("cost"), "k": A_STEPS,
                    "smem_bytes": p.m_smem_bytes(plan["tile"], plan["depth"]),
                    "bitwise": ok, "ms": ms, "ms_per_step": ms / A_STEPS,

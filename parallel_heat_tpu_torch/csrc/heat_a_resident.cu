@@ -42,9 +42,10 @@
 //     by group, so one barrier per group is enough: a plane is rewritten
 //     two groups later, after every block has passed the barrier that
 //     ends its reads. The plane is read and written at L2
-//     (__ldcg/__stcg), never through a stale L1 line. The probe put the
-//     barrier at about a tenth of a step, under the share that would pay
-//     for waiting on neighbour flags instead, so the grid barrier stays;
+//     (__ldcg/__stcg), never through a stale L1 line. The anatomy probe
+//     put the barrier at 10-14% of a step, under the 15% that would pay
+//     for each block waiting on its neighbours' flags instead, so the
+//     grid barrier stays;
 //   - the last step writes the tile straight to the output grid (16 bytes
 //     a group where the grid's width allows it) and reduces the residual
 //     as heat_b_step does (heat_common.cuh);

@@ -28,7 +28,8 @@ class HopperParams:
     # float32 outside the tensor cores; an FMA counts as two operations.
     fp32_flops_per_s: float = 67e12
 
-    # --- kernel A: heat_a_resident (data sheet; block chosen; D measured) -
+    # --- kernel A: heat_a_resident (data sheet; block and D measured; the
+    # cost model chosen) ---------------------------------------------------
     # One cooperative launch holds the whole grid in shared memory: one
     # block of 32 lanes by a_block[1] warps on each SM it uses (132 SMs on
     # the H100 SXM), each block a tile and its D-deep frame in two
@@ -36,13 +37,16 @@ class HopperParams:
     # with one grid-wide barrier and exchange per D steps. a_tile() picks
     # the tile by a_step_cost(): row visits of the busiest warp times its
     # passes of 32 lanes, each pass a_run_visits more for its start, and
-    # m_sync_visits / D for a group's exchange and barrier. D = 4 from the
-    # sweep of D = 1, 2, 4, 8 (bench_kernels --only a) on the column walk
-    # this loop replaced: D = 8 ran 10% faster at 1000^2 but fits no grid
-    # past about 1760^2, against 1845^2 at D = 4.
+    # m_sync_visits / D for a group's exchange and barrier. The sweep
+    # (bench_kernels --only a, NVIDIA H100 80GB HBM3 at 700 W, 20 steps
+    # with the residual) found 32 x 16 threads and D = 4 fastest at 256^2
+    # (0.0196 ms) and 1000^2 (0.0365 ms, 72 x 112 tiles; D = 8 0.0383,
+    # D = 2 0.0474, 32 x 8 threads 0.0444); 32 x 16 take the 128
+    # registers of the 512-thread bound, so one block an SM, and two
+    # blocks an SM of 32 x 8 (on half-height tiles) lost 0.0463 to
+    # 0.0365. At 1859^2 D = 2 ran 0.0921 ms against D = 4's 0.1117.
     sm_count: int = 132
     a_block: tuple = (32, 16)
-    a_per_sm: int = 1
     a_depth: int = 4
     a_run_visits: int = 2
 
@@ -161,7 +165,7 @@ class HopperParams:
     f_seg_planes_min: int = 64
     f_width: int = 128
 
-    # --- kernel M: heat_m_ensemble (cost model chosen; depths measured) ---
+    # --- kernel M: heat_m_ensemble (cost model chosen; measured) ---------
     # A member is cut into tiles as kernel A cuts its grid, on A's step
     # phase and thread block; a group of one block per tile holds one
     # member, and sm_count // tiles groups walk the members. m_plan()
@@ -170,9 +174,12 @@ class HopperParams:
     # visits of a warp), plus m_sync_visits for each grid-wide barrier and
     # exchange, a group of D steps. A member whose framed tile fits one
     # block runs one block per member with a one-cell frame and thread
-    # blocks of about m_solo_rows_per_thread rows a warp.
-    m_block: tuple = (32, 16)
-    m_per_sm: int = 1
+    # blocks of about m_solo_rows_per_thread rows a warp. The sweep
+    # (bench_kernels --only m, 64 members, 20 steps with the residuals)
+    # found the model's first plan fastest at 512^2 (256 x 88 tiles at
+    # D = 8, 0.479 ms; 128 x 172 at D = 8 0.499, two blocks an SM of
+    # 32 x 8 on 128 x 88 tiles 0.500) and one block a member of 32 x 16
+    # fastest at 128^2 (0.0454 ms; 32 x 8 0.0498, two tiles 0.0534).
     m_depths: tuple = (4, 8)
     m_sync_visits: int = 25
     m_solo_rows_per_thread: int = 8
@@ -263,41 +270,36 @@ class HopperParams:
                 "block": block or (32, max(1, min(self.loop_max_warps,
                                                   warps)))}
 
-    def m_tilings(self, batch, shape, depth=None, block=None, per_sm=None):
+    def m_tilings(self, batch, shape, depth=None, block=None):
         """Every launch of kernel M that cuts a member of ``(m, n)`` into
         two or more tiles (the last ones cut at the edge), at most
         ``sm_count`` of them, each within one block's shared memory and
-        of a width :meth:`a_takes` takes, ``per_sm`` blocks of ``block``
-        an SM (``m_per_sm``, ``m_block``): a list of plans, each with its
-        modelled ``cost``, ``rounds * (per_sm * a_step_cost +
-        m_sync_visits / depth)``: the blocks of an SM share its issue."""
+        of a width :meth:`a_takes` takes, under A's thread block by
+        default: a list of plans, each with its modelled ``cost``,
+        ``rounds * (a_step_cost + m_sync_visits / depth)``."""
         m, n = shape
         d = self.a_depth if depth is None else depth
-        block = block or self.m_block
-        per_sm = per_sm or self.m_per_sm
-        budget = self.resident_budget(per_sm)
-        slots = self.sm_count * per_sm
+        block = block or self.a_block
+        budget = self.smem_per_block_max - self.static_smem_bytes
         plans = []
-        if not self.resident_fits(block, per_sm):
-            return plans
         widths = sorted({-(-(-(-n // q)) // 4) * 4
-                         for q in range(1, min(slots, n) + 1)})
+                         for q in range(1, min(self.sm_count, n) + 1)})
         for tx in widths:
             n_col = -(-n // tx)
             tx = min(tx, n)
-            for n_row in range(1, min(m, slots // n_col) + 1):
+            for n_row in range(1, min(m, self.sm_count // n_col) + 1):
                 ty = -(-m // n_row)
                 tiles = n_col * n_row
                 if (-(-m // ty) != n_row or tiles == 1
                         or self.m_smem_bytes((ty, tx), d) > budget):
                     continue
-                groups = min(batch, slots // tiles)
+                groups = min(batch, self.sm_count // tiles)
                 step = self.a_step_cost((ty, tx), d, block)
                 plans.append({
                     "tile": (ty, tx), "depth": d, "tiles": tiles,
-                    "groups": groups, "block": block, "per_sm": per_sm,
+                    "groups": groups, "block": block,
                     "cost": -(-batch // groups)
-                    * (per_sm * step + self.m_sync_visits / d)})
+                    * (step + self.m_sync_visits / d)})
         return plans
 
     @functools.lru_cache(maxsize=64)
@@ -772,27 +774,13 @@ class HopperParams:
                      * -(-groups // 32))
         return cost / d
 
-    def resident_budget(self, per_sm: int) -> int:
-        """Dynamic shared memory a block of A or M may take so that
-        ``per_sm`` of them stay resident on one SM."""
-        return (min(self.smem_per_block_max,
-                    self.smem_per_sm // per_sm - self.smem_reserved_per_block)
-                - self.static_smem_bytes)
-
-    def resident_fits(self, block, per_sm: int) -> bool:
-        """Do ``per_sm`` blocks of ``block`` threads of A or M fit one SM
-        by threads (2048) and registers (65,536; the kernels take up to
-        128 a thread under their 512-thread launch bound)?"""
-        threads = block[0] * block[1]
-        return per_sm * threads <= 2048 and per_sm * threads * 128 <= 65536
-
-    @functools.lru_cache(maxsize=256)
-    def a_tile(self, shape, depth=None, block=None, per_sm=None):
+    @functools.lru_cache(maxsize=64)
+    def a_tile(self, shape, depth=None, block=None):
         """Kernel A's tile ``(rows, cols)`` for an ``(m, n)`` grid, or None
-        when the grid does not fit resident: at most ``per_sm`` blocks of
-        ``block`` an SM (``a_per_sm``, ``a_block``), each within its share
-        of the SM's shared memory (:meth:`resident_budget`), on a launch
-        shape that A's step phase takes (:meth:`a_takes`).
+        when the grid does not fit resident: at most one block of
+        ``block`` threads (``a_block``) per SM, each within one block's
+        shared memory, on a launch shape that A's step phase takes
+        (:meth:`a_takes`).
 
         The widths are those of every count of tile columns, rounded up
         to a multiple of 4 (the grid's width for one column); the heights those of every count of tile rows
@@ -806,19 +794,16 @@ class HopperParams:
         m, n = shape
         d = self.a_depth if depth is None else depth
         block = block or self.a_block
-        per_sm = per_sm or self.a_per_sm
         warps = block[1]
-        budget = self.resident_budget(per_sm)
-        slots = self.sm_count * per_sm
-        if (m * n * 8 > slots * budget
-                or not self.resident_fits(block, per_sm)):
+        budget = self.smem_per_block_max - self.static_smem_bytes
+        if m * n * 8 > self.sm_count * budget:
             return None
         widths = sorted({-(-(-(-n // q)) // 4) * 4
-                         for q in range(1, min(slots, n) + 1)})
+                         for q in range(1, min(self.sm_count, n) + 1)})
         best, best_key = None, None
         for tx in widths:
             n_col = -(-n // tx)
-            rows_max = slots // n_col
+            rows_max = self.sm_count // n_col
             if rows_max == 0:
                 continue
             tx = min(tx, n)

@@ -20,7 +20,9 @@ prints the card's name and power limit, then one JSON line per phase:
    are printed; a second run from the cached build reads nvcc's report
    kept beside each library), nor may any instance of A, M or A's
    anatomy probe (``heat_probe_kernel``, also built here), whose
-   registers and spills are printed;
+   registers and spills are printed, nor any of the other three probes'
+   (``heat_probe_vpu_roofline``, ``heat_probe_temporal``,
+   ``heat_probe_ab_temporal``, built here too);
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -255,11 +257,32 @@ prints the card's name and power limit, then one JSON line per phase:
    ``heat_probe_kernel``) at 1000^2: its ``full`` variant bitwise A's
    plain version, then every variant at K = 20 and 2000 (a step by the
    slope, the launch's fixed share by the intercept, what each cut
-   saves a step) and A's device time at K = 1, 2, 4, 8 and 20.
+   saves a step) and A's device time at K = 1, 2, 4, 8 and 20;
+23. probe_vpu_roofline — the issue-rate roofline
+   (``tools/vpu_roofline.py``, ``heat_probe_vpu_roofline``): ``fma`` at
+   P = 1 and 16, ``muladd`` at P = 16 and ``stencil`` bitwise their plain
+   versions at 1 and 4 passes on a 3 x 24 x 256 stack and on the
+   full-width stack (one 192 x 128 member an SM, 96 KB a buffer), then
+   every variant's µs a pass by the slope of its device time between 64
+   and 1024 passes, its rates, the SM clock under it and its bound;
+24. probe_temporal — E-uni's anatomy (``tools/probe_temporal.py``,
+   ``heat_probe_temporal``): its ``full`` variant bitwise
+   ``temporal_steps_uni_plain`` (grid and residual) at 16384^2, K = 8, and
+   at every compiled K on 1001 x 1000 and 20 x 24 (every tile kind of
+   ``e_tile_kinds`` but a part group, which E-uni's widths never have),
+   then each variant's device ms at 16384^2 and 8192^2,
+   K = 8, what each cut saves, and E-uni's K ladder (K = 1, 2, 4, 6, 8);
+25. probe_ab_temporal — E-uni's boundary forms
+   (``tools/ab_temporal.py``, ``heat_probe_ab_temporal``): ``prod`` and
+   ``rowcopy`` bitwise ``temporal_steps_uni_plain`` at every compiled K
+   on 1001 x 1000 and 20 x 24, then, after the same check on each plate,
+   the three forms in turns (three batches) at 16384^2, 8192^2 and
+   1024^2, K = 8.
 
-Then a ``{"kernels": [...]}`` line (all twenty kernels, and the probe's
-kernel with its own run's launches and A's plain version, bound and
-yardstick) and, last, the
+Then a ``{"kernels": [...]}`` line (all twenty kernels, and the four
+probes' kernels, each with its own run's launches: A's anatomy probe with
+A's plain version, bound and yardstick, the E-uni probes with E-uni's,
+the roofline with its stencil's at 64 passes) and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
 before the last line; without a CUDA device it exits 2 at once.
 """
@@ -361,8 +384,13 @@ KERNELS_H = {
 }
 KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G,
            **KERNELS_H}
-# The measurement tools' kernel: kernel A's anatomy probe.
-PROBE = {"heat_probe_kernel": (None, "tools/kernel_probe.py:27")}
+# The measurement tools' kernels: kernel A's anatomy probe, the
+# issue-rate roofline, E-uni's anatomy and its boundary A/B.
+PROBES = {"heat_probe_kernel": (None, "tools/kernel_probe.py:27"),
+          "heat_probe_vpu_roofline": (None, "tools/vpu_roofline.py:49"),
+          "heat_probe_temporal": (None, "tools/probe_temporal.py:39"),
+          "heat_probe_ab_temporal": (None, "tools/ab_temporal.py:63")}
+ROOF_PASSES = 64         # the roofline's kernels-line launch: 64 passes
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
 
@@ -473,12 +501,16 @@ def phase_build():
     # registers and spills.
     resident = {name: ptxas[name] for name in
                 ("heat_a_resident", "heat_m_ensemble", "heat_probe_kernel")}
-    for name, rows in resident.items():
+    # Nor any instance of the other probes, whose times stand for the
+    # loop's.
+    probes = {name: ptxas[name] for name in PROBES
+              if name != "heat_probe_kernel"}
+    for name, rows in {**resident, **probes}.items():
         check(rows and all(row[1] == 0 and row[2] == 0
                            for row in rows.values()),
               f"an instance of {name} spills or none is reported: {rows}")
     emit({"phase": "build", "seconds": seconds,
-          "a_and_m_instances": resident,
+          "a_and_m_instances": resident, "probe_instances": probes,
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
           "main_path_e": e_main, "main_path_f": f_main,
@@ -2036,6 +2068,163 @@ def phase_probe_kernel(dev):
             "device_ms": rows[0]["device_ms"][f"k{WINDOW}"]}
 
 
+def phase_probe_vpu_roofline(dev):
+    """The issue-rate roofline (``tools/vpu_roofline.py``,
+    ``heat_probe_vpu_roofline``): its functions bitwise their plain
+    versions on a small stack and on the full-width stack, then every
+    variant by the slope over 64 and 1024 passes; returns the probe's
+    launches in that run and its stencil's numbers at ``ROOF_PASSES``
+    passes (device ms, plain ms, bound, ``conv2d`` chained as often, max
+    |diff|)."""
+    import torch
+
+    from parallel_heat_tpu_torch.tools import vpu_roofline as vr
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(7)
+    err = 0.0
+    checked = []
+    for shape in ((3, 24, 256), (sms, vr.ROWS, vr.COLS)):
+        u = torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+        want = torch.empty_like(u)
+        for kind, p in vr.CHECKED:
+            for passes in (1, 4):
+                got = torch.full_like(u, float("nan"))
+                vr.sweep(kind, u, got, passes, p)
+                vr.sweep_plain(kind, u, want, passes, p)
+                torch.cuda.synchronize()
+                diff = float((got - want).abs().max())
+                err = max(err, diff)
+                check(torch.equal(got, want),
+                      f"roofline {vr.variant_name(kind, p)} at {shape}, "
+                      f"{passes} passes != its plain version: "
+                      f"{int((got != want).sum())} cells differ, max diff "
+                      f"{diff}")
+        checked.append(list(shape))
+    vr.counts["heat_probe_vpu_roofline"] = 0
+    rows = list(vr.roofline(device=dev))
+    launches = vr.counts["heat_probe_vpu_roofline"]
+    names = {vr.variant_name(kind, p) for kind, p in vr.VARIANTS}
+    check(launches > 0 and {r.get("roofline") for r in rows} >= names,
+          f"the roofline ran {launches} launches: {rows}")
+    emit({"phase": "probe_vpu_roofline", "checked": checked,
+          "variants_bitwise": [vr.variant_name(k, p) for k, p in vr.CHECKED],
+          "launches": launches, "rows": rows})
+    # The kernels line: the stencil at ROOF_PASSES passes over the
+    # full-width stack, against its plain version, its bound (the stack
+    # read and written once; the combine's operations) and conv2d chained
+    # as often.
+    stencil = next(r for r in rows if r.get("roofline") == "stencil")
+    library = rows[-1]["conv2d_ms"] * ROOF_PASSES
+    plain_ms = _time_ms(lambda: vr.sweep_plain("stencil", u, want,
+                                               ROOF_PASSES), 1, 0)
+    interior = sms * (vr.ROWS - 2) * (vr.COLS - 2)
+    return {"launches": launches, "max_abs_err": err,
+            "device_ms": stencil["device_ms"][f"d{ROOF_PASSES}"],
+            "plain_ms": plain_ms, "library_ms": library,
+            **_bound(8 * u.numel(),
+                     OPS_PER_CELL_STEP * ROOF_PASSES * interior)}
+
+
+def phase_probe_temporal(dev):
+    """E-uni's anatomy probe (``tools/probe_temporal.py``,
+    ``heat_probe_temporal``): its ``full`` variant bitwise E-uni's plain
+    version at 16384^2, K = 8, and at every compiled K on grids that run
+    every tile kind, then the anatomy at 16384^2 and 8192^2 and E-uni's K
+    ladder; returns the probe's launches in that run, ``full``'s device
+    ms at 16384^2 and its max |diff|."""
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.tools import probe_temporal as pt
+
+    k = params().e_k_default
+    err = _check_e_probe(dev, pt.probe_steps, ("full",), "heat_probe_temporal",
+                         k)
+    pt.counts["heat_probe_temporal"] = 0
+    rows = list(pt.anatomy((BIG, BIG // 2), k, device=dev))
+    launches = pt.counts["heat_probe_temporal"]
+    check(launches > 0 and {r.get("probe") for r in rows} >= set(
+        pt.VARIANTS) and any("ladder" in r for r in rows),
+          f"the probe ran {launches} launches: {rows}")
+    emit({"phase": "probe_temporal", "launches": launches, "rows": rows})
+    full = next(r for r in rows if r.get("probe") == "full"
+                and r["size"] == BIG)
+    return {"launches": launches, "max_abs_err": err,
+            "device_ms": full["device_ms"][f"k{k}"]}
+
+
+def _check_e_probe(dev, steps, variants, name, k_main):
+    """The variants ``variants`` of an E-uni probe (``steps(variant, u,
+    out, k, with_residual, cx=, cy=)``) bitwise ``temporal_steps_uni_plain``,
+    grid and residual: on a random 16384^2 grid at ``k_main``, and at
+    every compiled K on 1001 x 1000 and 20 x 24, which between them run
+    every tile kind that a width E-uni takes allows (``e_tile_kinds``,
+    asserted). Returns the max |diff|."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    rng = np.random.default_rng(11)
+    err = 0.0
+    kinds = {}
+    plan = [((BIG, BIG), [k_main], [dict(cx=CX, cy=CY)]),
+            ((1001, 1000), range(1, params().e_k_max() + 1),
+             [dict(cx=CX, cy=CY), dict(cx=UNEQUAL[0], cy=UNEQUAL[1])]),
+            ((20, 24), range(1, params().e_k_max() + 1),
+             [dict(cx=CX, cy=CY)])]
+    for shape, ks, coeffs in plan:
+        u = torch.from_numpy(
+            (rng.standard_normal(shape) * 10).astype(np.float32)).to(dev)
+        want = torch.empty_like(u)
+        for k in ks:
+            for kind, count in params().e_tile_kinds(shape, k).items():
+                kinds[kind] = kinds.get(kind, 0) + count
+            for kw in coeffs:
+                rp = sk.temporal_steps_uni_plain(u, want, k, True, **kw)
+                for variant in variants:
+                    got = torch.full_like(u, float("nan"))
+                    r = steps(variant, u, got, k, True, **kw)
+                    torch.cuda.synchronize()
+                    diff = float((got - want).abs().max())
+                    err = max(err, diff)
+                    check(torch.equal(got, want) and same_float(r, rp),
+                          f"{name} {variant!r} (K={k}) at {shape} {kw} != "
+                          f"E-uni's plain version: max diff {diff}, "
+                          f"residual {float(r)} against {float(rp)}")
+        del u, want
+        torch.cuda.empty_cache()
+    # Every kind but a part group, which needs a width no multiple of 4.
+    check(all(n for kind, n in kinds.items() if kind != "partial_group"),
+          f"{name}'s check grids run no tile of some kind: {kinds}")
+    return err
+
+
+def phase_probe_ab_temporal(dev):
+    """E-uni's boundary A/B (``tools/ab_temporal.py``,
+    ``heat_probe_ab_temporal``): ``prod`` and ``rowcopy`` bitwise E-uni's
+    plain version at every compiled K on grids that run every tile kind,
+    then the forms in turns at 16384^2, 8192^2 and 1024^2 (each plate
+    checked first); returns the probe's launches in that run, ``prod``'s
+    device ms at 16384^2 (its first batch) and the max |diff|."""
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.tools import ab_temporal as ab
+
+    k = params().e_k_default
+    err = _check_e_probe(dev, ab.ab_steps, ab.FUNCTIONS,
+                         "heat_probe_ab_temporal", k)
+    ab.counts["heat_probe_ab_temporal"] = 0
+    rows = list(ab.turns((BIG, BIG // 2, 1024), k, batches=3, tries=2,
+                         device=dev))
+    launches = ab.counts["heat_probe_ab_temporal"]
+    check(launches > 0 and [r["size"] for r in rows] == [BIG, BIG // 2, 1024]
+          and all(set(r["device_ms"]) == set(ab.VARIANTS) for r in rows),
+          f"the A/B ran {launches} launches: {rows}")
+    emit({"phase": "probe_ab_temporal", "launches": launches, "rows": rows})
+    return {"launches": launches, "max_abs_err": err,
+            "device_ms": rows[0]["device_ms"]["prod"][0]}
+
+
 # ---------------------------------------------------------------------------
 # The sharded 2D path (kernels G-uni, G-fuse, G-circ, G and the band fix)
 # ---------------------------------------------------------------------------
@@ -3211,16 +3400,27 @@ def main() -> int:
         t.update(phase_timing_g(dev))
         t.update(phase_timing_h(dev))
         probe = phase_probe_kernel(dev)
+        roof = phase_probe_vpu_roofline(dev)
+        anatomy = phase_probe_temporal(dev)
+        boundary = phase_probe_ab_temporal(dev)
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
-    # The probe's line: its own run's launches and time, A's plain version,
-    # bound and yardstick (the same function at the same shape).
-    launches["heat_probe_kernel"] = probe["launches"]
-    err["heat_probe_kernel"] = probe["max_abs_err"]
-    t["heat_probe_kernel"] = {**t["heat_a_resident"],
-                              "device_ms": probe["device_ms"]}
+    # The probes' lines: each its own run's launches and time; A's probe
+    # with A's plain version, bound and yardstick, the E-uni probes with
+    # E-uni's (the same function at the same shape), the roofline with
+    # its stencil's own.
+    for name, run, like in (("heat_probe_kernel", probe, "heat_a_resident"),
+                            ("heat_probe_temporal", anatomy,
+                             "heat_e_uni_temporal"),
+                            ("heat_probe_ab_temporal", boundary,
+                             "heat_e_uni_temporal"),
+                            ("heat_probe_vpu_roofline", roof, None)):
+        launches[name] = run["launches"]
+        err[name] = run["max_abs_err"]
+        t[name] = {**(t[like] if like else run),
+                   "device_ms": run["device_ms"]}
     src = "parallel_heat_tpu_torch/csrc/"
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src + name + ".cu",
@@ -3229,7 +3429,7 @@ def main() -> int:
          "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
          "bound_by": t[name]["bound_by"],
          "library_ms": t[name]["library_ms"]}
-        for name, (_, replaces) in {**KERNELS, **PROBE}.items()]})
+        for name, (_, replaces) in {**KERNELS, **PROBES}.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -768,14 +768,15 @@ def _sass_op(text: str) -> str:
 
 
 def _sass_counts(instrs, lo: int, hi: int) -> dict:
-    """Instructions, FMUL, FFMA, SHFL and bytes of shared memory read or
-    written in addresses ``[lo, hi)`` of ``[(address, text)]``."""
+    """Instructions, FMUL, FFMA, FADD, SHFL and bytes of shared memory
+    read or written in addresses ``[lo, hi)`` of ``[(address, text)]``."""
     ops = [_sass_op(t) for a, t in instrs if lo <= a < hi]
     shared = sum(int(m.group(2) or 32) // 8 for m in map(_SHARED.match, ops)
                  if m)
     return {"instructions": len(ops),
             "fmul": sum(op.startswith("FMUL") for op in ops),
             "ffma": sum(op.startswith("FFMA") for op in ops),
+            "fadd": sum(op.startswith("FADD") for op in ops),
             "shfl": sum(op.startswith("SHFL") for op in ops),
             "shared_bytes": shared}
 
@@ -848,15 +849,22 @@ _A_INSTANCE = re.compile(r"heat_a_resident_kernel(?:ILi0EE|P)")
 def sass_a_report(sass: str):
     """Per instance of kernel A that computes A's function (``<0>``, or
     the untemplated kernel of an earlier tree) in a ``cuobjdump -sass``
-    listing: each loop that steps cells (3 FMUL a cell-step: the
-    combine's three multiplies), with its instructions, shuffles and
-    shared-memory bytes a cell-step and whether it stores to global
-    memory (the last step's loop); and ``step_per_cell_step``, those of
-    the cheapest loop that does not (the test-free inner step)."""
+    listing: :func:`sass_step_report`."""
+    return sass_step_report(sass, _A_INSTANCE)
+
+
+def sass_step_report(sass: str, instance=re.compile(".")):
+    """Per function whose name ``instance`` matches in a ``cuobjdump
+    -sass`` listing of a 2D kernel: each loop that steps cells (3 FMUL a
+    cell-step: the combine's three multiplies), with its instructions,
+    shuffles and shared-memory bytes a cell-step and whether it stores to
+    global memory (the last step's loop); and ``step_per_cell_step``,
+    those of the cheapest loop that does not (the test-free inner
+    step)."""
     out = []
     for chunk in re.split(r"(?=\n\s*Function : )", sass):
         name = _FUNCTION.search(chunk)
-        if not name or not _A_INSTANCE.search(name.group(1)):
+        if not name or not instance.search(name.group(1)):
             continue
         instrs = [(int(a, 16), t) for a, t in _SASS_LINE.findall(chunk)]
         loops = []
@@ -903,15 +911,76 @@ def dump_sass(out_dir: str, libraries=None):
                 print(json.dumps({"sass_a": row}), flush=True)
 
 
-def turn_times(reps: int) -> dict:
+# The kernels on the register-blocked tile loop (csrc/heat_temporal.cuh)
+# and A's anatomy probe: what a change to the loop's compile-time hooks
+# must leave instruction for instruction as it was.
+LOOP_KERNELS = ("heat_e_temporal", "heat_e_uni_temporal",
+                "heat_g_block_uniform", "heat_g_block_fused",
+                "heat_g_block_circular", "heat_g_block_padded",
+                "heat_g_band_fix", "heat_a_resident", "heat_m_ensemble",
+                "heat_probe_kernel")
+
+
+def _sass_functions(path):
+    """``(function name -> its instructions, addresses and encodings
+    dropped; the listing)`` of a library's ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for chunk in re.split(r"(?=\n\s*Function : )", sass):
+        name = _FUNCTION.search(chunk)
+        if name:
+            out[name.group(1)] = [" ".join(t.split())
+                                  for _, t in _SASS_LINE.findall(chunk)]
+    return out, sass
+
+
+def sass_same(other: str, names=LOOP_KERNELS):
+    """Build kernels ``names`` in the tree at ``other`` (in its own
+    process, beside this tree's build of them) and yield, per kernel, how
+    many of its functions have the same instructions in both trees'
+    libraries, the instruction counts of those that differ, and this
+    tree's instructions, shuffles and shared bytes a cell-step of each
+    function's test-free inner step (:func:`sass_step_report`)."""
+    other = os.path.abspath(other)
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import json, sys\n"
+         "from parallel_heat_tpu_torch.kernels import build\n"
+         "print(json.dumps({k: str(v) for k, v in "
+         "build.build(*sys.argv[1:]).items()}))", *names],
+        cwd=other, env=dict(os.environ, PYTHONPATH=other),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    mine = build.build(*names)
+    out, err = proc.communicate(timeout=1800)
+    if proc.returncode != 0:
+        raise RuntimeError(f"build in {other} failed:\n{err[-3000:]}")
+    theirs = json.loads(out.strip().splitlines()[-1])
+    for name in names:
+        a, _ = _sass_functions(theirs[name])
+        b, sass = _sass_functions(mine[name])
+        same = [f for f in a if a[f] == b.get(f)]
+        yield {"sass_same": name, "functions": len(a),
+               "identical": len(same),
+               "only_this_tree": sorted(set(b) - set(a)),
+               "differ": {build.demangle(f): [len(a[f]), len(b.get(f, []))]
+                          for f in a if f not in same},
+               "step_per_cell_step": {
+                   build.demangle(r["instance"]): r["step_per_cell_step"]
+                   for r in sass_step_report(sass)}}
+
+
+def turn_times(reps: int, only=None) -> dict:
     """Device ms (CUDA events over ``reps`` launches, three times) of the
     default paths' kernels in whatever tree ``parallel_heat_tpu_torch``
     is imported from: F at 512^3, K = 3 (and its cp.async load where the
     tree has one), D at 512^3, H-fused monolithic and H at the 512^3
-    block of 1024^3 on (2, 2, 2), E-uni at 16384^2, K = 8, G-uni's
+    block of 1024^3 on (2, 2, 2), E-uni and E at 16384^2, K = 8, G-uni's
     deferred bulk at the 16384 x 8192 block of 32768^2 on (2, 4), A at
     1000^2 (K = 20, residual) and M at 64 x 512^2 (K = 400), these two by
-    ``torch.profiler``; and the sharded 3D picks."""
+    ``torch.profiler``; and the sharded 3D picks. With ``only`` (names),
+    those kernels alone, so that no other is built."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
     from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
     from parallel_heat_tpu_torch.parallel import temporal
@@ -948,6 +1017,7 @@ def turn_times(reps: int) -> dict:
     grid_out = torch.empty_like(grid)
     runs["E-uni"] = lambda: sk.temporal_steps_uni(grid, grid_out, 8, False,
                                                   **kw2)
+    runs["E"] = lambda: sk.temporal_steps(grid, grid_out, 8, False, **kw2)
     g_mesh = HeatMesh(G_MESH, dev)
     g_bs = g_mesh.block_shape(G_GRID)
     g_plate = HeatPlate2D(*G_GRID)
@@ -976,6 +1046,9 @@ def turn_times(reps: int) -> dict:
               "heat_a_resident_kernel"),
         "M": (lambda: batched.ensemble_steps(stack, stack_out, 400, False,
                                              **kw2), "heat_m_ensemble_kernel")}
+    if only:
+        runs = {n: f for n, f in runs.items() if n in only}
+        by_device = {n: f for n, f in by_device.items() if n in only}
     times = {name: [] for name in list(runs) + list(by_device)}
     for _ in range(3):
         for name, fn in runs.items():
@@ -989,10 +1062,11 @@ def turn_times(reps: int) -> dict:
                           skb3.pick_block_temporal_3d(bs, 3))}}
 
 
-def turns(other: str, reps: int):
+def turns(other: str, reps: int, only=None):
     """:func:`turn_times` in the tree at ``other`` and in this one, in
-    turns (other, this, this, other), each in its own process; yields one
-    dict per kernel with the four runs' mean times."""
+    turns (other, this, this, other), each in its own process (of the
+    kernels named in ``only``, or all); yields one dict per kernel with
+    the four runs' mean times."""
     this = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     trees = [os.path.abspath(other), this, this, os.path.abspath(other)]
     runs = []
@@ -1001,8 +1075,8 @@ def turns(other: str, reps: int):
                    + os.environ.get("PYTHONPATH", ""))
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn-of",
-             str(reps)], cwd=tree, env=env, capture_output=True, text=True,
-            timeout=1800)
+             str(reps)] + (["--turns-only", ",".join(only)] if only else []),
+            cwd=tree, env=env, capture_output=True, text=True, timeout=1800)
         if proc.returncode != 0:
             raise RuntimeError(f"turn in {tree} failed:\n{proc.stderr}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
@@ -1035,8 +1109,16 @@ def main(argv=None) -> int:
     ap.add_argument("--turns", default=None, metavar="TREE",
                     help="time the default paths' kernels in TREE (another "
                          "checkout's root) and in this tree, in turns")
+    ap.add_argument("--turns-only", default=None, metavar="NAMES",
+                    help="with --turns: only these kernels (comma-separated "
+                         "names of the turn table: F, F cp.async, D, "
+                         "H-fused, H, E-uni, E, G-uni bulk, A, M)")
     ap.add_argument("--turn-of", default=None, type=int,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--sass-same", default=None, metavar="TREE",
+                    help="build the tile loop's kernels (and A's probe) in "
+                         "TREE too and compare their machine code with this "
+                         "tree's, function by function")
     ap.add_argument("--sass-of", default=None, metavar="LIB",
                     help="with --sass: read only this library (another "
                          "tree's build, lib<kernel>-<digest>.so) instead")
@@ -1044,12 +1126,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
         return 2
+    turns_only = args.turns_only and args.turns_only.split(",")
     if args.turn_of:
-        print(json.dumps(turn_times(args.turn_of)), flush=True)
+        print(json.dumps(turn_times(args.turn_of, turns_only)), flush=True)
         return 0
     print(card_line(), flush=True)
     if args.turns:
-        for row in turns(args.turns, args.reps * 2):
+        for row in turns(args.turns, args.reps * 2, turns_only):
+            print(json.dumps(row), flush=True)
+    if args.sass_same:
+        for row in sass_same(args.sass_same):
             print(json.dumps(row), flush=True)
     if args.sass:
         dump_sass(args.sass, args.sass_of and {

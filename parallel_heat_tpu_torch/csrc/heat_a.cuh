@@ -196,7 +196,8 @@ __device__ __forceinline__ void heat_a_steps(float* src, float* dst,
                                              float a0, float cx, float cy,
                                              uint32_t& rmax,
                                              Exchange exchange) {
-  constexpr bool kCopy = kProbe == kHeatACopyStep;
+  constexpr int kVar =
+      kProbe == kHeatACopyStep ? kHeatLoopCopyStep : kHeatLoopFull;
   // The grid's interior in tile coordinates, this warp's run of rows,
   // and whether the framed tile reaches past the interior (uniform
   // across the block), as heat_tile_steps works them out.
@@ -219,13 +220,13 @@ __device__ __forceinline__ void heat_a_steps(float* src, float* dst,
     for (int s = 1; s <= j; ++s) {
       const int e = t.d - (j - s);
       if (done + s == k) {
-        heat_rows_any<true, kCopy>(
+        heat_rows_any<true, kVar>(
             edge, src, nullptr, out, t.sx, t.pad, base, n, vec_out,
             max(t_r0, t.d), min(t_r1, t.d + t.h), (t.pad + t.d) / 4,
             (t.pad + t.d + t.w + 3) / 4, t.d + t.w, r_lo, r_hi, c_lo, c_hi,
             a0, cx, cy, rmax);
       } else {
-        heat_rows_any<false, kCopy>(
+        heat_rows_any<false, kVar>(
             edge, src, dst, nullptr, t.sx, t.pad, 0, 0, false, max(t_r0, e),
             min(t_r1, t.sh - e), (t.pad + e) / 4,
             (t.pad + t.sw - e + 3) / 4, 0, r_lo, r_hi, c_lo, c_hi, a0, cx,

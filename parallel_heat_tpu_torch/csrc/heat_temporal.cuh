@@ -110,6 +110,30 @@ inline int heat_loop_occupancy(Kernel kernel, int k, int tile_y, int tile_x,
       blocks, kernel, block_x * block_y, smem));
 }
 
+// The tile loop's compile-time variants. Every kernel of the solver runs
+// kHeatLoopFull. The others belong to the measurement probes
+// (parallel_heat_tpu_torch/tools/): each cuts one cost out of the loop, or
+// pins the Dirichlet ring another way, so that a launch's time splits by
+// difference. Kernel A's anatomy probe (heat_a.cuh) takes kHeatLoopCopyStep;
+// E-uni's anatomy (heat_probe_temporal.cu) the first six; E-uni's boundary
+// A/B (heat_probe_ab_temporal.cu) full, kHeatLoopVCoeff and
+// kHeatLoopRowCopy; the issue-rate roofline (heat_probe_vpu_roofline.cu)
+// full, kHeatLoopNoShuffle and kHeatLoopNoRowLoad. Only kHeatLoopFull is
+// the solver's function; kHeatLoopRowCopy is the same function on finite
+// grids whose ring holds no -0.0 (its ring columns are pinned by a
+// coefficient 1 and two coefficients 0, and -0.0 + 0 is +0.0).
+constexpr int kHeatLoopFull = 0;
+constexpr int kHeatLoopNoResidual = 1;  // the last step folds no residual
+constexpr int kHeatLoopNoEdge = 2;      // every tile stepped as an interior one
+constexpr int kHeatLoopCopyStep = 3;    // a copy in the combine's place
+constexpr int kHeatLoopNoLoad = 4;      // (the kernel's) no load, no wait
+constexpr int kHeatLoopNoStore = 5;     // the last step stores nothing
+constexpr int kHeatLoopVCoeff = 6;      // the ring pinned by coefficients
+constexpr int kHeatLoopRowCopy = 7;     // ring columns by coefficients, ring
+                                        // rows restored by copy
+constexpr int kHeatLoopNoShuffle = 8;   // left and right taken as the cell
+constexpr int kHeatLoopNoRowLoad = 9;   // up and down taken as the cell too
+
 // One step of this warp's rows [r0, r1) over the 4-column groups
 // [g0, g1) of the shared tile: group g holds shared floats [4g, 4g+4) of
 // each row, tile columns [4g - pad, 4g - pad + 4). src and dst are
@@ -123,16 +147,27 @@ inline int heat_loop_occupancy(Kernel kernel, int k, int tile_y, int tile_x,
 // the residual's bit pattern of exactly those cells into rmax. With
 // kEdge the tile reaches past the grid's interior, rows [r_lo, r_hi] and
 // columns [c_lo, c_hi] in tile coordinates, and the cells outside it are
-// copied; without it every cell is updated and nothing is tested. kCopy
-// (kernel A's anatomy probe only, heat_a.cuh) puts a copy in the
-// combine's place.
-template <bool kLast, bool kEdge, bool kCopy = false>
+// copied; without it every cell is updated and nothing is tested. kVar is
+// the loop's variant (kHeatLoopFull but in the probes). With
+// kHeatLoopVCoeff an edge tile takes per-lane coefficient vectors (a0 -> 1,
+// cx and cy -> 0 on columns outside the interior) and, on rows outside it,
+// the coefficients (1, 0, 0), one uniform branch a row and no test a cell;
+// with kHeatLoopRowCopy the same vectors on every row, the ring rows being
+// restored after the step (heat_tile_steps) and, in the last step, copied
+// by a test a row.
+template <bool kLast, bool kEdge, int kVar = kHeatLoopFull>
 __device__ __forceinline__ void heat_rows(
     const float* __restrict__ src, float* __restrict__ dst,
     float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
     bool vec_out, int r0, int r1, int g0, int g1, int c_end, int r_lo,
     int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
     uint32_t& rmax) {
+  constexpr bool kCopy = kVar == kHeatLoopCopyStep;
+  constexpr bool kFold = kLast && kVar != kHeatLoopNoResidual;
+  constexpr bool kStore = kLast && kVar != kHeatLoopNoStore;
+  constexpr bool kCoeff =
+      kEdge && (kVar == kHeatLoopVCoeff || kVar == kHeatLoopRowCopy);
+  constexpr bool kSelect = kEdge && !kCoeff;
   if (r0 >= r1) return;  // uniform across the warp
   const int lane = static_cast<int>(threadIdx.x);
   const int sx4 = sx >> 2;
@@ -156,6 +191,16 @@ __device__ __forceinline__ void heat_rows(
       ci2 = c + 2 >= c_lo && c + 2 <= c_hi;
       ci3 = c + 3 >= c_lo && c + 3 <= c_hi;
     }
+    // kCoeff: the columns' coefficients, (1, 0, 0) outside the interior.
+    float4 ka, kx, ky;
+    if constexpr (kCoeff) {
+      ka = make_float4(ci0 ? a0 : 1.f, ci1 ? a0 : 1.f, ci2 ? a0 : 1.f,
+                       ci3 ? a0 : 1.f);
+      kx = make_float4(ci0 ? cx : 0.f, ci1 ? cx : 0.f, ci2 ? cx : 0.f,
+                       ci3 ? cx : 0.f);
+      ky = make_float4(ci0 ? cy : 0.f, ci1 ? cy : 0.f, ci2 ? cy : 0.f,
+                       ci3 ? cy : 0.f);
+    }
     bool st0 = false, st1 = false, st2 = false, st3 = false;
     if (kLast) {
       st0 = active && c < c_end;
@@ -175,35 +220,73 @@ __device__ __forceinline__ void heat_rows(
     // so that the read stays inside the rows (r1 < rows), and the last
     // row runs on its own.
     auto row = [&](int r) {
-      const float e = *pe;
-      float lf = __shfl_up_sync(kHeatFullWarp, cc.w, 1);
-      float rt = __shfl_down_sync(kHeatFullWarp, cc.x, 1);
-      if (lane == 0) lf = e;
-      if (lane == kHeatLanes - 1) rt = e;
       float4 v;
-      if constexpr (kCopy) {
-        v = cc;
+      if constexpr (kVar == kHeatLoopNoShuffle ||
+                    kVar == kHeatLoopNoRowLoad) {
+        const float4 u4 = kVar == kHeatLoopNoRowLoad ? cc : up;
+        const float4 d4 = kVar == kHeatLoopNoRowLoad ? cc : dn;
+        v.x = heat_combine(cc.x, u4.x, d4.x, cc.x, cc.x, a0, cx, cy);
+        v.y = heat_combine(cc.y, u4.y, d4.y, cc.y, cc.y, a0, cx, cy);
+        v.z = heat_combine(cc.z, u4.z, d4.z, cc.z, cc.z, a0, cx, cy);
+        v.w = heat_combine(cc.w, u4.w, d4.w, cc.w, cc.w, a0, cx, cy);
       } else {
-        v.x = heat_combine(cc.x, up.x, dn.x, lf, cc.y, a0, cx, cy);
-        v.y = heat_combine(cc.y, up.y, dn.y, cc.x, cc.z, a0, cx, cy);
-        v.z = heat_combine(cc.z, up.z, dn.z, cc.y, cc.w, a0, cx, cy);
-        v.w = heat_combine(cc.w, up.w, dn.w, cc.z, rt, a0, cx, cy);
+        const float e = *pe;
+        float lf = __shfl_up_sync(kHeatFullWarp, cc.w, 1);
+        float rt = __shfl_down_sync(kHeatFullWarp, cc.x, 1);
+        if (lane == 0) lf = e;
+        if (lane == kHeatLanes - 1) rt = e;
+        if constexpr (kCopy) {
+          v = cc;
+        } else if constexpr (kCoeff) {
+          // Rows outside the interior take (1, 0, 0): one branch, uniform
+          // across the warp, for kHeatLoopVCoeff; kHeatLoopRowCopy takes
+          // the columns' coefficients on every row.
+          float4 ra = ka, rx = kx, ry = ky;
+          if (kVar == kHeatLoopVCoeff && !(r >= r_lo && r <= r_hi)) {
+            ra = make_float4(1.f, 1.f, 1.f, 1.f);
+            rx = make_float4(0.f, 0.f, 0.f, 0.f);
+            ry = rx;
+          }
+          v.x = heat_combine(cc.x, up.x, dn.x, lf, cc.y, ra.x, rx.x, ry.x);
+          v.y = heat_combine(cc.y, up.y, dn.y, cc.x, cc.z, ra.y, rx.y, ry.y);
+          v.z = heat_combine(cc.z, up.z, dn.z, cc.y, cc.w, ra.z, rx.z, ry.z);
+          v.w = heat_combine(cc.w, up.w, dn.w, cc.z, rt, ra.w, rx.w, ry.w);
+        } else {
+          v.x = heat_combine(cc.x, up.x, dn.x, lf, cc.y, a0, cx, cy);
+          v.y = heat_combine(cc.y, up.y, dn.y, cc.x, cc.z, a0, cx, cy);
+          v.z = heat_combine(cc.z, up.z, dn.z, cc.y, cc.w, a0, cx, cy);
+          v.w = heat_combine(cc.w, up.w, dn.w, cc.z, rt, a0, cx, cy);
+        }
       }
       const bool rin = !kEdge || (r >= r_lo && r <= r_hi);
-      const bool in0 = rin && ci0, in1 = rin && ci1, in2 = rin && ci2,
-                 in3 = rin && ci3;
-      if (kEdge) {
+      bool in0, in1, in2, in3;
+      if constexpr (kCoeff) {
+        // No test a cell: vcoeff folds every cell (a pinned cell's
+        // difference is 0), rowcopy the interior rows'.
+        const bool fold = kVar == kHeatLoopVCoeff || rin;
+        in0 = in1 = in2 = in3 = fold;
+        if (kVar == kHeatLoopRowCopy && kLast && !rin) v = cc;
+      } else {
+        in0 = rin && ci0;
+        in1 = rin && ci1;
+        in2 = rin && ci2;
+        in3 = rin && ci3;
+      }
+      if (kSelect) {
         v.x = in0 ? v.x : cc.x;
         v.y = in1 ? v.y : cc.y;
         v.z = in2 ? v.z : cc.z;
         v.w = in3 ? v.w : cc.w;
       }
       if (kLast) {
-        if (st0 && in0) rmax = max(rmax, heat_diff_bits(v.x, cc.x));
-        if (st1 && in1) rmax = max(rmax, heat_diff_bits(v.y, cc.y));
-        if (st2 && in2) rmax = max(rmax, heat_diff_bits(v.z, cc.z));
-        if (st3 && in3) rmax = max(rmax, heat_diff_bits(v.w, cc.w));
-        if (vec_out && st3) {
+        if (kFold) {
+          if (st0 && in0) rmax = max(rmax, heat_diff_bits(v.x, cc.x));
+          if (st1 && in1) rmax = max(rmax, heat_diff_bits(v.y, cc.y));
+          if (st2 && in2) rmax = max(rmax, heat_diff_bits(v.z, cc.z));
+          if (st3 && in3) rmax = max(rmax, heat_diff_bits(v.w, cc.w));
+        }
+        if (!kStore) {
+        } else if (vec_out && st3) {
           *reinterpret_cast<float4*>(q) = v;
         } else {
           if (st0) q[0] = v.x;
@@ -232,7 +315,7 @@ __device__ __forceinline__ void heat_rows(
 }
 
 // heat_rows with kEdge chosen at run time (uniform per block).
-template <bool kLast, bool kCopy = false>
+template <bool kLast, int kVar = kHeatLoopFull>
 __device__ __forceinline__ void heat_rows_any(
     bool edge, const float* __restrict__ src, float* __restrict__ dst,
     float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
@@ -240,13 +323,28 @@ __device__ __forceinline__ void heat_rows_any(
     int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
     uint32_t& rmax) {
   if (edge)
-    heat_rows<kLast, true, kCopy>(src, dst, out, sx, pad, base, ld, vec_out,
+    heat_rows<kLast, true, kVar>(src, dst, out, sx, pad, base, ld, vec_out,
+                                 r0, r1, g0, g1, c_end, r_lo, r_hi, c_lo,
+                                 c_hi, a0, cx, cy, rmax);
+  else
+    heat_rows<kLast, false, kVar>(src, dst, out, sx, pad, base, ld, vec_out,
                                   r0, r1, g0, g1, c_end, r_lo, r_hi, c_lo,
                                   c_hi, a0, cx, cy, rmax);
-  else
-    heat_rows<kLast, false, kCopy>(src, dst, out, sx, pad, base, ld, vec_out,
-                                   r0, r1, g0, g1, c_end, r_lo, r_hi, c_lo,
-                                   c_hi, a0, cx, cy, rmax);
+}
+
+// kHeatLoopRowCopy: tile row r of dst, if it lies in this warp's rows
+// [r0, r1), restored from src over the groups [g0, g1) after a step, by
+// the lanes that stored those groups (so no barrier orders the two
+// stores). src holds the row as loaded: the step before restored it.
+__device__ __forceinline__ void heat_restore_row(const float* src,
+                                                 float* dst, int sx, int r,
+                                                 int r0, int r1, int g0,
+                                                 int g1) {
+  if (r < r0 || r >= r1) return;  // uniform across the warp
+  const float4* s = reinterpret_cast<const float4*>(src + r * sx);
+  float4* d = reinterpret_cast<float4*>(dst + r * sx);
+  for (int g = g0 + static_cast<int>(threadIdx.x); g < g1; g += kHeatLanes)
+    d[g] = s[g];
 }
 
 // The wait of a load issued with cp.async and committed: each thread's
@@ -267,7 +365,8 @@ struct HeatCpAsyncWait {
 // writes the last step's tile rows [w_r0, w_r1) and columns [k, w_c1) to
 // out[base + r * ld + c]; with `res` non-null it reduces the residual of
 // exactly those cells into *res. Every thread of the block must call it.
-template <class Wait>
+// kVar is the loop's variant (heat_rows; kHeatLoopFull but in the probes).
+template <int kVar = kHeatLoopFull, class Wait>
 __device__ __forceinline__ void heat_tile_steps(
     float* src, float* dst, int sx, int pad, int sy, int sw, int64_t gy0,
     int64_t gx0, int64_t m, int64_t n, int k, int w_r0, int w_r1, int w_c1,
@@ -284,7 +383,13 @@ __device__ __forceinline__ void heat_tile_steps(
   const int t_r0 = threadIdx.y * run;
   const int t_r1 = min(t_r0 + run, sy);
   // Does the tile reach past the interior? Uniform across the block.
-  const bool edge = r_lo > 0 || r_hi < sy - 1 || c_lo > 0 || c_hi < sw - 1;
+  // kHeatLoopNoEdge answers no for every tile, by a test that is false at
+  // run time (n >= 3), so that its interior path compiles as the shipped
+  // loop's does.
+  const bool edge = kVar == kHeatLoopNoEdge
+                        ? n < 0
+                        : r_lo > 0 || r_hi < sy - 1 || c_lo > 0 ||
+                              c_hi < sw - 1;
   // Can the last step store a group as one 16-byte write? Uniform too.
   const bool vec_out =
       ld % 4 == 0 && (reinterpret_cast<uint64_t>(out) +
@@ -294,10 +399,17 @@ __device__ __forceinline__ void heat_tile_steps(
   uint32_t rmax = 0u;
   // Steps 1 .. K-1 over the whole groups that cover the valid region.
   for (int s = 1; s < k; ++s) {
-    heat_rows_any<false>(edge, src, dst, nullptr, sx, pad, 0, 0, false,
-                         max(t_r0, s), min(t_r1, sy - s), (pad + s) / 4,
-                         (pad + sw - s + 3) / 4, 0, r_lo, r_hi, c_lo, c_hi,
-                         a0, cx, cy, rmax);
+    const int r0 = max(t_r0, s), r1 = min(t_r1, sy - s);
+    const int g0 = (pad + s) / 4, g1 = (pad + sw - s + 3) / 4;
+    heat_rows_any<false, kVar>(edge, src, dst, nullptr, sx, pad, 0, 0, false,
+                               r0, r1, g0, g1, 0, r_lo, r_hi, c_lo, c_hi, a0,
+                               cx, cy, rmax);
+    if (kVar == kHeatLoopRowCopy && edge) {
+      // The grid's ring rows, where the tile holds them.
+      if (r_lo > 0) heat_restore_row(src, dst, sx, r_lo - 1, r0, r1, g0, g1);
+      if (r_hi < sy - 1)
+        heat_restore_row(src, dst, sx, r_hi + 1, r0, r1, g0, g1);
+    }
     __syncthreads();
     float* t = src;
     src = dst;
@@ -306,11 +418,12 @@ __device__ __forceinline__ void heat_tile_steps(
 
   // Step K: the rows and columns asked for, written to global memory,
   // with the residual.
-  heat_rows_any<true>(edge, src, nullptr, out, sx, pad, base, ld, vec_out,
-                      max(t_r0, w_r0), min(t_r1, w_r1), (pad + k) / 4,
-                      (pad + w_c1 + 3) / 4, w_c1, r_lo, r_hi, c_lo, c_hi, a0,
-                      cx, cy, rmax);
-  if (res != nullptr) heat_block_max(rmax, res);
+  heat_rows_any<true, kVar>(edge, src, nullptr, out, sx, pad, base, ld,
+                            vec_out, max(t_r0, w_r0), min(t_r1, w_r1),
+                            (pad + k) / 4, (pad + w_c1 + 3) / 4, w_c1, r_lo,
+                            r_hi, c_lo, c_hi, a0, cx, cy, rmax);
+  if (kVar != kHeatLoopNoResidual && res != nullptr)
+    heat_block_max(rmax, res);
 }
 
 // --- Kernels E and E-uni ------------------------------------------------
@@ -320,7 +433,7 @@ __device__ __forceinline__ void heat_tile_steps(
 // global cell (gy0, gx0) = (row tile * TY - K, column tile * TX - K); the
 // central TY x TX tile, cut at the grid's edge, lands in `out`, an m x n
 // grid like the input.
-template <class Wait>
+template <int kVar = kHeatLoopFull, class Wait>
 __device__ __forceinline__ void heat_e_steps(
     float* src, float* dst, int sx, int pad, int sy, int sw, int64_t gy0,
     int64_t gx0, int64_t m, int64_t n, int k, int tile_y, int tile_x,
@@ -328,8 +441,9 @@ __device__ __forceinline__ void heat_e_steps(
     Wait wait_load) {
   const int r_end = heat_clamp_local(m - gy0, 0, k + tile_y);
   const int c_end = heat_clamp_local(n - gx0, 0, k + tile_x);
-  heat_tile_steps(src, dst, sx, pad, sy, sw, gy0, gx0, m, n, k, k, r_end,
-                  c_end, a0, cx, cy, out, gy0 * n + gx0, n, res, wait_load);
+  heat_tile_steps<kVar>(src, dst, sx, pad, sy, sw, gy0, gx0, m, n, k, k,
+                        r_end, c_end, a0, cx, cy, out, gy0 * n + gx0, n, res,
+                        wait_load);
 }
 
 // The checks of an E or E-uni launch: the grid, K, the launch shape the

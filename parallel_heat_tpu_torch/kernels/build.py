@@ -117,10 +117,20 @@ TOOLS = {
     # variant, then heat_a_resident's arguments
     "heat_probe_kernel": ("heat_probe_kernel.cu",
                           [_I32] + KERNELS["heat_a_resident"][1]),
+    # kind, chain depth, stack, out, (members, rows, cols), passes,
+    # thread block, then a, b, a0, cx, cy and the stream
+    "heat_probe_vpu_roofline": ("heat_probe_vpu_roofline.cu",
+                                [_I32, _I32, _P, _P] + [_I32] * 6
+                                + [_F32] * 5 + [_P]),
+    # variant, then heat_e_uni_temporal's arguments
+    "heat_probe_temporal": ("heat_probe_temporal.cu",
+                            [_I32] + KERNELS["heat_e_uni_temporal"][1]),
+    "heat_probe_ab_temporal": ("heat_probe_ab_temporal.cu",
+                               [_I32] + KERNELS["heat_e_uni_temporal"][1]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
-           "heat_a.cuh")
+           "heat_a.cuh", "heat_e_uni.cuh")
 
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.

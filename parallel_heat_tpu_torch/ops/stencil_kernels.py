@@ -270,11 +270,13 @@ def _launch_c(u, out, bits, cx, cy, tile, block) -> None:
 
 
 def _launch_e(u, out, k, bits, cx, cy, tile, block,
-              name="heat_e_temporal") -> None:
+              name="heat_e_temporal", variant=None) -> None:
     """One launch of ``heat_e_temporal`` (or, by ``name``, of
-    ``heat_e_uni_temporal``, which takes the same arguments) at the given
-    tile and thread block (``bits`` None: no residual); raises if the
-    launch is refused. Checks only the launch shape
+    ``heat_e_uni_temporal``, which takes the same arguments, or of a
+    probe's variant of E-uni's launch, ``heat_probe_temporal`` or
+    ``heat_probe_ab_temporal``, which take the ``variant`` code first) at
+    the given tile and thread block (``bits`` None: no residual); raises
+    if the launch is refused. Checks only the launch shape
     (:meth:`~.hopper_params.HopperParams.loop_takes`, the launchers' own
     rule) and E-uni's TMA box; counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
@@ -286,15 +288,16 @@ def _launch_e(u, out, k, bits, cx, cy, tile, block,
                          f"{tuple(block)} (32 lanes by 1 to "
                          f"{p.loop_max_warps} warps, a tile width that is "
                          f"a multiple of 4)")
-    if name == "heat_e_uni_temporal" and not p.e_box_fits(k, tuple(tile)):
+    if name != "heat_e_temporal" and not p.e_box_fits(k, tuple(tile)):
         raise ValueError(f"{name}: the TMA box of a {tuple(tile)} tile at "
                          f"K={k}, {p.e_box(k, tile=tuple(tile))[2:]} cells, "
                          f"exceeds 256 cells a dimension")
     lib = load(name)
+    lead = () if variant is None else (variant,)
     code = getattr(lib, name)(
-        u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0], u.shape[1],
-        k, tile[0], tile[1], block[0], block[1], *coeffs_f32(cx, cy),
-        _stream(u))
+        *lead, u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0],
+        u.shape[1], k, tile[0], tile[1], block[0], block[1],
+        *coeffs_f32(cx, cy), _stream(u))
     _raise_on_error(lib, name, code)
 
 
@@ -419,19 +422,28 @@ def tiled_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
     return _residual_view(bits)
 
 
-def _temporal(name, plain, u, out, k, with_residual, cx, cy):
+def _e_checked(name, u, out, k) -> None:
+    """The checks of a launch of E or E-uni (or of a probe's variant of
+    E-uni's launch, ``name`` not ``"heat_e_temporal"``) on ``u`` into
+    ``out`` at depth ``k``."""
     _check(u, out)
     p = params()
     if not 1 <= k <= p.e_k_max():
         raise ValueError(f"k must be in [1, {p.e_k_max()}] (shared-memory "
                          f"budget at tile {p.e_tile}), got {k}")
-    if name == "heat_e_uni_temporal" and not p.uni_fits(tuple(u.shape)):
+    uni = name != "heat_e_temporal"
+    if uni and not p.uni_fits(tuple(u.shape)):
         raise ValueError(f"kernel E-uni needs a grid width that is a "
                          f"multiple of 4, got {tuple(u.shape)}")
+    if uni and u.device.type == "cuda" and u.data_ptr() % 16:
+        raise ValueError("kernel E-uni needs a 16-byte aligned grid")
+
+
+def _temporal(name, plain, u, out, k, with_residual, cx, cy):
+    _e_checked(name, u, out, k)
     if u.device.type == "cpu":
         return plain(u, out, k, with_residual, cx=cx, cy=cy)
-    if name == "heat_e_uni_temporal" and u.data_ptr() % 16:
-        raise ValueError("kernel E-uni needs a 16-byte aligned grid")
+    p = params()
     bits = (torch.empty(1, dtype=torch.int32, device=u.device)
             if with_residual else None)
     _launch_e(u, out, k, bits, cx, cy, p.e_tile, p.e_block, name)

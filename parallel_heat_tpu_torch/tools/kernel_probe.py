@@ -35,14 +35,13 @@ import json
 import sys
 from typing import Optional
 
-import numpy as np
 import torch
 
 from parallel_heat_tpu_torch.bench_kernels import card_line, device_ms
-from parallel_heat_tpu_torch.bench_kernels import time_ms as events_ms
 from parallel_heat_tpu_torch.models import HeatPlate2D
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 from parallel_heat_tpu_torch.ops.stencil import coeffs_f32
+from parallel_heat_tpu_torch.tools.probing import fit, slope_row, time_row
 
 VARIANTS = ("full", "no_barrier", "no_exchange", "copy_step", "no_edge")
 CX = CY = 0.1
@@ -83,13 +82,6 @@ def probe_steps(variant: str, u: torch.Tensor, out: torch.Tensor, k: int,
     return sk._residual_view(bits) if bits is not None else None
 
 
-def _fit(ks, ms):
-    """``(us a step, us fixed)``: the least-squares line through
-    ``(k, ms)``."""
-    step, fixed = np.polyfit(np.asarray(ks, float), np.asarray(ms, float), 1)
-    return float(step) * 1e3, float(fixed) * 1e3
-
-
 def anatomy(size: int = 1000, ks=(20, 2000), ladder=(1, 2, 4, 8, 20),
             made: int = 40):
     """Yield the probe's JSON rows (see the module's docstring) on the
@@ -113,18 +105,12 @@ def anatomy(size: int = 1000, ks=(20, 2000), ladder=(1, 2, 4, 8, 20),
     for i, variant in enumerate(VARIANTS):
         row = {"probe": variant, **shape, "device_ms": {}, "events_ms": {},
                "card": card}
-        for k in ks:
-            def run(k=k):
-                probe_steps(variant, u, v, k, True, **kw)
 
-            row["device_ms"][f"k{k}"] = device_ms(
-                run, f"heat_a_resident_kernel<{i}>", made)
-            row["events_ms"][f"k{k}"] = events_ms(run, made)
-        for key in ("device_ms", "events_ms"):
-            t = row[key]
-            step = (t[f"k{hi}"] - t[f"k{lo}"]) / (hi - lo)
-            row[key.replace("ms", "us")] = {
-                "step": step * 1e3, "fixed": (t[f"k{lo}"] - lo * step) * 1e3}
+        def run(k, variant=variant):
+            probe_steps(variant, u, v, k, True, **kw)
+
+        time_row(row, run, ks, f"heat_a_resident_kernel<{i}>", made)
+        slope_row(row, ks)
         per[variant] = row["device_us"]
         yield row
     times = []
@@ -133,7 +119,7 @@ def anatomy(size: int = 1000, ks=(20, 2000), ladder=(1, 2, 4, 8, 20),
             sk.resident_steps(u, v, k, True, **kw)
 
         times.append(device_ms(run, "heat_a_resident_kernel<0>", made))
-    step, fixed = _fit(ladder, times)
+    step, fixed = fit(ladder, times)
     yield {"ladder": "heat_a_resident", **shape,
            "device_ms": {f"k{k}": t for k, t in zip(ladder, times)},
            "step_us": step, "fixed_us": fixed, "card": card}

@@ -23,7 +23,9 @@ def _sources():
     names = {f.name for f in files}
     assert {"batched.py", "multigrid.py", "engine.py", "mesh.py", "halo.py",
             "temporal.py", "stencil_kernels_block.py", "halo3d.py",
-            "temporal3d.py", "stencil_kernels_block_3d.py"} <= names
+            "temporal3d.py", "stencil_kernels_block_3d.py",
+            "kernel_probe.py", "vpu_roofline.py", "probe_temporal.py",
+            "ab_temporal.py", "probing.py"} <= names
     return files
 
 
@@ -83,6 +85,16 @@ from parallel_heat_tpu_torch.parallel import halo3d, temporal3d
 cfg3 = pt.HeatConfig(nx=12, ny=12, nz=12, steps=7, backend="cuda")
 shard3 = pt.solve(cfg3.replace(mesh_shape=(2, 2, 2)), device="cpu")
 assert torch.equal(shard3.grid, pt.solve(cfg3, device="cpu").grid)
+# The measurement probes (tools/), each through a function it computes.
+from parallel_heat_tpu_torch.tools import (ab_temporal, kernel_probe,
+                                           probe_temporal, vpu_roofline)
+g = torch.rand(20, 24)
+assert torch.equal(probe_temporal.probe_steps("full", g, torch.empty_like(g),
+                                              4, cx=0.1, cy=0.1),
+                   ab_temporal.ab_steps("rowcopy", g, torch.empty_like(g), 4,
+                                        cx=0.1, cy=0.1))
+st = torch.rand(2, 20, 32)
+vpu_roofline.sweep("stencil", st, torch.empty_like(st), 3)
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m, v in sys.modules.items() if v is not None)
 print("ok", float(res.grid.sum()))

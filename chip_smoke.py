@@ -20,9 +20,11 @@ prints the card's name and power limit, then one JSON line per phase:
    are printed; a second run from the cached build reads nvcc's report
    kept beside each library), nor may any instance of A, M or A's
    anatomy probe (``heat_probe_kernel``, also built here), whose
-   registers and spills are printed, nor any of the other three probes'
+   registers and spills are printed, nor any of the other seven probes'
    (``heat_probe_vpu_roofline``, ``heat_probe_temporal``,
-   ``heat_probe_ab_temporal``, built here too);
+   ``heat_probe_ab_temporal``, ``heat_probe_split_copy``,
+   ``heat_probe_gather_dma``, ``heat_probe_sweep_width``,
+   ``heat_probe_store_align``, built here too);
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -277,12 +279,33 @@ prints the card's name and power limit, then one JSON line per phase:
    ``rowcopy`` bitwise ``temporal_steps_uni_plain`` at every compiled K
    on 1001 x 1000 and 20 x 24, then, after the same check on each plate,
    the three forms in turns (three batches) at 16384^2, 8192^2 and
-   1024^2, K = 8.
+   1024^2, K = 8;
+26. probe_split_copy — E-uni's load split (``tools/probe_split_copy.py``,
+   ``heat_probe_split_copy``): every load form bitwise
+   ``temporal_steps_uni_plain`` (no residual) at every compiled K that
+   its geometry allows (K = 5 .. 8 but ``whole`` and ``branchy``, 1 .. 8)
+   on 1001 x 1000 and 20 x 24 and at 16384^2, K = 8, then the eight forms
+   in turns (three batches) at 16384^2 and 4096^2, K = 8;
+27. probe_gather_dma — loads alone (``tools/probe_gather_dma.py``,
+   ``heat_probe_gather_dma``): every form's element and each block's last
+   window bitwise its plain version on 1001 x 1000 and 4096^2 (tail 128),
+   then each form's device time and landed GB/s at 4096^2 and 16384^2;
+28. probe_sweep_width — the shared-memory sweep's width ladder
+   (``tools/probe_sweep_width.py``, ``heat_probe_sweep_width``): bitwise
+   its plain version on a 3-member stack at D = 1, 2 and 5 at every
+   width, and on the full stack (one member an SM) at the widest, then µs
+   a sweep by the slope over D = 64 and 1024 at each width;
+29. probe_store_align — the same sweep at band offsets 1, 8, 9, 16 and
+   row pitches 128 and 129 (``tools/probe_store_align.py``,
+   ``heat_probe_store_align``): the same checks (the full stack at pitch
+   129), then the slopes.
 
-Then a ``{"kernels": [...]}`` line (all twenty kernels, and the four
+Then a ``{"kernels": [...]}`` line (all twenty kernels, and the eight
 probes' kernels, each with its own run's launches: A's anatomy probe with
 A's plain version, bound and yardstick, the E-uni probes with E-uni's,
-the roofline with its stencil's at 64 passes) and, last, the
+the roofline with its stencil's at 64 passes, the gather probe with its
+dense TMA form at 16384^2 and no yardstick, the sweep probes with their
+own at D = 64) and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
 before the last line; without a CUDA device it exits 2 at once.
 """
@@ -385,11 +408,17 @@ KERNELS_H = {
 KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G,
            **KERNELS_H}
 # The measurement tools' kernels: kernel A's anatomy probe, the
-# issue-rate roofline, E-uni's anatomy and its boundary A/B.
+# issue-rate roofline, E-uni's anatomy, its boundary A/B and its load
+# split, loads alone, and the shared-memory sweep's widths and offsets.
 PROBES = {"heat_probe_kernel": (None, "tools/kernel_probe.py:27"),
           "heat_probe_vpu_roofline": (None, "tools/vpu_roofline.py:49"),
           "heat_probe_temporal": (None, "tools/probe_temporal.py:39"),
-          "heat_probe_ab_temporal": (None, "tools/ab_temporal.py:63")}
+          "heat_probe_ab_temporal": (None, "tools/ab_temporal.py:63"),
+          "heat_probe_split_copy": (None, "tools/probe_split_copy.py:50"),
+          "heat_probe_gather_dma": (None, "tools/probe_gather_dma.py:40"),
+          "heat_probe_sweep_width": (None, "tools/probe_sweep_width.py:40"),
+          "heat_probe_store_align": (None,
+                                     "tools/probe_store_align.py:36")}
 ROOF_PASSES = 64         # the roofline's kernels-line launch: 64 passes
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
@@ -2225,6 +2254,217 @@ def phase_probe_ab_temporal(dev):
             "device_ms": rows[0]["device_ms"]["prod"][0]}
 
 
+def phase_probe_split_copy(dev):
+    """E-uni's load split (``tools/probe_split_copy.py``,
+    ``heat_probe_split_copy``): every load form bitwise E-uni's plain
+    version (no residual) at every compiled K its geometry allows on grids
+    that run every tile kind, and at 16384^2, K = 8; then the forms in
+    turns at 16384^2 and 4096^2. Returns the probe's launches in that run,
+    ``whole``'s device ms at 16384^2 (its first batch) and the max
+    |diff|."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.tools import probe_split_copy as sc
+
+    t0 = time.perf_counter()
+    k_main = params().e_k_default
+    rng = np.random.default_rng(13)
+    err = 0.0
+    checked = {}
+    kinds = {}
+    plan = [((BIG, BIG), [k_main]),
+            ((1001, 1000), range(1, params().e_k_max() + 1)),
+            ((20, 24), range(1, params().e_k_max() + 1))]
+    kw = dict(cx=CX, cy=CY)
+    for shape, ks in plan:
+        u = torch.from_numpy(
+            (rng.standard_normal(shape) * 10).astype(np.float32)).to(dev)
+        want = torch.empty_like(u)
+        for k in ks:
+            for kind, count in params().e_tile_kinds(shape, k).items():
+                kinds[kind] = kinds.get(kind, 0) + count
+            sk.temporal_steps_uni_plain(u, want, k, False, **kw)
+            for form in sc.variants():
+                if sc.refusal(form, k) is not None:
+                    continue
+                got = torch.full_like(u, float("nan"))
+                sc.split_steps(form, u, got, k, **kw)
+                torch.cuda.synchronize()
+                diff = float((got - want).abs().max())
+                err = max(err, diff)
+                check(torch.equal(got, want),
+                      f"heat_probe_split_copy {form!r} (K={k}) at {shape} "
+                      f"!= E-uni's plain version: max diff {diff}")
+                checked[form] = checked.get(form, 0) + 1
+        del u, want
+        torch.cuda.empty_cache()
+    check(set(checked) == set(sc.variants()) and all(
+        n for kind, n in kinds.items() if kind != "partial_group"),
+          f"the split check ran {checked} on tile kinds {kinds}")
+    sc.counts["heat_probe_split_copy"] = 0
+    rows = list(sc.turns((BIG, 4096), k_main, batches=3, tries=1,
+                         device=dev))
+    launches = sc.counts["heat_probe_split_copy"]
+    check(launches > 0 and [r["size"] for r in rows] == [BIG, 4096]
+          and all(set(r["device_ms"]) == set(sc.variants()) for r in rows),
+          f"the split turns ran {launches} launches: {rows}")
+    emit({"phase": "probe_split_copy", "seconds": time.perf_counter() - t0,
+          "checked": checked, "launches": launches, "rows": rows})
+    return {"launches": launches, "max_abs_err": err,
+            "device_ms": rows[0]["device_ms"]["whole"][0]}
+
+
+def phase_probe_gather_dma(dev):
+    """Loads alone (``tools/probe_gather_dma.py``,
+    ``heat_probe_gather_dma``): every form's element and each block's last
+    window bitwise its plain version on 1001 x 1000 and 4096^2 (tail 128
+    floats), then each form's device time and landed GB/s at 4096^2 and
+    16384^2 (each array checked again first). Returns the probe's launches
+    in that run and the dense TMA form's numbers at 16384^2: device ms,
+    its plain version's ms, its bound (the grid's bytes that the windows
+    cover, each read once, over HBM's rate) and no yardstick: no PyTorch
+    call loads windows into shared memory."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.tools import probe_gather_dma as gd
+
+    t0 = time.perf_counter()
+    p = params()
+    k, (ty, tx) = p.e_k_default, p.e_tile
+    geo = dict(rows=ty, k=k, cols=p.row_floats(k, tx), stride=tx)
+    rng = np.random.default_rng(17)
+    checked = []
+    for shape in ((1001, 1000), (4096, 4096)):
+        u = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+        for form in gd.VARIANTS:
+            a, t, cols, stride = gd.arrays(form, u, gd.TAIL, **geo)
+            kw = dict(rows=ty, k=k, cols=cols, stride=stride)
+            got, win = gd.gather_dma(form, a, t, check=True, **kw)
+            want, wwin = gd.gather_dma_plain(form, a, t, check=True,
+                                             blocks=win.shape[0], **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(win, wwin),
+                  f"heat_probe_gather_dma {form!r} at {shape} loaded other "
+                  f"cells than its plain version's windows: "
+                  f"{int((win != wwin).sum())} differ")
+            checked.append([form, list(shape), int(win.shape[0])])
+        del u
+    torch.cuda.empty_cache()
+    gd.counts["heat_probe_gather_dma"] = 0
+    rows = list(gd.timings((4096, BIG), gd.TAIL, device=dev))
+    launches = gd.counts["heat_probe_gather_dma"]
+    check(launches > 0 and len(rows) == 2 * len(gd.VARIANTS),
+          f"the gather probe ran {launches} launches: {rows}")
+    emit({"phase": "probe_gather_dma", "seconds": time.perf_counter() - t0,
+          "checked": checked, "launches": launches, "rows": rows})
+    dense = next(r for r in rows if r["gather_dma"] == "dense"
+                 and r["size"] == BIG)
+    u = torch.empty((BIG, BIG), dtype=torch.float32, device=dev)
+    plain_ms = _time_ms(lambda: gd.gather_dma_plain("dense", u, **geo), 3)
+    del u
+    torch.cuda.empty_cache()
+    t_bytes = dense["read_bytes"] / p.hbm_bytes_per_s * 1e3
+    return {"launches": launches, "max_abs_err": 0.0,
+            "device_ms": dense["device_ms"]["x1"], "plain_ms": plain_ms,
+            "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None}
+
+
+def _sweep_phase(dev, name, module, run, plain, shapes, full, rows_fn,
+                 label):
+    """The sweep probes' phase: ``run(u, out, d, lo)`` bitwise
+    ``plain(u, out, d, lo)`` on a 3-member stack at D = 1, 2 and 5 for each
+    ``(w, lo)`` of ``shapes`` and on the full stack (one member an SM) at
+    ``full``; then the slopes (``rows_fn()``). Returns the probe's
+    launches in that run and its numbers at D = 64 on the full stack at
+    ``full``: device ms, plain ms, bound (the stack read and written once
+    through HBM; the sweeps' operations) and ``conv2d`` with circular
+    padding chained as often."""
+    import torch
+
+    t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(19)
+    checked = []
+    for (r, w, lo), members, depths in (
+            [(sh, 3, (1, 2, 5)) for sh in shapes] + [(full, sms, (4,))]):
+        u = torch.from_numpy(rng.standard_normal(
+            (members, r, w)).astype(np.float32)).to(dev)
+        for d in depths:
+            got = torch.full_like(u, float("nan"))
+            want = torch.empty_like(u)
+            run(u, got, d, lo)
+            plain(u, want, d, lo)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"{name} at {(members, r, w)}, lo = {lo}, D = {d} != its "
+                  f"plain version: {int((got != want).sum())} cells differ")
+            checked.append([members, r, w, lo, d])
+    module.counts[name] = 0
+    rows = list(rows_fn())
+    launches = module.counts[name]
+    check(launches > 0 and len(rows) > 0,
+          f"{name} ran {launches} launches: {rows}")
+    emit({"phase": label, "seconds": time.perf_counter() - t0,
+          "checked": checked, "launches": launches, "rows": rows})
+    r, w, lo = full
+    row = next(x for x in rows if x["width"] == w
+               and x.get("store_align", lo) == lo)
+    u = torch.from_numpy(rng.standard_normal((sms, r, w)).astype(
+        np.float32)).to(dev)
+    want = torch.empty_like(u)
+    plain_ms = _time_ms(lambda: plain(u, want, 64, lo), 1, 0)
+    cells = sms * 64 * w
+    return {"launches": launches, "max_abs_err": 0.0,
+            "device_ms": row["device_ms"]["d64"], "plain_ms": plain_ms,
+            "library_ms": row["conv2d_circular_us_per_sweep"] * 64 / 1e3,
+            **_bound(8 * u.numel(), OPS_PER_CELL_STEP * 64 * cells)}
+
+
+def phase_probe_sweep_width(dev):
+    """The shared-memory sweep's width ladder
+    (``tools/probe_sweep_width.py``, ``heat_probe_sweep_width``): bitwise
+    its plain version at every width, then the ladder; returns its
+    launches and numbers at the widest width (:func:`_sweep_phase`)."""
+    from parallel_heat_tpu_torch.tools import probe_sweep_width as psw
+
+    def run(u, out, d, lo):
+        psw.sweep(u, out, d, lo=lo)
+
+    def plain(u, out, d, lo):
+        psw.sweep_plain(u, out, d, lo=lo)
+
+    return _sweep_phase(
+        dev, "heat_probe_sweep_width", psw, run, plain,
+        [(psw.R, w, psw.LO) for w in psw.WIDTHS],
+        (psw.R, max(psw.WIDTHS), psw.LO),
+        lambda: psw.ladder(device=dev), "probe_sweep_width")
+
+
+def phase_probe_store_align(dev):
+    """The same sweep at the band offsets and two row pitches
+    (``tools/probe_store_align.py``, ``heat_probe_store_align``): bitwise
+    its plain version at each, then the slopes; returns its launches and
+    numbers at lo = 8 and the odd pitch (:func:`_sweep_phase`)."""
+    from parallel_heat_tpu_torch.tools import probe_store_align as psa
+    from parallel_heat_tpu_torch.tools import probe_sweep_width as psw
+
+    def run(u, out, d, lo):
+        psa.align_sweep(u, out, d, lo=lo)
+
+    def plain(u, out, d, lo):
+        psw.sweep_plain(u, out, d, lo=lo, rows=psa.ROWS)
+
+    return _sweep_phase(
+        dev, "heat_probe_store_align", psa, run, plain,
+        [(psa.R, w, lo) for w in psa.WIDTHS for lo in psa.OFFSETS],
+        (psa.R, psa.WIDTHS[1], 8),
+        lambda: psa.offsets(device=dev), "probe_store_align")
+
+
 # ---------------------------------------------------------------------------
 # The sharded 2D path (kernels G-uni, G-fuse, G-circ, G and the band fix)
 # ---------------------------------------------------------------------------
@@ -3403,20 +3643,29 @@ def main() -> int:
         roof = phase_probe_vpu_roofline(dev)
         anatomy = phase_probe_temporal(dev)
         boundary = phase_probe_ab_temporal(dev)
+        split = phase_probe_split_copy(dev)
+        gather = phase_probe_gather_dma(dev)
+        width = phase_probe_sweep_width(dev)
+        align = phase_probe_store_align(dev)
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
     # The probes' lines: each its own run's launches and time; A's probe
     # with A's plain version, bound and yardstick, the E-uni probes with
-    # E-uni's (the same function at the same shape), the roofline with
-    # its stencil's own.
+    # E-uni's (the same function at the same shape), the roofline, the
+    # gather probe and the sweep probes with their own.
     for name, run, like in (("heat_probe_kernel", probe, "heat_a_resident"),
                             ("heat_probe_temporal", anatomy,
                              "heat_e_uni_temporal"),
                             ("heat_probe_ab_temporal", boundary,
                              "heat_e_uni_temporal"),
-                            ("heat_probe_vpu_roofline", roof, None)):
+                            ("heat_probe_vpu_roofline", roof, None),
+                            ("heat_probe_split_copy", split,
+                             "heat_e_uni_temporal"),
+                            ("heat_probe_gather_dma", gather, None),
+                            ("heat_probe_sweep_width", width, None),
+                            ("heat_probe_store_align", align, None)):
         launches[name] = run["launches"]
         err[name] = run["max_abs_err"]
         t[name] = {**(t[like] if like else run),

@@ -35,8 +35,9 @@
 // The K steps, the write-back (16 bytes a group) and the residual are
 // E's, line for line. The kernel's body and launch live in heat_e_uni.cuh,
 // where the measurement probes of E-uni (heat_probe_temporal.cu,
-// heat_probe_ab_temporal.cu) compile them in variants; this kernel is
-// the variant kHeatLoopFull.
+// heat_probe_ab_temporal.cu, heat_probe_split_copy.cu) compile them in
+// variants; this kernel is the variant kHeatLoopFull with the load
+// kHeatLoadWhole.
 
 #include "heat_e_uni.cuh"
 

@@ -127,10 +127,23 @@ TOOLS = {
                             [_I32] + KERNELS["heat_e_uni_temporal"][1]),
     "heat_probe_ab_temporal": ("heat_probe_ab_temporal.cu",
                                [_I32] + KERNELS["heat_e_uni_temporal"][1]),
+    "heat_probe_split_copy": ("heat_probe_split_copy.cu",
+                              [_I32] + KERNELS["heat_e_uni_temporal"][1]),
+    # load, a, b, elem, check, (m, ca), wa, sa, cb, wb, rows, k, blocks,
+    # thread block, stream
+    "heat_probe_gather_dma": ("heat_probe_gather_dma.cu",
+                              [_I32] + [_P] * 4 + [_I64] * 2 + [_I32] * 2
+                              + [_I64] + [_I32] * 6 + [_P]),
+    # stack, out, (members, rows, width), lo, band rows, sweeps, thread
+    # block, stream
+    "heat_probe_sweep_width": ("heat_probe_sweep_width.cu",
+                               [_P, _P] + [_I32] * 8 + [_P]),
+    "heat_probe_store_align": ("heat_probe_store_align.cu",
+                               [_P, _P] + [_I32] * 8 + [_P]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
-           "heat_a.cuh", "heat_e_uni.cuh")
+           "heat_a.cuh", "heat_e_uni.cuh", "heat_probe_sweep.cuh")
 
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.

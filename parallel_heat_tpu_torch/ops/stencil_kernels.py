@@ -273,8 +273,9 @@ def _launch_e(u, out, k, bits, cx, cy, tile, block,
               name="heat_e_temporal", variant=None) -> None:
     """One launch of ``heat_e_temporal`` (or, by ``name``, of
     ``heat_e_uni_temporal``, which takes the same arguments, or of a
-    probe's variant of E-uni's launch, ``heat_probe_temporal`` or
-    ``heat_probe_ab_temporal``, which take the ``variant`` code first) at
+    probe's variant of E-uni's launch, ``heat_probe_temporal``,
+    ``heat_probe_ab_temporal`` or ``heat_probe_split_copy``, which take
+    the ``variant`` code first) at
     the given tile and thread block (``bits`` None: no residual); raises
     if the launch is refused. Checks only the launch shape
     (:meth:`~.hopper_params.HopperParams.loop_takes`, the launchers' own

@@ -25,7 +25,9 @@ def _sources():
             "temporal.py", "stencil_kernels_block.py", "halo3d.py",
             "temporal3d.py", "stencil_kernels_block_3d.py",
             "kernel_probe.py", "vpu_roofline.py", "probe_temporal.py",
-            "ab_temporal.py", "probing.py"} <= names
+            "ab_temporal.py", "probing.py", "probe_split_copy.py",
+            "probe_gather_dma.py", "probe_sweep_width.py",
+            "probe_store_align.py"} <= names
     return files
 
 
@@ -95,6 +97,17 @@ assert torch.equal(probe_temporal.probe_steps("full", g, torch.empty_like(g),
                                         cx=0.1, cy=0.1))
 st = torch.rand(2, 20, 32)
 vpu_roofline.sweep("stencil", st, torch.empty_like(st), 3)
+from parallel_heat_tpu_torch.tools import (probe_gather_dma, probe_split_copy,
+                                           probe_store_align,
+                                           probe_sweep_width)
+sp = torch.empty_like(g)
+probe_split_copy.split_steps("rows8", g, sp, 6, cx=0.1, cy=0.1)
+elem, _ = probe_gather_dma.gather_dma("dense", torch.rand(48, 64), rows=16,
+                                      k=4, cols=32, stride=28)
+sa, sb = torch.empty_like(st), torch.empty_like(st)
+probe_sweep_width.sweep(st, sa, 4, lo=2, rows=16)
+probe_store_align.align_sweep(st, sb, 4, lo=2, rows=16)
+assert torch.equal(sa, sb) and elem.shape == ()
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m, v in sys.modules.items() if v is not None)
 print("ok", float(res.grid.sum()))

@@ -20,11 +20,12 @@ prints the card's name and power limit, then one JSON line per phase:
    are printed; a second run from the cached build reads nvcc's report
    kept beside each library), nor may any instance of A, M or A's
    anatomy probe (``heat_probe_kernel``, also built here), whose
-   registers and spills are printed, nor any of the other seven probes'
+   registers and spills are printed, nor any of the other nine probes'
    (``heat_probe_vpu_roofline``, ``heat_probe_temporal``,
    ``heat_probe_ab_temporal``, ``heat_probe_split_copy``,
    ``heat_probe_gather_dma``, ``heat_probe_sweep_width``,
-   ``heat_probe_store_align``, built here too);
+   ``heat_probe_store_align``, ``heat_probe_roll_pad``,
+   ``heat_probe_xslab_overlap``, built here too);
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -298,14 +299,28 @@ prints the card's name and power limit, then one JSON line per phase:
 29. probe_store_align — the same sweep at band offsets 1, 8, 9, 16 and
    row pitches 128 and 129 (``tools/probe_store_align.py``,
    ``heat_probe_store_align``): the same checks (the full stack at pitch
-   129), then the slopes.
+   129), then the slopes;
+30. probe_roll_pad — A's and E-uni's neighbour forms
+   (``tools/probe_roll_pad.py``, ``heat_probe_roll_pad``): ``prod``,
+   ``padslice`` and ``nbr4`` bitwise their kernel's plain version (grid
+   and residual) on A at every halo depth 1 .. 8 on 1000^2 and at several
+   K on 1001 x 999, 21 x 23 and 20 x 24, and on E-uni at every compiled K
+   on 1001 x 1000 and 20 x 24, then in turns (two batches) on A at 1000^2,
+   K = 20, and 1859^2, K = 64, and on E-uni at 16384^2, K = 8;
+31. probe_xslab_overlap — F's load/compute overlap
+   (``tools/probe_xslab_overlap.py``, ``heat_probe_xslab_overlap``):
+   ``full`` bitwise F's plain version on random grids and the 512^3
+   plate under TMA and cp.async, then ``full``, ``no_step`` and
+   ``no_load`` at 512^3, K = 3, under each load, the max and sum models
+   and a ring ladder.
 
-Then a ``{"kernels": [...]}`` line (all twenty kernels, and the eight
-probes' kernels, each with its own run's launches: A's anatomy probe with
-A's plain version, bound and yardstick, the E-uni probes with E-uni's,
-the roofline with its stencil's at 64 passes, the gather probe with its
-dense TMA form at 16384^2 and no yardstick, the sweep probes with their
-own at D = 64) and, last, the
+Then a ``{"kernels": [...]}`` line (all twenty kernels, and the ten
+probes' kernels, each with its own run's launches: A's anatomy probe and
+neighbour forms with A's plain version, bound and yardstick, the E-uni
+probes with E-uni's, the overlap probe with F's, the roofline with its
+stencil's at 64 passes, the gather probe with its dense TMA form at
+16384^2 and no yardstick, the sweep probes with their own at D = 64)
+and, last, the
 ``{"ok": true, "device": {...}}`` line. Any failure exits non-zero
 before the last line; without a CUDA device it exits 2 at once.
 """
@@ -409,7 +424,8 @@ KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G,
            **KERNELS_H}
 # The measurement tools' kernels: kernel A's anatomy probe, the
 # issue-rate roofline, E-uni's anatomy, its boundary A/B and its load
-# split, loads alone, and the shared-memory sweep's widths and offsets.
+# split, loads alone, the shared-memory sweep's widths and offsets, A's
+# and E-uni's neighbour forms, and F's load/compute overlap.
 PROBES = {"heat_probe_kernel": (None, "tools/kernel_probe.py:27"),
           "heat_probe_vpu_roofline": (None, "tools/vpu_roofline.py:49"),
           "heat_probe_temporal": (None, "tools/probe_temporal.py:39"),
@@ -418,7 +434,10 @@ PROBES = {"heat_probe_kernel": (None, "tools/kernel_probe.py:27"),
           "heat_probe_gather_dma": (None, "tools/probe_gather_dma.py:40"),
           "heat_probe_sweep_width": (None, "tools/probe_sweep_width.py:40"),
           "heat_probe_store_align": (None,
-                                     "tools/probe_store_align.py:36")}
+                                     "tools/probe_store_align.py:36"),
+          "heat_probe_roll_pad": (None, "tools/ab_roll_pad.py:52"),
+          "heat_probe_xslab_overlap": (None,
+                                       "tools/ab_xslab_overlap.py:38")}
 ROOF_PASSES = 64         # the roofline's kernels-line launch: 64 passes
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
@@ -460,14 +479,21 @@ def phase_build():
     for name in names:
         build.load(name)
     # ptxas's report by template instance: <K, R, ...> -> [registers,
-    # spill stores, spill loads, static shared bytes].
+    # spill stores, spill loads, static shared bytes]; by the whole
+    # instance name where a library holds more than one kernel template,
+    # so that no instance hides another.
     # (An earlier run's build left its report beside the library.)
-    ptxas = {name: {r["instance"].partition("<")[2].rstrip(">") or
-                    r["instance"]: [r.get("registers"),
-                                    r.get("spill_stores"),
-                                    r.get("spill_loads"),
-                                    r.get("smem_bytes")]
-                    for r in build.ptxas_report(build.build_log(name))}
+    def by_instance(rows):
+        kernels = {r["instance"].partition("<")[0] for r in rows}
+        return {(r["instance"] if len(kernels) > 1 else
+                 r["instance"].partition("<")[2].rstrip(">")
+                 or r["instance"]): [r.get("registers"),
+                                     r.get("spill_stores"),
+                                     r.get("spill_loads"),
+                                     r.get("smem_bytes")]
+                for r in rows}
+
+    ptxas = {name: by_instance(build.ptxas_report(build.build_log(name)))
              for name in names}
     spilling = {name: [a for a, row in rows.items() if row[1]]
                 for name, rows in ptxas.items()}
@@ -2465,6 +2491,81 @@ def phase_probe_store_align(dev):
         lambda: psa.offsets(device=dev), "probe_store_align")
 
 
+def phase_probe_roll_pad(dev):
+    """Kernel A's and E-uni's neighbour forms (``tools/probe_roll_pad.py``,
+    ``heat_probe_roll_pad``): every form bitwise its kernel's plain version
+    (grid and residual) where the forms' reads differ from the shuffles'
+    (A at every halo depth 1 .. 8 on 1000^2 and at several K on
+    1001 x 999, 21 x 23 and 20 x 24; E-uni at every compiled K on
+    1001 x 1000 and 20 x 24), then the forms in turns (two batches) on A
+    at 1000^2, K = 20, and 1859^2, K = 64, and on E-uni at 16384^2, K = 8,
+    each plate checked first. Returns the probe's launches in that run,
+    ``padslice``'s device ms on A at 1000^2 (its first batch) and the max
+    |diff|."""
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.tools import probe_roll_pad as rp
+
+    t0 = time.perf_counter()
+    checked = rp.check(dev)
+    rp.counts["heat_probe_roll_pad"] = 0
+    plates = (("A", CONV, WINDOW), ("A", A_LARGEST, 64),
+              ("E-uni", BIG, params().e_k_default))
+    rows = list(rp.turns(plates, batches=2, tries=1, device=dev))
+    launches = rp.counts["heat_probe_roll_pad"]
+    check(launches > 0 and [r["size"] for r in rows] == [p[1] for p in plates]
+          and all(set(r["device_ms"]) == set(rp.FORMS) for r in rows),
+          f"the neighbour forms ran {launches} launches: {rows}")
+    emit({"phase": "probe_roll_pad", "seconds": time.perf_counter() - t0,
+          "checked": {kernel: len(checked[kernel]) for kernel in rp.KERNELS},
+          "max_abs_err": checked["max_abs_err"], "launches": launches,
+          "rows": rows})
+    return {"launches": launches,
+            "max_abs_err": max(e for forms in checked["max_abs_err"].values()
+                               for e in forms.values()),
+            "device_ms": rows[0]["device_ms"]["padslice"][0]}
+
+
+def phase_probe_xslab_overlap(dev):
+    """Kernel F's load/compute overlap (``tools/probe_xslab_overlap.py``,
+    ``heat_probe_xslab_overlap``): ``full`` bitwise F's plain version (grid
+    and residual) on random 67 x 130 x 204 under both loads and
+    67 x 130 x 201 by cp.async, then at 512^3, K = 3, under each load
+    (the plate checked first) ``full``, ``no_step`` and ``no_load``, the
+    max and sum models, and ``full`` and ``no_step`` at 1, 2, 4 and the
+    most planes in flight. Returns the probe's launches in that run,
+    ``full``'s device ms at 512^3 by TMA and the max |diff|."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.tools import probe_xslab_overlap as xo
+
+    t0 = time.perf_counter()
+    k = params().f_k_default
+    rng = np.random.default_rng(31)
+    err = 0.0
+    checked = []
+    for shape, loads in (((67, 130, 204), ("tma", "cp.async")),
+                         ((67, 130, 201), ("cp.async",))):
+        u = torch.from_numpy(
+            (rng.standard_normal(shape) * 10).astype(np.float32)).to(dev)
+        for load in loads:
+            err = max(err, xo.check(u, k, load))
+            checked.append([list(shape), load])
+    xo.counts["heat_probe_xslab_overlap"] = 0
+    rows = list(xo.overlap((CUBE,), k, ("tma", "cp.async"), tries=1,
+                           ladder=(1, 2, 4, xo.prefetch_max(k)),
+                           device=dev))
+    launches = xo.counts["heat_probe_xslab_overlap"]
+    check(launches > 0 and [r["load"] for r in rows] == ["tma", "cp.async"]
+          and all(set(r["device_ms"]) == set(xo.VARIANTS) for r in rows),
+          f"the overlap probe ran {launches} launches: {rows}")
+    emit({"phase": "probe_xslab_overlap", "seconds": time.perf_counter() - t0,
+          "checked": checked, "launches": launches, "rows": rows})
+    return {"launches": launches,
+            "max_abs_err": max([err] + [r["max_abs_err"] for r in rows]),
+            "device_ms": rows[0]["device_ms"]["full"]}
+
+
 # ---------------------------------------------------------------------------
 # The sharded 2D path (kernels G-uni, G-fuse, G-circ, G and the band fix)
 # ---------------------------------------------------------------------------
@@ -3647,14 +3748,17 @@ def main() -> int:
         gather = phase_probe_gather_dma(dev)
         width = phase_probe_sweep_width(dev)
         align = phase_probe_store_align(dev)
+        roll = phase_probe_roll_pad(dev)
+        overlap = phase_probe_xslab_overlap(dev)
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
-    # The probes' lines: each its own run's launches and time; A's probe
+    # The probes' lines: each its own run's launches and time; A's probes
     # with A's plain version, bound and yardstick, the E-uni probes with
-    # E-uni's (the same function at the same shape), the roofline, the
-    # gather probe and the sweep probes with their own.
+    # E-uni's and the overlap probe with F's (the same function at the same
+    # shape), the roofline, the gather probe and the sweep probes with
+    # their own.
     for name, run, like in (("heat_probe_kernel", probe, "heat_a_resident"),
                             ("heat_probe_temporal", anatomy,
                              "heat_e_uni_temporal"),
@@ -3665,7 +3769,10 @@ def main() -> int:
                              "heat_e_uni_temporal"),
                             ("heat_probe_gather_dma", gather, None),
                             ("heat_probe_sweep_width", width, None),
-                            ("heat_probe_store_align", align, None)):
+                            ("heat_probe_store_align", align, None),
+                            ("heat_probe_roll_pad", roll, "heat_a_resident"),
+                            ("heat_probe_xslab_overlap", overlap,
+                             "heat_f_temporal3d")):
         launches[name] = run["launches"]
         err[name] = run["max_abs_err"]
         t[name] = {**(t[like] if like else run),

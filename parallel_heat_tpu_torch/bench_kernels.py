@@ -768,8 +768,9 @@ def _sass_op(text: str) -> str:
 
 
 def _sass_counts(instrs, lo: int, hi: int) -> dict:
-    """Instructions, FMUL, FFMA, FADD, SHFL and bytes of shared memory
-    read or written in addresses ``[lo, hi)`` of ``[(address, text)]``."""
+    """Instructions, FMUL, FFMA, FADD, SHFL, LDS and bytes of shared
+    memory read or written in addresses ``[lo, hi)`` of ``[(address,
+    text)]``."""
     ops = [_sass_op(t) for a, t in instrs if lo <= a < hi]
     shared = sum(int(m.group(2) or 32) // 8 for m in map(_SHARED.match, ops)
                  if m)
@@ -778,6 +779,7 @@ def _sass_counts(instrs, lo: int, hi: int) -> dict:
             "ffma": sum(op.startswith("FFMA") for op in ops),
             "fadd": sum(op.startswith("FADD") for op in ops),
             "shfl": sum(op.startswith("SHFL") for op in ops),
+            "lds": sum(op.startswith("LDS") for op in ops),
             "shared_bytes": shared}
 
 
@@ -857,10 +859,10 @@ def sass_step_report(sass: str, instance=re.compile(".")):
     """Per function whose name ``instance`` matches in a ``cuobjdump
     -sass`` listing of a 2D kernel: each loop that steps cells (3 FMUL a
     cell-step: the combine's three multiplies), with its instructions,
-    shuffles and shared-memory bytes a cell-step and whether it stores to
-    global memory (the last step's loop); and ``step_per_cell_step``,
-    those of the cheapest loop that does not (the test-free inner
-    step)."""
+    shuffles, shared loads and shared-memory bytes a cell-step and
+    whether it stores to global memory (the last step's loop); and
+    ``step_per_cell_step``, those of the cheapest loop that does not (the
+    test-free inner step)."""
     out = []
     for chunk in re.split(r"(?=\n\s*Function : )", sass):
         name = _FUNCTION.search(chunk)
@@ -880,7 +882,8 @@ def sass_step_report(sass: str, instance=re.compile(".")):
                 "global_store": any(_sass_op(t).startswith("STG")
                                     for a, t in instrs if lo <= a <= hi),
                 "per_cell_step": {key: c[key] / cells for key in
-                                  ("instructions", "shfl", "shared_bytes")}})
+                                  ("instructions", "shfl", "lds",
+                                   "shared_bytes")}})
         inner = [lp for lp in loops if not lp["global_store"]]
         out.append({"instance": name.group(1), "instructions": len(instrs),
                     "loops": loops,
@@ -911,14 +914,20 @@ def dump_sass(out_dir: str, libraries=None):
                 print(json.dumps({"sass_a": row}), flush=True)
 
 
-# The kernels on the register-blocked tile loop (csrc/heat_temporal.cuh)
-# and A's anatomy probe: what a change to the loop's compile-time hooks
-# must leave instruction for instruction as it was.
+# The kernels on the register-blocked tile loop (csrc/heat_temporal.cuh),
+# A's anatomy probe, F on its plane loop (csrc/heat_temporal3d.cuh) and
+# the two probes that compile those loops' variants: what a change to the
+# loops' compile-time hooks must leave instruction for instruction as it
+# was.
 LOOP_KERNELS = ("heat_e_temporal", "heat_e_uni_temporal",
                 "heat_g_block_uniform", "heat_g_block_fused",
                 "heat_g_block_circular", "heat_g_block_padded",
                 "heat_g_band_fix", "heat_a_resident", "heat_m_ensemble",
-                "heat_probe_kernel")
+                "heat_probe_kernel", "heat_f_temporal3d",
+                "heat_probe_roll_pad", "heat_probe_xslab_overlap")
+# Of those, the 3D ones: their cell-step is not the 2D loop's
+# (sass_step_report counts 3 FMUL a cell-step).
+_LOOP_3D = ("heat_f_temporal3d", "heat_probe_xslab_overlap")
 
 
 def _sass_functions(path):
@@ -942,14 +951,18 @@ def sass_same(other: str, names=LOOP_KERNELS):
     many of its functions have the same instructions in both trees'
     libraries, the instruction counts of those that differ, and this
     tree's instructions, shuffles and shared bytes a cell-step of each
-    function's test-free inner step (:func:`sass_step_report`)."""
+    function's test-free inner step (:func:`sass_step_report`; 2D
+    kernels only). A kernel the other tree does not have is built here
+    alone and reported with ``"in_other_tree": False``."""
     other = os.path.abspath(other)
     proc = subprocess.Popen(
         [sys.executable, "-c",
          "import json, sys\n"
          "from parallel_heat_tpu_torch.kernels import build\n"
+         "names = [n for n in sys.argv[1:]\n"
+         "         if n in build.KERNELS or n in build.TOOLS]\n"
          "print(json.dumps({k: str(v) for k, v in "
-         "build.build(*sys.argv[1:]).items()}))", *names],
+         "build.build(*names).items()}))", *names],
         cwd=other, env=dict(os.environ, PYTHONPATH=other),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     mine = build.build(*names)
@@ -958,15 +971,15 @@ def sass_same(other: str, names=LOOP_KERNELS):
         raise RuntimeError(f"build in {other} failed:\n{err[-3000:]}")
     theirs = json.loads(out.strip().splitlines()[-1])
     for name in names:
-        a, _ = _sass_functions(theirs[name])
         b, sass = _sass_functions(mine[name])
+        a = _sass_functions(theirs[name])[0] if name in theirs else {}
         same = [f for f in a if a[f] == b.get(f)]
-        yield {"sass_same": name, "functions": len(a),
-               "identical": len(same),
+        yield {"sass_same": name, "in_other_tree": name in theirs,
+               "functions": len(a), "identical": len(same),
                "only_this_tree": sorted(set(b) - set(a)),
                "differ": {build.demangle(f): [len(a[f]), len(b.get(f, []))]
                           for f in a if f not in same},
-               "step_per_cell_step": {
+               "step_per_cell_step": None if name in _LOOP_3D else {
                    build.demangle(r["instance"]): r["step_per_cell_step"]
                    for r in sass_step_report(sass)}}
 

@@ -13,6 +13,10 @@
 //   - kHeatACopyStep: each cell-step a copy instead of the combine, with
 //     the loop's addressing, shuffles and barriers kept;
 //   - kHeatANoEdge: every block stepped as one inside the interior.
+// And once per neighbour form of the tile loop (heat_probe_roll_pad.cu,
+// tools/probe_roll_pad.py): heat_a_loop_kernel<kLoop> is A's kernel with
+// the loop's variant kLoop (heat_temporal.cuh kHeatLoopPadSlice,
+// kHeatLoopNbr4), which computes A's function too.
 //
 // The layout is the tile loop's: rows of heat_row_floats(d, tile_x)
 // floats, tile cell (r, c) of the framed tile at src[r * sx + pad + c]
@@ -187,8 +191,9 @@ __device__ __forceinline__ void heat_a_frame_in(float* src,
 // calls after each group but the last, refills src's frame. The last step
 // writes the tile's cells to the m x n grid `out` (16 bytes a group where
 // the address allows it) and folds their residual's bit pattern into
-// rmax. Every thread of the block must call it.
-template <int kProbe, class Exchange>
+// rmax. Every thread of the block must call it. kLoop is the tile loop's
+// variant (kHeatLoopFull but in the neighbour-form probe).
+template <int kProbe, int kLoop = kHeatLoopFull, class Exchange>
 __device__ __forceinline__ void heat_a_steps(float* src, float* dst,
                                              const HeatATile& t, int m,
                                              int n, int k,
@@ -196,8 +201,7 @@ __device__ __forceinline__ void heat_a_steps(float* src, float* dst,
                                              float a0, float cx, float cy,
                                              uint32_t& rmax,
                                              Exchange exchange) {
-  constexpr int kVar =
-      kProbe == kHeatACopyStep ? kHeatLoopCopyStep : kHeatLoopFull;
+  constexpr int kVar = kProbe == kHeatACopyStep ? kHeatLoopCopyStep : kLoop;
   // The grid's interior in tile coordinates, this warp's run of rows,
   // and whether the framed tile reaches past the interior (uniform
   // across the block), as heat_tile_steps works them out.
@@ -250,13 +254,13 @@ __device__ __forceinline__ void heat_a_steps(float* src, float* dst,
 // grid.sync(), which also orders the writes), and each block reads its
 // frame back. The planes alternate by group, so one barrier a group is
 // enough: a plane is rewritten two groups later, after every block has
-// passed the barrier that ends its reads.
-template <int kProbe>
-__global__ void __launch_bounds__(kHeatMaxThreads, 1)
-heat_a_resident_kernel(const float* __restrict__ u, float* __restrict__ out,
-                       float* xch, uint32_t* res, int m, int n,
-                       int n_col_tiles, int k, int depth, int tile_y,
-                       int tile_x, float a0, float cx, float cy) {
+// passed the barrier that ends its reads. heat_a_block is a block's work;
+// the kernels below are its instances.
+template <int kProbe, int kLoop = kHeatLoopFull>
+__device__ __forceinline__ void heat_a_block(
+    const float* __restrict__ u, float* __restrict__ out, float* xch,
+    uint32_t* res, int m, int n, int n_col_tiles, int k, int depth,
+    int tile_y, int tile_x, float a0, float cx, float cy) {
   extern __shared__ __align__(16) float smem[];
   const HeatATile t = heat_a_tile(m, n, static_cast<int>(blockIdx.x),
                                   n_col_tiles, tile_y, tile_x, depth);
@@ -264,7 +268,7 @@ heat_a_resident_kernel(const float* __restrict__ u, float* __restrict__ out,
   float* const dst = smem + (tile_y + 2 * depth) * t.sx;
   heat_a_load(u, src, t, m, n);
   uint32_t rmax = 0u;
-  heat_a_steps<kProbe>(
+  heat_a_steps<kProbe, kLoop>(
       src, dst, t, m, n, k, out, a0, cx, cy, rmax,
       [&](float* s, int group) {
         float* plane = xch + (group & 1) * (m * n);
@@ -278,7 +282,31 @@ heat_a_resident_kernel(const float* __restrict__ u, float* __restrict__ out,
   if (res != nullptr) heat_block_max(rmax, res);
 }
 
-// Kernel A's launch (variant kProbe): K steps of the m x n float32 grid
+// Kernel A (anatomy variant kProbe).
+template <int kProbe>
+__global__ void __launch_bounds__(kHeatMaxThreads, 1)
+heat_a_resident_kernel(const float* __restrict__ u, float* __restrict__ out,
+                       float* xch, uint32_t* res, int m, int n,
+                       int n_col_tiles, int k, int depth, int tile_y,
+                       int tile_x, float a0, float cx, float cy) {
+  heat_a_block<kProbe>(u, out, xch, res, m, n, n_col_tiles, k, depth, tile_y,
+                       tile_x, a0, cx, cy);
+}
+
+// Kernel A on the tile loop's variant kLoop (a neighbour form): a kernel
+// of its own, so that A's instances keep their names and machine code.
+template <int kLoop>
+__global__ void __launch_bounds__(kHeatMaxThreads, 1)
+heat_a_loop_kernel(const float* __restrict__ u, float* __restrict__ out,
+                   float* xch, uint32_t* res, int m, int n, int n_col_tiles,
+                   int k, int depth, int tile_y, int tile_x, float a0,
+                   float cx, float cy) {
+  heat_a_block<kHeatAFull, kLoop>(u, out, xch, res, m, n, n_col_tiles, k,
+                                  depth, tile_y, tile_x, a0, cx, cy);
+}
+
+// Kernel A's launch (variant kProbe; with kLoop other than kHeatLoopFull,
+// heat_a_loop_kernel<kLoop>): K steps of the m x n float32 grid
 // `u` into `out` (distinct buffers, both on the current device) in one
 // cooperative launch of one block of block_x x block_y threads per
 // tile_y x tile_x tile, exchanging a `depth`-deep halo every `depth`
@@ -288,7 +316,7 @@ heat_a_resident_kernel(const float* __restrict__ u, float* __restrict__ out,
 // does not synchronise. Returns a cudaError_t: 0, or the reason the
 // launch was refused (cudaErrorCooperativeLaunchTooLarge when the blocks
 // do not all fit on the card at once).
-template <int kProbe>
+template <int kProbe, int kLoop = kHeatLoopFull>
 inline int heat_a_launch(const float* u, float* out, float* xch,
                          uint32_t* res, int64_t m, int64_t n, int k,
                          int depth, int tile_y, int tile_x, int block_x,
@@ -302,8 +330,11 @@ inline int heat_a_launch(const float* u, float* out, float* xch,
   const int64_t blocks = n_col_tiles * ((m + tile_y - 1) / tile_y);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = heat_loop_smem_bytes(depth, tile_y, tile_x);
-  const void* kernel =
-      reinterpret_cast<const void*>(heat_a_resident_kernel<kProbe>);
+  const void* kernel;
+  if constexpr (kLoop == kHeatLoopFull)
+    kernel = reinterpret_cast<const void*>(heat_a_resident_kernel<kProbe>);
+  else
+    kernel = reinterpret_cast<const void*>(heat_a_loop_kernel<kLoop>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

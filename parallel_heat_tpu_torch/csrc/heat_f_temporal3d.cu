@@ -45,7 +45,7 @@
 // step rounds to float32 like a launch of heat_d_step3d, which makes K
 // steps bitwise K launches of D. Offsets are int64.
 
-#include "heat_temporal3d.cuh"
+#include "heat_f.cuh"
 
 // One block: the (Y, Z) tile and the X segment of blockIdx.x; blockDim is
 // (32, W), the extended tile 128 cells by W * R rows. The loop is
@@ -58,99 +58,9 @@ heat_f_temporal3d_kernel(const float* __restrict__ u, float* __restrict__ out,
                          int prefetch, int vec_out, float a0, float cx,
                          float cy, float cz,
                          const __grid_constant__ CUtensorMap umap) {
-  extern __shared__ __align__(128) float smem[];
-  constexpr int P = heat_f_pad(K);
-  constexpr int E = HeatFLoop<K, R, kTma>::kEdgeRows;
-  const int lane = threadIdx.x, w = threadIdx.y, warps = blockDim.y;
-  const int wy = warps * R;  // extended tile rows
-  const int64_t b = blockIdx.x;
-  const int64_t tz = b % tiles_z;
-  const int64_t ty = (b / tiles_z) % tiles_y;
-  const int64_t x0 = b / tiles_z / tiles_y * seg;
-  const int64_t z0 = tz * (kFWidth - 2 * P) - P;
-  const int64_t y0 = ty * (wy - 2 * K) - K;
-  const int64_t gz0 = z0 + 4 * lane;  // this lane's first cell
-  const int64_t gy0 = y0 + w * R;     // this thread's first row
-
-  HeatFLoop<K, R, kTma> f;
-  f.u = u;
-  f.map = &umap;
-  f.out = out;
-  f.nx = nx;
-  f.nz = nz;
-  f.plane = ny * nz;
-  f.x0 = x0;
-  f.x1 = x0 + seg < nx ? x0 + seg : nx;
-  f.z0 = static_cast<int>(z0);
-  f.y0 = static_cast<int>(y0);
-  f.a0 = a0;
-  f.cx = cx;
-  f.cy = cy;
-  f.cz = cz;
-  f.vec_out = vec_out != 0;
-  f.leader = lane == 0 && w == 0;
-  f.slots = prefetch + 2;
-  f.prefetch = prefetch;
-  f.slot_f = heat_f_slot_floats(wy);
-  f.edge_f = heat_f_edge_floats(warps, R);
-  // The ring from the first 128-byte boundary (the boxes' alignment), the
-  // level buffers, the mbarriers. An offset into smem, not an address
-  // rounded as an integer, so that the pointers stay shared ones.
-  f.ring = smem + ((128 - (heat_smem_addr(smem) & 127)) & 127) / 4;
-  f.lev = f.ring + f.slots * f.slot_f;
-  f.full = reinterpret_cast<uint64_t*>(f.lev + 2 * (K - 1) * f.edge_f);
-  f.own = (1 + w * R) * kFWidth + 4 * lane;
-  f.lev_first = (1 + E * w) * kFWidth + 4 * lane;
-  f.lev_last = f.lev_first + (E - 1) * kFWidth;
-  f.lev_up = E * w * kFWidth + 4 * lane;
-  f.lev_dn = (1 + E * (w + 1)) * kFWidth + 4 * lane;
-  f.src = gy0 * nz + gz0;
-  f.cin = f.yin = f.zin = f.yout = f.zout = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int64_t gz = gz0 + j;
-    const int c = 4 * lane + j;
-    f.zin |= static_cast<unsigned>(gz >= 1 && gz <= nz - 2) << j;
-    f.zout |= static_cast<unsigned>(c >= P && c < kFWidth - P && gz < nz)
-              << j;
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int64_t gy = gy0 + r;
-    const int row = w * R + r;
-    f.yin |= static_cast<unsigned>(gy >= 1 && gy <= ny - 2) << r;
-    f.yout |= static_cast<unsigned>(row >= K && row < wy - K && gy < ny)
-              << r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f.cin |= static_cast<unsigned>(gy >= 0 && gy < ny && gz0 + j >= 0 &&
-                                     gz0 + j < nz)
-               << (4 * r + j);
-  }
-  f.has_out = f.yout != 0u && f.zout != 0u;
-  f.box_bytes = static_cast<uint32_t>(sizeof(float) * kFWidth * wy);
-  f.cur = 0;
-  f.lap = 0u;
-  f.rmax = 0u;
-  if (f.leader) {
-    for (int i = 0; i < f.slots; ++i)
-      heat_mbar_init_count(&f.full[i], kTma ? 1u : kFLanes * warps);
-    heat_mbar_init_fence();
-  }
-  __syncthreads();
-  // Does the extended tile reach past the global interior? Uniform across
-  // the block.
-  if (y0 < 1 || y0 + wy > ny - 1 || z0 < 1 || z0 + kFWidth > nz - 1)
-    f.template run<true>();
-  else
-    f.template run<false>();
-  if (res != nullptr) heat_block_max(f.rmax, res);
+  using Loop = HeatFLoop<K, R, kTma>;
+#include "heat_f_block.inc"
 }
-
-using HeatFKernel = void (*)(const float*, float*, uint32_t*, int64_t,
-                             int64_t, int64_t, int64_t, int64_t, int, int,
-                             int, float, float, float, float,
-                             const CUtensorMap);
 
 // kHeatF[tma][r][k - 1]: depth k, rows per thread 1 << r, the load.
 #define HEAT_F_DEPTHS(R, T)                                                  \
@@ -188,38 +98,9 @@ extern "C" int heat_f_temporal3d(const float* u, float* out, uint32_t* res,
                                  int block_x, int block_y, int rows, int seg,
                                  int prefetch, int tma, float a0, float cx,
                                  float cy, float cz, void* stream) {
-  if (nx < 3 || ny < 3 || nz < 3 || seg < 1 || prefetch < 1 ||
-      prefetch > kFMaxPrefetch || !heat_f_takes(block_x, block_y, rows, k) ||
-      nx > 0x7fffffffLL || ny > 0x7fffffffLL || nz > 0x7fffffffLL ||
-      (tma && (nz % 4 != 0 || reinterpret_cast<uintptr_t>(u) % 16 != 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int wy = block_y * rows;
-  const int tile_z = kFWidth - 2 * heat_f_pad(k);
-  const int64_t tiles_z = (nz + tile_z - 1) / tile_z;
-  const int64_t tiles_y = (ny + wy - 2 * k - 1) / (wy - 2 * k);
-  const int64_t blocks = tiles_z * tiles_y * ((nx + seg - 1) / seg);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map = {};
-  if (tma) {
-    const int err = heat_tma_encode_3d(&map, u, nx, ny, nz, kFWidth, wy);
-    if (err != 0) return err;
-  }
-  const HeatFKernel kernel = heat_f_pick(k, rows, tma);
-  const int smem = heat_f_smem_bytes(k, block_y, rows, prefetch);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (res != nullptr) {
-    err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int vec_out =
-      nz % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  kernel<<<static_cast<unsigned>(blocks), dim3(block_x, block_y), smem, s>>>(
-      u, out, res, nx, ny, nz, tiles_z, tiles_y, seg, prefetch, vec_out, a0,
-      cx, cy, cz, map);
-  return static_cast<int>(cudaGetLastError());
+  return heat_f_launch(heat_f_pick(k, rows, tma), u, out, res, nx, ny, nz, k,
+                       block_x, block_y, rows, seg, prefetch, tma, a0, cx, cy,
+                       cz, stream);
 }
 
 // Thread blocks of the (k, rows, tma) instance that one SM holds at once

@@ -118,10 +118,14 @@ inline int heat_loop_occupancy(Kernel kernel, int k, int tile_y, int tile_x,
 // E-uni's anatomy (heat_probe_temporal.cu) the first six; E-uni's boundary
 // A/B (heat_probe_ab_temporal.cu) full, kHeatLoopVCoeff and
 // kHeatLoopRowCopy; the issue-rate roofline (heat_probe_vpu_roofline.cu)
-// full, kHeatLoopNoShuffle and kHeatLoopNoRowLoad. Only kHeatLoopFull is
-// the solver's function; kHeatLoopRowCopy is the same function on finite
-// grids whose ring holds no -0.0 (its ring columns are pinned by a
-// coefficient 1 and two coefficients 0, and -0.0 + 0 is +0.0).
+// full, kHeatLoopNoShuffle and kHeatLoopNoRowLoad; the neighbour-form
+// probe (heat_probe_roll_pad.cu) full, kHeatLoopPadSlice and
+// kHeatLoopNbr4 on A's and E-uni's launches. kHeatLoopFull is the
+// solver's function, and so are the two neighbour forms, which read the
+// left and right cells from shared memory instead of by shuffle;
+// kHeatLoopRowCopy is the same function on finite grids whose ring holds
+// no -0.0 (its ring columns are pinned by a coefficient 1 and two
+// coefficients 0, and -0.0 + 0 is +0.0).
 constexpr int kHeatLoopFull = 0;
 constexpr int kHeatLoopNoResidual = 1;  // the last step folds no residual
 constexpr int kHeatLoopNoEdge = 2;      // every tile stepped as an interior one
@@ -133,6 +137,8 @@ constexpr int kHeatLoopRowCopy = 7;     // ring columns by coefficients, ring
                                         // rows restored by copy
 constexpr int kHeatLoopNoShuffle = 8;   // left and right taken as the cell
 constexpr int kHeatLoopNoRowLoad = 9;   // up and down taken as the cell too
+constexpr int kHeatLoopPadSlice = 10;   // left and right by two 4-byte loads
+constexpr int kHeatLoopNbr4 = 11;       // ... as the neighbour groups' float4s
 
 // One step of this warp's rows [r0, r1) over the 4-column groups
 // [g0, g1) of the shared tile: group g holds shared floats [4g, 4g+4) of
@@ -154,7 +160,18 @@ constexpr int kHeatLoopNoRowLoad = 9;   // up and down taken as the cell too
 // the coefficients (1, 0, 0), one uniform branch a row and no test a cell;
 // with kHeatLoopRowCopy the same vectors on every row, the ring rows being
 // restored after the step (heat_tile_steps) and, in the last step, copied
-// by a test a row.
+// by a test a row. The neighbour forms take no shuffle: with
+// kHeatLoopPadSlice every lane reads the float before its group and the
+// float after it (4 bytes each, lanes 4 floats apart), with kHeatLoopNbr4
+// the neighbour groups' float4s and keeps .w and .x (the compiler narrows
+// each read to the one float used: the same cells, other addressing; a
+// volatile 16-byte load instead spilled A's registers).
+// They read the same cells as the shuffles but where the row's last group
+// is an active lane's and not lane 31's: there the shuffle hands the lane
+// its own group's first cell (the lane to its right is clamped to the
+// same group) and the forms the next row's first. That cell's new value
+// lies outside every step's valid region (the group ends the row's
+// padding, at or past tile column sw - 1), so no output bit differs.
 template <bool kLast, bool kEdge, int kVar = kHeatLoopFull>
 __device__ __forceinline__ void heat_rows(
     const float* __restrict__ src, float* __restrict__ dst,
@@ -168,6 +185,8 @@ __device__ __forceinline__ void heat_rows(
   constexpr bool kCoeff =
       kEdge && (kVar == kHeatLoopVCoeff || kVar == kHeatLoopRowCopy);
   constexpr bool kSelect = kEdge && !kCoeff;
+  constexpr bool kNoShfl =
+      kVar == kHeatLoopPadSlice || kVar == kHeatLoopNbr4;
   if (r0 >= r1) return;  // uniform across the warp
   const int lane = static_cast<int>(threadIdx.x);
   const int sx4 = sx >> 2;
@@ -182,8 +201,11 @@ __device__ __forceinline__ void heat_rows(
     // group: the row above's last or the row below's first where the
     // group ends the row; r >= 1 and r + 1 < rows always). The other lanes
     // read lane 0's cell too, a broadcast: one load for the warp, with no
-    // branch around it.
-    const int e_col = lane == kHeatLanes - 1 ? 4 * gl + 4 : 4 * gb - 1;
+    // branch around it. The neighbour forms point every lane at the float
+    // before its own group.
+    const int e_col = kNoShfl                  ? 4 * gl - 1
+                      : lane == kHeatLanes - 1 ? 4 * gl + 4
+                                               : 4 * gb - 1;
     bool ci0 = true, ci1 = true, ci2 = true, ci3 = true;
     if (kEdge) {
       ci0 = c >= c_lo && c <= c_hi;
@@ -230,11 +252,20 @@ __device__ __forceinline__ void heat_rows(
         v.z = heat_combine(cc.z, u4.z, d4.z, cc.z, cc.z, a0, cx, cy);
         v.w = heat_combine(cc.w, u4.w, d4.w, cc.w, cc.w, a0, cx, cy);
       } else {
-        const float e = *pe;
-        float lf = __shfl_up_sync(kHeatFullWarp, cc.w, 1);
-        float rt = __shfl_down_sync(kHeatFullWarp, cc.x, 1);
-        if (lane == 0) lf = e;
-        if (lane == kHeatLanes - 1) rt = e;
+        float lf, rt;
+        if constexpr (kVar == kHeatLoopPadSlice) {
+          lf = pe[0];
+          rt = pe[5];
+        } else if constexpr (kVar == kHeatLoopNbr4) {
+          lf = p[r * sx4 - 1].w;
+          rt = p[r * sx4 + 1].x;
+        } else {
+          const float e = *pe;
+          lf = __shfl_up_sync(kHeatFullWarp, cc.w, 1);
+          rt = __shfl_down_sync(kHeatFullWarp, cc.x, 1);
+          if (lane == 0) lf = e;
+          if (lane == kHeatLanes - 1) rt = e;
+        }
         if constexpr (kCopy) {
           v = cc;
         } else if constexpr (kCoeff) {

@@ -446,9 +446,25 @@ inline int heat_f_smem_bytes(int k, int warps, int rows, int prefetch) {
          128 + 8 * (prefetch + 2);
 }
 
+// The plane loop's compile-time variants. F runs kHeatFFull; the others
+// belong to the overlap probe (heat_probe_xslab_overlap.cu,
+// tools/probe_xslab_overlap.py) and compute nothing to compare:
+//   - kHeatFNoStep: the stream alone. Every plane is loaded, waited for
+//     and refilled as in F, and each output plane's cells are stored as F
+//     stores them (the input plane's cells, from its slot), but no level
+//     is stepped;
+//   - kHeatFNoLoad: the compute alone. The first `prefetch` planes are
+//     loaded and waited for as in F; then nothing is loaded or waited for
+//     and the levels step over the ring as it lies, the barrier a plane
+//     kept. No copy is left in flight: every plane loaded is waited for.
+constexpr int kHeatFFull = 0;
+constexpr int kHeatFNoStep = 1;
+constexpr int kHeatFNoLoad = 2;
+
 // One thread's state of the loop. The kernel fills the geometry; run()
-// streams the planes.
-template <int K, int R, bool kTma>
+// streams the planes. kProbe is the loop's variant (kHeatFFull but in the
+// overlap probe).
+template <int K, int R, bool kTma, int kProbe = kHeatFFull>
 struct HeatFLoop {
   static constexpr int kEdgeRows = R < 2 ? R : 2;
   const float* u;            // the grid (the cp.async load)
@@ -594,6 +610,29 @@ struct HeatFLoop {
     }
   }
 
+  // kHeatFNoStep: input plane t's cells, from slot cur, stored where level
+  // K of plane t - K would be, as levels() stores them.
+  __device__ __forceinline__ void store_plane(int64_t t) const {
+    if (!(has_out && t - K >= x0 && t - K < x1)) return;
+    const float4* cur4 =
+        reinterpret_cast<const float4*>(ring + cur * slot_f + own);
+    float* out_p = out + ((t - K) * plane + src);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!((yout >> r) & 1u)) continue;
+      const float4 v = cur4[r * (kFWidth / 4)];
+      float* q = out_p + r * nz;
+      if (vec_out && zout == 0xfu) {
+        *reinterpret_cast<float4*>(q) = v;
+      } else {
+        if (zout & 1u) q[0] = v.x;
+        if (zout & 2u) q[1] = v.y;
+        if (zout & 4u) q[2] = v.z;
+        if (zout & 8u) q[3] = v.w;
+      }
+    }
+  }
+
   // One input plane t: wait for it, refill the slot freed by the last
   // plane, step. kEdge: the tile reaches past the global interior.
   template <bool kEdge>
@@ -603,20 +642,32 @@ struct HeatFLoop {
                                              int64_t t1) {
     // Plane t has landed, for every thread once past the barrier, which
     // also ends the last plane's reads of the slot refilled next.
-    heat_mbar_wait(&full[cur], lap);
+    // kHeatFNoLoad waits only for the planes run() loaded, and loads no
+    // more.
+    if constexpr (kProbe == kHeatFNoLoad) {
+      if (t < x0 - K + prefetch) heat_mbar_wait(&full[cur], lap);
+    } else {
+      heat_mbar_wait(&full[cur], lap);
+    }
     __syncthreads();
     const int prev = cur == 0 ? slots - 1 : cur - 1;
-    if (t + prefetch < t1) {
-      int next = cur + prefetch;
-      if (next >= slots) next -= slots;
-      if (kTma && leader)
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      fetch(next, t + prefetch);
+    if constexpr (kProbe != kHeatFNoLoad) {
+      if (t + prefetch < t1) {
+        int next = cur + prefetch;
+        if (next >= slots) next -= slots;
+        if (kTma && leader)
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fetch(next, t + prefetch);
+      }
     }
-    if (kEdge || !(t - K >= 1 && t - 1 <= nx - 2))
-      levels<true>(U, M, D, prev, t);
-    else
-      levels<false>(U, M, D, prev, t);
+    if constexpr (kProbe == kHeatFNoStep) {
+      store_plane(t);
+    } else {
+      if (kEdge || !(t - K >= 1 && t - 1 <= nx - 2))
+        levels<true>(U, M, D, prev, t);
+      else
+        levels<false>(U, M, D, prev, t);
+    }
     if (++cur == slots) {
       cur = 0;
       lap ^= 1u;

@@ -140,10 +140,18 @@ TOOLS = {
                                [_P, _P] + [_I32] * 8 + [_P]),
     "heat_probe_store_align": ("heat_probe_store_align.cu",
                                [_P, _P] + [_I32] * 8 + [_P]),
+    # kernel (0 A, 1 E-uni), neighbour form, then heat_a_resident's
+    # arguments (E-uni ignores xch and depth)
+    "heat_probe_roll_pad": ("heat_probe_roll_pad.cu",
+                            [_I32, _I32] + KERNELS["heat_a_resident"][1]),
+    # variant, then heat_f_temporal3d's arguments
+    "heat_probe_xslab_overlap": ("heat_probe_xslab_overlap.cu",
+                                 [_I32] + KERNELS["heat_f_temporal3d"][1]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
-           "heat_a.cuh", "heat_e_uni.cuh", "heat_probe_sweep.cuh")
+           "heat_a.cuh", "heat_e_uni.cuh", "heat_probe_sweep.cuh",
+           "heat_f.cuh", "heat_f_block.inc")
 
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.

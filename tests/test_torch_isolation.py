@@ -27,7 +27,8 @@ def _sources():
             "kernel_probe.py", "vpu_roofline.py", "probe_temporal.py",
             "ab_temporal.py", "probing.py", "probe_split_copy.py",
             "probe_gather_dma.py", "probe_sweep_width.py",
-            "probe_store_align.py"} <= names
+            "probe_store_align.py", "probe_roll_pad.py",
+            "probe_xslab_overlap.py"} <= names
     return files
 
 
@@ -108,6 +109,14 @@ sa, sb = torch.empty_like(st), torch.empty_like(st)
 probe_sweep_width.sweep(st, sa, 4, lo=2, rows=16)
 probe_store_align.align_sweep(st, sb, 4, lo=2, rows=16)
 assert torch.equal(sa, sb) and elem.shape == ()
+from parallel_heat_tpu_torch.tools import probe_roll_pad, probe_xslab_overlap
+ra, rb = torch.empty_like(g), torch.empty_like(g)
+probe_roll_pad.roll_pad_steps("A", "padslice", g, ra, 4, cx=0.1, cy=0.1)
+probe_roll_pad.roll_pad_steps("E-uni", "nbr4", g, rb, 4, cx=0.1, cy=0.1)
+assert torch.equal(ra, rb)
+c3 = torch.rand(10, 12, 16)
+probe_xslab_overlap.overlap_steps("full", c3, torch.empty_like(c3), 3, cx=0.1,
+                                  cy=0.1, cz=0.1)
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m, v in sys.modules.items() if v is not None)
 print("ok", float(res.grid.sum()))

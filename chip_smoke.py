@@ -437,8 +437,13 @@ PROBES = {"heat_probe_kernel": (None, "tools/kernel_probe.py:27"),
                                      "tools/probe_store_align.py:36"),
           "heat_probe_roll_pad": (None, "tools/ab_roll_pad.py:52"),
           "heat_probe_xslab_overlap": (None,
-                                       "tools/ab_xslab_overlap.py:38")}
+                                       "tools/ab_xslab_overlap.py:38"),
+          "heat_probe_fixture": (None, "tests/test_analysis.py:1031")}
 ROOF_PASSES = 64         # the roofline's kernels-line launch: 64 passes
+# F's record variants (the kernel audit's, in the overlap probe's
+# library): ptxas's instance keys. They spill (the leader's bookkeeping on
+# top of F's 122 registers) and are timed nowhere; E-uni's does not.
+RECORD_INSTANCES = {"heat_probe_xslab_overlap": ("3, true", "3, false")}
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
 
@@ -557,12 +562,13 @@ def phase_build():
     resident = {name: ptxas[name] for name in
                 ("heat_a_resident", "heat_m_ensemble", "heat_probe_kernel")}
     # Nor any instance of the other probes, whose times stand for the
-    # loop's.
+    # loop's; but for F's record variants (RECORD_INSTANCES).
     probes = {name: ptxas[name] for name in PROBES
               if name != "heat_probe_kernel"}
     for name, rows in {**resident, **probes}.items():
         check(rows and all(row[1] == 0 and row[2] == 0
-                           for row in rows.values()),
+                           for inst, row in rows.items()
+                           if inst not in RECORD_INSTANCES.get(name, ())),
               f"an instance of {name} spills or none is reported: {rows}")
     emit({"phase": "build", "seconds": seconds,
           "a_and_m_instances": resident, "probe_instances": probes,
@@ -3701,6 +3707,258 @@ def phase_timing_h(dev):
     return {name: row for name, row in rows.items() if "@" not in name}
 
 
+# ---------------------------------------------------------------------------
+# The static-analysis path (parallel_heat_tpu_torch/analysis/, heatlint)
+# ---------------------------------------------------------------------------
+
+FIX_BIG = 262144         # the fixture's timed shape: 262144 x 128 floats
+
+
+def _audit_layers():
+    """The port's ast and kernels layers, baseline applied: ``({layer:
+    seconds}, active findings, stale entries)``."""
+    from parallel_heat_tpu_torch.analysis import (LAYERS, apply_baseline,
+                                                  load_baseline)
+
+    seconds, found = {}, []
+    for layer, (_, run) in LAYERS.items():
+        t0 = time.perf_counter()
+        found.extend(run())
+        seconds[layer] = time.perf_counter() - t0
+    active, stale = apply_baseline(found, load_baseline())
+    return seconds, active, stale
+
+
+def _record_blocks(counts):
+    """Corner, edge and interior indices along axes of ``counts``."""
+    picks = set()
+    for pick in ((0,) * len(counts), tuple(c - 1 for c in counts),
+                 tuple(c // 2 for c in counts),
+                 (0,) + tuple(c // 2 for c in counts[1:]),
+                 tuple(c // 2 for c in counts[:-1]) + (0,)):
+        picks.add(pick)
+    return sorted(picks)
+
+
+def _records_of(rec, first, n, box):
+    """Records ``first`` .. ``first + n`` of a record variant's buffer,
+    those written, as :func:`load_records` gives a plan's: the bytes a
+    load lands are the launch's encoded ``box``'s (a TMA fill), or the
+    block's own copies' (``box`` None: a cp.async fill). So a record
+    differs from the plan's where the kernel's ``expect_tx`` differs from
+    the box its launch encodes."""
+    words = rec[1 + 8 * first:1 + 8 * (first + n)].view(n, 8).tolist()
+    landed = None if box is None else 4 * math.prod(box)
+    got = [tuple(w[:3]) + (w[3] if landed is None else landed,) +
+           tuple(w[4:7]) for w in words if w[7] == 1]
+    return got, len(got)
+
+
+def phase_audit(dev):
+    """The static-analysis path on the card's machine: the port's ast and
+    kernels layers (zero findings, and their seconds); the audit's fixture
+    kernel ``heat_probe_fixture`` (``clean`` and ``clean_tma`` bitwise
+    ``2 u`` at 16 x 128 and 262144 x 128, ``runtime_window`` at an
+    in-range offset; the seeded variants in ptxas's report and refused by
+    the launcher); every instance's static shared memory within
+    ``static_smem_bytes``; each plan's blocks an SM against the
+    occupancy exports of E, E-uni, F, G-uni, G-fuse and H-fused at their
+    main-path geometries (registers from ptxas); and the record variants
+    of E-uni (16384^2, K = 8) and F (512^3, K = 3, both loads): each
+    audited block's loads equal the plan's, the grid bitwise the
+    production kernel's. Returns the fixture's launches on its path
+    (``clean_tma`` at 262144 x 128, device-timed), its ms, plain ms,
+    bound, ``torch.mul`` ms and max |diff|."""
+    import torch
+
+    from parallel_heat_tpu_torch.analysis import kernels as ak
+    from parallel_heat_tpu_torch.analysis import plans as ap
+    from parallel_heat_tpu_torch.kernels import build
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.tools import analysis_fixture as af
+
+    t0 = time.perf_counter()
+    hp = params()
+    seconds, active, stale = _audit_layers()
+    check(not active and not stale,
+          f"heatlint on the card's machine: {len(active)} finding(s), "
+          f"{len(stale)} stale: "
+          f"{[(f.rule, f.symbol, f.message) for f in active[:5]]}")
+
+    # The fixture: its path first (counted), then its checks.
+    rng = np.random.default_rng(41)
+    big = torch.from_numpy((rng.standard_normal((FIX_BIG, 128)) * 10)
+                           .astype(np.float32)).to(dev)
+    af.counts["heat_probe_fixture"] = 0
+    timed = _device_ms(lambda: af.strip_double(big, "clean_tma"),
+                       "heat_probe_fixture", made=40)
+    launches = af.counts["heat_probe_fixture"]
+    check(launches >= 40, f"the fixture's path ran {launches} launches")
+    err = 0.0
+    checked = []
+    for rows in (16, FIX_BIG):
+        u = big[:rows].clone()
+        for variant, off in (("clean", None), ("clean_tma", None),
+                             ("runtime_window", 5)):
+            got = af.strip_double(u, variant, off=off)
+            want = af.strip_double_plain(u.cpu(), variant, off=off).to(dev)
+            d = float((got - want).abs().max())
+            check(torch.equal(got, want),
+                  f"fixture {variant} at {rows} x 128 differs from 2u by {d}")
+            err = max(err, d)
+            checked.append([variant, rows])
+    lib = build.load("heat_probe_fixture")
+    out = torch.empty_like(big[:16])
+    seeded = [v for v in ap.FIXTURE_VARIANTS if v not in af.LAUNCHED]
+    refused = {v: lib.heat_probe_fixture(
+        ap.FIXTURE_VARIANTS.index(v), big.data_ptr(), out.data_ptr(), None,
+        16, 8, torch.cuda.current_stream().cuda_stream) for v in seeded}
+    check(all(code != 0 for code in refused.values()),
+          f"the launcher took a seeded variant: {refused}")
+    fix_rows = build.ptxas_report(build.build_log("heat_probe_fixture"))
+    instances = {r["instance"] for r in fix_rows}
+    want_inst = {f"heat_probe_fixture_kernel<{i}>"
+                 for i in range(len(ap.FIXTURE_VARIANTS))}
+    check(want_inst <= instances,
+          f"fixture instances missing from ptxas's report: "
+          f"{sorted(want_inst - instances)}")
+
+    # Static shared memory of every instance of every library.
+    static = {}
+    for name in tuple(build.KERNELS) + tuple(build.TOOLS):
+        for r in build.ptxas_report(build.build_log(name)):
+            static[r["instance"]] = r.get("smem_bytes", 0)
+    over = {i: b for i, b in static.items() if b > hp.static_smem_bytes}
+    check(static and not over,
+          f"instances past static_smem_bytes ({hp.static_smem_bytes}): "
+          f"{over}")
+
+    # Blocks an SM: the plan's (registers from ptxas) against the
+    # occupancy exports.
+    def regs(name, inst):
+        for r in build.ptxas_report(build.build_log(name)):
+            if r["instance"] == inst:
+                return r["registers"]
+        raise SmokeFailure(f"{inst} missing from {name}'s ptxas report")
+
+    f_load = sk3.f_load((CUBE,) * 3)
+    f_tma = "true" if f_load == "tma" else "false"
+    h_block = (SHARD3_N // 2,) * 3
+    h_load = skb3.h_load(h_block, hp.h_k_default)
+    g_block = (SHARD_N // SHARD_MESH[0], SHARD_N // SHARD_MESH[1])
+    occ = {}
+    for label, plan, name, inst, export in (
+            ("E", ap.plan_e((BIG, BIG), hp.e_k_default), "heat_e_temporal",
+             "heat_e_temporal_kernel", lambda: sk.loop_occupancy(
+                 "heat_e_temporal", hp.e_k_default, hp.e_tile, hp.e_block)),
+            ("E-uni", ap.plan_e((BIG, BIG), hp.e_k_default, uni=True),
+             "heat_e_uni_temporal", "heat_e_uni_temporal_kernel",
+             lambda: sk.loop_occupancy("heat_e_uni_temporal",
+                                       hp.e_k_default, hp.e_tile,
+                                       hp.e_block)),
+            ("G-uni", ap.plan_g("G-uni", g_block, hp.g_k_default,
+                                grid_shape=(SHARD_N, SHARD_N), defer=True),
+             "heat_g_block_uniform", "heat_g_block_uniform_kernel",
+             lambda: sk.loop_occupancy("heat_g_block_uniform",
+                                       hp.g_k_default, hp.g_tile,
+                                       hp.g_block)),
+            ("G-fuse", ap.plan_g("G-fuse", g_block, hp.g_k_default,
+                                 grid_shape=(SHARD_N, SHARD_N)),
+             "heat_g_block_fused", "heat_g_block_fused_kernel",
+             lambda: sk.loop_occupancy("heat_g_block_fused",
+                                       hp.g_k_default, hp.g_tile,
+                                       hp.g_block)),
+            ("F", ap.plan_f((CUBE,) * 3, hp.f_k_default, f_load),
+             "heat_f_temporal3d",
+             f"heat_f_temporal3d_kernel<{hp.f_k_default}, {hp.f_rows}, "
+             f"{f_tma}>", lambda: sk3.f_occupancy(hp.f_k_default, f_load)),
+            ("H-fused", ap.plan_h("H-fuse", h_block, hp.h_k_default,
+                                  grid_shape=(SHARD3_N,) * 3, load=h_load),
+             "heat_h_block_3d_fused",
+             f"heat_h_block_3d_fused_kernel<{hp.h_k_default}, {hp.h_rows}, "
+             f"{'true' if h_load == 'tma' else 'false'}>",
+             lambda: skb3.h_fused_occupancy(hp.h_k_default, h_load))):
+        r = regs(name, inst)
+        mine, theirs = ak.blocks_per_sm(plan, r), export()
+        occ[label] = {"registers": r, "plan": mine, "export": theirs}
+        check(mine == theirs, f"{label}: the plan holds {mine} block(s) an "
+                              f"SM, the occupancy export {theirs} "
+                              f"({r} registers)")
+
+    # The record variants against the plans.
+    records = {}
+    g = torch.Generator(device=dev).manual_seed(43)
+    u = torch.rand((BIG, BIG), device=dev, generator=g) * 10
+    k = hp.e_k_default
+    out, rec, box = af.record_e_uni(u, k, cx=CX, cy=CY)
+    want = torch.empty_like(u)
+    res = sk.temporal_steps_uni(u, want, k, True, cx=CX, cy=CY)
+    check(torch.equal(out, want) and same_float(
+        rec[:1].view(torch.float32)[0], res),
+          "E-uni's record variant is not bitwise E-uni")
+    plan = ap.plan_e((BIG, BIG), k, uni=True)
+    counts = [a.count for a in plan.axes]
+    compared = 0
+    for idx in _record_blocks(counts):
+        b = idx[0] * counts[1] + idx[1]
+        got, _ = _records_of(rec, b, 1, box)
+        expect = ak.load_records(plan, idx)
+        check(got == expect,
+              f"E-uni block {idx}: the card recorded {got}, the plan "
+              f"{expect}")
+        compared += 1
+    records["E-uni"] = {"shape": [BIG, BIG], "k": k, "blocks": compared,
+                        "box": list(box)}
+    del u, out, want
+    g3 = torch.Generator(device=dev).manual_seed(47)
+    u3 = torch.rand((CUBE,) * 3, device=dev, generator=g3) * 10
+    k3 = hp.f_k_default
+    for load in ("tma", "cp.async"):
+        out, rec, box = af.record_f(u3, k3, load, cx=CX, cy=CY, cz=CY)
+        want = torch.empty_like(u3)
+        res = sk3.xslab_steps_3d(u3, want, k3, True, cx=CX, cy=CY, cz=CY,
+                                 load=load)
+        check(torch.equal(out, want) and same_float(
+            rec[:1].view(torch.float32)[0], res),
+              f"F's record variant under {load} is not bitwise F")
+        plan = ap.plan_f((CUBE,) * 3, k3, load)
+        counts = [a.count for a in plan.axes]
+        compared = 0
+        for idx in _record_blocks(counts):
+            b = (idx[0] * counts[1] + idx[1]) * counts[2] + idx[2]
+            expect = ak.load_records(plan, idx)
+            got, n = _records_of(rec, b * (CUBE + 2 * k3), CUBE + 2 * k3,
+                                 box)
+            first = next(((a, e) for a, e in zip(got, expect) if a != e),
+                         None)
+            check(got == expect,
+                  f"F ({load}) block {idx}: the card recorded {n} loads, "
+                  f"the plan {len(expect)}; first differing: {first}")
+            compared += 1
+        records[f"F {load}"] = {"shape": [CUBE] * 3, "k": k3,
+                                "blocks": compared,
+                                "box": None if box is None else list(box)}
+    del u3, out, want
+
+    # The fixture's plain version and yardstick at the timed shape.
+    plain_ms = _time_ms(lambda: af.strip_double_plain(big), 20)
+    lib_ms = _time_ms(lambda: torch.mul(big, 2), 20)
+    bound = _bound(2 * 4 * big.numel(), big.numel())
+    emit({"phase": "audit", "seconds": time.perf_counter() - t0,
+          "heatlint_seconds": seconds, "findings": 0,
+          "fixture_checked": checked, "fixture_launches": launches,
+          "seeded_refused": refused,
+          "fixture_instances": sorted(instances),
+          "static_smem_max": max(static.values()),
+          "blocks_per_sm": occ, "records": records})
+    return {"launches": launches, "max_abs_err": err,
+            "device_ms": timed["device_ms"], "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bound}
+
+
 def main() -> int:
     import torch
 
@@ -3750,6 +4008,7 @@ def main() -> int:
         align = phase_probe_store_align(dev)
         roll = phase_probe_roll_pad(dev)
         overlap = phase_probe_xslab_overlap(dev)
+        audit = phase_audit(dev)
     except Exception as e:  # report, then fail: no phase passes on error
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
@@ -3777,6 +4036,11 @@ def main() -> int:
         err[name] = run["max_abs_err"]
         t[name] = {**(t[like] if like else run),
                    "device_ms": run["device_ms"]}
+    # The static-analysis path's fixture: its own run, plain version,
+    # bound and yardstick (torch.mul).
+    launches["heat_probe_fixture"] = audit["launches"]
+    err["heat_probe_fixture"] = audit["max_abs_err"]
+    t["heat_probe_fixture"] = audit
     src = "parallel_heat_tpu_torch/csrc/"
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src + name + ".cu",

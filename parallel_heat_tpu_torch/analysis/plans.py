@@ -1,0 +1,1200 @@
+"""Launch plans: what each kernel of the port does at one geometry, as
+the kernel audit (:mod:`.kernels`) reads it.
+
+The counterpart of ``KernelTarget`` and ``default_kernel_targets`` in
+``parallel_heat_tpu/analysis/kernels.py``. JAX traces a ``pallas_call``
+to a jaxpr; a CUDA kernel cannot be traced on a machine without a card or
+``nvcc``, so each kernel's launch is written down here as a **plan**: one
+launch of one ``__global__`` function at one geometry.
+
+A plan holds the grid and thread block, the dynamic and static shared
+memory, whether the launch is cooperative, the arrays with their
+extents, and, per grid axis, each block's share of the work (an
+:class:`Span`): the output cells it writes along that axis and, for each
+load, the window it reads (start, extent, and the guard the kernel tests
+before a copy; cells outside the guard are zero-filled or skipped). A
+block is one span of every axis. For a block that issues asynchronous
+copies the plan also gives its **async schedule**: the ordered events of
+the C++ loop,
+
+- ``("mbar_init", bar, count)``, ``("expect_tx", bar, bytes)`` (an
+  arrival that also expects ``bytes``), ``("arrive", bar)``,
+  ``("cp_async_arrive_noinc", bar, n)`` (``n`` threads' arrivals once
+  their earlier copies land, counted against the ``init`` count);
+- ``("tma", slot, bar, bytes, coords, part)`` (a box: its **whole**
+  bytes, zero-filled cells included, complete ``bar``'s transaction;
+  ``part`` > 0 is a further piece of the same fill),
+  ``("cp_async", slot, bytes)``, ``("commit",)``, ``("wait_prior", n)``;
+- ``("wait", bar, parity)`` and ``("read", slot)``.
+
+The geometry comes from the code the wrappers launch with: the picker
+and budget functions of ``ops/hopper_params.py`` and the launchers'
+helpers (``stencil_kernels_3d.f_geometry``, ``stencil_kernels.a_launch``,
+``stencil_kernels_block._block_geometry``,
+``stencil_kernels_block_3d._geometry``). Grid dimensions and offsets
+that only the C launchers compute are written here in the launchers'
+own terms, each beside the source line it mirrors; ``chip_smoke.py``'s
+``audit`` phase holds these plans against the card (blocks an SM
+against the occupancy exports, and E-uni's and F's loads against a
+record variant of the kernels that writes each load down).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+# A coordinate the kernel reads at run time (from device memory): no plan
+# can say where its window lies.
+RUNTIME = "runtime"
+
+
+@dataclass(frozen=True)
+class Array:
+    """A global array of float32 (or int32) cells: its extent per
+    dimension, outermost first, and the alignment of its base address in
+    bytes (PyTorch's allocator gives 256; a piece cut from a larger
+    tensor may give less)."""
+
+    shape: tuple
+    align: int = 256
+
+
+@dataclass(frozen=True)
+class Load:
+    """One load of a block, from ``array`` into the shared buffer
+    ``slot`` (None for loads into registers, ``kind`` "ld").
+
+    ``kind``: ``"tma"`` (one box a fill), ``"cp16"`` / ``"cp4"``
+    (cp.async of 16 or 4 bytes a copy) or ``"ld"`` (plain loads).
+    ``dst`` is the float offset of the window's first cell in the slot
+    and ``pitch`` the floats between its consecutive cells along each
+    outer dimension (the innermost is contiguous). ``streamed`` outer
+    dimensions arrive a cell at a time, each into a slot of its own (a
+    ring of planes or rows): the slot holds only the inner dimensions.
+    ``box`` is a TMA load's box extent per dimension. A ``cp16`` load's
+    guarded spans take the kernel's 4-byte branch (zero-filled copies);
+    its unguarded ones copy 16 bytes at a time. ``tiled``: the load's
+    windows must tile the array as a grid of equal blocks (a BlockSpec's
+    input tiling)."""
+
+    kind: str
+    array: str
+    slot: Optional[str] = None
+    dst: int = 0
+    pitch: tuple = ()
+    streamed: int = 0
+    box: tuple = ()
+    tiled: bool = False
+
+
+@dataclass(frozen=True)
+class Span:
+    """A block's share of one grid axis (one array dimension): ``write``
+    the output cells ``[lo, hi)`` it writes along it (None: none),
+    ``reads`` ``{load: (start, extent, guard)}`` with ``guard`` the
+    ``(lo, hi)`` the kernel tests before each copy (None: no test, the
+    window must lie inside the array; a read of None: the branch that
+    issues the load needs this span to lie inside, and it does not), and
+    ``kind`` the class the span belongs to (its edge and raggedness)."""
+
+    write: Optional[tuple]
+    reads: dict
+    kind: tuple = ()
+
+
+@dataclass
+class Axis:
+    """One array dimension of the launch's work: ``count`` spans, span
+    ``i`` given by ``span(i)``. ``ragged_ok``: the kernel takes a last
+    tile cut short along this dimension."""
+
+    name: str
+    count: int
+    span: Callable[[int], Span]
+    ragged_ok: bool = True
+
+
+@dataclass
+class Plan:
+    """One launch of one ``__global__`` function at one geometry."""
+
+    kernel: str                 # the __global__ function
+    entry: str                  # its entry in kernels.build KERNELS/TOOLS
+    label: str                  # what launch this is
+    grid: int                   # thread blocks of the launch
+    threads: int                # threads a block
+    max_threads: int            # the kernel's __launch_bounds__
+    dyn_smem: int               # bytes, as the launcher asks
+    static_smem: int            # bytes (ptxas)
+    arrays: Dict[str, Array]
+    output: str
+    axes: List[Axis]
+    loads: Dict[str, Load] = field(default_factory=dict)
+    # name -> (offset, bytes) in the dynamic shared memory after the
+    # kernel's own alignment of its buffers (align_slack bytes at most),
+    # or (offset, bytes, slack) for a layout aligned otherwise.
+    slots: Dict[str, tuple] = field(default_factory=dict)
+    align_slack: int = 0
+    cooperative: bool = False
+    min_blocks_per_sm: int = 1  # what the picker promised
+    cover: List[tuple] = field(default_factory=list)
+    leave: List[tuple] = field(default_factory=list)
+    schedule: Optional[Callable] = None   # (spans) -> [event]
+    int32: List[tuple] = field(default_factory=list)  # (what, max value)
+    kinds: Optional[dict] = None  # the picker's tile kinds (soundness)
+    kinds_of: Optional[Callable] = None   # (spans) -> set of kind names
+    limit_bytes: Optional[int] = None     # an injected shared-memory limit
+    # Launches whose writes together cover one output once (a round's
+    # deferred bulk and its band) share a group.
+    group: Optional[str] = None
+
+
+def _p():
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    return params()
+
+
+def _full(shape):
+    return [tuple((0, n) for n in shape)]
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# Schedules (the C++ loops' async events)
+# ---------------------------------------------------------------------------
+
+def _sched_cp_once(loads, slot="src"):
+    """A load issued by cp.async and committed, waited by
+    ``__pipeline_wait_prior(0)`` (``HeatCpAsyncWait``), then read."""
+    ev = [("cp_async", slot, b) for b in loads]
+    return ev + [("commit",), ("wait_prior", 0), ("read", slot)]
+
+
+def _sched_tma_once(box_bytes, expect, coords, slot="src", bar="bar"):
+    """E-uni's load: one box on one mbarrier (``heat_e_uni.cuh``
+    :219-232)."""
+    return [("mbar_init", bar, 1), ("expect_tx", bar, expect),
+            ("tma", slot, bar, box_bytes, coords, 0), ("wait", bar, 0),
+            ("read", slot)]
+
+
+def _sched_ring_groups(t0, t1, prefetch, slots, fill):
+    """A ring of ``slots`` fed ``prefetch`` rows or planes ahead by
+    cp.async commit groups, one group an iteration (``heat_band.cuh``
+    :110-139, ``heat_temporal3d.cuh`` heat_t3d_stream). ``fill(slot, t)``
+    gives the copies of input ``t``."""
+    ev = []
+    for i in range(prefetch):
+        if t0 + i < t1:
+            ev += fill(f"ring{i}", t0 + i)
+        ev.append(("commit",))
+    cur = 0
+    for t in range(t0, t1):
+        ev.append(("wait_prior", prefetch - 1))
+        prev = slots - 1 if cur == 0 else cur - 1
+        if t + prefetch < t1:
+            nxt = (cur + prefetch) % slots
+            ev += fill(f"ring{nxt}", t + prefetch)
+        ev.append(("commit",))
+        ev.append(("read", f"ring{cur}"))
+        if t > t0:  # at t0 the row before is the garbage cone's
+            ev.append(("read", f"ring{prev}"))
+        cur = 0 if cur + 1 == slots else cur + 1
+    return ev
+
+
+def _sched_ring_mbar(t0, t1, prefetch, slots, fill, count, groups=False):
+    """A ring of ``slots`` with an mbarrier a slot, ``prefetch`` planes
+    ahead (``heat_temporal3d.cuh`` HeatFLoop run/plane_step and
+    heat_t3d_stream_tma). ``fill(slot, bar, t)`` gives the events of
+    input ``t``; with ``groups`` each fill closes a cp.async commit group
+    that the loop waits on first (H-fused's x slabs)."""
+    ev = [("mbar_init", f"full{i}", count) for i in range(slots)]
+    for i in range(prefetch):
+        if t0 + i < t1:
+            ev += fill(f"ring{i}", f"full{i}", t0 + i)
+        if groups:
+            ev.append(("commit",))
+    cur, lap = 0, 0
+    for t in range(t0, t1):
+        if groups:
+            ev.append(("wait_prior", prefetch - 1))
+        ev.append(("wait", f"full{cur}", lap))
+        prev = slots - 1 if cur == 0 else cur - 1
+        if t + prefetch < t1:
+            nxt = (cur + prefetch) % slots
+            ev += fill(f"ring{nxt}", f"full{nxt}", t + prefetch)
+        if groups:
+            ev.append(("commit",))
+        ev.append(("read", f"ring{cur}"))
+        if t > t0:
+            ev.append(("read", f"ring{prev}"))
+        cur += 1
+        if cur == slots:
+            cur, lap = 0, lap ^ 1
+    return ev
+
+
+# ---------------------------------------------------------------------------
+# The 2D tile loop: E, E-uni, A, M and the G family
+# ---------------------------------------------------------------------------
+
+def _edge_kind(lo, hi, n, write, tile):
+    """A span's class along one axis: past the grid's first cell, inside
+    the interior's first, past the last, past the interior's last; cut
+    short; a last group of fewer than 4 cells."""
+    w = 0 if write is None else write[1] - write[0]
+    return (lo < 0, lo < 1, hi > n, hi > n - 1, w < tile, w % 4 != 0)
+
+
+def _loop_kinds(spans):
+    """The tile-kind names (``hopper_params.e_tile_kinds`` and
+    ``a_tile_kinds``) a block of the tile loop belongs to."""
+    (a0, a1, a2, a3, rag_r, _), (b0, b1, b2, b3, rag_c, part) = (
+        spans[-2].kind, spans[-1].kind)
+    side = {"top": a0, "left": b0, "bottom": a2, "right": b2}
+    names = {"tiles"} | {n for n, hit in side.items() if hit}
+    names.add("grid_edge" if any(side.values()) else "inside")
+    names.add("copies" if (a1 or b1 or a3 or b3) else "interior")
+    if rag_r:
+        names.add("ragged_rows")
+    if rag_c:
+        names.add("ragged_cols")
+    if part:
+        names.add("partial_group")
+    return names
+
+
+def plan_e(shape, k, uni=False) -> Plan:
+    """Kernel E (``heat_e_temporal``) or E-uni (``heat_e_uni_temporal``)
+    at depth ``k`` on an ``(m, n)`` grid, at the tile and thread block
+    ``stencil_kernels._temporal`` launches with (``e_tile``,
+    ``e_block``)."""
+    p = _p()
+    m, n = shape
+    ty, tx = p.e_tile
+    block = p.e_block
+    sy, sw = ty + 2 * k, tx + 2 * k
+    pad = (4 - k % 4) % 4
+    sx = p.row_floats(k, tx)
+    # heat_e_geometry (heat_temporal.cuh:483): tiles of the grid.
+    n_row, n_col = _ceil(m, ty), _ceil(n, tx)
+    load = "box" if uni else "cells"
+
+    def axis(count, t, dim, first):
+        def span(i):
+            lo = i * t - k                      # gy0 / gx0
+            start = lo - (0 if first else pad) if uni else lo
+            ext = sy if first else (sx if uni else sw)
+            write = (i * t, min(i * t + t, dim))
+            inside = lo >= 0 and lo + (sy if first else sw) <= dim
+            guard = None if (uni or inside) else (0, dim)
+            return Span(write, {load: (start, ext, guard)},
+                        _edge_kind(lo, lo + (sy if first else sw), dim,
+                                   write, t))
+        return Axis("rows" if first else "cols", count, span)
+
+    axes = [axis(n_row, ty, m, True), axis(n_col, tx, n, False)]
+    buf = sy * sx * 4
+    if uni:
+        loads = {load: Load("tma", "u", "src", 0, (sx,), box=(sy, sx))}
+        slots = {"src": (0, buf), "dst": (buf, buf), "bar": (2 * buf, 8)}
+        dyn = p.e_smem_bytes(k, (ty, tx), tma=True)
+
+        def schedule(spans):
+            (y0, _, _), (x0, _, _) = spans[0].reads[load], \
+                spans[1].reads[load]
+            return _sched_tma_once(4 * sy * sx, 4 * sy * sx, (x0, y0))
+    else:
+        loads = {load: Load("cp4", "u", "src", pad, (sx,))}
+        slots = {"src": (0, buf), "dst": (buf, buf)}
+        dyn = p.e_smem_bytes(k, (ty, tx))
+
+        def schedule(spans):
+            return _sched_cp_once([4 * sy * sw])
+    name = "heat_e_uni_temporal" if uni else "heat_e_temporal"
+    return Plan(
+        kernel=name + "_kernel", entry=name,
+        label=f"{'E-uni' if uni else 'E'} {m}x{n} K={k}",
+        grid=n_row * n_col, threads=block[0] * block[1], max_threads=512,
+        dyn_smem=dyn, static_smem=p.static_smem_bytes,
+        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        axes=axes, loads=loads, slots=slots, align_slack=128 if uni else 0,
+        min_blocks_per_sm=p.e_min_blocks_per_sm, cover=_full(shape),
+        schedule=schedule,
+        int32=[("TMA box coordinate", max(m, n))] if uni else [],
+        kinds=p.e_tile_kinds(shape, k, (ty, tx)), kinds_of=_loop_kinds)
+
+
+def _a_axes(m, n, tile, d, batch=None):
+    """The tile axes of A's and M's launch (``heat_a.cuh`` heat_a_tile):
+    tile ``(i0, j0)`` cut at the grid's edge, its d-deep frame loaded
+    cell by cell with zero fill outside the grid."""
+    ty, tx = tile
+
+    def axis(count, t, dim, name):
+        def span(i):
+            lo, hi = i * t, min(i * t + t, dim)
+            return Span((lo, hi), {"cells": (lo - d, hi - lo + 2 * d,
+                                             (0, dim))},
+                        _edge_kind(lo - d, hi + d, dim, (lo, hi), t))
+        return Axis(name, count, span)
+
+    axes = [axis(_ceil(m, ty), ty, m, "rows"), axis(_ceil(n, tx), tx, n,
+                                                    "cols")]
+    if batch is not None:
+        axes.insert(0, Axis("members", batch, lambda b: Span(
+            (b, b + 1), {"cells": (b, 1, None)})))
+    return axes
+
+
+def _a_kinds(spans):
+    names = _loop_kinds(spans)
+    (lo_r, hi_r), (lo_c, hi_c) = spans[-2].write, spans[-1].write
+    d = spans[-2].reads["cells"][1] - (hi_r - lo_r)
+    names.discard("grid_edge")
+    names.discard("inside")
+    if hi_r - lo_r <= d:
+        names.add("whole_band_rows")
+    if hi_c - lo_c <= d:
+        names.add("whole_band_cols")
+    return names
+
+
+def plan_a(shape, k=20) -> Plan:
+    """Kernel A (``heat_a_resident``): one cooperative launch of ``k``
+    steps at the tile and halo depth ``stencil_kernels.a_launch`` gives."""
+    from parallel_heat_tpu_torch.ops.stencil_kernels import a_launch
+
+    p = _p()
+    m, n = shape
+    launch = a_launch(shape)
+    tile, d, block = launch["tile"], launch["depth"], launch["block"]
+    sx = p.row_floats(d, tile[1])
+    buf = (tile[0] + 2 * d) * sx * 4
+    axes = _a_axes(m, n, tile, d)
+    sh = tile[0] + 2 * d
+    return Plan(
+        kernel="heat_a_resident_kernel", entry="heat_a_resident",
+        label=f"A {m}x{n} K={k}", grid=axes[0].count * axes[1].count,
+        threads=block[0] * block[1], max_threads=512,
+        dyn_smem=p.a_smem_bytes(tile, d), static_smem=p.static_smem_bytes,
+        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        axes=axes, loads={"cells": Load("cp4", "u", "src",
+                                        (4 - d % 4) % 4, (sx,))},
+        slots={"src": (0, buf), "dst": (buf, buf)}, cooperative=True,
+        cover=_full(shape),
+        schedule=lambda spans: _sched_cp_once([4 * sh * (tile[1] + 2 * d)]),
+        # heat_a_launch refuses 2 m n past int32: the exchange planes are
+        # indexed (group & 1) * (m * n) + i * n + j in int.
+        int32=[("exchange plane index", 2 * m * n - 1)],
+        kinds=p.a_tile_kinds(shape, d, tile), kinds_of=_a_kinds)
+
+
+def plan_m(batch, shape, k) -> Plan:
+    """Kernel M (``heat_m_ensemble``): ``batch`` members of ``(m, n)``
+    under ``hopper_params.m_plan`` (the plan ``batched.ensemble_steps``
+    launches). A group of ``tiles`` blocks takes a member a round."""
+    p = _p()
+    m, n = shape
+    mp = p.m_plan(batch, tuple(shape))
+    tile, d, block = mp["tile"], mp["depth"], mp["block"]
+    groups, tiles = mp["groups"], mp["tiles"]
+    sx = p.row_floats(d, tile[1])
+    buf = (tile[0] + 2 * d) * sx * 4
+    rounds = _ceil(batch, groups)
+    sh = tile[0] + 2 * d
+
+    def schedule(spans):
+        ev = []
+        for _ in range(rounds):
+            ev += _sched_cp_once([4 * sh * (tile[1] + 2 * d)])
+        return ev
+
+    return Plan(
+        kernel="heat_m_ensemble_kernel", entry="heat_m_ensemble",
+        label=f"M {batch}x{m}x{n} K={k}", grid=groups * tiles,
+        threads=block[0] * block[1], max_threads=512,
+        dyn_smem=p.m_smem_bytes(tile, d), static_smem=p.static_smem_bytes,
+        arrays={"u": Array((batch, m, n)), "out": Array((batch, m, n))},
+        output="out", axes=_a_axes(m, n, tile, d, batch),
+        loads={"cells": Load("cp4", "u", "src", (4 - d % 4) % 4,
+                             (m * n, sx))},
+        slots={"src": (0, buf), "dst": (buf, buf)},
+        cooperative=tiles > 1, cover=_full((batch, m, n)),
+        schedule=schedule,
+        int32=[("exchange plane index", 2 * m * n - 1)])
+
+
+# ---------------------------------------------------------------------------
+# One-step kernels: B, C, D; the transfer kernels
+# ---------------------------------------------------------------------------
+
+def plan_b(shape) -> Plan:
+    """Kernel B (``heat_b_step``): one step, a thread a column of
+    ``b_rows_per_thread`` rows, neighbours read from global memory under
+    the kernel's tests (``heat_b_step.cu`` :32-60)."""
+    p = _p()
+    m, n = shape
+    bx, by = p.b_block
+    tr = by * p.b_rows_per_thread
+
+    def axis(count, t, dim, name):
+        def span(i):
+            lo, hi = i * t, min(i * t + t, dim)
+            return Span((lo, hi), {"nbrs": (lo - 1, hi - lo + 2,
+                                            (0, dim))})
+        return Axis(name, count, span)
+
+    return Plan(
+        kernel="heat_b_step_kernel", entry="heat_b_step",
+        label=f"B {m}x{n}", grid=_ceil(m, tr) * _ceil(n, bx),
+        threads=bx * by, max_threads=1024, dyn_smem=0,
+        static_smem=p.static_smem_bytes,
+        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        axes=[axis(_ceil(m, tr), tr, m, "rows"),
+              axis(_ceil(n, bx), bx, n, "cols")],
+        loads={"nbrs": Load("ld", "u")}, cover=_full(shape))
+
+
+def plan_c(shape) -> Plan:
+    """Kernel C (``heat_c_tiled``): one step through tiles staged in
+    shared memory with their one-cell ring, cp.async cell by cell with
+    zero fill (``heat_c_tiled.cu`` :35-58)."""
+    p = _p()
+    m, n = shape
+    ty, tx = p.c_tile
+    bx, by = p.c_block
+
+    def axis(count, t, dim, name):
+        def span(i):
+            lo, hi = i * t, min(i * t + t, dim)
+            return Span((lo, hi), {"cells": (lo - 1, t + 2, (0, dim))})
+        return Axis(name, count, span)
+
+    buf = (ty + 2) * (tx + 2) * 4
+    return Plan(
+        kernel="heat_c_tiled_kernel", entry="heat_c_tiled",
+        label=f"C {m}x{n}", grid=_ceil(m, ty) * _ceil(n, tx),
+        threads=bx * by, max_threads=1024, dyn_smem=buf,
+        static_smem=p.static_smem_bytes,
+        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        axes=[axis(_ceil(m, ty), ty, m, "rows"),
+              axis(_ceil(n, tx), tx, n, "cols")],
+        loads={"cells": Load("cp4", "u", "src", 0, (tx + 2,))},
+        slots={"src": (0, buf)}, cover=_full(shape),
+        schedule=lambda spans: _sched_cp_once([buf]))
+
+
+def plan_d(shape) -> Plan:
+    """Kernel D (``heat_d_step3d``): one 7-point step, a thread a run of
+    ``d_planes`` X planes of one (y, z) column (``heat_d_step3d.cu``
+    :39-90)."""
+    p = _p()
+    nx, ny, nz = shape
+    bz, by = p.d_block
+    planes = p.d_planes
+
+    def axis(count, t, dim, name):
+        def span(i):
+            lo, hi = i * t, min(i * t + t, dim)
+            return Span((lo, hi), {"nbrs": (lo - 1, hi - lo + 2,
+                                            (0, dim))})
+        return Axis(name, count, span)
+
+    axes = [axis(_ceil(nx, planes), planes, nx, "x"),
+            axis(_ceil(ny, by), by, ny, "y"), axis(_ceil(nz, bz), bz, nz,
+                                                   "z")]
+    return Plan(
+        kernel="heat_d_step3d_kernel", entry="heat_d_step3d",
+        label=f"D {nx}x{ny}x{nz}",
+        grid=axes[0].count * axes[1].count * axes[2].count,
+        threads=bz * by, max_threads=1024, dyn_smem=0,
+        static_smem=p.static_smem_bytes,
+        arrays={"u": Array(shape), "out": Array(shape)}, output="out",
+        axes=axes, loads={"nbrs": Load("ld", "u")}, cover=_full(shape))
+
+
+def _mg_axes(lead, out_shape, block, reads_of):
+    bx, by = block
+
+    def axis(count, t, dim, name, d):
+        def span(i):
+            lo, hi = i * t, min(i * t + t, dim)
+            return Span((lo, hi), {"src": reads_of(d, lo, hi)})
+        return Axis(name, count, span)
+
+    return [Axis("members", lead, lambda b: Span((b, b + 1),
+                                                 {"src": (b, 1, None)})),
+            axis(_ceil(out_shape[0], by), by, out_shape[0], "rows", 0),
+            axis(_ceil(out_shape[1], bx), bx, out_shape[1], "cols", 1)]
+
+
+def plan_restrict(fine, coarse, batch=1) -> Plan:
+    """``heat_mg_restrict``: a thread a coarse cell; an interior cell
+    reads the 3 x 3 fine cells around fine (2i, 2j), the ring is written
+    0 (``heat_mg_restrict.cu`` :38-62)."""
+    p = _p()
+
+    def reads(d, lo, hi):
+        a, b = max(lo, 1), min(hi, coarse[d] - 1)
+        return (2 * a - 1, max(0, 2 * (b - a) + 1), None)
+
+    axes = _mg_axes(batch, coarse, p.mg_block, reads)
+    return Plan(
+        kernel="heat_mg_restrict_kernel", entry="heat_mg_restrict",
+        label=f"restrict {fine[0]}x{fine[1]} -> {coarse[0]}x{coarse[1]}",
+        grid=batch * axes[1].count * axes[2].count,
+        threads=p.mg_block[0] * p.mg_block[1], max_threads=1024,
+        dyn_smem=0, static_smem=0,
+        arrays={"src": Array((batch,) + tuple(fine)),
+                "out": Array((batch,) + tuple(coarse))},
+        output="out", axes=axes, loads={"src": Load("ld", "src")},
+        cover=_full((batch,) + tuple(coarse)),
+        int32=[("fine row index 2i + 1", 2 * coarse[0] - 3),
+               ("fine column index 2j + 1", 2 * coarse[1] - 3)])
+
+
+def plan_prolong(coarse, fine, batch=1) -> Plan:
+    """``heat_mg_prolong``: a thread a fine cell; interior cell (p, q)
+    reads coarse rows p >> 1 .. (p >> 1) + 1 and columns q >> 1 ..
+    (q >> 1) + 1 (``heat_mg_prolong.cu`` :45-64)."""
+    p = _p()
+
+    def reads(d, lo, hi):
+        a, b = max(lo, 1), min(hi, fine[d] - 1)
+        if a >= b:
+            return (0, 0, None)
+        first = (a - 1) >> 1
+        return (first, ((b - 2) >> 1) + 2 - first, None)
+
+    axes = _mg_axes(batch, fine, p.mg_block, reads)
+    return Plan(
+        kernel="heat_mg_prolong_kernel", entry="heat_mg_prolong",
+        label=f"prolong {coarse[0]}x{coarse[1]} -> {fine[0]}x{fine[1]}",
+        grid=batch * axes[1].count * axes[2].count,
+        threads=p.mg_block[0] * p.mg_block[1], max_threads=1024,
+        dyn_smem=0, static_smem=0,
+        arrays={"src": Array((batch,) + tuple(coarse)),
+                "out": Array((batch,) + tuple(fine))},
+        output="out", axes=axes, loads={"src": Load("ld", "src")},
+        cover=_full((batch,) + tuple(fine)))
+
+
+# ---------------------------------------------------------------------------
+# I and I-uni: column bands streamed down the grid
+# ---------------------------------------------------------------------------
+
+def plan_i(shape, k, uni=False) -> Plan:
+    """Kernel I (``heat_i_tile_temporal``) or I-uni: bands of
+    ``i_launch``'s columns, a ring of ``kBandPrefetch + 2`` input rows fed
+    4 rows ahead (``heat_band.cuh``)."""
+    p = _p()
+    m, n = shape
+    tile_x, seg = p.i_launch(tuple(shape), k)
+    w = tile_x + 2 * k
+    prefetch, slots = 4, 6                  # kBandPrefetch, kBandSlots
+    n_bands, n_seg = _ceil(n, tile_x), _ceil(m, seg)
+
+    def rows(i):
+        r0, r1 = i * seg, min(i * seg + seg, m)
+        return Span((r0, r1), {"row": (r0 - k, r1 - r0 + 2 * k, (0, m))},
+                    (r1 - r0 + 2 * k,))
+
+    def cols(b):
+        gx0 = b * tile_x - k
+        aligned = (uni and gx0 >= 0 and gx0 + w <= n and gx0 % 4 == 0
+                   and n % 4 == 0 and w % 4 == 0)
+        write = (b * tile_x, min(b * tile_x + tile_x, n))
+        return Span(write, {"row": (gx0, w, None if aligned else (0, n))},
+                    (aligned,))
+
+    def schedule(spans):
+        r0 = spans[0].write[0]
+        t0, t1 = r0 - k, spans[0].write[1] + k
+        return _sched_ring_groups(t0, t1, prefetch, slots,
+                                  lambda slot, t: [("cp_async", slot, 4 * w)])
+
+    name = "heat_i_uni_tile_temporal" if uni else "heat_i_tile_temporal"
+    return Plan(
+        kernel=name + "_kernel", entry=name,
+        label=f"{'I-uni' if uni else 'I'} {m}x{n} K={k}",
+        grid=n_bands * n_seg, threads=w, max_threads=256,
+        dyn_smem=4 * (slots + 2 * (k - 1)) * w,
+        static_smem=p.static_smem_bytes,
+        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        axes=[Axis("segments", n_seg, rows), Axis("bands", n_bands, cols)],
+        loads={"row": Load("cp16" if uni else "cp4", "u", "ring", 0, (0,),
+                           streamed=1)},
+        slots={f"ring{i}": (4 * i * w, 4 * w) for i in range(slots)},
+        cover=_full(shape), schedule=schedule)
+
+
+# ---------------------------------------------------------------------------
+# F: the 3D plane loop
+# ---------------------------------------------------------------------------
+
+def _f_kinds(spans):
+    _, sy, sz = spans
+    a = sy.kind
+    b = sz.kind
+    names = {"tiles", "edge" if (a[1] or a[3] or b[1] or b[3])
+             else "interior"}
+    for name, hit in (("top", a[0]), ("left", b[0]), ("bottom", a[2]),
+                      ("right", b[2]), ("ragged_y", a[4]),
+                      ("ragged_z", b[4]), ("partial_group", b[5])):
+        if hit:
+            names.add(name)
+    return names
+
+
+def plan_f(shape, k, load="tma") -> Plan:
+    """Kernel F (``heat_f_temporal3d``) at depth ``k`` on an ``(X, Y,
+    Z)`` grid under ``load`` ("tma" or "cp.async"), at the launch
+    ``stencil_kernels_3d.f_geometry`` gives (``heat_f_block.inc``,
+    ``heat_temporal3d.cuh`` HeatFLoop)."""
+    from parallel_heat_tpu_torch.ops.stencil_kernels_3d import f_geometry
+
+    p = _p()
+    nx, ny, nz = shape
+    block, rows, prefetch, seg = f_geometry(shape, k)
+    warps = block[1]
+    wy, wz = p.f_extent(block, rows)
+    P = p.f_pad(k)
+    ty_out, tz_out = wy - 2 * k, wz - 2 * P
+    tiles_y, tiles_z = _ceil(ny, ty_out), _ceil(nz, tz_out)
+    n_seg = _ceil(nx, seg)
+    slots = prefetch + 2
+    slot_f = (wy + 2) * wz
+    box_bytes = 4 * wz * wy
+    threads = 32 * warps
+    tma = load == "tma"
+
+    def xs(i):
+        x0, x1 = i * seg, min(i * seg + seg, nx)
+        return Span((x0, x1), {"plane": (x0 - k, x1 - x0 + 2 * k, (0, nx))},
+                    (x1 - x0,))
+
+    def ys(i):
+        y0 = i * ty_out - k
+        write = (y0 + k, min(y0 + wy - k, ny))
+        return Span(write, {"plane": (y0, wy, None if tma else (0, ny))},
+                    _edge_kind(y0, y0 + wy, ny, write, ty_out))
+
+    def zs(i):
+        z0 = i * tz_out - P
+        write = (z0 + P, min(z0 + wz - P, nz))
+        return Span(write, {"plane": (z0, wz, None if tma else (0, nz))},
+                    _edge_kind(z0, z0 + wz, nz, write, tz_out))
+
+    def schedule(spans):
+        x0, x1 = spans[0].write
+        y0 = spans[1].reads["plane"][0]
+        z0 = spans[2].reads["plane"][0]
+        if tma:
+            def fill(slot, bar, t):
+                return [("expect_tx", bar, box_bytes),
+                        ("tma", slot, bar, box_bytes, (z0, y0, t), 0)]
+            count = 1
+        else:
+            def fill(slot, bar, t):
+                return [("cp_async", slot, box_bytes, (z0, y0, t)),
+                        ("cp_async_arrive_noinc", bar, threads)]
+            count = threads
+        return _sched_ring_mbar(x0 - k, x1 + k, prefetch, slots, fill,
+                                count)
+
+    edge = (min(rows, 2) * warps + 2) * wz
+    slot_map = {f"ring{i}": (4 * i * slot_f, 4 * slot_f)
+                for i in range(slots)}
+    slot_map["levels"] = (4 * slots * slot_f, 4 * 2 * (k - 1) * edge)
+    slot_map["bars"] = (4 * (slots * slot_f + 2 * (k - 1) * edge),
+                        8 * slots)
+    return Plan(
+        kernel="heat_f_temporal3d_kernel", entry="heat_f_temporal3d",
+        label=f"F {nx}x{ny}x{nz} K={k} {load}",
+        grid=n_seg * tiles_y * tiles_z, threads=threads,
+        max_threads=32 * (8 if rows == 4 else 16),
+        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch),
+        static_smem=p.static_smem_bytes,
+        arrays={"u": Array(shape), "out": Array(shape)}, output="out",
+        axes=[Axis("x", n_seg, xs), Axis("y", tiles_y, ys),
+              Axis("z", tiles_z, zs)],
+        loads={"plane": Load("tma" if tma else "cp4", "u", "ring", wz,
+                             (0, wz), streamed=1, box=(1, wy, wz))},
+        slots=slot_map, align_slack=128, cover=_full(shape),
+        schedule=schedule,
+        int32=[("TMA box coordinate", max(nx, ny, nz))],
+        kinds=p.f_tile_kinds(shape, k, block, rows), kinds_of=_f_kinds)
+
+
+# ---------------------------------------------------------------------------
+# The sharded 2D block kernels (heat_g.cuh)
+# ---------------------------------------------------------------------------
+
+G_KERNELS = {"G": "heat_g_block_padded", "G-circ": "heat_g_block_circular",
+             "G-fuse": "heat_g_block_fused", "G-uni": "heat_g_block_uniform",
+             "band": "heat_g_band_fix"}
+
+
+def plan_g(kind, block_shape, k, origin=(0, 0), grid_shape=None,
+           defer=False) -> Plan:
+    """A G kernel (``kind`` of :data:`G_KERNELS`) on a ``(bx, by)`` block
+    at ``origin`` of a grid: monolithic, the deferred bulk (``defer``,
+    rows ``[k, bx - k)``), or the band kernel (rows ``[0, k)`` and ``[bx -
+    k, bx)``). Loads are in frame coordinates, the block's cells shifted
+    by ``k`` (the layout of the pieces, ``heat_g_src``, maps the frame
+    onto them); a tile inside the block under G-uni copies its core
+    columns 16 bytes at a time from ``u``."""
+    from parallel_heat_tpu_torch.ops.stencil_kernels_block import (
+        _block_geometry)
+
+    p = _p()
+    bx, by = block_shape
+    gm, gn = grid_shape or block_shape
+    band = kind == "band"
+    if band:
+        ty, tx = k, p.g_band_tile_x
+        block = p.g_band_block
+        regions = [(0, k), (bx - k, k)]      # heat_g_band_fix.cu
+    else:
+        ty, tx, *block = _block_geometry()
+        regions = [(k, bx - 2 * k)] if defer else [(0, bx)]
+    sy, sw = ty + 2 * k, tx + 2 * k
+    pad = (4 - k % 4) % 4
+    sx = p.row_floats(k, tx)
+    uni = kind == "G-uni"
+    n_col = _ceil(by, tx)
+    rtiles = [(begin + i * ty, begin + rows)
+              for begin, rows in regions for i in range(_ceil(rows, ty))]
+    row_guard = (max(0, k - origin[0]), min(bx + 2 * k, gm - origin[0] + k))
+    col_guard = (max(0, k - origin[1]), min(by + 2 * k, gn - origin[1] + k))
+
+    def inside_r(r0):
+        return r0 - k >= 0 and r0 - k + sy <= bx
+
+    def inside_c(c0):
+        return c0 - k >= 0 and c0 - k + sw <= by
+
+    def rows_span(i):
+        r0, end = rtiles[i]
+        write = (r0, min(r0 + ty, end))
+        return Span(write, {"frame": (r0, sy, None if inside_r(r0)
+                                      else row_guard),
+                            "core": (r0 - k, sy, None) if inside_r(r0)
+                            else None},
+                    (inside_r(r0), write[1] - write[0] < ty))
+
+    def cols_span(j):
+        c0 = j * tx
+        write = (c0, min(c0 + tx, by))
+        return Span(write, {"frame": (c0, sw, None if inside_c(c0)
+                                      else col_guard),
+                            "core": (c0, tx, None) if inside_c(c0)
+                            else None},
+                    (inside_c(c0), (write[1] - write[0]) % 4 != 0))
+
+    def schedule(spans):
+        inside = spans[0].kind[0] and spans[1].kind[0]
+        if uni and inside:
+            return _sched_cp_once([4 * sy * tx, 4 * sy * 2 * k])
+        return _sched_cp_once([4 * sy * sw])
+
+    loads = {"frame": Load("cp4", "frame", "src", pad, (sx,))}
+    if uni:
+        loads["core"] = Load("cp16", "u", "src", pad + k, (sx,))
+    buf = sy * sx * 4
+    if band:
+        cover = [((0, k), (0, by)), ((bx - k, bx), (0, by))]
+        leave = [((k, bx - k), (0, by))]
+    elif defer:
+        cover, leave = [((k, bx - k), (0, by))], [((0, k), (0, by)),
+                                                   ((bx - k, bx), (0, by))]
+    else:
+        cover, leave = _full(block_shape), []
+    name = G_KERNELS[kind]
+    what = "band" if band else (kind + (" deferred bulk" if defer else ""))
+    return Plan(
+        kernel=name + "_kernel", entry=name,
+        label=f"{what} {bx}x{by} at {tuple(origin)} K={k}",
+        grid=len(rtiles) * n_col, threads=block[0] * block[1],
+        max_threads=512, dyn_smem=p.g_smem_bytes(k, (ty, tx)),
+        static_smem=p.static_smem_bytes,
+        arrays={"frame": Array((bx + 2 * k, by + 2 * k)),
+                "u": Array((bx, by)), "out": Array((bx, by))},
+        output="out",
+        axes=[Axis("rows", len(rtiles), rows_span),
+              Axis("cols", n_col, cols_span)],
+        loads=loads, slots={"src": (0, buf), "dst": (buf, buf)},
+        min_blocks_per_sm=p.e_min_blocks_per_sm, cover=cover, leave=leave,
+        schedule=schedule,
+        group=(f"G {bx}x{by} at {tuple(origin)} K={k}"
+               if band or defer else None))
+
+
+# ---------------------------------------------------------------------------
+# The sharded 3D block kernels (heat_h.cuh)
+# ---------------------------------------------------------------------------
+
+H_KERNELS = {"H": "heat_h_block_3d", "H-fuse": "heat_h_block_3d_fused",
+             "band": "heat_h_band_fix_3d"}
+
+
+def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
+           defer=False, load="cp.async") -> Plan:
+    """An H kernel (``kind`` of :data:`H_KERNELS`) on a ``(bx, by, bz)``
+    block at ``origin``: monolithic, H-fused's deferred bulk (``defer``,
+    planes ``[k, bx - k)``) or the band kernel (planes ``[0, k)`` and
+    ``[bx - k, bx)``), at the launch ``stencil_kernels_block_3d._geometry``
+    gives. Tiles inside the block load each plane as a TMA box under
+    ``load="tma"`` (H-fused only), the x slabs' planes by cp.async;
+    elsewhere the per-cell cp.async ring (``heat_t3d_stream``). Loads are
+    in frame coordinates, the block's cells shifted by ``k``."""
+    from parallel_heat_tpu_torch.ops.stencil_kernels_block_3d import (
+        _geometry)
+
+    p = _p()
+    bx, by, bz = block_shape
+    grid_shape = grid_shape or block_shape
+    band = kind == "band"
+    tma = load == "tma"
+    if band:
+        bzt, byt, rows = _geometry(block_shape, k, k, False)
+        seg = k
+        regions = [(0, k), (bx - k, k)]
+    else:
+        planes = bx - 2 * k if defer else bx
+        bzt, byt, rows, seg = _geometry(block_shape, k, planes)
+        regions = [(k, bx - 2 * k)] if defer else [(0, bx)]
+    wy, wz = byt * rows, bzt
+    ty_out, tz_out = wy - 2 * k, wz - 2 * k
+    tiles_y, tiles_z = _ceil(by, ty_out), _ceil(bz, tz_out)
+    xsegs = [(begin + i * seg, min(begin + i * seg + seg, begin + n))
+             for begin, n in regions for i in range(_ceil(n, seg))]
+    g = [(max(0, k - o), min(b + 2 * k, n - o + k))
+         for o, b, n in zip(origin, block_shape, grid_shape)]
+
+    def inside(lo, w, b):
+        return lo >= 0 and lo + w <= b
+
+    def xs(i):
+        x0, x1 = xsegs[i]
+        return Span((x0, x1), {"plane": (x0, x1 - x0 + 2 * k, g[0])},
+                    (x1 - x0,))
+
+    def ys(i):
+        lo = i * ty_out - k
+        write = (lo + k, min(lo + wy - k, by))
+        return Span(write, {"plane": (lo + k, wy, g[1])},
+                    (inside(lo, wy, by),))
+
+    def zs(i):
+        lo = i * tz_out - k
+        write = (lo + k, min(lo + wz - k, bz))
+        return Span(write, {"plane": (lo + k, wz, g[2])},
+                    (inside(lo, wz, bz),))
+
+    tma_ps = _tma_plane(wy, wz)
+    box_bytes = 4 * wy * (wz + 4)
+
+    def schedule(spans):
+        x0, x1 = spans[0].write
+        t0, t1 = x0 - k, x1 + k
+        if tma and spans[1].kind[0] and spans[2].kind[0]:
+            ty0 = spans[1].reads["plane"][0] - k
+            tz0 = spans[2].reads["plane"][0] - k
+
+            def fill(slot, bar, t):
+                slab = not (0 <= t < bx) and 0 <= origin[0] + t < grid_shape[0]
+                if slab:
+                    return [("cp_async", slot, 4 * wy * wz),
+                            ("arrive", bar)]
+                return [("expect_tx", bar, box_bytes),
+                        ("tma", slot, bar, box_bytes,
+                         (tz0 - (tz0 & 3), ty0, t), 0)]
+            return _sched_ring_mbar(t0, t1, p.h_tma_prefetch,
+                                    p.h_tma_prefetch + 2, fill, 1,
+                                    groups=True)
+        return _sched_ring_groups(
+            t0, t1, p.h_prefetch, p.h_prefetch + 2,
+            lambda slot, t: [("cp_async", slot, 4 * wy * wz)])
+
+    plane_b = 4 * (wy + 2) * wz
+    # The cp.async ring starts at the buffer itself (heat_t3d_stream),
+    # the TMA ring at its first 128-byte boundary.
+    slots = {f"ring{i}": (i * plane_b, plane_b, 0)
+             for i in range(p.h_prefetch + 2)}
+    loads = {"plane": Load("cp4", "frame", "ring", wz, (0, wz), streamed=1)}
+    dyn = p.h_smem_bytes(k, (bzt, byt), rows)
+    slack = 0
+    if tma:
+        loads["box"] = Load("tma", "u", "box", tma_ps[1], (0, tma_ps[0]),
+                            streamed=1, box=(1, wy, wz + 4))
+        for i in range(p.h_tma_prefetch + 2):
+            slots[f"box{i}"] = (4 * i * tma_ps[2], 4 * tma_ps[2])
+        dyn = max(dyn, p.h_tma_smem_bytes(k, (bzt, byt), rows))
+        slack = 128
+    if band:
+        cover = [((0, k), (0, by), (0, bz)), ((bx - k, bx), (0, by), (0, bz))]
+        leave = [((k, bx - k), (0, by), (0, bz))]
+    elif defer:
+        cover = [((k, bx - k), (0, by), (0, bz))]
+        leave = [((0, k), (0, by), (0, bz)), ((bx - k, bx), (0, by), (0, bz))]
+    else:
+        cover, leave = _full(block_shape), []
+    ye, ze = by + 2 * k, bz + 2 * k
+    name = H_KERNELS[kind]
+    what = "band" if band else (kind + (" deferred bulk" if defer else ""))
+    return Plan(
+        kernel=name + "_kernel", entry=name,
+        label=f"{what} {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}",
+        grid=len(xsegs) * tiles_y * tiles_z, threads=bzt * byt,
+        max_threads=512, dyn_smem=dyn, static_smem=p.static_smem_bytes,
+        arrays={"frame": Array((bx + 2 * k, ye, ze)),
+                "u": Array(block_shape), "out": Array(block_shape)},
+        output="out",
+        axes=[Axis("x", len(xsegs), xs), Axis("y", tiles_y, ys),
+              Axis("z", tiles_z, zs)],
+        loads=loads, slots=slots, align_slack=slack, cover=cover,
+        leave=leave, schedule=schedule,
+        group=(f"H {bx}x{by}x{bz} at {tuple(origin)} K={k}"
+               if band or defer else None),
+        # HeatHStrides and the per-row offsets are int32 (heat_h.cuh:80,
+        # :243); heat_h_launch refuses ye * ze past it.
+        int32=[("plane stride by * bz", by * bz),
+               ("slab stride ye * ze", ye * ze),
+               ("row offset yc * ze + zc", ye * ze - 1)])
+
+
+def _tma_plane(wy, wz):
+    """``(row, lead, ps)`` floats of H-fused's TMA ring
+    (``heat_temporal3d.cuh`` heat_tma_plane)."""
+    row = wz + 4
+    lead = -(-row // 32) * 32
+    return row, lead, -(-(lead + (wy + 1) * row) // 32) * 32
+
+
+# ---------------------------------------------------------------------------
+# The analysis fixture kernel (csrc/heat_probe_fixture.cu)
+# ---------------------------------------------------------------------------
+
+FIXTURE_VARIANTS = ("clean", "clean_tma", "oob_window", "runtime_window",
+                    "wait_without_issue", "leaked_issue", "slot_reuse",
+                    "expect_mismatch")
+FIXTURE_COLS = 128
+FIXTURE_THREADS = 128
+
+
+def plan_fixture(variant="clean", rows=16, n_strips=2, window_rows=None,
+                 in_rows=None, in_shift=0, grid=None, cooperative=False,
+                 limit_bytes=None) -> Plan:
+    """``heat_probe_fixture``: one block per output strip of ``rows //
+    n_strips`` rows loads its window into one of two shared slots, waits,
+    and writes ``out = 2 u``. ``variant`` is the kernel's code (a
+    :data:`FIXTURE_VARIANTS` entry); the geometry's faults are seeded
+    here: ``in_rows`` and ``in_shift`` tile the input in blocks of that
+    many rows, block ``s + in_shift`` for strip ``s`` (a ragged or
+    out-of-range tiling); ``grid`` launches fewer blocks than strips;
+    ``window_rows`` loads taller windows (a box over 256 rows);
+    ``cooperative`` asks for a cooperative launch; ``limit_bytes``
+    audits the shared memory against an injected limit."""
+    if variant not in FIXTURE_VARIANTS:
+        raise ValueError(f"unknown fixture variant {variant!r}")
+    cols = FIXTURE_COLS
+    strip = rows // n_strips
+    if window_rows is None:
+        window_rows = 16 if variant == "oob_window" else strip
+    tma = variant in ("clean_tma", "expect_mismatch", "wait_without_issue")
+    grid = n_strips if grid is None else grid
+    slot_b = 4 * window_rows * cols
+    in_rows = in_rows or strip
+
+    def rows_span(s):
+        if variant == "runtime_window":
+            start = RUNTIME
+        elif variant == "oob_window":
+            start = s * window_rows
+        else:
+            start = (s + in_shift) * in_rows
+        return Span((s * strip, s * strip + strip),
+                    {"window": (start, in_rows if in_rows != strip
+                                else window_rows, None)},
+                    (s % 2, s == 0))
+
+    def cols_span(j):
+        return Span((0, cols), {"window": (0, cols, None)})
+
+    def schedule(spans):
+        s = spans[0].kind[0]
+        slot = f"slot{s % 2}"
+        start = spans[0].reads["window"][0]
+        if variant in ("clean", "oob_window", "runtime_window"):
+            return _sched_cp_once([slot_b], slot)
+        if variant == "leaked_issue":
+            return [("cp_async", slot, slot_b), ("commit",)]
+        if variant == "slot_reuse":
+            return [("cp_async", "slot0", slot_b), ("commit",),
+                    ("cp_async", "slot0", slot_b), ("commit",),
+                    ("wait_prior", 0), ("read", "slot0")]
+        if variant == "wait_without_issue":
+            return [("mbar_init", "bar", 1), ("wait", "bar", 0),
+                    ("read", slot)]
+        expect = slot_b - (4 * cols if variant == "expect_mismatch" else 0)
+        return _sched_tma_once(slot_b, expect, (0, start), slot)
+
+    axes = [Axis("strips", grid, rows_span, ragged_ok=False),
+            Axis("cols", 1, cols_span, ragged_ok=False)]
+    tiled = in_rows != strip or in_shift != 0
+    load = Load("tma" if tma else "cp16", "u", "slot", 0, (cols,),
+                box=(window_rows, cols) if tma else (), tiled=tiled)
+    return Plan(
+        kernel="heat_probe_fixture_kernel", entry="heat_probe_fixture",
+        label=f"fixture {variant} {rows}x{cols}", grid=grid,
+        threads=FIXTURE_THREADS, max_threads=FIXTURE_THREADS,
+        dyn_smem=fixture_smem_bytes(window_rows), static_smem=0,
+        arrays={"u": Array((rows, cols)), "out": Array((rows, cols))},
+        output="out", axes=axes,
+        loads={"window": load},
+        slots={"slot0": (0, slot_b), "slot1": (slot_b, slot_b),
+               "bar": (2 * slot_b, 8)},
+        align_slack=128, cooperative=cooperative,
+        cover=_full((rows, cols)), schedule=schedule,
+        limit_bytes=limit_bytes)
+
+
+def fixture_smem_bytes(window_rows: int) -> int:
+    """Dynamic shared memory of a fixture block: two slots of
+    ``window_rows`` rows of 128 floats, 128 bytes to align them, an
+    8-byte mbarrier (``csrc/heat_probe_fixture.cu``)."""
+    return 2 * 4 * window_rows * FIXTURE_COLS + 128 + 8
+
+
+# ---------------------------------------------------------------------------
+# The audit matrix
+# ---------------------------------------------------------------------------
+
+# The main paths' geometries (PERF.md section 4) and the ragged shapes
+# chip_smoke.py checks.
+MAIN_2D = (16384, 16384)
+A_SHAPE = (1000, 1000)
+F_SHAPE = (512, 512, 512)
+G_GRID, G_MESH = (32768, 32768), (2, 4)
+H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)
+M_STACK = (64, (512, 512))
+MG_FINE, MG_COARSE = (512, 512), (257, 257)
+RAGGED_2D = ((1001, 999), (21, 23), (20, 24), (1001, 1000))
+RAGGED_3D = ((24, 20, 28), (67, 130, 201))
+
+
+def _mesh_origins(grid_shape, mesh):
+    """Block shape and the origins of the corner, an edge and an interior
+    block (where the mesh has one) of an even cut of ``grid_shape``."""
+    block = tuple(n // d for n, d in zip(grid_shape, mesh))
+    picks = set()
+    for idx in ([0] * len(mesh), [d - 1 for d in mesh],
+                [min(1, d - 1) for d in mesh]):
+        picks.add(tuple(i * b for i, b in zip(idx, block)))
+    return block, sorted(picks)
+
+
+def default_plans() -> List[Plan]:
+    """Every kernel of :data:`kernels.build.KERNELS` at its main path's
+    geometry, at the ragged shapes ``chip_smoke.py`` checks, and at every
+    K the pickers admit (``e_k_max``, ``g_k_max``, ``f_k_max`` and F's
+    deep shapes); plus the fixture's clean variants."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+
+    p = _p()
+    out: List[Plan] = []
+    out.append(plan_e(MAIN_2D, p.e_k_default))
+    out.append(plan_e(MAIN_2D, p.e_k_default, uni=True))
+    for shape in RAGGED_2D:
+        for k in range(1, p.e_k_max() + 1):
+            out.append(plan_e(shape, k))
+            if p.uni_fits(shape):
+                out.append(plan_e(shape, k, uni=True))
+    for shape in (A_SHAPE, (1001, 999), (20, 24), (107, 210)):
+        out.append(plan_a(shape))
+    out.append(plan_m(M_STACK[0], M_STACK[1], 400))
+    out.append(plan_m(8, (20, 20), 20))
+    out.append(plan_b(MAIN_2D))
+    out.append(plan_c(MAIN_2D))
+    out.append(plan_b((21, 23)))
+    out.append(plan_c((21, 23)))
+    for uni in (False, True):
+        out.append(plan_i(MAIN_2D, p.i_k_default, uni))
+        out.append(plan_i((20, 24), 3, uni))
+    out.append(plan_d(F_SHAPE))
+    out.append(plan_d((24, 20, 28)))
+    for load in ("tma", "cp.async"):
+        out.append(plan_f(F_SHAPE, p.f_k_default, load))
+    for shape in RAGGED_3D:
+        loads = ("tma", "cp.async") if p.f_tma_fits(shape) else ("cp.async",)
+        for k in range(1, p.f_k_compiled + 1):
+            if p.f_shape(k) is None:
+                continue
+            for load in loads:
+                out.append(plan_f(shape, k, load))
+    out.append(plan_restrict(MG_FINE, MG_COARSE))
+    out.append(plan_prolong(MG_COARSE, MG_FINE))
+    out.append(plan_restrict((21, 23), (11, 12), batch=3))
+    out.append(plan_prolong((11, 12), (21, 23), batch=3))
+    # Sharded 2D: the default round (G-uni deferred bulk + band) on the
+    # main path's mesh, every pinned kind there; every K on ragged blocks.
+    block, origins = _mesh_origins(G_GRID, G_MESH)
+    for o in origins:
+        out.append(plan_g("G-uni", block, p.g_k_default, o, G_GRID,
+                          defer=True))
+        out.append(plan_g("band", block, p.g_k_default, o, G_GRID))
+    for kind in ("G", "G-circ", "G-fuse", "G-uni"):
+        out.append(plan_g(kind, block, p.g_k_default, origins[0], G_GRID))
+    for bshape in ((500, 252), (500, 250)):
+        grid = (bshape[0] * 2, bshape[1] * 4)
+        for k in range(1, p.g_k_max() + 1):
+            for kind in ("G-fuse", "G", "G-circ") + (
+                    ("G-uni",) if bshape[1] % 4 == 0 else ()):
+                out.append(plan_g(kind, bshape, k, (bshape[0], 0), grid))
+            out.append(plan_g("G-fuse", bshape, k, (0, 0), grid, defer=True))
+            out.append(plan_g("band", bshape, k, (0, 0), grid))
+    # Sharded 3D: H-fused on the main path's mesh (its load as h_load
+    # picks it), H-defer's bulk and band, H pinned.
+    block3, origins3 = _mesh_origins(H_GRID, H_MESH)
+    k3 = p.h_k_default
+    for o in origins3:
+        out.append(plan_h("H-fuse", block3, k3, o, H_GRID,
+                          load=skb3.h_load(block3, k3)))
+        out.append(plan_h("H-fuse", block3, k3, o, H_GRID, load="cp.async"))
+        out.append(plan_h("H-fuse", block3, k3, o, H_GRID, defer=True,
+                          load=skb3.h_load(block3, k3)))
+        out.append(plan_h("band", block3, k3, o, H_GRID))
+    out.append(plan_h("H", block3, k3, origins3[0], H_GRID))
+    for bshape, ks in (((67, 128, 92), range(1, p.h_k_max() + 1)),
+                       ((40, 128, 96), (1, 3, 8))):
+        grid = tuple(2 * b for b in bshape)
+        for k in ks:
+            if k > p.h_k_max():
+                continue
+            out.append(plan_h("H-fuse", bshape, k, (0, 0, 0), grid,
+                              load=skb3.h_load(bshape, k)))
+            out.append(plan_h("H", bshape, k, (0, 0, 0), grid))
+            if bshape[0] >= 2 * k:
+                out.append(plan_h("band", bshape, k, (0, 0, 0), grid))
+    out.append(plan_fixture("clean", 16))
+    out.append(plan_fixture("clean_tma", 16))
+    out.append(plan_fixture("clean_tma", 262144, n_strips=32768))
+    return out
+
+
+def coverage_groups(plans) -> List[Tuple[str, List[Plan]]]:
+    """The plans that share a :attr:`Plan.group`, by group: launches
+    whose writes together must cover their output once."""
+    groups: Dict[str, List[Plan]] = {}
+    for pl in plans:
+        if pl.group is not None:
+            groups.setdefault(pl.group, []).append(pl)
+    return [(name, g) for name, g in groups.items() if len(g) >= 2]

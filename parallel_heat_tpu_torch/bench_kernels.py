@@ -162,9 +162,11 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
+    # heatlint: begin dispatch-region
     for _ in range(reps):
         fn()
     end.record()
+    # heatlint: end dispatch-region
     end.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -207,8 +209,10 @@ def device_ms(fn, instance: str, made: int = 40) -> float:
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # heatlint: begin dispatch-region
             for _ in range(made):
                 fn()
+            # heatlint: end dispatch-region
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if re.search(re.escape(instance), e.key)]

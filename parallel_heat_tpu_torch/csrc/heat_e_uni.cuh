@@ -101,6 +101,19 @@ inline void heat_e_uni_load_box(int load, int sy, int sx, int warps,
   box[1] = static_cast<cuuint32_t>(rows);
 }
 
+// The boxes heat_e_uni_launch encodes for load form `load` at depth k,
+// tile (tile_y, tile_x) and `warps` warps: of every piece, and of the
+// last row band. The kernel audit's record check reads the whole load's
+// (heat_probe_temporal_box).
+inline void heat_e_uni_map_boxes(int load, int k, int tile_y, int tile_x,
+                                 int warps, cuuint32_t box[2],
+                                 cuuint32_t last[2]) {
+  const int sy = tile_y + 2 * k;
+  const int sx = heat_row_floats(k, tile_x);
+  heat_e_uni_load_box(load, sy, sx, warps, false, box);
+  heat_e_uni_load_box(load, sy, sx, warps, true, last);
+}
+
 // The tensor maps of a split load: the pieces' box, and the last row
 // band's (kHeatLoadRowBands; the same box otherwise).
 struct HeatEUniMaps {
@@ -224,13 +237,19 @@ __device__ __forceinline__ void heat_e_uni_tile(
         heat_mbar_expect(bar, static_cast<uint32_t>(sizeof(float) * sy * sx));
         heat_tma_load_2d(buf, umap, bar, static_cast<int>(gx0 - pad),
                          static_cast<int>(gy0));
+        if constexpr (kVar == kHeatLoopRecord)
+          heat_record_load(res, blockIdx.x, static_cast<int>(gx0 - pad),
+                           static_cast<int>(gy0), 0, 0u,
+                           static_cast<uint32_t>(sizeof(float) * sy * sx), 0,
+                           0u);
       }
     }
     __syncthreads();  // the mbarrier is initialised for every thread
-    heat_e_steps<kVar>(buf, buf + sy * sx, sx, pad, sy, sw, gy0, gx0, m, n, k,
-                       tile_y, tile_x, a0, cx, cy, out, res, [bar] {
-                         if (kVar != kHeatLoopNoLoad) heat_mbar_wait(bar, 0);
-                       });
+    heat_e_steps<kVar == kHeatLoopRecord ? kHeatLoopFull : kVar>(
+        buf, buf + sy * sx, sx, pad, sy, sw, gy0, gx0, m, n, k, tile_y,
+        tile_x, a0, cx, cy, out, res, [bar] {
+          if (kVar != kHeatLoopNoLoad) heat_mbar_wait(bar, 0);
+        });
   }
 }
 
@@ -279,8 +298,7 @@ inline int heat_e_uni_launch(Kernel kernel, const float* u, float* out,
                               static_cast<cuuint64_t>(m)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 4};
   cuuint32_t box[2], last[2];
-  heat_e_uni_load_box(kLoad, sy, sx, block_y, false, box);
-  heat_e_uni_load_box(kLoad, sy, sx, block_y, true, last);
+  heat_e_uni_map_boxes(kLoad, k, tile_y, tile_x, block_y, box, last);
   int enc = heat_tma_encode(&maps.body, u, 2, dims, strides, box);
   if (enc == 0 && kLoad == kHeatLoadRowBands)
     enc = heat_tma_encode(&maps.tail, u, 2, dims, strides, last);

@@ -16,6 +16,15 @@ using HeatFKernel = void (*)(const float*, float*, uint32_t*, int64_t,
                              int, float, float, float, float,
                              const CUtensorMap);
 
+// The box heat_f_launch encodes in its tensor map (innermost first): one
+// plane of the extended tile, 128 cells by block_y * rows rows. The
+// kernel audit's record check reads it (heat_probe_xslab_overlap_box).
+inline void heat_f_map_box(int block_y, int rows, cuuint32_t box[3]) {
+  box[0] = static_cast<cuuint32_t>(kFWidth);
+  box[1] = static_cast<cuuint32_t>(block_y * rows);
+  box[2] = 1;
+}
+
 // Kernel F's launch through `kernel`, the instance of (k, rows, tma) or
 // of a probe's variant of it (null where none is compiled), with
 // heat_f_temporal3d's arguments and results (heat_f_temporal3d.cu).
@@ -38,7 +47,9 @@ inline int heat_f_launch(HeatFKernel kernel, const float* u, float* out,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map = {};
   if (tma) {
-    const int err = heat_tma_encode_3d(&map, u, nx, ny, nz, kFWidth, wy);
+    cuuint32_t box[3];
+    heat_f_map_box(block_y, rows, box);
+    const int err = heat_tma_encode_3d_box(&map, u, nx, ny, nz, box);
     if (err != 0) return err;
   }
   const int smem = heat_f_smem_bytes(k, block_y, rows, prefetch);

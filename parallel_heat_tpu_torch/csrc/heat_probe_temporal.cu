@@ -30,7 +30,12 @@
 //     block steps its shared memory as it lies (the mbarrier is still
 //     initialised);
 //   - kHeatLoopNoStore (5): the last step stores nothing to the grid,
-//     its residual kept (launched with one), so the K steps stay live.
+//     its residual kept (launched with one), so the K steps stay live;
+//   - kHeatLoopRecord (12): E-uni as shipped, and the issuing thread
+//     writes its load down (heat_record_load) after the residual in `res`
+//     (1 + 8 blocks words): the kernel audit's plans are held against it,
+//     and its expect_tx against the box the launch encodes
+//     (heat_probe_temporal_box).
 
 #include "heat_e_uni.cuh"
 
@@ -47,7 +52,7 @@ heat_probe_temporal_kernel(float* __restrict__ out, uint32_t* res, int64_t m,
                         cx, cy, &umap);
 }
 
-// Variant `variant` (0 .. 5, above) of E-uni's launch, with
+// Variant `variant` (0 .. 5 or 12, above) of E-uni's launch, with
 // heat_e_uni_temporal's arguments after it. Returns a cudaError_t: 0, or
 // the reason the launch was refused; or a tensor-map encoding error.
 extern "C" int heat_probe_temporal(int variant, const float* u, float* out,
@@ -71,10 +76,26 @@ extern "C" int heat_probe_temporal(int variant, const float* u, float* out,
       return HEAT_PROBE_LAUNCH(kHeatLoopNoLoad);
     case kHeatLoopNoStore:
       return HEAT_PROBE_LAUNCH(kHeatLoopNoStore);
+    case kHeatLoopRecord:
+      return HEAT_PROBE_LAUNCH(kHeatLoopRecord);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef HEAT_PROBE_LAUNCH
+}
+
+// The box E-uni's launch encodes in its tensor map (whole load, depth
+// k, tile (tile_y, tile_x), block_y warps), innermost first, into box[0]
+// and box[1]: the bytes each block's box lands, which the record
+// variant's expect_tx is held against. Returns 0.
+extern "C" int heat_probe_temporal_box(int k, int tile_y, int tile_x,
+                                       int block_y, uint32_t* box) {
+  cuuint32_t body[2], last[2];
+  heat_e_uni_map_boxes(kHeatLoadWhole, k, tile_y, tile_x, block_y, body,
+                       last);
+  box[0] = body[0];
+  box[1] = body[1];
+  return 0;
 }
 
 extern "C" const char* heat_probe_temporal_error_string(int code) {

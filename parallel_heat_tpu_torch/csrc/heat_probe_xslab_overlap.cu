@@ -17,7 +17,12 @@
 //     no level stepped;
 //   - no_load (kHeatFNoLoad): the compute alone, the levels stepping over
 //     the ring as it lies after its first `prefetch` planes, the barrier a
-//     plane kept.
+//     plane kept;
+//   - record (kHeatFRecord): F as shipped, and the leader writes each
+//     plane's load down after the residual in `res` (1 + 8 blocks (nx +
+//     2K) words): the kernel audit's plans are held against it, and
+//     its expect_tx against the box the launch encodes
+//     (heat_probe_xslab_overlap_box).
 // full / max(no_step, no_load) near 1 says the loads overlap; near
 // (no_step + no_load) / max, that they add.
 //
@@ -53,18 +58,20 @@ heat_probe_xslab_overlap_kernel(const float* __restrict__ u,
 }
 
 // kHeatProbeF[tma][variant].
-static const HeatFKernel kHeatProbeF[2][3] = {
+static const HeatFKernel kHeatProbeF[2][4] = {
     {heat_probe_xslab_overlap_kernel<kHeatFFull, false>,
      heat_probe_xslab_overlap_kernel<kHeatFNoStep, false>,
-     heat_probe_xslab_overlap_kernel<kHeatFNoLoad, false>},
+     heat_probe_xslab_overlap_kernel<kHeatFNoLoad, false>,
+     heat_probe_xslab_overlap_kernel<kHeatFRecord, false>},
     {heat_probe_xslab_overlap_kernel<kHeatFFull, true>,
      heat_probe_xslab_overlap_kernel<kHeatFNoStep, true>,
-     heat_probe_xslab_overlap_kernel<kHeatFNoLoad, true>}};
+     heat_probe_xslab_overlap_kernel<kHeatFNoLoad, true>,
+     heat_probe_xslab_overlap_kernel<kHeatFRecord, true>}};
 
-// Variant `variant` (kHeatFFull, kHeatFNoStep or kHeatFNoLoad) of kernel
-// F's launch, with heat_f_temporal3d's arguments after it; k must be 3 and
-// rows 2. Returns a cudaError_t: 0, or the reason the launch was refused;
-// or a tensor-map encoding error.
+// Variant `variant` (kHeatFFull, kHeatFNoStep, kHeatFNoLoad or
+// kHeatFRecord) of kernel F's launch, with heat_f_temporal3d's arguments
+// after it; k must be 3 and rows 2. Returns a cudaError_t: 0, or the
+// reason the launch was refused; or a tensor-map encoding error.
 extern "C" int heat_probe_xslab_overlap(int variant, const float* u,
                                         float* out, uint32_t* res,
                                         int64_t nx, int64_t ny, int64_t nz,
@@ -72,11 +79,24 @@ extern "C" int heat_probe_xslab_overlap(int variant, const float* u,
                                         int rows, int seg, int prefetch,
                                         int tma, float a0, float cx, float cy,
                                         float cz, void* stream) {
-  if (variant < 0 || variant > 2 || k != kProbeK || rows != kProbeRows)
+  if (variant < 0 || variant > kHeatFRecord || k != kProbeK ||
+      rows != kProbeRows)
     return static_cast<int>(cudaErrorInvalidValue);
   return heat_f_launch(kHeatProbeF[tma != 0][variant], u, out, res, nx, ny,
                        nz, k, block_x, block_y, rows, seg, prefetch, tma, a0,
                        cx, cy, cz, stream);
+}
+
+// The box F's launch encodes in its tensor map at block_y warps of
+// `rows` rows, innermost first, into box[0 .. 2]: the bytes each TMA
+// fill lands, which the record variant's expect_tx is held against.
+// Returns 0.
+extern "C" int heat_probe_xslab_overlap_box(int block_y, int rows,
+                                            uint32_t* box) {
+  cuuint32_t b[3];
+  heat_f_map_box(block_y, rows, b);
+  for (int i = 0; i < 3; ++i) box[i] = b[i];
+  return 0;
 }
 
 extern "C" const char* heat_probe_xslab_overlap_error_string(int code) {

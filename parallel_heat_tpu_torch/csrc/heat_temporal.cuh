@@ -139,6 +139,8 @@ constexpr int kHeatLoopNoShuffle = 8;   // left and right taken as the cell
 constexpr int kHeatLoopNoRowLoad = 9;   // up and down taken as the cell too
 constexpr int kHeatLoopPadSlice = 10;   // left and right by two 4-byte loads
 constexpr int kHeatLoopNbr4 = 11;       // ... as the neighbour groups' float4s
+constexpr int kHeatLoopRecord = 12;     // kHeatLoopFull, each load written
+                                        // down (heat_record_load)
 
 // One step of this warp's rows [r0, r1) over the 4-column groups
 // [g0, g1) of the shared tile: group g holds shared floats [4g, 4g+4) of

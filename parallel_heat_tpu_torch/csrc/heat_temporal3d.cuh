@@ -460,6 +460,10 @@ inline int heat_f_smem_bytes(int k, int warps, int rows, int prefetch) {
 constexpr int kHeatFFull = 0;
 constexpr int kHeatFNoStep = 1;
 constexpr int kHeatFNoLoad = 2;
+// The kernel audit's record variant: kHeatFFull, and the leader writes
+// each plane's load down (heat_record_load) at record blockIdx.x * (nx +
+// 2K) + (t - x0 + K) of `rec` (the residual's buffer).
+constexpr int kHeatFRecord = 3;
 
 // One thread's state of the loop. The kernel fills the geometry; run()
 // streams the planes. kProbe is the loop's variant (kHeatFFull but in the
@@ -467,6 +471,7 @@ constexpr int kHeatFNoLoad = 2;
 template <int K, int R, bool kTma, int kProbe = kHeatFFull>
 struct HeatFLoop {
   static constexpr int kEdgeRows = R < 2 ? R : 2;
+  static constexpr bool kRecords = kProbe == kHeatFRecord;
   const float* u;            // the grid (the cp.async load)
   const CUtensorMap* map;    // its tensor map (the TMA load)
   float* out;
@@ -487,6 +492,7 @@ struct HeatFLoop {
   unsigned yin, zin;         // row r, cell j inside the global interior
   unsigned yout, zout;       // row r, cell j an output of this tile
   uint32_t box_bytes;
+  uint32_t* rec;             // kRecords: where each load is written down
   int cur;                   // ring slot of the plane being stepped
   uint32_t lap;              // parity of slot cur's use
   uint32_t rmax;
@@ -513,6 +519,18 @@ struct HeatFLoop {
                                   in ? 0 : 4);
         }
       heat_cp_async_arrive(&full[slot]);
+    }
+    if constexpr (kRecords) {
+      if (leader) {
+        const int64_t i = t - (x0 - K);
+        const int64_t at = static_cast<int64_t>(blockIdx.x) * (nx + 2 * K);
+        // A cp.async fill: each thread's R rows of four 4-byte copies.
+        const uint32_t copied =
+            kTma ? 0u : 16u * R * blockDim.x * blockDim.y;
+        heat_record_load(rec, at + i, z0, y0, static_cast<int>(t), copied,
+                         kTma ? box_bytes : 0u, slot,
+                         static_cast<uint32_t>((i / slots) & 1));
+      }
     }
   }
 

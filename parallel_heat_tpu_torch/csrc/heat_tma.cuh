@@ -114,6 +114,32 @@ __device__ __forceinline__ void heat_tma_load_3d(float* dst,
 
 // Error codes past cudaError_t's: cuTensorMapEncodeTiled's CUresult, or
 // that of fetching it from the driver, plus this base.
+// The kernel audit's record of one load (analysis/kernels.py
+// load_records), written by the thread that issues it in the record
+// variants of E-uni's block (kHeatLoopRecord) and F's plane loop
+// (kHeatFRecord): record `index` at rec[1 + 8 index ...] (rec[0] is the
+// residual's): the window's first cell, innermost first; the bytes the
+// block's own copies move (a cp.async fill's; 0 for a TMA box, whose
+// bytes are the box the launcher encodes in the tensor map, which the
+// kernel cannot read: the probes' *_box exports give it); the bytes
+// expect_tx arms (0 for a cp.async fill); its ring slot; the parity of
+// the phase its consumer waits on; 1.
+__device__ __forceinline__ void heat_record_load(uint32_t* rec, int64_t index,
+                                                 int c0, int c1, int c2,
+                                                 uint32_t copied,
+                                                 uint32_t expect, int slot,
+                                                 uint32_t parity) {
+  uint32_t* r = rec + 1 + 8 * index;
+  r[0] = static_cast<uint32_t>(c0);
+  r[1] = static_cast<uint32_t>(c1);
+  r[2] = static_cast<uint32_t>(c2);
+  r[3] = copied;
+  r[4] = expect;
+  r[5] = static_cast<uint32_t>(slot);
+  r[6] = parity;
+  r[7] = 1u;
+}
+
 constexpr int kHeatTmaEncodeError = 100000;
 
 typedef CUresult (*HeatEncodeTiled)(
@@ -157,20 +183,28 @@ inline int heat_tma_encode(CUtensorMap* map, const float* data, int rank,
 
 // The tensor map of the n0 x n1 x n2 float32 array `data` (n2 innermost
 // and contiguous, n2 % 4 == 0 so that its strides are multiples of 16
-// bytes), boxes of box_z x box_y x 1 cells (innermost first), zeros
-// outside the array: a plane's tile of a 3D grid or block (heat_h.cuh's
-// heat_h_encode_map, heat_f_temporal3d.cu). Returns 0 or an error code.
-inline int heat_tma_encode_3d(CUtensorMap* map, const float* data,
-                              int64_t n0, int64_t n1, int64_t n2, int box_z,
-                              int box_y) {
+// bytes), boxes of box[0] x box[1] x box[2] cells (innermost first),
+// zeros outside the array (heat_f.cuh's heat_f_launch). Returns 0 or an
+// error code.
+inline int heat_tma_encode_3d_box(CUtensorMap* map, const float* data,
+                                  int64_t n0, int64_t n1, int64_t n2,
+                                  const cuuint32_t box[3]) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n2),
                               static_cast<cuuint64_t>(n1),
                               static_cast<cuuint64_t>(n0)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n2) * 4,
                                  static_cast<cuuint64_t>(n1 * n2) * 4};
+  return heat_tma_encode(map, data, 3, dims, strides, box);
+}
+
+// As heat_tma_encode_3d_box, boxes of box_z x box_y x 1 cells: a plane's
+// tile of a 3D block (heat_h.cuh's heat_h_encode_map).
+inline int heat_tma_encode_3d(CUtensorMap* map, const float* data,
+                              int64_t n0, int64_t n1, int64_t n2, int box_z,
+                              int box_y) {
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_z),
                              static_cast<cuuint32_t>(box_y), 1};
-  return heat_tma_encode(map, data, 3, dims, strides, box);
+  return heat_tma_encode_3d_box(map, data, n0, n1, n2, box);
 }
 
 // The message of an entry point's error code: a cudaError_t, or one of

@@ -147,6 +147,10 @@ TOOLS = {
     # variant, then heat_f_temporal3d's arguments
     "heat_probe_xslab_overlap": ("heat_probe_xslab_overlap.cu",
                                  [_I32] + KERNELS["heat_f_temporal3d"][1]),
+    # the kernel audit's fixture: variant, u, out, off, rows, strip rows,
+    # stream
+    "heat_probe_fixture": ("heat_probe_fixture.cu",
+                           [_I32, _P, _P, _P, _I64, _I32, _P]),
 }
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
@@ -168,6 +172,7 @@ _PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties "
 _PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                         r"(?:, \d+ bytes cumulative stack size)?"
                          r"(?:, (\d+) bytes smem)?")
 _TEMPLATE_ARG = re.compile(r"L([a-z])(n?\d+)E")
 

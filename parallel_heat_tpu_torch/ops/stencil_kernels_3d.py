@@ -157,6 +157,16 @@ def slab_step_3d(u: torch.Tensor, out: torch.Tensor, *, cx: float,
     return sk._residual_view(bits)
 
 
+def f_geometry(shape, k: int):
+    """``(block, rows, prefetch, segment planes)``: the launch of kernel F
+    at depth ``k`` on an ``(X, Y, Z)`` grid, as :func:`xslab_steps_3d`
+    passes it (and the kernel audit's plans read it)."""
+    p = params()
+    block, rows, prefetch = p.f_shape(k)
+    _, _, seg = p.f_launch(tuple(shape), k, block, rows)
+    return block, rows, prefetch, seg
+
+
 def xslab_steps_3d(u: torch.Tensor, out: torch.Tensor, k: int,
                    with_residual: bool = True, *, cx: float, cy: float,
                    cz: float, load: Optional[str] = None
@@ -186,8 +196,7 @@ def xslab_steps_3d(u: torch.Tensor, out: torch.Tensor, k: int,
                                     cz=cz)
     bits = (torch.empty(1, dtype=torch.int32, device=u.device)
             if with_residual else None)
-    block, rows, prefetch = p.f_shape(k)
-    _, _, seg = p.f_launch(tuple(u.shape), k, block, rows)
+    block, rows, prefetch, seg = f_geometry(tuple(u.shape), k)
     _launch_f(u, out, k, bits, cx, cy, cz, block, rows, seg, load, prefetch)
     counts["heat_f_temporal3d"] += 1
     return sk._residual_view(bits) if bits is not None else None

@@ -34,7 +34,7 @@ def time_row(row: dict, run, depths, instance: str, made: int,
     row.setdefault("device_ms", {})
     row.setdefault("events_ms", {})
     for d in depths:
-        def once(d=d):
+        def once(d=d):  # heatlint: dispatch-region
             run(d)
 
         row["device_ms"][f"{key}{d}"] = device_ms(once, instance, made)

@@ -28,7 +28,9 @@ def _sources():
             "ab_temporal.py", "probing.py", "probe_split_copy.py",
             "probe_gather_dma.py", "probe_sweep_width.py",
             "probe_store_align.py", "probe_roll_pad.py",
-            "probe_xslab_overlap.py"} <= names
+            "probe_xslab_overlap.py", "findings.py", "astlint.py",
+            "plans.py", "kernels.py", "heatlint.py",
+            "analysis_fixture.py"} <= names
     return files
 
 
@@ -117,6 +119,16 @@ assert torch.equal(ra, rb)
 c3 = torch.rand(10, 12, 16)
 probe_xslab_overlap.overlap_steps("full", c3, torch.empty_like(c3), 3, cx=0.1,
                                   cy=0.1, cz=0.1)
+# The static-analysis path: both heatlint layers and the fixture kernel.
+from parallel_heat_tpu_torch.analysis import plans
+from parallel_heat_tpu_torch.analysis.kernels import audit_kernels
+from parallel_heat_tpu_torch.tools import analysis_fixture, heatlint
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    assert heatlint.main(["--layer", "ast", "--no-timings"]) == 0
+assert audit_kernels([plans.plan_fixture("clean_tma")]) == []
+fx = torch.rand(16, 128)
+assert torch.equal(analysis_fixture.strip_double(fx, "clean_tma"), fx * 2)
 assert not any(m.split(".")[0] in ("jax", "jaxlib")
                for m, v in sys.modules.items() if v is not None)
 print("ok", float(res.grid.sum()))

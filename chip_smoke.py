@@ -189,11 +189,14 @@ prints the card's name and power limit, then one JSON line per phase:
    tile, tiles reaching past the grid's interior, and on the 250-wide
    blocks a last group of 2 columns). The deferred bulk plus the band,
    spliced in place, must be the monolithic kernel, grid and max
-   residual; a NaN-seeded block gives NaN residuals with its ring
-   intact;
+   residual; the band kernel over every block of each grid in one launch
+   (and over the 4 blocks of 16384^2 on (2, 2)) must be each block's plain
+   version and the batched plain version; a NaN-seeded block gives NaN
+   residuals with its ring intact, one launch or one a block;
 13. sharded_main_path — ``solve(HeatConfig(nx=32768, ny=32768, steps=200,
    mesh_shape=(2, 4)))`` under the default resolution (K = 8, overlap:
-   G-uni bulk + band, 200 launches each), with ``halo_overlap="phase"``,
+   G-uni bulk + band: 200 bulk launches, 25 band launches, one a round
+   for the 8 blocks), with ``halo_overlap="phase"``,
    and pinned to G-fuse, G-circ and G (``tune.force("block_temporal_2d",
    ...)``), counts set to 0 before each run and read after, every grid
    bitwise the one-block run; busy shares of one profiled repeat of the
@@ -209,11 +212,14 @@ prints the card's name and power limit, then one JSON line per phase:
    ``torch.profiler``) of each G kernel at the main path's block, 16384 x
    8192 at K = 8 without the residual: the deferred bulk of G-uni (the
    ``kernels`` line's row), G-uni, G-fuse, G-circ and G monolithic and the
-   band kernel, each beside its plain version, its bound and ``conv2d``
-   chained K times on the framed block (TF32 off), G-uni's and G-fuse's
-   beside their time before the register-blocked step loop; the
-   exchange's own time per round (both phases, 8 blocks) and one whole
-   overlapped round.
+   band kernel's launch for the round's 8 blocks, each beside its plain
+   version, its bound and ``conv2d`` chained K times on the framed block
+   (the band's on its 16 windows; TF32 off), G-uni's and G-fuse's beside
+   their time before the register-blocked step loop, the band's beside
+   the per-block design (8 one-entry launches, device time summed, and
+   their events); the exchange's own time per round (both phases, 8
+   blocks), one whole round under ``overlap`` and under ``phase``, and
+   the device operations the host issues a round under each.
 17. kernels_h — the sharded 3D block kernels H-fused
    (``heat_h_block_3d_fused``, monolithic and as the deferred bulk, under
    the cp.async load and, where the geometry takes it, the TMA load), H
@@ -565,6 +571,12 @@ def phase_build():
     # loop's; but for F's record variants (RECORD_INSTANCES).
     probes = {name: ptxas[name] for name in PROBES
               if name != "heat_probe_kernel"}
+    # Nor any instance of the band kernel (its row load and its per-cell
+    # load).
+    band = ptxas["heat_g_band_fix"]
+    check(band and all(row[1] == 0 and row[2] == 0 for row in band.values()),
+          f"an instance of heat_g_band_fix spills or none is reported: "
+          f"{band}")
     for name, rows in {**resident, **probes}.items():
         check(rows and all(row[1] == 0 and row[2] == 0
                            for inst, row in rows.items()
@@ -572,6 +584,7 @@ def phase_build():
               f"an instance of {name} spills or none is reported: {rows}")
     emit({"phase": "build", "seconds": seconds,
           "a_and_m_instances": resident, "probe_instances": probes,
+          "band_instances": band,
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
           "main_path_e": e_main, "main_path_f": f_main,
@@ -2650,6 +2663,53 @@ def _check_g_block(dev, xch, b, us, k, kw, e_out, err):
                   f"(residuals {float(rb)}, {float(rf)} vs {float(r)})")
 
 
+def _check_band_blocks(dev, mesh, us, xch, k, kw, err):
+    """The band kernel over every block of ``mesh`` in one launch (the
+    exchange ``xch`` has run both phases), under each load the blocks
+    take (the per-cell load always, the row load where it fits), against
+    each block's plain version and the batched plain version, NaN between
+    the bands in all; returns the residual and outputs of the load the
+    launch picks, and adds the loads run to ``err["band loads"]``."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+
+    bs = tuple(us[0].shape)
+    origins = [mesh.origin(b, bs) for b in range(mesh.size)]
+    one, plain = ([torch.full(bs, float("nan"), device=dev) for _ in us]
+                  for _ in range(2))
+    rs = [skb.band_fix_plain(us[b], *xch.pieces(b), one[b], k, True,
+                             origin=origins[b], **kw)
+          for b in range(mesh.size)]
+    rp = skb.band_fix_blocks_plain(us, xch.tail, xch.halo_n, xch.halo_s,
+                                   plain, k, True, origins=origins, **kw)
+    picked = skb.BandLaunch(us, xch.tail, xch.halo_n, xch.halo_s, one, k,
+                            origins=origins, **kw).load
+    out = None
+    for load in sorted({"cells", picked}):
+        got = [torch.full(bs, float("nan"), device=dev) for _ in us]
+        r = skb.BandLaunch(us, xch.tail, xch.halo_n, xch.halo_s, got, k,
+                           origins=origins, load=load, **kw)(True)
+        torch.cuda.synchronize()
+        err["band loads"].add(load)
+        where = (f"the band kernel ({load} load) over the {mesh.size} "
+                 f"blocks {bs} of {kw['grid_shape']} at K={k} {kw}")
+        for a, b_, c in zip(got, one, plain):
+            a7, b7 = a.nan_to_num(7.0), b_.nan_to_num(7.0)
+            err["heat_g_band_fix"] = max(err["heat_g_band_fix"],
+                                         float((a7 - b7).abs().max()))
+            check(torch.equal(a7, b7) and torch.equal(a7, c.nan_to_num(7.0)),
+                  f"{where} != the per-block plain versions")
+            check(bool(a[k:bs[0] - k].isnan().all()),
+                  f"{where} wrote rows between the bands")
+        check(same_float(r, torch.stack(rs).amax()) and same_float(r, rp),
+              f"{where}: residual {float(r)} != the plain versions' "
+              f"{float(torch.stack(rs).amax())}, {float(rp)}")
+        if load == picked:
+            out = (r, got)
+    return out
+
+
 def phase_kernels_g(dev):
     """The five G kernels against their plain versions, each other and
     kernel E, on blocks cut from seeded random global grids with the
@@ -2664,6 +2724,7 @@ def phase_kernels_g(dev):
     from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
     err = {name: 0.0 for name in KERNELS_G}
+    err["band loads"] = set()
     equal = dict(cx=CX, cy=CY)
     unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -2724,14 +2785,34 @@ def phase_kernels_g(dev):
                                    dict(grid_shape=grid, **coeffs), e_out,
                                    err)
                 del e_out
+                if bx >= 2 * k:
+                    _check_band_blocks(dev, mesh, us, xch, k,
+                                       dict(grid_shape=grid, **coeffs), err)
             del xch
         report.append({"grid": list(grid), "mesh": list(mesh_shape),
                        "block": [bx, by], "k": ks, "blocks": blocks,
                        "coeffs": [equal, unequal], "tile_kinds": tiles,
                        "bitwise_plain_each_other_and_e": True,
-                       "deferred_plus_band_is_monolithic": True})
+                       "deferred_plus_band_is_monolithic": True,
+                       "band_blocks_bitwise_per_block_plain": bx >= 2 * ks[0]})
         del g, us
         torch.cuda.empty_cache()
+    # The band kernel over the 4 blocks of 16384^2 on (2, 2) in one launch.
+    big = (BIG, BIG)
+    g = torch.randn(big, generator=gen, device=dev) * 10
+    mesh = HeatMesh((2, 2), dev)
+    us = mesh.split(g)
+    del g
+    k = p.g_k_default
+    xch = temporal.DeepExchange2D(mesh, mesh.block_shape(big), k, dev)
+    xch.phase1(us)
+    xch.phase2(us)
+    _check_band_blocks(dev, mesh, us, xch, k, dict(grid_shape=big, **equal),
+                       err)
+    report.append({"grid": list(big), "mesh": [2, 2], "k": [k],
+                   "band_blocks_bitwise_per_block_plain": True})
+    del us, xch
+    torch.cuda.empty_cache()
     # A diverging block: one NaN next to the ring of corner block (0, 0),
     # blocks 252 wide so that every kind takes them.
     nan_grid = (CONV, 1008)
@@ -2766,10 +2847,21 @@ def phase_kernels_g(dev):
     check(math.isnan(nan_res["heat_g_band_fix"]),
           "NaN-seeded block gave a band residual that is not NaN")
     check(torch.equal(out[0], us[0][0]), "the band kernel moved the ring")
+    r, outs = _check_band_blocks(dev, mesh, us, xch, 8,
+                                 dict(grid_shape=nan_grid, **equal), err)
+    nan_res["heat_g_band_fix@blocks"] = float(r)
+    check(math.isnan(float(r)), "NaN-seeded block gave the band kernel over "
+          "the blocks a residual that is not NaN")
+    check(torch.equal(outs[0][0], us[0][0])
+          and torch.equal(outs[0][:8, 0], us[0][:8, 0]),
+          "the band kernel over the blocks moved the ring")
     del g, us, xch
     torch.cuda.empty_cache()
+    loads = sorted(err.pop("band loads"))
+    check(loads == ["cells", "rows"], f"the band launches checked took the "
+          f"loads {loads}, not both the row load and the per-cell load")
     emit({"phase": "kernels_g", "ok": True, "checks": report,
-          "nan_residual": nan_res, "max_abs_err": err})
+          "nan_residual": nan_res, "max_abs_err": err, "band_loads": loads})
     return err
 
 
@@ -2816,12 +2908,13 @@ def phase_sharded_main_path():
     check(bool(torch.isfinite(one.grid).all()), "non-finite grid")
     cells = SHARD_N * SHARD_N * MAIN_STEPS / 1e6
     n = (MAIN_STEPS // k) * math.prod(SHARD_MESH)
+    rounds = MAIN_STEPS // k   # one band launch a round, every block's
     runs = [("default", cfg, None, {"heat_g_block_uniform": n,
-                                     "heat_g_band_fix": n}),
+                                     "heat_g_band_fix": rounds}),
             ("phase", cfg.replace(halo_overlap="phase"), None,
              {"heat_g_block_uniform": n}),
             ("G-fuse", cfg, "G-fuse", {"heat_g_block_fused": n,
-                                       "heat_g_band_fix": n}),
+                                       "heat_g_band_fix": rounds}),
             ("G-circ", cfg, "G-circ", {"heat_g_block_circular": n}),
             ("G", cfg, "G", {"heat_g_block_padded": n})]
     out, launches = {}, {}
@@ -2852,7 +2945,7 @@ def phase_sharded_main_path():
     n4 = (MAIN_STEPS // k) * 4
     res, _ = _sharded_run(big.replace(mesh_shape=(2, 2)),
                           {"heat_g_block_uniform": n4,
-                           "heat_g_band_fix": n4}, "16384^2 (2, 2)")
+                           "heat_g_band_fix": rounds}, "16384^2 (2, 2)")
     check(torch.equal(res.grid, solve(big).grid),
           "16384^2 on (2, 2) differs from the 16384^2 main path's grid")
     emit({"phase": "sharded_main_path", "ok": True,
@@ -2879,20 +2972,22 @@ def phase_sharded_converge():
 
     base = dict(steps=10000, converge=True, check_interval=WINDOW, eps=1e-3)
     windows = 10000 // WINDOW
-    per_window = len([8, 8, 4]) * math.prod(SHARD_CONV)
+    rounds = len([8, 8, 4])
+    per_window = rounds * math.prod(SHARD_CONV)
+    # One band launch a round for every block's bands.
     cases = [
         ("1000^2 (2, 4)", HeatConfig(nx=CONV, ny=CONV, mesh_shape=SHARD_CONV,
                                      **base),
          {"heat_g_block_fused": windows * per_window,
-          "heat_g_band_fix": windows * per_window}),
+          "heat_g_band_fix": windows * rounds}),
         # Blocks of 10 rows: the K = 8 rounds run the monolithic kernel,
         # the depth-4 remainder round (10 >= 2 * 4) bulk and band.
         ("20^2 (2, 2)", HeatConfig(nx=20, ny=20, mesh_shape=(2, 2), **base),
-         {"heat_g_block_fused": 99 * 3 * 4, "heat_g_band_fix": 99 * 4}),
+         {"heat_g_block_fused": 99 * 3 * 4, "heat_g_band_fix": 99}),
         ("256^2 (2, 2) depth 1", HeatConfig(nx=256, ny=256, steps=MAIN_STEPS,
                                             mesh_shape=(2, 2), halo_depth=1),
          {"heat_g_block_uniform": MAIN_STEPS * 4,
-          "heat_g_band_fix": MAIN_STEPS * 4})]
+          "heat_g_band_fix": MAIN_STEPS})]
     out = {}
     for label, cfg, expect in cases:
         one = solve(cfg.replace(mesh_shape=None, halo_depth=None))
@@ -3012,14 +3107,31 @@ def phase_timing_g(dev):
 
     frame = ext_p.view(1, 1, bx + 2 * k, by + 2 * k)
     lead = ext_p[k:k + bx].contiguous().view(1, 1, bx, by + 2 * k)
-    bands = torch.stack([ext_p[:3 * k], ext_p[bx - k:]]).view(
-        2, 1, 3 * k, by + 2 * k)
+    # Every block's two band windows, (3K) x (by + 2K) of its padded
+    # frame, for the band launch's yardstick.
+    origins = [mesh.origin(i, (bx, by)) for i in range(mesh.size)]
+    bands = torch.empty((2 * mesh.size, 1, 3 * k, by + 2 * k), device=dev)
+    padded = torch.empty_like(ext_p)
+    for i in range(mesh.size):
+        xch.assemble_padded(i, us[i], padded)
+        bands[2 * i, 0] = padded[:3 * k]
+        bands[2 * i + 1, 0] = padded[bx - k:]
+    del padded
+    vs = [torch.empty_like(u) for u in us]
+    band_launch = skb.BandLaunch(us, xch.tail, xch.halo_n, xch.halo_s, vs,
+                                 k, origins=origins, grid_shape=grid, cx=CX,
+                                 cy=CY)
+    check(band_launch.load == "rows", f"the main path's band launch takes "
+          f"the {band_launch.load} load, not the row load")
     f = 4  # bytes a float32
     piece_bytes = f * (bx * 2 * k + 2 * k * (by + 2 * k))
     ops = OPS_PER_CELL_STEP * k
     inner = _interior_cells(o, (bx, by), grid)
     bulk_inner = _interior_cells((o[0] + k, o[1]), (bx - 2 * k, by), grid)
-    band_inner = inner - bulk_inner
+    band_inner = sum(
+        _interior_cells(oi, (bx, by), grid)
+        - _interior_cells((oi[0] + k, oi[1]), (bx - 2 * k, by), grid)
+        for oi in origins)
     mono = (f * 2 * bx * by + piece_bytes, ops * inner)
     assembled = (f * ((bx + 2 * k) * (by + 2 * k) + bx * by), ops * inner)
     timed = {
@@ -3050,13 +3162,16 @@ def phase_timing_g(dev):
             lambda: skb.block_padded(ext_p, v, k, False, **kw),
             lambda: skb.block_padded_plain(ext_p, v, k, False, **kw),
             lambda: conv_steps(frame), assembled),
+        # The round's band launch: every block's bands at once.
         "heat_g_band_fix": (
-            lambda: skb.band_fix(us[b], tail, hn, hs, v, k, False, **kw),
-            lambda: skb.band_fix_plain(us[b], tail, hn, hs, v, k, False,
-                                       **kw),
+            lambda: band_launch(False),
+            lambda: skb.band_fix_blocks_plain(
+                us, xch.tail, xch.halo_n, xch.halo_s, vs, k, False,
+                origins=origins, grid_shape=grid, cx=CX, cy=CY),
             lambda: conv_steps(bands),
-            (f * (2 * 2 * k * by + 2 * 2 * k * 2 * k + 2 * k * (by + 2 * k)
-                  + 2 * k * by), ops * band_inner)),
+            (mesh.size * f * (2 * 2 * k * by + 2 * 2 * k * 2 * k
+                              + 2 * k * (by + 2 * k) + 2 * k * by),
+             ops * band_inner)),
     }
     rows = {}
     for key, (kernel, plain, library, (nbytes, nops)) in timed.items():
@@ -3071,18 +3186,38 @@ def phase_timing_g(dev):
         G_UNI_EARLIER_MS
     rows["heat_g_block_fused"]["earlier_design_device_ms"] = \
         G_FUSE_EARLIER_MS
-    # One whole overlapped round of the 8 blocks (phase 1, 8 bulks, phase
-    # 2, 8 bands), by events.
-    vs = [torch.empty_like(u) for u in us]
-    round_fn = temporal._cuda_round_2d(xch, "G-uni", "overlap",
-                                       grid_shape=grid, cx=CX, cy=CY)
-    round_ms = _time_ms(lambda: round_fn(us, vs, False), 10, 2)
-    del us, vs, xch, ext_c, ext_p, v, frame, lead, bands
+    # The per-block design, one launch a block (a one-entry table): its
+    # device time summed over the 8 blocks and its events for the 8.
+    band = rows["heat_g_band_fix"]
+    band["blocks"] = mesh.size
+    band["load"] = band_launch.load
+    band["earlier_design_device_ms"] = sum(
+        _device_ms(lambda i=i: skb.band_fix(
+            us[i], *xch.pieces(i), vs[i], k, False, origin=origins[i],
+            grid_shape=grid, cx=CX, cy=CY), "heat_g_band_fix")["device_ms"]
+        for i in range(mesh.size))
+    band["earlier_design_ms"] = _time_ms(lambda: [skb.band_fix(
+        us[i], *xch.pieces(i), vs[i], k, False, origin=origins[i],
+        grid_shape=grid, cx=CX, cy=CY) for i in range(mesh.size)], 20, 3)
+    # One whole round of the 8 blocks by events, under each schedule:
+    # overlap (phase 1, 8 bulks, phase 2, one band launch) and phase
+    # (both phases, 8 monolithic launches); and the device operations
+    # (kernels, copies, memsets) the host issues a round, by the profiler.
+    round_ms, host_ops = {}, {}
+    for mode in ("overlap", "phase"):
+        round_fn = temporal._cuda_round_2d(xch, "G-uni", mode,
+                                           grid_shape=grid, cx=CX, cy=CY)
+        round_ms[mode] = _time_ms(lambda: round_fn(us, vs, False), 10, 2)
+        _, per = _profiled(lambda: [round_fn(us, vs, False)
+                                    for _ in range(5)])
+        host_ops[mode] = sum(n for _, n in per.values()) / 5
+    del us, vs, xch, ext_c, ext_p, v, frame, lead, bands, band_launch
     torch.cuda.empty_cache()
     emit({"phase": "timing_g", "kernels": rows,
           "exchange_ms_per_round": exchange_ms,
           "assemble_ms_per_block": assemble_ms,
           "round_ms": round_ms,
+          "host_launches_per_round": host_ops,
           "redundant_cell_share": 2 * k * (bx + by + 2 * k) / (bx * by),
           "band_share_of_cells": 2 * k / bx})
     return {name: row for name, row in rows.items() if "@" not in name}

@@ -41,6 +41,7 @@ record variant of the kernels that writes each load down).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -148,6 +149,10 @@ class Plan:
     # Launches whose writes together cover one output once (a round's
     # deferred bulk and its band) share a group.
     group: Optional[str] = None
+    # A launch over several blocks' outputs (the batched band kernel):
+    # its share of each block, as a plan of that block alone, so that each
+    # joins its block's group.
+    parts: List["Plan"] = field(default_factory=list)
 
 
 def _p():
@@ -746,11 +751,69 @@ def plan_g(kind, block_shape, k, origin=(0, 0), grid_shape=None,
            defer=False) -> Plan:
     """A G kernel (``kind`` of :data:`G_KERNELS`) on a ``(bx, by)`` block
     at ``origin`` of a grid: monolithic, the deferred bulk (``defer``,
-    rows ``[k, bx - k)``), or the band kernel (rows ``[0, k)`` and ``[bx -
-    k, bx)``). Loads are in frame coordinates, the block's cells shifted
-    by ``k`` (the layout of the pieces, ``heat_g_src``, maps the frame
-    onto them); a tile inside the block under G-uni copies its core
-    columns 16 bytes at a time from ``u``."""
+    rows ``[k, bx - k)``), or the band kernel on this block alone (rows
+    ``[0, k)`` and ``[bx - k, bx)``; :func:`plan_g_band` with one entry).
+    Loads are in frame coordinates, the block's cells shifted by ``k``
+    (the layout of the pieces, ``heat_g_src``, maps the frame onto them);
+    a tile inside the block under G-uni copies its core columns 16 bytes
+    at a time from ``u``."""
+    if kind == "band":
+        return plan_g_band(block_shape, k, [origin], grid_shape)
+    return _plan_g_block(kind, block_shape, k, origin, grid_shape, defer)
+
+
+def _guards(block_shape, k, origin, grid_shape):
+    """The row and column guards (frame coordinates) of a block's loads:
+    the cells that lie in the grid."""
+    (bx, by), (gm, gn) = block_shape, grid_shape
+    return ((max(0, k - origin[0]), min(bx + 2 * k, gm - origin[0] + k)),
+            (max(0, k - origin[1]), min(by + 2 * k, gn - origin[1] + k)))
+
+
+def plan_g_band(block_shape, k, origins, grid_shape=None) -> Plan:
+    """The band kernel's launch over a round's blocks of ``block_shape``
+    at ``origins`` (``heat_g_band_fix.cu``: one table entry a block, the
+    grid (column tiles, 2 regions, blocks)): a ``blocks`` axis over the
+    entries ahead of each block's rows and columns, every entry's two
+    regions at its origin. One plan of the launch holds the guards of all
+    its entries (along each axis the loosest: a window must lie in its
+    array wherever the kernel copies); its :attr:`~Plan.parts` are each
+    entry's share as a plan of that block, so that each joins its
+    block's deferred bulk in the coverage check."""
+    bx, by = block_shape
+    grid_shape = grid_shape or block_shape
+    n = len(origins)
+    guards = [_guards(block_shape, k, o, grid_shape) for o in origins]
+    loose = tuple((min(g[d][0] for g in guards), max(g[d][1] for g in guards))
+                  for d in range(2))
+    base = _plan_g_block("band", block_shape, k, origins[0], grid_shape,
+                         guards=loose)
+    parts = [_plan_g_block("band", block_shape, k, o, grid_shape)
+             for o in origins]
+
+    def entry(i):
+        return Span((i, i + 1), {name: (i, 1, None) for name in base.loads},
+                    ())
+
+    return dataclasses.replace(
+        base, label=f"band {bx}x{by} x{n} blocks at {tuple(origins[0])}.. "
+                    f"K={k}",
+        grid=n * base.grid,
+        arrays={name: Array((n,) + a.shape) for name, a in
+                base.arrays.items()},
+        axes=[Axis("blocks", n, entry)] + base.axes,
+        loads={name: dataclasses.replace(load, pitch=(0,) + load.pitch)
+               for name, load in base.loads.items()},
+        cover=[((0, n),) + rect for rect in base.cover],
+        leave=[((0, n),) + rect for rect in base.leave],
+        schedule=lambda spans: base.schedule(spans[1:]),
+        group=None, parts=parts)
+
+
+def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
+                  defer=False, guards=None) -> Plan:
+    """:func:`plan_g` on one block; ``guards`` overrides the loads' row
+    and column guards (:func:`_guards` of ``origin``)."""
     from parallel_heat_tpu_torch.ops.stencil_kernels_block import (
         _block_geometry)
 
@@ -769,11 +832,16 @@ def plan_g(kind, block_shape, k, origin=(0, 0), grid_shape=None,
     pad = (4 - k % 4) % 4
     sx = p.row_floats(k, tx)
     uni = kind == "G-uni"
+    # The band's row load (heat_g_band_rows): each window row's core
+    # columns inside the block, 16 bytes at a time, from the piece that
+    # holds the row ("pieces": frame rows by the halos' row of by + 2k
+    # floats, the core at column 0 of each piece's row).
+    rowload = band and p.g_band_row_load(block_shape, k)
     n_col = _ceil(by, tx)
     rtiles = [(begin + i * ty, begin + rows)
               for begin, rows in regions for i in range(_ceil(rows, ty))]
-    row_guard = (max(0, k - origin[0]), min(bx + 2 * k, gm - origin[0] + k))
-    col_guard = (max(0, k - origin[1]), min(by + 2 * k, gn - origin[1] + k))
+    row_guard, col_guard = guards or _guards(block_shape, k, origin,
+                                             (gm, gn))
 
     def inside_r(r0):
         return r0 - k >= 0 and r0 - k + sy <= bx
@@ -784,30 +852,39 @@ def plan_g(kind, block_shape, k, origin=(0, 0), grid_shape=None,
     def rows_span(i):
         r0, end = rtiles[i]
         write = (r0, min(r0 + ty, end))
-        return Span(write, {"frame": (r0, sy, None if inside_r(r0)
-                                      else row_guard),
-                            "core": (r0 - k, sy, None) if inside_r(r0)
-                            else None},
-                    (inside_r(r0), write[1] - write[0] < ty))
+        reads = {"frame": (r0, sy, None if inside_r(r0) else row_guard),
+                 "core": (r0 - k, sy, None) if inside_r(r0) else None}
+        if rowload:
+            reads["rows"] = (r0, sy, None)
+        return Span(write, reads, (inside_r(r0), write[1] - write[0] < ty))
 
     def cols_span(j):
         c0 = j * tx
         write = (c0, min(c0 + tx, by))
-        return Span(write, {"frame": (c0, sw, None if inside_c(c0)
-                                      else col_guard),
-                            "core": (c0, tx, None) if inside_c(c0)
-                            else None},
+        reads = {"frame": (c0, sw, None if inside_c(c0) else col_guard),
+                 "core": (c0, tx, None) if inside_c(c0) else None}
+        if rowload:
+            reads["rows"] = (c0, write[1] - write[0], None)
+        return Span(write, reads,
                     (inside_c(c0), (write[1] - write[0]) % 4 != 0))
 
     def schedule(spans):
         inside = spans[0].kind[0] and spans[1].kind[0]
         if uni and inside:
             return _sched_cp_once([4 * sy * tx, 4 * sy * 2 * k])
+        if rowload:
+            core = spans[1].write[1] - spans[1].write[0]
+            return _sched_cp_once([4 * sy * core, 4 * sy * (sw - core)])
         return _sched_cp_once([4 * sy * sw])
 
     loads = {"frame": Load("cp4", "frame", "src", pad, (sx,))}
+    arrays = {"frame": Array((bx + 2 * k, by + 2 * k)),
+              "u": Array((bx, by)), "out": Array((bx, by))}
     if uni:
         loads["core"] = Load("cp16", "u", "src", pad + k, (sx,))
+    if rowload:
+        loads["rows"] = Load("cp16", "pieces", "src", pad + k, (sx,))
+        arrays["pieces"] = Array((bx + 2 * k, by + 2 * k))
     buf = sy * sx * 4
     if band:
         cover = [((0, k), (0, by)), ((bx - k, bx), (0, by))]
@@ -825,9 +902,7 @@ def plan_g(kind, block_shape, k, origin=(0, 0), grid_shape=None,
         grid=len(rtiles) * n_col, threads=block[0] * block[1],
         max_threads=512, dyn_smem=p.g_smem_bytes(k, (ty, tx)),
         static_smem=p.static_smem_bytes,
-        arrays={"frame": Array((bx + 2 * k, by + 2 * k)),
-                "u": Array((bx, by)), "out": Array((bx, by))},
-        output="out",
+        arrays=arrays, output="out",
         axes=[Axis("rows", len(rtiles), rows_span),
               Axis("cols", n_col, cols_span)],
         loads=loads, slots={"src": (0, buf), "dst": (buf, buf)},
@@ -1102,6 +1177,16 @@ def _mesh_origins(grid_shape, mesh):
     return block, sorted(picks)
 
 
+def mesh_block_origins(grid_shape, mesh):
+    """The origins of every block of an even cut of ``grid_shape`` over
+    ``mesh``, in the mesh's row-major order (``parallel/mesh.py``)."""
+    import itertools
+
+    block = [n // d for n, d in zip(grid_shape, mesh)]
+    return [tuple(i * b for i, b in zip(idx, block))
+            for idx in itertools.product(*(range(d) for d in mesh))]
+
+
 def default_plans() -> List[Plan]:
     """Every kernel of :data:`kernels.build.KERNELS` at its main path's
     geometry, at the ragged shapes ``chip_smoke.py`` checks, and at every
@@ -1144,13 +1229,15 @@ def default_plans() -> List[Plan]:
     out.append(plan_prolong(MG_COARSE, MG_FINE))
     out.append(plan_restrict((21, 23), (11, 12), batch=3))
     out.append(plan_prolong((11, 12), (21, 23), batch=3))
-    # Sharded 2D: the default round (G-uni deferred bulk + band) on the
-    # main path's mesh, every pinned kind there; every K on ragged blocks.
+    # Sharded 2D: the default round (G-uni deferred bulk + the band kernel
+    # over every block) on the main path's mesh, every pinned kind there;
+    # every K on ragged blocks.
     block, origins = _mesh_origins(G_GRID, G_MESH)
     for o in origins:
         out.append(plan_g("G-uni", block, p.g_k_default, o, G_GRID,
                           defer=True))
-        out.append(plan_g("band", block, p.g_k_default, o, G_GRID))
+    out.append(plan_g_band(block, p.g_k_default,
+                           mesh_block_origins(G_GRID, G_MESH), G_GRID))
     for kind in ("G", "G-circ", "G-fuse", "G-uni"):
         out.append(plan_g(kind, block, p.g_k_default, origins[0], G_GRID))
     for bshape in ((500, 252), (500, 250)):
@@ -1160,7 +1247,8 @@ def default_plans() -> List[Plan]:
                     ("G-uni",) if bshape[1] % 4 == 0 else ()):
                 out.append(plan_g(kind, bshape, k, (bshape[0], 0), grid))
             out.append(plan_g("G-fuse", bshape, k, (0, 0), grid, defer=True))
-            out.append(plan_g("band", bshape, k, (0, 0), grid))
+            out.append(plan_g_band(bshape, k,
+                                   mesh_block_origins(grid, (2, 4)), grid))
     # Sharded 3D: H-fused on the main path's mesh (its load as h_load
     # picks it), H-defer's bulk and band, H pinned.
     block3, origins3 = _mesh_origins(H_GRID, H_MESH)
@@ -1195,6 +1283,7 @@ def coverage_groups(plans) -> List[Tuple[str, List[Plan]]]:
     whose writes together must cover their output once."""
     groups: Dict[str, List[Plan]] = {}
     for pl in plans:
-        if pl.group is not None:
-            groups.setdefault(pl.group, []).append(pl)
+        for part in pl.parts or [pl]:
+            if part.group is not None:
+                groups.setdefault(part.group, []).append(part)
     return [(name, g) for name, g in groups.items() if len(g) >= 2]

@@ -3,7 +3,7 @@ sharded block kernels G and H on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
         [--a-sizes 256,1000,1859] [--size-3d 512]
-        [--only a,b,e,d,f,m,mg,g,h] [--reps 10] [--out FILE] [--sass DIR]
+        [--only a,b,e,d,f,m,mg,g,band,h] [--reps 10] [--out FILE] [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -46,9 +46,14 @@ mesh: the deferred bulk of G-uni (the launch the default overlapped
 round makes) over output tiles, thread blocks (32 lanes by 4, 8 or 16
 warps, so rows a warp and warps an SM; ``occupancy`` is the blocks an SM
 the card holds with the kernel's registers) and K, G-fuse monolithic over
-the same shapes at the default K, and the band kernel over tile widths
-and thread blocks at K = 8, each launch shape first checked bitwise
-against the plain version on a 500 x 252 block of 1000 x 1008 on (2, 4).
+the same shapes at the default K, each launch shape first checked
+bitwise against the plain version on a 500 x 252 block of 1000 x 1008 on
+(2, 4). ``--only band`` sweeps the band kernel's round launch (all 8
+blocks' bands at once) over tile widths and thread blocks at K = 8, each
+shape checked bitwise against the per-block plain versions on the 8
+blocks of 1000 x 1008 on (2, 4), ranked by ``torch.profiler`` device
+time; then, at the default shape, its loads in turns (the row load, the
+per-cell load, and none: the steps alone, the load's share).
 ``--only h`` sweeps the sharded 3D path's H
 kernels at the main path's block, 512^3 of 1024^3 on a (2, 2, 2) mesh:
 the deferred bulk of H-fused over thread blocks, rows per thread and K
@@ -135,7 +140,10 @@ G_TILES = [(32, 112), (56, 112), (96, 112), (200, 112), (40, 240),
            (96, 240)]
 G_BLOCKS = [(32, 4), (32, 8), (32, 16)]
 G_KS = [4, 6, 8]
-G_BAND_TILES = [112, 240, 496]
+# The band launch's tile widths and thread blocks: at K = 8 a tile is 24
+# rows, so 2 to 16 warps take 12 to 2 rows each.
+G_BAND_TILES = [48, 112, 240, 496]
+G_BAND_BLOCKS = [(32, 2), (32, 4), (32, 8), (32, 16)]
 H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)   # the sharded 3D main path
 H_SEGMENTS = [32, 64, 86, 128, 171, 256, 512]
 TURN_CUBE, TURN_PLATE = 512, 16384   # --turns: F and D, E-uni
@@ -221,6 +229,25 @@ def device_ms(fn, instance: str, made: int = 40) -> float:
             return sum(e.self_device_time_total for e in hits) / 1e3 / records
     raise RuntimeError(f"the profiler kept {records} records of {made} "
                        f"launches of {instance}, three times over")
+
+
+def device_ms_per_call(fn, instance: str, calls: int = 20) -> float:
+    """Device milliseconds of the launches of the kernel whose name holds
+    ``instance`` that one ``fn()`` makes, however many (``torch.profiler``
+    over ``calls`` calls: the records' device time over the calls; a
+    trace that loses records reads low by as much)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # heatlint: begin dispatch-region
+        for _ in range(calls):
+            fn()
+        # heatlint: end dispatch-region
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if re.search(re.escape(instance), e.key)) / 1e3 / calls
 
 
 def sweep_a(sizes, reps: int):
@@ -523,8 +550,8 @@ def _g_setup(dev, grid, mesh_shape, k, blocks=None):
 
 
 def sweep_g(reps: int):
-    """Yield one dict per launch shape of G-uni's deferred bulk, of G-fuse
-    monolithic and of the band kernel at the sharded main path's block:
+    """Yield one dict per launch shape of G-uni's deferred bulk and of
+    G-fuse monolithic at the sharded main path's block:
     output tile, thread block (so rows a warp: more warps an SM, or more
     rows a warp) and K, with the blocks an SM the card holds."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
@@ -593,28 +620,94 @@ def sweep_g(reps: int):
                            "default": (tile == p.g_tile
                                        and block == p.g_block
                                        and k == p.g_k_default)}
-        if k != p.g_k_default:
-            continue
-        band_want = torch.full_like(s_blocks[sb], float("nan"))
-        rbp = skb.band_fix_plain(s_blocks[sb], *s_pieces, band_want, k,
-                                 **s_kw)
-        for tile_x in G_BAND_TILES:
-            for block in G_BLOCKS:
-                geo = (tile_x,) + block
-                got = torch.full_like(band_want, float("nan"))
-                r = skb._launch("heat_g_band_fix", (s_blocks[sb], *s_pieces),
-                                got, k, True, geometry=geo, **s_kw)
-                ok = bool(torch.equal(got.nan_to_num(7.0),
-                                      band_want.nan_to_num(7.0))
-                          and torch.equal(r, rbp))
-                ms = time_ms(lambda: skb._launch(
-                    "heat_g_band_fix", (big_blocks[b], *pieces), out,
-                    k, False, geometry=geo, **kw), reps)
-                yield {"kernel": "heat_g_band_fix", "size": size,
-                       "tile_x": tile_x, "block": list(block), "k": k,
-                       "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
-                       "default": (tile_x == p.g_band_tile_x
-                                   and block == p.g_band_block)}
+
+
+def sweep_band(reps: int):
+    """Yield one dict per launch shape of the band kernel's round launch
+    (every block's bands at once) over the 8 blocks of the sharded main
+    path, 16384 x 8192 of 32768^2 on (2, 4), at the default K: tile width
+    and thread block (32 lanes by 2 to 16 warps), each first checked
+    bitwise, grids and residual, against the per-block plain versions on
+    the 8 blocks of 1000 x 1008 on (2, 4), then timed by CUDA events and
+    by ``torch.profiler`` (``device_ms``, which ranks: ``ms_per_step`` is
+    it over K)."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    k = p.g_k_default
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    small_grid = (1000, 1008)
+    small = torch.from_numpy((rng.standard_normal(small_grid) * 10)
+                             .astype(np.float32)).to(dev)
+    s_mesh = HeatMesh(G_MESH, dev)
+    s_blocks = s_mesh.split(small)
+    _, _, s_xch = _g_setup(dev, small_grid, G_MESH, k, s_blocks)
+    big_mesh, big_blocks, xch = _g_setup(dev, G_GRID, G_MESH, k)
+    s_bs, bs = s_blocks[0].shape, big_blocks[0].shape
+    s_kw = dict(origins=[s_mesh.origin(i, s_bs) for i in range(8)],
+                grid_shape=small_grid, cx=CX, cy=CY)
+    kw = dict(origins=[big_mesh.origin(i, bs) for i in range(8)],
+              grid_shape=G_GRID, cx=CX, cy=CY)
+    s_pieces = (s_xch.tail, s_xch.halo_n, s_xch.halo_s)
+    pieces = (xch.tail, xch.halo_n, xch.halo_s)
+    wants = [torch.full_like(b, float("nan")) for b in s_blocks]
+    rps = [skb.band_fix_plain(s_blocks[i], *s_xch.pieces(i), wants[i], k,
+                              origin=s_kw["origins"][i], grid_shape=small_grid,
+                              cx=CX, cy=CY) for i in range(8)]
+    rp = torch.stack(rps).amax()
+    outs = [torch.empty_like(b) for b in big_blocks]
+    size = "x".join(map(str, bs))
+    for tile_x in G_BAND_TILES:
+        for block in G_BAND_BLOCKS:
+            geo = (tile_x,) + block
+            if not p.loop_takes((k, tile_x), block):
+                continue
+            got = [torch.full_like(b, float("nan")) for b in s_blocks]
+            r = skb.BandLaunch(s_blocks, *s_pieces, got, k, geometry=geo,
+                               **s_kw)(True)
+            ok = bool(all(torch.equal(a.nan_to_num(7.0), w.nan_to_num(7.0))
+                          for a, w in zip(got, wants))
+                      and torch.equal(r, rp))
+            launch = skb.BandLaunch(big_blocks, *pieces, outs, k,
+                                    geometry=geo, **kw)
+            ms = time_ms(lambda: launch(False), reps)
+            dms = device_ms(lambda: launch(False), "heat_g_band_fix_kernel")
+            yield {"kernel": "heat_g_band_fix", "size": size, "blocks": 8,
+                   "tile_x": tile_x, "block": list(block), "k": k,
+                   "load": launch.load,
+                   "thread_blocks": 8 * 2 * -(-bs[1] // tile_x),
+                   "smem_bytes": p.g_smem_bytes(k, (k, tile_x)),
+                   "blocks_per_sm_by_smem_threads":
+                       p.g_blocks_per_sm(k, (k, tile_x), block),
+                   "bitwise": ok, "ms": ms, "device_ms": dms,
+                   "ms_per_step": dms / k,
+                   "default": (tile_x == p.g_band_tile_x
+                               and block == p.g_band_block)}
+    # The load's share at the default shape: each load in turns (cells,
+    # rows, none, none, rows, cells), three times; "none" loads nothing
+    # (the steps alone: its output is not the band, so it is not
+    # compared).
+    launches = {load: skb.BandLaunch(big_blocks, *pieces, outs, k, load=load,
+                                     **kw) for load in skb.BAND_LOADS}
+    times = {load: [] for load in launches}
+    for _ in range(3):
+        for load in ("cells", "rows", "none", "none", "rows", "cells"):
+            times[load].append(device_ms(lambda: launches[load](False),
+                                         "heat_g_band_fix_kernel"))
+    for load, ms in times.items():
+        ok = None
+        if load != "none":
+            got = [torch.full_like(b, float("nan")) for b in s_blocks]
+            r = skb.BandLaunch(s_blocks, *s_pieces, got, k, load=load,
+                               **s_kw)(True)
+            ok = bool(all(torch.equal(a.nan_to_num(7.0), w.nan_to_num(7.0))
+                          for a, w in zip(got, wants)) and torch.equal(r, rp))
+        yield {"kernel": "heat_g_band_fix", "size": size, "mode": "load",
+               "load": load, "k": k, "tile_x": p.g_band_tile_x,
+               "block": list(p.g_band_block), "bitwise": ok,
+               "device_ms_turns": ms, "ms_per_step": float(np.mean(ms)) / k}
 
 
 def _h_setup(dev, grid, mesh_shape, k, blocks):
@@ -1050,6 +1143,35 @@ def turn_times(reps: int, only=None) -> dict:
     runs["G-uni bulk"] = lambda: skb.block_uniform(g_us[gb], tail, None,
                                                    None, g_out, 8, False,
                                                    **gkw)
+    # The sharded 2D round at those blocks: its band pass (one launch for
+    # the 8 blocks where the tree has BandLaunch, else one a block) and a
+    # whole round under each schedule; the band pass's device time a call
+    # by the profiler (``per_call``).
+    g_vs = [torch.empty_like(u) for u in g_us]
+    g_origins = [g_mesh.origin(i, g_bs) for i in range(g_mesh.size)]
+    if hasattr(skb, "BandLaunch"):
+        bands = skb.BandLaunch(g_us, g_xch.tail, g_xch.halo_n, g_xch.halo_s,
+                               g_vs, 8, origins=g_origins, grid_shape=G_GRID,
+                               **kw2)
+        runs["G band round"] = lambda: bands(False)
+    else:
+        runs["G band round"] = lambda: [skb.band_fix(
+            g_us[i], *g_xch.pieces(i), g_vs[i], 8, False, origin=g_origins[i],
+            grid_shape=G_GRID, **kw2) for i in range(g_mesh.size)]
+    per_call = {"G band round device": (runs["G band round"],
+                                        "heat_g_band_fix_kernel")}
+    for mode in ("overlap", "phase"):
+        round_fn = temporal._cuda_round_2d(g_xch, "G-uni", mode,
+                                           grid_shape=G_GRID, **kw2)
+        runs[f"G round {mode}"] = (
+            lambda fn=round_fn: fn(g_us, g_vs, False))
+    # The host-bound sharded converge run, 1000^2 on (2, 4): its
+    # elapsed_s (the host's clock around the step loop).
+    from parallel_heat_tpu_torch import HeatConfig, solve
+
+    conv_cfg = HeatConfig(nx=1000, ny=1000, steps=10000, converge=True,
+                          check_interval=20, eps=1e-3, mesh_shape=(2, 4))
+    wall = {"converge 1000^2 2x4 s": lambda: solve(conv_cfg).elapsed_s}
     # A at the converge path's 1000^2 (one 20-step window, residual) and
     # M at the ensemble path's 64 x 512^2 (K = 400): device time, since
     # A's launch is shorter than the host's time to issue one.
@@ -1066,12 +1188,19 @@ def turn_times(reps: int, only=None) -> dict:
     if only:
         runs = {n: f for n, f in runs.items() if n in only}
         by_device = {n: f for n, f in by_device.items() if n in only}
-    times = {name: [] for name in list(runs) + list(by_device)}
+        per_call = {n: f for n, f in per_call.items() if n in only}
+        wall = {n: f for n, f in wall.items() if n in only}
+    times = {name: [] for name in (list(runs) + list(by_device)
+                                   + list(per_call) + list(wall))}
     for _ in range(3):
         for name, fn in runs.items():
             times[name].append(time_ms(fn, reps))
         for name, (fn, kernel) in by_device.items():
             times[name].append(device_ms(fn, kernel))
+        for name, (fn, kernel) in per_call.items():
+            times[name].append(device_ms_per_call(fn, kernel))
+        for name, fn in wall.items():
+            times[name].append(fn())
     return {"ms": times,
             "picks": {"h_k_max": p.h_k_max(), "h_load": skb3.h_load(bs, 3),
                       "h_launch": p.h_launch(bs, 3, bs[0]),
@@ -1117,7 +1246,7 @@ def main(argv=None) -> int:
                     help="cube edge for kernels D and F")
     ap.add_argument("--only", default="a,b,e,d,f",
                     help="comma-separated kernels to sweep (a, b, e, d, f, "
-                         "m, mg, g, h)")
+                         "m, mg, g, band, h)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -1129,7 +1258,9 @@ def main(argv=None) -> int:
     ap.add_argument("--turns-only", default=None, metavar="NAMES",
                     help="with --turns: only these kernels (comma-separated "
                          "names of the turn table: F, F cp.async, D, "
-                         "H-fused, H, E-uni, E, G-uni bulk, A, M)")
+                         "H-fused, H, E-uni, E, G-uni bulk, G band round, "
+                         "G band round device, G round overlap, G round "
+                         "phase, converge 1000^2 2x4 s, A, M)")
     ap.add_argument("--turn-of", default=None, type=int,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sass-same", default=None, metavar="TREE",
@@ -1179,11 +1310,13 @@ def main(argv=None) -> int:
             rows.append(row)
             print(json.dumps(row), flush=True)
     for key, run in (("m", sweep_m), ("mg", sweep_mg), ("g", sweep_g),
-                     ("h", sweep_h)):
+                     ("band", sweep_band), ("h", sweep_h)):
         for row in run(args.reps) if key in only else []:
             rows.append(row)
             print(json.dumps(row), flush=True)
-    bad = [r for r in rows if not r["bitwise"]]
+    # A row whose "bitwise" is None compares nothing (the band's no-load
+    # measurement).
+    bad = [r for r in rows if r["bitwise"] is False]
     for key in sorted({(r["kernel"], r["size"], r.get("mode", ""))
                        for r in rows}):
         best = min((r for r in rows

@@ -95,9 +95,11 @@ KERNELS = {
     "heat_g_block_uniform": ("heat_g_block_uniform.cu",
                              [_P] * 6 + [_I64] * 6 + [_I32] * 5
                              + [_F32] * 3 + [_P]),
+    # The band kernel takes a host table of blocks (ops/
+    # stencil_kernels_block.py _BandEntry), their count and the load.
     "heat_g_band_fix": ("heat_g_band_fix.cu",
-                        [_P] * 6 + [_I64] * 6 + [_I32] * 4 + [_F32] * 3
-                        + [_P]),
+                        [_P, _I32, _I32, _P] + [_I64] * 4 + [_I32] * 4
+                        + [_F32] * 3 + [_P]),
     # The sharded 3D block kernels (csrc/heat_h.cuh): grid, block and
     # origin (9 int64), then halos, (defer_x, tma,) k, thread block and
     # rows.

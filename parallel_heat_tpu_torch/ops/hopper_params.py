@@ -201,15 +201,25 @@ class HopperParams:
     # took 1.263 ms at this shape.) Persistent blocks that walk the tiles
     # with the next tile's load in flight into a third buffer lost (1.187
     # ms at best, 56 x 112, against 0.978 here, in the sweep before the
-    # loop's last row was peeled). The band kernel cuts its K-row bands
-    # into tiles of g_band_tile_x columns; a launch takes 0.013 ms on the
-    # card, less than the host's time per launch, so the sweep's events
-    # (0.017-0.045 ms) cannot rank its thread blocks.
+    # loop's last row was peeled). The band kernel fixes every block's
+    # K-row bands in one launch a round, in tiles of g_band_tile_x columns
+    # under g_band_block. The sweep (bench_kernels --only band: the round
+    # launch over the 8 blocks of 32768^2 on (2, 4), K = 8, ranked by
+    # torch.profiler device time; NVIDIA H100 80GB HBM3 at 700.00 W)
+    # found 112 columns under 32 x 2 threads fastest (1184 thread blocks,
+    # 9 an SM by shared memory): by the per-cell load 0.0350 ms, 112 x (32
+    # x 4) 0.0361, 240 x (32 x 8), the shape before, 0.0412, 496 x (32 x
+    # 8) 0.0483, 48-column tiles 0.0517-0.1202; by the row load
+    # (g_band_row_load) 0.0309, 240 x (32 x 4) 0.0313, 240 x (32 x 8)
+    # 0.0351, 496 x (32 x 8) 0.0376, 48 x (32 x 8) 0.0879. The loads in
+    # turns at 112 x (32 x 2) (the sweep's last rows): per cell 0.03536,
+    # rows 0.03138, none (the steps alone) 0.02047, so the per-cell load
+    # was 42% of the launch and the row load is 35%.
     g_tile: tuple = (96, 112)
     g_block: tuple = (32, 8)
     g_k_default: int = 8
-    g_band_tile_x: int = 240
-    g_band_block: tuple = (32, 8)
+    g_band_tile_x: int = 112
+    g_band_block: tuple = (32, 2)
 
     # --- the sharded 3D block kernels heat_h_* (block, rows and K
     # measured; prefetch, waves and segments chosen) ----------------------
@@ -720,6 +730,17 @@ class HopperParams:
                <= per_block):
             k += 1
         return k
+
+    @staticmethod
+    def g_band_row_load(block_shape, k: int) -> bool:
+        """Does the band kernel copy its windows' core columns 16 bytes at
+        a time from the piece that holds each row (the row load of
+        ``csrc/heat_g_band_fix.cu``)? Where the block's width and its halo
+        rows, ``by + 2k`` floats, are multiples of 4 (so K even); the
+        launcher also needs 16-byte aligned pieces
+        (``heat_g_band_row_load``). Elsewhere the per-cell load."""
+        by = block_shape[1]
+        return by % 4 == 0 and (by + 2 * k) % 4 == 0
 
     def uni_fits(self, shape) -> bool:
         """Do the uniform-load kernels (E-uni, I-uni) take an ``(m, n)``

@@ -51,6 +51,7 @@ into bulk and band.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -232,6 +233,67 @@ def band_fix_plain(u, tail, halo_n, halo_s, out, k, with_residual=True, *,
                            [(0, 3 * k), (bx - k, bx + 2 * k)])
 
 
+def _band_windows(u, tail, halo_n, halo_s, k):
+    """The two ``3k``-row windows of a block's padded frame that the band
+    kernel steps, ``(2, 3k, by + 2k)``, rows ``[0, 3k)`` and ``[bx - k,
+    bx + 2k)``, built from the pieces without the frame."""
+    bx, by = u.shape
+    win = u.new_empty((2, 3 * k, by + 2 * k))
+
+    def middle(rows):  # block rows in the padded layout [lo | u | hi]
+        return torch.cat([tail[rows, k:], u[rows], tail[rows, :k]], dim=1)
+
+    win[0, :k] = padded_of_circular(halo_n, by, k)
+    win[0, k:] = middle(slice(0, 2 * k))
+    win[1, :2 * k] = middle(slice(bx - 2 * k, bx))
+    win[1, 2 * k:] = padded_of_circular(halo_s, by, k)
+    return win
+
+
+def band_fix_blocks_plain(us, tails, halos_n, halos_s, outs, k,
+                          with_residual=True, *, origins, grid_shape, cx,
+                          cy) -> Optional[torch.Tensor]:
+    """Plain version of :func:`band_fix_blocks`: the two ``3k``-row
+    windows of every block's frame stacked into one batch and stepped
+    together, each cell masked by its own global position; the max
+    residual over all the bands."""
+    counts["band_fix_plain"] += 1
+    bx, by = outs[0].shape
+    m, n = grid_shape
+    win = torch.cat([_band_windows(*x, k) for x in zip(us, tails, halos_n,
+                                                         halos_s)])
+    rows0 = [o[0] - k + w0 for o in origins for w0 in (0, bx - k)]
+    cols0 = [o[1] - k for o in origins for _ in range(2)]
+    dev = win.device
+    rows = (torch.tensor(rows0, device=dev)[:, None]
+            + torch.arange(3 * k, device=dev))
+    cols = (torch.tensor(cols0, device=dev)[:, None]
+            + torch.arange(by + 2 * k, device=dev))
+    in_grid = (((rows >= 0) & (rows < m))[:, :, None]
+               & ((cols >= 0) & (cols < n))[:, None, :])
+    win = torch.where(in_grid, win, torch.zeros((), device=dev))
+    r, c = rows[:, 1:-1], cols[:, 1:-1]
+    interior = (((r >= 1) & (r <= m - 2))[:, :, None]
+                & ((c >= 1) & (c <= n - 2))[:, None, :])
+    coeffs = coeffs_f32(cx, cy)
+    diff = None
+    for step in range(k):
+        cur = win[:, 1:-1, 1:-1]
+        new = torch.where(interior, combine_2d(
+            cur, win[:, :-2, 1:-1], win[:, 2:, 1:-1], win[:, 1:-1, :-2],
+            win[:, 1:-1, 2:], *coeffs), cur)
+        if with_residual and step == k - 1:
+            diff = torch.where(interior, (new - cur).abs(),
+                               torch.zeros((), device=dev))
+        win[:, 1:-1, 1:-1] = new
+    for i, out in enumerate(outs):
+        out[:k] = win[2 * i, k:2 * k, k:k + by]
+        out[bx - k:] = win[2 * i + 1, k:2 * k, k:k + by]
+    if not with_residual:
+        return None
+    return diff[:, k - 1:2 * k - 1, k - 1:k - 1 + by].amax()
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -286,24 +348,31 @@ def _pieces(out, u, tail, halo_n, halo_s, k):
             "halo_s": (halo_s, (k, by + 2 * k))}
 
 
-def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
-            cy, geometry):
-    """Launch kernel ``name`` on ``args`` (its leading pointers) into
-    ``out``; ``geometry`` the launch's int arguments after k (tile and
-    thread block; the band kernel's tile is k rows of its tile_x). Checks
-    only the launch shape (:meth:`~.hopper_params.HopperParams.loop_takes`,
-    the launcher's own rule); counts the launch. Returns the residual
-    view or None."""
-    from parallel_heat_tpu_torch.kernels.build import load
-
+def _check_loop_shape(name, tile, block):
     p = params()
-    tile = (k,) + tuple(geometry[:1]) if name == BAND else tuple(geometry[:2])
-    block = tuple(geometry[-2:])
     if not p.loop_takes(tile, block):
         raise ValueError(f"{name}: the step loop does not take tiles of "
                          f"{tile} under thread blocks of {block} (32 lanes "
                          f"by 1 to {p.loop_max_warps} warps, a tile width "
                          f"that is a multiple of 4)")
+
+
+def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
+            cy, geometry):
+    """Launch kernel ``name`` on ``args`` (its leading pointers) into
+    ``out``; ``geometry`` the launch's int arguments after k (tile and
+    thread block; the band kernel's tile is k rows of its tile_x, launched
+    as a one-entry table). Checks only the launch shape
+    (:meth:`~.hopper_params.HopperParams.loop_takes`, the launcher's own
+    rule); counts the launch. Returns the residual view or None."""
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    tile = (k,) + tuple(geometry[:1]) if name == BAND else tuple(geometry[:2])
+    _check_loop_shape(name, tile, tuple(geometry[-2:]))
+    if name == BAND:
+        return BandLaunch([args[0]], [args[1]], [args[2]], [args[3]], [out],
+                          k, origins=[origin], grid_shape=grid_shape, cx=cx,
+                          cy=cy, geometry=geometry)(with_residual)
     lib = load(name)
     bits = (torch.empty(1, dtype=torch.int32, device=out.device)
             if with_residual else None)
@@ -412,25 +481,151 @@ def band_fix(u: torch.Tensor, tail: torch.Tensor, halo_n: torch.Tensor,
              halo_s: torch.Tensor, out: torch.Tensor, k: int,
              with_residual: bool = True, *, origin, grid_shape, cx: float,
              cy: float) -> Optional[torch.Tensor]:
-    """The band kernel: rows ``[0, k)`` and ``[bx - k, bx)`` of ``k``
-    steps of block ``u``, written into ``out`` in place (the other rows
-    are left as they are); the residual of exactly those rows (0-d
-    float32) or None. ``bx`` must be at least ``2k``."""
-    _check_block(out, k, origin, grid_shape,
-                 _pieces(out, u, tail, halo_n, halo_s, k))
-    if halo_n is None:
-        raise ValueError("the band kernel needs both halo rows")
-    if out.shape[0] < 2 * k:
-        raise ValueError(f"the band kernel needs at least 2k = {2 * k} rows, "
-                         f"got a block of {out.shape[0]}")
+    """The band kernel on one block: rows ``[0, k)`` and ``[bx - k, bx)``
+    of ``k`` steps of block ``u``, written into ``out`` in place (the
+    other rows are left as they are); the residual of exactly those rows
+    (0-d float32) or None. ``bx`` must be at least ``2k``. A launch of
+    :class:`BandLaunch` with one entry."""
+    launch = BandLaunch([u], [tail], [halo_n], [halo_s], [out], k,
+                        origins=[origin], grid_shape=grid_shape, cx=cx, cy=cy)
     if out.device.type == "cpu":
         return band_fix_plain(u, tail, halo_n, halo_s, out, k, with_residual,
                               origin=origin, grid_shape=grid_shape, cx=cx,
                               cy=cy)
-    p = params()
-    return _launch(BAND, (u, tail, halo_n, halo_s), out, k, with_residual,
-                   origin=origin, grid_shape=grid_shape, cx=cx, cy=cy,
-                   geometry=(p.g_band_tile_x,) + tuple(p.g_band_block))
+    return launch(with_residual)
+
+
+# Blocks a launch of the band kernel takes (csrc/heat_g_band_fix.cu
+# kHeatGBandTable: 64 entries of 56 bytes keep its parameters under 4 KB);
+# a round of more blocks launches in chunks.
+BAND_TABLE = 64
+# Its loads, by their code in csrc/heat_g_band_fix.cu (HeatGBandLoad).
+BAND_LOADS = ("cells", "rows", "none")
+
+
+class _BandEntry(ctypes.Structure):
+    """One block of the band kernel's table (csrc/heat_g_band_fix.cu
+    ``HeatGBandEntry``)."""
+
+    _fields_ = [("u", ctypes.c_void_p), ("tail", ctypes.c_void_p),
+                ("halo_n", ctypes.c_void_p), ("halo_s", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("row_off", ctypes.c_int64),
+                ("col_off", ctypes.c_int64)]
+
+
+class BandLaunch:
+    """Every block's bands in one launch of ``heat_g_band_fix``: the
+    blocks ``us`` (all of one shape, each with at least ``2k`` rows) with
+    their tails and halo rows, each block's bands written into ``outs`` in
+    place, ``origins`` their places in the grid.
+
+    The operands are checked and the launch's table is built once, here;
+    each call launches it (or, for tensors on the CPU, runs
+    :func:`band_fix_blocks_plain`) and returns the residual of all the
+    bands or None. A round keeps one for each of its two ping-pong
+    buffers, so that it makes one host call for its bands. The table
+    holds the tensors' addresses, not the tensors: the caller keeps them
+    alive and unmoved. ``geometry`` ``(tile_x, lanes, warps)`` overrides
+    ``g_band_tile_x`` and ``g_band_block`` (the sweep's shapes).
+
+    :attr:`load` is the load the launch takes: ``"rows"`` (each window
+    row's core columns 16 bytes at a time from the piece that holds it)
+    where :meth:`~.hopper_params.HopperParams.g_band_row_load` takes the
+    blocks and the pieces are 16-byte aligned, else ``"cells"``; ``load``
+    pins one of :data:`BAND_LOADS` (``"rows"`` where it does not fit
+    raises ValueError; ``"none"`` issues no load, a measurement of the
+    steps alone whose output is not the band, on the card only)."""
+
+    def __init__(self, us, tails, halos_n, halos_s, outs, k: int, *,
+                 origins, grid_shape, cx: float, cy: float, geometry=None,
+                 load: Optional[str] = None):
+        n = len(us)
+        if not n or any(len(x) != n for x in (tails, halos_n, halos_s, outs,
+                                              origins)):
+            raise ValueError("give one tail, pair of halo rows, output and "
+                             "origin for each of at least one block")
+        for u, tail, hn, hs, out, o in zip(us, tails, halos_n, halos_s, outs,
+                                           origins):
+            if out.shape != outs[0].shape or out.device != outs[0].device:
+                raise ValueError(f"blocks of one shape on one device only: "
+                                 f"{tuple(out.shape)} on {out.device}, "
+                                 f"{tuple(outs[0].shape)} on "
+                                 f"{outs[0].device}")
+            _check_block(out, k, tuple(o), grid_shape,
+                         _pieces(out, u, tail, hn, hs, k))
+            if hn is None:
+                raise ValueError("the band kernel needs both halo rows")
+        if outs[0].shape[0] < 2 * k:
+            raise ValueError(f"the band kernel needs at least 2k = {2 * k} "
+                             f"rows, got blocks of {outs[0].shape[0]}")
+        p = params()
+        self.geometry = tuple(geometry or (p.g_band_tile_x,)
+                              + tuple(p.g_band_block))
+        _check_loop_shape(BAND, (k, self.geometry[0]), self.geometry[1:])
+        self.k, self.grid_shape = k, tuple(grid_shape)
+        self.cx, self.cy = cx, cy
+        self.blocks = n
+        self.device = outs[0].device
+        self.shape = tuple(outs[0].shape)
+        # The load the launcher takes (csrc/heat_g_band_fix.cu
+        # heat_g_band_row_load): "rows" or "cells".
+        rows = p.g_band_row_load(self.shape, k) and not any(
+            t.data_ptr() % 16 for t in (*us, *halos_n, *halos_s))
+        if load not in (None,) + BAND_LOADS:
+            raise ValueError(f"load must be one of {BAND_LOADS}, got "
+                             f"{load!r}")
+        if load == "rows" and not rows:
+            raise ValueError(f"the band's row load needs blocks whose width "
+                             f"and halo rows (by + 2k) are multiples of 4 "
+                             f"and 16-byte aligned pieces: blocks "
+                             f"{self.shape} at K={k}")
+        if load == "none" and self.device.type == "cpu":
+            raise ValueError("load='none' is a measurement on the card")
+        self.load = load or ("rows" if rows else "cells")
+        if self.device.type == "cpu":
+            self._operands = tuple(list(x) for x in (
+                us, tails, halos_n, halos_s, outs)) + (
+                [tuple(o) for o in origins],)
+            return
+        self._table = (_BandEntry * n)(*[
+            _BandEntry(u.data_ptr(), tail.data_ptr(), hn.data_ptr(),
+                       hs.data_ptr(), out.data_ptr(), o[0], o[1])
+            for u, tail, hn, hs, out, o in zip(us, tails, halos_n, halos_s,
+                                               outs, origins)])
+        self._args = (*self.grid_shape, *self.shape, k, *self.geometry,
+                      *coeffs_f32(cx, cy))
+
+    def __call__(self, with_residual: bool = True) -> Optional[torch.Tensor]:
+        if self.device.type == "cpu":
+            us, tails, hns, hss, outs, origins = self._operands
+            return band_fix_blocks_plain(
+                us, tails, hns, hss, outs, self.k, with_residual,
+                origins=origins, grid_shape=self.grid_shape, cx=self.cx,
+                cy=self.cy)
+        from parallel_heat_tpu_torch.kernels.build import load
+
+        lib = load(BAND)
+        bits = (torch.empty(1, dtype=torch.int32, device=self.device)
+                if with_residual else None)
+        code = lib.heat_g_band_fix(
+            ctypes.addressof(self._table), self.blocks,
+            BAND_LOADS.index(self.load), _ptr(bits),
+            *self._args, torch.cuda.current_stream(self.device).cuda_stream)
+        _raise_on_error(lib, BAND, code)
+        counts[BAND] += -(-self.blocks // BAND_TABLE)  # one a chunk
+        return _residual_view(bits) if bits is not None else None
+
+
+def band_fix_blocks(us, tails, halos_n, halos_s, outs, k: int,
+                    with_residual: bool = True, *, origins, grid_shape,
+                    cx: float, cy: float) -> Optional[torch.Tensor]:
+    """The band kernel on every block of a round in one launch
+    (:class:`BandLaunch`, built and called once): rows ``[0, k)`` and
+    ``[bx - k, bx)`` of ``k`` steps of each block ``us[i]`` into
+    ``outs[i]`` in place; the residual of all the bands (0-d float32) or
+    None."""
+    return BandLaunch(us, tails, halos_n, halos_s, outs, k, origins=origins,
+                      grid_shape=grid_shape, cx=cx, cy=cy)(with_residual)
 
 
 LAUNCH = {"G-uni": block_uniform, "G-fuse": block_fused,

@@ -46,8 +46,9 @@ blocks on the card, read once per check window by the solver.
   the kernel and is bitwise a one-device run. Under ``halo_overlap=
   "overlap"`` (the default) a round runs phase 1, the deferred bulk of
   every block (which reads ``u`` and the tail only, so no phase-2 buffer
-  has a data path into it), phase 2, and the band kernel of every block,
-  which writes the first and last K rows into the bulk's output; under
+  has a data path into it), phase 2, and the band kernel, one launch for
+  every block's bands, which writes each block's first and last K rows
+  into its bulk's output; under
   ``"phase"``, or where a block has fewer than 2K rows, the monolithic
   kernel runs after both phases. One CUDA stream carries all of it in
   this slice; side streams that overlap the phase-2 copies with the
@@ -346,7 +347,9 @@ def _cuda_round_2d(xch: DeepExchange2D, kind: str, mode: str, *, grid_shape,
     package's ``_pallas_round_2d``): ``fn(us, vs, want_res) -> residual or
     None``. G-uni and G-fuse read the exchange's pieces; G-circ and G a
     block assembled into a buffer of their own, one more full-block copy
-    a round."""
+    a round. The overlapped round fixes every block's bands in one launch
+    (``stencil_kernels_block.BandLaunch``), built on the first round over
+    each pair of buffers ``(us, vs)`` (a run alternates two) and kept."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
     k, mesh = xch.k, xch.mesh
@@ -361,6 +364,17 @@ def _cuda_round_2d(xch: DeepExchange2D, kind: str, mode: str, *, grid_shape,
                     else xch.assemble_padded)
         exts = [torch.zeros((bx + 2 * k, by + 2 * k), dtype=torch.float32,
                             device=mesh.device) for _ in range(mesh.size)]
+    bands = {}
+
+    def bands_of(us, vs):
+        key = tuple(t.data_ptr() for t in us) + tuple(t.data_ptr()
+                                                      for t in vs)
+        if key not in bands:
+            if len(bands) >= 4:  # buffers the run no longer holds
+                bands.clear()
+            bands[key] = skb.BandLaunch(us, xch.tail, xch.halo_n, xch.halo_s,
+                                        vs, k, origins=origins, **kw)
+        return bands[key]
 
     def fn(us, vs, want_res):
         res = []
@@ -369,12 +383,12 @@ def _cuda_round_2d(xch: DeepExchange2D, kind: str, mode: str, *, grid_shape,
             for b in range(mesh.size):
                 res.append(launch(us[b], xch.tail[b], None, None, vs[b], k,
                                   want_res, origin=origins[b], **kw))
+            xch.phase2(us)
+            res.append(bands_of(us, vs)(want_res))
+            return torch.stack(res).amax() if want_res else None
         xch.phase2(us)
         for b in range(mesh.size):
-            if deferred:
-                r = skb.band_fix(us[b], *xch.pieces(b), vs[b], k, want_res,
-                                 origin=origins[b], **kw)
-            elif exts is not None:
+            if exts is not None:
                 assemble(b, us[b], exts[b])
                 r = launch(exts[b], vs[b], k, want_res, origin=origins[b],
                            **kw)

@@ -422,6 +422,55 @@ def test_bulk_and_band_cover_the_block_once():
     assert any("written by 2 blocks" in f.message for f in out)
 
 
+@pytest.mark.parametrize("grid,mesh,k", [((32768, 32768), (2, 4), 8),
+                                         ((1000, 1000), (2, 4), 8),
+                                         ((1000, 1000), (2, 4), 3),
+                                         ((32, 48), (2, 2), 8),
+                                         ((32, 48), (2, 2), 3)])
+def test_batched_band_plan_covers_every_block_once(grid, mesh, k):
+    """The band kernel's launch over a round's blocks: with each block's
+    deferred bulk every output cell once (a 16 x 24 block at K = 8 is all
+    bands), its grid (column tiles, 2 regions, blocks) and shared memory
+    a block; an entry given twice writes its bands twice."""
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    origins = pp.mesh_block_origins(grid, mesh)
+    block = tuple(n // d for n, d in zip(grid, mesh))
+    kind = "G-uni" if block[1] % 4 == 0 else "G-fuse"
+    bulks = [pp.plan_g(kind, block, k, o, grid, defer=True) for o in origins]
+    band = pp.plan_g_band(block, k, origins, grid)
+    assert pk.audit_kernels(bulks + [band]) == []
+    assert len(pp.coverage_groups(bulks + [band])) == len(origins)
+    col_tiles = -(-block[1] // p.g_band_tile_x)
+    assert [a.count for a in band.axes] == [len(origins), 2, col_tiles]
+    assert band.grid == len(origins) * 2 * col_tiles
+    assert band.threads == p.g_band_block[0] * p.g_band_block[1]
+    assert band.dyn_smem == p.g_smem_bytes(k, (k, p.g_band_tile_x))
+    assert band.arrays["out"].shape == (len(origins),) + block
+    twice = pp.plan_g_band(block, k, origins + origins[:1], grid)
+    out = pk.audit_kernels(bulks + [twice])
+    assert any("written by 2 blocks" in f.message for f in out)
+    # The 16-byte row load where the geometry takes it (K even, widths a
+    # multiple of 4), else the per-cell load alone.
+    assert ("rows" in band.loads) == (block[1] % 4 == 0 and k % 2 == 0)
+
+
+def test_band_row_load_plan_catches_a_misaligned_piece_row():
+    """The row load's 16-byte copies need piece rows of a multiple of 4
+    floats: the audit flags halo rows of by + 2k = 30 floats."""
+    import dataclasses
+
+    origins = pp.mesh_block_origins((32, 48), (2, 2))
+    band = pp.plan_g_band((16, 24), 8, origins, (32, 48))
+    assert band.loads["rows"].kind == "cp16"
+    assert pk.audit_kernels([band]) == []
+    bad = dataclasses.replace(band, arrays={
+        **band.arrays, "pieces": pp.Array((4, 32, 30))})
+    out = pk.audit_kernels([bad])
+    assert any(f.rule == "HL401" and "16-byte" in f.message for f in out)
+
+
 def test_kernels_layer_runs_in_under_30_s():
     import time
 

@@ -478,6 +478,46 @@ def test_g_kernels_bitwise_plain_each_other_and_e(card, grid, mesh_shape, k,
                 assert torch.equal(torch.maximum(rb, rf), r)
 
 
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("grid,mesh_shape,k", G_CASES)
+def test_band_blocks_bitwise_plain_and_per_block(card, grid, mesh_shape, k,
+                                                 cx, cy):
+    """Every block's bands in one launch: bitwise the batched plain
+    version and one launch a block, grids and residual; the rows between
+    the bands untouched."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(_rand(grid, 17, card))
+    bs = mesh.block_shape(grid)
+    tails, hns, hss = zip(*temporal.exchange_halos_fused_2d(mesh, us, k))
+    origins = [mesh.origin(b, bs) for b in range(mesh.size)]
+    kw = dict(origins=origins, grid_shape=grid, cx=cx, cy=cy)
+    got, plain, one = ([torch.full(bs, float("nan"), device=card)
+                        for _ in us] for _ in range(3))
+    sk.reset_counts()
+    r = skb.band_fix_blocks(us, tails, hns, hss, got, k, **kw)
+    assert sk.counts["heat_g_band_fix"] == 1
+    rp = skb.band_fix_blocks_plain(us, tails, hns, hss, plain, k, **kw)
+    rs = [skb.band_fix(us[b], tails[b], hns[b], hss[b], one[b], k,
+                       origin=origins[b], grid_shape=grid, cx=cx, cy=cy)
+          for b in range(mesh.size)]
+    for a, b_, c in zip(got, plain, one):
+        assert torch.equal(a.nan_to_num(7.0), b_.nan_to_num(7.0))
+        assert torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+        assert a[k:bs[0] - k].isnan().all()
+    assert torch.equal(r, rp) and torch.equal(r, torch.stack(rs).amax())
+    # The per-cell load, pinned, gives the same bits as the load picked.
+    cells = [torch.full(bs, float("nan"), device=card) for _ in us]
+    rc = skb.BandLaunch(us, tails, hns, hss, cells, k, load="cells",
+                        **kw)(True)
+    for a, c in zip(got, cells):
+        assert torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+    assert torch.equal(rc, r)
+
+
 @pytest.mark.parametrize("cfg", [
     dict(nx=1000, ny=1000, steps=101, mesh_shape=(2, 4)),
     dict(nx=512, ny=512, steps=200, mesh_shape=(2, 2), halo_overlap="phase"),

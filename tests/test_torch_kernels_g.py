@@ -235,6 +235,139 @@ def test_plain_kinds_bitwise_each_other_and_one_grid_steps(where, k):
         assert torch.equal(out, want), kind
 
 
+def _round_operands(grid, mesh_shape, k, seed):
+    """Every block of a seeded ``grid`` on ``mesh_shape``, the port's
+    exchange at depth ``k`` and the blocks' origins."""
+    rng = np.random.default_rng(seed)
+    g = (rng.standard_normal(grid) * 10).astype(np.float32)
+    mesh = HeatMesh(mesh_shape)
+    us = mesh.split(torch.from_numpy(g))
+    pieces = temporal.exchange_halos_fused_2d(mesh, us, k)
+    bs = mesh.block_shape(grid)
+    return us, pieces, [mesh.origin(b, bs) for b in range(mesh.size)]
+
+
+# (mesh, block): blocks of exactly 2K rows and of more, widths that are
+# and are not a multiple of 4 (a ragged last column tile either way).
+BAND_MESHES = [((1, 2), (0, 13)), ((2, 2), (0, 24)), ((2, 4), (5, 13)),
+               ((2, 4), (0, 22))]
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("mesh_shape,extra", BAND_MESHES)
+def test_band_blocks_plain_equals_per_block_plain(mesh_shape, extra, k):
+    """The batched plain version (every block's band windows stepped as
+    one batch) is bitwise the per-block plain version on each block,
+    grid and residual, and writes no row between the bands."""
+    rows = max(2 * k, 2) + extra[0]
+    grid = (mesh_shape[0] * rows, mesh_shape[1] * extra[1])
+    us, pieces, origins = _round_operands(grid, mesh_shape, k, seed=k)
+    kw = dict(grid_shape=grid, cx=0.1, cy=0.2)
+    got = [torch.full(u.shape, float("nan")) for u in us]
+    want = [torch.full(u.shape, float("nan")) for u in us]
+    r = skb.band_fix_blocks_plain(us, *zip(*pieces), got, k,
+                                  origins=origins, **kw)
+    rs = [skb.band_fix_plain(u, *pc, w, k, origin=o, **kw)
+          for u, pc, w, o in zip(us, pieces, want, origins)]
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.nan_to_num(7.0), w_.nan_to_num(7.0))
+        assert g_[k:-k].isnan().all()
+    assert float(r) == float(torch.stack(rs).amax())
+    assert skb.band_fix_blocks_plain(us, *zip(*pieces), got, k, False,
+                                     origins=origins, **kw) is None
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+def test_band_blocks_match_jax_builder(cx, cy):
+    """Every block of the (3, 3) mesh in one call of the batched band
+    (its plain version here), each block against the JAX builder."""
+    g = _grid()
+    mesh = HeatMesh(MESH)
+    us = mesh.split(torch.from_numpy(g))
+    pieces = temporal.exchange_halos_fused_2d(mesh, us, K)
+    origins = [mesh.origin(b, BLOCK) for b in range(mesh.size)]
+    outs = [torch.full(BLOCK, float("nan")) for _ in us]
+    res = skb.band_fix_blocks(us, *zip(*pieces), outs, K, origins=origins,
+                              grid_shape=GRID, cx=cx, cy=cy)
+    fn = ps._build_band_fix_2d(BLOCK, "float32", cx, cy, GRID, K)
+    wres_all = []
+    for where, b in sorted(BLOCKS.items()):
+        origin, u, tail, hn, hs = _pieces_np(g, b)
+        want, wres = fn(jnp.asarray(u), jnp.asarray(tail), jnp.asarray(hn),
+                        jnp.asarray(hs), *origin)
+        got = np.concatenate([outs[b].numpy()[:K], outs[b].numpy()[-K:]])
+        _close_grid(got, want)
+        _ring_exact(outs[b].numpy(), u, origin, np.r_[:K, -K:0])
+        wres_all.append(float(wres))
+    for out in outs:
+        assert np.isnan(out.numpy()[K:-K]).all()
+    # The residual is the max over all nine blocks' bands; the three
+    # blocks the builder ran bound it from below.
+    assert float(res) >= max(wres_all) * (1 - 1e-4)
+
+
+@pytest.mark.parametrize("block,k,rows", [((16, 24), 8, True),
+                                          ((16, 24), 2, True),
+                                          ((16, 24), 3, False),
+                                          ((500, 250), 8, False),
+                                          ((500, 252), 1, False),
+                                          ((16384, 8192), 8, True)])
+def test_band_row_load_rule(block, k, rows):
+    """The band kernel copies its windows' core columns 16 bytes at a
+    time where the block's width and its halo rows (by + 2k) are
+    multiples of 4 floats; the launch names the load it takes."""
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    assert params().g_band_row_load(block, k) is rows
+    if block[0] > 500:
+        return
+    grid = (2 * block[0], 2 * block[1])
+    us, pieces, origins = _round_operands(grid, (2, 2), k, seed=3)
+    outs = [torch.empty_like(u) for u in us]
+    launch = skb.BandLaunch(us, *zip(*pieces), outs, k, origins=origins,
+                            grid_shape=grid, cx=0.1, cy=0.1)
+    assert launch.load == ("rows" if rows else "cells")
+
+
+def test_band_blocks_refuse_bad_operands():
+    us, pieces, origins = _round_operands((32, 48), (2, 2), 3, seed=1)
+    tails, hns, hss = (list(x) for x in zip(*pieces))
+    outs = [torch.empty_like(u) for u in us]
+    kw = dict(grid_shape=(32, 48), cx=0.1, cy=0.1)
+    with pytest.raises(ValueError, match="one tail"):
+        skb.band_fix_blocks(us, tails[:3], hns, hss, outs, 3,
+                            origins=origins, **kw)
+    with pytest.raises(ValueError, match="one shape"):
+        skb.band_fix_blocks(us, tails, hns, hss,
+                            outs[:3] + [torch.empty((16, 20))], 3,
+                            origins=origins, **kw)
+    with pytest.raises(ValueError, match="both halo rows"):
+        skb.band_fix_blocks(us, tails, [None] * 4, [None] * 4, outs, 3,
+                            origins=origins, **kw)
+    thin, thin_pieces, thin_origins = _round_operands((10, 48), (2, 2), 3,
+                                                      seed=2)
+    with pytest.raises(ValueError, match="at least 2k"):
+        skb.band_fix_blocks(thin, *zip(*thin_pieces),
+                            [torch.empty_like(u) for u in thin], 3,
+                            origins=thin_origins, grid_shape=(10, 48),
+                            cx=0.1, cy=0.1)
+    with pytest.raises(ValueError, match="does not take"):
+        skb.BandLaunch(us, tails, hns, hss, outs, 3, origins=origins,
+                       geometry=(238, 32, 8), **kw)
+    with pytest.raises(ValueError, match="row load needs"):
+        skb.BandLaunch(us, tails, hns, hss, outs, 3, origins=origins,
+                       load="rows", **kw)
+    with pytest.raises(ValueError, match="load must be one of"):
+        skb.BandLaunch(us, tails, hns, hss, outs, 3, origins=origins,
+                       load="tma", **kw)
+    with pytest.raises(ValueError, match="measurement on the card"):
+        skb.BandLaunch(us, tails, hns, hss, outs, 3, origins=origins,
+                       load="none", **kw)
+    with pytest.raises(ValueError, match="does not lie in the grid"):
+        skb.band_fix_blocks(us, tails, hns, hss, outs, 3,
+                            origins=origins[:3] + [(20, 30)], **kw)
+
+
 def test_nan_block_gives_nan_residual_and_keeps_the_ring():
     g = _grid(seed=5)
     g[1, 30] = np.nan  # in the corner block (0, 1) next to the ring
@@ -399,7 +532,13 @@ def test_g_tile_kinds_count_the_branches():
     assert bulk["tiles"] == 171 * 74 and bulk["ragged_rows"] == 74
     band = p.g_tile_kinds((16384, 8192), 8, [(0, 8), (16376, 8)],
                           (8, p.g_band_tile_x))
-    assert band["tiles"] == 2 * 35 and band["inside"] == 0
+    assert band["tiles"] == 2 * 74 and band["inside"] == 0
+    # The round's band launch over the 8 blocks of 32768^2 on (2, 4): 1184
+    # thread blocks, 9 an SM by shared memory, so about one full wave of
+    # the 132 SMs (one block alone gives 148, 1.1 an SM).
+    thread_blocks = 8 * band["tiles"]
+    assert thread_blocks == 1184 and thread_blocks > 8 * p.sm_count
+    assert p.g_blocks_per_sm(8, (8, p.g_band_tile_x), p.g_band_block) == 9
 
 
 def test_picker_and_explain_name_the_kernel_and_its_shape():

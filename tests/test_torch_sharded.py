@@ -80,12 +80,16 @@ def test_cuda_backend_matches_jax_pallas_sharded(mode):
                 **base)
     used = "block_uniform_plain"
     assert sk.counts[used] == 4 * 4
-    assert sk.counts["band_fix_plain"] == (4 * 4 if mode == "overlap"
-                                           else 0)
+    # Every block's bands in one call a round: 4 rounds.
+    assert sk.counts["band_fix_plain"] == (4 if mode == "overlap" else 0)
     _close_grid(got.to_numpy(), want)
     _ring_exact(got.to_numpy(), want)
     one = _port(backend="cuda", **base)
     assert torch.equal(got.grid, one.grid)
+    # The batched bands leave the grid as the other schedule computes it.
+    other = "phase" if mode == "overlap" else "overlap"
+    assert torch.equal(got.grid, _port(backend="cuda", mesh_shape=(2, 2),
+                                       halo_overlap=other, **base).grid)
 
 
 @pytest.mark.parametrize("backend,depth,ci", [

@@ -139,7 +139,8 @@ prints the card's name and power limit, then one JSON line per phase:
    neighbouring levels of the main path's hierarchy (512^2 <-> 257^2,
    257^2 <-> 129^2, ..., 9^2 <-> 5^2: a 512^2 grid has a 510^2 interior);
    even and odd fine interiors both, a stack of three, ring exactly
-   zero;
+   zero, and every output cell written (each launch again into a
+   NaN-filled output through ``multigrid._launch_transfer``);
 9. ensemble — ``EnsembleSolver`` at full width: 64 members of 512^2 (the
    size of ``bench.py --row ensemble512``), 400 fixed steps, path M, one
    launch, every member bitwise the solo ``solve()``; aggregate
@@ -165,12 +166,17 @@ prints the card's name and power limit, then one JSON line per phase:
    K = 20 and the residuals (a converge window), and at K = 20 with the
    residuals on 8 members of 20^2 (one block each) and of 256^2 (a
    cooperative tiling), and of restrict and
-   prolong at 4098^2 <-> 2050^2 and at the main path's finest pair,
-   512^2 <-> 257^2 (the ``kernels`` line takes this one), each beside
+   prolong at 4098^2 <-> 2050^2, at the main path's smallest pair, 9^2
+   <-> 5^2 (a transfer launch's floor), and at its finest, 512^2 <->
+   257^2 (the ``kernels`` line takes this one), each beside
    its plain version, its bound and a PyTorch yardstick (``conv2d``,
    zero-padded, chained K times for M, ``conv2d`` with the
    full-weighting weights at stride 2 for restrict, ``conv_transpose2d``
-   with the bilinear weights for prolong, TF32 off).
+   with the bilinear weights for prolong, TF32 off); and the host's
+   microseconds for each piece of one transfer call at 512^2
+   (``tools/launch_cost.py``: the launch record's lookup, ``torch.empty``,
+   the stream, the bare ``ctypes`` launch, the whole call, one
+   ``torch.add`` for scale).
 
 12. kernels_g — the sharded block kernels G-uni
    (``heat_g_block_uniform``), G-fuse (``heat_g_block_fused``), G-circ
@@ -378,8 +384,9 @@ IMP_C = 22.5             # cx = cy = 22.5, 100x the explicit stable step
 # every level of the main path's hierarchy but its coarsest.
 MG_FINE = ((4098, 4098), (1001, 999), (514, 514), (34, 34), (5, 4),
            (4099, 4097))
-# Timed: a large level, and the main path's finest (the kernels line).
-MG_TIMED = ((4098, 4098), (IMP_N, IMP_N))
+# Timed: a large level, the main path's smallest pair and its finest (the
+# kernels line).
+MG_TIMED = ((4098, 4098), (9, 9), (IMP_N, IMP_N))
 TPU = "parallel_heat_tpu/ops/pallas_stencil.py"
 # Kernel -> (its tune.force choice, the TPU kernel's builder it replaces),
 # at site single_2d for KERNELS_2D and single_3d for KERNELS_3D.
@@ -1750,7 +1757,16 @@ def phase_kernels_mg(dev):
             c[..., :, 0] = c[..., :, -1] = 0
             back = mg.prolong(c, fine)
             back_want = mg.prolong_bilinear(c, (fine[0] - 2, fine[1] - 2))
+            # Every output cell written: each launch into a NaN-filled
+            # output must come out bitwise the plain version.
+            nan_r = torch.full_like(want, float("nan"))
+            nan_p = torch.full_like(back_want, float("nan"))
+            mg._launch_transfer(mg.RESTRICT, r, nan_r)
+            mg._launch_transfer(mg.PROLONG, c, nan_p)
             torch.cuda.synchronize()
+            check(torch.equal(nan_r, want) and torch.equal(nan_p, back_want),
+                  f"a transfer kernel left cells of a NaN-filled output "
+                  f"unwritten or wrong at {lead + fine} <-> {lead + coarse}")
             err["heat_mg_restrict"] = max(err["heat_mg_restrict"],
                                           float((got - want).abs().max()))
             err["heat_mg_prolong"] = max(
@@ -1767,8 +1783,9 @@ def phase_kernels_mg(dev):
                            "on_main_path": (fine, coarse) in on_path,
                            "fine_interior_odd": [(fine[0] - 2) % 2 == 1,
                                                  (fine[1] - 2) % 2 == 1],
-                           "bitwise": True, "ring_zero": True})
-            del r, c, got, want, back, back_want
+                           "bitwise": True, "ring_zero": True,
+                           "every_cell_written": True})
+            del r, c, got, want, back, back_want, nan_r, nan_p
         torch.cuda.empty_cache()
     emit({"phase": "kernels_mg", "ok": True, "checks": report,
           "max_abs_err": err})
@@ -2102,7 +2119,16 @@ def phase_timing_ens_mg(dev):
     torch.cuda.empty_cache()
     # The kernels line takes the main path's shape, the last of MG_TIMED.
     rows.update(size)
-    emit({"phase": "timing_ens_mg", "kernels": {
+    # The host's share of one transfer call at that shape, piece by piece
+    # (tools/launch_cost.py).
+    from parallel_heat_tpu_torch.tools import launch_cost
+
+    host = launch_cost.breakdown(dev, calls=10000, size=IMP_N)
+    emit({"phase": "timing_ens_mg", "transfer_call_host_us": {
+        name: host[name]["host_us"] for name in (mg.RESTRICT, mg.PROLONG)},
+        "transfer_call_events_ms": {
+        name: host[name]["events_ms"] for name in (mg.RESTRICT, mg.PROLONG)},
+        "kernels": {
         **{f"heat_m_ensemble@k{k}": row for k, row in m_rows.items()},
         **small, **{
             f"{name}@{key}": row for key, size in by_size.items()

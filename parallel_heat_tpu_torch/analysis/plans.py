@@ -525,70 +525,89 @@ def plan_d(shape) -> Plan:
         axes=axes, loads={"nbrs": Load("ld", "u")}, cover=_full(shape))
 
 
-def _mg_axes(lead, out_shape, block, reads_of):
-    bx, by = block
+def _mg_axes(lead, out_shape, block, span, reads_of):
+    """The members axis and, per array dimension d (rows, columns), the
+    thread blocks along it: block i takes ``block`` threads of ``span``
+    output cells each from cell ``i * block * span``, clipped to the
+    output; ``reads_of(d, lo, hi)`` is its window of the source."""
+    def axis(d, name):
+        t = block[1 - d] * span[d]
 
-    def axis(count, t, dim, name, d):
-        def span(i):
-            lo, hi = i * t, min(i * t + t, dim)
+        def one(i):
+            lo, hi = i * t, min(i * t + t, out_shape[d])
             return Span((lo, hi), {"src": reads_of(d, lo, hi)})
-        return Axis(name, count, span)
+        return Axis(name, _ceil(out_shape[d], t), one)
 
     return [Axis("members", lead, lambda b: Span((b, b + 1),
                                                  {"src": (b, 1, None)})),
-            axis(_ceil(out_shape[0], by), by, out_shape[0], "rows", 0),
-            axis(_ceil(out_shape[1], bx), bx, out_shape[1], "cols", 1)]
+            axis(0, "rows"), axis(1, "cols")]
 
 
 def plan_restrict(fine, coarse, batch=1) -> Plan:
-    """``heat_mg_restrict``: a thread a coarse cell; an interior cell
-    reads the 3 x 3 fine cells around fine (2i, 2j), the ring is written
-    0 (``heat_mg_restrict.cu`` :38-62)."""
+    """``heat_mg_restrict``: a thread ``mg_restrict_cells(coarse)`` (cy,
+    cx) coarse cells of a ``mg_restrict_block`` block; coarse cell (i, j)
+    reads the 3 x 3 fine cells around fine (2i, 2j), so a thread its
+    (2 cy + 1) x (2 cx + 1) window from fine (2 i0 - 1, 2 j0 - 1), its
+    rows and columns clamped into the fine array (the guard below); the
+    ring is written 0 (``heat_mg_restrict.cu`` :52-98, launcher
+    :118-143)."""
     p = _p()
+    block, cells = tuple(p.mg_restrict_block), p.mg_restrict_cells(coarse)
 
     def reads(d, lo, hi):
-        a, b = max(lo, 1), min(hi, coarse[d] - 1)
-        return (2 * a - 1, max(0, 2 * (b - a) + 1), None)
+        return (2 * lo - 1, 2 * (hi - lo) + 1, (0, fine[d]))
 
-    axes = _mg_axes(batch, coarse, p.mg_block, reads)
+    axes = _mg_axes(batch, coarse, block, cells, reads)
     return Plan(
         kernel="heat_mg_restrict_kernel", entry="heat_mg_restrict",
-        label=f"restrict {fine[0]}x{fine[1]} -> {coarse[0]}x{coarse[1]}",
+        label=f"restrict {fine[0]}x{fine[1]} -> {coarse[0]}x{coarse[1]}"
+              + (f" x{batch}" if batch > 1 else ""),
         grid=batch * axes[1].count * axes[2].count,
-        threads=p.mg_block[0] * p.mg_block[1], max_threads=1024,
+        threads=block[0] * block[1], max_threads=1024,
         dyn_smem=0, static_smem=0,
         arrays={"src": Array((batch,) + tuple(fine)),
                 "out": Array((batch,) + tuple(coarse))},
         output="out", axes=axes, loads={"src": Load("ld", "src")},
         cover=_full((batch,) + tuple(coarse)),
-        int32=[("fine row index 2i + 1", 2 * coarse[0] - 3),
-               ("fine column index 2j + 1", 2 * coarse[1] - 3)])
+        int32=[("thread's first coarse row i0", axes[1].count * block[1]
+                * cells[0]),
+               ("thread's first coarse column j0", axes[2].count * block[0]
+                * cells[1]),
+               ("fine row 2 i0 + 2 cy - 1", 2 * (coarse[0] - 1)
+                + 2 * cells[0] - 1),
+               ("fine column 2 j0 + 2 cx - 1", 2 * (coarse[1] - 1)
+                + 2 * cells[1] - 1)])
 
 
 def plan_prolong(coarse, fine, batch=1) -> Plan:
-    """``heat_mg_prolong``: a thread a fine cell; interior cell (p, q)
-    reads coarse rows p >> 1 .. (p >> 1) + 1 and columns q >> 1 ..
-    (q >> 1) + 1 (``heat_mg_prolong.cu`` :45-64)."""
+    """``heat_mg_prolong``: a thread a coarse full cell (t, s) of a
+    ``mg_prolong_block`` block, writing fine rows 2t, 2t + 1 and columns
+    2s, 2s + 1 clipped to the fine array; it reads coarse rows t, t + 1
+    and columns s, s + 1, the second clamped to the coarse ring (the
+    guard below) (``heat_mg_prolong.cu`` :57-103, launcher
+    :111-140)."""
     p = _p()
+    block = tuple(p.mg_prolong_block)
 
     def reads(d, lo, hi):
-        a, b = max(lo, 1), min(hi, fine[d] - 1)
-        if a >= b:
-            return (0, 0, None)
-        first = (a - 1) >> 1
-        return (first, ((b - 2) >> 1) + 2 - first, None)
+        # Fine cells [lo, hi) come from the threads t = lo / 2 ..
+        # (hi - 1) / 2, which read coarse lines t .. t + 1.
+        return (lo // 2, (hi - 1) // 2 - lo // 2 + 2, (0, coarse[d]))
 
-    axes = _mg_axes(batch, fine, p.mg_block, reads)
+    axes = _mg_axes(batch, fine, block, (2, 2), reads)
     return Plan(
         kernel="heat_mg_prolong_kernel", entry="heat_mg_prolong",
-        label=f"prolong {coarse[0]}x{coarse[1]} -> {fine[0]}x{fine[1]}",
+        label=f"prolong {coarse[0]}x{coarse[1]} -> {fine[0]}x{fine[1]}"
+              + (f" x{batch}" if batch > 1 else ""),
         grid=batch * axes[1].count * axes[2].count,
-        threads=p.mg_block[0] * p.mg_block[1], max_threads=1024,
+        threads=block[0] * block[1], max_threads=1024,
         dyn_smem=0, static_smem=0,
         arrays={"src": Array((batch,) + tuple(coarse)),
                 "out": Array((batch,) + tuple(fine))},
         output="out", axes=axes, loads={"src": Load("ld", "src")},
-        cover=_full((batch,) + tuple(fine)))
+        cover=_full((batch,) + tuple(fine)),
+        int32=[("fine row 2t + 1", 2 * axes[1].count * block[1] - 1),
+               ("fine column 2s + 1", 2 * axes[2].count * block[0] - 1)])
 
 
 # ---------------------------------------------------------------------------
@@ -1161,7 +1180,8 @@ F_SHAPE = (512, 512, 512)
 G_GRID, G_MESH = (32768, 32768), (2, 4)
 H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)
 M_STACK = (64, (512, 512))
-MG_FINE, MG_COARSE = (512, 512), (257, 257)
+MG_PATH = ((512, 512), (257, 257), (129, 129), (65, 65), (33, 33),
+           (17, 17), (9, 9), (5, 5))
 RAGGED_2D = ((1001, 999), (21, 23), (20, 24), (1001, 1000))
 RAGGED_3D = ((24, 20, 28), (67, 130, 201))
 
@@ -1225,8 +1245,11 @@ def default_plans() -> List[Plan]:
                 continue
             for load in loads:
                 out.append(plan_f(shape, k, load))
-    out.append(plan_restrict(MG_FINE, MG_COARSE))
-    out.append(plan_prolong(MG_COARSE, MG_FINE))
+    # The transfers: every pair of the implicit main path's hierarchy
+    # (512 -> 257 -> ... -> 5), and a ragged stack of three.
+    for fine, coarse in zip(MG_PATH[:-1], MG_PATH[1:]):
+        out.append(plan_restrict(fine, coarse))
+        out.append(plan_prolong(coarse, fine))
     out.append(plan_restrict((21, 23), (11, 12), batch=3))
     out.append(plan_prolong((11, 12), (21, 23), batch=3))
     # Sharded 2D: the default round (G-uni deferred bulk + the band kernel

@@ -37,9 +37,12 @@ the residuals, one converge window): the tilings of a member that
 under each of A's thread blocks, a spread of tile counts, and, where a
 member fits one block, the one-block-per-member launch over thread
 blocks. ``--only mg`` sweeps the
-thread block of ``heat_mg_restrict`` and ``heat_mg_prolong`` at 4098^2
-<-> 2050^2 and 512^2 <-> 257^2 (the finest pair of a 512^2 implicit
-run). Both check every launch shape bitwise
+thread block of ``heat_mg_restrict`` (with the coarse cells a thread
+takes, 1 x 1, 1 x 2, 2 x 2) and of ``heat_mg_prolong`` at 4098^2 <->
+2050^2 and 512^2 <-> 257^2 (the finest pair of a 512^2 implicit run),
+each launch into a NaN-filled output checked bitwise against the plain
+version, then timed by ``torch.profiler`` (the card's own time) and CUDA
+events. Both check every launch shape bitwise
 against the plain version first. ``--only g`` sweeps the sharded path's
 G kernels at the main path's block, 16384 x 8192 of 32768^2 on a (2, 4)
 mesh: the deferred bulk of G-uni (the launch the default overlapped
@@ -73,10 +76,14 @@ shared-memory bytes per cell-step of its plane loop (``sass_f``), for
 kernel A the same of each loop that steps cells and of its test-free
 inner step (``sass_a``);
 ``--turns TREE`` times the default paths' kernels (F under both
-loads, D, H-fused, H, E-uni, G-uni's bulk, A at 1000^2 and M at 64 x
-512^2) in another checkout at TREE
+loads, D, H-fused, H, E-uni, G-uni's bulk, A at 1000^2, M at 64 x
+512^2, the transfer calls and kernels at 4098^2, 512^2 and 9^2, the
+512^2 implicit runs) in another checkout at TREE
 and in this one, in turns (TREE, this, this, TREE), each in its own
-process, and prints the sharded 3D picks of both.
+process, and prints the sharded 3D picks of both (``--turns-only``
+names the rows to time; only those are set up and built).
+``--sass-same TREE`` builds every kernel in TREE and here and compares
+their machine code function by function.
 ``--sass-of LIB`` reads one kernel's machine code from another tree's
 library instead (``python -m parallel_heat_tpu_torch.bench_kernels
 --sass DIR --sass-of
@@ -129,9 +136,13 @@ M_DEPTHS = [4, 8]
 M_BEST = 3                      # modelled-cheapest tilings per depth
 M_TILES = [4, 8, 12, 16, 24, 44]   # and these tile counts
 M_SOLO_BLOCKS = [(32, 4), (32, 8), (32, 16)]
-MG_BLOCKS = [(32, 4), (32, 8), (32, 16), (32, 32), (64, 4), (64, 8),
-             (128, 2), (128, 4), (256, 1)]
-MG_FINE = [(4098, 4098), (512, 512)]
+MG_BLOCKS = [(32, 4), (32, 8), (32, 16), (64, 4), (64, 8), (128, 2),
+             (128, 4), (256, 1)]
+MG_RESTRICT_CELLS = [(1, 1), (1, 2), (2, 2)]   # the compiled instances
+MG_FINE = [(4098, 4098), (2050, 2050), (1026, 1026), (512, 512)]
+# --turns: the transfers at a large pair, the 512^2 main path's finest and
+# its smallest, and the 512^2 implicit run (bench.py --row implicit512).
+MG_TURN_SIZES = [4098, 512, 9]
 G_GRID, G_MESH = (32768, 32768), (2, 4)    # the sharded main path
 # G's output tiles: 112 columns make a K = 8 framed row 128 floats, one
 # pass of 32 lanes of 4 columns, 240 two passes; the rows span 1 to 4
@@ -494,8 +505,14 @@ def sweep_m(reps: int):
 
 
 def sweep_mg(reps: int):
-    """Yield one dict per (kernel, fine shape, thread block) of the
-    multigrid transfer kernels."""
+    """Yield one dict per (kernel, fine shape, launch shape) of the
+    multigrid transfer kernels: restrict over thread blocks and the
+    coarse cells a thread takes (``MG_RESTRICT_CELLS``), prolong over
+    thread blocks. Each launch first writes a NaN-filled output, which
+    must come out bitwise the plain version's (so every cell written),
+    then is timed by ``torch.profiler`` (``ms``, the card's own time:
+    at 512^2 a launch is shorter than the host's time to issue one) and
+    by CUDA events (``events_ms``)."""
     p = params()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(0)
@@ -508,23 +525,33 @@ def sweep_mg(reps: int):
         c[0] = c[-1] = 0
         c[:, 0] = c[:, -1] = 0
         cases = {
-            "heat_mg_restrict": (r, torch.empty(coarse, device=dev),
-                                 mg.restrict_full_weighting(r, coarse)),
-            "heat_mg_prolong": (c, torch.empty(fine, device=dev),
-                                mg.prolong_bilinear(c, (fine[0] - 2,
-                                                        fine[1] - 2))),
+            mg.RESTRICT: (r, torch.empty(coarse, device=dev),
+                          mg.restrict_full_weighting(r, coarse),
+                          [(b, cells) for cells in MG_RESTRICT_CELLS
+                           for b in MG_BLOCKS],
+                          (tuple(p.mg_restrict_block),
+                           p.mg_restrict_cells(coarse))),
+            mg.PROLONG: (c, torch.empty(fine, device=dev),
+                         mg.prolong_bilinear(c, (fine[0] - 2, fine[1] - 2)),
+                         [(b, (1, 1)) for b in MG_BLOCKS],
+                         (tuple(p.mg_prolong_block), (1, 1))),
         }
-        for name, (src, dst, want) in cases.items():
-            for block in MG_BLOCKS:
+        for name, (src, dst, want, shapes, default) in cases.items():
+            for geometry in shapes:
                 dst.fill_(float("nan"))
-                mg._launch_transfer(name, src, dst, 1, block)
+                mg._launch_transfer(name, src, dst, geometry)
                 ok = bool(torch.equal(dst, want))
-                ms = time_ms(lambda: mg._launch_transfer(name, src, dst, 1,
-                                                         block), reps * 5)
+
+                def launch(geometry=geometry):
+                    mg._launch_transfer(name, src, dst, geometry)
+
+                ms = device_ms(launch, name + "_kernel")
                 yield {"kernel": name, "size": fine[0], "fine": list(fine),
-                       "coarse": list(coarse), "block": list(block), "k": 1,
-                       "bitwise": ok, "ms": ms, "ms_per_step": ms,
-                       "default": block == p.mg_block}
+                       "coarse": list(coarse), "block": list(geometry[0]),
+                       "cells": list(geometry[1]), "k": 1, "bitwise": ok,
+                       "ms": ms, "events_ms": time_ms(launch, reps * 5),
+                       "ms_per_step": ms, "default": geometry == default}
+        del r, c
 
 
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -1042,15 +1069,18 @@ def _sass_functions(path):
     return out, sass
 
 
-def sass_same(other: str, names=LOOP_KERNELS):
-    """Build kernels ``names`` in the tree at ``other`` (in its own
+def sass_same(other: str, names=None):
+    """Build kernels ``names`` (every kernel of ``build.KERNELS`` and
+    ``build.TOOLS`` by default) in the tree at ``other`` (in its own
     process, beside this tree's build of them) and yield, per kernel, how
     many of its functions have the same instructions in both trees'
-    libraries, the instruction counts of those that differ, and this
-    tree's instructions, shuffles and shared bytes a cell-step of each
-    function's test-free inner step (:func:`sass_step_report`; 2D
-    kernels only). A kernel the other tree does not have is built here
-    alone and reported with ``"in_other_tree": False``."""
+    libraries, the instruction counts of those that differ, and, for the
+    2D loop kernels (:data:`LOOP_KERNELS`), this tree's instructions,
+    shuffles and shared bytes a cell-step of each function's test-free
+    inner step (:func:`sass_step_report`). A kernel the other tree does
+    not have is built here alone and reported with ``"in_other_tree":
+    False``."""
+    names = names or tuple(build.KERNELS) + tuple(build.TOOLS)
     other = os.path.abspath(other)
     proc = subprocess.Popen(
         [sys.executable, "-c",
@@ -1076,7 +1106,8 @@ def sass_same(other: str, names=LOOP_KERNELS):
                "only_this_tree": sorted(set(b) - set(a)),
                "differ": {build.demangle(f): [len(a[f]), len(b.get(f, []))]
                           for f in a if f not in same},
-               "step_per_cell_step": None if name in _LOOP_3D else {
+               "step_per_cell_step": None if (
+                   name in _LOOP_3D or name not in LOOP_KERNELS) else {
                    build.demangle(r["instance"]): r["step_per_cell_step"]
                    for r in sass_step_report(sass)}}
 
@@ -1089,102 +1120,144 @@ def turn_times(reps: int, only=None) -> dict:
     block of 1024^3 on (2, 2, 2), E-uni and E at 16384^2, K = 8, G-uni's
     deferred bulk at the 16384 x 8192 block of 32768^2 on (2, 4), A at
     1000^2 (K = 20, residual) and M at 64 x 512^2 (K = 400), these two by
-    ``torch.profiler``; and the sharded 3D picks. With ``only`` (names),
-    those kernels alone, so that no other is built."""
+    ``torch.profiler``; the multigrid transfers' calls (events) and
+    kernels (``device``, the profiler) at each of ``MG_TURN_SIZES``^2 <->
+    its coarse level, and the 512^2 implicit runs' ``elapsed_s`` (host
+    clock); and the sharded 3D picks. With ``only`` (names), those
+    kernels alone, so that no other is built or set up."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
     from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
     from parallel_heat_tpu_torch.parallel import temporal
     from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
+    def wanted(*names):
+        return only is None or any(n in only for n in names)
+
     p = params()
     dev = torch.device("cuda", torch.cuda.current_device())
     kw3 = dict(cx=CX, cy=CY, cz=CZ)
     kw2 = dict(cx=CX, cy=CY)
-    runs = {}
-    cube = HeatPlate3D(*(TURN_CUBE,) * 3).init_grid(dev)
-    cube_out = torch.empty_like(cube)
-    runs["F"] = lambda: sk3.xslab_steps_3d(cube, cube_out, 3, False, **kw3)
-    if hasattr(sk3, "f_load"):
-        runs["F cp.async"] = lambda: sk3.xslab_steps_3d(
-            cube, cube_out, 3, False, load="cp.async", **kw3)
-    runs["D"] = lambda: sk3.slab_step_3d(cube, cube_out, **kw3)
+    runs, per_call, wall, by_device = {}, {}, {}, {}
+    if wanted("F", "F cp.async", "D"):
+        cube = HeatPlate3D(*(TURN_CUBE,) * 3).init_grid(dev)
+        cube_out = torch.empty_like(cube)
+        runs["F"] = lambda: sk3.xslab_steps_3d(cube, cube_out, 3, False,
+                                               **kw3)
+        if hasattr(sk3, "f_load"):
+            runs["F cp.async"] = lambda: sk3.xslab_steps_3d(
+                cube, cube_out, 3, False, load="cp.async", **kw3)
+        runs["D"] = lambda: sk3.slab_step_3d(cube, cube_out, **kw3)
     mesh = HeatMesh(H_MESH, dev)
     bs = mesh.block_shape(H_GRID)
-    plate = HeatPlate3D(*H_GRID)
-    us = [plate.init_block(dev, mesh.origin(b, bs), bs)
-          for b in range(mesh.size)]
-    b = mesh.size - 1
-    _, xch = _h_setup(dev, H_GRID, H_MESH, 3, us)
-    pieces = xch.pieces(b)
-    ext = torch.empty(xch.circular_shape, device=dev)
-    xch.assemble_circular(b, us[b], ext)
-    out = torch.empty(bs, device=dev)
-    hkw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw3)
-    runs["H-fused"] = lambda: skb3.h_block_fused(us[b], *pieces, out, 3,
-                                                 False, **hkw)
-    runs["H"] = lambda: skb3.h_block(ext, out, 3, False, **hkw)
-    grid = HeatPlate2D(TURN_PLATE, TURN_PLATE).init_grid(dev)
-    grid_out = torch.empty_like(grid)
-    runs["E-uni"] = lambda: sk.temporal_steps_uni(grid, grid_out, 8, False,
-                                                  **kw2)
-    runs["E"] = lambda: sk.temporal_steps(grid, grid_out, 8, False, **kw2)
-    g_mesh = HeatMesh(G_MESH, dev)
-    g_bs = g_mesh.block_shape(G_GRID)
-    g_plate = HeatPlate2D(*G_GRID)
-    gb = g_mesh.index((1, 1))
-    g_us = [g_plate.init_block(dev, g_mesh.origin(i, g_bs), g_bs)
-            for i in range(g_mesh.size)]
-    g_xch = temporal.DeepExchange2D(g_mesh, g_bs, 8, dev)
-    g_xch.phase1(g_us)
-    g_xch.phase2(g_us)
-    tail, _, _ = g_xch.pieces(gb)
-    g_out = torch.empty(g_bs, device=dev)
-    gkw = dict(origin=g_mesh.origin(gb, g_bs), grid_shape=G_GRID, **kw2)
-    runs["G-uni bulk"] = lambda: skb.block_uniform(g_us[gb], tail, None,
-                                                   None, g_out, 8, False,
-                                                   **gkw)
-    # The sharded 2D round at those blocks: its band pass (one launch for
-    # the 8 blocks where the tree has BandLaunch, else one a block) and a
-    # whole round under each schedule; the band pass's device time a call
-    # by the profiler (``per_call``).
-    g_vs = [torch.empty_like(u) for u in g_us]
-    g_origins = [g_mesh.origin(i, g_bs) for i in range(g_mesh.size)]
-    if hasattr(skb, "BandLaunch"):
-        bands = skb.BandLaunch(g_us, g_xch.tail, g_xch.halo_n, g_xch.halo_s,
-                               g_vs, 8, origins=g_origins, grid_shape=G_GRID,
-                               **kw2)
-        runs["G band round"] = lambda: bands(False)
-    else:
-        runs["G band round"] = lambda: [skb.band_fix(
-            g_us[i], *g_xch.pieces(i), g_vs[i], 8, False, origin=g_origins[i],
-            grid_shape=G_GRID, **kw2) for i in range(g_mesh.size)]
-    per_call = {"G band round device": (runs["G band round"],
-                                        "heat_g_band_fix_kernel")}
-    for mode in ("overlap", "phase"):
-        round_fn = temporal._cuda_round_2d(g_xch, "G-uni", mode,
-                                           grid_shape=G_GRID, **kw2)
-        runs[f"G round {mode}"] = (
-            lambda fn=round_fn: fn(g_us, g_vs, False))
-    # The host-bound sharded converge run, 1000^2 on (2, 4): its
-    # elapsed_s (the host's clock around the step loop).
+    if wanted("H-fused", "H"):
+        plate = HeatPlate3D(*H_GRID)
+        us = [plate.init_block(dev, mesh.origin(b, bs), bs)
+              for b in range(mesh.size)]
+        b = mesh.size - 1
+        _, xch = _h_setup(dev, H_GRID, H_MESH, 3, us)
+        pieces = xch.pieces(b)
+        ext = torch.empty(xch.circular_shape, device=dev)
+        xch.assemble_circular(b, us[b], ext)
+        out = torch.empty(bs, device=dev)
+        hkw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw3)
+        runs["H-fused"] = lambda: skb3.h_block_fused(us[b], *pieces, out, 3,
+                                                     False, **hkw)
+        runs["H"] = lambda: skb3.h_block(ext, out, 3, False, **hkw)
+    if wanted("E-uni", "E"):
+        grid = HeatPlate2D(TURN_PLATE, TURN_PLATE).init_grid(dev)
+        grid_out = torch.empty_like(grid)
+        runs["E-uni"] = lambda: sk.temporal_steps_uni(grid, grid_out, 8,
+                                                      False, **kw2)
+        runs["E"] = lambda: sk.temporal_steps(grid, grid_out, 8, False,
+                                              **kw2)
+    if wanted("G-uni bulk", "G band round", "G band round device",
+              "G round overlap", "G round phase"):
+        g_mesh = HeatMesh(G_MESH, dev)
+        g_bs = g_mesh.block_shape(G_GRID)
+        g_plate = HeatPlate2D(*G_GRID)
+        gb = g_mesh.index((1, 1))
+        g_us = [g_plate.init_block(dev, g_mesh.origin(i, g_bs), g_bs)
+                for i in range(g_mesh.size)]
+        g_xch = temporal.DeepExchange2D(g_mesh, g_bs, 8, dev)
+        g_xch.phase1(g_us)
+        g_xch.phase2(g_us)
+        tail, _, _ = g_xch.pieces(gb)
+        g_out = torch.empty(g_bs, device=dev)
+        gkw = dict(origin=g_mesh.origin(gb, g_bs), grid_shape=G_GRID, **kw2)
+        runs["G-uni bulk"] = lambda: skb.block_uniform(
+            g_us[gb], tail, None, None, g_out, 8, False, **gkw)
+        # The sharded 2D round at those blocks: its band pass (one launch
+        # for the 8 blocks where the tree has BandLaunch, else one a
+        # block) and a whole round under each schedule; the band pass's
+        # device time a call by the profiler (``per_call``).
+        g_vs = [torch.empty_like(u) for u in g_us]
+        g_origins = [g_mesh.origin(i, g_bs) for i in range(g_mesh.size)]
+        if hasattr(skb, "BandLaunch"):
+            bands = skb.BandLaunch(g_us, g_xch.tail, g_xch.halo_n,
+                                   g_xch.halo_s, g_vs, 8, origins=g_origins,
+                                   grid_shape=G_GRID, **kw2)
+            runs["G band round"] = lambda: bands(False)
+        else:
+            runs["G band round"] = lambda: [skb.band_fix(
+                g_us[i], *g_xch.pieces(i), g_vs[i], 8, False,
+                origin=g_origins[i], grid_shape=G_GRID, **kw2)
+                for i in range(g_mesh.size)]
+        per_call["G band round device"] = (runs["G band round"],
+                                           "heat_g_band_fix_kernel")
+        for mode in ("overlap", "phase"):
+            round_fn = temporal._cuda_round_2d(g_xch, "G-uni", mode,
+                                               grid_shape=G_GRID, **kw2)
+            runs[f"G round {mode}"] = (
+                lambda fn=round_fn: fn(g_us, g_vs, False))
     from parallel_heat_tpu_torch import HeatConfig, solve
 
+    # The host-bound sharded converge run, 1000^2 on (2, 4), and the 512^2
+    # implicit runs: their elapsed_s (the host's clock around the step
+    # loop).
     conv_cfg = HeatConfig(nx=1000, ny=1000, steps=10000, converge=True,
                           check_interval=20, eps=1e-3, mesh_shape=(2, 4))
-    wall = {"converge 1000^2 2x4 s": lambda: solve(conv_cfg).elapsed_s}
+    wall["converge 1000^2 2x4 s"] = lambda: solve(conv_cfg).elapsed_s
+    for scheme in ("backward_euler", "crank_nicolson"):
+        imp_cfg = HeatConfig(nx=512, ny=512, cx=22.5, cy=22.5, steps=20,
+                             scheme=scheme)
+        wall[f"implicit 512^2 {scheme} s"] = (
+            lambda cfg=imp_cfg: solve(cfg).elapsed_s)
+    # The transfers: a call (events; host issue where the kernel is
+    # shorter) and the kernel alone (the profiler's device time).
+    rng = np.random.default_rng(0)
+    for size in MG_TURN_SIZES:
+        names = [f"{k} {size}^2{d}" for k in ("restrict", "prolong")
+                 for d in ("", " device")]
+        if not wanted(*names):
+            continue
+        fine = (size, size)
+        coarse = ((size - 2) // 2 + 2,) * 2
+        r = torch.from_numpy((rng.standard_normal(fine) * 10)
+                             .astype(np.float32)).to(dev)
+        c = torch.from_numpy((rng.standard_normal(coarse) * 10)
+                             .astype(np.float32)).to(dev)
+        c[0] = c[-1] = 0
+        c[:, 0] = c[:, -1] = 0
+        for what, fn in (
+                ("restrict", lambda r=r, s=coarse: mg.restrict(r, s)),
+                ("prolong", lambda c=c, s=fine: mg.prolong(c, s))):
+            runs[f"{what} {size}^2"] = fn
+            by_device[f"{what} {size}^2 device"] = (fn, f"heat_mg_{what}")
     # A at the converge path's 1000^2 (one 20-step window, residual) and
     # M at the ensemble path's 64 x 512^2 (K = 400): device time, since
     # A's launch is shorter than the host's time to issue one.
-    a_grid = HeatPlate2D(1000, 1000).init_grid(dev)
-    a_out = torch.empty_like(a_grid)
-    stack = torch.from_numpy((np.random.default_rng(0).standard_normal(
-        (64, 512, 512)) * 10).astype(np.float32)).to(dev)
-    stack_out = torch.empty_like(stack)
-    by_device = {
-        "A": (lambda: sk.resident_steps(a_grid, a_out, 20, True, **kw2),
-              "heat_a_resident_kernel"),
-        "M": (lambda: batched.ensemble_steps(stack, stack_out, 400, False,
-                                             **kw2), "heat_m_ensemble_kernel")}
+    if wanted("A"):
+        a_grid = HeatPlate2D(1000, 1000).init_grid(dev)
+        a_out = torch.empty_like(a_grid)
+        by_device["A"] = (lambda: sk.resident_steps(a_grid, a_out, 20, True,
+                                                    **kw2),
+                          "heat_a_resident_kernel")
+    if wanted("M"):
+        stack = torch.from_numpy((np.random.default_rng(0).standard_normal(
+            (64, 512, 512)) * 10).astype(np.float32)).to(dev)
+        stack_out = torch.empty_like(stack)
+        by_device["M"] = (lambda: batched.ensemble_steps(
+            stack, stack_out, 400, False, **kw2), "heat_m_ensemble_kernel")
     if only:
         runs = {n: f for n, f in runs.items() if n in only}
         by_device = {n: f for n, f in by_device.items() if n in only}
@@ -1260,13 +1333,16 @@ def main(argv=None) -> int:
                          "names of the turn table: F, F cp.async, D, "
                          "H-fused, H, E-uni, E, G-uni bulk, G band round, "
                          "G band round device, G round overlap, G round "
-                         "phase, converge 1000^2 2x4 s, A, M)")
+                         "phase, converge 1000^2 2x4 s, A, M, restrict "
+                         "N^2, prolong N^2 and their ' device' rows for N "
+                         "in 4098, 512, 9, implicit 512^2 backward_euler "
+                         "s, implicit 512^2 crank_nicolson s)")
     ap.add_argument("--turn-of", default=None, type=int,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sass-same", default=None, metavar="TREE",
-                    help="build the tile loop's kernels (and A's probe) in "
-                         "TREE too and compare their machine code with this "
-                         "tree's, function by function")
+                    help="build every kernel in TREE too and compare their "
+                         "machine code with this tree's, function by "
+                         "function")
     ap.add_argument("--sass-of", default=None, metavar="LIB",
                     help="with --sass: read only this library (another "
                          "tree's build, lib<kernel>-<digest>.so) instead")

@@ -18,70 +18,128 @@
 // Bound on the H100: bytes. The fine array is read once and the coarse
 // one, a quarter of it, written once: 5 B per fine cell over HBM against
 // 14 operations per coarse cell (3.5 per fine cell). At 4098^2 -> 2050^2
-// that is 84 MB, 0.025 ms.
+// that is 84 MB, 0.025 ms; at 512^2 -> 257^2 1.3 MB, 0.0004 ms, where a
+// launch's own latency sets the time.
 //
 // Design: the TPU kernel holds both whole arrays in VMEM. Here the
 // arrays have no size limit (the finest level of a 4096^2 run is 64 MB),
-// so the coarse array is tiled over blocks of 32 x 8 threads, one coarse
-// cell a thread, ring cells included (they store 0). A thread reads its
-// 3 x 3 fine window straight from global memory: neighbouring threads'
-// windows overlap, and a warp's three rows of 65 consecutive floats come
-// through L1 once each. blockIdx.z is the member of a batched call.
+// so the coarse array, ring included, is tiled over blocks of
+// block_x x block_y threads, and a thread takes cells_y x cells_x
+// neighbouring coarse cells (1 x 1, 1 x 2 or 2 x 2, a template
+// parameter). It reads its fine window of (2 cells_y + 1) x
+// (2 cells_x + 1) cells into registers once, each cell by one load (a
+// 2 x 2 thread reads 25 cells for 4 outputs, where 4 threads of 1 x 1
+// read 36), then makes each row pass once for the window's columns and
+// the column pass from those. The window's rows and columns are clamped
+// into the fine array: an interior coarse cell's window always lies
+// inside it, and a ring cell, which stores 0, reads in-bounds cells it
+// does not use. A warp's windows overlap on their edge columns, which
+// come through L1. blockIdx.z is the member of a batched call. The
+// launch parameters are hopper_params.mg_restrict_block and
+// mg_restrict_cells, chosen by bench_kernels --only mg: 2 x 2 cells a
+// thread on coarse levels of at least a wave of cells (132 x 2048), 1 x 1
+// below, where the wave is short and a thread's latency, not the loads,
+// sets the time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "heat_mg.cuh"
 
 __device__ __forceinline__ float heat_mg_121(float a, float b, float c) {
   return __fmul_rn(0.25f, __fadd_rn(__fadd_rn(a, __fmul_rn(2.0f, b)), c));
 }
 
+template <int kCy, int kCx>
 __global__ void __launch_bounds__(1024)
 heat_mg_restrict_kernel(const float* __restrict__ fine,
                         float* __restrict__ coarse, int mf2, int nf2, int mc2,
                         int nc2) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;  // coarse full col
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;  // coarse full row
-  if (i >= mc2 || j >= nc2) return;
+  constexpr int kWy = 2 * kCy + 1, kWx = 2 * kCx + 1;
+  // The thread's first coarse cell (full indices, ring included).
+  const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kCx;
+  const int i0 = (blockIdx.y * blockDim.y + threadIdx.y) * kCy;
+  if (i0 >= mc2 || j0 >= nc2) return;
   const int64_t member = blockIdx.z;
-  float* q = coarse + member * mc2 * nc2 + static_cast<int64_t>(i) * nc2 + j;
-  if (i == 0 || i == mc2 - 1 || j == 0 || j == nc2 - 1) {
-    *q = 0.f;
-    return;
+  const float* f = fine + member * mf2 * nf2;
+  float* q = coarse + member * mc2 * nc2;
+  // Coarse cell (i, j) reads fine rows 2i - 1 .. 2i + 1 and columns
+  // 2j - 1 .. 2j + 1.
+  int col[kWx];
+#pragma unroll
+  for (int b = 0; b < kWx; ++b)
+    col[b] = min(max(2 * j0 - 1 + b, 0), nf2 - 1);
+  float w[kWy][kWx];
+#pragma unroll
+  for (int a = 0; a < kWy; ++a) {
+    const float* p =
+        f + static_cast<int64_t>(min(max(2 * i0 - 1 + a, 0), mf2 - 1)) * nf2;
+#pragma unroll
+    for (int b = 0; b < kWx; ++b) w[a][b] = __ldg(p + col[b]);
   }
-  // Interior cell (i - 1, j - 1): centre at fine full (2i, 2j).
-  const float* p = fine + member * mf2 * nf2 +
-                   static_cast<int64_t>(2 * i - 1) * nf2 + (2 * j - 1);
-  const float* p1 = p + nf2;
-  const float* p2 = p1 + nf2;
-  const float left = heat_mg_121(p[0], p1[0], p2[0]);
-  const float mid = heat_mg_121(p[1], p1[1], p2[1]);
-  const float right = heat_mg_121(p[2], p1[2], p2[2]);
-  *q = heat_mg_121(left, mid, right);
+#pragma unroll
+  for (int y = 0; y < kCy; ++y) {
+    const int i = i0 + y;
+    if (i >= mc2) break;
+    float rows[kWx];
+#pragma unroll
+    for (int b = 0; b < kWx; ++b)
+      rows[b] = heat_mg_121(w[2 * y][b], w[2 * y + 1][b], w[2 * y + 2][b]);
+    const bool ring_row = i == 0 || i == mc2 - 1;
+    float* out = q + static_cast<int64_t>(i) * nc2;
+#pragma unroll
+    for (int x = 0; x < kCx; ++x) {
+      const int j = j0 + x;
+      if (j >= nc2) break;
+      const float v =
+          heat_mg_121(rows[2 * x], rows[2 * x + 1], rows[2 * x + 2]);
+      out[j] = (ring_row || j == 0 || j == nc2 - 1) ? 0.f : v;
+    }
+  }
 }
 
-// Restrict each of the `batch` contiguous (mf2, nf2) float32 arrays of
-// `fine` (ring included) onto the (mc2, nc2) arrays of `coarse`. The
-// caller guarantees 2 * (mc2 - 2) <= mf2 - 2 and likewise for columns,
-// so every window lies inside the fine array. Launches on `stream` and
-// does not synchronise. Returns a cudaError_t.
-extern "C" int heat_mg_restrict(const float* fine, float* coarse,
-                                int64_t batch, int64_t mf2, int64_t nf2,
-                                int64_t mc2, int64_t nc2, int block_x,
-                                int block_y, void* stream) {
-  if (batch < 1 || batch > 65535 || mc2 < 3 || nc2 < 3 ||
-      2 * (mc2 - 2) > mf2 - 2 || 2 * (nc2 - 2) > nf2 - 2 ||
-      mf2 > 0x3fffffffLL || nf2 > 0x3fffffffLL || block_x < 1 ||
-      block_y < 1 || block_x * block_y > 1024)
+template <int kCy, int kCx>
+static void heat_mg_restrict_launch(const HeatMgTransfer& t, dim3 grid,
+                                    const float* fine, float* coarse,
+                                    cudaStream_t stream) {
+  heat_mg_restrict_kernel<kCy, kCx>
+      <<<grid, dim3(t.block_x, t.block_y), 0, stream>>>(
+          fine, coarse, static_cast<int>(t.src_rows),
+          static_cast<int>(t.src_cols), static_cast<int>(t.dst_rows),
+          static_cast<int>(t.dst_cols));
+}
+
+// Restrict each of the t->batch contiguous (src_rows, src_cols) float32
+// arrays of `fine` (ring included) onto the (dst_rows, dst_cols) arrays
+// of `coarse`, every cell of which the launch writes. The record must
+// have 2 * (dst_rows - 2) <= src_rows - 2 and likewise for columns, so
+// that every interior window lies inside the fine array, and cells
+// 1 x 1, 1 x 2 or 2 x 2. Launches on `stream` and does not synchronise.
+// Returns a cudaError_t.
+extern "C" int heat_mg_restrict(const HeatMgTransfer* t, const float* fine,
+                                float* coarse, void* stream) {
+  if (t == nullptr || t->batch < 1 || t->batch > 65535 || t->dst_rows < 3 ||
+      t->dst_cols < 3 || 2 * (t->dst_rows - 2) > t->src_rows - 2 ||
+      2 * (t->dst_cols - 2) > t->src_cols - 2 || t->src_rows > 0x3fffffffLL ||
+      t->src_cols > 0x3fffffffLL || t->block_x < 1 || t->block_y < 1 ||
+      t->block_x * t->block_y > 1024 || t->cells_y < 1 || t->cells_x < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t gx = (nc2 + block_x - 1) / block_x;
-  const int64_t gy = (mc2 + block_y - 1) / block_y;
+  const int64_t threads_x = (t->dst_cols + t->cells_x - 1) / t->cells_x;
+  const int64_t threads_y = (t->dst_rows + t->cells_y - 1) / t->cells_y;
+  const int64_t gx = (threads_x + t->block_x - 1) / t->block_x;
+  const int64_t gy = (threads_y + t->block_y - 1) / t->block_y;
   if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
-                  static_cast<unsigned>(batch));
-  heat_mg_restrict_kernel<<<grid, dim3(block_x, block_y), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      fine, coarse, static_cast<int>(mf2), static_cast<int>(nf2),
-      static_cast<int>(mc2), static_cast<int>(nc2));
+                  static_cast<unsigned>(t->batch));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t->cells_y == 1 && t->cells_x == 1)
+    heat_mg_restrict_launch<1, 1>(*t, grid, fine, coarse, s);
+  else if (t->cells_y == 1 && t->cells_x == 2)
+    heat_mg_restrict_launch<1, 2>(*t, grid, fine, coarse, s);
+  else if (t->cells_y == 2 && t->cells_x == 2)
+    heat_mg_restrict_launch<2, 2>(*t, grid, fine, coarse, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -75,12 +75,11 @@ KERNELS = {
     "heat_m_ensemble": ("heat_m_ensemble.cu",
                         [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                          _I32, _I32, _I32, _I32, _F32, _F32, _F32, _P]),
-    "heat_mg_restrict": ("heat_mg_restrict.cu",
-                         [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
-                          _P]),
-    "heat_mg_prolong": ("heat_mg_prolong.cu",
-                        [_P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
-                         _P]),
+    # The transfer kernels take their launch record (csrc/heat_mg.cuh
+    # HeatMgTransfer, ops/multigrid.py _TransferArgs) by address, then
+    # source, output and stream.
+    "heat_mg_restrict": ("heat_mg_restrict.cu", [_P, _P, _P, _P]),
+    "heat_mg_prolong": ("heat_mg_prolong.cu", [_P, _P, _P, _P]),
     # The sharded 2D block kernels (csrc/heat_g.cuh): the pieces form
     # takes u, tail, halo_n, halo_s, the assembled forms one buffer.
     "heat_g_block_padded": ("heat_g_block_padded.cu",
@@ -157,7 +156,7 @@ TOOLS = {
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
            "heat_a.cuh", "heat_e_uni.cuh", "heat_probe_sweep.cuh",
-           "heat_f.cuh", "heat_f_block.inc")
+           "heat_f.cuh", "heat_f_block.inc", "heat_mg.cuh")
 
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.

@@ -257,9 +257,32 @@ class HopperParams:
     h_tma_prefetch: int = 4
     h_tma_rows: int = 4
 
-    # --- kernels heat_mg_restrict and heat_mg_prolong (chosen) ------------
-    # One output cell a thread; a warp takes 32 neighbouring columns.
-    mg_block: tuple = (32, 8)
+    # --- kernels heat_mg_restrict and heat_mg_prolong (measured) ----------
+    # Restrict: a thread takes mg_restrict_cells() (rows, columns) of
+    # coarse cells (csrc/heat_mg_restrict.cu compiles 1 x 1, 1 x 2 and
+    # 2 x 2); prolong: a thread a coarse cell, the 2 x 2 fine cells it
+    # spans. Thread blocks are (lanes along a row, rows). The sweep
+    # (bench_kernels --only mg, NVIDIA H100 80GB HBM3 at 700 W, profiler
+    # device time, two runs): restrict at 512^2 -> 257^2 (0.24 of a wave
+    # of threads at 1 x 1) 1 x 1 0.00161-0.00165 ms, 1 x 2 at best
+    # 0.00165, 2 x 2 at best 0.00174; at 2050^2 -> 1025^2 (3.9 waves)
+    # 2 x 2 under 32 x 4 0.00608, 1 x 2 0.00673, 1 x 1 0.00745; at
+    # 4098^2 -> 2050^2 2 x 2 under 32 x 4 0.02984, 1 x 2 0.02942, 1 x 1
+    # 0.03063. More cells a thread pay once 1 x 1 threads fill the card's
+    # thread slots (sm_count x 2048), and cost where a short wave's
+    # latency sets the time. Prolong 64 x 4: 0.03174 ms at 2050^2 ->
+    # 4098^2, 0.00693 at 1025^2 -> 2050^2, 0.00140 at 257^2 -> 512^2;
+    # every block within 4% of the best, but 32 x 16 and 64 x 8 at 4098^2.
+    mg_restrict_block: tuple = (32, 4)
+    mg_prolong_block: tuple = (64, 4)
+
+    def mg_restrict_cells(self, coarse_shape) -> tuple:
+        """Coarse cells (rows, columns) a restrict thread takes on a
+        coarse level of ``coarse_shape``: 2 x 2 where the level has at
+        least a wave of cells (``sm_count`` x 2048, the threads the card
+        holds at once), else 1 x 1."""
+        rows, cols = coarse_shape
+        return (2, 2) if rows * cols >= self.sm_count * 2048 else (1, 1)
 
     def m_smem_bytes(self, tile, depth) -> int:
         """Dynamic shared memory of one M block at ``tile``: the tile

@@ -21,13 +21,20 @@ As in the JAX package, the smoother, the residual and the norms are plain
 array code; the two transfer operators are kernels:
 
 - :func:`restrict` launches ``heat_mg_restrict``
-  (csrc/heat_mg_restrict.cu), the counterpart of the Pallas kernel of
+  (csrc/heat_mg_restrict.cu: a few coarse cells a thread, each thread
+  reading its fine window once), the counterpart of the Pallas kernel of
   that name; its plain version is :func:`restrict_full_weighting`;
-- :func:`prolong` launches ``heat_mg_prolong`` (csrc/heat_mg_prolong.cu);
-  its plain version is :func:`prolong_bilinear`.
+- :func:`prolong` launches ``heat_mg_prolong`` (csrc/heat_mg_prolong.cu:
+  a thread a coarse cell, writing the 2 x 2 fine cells it spans); its
+  plain version is :func:`prolong_bilinear`.
 
-Each wrapper takes its plain version only because the tensor it was given
-lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+A V-cycle issues them at a few microseconds of card time each, so their
+host cost is the call: each wrapper finds a launch record
+(:class:`TransferLaunch`, built and checked once per source shape,
+dtype, device and output shape by :func:`transfer_record`) and makes one
+``torch.empty`` and one ``ctypes`` call of four pointers. Each wrapper
+takes its plain version only because the tensor it was given lies on the
+CPU; for a CUDA tensor it launches the kernel or raises.
 :func:`transfer_ops` is the one decision site: the wrappers for
 ``backend="cuda"``, the plain versions for ``backend="torch"``. A kernel
 and its plain version agree bitwise (every multiply is by a power of two
@@ -42,6 +49,7 @@ cycle verdict).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -185,11 +193,28 @@ def prolong_bilinear(c, fine_interior: Tuple[int, int]):
 
 
 # ---------------------------------------------------------------------------
-# The transfer kernels' wrappers
+# The transfer kernels' launch records and wrappers
 # ---------------------------------------------------------------------------
 
-def _check_transfer(x: torch.Tensor, out_shape, what: str):
-    """Validate a transfer's input; returns ``(batch, leading shape)``."""
+RESTRICT, PROLONG = "heat_mg_restrict", "heat_mg_prolong"
+
+
+class _TransferArgs(ctypes.Structure):
+    """A launch record's C half (``csrc/heat_mg.cuh`` ``HeatMgTransfer``),
+    handed to the launcher by address."""
+
+    _fields_ = [("batch", ctypes.c_int64), ("src_rows", ctypes.c_int64),
+                ("src_cols", ctypes.c_int64), ("dst_rows", ctypes.c_int64),
+                ("dst_cols", ctypes.c_int64), ("block_x", ctypes.c_int32),
+                ("block_y", ctypes.c_int32), ("cells_y", ctypes.c_int32),
+                ("cells_x", ctypes.c_int32)]
+
+
+def _check_transfer(name: str, x: torch.Tensor, out_shape) -> tuple:
+    """Validate transfer ``name`` of ``x`` (full arrays, leading member
+    axes allowed) onto full arrays of ``out_shape``; returns the leading
+    shape."""
+    what = "restrict" if name == RESTRICT else "prolong"
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.float32:
@@ -199,51 +224,187 @@ def _check_transfer(x: torch.Tensor, out_shape, what: str):
                          f"interior cell), got {tuple(x.shape)} -> "
                          f"{tuple(out_shape)}")
     lead = tuple(x.shape[:-2])
-    batch = 1
-    for n in lead:
-        batch *= n
-    if batch < 1:
+    if x.numel() == 0:
         raise ValueError(f"{what}: empty batch {tuple(x.shape)}")
+    if name == RESTRICT:
+        mc, nc = out_shape[0] - 2, out_shape[1] - 2
+        if 2 * mc > x.shape[-2] - 2 or 2 * nc > x.shape[-1] - 2:
+            raise ValueError(f"restrict: coarse interior {(mc, nc)} is more "
+                             f"than half the fine interior of "
+                             f"{tuple(x.shape[-2:])}")
+    else:
+        for nf, nc in zip(out_shape, x.shape[-2:]):
+            if (nf - 2) - 2 * (nc - 2) not in (0, 1):
+                raise ValueError(f"prolong: fine shape {tuple(out_shape)} is "
+                                 f"not twice the coarse interior of "
+                                 f"{tuple(x.shape[-2:])}, or one more")
     if (x.device.type == "cuda"
             and x.device.index != torch.cuda.current_device()):
         raise ValueError(f"array on {x.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    return batch, lead
+    return lead
 
 
-def _launch_transfer(name, src, dst, batch, block) -> None:
-    """One launch of ``heat_mg_restrict`` or ``heat_mg_prolong`` (they
-    take the same arguments) from the ``batch`` arrays of ``src`` into
-    those of ``dst``; raises if the launch is refused. Checks nothing and
-    counts nothing."""
-    from parallel_heat_tpu_torch.kernels.build import load
+def transfer_geometry(name: str, out_shape, geometry=None):
+    """``(block, cells, grid)`` of one launch of transfer kernel ``name``
+    writing full arrays of ``out_shape`` (rows, columns), as the C
+    launcher computes them: the thread block (lanes along a row, rows),
+    the cells a thread takes and the thread blocks a member (x, y).
+    Restrict: ``cells`` coarse cells (rows, columns) a thread,
+    ``hopper_params.mg_restrict_cells`` (2 x 2 on levels of a wave of
+    cells or more, else 1 x 1); prolong: one coarse cell a
+    thread, whose 2 x 2 fine cells it writes, so a member is
+    ``ceil(rows / 2) x ceil(cols / 2)`` threads. ``geometry`` ``(block,
+    cells)`` overrides the parameters (the sweep's shapes)."""
+    p = params()
+    if geometry is not None:
+        block, cells = (tuple(int(v) for v in g) for g in geometry)
+    elif name == RESTRICT:
+        block = tuple(p.mg_restrict_block)
+        cells = p.mg_restrict_cells(out_shape)
+    else:
+        block, cells = tuple(p.mg_prolong_block), (1, 1)
+    rows, cols = out_shape
+    if name == PROLONG:
+        threads = (-(-cols // 2), -(-rows // 2))
+    else:
+        threads = (-(-cols // cells[1]), -(-rows // cells[0]))
+    grid = (-(-threads[0] // block[0]), -(-threads[1] // block[1]))
+    return block, cells, grid
 
-    lib = load(name)
-    code = getattr(lib, name)(
-        src.data_ptr(), dst.data_ptr(), batch, src.shape[-2], src.shape[-1],
-        dst.shape[-2], dst.shape[-1], block[0], block[1], sk._stream(src))
-    sk._raise_on_error(lib, name, code)
+
+def _stream(device: torch.device) -> int:
+    """The current stream's handle on ``device``, by PyTorch's raw getter
+    (what its own compiled kernels launch with), which builds no
+    ``torch.cuda.Stream``: 0.2 µs a call against 4.8 for
+    ``torch.cuda.current_stream(device).cuda_stream``
+    (``tools/launch_cost.py``, PERF.md section 3), a quarter of a
+    transfer call's host time."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+class TransferLaunch:
+    """The launch record of a transfer kernel at one geometry: ``name``
+    (:data:`RESTRICT` or :data:`PROLONG`) from stacks of ``lead`` arrays
+    of ``src_shape`` onto new arrays of ``dst_shape`` on ``device``.
+
+    The shapes are checked against the kernel's rules, the grid and the
+    C record (:class:`_TransferArgs`) laid out once, here; the library is
+    loaded at the first launch. A call is then one ``torch.empty``, the
+    current stream and one ``ctypes`` call of four pointers. Nothing here
+    checks the tensors a launch is given: :func:`transfer_record` keys
+    the record by their shape, type and device. ``geometry`` ``(block,
+    cells)`` overrides the parameters (:func:`transfer_geometry`)."""
+
+    __slots__ = ("name", "device", "out_shape", "block", "cells", "grid",
+                 "_args", "_addr", "_lib", "_fn")
+
+    def __init__(self, name: str, lead, src_shape, dst_shape, device,
+                 geometry=None):
+        if name not in (RESTRICT, PROLONG):
+            raise ValueError(f"unknown transfer kernel {name!r}")
+        lead, src_shape, dst_shape = (tuple(int(n) for n in s)
+                                      for s in (lead, src_shape, dst_shape))
+        batch = 1
+        for n in lead:
+            batch *= n
+        self.block, self.cells, self.grid = transfer_geometry(
+            name, dst_shape, geometry)
+        allowed = ((1, 1), (1, 2), (2, 2)) if name == RESTRICT else ((1, 1),)
+        if self.cells not in allowed:
+            raise ValueError(f"{name}: cells a thread must be one of "
+                             f"{allowed}, got {self.cells}")
+        if (min(self.block) < 1 or self.block[0] * self.block[1] > 1024
+                or batch > 65535 or self.grid[1] > 65535):
+            raise ValueError(f"{name}: {batch} arrays and a grid of "
+                             f"{self.grid} blocks of {self.block} threads "
+                             f"exceed the launch's limits (65535 arrays, "
+                             f"65535 block rows, 1024 threads)")
+        self.name = name
+        self.device = torch.device(device)
+        self.out_shape = lead + dst_shape
+        self._args = _TransferArgs(batch, *src_shape, *dst_shape,
+                                   *self.block, *self.cells)
+        self._addr = ctypes.addressof(self._args)
+        self._lib = self._fn = None
+
+    def launch(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """One launch from the contiguous ``src`` into ``dst``, both of
+        this record's shapes on its device; raises if the launch is
+        refused. Checks nothing and counts nothing."""
+        if self._fn is None:
+            from parallel_heat_tpu_torch.kernels.build import load
+
+            self._lib = load(self.name)
+            self._fn = getattr(self._lib, self.name)
+        code = self._fn(self._addr, src.data_ptr(), dst.data_ptr(),
+                        _stream(self.device))
+        if code:
+            sk._raise_on_error(self._lib, self.name, code)
+
+    def __call__(self, src: torch.Tensor) -> torch.Tensor:
+        """The kernel on the contiguous ``src`` into a new array; counts
+        the launch."""
+        out = torch.empty(self.out_shape, dtype=torch.float32,
+                          device=self.device)
+        self.launch(src, out)
+        sk.counts[self.name] += 1
+        return out
+
+
+# Launch records by (kernel, source shape, dtype, device, output shape);
+# cleared when full, since a process rarely meets more than a few
+# hierarchies.
+_records: dict = {}
+_RECORDS_MAX = 256
+
+
+def transfer_record(name: str, x: torch.Tensor, out_shape):
+    """The launch record of transfer ``name`` for the source ``x`` onto
+    full arrays of ``out_shape``, or None for a tensor on the CPU. The
+    first call for a (shape, dtype, device, output shape) checks them
+    (raising as :func:`restrict` and :func:`prolong` document) and builds
+    the record; later calls find it. Every call checks that ``x`` lies on
+    the current device."""
+    key = (name, x.shape, x.dtype, x.device, out_shape)
+    try:
+        rec = _records.get(key)
+    except TypeError:                   # an unhashable shape (a list)
+        key = key[:-1] + (tuple(out_shape),)
+        rec = _records.get(key)
+    if rec is None:
+        out_shape = tuple(int(n) for n in out_shape)
+        lead = _check_transfer(name, x, out_shape)
+        if x.device.type == "cpu":
+            return None
+        rec = TransferLaunch(name, lead, x.shape[-2:], out_shape, x.device)
+        if len(_records) >= _RECORDS_MAX:
+            _records.clear()
+        _records[key] = rec
+    elif x.device.index != torch.cuda.current_device():
+        raise ValueError(f"array on {x.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return rec
+
+
+def _launch_transfer(name, src, dst, geometry=None) -> None:
+    """One launch of ``heat_mg_restrict`` or ``heat_mg_prolong`` from the
+    contiguous stack ``src`` into ``dst`` at ``geometry`` (``(block,
+    cells)``, the parameters' by default), through a record of its own;
+    raises if the launch is refused. Checks nothing else and counts
+    nothing."""
+    TransferLaunch(name, src.shape[:-2], src.shape[-2:], dst.shape[-2:],
+                   src.device, geometry).launch(src, dst)
 
 
 def restrict(r: torch.Tensor, coarse_shape: Tuple[int, int]) -> torch.Tensor:
     """Kernel ``heat_mg_restrict``: full-weighting restriction of the full
     fine array ``r`` (ring included; leading member axes allowed) onto a
     new full coarse array of ``coarse_shape`` with a zero ring."""
-    coarse_shape = tuple(int(n) for n in coarse_shape)
-    batch, lead = _check_transfer(r, coarse_shape, "restrict")
-    mc, nc = coarse_shape[0] - 2, coarse_shape[1] - 2
-    if 2 * mc > r.shape[-2] - 2 or 2 * nc > r.shape[-1] - 2:
-        raise ValueError(f"restrict: coarse interior {(mc, nc)} is more "
-                         f"than half the fine interior of "
-                         f"{tuple(r.shape[-2:])}")
-    if r.device.type == "cpu":
-        return restrict_full_weighting(r, coarse_shape)
-    r = r.contiguous()
-    out = torch.empty(lead + coarse_shape, dtype=torch.float32,
-                      device=r.device)
-    _launch_transfer("heat_mg_restrict", r, out, batch, params().mg_block)
-    sk.counts["heat_mg_restrict"] += 1
-    return out
+    rec = transfer_record(RESTRICT, r, coarse_shape)
+    if rec is None:
+        return restrict_full_weighting(r, tuple(coarse_shape))
+    return rec(r if r.is_contiguous() else r.contiguous())
 
 
 def prolong(c: torch.Tensor, fine_shape: Tuple[int, int]) -> torch.Tensor:
@@ -251,21 +412,10 @@ def prolong(c: torch.Tensor, fine_shape: Tuple[int, int]) -> torch.Tensor:
     coarse array ``c`` (ring included; leading member axes allowed) onto a
     new full fine array of ``fine_shape`` with a zero ring. Each fine
     interior extent must be twice the coarse one, or one more."""
-    fine_shape = tuple(int(n) for n in fine_shape)
-    batch, lead = _check_transfer(c, fine_shape, "prolong")
-    for nf, nc in zip(fine_shape, c.shape[-2:]):
-        if (nf - 2) - 2 * (nc - 2) not in (0, 1):
-            raise ValueError(f"prolong: fine shape {fine_shape} is not "
-                             f"twice the coarse interior of "
-                             f"{tuple(c.shape[-2:])}, or one more")
-    if c.device.type == "cpu":
+    rec = transfer_record(PROLONG, c, fine_shape)
+    if rec is None:
         return prolong_bilinear(c, (fine_shape[0] - 2, fine_shape[1] - 2))
-    c = c.contiguous()
-    out = torch.empty(lead + fine_shape, dtype=torch.float32,
-                      device=c.device)
-    _launch_transfer("heat_mg_prolong", c, out, batch, params().mg_block)
-    sk.counts["heat_mg_prolong"] += 1
-    return out
+    return rec(c if c.is_contiguous() else c.contiguous())
 
 
 def transfer_ops(backend: str):
@@ -460,8 +610,12 @@ def explain_hierarchy(config: HeatConfig, backend: str) -> dict:
     rule, from the structures :func:`implicit_multistep` builds."""
     levels = level_coefficients(config)
     if backend == "cuda":
-        transfers = ("cuda heat_mg_restrict/heat_mg_prolong (one thread "
-                     "per output cell)")
+        cells = sorted({params().mg_restrict_cells(s)
+                        for s, _, _ in levels[1:]})
+        transfers = ("cuda heat_mg_restrict (" + " or ".join(
+            f"{a} x {b}" for a, b in cells) + " coarse cells a thread)/"
+            "heat_mg_prolong (a coarse cell's 2 x 2 fine cells a thread), "
+            "a launch record a level pair")
     else:
         transfers = "torch full-weighting/bilinear"
     return {

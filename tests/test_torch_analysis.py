@@ -559,6 +559,94 @@ def test_plan_m_and_g_and_h_main_paths_are_the_wrappers():
     assert h.dyn_smem == max(p.h_smem_bytes(3), p.h_tma_smem_bytes(3))
 
 
+# The transfer plans: the 512^2 hierarchy's top and bottom pairs, a
+# ragged (odd x odd) fine interior with an odd fine pitch in a stack of
+# three, and an even x odd one.
+MG_PLAN_CASES = [((512, 512), (257, 257), 1), ((9, 9), (5, 5), 1),
+                 ((21, 23), (11, 12), 3), ((35, 1030), (18, 516), 3),
+                 ((4098, 4098), (2050, 2050), 1)]
+
+
+def test_transfer_plans_take_the_whole_512_hierarchy():
+    from parallel_heat_tpu_torch.config import multigrid_level_shapes
+
+    path = multigrid_level_shapes((512, 512))
+    assert tuple(map(tuple, path)) == pp.MG_PATH
+    labels = {p_.label for p_ in pp.default_plans()}
+    for fine, coarse in zip(path[:-1], path[1:]):
+        f, c = "x".join(map(str, fine)), "x".join(map(str, coarse))
+        assert f"restrict {f} -> {c}" in labels
+        assert f"prolong {c} -> {f}" in labels
+
+
+@pytest.mark.parametrize("fine,coarse,batch", MG_PLAN_CASES)
+def test_transfer_plans_are_the_launch_records(fine, coarse, batch):
+    """Each plan's grid, threads, cover, windows and 32-bit indices are
+    the launch record's (``ops/multigrid.py`` ``TransferLaunch``) and the
+    kernel's: restrict ``mg_restrict_cells`` coarse cells a thread, each
+    reading its clamped fine window; prolong a coarse cell a thread,
+    writing 2 x 2 fine cells from coarse lines t, t + 1."""
+    from parallel_heat_tpu_torch.ops import multigrid as mg
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    cy, cx = p.mg_restrict_cells(coarse)
+    for name, plan, src, dst in (
+            (mg.RESTRICT, pp.plan_restrict(fine, coarse, batch), fine,
+             coarse),
+            (mg.PROLONG, pp.plan_prolong(coarse, fine, batch), coarse,
+             fine)):
+        rec = mg.TransferLaunch(name, (batch,), src, dst, "cuda:0")
+        gx, gy = rec.grid
+        assert plan.grid == batch * gx * gy
+        assert plan.threads == rec.block[0] * rec.block[1]
+        assert [a.count for a in plan.axes] == [batch, gy, gx]
+        assert plan.arrays["out"].shape == (batch,) + tuple(dst)
+        assert plan.cover == [((0, batch), (0, dst[0]), (0, dst[1]))]
+        rows, cols = plan.axes[1], plan.axes[2]
+        last_r, last_c = rows.span(gy - 1), cols.span(gx - 1)
+        assert last_r.write[1] == dst[0] and last_c.write[1] == dst[1]
+        if name == mg.RESTRICT:
+            tile = (rec.block[1] * cy, rec.block[0] * cx)
+            assert rows.span(0).write == (0, min(tile[0], dst[0]))
+            # Coarse cells [lo, hi) read fine lines 2 lo - 1 .. 2 hi - 1,
+            # clamped into the fine array.
+            assert rows.span(0).reads["src"] == (
+                -1, 2 * min(tile[0], dst[0]) + 1, (0, src[0]))
+            assert last_c.reads["src"][0] == 2 * last_c.write[0] - 1
+            assert dict(plan.int32)["fine row 2 i0 + 2 cy - 1"] == (
+                2 * (dst[0] - 1) + 2 * cy - 1)
+        else:
+            tile = (2 * rec.block[1], 2 * rec.block[0])
+            assert rows.span(0).write == (0, min(tile[0], dst[0]))
+            # Fine lines [lo, hi) come from coarse lines lo / 2 ..
+            # (hi - 1) / 2 + 1, the last clamped to the coarse ring.
+            lo, hi = last_r.write
+            assert last_r.reads["src"] == (lo // 2, (hi - 1) // 2 - lo // 2
+                                           + 2, (0, src[0]))
+            assert dict(plan.int32)["fine row 2t + 1"] == (
+                2 * gy * rec.block[1] - 1)
+        assert pk.audit_kernels([plan]) == []
+
+
+def test_transfer_plan_audit_catches_a_short_grid_and_an_unclamped_read():
+    import dataclasses
+
+    plan = pp.plan_prolong((11, 12), (21, 23), batch=3)
+    short = dataclasses.replace(plan, axes=[
+        plan.axes[0], plan.axes[1],
+        pp.Axis("cols", plan.axes[2].count - 1, plan.axes[2].span)])
+    assert _has(_msgs([short]), "HL404", "never visited")
+    rows = plan.axes[1]
+
+    def unclamped(i):
+        s_ = rows.span(i)
+        return pp.Span(s_.write, {"src": s_.reads["src"][:2] + (None,)})
+    bad = dataclasses.replace(plan, axes=[
+        plan.axes[0], pp.Axis("rows", rows.count, unclamped), plan.axes[2]])
+    assert _has(_msgs([bad]), "HL401", "out of bounds")
+
+
 def test_load_records_of_f_follow_the_ring():
     plan = pp.plan_f((24, 20, 28), 3, "tma")
     recs = pk.load_records(plan, (0, 0, 0))

@@ -385,8 +385,11 @@ def test_ensemble_on_the_card_matches_solo_and_the_cpu_bitwise(card, cfg,
 # The multigrid transfer kernels and implicit stepping
 # ---------------------------------------------------------------------------
 
+# Even and odd fine interiors on each axis, and every level of a 512^2
+# implicit run but its coarsest (512 -> 257 -> ... -> 9 -> 5).
 FINE = [(4098, 4098), (1001, 999), (34, 34), (5, 4), (4099, 4097),
-        (514, 514), (35, 1030), (512, 512), (257, 257)]
+        (514, 514), (35, 1030), (512, 512), (257, 257), (129, 129),
+        (65, 65), (33, 33), (17, 17), (9, 9)]
 # Every shape alone, and the smaller ones as a stack of three.
 FINE_AND_LEAD = ([(fine, ()) for fine in FINE]
                  + [(fine, (3,)) for fine in FINE if fine[0] < 2000])
@@ -397,16 +400,51 @@ def test_restrict_and_prolong_bitwise_equal_to_plain(card, fine, lead):
     coarse = ((fine[0] - 2) // 2 + 2, (fine[1] - 2) // 2 + 2)
     r = _rand(lead + fine, 12, card)
     got = mg.restrict(r, coarse)
-    assert torch.equal(got, mg.restrict_full_weighting(r, coarse))
+    want = mg.restrict_full_weighting(r, coarse)
+    assert torch.equal(got, want)
     c = _rand(lead + coarse, 13, card)
     c[..., 0, :] = c[..., -1, :] = 0
     c[..., :, 0] = c[..., :, -1] = 0
     back = mg.prolong(c, fine)
-    assert torch.equal(back, mg.prolong_bilinear(c, (fine[0] - 2,
-                                                     fine[1] - 2)))
+    back_want = mg.prolong_bilinear(c, (fine[0] - 2, fine[1] - 2))
+    assert torch.equal(back, back_want)
     for t in (got, back):
         assert not (t[..., 0, :].any() or t[..., -1, :].any()
                     or t[..., :, 0].any() or t[..., :, -1].any())
+    # Every output cell written: a launch into a NaN-filled output.
+    for name, src, want_ in ((mg.RESTRICT, r, want),
+                             (mg.PROLONG, c, back_want)):
+        dst = torch.full_like(want_, float("nan"))
+        mg._launch_transfer(name, src, dst)
+        assert torch.equal(dst, want_), name
+
+
+@pytest.mark.parametrize("fine", [(512, 512), (35, 1030), (21, 23),
+                                  (9, 9)])
+def test_transfer_launch_shapes_write_every_cell(card, fine):
+    """Every compiled restrict instance (1 x 1, 1 x 2, 2 x 2 coarse cells
+    a thread) and prolong's both stores (8-byte pairs, and single floats
+    into an output that is not 8-byte aligned), at thread blocks that
+    leave ragged edges, into NaN-filled outputs of a stack of three."""
+    coarse = ((fine[0] - 2) // 2 + 2, (fine[1] - 2) // 2 + 2)
+    r = _rand((3,) + fine, 14, card)
+    c = _rand((3,) + coarse, 15, card)      # the ring too: data like any
+    want = mg.restrict_full_weighting(r, coarse)
+    back_want = mg.prolong_bilinear(c, (fine[0] - 2, fine[1] - 2))
+    for block in ((32, 8), (64, 4), (128, 2)):
+        for cells in ((1, 1), (1, 2), (2, 2)):
+            dst = torch.full_like(want, float("nan"))
+            mg._launch_transfer(mg.RESTRICT, r, dst, (block, cells))
+            assert torch.equal(dst, want), (block, cells)
+        dst = torch.full_like(back_want, float("nan"))
+        mg._launch_transfer(mg.PROLONG, c, dst, (block, (1, 1)))
+        assert torch.equal(dst, back_want), block
+        # 4 bytes past an aligned base: the single-float stores.
+        flat = torch.full((back_want.numel() + 1,), float("nan"),
+                          device=card)
+        odd = flat[1:].view(back_want.shape)
+        mg._launch_transfer(mg.PROLONG, c, odd, (block, (1, 1)))
+        assert torch.equal(odd, back_want), block
 
 
 @pytest.mark.parametrize("scheme", ["backward_euler", "crank_nicolson"])

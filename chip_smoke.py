@@ -239,7 +239,13 @@ prints the card's name and power limit, then one JSON line per phase:
    and of 201 x 210 x 276 (blocks that take TMA) at every compiled K;
    blocks of 6 x-planes, 6 x 50 x 70 and 6 x 70 x 72 (an empty bulk at
    K = 3, no deferral at K = 6); a z-free (2, 4, 1) mesh, blocks of
-   40 x 33 x 97 and 40 x 66 x 96; an x-free (1, 2, 2) mesh. The deferred bulk writes no band plane; bulk
+   40 x 33 x 97 and 40 x 66 x 96; an x-free (1, 2, 2) mesh. H (F's
+   plane loop) runs on the contiguous circular block and on the padded
+   one the round assembles, under both loads, at every compiled K on 67 x
+   128 x 92, 6 x 128 x 72 (K <= 6), 40 x 128 x 96 and 20 x 128 x 252,
+   and H(K) is F(K); every kind of H's tiles (``hc_tile_kinds``: boxed
+   and wrapped, interior and edge, past each side, ragged, a partial
+   group) must have run. The deferred bulk writes no band plane; bulk
    plus band, spliced in place, is the monolithic kernel; a NaN-seeded
    block gives NaN residuals with its faces intact under both loads;
 18. sharded_main_path_3d — ``solve(HeatConfig(nx=ny=nz=1024, steps=200,
@@ -249,7 +255,8 @@ prints the card's name and power limit, then one JSON line per phase:
    before each run and read after, every grid bitwise the one-block F
    run, Mcells*steps/s and the ratio to it; busy shares of one profiled
    repeat of the sharded and the one-block run; then 512^3 on (2, 2, 2)
-   and on (2, 4, 1), bitwise their one-block run;
+   and on (2, 4, 1) (there also with H pinned), bitwise their one-block
+   run;
 19. sharded_converge_3d — 64^3 on (2, 2, 2) in converge mode (2000-step
    cap, check_interval 20), 10^3 on (2, 2, 2) (blocks of 5: the auto depth
    capped by the block; converges at step 360) and 64^3 at halo depth 1
@@ -266,8 +273,11 @@ prints the card's name and power limit, then one JSON line per phase:
    time, its launch
    under each load and its interior and edge tiles launched alone (the
    µs each kind adds per tile), and the occupancy of its main-path
-   instance; the exchange's time and copies per round (three phases, 8
-   blocks), one whole monolithic round;
+   instance; for H its earlier design's time, its launch under each load
+   and the µs a boxed and a wrapped tile take (by difference), and its
+   occupancy; the exchange's time and copies per round (three phases, 8
+   blocks), one whole monolithic H-fused round and one pinned-H round (8
+   assemblies into the padded buffers and 8 launches of H), in turns;
 22. probe_kernel — kernel A's anatomy probe (``tools/kernel_probe.py``,
    ``heat_probe_kernel``) at 1000^2: its ``full`` variant bitwise A's
    plain version, then every variant at K = 20 and 2000 (a step by the
@@ -526,6 +536,13 @@ def phase_build():
     check(main in fused and fused[main][1] == 0,
           f"H-fused's main-path instance <{main}> spills or is missing "
           f"from the ptxas report: {fused.get(main)}")
+    # Nor may H's instance that the pinned-H round launches at the main
+    # path's depth (F's plane loop, both loads in one instance).
+    h_main = f"{hp.h_k_default}, {hp.hc_shape(hp.h_k_default)[1]}"
+    h_row = ptxas["heat_h_block_3d"].get(h_main)
+    check(h_row is not None and h_row[1] == 0,
+          f"H's main-path instance <{h_main}> spills or is missing from "
+          f"the ptxas report: {h_row}")
     # Nor may the kernels on the register-blocked tile loop that the
     # sharded 2D main path (G-uni, G-fuse) and the one-device main path (E,
     # E-uni) launch, one instance each; their registers, and the blocks an
@@ -595,7 +612,12 @@ def phase_build():
           "libraries": {n: os.path.relpath(str(p), ROOT)
                         for n, p in paths.items()},
           "main_path_e": e_main, "main_path_f": f_main,
-          "main_path_h_instance": main, "main_path_g": g_main,
+          "main_path_h_instance": main,
+          "main_path_h": {"instance": h_main, "registers": h_row[0],
+                          "spill_stores": h_row[1],
+                          "blocks_per_sm": skb3.h_occupancy(
+                              hp.h_k_default)},
+          "main_path_g": g_main,
           "spilling_instances": spilling, "ptxas": ptxas})
 
 
@@ -838,15 +860,17 @@ def _reference_f64(nx, ny, steps):
     return u
 
 
-def _profiled(fn):
-    """Run ``fn()`` once under torch.profiler, recording the card only.
-    Returns the wall seconds and, by event name (kernels, memsets,
-    copies), the device milliseconds and the number of records."""
+def _profiled(fn, pad_s=None):
+    """Run ``fn()`` once under torch.profiler, recording the card only,
+    with ``pad_s`` seconds (``bench_kernels.TRACE_PAD_S`` by default) of
+    idle host inside the trace on each side of the call, which lets the
+    records arrive. Returns the wall seconds of the call and, by event
+    name (kernels, memsets, copies), the device milliseconds and the
+    number of records."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from parallel_heat_tpu_torch.bench_kernels import TRACE_PAD_S, card_trace
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_trace(TRACE_PAD_S if pad_s is None else pad_s) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -862,22 +886,25 @@ def _device_ms(launch, name, made=40):
     """``{"device_ms", "profiler_records", "profiled_launches"}``: the
     mean device milliseconds of one launch of kernel ``name``, from a
     trace of ``made`` back-to-back calls of ``launch()``, over the
-    records the trace holds. On the measuring machine a trace loses a
-    few records whatever their number, more the longer the process has
-    run (one early in this script, five near its end, of 20 launches and
-    of 40 alike), so a sum over the launches made would read low, and
-    forty launches keep the loss small. A trace that kept fewer than 70%
-    of them is taken again, twice at most, and then refused: the mean of
-    so few could read anything."""
-    for _ in range(3):
-        _, per = _profiled(lambda: [launch() for _ in range(made)])
+    records the trace holds. A trace may lose records (none kept, or a
+    few, or most, now and then: ``bench_kernels.TRACE_PAD_S``), so a sum
+    over the launches made would read low. A trace that kept fewer than
+    70% of them is taken again with twice the launches and four times the
+    wait, twice at most, and then refused: the mean of so few could read
+    anything."""
+    from parallel_heat_tpu_torch.bench_kernels import TRACE_PAD_S
+
+    for attempt in range(3):
+        calls = made * 2 ** attempt
+        _, per = _profiled(lambda: [launch() for _ in range(calls)],
+                           TRACE_PAD_S * 4 ** attempt)
         hits = [v for key, v in per.items()
                 if re.search(rf"(^|\W){name}_kernel\b", key)]
         records = sum(n for _, n in hits)
-        if made * 0.7 <= records <= made:
+        if calls * 0.7 <= records <= calls:
             return {"device_ms": sum(ms for ms, _ in hits) / records,
-                    "profiler_records": records, "profiled_launches": made}
-    raise SmokeFailure(f"the profiler kept {records} records of {made} "
+                    "profiler_records": records, "profiled_launches": calls}
+    raise SmokeFailure(f"the profiler kept {records} records of {calls} "
                        f"launches of {name}, three times over")
 
 
@@ -3269,8 +3296,13 @@ def _check_h_block(dev, xch, b, us, k, kw, f_out, err):
     o = xch.mesh.origin(b, bs)
     h_kw = dict(origin=o, **kw)
     want = f_out[tuple(slice(a, a + n) for a, n in zip(o, bs))]
+    # H on a contiguous circular block (rows of bz + 2hz floats: the
+    # cp.async load where that is no multiple of 4) and on the padded one
+    # the round assembles (new_circular: both loads).
     ext = torch.empty(xch.circular_shape, device=dev)
     xch.assemble_circular(b, us[b], ext)
+    padded = xch.new_circular()
+    xch.assemble_circular(b, us[b], padded)
     pieces = xch.pieces(b)
     where = f"(K={k}) on block {o} of {kw['grid_shape']} {kw}"
     # H-fused under each plane load its geometry takes: cp.async always,
@@ -3287,9 +3319,13 @@ def _check_h_block(dev, xch, b, us, k, kw, f_out, err):
             lambda out: skb3.h_block_fused_plain(us[b], *pieces, out, k,
                                                  **h_kw))
            for load in loads},
-        ("heat_h_block_3d", None): (
-            lambda out, r: skb3.h_block(ext, out, k, r, **h_kw),
-            lambda out: skb3.h_block_plain(ext, out, k, **h_kw))}
+        **{("heat_h_block_3d", f"{load} {what}"): (
+            lambda out, r, e=e, load=load: skb3.h_block(e, out, k, r,
+                                                        load=load, **h_kw),
+            lambda out: skb3.h_block_plain(ext, out, k, **h_kw))
+           for what, e, load in (("contiguous", ext, skb3.h_block_load(ext)),
+                                 ("padded", padded, "cp.async"),
+                                 ("padded", padded, "tma"))}}
     first = None
     for (name, load), (launch, plain) in runs.items():
         where = (f"(K={k}, {load} load) on block {o} of {kw['grid_shape']} "
@@ -3377,19 +3413,27 @@ def phase_kernels_h(dev):
     # z-free (2, 4, 1) mesh, 40 x 33 x 97 and 40 x 128 x 96; and an
     # x-free (1, 2, 2) mesh whose blocks hold no inner tile (cp.async
     # only).
+    # H (F's plane loop) runs at every compiled K on 67 x 128 x 92,
+    # 6 x 128 x 72 (K <= 6, its x extent), 40 x 128 x 96 and 20 x 128 x
+    # 252, whose tiles past the first row and column of each block take
+    # the box load (bz > 120 - 2 pad, or z unsharded), under both loads.
+    h_every = list(range(1, p.hc_k_max() + 1))
     plan = [(SHARD3_MESH, (SHARD3_N // 2,) * 3, [p.h_k_default], [0, 7],
              [equal], True),
             ((3, 3, 3), (67, 43, 90), ks, [0, 9, 12, 13], [equal, unequal],
              False),
             ((3, 3, 3), (67, 128, 92), every_k, [0, 9, 12, 13], [unequal],
              True),
+            ((3, 3, 3), (20, 128, 252), h_every, [0, 13, 26], [unequal],
+             True),
             ((2, 2, 2), (6, 50, 70), [1, 3, 6], list(range(8)), [unequal],
              False),
-            ((2, 2, 2), (6, 128, 72), [1, 3, 6], list(range(8)), [unequal],
-             True),
+            ((2, 2, 2), (6, 128, 72), [k for k in h_every if k <= 6],
+             list(range(8)), [unequal], True),
             ((2, 4, 1), (40, 33, 97), ks, [0, 5], [unequal], False),
-            ((2, 4, 1), (40, 128, 96), ks, [0, 5], [unequal], True),
+            ((2, 4, 1), (40, 128, 96), h_every, [0, 5], [unequal], True),
             ((1, 2, 2), (50, 30, 40), [2, 5], [0, 3], [unequal], False)]
+    h_kinds = {}
     report = []
     for mesh_shape, block, depths, blocks, coeff_sets, tma in plan:
         grid = tuple(m * b for m, b in zip(mesh_shape, block))
@@ -3412,6 +3456,10 @@ def phase_kernels_h(dev):
                           f"H-fused's loads {loads} at K={k} on a {block} "
                           f"block: the TMA load expected {tma}")
                     loads_by_k[str(k)] = loads
+                    for kind, n in p.hc_tile_kinds(
+                            block, k, xch.halos, mesh.origin(b, block),
+                            grid).items():
+                        h_kinds[kind] = h_kinds.get(kind, 0) + n
                 del f_out
             del xch
         report.append({"grid": list(grid), "mesh": list(mesh_shape),
@@ -3421,6 +3469,12 @@ def phase_kernels_h(dev):
                        "deferred_plus_band_is_monolithic": True})
         del g, us
         torch.cuda.empty_cache()
+    # Every kind of H's tiles ran: boxed (the TMA load) and wrapped (the
+    # lo pieces by cp.async), at the grid's edge and inside it, past each
+    # side of a block, ragged and with a partial last group.
+    missing = sorted(kind for kind, n in h_kinds.items() if n == 0)
+    check(not missing, f"kernels_h: no H tile of the kinds {missing} ran "
+                       f"({h_kinds})")
     # Diverging blocks: one NaN next to the faces of corner block 0 of
     # 80^3 (40^3 blocks: the cp.async load), and of 40 x 256 x 256, whose
     # 20 x 128 x 128 blocks hold tiles inside them (the TMA load), with a
@@ -3443,6 +3497,8 @@ def phase_kernels_h(dev):
         kw = dict(origin=(0, 0, 0), grid_shape=grid, **equal)
         ext = torch.empty(xch.circular_shape, device=dev)
         xch.assemble_circular(0, us[0], ext)
+        padded = xch.new_circular()
+        xch.assemble_circular(0, us[0], padded)
         check(skb3.h_load(bs, k, us[0]) == load
               and (p.h_tiles(bs, k)[0] > 0) == (load == "tma"),
               f"the NaN-seeded {bs} block should take the {load} load")
@@ -3456,6 +3512,8 @@ def phase_kernels_h(dev):
                                               True, load="cp.async", **kw)),
                 ("heat_h_block_3d", lambda o: skb3.h_block(ext, o, k, True,
                                                            **kw)),
+                ("heat_h_block_3d@tma", lambda o: skb3.h_block(
+                    padded, o, k, True, load="tma", **kw)),
                 ("heat_h_band_fix_3d", lambda o: skb3.h_band_fix(
                     us[0], *xch.pieces(0), o, k, True, **kw))):
             out = torch.empty_like(us[0])
@@ -3471,10 +3529,11 @@ def phase_kernels_h(dev):
                 check(torch.equal(out.nan_to_num(7.0),
                                   plain.nan_to_num(7.0)),
                       f"a diverging block: {key} != its plain version")
-        del g, us, xch, ext, plain
+        del g, us, xch, ext, padded, plain
         torch.cuda.empty_cache()
     emit({"phase": "kernels_h", "ok": True, "checks": report,
-          "nan_residual": nan_res, "max_abs_err": err})
+          "h_tile_kinds": h_kinds, "nan_residual": nan_res,
+          "max_abs_err": err})
     return err
 
 
@@ -3503,7 +3562,8 @@ def phase_sharded_main_path_3d():
     """1024^3 on (2, 2, 2), 200 steps: the default resolution (H-fused,
     monolithic), the phase schedule, pinned H and H-defer, every grid
     bitwise the one-block F run; then 512^3 on (2, 2, 2) and on (2, 4, 1)
-    bitwise their one-block runs. Returns each H kernel's launches."""
+    (there also with H pinned), bitwise their one-block runs. Returns each
+    H kernel's launches."""
     import torch
 
     from parallel_heat_tpu_torch import HeatConfig, explain, solve
@@ -3554,15 +3614,18 @@ def phase_sharded_main_path_3d():
     busy = _busy(lambda: solve(cfg), f"{n}^3 on {SHARD3_MESH} profiled")
     busy_one = _busy(lambda: solve(one_cfg), f"{n}^3 one block profiled")
     # 512^3 on (2, 2, 2) (256^3 blocks, the JAX package's flagship block)
-    # and on the z-free (2, 4, 1).
+    # and on the z-free (2, 4, 1), there also with H pinned.
     small = {}
     cube = HeatConfig(nx=CUBE, ny=CUBE, nz=CUBE, steps=MAIN_STEPS)
     ref = solve(cube)
-    for mesh_shape in ((2, 2, 2), (2, 4, 1)):
-        label = f"{CUBE}^3 on {mesh_shape}"
+    for mesh_shape, force in (((2, 2, 2), None), ((2, 4, 1), None),
+                              ((2, 4, 1), "H")):
+        label = f"{CUBE}^3 on {mesh_shape}" + (f", {force} pinned"
+                                               if force else "")
+        kernel = "heat_h_block_3d" if force else "heat_h_block_3d_fused"
         res, counts = _sharded_run_3d(
             cube.replace(mesh_shape=mesh_shape),
-            {"heat_h_block_3d_fused": rounds * math.prod(mesh_shape)}, label)
+            {kernel: rounds * math.prod(mesh_shape)}, label, force)
         check(torch.equal(res.grid, ref.grid),
               f"{label} differs from the one-block run")
         small[label] = {"elapsed_s": res.elapsed_s,
@@ -3735,6 +3798,49 @@ def _h_fused_loads_and_tiles(u, pieces, v, k, kw):
     return out
 
 
+# H's device time at the main path's block before F's plane loop (one z
+# cell a thread on heat_f_levels, every cell by cp.async; NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md section 6).
+H_EARLIER_MS = 1.103
+
+
+def _h_loads_and_tiles(ext, v, k, kw, xch):
+    """H's launch at the main block under each load, by CUDA events in
+    turns, and the time of each kind of tile by difference: under the
+    cp.async load every tile copies its cells (a wrapped tile's load),
+    so that launch over the tile segments gives a wrapped tile's µs; the
+    TMA launch less its wrapped tiles' share, a boxed tile's. With the
+    earlier design's time, the tile counts and the occupancy of the
+    instance the main path launches."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    bs = tuple(v.shape)
+    kinds = p.hc_tile_kinds(bs, k, xch.halos, kw["origin"],
+                            kw["grid_shape"])
+    _, _, _, seg = p.hc_launch(bs, k)
+    segments = -(-bs[0] // seg)
+    runs = {ld: (lambda ld=ld: skb3.h_block(ext, v, k, False, load=ld,
+                                            **kw))
+            for ld in ("tma", "cp.async")}
+    ms = {ld: [] for ld in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for ld in order:
+            ms[ld].append(_time_ms(runs[ld], 20, 3))
+    ms = {ld: sum(t) / len(t) for ld, t in ms.items()}
+    wrapped_us = ms["cp.async"] * 1e3 / (kinds["tiles"] * segments)
+    boxed_us = ((ms["tma"] * 1e3 - kinds["wrapped"] * segments * wrapped_us)
+                / (kinds["boxed"] * segments))
+    return {"load": skb3.h_block_load(ext),
+            "earlier_design_device_ms": H_EARLIER_MS,
+            "tile_kinds": kinds, "segments": segments, "ms_by_load": ms,
+            "us_per_tile_segment_boxed": boxed_us,
+            "us_per_tile_segment_wrapped": wrapped_us,
+            "wrapped_over_boxed": wrapped_us / boxed_us,
+            "occupancy_blocks_per_sm": skb3.h_occupancy(k)}
+
+
 def phase_timing_h(dev):
     """ms per launch of each H kernel at the main path's block (512^3 of
     1024^3 on (2, 2, 2), K = h_k_default, no residual, as the rounds
@@ -3772,7 +3878,9 @@ def phase_timing_h(dev):
     o = mesh.origin(b, bs)
     kw = dict(origin=o, grid_shape=grid, cx=CX, cy=CY, cz=CX)
     zt, yt, xlo, xhi = xch.pieces(b)
-    ext = torch.empty(xch.circular_shape, device=dev)
+    # The circular block as the pinned-H round assembles it (rows padded
+    # to a multiple of 4 floats: the TMA load).
+    ext = xch.new_circular()
     xch.assemble_circular(b, us[b], ext)
     assemble_ms = _time_ms(lambda: xch.assemble_circular(b, us[b], ext), 10,
                            2)
@@ -3847,12 +3955,20 @@ def phase_timing_h(dev):
         rows[key].update(_device_ms(kernel, name))
     rows["heat_h_block_3d_fused"].update(_h_fused_loads_and_tiles(
         us[b], (zt, yt, xlo, xhi), v, k, kw))
+    rows["heat_h_block_3d"].update(_h_loads_and_tiles(ext, v, k, kw, xch))
     # One whole monolithic round of the 8 blocks (the three phases and 8
-    # launches of H-fused), by events.
+    # launches of H-fused), and the pinned-H round (the phases, 8
+    # assemblies and 8 launches of H), by events in turns.
     vs = [torch.empty_like(u) for u in us]
-    round_fn = temporal3d.cuda_round_3d(xch, "H-fused", "overlap",
-                                        grid_shape=grid, cx=CX, cy=CY, cz=CX)
-    round_ms = _time_ms(lambda: round_fn(us, vs, False), 10, 2)
+    round_fns = {kind: temporal3d.cuda_round_3d(
+        xch, kind, "overlap", grid_shape=grid, cx=CX, cy=CY, cz=CX)
+        for kind in ("H-fused", "H")}
+    round_runs = {kind: [] for kind in round_fns}
+    for order in (list(round_fns), list(round_fns)[::-1]):
+        for kind in order:
+            round_runs[kind].append(_time_ms(
+                lambda fn=round_fns[kind]: fn(us, vs, False), 10, 2))
+    round_ms = sum(round_runs["H-fused"]) / 2
     copies = xch.copies
     del us, vs, xch, ext, v, frame, framed, lead, bands
     torch.cuda.empty_cache()
@@ -3862,6 +3978,8 @@ def phase_timing_h(dev):
           "host_launches_per_round": mesh.size + copies,
           "assemble_ms_per_block": assemble_ms,
           "round_ms": round_ms,
+          "round_ms_pinned_h": sum(round_runs["H"]) / 2,
+          "round_ms_runs": round_runs,
           "redundant_cell_share": (math.prod(n + 2 * k for n in bs)
                                    - math.prod(bs)) / math.prod(bs),
           "band_share_of_cells": 2 * k / bx})
@@ -3923,7 +4041,7 @@ def phase_audit(dev):
     in-range offset; the seeded variants in ptxas's report and refused by
     the launcher); every instance's static shared memory within
     ``static_smem_bytes``; each plan's blocks an SM against the
-    occupancy exports of E, E-uni, F, G-uni, G-fuse and H-fused at their
+    occupancy exports of E, E-uni, F, G-uni, G-fuse, H-fused and H at their
     main-path geometries (registers from ptxas); and the record variants
     of E-uni (16384^2, K = 8) and F (512^3, K = 3, both loads): each
     audited block's loads equal the plan's, the grid bitwise the
@@ -4041,7 +4159,13 @@ def phase_audit(dev):
              "heat_h_block_3d_fused",
              f"heat_h_block_3d_fused_kernel<{hp.h_k_default}, {hp.h_rows}, "
              f"{'true' if h_load == 'tma' else 'false'}>",
-             lambda: skb3.h_fused_occupancy(hp.h_k_default, h_load))):
+             lambda: skb3.h_fused_occupancy(hp.h_k_default, h_load)),
+            ("H", ap.plan_hc(h_block, hp.h_k_default,
+                             grid_shape=(SHARD3_N,) * 3),
+             "heat_h_block_3d",
+             f"heat_h_block_3d_kernel<{hp.h_k_default}, "
+             f"{hp.hc_shape(hp.h_k_default)[1]}>",
+             lambda: skb3.h_occupancy(hp.h_k_default))):
         r = regs(name, inst)
         mine, theirs = ak.blocks_per_sm(plan, r), export()
         occ[label] = {"registers": r, "plan": mine, "export": theirs}

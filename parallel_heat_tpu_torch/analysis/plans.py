@@ -935,20 +935,145 @@ def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
 # The sharded 3D block kernels (heat_h.cuh)
 # ---------------------------------------------------------------------------
 
-H_KERNELS = {"H": "heat_h_block_3d", "H-fuse": "heat_h_block_3d_fused",
-             "band": "heat_h_band_fix_3d"}
+H_KERNELS = {"H-fuse": "heat_h_block_3d_fused", "band": "heat_h_band_fix_3d"}
+
+
+def _hc_kinds(spans):
+    _, sy, sz = spans
+    a, b = sy.kind, sz.kind
+    names = {"tiles", "edge" if (a[1] or a[3] or b[1] or b[3])
+             else "interior", "boxed" if a[6] and b[6] else "wrapped"}
+    for name, hit in (("top", a[0]), ("left", b[0]), ("bottom", a[2]),
+                      ("right", b[2]), ("ragged_y", a[4]),
+                      ("ragged_z", b[4]), ("partial_group", b[5])):
+        if hit:
+            names.add(name)
+    return names
+
+
+def plan_hc(block_shape, k, origin=(0, 0, 0), grid_shape=None,
+            load="tma") -> Plan:
+    """Kernel H (``heat_h_block_3d``, F's plane loop on the assembled
+    circular block) on a ``(bx, by, bz)`` block at ``origin`` under
+    ``load``: with "tma" the block's rows padded to a multiple of 4
+    floats (``DeepExchange3D.new_circular``) and the tiles that need no
+    lo cell taking one box a plane of the circular block's tensor map
+    (coordinates in the block, plane t + hx); the others, and every tile
+    under "cp.async", a 4-byte cp.async a cell, written here in frame
+    coordinates (the circular block's cells in the padded ``[lo | u |
+    hi]`` order, guarded by the K-deep frame), as ``hc_launch`` launches
+    it (``csrc/heat_h_block_3d.cu``)."""
+    p = _p()
+    bx, by, bz = block_shape
+    grid_shape = grid_shape or block_shape
+    halos = tuple(k if b < n else 0 for b, n in zip(block_shape, grid_shape))
+    hx, hy, hz = halos
+    block, rows, prefetch, seg = p.hc_launch(block_shape, k)
+    warps = block[1]
+    wy, wz = p.f_extent(block, rows)
+    P = p.f_pad(k)
+    ty_out, tz_out = wy - 2 * k, wz - 2 * P
+    tiles_y, tiles_z = _ceil(by, ty_out), _ceil(bz, tz_out)
+    n_seg = _ceil(bx, seg)
+    ext_x, ye, ze = bx + 2 * hx, by + 2 * hy, bz + 2 * hz
+    pitch = p.hc_pitch(ze) if load == "tma" else ze
+    slots = prefetch + 2
+    slot_f = (wy + 2) * wz
+    box_bytes = 4 * wz * wy
+    threads = 32 * warps
+    tma = load == "tma"
+    oy, oz = origin[1], origin[2]
+    ny, nz = grid_shape[1], grid_shape[2]
+
+    def xs(i):
+        x0, x1 = i * seg, min(i * seg + seg, bx)
+        win = (x0 - k + hx, x1 - x0 + 2 * k)
+        return Span((x0, x1), {"box": win + (None,),
+                               "plane": win + ((0, ext_x),)}, (x1 - x0,))
+
+    def ys(i):
+        y0 = i * ty_out - k
+        write = (y0 + k, min(y0 + wy - k, by))
+        kind = _edge_kind(oy + y0, oy + y0 + wy, ny, (oy + write[0],
+                          oy + write[1]), ty_out)
+        kind = (y0 < 0, kind[1], y0 + wy > by, kind[3],
+                write[1] - write[0] < ty_out,
+                (write[1] - write[0]) % 4 != 0, y0 >= 0 or not hy)
+        return Span(write, {"box": (y0, wy, None),
+                            "plane": (y0 + hy, wy, (0, ye))}, kind)
+
+    def zs(i):
+        z0 = i * tz_out - P
+        write = (z0 + P, min(z0 + wz - P, bz))
+        kind = _edge_kind(oz + z0, oz + z0 + wz, nz, (oz + write[0],
+                          oz + write[1]), tz_out)
+        kind = (z0 < 0, kind[1], z0 + wz > bz, kind[3],
+                write[1] - write[0] < tz_out,
+                (write[1] - write[0]) % 4 != 0, z0 >= 0 or not hz)
+        return Span(write, {"box": (z0, wz, None),
+                            "plane": (z0 + hz, wz, (0, ze))}, kind)
+
+    def schedule(spans):
+        x0, x1 = spans[0].write
+        y0 = spans[1].reads["box"][0]
+        z0 = spans[2].reads["box"][0]
+        if tma and spans[1].kind[6] and spans[2].kind[6]:
+            def fill(slot, bar, t):
+                return [("expect_tx", bar, box_bytes),
+                        ("tma", slot, bar, box_bytes, (z0, y0, t + hx), 0)]
+            count = 1
+        else:
+            def fill(slot, bar, t):
+                return [("cp_async", slot, box_bytes, (z0, y0, t + hx)),
+                        ("cp_async_arrive_noinc", bar, threads)]
+            count = threads
+        return _sched_ring_mbar(x0 - k, x1 + k, prefetch, slots, fill,
+                                count)
+
+    edge = (min(rows, 2) * warps + 2) * wz
+    slot_map = {f"ring{i}": (4 * i * slot_f, 4 * slot_f)
+                for i in range(slots)}
+    slot_map["levels"] = (4 * slots * slot_f, 4 * 2 * (k - 1) * edge)
+    slot_map["bars"] = (4 * (slots * slot_f + 2 * (k - 1) * edge),
+                        8 * slots)
+    loads = {"plane": Load("cp4", "frame", "ring", wz, (0, wz), streamed=1)}
+    if tma:
+        loads["box"] = Load("tma", "ext", "ring", wz, (0, wz), streamed=1,
+                            box=(1, wy, wz))
+    return Plan(
+        kernel="heat_h_block_3d_kernel", entry="heat_h_block_3d",
+        label=f"H {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}",
+        grid=n_seg * tiles_y * tiles_z, threads=threads,
+        max_threads=32 * (8 if rows == 4 else 16),
+        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch),
+        static_smem=p.static_smem_bytes,
+        arrays={"ext": Array((ext_x, ye, pitch)),
+                "frame": Array((ext_x, ye, ze)), "out": Array(block_shape)},
+        output="out",
+        axes=[Axis("x", n_seg, xs), Axis("y", tiles_y, ys),
+              Axis("z", tiles_z, zs)],
+        loads=loads, slots=slot_map, align_slack=128,
+        cover=_full(block_shape), schedule=schedule,
+        # The TMA coordinates and each row's offset are int32
+        # (heat_h_block_3d.cu); the launcher refuses ye * pitch past it.
+        int32=[("TMA box coordinate", max(ext_x, ye, ze)),
+               ("row offset yc * pitch + zc", ye * pitch)],
+        kinds=p.hc_tile_kinds(block_shape, k, halos, origin, grid_shape,
+                              tma, block, rows),
+        kinds_of=_hc_kinds)
 
 
 def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
            defer=False, load="cp.async") -> Plan:
-    """An H kernel (``kind`` of :data:`H_KERNELS`) on a ``(bx, by, bz)``
-    block at ``origin``: monolithic, H-fused's deferred bulk (``defer``,
-    planes ``[k, bx - k)``) or the band kernel (planes ``[0, k)`` and
-    ``[bx - k, bx)``), at the launch ``stencil_kernels_block_3d._geometry``
-    gives. Tiles inside the block load each plane as a TMA box under
-    ``load="tma"`` (H-fused only), the x slabs' planes by cp.async;
-    elsewhere the per-cell cp.async ring (``heat_t3d_stream``). Loads are
-    in frame coordinates, the block's cells shifted by ``k``."""
+    """An H-fused-family kernel (``kind`` of :data:`H_KERNELS`) on a
+    ``(bx, by, bz)`` block at ``origin``: monolithic, H-fused's deferred
+    bulk (``defer``, planes ``[k, bx - k)``) or the band kernel (planes
+    ``[0, k)`` and ``[bx - k, bx)``), at the launch
+    ``stencil_kernels_block_3d._geometry`` gives. Tiles inside the block
+    load each plane as a TMA box under ``load="tma"`` (H-fused only), the
+    x slabs' planes by cp.async; elsewhere the per-cell cp.async ring
+    (``heat_t3d_stream``). Loads are in frame coordinates, the block's
+    cells shifted by ``k``."""
     from parallel_heat_tpu_torch.ops.stencil_kernels_block_3d import (
         _geometry)
 
@@ -1283,7 +1408,9 @@ def default_plans() -> List[Plan]:
         out.append(plan_h("H-fuse", block3, k3, o, H_GRID, defer=True,
                           load=skb3.h_load(block3, k3)))
         out.append(plan_h("band", block3, k3, o, H_GRID))
-    out.append(plan_h("H", block3, k3, origins3[0], H_GRID))
+    for o in (origins3[0], origins3[-1]):
+        for load in ("tma", "cp.async"):
+            out.append(plan_hc(block3, k3, o, H_GRID, load))
     for bshape, ks in (((67, 128, 92), range(1, p.h_k_max() + 1)),
                        ((40, 128, 96), (1, 3, 8))):
         grid = tuple(2 * b for b in bshape)
@@ -1292,9 +1419,12 @@ def default_plans() -> List[Plan]:
                 continue
             out.append(plan_h("H-fuse", bshape, k, (0, 0, 0), grid,
                               load=skb3.h_load(bshape, k)))
-            out.append(plan_h("H", bshape, k, (0, 0, 0), grid))
             if bshape[0] >= 2 * k:
                 out.append(plan_h("band", bshape, k, (0, 0, 0), grid))
+        for k in range(1, p.hc_k_max() + 1):
+            for o in ((0, 0, 0), bshape):
+                out.append(plan_hc(bshape, k, o, grid, "tma"))
+            out.append(plan_hc(bshape, k, (0, 0, 0), grid, "cp.async"))
     out.append(plan_fixture("clean", 16))
     out.append(plan_fixture("clean_tma", 16))
     out.append(plan_fixture("clean_tma", 262144, n_strips=32768))

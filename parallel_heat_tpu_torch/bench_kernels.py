@@ -3,7 +3,7 @@ sharded block kernels G and H on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
         [--a-sizes 256,1000,1859] [--size-3d 512]
-        [--only a,b,e,d,f,m,mg,g,band,h] [--reps 10] [--out FILE] [--sass DIR]
+        [--only a,b,e,d,f,m,mg,g,band,h,hfused] [--reps 10] [--out FILE] [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -57,22 +57,25 @@ shape checked bitwise against the per-block plain versions on the 8
 blocks of 1000 x 1008 on (2, 4), ranked by ``torch.profiler`` device
 time; then, at the default shape, its loads in turns (the row load, the
 per-cell load, and none: the steps alone, the load's share).
-``--only h`` sweeps the sharded 3D path's H
-kernels at the main path's block, 512^3 of 1024^3 on a (2, 2, 2) mesh:
-the deferred bulk of H-fused over thread blocks, rows per thread and K
-(the segment of ``hopper_params.h_launch``; the TMA load wherever the
-geometry takes it), then over X segments at the
-fastest shape per step; and, at the defaults, the monolithic H-fused,
-H and the band kernel, and kernel F on a 512^3 grid, the yardstick of
-the step phase they share. Each launch shape is first checked bitwise
-against the plain version on the interior block of a (3, 3, 3) mesh of
-21 x 128 x 256 blocks. The values in
-``ops/hopper_params.py`` marked "measured" come from this sweep.
+``--only h`` sweeps kernel H (F's plane loop on the assembled circular
+block) at the sharded 3D main path's block, 512^3 of 1024^3 on a (2, 2,
+2) mesh: F's launch shapes at every K under the TMA load (and the
+cp.async load at the chosen shape), then X segments and planes in flight
+at the fastest shape a step; and, at the defaults, the monolithic
+H-fused, H (both loads) and the band kernel, and kernel F on a 512^3
+grid, the yardstick of the plane loop; each shape first checked bitwise
+against the plain version on 20 x 128 x 252 blocks of a (3, 3, 3) mesh
+(``hopper_params``' ``hc_*`` entries). ``--only hfused`` sweeps
+H-fused's deferred bulk over thread blocks, rows per thread, K and X
+segments, each checked bitwise on the interior block of a (3, 3, 3) mesh
+of 21 x 128 x 256 blocks (the ``h_*`` entries). The values in
+``ops/hopper_params.py`` marked "measured" come from these sweeps.
 ``--sass DIR`` also writes each kernel library's machine code
 (``cuobjdump -sass``) to ``DIR/<kernel>.sass`` and prints the number of
 instructions in each loop body, found by its backward branch, and for
 kernel F's instances at the default K the instructions, shuffles and
 shared-memory bytes per cell-step of its plane loop (``sass_f``), for
+kernel H's the same of each of its four plane loops (``sass_h``), for
 kernel A the same of each loop that steps cells and of its test-free
 inner step (``sass_a``);
 ``--turns TREE`` times the default paths' kernels (F under both
@@ -93,11 +96,13 @@ OTHER/parallel_heat_tpu_torch/build/libheat_a_resident-*.so``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -214,31 +219,55 @@ def _check_e(small, want, res, k, tile, block, name) -> bool:
                 and torch.equal(sk._residual_view(bits), res))
 
 
+# A torch.profiler trace loses kernel records now and then: on an H100 a
+# trace of a burst of launches kept none or only some of them about once
+# in a hundred traces, and in one run of chip_smoke.py kept 8 of 40 three
+# traces running. Idle host time inside the trace on each side of the
+# burst lets the records arrive; each retry of device_ms waits four times
+# longer (tools/profiler_records.py counts the traces that lose records
+# with and without the wait).
+TRACE_PAD_S = 0.02
+
+
+@contextlib.contextmanager
+def card_trace(pad_s: float = TRACE_PAD_S):
+    """A ``torch.profiler`` trace of the card alone: ``with card_trace()
+    as prof:`` runs the block with the card synchronized before and after
+    it and ``pad_s`` seconds of idle host inside the trace on each side;
+    read ``prof`` after the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+
+
 def device_ms(fn, instance: str, made: int = 40) -> float:
     """Mean device milliseconds of one launch of the kernel whose name
     holds ``instance`` (``heat_a_resident_kernel<0>``), from a
     ``torch.profiler`` trace of ``made`` calls of ``fn()``, over the
-    records the trace kept (a trace may lose a few; one that kept fewer
-    than 70% is taken again, twice at most, then refused). For kernels
-    of a few microseconds, whose launches the host cannot issue as fast
-    as the card runs them, so that CUDA events would time the host."""
-    from torch.profiler import ProfilerActivity, profile
-
+    records the trace kept. A trace may lose some: one that kept fewer
+    than 70% is taken again with twice the calls and four times the wait,
+    twice at most, then refused. For kernels of a few microseconds, whose
+    launches the host cannot issue as fast as the card runs them, so that
+    CUDA events would time the host."""
     fn()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(3):
+        calls = made * 2 ** attempt
+        with card_trace(TRACE_PAD_S * 4 ** attempt) as prof:
             # heatlint: begin dispatch-region
-            for _ in range(made):
+            for _ in range(calls):
                 fn()
             # heatlint: end dispatch-region
-            torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if re.search(re.escape(instance), e.key)]
         records = sum(e.count for e in hits)
-        if made * 0.7 <= records <= made:
+        if calls * 0.7 <= records <= calls:
             return sum(e.self_device_time_total for e in hits) / 1e3 / records
-    raise RuntimeError(f"the profiler kept {records} records of {made} "
+    raise RuntimeError(f"the profiler kept {records} records of {calls} "
                        f"launches of {instance}, three times over")
 
 
@@ -247,16 +276,12 @@ def device_ms_per_call(fn, instance: str, calls: int = 20) -> float:
     ``instance`` that one ``fn()`` makes, however many (``torch.profiler``
     over ``calls`` calls: the records' device time over the calls; a
     trace that loses records reads low by as much)."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_trace() as prof:
         # heatlint: begin dispatch-region
         for _ in range(calls):
             fn()
         # heatlint: end dispatch-region
-        torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if re.search(re.escape(instance), e.key)) / 1e3 / calls
 
@@ -750,8 +775,136 @@ def _h_setup(dev, grid, mesh_shape, k, blocks):
 
 
 def sweep_h(reps: int):
+    """Yield one dict per launch of kernel H (F's plane loop on the
+    assembled circular block, rows padded) at the sharded 3D main path's
+    block, 512^3 of 1024^3 on (2, 2, 2), block 7: each of
+    :data:`F_SHAPES` at every K it takes (the segment of
+    ``hopper_params.hc_launch``, ``hc_prefetch`` planes in flight, or
+    fewer where the shared memory holds fewer) under the TMA load, and
+    the cp.async load at ``hc_shape``'s; then, at the fastest shape a
+    step, segments and prefetch depths; then the defaults' monolithic
+    H-fused, H and band launches and kernel F on 512^3. Each launch shape
+    is first checked bitwise (grid and residual) against the plain
+    version on blocks 0 and 13 of 20 x 128 x 252 blocks on (3, 3, 3),
+    whose tiles run both kinds."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    s_mesh_shape, s_block = (3, 3, 3), (20, 128, 252)
+    s_grid = tuple(m * b for m, b in zip(s_mesh_shape, s_block))
+    s_us = HeatMesh(s_mesh_shape, dev).split(torch.from_numpy(
+        (rng.standard_normal(s_grid) * 10).astype(np.float32)).to(dev))
+    mesh = HeatMesh(H_MESH, dev)
+    bs = mesh.block_shape(H_GRID)
+    plate = HeatPlate3D(*H_GRID)
+    us = [plate.init_block(dev, mesh.origin(b, bs), bs)
+          for b in range(mesh.size)]
+    b = mesh.size - 1
+    size = "x".join(map(str, bs))
+    kw3 = dict(zip(("cx", "cy", "cz"), COEFFS_3D))
+    big_kw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, cx=CX,
+                  cy=CY, cz=CZ)
+    out = torch.empty(bs, device=dev)
+    cache = {}
+
+    def setup(k):
+        if k not in cache:
+            cache.clear()
+            s_mesh, s_xch = _h_setup(dev, s_grid, s_mesh_shape, k, s_us)
+            checks = []
+            for sb in (0, 13):
+                ext = s_xch.new_circular()
+                s_xch.assemble_circular(sb, s_us[sb], ext)
+                skw = dict(origin=s_mesh.origin(sb, s_block),
+                           grid_shape=s_grid, **kw3)
+                want = torch.empty(s_block, device=dev)
+                res = skb3.h_block_plain(ext, want, k, **skw)
+                checks.append((ext, want, res, skw))
+            _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
+            ext = xch.new_circular()
+            xch.assemble_circular(b, us[b], ext)
+            cache[k] = (checks, ext)
+        return cache[k]
+
+    def row(k, shape, load, mode, seg=None):
+        block, rows, prefetch = shape
+        checks, ext = setup(k)
+        ok = True
+        for c_ext, want, res, skw in checks:
+            got = torch.full_like(want, float("nan"))
+            r = skb3._launch_h(c_ext, got, k, True, load, p.hc_launch(
+                s_block, k, shape), **skw)
+            ok = ok and bool(torch.equal(got, want) and torch.equal(r, res))
+        launch = p.hc_launch(bs, k, shape)
+        if seg is not None:
+            launch = launch[:3] + (seg,)
+        ms = time_ms(lambda: skb3._launch_h(ext, out, k, False, load, launch,
+                                            **big_kw), reps)
+        return {"kernel": "heat_h_block_3d", "mode": mode, "size": size,
+                "block": list(block), "rows": rows, "k": k, "load": load,
+                "segment": launch[3], "prefetch": prefetch,
+                "smem_bytes": p.f_smem_bytes(k, block, rows, prefetch),
+                "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                "default": (shape == p.hc_shape(k) and seg is None
+                            and k == p.h_k_default)}
+
+    best = None
+    for k in range(1, p.f_k_compiled + 1):
+        for block, rows in F_SHAPES:
+            prefetch = next((n for n in range(p.hc_prefetch, 0, -1)
+                             if p.f_takes(block, rows, k)
+                             and k <= p.f_k_max(block, rows, n)), None)
+            if prefetch is None:
+                continue
+            r = row(k, (block, rows, prefetch), "tma", "tma")
+            if r["bitwise"] and (best is None or r["ms_per_step"]
+                                 < best["ms_per_step"]):
+                best = r
+            yield r
+        yield row(k, p.hc_shape(k), "cp.async", "cp.async")
+    shape = (tuple(best["block"]), best["rows"], best["prefetch"])
+    k = best["k"]
+    for seg in H_SEGMENTS:
+        yield row(k, shape, "tma", "tma segments", seg=seg)
+    for prefetch in F_PREFETCH:
+        if k <= p.f_k_max(shape[0], shape[1], prefetch):
+            yield row(k, shape[:2] + (prefetch,), "tma", "tma prefetch")
+    # The defaults' monolithic, assembled and band launches, and F.
+    k = p.h_k_default
+    _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
+    pieces = xch.pieces(b)
+    ext = xch.new_circular()
+    xch.assemble_circular(b, us[b], ext)
+    cube = HeatPlate3D(*bs).init_grid(dev)
+    cube_out = torch.empty_like(cube)
+    kw = dict(cx=CX, cy=CY, cz=CZ)
+    for name, mode, fn in (
+            ("heat_h_block_3d_fused", "monolithic",
+             lambda: skb3.h_block_fused(us[b], *pieces, out, k, False,
+                                        **big_kw)),
+            ("heat_h_block_3d", "monolithic",
+             lambda: skb3.h_block(ext, out, k, False, **big_kw)),
+            ("heat_h_block_3d", "monolithic cp.async",
+             lambda: skb3.h_block(ext, out, k, False, load="cp.async",
+                                  **big_kw)),
+            ("heat_h_band_fix_3d", "band",
+             lambda: skb3.h_band_fix(us[b], *pieces, out, k, False,
+                                     **big_kw)),
+            ("heat_f_temporal3d", "one grid",
+             lambda: sk3.xslab_steps_3d(cube, cube_out, k, False, **kw))):
+        ms = time_ms(fn, reps)
+        yield {"kernel": name, "mode": mode, "size": size, "k": k,
+               "bitwise": True, "ms": ms, "ms_per_step": ms / k,
+               "default": True}
+
+
+def sweep_hfused(reps: int):
     """Yield one dict per launch shape of H-fused's deferred bulk at the
-    sharded 3D main path's block, then the defaults' other launches."""
+    sharded 3D main path's block (the sweep of ``hopper_params``' ``h_*``
+    entries)."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
     from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
@@ -837,33 +990,6 @@ def sweep_h(reps: int):
                "load": best["load"], "segment": seg,
                "bitwise": best["bitwise"], "ms": ms,
                "ms_per_step": ms / k, "default": False}
-    # The defaults' monolithic, assembled and band launches, and F.
-    k = p.h_k_default
-    _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
-    pieces = xch.pieces(b)
-    ext = torch.empty(xch.circular_shape, device=dev)
-    xch.assemble_circular(b, us[b], ext)
-    big_kw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw)
-    cube = HeatPlate3D(*bs).init_grid(dev)
-    cube_out = torch.empty_like(cube)
-    for name, mode, fn in (
-            ("heat_h_block_3d_fused", "monolithic",
-             lambda: skb3.h_block_fused(us[b], *pieces, out, k, False,
-                                        **big_kw)),
-            ("heat_h_block_3d_fused", "monolithic cp.async",
-             lambda: skb3.h_block_fused(us[b], *pieces, out, k, False,
-                                        load="cp.async", **big_kw)),
-            ("heat_h_block_3d", "monolithic",
-             lambda: skb3.h_block(ext, out, k, False, **big_kw)),
-            ("heat_h_band_fix_3d", "band",
-             lambda: skb3.h_band_fix(us[b], *pieces, out, k, False,
-                                     **big_kw)),
-            ("heat_f_temporal3d", "one grid",
-             lambda: sk3.xslab_steps_3d(cube, cube_out, k, False, **kw))):
-        ms = time_ms(fn, reps)
-        yield {"kernel": name, "mode": mode, "size": size, "k": k,
-               "bitwise": True, "ms": ms, "ms_per_step": ms / k,
-               "default": True}
 
 
 def sass_loops(sass: str):
@@ -934,38 +1060,69 @@ def sass_f_report(sass: str, k: int):
                "tma": inst.group(3) == "1" if inst.group(3) else None,
                "instructions": len(instrs), "loops": loops[:4]}
         if loops:
-            lo, hi = int(loops[0][0], 16), int(loops[0][1], 16)
-            row["plane_loop"] = _sass_counts(instrs, lo, hi + 1)
-            for i, (a, t) in enumerate(instrs):
-                m = _BRANCH.search(t)
-                if not (lo <= a <= hi and t.startswith("@") and m):
-                    continue
-                x = int(m.group(1), 16)
-                skip = [(b, _BRANCH.search(u)) for b, u in instrs
-                        if a < b < x and not u.startswith("@")
-                        and _BRANCH.search(u)]
-                if x <= a or not skip:
-                    continue
-                b, mb = skip[-1]
-                y = int(mb.group(1), 16)
-                first = _sass_counts(instrs, a + 1, x)
-                second = _sass_counts(instrs, x, y)
-                if y <= x or not first["fmul"] or (
-                        first["fmul"] != second["fmul"]):
-                    continue
-                body = min(first, second, key=lambda c: c["instructions"])
-                pre = _sass_counts(instrs, lo, a + 1)
-                cells = body["fmul"] / 4
-                row["inner"] = body
-                row["plane_overhead"] = pre
-                row["inner_per_cell_step"] = {
-                    key: body[key] / cells
-                    for key in ("instructions", "shfl", "shared_bytes")}
-                row["plane_per_cell_step"] = {
-                    key: (body[key] + pre[key]) / cells
-                    for key in ("instructions", "shfl", "shared_bytes")}
-                break
+            row.update(_plane_step(instrs, loops[0]))
         out.append(row)
+    return out
+
+
+def _plane_step(instrs, loop) -> dict:
+    """The plane loop ``loop`` (``(start, end, n)`` of :func:`sass_loops`)
+    of a kernel on F's plane loop: its counts, and the step of one plane
+    on the test-free path as :func:`sass_f_report` finds it."""
+    lo, hi = int(loop[0], 16), int(loop[1], 16)
+    row = {"plane_loop": _sass_counts(instrs, lo, hi + 1)}
+    for a, t in instrs:
+        m = _BRANCH.search(t)
+        if not (lo <= a <= hi and t.startswith("@") and m):
+            continue
+        x = int(m.group(1), 16)
+        skip = [(b, _BRANCH.search(u)) for b, u in instrs
+                if a < b < x and not u.startswith("@")
+                and _BRANCH.search(u)]
+        if x <= a or not skip:
+            continue
+        b, mb = skip[-1]
+        y = int(mb.group(1), 16)
+        first = _sass_counts(instrs, a + 1, x)
+        second = _sass_counts(instrs, x, y)
+        if y <= x or not first["fmul"] or first["fmul"] != second["fmul"]:
+            continue
+        body = min(first, second, key=lambda c: c["instructions"])
+        pre = _sass_counts(instrs, lo, a + 1)
+        cells = body["fmul"] / 4
+        row["inner"] = body
+        row["plane_overhead"] = pre
+        row["inner_per_cell_step"] = {
+            key: body[key] / cells
+            for key in ("instructions", "shfl", "shared_bytes")}
+        row["plane_per_cell_step"] = {
+            key: (body[key] + pre[key]) / cells
+            for key in ("instructions", "shfl", "shared_bytes")}
+        break
+    return row
+
+
+_H_INSTANCE = re.compile(r"heat_h_block_3d_kernelILi(\d+)ELi(\d+)EE")
+
+
+def sass_h_report(sass: str, k: int):
+    """Per instance of kernel H at depth ``k`` in a ``cuobjdump -sass``
+    listing: its size and, for each of its four plane loops (the box and
+    the per-cell load, each with tiles inside the global interior and at
+    its edge: the four largest loops), the step of one plane as
+    :func:`sass_f_report` finds it in F's."""
+    out = []
+    for chunk in re.split(r"(?=\n\s*Function : )", sass):
+        name = _FUNCTION.search(chunk)
+        inst = name and _H_INSTANCE.search(name.group(1))
+        if not inst or int(inst.group(1)) != k:
+            continue
+        instrs = [(int(a, 16), t) for a, t in _SASS_LINE.findall(chunk)]
+        loops = sorted(sass_loops(chunk), key=lambda lp: -lp[2])[:4]
+        out.append({"instance": name.group(1), "k": k,
+                    "rows": int(inst.group(2)), "instructions": len(instrs),
+                    "plane_loops": [dict(_plane_step(instrs, lp), at=lp[0])
+                                    for lp in loops]})
     return out
 
 
@@ -1033,6 +1190,9 @@ def dump_sass(out_dir: str, libraries=None):
         if name == "heat_f_temporal3d":
             for row in sass_f_report(sass, params().f_k_default):
                 print(json.dumps({"sass_f": row}), flush=True)
+        if name == "heat_h_block_3d":
+            for row in sass_h_report(sass, params().h_k_default):
+                print(json.dumps({"sass_h": row}), flush=True)
         if name == "heat_a_resident":
             for row in sass_a_report(sass):
                 print(json.dumps({"sass_a": row}), flush=True)
@@ -1156,7 +1316,10 @@ def turn_times(reps: int, only=None) -> dict:
         b = mesh.size - 1
         _, xch = _h_setup(dev, H_GRID, H_MESH, 3, us)
         pieces = xch.pieces(b)
-        ext = torch.empty(xch.circular_shape, device=dev)
+        # The padded circular block where the tree's exchange makes one
+        # (the tree this file times may predate it).
+        ext = (xch.new_circular() if hasattr(xch, "new_circular")
+               else torch.empty(xch.circular_shape, device=dev))
         xch.assemble_circular(b, us[b], ext)
         out = torch.empty(bs, device=dev)
         hkw = dict(origin=mesh.origin(b, bs), grid_shape=H_GRID, **kw3)
@@ -1319,7 +1482,7 @@ def main(argv=None) -> int:
                     help="cube edge for kernels D and F")
     ap.add_argument("--only", default="a,b,e,d,f",
                     help="comma-separated kernels to sweep (a, b, e, d, f, "
-                         "m, mg, g, band, h)")
+                         "m, mg, g, band, h, hfused)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -1386,7 +1549,8 @@ def main(argv=None) -> int:
             rows.append(row)
             print(json.dumps(row), flush=True)
     for key, run in (("m", sweep_m), ("mg", sweep_mg), ("g", sweep_g),
-                     ("band", sweep_band), ("h", sweep_h)):
+                     ("band", sweep_band), ("h", sweep_h),
+                     ("hfused", sweep_hfused)):
         for row in run(args.reps) if key in only else []:
             rows.append(row)
             print(json.dumps(row), flush=True)

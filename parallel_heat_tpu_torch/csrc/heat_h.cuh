@@ -1,12 +1,14 @@
-// Shared code of the sharded 3D block kernels heat_h_block_3d.cu,
-// heat_h_block_3d_fused.cu and heat_h_band_fix_3d.cu: K 7-point Jacobi
+// Shared code of the sharded 3D block kernels heat_h_block_3d_fused.cu
+// and heat_h_band_fix_3d.cu: K 7-point Jacobi
 // steps on one bx x by x bz block of an nx x ny x nz grid cut over a
 // device mesh, from the block and the K-deep halo its neighbours sent
 // (parallel/temporal3d.py), with the residual of the last step.
 //
-// Replaces the kernel-H family of parallel_heat_tpu/ops/pallas_stencil.py
-// (_build_temporal_block_3d, _build_temporal_block_3d_fused,
-// _build_band_fix_3d). Each TPU builder keeps its own entry point here.
+// Replaces two of the kernel-H family of
+// parallel_heat_tpu/ops/pallas_stencil.py (_build_temporal_block_3d_fused,
+// _build_band_fix_3d). Each TPU builder keeps its own entry point; the
+// third, _build_temporal_block_3d, is heat_h_block_3d.cu, on kernel F's
+// plane loop.
 //
 // Bound on the H100: a round reads the block once and writes it once for
 // K steps, plus the exchanged pieces, 4 * (2K*bx*by + 2K*bx*(bz+2hz) +
@@ -55,11 +57,9 @@
 // tile's time and H-fused 1.164 ms where F takes 0.885 at a 512^3 block
 // and K = 3: PERF.md.)
 // An unsharded axis (the block spans the grid along it) has no halo: its
-// cells past the block lie outside the grid. The assembled form reads one
-// buffer, the JAX package's circular block: x in the order [lo | u | hi],
-// y and z [u | hi | lo] (parallel/temporal3d.py assembles it). Cells
-// outside the global interior are copied, so H(K) is bitwise F(K) on the
-// same cells and no re-pin epilogue is needed. The deferred bulk (no x
+// cells past the block lie outside the grid. Cells outside the global
+// interior are copied, so H-fused(K) is bitwise F(K) on the same cells
+// and no re-pin epilogue is needed. The deferred bulk (no x
 // pieces) writes only output planes [K, bx-K), whose K-step cone stays
 // inside the block in x; the band kernel writes planes [0, K) and
 // [bx-K, bx), from input planes [-K, 2K) and [bx-2K, bx+K), into the
@@ -72,18 +72,16 @@
 
 #include "heat_temporal3d.cuh"
 
-enum HeatHLayout { kHeatHPieces = 0, kHeatHCircular = 1 };
-
 // Plane strides, in floats, of the pieces: u (by * bz), ztail (by * 2K),
-// ytail (2K * Ze) and an x slab or a plane of the assembled block
-// (Ye * Ze); the launcher keeps each under 2^31.
+// ytail (2K * Ze) and an x slab (Ye * Ze); the launcher keeps each under
+// 2^31.
 struct HeatHStrides {
   int32_t u, zt, yt, slab;
 };
 
 // The parameters of every H kernel, and their names: each entry point
 // defines its own __global__ function (so a profile names it) whose body
-// is heat_h_body with its layout. Regions (blockIdx.y) start at output
+// is heat_h_body. Regions (blockIdx.y) start at output
 // planes r_begin0 and r_begin1, `rows` planes each, cut into segments
 // of `seg` planes. The fused form's kernel takes one more parameter,
 // `umap`, the block's tensor map for the TMA load (read by its kTma
@@ -127,12 +125,10 @@ constexpr int kHTmaRows = 4;
 
 // One thread block: the (Y, Z) tile, segment and region of blockIdx;
 // blockDim is (wz, by) and the extended tile wz x (by * R) cells. kTma:
-// the tiles inside the block load by TMA from `umap` (the fused layout
-// only; null elsewhere).
-template <int K, int R, int kLayout, bool kTma = false>
+// the tiles inside the block load by TMA from `umap` (null elsewhere).
+template <int K, int R, bool kTma = false>
 __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
                                             const CUtensorMap* umap) {
-  static_assert(!kTma || kLayout == kHeatHPieces, "TMA reads u's planes");
   const int wz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
   const int row0 = threadIdx.y * R;          // this thread's first row
@@ -165,10 +161,9 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
                                       row0 + r < wy - K && ly < by &&
                                       lz < bz) << r;
   }
-  const bool circ = kLayout == kHeatHCircular;
   // Does the extended tile lie inside the block's (Y, Z) extent? Then a
-  // plane is one run per row of u (of the assembled block), as in F, or
-  // of an x slab; or, with kTma, one box of u's tensor map.
+  // plane is one run per row of u, as in F, or of an x slab; or, with
+  // kTma, one box of u's tensor map.
   const int64_t ty0 = ty * (wy - 2 * K) - K, tz0 = tz * (wz - 2 * K) - K;
   if (ty0 >= 0 && ty0 + wy <= by && tz0 >= 0 && tz0 + wz <= bz) {
     const int64_t slab_col = ly0 * ze + lz;
@@ -192,19 +187,18 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
                                 bz, a0, cx, cy, cz, res);
       return;
     }
-    const float* core = circ ? u + static_cast<int64_t>(hx) * st.slab + slab_col
-                             : u + ly0 * bz + lz;
-    const int64_t core_plane = circ ? st.slab : st.u;
-    const int64_t core_row = circ ? ze : bz;
+    const float* core = u + ly0 * bz + lz;
+    const int64_t core_plane = st.u;
+    const int64_t core_row = bz;
     auto load = [&](float* dst, int64_t t) {
       const bool in_block = t >= 0 && t < bx;
       const bool x_in = ox + t >= 0 && ox + t < nx;
-      const float* p = in_block || (circ && x_in) ? core + t * core_plane
+      const float* p = in_block ? core + t * core_plane
                        : !x_in ? nullptr
                        : (t < 0 ? xlo + (t + K) * st.slab
                                 : xhi + (t - bx) * st.slab) +
                              slab_col;
-      const int64_t row = in_block || circ ? core_row : ze;
+      const int64_t row = in_block ? core_row : ze;
 #pragma unroll
       for (int r = 0; r < R; ++r)
         __pipeline_memcpy_async(dst + r * wz, p != nullptr ? p + r * row : u,
@@ -217,8 +211,8 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
   // A tile at the block's (Y, Z) edge. Per row, fixed for the run: where
   // its cell lies in an x-interior plane, as a pointer at plane 0 of its
   // piece (u, ztail or ytail) and that piece's plane stride, and the
-  // cell's offset in an x-slab plane (of the assembled block too). A
-  // cell outside the grid or the K-deep frame is zero-filled.
+  // cell's offset in an x-slab plane. A cell outside the grid or the
+  // K-deep frame is zero-filled.
   const float* src[R];
   int32_t pstride[R], xoff[R];
   const int64_t ye = by + 2 * hy;
@@ -228,10 +222,7 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
     const int64_t yc = ly < 0 ? ly + ye : ly;  // circular y
     const int64_t zc = lz < 0 ? lz + ze : lz;  // circular z
     xoff[r] = static_cast<int32_t>(yc * ze + zc);
-    if (circ) {
-      src[r] = u;
-      pstride[r] = 0;
-    } else if (ly >= 0 && ly < by) {
+    if (ly >= 0 && ly < by) {
       if (lz >= 0 && lz < bz) {
         src[r] = u + (ly * bz + lz);
         pstride[r] = st.u;
@@ -249,10 +240,9 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
   // Block-local input plane t of this thread's cells.
   auto load = [&](float* dst, int64_t t) {
     const bool x_in = ox + t >= 0 && ox + t < nx;
-    if (circ || t < 0 || t >= bx) {
-      const float* slab = circ    ? u + (t + hx) * st.slab
-                          : t < 0 ? xlo + (t + K) * st.slab
-                                  : xhi + (t - bx) * st.slab;
+    if (t < 0 || t >= bx) {
+      const float* slab = t < 0 ? xlo + (t + K) * st.slab
+                                : xhi + (t - bx) * st.slab;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const bool in = x_in && src[r] != nullptr;

@@ -21,7 +21,7 @@
 template <int K, int R>
 __global__ void __launch_bounds__(512)
     heat_h_band_fix_3d_kernel(HEAT_H_PARAMS) {
-  heat_h_body<K, R, kHeatHPieces>(HEAT_H_ARGS, nullptr);
+  heat_h_body<K, R>(HEAT_H_ARGS, nullptr);
 }
 
 static const HeatHKernel kHeatHBand[3][kHMaxK] =

@@ -25,7 +25,7 @@ template <int K, int R, bool kTma>
 __global__ void __launch_bounds__(512)
     heat_h_block_3d_fused_kernel(HEAT_H_PARAMS,
                                  const __grid_constant__ CUtensorMap umap) {
-  heat_h_body<K, R, kHeatHPieces, kTma>(HEAT_H_ARGS, &umap);
+  heat_h_body<K, R, kTma>(HEAT_H_ARGS, &umap);
 }
 
 static const HeatHFusedKernel kHeatHFused[3][kHMaxK] =

@@ -3,12 +3,12 @@
 // steps on the same cells:
 //   - heat_f_levels with its plane loops heat_t3d_stream and
 //     heat_t3d_stream_tma, one z cell a thread: the sharded block kernels
-//     of heat_h.cuh (heat_h_block_3d.cu, heat_h_block_3d_fused.cu,
-//     heat_h_band_fix_3d.cu);
+//     of heat_h.cuh (heat_h_block_3d_fused.cu, heat_h_band_fix_3d.cu);
 //   - HeatFLoop (below), the register-blocked plane loop of kernel F
-//     (heat_f_temporal3d.cu): a lane owns 4 z cells of R rows in float4
-//     registers, so neighbours come by shuffle and from registers, and
-//     each plane's tile arrives as one TMA box.
+//     (heat_f_temporal3d.cu) and of kernel H (heat_h_block_3d.cu, on the
+//     assembled circular block): a lane owns 4 z cells of R rows in
+//     float4 registers, so neighbours come by shuffle and from
+//     registers, and each plane's tile arrives as one TMA box.
 //
 // heat_f_levels. A thread block owns a (Y, Z) tile of output cells plus a
 // K-deep halo on its four sides, the extended tile, and a segment of
@@ -467,8 +467,11 @@ constexpr int kHeatFRecord = 3;
 
 // One thread's state of the loop. The kernel fills the geometry; run()
 // streams the planes. kProbe is the loop's variant (kHeatFFull but in the
-// overlap probe).
-template <int K, int R, bool kTma, int kProbe = kHeatFFull>
+// overlap probe). kCirc: the planes come from kernel H's assembled
+// circular block (heat_h_block_3d.cu), not from the grid; only fetch()
+// differs, under `if constexpr`, so F's instances keep their code.
+template <int K, int R, bool kTma, int kProbe = kHeatFFull,
+          bool kCirc = false>
 struct HeatFLoop {
   static constexpr int kEdgeRows = R < 2 ? R : 2;
   static constexpr bool kRecords = kProbe == kHeatFRecord;
@@ -493,18 +496,44 @@ struct HeatFLoop {
   unsigned yout, zout;       // row r, cell j an output of this tile
   uint32_t box_bytes;
   uint32_t* rec;             // kRecords: where each load is written down
+  // kCirc: plane t is plane t + xsh of the block's ext_x planes, xpitch
+  // floats apart (u is the block); cell (r, j) of this thread lies
+  // coff[r] + j floats into a plane. The TMA box is at (z0, y0, t + xsh).
+  int64_t xsh, ext_x, xpitch;
+  int32_t coff[R];
   int cur;                   // ring slot of the plane being stepped
   uint32_t lap;              // parity of slot cur's use
   uint32_t rmax;
 
   // Input plane t into ring slot `slot`: zeros outside the grid.
   __device__ __forceinline__ void fetch(int slot, int64_t t) {
-    if constexpr (kTma) {
+    if constexpr (kTma && kCirc) {
+      if (leader) {
+        heat_mbar_expect(&full[slot], box_bytes);
+        heat_tma_load_3d(ring + slot * slot_f + kFWidth, map, &full[slot],
+                         z0, y0, static_cast<int>(t + xsh));
+      }
+    } else if constexpr (kTma) {
       if (leader) {
         heat_mbar_expect(&full[slot], box_bytes);
         heat_tma_load_3d(ring + slot * slot_f + kFWidth, map, &full[slot],
                          z0, y0, static_cast<int>(t));
       }
+    } else if constexpr (kCirc) {
+      float* dst = ring + slot * slot_f + own;
+      const int64_t e = t + xsh;
+      const bool t_in = e >= 0 && e < ext_x;
+      const int64_t base = t_in ? e * xpitch : 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool in = t_in && ((cin >> (4 * r + j)) & 1u);
+          __pipeline_memcpy_async(dst + r * kFWidth + j,
+                                  in ? u + (base + coff[r] + j) : u, 4,
+                                  in ? 0 : 4);
+        }
+      heat_cp_async_arrive(&full[slot]);
     } else {
       float* dst = ring + slot * slot_f + own;
       const bool t_in = t >= 0 && t < nx;

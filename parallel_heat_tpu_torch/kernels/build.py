@@ -99,12 +99,15 @@ KERNELS = {
     "heat_g_band_fix": ("heat_g_band_fix.cu",
                         [_P, _I32, _I32, _P] + [_I64] * 4 + [_I32] * 4
                         + [_F32] * 3 + [_P]),
-    # The sharded 3D block kernels (csrc/heat_h.cuh): grid, block and
-    # origin (9 int64), then halos, (defer_x, tma,) k, thread block and
-    # rows.
+    # The sharded 3D block kernels: grid, block and origin (9 int64),
+    # then halos; H (csrc/heat_h_block_3d.cu, F's plane loop) the circular
+    # block's row pitch, k, thread block (lanes, warps), rows, segment,
+    # prefetch and tma; the others (csrc/heat_h.cuh) (defer_x, tma,) k,
+    # thread block and rows.
     "heat_h_block_3d": ("heat_h_block_3d.cu",
-                        [_P] * 3 + [_I64] * 9 + [_I32] * 7 + [_I64]
-                        + [_F32] * 4 + [_P]),
+                        [_P] * 3 + [_I64] * 9 + [_I32] * 3 + [_I64]
+                        + [_I32] * 4 + [_I64] + [_I32] * 2 + [_F32] * 4
+                        + [_P]),
     "heat_h_block_3d_fused": ("heat_h_block_3d_fused.cu",
                               [_P] * 7 + [_I64] * 9 + [_I32] * 9 + [_I64]
                               + [_F32] * 4 + [_P]),

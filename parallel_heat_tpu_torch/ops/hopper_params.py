@@ -257,6 +257,31 @@ class HopperParams:
     h_tma_prefetch: int = 4
     h_tma_rows: int = 4
 
+    # --- kernel H: heat_h_block_3d on F's plane loop (measured) ----------
+    # The assembled circular block's tiles step through kernel F's
+    # register-blocked plane loop (csrc/heat_h_block_3d.cu), F's shape
+    # rule (f_takes) and shared layout (f_smem_bytes): the first of
+    # hc_shapes ((32 lanes, warps), rows a thread) that takes K, with the
+    # most planes in flight that fit, up to hc_prefetch (hc_shape); X
+    # segments of about hc_waves blocks an SM, at least hc_seg_planes_min
+    # planes. The circular block's rows are padded to a multiple of 4
+    # floats (hc_pitch) so that its tiles that need no lo cell load each
+    # plane as one TMA box. The sweep (bench_kernels --only h, the 512^3
+    # block of 1024^3 on (2, 2, 2), block 7, TMA; NVIDIA H100 80GB HBM3
+    # at 700.00 W) found 32 x 16 of 2 rows fastest at K = 1 .. 6 (K = 3
+    # 0.7286 ms, 32 x 12 of 2 rows 0.8181, of 1 row 0.8885, 32 x 8 of 4
+    # rows 1.2804; K = 4 0.9588 ms, the least a step; K = 5 and 6 with 3
+    # and 1 planes in flight, 1.4047 and 2.2264 against 2.762 and 3.687 at
+    # 32 x 8 of 4 rows) and 32 x 12 of 2 rows at K = 7 and 8 (4.5917 and
+    # 29.25 ms, the <8, 2> instance spilling, against 5.097 and 39.39 at
+    # 32 x 8 of 4 rows); at K = 4, 64-plane segments (32 0.9786, 128
+    # 1.0396, 512 1.7694) and 4 planes in flight (1 0.9675, 3 0.9581,
+    # 4 0.9563) best.
+    hc_shapes: tuple = (((32, 16), 2), ((32, 12), 2))
+    hc_prefetch: int = 4
+    hc_waves: int = 8
+    hc_seg_planes_min: int = 64
+
     # --- kernels heat_mg_restrict and heat_mg_prolong (measured) ----------
     # Restrict: a thread takes mg_restrict_cells() (rows, columns) of
     # coarse cells (csrc/heat_mg_restrict.cu compiles 1 x 1, 1 x 2 and
@@ -575,6 +600,89 @@ class HopperParams:
         tiles = -(-by // (wy - 2 * k)) * -(-bz // (wz - 2 * k))
         segments = -(-self.sm_count * self.h_waves // tiles)
         return max(self.h_seg_planes_min, -(-planes // segments))
+
+    @staticmethod
+    def hc_pitch(ze: int) -> int:
+        """Kernel H's circular block row pitch for rows of ``ze`` floats:
+        rounded up to 4 floats (16 bytes), what a tensor map's strides
+        need."""
+        return -(-ze // 4) * 4
+
+    @functools.lru_cache(maxsize=16)
+    def hc_shape(self, k: int):
+        """``(block, rows, prefetch)``: kernel H's launch shape at depth
+        ``k``, the first of ``hc_shapes`` that takes ``k`` (:meth:`f_takes`
+        and one block's shared memory, :meth:`f_k_max`) with the most
+        planes in flight that fit, up to ``hc_prefetch``; None where no
+        shape takes ``k``."""
+        for block, rows in self.hc_shapes:
+            for prefetch in range(self.hc_prefetch, 0, -1):
+                if 1 <= k <= self.f_k_max(block, rows, prefetch):
+                    return block, rows, prefetch
+        return None
+
+    def hc_k_max(self) -> int:
+        """Deepest K that kernel H takes at some shape (:meth:`hc_shape`)."""
+        return max(k for k in range(1, self.f_k_compiled + 1)
+                   if self.hc_shape(k) is not None)
+
+    def hc_launch(self, block_shape, k, shape=None):
+        """Kernel H's ``(block, rows, prefetch, segment planes)`` at depth
+        ``k`` on a ``(bx, by, bz)`` block: :meth:`hc_shape` unless
+        ``shape`` ``(block, rows, prefetch)`` is given, and X segments of
+        about ``hc_waves`` blocks an SM, at least ``hc_seg_planes_min``
+        planes."""
+        block, rows, prefetch = shape or self.hc_shape(k)
+        bx, by, bz = block_shape
+        ty, tz = self.f_tile(k, block, rows)
+        tiles = -(-by // ty) * -(-bz // tz)
+        segments = -(-self.sm_count * self.hc_waves // tiles)
+        return (block, rows, prefetch,
+                max(self.hc_seg_planes_min, -(-bx // segments)))
+
+    def hc_tile_kinds(self, block_shape, k: int, halos, origin,
+                      grid_shape, tma=True, block=None, rows=None) -> dict:
+        """The (Y, Z) tiles of a kernel H launch at depth ``k`` on a
+        ``(bx, by, bz)`` block at ``origin`` of ``grid_shape`` with
+        ``halos`` ``(hx, hy, hz)``, counted by what they run: ``boxed``
+        (with ``tma``: one TMA box a plane; the extended tile starts at
+        y >= 0 and z >= 0, or below 0 only along an unsharded axis) and
+        ``wrapped`` (the others: they need the lo piece, or the load is
+        cp.async; per-cell copies); ``interior`` and ``edge`` (the
+        extended tile inside the global interior or not), ``top``,
+        ``left``, ``bottom``, ``right`` (the extended tile reaches past
+        that side of the block along Y or Z), ``ragged_y``, ``ragged_z``
+        and ``partial_group``, as :meth:`f_tile_kinds`. The tile grid is
+        ``csrc/heat_h_block_3d.cu``'s."""
+        _, by, bz = block_shape
+        _, hy, hz = halos
+        _, oy, oz = origin
+        _, ny, nz = grid_shape
+        if block is None:
+            block, rows, _ = self.hc_shape(k)
+        wy, wz = self.f_extent(block, rows)
+        ty, tz = self.f_tile(k, block, rows)
+        pad = self.f_pad(k)
+        kinds = dict.fromkeys(("tiles", "boxed", "wrapped", "interior",
+                               "edge", "top", "left", "bottom", "right",
+                               "ragged_y", "ragged_z", "partial_group"), 0)
+        for a in range(0, by, ty):
+            for c in range(0, bz, tz):
+                y0, z0 = a - k, c - pad
+                kinds["tiles"] += 1
+                kinds["boxed" if tma and (y0 >= 0 or not hy)
+                      and (z0 >= 0 or not hz) else "wrapped"] += 1
+                kinds["top"] += y0 < 0
+                kinds["left"] += z0 < 0
+                kinds["bottom"] += y0 + wy > by
+                kinds["right"] += z0 + wz > bz
+                gy, gz = oy + y0, oz + z0
+                kinds["edge" if (gy < 1 or gz < 1 or gy + wy > ny - 1
+                                 or gz + wz > nz - 1) else "interior"] += 1
+                kinds["ragged_y"] += by - a < ty
+                kinds["ragged_z"] += bz - c < tz
+                kinds["partial_group"] += min(tz, bz - c) % 4 != 0
+        return kinds
 
     def loop_takes(self, tile, block) -> bool:
         """Does the register-blocked tile loop (kernels E, E-uni and G)

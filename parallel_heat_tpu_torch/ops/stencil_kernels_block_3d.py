@@ -21,7 +21,11 @@ package:
   (:func:`h_load`), by a cp.async per cell elsewhere;
 - :func:`h_block` launches ``heat_h_block_3d``, the counterpart of
   ``heat_h_block_3d``: one assembled circular block ``(bx + 2hx,
-  by + 2hy, bz + 2hz)``, x in the order ``[lo | u | hi]``;
+  by + 2hy, bz + 2hz)``, x in the order ``[lo | u | hi]``, contiguous or
+  with rows padded (:func:`pitched_ok`), stepped on kernel F's plane
+  loop; its tiles that need no ``lo`` cell load by TMA where the rows
+  are multiples of 16 bytes (:func:`h_block_load`), the others by a
+  cp.async per cell;
 - :func:`h_band_fix` launches ``heat_h_band_fix_3d``, the counterpart of
   ``heat_h_band_fix_3d``: planes ``[0, k)`` and ``[bx - k, bx)`` of the
   same K steps, written into the bulk's output in place;
@@ -77,6 +81,27 @@ def h_load(block_shape, k: int, u: Optional[torch.Tensor] = None) -> str:
     decides; the launch refuses TMA elsewhere and nothing falls back."""
     fits = params().h_tma_fits(tuple(block_shape), k)
     return ("tma" if fits and (u is None or u.data_ptr() % 16 == 0)
+            else "cp.async")
+
+
+def pitched_ok(t: torch.Tensor) -> bool:
+    """Is ``t`` (3D) a circular block kernel H reads: z contiguous, rows
+    of ``t.stride(1) >= t.shape[2]`` floats (padded, or not), planes of
+    ``t.shape[1]`` such rows, as ``DeepExchange3D.new_circular`` makes
+    it?"""
+    x, y, z = t.shape
+    return (t.stride(2) == 1 or z == 1) and t.stride(1) >= z and (
+        t.stride(0) == y * t.stride(1) or x == 1)
+
+
+def h_block_load(ext: torch.Tensor) -> str:
+    """Kernel H's plane load of the circular block ``ext``: ``"tma"``
+    where its row pitch is a multiple of 4 floats and its address of 16
+    bytes (a tensor map can be encoded over it; the tiles that need no
+    ``lo`` cell then take one box a plane), else ``"cp.async"``. Geometry
+    alone decides; the launch refuses TMA elsewhere and nothing falls
+    back."""
+    return ("tma" if ext.stride(1) % 4 == 0 and ext.data_ptr() % 16 == 0
             else "cp.async")
 
 
@@ -208,10 +233,13 @@ def h_band_fix_plain(u, ztail, ytail, xlo, xhi, out, k, with_residual=True,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_block(out, k, origin, grid_shape, tensors):
+def _check_block(out, k, origin, grid_shape, tensors, k_max=None,
+                 pitched=()):
     """Shape, type, device and layout checks common to the three kernels;
     ``tensors`` maps a name to ``(tensor or None, expected shape or None
-    when the tensor must be None)``."""
+    when the tensor must be None)``; the names in ``pitched`` may have
+    padded rows (:func:`pitched_ok`). On the card ``k`` is at most
+    ``k_max`` (the H-fused family's :meth:`h_k_max` by default)."""
     if out.dim() != 3:
         raise ValueError(f"out must be a 3D block, got {tuple(out.shape)}")
     if len(grid_shape) != 3 or min(grid_shape) < 3:
@@ -240,7 +268,13 @@ def _check_block(out, k, origin, grid_shape, tensors):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
         if t.device != out.device:
             raise ValueError(f"{name} on {t.device}, out on {out.device}")
-        if not t.is_contiguous():
+        if name in pitched:
+            if not pitched_ok(t):
+                raise ValueError(
+                    f"{name} must have contiguous rows of at least "
+                    f"{shape[2]} floats, packed into planes; got strides "
+                    f"{t.stride()}")
+        elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if name != "out" and t.data_ptr() == out.data_ptr():
             raise ValueError(f"out must be a different buffer from {name}")
@@ -248,10 +282,10 @@ def _check_block(out, k, origin, grid_shape, tensors):
         if out.device.index != torch.cuda.current_device():
             raise ValueError(f"block on {out.device} but the current device "
                              f"is cuda:{torch.cuda.current_device()}")
-        if not 1 <= k <= params().h_k_max():
-            raise ValueError(f"k must be in [1, {params().h_k_max()}] "
-                             f"(the H kernels' compiled depths and shared "
-                             f"memory at block {params().h_block}), got {k}")
+        k_max = k_max or params().h_k_max()
+        if not 1 <= k <= k_max:
+            raise ValueError(f"k must be in [1, {k_max}] (the H kernels' "
+                             f"compiled depths and shared memory), got {k}")
     elif out.device.type != "cpu":
         raise ValueError(f"unsupported device {out.device}")
 
@@ -311,6 +345,25 @@ def h_fused_occupancy(k: int, load: str, block=None, rows=None) -> int:
     return blocks.value
 
 
+def h_occupancy(k: int) -> int:
+    """Thread blocks of kernel H's instance at depth ``k`` (its shape of
+    :meth:`~.hopper_params.HopperParams.hc_shape`) that one SM of the
+    current card holds at once; builds the kernel if needed."""
+    import ctypes
+
+    from parallel_heat_tpu_torch.kernels.build import load as load_lib
+
+    (_, warps), rows, prefetch = params().hc_shape(k)
+    lib = load_lib("heat_h_block_3d")
+    fn = lib.heat_h_block_3d_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    _raise_on_error(lib, "heat_h_block_3d",
+                    fn(k, warps, rows, prefetch, ctypes.addressof(blocks)))
+    return blocks.value
+
+
 def _geometry(block_shape, k, planes, segment=True):
     p = params()
     geo = (p.h_block[0], p.h_block[1], p.h_rows)
@@ -318,22 +371,50 @@ def _geometry(block_shape, k, planes, segment=True):
 
 
 def h_block(ext: torch.Tensor, out: torch.Tensor, k: int,
-            with_residual: bool = True, *, origin, grid_shape, cx: float,
-            cy: float, cz: float) -> Optional[torch.Tensor]:
+            with_residual: bool = True, *, load: Optional[str] = None,
+            origin, grid_shape, cx: float, cy: float,
+            cz: float) -> Optional[torch.Tensor]:
     """Kernel H: ``k`` steps of the block whose circular extended block
-    ``ext`` (``(bx + 2hx, by + 2hy, bz + 2hz)``, :func:`halos_of`) is
-    given, into ``out`` ``(bx, by, bz)``; the block's residual (0-d
-    float32) or None."""
+    ``ext`` (``(bx + 2hx, by + 2hy, bz + 2hz)``, :func:`halos_of`;
+    contiguous or with padded rows, :func:`pitched_ok`) is given, into
+    ``out`` ``(bx, by, bz)``; the block's residual (0-d float32) or None.
+    ``load`` (one of :data:`LOADS`) pins the plane load, which
+    :func:`h_block_load` chooses by default; ``"tma"`` where the layout
+    refuses it raises. Both loads give the same bits."""
+    p = params()
     halos = halos_of(out.shape, grid_shape, k)
-    bx, by, bz = out.shape
     _check_block(out, k, origin, grid_shape, {
-        "ext": (ext, tuple(b + 2 * h for b, h in zip(out.shape, halos)))})
+        "ext": (ext, tuple(b + 2 * h for b, h in zip(out.shape, halos)))},
+        k_max=p.hc_k_max(), pitched=("ext",))
+    fits = h_block_load(ext)
+    if load is None:
+        load = fits
+    elif load not in LOADS:
+        raise ValueError(f"load must be one of {LOADS}, got {load!r}")
+    elif load == "tma" and fits != "tma":
+        raise ValueError(
+            f"the TMA load needs the circular block's rows padded to a "
+            f"multiple of 4 floats and a 16-byte aligned block; got strides "
+            f"{ext.stride()} at an address of {ext.data_ptr() % 16} mod 16")
     if out.device.type == "cpu":
         return h_block_plain(ext, out, k, with_residual, origin=origin,
                              grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
+    return _launch_h(ext, out, k, with_residual, load,
+                     p.hc_launch(out.shape, k), origin=origin,
+                     grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
+
+
+def _launch_h(ext, out, k, with_residual, load, launch, *, origin,
+              grid_shape, cx, cy, cz) -> Optional[torch.Tensor]:
+    """Kernel H's launch under ``load`` at ``launch`` ``(block, rows,
+    prefetch, segment)`` (:meth:`~.hopper_params.HopperParams.hc_launch`;
+    the sweep passes others). Checks nothing; counts the launch."""
+    (lanes, warps), rows, prefetch, seg = launch
     return _launch("heat_h_block_3d", (ext,), out, k, with_residual,
                    origin=origin, grid_shape=grid_shape, cx=cx, cy=cy, cz=cz,
-                   mid=halos, geometry=_geometry(out.shape, k, bx))
+                   mid=halos_of(out.shape, grid_shape, k) + (ext.stride(1),),
+                   geometry=(lanes, warps, rows, seg, prefetch,
+                             int(load == "tma")))
 
 
 def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
@@ -435,15 +516,18 @@ def pick_block_temporal_3d(block_shape, k: int):
     if choice == "torch":
         return "torch", None
     p = params()
-    if not 1 <= k <= min(p.h_k_max(), *block_shape):
+    k_max = p.hc_k_max() if choice == "H" else p.h_k_max()
+    if not 1 <= k <= min(k_max, *block_shape):
         raise ValueError(
             f"tune[block_temporal_3d]: choice {choice!r} is infeasible for "
             f"blocks {tuple(block_shape)} at K={k} (K must be in [1, "
-            f"{p.h_k_max()}] and at most the smallest block extent)")
+            f"{k_max}] and at most the smallest block extent)")
+    if choice == "H":
+        (lanes, warps), rows, _ = p.hc_shape(k)
+        return choice, {"k": k, "block": (lanes, warps), "rows": rows,
+                        "kernel": KERNEL_OF[choice]}
     detail = {"k": k, "block": p.h_block, "rows": p.h_rows,
-              "kernel": KERNEL_OF[choice]}
-    if choice != "H":
-        detail["load"] = h_load(block_shape, k)
+              "kernel": KERNEL_OF[choice], "load": h_load(block_shape, k)}
     return choice, detail
 
 

@@ -30,7 +30,9 @@ spans the grid along it. A neighbour that does not exist gives zeros, as
 depth, and the slots no neighbour fills are never written. Each round
 writes the rest with ``copy_`` into slices; nothing in the round loop
 concatenates. The circular block kernel H reads
-(:meth:`DeepExchange3D.assemble_circular`) and the padded block of the
+(:meth:`DeepExchange3D.assemble_circular`, into a buffer whose rows are
+padded to a multiple of 4 floats, :meth:`DeepExchange3D.new_circular`,
+so that its planes load by TMA) and the padded block of the
 textbook rounds (:meth:`~DeepExchange3D.assemble_padded_lead`,
 :meth:`~DeepExchange3D.assemble_padded_rows`) are assembled from these
 pieces.
@@ -74,6 +76,7 @@ class DeepExchange3D:
         hx, hy, hz = self.halos
         ye, ze = by + 2 * hy, bz + 2 * hz
         self.circular_shape = (bx + 2 * hx, ye, ze)
+        self.device, self.dtype = device, dtype
         size = mesh.size
 
         def buffers(on, shape):
@@ -156,6 +159,17 @@ class DeepExchange3D:
     def pieces(self, b: int):
         """``(ztail, ytail, xlo, xhi)`` of block ``b``."""
         return self.ztail[b], self.ytail[b], self.xlo[b], self.xhi[b]
+
+    def new_circular(self) -> torch.Tensor:
+        """A zeroed buffer for one circular block: a view of
+        :attr:`circular_shape` whose rows are padded to a multiple of 4
+        floats (``hopper_params.hc_pitch``), so that kernel H can encode a
+        tensor map over it; the pad cells are never read."""
+        from parallel_heat_tpu_torch.ops.hopper_params import params
+
+        x, y, z = self.circular_shape
+        return torch.zeros((x, y, params().hc_pitch(z)), dtype=self.dtype,
+                           device=self.device)[..., :z]
 
     def assemble_circular(self, b: int, u: torch.Tensor,
                           ext: torch.Tensor) -> None:
@@ -245,8 +259,7 @@ def cuda_round_3d(xch: DeepExchange3D, kind: str, mode: str, *, grid_shape,
                                                     mode)
     origins = [mesh.origin(b, bs) for b in range(mesh.size)]
     kw = dict(grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
-    exts = ([torch.zeros(xch.circular_shape, dtype=torch.float32,
-                         device=mesh.device) for _ in range(mesh.size)]
+    exts = ([xch.new_circular() for _ in range(mesh.size)]
             if kind == "H" else None)
 
     def fn(us, vs, want_res):

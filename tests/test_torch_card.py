@@ -584,11 +584,13 @@ def test_sharded_solve_on_the_card_matches_one_block_bitwise(card, cfg):
 # The sharded 3D block kernels (H family) and the sharded 3D path
 # ---------------------------------------------------------------------------
 
-# (40, 128, 128) holds tiles inside it (the TMA load) at every K.
+# (40, 128, 128) holds tiles inside it (H-fused's TMA load) at every K;
+# H's boxed tiles run on it, on (20, 128, 252) and on the z-free mesh.
 H_CASES = [((2, 2, 2), (64, 64, 64), 3), ((3, 3, 3), (37, 45, 80), 8),
            ((2, 4, 1), (40, 33, 97), 1), ((1, 2, 2), (50, 30, 40), 5),
            ((2, 2, 2), (6, 50, 70), 3), ((2, 2, 2), (40, 128, 128), 3),
-           ((2, 2, 2), (40, 128, 128), 1)]
+           ((2, 2, 2), (40, 128, 128), 1), ((3, 3, 3), (20, 128, 252), 8),
+           ((2, 4, 1), (40, 128, 96), 5)]
 
 
 @pytest.mark.parametrize("coeffs", [(0.1, 0.1, 0.1), (0.1, 0.15, 0.05)])
@@ -605,6 +607,9 @@ def test_h_kernels_bitwise_plain_each_other_and_f(card, mesh_shape, block, k,
     us = mesh.split(g)
     pieces = temporal3d.exchange_halos_fused_3d(mesh, us, k)
     circ = temporal3d.exchange_halos_circular_3d(mesh, us, k)
+    xch = temporal3d.DeepExchange3D(mesh, block, k, card)
+    xch.lead(us)
+    xch.last(us)
     kw3 = dict(zip(("cx", "cy", "cz"), coeffs))
     f_out = torch.empty_like(g)
     sk3.xslab_steps_3d(g, f_out, k, **kw3)
@@ -622,11 +627,18 @@ def test_h_kernels_bitwise_plain_each_other_and_f(card, mesh_shape, block, k,
                                    **kw)
             assert torch.equal(got, ref) and torch.equal(r, rp), load
             assert torch.equal(got, want), load
-        h, hp = (torch.empty(block, device=card) for _ in range(2))
-        rh = skb3.h_block(circ[b], h, k, **kw)
+        # H on the contiguous circular block and on the padded one the
+        # round assembles, under each load.
+        padded = xch.new_circular()
+        xch.assemble_circular(b, us[b], padded)
+        hp = torch.empty(block, device=card)
         rhp = skb3.h_block_plain(circ[b], hp, k, **kw)
-        assert torch.equal(h, hp) and torch.equal(rh, rhp)
-        assert torch.equal(h, want) and torch.equal(rh, r)
+        for ext, load in ((circ[b], None), (padded, "cp.async"),
+                          (padded, "tma")):
+            h = torch.full(block, float("nan"), device=card)
+            rh = skb3.h_block(ext, h, k, load=load, **kw)
+            assert torch.equal(h, hp) and torch.equal(rh, rhp), load
+            assert torch.equal(h, want) and torch.equal(rh, r), load
         if mesh_shape[0] > 1 and block[0] >= 2 * k:
             zt, yt, _, _ = pieces[b]
             split = torch.full(block, float("nan"), device=card)
@@ -637,11 +649,33 @@ def test_h_kernels_bitwise_plain_each_other_and_f(card, mesh_shape, block, k,
             assert torch.equal(torch.maximum(rb, rf), r)
 
 
+def test_h_cases_run_every_tile_kind(card):
+    """The blocks of :data:`H_CASES`, which the test above runs under both
+    loads, hold every kind of kernel H's tiles
+    (``hopper_params.hc_tile_kinds``): boxed and wrapped, inside the
+    global interior and at its edge, past each side of a block, ragged,
+    and with a partial last group."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    seen = {}
+    for mesh_shape, block, k in H_CASES:
+        grid = tuple(m * b for m, b in zip(mesh_shape, block))
+        mesh = HeatMesh(mesh_shape)
+        halos = skb3.halos_of(block, grid, k)
+        for b in range(mesh.size):
+            for kind, n in params().hc_tile_kinds(
+                    block, k, halos, mesh.origin(b, block), grid).items():
+                seen[kind] = seen.get(kind, 0) + n
+    assert seen and all(seen.values()), seen
+
+
 @pytest.mark.parametrize("cfg,force", [
     (dict(nx=256, ny=256, nz=256, steps=101, mesh_shape=(2, 2, 2)), None),
     (dict(nx=128, ny=128, nz=96, steps=50, mesh_shape=(2, 4, 1),
           halo_overlap="phase"), None),
     (dict(nx=128, ny=128, nz=128, steps=41, mesh_shape=(2, 2, 2)), "H"),
+    (dict(nx=96, ny=256, nz=132, steps=23, mesh_shape=(2, 4, 1)), "H"),
     (dict(nx=128, ny=128, nz=128, steps=41, mesh_shape=(2, 2, 2)),
      "H-defer"),
     (dict(nx=64, ny=64, nz=64, steps=30, mesh_shape=(2, 2, 2),

@@ -25,7 +25,11 @@ prints the card's name and power limit, then one JSON line per phase:
    ``heat_probe_ab_temporal``, ``heat_probe_split_copy``,
    ``heat_probe_gather_dma``, ``heat_probe_sweep_width``,
    ``heat_probe_store_align``, ``heat_probe_roll_pad``,
-   ``heat_probe_xslab_overlap``, built here too);
+   ``heat_probe_xslab_overlap``, built here too), nor any of I's and
+   I-uni's instances below K = 8, and their K = 8 instances may not
+   spill more than ``I_SPILL_K8`` (the registers, spills and blocks an SM
+   of the instance a forced run launches are printed, with the instances
+   that spill);
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -55,7 +59,14 @@ prints the card's name and power limit, then one JSON line per phase:
    {1, 9, 20} on 4099x7 (one column of tiles 7 wide), the grids between
    them asserted to run every tile kind of A's step phase and exchange
    (``hopper_params.a_tile_kinds``); and at K = 20 at every halo depth
-   1 .. 8 on 1000^2 at the tile the picker takes for it. Last a
+   1 .. 8 on 1000^2 at the tile the picker takes for it. I and I-uni
+   also at every K 1 .. 8, against K launches of B, their plain versions
+   and E(K), on 1001x1000, 1001x999, 37x257, 40x50 (narrower than one
+   band), 3x8, 3x300, 200x132 and the main path's 16384^2, every K's
+   grids asserted to run every kind of band and segment of their stream
+   (``hopper_params.i_band_kinds``: interior, first, last and partial
+   bands, I's 16-byte copy refused on a row, idle warps, segments with
+   test-free rows and segments at the grid's first or last row). Last a
    NaN-seeded grid, which must give a NaN residual from every kernel
    with the boundary intact;
 2b. kernels_3d — D (``heat_d_step3d``) against its plain version and F
@@ -469,6 +480,25 @@ ROOF_PASSES = 64         # the roofline's kernels-line launch: 64 passes
 RECORD_INSTANCES = {"heat_probe_xslab_overlap": ("3, true", "3, false")}
 TEMPORAL = ("heat_e_temporal", "heat_e_uni_temporal", "heat_i_tile_temporal",
             "heat_i_uni_tile_temporal")
+# I's and I-uni's check grids, each at every K (the coefficient pairs):
+# widths no multiple of 4 (I only) over three bands, a grid narrower than
+# one band, 3 x 8, m = 3, several segments and the main path's 16384^2;
+# every K's grids together run each kind of band and segment of
+# I_BAND_KINDS (hopper_params.i_band_kinds).
+_EQ = {"cx": CX, "cy": CY}
+_UNEQ = {"cx": UNEQUAL[0], "cy": UNEQUAL[1]}
+I_PLAN = (((1001, 1000), (_EQ, _UNEQ)), ((1001, 999), (_EQ, _UNEQ)),
+          ((37, 257), (_UNEQ,)), ((40, 50), (_UNEQ,)), ((3, 8), (_UNEQ,)),
+          ((3, 300), (_UNEQ,)), ((200, 132), (_UNEQ,)),
+          ((BIG, BIG), (_EQ,)))
+I_BAND_KINDS = ("interior", "first", "last", "partial", "unaligned", "idle",
+                "free_rows", "edge_rows")
+# The spill of I's and I-uni's K = 8 instances at 128 registers: ptxas's
+# bytes of (stores, loads), at most. PERF.md §6 (I and I-uni) has where
+# the words are read and what they cost; the build phase fails if they
+# grow.
+I_SPILL_K8 = {"heat_i_tile_temporal": (84, 124),
+              "heat_i_uni_tile_temporal": (68, 92)}
 
 
 class SmokeFailure(RuntimeError):
@@ -606,6 +636,34 @@ def phase_build():
                            for inst, row in rows.items()
                            if inst not in RECORD_INSTANCES.get(name, ())),
               f"an instance of {name} spills or none is reported: {rows}")
+    # Nor any instance of I or I-uni below K = 8. At K = 8 both park a few
+    # words in local memory; their test-free loop reads one of them every
+    # 3 rows (I-uni) or four (I), the checked loops more (PERF.md §6 has
+    # what it costs); that spill may not grow past I_SPILL_K8.
+    # Printed: their registers and spills, and the blocks an SM of the
+    # instance a forced run launches.
+    i_main = {}
+    for name in ("heat_i_tile_temporal", "heat_i_uni_tile_temporal"):
+        rows = ptxas[name]
+        below = {i: row for i, row in rows.items() if int(i) < 8}
+        check(len(below) == 7 and all(row[1] == 0 and row[2] == 0
+                                      for row in below.values()),
+              f"an instance of {name} below K = 8 spills or is missing: "
+              f"{rows}")
+        deep = rows.get("8")
+        check(deep is not None and deep[1] <= I_SPILL_K8[name][0]
+              and deep[2] <= I_SPILL_K8[name][1],
+              f"{name}<8> spills more than {I_SPILL_K8[name]} bytes "
+              f"(stores, loads) or is missing: {deep}")
+        inst = f"{hp.i_k_default}"
+        check(inst in rows, f"{name}<{inst}> missing from the ptxas report")
+        i_main[name] = {"instance": inst, "registers": rows[inst][0],
+                        "spill_stores": rows[inst][1],
+                        "spilling": [i for i, row in rows.items() if row[1]],
+                        "warps": hp.i_warps, "rows": hp.i_rows,
+                        "stages": hp.i_stages,
+                        "blocks_per_sm": sk.i_occupancy(name,
+                                                        hp.i_k_default)}
     emit({"phase": "build", "seconds": seconds,
           "a_and_m_instances": resident, "probe_instances": probes,
           "band_instances": band,
@@ -617,7 +675,7 @@ def phase_build():
                           "spill_stores": h_row[1],
                           "blocks_per_sm": skb3.h_occupancy(
                               hp.h_k_default)},
-          "main_path_g": g_main,
+          "main_path_g": g_main, "forced_i": i_main,
           "spilling_instances": spilling, "ptxas": ptxas})
 
 
@@ -712,6 +770,27 @@ def _check_e_pair(sk, u, k, kw, err):
     check(torch.equal(got, want) and same_float(r, rw),
           f"heat_e_uni_temporal(K={k}) at {tuple(u.shape)} {kw} != "
           f"heat_e_temporal")
+
+
+def _check_i(sk, u, k, kw, err):
+    """I and, where the width allows it, I-uni at depth ``k``: each
+    against k launches of B and its plain version, with and without the
+    residual, and against E(k), grid and residual."""
+    import torch
+
+    want = torch.empty_like(u)
+    rw = sk.temporal_steps(u, want, k, True, **kw)
+    for name, launch in (("heat_i_tile_temporal", sk.tile_temporal_steps),
+                         ("heat_i_uni_tile_temporal",
+                          sk.tile_temporal_steps_uni)):
+        if "uni" in name and u.shape[1] % 4:
+            continue
+        _check_multi(sk, name, u, k, kw, err)
+        got = torch.full_like(u, float("nan"))
+        r = launch(u, got, k, True, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and same_float(r, rw),
+              f"{name}(K={k}) at {tuple(u.shape)} {kw} != heat_e_temporal")
 
 
 def phase_kernels(dev):
@@ -824,6 +903,40 @@ def phase_kernels(dev):
                            if params().uni_fits(shape) else []),
                        "k": every_k, "tile_kinds": kinds, "bitwise": True})
         del u
+    # I and I-uni at every K on grids chosen for the kinds of band and
+    # segment of their stream (csrc/heat_i_loop.cuh), and on the main
+    # path's 16384^2: each against K launches of B, its plain version and
+    # E(K); every K's grids together run every kind
+    # (hopper_params.i_band_kinds).
+    i_kinds = {}
+    for shape, coeffs in I_PLAN:
+        u = torch.from_numpy(
+            (rng.standard_normal(shape) * 10).astype(np.float32)).to(dev)
+        kinds = {}
+        for k in range(1, params().i_k_max + 1):
+            kinds[k] = params().i_band_kinds(shape, k)
+            for kind, count in kinds[k].items():
+                i_kinds.setdefault(k, {}).setdefault(kind, 0)
+                i_kinds[k][kind] += count
+            for kw in coeffs:
+                _check_i(sk, u, k, kw, err)
+        report.append({"shape": list(shape), "coeffs": coeffs,
+                       "temporal": [n for n in TEMPORAL if "_i" in n
+                                    and ("uni" not in n
+                                         or params().uni_fits(shape))],
+                       "k": list(kinds), "band_kinds": kinds,
+                       "bitwise": True, "vs_e": True})
+        del u
+        torch.cuda.empty_cache()
+    for k, kinds in i_kinds.items():
+        check(all(kinds[kind] for kind in I_BAND_KINDS),
+              f"I's check grids at K={k} run no band or segment of some "
+              f"kind: {kinds}")
+    big = params().i_band_kinds((BIG, BIG), params().i_k_default)
+    check(all(big[kind] for kind in ("interior", "first", "last",
+                                     "partial", "free_rows", "edge_rows")),
+          f"16384^2 runs no band or segment of some kind: {big}")
+    report.append({"i_band_kinds": i_kinds})
     # A diverging grid: one NaN in the interior.
     u = torch.from_numpy(
         (rng.standard_normal((515, 776)) * 10).astype(np.float32)).to(dev)
@@ -1411,6 +1524,10 @@ def _bound(nbytes, ops):
 # section 6).
 E_EARLIER_MS = 2.759
 E_UNI_EARLIER_MS = 2.522
+# ... and of I and I-uni before their band stream moved onto a warp's
+# lanes (the column walk, a thread a column; the same card and section).
+I_EARLIER_MS = 3.292
+I_UNI_EARLIER_MS = 3.183
 
 
 def phase_timing(dev):
@@ -1502,6 +1619,9 @@ def phase_timing(dev):
     rows["heat_e_temporal"]["earlier_design_device_ms"] = E_EARLIER_MS
     rows["heat_e_uni_temporal"]["earlier_design_device_ms"] = \
         E_UNI_EARLIER_MS
+    rows["heat_i_tile_temporal"]["earlier_design_device_ms"] = I_EARLIER_MS
+    rows["heat_i_uni_tile_temporal"]["earlier_design_device_ms"] = \
+        I_UNI_EARLIER_MS
     # E-uni's K ladder, its device ms at K = 4, 6, 8: the slope is a step,
     # the intercept the launch's fixed share (its tiles' load and last
     # store, and the launch).
@@ -4041,7 +4161,8 @@ def phase_audit(dev):
     in-range offset; the seeded variants in ptxas's report and refused by
     the launcher); every instance's static shared memory within
     ``static_smem_bytes``; each plan's blocks an SM against the
-    occupancy exports of E, E-uni, F, G-uni, G-fuse, H-fused and H at their
+    occupancy exports of E, E-uni, F, G-uni, G-fuse, H-fused, H, I and
+    I-uni at their
     main-path geometries (registers from ptxas); and the record variants
     of E-uni (16384^2, K = 8) and F (512^3, K = 3, both loads): each
     audited block's loads equal the plan's, the grid bitwise the
@@ -4128,6 +4249,7 @@ def phase_audit(dev):
     h_block = (SHARD3_N // 2,) * 3
     h_load = skb3.h_load(h_block, hp.h_k_default)
     g_block = (SHARD_N // SHARD_MESH[0], SHARD_N // SHARD_MESH[1])
+    i_inst = f"{hp.i_k_default}"
     occ = {}
     for label, plan, name, inst, export in (
             ("E", ap.plan_e((BIG, BIG), hp.e_k_default), "heat_e_temporal",
@@ -4165,7 +4287,15 @@ def phase_audit(dev):
              "heat_h_block_3d",
              f"heat_h_block_3d_kernel<{hp.h_k_default}, "
              f"{hp.hc_shape(hp.h_k_default)[1]}>",
-             lambda: skb3.h_occupancy(hp.h_k_default))):
+             lambda: skb3.h_occupancy(hp.h_k_default)),
+            ("I", ap.plan_i((BIG, BIG), hp.i_k_default),
+             "heat_i_tile_temporal", f"heat_i_tile_temporal_kernel<{i_inst}>",
+             lambda: sk.i_occupancy("heat_i_tile_temporal", hp.i_k_default)),
+            ("I-uni", ap.plan_i((BIG, BIG), hp.i_k_default, uni=True),
+             "heat_i_uni_tile_temporal",
+             f"heat_i_uni_tile_temporal_kernel<{i_inst}>",
+             lambda: sk.i_occupancy("heat_i_uni_tile_temporal",
+                                    hp.i_k_default))):
         r = regs(name, inst)
         mine, theirs = ak.blocks_per_sm(plan, r), export()
         occ[label] = {"registers": r, "plan": mine, "export": theirs}

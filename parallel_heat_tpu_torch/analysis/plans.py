@@ -190,8 +190,8 @@ def _sched_tma_once(box_bytes, expect, coords, slot="src", bar="bar"):
 
 def _sched_ring_groups(t0, t1, prefetch, slots, fill):
     """A ring of ``slots`` fed ``prefetch`` rows or planes ahead by
-    cp.async commit groups, one group an iteration (``heat_band.cuh``
-    :110-139, ``heat_temporal3d.cuh`` heat_t3d_stream). ``fill(slot, t)``
+    cp.async commit groups, one group an iteration (``heat_temporal3d.cuh``
+    heat_t3d_stream). ``fill(slot, t)``
     gives the copies of input ``t``."""
     ev = []
     for i in range(prefetch):
@@ -614,49 +614,104 @@ def plan_prolong(coarse, fine, batch=1) -> Plan:
 # I and I-uni: column bands streamed down the grid
 # ---------------------------------------------------------------------------
 
+def _sched_stages(n_stages, stages, fill, count):
+    """A warp's ring of ``stages`` stages, an mbarrier each, filled ahead;
+    a stage is refilled a few rows into the next one, once its last row
+    has been read for the last time (``heat_i_loop.cuh`` HeatIBand::run
+    and level0). ``fill(slot, bar, q)`` gives the events of stage ``q``."""
+    ev = [("mbar_init", f"full{i}", count) for i in range(stages)]
+    for q in range(min(stages, n_stages)):
+        ev += fill(f"ring{q}", f"full{q}", q)
+    for q in range(n_stages):
+        slot = q % stages
+        ev.append(("wait", f"full{slot}", (q // stages) & 1))
+        ev.append(("read", f"ring{slot}"))
+        if q > 0 and q - 1 + stages < n_stages:
+            prev = (q - 1) % stages
+            ev += fill(f"ring{prev}", f"full{prev}", q - 1 + stages)
+    return ev
+
+
 def plan_i(shape, k, uni=False) -> Plan:
-    """Kernel I (``heat_i_tile_temporal``) or I-uni: bands of
-    ``i_launch``'s columns, a ring of ``kBandPrefetch + 2`` input rows fed
-    4 rows ahead (``heat_band.cuh``)."""
+    """Kernel I (``heat_i_tile_temporal``) or I-uni at depth ``k`` on an
+    ``(m, n)`` grid, at ``i_launch``'s segments and the ``i_*`` defaults
+    (``heat_i_loop.cuh``). A warp streams one band of 128 columns, so a
+    span along the columns is one warp's band; a block holds ``i_warps``
+    of them side by side, each warp on its own ring of ``i_stages``
+    stages of ``i_rows`` rows with an mbarrier a stage (the slots here
+    are the block's last warp's, the highest offsets). I-uni fills a
+    stage with one TMA box of rows x 128 floats from a 2D map of the
+    grid (``expect_tx`` by one lane); I with each lane's own copies,
+    every copy tested against the grid (a 16-byte copy where the lane's
+    cells lie inside on a 16-byte boundary, a run-time choice; else 4
+    bytes a cell, zero-filled), and every lane's
+    ``cp.async.mbarrier.arrive.noinc``."""
     p = _p()
     m, n = shape
     tile_x, seg = p.i_launch(tuple(shape), k)
-    w = tile_x + 2 * k
-    prefetch, slots = 4, 6                  # kBandPrefetch, kBandSlots
+    pad = p.i_pad(k)
+    warps, rows, stages = p.i_warps, p.i_rows, p.i_stages
     n_bands, n_seg = _ceil(n, tile_x), _ceil(m, seg)
+    stage_f = rows * 128
+    stage_bytes = 4 * stage_f
 
-    def rows(i):
+    def n_stages(r0, r1):
+        return _ceil((r1 - r0) + 2 * k, rows)
+
+    def segs(i):
         r0, r1 = i * seg, min(i * seg + seg, m)
-        return Span((r0, r1), {"row": (r0 - k, r1 - r0 + 2 * k, (0, m))},
-                    (r1 - r0 + 2 * k,))
+        ext = n_stages(r0, r1) * rows
+        return Span((r0, r1), {"row": (r0 - k, ext, None if uni
+                                       else (0, m))},
+                    (r1 - r0, r0 - k < 1, r0 + ext - k > m - 1))
 
-    def cols(b):
-        gx0 = b * tile_x - k
-        aligned = (uni and gx0 >= 0 and gx0 + w <= n and gx0 % 4 == 0
-                   and n % 4 == 0 and w % 4 == 0)
+    def bands(b):
+        gx0 = b * tile_x - pad
         write = (b * tile_x, min(b * tile_x + tile_x, n))
-        return Span(write, {"row": (gx0, w, None if aligned else (0, n))},
-                    (aligned,))
+        return Span(write, {"row": (gx0, 128, None if uni else (0, n))},
+                    (gx0 < 1, gx0 + 128 > n - 1,
+                     write[1] - write[0] < tile_x))
 
     def schedule(spans):
-        r0 = spans[0].write[0]
-        t0, t1 = r0 - k, spans[0].write[1] + k
-        return _sched_ring_groups(t0, t1, prefetch, slots,
-                                  lambda slot, t: [("cp_async", slot, 4 * w)])
+        r0, r1 = spans[0].write
+        gx0 = spans[1].reads["row"][0]
+        if uni:
+            def fill(slot, bar, q):
+                return [("expect_tx", bar, stage_bytes),
+                        ("tma", slot, bar, stage_bytes,
+                         (gx0, r0 - k + q * rows), 0)]
+            count = 1
+        else:
+            def fill(slot, bar, q):
+                return [("cp_async", slot, stage_bytes,
+                         (gx0, r0 - k + q * rows)),
+                        ("cp_async_arrive_noinc", bar, 32)]
+            count = 32
+        return _sched_stages(n_stages(r0, r1), stages, fill, count)
 
+    last = (warps - 1) * stages * stage_bytes
+    slot_map = {f"ring{i}": (last + i * stage_bytes, stage_bytes)
+                for i in range(stages)}
+    slot_map["bars"] = (warps * stages * stage_bytes + 8 * (warps - 1)
+                        * stages, 8 * stages)
     name = "heat_i_uni_tile_temporal" if uni else "heat_i_tile_temporal"
     return Plan(
         kernel=name + "_kernel", entry=name,
         label=f"{'I-uni' if uni else 'I'} {m}x{n} K={k}",
-        grid=n_bands * n_seg, threads=w, max_threads=256,
-        dyn_smem=4 * (slots + 2 * (k - 1)) * w,
-        static_smem=p.static_smem_bytes,
+        grid=_ceil(n_bands, warps) * n_seg, threads=32 * warps,
+        max_threads=256,
+        dyn_smem=p.i_smem_bytes(warps, rows, stages),
+        static_smem=0,
         arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
-        axes=[Axis("segments", n_seg, rows), Axis("bands", n_bands, cols)],
-        loads={"row": Load("cp16" if uni else "cp4", "u", "ring", 0, (0,),
-                           streamed=1)},
-        slots={f"ring{i}": (4 * i * w, 4 * w) for i in range(slots)},
-        cover=_full(shape), schedule=schedule)
+        axes=[Axis("segments", n_seg, segs), Axis("bands", n_bands, bands)],
+        loads={"row": Load("tma" if uni else "cp4", "u", "ring", 0, (128,),
+                           streamed=0 if uni else 1,
+                           box=(rows, 128) if uni else ())},
+        slots=slot_map, align_slack=128,
+        min_blocks_per_sm=p.i_blocks_per_sm, cover=_full(shape),
+        schedule=schedule,
+        int32=[("row or column in the loop (and I-uni's box coordinate)",
+                max(m, n) + 256)])
 
 
 # ---------------------------------------------------------------------------
@@ -1359,6 +1414,7 @@ def default_plans() -> List[Plan]:
     for uni in (False, True):
         out.append(plan_i(MAIN_2D, p.i_k_default, uni))
         out.append(plan_i((20, 24), 3, uni))
+    out.append(plan_i((1001, 999), 5))
     out.append(plan_d(F_SHAPE))
     out.append(plan_d((24, 20, 28)))
     for load in ("tma", "cp.async"):

@@ -1,9 +1,10 @@
-"""Time kernels A, B, E, D, F, M, the multigrid transfer kernels and the
-sharded block kernels G and H on the card over their launch shapes.
+"""Time kernels A, B, E, I, D, F, M, the multigrid transfer kernels and
+the sharded block kernels G and H on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
         [--a-sizes 256,1000,1859] [--size-3d 512]
-        [--only a,b,e,d,f,m,mg,g,band,h,hfused] [--reps 10] [--out FILE] [--sass DIR]
+        [--only a,b,e,i,d,f,m,mg,g,band,h,hfused] [--reps 10] [--out FILE]
+        [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
 (as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -30,7 +31,13 @@ both plane loads (TMA and cp.async, each shape checked on a 67 x 130 x
 204 grid and, for cp.async, a 67 x 130 x 201 one), with the blocks an
 SM the card holds (``occupancy``), then over X segments and prefetch
 depths at the fastest TMA shape a step. ``ms_per_step`` is
-the time per launch over the steps it advances. ``--only m`` sweeps
+the time per launch over the steps it advances. ``--only i`` sweeps
+kernels I and I-uni (a warp a band of 128 columns, its rows in a ring of
+stages) on the ``size`` plate: warps a block by rows a stage at K = 8,
+then segment rows, the ring's stages and every K at the fastest shape,
+each launch
+first checked bitwise on a ragged 1001 x 999 grid (I-uni: 1001 x 1000).
+``--only m`` sweeps
 kernel M on stacks of 64 members of 512^2 and of 128^2 (20 steps with
 the residuals, one converge window): the tilings of a member that
 ``hopper_params.m_tilings`` models as cheapest at halo depths 4 and 8
@@ -77,9 +84,11 @@ kernel F's instances at the default K the instructions, shuffles and
 shared-memory bytes per cell-step of its plane loop (``sass_f``), for
 kernel H's the same of each of its four plane loops (``sass_h``), for
 kernel A the same of each loop that steps cells and of its test-free
-inner step (``sass_a``);
+inner step (``sass_a``), for kernels I and I-uni at the default K the
+same of each loop that steps cells (``sass_i``);
 ``--turns TREE`` times the default paths' kernels (F under both
-loads, D, H-fused, H, E-uni, G-uni's bulk, A at 1000^2, M at 64 x
+loads, D, H-fused, H, E-uni, I and I-uni at K = 8 (events, and ``I
+device``, ``I-uni device`` by the profiler), G-uni's bulk, A at 1000^2, M at 64 x
 512^2, the transfer calls and kernels at 4098^2, 512^2 and 9^2, the
 512^2 implicit runs) in another checkout at TREE
 and in this one, in turns (TREE, this, this, TREE), each in its own
@@ -87,6 +96,11 @@ process, and prints the sharded 3D picks of both (``--turns-only``
 names the rows to time; only those are set up and built).
 ``--sass-same TREE`` builds every kernel in TREE and here and compares
 their machine code function by function.
+``--i-regcap DIR`` times I and I-uni in turns against a copy of this
+tree at DIR whose only change is their launch bound, one block an SM
+instead of two (255 registers a thread instead of 128), and prints the
+K = 8 instance's registers, spills and blocks an SM in both: what that
+instance's spill costs.
 ``--sass-of LIB`` reads one kernel's machine code from another tree's
 library instead (``python -m parallel_heat_tpu_torch.bench_kernels
 --sass DIR --sass-of
@@ -122,6 +136,10 @@ E_TILES = [(32, 112), (64, 112), (96, 112), (128, 112), (64, 128),
            (128, 128), (64, 240)]
 E_BLOCKS = [(32, 4), (32, 8), (32, 16)]
 E_KS = [4, 6, 8, 10, 12, 16]
+I_WARPS = [2, 4, 8]        # kernel I's warps a block (a band each)
+I_ROWS = [3, 4, 8]         # and input rows a ring stage
+I_STAGES = [2, 3, 4, 6]
+I_SEGMENTS = [48, 64, 72, 96, 128, 192, 288, 576, 1171]
 A_DEPTHS = [2, 4, 8]
 A_STEPS = 20
 A_BLOCKS = [(32, 16), (32, 8), (32, 4)]    # A's and M's, 32 lanes x warps
@@ -374,6 +392,79 @@ def sweep(size: int, reps: int):
                            "default": (tile == p.e_tile
                                        and block == p.e_block
                                        and k == p.e_k_default)}
+
+
+def sweep_i(size: int, reps: int):
+    """Yield one dict per launch of kernels I and I-uni on the ``size`` x
+    ``size`` plate: warps a block by rows a stage (I_WARPS, I_ROWS) under
+    both level schedules at K = 8 and the default segments, then at each
+    schedule's fastest shape the segment rows (I_SEGMENTS) and the
+    stages of the ring (I_STAGES) at K = 8, and every K 1 .. 8 at the
+    fastest of those. Each launch is first checked bitwise, grid and
+    residual, against the plain version on a ragged 1001 x 999 grid
+    (I-uni: 1001 x 1000) at its K; then timed with CUDA events (``ms``),
+    with the blocks an SM the card holds (``occupancy``)."""
+    p = params()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    small = {n: torch.from_numpy((rng.standard_normal((1001, w)) * 10)
+                                 .astype(np.float32)).to(dev)
+             for n, w in (("heat_i_tile_temporal", 999),
+                          ("heat_i_uni_tile_temporal", 1000))}
+    u = HeatPlate2D(size, size).init_grid(dev)
+    v = torch.empty_like(u)
+    bits = _bits(dev)
+    wants = {}
+
+    def one(name, k, warps, rows, stages, seg=None):
+        g = small[name]
+        if (name, k) not in wants:
+            want = torch.empty_like(g)
+            res = sk.tile_temporal_steps_plain(g, want, k, cx=CX, cy=CY)
+            wants[name, k] = (want, res)
+        want, res = wants[name, k]
+        out = torch.full_like(g, float("nan"))
+        launch = dict(warps=warps, rows=rows, stages=stages, name=name)
+        sk._launch_i(g, out, k, bits, CX, CY,
+                     seg or p.i_launch(tuple(g.shape), k, warps)[1],
+                     **launch)
+        ok = bool(torch.equal(out, want)
+                  and torch.equal(sk._residual_view(bits), res))
+        seg = seg or p.i_launch((size, size), k, warps)[1]
+        ms = time_ms(lambda: sk._launch_i(u, v, k, None, CX, CY, seg,
+                                          **launch), reps)
+        return {"kernel": name, "k": k, "warps": warps, "rows": rows,
+                "stages": stages, "segment": seg,
+                "smem_bytes": p.i_smem_bytes(warps, rows, stages),
+                "occupancy": sk.i_occupancy(name, k, warps, rows, stages),
+                "bitwise": ok, "ms": ms, "ms_per_step": ms / k,
+                "default": (k, warps, rows, stages, seg)
+                == (p.i_k_default, p.i_warps, p.i_rows, p.i_stages,
+                    p.i_launch((size, size), k)[1])}
+
+    def fastest(rows):
+        return min((r for r in rows if r["bitwise"]), key=lambda r: r["ms"],
+                   default=rows[0])
+
+    for name in small:
+        found = []
+        for warps in I_WARPS:
+            for rows in I_ROWS:
+                found.append(one(name, 8, warps, rows, p.i_stages))
+                yield found[-1]
+        best = fastest(found)
+        w, r = best["warps"], best["rows"]
+        for seg in I_SEGMENTS:
+            found.append(one(name, 8, w, r, p.i_stages, seg))
+            yield found[-1]
+        seg = fastest(found)["segment"]
+        for stages in I_STAGES:
+            if stages != p.i_stages:
+                found.append(one(name, 8, w, r, stages, seg))
+                yield found[-1]
+        st = fastest(found)["stages"]
+        for k in range(1, p.i_k_max):
+            yield one(name, k, w, r, st, seg)
 
 
 def sweep_3d(size: int, reps: int, only=("d", "f")):
@@ -1018,9 +1109,9 @@ def _sass_op(text: str) -> str:
 
 
 def _sass_counts(instrs, lo: int, hi: int) -> dict:
-    """Instructions, FMUL, FFMA, FADD, SHFL, LDS and bytes of shared
-    memory read or written in addresses ``[lo, hi)`` of ``[(address,
-    text)]``."""
+    """Instructions, FMUL, FFMA, FADD, SHFL, LDS, bytes of shared memory
+    read or written, and local loads and stores (LDL, STL: spilled
+    registers) in addresses ``[lo, hi)`` of ``[(address, text)]``."""
     ops = [_sass_op(t) for a, t in instrs if lo <= a < hi]
     shared = sum(int(m.group(2) or 32) // 8 for m in map(_SHARED.match, ops)
                  if m)
@@ -1030,7 +1121,9 @@ def _sass_counts(instrs, lo: int, hi: int) -> dict:
             "fadd": sum(op.startswith("FADD") for op in ops),
             "shfl": sum(op.startswith("SHFL") for op in ops),
             "lds": sum(op.startswith("LDS") for op in ops),
-            "shared_bytes": shared}
+            "shared_bytes": shared,
+            "ldl": sum(op.startswith("LDL") for op in ops),
+            "stl": sum(op.startswith("STL") for op in ops)}
 
 
 def sass_f_report(sass: str, k: int):
@@ -1065,10 +1158,11 @@ def sass_f_report(sass: str, k: int):
     return out
 
 
-def _plane_step(instrs, loop) -> dict:
+def _plane_step(instrs, loop, fmul_per_cell: int = 4) -> dict:
     """The plane loop ``loop`` (``(start, end, n)`` of :func:`sass_loops`)
     of a kernel on F's plane loop: its counts, and the step of one plane
-    on the test-free path as :func:`sass_f_report` finds it."""
+    on the test-free path as :func:`sass_f_report` finds it (a cell-step
+    ``fmul_per_cell`` FMUL: 4 in 3D, 3 in 2D)."""
     lo, hi = int(loop[0], 16), int(loop[1], 16)
     row = {"plane_loop": _sass_counts(instrs, lo, hi + 1)}
     for a, t in instrs:
@@ -1089,7 +1183,7 @@ def _plane_step(instrs, loop) -> dict:
             continue
         body = min(first, second, key=lambda c: c["instructions"])
         pre = _sass_counts(instrs, lo, a + 1)
-        cells = body["fmul"] / 4
+        cells = body["fmul"] / fmul_per_cell
         row["inner"] = body
         row["plane_overhead"] = pre
         row["inner_per_cell_step"] = {
@@ -1123,6 +1217,48 @@ def sass_h_report(sass: str, k: int):
                     "rows": int(inst.group(2)), "instructions": len(instrs),
                     "plane_loops": [dict(_plane_step(instrs, lp), at=lp[0])
                                     for lp in loops]})
+    return out
+
+
+_I_INSTANCE = re.compile(r"heat_i(?:_uni)?_tile_temporal_kernelILi(\d+)E")
+
+
+def sass_i_report(sass: str, k: int):
+    """Per instance of kernel I or I-uni at depth ``k`` in a ``cuobjdump
+    -sass`` listing: its size; each loop that steps cells (3 FMUL a
+    cell-step), with its instructions, shuffles, shared loads and bytes a
+    cell-step over the whole loop body (its waits and refills counted
+    once, as they lie in the body), and its local loads and stores
+    (spilled registers) in the body; ``step_per_cell_step``, those of the
+    loop with the fewest instructions a cell-step; and, where a loop
+    compiles its levels twice as the two sides of a branch (test-free
+    and checked), the test-free side as :func:`sass_f_report` finds it
+    (``branch_step``)."""
+    out = []
+    for chunk in re.split(r"(?=\n\s*Function : )", sass):
+        name = _FUNCTION.search(chunk)
+        inst = name and _I_INSTANCE.search(name.group(1))
+        if not inst or int(inst.group(1)) != k:
+            continue
+        instrs = [(int(a, 16), t) for a, t in _SASS_LINE.findall(chunk)]
+        loops = []
+        for lp in sass_loops(chunk):
+            lo, hi = int(lp[0], 16), int(lp[1], 16)
+            c = _sass_counts(instrs, lo, hi + 1)
+            if not c["fmul"]:
+                continue
+            cells = c["fmul"] / 3
+            loops.append({"at": lp[0], "instructions": c["instructions"],
+                          "cells": cells, "ldl": c["ldl"], "stl": c["stl"],
+                          "per_cell_step": {key: c[key] / cells for key in
+                                            ("instructions", "shfl", "lds",
+                                             "shared_bytes")},
+                          "branch_step": _plane_step(instrs, lp, 3)})
+        out.append({"instance": build.demangle(name.group(1)), "k": k,
+                    "instructions": len(instrs), "loops": loops,
+                    "step_per_cell_step": min(
+                        (lp["per_cell_step"] for lp in loops),
+                        key=lambda c: c["instructions"], default=None)})
     return out
 
 
@@ -1196,6 +1332,9 @@ def dump_sass(out_dir: str, libraries=None):
         if name == "heat_a_resident":
             for row in sass_a_report(sass):
                 print(json.dumps({"sass_a": row}), flush=True)
+        if name in ("heat_i_tile_temporal", "heat_i_uni_tile_temporal"):
+            for row in sass_i_report(sass, params().i_k_default):
+                print(json.dumps({"sass_i": row}), flush=True)
 
 
 # The kernels on the register-blocked tile loop (csrc/heat_temporal.cuh),
@@ -1326,13 +1465,22 @@ def turn_times(reps: int, only=None) -> dict:
         runs["H-fused"] = lambda: skb3.h_block_fused(us[b], *pieces, out, 3,
                                                      False, **hkw)
         runs["H"] = lambda: skb3.h_block(ext, out, 3, False, **hkw)
-    if wanted("E-uni", "E"):
+    if wanted("E-uni", "E", "I", "I-uni", "I device", "I-uni device"):
         grid = HeatPlate2D(TURN_PLATE, TURN_PLATE).init_grid(dev)
         grid_out = torch.empty_like(grid)
         runs["E-uni"] = lambda: sk.temporal_steps_uni(grid, grid_out, 8,
                                                       False, **kw2)
         runs["E"] = lambda: sk.temporal_steps(grid, grid_out, 8, False,
                                               **kw2)
+        # I and I-uni (pinned only) at K = 8: events, and the kernel's own
+        # time by the profiler.
+        runs["I"] = lambda: sk.tile_temporal_steps(grid, grid_out, 8, False,
+                                                   **kw2)
+        runs["I-uni"] = lambda: sk.tile_temporal_steps_uni(
+            grid, grid_out, 8, False, **kw2)
+        by_device["I device"] = (runs["I"], "heat_i_tile_temporal_kernel")
+        by_device["I-uni device"] = (runs["I-uni"],
+                                     "heat_i_uni_tile_temporal_kernel")
     if wanted("G-uni bulk", "G band round", "G band round device",
               "G round overlap", "G round phase"):
         g_mesh = HeatMesh(G_MESH, dev)
@@ -1473,6 +1621,73 @@ def turns(other: str, reps: int, only=None):
     yield {"picks": [r["picks"] for r in runs]}
 
 
+# Kernels I and I-uni compile under a launch bound of two blocks of
+# kIMaxThreads an SM (128 registers a thread); --i-regcap rebuilds them
+# under one block (255), so that the depth that spills at 128 registers
+# does not.
+I_BOUND = "__launch_bounds__(kIMaxThreads, 2)"
+I_BOUND_RELAXED = "__launch_bounds__(kIMaxThreads, 1)"
+
+
+def i_regcap_tree(dst: str) -> str:
+    """Copy this tree's port package to ``dst`` (emptied first) with
+    kernels I's and I-uni's launch bound relaxed to :data:`I_BOUND_RELAXED`,
+    nothing else changed; returns ``dst``."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(dst, os.path.basename(here))
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(here, pkg, ignore=shutil.ignore_patterns(
+        "build", "__pycache__"))
+    for name in ("heat_i_tile_temporal.cu", "heat_i_uni_tile_temporal.cu"):
+        path = os.path.join(pkg, "csrc", name)
+        with open(path) as fp:
+            src = fp.read()
+        if src.count(I_BOUND) != 1:
+            raise RuntimeError(f"{name}: expected one {I_BOUND}")
+        with open(path, "w") as fp:
+            fp.write(src.replace(I_BOUND, I_BOUND_RELAXED))
+    return dst
+
+
+def i_regcap(dst: str, reps: int):
+    """What the spill of I's and I-uni's deepest instance costs: both
+    kernels at 16384^2, K = 8, timed in turns (:func:`turns`, events and
+    the profiler's device time) against a copy of this tree whose only
+    change is the relaxed launch bound (:func:`i_regcap_tree`); then each
+    tree's registers, spill bytes and blocks an SM of the K = 8 instance
+    (ptxas; the blocks by ``analysis.kernels.blocks_per_sm`` of the
+    launch's plan)."""
+    from parallel_heat_tpu_torch.analysis import kernels as ak
+    from parallel_heat_tpu_torch.analysis import plans as ap
+
+    i_regcap_tree(dst)
+    yield from turns(dst, reps, ["I", "I-uni", "I device", "I-uni device"])
+    k = params().i_k_default
+    relaxed = os.path.join(dst, "parallel_heat_tpu_torch", "build")
+    for tree in ("this", "relaxed"):
+        for name, uni in (("heat_i_tile_temporal", False),
+                          ("heat_i_uni_tile_temporal", True)):
+            if tree == "this":
+                log = build.build_log(name)
+            else:
+                # The copy's one build of the kernel, by its turns.
+                log = "".join(open(os.path.join(relaxed, f)).read()
+                              for f in os.listdir(relaxed)
+                              if f.startswith(f"lib{name}-")
+                              and f.endswith(".log"))
+            row = next(r for r in build.ptxas_report(log)
+                       if r["instance"].endswith(f"<{k}>"))
+            yield {"i_regcap": name, "tree": tree, "k": k,
+                   "registers": row["registers"],
+                   "spill_stores": row["spill_stores"],
+                   "spill_loads": row["spill_loads"],
+                   "blocks_per_sm": ak.blocks_per_sm(
+                       ap.plan_i((TURN_PLATE, TURN_PLATE), k, uni),
+                       row["registers"])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=16384)
@@ -1481,8 +1696,8 @@ def main(argv=None) -> int:
     ap.add_argument("--size-3d", type=int, default=512,
                     help="cube edge for kernels D and F")
     ap.add_argument("--only", default="a,b,e,d,f",
-                    help="comma-separated kernels to sweep (a, b, e, d, f, "
-                         "m, mg, g, band, h, hfused)")
+                    help="comma-separated kernels to sweep (a, b, e, i, d, "
+                         "f, m, mg, g, band, h, hfused)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -1494,12 +1709,17 @@ def main(argv=None) -> int:
     ap.add_argument("--turns-only", default=None, metavar="NAMES",
                     help="with --turns: only these kernels (comma-separated "
                          "names of the turn table: F, F cp.async, D, "
-                         "H-fused, H, E-uni, E, G-uni bulk, G band round, "
+                         "H-fused, H, E-uni, E, I, I-uni, I device, I-uni "
+                         "device, G-uni bulk, G band round, "
                          "G band round device, G round overlap, G round "
                          "phase, converge 1000^2 2x4 s, A, M, restrict "
                          "N^2, prolong N^2 and their ' device' rows for N "
                          "in 4098, 512, 9, implicit 512^2 backward_euler "
                          "s, implicit 512^2 crank_nicolson s)")
+    ap.add_argument("--i-regcap", default=None, metavar="DIR",
+                    help="time I and I-uni in turns against a copy of this "
+                         "tree at DIR built under a launch bound of one "
+                         "block an SM (255 registers)")
     ap.add_argument("--turn-of", default=None, type=int,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sass-same", default=None, metavar="TREE",
@@ -1521,6 +1741,9 @@ def main(argv=None) -> int:
     if args.turns:
         for row in turns(args.turns, args.reps * 2, turns_only):
             print(json.dumps(row), flush=True)
+    if args.i_regcap:
+        for row in i_regcap(args.i_regcap, args.reps * 2):
+            print(json.dumps(row), flush=True)
     if args.sass_same:
         for row in sass_same(args.sass_same):
             print(json.dumps(row), flush=True)
@@ -1541,6 +1764,11 @@ def main(argv=None) -> int:
     if "a" in only:
         sizes = [int(x) for x in args.a_sizes.split(",")]
         for row in sweep_a(sizes, args.reps):
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    if "i" in only:
+        for row in sweep_i(args.size, args.reps):
+            row["size"] = args.size
             rows.append(row)
             print(json.dumps(row), flush=True)
     if only & {"d", "f"}:

@@ -7,50 +7,61 @@
 // in its storage-dtype form. The acc_f32 variant is not ported yet.
 //
 // Bound on the H100: a pass reads the grid once and writes it once for K
-// steps, plus the column halo and the rows recomputed where a segment
-// starts: about 8*(1+2K/TX)*(1+2K/L)/K bytes per cell-step through HBM
-// for bands of TX columns and segments of L rows. Below that lies
-// instruction issue: 7 float32 operations per cell-step, two neighbour
-// reads and one write in shared memory, on (1+2K/TX)(1+2K/L) cells per
-// output cell.
+// steps, plus the column margin and the rows recomputed where a segment
+// starts: about 8*(128/TX)*(1+2K/L)/K bytes per cell-step through HBM for
+// bands of TX output columns and segments of L rows. Below that lies
+// instruction issue: 7 float32 operations per cell-step and half a
+// shuffle, on (128/TX)(1+2K/L) cells per output cell.
 //
 // Design: the TPU kernel runs kernel E's K-step sweeps under kernel C's
 // two-axis windows, (T, CW) tiles with row and column margins, so that a
 // grid too wide for E's full-width strips still gets K steps per fetch.
 // On the card heat_e_temporal already cuts 2D tiles with K-deep margins
 // on all four sides, so this kernel takes the other way to window both
-// axes: bands of columns with K-deep column margins, each streamed down
-// its rows with every level of the K steps in flight at once, so that no
-// row margin is recomputed except where a segment starts
-// (heat_band.cuh has the scheme).
+// axes: bands of 128 columns with column margins, each streamed down its
+// rows by one warp with every level of the K steps in flight at once in
+// the lanes' registers, so that no row margin is recomputed except where
+// a segment starts (heat_i_loop.cuh has the scheme). Its rows reach
+// shared memory by cp.async, each lane copying its own 4 cells (16 bytes
+// at once where they lie inside the grid on a 16-byte boundary), so that
+// it takes a grid of any width.
 
-#include "heat_band.cuh"
+#include "heat_i_loop.cuh"
 
 template <int K>
-__global__ void __launch_bounds__(256)
-heat_i_tile_temporal_kernel(const float* __restrict__ u,
-                            float* __restrict__ out, uint32_t* res, int64_t m,
-                            int64_t n, int64_t n_bands, int tile_x,
-                            int seg_rows, float a0, float cx, float cy) {
-  heat_band_run<K, false>(u, out, res, m, n, n_bands, tile_x, seg_rows, a0,
-                          cx, cy);
+__global__ void __launch_bounds__(kIMaxThreads, 2)
+heat_i_tile_temporal_kernel(const __grid_constant__ HeatIArgs args,
+                            const __grid_constant__ CUtensorMap map) {
+  heat_i_block<K, false>(args, &map);
 }
 
-static const HeatBandKernel kHeatIKernels[8] = {
-    heat_i_tile_temporal_kernel<1>, heat_i_tile_temporal_kernel<2>,
-    heat_i_tile_temporal_kernel<3>, heat_i_tile_temporal_kernel<4>,
-    heat_i_tile_temporal_kernel<5>, heat_i_tile_temporal_kernel<6>,
-    heat_i_tile_temporal_kernel<7>, heat_i_tile_temporal_kernel<8>};
+static const HeatIKernel kHeatIKernels[kIMaxK] = {
+    heat_i_tile_temporal_kernel<1>,
+    heat_i_tile_temporal_kernel<2>,
+    heat_i_tile_temporal_kernel<3>,
+    heat_i_tile_temporal_kernel<4>,
+    heat_i_tile_temporal_kernel<5>,
+    heat_i_tile_temporal_kernel<6>,
+    heat_i_tile_temporal_kernel<7>,
+    heat_i_tile_temporal_kernel<8>};
 
-// K steps of `u` into `out` as heat_band_launch says (heat_band.cuh).
+// K steps of `u` into `out` as heat_i_launch says (heat_i_loop.cuh).
 extern "C" int heat_i_tile_temporal(const float* u, float* out, uint32_t* res,
-                                    int64_t m, int64_t n, int k, int tile_x,
-                                    int seg_rows, int block_x, float a0,
-                                    float cx, float cy, void* stream) {
-  return heat_band_launch(kHeatIKernels, u, out, res, m, n, k, tile_x,
-                          seg_rows, block_x, a0, cx, cy, stream);
+                                    int64_t m, int64_t n, int k,
+                                    int64_t seg_rows, int warps, int rows,
+                                    int stages, float a0, float cx, float cy,
+                                    void* stream) {
+  return heat_i_launch<false>(kHeatIKernels, u, out, res, m, n, k, seg_rows,
+                              warps, rows, stages, a0, cx, cy, stream);
+}
+
+// Thread blocks of the kernel of depth k that one SM holds at once, into
+// *blocks (heat_i_occupancy). Returns a cudaError_t.
+extern "C" int heat_i_tile_temporal_occupancy(int k, int warps, int rows,
+                                              int stages, int* blocks) {
+  return heat_i_occupancy(kHeatIKernels, k, warps, rows, stages, blocks);
 }
 
 extern "C" const char* heat_i_tile_temporal_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return heat_tma_error_string(code);
 }

@@ -17,7 +17,7 @@
 // kFPrefetch planes in flight), and in the iteration that brings input plane t it advances
 // every level at once: level s (the grid after s steps) at plane t - s,
 // for s = 1 .. K, so level K comes out K planes behind the input. This is
-// kernel I's scheme (heat_band.cuh) with planes for rows:
+// kernel I's first scheme (a thread a column) with planes for rows:
 //   - a thread owns R consecutive rows of one z of the extended tile and
 //     keeps those cells' last three planes of levels 0 .. K-1 in
 //     registers, which give their X neighbours and, inside the thread,

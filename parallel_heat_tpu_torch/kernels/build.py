@@ -59,12 +59,14 @@ KERNELS = {
     "heat_e_uni_temporal": ("heat_e_uni_temporal.cu",
                             [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                              _I32, _I32, _F32, _F32, _F32, _P]),
+    # u, out, res, (m, n), k, segment rows, warps, rows a stage, stages,
+    # coefficients, stream
     "heat_i_tile_temporal": ("heat_i_tile_temporal.cu",
-                             [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
-                              _I32, _F32, _F32, _F32, _P]),
+                             [_P, _P, _P, _I64, _I64, _I32, _I64, _I32,
+                              _I32, _I32, _F32, _F32, _F32, _P]),
     "heat_i_uni_tile_temporal": ("heat_i_uni_tile_temporal.cu",
-                                 [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
-                                  _I32, _F32, _F32, _F32, _P]),
+                                 [_P, _P, _P, _I64, _I64, _I32, _I64, _I32,
+                                  _I32, _I32, _F32, _F32, _F32, _P]),
     "heat_d_step3d": ("heat_d_step3d.cu",
                       [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                        _F32, _F32, _F32, _F32, _P]),
@@ -156,7 +158,7 @@ TOOLS = {
     "heat_probe_fixture": ("heat_probe_fixture.cu",
                            [_I32, _P, _P, _P, _I64, _I32, _P]),
 }
-_COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_band.cuh",
+_COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_i_loop.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
            "heat_a.cuh", "heat_e_uni.cuh", "heat_probe_sweep.cuh",
            "heat_f.cuh", "heat_f_block.inc", "heat_mg.cuh")

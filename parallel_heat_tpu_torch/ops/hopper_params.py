@@ -15,6 +15,14 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+# Kernel I's launcher limits, fixed when its kernels compile
+# (csrc/heat_i_loop.cuh kIMaxWarps, kIMinRows, kIMaxRows, kIMaxStages):
+# warps a block, input rows a stage, stages a warp's ring.
+I_MAX_WARPS = 8
+I_MIN_ROWS = 3
+I_MAX_ROWS = 32
+I_MAX_STAGES = 8
+
 
 @dataclass(frozen=True)
 class HopperParams:
@@ -91,16 +99,27 @@ class HopperParams:
     e_min_blocks_per_sm: int = 2
 
     # --- kernels I and I-uni: heat_i_tile_temporal and
-    # heat_i_uni_tile_temporal (chosen) --------------------------------------
-    # One thread per band column, 128 threads (four warps) a block, so a
-    # band is 128 - 2K output columns at depth K (1 <= K <= 8, the
-    # kernels' range). Rows are cut into segments so that the launch
-    # holds about i_blocks_per_sm blocks per SM (2048 threads), but not
-    # below i_seg_rows_min rows: a segment recomputes 2K rows.
-    i_band_threads: int = 128
+    # heat_i_uni_tile_temporal (measured) ------------------------------------
+    # A warp streams one band of 128 columns (32 lanes of 4), so a band is
+    # 128 - 2 i_pad(K) output columns at depth K (1 <= K <= 8, the kernels'
+    # range); i_warps bands side by side make a block, and each warp's
+    # rows arrive in a ring of i_stages stages of i_rows rows
+    # (csrc/heat_i_loop.cuh). Rows are cut into segments so that the
+    # launch is i_waves waves of i_blocks_per_sm blocks an SM (the
+    # kernels' 128-register bound lets an SM hold 16 warps), but not below
+    # i_seg_rows_min rows: a segment recomputes 2K rows.
+    # The sweep (bench_kernels --only i, 16384^2, K = 8, NVIDIA H100 80GB
+    # HBM3 at 700 W) found 2 warps, stages of 4 rows, 2 or 3 stages and
+    # segments of 128 to 192 rows fastest: I-uni 1.047 ms, I 1.208 (4
+    # warps 1.126 and 1.301 at 72-row segments; one wave of 1171-row
+    # segments 1.385 and 1.621).
+    i_warps: int = 2
+    i_rows: int = 4
+    i_stages: int = 3
     i_k_default: int = 8
     i_k_max: int = 8
-    i_blocks_per_sm: int = 16
+    i_blocks_per_sm: int = 8
+    i_waves: int = 8
     i_seg_rows_min: int = 64
 
     # --- kernel C: heat_c_tiled (chosen) -----------------------------------
@@ -879,14 +898,93 @@ class HopperParams:
         multiple of 4 floats (E's tile width is one, by construction)."""
         return shape[1] % 4 == 0
 
-    def i_launch(self, shape, k):
+    @staticmethod
+    def i_pad(k: int) -> int:
+        """Kernel I's column margin at depth ``k``: ``k`` rounded up to a
+        whole group of 4 (``heat_i_pad``)."""
+        return (k + 3) // 4 * 4
+
+    def i_tile_x(self, k: int) -> int:
+        """Output columns of one of kernel I's bands at depth ``k``: the
+        warp's 128 columns less a margin each side (``heat_i_tile_x``)."""
+        return 128 - 2 * self.i_pad(k)
+
+    def i_takes(self, k: int, warps: int, rows: int, stages: int) -> bool:
+        """Does kernel I's launcher take depth ``k``, ``warps`` warps a
+        block and a ring of ``stages`` stages of ``rows`` rows
+        (``heat_i_geometry``)?"""
+        return (1 <= k <= self.i_k_max and 1 <= warps <= I_MAX_WARPS
+                and I_MIN_ROWS <= rows <= I_MAX_ROWS
+                and 2 <= stages <= I_MAX_STAGES)
+
+    @staticmethod
+    def i_smem_bytes(warps: int, rows: int, stages: int) -> int:
+        """Dynamic shared memory of one block of kernel I
+        (``heat_i_smem_bytes``): 128 bytes to align the rings, ``stages``
+        stages of ``rows`` rows of 128 floats a warp, an 8-byte mbarrier a
+        stage."""
+        return 4 * warps * stages * rows * 128 + 128 + 8 * warps * stages
+
+    def i_launch(self, shape, k, warps=None):
         """Kernel I's ``(band output columns, segment rows)`` at depth
-        ``k`` for an ``(m, n)`` grid."""
+        ``k`` for an ``(m, n)`` grid under ``warps`` warps a block
+        (``i_warps``): segments enough that the launch is ``i_waves``
+        waves of ``i_blocks_per_sm`` blocks on every SM, each at least
+        ``i_seg_rows_min`` rows."""
         m, n = shape
-        tile_x = self.i_band_threads - 2 * k
+        warps = warps or self.i_warps
+        tile_x = self.i_tile_x(k)
         bands = -(-n // tile_x)
-        segments = -(-self.sm_count * self.i_blocks_per_sm // bands)
+        col_blocks = -(-bands // warps)
+        blocks = self.sm_count * self.i_blocks_per_sm * self.i_waves
+        segments = max(1, blocks // col_blocks)
         return tile_x, max(self.i_seg_rows_min, -(-m // segments))
+
+    def i_band_kinds(self, shape, k: int) -> dict:
+        """How many warps of a launch of kernel I at depth ``k`` on an
+        ``(m, n)`` grid (``i_launch``'s geometry) run
+        each kind of band and segment: ``interior`` bands (their 128
+        columns inside the grid's interior: the test-free step), ``first``
+        and ``last`` bands (past the first or the last interior column),
+        ``partial`` bands (fewer output columns than a band holds),
+        ``unaligned`` bands (I's 16-byte copy refused on some row: the
+        width is no multiple of 4), ``idle`` warps (past the last band),
+        ``free_rows`` segments (some rows stepped test-free) and
+        ``edge_rows`` segments (their rows reach the grid's first or last
+        row). ``bands`` and ``segments`` count the launch."""
+        m, n = shape
+        warps = self.i_warps
+        tile_x, seg = self.i_launch(shape, k)
+        pad = self.i_pad(k)
+        bands = -(-n // tile_x)
+        segments = -(-m // seg)
+        kinds = dict.fromkeys(("interior", "first", "last", "partial",
+                               "unaligned", "idle", "free_rows",
+                               "edge_rows"), 0)
+        for b in range(bands):
+            gx0 = b * tile_x - pad
+            if gx0 >= 1 and gx0 + 128 <= n - 1:
+                kinds["interior"] += 1
+            if gx0 < 1:
+                kinds["first"] += 1
+            if gx0 + 128 > n - 1:
+                kinds["last"] += 1
+            if min(b * tile_x + tile_x, n) - b * tile_x < tile_x:
+                kinds["partial"] += 1
+            if n % 4:
+                kinds["unaligned"] += 1
+        kinds["idle"] = -(-bands // warps) * warps - bands
+        for i in range(segments):
+            r0, r1 = i * seg, min(i * seg + seg, m)
+            t0, n_iter = r0 - k, (r1 - r0) + 2 * k
+            i_a = min(max(k + 1 - t0, 0), n_iter)
+            i_b = min(max(m - t0, i_a), n_iter)
+            if i_b > i_a:
+                kinds["free_rows"] += 1
+            if i_a > 0 or i_b < n_iter:
+                kinds["edge_rows"] += 1
+        kinds.update(bands=bands, segments=segments)
+        return kinds
 
     def a_smem_bytes(self, tile, depth=None) -> int:
         """Dynamic shared memory of one A block at ``tile``: the tile

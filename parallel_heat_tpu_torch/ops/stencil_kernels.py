@@ -26,8 +26,9 @@ The port of the 2D single-device part of
 - :func:`tile_temporal_steps` launches ``heat_i_tile_temporal``
   (csrc/heat_i_tile_temporal.cu), the counterpart of
   ``heat_i_tile_temporal``: K steps per pass over column bands streamed
-  down the grid, and :func:`tile_temporal_steps_uni` launches its
-  uniform-load form ``heat_i_uni_tile_temporal``;
+  down the grid by one warp each (csrc/heat_i_loop.cuh), and
+  :func:`tile_temporal_steps_uni` launches its uniform-load form
+  ``heat_i_uni_tile_temporal``, its rows by TMA;
 - the ``*_plain`` functions compute the same functions in plain PyTorch,
   with :func:`~.stencil.combine_2d` in the kernels' operation order, so a
   kernel and its plain version agree bitwise on the card.
@@ -51,7 +52,8 @@ from typing import Optional
 import torch
 
 from parallel_heat_tpu_torch import tune
-from parallel_heat_tpu_torch.ops.hopper_params import params
+from parallel_heat_tpu_torch.ops.hopper_params import (
+    I_MAX_STAGES, I_MAX_ROWS, I_MAX_WARPS, I_MIN_ROWS, params)
 from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
 
 # Launches of each kernel and calls of each plain version, since the
@@ -324,20 +326,59 @@ def loop_occupancy(name: str, k: int, tile, block) -> int:
     return blocks.value
 
 
-def _launch_i(u, out, k, bits, cx, cy, tile_x, seg_rows, block_x,
-              name="heat_i_tile_temporal") -> None:
+def _launch_i(u, out, k, bits, cx, cy, seg_rows, warps=None, rows=None,
+              stages=None, name="heat_i_tile_temporal") -> None:
     """One launch of ``heat_i_tile_temporal`` (or, by ``name``, of
     ``heat_i_uni_tile_temporal``, which takes the same arguments) over
-    bands of ``tile_x`` columns and segments of ``seg_rows`` rows
-    (``bits`` None: no residual); raises if the launch is refused.
-    Checks nothing and counts nothing."""
+    bands of ``hopper_params.i_tile_x(k)`` columns, a warp each,
+    ``warps`` to a block, and segments of ``seg_rows`` rows, each warp's
+    rows in a ring of ``stages`` stages of ``rows`` rows (each
+    ``hopper_params``' ``i_*`` default where None; ``bits`` None: no
+    residual); raises if the launch is refused.
+    Checks only the launch shape
+    (:meth:`~.hopper_params.HopperParams.i_takes`, the launcher's own
+    rule); counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
+    p = params()
+    warps = warps or p.i_warps
+    rows = rows or p.i_rows
+    stages = stages or p.i_stages
+    if not p.i_takes(k, warps, rows, stages):
+        raise ValueError(f"{name}: the launcher does not take K={k}, "
+                         f"{warps} warps a block and a ring of {stages} "
+                         f"stages of {rows} rows (K 1 to {p.i_k_max}, 1 to "
+                         f"{I_MAX_WARPS} warps, {I_MIN_ROWS} to "
+                         f"{I_MAX_ROWS} rows, 2 to {I_MAX_STAGES} stages)")
     lib = load(name)
     code = getattr(lib, name)(
         u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0], u.shape[1],
-        k, tile_x, seg_rows, block_x, *coeffs_f32(cx, cy), _stream(u))
+        k, seg_rows, warps, rows, stages, *coeffs_f32(cx, cy), _stream(u))
     _raise_on_error(lib, name, code)
+
+
+def i_occupancy(name: str, k: int, warps=None, rows=None,
+                stages=None) -> int:
+    """Thread blocks of kernel ``name`` (``heat_i_tile_temporal`` or
+    ``heat_i_uni_tile_temporal``) that one SM of the current card holds
+    at once at depth ``k`` and the launch's warps and ring (the
+    ``hopper_params`` ``i_*`` defaults where None): the CUDA occupancy
+    calculator at the launch's shared memory, registers included. Builds
+    the kernel if needed."""
+    import ctypes
+
+    from parallel_heat_tpu_torch.kernels.build import load
+
+    p = params()
+    lib = load(name)
+    fn = getattr(lib, f"{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    code = fn(k, warps or p.i_warps, rows or p.i_rows, stages or p.i_stages,
+              ctypes.byref(blocks))
+    _raise_on_error(lib, name, code)
+    return blocks.value
 
 
 def resident_steps(u: torch.Tensor, out: torch.Tensor, k: int,
@@ -487,9 +528,8 @@ def _tile_temporal(name, plain, u, out, k, with_residual, cx, cy):
         raise ValueError("kernel I-uni needs a 16-byte aligned grid")
     bits = (torch.empty(1, dtype=torch.int32, device=u.device)
             if with_residual else None)
-    tile_x, seg_rows = p.i_launch(tuple(u.shape), k)
-    _launch_i(u, out, k, bits, cx, cy, tile_x, seg_rows, p.i_band_threads,
-              name)
+    _, seg_rows = p.i_launch(tuple(u.shape), k)
+    _launch_i(u, out, k, bits, cx, cy, seg_rows, name=name)
     counts[name] += 1
     return _residual_view(bits) if bits is not None else None
 
@@ -498,8 +538,9 @@ def tile_temporal_steps(u: torch.Tensor, out: torch.Tensor, k: int,
                         with_residual: bool = True, *, cx: float,
                         cy: float) -> Optional[torch.Tensor]:
     """Kernel I: ``k`` steps (at most 8) of ``u`` into ``out`` in one pass
-    through global memory, over column bands streamed down the grid;
-    bitwise the grid and residual of :func:`temporal_steps`."""
+    through global memory, over column bands of 128 columns each streamed
+    down the grid by one warp; bitwise the grid and residual of
+    :func:`temporal_steps`."""
     return _tile_temporal("heat_i_tile_temporal", tile_temporal_steps_plain,
                           u, out, k, with_residual, cx, cy)
 
@@ -507,9 +548,9 @@ def tile_temporal_steps(u: torch.Tensor, out: torch.Tensor, k: int,
 def tile_temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
                             with_residual: bool = True, *, cx: float,
                             cy: float) -> Optional[torch.Tensor]:
-    """Kernel I-uni: :func:`tile_temporal_steps` with a uniform,
-    vectorised load. Takes grids whose width is a multiple of 4
-    (ValueError otherwise)."""
+    """Kernel I-uni: :func:`tile_temporal_steps` with a uniform load, each
+    stage of a band's rows one TMA box of the grid. Takes grids whose
+    width is a multiple of 4 (ValueError otherwise)."""
     return _tile_temporal("heat_i_uni_tile_temporal",
                           tile_temporal_steps_uni_plain, u, out, k,
                           with_residual, cx, cy)
@@ -560,7 +601,8 @@ def _resolve_single_2d(choice, shape):
     if choice in ("I", "I-uni"):
         tile_x, seg_rows = p.i_launch(tuple(shape), p.i_k_default)
         return choice, {"k": p.i_k_default, "band": tile_x,
-                        "segment": seg_rows}
+                        "segment": seg_rows, "warps": p.i_warps,
+                        "rows": p.i_rows, "stages": p.i_stages}
     if choice == "C":
         return "C", {"tile": p.c_tile, "block": p.c_block}
     return "B", {"block": p.b_block, "rows_per_thread": p.b_rows_per_thread}

@@ -158,9 +158,10 @@ def test_probe_full_is_a_and_every_variant_launches(card):
 
 @pytest.mark.parametrize("uniform", [False, True])
 @pytest.mark.parametrize("cx,cy", COEFFS)
-@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("k", range(1, 9))
 @pytest.mark.parametrize("shape", [(1001, 1000), (70, 300), (300, 4096),
-                                   (3, 8), (517, 1028)])
+                                   (3, 8), (517, 1028), (37, 257), (40, 50),
+                                   (3, 300), (200, 132)])
 def test_i_bitwise_equal_to_e_and_plain(card, shape, k, cx, cy, uniform):
     u = _rand(shape, 6, card)
     got, e, want = (torch.empty_like(u) for _ in range(3))
@@ -169,6 +170,10 @@ def test_i_bitwise_equal_to_e_and_plain(card, shape, k, cx, cy, uniform):
             sk.tile_temporal_steps_uni_plain
     else:
         launch, plain = sk.tile_temporal_steps, sk.tile_temporal_steps_plain
+    if uniform and shape[1] % 4:
+        with pytest.raises(ValueError, match="multiple of 4"):
+            launch(u, got, k, cx=cx, cy=cy)
+        return
     r = launch(u, got, k, cx=cx, cy=cy)
     re_ = sk.temporal_steps(u, e, k, cx=cx, cy=cy)
     rp = plain(u, want, k, cx=cx, cy=cy)
@@ -176,6 +181,32 @@ def test_i_bitwise_equal_to_e_and_plain(card, shape, k, cx, cy, uniform):
     assert torch.equal(got, src) and torch.equal(r, rb)
     assert torch.equal(got, e) and torch.equal(r, re_)
     assert torch.equal(got, want) and torch.equal(r, rp)
+
+
+# Launches of I's stream that the defaults do not take: several bands a
+# block and idle warps, rings that wrap many laps, stages of more rows
+# than a segment streams, short segments; both level schedules.
+I_LAUNCHES = [dict(seg_rows=7, warps=2, rows=3, stages=2),
+              dict(seg_rows=5, warps=3, rows=4, stages=2),
+              dict(seg_rows=64, warps=1, rows=32, stages=8),
+              dict(seg_rows=11, warps=8, rows=5, stages=3)]
+
+
+@pytest.mark.parametrize("name, shape",
+                         [("heat_i_tile_temporal", (300, 257)),
+                          ("heat_i_uni_tile_temporal", (300, 256))])
+@pytest.mark.parametrize("k", [1, 4, 5, 8])
+@pytest.mark.parametrize("launch", I_LAUNCHES, ids=str)
+def test_i_launches_bitwise_equal_to_plain(card, launch, k, name, shape):
+    u = _rand(shape, 9, card)
+    want = torch.empty_like(u)
+    rp = sk.tile_temporal_steps_plain(u, want, k, cx=0.1, cy=0.2)
+    got = torch.full_like(u, float("nan"))
+    bits = torch.zeros(1, dtype=torch.int32, device=card)
+    sk._launch_i(u, got, k, bits, 0.1, 0.2, name=name, **launch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (name, shape)
+    assert torch.equal(sk._residual_view(bits), rp), (name, shape)
 
 
 def test_nan_reaches_every_residual(card):

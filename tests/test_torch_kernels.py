@@ -356,7 +356,7 @@ def test_temporal_steps_uni_refuses_a_width_not_a_multiple_of_4(launch,
 def test_i_launch_covers_the_grid(shape, k):
     p = params()
     tile_x, seg_rows = p.i_launch(shape, k)
-    assert tile_x + 2 * k == p.i_band_threads
+    assert tile_x + 2 * p.i_pad(k) == 128 and p.i_pad(k) >= k
     assert seg_rows >= p.i_seg_rows_min
     bands = -(-shape[1] // tile_x)
     segments = -(-shape[0] // seg_rows)

@@ -29,7 +29,8 @@ prints the card's name and power limit, then one JSON line per phase:
    I-uni's instances below K = 8, and their K = 8 instances may not
    spill more than ``I_SPILL_K8`` (the registers, spills and blocks an SM
    of the instance a forced run launches are printed, with the instances
-   that spill);
+   that spill), nor the 3D band's instance the H-defer round launches
+   more than ``BAND_SPILL_3D``;
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -258,11 +259,21 @@ prints the card's name and power limit, then one JSON line per phase:
    and wrapped, interior and edge, past each side, ragged, a partial
    group) must have run. The deferred bulk writes no band plane; bulk
    plus band, spliced in place, is the monolithic kernel; a NaN-seeded
-   block gives NaN residuals with its faces intact under both loads;
+   block gives NaN residuals with its faces intact under both loads; the
+   band's one launch over every block of each mesh with an x axis to
+   defer (each K, the last coefficient set), under each of its loads
+   (``BAND_LOADS_3D``: the 4-byte and, where it fits, 16-byte load on F's
+   plane loop) into NaN-filled
+   outputs, bitwise the per-block and the batched plain versions and
+   kernel F on the band planes, nothing between the bands written, and
+   the round's 8 deferred bulks plus that launch bitwise the monolithic
+   kernel with max(bulk, band) its residual; every kind of the band's
+   tiles (``h_band_tile_kinds``) must have run;
 18. sharded_main_path_3d — ``solve(HeatConfig(nx=ny=nz=1024, steps=200,
    mesh_shape=(2, 2, 2)))`` under the default resolution (H-fused, the
    monolithic round), with ``halo_overlap="phase"``, and pinned to H and
-   H-defer (``tune.force("block_temporal_3d", ...)``), counts set to 0
+   H-defer (``tune.force("block_temporal_3d", ...)``; its band one
+   launch a round for the 8 blocks), counts set to 0
    before each run and read after, every grid bitwise the one-block F
    run, Mcells*steps/s and the ratio to it; busy shares of one profiled
    repeat of the sharded and the one-block run; then 512^3 on (2, 2, 2)
@@ -278,17 +289,22 @@ prints the card's name and power limit, then one JSON line per phase:
 21. timing_h — ms per launch (CUDA events, and the card's own time from
    ``torch.profiler``) of each H kernel at the main path's block, 512^3 at
    K = h_k_default without the residual: H-fused monolithic (the
-   ``kernels`` line's row), its deferred bulk, H and the band kernel, each
-   beside its plain version, its bound and ``conv3d`` chained K times on
-   the framed block (TF32 off); for H-fused also its earlier design's
+   ``kernels`` line's row), its deferred bulk, H and the band kernel's
+   launch for the round's 8 blocks, each beside its plain version, its
+   bound and ``conv3d`` chained K times on the framed block (the band's
+   on its 16 windows; TF32 off); the band's device time under each of
+   its loads in turns and 8 one-entry launches (device time summed, and
+   their events); for H-fused also its earlier design's
    time, its launch
    under each load and its interior and edge tiles launched alone (the
    µs each kind adds per tile), and the occupancy of its main-path
    instance; for H its earlier design's time, its launch under each load
    and the µs a boxed and a wrapped tile take (by difference), and its
    occupancy; the exchange's time and copies per round (three phases, 8
-   blocks), one whole monolithic H-fused round and one pinned-H round (8
-   assemblies into the padded buffers and 8 launches of H), in turns;
+   blocks), one whole monolithic H-fused round, one pinned-H round (8
+   assemblies into the padded buffers and 8 launches of H) and one
+   H-defer round (8 deferred bulks and one band launch), in turns, and
+   the device operations the host issues a round under each;
 22. probe_kernel — kernel A's anatomy probe (``tools/kernel_probe.py``,
    ``heat_probe_kernel``) at 1000^2: its ``full`` variant bitwise A's
    plain version, then every variant at K = 20 and 2000 (a step by the
@@ -499,6 +515,11 @@ I_BAND_KINDS = ("interior", "first", "last", "partial", "unaligned", "idle",
 # grow.
 I_SPILL_K8 = {"heat_i_tile_temporal": (84, 124),
               "heat_i_uni_tile_temporal": (68, 92)}
+# The spill of the 3D band's instance at the main path's depth, shape and
+# load (<3, 2, 1>: F's plane loop under a 128-register cap with the band's
+# loader, which keeps the tile's offsets out of registers): ptxas's bytes
+# of (stores, loads), at most; the build phase fails if they grow.
+BAND_SPILL_3D = (0, 0)
 
 
 class SmokeFailure(RuntimeError):
@@ -573,6 +594,19 @@ def phase_build():
     check(h_row is not None and h_row[1] == 0,
           f"H's main-path instance <{h_main}> spills or is missing from "
           f"the ptxas report: {h_row}")
+    # Nor may the 3D band's instance that the H-defer round launches at
+    # the main path's depth, shape and load (F's plane loop) spill more
+    # than BAND_SPILL_3D.
+    band_block, band_rows, _ = hp.h_band_shape(hp.h_k_default)
+    band_load = skb3.BAND_LOADS_3D.index(
+        "vec" if hp.h_band_vec_fits((SHARD3_N // 2,) * 3) else "cells")
+    band_main = f"{hp.h_k_default}, {band_rows}, {band_load}"
+    band_row = ptxas["heat_h_band_fix_3d"].get(band_main)
+    check(band_row is not None and band_row[1] <= BAND_SPILL_3D[0]
+          and band_row[2] <= BAND_SPILL_3D[1],
+          f"the 3D band's main-path instance <{band_main}> spills more "
+          f"than {BAND_SPILL_3D} bytes (stores, loads) or is missing from "
+          f"the ptxas report: {band_row}")
     # Nor may the kernels on the register-blocked tile loop that the
     # sharded 2D main path (G-uni, G-fuse) and the one-device main path (E,
     # E-uni) launch, one instance each; their registers, and the blocks an
@@ -675,6 +709,13 @@ def phase_build():
                           "spill_stores": h_row[1],
                           "blocks_per_sm": skb3.h_occupancy(
                               hp.h_k_default)},
+          "h_defer_band": {"instance": band_main, "registers": band_row[0],
+                           "spill_stores": band_row[1],
+                           "spill_loads": band_row[2],
+                           "block": list(band_block), "rows": band_rows,
+                           "smem_bytes": hp.f_smem_bytes(
+                               hp.h_k_default,
+                               *hp.h_band_shape(hp.h_k_default))},
           "main_path_g": g_main, "forced_i": i_main,
           "spilling_instances": spilling, "ptxas": ptxas})
 
@@ -3501,6 +3542,91 @@ def _check_h_block(dev, xch, b, us, k, kw, f_out, err):
     return loads
 
 
+def _check_h_band_blocks(dev, xch, us, k, kw, f_out, err):
+    """The band kernel over every block of ``xch``'s mesh in one launch
+    (the exchange has run all three phases), under each load the blocks
+    take (the 4-byte one always, the 16-byte one where it fits), into
+    NaN-filled outputs: against each
+    block's plain version, the batched plain version and kernel F's K
+    steps of the global grid on the band planes, nothing written between
+    the bands; and the round's deferred bulks plus that one launch against
+    the monolithic kernel, grids and max residual. Returns the loads
+    run."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+
+    mesh = xch.mesh
+    bs = tuple(us[0].shape)
+    origins = [mesh.origin(b, bs) for b in range(mesh.size)]
+    pieces = (xch.ztail, xch.ytail, xch.xlo, xch.xhi)
+    nan = float("nan")
+    one = [torch.full(bs, nan, device=dev) for _ in us]
+    rs = [skb3.h_band_fix_plain(us[b], *xch.pieces(b), one[b], k,
+                                origin=origins[b], **kw)
+          for b in range(mesh.size)]
+    plain = [torch.full(bs, nan, device=dev) for _ in us]
+    rp = skb3.band_fix_blocks_3d_plain(us, *pieces, plain, k, True,
+                                       origins=origins, **kw)
+    check(same_float(rp, torch.stack(rs).amax())
+          and all(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+                  for a, b in zip(plain, one)),
+          f"the batched plain band != the per-block plain versions on "
+          f"{mesh.size} blocks {bs} (K={k})")
+    del one
+    picked = skb3.BandLaunch3D(us, *pieces, plain, k, origins=origins,
+                               **kw).load
+    loads = sorted({"cells", picked})
+    for load in loads:
+        got = [torch.full(bs, nan, device=dev) for _ in us]
+        r = skb3.BandLaunch3D(us, *pieces, got, k, origins=origins,
+                              load=load, **kw)(True)
+        torch.cuda.synchronize()
+        where = (f"the band kernel ({load} load) over the {mesh.size} "
+                 f"blocks {bs} of {kw['grid_shape']} at K={k} {kw}")
+        for b, (a, c) in enumerate(zip(got, plain)):
+            a7 = a.nan_to_num(7.0)
+            err["heat_h_band_fix_3d"] = max(err["heat_h_band_fix_3d"], float(
+                (a7 - c.nan_to_num(7.0)).abs().max()))
+            check(torch.equal(a7, c.nan_to_num(7.0)),
+                  f"{where} != the plain versions on block {b}")
+            want = f_out[tuple(slice(o, o + n)
+                               for o, n in zip(origins[b], bs))]
+            check(torch.equal(a[:k], want[:k])
+                  and torch.equal(a[bs[0] - k:], want[bs[0] - k:]),
+                  f"{where} != heat_f_temporal3d(K={k}) on block {b}'s "
+                  f"band planes")
+            check(bool(a[k:bs[0] - k].isnan().all()),
+                  f"{where} wrote planes between the bands of block {b}")
+        check(same_float(r, rp), f"{where}: residual {float(r)} != the "
+              f"plain versions' {float(rp)}")
+        del got
+    # A round of deferred bulks plus the one band launch, against the
+    # monolithic kernel on every block.
+    split = [torch.full(bs, nan, device=dev) for _ in us]
+    mono = torch.empty(bs, device=dev)
+    rb, rm = [], []
+    for b in range(mesh.size):
+        zt, yt, _, _ = xch.pieces(b)
+        rb.append(skb3.h_block_fused(us[b], zt, yt, None, None, split[b], k,
+                                     True, defer_x=True, origin=origins[b],
+                                     **kw))
+    rb.append(skb3.BandLaunch3D(us, *pieces, split, k, origins=origins,
+                                **kw)(True))
+    for b in range(mesh.size):
+        rm.append(skb3.h_block_fused(us[b], *xch.pieces(b), mono, k, True,
+                                     origin=origins[b], **kw))
+        check(torch.equal(split[b], mono),
+              f"deferred bulk + the band launch != the monolithic kernel "
+              f"on block {b} of {mesh.size} blocks {bs} (K={k})")
+    check(same_float(torch.stack(rb).amax(), torch.stack(rm).amax()),
+          f"max(bulks, band) {float(torch.stack(rb).amax())} != the "
+          f"monolithic residual {float(torch.stack(rm).amax())} on "
+          f"{mesh.size} blocks {bs} (K={k})")
+    del split, mono, plain
+    return loads
+
+
 def phase_kernels_h(dev):
     """The three H kernels against their plain versions, each other and
     kernel F, on blocks cut from seeded random global grids with the
@@ -3554,6 +3680,8 @@ def phase_kernels_h(dev):
             ((2, 4, 1), (40, 128, 96), h_every, [0, 5], [unequal], True),
             ((1, 2, 2), (50, 30, 40), [2, 5], [0, 3], [unequal], False)]
     h_kinds = {}
+    band_kinds = {}
+    band_loads, band_runs = set(), 0
     report = []
     for mesh_shape, block, depths, blocks, coeff_sets, tma in plan:
         grid = tuple(m * b for m, b in zip(mesh_shape, block))
@@ -3568,6 +3696,12 @@ def phase_kernels_h(dev):
             for coeffs in coeff_sets:
                 f_out = torch.empty_like(g)
                 sk3.xslab_steps_3d(g, f_out, k, **coeffs)
+                if (xch.halos[0] and block[0] >= 2 * k
+                        and coeffs is coeff_sets[-1]):
+                    band_loads.update(_check_h_band_blocks(
+                        dev, xch, us, k, dict(grid_shape=grid, **coeffs),
+                        f_out, err))
+                    band_runs += 1
                 for b in blocks:
                     loads = _check_h_block(dev, xch, b, us, k,
                                            dict(grid_shape=grid, **coeffs),
@@ -3580,6 +3714,11 @@ def phase_kernels_h(dev):
                             block, k, xch.halos, mesh.origin(b, block),
                             grid).items():
                         h_kinds[kind] = h_kinds.get(kind, 0) + n
+                    if xch.halos[0] and block[0] >= 2 * k:
+                        for kind, n in p.h_band_tile_kinds(
+                                block, k, xch.halos, mesh.origin(b, block),
+                                grid).items():
+                            band_kinds[kind] = band_kinds.get(kind, 0) + n
                 del f_out
             del xch
         report.append({"grid": list(grid), "mesh": list(mesh_shape),
@@ -3595,6 +3734,11 @@ def phase_kernels_h(dev):
     missing = sorted(kind for kind, n in h_kinds.items() if n == 0)
     check(not missing, f"kernels_h: no H tile of the kinds {missing} ran "
                        f"({h_kinds})")
+    # And every kind of the band's tiles, under each of its loads.
+    missing = sorted(kind for kind, n in band_kinds.items() if n == 0)
+    check(not missing and band_loads == set(skb3.BAND_LOADS_3D),
+          f"kernels_h: no band tile of the kinds {missing} ran "
+          f"({band_kinds}), or the loads {sorted(band_loads)} ran")
     # Diverging blocks: one NaN next to the faces of corner block 0 of
     # 80^3 (40^3 blocks: the cp.async load), and of 40 x 256 x 256, whose
     # 20 x 128 x 128 blocks hold tiles inside them (the TMA load), with a
@@ -3652,7 +3796,9 @@ def phase_kernels_h(dev):
         del g, us, xch, ext, padded, plain
         torch.cuda.empty_cache()
     emit({"phase": "kernels_h", "ok": True, "checks": report,
-          "h_tile_kinds": h_kinds, "nan_residual": nan_res,
+          "h_tile_kinds": h_kinds, "band_tile_kinds": band_kinds,
+          "band_launches_checked": band_runs,
+          "band_loads": sorted(band_loads), "nan_residual": nan_res,
           "max_abs_err": err})
     return err
 
@@ -3708,7 +3854,7 @@ def phase_sharded_main_path_3d():
              {"heat_h_block_3d_fused": per}),
             ("H", cfg, "H", {"heat_h_block_3d": per}),
             ("H-defer", cfg, "H-defer", {"heat_h_block_3d_fused": per,
-                                         "heat_h_band_fix_3d": per})]
+                                         "heat_h_band_fix_3d": rounds})]
     out, launches = {}, {}
     one_s = one.elapsed_s
     for label, c, force, expect in runs:
@@ -4023,8 +4169,21 @@ def phase_timing_h(dev):
     framed = frame.view(1, 1, *frame.shape)
     lead = frame[k:k + bx].contiguous().view(1, 1, bx, by + 2 * k,
                                              bz + 2 * k)
-    bands = torch.stack([frame[:3 * k], frame[bx - k:]]).view(
-        2, 1, 3 * k, by + 2 * k, bz + 2 * k)
+    # Every block's two band windows, 3K planes of its padded frame, for
+    # the band launch's yardstick.
+    origins = [mesh.origin(i, bs) for i in range(mesh.size)]
+    bands = torch.empty((2 * mesh.size, 1, 3 * k, by + 2 * k, bz + 2 * k),
+                        device=dev)
+    padded = torch.zeros_like(frame)
+    for i in range(mesh.size):
+        xch.assemble_padded(i, us[i], padded)
+        bands[2 * i, 0] = padded[:3 * k]
+        bands[2 * i + 1, 0] = padded[bx - k:]
+    del padded
+    vs = [torch.empty_like(u) for u in us]
+    pieces = (xch.ztail, xch.ytail, xch.xlo, xch.xhi)
+    band_launch = skb3.BandLaunch3D(us, *pieces, vs, k, origins=origins,
+                                    grid_shape=grid, cx=CX, cy=CY, cz=CX)
     f = 4  # bytes a float32
     ops = OPS_PER_CELL_STEP_3D * k
     inner = _interior_cells_3d(o, bs, grid)
@@ -4055,14 +4214,20 @@ def phase_timing_h(dev):
             lambda: conv_steps(framed),
             (f * (math.prod(xch.circular_shape) + bx * plane),
              ops * inner)),
+        # The H-defer round's band launch: every block's bands at once;
+        # its bound and yardstick are the 8 blocks'.
         "heat_h_band_fix_3d": (
-            lambda: skb3.h_band_fix(us[b], zt, yt, xlo, xhi, v, k, False,
-                                    **kw),
-            lambda: skb3.h_band_fix_plain(us[b], zt, yt, xlo, xhi, v, k,
-                                          False, **kw),
+            lambda: band_launch(False),
+            lambda: skb3.band_fix_blocks_3d_plain(
+                us, *pieces, vs, k, False, origins=origins, grid_shape=grid,
+                cx=CX, cy=CY, cz=CX),
             lambda: conv_steps(bands),
-            (f * (4 * k * plane + tails * 4 * k // bx + slabs
-                  + 2 * k * plane), ops * (inner - bulk_inner))),
+            (mesh.size * f * (4 * k * plane + tails * 4 * k // bx + slabs
+                              + 2 * k * plane),
+             ops * sum(_interior_cells_3d(oi, bs, grid)
+                       - _interior_cells_3d((oi[0] + k,) + oi[1:],
+                                            (bx - 2 * k, by, bz), grid)
+                       for oi in origins))),
     }
     rows = {}
     for key, (kernel, plain, library, (nbytes, nops)) in timed.items():
@@ -4076,29 +4241,68 @@ def phase_timing_h(dev):
     rows["heat_h_block_3d_fused"].update(_h_fused_loads_and_tiles(
         us[b], (zt, yt, xlo, xhi), v, k, kw))
     rows["heat_h_block_3d"].update(_h_loads_and_tiles(ext, v, k, kw, xch))
+    # The band launch under each of its loads in turns (device time a
+    # launch), and 8 one-entry launches: device time summed, and events
+    # for the 8.
+    band = rows["heat_h_band_fix_3d"]
+    band["blocks"] = mesh.size
+    band["load"] = band_launch.load
+    band["shape"] = list(band_launch.shape)
+    by_load = {ld: skb3.BandLaunch3D(us, *pieces, vs, k, origins=origins,
+                                     grid_shape=grid, cx=CX, cy=CY, cz=CX,
+                                     load=ld)
+               for ld in sorted({"cells", band_launch.load})}
+    band["device_ms_by_load"] = {ld: [] for ld in by_load}
+    for order in (list(by_load), list(by_load)[::-1]):
+        for ld in order:
+            band["device_ms_by_load"][ld].append(_device_ms(
+                lambda fn=by_load[ld]: fn(False),
+                "heat_h_band_fix_3d")["device_ms"])
+    band["one_entry_device_ms_summed"] = sum(
+        _device_ms(lambda i=i: skb3.h_band_fix(
+            us[i], *xch.pieces(i), vs[i], k, False, origin=origins[i],
+            grid_shape=grid, cx=CX, cy=CY, cz=CX),
+            "heat_h_band_fix_3d")["device_ms"] for i in range(mesh.size))
+    band["one_entry_ms"] = _time_ms(lambda: [skb3.h_band_fix(
+        us[i], *xch.pieces(i), vs[i], k, False, origin=origins[i],
+        grid_shape=grid, cx=CX, cy=CY, cz=CX) for i in range(mesh.size)],
+        20, 3)
+    del by_load
     # One whole monolithic round of the 8 blocks (the three phases and 8
     # launches of H-fused), and the pinned-H round (the phases, 8
     # assemblies and 8 launches of H), by events in turns.
-    vs = [torch.empty_like(u) for u in us]
-    round_fns = {kind: temporal3d.cuda_round_3d(
-        xch, kind, "overlap", grid_shape=grid, cx=CX, cy=CY, cz=CX)
-        for kind in ("H-fused", "H")}
+    # And the H-defer round (the phases, 8 deferred bulks and one band
+    # launch); the device operations (kernels, copies, memsets) the host
+    # issues a round under each, by the profiler.
+    from parallel_heat_tpu_torch import tune
+
+    with tune.force("block_temporal_3d", "H-defer"):
+        round_fns = {kind: temporal3d.cuda_round_3d(
+            xch, kind, "overlap", grid_shape=grid, cx=CX, cy=CY, cz=CX)
+            for kind in ("H-fused", "H", "H-defer")}
     round_runs = {kind: [] for kind in round_fns}
     for order in (list(round_fns), list(round_fns)[::-1]):
         for kind in order:
             round_runs[kind].append(_time_ms(
                 lambda fn=round_fns[kind]: fn(us, vs, False), 10, 2))
     round_ms = sum(round_runs["H-fused"]) / 2
+    host_ops = {}
+    for kind, fn in round_fns.items():
+        _, per = _profiled(lambda fn=fn: [fn(us, vs, False)
+                                          for _ in range(5)])
+        host_ops[kind] = sum(n for _, n in per.values()) / 5
     copies = xch.copies
-    del us, vs, xch, ext, v, frame, framed, lead, bands
+    del us, vs, xch, ext, v, frame, framed, lead, bands, band_launch
     torch.cuda.empty_cache()
     emit({"phase": "timing_h", "kernels": rows,
           "exchange_ms_per_round": exchange_ms,
           "exchange_copies_per_round": copies,
           "host_launches_per_round": mesh.size + copies,
+          "device_ops_per_round": host_ops,
           "assemble_ms_per_block": assemble_ms,
           "round_ms": round_ms,
           "round_ms_pinned_h": sum(round_runs["H"]) / 2,
+          "round_ms_h_defer": sum(round_runs["H-defer"]) / 2,
           "round_ms_runs": round_runs,
           "redundant_cell_share": (math.prod(n + 2 * k for n in bs)
                                    - math.prod(bs)) / math.prod(bs),

@@ -990,7 +990,10 @@ def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
 # The sharded 3D block kernels (heat_h.cuh)
 # ---------------------------------------------------------------------------
 
-H_KERNELS = {"H-fuse": "heat_h_block_3d_fused", "band": "heat_h_band_fix_3d"}
+H_KERNELS = {"H-fuse": "heat_h_block_3d_fused"}
+# The 3D band's __global__ function (csrc/heat_h_band_fix_3d.cu, the
+# round's launch on F's plane loop: plan_h_band).
+H_BAND_KERNEL = "heat_h_band_fix_3d_kernel"
 
 
 def _hc_kinds(spans):
@@ -1121,9 +1124,8 @@ def plan_hc(block_shape, k, origin=(0, 0, 0), grid_shape=None,
 def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
            defer=False, load="cp.async") -> Plan:
     """An H-fused-family kernel (``kind`` of :data:`H_KERNELS`) on a
-    ``(bx, by, bz)`` block at ``origin``: monolithic, H-fused's deferred
-    bulk (``defer``, planes ``[k, bx - k)``) or the band kernel (planes
-    ``[0, k)`` and ``[bx - k, bx)``), at the launch
+    ``(bx, by, bz)`` block at ``origin``: monolithic or H-fused's deferred
+    bulk (``defer``, planes ``[k, bx - k)``), at the launch
     ``stencil_kernels_block_3d._geometry`` gives. Tiles inside the block
     load each plane as a TMA box under ``load="tma"`` (H-fused only), the
     x slabs' planes by cp.async; elsewhere the per-cell cp.async ring
@@ -1135,16 +1137,10 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
     p = _p()
     bx, by, bz = block_shape
     grid_shape = grid_shape or block_shape
-    band = kind == "band"
     tma = load == "tma"
-    if band:
-        bzt, byt, rows = _geometry(block_shape, k, k, False)
-        seg = k
-        regions = [(0, k), (bx - k, k)]
-    else:
-        planes = bx - 2 * k if defer else bx
-        bzt, byt, rows, seg = _geometry(block_shape, k, planes)
-        regions = [(k, bx - 2 * k)] if defer else [(0, bx)]
+    planes = bx - 2 * k if defer else bx
+    bzt, byt, rows, seg = _geometry(block_shape, k, planes)
+    regions = [(k, bx - 2 * k)] if defer else [(0, bx)]
     wy, wz = byt * rows, bzt
     ty_out, tz_out = wy - 2 * k, wz - 2 * k
     tiles_y, tiles_z = _ceil(by, ty_out), _ceil(bz, tz_out)
@@ -1213,17 +1209,14 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
             slots[f"box{i}"] = (4 * i * tma_ps[2], 4 * tma_ps[2])
         dyn = max(dyn, p.h_tma_smem_bytes(k, (bzt, byt), rows))
         slack = 128
-    if band:
-        cover = [((0, k), (0, by), (0, bz)), ((bx - k, bx), (0, by), (0, bz))]
-        leave = [((k, bx - k), (0, by), (0, bz))]
-    elif defer:
+    if defer:
         cover = [((k, bx - k), (0, by), (0, bz))]
         leave = [((0, k), (0, by), (0, bz)), ((bx - k, bx), (0, by), (0, bz))]
     else:
         cover, leave = _full(block_shape), []
     ye, ze = by + 2 * k, bz + 2 * k
     name = H_KERNELS[kind]
-    what = "band" if band else (kind + (" deferred bulk" if defer else ""))
+    what = kind + (" deferred bulk" if defer else "")
     return Plan(
         kernel=name + "_kernel", entry=name,
         label=f"{what} {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}",
@@ -1237,9 +1230,170 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
         loads=loads, slots=slots, align_slack=slack, cover=cover,
         leave=leave, schedule=schedule,
         group=(f"H {bx}x{by}x{bz} at {tuple(origin)} K={k}"
-               if band or defer else None),
+               if defer else None),
         # HeatHStrides and the per-row offsets are int32 (heat_h.cuh:80,
         # :243); heat_h_launch refuses ye * ze past it.
+        int32=[("plane stride by * bz", by * bz),
+               ("slab stride ye * ze", ye * ze),
+               ("row offset yc * ze + zc", ye * ze - 1)])
+
+
+def plan_h_band(block_shape, k, origins, grid_shape=None, load=None,
+                grouped=True) -> Plan:
+    """The 3D band kernel's launch over a round's blocks of
+    ``block_shape`` at ``origins`` (``heat_h_band_fix_3d.cu``: one table
+    entry a block, the grid (tiles, 2 regions a block), each tile on F's
+    plane loop at :meth:`~.hopper_params.HopperParams.h_band_shape`):
+    a ``blocks`` axis over the entries ahead of each block's x, y and z,
+    every entry's two regions at its origin. ``load`` is "cells" (a
+    4-byte cp.async a cell) or "vec" (16 bytes a lane where its four
+    cells are one aligned run of the block), by default what
+    ``BandLaunch3D`` takes. One plan of the launch holds the guards of
+    all its entries (along each axis the loosest); its
+    :attr:`~Plan.parts` are each entry's share as a plan of that block,
+    so that each joins its block's deferred bulk in the coverage check
+    (not ``grouped``: a load the round does not take, whose coverage is
+    checked alone)."""
+    p = _p()
+    grid_shape = grid_shape or block_shape
+    if load is None:
+        load = "vec" if p.h_band_vec_fits(block_shape) else "cells"
+    n = len(origins)
+    guards = [_guards_3d(block_shape, k, o, grid_shape) for o in origins]
+    loose = tuple((min(g[d][0] for g in guards), max(g[d][1] for g in guards))
+                  for d in range(3))
+    base = _plan_h_band_block(block_shape, k, origins[0], grid_shape, load,
+                              guards=loose)
+    parts = [_plan_h_band_block(block_shape, k, o, grid_shape, load)
+             for o in origins]
+    if not grouped:
+        parts = [dataclasses.replace(part, group=None) for part in parts]
+    bx, by, bz = block_shape
+
+    def entry(i):
+        return Span((i, i + 1), {name: (i, 1, None) for name in base.loads},
+                    ())
+
+    tiles = base.grid // 2
+    return dataclasses.replace(
+        base, label=f"band {bx}x{by}x{bz} x{n} blocks at "
+                    f"{tuple(origins[0])}.. K={k} {load}",
+        # heat_h_band_fix_3d: (tiles, 2 regions a block) a chunk of
+        # BAND_TABLE_3D, so 2 n tiles in all.
+        grid=2 * n * tiles,
+        arrays={name: Array((n,) + a.shape) for name, a in
+                base.arrays.items()},
+        axes=[Axis("blocks", n, entry)] + base.axes,
+        loads={name: dataclasses.replace(ld, pitch=(0,) + ld.pitch,
+                                         streamed=ld.streamed + 1)
+               for name, ld in base.loads.items()},
+        cover=[((0, n),) + rect for rect in base.cover],
+        leave=[((0, n),) + rect for rect in base.leave],
+        schedule=lambda spans: base.schedule(spans[1:]),
+        group=None, parts=parts)
+
+
+def _guards_3d(block_shape, k, origin, grid_shape):
+    """The guards (frame coordinates) of a 3D block's per-cell loads: the
+    cells that lie in the K-deep frame and in the grid."""
+    return tuple((max(0, k - o), min(b + 2 * k, n - o + k))
+                 for o, b, n in zip(origin, block_shape, grid_shape))
+
+
+def _plan_h_band_block(block_shape, k, origin, grid_shape, load,
+                       guards=None) -> Plan:
+    """:func:`plan_h_band` on one block; ``guards`` overrides the loads'
+    guards (:func:`_guards_3d` of ``origin``). The per-cell load is
+    written in frame coordinates (the block's cells shifted by ``k``;
+    the pieces' layout, fixed per row in the kernel, maps the frame onto
+    them); the 16-byte load's windows in the block's own, the part of
+    each tile's window that lies inside it."""
+    p = _p()
+    bx, by, bz = block_shape
+    block, rows, prefetch = p.h_band_shape(k)
+    warps = block[1]
+    wy, wz = p.f_extent(block, rows)
+    P = p.f_pad(k)
+    ty_out, tz_out = wy - 2 * k, wz - 2 * P
+    tiles_y, tiles_z = p.h_band_tiles(block_shape, k)
+    g = guards or _guards_3d(block_shape, k, origin, grid_shape)
+    vec = load == "vec"
+    slots = prefetch + 2
+    slot_f = (wy + 2) * wz
+    box_bytes = 4 * wz * wy
+    threads = 32 * warps
+    regions = [0, bx - k]            # heat_h_band_fix_3d_kernel
+
+    def inside(lo, hi, n):
+        a, b = max(lo, 0), min(hi, n)
+        return (a, b - a, None)
+
+    def xs(i):
+        x0 = regions[i]
+        reads = {"plane": (x0, 3 * k, g[0])}
+        if vec:
+            reads["core"] = inside(x0 - k, x0 + 2 * k, bx)
+        return Span((x0, x0 + k), reads, (i,))
+
+    def ys(i):
+        y0 = i * ty_out - k
+        write = (y0 + k, min(y0 + wy - k, by))
+        reads = {"plane": (y0 + k, wy, g[1])}
+        if vec:
+            reads["core"] = inside(y0, y0 + wy, by)
+        return Span(write, reads, (y0 < 0, y0 + wy > by,
+                                   write[1] - write[0] < ty_out))
+
+    def zs(i):
+        z0 = i * tz_out - P
+        write = (z0 + P, min(z0 + wz - P, bz))
+        reads = {"plane": (z0 + k, wz, g[2])}
+        if vec:
+            reads["core"] = inside(z0, z0 + wz, bz)
+        return Span(write, reads, (z0 < 0, z0 + wz > bz,
+                                   (write[1] - write[0]) % 4 != 0))
+
+    def schedule(spans):
+        # A thread block streams its tile's 3k planes through the ring
+        # (HeatFLoop::run_band).
+        y0 = spans[1].reads["plane"][0] - k
+        z0 = spans[2].reads["plane"][0] - k
+
+        def fill(slot, bar, v):
+            return [("cp_async", slot, box_bytes, (z0, y0, v)),
+                    ("cp_async_arrive_noinc", bar, threads)]
+        return _sched_ring_mbar(0, 3 * k, prefetch, slots, fill,
+                                threads)
+
+    edge = (min(rows, 2) * warps + 2) * wz
+    slot_map = {f"ring{i}": (4 * i * slot_f, 4 * slot_f)
+                for i in range(slots)}
+    slot_map["levels"] = (4 * slots * slot_f, 4 * 2 * (k - 1) * edge)
+    slot_map["bars"] = (4 * (slots * slot_f + 2 * (k - 1) * edge),
+                        8 * slots)
+    loads = {"plane": Load("cp4", "frame", "ring", wz, (0, wz), streamed=1)}
+    if vec:
+        loads["core"] = Load("cp16", "u", "ring", wz, (0, wz), streamed=1)
+    ye, ze = by + 2 * k, bz + 2 * k
+    return Plan(
+        kernel=H_BAND_KERNEL, entry="heat_h_band_fix_3d",
+        label=f"band {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}",
+        grid=2 * tiles_y * tiles_z, threads=threads,
+        max_threads=32 * (8 if rows == 4 else 16),
+        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch),
+        static_smem=p.static_smem_bytes,
+        arrays={"frame": Array((bx + 2 * k, ye, ze)),
+                "u": Array(block_shape), "out": Array(block_shape)},
+        output="out",
+        axes=[Axis("x", 2, xs), Axis("y", tiles_y, ys),
+              Axis("z", tiles_z, zs)],
+        loads=loads, slots=slot_map, align_slack=128,
+        cover=[((0, k), (0, by), (0, bz)), ((bx - k, bx), (0, by), (0, bz))],
+        leave=[((k, bx - k), (0, by), (0, bz))], schedule=schedule,
+        group=f"H {bx}x{by}x{bz} at {tuple(origin)} K={k}",
+        # The pieces' plane strides and each row's offsets are int32
+        # (HeatFLoop's pst, moff, zoff, coff); the launcher refuses
+        # ye * ze and by * bz past it.
         int32=[("plane stride by * bz", by * bz),
                ("slab stride ye * ze", ye * ze),
                ("row offset yc * ze + zc", ye * ze - 1)])
@@ -1463,7 +1617,9 @@ def default_plans() -> List[Plan]:
         out.append(plan_h("H-fuse", block3, k3, o, H_GRID, load="cp.async"))
         out.append(plan_h("H-fuse", block3, k3, o, H_GRID, defer=True,
                           load=skb3.h_load(block3, k3)))
-        out.append(plan_h("band", block3, k3, o, H_GRID))
+    every3 = mesh_block_origins(H_GRID, H_MESH)
+    out.append(plan_h_band(block3, k3, every3, H_GRID))
+    out.append(plan_h_band(block3, k3, every3, H_GRID, "cells", False))
     for o in (origins3[0], origins3[-1]):
         for load in ("tma", "cp.async"):
             out.append(plan_hc(block3, k3, o, H_GRID, load))
@@ -1476,7 +1632,8 @@ def default_plans() -> List[Plan]:
             out.append(plan_h("H-fuse", bshape, k, (0, 0, 0), grid,
                               load=skb3.h_load(bshape, k)))
             if bshape[0] >= 2 * k:
-                out.append(plan_h("band", bshape, k, (0, 0, 0), grid))
+                out.append(plan_h_band(
+                    bshape, k, mesh_block_origins(grid, (2, 2, 2)), grid))
         for k in range(1, p.hc_k_max() + 1):
             for o in ((0, 0, 0), bshape):
                 out.append(plan_hc(bshape, k, o, grid, "tma"))

@@ -3,7 +3,8 @@ the sharded block kernels G and H on the card over their launch shapes.
 
     python -m parallel_heat_tpu_torch.bench_kernels [--size 16384]
         [--a-sizes 256,1000,1859] [--size-3d 512]
-        [--only a,b,e,i,d,f,m,mg,g,band,h,hfused] [--reps 10] [--out FILE]
+        [--only a,b,e,i,d,f,m,mg,g,band,h,hband,hfused] [--reps 10]
+        [--out FILE]
         [--sass DIR]
 
 Needs a CUDA device and nvcc. Prints the card's name and power limit
@@ -72,7 +73,12 @@ at the fastest shape a step; and, at the defaults, the monolithic
 H-fused, H (both loads) and the band kernel, and kernel F on a 512^3
 grid, the yardstick of the plane loop; each shape first checked bitwise
 against the plain version on 20 x 128 x 252 blocks of a (3, 3, 3) mesh
-(``hopper_params``' ``hc_*`` entries). ``--only hfused`` sweeps
+(``hopper_params``' ``hc_*`` entries). ``--only hband`` sweeps the 3D
+band's round launch (every block's bands at once, F's plane loop) over
+the 8 blocks of that mesh at K = 3: F's shapes at rows 2 and 4 and the
+planes in flight under the 16-byte load, then the fastest under the
+4-byte load, each checked bitwise against the batched plain version
+(the ``h_band_*`` entries). ``--only hfused`` sweeps
 H-fused's deferred bulk over thread blocks, rows per thread, K and X
 segments, each checked bitwise on the interior block of a (3, 3, 3) mesh
 of 21 x 128 x 256 blocks (the ``h_*`` entries). The values in
@@ -179,6 +185,10 @@ G_KS = [4, 6, 8]
 G_BAND_TILES = [48, 112, 240, 496]
 G_BAND_BLOCKS = [(32, 2), (32, 4), (32, 8), (32, 16)]
 H_GRID, H_MESH = (1024, 1024, 1024), (2, 2, 2)   # the sharded 3D main path
+# The 3D band's launch shapes (F's, at the compiled rows 2 and 4): a 512^2
+# face takes 100 to 260 tiles a region.
+H_BAND_SHAPES = [((32, 16), 2), ((32, 12), 2), ((32, 8), 2), ((32, 8), 4)]
+H_BAND_PREFETCH = [2, 3, 4, 6]
 H_SEGMENTS = [32, 64, 86, 128, 171, 256, 512]
 TURN_CUBE, TURN_PLATE = 512, 16384   # --turns: F and D, E-uni
 # H's launch shapes, (along Z, along Y) threads and rows a thread: at most
@@ -992,6 +1002,99 @@ def sweep_h(reps: int):
                "default": True}
 
 
+def sweep_hband(reps: int):
+    """Yield one dict per launch of the 3D band's round launch (every
+    block's bands at once, F's plane loop) over the 8 blocks of the
+    sharded 3D main path, 512^3 of 1024^3 on (2, 2, 2), at K =
+    ``h_k_default``: each of :data:`H_BAND_SHAPES` with every prefetch
+    depth of :data:`H_BAND_PREFETCH` that fits under the 16-byte load;
+    then the fastest of those under the 4-byte load; each first checked
+    bitwise (grids
+    and residual) against the batched plain version on the 8 blocks of
+    40 x 128 x 252 and 67 x 43 x 90 on (2, 2, 2) into NaN-filled outputs,
+    then timed by ``torch.profiler`` (``device_ms``, which ranks) and
+    CUDA events."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    k = p.h_k_default
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    kw3 = dict(zip(("cx", "cy", "cz"), COEFFS_3D))
+    checks = []
+    for block in ((40, 128, 252), (67, 43, 90)):
+        grid = tuple(2 * b for b in block)
+        g = torch.from_numpy((rng.standard_normal(grid) * 10)
+                             .astype(np.float32)).to(dev)
+        mesh = HeatMesh(H_MESH, dev)
+        s_us = mesh.split(g)
+        _, s_xch = _h_setup(dev, grid, H_MESH, k, s_us)
+        origins = [mesh.origin(i, block) for i in range(mesh.size)]
+        pieces = (s_xch.ztail, s_xch.ytail, s_xch.xlo, s_xch.xhi)
+        want = [torch.full(block, float("nan"), device=dev) for _ in s_us]
+        res = skb3.band_fix_blocks_3d_plain(s_us, *pieces, want, k,
+                                            origins=origins,
+                                            grid_shape=grid, **kw3)
+        checks.append((s_us, pieces, want, res,
+                       dict(origins=origins, grid_shape=grid, **kw3)))
+    mesh = HeatMesh(H_MESH, dev)
+    bs = mesh.block_shape(H_GRID)
+    plate = HeatPlate3D(*H_GRID)
+    us = [plate.init_block(dev, mesh.origin(b, bs), bs)
+          for b in range(mesh.size)]
+    _, xch = _h_setup(dev, H_GRID, H_MESH, k, us)
+    pieces = (xch.ztail, xch.ytail, xch.xlo, xch.xhi)
+    outs = [torch.empty_like(u) for u in us]
+    kw = dict(origins=[mesh.origin(i, bs) for i in range(mesh.size)],
+              grid_shape=H_GRID, cx=CX, cy=CY, cz=CZ)
+    size = "x".join(map(str, bs))
+    default = p.h_band_shape(k)
+
+    def row(shape, load):
+        ok = True
+        for s_us, s_pieces, want, res, s_kw in checks:
+            ld = load if load != "vec" or s_us[0].shape[2] % 4 == 0 \
+                else "cells"
+            got = [torch.full_like(w, float("nan")) for w in want]
+            r = skb3.BandLaunch3D(s_us, *s_pieces, got, k, shape=shape,
+                                  load=ld, **s_kw)(True)
+            ok = ok and bool(torch.equal(r, res) and all(
+                torch.equal(a.nan_to_num(7.0), w.nan_to_num(7.0))
+                for a, w in zip(got, want)))
+        launch = skb3.BandLaunch3D(us, *pieces, outs, k, shape=shape,
+                                   load=load, **kw)
+        dms = device_ms(lambda: launch(False), "heat_h_band_fix_3d_kernel")
+        ms = time_ms(lambda: launch(False), reps)
+        (_, warps), rows, prefetch = shape
+        ty, tz = p.h_band_tiles(bs, k, shape)
+        return {"kernel": "heat_h_band_fix_3d", "size": size, "blocks": 8,
+                "block": list(shape[0]), "rows": rows,
+                "prefetch": prefetch, "k": k, "load": load,
+                "thread_blocks": 8 * 2 * ty * tz,
+                "smem_bytes": p.f_smem_bytes(k, shape[0], rows, prefetch),
+                "bitwise": ok, "ms": ms, "device_ms": dms,
+                "ms_per_step": dms / k,
+                "default": shape == default and load == launch.load}
+
+    best = None
+    for block, rows in H_BAND_SHAPES:
+        for prefetch in H_BAND_PREFETCH:
+            shape = (block, rows, prefetch)
+            if not (p.h_band_takes(block, rows, k)
+                    and k <= p.f_k_max(block, rows, prefetch)):
+                continue
+            r = row(shape, "vec")
+            if r["bitwise"] and (best is None
+                                 or r["device_ms"] < best["device_ms"]):
+                best = r
+            yield r
+    shape = (tuple(best["block"]), best["rows"], best["prefetch"])
+    yield row(shape, "cells")
+    yield row(default, "vec")
+    yield row(default, "cells")
+
+
 def sweep_hfused(reps: int):
     """Yield one dict per launch shape of H-fused's deferred bulk at the
     sharded 3D main path's block (the sweep of ``hopper_params``' ``h_*``
@@ -1421,12 +1524,12 @@ def turn_times(reps: int, only=None) -> dict:
     1000^2 (K = 20, residual) and M at 64 x 512^2 (K = 400), these two by
     ``torch.profiler``; the multigrid transfers' calls (events) and
     kernels (``device``, the profiler) at each of ``MG_TURN_SIZES``^2 <->
-    its coarse level, and the 512^2 implicit runs' ``elapsed_s`` (host
-    clock); and the sharded 3D picks. With ``only`` (names), those
+    its coarse level, and the 512^2 implicit runs' and the pinned H-defer
+    1024^3 run's ``elapsed_s`` (host clock); and the sharded 3D picks. With ``only`` (names), those
     kernels alone, so that no other is built or set up."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
     from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
-    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel import temporal, temporal3d
     from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
     def wanted(*names):
@@ -1448,7 +1551,8 @@ def turn_times(reps: int, only=None) -> dict:
         runs["D"] = lambda: sk3.slab_step_3d(cube, cube_out, **kw3)
     mesh = HeatMesh(H_MESH, dev)
     bs = mesh.block_shape(H_GRID)
-    if wanted("H-fused", "H"):
+    if wanted("H-fused", "H", "H band round", "H band round device",
+              "H round defer"):
         plate = HeatPlate3D(*H_GRID)
         us = [plate.init_block(dev, mesh.origin(b, bs), bs)
               for b in range(mesh.size)]
@@ -1465,6 +1569,26 @@ def turn_times(reps: int, only=None) -> dict:
         runs["H-fused"] = lambda: skb3.h_block_fused(us[b], *pieces, out, 3,
                                                      False, **hkw)
         runs["H"] = lambda: skb3.h_block(ext, out, 3, False, **hkw)
+        # The H-defer round at those blocks: its band pass (one launch for
+        # the 8 blocks where the tree has BandLaunch3D, else one a block),
+        # its device time a call by the profiler, and the whole round.
+        h_vs = [torch.empty_like(u) for u in us]
+        h_origins = [mesh.origin(i, bs) for i in range(mesh.size)]
+        if hasattr(skb3, "BandLaunch3D"):
+            h_bands = skb3.BandLaunch3D(us, xch.ztail, xch.ytail, xch.xlo,
+                                        xch.xhi, h_vs, 3, origins=h_origins,
+                                        grid_shape=H_GRID, **kw3)
+            runs["H band round"] = lambda: h_bands(False)
+        else:
+            runs["H band round"] = lambda: [skb3.h_band_fix(
+                us[i], *xch.pieces(i), h_vs[i], 3, False,
+                origin=h_origins[i], grid_shape=H_GRID, **kw3)
+                for i in range(mesh.size)]
+        per_call["H band round device"] = (runs["H band round"],
+                                           "heat_h_band_fix_3d_kernel")
+        h_round = temporal3d.cuda_round_3d(xch, "H-defer", "overlap",
+                                           grid_shape=H_GRID, **kw3)
+        runs["H round defer"] = lambda: h_round(us, h_vs, False)
     if wanted("E-uni", "E", "I", "I-uni", "I device", "I-uni device"):
         grid = HeatPlate2D(TURN_PLATE, TURN_PLATE).init_grid(dev)
         grid_out = torch.empty_like(grid)
@@ -1520,7 +1644,7 @@ def turn_times(reps: int, only=None) -> dict:
                                                grid_shape=G_GRID, **kw2)
             runs[f"G round {mode}"] = (
                 lambda fn=round_fn: fn(g_us, g_vs, False))
-    from parallel_heat_tpu_torch import HeatConfig, solve
+    from parallel_heat_tpu_torch import HeatConfig, solve, tune
 
     # The host-bound sharded converge run, 1000^2 on (2, 4), and the 512^2
     # implicit runs: their elapsed_s (the host's clock around the step
@@ -1528,6 +1652,16 @@ def turn_times(reps: int, only=None) -> dict:
     conv_cfg = HeatConfig(nx=1000, ny=1000, steps=10000, converge=True,
                           check_interval=20, eps=1e-3, mesh_shape=(2, 4))
     wall["converge 1000^2 2x4 s"] = lambda: solve(conv_cfg).elapsed_s
+    # The pinned H-defer run of the sharded 3D main path (1024^3 on
+    # (2, 2, 2), 200 steps): its elapsed_s.
+    hd_cfg = HeatConfig(nx=1024, ny=1024, nz=1024, steps=200,
+                        mesh_shape=(2, 2, 2))
+
+    def h_defer_s():
+        with tune.force("block_temporal_3d", "H-defer"):
+            return solve(hd_cfg).elapsed_s
+
+    wall["H-defer 1024^3 s"] = h_defer_s
     for scheme in ("backward_euler", "crank_nicolson"):
         imp_cfg = HeatConfig(nx=512, ny=512, cx=22.5, cy=22.5, steps=20,
                              scheme=scheme)
@@ -1697,7 +1831,7 @@ def main(argv=None) -> int:
                     help="cube edge for kernels D and F")
     ap.add_argument("--only", default="a,b,e,d,f",
                     help="comma-separated kernels to sweep (a, b, e, i, d, "
-                         "f, m, mg, g, band, h, hfused)")
+                         "f, m, mg, g, band, h, hband, hfused)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
@@ -1709,8 +1843,10 @@ def main(argv=None) -> int:
     ap.add_argument("--turns-only", default=None, metavar="NAMES",
                     help="with --turns: only these kernels (comma-separated "
                          "names of the turn table: F, F cp.async, D, "
-                         "H-fused, H, E-uni, E, I, I-uni, I device, I-uni "
-                         "device, G-uni bulk, G band round, "
+                         "H-fused, H, H band round, H band round device, "
+                         "H round defer, H-defer 1024^3 s, E-uni, E, I, "
+                         "I-uni, I device, "
+                         "I-uni device, G-uni bulk, G band round, "
                          "G band round device, G round overlap, G round "
                          "phase, converge 1000^2 2x4 s, A, M, restrict "
                          "N^2, prolong N^2 and their ' device' rows for N "
@@ -1778,7 +1914,7 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
     for key, run in (("m", sweep_m), ("mg", sweep_mg), ("g", sweep_g),
                      ("band", sweep_band), ("h", sweep_h),
-                     ("hfused", sweep_hfused)):
+                     ("hband", sweep_hband), ("hfused", sweep_hfused)):
         for row in run(args.reps) if key in only else []:
             rows.append(row)
             print(json.dumps(row), flush=True)

@@ -1,14 +1,14 @@
-// Shared code of the sharded 3D block kernels heat_h_block_3d_fused.cu
-// and heat_h_band_fix_3d.cu: K 7-point Jacobi
-// steps on one bx x by x bz block of an nx x ny x nz grid cut over a
-// device mesh, from the block and the K-deep halo its neighbours sent
-// (parallel/temporal3d.py), with the residual of the last step.
+// The body of the sharded 3D block kernel heat_h_block_3d_fused.cu: K
+// 7-point Jacobi steps on one bx x by x bz block of an nx x ny x nz grid
+// cut over a device mesh, from the block and the K-deep halo its
+// neighbours sent (parallel/temporal3d.py), with the residual of the
+// last step.
 //
-// Replaces two of the kernel-H family of
-// parallel_heat_tpu/ops/pallas_stencil.py (_build_temporal_block_3d_fused,
-// _build_band_fix_3d). Each TPU builder keeps its own entry point; the
-// third, _build_temporal_block_3d, is heat_h_block_3d.cu, on kernel F's
-// plane loop.
+// Replaces one of the kernel-H family of
+// parallel_heat_tpu/ops/pallas_stencil.py (_build_temporal_block_3d_fused).
+// Each TPU builder keeps its own entry point; the others,
+// _build_temporal_block_3d and _build_band_fix_3d, are heat_h_block_3d.cu
+// and heat_h_band_fix_3d.cu, on kernel F's plane loop.
 //
 // Bound on the H100: a round reads the block once and writes it once for
 // K steps, plus the exchanged pieces, 4 * (2K*bx*by + 2K*bx*(bz+2hz) +

@@ -2,11 +2,12 @@
 // them, so a block's K steps through any of them are bitwise kernel F's K
 // steps on the same cells:
 //   - heat_f_levels with its plane loops heat_t3d_stream and
-//     heat_t3d_stream_tma, one z cell a thread: the sharded block kernels
-//     of heat_h.cuh (heat_h_block_3d_fused.cu, heat_h_band_fix_3d.cu);
+//     heat_t3d_stream_tma, one z cell a thread: H-fused (heat_h.cuh,
+//     heat_h_block_3d_fused.cu);
 //   - HeatFLoop (below), the register-blocked plane loop of kernel F
-//     (heat_f_temporal3d.cu) and of kernel H (heat_h_block_3d.cu, on the
-//     assembled circular block): a lane owns 4 z cells of R rows in
+//     (heat_f_temporal3d.cu), of kernel H (heat_h_block_3d.cu, on the
+//     assembled circular block) and of the band (heat_h_band_fix_3d.cu,
+//     on the block's pieces): a lane owns 4 z cells of R rows in
 //     float4 registers, so neighbours come by shuffle and from
 //     registers, and each plane's tile arrives as one TMA box.
 //
@@ -464,14 +465,22 @@ constexpr int kHeatFNoLoad = 2;
 // each plane's load down (heat_record_load) at record blockIdx.x * (nx +
 // 2K) + (t - x0 + K) of `rec` (the residual's buffer).
 constexpr int kHeatFRecord = 3;
+// The loop's planes from a sharded block's pieces, one band a thread
+// block (HeatFLoop's kBand; heat_h_band_fix_3d.cu).
+constexpr int kHeatFBand = 1;
 
 // One thread's state of the loop. The kernel fills the geometry; run()
 // streams the planes. kProbe is the loop's variant (kHeatFFull but in the
 // overlap probe). kCirc: the planes come from kernel H's assembled
-// circular block (heat_h_block_3d.cu), not from the grid; only fetch()
-// differs, under `if constexpr`, so F's instances keep their code.
+// circular block (heat_h_block_3d.cu), not from the grid; kBand
+// (kHeatFBand): from a sharded block's separate pieces
+// (heat_h_band_fix_3d.cu), one band (run_band, band_fetch, band_step;
+// the caller's Seg loads the planes) with the levels outside the
+// output's cone not stepped. Only fetch() differs for
+// kCirc, and levels() for kBand, under `if constexpr`, so F's instances
+// keep their code.
 template <int K, int R, bool kTma, int kProbe = kHeatFFull,
-          bool kCirc = false>
+          bool kCirc = false, int kBand = 0>
 struct HeatFLoop {
   static constexpr int kEdgeRows = R < 2 ? R : 2;
   static constexpr bool kRecords = kProbe == kHeatFRecord;
@@ -586,6 +595,23 @@ struct HeatFLoop {
                        : nullptr;
 #pragma unroll
     for (int s = 1; s <= K; ++s) {
+      // kBand: a region is K output planes from 3K input planes, so the
+      // output's cone holds level s only at planes [x0 - K + s, x1 + K -
+      // s); the levels outside it are not stepped (their cells reach no
+      // output, as the cone's garbage never does), 2K^2 - K plane-levels
+      // a region of the 3K^2 the loop would step. The level below is
+      // passed on in its place, so that every register of a level is
+      // written each plane, as in the stepped loop. Uniform across the
+      // block.
+      if constexpr (kBand != 0) {
+        if (t < x0 - K + 2 * s) {
+          if (s < K) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) D[s][r] = M[s - 1][r];
+          }
+          continue;
+        }
+      }
       // Level s-1 at plane t - s: M[s-1]; the neighbours of its first and
       // last rows in the warps above and below, from shared memory.
       float4 yu, yd;
@@ -718,6 +744,67 @@ struct HeatFLoop {
     if (++cur == slots) {
       cur = 0;
       lap ^= 1u;
+    }
+  }
+
+  // kBand: input plane i of the band into ring slot `slot`: seg.load
+  // issues this thread's copies (its R rows of 4 cells, row r's to dst +
+  // r * kFWidth, zero-filled where it has no data), then the thread
+  // arrives on the slot's barrier once they have landed.
+  template <class Seg>
+  __device__ __forceinline__ void band_fetch(int slot, int i,
+                                             const Seg& seg) {
+    seg.load(ring + slot * slot_f + own, i);
+    heat_cp_async_arrive(&full[slot]);
+  }
+
+  // kBand: plane_step for input plane i in [0, 3K) of the band.
+  template <bool kEdge, class Seg>
+  __device__ __forceinline__ void band_step(float4 (&U)[K][R],
+                                            float4 (&M)[K][R],
+                                            float4 (&D)[K][R], int i,
+                                            const Seg& seg) {
+    const int64_t t = x0 - K + i;
+    heat_mbar_wait(&full[cur], lap);
+    __syncthreads();
+    const int prev = cur == 0 ? slots - 1 : cur - 1;
+    if (i + prefetch < 3 * K) {
+      int next = cur + prefetch;
+      if (next >= slots) next -= slots;
+      band_fetch(next, i + prefetch, seg);
+    }
+    if (kEdge || !(t - K >= 1 && t - 1 <= nx - 2))
+      levels<true>(U, M, D, prev, t);
+    else
+      levels<false>(U, M, D, prev, t);
+    if (++cur == slots) {
+      cur = 0;
+      lap ^= 1u;
+    }
+  }
+
+  // kBand: the band's 3K input planes, after the barriers were
+  // initialised: seg.enter sets the output state (out, src, x0, x1, yin,
+  // zin) to its block's and region's, then the planes stream through the
+  // ring, unrolled by 3 as in run().
+  template <bool kEdge, class Seg>
+  __device__ __forceinline__ void run_band(const Seg& seg) {
+    seg.enter(*this);
+    for (int i = 0; i < prefetch; ++i)
+      if (i < 3 * K) band_fetch(i, i, seg);
+    float4 A[K][R], B[K][R], C[K][R];
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r) A[s][r] = B[s][r] = C[s][r] = zero;
+    // A loop of three planes (the trip count is known, and the compiler
+    // would otherwise unroll the K bodies whole).
+#pragma unroll 1
+    for (int i = 0; i < 3 * K; i += 3) {
+      band_step<kEdge>(A, B, C, i, seg);
+      band_step<kEdge>(B, C, A, i + 1, seg);
+      band_step<kEdge>(C, A, B, i + 2, seg);
     }
   }
 

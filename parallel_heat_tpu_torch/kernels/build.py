@@ -104,8 +104,8 @@ KERNELS = {
     # The sharded 3D block kernels: grid, block and origin (9 int64),
     # then halos; H (csrc/heat_h_block_3d.cu, F's plane loop) the circular
     # block's row pitch, k, thread block (lanes, warps), rows, segment,
-    # prefetch and tma; the others (csrc/heat_h.cuh) (defer_x, tma,) k,
-    # thread block and rows.
+    # prefetch and tma; H-fused (csrc/heat_h.cuh) defer_x, tma, k, thread
+    # block, rows and segment.
     "heat_h_block_3d": ("heat_h_block_3d.cu",
                         [_P] * 3 + [_I64] * 9 + [_I32] * 3 + [_I64]
                         + [_I32] * 4 + [_I64] + [_I32] * 2 + [_F32] * 4
@@ -113,9 +113,12 @@ KERNELS = {
     "heat_h_block_3d_fused": ("heat_h_block_3d_fused.cu",
                               [_P] * 7 + [_I64] * 9 + [_I32] * 9 + [_I64]
                               + [_F32] * 4 + [_P]),
+    # The 3D band takes a host table of blocks (ops/
+    # stencil_kernels_block_3d.py _BandEntry3D), their count and the load;
+    # then grid, block, halos (y, z), k, thread block, rows and prefetch.
     "heat_h_band_fix_3d": ("heat_h_band_fix_3d.cu",
-                           [_P] * 7 + [_I64] * 9 + [_I32] * 7 + [_F32] * 4
-                           + [_P]),
+                           [_P, _I32, _I32, _P] + [_I64] * 6 + [_I32] * 7
+                           + [_F32] * 4 + [_P]),
 }
 # The measurement tools' kernels (parallel_heat_tpu_torch/tools/): built
 # and loaded like the kernels above, but no path of the solver runs them.

@@ -301,6 +301,28 @@ class HopperParams:
     hc_waves: int = 8
     hc_seg_planes_min: int = 64
 
+    # --- the 3D band heat_h_band_fix_3d on F's plane loop (measured) -----
+    # Every block's bands of a round in one launch (a table of blocks,
+    # csrc/heat_h_band_fix_3d.cu), a thread block stepping one (Y, Z)
+    # tile of one region (K output planes from 3K input planes) on F's
+    # register-blocked plane loop, F's tiles over the block: the first of
+    # h_band_shapes ((32 lanes, warps), rows a thread; rows 2 and 4 are
+    # compiled) that takes K, with the most planes in flight that fit, up
+    # to h_band_prefetch (h_band_shape). Its loads: a 4-byte cp.async a
+    # cell, or a 16-byte one where a lane's four cells are one aligned run
+    # of the block (h_band_vec_fits). A thread block steps one tile of one
+    # block's region. The sweep (bench_kernels --only hband: the round
+    # launch over the 8 blocks of 1024^3 on (2, 2, 2), K = 3, ranked by
+    # torch.profiler device time; NVIDIA H100 80GB HBM3 at 700.00 W) found
+    # 32 x 16 threads of 2 rows, 6 planes in flight, the 16-byte load
+    # fastest: 0.2008 ms (4-byte load 0.2106; 4, 3, 2 planes 0.2041,
+    # 0.2085, 0.2096; 32 x 12 of 2 rows 0.2473 at best, 32 x 8 of 2 rows
+    # 0.2681, 32 x 8 of 4 rows 0.3074). A thread block stepping its tile
+    # over a chain of 2, 4, 8 or 16 regions in one ring was slower (0.2229,
+    # 0.2463, 0.2409, 0.2582) and is gone.
+    h_band_shapes: tuple = (((32, 16), 2), ((32, 12), 2))
+    h_band_prefetch: int = 6
+
     # --- kernels heat_mg_restrict and heat_mg_prolong (measured) ----------
     # Restrict: a thread takes mg_restrict_cells() (rows, columns) of
     # coarse cells (csrc/heat_mg_restrict.cu compiles 1 x 1, 1 x 2 and
@@ -695,6 +717,96 @@ class HopperParams:
                 kinds["left"] += z0 < 0
                 kinds["bottom"] += y0 + wy > by
                 kinds["right"] += z0 + wz > bz
+                gy, gz = oy + y0, oz + z0
+                kinds["edge" if (gy < 1 or gz < 1 or gy + wy > ny - 1
+                                 or gz + wz > nz - 1) else "interior"] += 1
+                kinds["ragged_y"] += by - a < ty
+                kinds["ragged_z"] += bz - c < tz
+                kinds["partial_group"] += min(tz, bz - c) % 4 != 0
+        return kinds
+
+    def h_band_takes(self, block, rows, k: int) -> bool:
+        """Does the band's launch take thread blocks of ``block`` ``(32
+        lanes, warps)`` with ``rows`` rows a thread at depth ``k``? F's
+        rule (:meth:`f_takes`) at the compiled rows 2 and 4
+        (``csrc/heat_h_band_fix_3d.cu``)."""
+        return rows in (2, 4) and self.f_takes(block, rows, k)
+
+    @functools.lru_cache(maxsize=16)
+    def h_band_shape(self, k: int):
+        """``(block, rows, prefetch)``: the band's launch shape at depth
+        ``k``, the first of ``h_band_shapes`` that takes ``k`` (and one
+        block's shared memory, :meth:`f_k_max`) with the most planes in
+        flight that fit, up to ``h_band_prefetch``; None where no shape
+        takes ``k``."""
+        for block, rows in self.h_band_shapes:
+            for prefetch in range(self.h_band_prefetch, 0, -1):
+                if (self.h_band_takes(block, rows, k)
+                        and k <= self.f_k_max(block, rows, prefetch)):
+                    return block, rows, prefetch
+        return None
+
+    def h_band_k_max(self) -> int:
+        """Deepest K the band takes at some shape (:meth:`h_band_shape`)."""
+        return max(k for k in range(1, self.f_k_compiled + 1)
+                   if self.h_band_shape(k) is not None)
+
+    @staticmethod
+    def h_band_vec_fits(block_shape) -> bool:
+        """Do ``(bx, by, bz)`` blocks take the band's 16-byte load? Rows of
+        a multiple of 4 floats (``bz % 4 == 0``); the launch also needs
+        every block 16-byte aligned (``csrc/heat_h_band_fix_3d.cu``
+        ``heat_hb_aligned``)."""
+        return block_shape[2] % 4 == 0
+
+    def h_band_tiles(self, block_shape, k: int, shape=None):
+        """``(tiles_y, tiles_z)`` of the band's launch at depth ``k`` on a
+        ``(bx, by, bz)`` block (F's tiles over the block face), at
+        :meth:`h_band_shape`'s block and rows unless ``shape`` ``(block,
+        rows, prefetch)`` is given. The grid is ``(tiles_y * tiles_z, 2,
+        blocks)``."""
+        block, rows, _ = shape or self.h_band_shape(k)
+        _, by, bz = block_shape
+        ty, tz = self.f_tile(k, block, rows)
+        return -(-by // ty), -(-bz // tz)
+
+    def h_band_tile_kinds(self, block_shape, k: int, halos, origin,
+                          grid_shape, shape=None) -> dict:
+        """The (Y, Z) tiles of a band launch at depth ``k`` on a ``(bx,
+        by, bz)`` block at ``origin`` of ``grid_shape`` with ``halos``
+        ``(hx, hy, hz)``, counted by what their load and steps run:
+        ``lo_y`` and ``lo_z`` (the extended tile reaches below the block
+        along a sharded axis: cells of the y tail's or z tail's lo piece),
+        ``hi_y`` and ``hi_z`` (past its end: the hi pieces), ``inside``
+        (neither: every cell of a row from the block), ``straddle`` (a
+        lane's four cells span the block's last z and the z tail: bz % 4
+        != 0), and :meth:`f_tile_kinds`' ``interior``, ``edge``,
+        ``ragged_y``, ``ragged_z`` and ``partial_group`` in the block's
+        global place. Tiles are counted once for both regions."""
+        block, rows, _ = shape or self.h_band_shape(k)
+        _, by, bz = block_shape
+        _, hy, hz = halos
+        _, oy, oz = origin
+        _, ny, nz = grid_shape
+        wy, wz = self.f_extent(block, rows)
+        ty, tz = self.f_tile(k, block, rows)
+        pad = self.f_pad(k)
+        kinds = dict.fromkeys(("tiles", "inside", "lo_y", "lo_z", "hi_y",
+                               "hi_z", "straddle", "interior", "edge",
+                               "ragged_y", "ragged_z", "partial_group"), 0)
+        for a in range(0, by, ty):
+            for c in range(0, bz, tz):
+                y0, z0 = a - k, c - pad
+                kinds["tiles"] += 1
+                lo_y, lo_z = y0 < 0 and hy > 0, z0 < 0 and hz > 0
+                hi_y, hi_z = y0 + wy > by and hy > 0, z0 + wz > bz and hz > 0
+                kinds["lo_y"] += lo_y
+                kinds["lo_z"] += lo_z
+                kinds["hi_y"] += hi_y
+                kinds["hi_z"] += hi_z
+                kinds["inside"] += not (lo_y or lo_z or hi_y or hi_z)
+                kinds["straddle"] += (hz > 0 and bz % 4 != 0
+                                      and z0 < bz < z0 + wz)
                 gy, gz = oy + y0, oz + z0
                 kinds["edge" if (gy < 1 or gz < 1 or gy + wy > ny - 1
                                  or gz + wz > nz - 1) else "interior"] += 1

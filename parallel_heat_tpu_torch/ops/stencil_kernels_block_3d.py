@@ -26,9 +26,11 @@ package:
   loop; its tiles that need no ``lo`` cell load by TMA where the rows
   are multiples of 16 bytes (:func:`h_block_load`), the others by a
   cp.async per cell;
-- :func:`h_band_fix` launches ``heat_h_band_fix_3d``, the counterpart of
-  ``heat_h_band_fix_3d``: planes ``[0, k)`` and ``[bx - k, bx)`` of the
-  same K steps, written into the bulk's output in place;
+- :class:`BandLaunch3D` launches ``heat_h_band_fix_3d``, the counterpart
+  of ``heat_h_band_fix_3d``: planes ``[0, k)`` and ``[bx - k, bx)`` of
+  the same K steps of every block of a round in one launch, written into
+  the bulks' outputs in place, each tile stepped on kernel F's plane
+  loop; :func:`h_band_fix` is that launch with one block;
 - the ``*_plain`` functions compute the same in plain PyTorch: they
   assemble the padded frame ``(bx + 2k, by + 2k, bz + 2k)`` with zeros
   outside the global grid and take ``k`` masked steps of
@@ -49,6 +51,7 @@ into bulk and band.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 from typing import Optional
 
@@ -136,9 +139,14 @@ def padded_lead(f, u, ztail, ytail, k) -> None:
     by + 2k, bz + 2k)`` (every axis ``[lo | u | hi]``) from the block and
     its tails (None for an unsharded axis: those cells are not
     written)."""
+    _padded_planes(f[k:k + u.shape[0]], u, ztail, ytail, k)
+
+
+def _padded_planes(mid, u, ztail, ytail, k) -> None:
+    """Write ``mid`` ``(n, by + 2k, bz + 2k)`` from ``n`` planes of the
+    block and of its tails, as :func:`padded_lead` writes its planes."""
     bx, by, bz = u.shape
     hz = k if ztail is not None else 0
-    mid = f[k:k + bx]
     mid[:, k:k + by, k:k + bz].copy_(u)
     if ztail is not None:
         mid[:, k:k + by, :k].copy_(ztail[..., k:])
@@ -152,11 +160,17 @@ def padded_lead(f, u, ztail, ytail, k) -> None:
 def padded_slabs(f, xlo, xhi, k) -> None:
     """Write planes ``[0, k)`` and ``[k + bx, bx + 2k)`` of the padded
     frame ``f`` from the x slabs (y and z circular)."""
-    by, bz = f.shape[1] - 2 * k, f.shape[2] - 2 * k
-    hy, hz = (xlo.shape[1] - by) // 2, (xlo.shape[2] - bz) // 2
-    for slab, dst in ((xlo, f[:k]), (xhi, f[f.shape[0] - k:])):
-        _copy_padded(dst[:, k - hy:k + by + hy, k - hz:k + bz + hz], slab,
-                     {1: (by, hy), 2: (bz, hz)})
+    _padded_slab(f[:k], xlo, k)
+    _padded_slab(f[f.shape[0] - k:], xhi, k)
+
+
+def _padded_slab(dst, slab, k) -> None:
+    """Write the ``k`` padded planes ``dst`` from an x slab (y and z
+    circular)."""
+    by, bz = dst.shape[1] - 2 * k, dst.shape[2] - 2 * k
+    hy, hz = (slab.shape[1] - by) // 2, (slab.shape[2] - bz) // 2
+    _copy_padded(dst[:, k - hy:k + by + hy, k - hz:k + bz + hz], slab,
+                 {1: (by, hy), 2: (bz, hz)})
 
 
 def _frame_of_pieces(u, ztail, ytail, xlo, xhi, k):
@@ -227,6 +241,84 @@ def h_band_fix_plain(u, ztail, ytail, xlo, xhi, out, k, with_residual=True,
     return _steps_plain(_frame_of_pieces(u, ztail, ytail, xlo, xhi, k), out,
                         k, with_residual, origin, grid_shape, cx, cy, cz,
                         [(0, 3 * k), (bx - k, bx + 2 * k)])
+
+
+def _band_windows_3d(u, ztail, ytail, xlo, xhi, k):
+    """The two ``3k``-plane windows of a block's padded frame that the band
+    steps, ``(2, 3k, by + 2k, bz + 2k)``: frame planes ``[0, 3k)`` and
+    ``[bx - k, bx + 2k)``, built from the pieces without the frame (zeros
+    where no piece is given)."""
+    bx, by, bz = u.shape
+    win = u.new_zeros((2, 3 * k, by + 2 * k, bz + 2 * k))
+    lo, hi = slice(0, 2 * k), slice(bx - 2 * k, bx)
+    _padded_slab(win[0, :k], xlo, k)
+    _padded_planes(win[0, k:], u[lo], _planes(ztail, lo), _planes(ytail, lo),
+                   k)
+    _padded_planes(win[1, :2 * k], u[hi], _planes(ztail, hi),
+                   _planes(ytail, hi), k)
+    _padded_slab(win[1, 2 * k:], xhi, k)
+    return win
+
+
+def _planes(t, sl):
+    return None if t is None else t[sl]
+
+
+def band_fix_blocks_3d_plain(us, ztails, ytails, xlos, xhis, outs, k,
+                             with_residual=True, *, origins, grid_shape, cx,
+                             cy, cz) -> Optional[torch.Tensor]:
+    """Plain version of :func:`band_fix_blocks_3d`: the two ``3k``-plane
+    windows of every block's frame stacked into one batch and stepped
+    together, each cell zeroed outside the global grid and masked by its
+    own global position, as :func:`h_band_fix_plain` steps one block's;
+    the max residual over all the bands."""
+    counts["h_band_fix_plain"] += 1
+    bx, by, bz = outs[0].shape
+    win = torch.cat([_band_windows_3d(*x, k) for x in zip(
+        us, ztails, ytails, xlos, xhis)])
+    dev = win.device
+    # The global index of each window's cell (0, 0, 0), axis by axis.
+    starts = [[o[0] + w0 for o in origins for w0 in (-k, bx - 2 * k)],
+              [o[1] - k for o in origins for _ in range(2)],
+              [o[2] - k for o in origins for _ in range(2)]]
+
+    def inside(margin):
+        """The cells ``margin`` or more from the windows' edges that lie
+        ``margin`` or more inside the grid (0: in the grid, 1: in its
+        interior)."""
+        m = None
+        for axis, (s0, n) in enumerate(zip(starts, grid_shape)):
+            size = win.shape[axis + 1] - 2 * margin
+            idx = (torch.tensor(s0, device=dev)[:, None] + margin
+                   + torch.arange(size, device=dev))
+            shape = [len(s0), 1, 1, 1]
+            shape[axis + 1] = size
+            a = ((idx >= margin) & (idx <= n - 1 - margin)).view(shape)
+            m = a if m is None else m & a
+        return m
+
+    win = torch.where(inside(0), win, torch.zeros((), device=dev))
+    interior = inside(1)
+    coeffs = coeffs3_f32(cx, cy, cz)
+    inner = (slice(None),) + (slice(1, -1),) * 3
+    diff = None
+    for step in range(k):
+        c = win[inner]
+        new = torch.where(interior, combine_3d(
+            c, win[:, :-2, 1:-1, 1:-1], win[:, 2:, 1:-1, 1:-1],
+            win[:, 1:-1, :-2, 1:-1], win[:, 1:-1, 2:, 1:-1],
+            win[:, 1:-1, 1:-1, :-2], win[:, 1:-1, 1:-1, 2:], *coeffs), c)
+        if with_residual and step == k - 1:
+            diff = torch.where(interior, (new - c).abs(),
+                               torch.zeros((), device=dev))
+        win[inner] = new
+    core = (slice(k, 2 * k), slice(k, k + by), slice(k, k + bz))
+    for i, out in enumerate(outs):
+        out[:k] = win[(2 * i,) + core]
+        out[bx - k:] = win[(2 * i + 1,) + core]
+    if not with_residual:
+        return None
+    return diff[:, k - 1:2 * k - 1, k - 1:k - 1 + by, k - 1:k - 1 + bz].amax()
 
 
 # ---------------------------------------------------------------------------
@@ -304,12 +396,12 @@ def _pieces(out, u, ztail, ytail, xlo, xhi, k, halos, with_x=True):
 
 def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
             cy, cz, mid, geometry):
-    """Launch kernel ``name`` on ``args`` (its leading pointers) into
-    ``out``; ``mid`` the int arguments between the origin and k (halos,
-    and defer_x and tma for the fused form), ``geometry`` those after k
-    (thread block, rows per thread and, but for the band, the X
-    segment). Checks nothing; counts the launch. Returns the residual
-    view or None."""
+    """Launch kernel ``name`` (H or H-fused) on ``args`` (its leading
+    pointers) into ``out``; ``mid`` the int arguments between the origin
+    and k (halos, and defer_x and tma for the fused form), ``geometry``
+    those after k (thread block, rows per thread, X segment and, for H,
+    prefetch and load). Checks nothing; counts the launch. Returns the
+    residual view or None."""
     from parallel_heat_tpu_torch.kernels.build import load
 
     lib = load(name)
@@ -364,10 +456,10 @@ def h_occupancy(k: int) -> int:
     return blocks.value
 
 
-def _geometry(block_shape, k, planes, segment=True):
+def _geometry(block_shape, k, planes):
     p = params()
-    geo = (p.h_block[0], p.h_block[1], p.h_rows)
-    return geo + (p.h_launch(block_shape, k, planes),) if segment else geo
+    return (p.h_block[0], p.h_block[1], p.h_rows,
+            p.h_launch(block_shape, k, planes))
 
 
 def h_block(ext: torch.Tensor, out: torch.Tensor, k: int,
@@ -473,27 +565,158 @@ def h_band_fix(u: torch.Tensor, ztail: Optional[torch.Tensor],
                xhi: torch.Tensor, out: torch.Tensor, k: int,
                with_residual: bool = True, *, origin, grid_shape, cx: float,
                cy: float, cz: float) -> Optional[torch.Tensor]:
-    """The band kernel: planes ``[0, k)`` and ``[bx - k, bx)`` of ``k``
-    steps of block ``u``, written into ``out`` in place (the other planes
-    are left as they are); the residual of exactly those planes (0-d
-    float32) or None. x must be sharded (the slabs given) and ``bx`` at
-    least ``2k``."""
-    halos = halos_of(u.shape, grid_shape, k)
-    if not halos[0]:
-        raise ValueError("the band kernel needs the x slabs: the block spans "
-                         "the grid along x")
-    _check_block(out, k, origin, grid_shape,
-                 _pieces(out, u, ztail, ytail, xlo, xhi, k, halos))
-    if out.shape[0] < 2 * k:
-        raise ValueError(f"the band kernel needs at least 2k = {2 * k} "
-                         f"x-planes, got a block of {out.shape[0]}")
+    """The band kernel on one block: planes ``[0, k)`` and ``[bx - k, bx)``
+    of ``k`` steps of block ``u``, written into ``out`` in place (the
+    other planes are left as they are); the residual of exactly those
+    planes (0-d float32) or None. x must be sharded (the slabs given) and
+    ``bx`` at least ``2k``. A launch of :class:`BandLaunch3D` with one
+    entry."""
+    launch = BandLaunch3D([u], [ztail], [ytail], [xlo], [xhi], [out], k,
+                          origins=[origin], grid_shape=grid_shape, cx=cx,
+                          cy=cy, cz=cz)
     if out.device.type == "cpu":
         return h_band_fix_plain(u, ztail, ytail, xlo, xhi, out, k,
                                 with_residual, origin=origin,
                                 grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
-    return _launch(BAND, (u, ztail, ytail, xlo, xhi), out, k, with_residual,
-                   origin=origin, grid_shape=grid_shape, cx=cx, cy=cy, cz=cz,
-                   mid=halos, geometry=_geometry(out.shape, k, k, False))
+    return launch(with_residual)
+
+
+# Blocks a launch of the band kernel takes (csrc/heat_h_band_fix_3d.cu
+# kHeatHBandTable: 48 entries of 72 bytes keep its parameters under 4
+# KB); a round of more blocks launches in chunks.
+BAND_TABLE_3D = 48
+# Its loads, by their code in csrc/heat_h_band_fix_3d.cu (HeatHBandLoad):
+# a 4-byte cp.async a cell, or 16 bytes a lane where its cells are one
+# aligned run of the block.
+BAND_LOADS_3D = ("cells", "vec")
+
+
+class _BandEntry3D(ctypes.Structure):
+    """One block of the 3D band kernel's table
+    (csrc/heat_h_band_fix_3d.cu ``HeatHBandEntry``)."""
+
+    _fields_ = [("u", ctypes.c_void_p), ("ztail", ctypes.c_void_p),
+                ("ytail", ctypes.c_void_p), ("xlo", ctypes.c_void_p),
+                ("xhi", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("ox", ctypes.c_int64), ("oy", ctypes.c_int64),
+                ("oz", ctypes.c_int64)]
+
+
+class BandLaunch3D:
+    """Every block's bands in one launch of ``heat_h_band_fix_3d``: the
+    blocks ``us`` (all of one shape, x sharded, each with at least ``2k``
+    planes) with their tails (None along an unsharded axis) and x slabs,
+    each block's bands written into ``outs`` in place, ``origins`` their
+    places in the grid.
+
+    The operands are checked and the launch's table is built once, here;
+    each call launches it (or, for tensors on the CPU, runs
+    :func:`band_fix_blocks_3d_plain`) and returns the residual of all the
+    bands or None. A round keeps one for each of its two ping-pong
+    buffers, so that it makes one host call for its bands. The table holds
+    the tensors' addresses, not the tensors: the caller keeps them alive
+    and unmoved. ``shape`` ``(block, rows, prefetch)`` overrides
+    :meth:`~.hopper_params.HopperParams.h_band_shape` (the sweep's
+    shapes).
+
+    :attr:`load` is the load the launch takes: ``"vec"`` (16 bytes a lane
+    where its four cells are one aligned run of the block) where
+    :meth:`~.hopper_params.HopperParams.h_band_vec_fits` takes the blocks
+    and every block is 16-byte aligned, else ``"cells"``; ``load`` pins
+    one of :data:`BAND_LOADS_3D` (``"vec"`` where it does not fit raises
+    ValueError)."""
+
+    def __init__(self, us, ztails, ytails, xlos, xhis, outs, k: int, *,
+                 origins, grid_shape, cx: float, cy: float, cz: float,
+                 shape=None, load: Optional[str] = None):
+        n = len(us)
+        if not n or any(len(x) != n for x in (ztails, ytails, xlos, xhis,
+                                              outs, origins)):
+            raise ValueError("give one z tail, y tail, pair of x slabs, "
+                             "output and origin for each of at least one "
+                             "block")
+        p = params()
+        bs = tuple(outs[0].shape)
+        halos = halos_of(bs, grid_shape, k)
+        if not halos[0]:
+            raise ValueError("the band kernel needs the x slabs: the block "
+                             "spans the grid along x")
+        for u, zt, yt, lo, hi, out, o in zip(us, ztails, ytails, xlos, xhis,
+                                             outs, origins):
+            if tuple(out.shape) != bs or out.device != outs[0].device:
+                raise ValueError(f"blocks of one shape on one device only: "
+                                 f"{tuple(out.shape)} on {out.device}, {bs} "
+                                 f"on {outs[0].device}")
+            _check_block(out, k, tuple(o), grid_shape,
+                         _pieces(out, u, zt, yt, lo, hi, k, halos),
+                         k_max=p.h_band_k_max())
+        if bs[0] < 2 * k:
+            raise ValueError(f"the band kernel needs at least 2k = {2 * k} "
+                             f"x-planes, got blocks of {bs[0]}")
+        self.shape = tuple(shape or p.h_band_shape(k) or ())
+        if not self.shape or not p.h_band_takes(*self.shape[:2], k) or (
+                k > p.f_k_max(*self.shape)):
+            raise ValueError(f"the band's plane loop does not take the shape "
+                             f"{self.shape} (block, rows, prefetch) at K={k}")
+        vec = p.h_band_vec_fits(bs) and not any(u.data_ptr() % 16
+                                                for u in us)
+        if load not in (None,) + BAND_LOADS_3D:
+            raise ValueError(f"load must be one of {BAND_LOADS_3D}, got "
+                             f"{load!r}")
+        if load == "vec" and not vec:
+            raise ValueError(f"the band's 16-byte load needs bz % 4 == 0 and "
+                             f"16-byte aligned blocks: blocks {bs}")
+        self.load = load or ("vec" if vec else "cells")
+        self.k, self.grid_shape, self.blocks = k, tuple(grid_shape), n
+        self.cx, self.cy, self.cz = cx, cy, cz
+        self.device = outs[0].device
+        if self.device.type == "cpu":
+            self._operands = tuple(list(x) for x in (
+                us, ztails, ytails, xlos, xhis, outs)) + (
+                [tuple(o) for o in origins],)
+            return
+        self._table = (_BandEntry3D * n)(*[
+            _BandEntry3D(u.data_ptr(), _ptr(zt), _ptr(yt), lo.data_ptr(),
+                         hi.data_ptr(), out.data_ptr(), *o)
+            for u, zt, yt, lo, hi, out, o in zip(us, ztails, ytails, xlos,
+                                                 xhis, outs, origins)])
+        (lanes, warps), rows, prefetch = self.shape
+        self._args = (*self.grid_shape, *bs, *halos[1:], k, lanes, warps,
+                      rows, prefetch, *coeffs3_f32(cx, cy, cz))
+
+    def __call__(self, with_residual: bool = True) -> Optional[torch.Tensor]:
+        if self.device.type == "cpu":
+            us, zts, yts, los, his, outs, origins = self._operands
+            return band_fix_blocks_3d_plain(
+                us, zts, yts, los, his, outs, self.k, with_residual,
+                origins=origins, grid_shape=self.grid_shape, cx=self.cx,
+                cy=self.cy, cz=self.cz)
+        from parallel_heat_tpu_torch.kernels.build import load
+
+        lib = load(BAND)
+        bits = (torch.empty(1, dtype=torch.int32, device=self.device)
+                if with_residual else None)
+        code = lib.heat_h_band_fix_3d(
+            ctypes.addressof(self._table), self.blocks,
+            BAND_LOADS_3D.index(self.load), _ptr(bits), *self._args,
+            torch.cuda.current_stream(self.device).cuda_stream)
+        _raise_on_error(lib, BAND, code)
+        counts[BAND] += -(-self.blocks // BAND_TABLE_3D)  # one a chunk
+        return _residual_view(bits) if bits is not None else None
+
+
+def band_fix_blocks_3d(us, ztails, ytails, xlos, xhis, outs, k: int,
+                       with_residual: bool = True, *, origins, grid_shape,
+                       cx: float, cy: float,
+                       cz: float) -> Optional[torch.Tensor]:
+    """The band kernel on every block of a round in one launch
+    (:class:`BandLaunch3D`, built and called once): planes ``[0, k)`` and
+    ``[bx - k, bx)`` of ``k`` steps of each block ``us[i]`` into
+    ``outs[i]`` in place; the residual of all the bands (0-d float32) or
+    None."""
+    return BandLaunch3D(us, ztails, ytails, xlos, xhis, outs, k,
+                        origins=origins, grid_shape=grid_shape, cx=cx, cy=cy,
+                        cz=cz)(with_residual)
 
 
 # ---------------------------------------------------------------------------

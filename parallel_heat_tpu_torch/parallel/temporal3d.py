@@ -252,7 +252,10 @@ def cuda_round_3d(xch: DeepExchange3D, kind: str, mode: str, *, grid_shape,
     None``. H-fused reads the exchange's pieces; H a block assembled into
     a buffer of its own, one more full-block copy a round; H-defer under
     the overlap schedule runs the deferred bulk of every block between the
-    y and the x phase, then the band kernel of every block."""
+    y and the x phase, then the band kernel of every block in one launch
+    (``stencil_kernels_block_3d.BandLaunch3D``), built on the first round
+    over each pair of buffers ``(us, vs)`` and kept while the round sees
+    no other."""
     k, mesh = xch.k, xch.mesh
     bs = xch.block_shape
     deferred = skb3.pick_block_temporal_3d_deferred(kind, bs, mesh.shape, k,
@@ -261,6 +264,22 @@ def cuda_round_3d(xch: DeepExchange3D, kind: str, mode: str, *, grid_shape,
     kw = dict(grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
     exts = ([xch.new_circular() for _ in range(mesh.size)]
             if kind == "H" else None)
+    bands = {}
+
+    def bands_of(us, vs):
+        # A launch holds its blocks' addresses, and was checked against
+        # what the key holds besides: their shapes, strides, types and
+        # devices. A run alternates the two orders of its two buffers, so
+        # a third key means buffers the run no longer holds.
+        key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                     t.device) for t in (*us, *vs))
+        if key not in bands:
+            if len(bands) >= 2:
+                bands.clear()
+            bands[key] = skb3.BandLaunch3D(us, xch.ztail, xch.ytail, xch.xlo,
+                                           xch.xhi, vs, k, origins=origins,
+                                           **kw)
+        return bands[key]
 
     def fn(us, vs, want_res):
         res = []
@@ -271,12 +290,12 @@ def cuda_round_3d(xch: DeepExchange3D, kind: str, mode: str, *, grid_shape,
                 res.append(skb3.h_block_fused(
                     us[b], zt, yt, None, None, vs[b], k, want_res,
                     defer_x=True, origin=origins[b], **kw))
+            xch.last(us)
+            res.append(bands_of(us, vs)(want_res))
+            return torch.stack(res).amax() if want_res else None
         xch.last(us)
         for b in range(mesh.size):
-            if deferred:
-                r = skb3.h_band_fix(us[b], *xch.pieces(b), vs[b], k,
-                                    want_res, origin=origins[b], **kw)
-            elif exts is not None:
+            if exts is not None:
                 xch.assemble_circular(b, us[b], exts[b])
                 r = skb3.h_block(exts[b], vs[b], k, want_res,
                                  origin=origins[b], **kw)

@@ -514,7 +514,8 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
                                             mode):
         round_ = (f"overlapped round: deferred bulk {detail['kernel']} "
                   f"(x-planes [{k}, {bs[0] - k}) from u and the z and y "
-                  f"tails) + band kernel {skb3.BAND}")
+                  f"tails) + band kernel {skb3.BAND} (every block's x "
+                  f"bands in one launch, on F's plane loop)")
     elif kind == "H":
         round_ = (f"monolithic round: {detail['kernel']} on the assembled "
                   f"circular block")

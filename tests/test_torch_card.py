@@ -18,7 +18,8 @@ plain versions, so an implicit run under ``backend="cuda"`` is bitwise
 the one under ``backend="torch"``. Each sharded block kernel (G-uni,
 G-fuse, G-circ, G, the band fix) is bitwise its plain version, the
 others, and kernel E's K steps on the same cells of the global grid; so
-is each 3D one (H-fused, H, the deferred bulk with the band fix) against
+is each 3D one (H-fused, H, the deferred bulk with the band fix, the
+band's one launch over every block under each of its loads) against
 kernel F's; a sharded ``solve()``, 2D or 3D, is bitwise the one-block
 run on the card and the plain versions' run on the CPU.
 """
@@ -699,6 +700,111 @@ def test_h_cases_run_every_tile_kind(card):
                     block, k, halos, mesh.origin(b, block), grid).items():
                 seen[kind] = seen.get(kind, 0) + n
     assert seen and all(seen.values()), seen
+
+
+# The 3D band's one launch over every block of a mesh: the main path's
+# 512^3 blocks of 1024^3 on (2, 2, 2) (the 16-byte load), ragged blocks
+# (bz % 4 != 0: a lane straddles the block and its z tail), blocks that
+# span the grid along z or along y and z, and blocks of exactly 16 planes
+# (2K at K = 8).
+H_BAND_BLOCKS = [((2, 2, 2), (512, 512, 512)), ((3, 3, 3), (37, 45, 90)),
+                 ((2, 4, 1), (40, 33, 97)), ((2, 1, 1), (20, 70, 132)),
+                 ((2, 2, 2), (16, 128, 252))]
+
+
+@pytest.mark.parametrize("mesh_shape,block", H_BAND_BLOCKS,
+                         ids=lambda v: "x".join(map(str, v)))
+def test_h_band_launch_bitwise_plain_at_every_k(card, mesh_shape, block):
+    """The round's band launch over every block, at every compiled K from
+    the deepest down (a fault that only deep K shows comes first), under
+    each load the blocks take (``BAND_LOADS_3D``), into NaN-filled
+    outputs: bitwise the batched plain version, its residual the same, one
+    launch counted, nothing written between the bands, and the band
+    planes kernel F's K steps of the global grid."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    grid = tuple(m * b for m, b in zip(mesh_shape, block))
+    g = _rand(grid, 23, card)
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(g)
+    origins = [mesh.origin(b, block) for b in range(mesh.size)]
+    kw = dict(origins=origins, grid_shape=grid, cx=0.1, cy=0.15, cz=0.05)
+    ran = set()
+    for k in range(p.h_band_k_max(), 0, -1):
+        if block[0] < 2 * k:
+            continue
+        xch = temporal3d.DeepExchange3D(mesh, block, k, card)
+        xch.lead(us)
+        xch.last(us)
+        pieces = (xch.ztail, xch.ytail, xch.xlo, xch.xhi)
+        want = [torch.full(block, float("nan"), device=card) for _ in us]
+        rp = skb3.band_fix_blocks_3d_plain(us, *pieces, want, k, **kw)
+        f_out = torch.empty_like(g)
+        sk3.xslab_steps_3d(g, f_out, k, cx=0.1, cy=0.15, cz=0.05)
+        loads = {"cells", skb3.BandLaunch3D(
+            us, *pieces, want, k, **kw).load}
+        for load in sorted(loads):
+            got = [torch.full(block, float("nan"), device=card) for _ in us]
+            sk.reset_counts()
+            r = skb3.BandLaunch3D(us, *pieces, got, k, load=load, **kw)()
+            assert sk.counts["heat_h_band_fix_3d"] == 1, load
+            assert torch.equal(r, rp), (k, load)
+            for a, w, o in zip(got, want, origins):
+                assert torch.equal(a.nan_to_num(7.0), w.nan_to_num(7.0)), (
+                    k, load, o)
+                assert a[k:block[0] - k].isnan().all()
+                f = f_out[tuple(slice(c, c + n) for c, n in zip(o, block))]
+                assert torch.equal(a[:k], f[:k])
+                assert torch.equal(a[block[0] - k:], f[block[0] - k:])
+            ran.add(load)
+        del xch, f_out
+    assert "cells" in ran
+    if p.h_band_vec_fits(block):
+        assert "vec" in ran
+
+
+@pytest.mark.parametrize("mesh_shape,block,k", [
+    ((2, 2, 2), (64, 64, 64), 3), ((3, 3, 3), (37, 45, 80), 8),
+    ((2, 4, 1), (40, 33, 97), 1), ((49, 1, 1), (6, 20, 24), 3)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_h_bulk_and_band_launch_bitwise_monolithic(card, mesh_shape, block,
+                                                   k):
+    """A round's deferred bulks plus its one band launch (in chunks past
+    BAND_TABLE_3D blocks: the 49 blocks of (49, 1, 1) take two) are
+    bitwise the monolithic H-fused round, and max(bulk, band) is its
+    residual."""
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    grid = tuple(m * b for m, b in zip(mesh_shape, block))
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(_rand(grid, 29, card))
+    xch = temporal3d.DeepExchange3D(mesh, block, k, card)
+    xch.lead(us)
+    xch.last(us)
+    origins = [mesh.origin(b, block) for b in range(mesh.size)]
+    kw = dict(grid_shape=grid, cx=0.1, cy=0.15, cz=0.05)
+    split = [torch.full(block, float("nan"), device=card) for _ in us]
+    res = [skb3.h_block_fused(us[b], xch.ztail[b], xch.ytail[b], None, None,
+                              split[b], k, defer_x=True, origin=origins[b],
+                              **kw) for b in range(mesh.size)]
+    sk.reset_counts()
+    res.append(skb3.band_fix_blocks_3d(us, xch.ztail, xch.ytail, xch.xlo,
+                                       xch.xhi, split, k, origins=origins,
+                                       **kw))
+    assert sk.counts["heat_h_band_fix_3d"] == -(-mesh.size
+                                                // skb3.BAND_TABLE_3D)
+    mono = []
+    for b in range(mesh.size):
+        want = torch.empty(block, device=card)
+        mono.append(skb3.h_block_fused(us[b], *xch.pieces(b), want, k,
+                                       origin=origins[b], **kw))
+        assert torch.equal(split[b], want), b
+    assert torch.equal(torch.stack(res).amax(), torch.stack(mono).amax())
 
 
 @pytest.mark.parametrize("cfg,force", [

@@ -8,7 +8,8 @@ Run from the repository root, with no arguments::
 It imports nothing of JAX and nothing of ``parallel_heat_tpu``. It
 prints the card's name and power limit, then one JSON line per phase:
 
-1. build — every kernel of the main path is built from ``csrc/`` with
+1. build — every kernel of the main path, and the device loop's helper
+   (``csrc/heat_graph_loop.cu``), is built from ``csrc/`` with
    nvcc for sm_90a (one nvcc per source, started together), timed, with
    ptxas's report of registers, spills and static shared memory for each
    template instance by name (``<K, R, ...>``) and the instances that
@@ -286,6 +287,21 @@ prints the card's name and power limit, then one JSON line per phase:
    to one block;
 20. cli_sharded_3d — ``--nx 64 --ny 64 --nz 64 --steps 100 --mesh 2,2,2
    --out <tmp>.npy`` writes the one-block grid;
+20b. device_loop — the loops on the card (``utils/device_loop.py``:
+   converge windows, implicit V-cycles and fixed sharded rounds replayed
+   as graphs, the stop test on the card) against the eager executor
+   (every stop test a host read, the loop the port ran before), both in
+   this process: 1000^2 to eps under A, 512^2 backward Euler and
+   Crank-Nicolson (20 steps), 1000^2 on (2, 4) and 64^3 on (2, 2, 2) to
+   eps, 32768^2 on (2, 4) and 1024^3 on (2, 2, 2) fixed (200 steps), and
+   20^2 (converges at step 1980), 16^2 past the stability bound (NaN at
+   step 140, the ring bit-exact) and 10^3 on (2, 2, 2) (converges at step
+   360): steps_run, converged, residual, grid bit for bit, launch counts
+   and V-cycles identical; host reads at most one a replay plus one in
+   converge mode, none a step in fixed mode; each side's elapsed
+   seconds, idle share, host reads, capture seconds, graph nodes and
+   peak memory; then 1000^2 under A at 1, 4, 16 and 64 window copies a
+   graph;
 21. timing_h — ms per launch (CUDA events, and the card's own time from
    ``torch.profiler``) of each H kernel at the main path's block, 512^3 at
    K = h_k_default without the residual: H-fused monolithic (the
@@ -363,7 +379,9 @@ prints the card's name and power limit, then one JSON line per phase:
    ``no_load`` at 512^3, K = 3, under each load, the max and sum models
    and a ring ladder.
 
-Then a ``{"kernels": [...]}`` line (all twenty kernels, and the ten
+Then a ``{"phase_seconds": {...}, "total_s": t}`` line (each phase's
+wall seconds, from the line before its own), a ``{"kernels": [...]}``
+line (all twenty kernels, and the ten
 probes' kernels, each with its own run's launches: A's anatomy probe and
 neighbour forms with A's plain version, bound and yardstick, the E-uni
 probes with E-uni's, the overlap probe with F's, the roofline with its
@@ -531,8 +549,24 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# When each phase's line was printed, for the phase_seconds line.
+_PHASE_AT = []
+
+
 def emit(obj):
+    if "phase" in obj:
+        _PHASE_AT.append((obj["phase"], time.perf_counter()))
     print(json.dumps(obj), flush=True)
+
+
+def phase_seconds(start: float) -> dict:
+    """Each phase's wall seconds, from the line before its own (the
+    first from ``start``), and the whole run's."""
+    out, t = {}, start
+    for name, at in _PHASE_AT:
+        out[name] = at - t
+        t = at
+    return {"phase_seconds": out, "total_s": t - start}
 
 
 def same_float(a, b) -> bool:
@@ -552,7 +586,7 @@ def phase_build():
     from parallel_heat_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    names = tuple(build.KERNELS) + tuple(build.TOOLS)
+    names = tuple(build.KERNELS) + tuple(build.TOOLS) + tuple(build.HELPERS)
     paths = build.build(*names)
     seconds = time.perf_counter() - t0
     for name in names:
@@ -1062,13 +1096,49 @@ def _device_ms(launch, name, made=40):
                        f"launches of {name}, three times over")
 
 
+def _device_busy_ms(prof):
+    """The card's busy milliseconds in a trace: the summed durations of
+    its device records (kernels, copies, memsets), read from the
+    profiler's raw records; its event tables (``key_averages``) take
+    seconds to build for a trace of 10^5 records, as an eager sharded
+    converge run makes."""
+    from torch._C._autograd import DeviceType
+
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+
+
 def _busy(solve_once, label):
-    """The card's busy share of one profiled run of ``solve_once``."""
-    wall, per = _profiled(solve_once)
-    busy_ms = sum(ms for ms, _ in per.values())
+    """The card's busy share of one profiled run of ``solve_once`` (a
+    call of ``solve()``): the trace spans the solver's clock alone, so a
+    run's warm-up and graph capture stay out of it as they stay out of
+    ``elapsed_s``, which is the wall time."""
+    from parallel_heat_tpu_torch import solver
+    from parallel_heat_tpu_torch.bench_kernels import TRACE_PAD_S, card_trace
+
+    traces, clock = [], solver.Timer
+
+    class Traced(clock):
+        def __enter__(self):
+            self.trace = card_trace(TRACE_PAD_S)
+            traces.append(self.trace.__enter__())
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            super().__exit__(*exc)
+            self.trace.__exit__(*exc)
+            return False
+
+    solver.Timer = Traced
+    try:
+        res = solve_once()
+    finally:
+        solver.Timer = clock
+    check(len(traces) == 1, f"{label}: {len(traces)} clocks in one solve")
+    busy_ms = _device_busy_ms(traces[0])
     check(busy_ms > 0, f"{label}: the profiler saw no device time")
-    return {"wall_s": wall, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / 1e3 / wall}
+    return {"wall_s": res.elapsed_s, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / 1e3 / res.elapsed_s}
 
 
 def _run_counted(cfg, kernel, default, label):
@@ -3986,6 +4056,211 @@ def phase_cli_sharded_3d():
           "stdout": proc.stdout.strip().splitlines()})
 
 
+# ---------------------------------------------------------------------------
+# The device loop: converge windows, implicit V-cycles and sharded rounds
+# replayed as graphs, the stop test on the card
+# ---------------------------------------------------------------------------
+
+# The runs the device loop is measured on: the converge path's 1000^2
+# under A, the implicit path's 512^2 (both schemes, IMP_STEPS), 1000^2 on
+# (2, 4) to eps, 64^3 on (2, 2, 2) to eps, and the sharded main paths
+# (MAIN_STEPS fixed steps); then the cases that stop the loop each way:
+# 20^2 (converges at step 1980), 16^2 past the stability bound (NaN at
+# step 140) and 10^3 on (2, 2, 2) (converges at step 360).
+LOOP_COPIES = (1, 4, 16, 64)     # the window copies measured at 1000^2
+
+
+def _loop_runs():
+    conv = dict(converge=True, check_interval=WINDOW, eps=1e-3)
+    imp = dict(nx=IMP_N, ny=IMP_N, cx=IMP_C, cy=IMP_C, steps=IMP_STEPS)
+    return [
+        ("1000^2 converge A", dict(nx=CONV, ny=CONV, steps=10000, **conv),
+         True),
+        ("512^2 backward Euler", dict(scheme="backward_euler", **imp), True),
+        ("512^2 Crank-Nicolson", dict(scheme="crank_nicolson", **imp),
+         True),
+        ("1000^2 (2, 4) converge", dict(nx=CONV, ny=CONV, steps=10000,
+                                        mesh_shape=SHARD_CONV, **conv),
+         True),
+        ("64^3 (2, 2, 2) converge", dict(nx=64, ny=64, nz=64, steps=2000,
+                                         mesh_shape=SHARD3_MESH, **conv),
+         True),
+        ("32768^2 (2, 4) fixed", dict(nx=SHARD_N, ny=SHARD_N,
+                                      steps=MAIN_STEPS,
+                                      mesh_shape=SHARD_MESH), True),
+        ("1024^3 (2, 2, 2) fixed", dict(nx=SHARD3_N, ny=SHARD3_N,
+                                        nz=SHARD3_N, steps=MAIN_STEPS,
+                                        mesh_shape=SHARD3_MESH), True),
+        ("20^2 converge", dict(nx=20, ny=20, steps=10000, **conv), False),
+        ("16^2 NaN", dict(nx=16, ny=16, cx=0.4, cy=0.4, steps=200, **conv),
+         False),
+        ("10^3 (2, 2, 2) converge", dict(nx=10, ny=10, nz=10, steps=5000,
+                                         mesh_shape=SHARD3_MESH, **conv),
+         False)]
+
+
+def _loop_run(cfg, eager, profile):
+    """solve(cfg) through the graphs, or with the eager executor (the
+    loop the port ran before: every stop test a host read); the counts,
+    stats and peak memory of that run, and with ``profile`` the card's
+    idle share of a second, profiled run."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from parallel_heat_tpu_torch import solve
+    from parallel_heat_tpu_torch.ops import multigrid as mg
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.utils import device_loop as dl
+
+    def mode():
+        return dl.eager() if eager else contextlib.nullcontext()
+
+    gc.collect()    # an earlier run's buffers, held in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sk.reset_counts()
+    mg.reset_stats()
+    dl.reset_stats()
+    with mode():
+        res = solve(cfg)
+    out = {"res": res, "counts": {k: n for k, n in sk.counts.items() if n},
+           "mg": dict(mg.stats), "dl": dict(dl.stats),
+           "peak_mib": (torch.cuda.max_memory_allocated() - held) / 2 ** 20,
+           "held_before_mib": held / 2 ** 20}
+    if profile:
+        with mode():
+            out["busy"] = _busy(lambda: solve(cfg), f"{cfg} profiled")
+    return out
+
+
+def _same_bits(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_device_loop():
+    """Every run of :func:`_loop_runs` through the graphs and with the
+    eager executor, in that order, in this process: steps_run,
+    converged, residual, grid (bit for bit, NaN cells included), launch
+    counts and V-cycles identical; the graph path's host reads at most
+    one a replay of its window copies plus one, none a step in fixed
+    mode; each side's elapsed seconds, idle share (profiled), host reads,
+    capture seconds, graph nodes and peak memory. Then 1000^2 under A at
+    each of LOOP_COPIES window copies a graph."""
+    import math
+
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, make_initial_grid
+    from parallel_heat_tpu_torch.utils import device_loop as dl
+
+    out = {}
+    for label, kw, profile in _loop_runs():
+        t0 = time.perf_counter()
+        cfg = HeatConfig(**kw)
+        g = _loop_run(cfg, False, profile)
+        e = _loop_run(cfg, True, profile)
+        rg, re_ = g.pop("res"), e.pop("res")
+        same = ((rg.steps_run, rg.converged) == (re_.steps_run, re_.converged)
+                and (rg.residual == re_.residual
+                     or (rg.residual is not None and re_.residual is not None
+                         and math.isnan(rg.residual)
+                         and math.isnan(re_.residual)))
+                and _same_bits(rg.grid, re_.grid))
+        check(same, f"device loop {label}: graphs {rg.steps_run} steps, "
+                    f"converged {rg.converged}, residual {rg.residual}; "
+                    f"eager {re_.steps_run}, {re_.converged}, "
+                    f"{re_.residual}, grids equal "
+                    f"{_same_bits(rg.grid, re_.grid)}")
+        check(g["counts"] == e["counts"]
+              and g["mg"]["cycles"] == e["mg"]["cycles"]
+              and g["mg"]["steps"] == e["mg"]["steps"],
+              f"device loop {label}: counts {g['counts']} {g['mg']} under "
+              f"the graphs, {e['counts']} {e['mg']} eager")
+        check(g["dl"]["graphs"] >= 1 and g["mg"]["host_syncs"] == 0,
+              f"device loop {label}: no graph, or host syncs in the "
+              f"V-cycles: {g['dl']} {g['mg']}")
+        reads = g["dl"]["reads"]
+        if cfg.converge:
+            ci = cfg.check_interval
+            windows = min(rg.steps_run, cfg.steps // ci * ci) // ci
+            copies = (dl.WINDOW_COPIES if cfg.scheme == "explicit" else 2)
+            check(reads <= -(-windows // copies) + 1,
+                  f"device loop {label}: {reads} host reads for {windows} "
+                  f"windows")
+        else:
+            check(reads <= 1, f"device loop {label}: {reads} host reads "
+                              f"in fixed mode")
+        if label == "16^2 NaN":
+            check(rg.steps_run == 140 and math.isnan(rg.residual),
+                  f"16^2 NaN: {rg.steps_run} steps, residual {rg.residual}")
+            u0 = make_initial_grid(cfg)
+            for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+                check(torch.equal(rg.grid[sl], u0[sl]),
+                      "16^2 NaN: a Dirichlet cell moved")
+        if label == "20^2 converge":
+            check((rg.steps_run, rg.converged) == (1980, True),
+                  f"20^2: {rg.steps_run} steps, converged {rg.converged}")
+        if label == "10^3 (2, 2, 2) converge":
+            check((rg.steps_run, rg.converged) == (360, True),
+                  f"10^3 (2, 2, 2): {rg.steps_run} steps, converged "
+                  f"{rg.converged}")
+        row = {"steps_run": rg.steps_run, "converged": rg.converged,
+               "residual": rg.residual, "bitwise": True,
+               "launches": g["counts"], "cycles": g["mg"]["cycles"]}
+        for side, r, d in (("graph", rg, g), ("eager", re_, e)):
+            row[side] = {"elapsed_s": r.elapsed_s,
+                         "host_reads": d["dl"]["reads"],
+                         "host_reads_per_step": d["dl"]["reads"]
+                         / max(r.steps_run, 1),
+                         "capture_s": r.capture_s,
+                         "graphs": d["dl"]["graphs"],
+                         "graph_launches": d["dl"]["launches"],
+                         "nodes": d["dl"]["nodes"],
+                         "guards": d["dl"]["guards"],
+                         "peak_mib": d["peak_mib"],
+                         "held_before_mib": d["held_before_mib"]}
+            if "busy" in d:
+                row[side]["idle_share"] = d["busy"]["idle_share"]
+                row[side]["device_busy_ms"] = d["busy"]["device_busy_ms"]
+                row[side]["profiled_wall_s"] = d["busy"]["wall_s"]
+        if cfg.is_sharded() and not cfg.converge:
+            from parallel_heat_tpu_torch import solver
+
+            depth = solver._resolved(cfg, "cuda").halo_depth
+            rounds = -(-cfg.steps // depth)
+            row["graph"]["ms_a_round"] = rg.elapsed_s * 1e3 / rounds
+            row["eager"]["ms_a_round"] = re_.elapsed_s * 1e3 / rounds
+        row["phase_s"] = time.perf_counter() - t0
+        out[label] = row
+        del rg, re_
+        torch.cuda.empty_cache()
+    # The window copies a graph, measured: 1000^2 under A.
+    cfg = HeatConfig(**_loop_runs()[0][1])
+    copies = {}
+    default = dl.WINDOW_COPIES
+    try:
+        for n in LOOP_COPIES:
+            dl.WINDOW_COPIES = n
+            g = _loop_run(cfg, False, False)
+            copies[n] = {"elapsed_s": g["res"].elapsed_s,
+                         "host_reads": g["dl"]["reads"],
+                         "capture_s": g["res"].capture_s,
+                         "nodes": g["dl"]["nodes"]}
+    finally:
+        dl.WINDOW_COPIES = default
+    emit({"phase": "device_loop", "ok": True, "route": (
+        "torch segment captures chained by csrc/heat_graph_loop.cu: IF "
+        "nodes a window copy, a WHILE node a V-cycle loop"),
+          "window_copies": default, "runs": out,
+          "copies_1000_converge": copies})
+
+
 def _interior_cells_3d(origin, shape, grid):
     """Cells of the block ``shape`` at ``origin`` in the grid's interior."""
     return math.prod(max(min(o + s, n - 1) - max(o, 1), 0)
@@ -4588,6 +4863,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import parallel_heat_tpu_torch  # noqa: F401 — fails outside the repo
 
+    start = time.perf_counter()
     print(card_line(), flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -4612,6 +4888,7 @@ def main() -> int:
         launches.update(phase_sharded_main_path_3d())
         phase_sharded_converge_3d()
         phase_cli_sharded_3d()
+        phase_device_loop()
         t = phase_timing(dev)
         t.update(phase_timing_3d(dev))
         t.update(phase_timing_ens_mg(dev))
@@ -4660,6 +4937,7 @@ def main() -> int:
     launches["heat_probe_fixture"] = audit["launches"]
     err["heat_probe_fixture"] = audit["max_abs_err"]
     t["heat_probe_fixture"] = audit
+    emit(phase_seconds(start))
     src = "parallel_heat_tpu_torch/csrc/"
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src + name + ".cu",

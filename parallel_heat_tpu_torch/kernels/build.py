@@ -161,6 +161,14 @@ TOOLS = {
     "heat_probe_fixture": ("heat_probe_fixture.cu",
                            [_I32, _P, _P, _P, _I64, _I32, _P]),
 }
+# Helpers the solver's paths use beside the kernels: built and loaded
+# the same way, but no TPU kernel's counterpart. The device loop's
+# conditional nodes (utils/device_loop.py): op, four handles or
+# pointers, and three handles out.
+HELPERS = {
+    "heat_graph_loop": ("heat_graph_loop.cu",
+                        [_I32, _P, _P, _P, _P, ctypes.POINTER(_P)]),
+}
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_i_loop.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
            "heat_a.cuh", "heat_e_uni.cuh", "heat_probe_sweep.cuh",
@@ -253,8 +261,11 @@ def nvcc() -> str:
 
 
 def _entry(name: str):
-    """``(source, argtypes)`` of a kernel or a tool's kernel."""
-    return KERNELS[name] if name in KERNELS else TOOLS[name]
+    """``(source, argtypes)`` of a kernel, a tool's kernel or a helper."""
+    for table in (KERNELS, TOOLS):
+        if name in table:
+            return table[name]
+    return HELPERS[name]
 
 
 def library_path(name: str) -> Path:
@@ -277,7 +288,8 @@ def build_log(name: str) -> str:
 
 def build(*names: str) -> Dict[str, Path]:
     """Build the named kernels (all of :data:`KERNELS` by default; a
-    tool's kernel of :data:`TOOLS` by name) that are not built yet,
+    tool's kernel of :data:`TOOLS` or a helper of :data:`HELPERS` by
+    name) that are not built yet,
     one nvcc process per source, started together. Returns the library
     path of each name; raises :class:`BuildError` with nvcc's stderr."""
     names = names or tuple(KERNELS)
@@ -343,9 +355,9 @@ def main(argv=None) -> int:
 
     names = tuple(sys.argv[1:] if argv is None else argv)
     for name in names or tuple(KERNELS):
-        if name not in KERNELS and name not in TOOLS:
-            raise SystemExit(f"unknown kernel {name!r}; one of "
-                             f"{list(KERNELS) + list(TOOLS)}")
+        if not any(name in t for t in (KERNELS, TOOLS, HELPERS)):
+            known = list(KERNELS) + list(TOOLS) + list(HELPERS)
+            raise SystemExit(f"unknown kernel {name!r}; one of {known}")
     for name, path in build(*names).items():
         rows = ptxas_report(build_log(name))
         print(json.dumps({"kernel": name, "library": path.name,

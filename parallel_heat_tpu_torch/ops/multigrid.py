@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from parallel_heat_tpu_torch.config import HeatConfig, multigrid_level_shapes
 from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 from parallel_heat_tpu_torch.ops.hopper_params import params
+from parallel_heat_tpu_torch.utils import device_loop
 
 # Weighted-Jacobi damping, fixed: it shapes the rate of convergence, never
 # the converged answer.
@@ -70,8 +71,11 @@ _COARSE_SWEEPS = 8
 
 # What the step solves of this process did since the last reset_stats():
 # implicit steps, V-cycles, and reads of a device value on the host (one
-# per evaluation of the cycle loop's stopping test).
+# per evaluation of the cycle loop's stopping test where the host
+# evaluates it; none where the card does). A replayed graph counts its
+# steps and cycles through ``device_loop.settle``.
 stats = {"steps": 0, "cycles": 0, "host_syncs": 0}
+device_loop.register_tally(stats, skip=("host_syncs",))
 
 
 def reset_stats() -> None:
@@ -477,44 +481,59 @@ def _rhs_fn(config: HeatConfig):
     return (lambda u: u), (lambda x, u: x)
 
 
-def _solve(config: HeatConfig, backend: str, tally=stats):
+def _solve(config: HeatConfig, backend: str, tally=stats,
+           trace: bool = False):
     """``solve(b) -> (x, cycles, res0, bmax, trace)``: V-cycles from the
     initial guess ``b`` until every member's verdict, under the rule of
     the JAX loop (continue while ``res > tol`` and ``cycles <
     mg_cycles``, per member; a NaN residual ends it). A member that is
     done keeps its iterate, residual and cycle count while the others go
-    on. One read of a device value per evaluation of the stopping test,
-    counted with the cycles in ``tally``. ``trace`` is the list of
-    per-cycle residuals."""
+    on. The cycles run while a flag on the card holds
+    (``utils/device_loop.repeat``): under a capture, one cycle behind a
+    WHILE node, and nothing is read; otherwise the host reads the flag
+    once per evaluation of the stopping test, counted with the cycles in
+    ``tally``. With ``trace``, ``trace`` is the list of per-cycle
+    residuals (an eager run only: it is observation)."""
     _, ax, ay = level_coefficients(config)[0]
     vcycle = _vcycle_fn(config, backend)
     tol_rel = config.mg_tol
     max_cycles = config.mg_cycles
+    site = device_loop.Site("multigrid V-cycle")
 
     def solve(b):
         batched = b.dim() > 2
         bmax = _max_abs(b[..., 1:-1, 1:-1])
         tol = tol_rel * bmax
-        x = b
-        res0 = res = residual_norm(b, b, ax, ay)
+        res0 = residual_norm(b, b, ax, ay)
+        # The loop's state, updated in place by each cycle.
+        x, res = b.clone(), res0.clone()
         cycles = torch.zeros_like(res, dtype=torch.int32)
-        trace = []
-        while True:
-            live = (res > tol) & (cycles < max_cycles)
-            tally["host_syncs"] += 1
-            if not bool(live.any()):
-                break
+        live = (res > tol) & (cycles < max_cycles)
+        go = live.any() if batched else live
+        kept = []
+
+        def cycle():
             x_new = vcycle(x, b)
             res_new = residual_norm(x_new, b, ax, ay)
             if batched:
-                x = torch.where(live[..., None, None], x_new, x)
-                res = torch.where(live, res_new, res)
+                x.copy_(torch.where(live[..., None, None], x_new, x))
+                res.copy_(torch.where(live, res_new, res))
             else:
-                x, res = x_new, res_new
-            cycles = cycles + live.to(torch.int32)
-            trace.append(res)
+                x.copy_(x_new)
+                res.copy_(res_new)
+            cycles.add_(live.to(torch.int32))
+            torch.logical_and(res > tol, cycles < max_cycles, out=live)
+            if batched:
+                go.copy_(live.any())
+            if trace:
+                kept.append(res.clone())
             tally["cycles"] += 1
-        return x, cycles, res0, bmax, trace
+
+        def test():
+            tally["host_syncs"] += 1
+
+        device_loop.repeat(go, cycle, max_cycles, site, on_test=test)
+        return x, cycles, res0, bmax, kept
 
     return solve
 
@@ -579,7 +598,8 @@ def cycle_trace(config: HeatConfig, grid, max_cycles=None,
     u = torch.as_tensor(grid, dtype=torch.float32)
     # Observation only: its cycles do not join the run's counts.
     tally = {"cycles": 0, "host_syncs": 0}
-    _, cycles, res0, bmax, trace = _solve(config, backend, tally)(rhs(u))
+    _, cycles, res0, bmax, trace = _solve(config, backend, tally,
+                                          trace=True)(rhs(u))
     r0, bmax = float(res0), float(bmax)
     tol = config.mg_tol * bmax
     used = [float(r) for r in trace]

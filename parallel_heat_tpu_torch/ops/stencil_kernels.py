@@ -55,6 +55,7 @@ from parallel_heat_tpu_torch import tune
 from parallel_heat_tpu_torch.ops.hopper_params import (
     I_MAX_STAGES, I_MAX_ROWS, I_MAX_WARPS, I_MIN_ROWS, params)
 from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
+from parallel_heat_tpu_torch.utils import device_loop
 
 # Launches of each kernel and calls of each plain version, since the
 # last reset_counts(); the 3D kernels of stencil_kernels_3d, kernel M of
@@ -82,6 +83,9 @@ counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "block_fused_plain": 0, "block_uniform_plain": 0,
           "band_fix_plain": 0, "h_block_plain": 0,
           "h_block_fused_plain": 0, "h_band_fix_plain": 0}
+
+
+device_loop.register_tally(counts)
 
 
 def reset_counts() -> None:

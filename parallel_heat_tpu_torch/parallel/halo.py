@@ -41,13 +41,15 @@ def exchange_halos_2d(mesh: HeatMesh, blocks: Sequence[torch.Tensor]):
     return list(zip(halo_n, halo_s, halo_w, halo_e))
 
 
-def interior_mask_2d(block_shape, grid_shape, origin) -> torch.Tensor:
-    """Boolean ``(bx, by)`` mask, True where the block's cell is in the
-    global interior (the Dirichlet ring is never written)."""
+def interior_mask_2d(block_shape, grid_shape, origin,
+                     device=None) -> torch.Tensor:
+    """Boolean ``(bx, by)`` mask on ``device``, True where the block's
+    cell is in the global interior (the Dirichlet ring is never
+    written)."""
     bx, by = block_shape
     nx, ny = grid_shape
-    row = origin[0] + torch.arange(bx)
-    col = origin[1] + torch.arange(by)
+    row = origin[0] + torch.arange(bx, device=device)
+    col = origin[1] + torch.arange(by, device=device)
     return (((row >= 1) & (row <= nx - 2))[:, None]
             & ((col >= 1) & (col <= ny - 2))[None, :])
 
@@ -109,7 +111,7 @@ def _exchanged_update_2d(mesh, blocks, grid_shape, cx, cy, overlap):
         form = (_block_update_overlap
                 if overlap and min(u.shape) >= 2 else _block_update_padded)
         mask = interior_mask_2d(u.shape, grid_shape,
-                                mesh.origin(b, u.shape)).to(u.device)
+                                mesh.origin(b, u.shape), u.device)
         out.append((form(u, halos, cx, cy), mask))
     return out
 

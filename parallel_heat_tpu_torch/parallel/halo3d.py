@@ -38,12 +38,14 @@ def exchange_halos_3d(mesh: HeatMesh, blocks: Sequence[torch.Tensor]):
     return list(zip(*faces))
 
 
-def interior_mask_3d(block_shape, grid_shape, origin) -> torch.Tensor:
-    """Boolean ``(bx, by, bz)`` mask, True where the block's cell is in the
-    global interior (the Dirichlet faces are never written)."""
+def interior_mask_3d(block_shape, grid_shape, origin,
+                     device=None) -> torch.Tensor:
+    """Boolean ``(bx, by, bz)`` mask on ``device``, True where the block's
+    cell is in the global interior (the Dirichlet faces are never
+    written)."""
     mask = None
     for axis, (b, n, o) in enumerate(zip(block_shape, grid_shape, origin)):
-        idx = o + torch.arange(b)
+        idx = o + torch.arange(b, device=device)
         m = ((idx >= 1) & (idx <= n - 2)).view(
             [-1 if a == axis else 1 for a in range(3)])
         mask = m if mask is None else mask & m
@@ -71,7 +73,7 @@ def _exchanged_update_3d(mesh, blocks, grid_shape, cx, cy, cz):
     for b, (u, halos) in enumerate(zip(blocks,
                                        exchange_halos_3d(mesh, blocks))):
         mask = interior_mask_3d(u.shape, grid_shape,
-                                mesh.origin(b, u.shape)).to(u.device)
+                                mesh.origin(b, u.shape), u.device)
         new = stencil_interior_3d(_pad_block_3d(u, halos), cx, cy, cz)
         out.append((new, mask))
     return out

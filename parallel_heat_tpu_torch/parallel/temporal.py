@@ -205,12 +205,14 @@ def exchange_halos_deep_2d(mesh: HeatMesh, us, k: int):
 # The textbook rounds (backend "torch"), any rank
 # ---------------------------------------------------------------------------
 
-def _region_inner_mask(shape, starts, grid_shape) -> torch.Tensor:
+def _region_inner_mask(shape, starts, grid_shape,
+                       device=None) -> torch.Tensor:
     """Global-interior mask of a window's inner region ``win[1:-1, ...]``,
-    the window's cell (0, ...) at global ``starts``."""
+    the window's cell (0, ...) at global ``starts``, made on ``device``
+    (nothing is copied from the host, so a capture takes it)."""
     mask = None
     for axis, (p, s, n) in enumerate(zip(shape, starts, grid_shape)):
-        idx = s + 1 + torch.arange(p - 2)
+        idx = s + 1 + torch.arange(p - 2, device=device)
         m = ((idx >= 1) & (idx <= n - 2)).view(
             [-1 if a == axis else 1 for a in range(len(shape))])
         mask = m if mask is None else mask & m
@@ -223,7 +225,7 @@ def _frontier_steps(win, k, starts, grid_shape, stencil, need_diff):
     updated: cells within L1 distance ``k - j`` of the data it was seeded
     with stay exact through step j. Returns the last step's masked
     ``|new - old|`` over the inner region with ``need_diff``."""
-    mask = _region_inner_mask(win.shape, starts, grid_shape).to(win.device)
+    mask = _region_inner_mask(win.shape, starts, grid_shape, win.device)
     inner = (slice(1, -1),) * win.dim()
     zero = torch.zeros((), device=win.device)
     diff = None

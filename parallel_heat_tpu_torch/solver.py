@@ -7,20 +7,25 @@ every block on the run's one device, by K-deep rounds
 under the torch backend, the per-step exchange (``parallel/halo.py``,
 ``parallel/halo3d.py``). A sharded run's grid is assembled from its
 blocks after the clock stops, and its residual is the max over the
-blocks, taken on the card and read once per check window.
+blocks, taken on the card.
 
 The JAX package compiles the whole run into one XLA program. Here the
-run is a Python loop over kernel launches on one CUDA stream:
+run's loops stay on the card as CUDA graphs (``utils/device_loop.py``),
+captured before the clock starts (``HeatResult.capture_s``):
 
-- fixed-step mode launches the steps and reads nothing back until the
-  end;
-- converge mode advances ``check_interval`` steps per window and reads
-  the window's residual to the host once per window — one device sync
-  per window, under exactly the JAX loop's rule (continue while
-  ``res >= eps and k < full_steps``, ``res`` starting at +inf; after the
-  loop ``converged = res < eps``; the tail of ``steps % check_interval``
-  steps runs only when not converged). A NaN residual therefore ends the
-  loop, as ``lax.while_loop`` does.
+- fixed-step mode on one explicit block launches the steps and reads
+  nothing back until the end (kernel A runs them all in one launch);
+  a sharded or implicit run replays a graph of two rounds (two steps)
+  and the remainder, reading nothing;
+- converge mode replays a graph of guarded check windows, the loop state
+  on the card under exactly the JAX loop's rule (continue while ``res >=
+  eps and k < full_steps``, ``res`` starting at +inf; after the loop
+  ``converged = res < eps``; the tail of ``steps % check_interval`` steps
+  runs only when not converged, eagerly), and reads the state once a
+  replay. A NaN residual therefore ends the loop, as ``lax.while_loop``
+  does.
+
+On the CPU the same loops run eagerly, the host reading each stop test.
 
 The grid lives in two device buffers that the loop ping-pongs in place
 (the reference's ``old = 1-old`` swap): each launch reads one and writes
@@ -43,6 +48,7 @@ from parallel_heat_tpu_torch.config import HeatConfig
 from parallel_heat_tpu_torch.models import HeatPlate2D, HeatPlate3D
 from parallel_heat_tpu_torch.ops.stencil import (step_2d, step_2d_residual,
                                                  step_3d, step_3d_residual)
+from parallel_heat_tpu_torch.utils import device_loop
 from parallel_heat_tpu_torch.utils.timing import Timer
 
 
@@ -55,6 +61,9 @@ class HeatResult:
     converged: Optional[bool]
     residual: Optional[float]
     elapsed_s: float
+    # Seconds spent capturing and instantiating the run's graphs, before
+    # the clock started (0 where no graph is made).
+    capture_s: float = 0.0
 
     def to_numpy(self) -> np.ndarray:
         """Copy the final grid to host memory."""
@@ -132,46 +141,74 @@ def torch_multistep(cx: float, cy: float, cz: Optional[float] = None):
     return steps_to_multistep(step, step_residual)
 
 
-def _make_loop(multi_step, multi_step_residual, config: HeatConfig):
-    """Build ``run(u, v) -> (grid, steps_run, converged, residual)``.
+class _Loop:
+    """The stepping and convergence policy of a run: :meth:`prepare`
+    ``(u, v)`` before the clock, then ``loop(u, v) -> (grid, steps_run,
+    converged, residual)``. ``u`` holds the initial state and ``v`` is a
+    spare of the same shape; ``converged``/``residual`` are None in fixed
+    mode.
 
-    ``u`` holds the initial state and ``v`` is a spare buffer of the same
-    shape; this function encodes only the stepping and convergence
-    policy. ``converged``/``residual`` are None in fixed mode.
+    On the card the loops run through ``utils/device_loop.py``: converge
+    mode's check windows replayed as graphs with the stop test on the
+    card (the tail, fewer than ``check_interval`` steps once a run, runs
+    eagerly); fixed mode with a ``period`` (steps that leave the buffers
+    in their order: two rounds of a sharded run, two implicit steps)
+    replayed likewise, reading nothing; fixed mode without one (one
+    block, explicit: kernel A runs every step in one launch) as plain
+    launches. Elsewhere the same loops run eagerly.
     """
-    steps = config.steps
 
-    if not config.converge:
+    def __init__(self, multi_step, multi_step_residual, config: HeatConfig,
+                 period: Optional[int] = None):
+        self.multi_step = multi_step
+        self.steps = config.steps
+        self.converge = config.converge
+        if not self.converge:
+            self.fixed = (device_loop.PeriodLoop(multi_step,
+                                                 steps=self.steps,
+                                                 period=period)
+                          if period else None)
+            return
+        ci = config.check_interval
+        # The JAX loop compares the float32 residual with eps as float32.
+        self.eps = float(np.float32(config.eps))
+        self.rem = self.steps % ci
+        self.windows = device_loop.WindowLoop(
+            multi_step_residual, ci=ci, eps=self.eps,
+            full_steps=self.steps // ci * ci)
 
-        def run_fixed(u, v):
-            if steps > 0:
-                u, v = multi_step(u, v, steps)
-            return u, steps, None, None
+    def prepare(self, u, v) -> None:
+        if not self.converge:
+            if self.fixed is not None:
+                self.fixed.prepare(u, v)
+            return
+        self.windows.prepare(u, v)
 
-        return run_fixed
-
-    ci = config.check_interval
-    # The JAX loop compares the float32 residual with eps as float32.
-    eps = float(np.float32(config.eps))
-    n_full = steps // ci
-    rem = steps % ci
-    full_steps = n_full * ci
-
-    def run_converge(u, v):
-        k = 0
-        res = math.inf
-        while res >= eps and k < full_steps:
-            u, v, r = multi_step_residual(u, v, ci)
-            res = float(r)  # the window's one host sync
-            k += ci
-        converged = res < eps
-        if rem > 0 and not converged:
+    def __call__(self, u, v):
+        if not self.converge:
+            if self.steps > 0:
+                u, v = (self.fixed.run(u, v) if self.fixed is not None
+                        else self.multi_step(u, v, self.steps))
+            return u, self.steps, None, None
+        u, v, k, res = self.windows.run(u, v)
+        converged = res < self.eps
+        if self.rem > 0 and not converged:
             # Tail steps past the last full window, uninspected.
-            u, v = multi_step(u, v, rem)
-            k += rem
+            u, v = self.multi_step(u, v, self.rem)
+            k += self.rem
         return u, k, converged, res
 
-    return run_converge
+
+def _period(config: HeatConfig, dev: torch.device) -> Optional[int]:
+    """Fixed-mode steps a graph replays on the card: two rounds of a
+    sharded run, two implicit steps; None for one explicit block, whose
+    fixed run reads nothing back already (kernel A runs every step in
+    one launch)."""
+    if dev.type != "cuda":
+        return None
+    if config.is_sharded():
+        return 2 * config.halo_depth
+    return 2 if config.scheme != "explicit" else None
 
 
 def _resolve_halo_depth(config: HeatConfig, backend: str) -> int:
@@ -608,12 +645,18 @@ def solve(config: HeatConfig, initial=None,
                                                                backend)
             u = _prepare_initial(config, initial, dev)
             v = torch.empty_like(u)
-        run = _make_loop(multi_step, multi_step_residual, config)
+        run = _Loop(multi_step, multi_step_residual, config,
+                    period=_period(config, dev))
+        captured = device_loop.stats["capture_s"]
+        run.prepare(u, v)
+        captured = device_loop.stats["capture_s"] - captured
         with Timer(dev) as timer:
             grid, steps_run, converged, residual = run(u, v)
+        device_loop.settle()
         if config.is_sharded():
             grid = mesh.assemble(grid)
     _warn_if_diverged(residual, steps_run,
                       config.converge and steps_run >= config.check_interval)
     return HeatResult(grid=grid, steps_run=steps_run, converged=converged,
-                      residual=residual, elapsed_s=timer.elapsed_s)
+                      residual=residual, elapsed_s=timer.elapsed_s,
+                      capture_s=captured)

@@ -379,7 +379,11 @@ def test_hl4xx_real_plans_clean_and_all_kernels_covered():
                                             findings.load_baseline())
     assert active == [] and stale == []
     names = pk.source_kernel_names()
-    assert len(names) == 31 and "heat_probe_fixture_kernel" in names
+    # 31 kernels, and the device loop's two one-thread helpers
+    # (csrc/heat_graph_loop.cu, baselined).
+    assert len(names) == 33 and "heat_probe_fixture_kernel" in names
+    assert {"heat_graph_set_cond_kernel", "heat_graph_window_kernel"} <= set(
+        names)
     from parallel_heat_tpu_torch.kernels.build import KERNELS
 
     assert set(KERNELS) <= {p.entry for p in plans}

@@ -839,3 +839,86 @@ def test_sharded_3d_solve_on_the_card_matches_one_block_bitwise(card, cfg,
     assert (got.steps_run, got.converged) == (one.steps_run, one.converged)
     if cfg.get("converge"):
         assert got.residual == one.residual == cpu.residual
+
+
+# ---------------------------------------------------------------------------
+# The device loop: graphs with the stop test on the card
+# ---------------------------------------------------------------------------
+
+def _loop_run(cfg, eager, force=None):
+    """``solve(cfg)`` on the card through the graphs, or with the eager
+    executor (``eager``); the result, the launch counts, the multigrid
+    stats and the device loop's stats of the run."""
+    import contextlib
+
+    from parallel_heat_tpu_torch.utils import device_loop as dl
+
+    sk.reset_counts()
+    mg.reset_stats()
+    dl.reset_stats()
+    with (dl.eager() if eager else contextlib.nullcontext()), (
+            tune.force("single_2d", force) if force
+            else contextlib.nullcontext()):
+        res = solve(cfg)
+    return res, dict(sk.counts), dict(mg.stats), dict(dl.stats)
+
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("cfg,force", [
+    (dict(nx=20, ny=20, steps=10000, converge=True, eps=1e-3), None),
+    (dict(nx=20, ny=20, steps=10000, converge=True, eps=1e-3), "E-uni"),
+    (dict(nx=20, ny=20, steps=10000, converge=True, eps=1e-3), "B"),
+    (dict(nx=20, ny=20, steps=1990, converge=True, eps=1e-6), "E"),
+    (dict(nx=1000, ny=1000, steps=10000, converge=True, eps=1e-3), None),
+    (dict(nx=16, ny=16, cx=0.4, cy=0.4, steps=200, converge=True), None),
+    (dict(nx=1000, ny=1000, steps=10000, converge=True, eps=1e-3,
+          mesh_shape=(2, 4)), None),
+    (dict(nx=10, ny=10, nz=10, steps=2000, converge=True, eps=1e-3,
+          mesh_shape=(2, 2, 2)), None),
+    (dict(nx=34, ny=34, steps=60, converge=True, eps=50.0, check_interval=5,
+          scheme="backward_euler", cx=22.5, cy=22.5), None),
+], ids=["A", "E-uni", "B", "E-tail", "A-1000", "nan", "2x4", "2x2x2",
+        "implicit"])
+def test_device_loop_converge_graph_bitwise_eager(card, cfg, force):
+    from parallel_heat_tpu_torch.utils import device_loop as dl
+
+    cfg = HeatConfig(**cfg)
+    g, gc, gm, gd = _loop_run(cfg, False, force)
+    e, ec, em, _ = _loop_run(cfg, True, force)
+    assert (g.steps_run, g.converged) == (e.steps_run, e.converged)
+    assert g.residual == e.residual or (math.isnan(g.residual)
+                                        and math.isnan(e.residual))
+    assert _bitwise(g.grid, e.grid)
+    assert gc == ec and gm["cycles"] == em["cycles"]
+    assert gm["steps"] == em["steps"] and gm["host_syncs"] == 0
+    assert gd["graphs"] >= 1 and gd["launches"] >= 1
+    windows = min(g.steps_run, cfg.steps // cfg.check_interval
+                  * cfg.check_interval) // cfg.check_interval
+    copies = dl.WINDOW_COPIES if cfg.scheme == "explicit" else 2
+    assert gd["reads"] <= -(-windows // copies) + 1
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(nx=512, ny=512, steps=20, scheme="backward_euler", cx=22.5, cy=22.5),
+    dict(nx=512, ny=512, steps=7, scheme="crank_nicolson", cx=22.5,
+         cy=22.5),
+    dict(nx=1024, ny=1024, steps=50, mesh_shape=(2, 4)),
+    dict(nx=64, ny=64, nz=64, steps=30, mesh_shape=(2, 2, 2)),
+], ids=["be", "cn", "2x4", "2x2x2"])
+def test_device_loop_fixed_reads_nothing_a_step(card, cfg):
+    cfg = HeatConfig(**cfg)
+    g, gc, gm, gd = _loop_run(cfg, False)
+    e, ec, em, _ = _loop_run(cfg, True)
+    assert _bitwise(g.grid, e.grid) and gc == ec
+    assert gm["cycles"] == em["cycles"] and gm["host_syncs"] == 0
+    # One read at most a run (the cycle counters), none a step.
+    assert gd["reads"] <= 1 and gd["graphs"] >= 1
+    # The period graph once a period, and the rest once.
+    from parallel_heat_tpu_torch import solver
+
+    period = solver._period(solver._resolved(cfg, "cuda"), card)
+    full, rem = divmod(cfg.steps, period)
+    assert gd["launches"] == full + (rem > 0)

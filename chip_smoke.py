@@ -302,6 +302,25 @@ prints the card's name and power limit, then one JSON line per phase:
    seconds, idle share, host reads, capture seconds, graph nodes and
    peak memory; then 1000^2 under A at 1, 4, 16 and 64 window copies a
    graph;
+20c. stream — ``solve_stream`` and its observers on the card: 16384^2,
+   200 steps (E-uni) in chunks of 40 with the guard every 40 steps and
+   the diagnostics every 80, at pipeline depth 1 and 2 (every yielded
+   grid, ``finite`` and ``diagnostics`` identical at both depths, the
+   last grid bitwise ``solve()``; per chunk ``wall_s``, ``gap_s`` and
+   ``drain_wait_s`` from the run's telemetry; the card's idle share
+   over each stream by ``torch.profiler``); 1000^2 to eps in chunks of
+   1000 bitwise ``solve()`` (steps, verdict, residual, grid), host reads
+   and elapsed seconds beside its; 32768^2 on (2, 4) in chunks of 40 at
+   depth 2 with guard and diagnostics, bitwise ``solve()``, and its peak
+   memory; 64 x 512^2 (path M) with telemetry, guard and diagnostics,
+   every member bitwise the plain run and one ``member_end`` a member;
+   512^2 backward Euler in chunks of 5 with the diagnostics every 5
+   steps (``vcycle`` events, the first with ``level_wall_share``); the
+   CLI with ``--metrics``, ``--guard-interval``, ``--diag-interval``,
+   ``--pipeline-depth 2`` and ``--profile`` (its metrics file read here,
+   a trace file in the profile directory); then the guard's and the
+   diagnostics' ms (CUDA events) against their byte bounds at 16384^2
+   and on the blocks of 32768^2 on (2, 4);
 21. timing_h — ms per launch (CUDA events, and the card's own time from
    ``torch.profiler``) of each H kernel at the main path's block, 512^3 at
    K = h_k_default without the residual: H-fused monolithic (the
@@ -4261,6 +4280,310 @@ def phase_device_loop():
           "copies_1000_converge": copies})
 
 
+# ---------------------------------------------------------------------------
+# The stream and its observers
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 40        # the main path's stream: chunks of 40 steps,
+STREAM_GUARD = 40        # the guard every 40 steps,
+STREAM_DIAG = 80         # the diagnostics every 80
+OBSERVER_REPS = 20       # launches a CUDA-event timing of an observer
+
+
+def _stream_idle(prof, kernel):
+    """The card's idle share over a stream in a trace: from the start of
+    the first launch of ``kernel`` (the stream's first chunk; the setup
+    before it is left out) to the end of the last device record, one
+    minus the busy time of the records in that span over the span."""
+    from torch._C._autograd import DeviceType
+
+    recs = [(e.start_ns(), e.duration_ns(), e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    starts = [t for t, _, name in recs if kernel in name]
+    check(starts, f"the trace holds no launch of {kernel}")
+    t0 = min(starts)
+    t1 = max(t + d for t, d, _ in recs)
+    busy = sum(d for t, d, _ in recs if t >= t0)
+    return {"idle_share": 1 - busy / (t1 - t0),
+            "device_busy_ms": busy / 1e6, "span_ms": (t1 - t0) / 1e6}
+
+
+def _stream_rows(cfg, chunk, depth, keep_all=True):
+    """A stream of ``cfg``: each yield's steps, verdict, residual, guard
+    verdict, sample, elapsed and capture seconds, and a copy of its grid
+    made before the generator advances (``keep_all``: every one; else
+    only the last yield keeps its copy)."""
+    from parallel_heat_tpu_torch import solve_stream
+
+    rows = []
+    for r in solve_stream(cfg, chunk_steps=chunk, pipeline_depth=depth):
+        if rows and not keep_all:
+            rows[-1]["grid"] = None
+        rows.append({"steps": r.steps_run, "converged": r.converged,
+                     "residual": r.residual, "finite": r.finite,
+                     "diagnostics": r.diagnostics, "grid": r.grid.clone(),
+                     "elapsed_s": r.elapsed_s, "capture_s": r.capture_s})
+    return rows
+
+
+def _stream_timed(cfg, chunk, depth):
+    """A stream of ``cfg`` with a telemetry sink and nothing else between
+    its yields: its events, and the chunk events' timing fields."""
+    from parallel_heat_tpu_torch import solve_stream
+    from parallel_heat_tpu_torch.utils.telemetry import Telemetry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.jsonl")
+        with Telemetry(path) as sink:
+            for _ in solve_stream(cfg, chunk_steps=chunk, telemetry=sink,
+                                  pipeline_depth=depth):
+                pass
+        with open(path) as f:
+            events = [json.loads(line) for line in f]
+    chunks = [{k: e.get(k) for k in ("step", "steps", "wall_s", "gap_s",
+                                     "dispatch_s", "drain_wait_s",
+                                     "observe_s")}
+              for e in events if e["event"] == "chunk"]
+    return events, chunks
+
+
+def _stream_profiled(cfg, chunk, depth, kernel):
+    """The card's idle share over a stream of ``cfg`` under the
+    profiler (``_stream_idle``)."""
+    from parallel_heat_tpu_torch import solve_stream
+    from parallel_heat_tpu_torch.bench_kernels import TRACE_PAD_S, card_trace
+
+    with card_trace(TRACE_PAD_S) as prof:
+        for _ in solve_stream(cfg, chunk_steps=chunk, pipeline_depth=depth):
+            pass
+    return _stream_idle(prof, kernel)
+
+
+def _observer_ms(state, prev, origins, cells):
+    """The guard's and the diagnostics' device ms on ``state`` (a grid
+    or a mesh's blocks) by CUDA events, each beside its byte bound: the
+    grid read once (with ``prev``, both grids read once)."""
+    from parallel_heat_tpu_torch import solver
+
+    def guard():
+        solver._finite_dev(state)
+
+    def stats():
+        solver._stats_dev(solver._pairs(state, None, origins))
+
+    def stats_prev():
+        solver._stats_dev(solver._pairs(state, prev, origins))
+
+    out = {}
+    for name, fn, nbytes in (("guard", guard, 4 * cells),
+                             ("grid_stats", stats, 4 * cells),
+                             ("grid_stats_prev", stats_prev, 8 * cells)):
+        ms = _time_ms(fn, OBSERVER_REPS)
+        bound = _bound(nbytes, 0)
+        out[name] = {"ms": ms, **bound,
+                     "over_bound": ms / bound["bound_ms"]}
+    return out
+
+
+def phase_stream():
+    """The stream (``solver.solve_stream``) and its observers on the card
+    (see the module docstring, 20c)."""
+    import gc
+
+    import torch
+
+    from parallel_heat_tpu_torch import (EnsembleSolver, HeatConfig, HeatMesh,
+                                         solve)
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.utils import device_loop as dl
+    from parallel_heat_tpu_torch.utils.telemetry import Telemetry
+
+    def same_rows(a, b):
+        keys = ("steps", "converged", "residual", "finite", "diagnostics")
+        return ([r[k] for k in keys] == [q[k] for k in keys]
+                and _same_bits(r["grid"], q["grid"]) for r, q in zip(a, b))
+
+    out = {}
+    obs = dict(guard_interval=STREAM_GUARD, diag_interval=STREAM_DIAG)
+    # 16384^2 under E-uni at depths 1 and 2.
+    t0 = time.perf_counter()
+    cfg = HeatConfig(nx=BIG, ny=BIG, steps=MAIN_STEPS, **obs)
+    ref = solve(cfg)
+    one = _stream_rows(cfg, STREAM_CHUNK, 1)
+    two = _stream_rows(cfg, STREAM_CHUNK, 2)
+    check(len(one) == len(two) == MAIN_STEPS // STREAM_CHUNK
+          and all(same_rows(one, two)),
+          f"stream 16384^2: depth 1 {[r['finite'] for r in one]} "
+          f"{[r['diagnostics'] for r in one]}, depth 2 "
+          f"{[r['finite'] for r in two]} {[r['diagnostics'] for r in two]}, "
+          f"grids equal {[_same_bits(a['grid'], b['grid']) for a, b in zip(one, two)]}")
+    check(_same_bits(one[-1]["grid"], ref.grid) and ref.finite is True,
+          "stream 16384^2: the last grid is not solve()'s")
+    check([r["finite"] for r in one] == [True] * len(one)
+          and [r["diagnostics"] is not None for r in one]
+          == [False, True, False, True, True],
+          f"stream 16384^2: guard {[r['finite'] for r in one]}, samples "
+          f"{[r['diagnostics'] is not None for r in one]}")
+    row = {"bitwise": True, "solve_elapsed_s": ref.elapsed_s,
+           "diagnostics": [r["diagnostics"] for r in one]}
+    del one, two
+    for depth in (1, 2):
+        sk.reset_counts()
+        events, chunks = _stream_timed(cfg, STREAM_CHUNK, depth)
+        launches = {k: n for k, n in sk.counts.items() if n}
+        check(launches == {"heat_e_uni_temporal": MAIN_STEPS // 8},
+              f"stream 16384^2 depth {depth}: launches {launches}")
+        row[f"depth {depth}"] = {
+            "elapsed_s": sum(c["wall_s"] for c in chunks), "chunks": chunks,
+            **_stream_profiled(cfg, STREAM_CHUNK, depth,
+                               "heat_e_uni_temporal")}
+    out["16384^2 E-uni"] = row
+    # The observers at 16384^2, on the run's grid.
+    grid = ref.grid
+    out["observers 16384^2"] = _observer_ms(grid, grid.clone(), None,
+                                            BIG * BIG)
+    row["phase_s"] = time.perf_counter() - t0
+    del ref, grid
+    # 1000^2 to eps in chunks of 1000 (BASELINE Table 7).
+    t0 = time.perf_counter()
+    cfg = HeatConfig(nx=CONV, ny=CONV, steps=10000, converge=True,
+                     check_interval=WINDOW, eps=1e-3)
+    dl.reset_stats()
+    ref = solve(cfg)
+    ref_reads = dl.stats["reads"]
+    dl.reset_stats()
+    rows = _stream_rows(cfg, 1000, 1, keep_all=False)
+    last = rows[-1]
+    check((last["steps"], last["converged"], last["residual"])
+          == (ref.steps_run, ref.converged, ref.residual)
+          and _same_bits(last["grid"], ref.grid),
+          f"stream 1000^2 converge: {last['steps']}, {last['converged']}, "
+          f"{last['residual']}; solve() {ref.steps_run}, {ref.converged}, "
+          f"{ref.residual}")
+    out["1000^2 converge"] = {
+        "steps_run": last["steps"], "converged": last["converged"],
+        "residual": last["residual"], "bitwise": True, "chunks": len(rows),
+        "elapsed_s": last["elapsed_s"], "host_reads": dl.stats["reads"],
+        "capture_s": last["capture_s"], "solve_elapsed_s": ref.elapsed_s,
+        "solve_host_reads": ref_reads, "solve_capture_s": ref.capture_s,
+        "phase_s": time.perf_counter() - t0}
+    del rows, last, ref
+    # 32768^2 on (2, 4) at depth 2, the guard and the diagnostics.
+    t0 = time.perf_counter()
+    cfg = HeatConfig(nx=SHARD_N, ny=SHARD_N, steps=MAIN_STEPS,
+                     mesh_shape=SHARD_MESH, **obs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rows = _stream_rows(cfg, STREAM_CHUNK, 2, keep_all=False)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    last = rows[-1]
+    ref = solve(cfg.replace(guard_interval=None, diag_interval=None))
+    check(_same_bits(last["grid"], ref.grid) and last["finite"] is True
+          and [r["diagnostics"] is not None for r in rows]
+          == [False, True, False, True, True],
+          f"stream 32768^2 (2, 4): grids equal "
+          f"{_same_bits(last['grid'], ref.grid)}, finite {last['finite']}")
+    row = {"bitwise": True, "peak_mib": peak,
+           "held_before_mib": held / 2 ** 20,
+           "elapsed_s": last["elapsed_s"], "capture_s": last["capture_s"],
+           "solve_elapsed_s": ref.elapsed_s,
+           "diagnostics": last["diagnostics"]}
+    del rows, last
+    row["chunks"] = _stream_timed(cfg, STREAM_CHUNK, 2)[1]
+    row["phase_s"] = time.perf_counter() - t0
+    out["32768^2 (2, 4) depth 2"] = row
+    # The observers on the blocks of 32768^2 on (2, 4), against the
+    # assembled grid as the baseline (the pipelined stream's).
+    mesh = HeatMesh(SHARD_MESH, ref.grid.device)
+    blocks = mesh.split(ref.grid)
+    bs = cfg.block_shape()
+    origins = [mesh.origin(b, bs) for b in range(mesh.size)]
+    out["observers 32768^2 (2, 4)"] = _observer_ms(blocks, ref.grid, origins,
+                                                   SHARD_N * SHARD_N)
+    del blocks, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 64 x 512^2 (path M) with telemetry, guard and diagnostics.
+    t0 = time.perf_counter()
+    cfg = HeatConfig(nx=ENS_N, ny=ENS_N, steps=ENS_STEPS, **obs)
+    plain = EnsembleSolver(cfg.replace(guard_interval=None,
+                                       diag_interval=None), ENS_B).solve()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "e.jsonl")
+        with Telemetry(path) as sink:
+            ens = EnsembleSolver(cfg, ENS_B).solve(telemetry=sink)
+        with open(path) as f:
+            events = [json.loads(line) for line in f]
+    ends = [e["member"] for e in events if e["event"] == "member_end"]
+    check(_same_bits(ens.grids, plain.grids) and ends == list(range(ENS_B))
+          and bool(ens.finite.all()) and len(ens.diagnostics) == ENS_B,
+          f"stream ensemble: members bitwise "
+          f"{_same_bits(ens.grids, plain.grids)}, member_end {ends}")
+    out["64 x 512^2 ensemble"] = {
+        "bitwise": True, "member_end": len(ends),
+        "events": sorted({e["event"] for e in events}),
+        "elapsed_s": ens.elapsed_s, "plain_elapsed_s": plain.elapsed_s,
+        "phase_s": time.perf_counter() - t0}
+    del ens, plain
+    # 512^2 backward Euler in chunks of 5, a sample every 5 steps.
+    t0 = time.perf_counter()
+    cfg = HeatConfig(nx=IMP_N, ny=IMP_N, cx=IMP_C, cy=IMP_C,
+                     steps=IMP_STEPS, scheme="backward_euler",
+                     diag_interval=5)
+    rows = _stream_rows(cfg, 5, 1, keep_all=False)
+    ref = solve(cfg.replace(diag_interval=None))
+    events, chunks = _stream_timed(cfg, 5, 1)
+    vc = [e for e in events if e["event"] == "vcycle"]
+    check(len(vc) == IMP_STEPS // 5 and "level_wall_share" in vc[0]
+          and all("level_wall_share" not in e for e in vc[1:])
+          and _same_bits(rows[-1]["grid"], ref.grid),
+          f"stream 512^2 backward Euler: {len(vc)} vcycle events, grids "
+          f"equal {_same_bits(rows[-1]['grid'], ref.grid)}")
+    out["512^2 backward Euler"] = {
+        "bitwise": True, "vcycle_events": len(vc),
+        "cycles": [e["cycles"] for e in vc],
+        "level_wall_share": vc[0]["level_wall_share"], "chunks": chunks,
+        "elapsed_s": rows[-1]["elapsed_s"], "solve_elapsed_s": ref.elapsed_s,
+        "phase_s": time.perf_counter() - t0}
+    del rows, ref
+    # The CLI with the observer flags; its metrics file read here.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "runs", "m.jsonl")
+        prof_dir = os.path.join(tmp, "prof")
+        cmd = [sys.executable, "-m", "parallel_heat_tpu_torch", "--nx",
+               "1024", "--ny", "1024", "--steps", str(MAIN_STEPS),
+               "--metrics", metrics, "--guard-interval",
+               str(STREAM_GUARD), "--diag-interval", str(STREAM_DIAG),
+               "--pipeline-depth", "2", "--profile", prof_dir]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0,
+              f"stream CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(metrics) as f:
+            events = [json.loads(line) for line in f]
+        traces = os.listdir(prof_dir)
+    names = [e["event"] for e in events]
+    head = events[0]
+    check(names == ["run_header", "chunk", "diagnostics", "run_end"]
+          and head["platform"] == "gpu" and head["pipeline_depth"] == 2
+          and events[1]["finite"] is True
+          and events[1]["steps"] == MAIN_STEPS
+          and any(t.endswith(".json") for t in traces),
+          f"stream CLI: events {names}, traces {traces}")
+    out["cli"] = {"events": names, "device_kind": head["device_kind"],
+                  "chunk": {k: events[1].get(k) for k in
+                            ("wall_s", "gap_s", "dispatch_s",
+                             "drain_wait_s", "mcells_steps_per_s")},
+                  "traces": traces, "phase_s": time.perf_counter() - t0}
+    emit({"phase": "stream", "ok": True, "chunk_steps": STREAM_CHUNK,
+          "guard_interval": STREAM_GUARD, "diag_interval": STREAM_DIAG,
+          "runs": out})
+
+
 def _interior_cells_3d(origin, shape, grid):
     """Cells of the block ``shape`` at ``origin`` in the grid's interior."""
     return math.prod(max(min(o + s, n - 1) - max(o, 1), 0)
@@ -4889,6 +5212,7 @@ def main() -> int:
         phase_sharded_converge_3d()
         phase_cli_sharded_3d()
         phase_device_loop()
+        phase_stream()
         t = phase_timing(dev)
         t.update(phase_timing_3d(dev))
         t.update(phase_timing_ens_mg(dev))

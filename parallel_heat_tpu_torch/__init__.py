@@ -19,8 +19,12 @@ config with ``mesh_shape`` runs cut over a mesh of blocks
 exchanges and rounds of the sharded kernels: ``heat_g_*`` in 2D
 (``ops/stencil_kernels_block.py``, ``parallel/temporal.py``) and
 ``heat_h_*`` in 3D (``ops/stencil_kernels_block_3d.py``,
-``parallel/temporal3d.py``), bitwise a one-block run. Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``.
+``parallel/temporal3d.py``), bitwise a one-block run.
+``solve_stream`` runs any of these in host-visible chunks with the
+runtime guard, the grid diagnostics and a :class:`Telemetry` sink, and
+at pipeline depth 2 keeps the next chunk on the card while it drains
+the last one's observers. Entry points run on ``cuda:0`` unless the
+caller passes ``device="cpu"``.
 """
 
 from parallel_heat_tpu_torch.config import EnsembleConfig, HeatConfig
@@ -30,9 +34,13 @@ from parallel_heat_tpu_torch.parallel.mesh import HeatMesh, pick_mesh_shape
 from parallel_heat_tpu_torch.solver import (
     HeatResult,
     explain,
+    grid_all_finite,
+    grid_stats,
     make_initial_grid,
     solve,
+    solve_stream,
 )
+from parallel_heat_tpu_torch.utils.telemetry import Telemetry
 
 __version__ = "0.1.0"
 
@@ -45,9 +53,13 @@ __all__ = [
     "HeatPlate2D",
     "HeatPlate3D",
     "HeatResult",
+    "Telemetry",
     "explain",
+    "grid_all_finite",
+    "grid_stats",
     "make_initial_grid",
     "pick_mesh_shape",
     "solve",
+    "solve_stream",
     "__version__",
 ]

@@ -144,13 +144,42 @@ class _Walker(ast.NodeVisitor):
 # ---------------------------------------------------------------------------
 
 # Method tails that wait for the device: the torch forms and the JAX
-# forms of the reference; the JAX ones also as bare calls.
+# forms of the reference; these also as bare calls (a bound
+# ``event.synchronize`` or an imported ``synchronize``).
 _BLOCKING_TAILS = ("item", "cpu", "tolist", "numpy", "synchronize",
                    "block_until_ready", "device_get")
-_BLOCKING_BARE = ("block_until_ready", "device_get")
+_BLOCKING_BARE = ("block_until_ready", "device_get", "synchronize")
 _BLOCKING_CALLS = ("sync", "time.sleep")
 _BLOCKING_ASARRAY = ("np.asarray", "numpy.asarray", "onp.asarray")
 _SCALAR_CASTS = ("float", "int", "bool")
+
+
+def _cpu_target(node) -> bool:
+    """Is ``node`` (an argument of ``.to``) the CPU: ``"cpu"``,
+    ``"cpu:N"``, ``torch.device("cpu")`` or a name ending in ``cpu``?"""
+    if isinstance(node, ast.Constant):
+        return isinstance(node.value, str) and (
+            node.value == "cpu" or node.value.startswith("cpu:"))
+    if isinstance(node, ast.Call):
+        q = _qual_name(node.func) or ""
+        return q.rsplit(".", 1)[-1] == "device" and bool(node.args) \
+            and _cpu_target(node.args[0])
+    q = _qual_name(node)
+    return q is not None and q.rsplit(".", 1)[-1].lower().endswith("cpu")
+
+
+def _blocking_to(node) -> bool:
+    """``x.to(<the CPU>)`` without ``non_blocking=True``: a copy to the
+    host that waits for the device."""
+    if not (isinstance(node.func, ast.Attribute) and node.func.attr == "to"):
+        return False
+    targets = list(node.args[:1]) + [k.value for k in node.keywords
+                                     if k.arg == "device"]
+    if not any(_cpu_target(t) for t in targets):
+        return False
+    return not any(k.arg == "non_blocking" and isinstance(k.value,
+                                                         ast.Constant)
+                   and k.value.value is True for k in node.keywords)
 
 
 def _string_lines(tree):
@@ -227,7 +256,10 @@ def rule_hl201(tree, src_lines, path) -> List[Finding]:
                 q = _qual_name(node.func)
                 if q is None and isinstance(node.func, ast.Attribute):
                     q = f"<expr>.{node.func.attr}"
-                if q is not None:
+                if _blocking_to(node):
+                    why = (f"{q}() copies to the host without "
+                           f"non_blocking=True")
+                elif q is not None:
                     tail = q.rsplit(".", 1)[-1]
                     if tail in _BLOCKING_TAILS and (
                             "." in q or tail in _BLOCKING_BARE):

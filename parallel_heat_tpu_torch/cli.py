@@ -13,6 +13,15 @@ device (``auto`` is the one-device mesh). ``--initial-out`` writes the
 initial grid as ``--out`` writes the final one, ``--quiet`` prints no
 progress lines, and ``--dtype`` takes the JAX CLI's names, of which this
 package runs ``float32`` and refuses the others (``HeatConfig.validate``).
+
+The observers are the JAX CLI's too: ``--guard-interval`` and
+``--diag-interval`` set the runtime guard and the grid diagnostics,
+``--pipeline-depth`` the stream's dispatch depth, ``--metrics FILE``
+appends the run's telemetry (JSONL, read by ``tools/metrics_report.py``)
+and ``--heartbeat FILE`` keeps a liveness file; with either, the run goes
+through a one-chunk ``solve_stream`` (bitwise ``solve``) and ends with a
+``run_end`` event. ``--profile DIR`` (alias ``--trace``) writes a
+``torch.profiler`` Chrome trace of the run into DIR.
 """
 
 from __future__ import annotations
@@ -65,6 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mg-levels", type=int, default=None,
                     help="implicit schemes: hierarchy depth cap "
                          "(default: coarsen fully)")
+    ap.add_argument("--pipeline-depth", default="auto", metavar="D",
+                    help="stream dispatch pipelining: keep D chunks in "
+                         "flight — chunk n+1 is enqueued on the card "
+                         "before chunk n's observers (guard, diagnostics, "
+                         "telemetry) drain, so the card does not idle "
+                         "through them. Dispatch order only: grids and "
+                         "observations are identical to a synchronous "
+                         "run. 'auto' (default) = 2 for fixed-step runs "
+                         "on the card, 1 otherwise; D > 1 with --converge "
+                         "is an error")
     ap.add_argument("--ensemble", type=int, default=None, metavar="B",
                     help="run B independent members of this config as one "
                          "batched ensemble; --out then writes the stacked "
@@ -105,6 +124,41 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--initial-out", default=None, metavar="FILE",
                     help="write the initial grid, as --out writes the "
                          "final one (reference: initial_im.dat)")
+    ap.add_argument("--guard-interval", type=int, default=None,
+                    metavar="N",
+                    help="steps between on-device isfinite-all guard "
+                         "checks (observation-only, never changes "
+                         "numerics); a trip warns")
+    ap.add_argument("--diag-interval", type=int, default=None,
+                    metavar="N",
+                    help="steps between on-device grid-stats samples "
+                         "(min/max/total heat content, L2/L-inf update "
+                         "residual — observation-only like the guard, "
+                         "never changes numerics). Emitted as "
+                         "'diagnostics' telemetry events when --metrics "
+                         "is set")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the run "
+                         "(CPU and CUDA activity) into DIR")
+    ap.add_argument("--trace", dest="profile", metavar="DIR",
+                    help="alias for --profile (view the Chrome trace "
+                         "with Perfetto or chrome://tracing; the run's "
+                         "phases appear under heat:* ranges and the "
+                         "kernels under their heat_* names)")
+    ap.add_argument("--metrics", default=None, metavar="FILE",
+                    help="append one JSONL telemetry event per stream "
+                         "chunk to FILE (schema-versioned: run header, "
+                         "per-chunk throughput, guard and diagnostics — "
+                         "summarize with tools/metrics_report.py). "
+                         "Observation-only: results are bitwise the "
+                         "uninstrumented run's")
+    ap.add_argument("--heartbeat", default=None, metavar="FILE",
+                    help="atomically rewrite FILE with a small liveness "
+                         "JSON document ({step, last_event, residual, "
+                         "...}) on telemetry events, for external probes")
+    ap.add_argument("--monitor-hint", action="store_true",
+                    help="print the tools/monitor.py invocation that "
+                         "watches this run's --heartbeat/--metrics files")
     ap.add_argument("--explain", action="store_true",
                     help="print the resolved path (backend, kernel, tile, "
                          "K) and exit without running")
@@ -143,6 +197,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"error: --halo-depth must be an integer or 'auto', got "
                   f"{args.halo_depth!r}", file=sys.stderr)
             return 2
+    if args.pipeline_depth == "auto":
+        # None lets solve_stream resolve it (resolved_pipeline_depth).
+        pipeline_depth = None
+    else:
+        try:
+            pipeline_depth = int(args.pipeline_depth)
+        except ValueError:
+            print(f"error: --pipeline-depth must be an integer or "
+                  f"'auto', got {args.pipeline_depth!r}",
+                  file=sys.stderr)
+            return 2
     config = HeatConfig(nx=args.nx, ny=args.ny, nz=args.nz, cx=args.cx,
                         cy=args.cy, cz=args.cz, steps=args.steps,
                         converge=args.converge, eps=args.eps,
@@ -154,6 +219,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         overlap=not args.no_overlap, halo_depth=halo_depth,
                         halo_overlap=(None if args.halo_overlap == "auto"
                                       else args.halo_overlap),
+                        guard_interval=args.guard_interval,
+                        diag_interval=args.diag_interval,
+                        pipeline_depth=pipeline_depth,
                         # Only the knobs given: unset ones keep their
                         # defaults, which --scheme explicit requires.
                         **{k: v for k, v in (("mg_tol", args.mg_tol),
@@ -176,6 +244,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         for key, val in explain(config, ensemble=args.ensemble).items():
             print(f"{key}: {val}")
         return 0
+    if args.monitor_hint and not (args.metrics or args.heartbeat):
+        print("error: --monitor-hint requires --metrics and/or "
+              "--heartbeat (the files the monitor watches)",
+              file=sys.stderr)
+        return 2
     if args.ensemble is not None:
         if args.initial_out:
             print("error: --ensemble does not take --initial-out",
@@ -194,14 +267,43 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             f"Time steps: - (converge, eps={config.eps:g})")
     else:
         say(f"Grid size: {grid}  Time steps: {config.steps}")
+    telemetry = _telemetry(args)
+
+    def run():
+        if telemetry is None:
+            return solve(config)
+        # A one-chunk stream: bitwise solve(), and the run leaves its
+        # header and chunk events behind.
+        from parallel_heat_tpu_torch.solver import solve_stream
+
+        result = None
+        for result in solve_stream(config, telemetry=telemetry):
+            pass
+        return result if result is not None else solve(config)
+
     try:
         if args.initial_out:
             written = _write_grid(args.initial_out, make_initial_grid(config))
             say(f"Initial grid written to {written}")
-        result = solve(config)
+        if args.profile:
+            from parallel_heat_tpu_torch.utils.profiling import trace
+
+            with trace(args.profile) as done:
+                result = run()
+                done(result.grid)
+            say(f"Profiler trace written to {args.profile}")
+        else:
+            result = run()
+        if telemetry is not None:
+            telemetry.run_end(outcome="complete",
+                              steps_done=result.steps_run,
+                              wall_s=result.elapsed_s)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if telemetry is not None:
+            telemetry.close()
     if config.converge:
         if result.converged:
             say(f"Converged after {result.steps_run} steps")
@@ -215,6 +317,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
+def _telemetry(args):
+    """The run's sink for --metrics/--heartbeat (None without them), its
+    file writes on a background thread; prints the monitor hint."""
+    if not (args.metrics or args.heartbeat):
+        return None
+    from parallel_heat_tpu_torch.utils.telemetry import Telemetry
+
+    telemetry = Telemetry(args.metrics, heartbeat=args.heartbeat,
+                          async_io=True)
+    if args.monitor_hint:
+        import shlex
+
+        hint = ["python", "tools/monitor.py"]
+        if args.heartbeat:
+            hint += ["--heartbeat", telemetry.heartbeat_path]
+        if args.metrics:
+            hint += ["--metrics", telemetry.path]
+        # print, not say: the flag asks for this one line, and --quiet
+        # must not swallow it.
+        print("Monitor with: " + " ".join(shlex.quote(t) for t in hint))
+    return telemetry
+
+
 def _run_ensemble(args, config) -> int:
     """The --ensemble B path: one batched run, one line per member."""
     import numpy as np
@@ -222,15 +347,24 @@ def _run_ensemble(args, config) -> int:
     from parallel_heat_tpu_torch import EnsembleSolver
 
     say = (lambda *a: None) if args.quiet else print
+    telemetry = _telemetry(args)
     say(f"Starting parallel_heat_tpu_torch ensemble: {args.ensemble} "
           f"member(s) of {'x'.join(map(str, config.shape))}, "
           + (f"converge eps={config.eps:g}" if config.converge
              else f"{config.steps} steps"))
     try:
-        result = EnsembleSolver(config, args.ensemble).solve()
+        result = EnsembleSolver(config, args.ensemble).solve(
+            telemetry=telemetry)
+        if telemetry is not None:
+            telemetry.run_end(outcome="complete",
+                              steps_done=int(result.steps_run.max()),
+                              wall_s=result.elapsed_s)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if telemetry is not None:
+            telemetry.close()
     for i in range(result.members):
         line = f"member {i}: {int(result.steps_run[i])} steps"
         if result.converged is not None:

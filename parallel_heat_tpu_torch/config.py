@@ -23,10 +23,14 @@ implements, so one spec runs on either package. What differs:
   past what the G or H kernels take is refused under ``"cuda"``. An
   implicit scheme on a mesh and the ``"pipeline"`` schedule are
   refused, naming the ROADMAP.md item;
+- ``guard_interval``, ``diag_interval`` and ``pipeline_depth`` configure
+  the observers of ``solver.solve_stream`` and ``solve`` (the runtime
+  guard, the grid diagnostics, the stream's dispatch depth) with the JAX
+  package's defaults and rules; they never change a bit of the grid;
 - the fields of the JAX package that this one does not implement yet
-  (observers, f32chunk accumulation, the partitioned V-cycle) are
-  rejected by :meth:`HeatConfig.from_dict` when they are set away from
-  their defaults, instead of being dropped silently.
+  (f32chunk accumulation, the partitioned V-cycle) are rejected by
+  :meth:`HeatConfig.from_dict` when they are set away from their
+  defaults, instead of being dropped silently.
 
 :class:`EnsembleConfig` is the JAX package's, field for field.
 """
@@ -51,8 +55,9 @@ _VALID_HALO_OVERLAP = (None, "auto", "phase", "overlap", "pipeline")
 #
 # Every HeatConfig field is classified exactly once, as in the JAX
 # package. SEMANTIC fields select what the simulation computes or which
-# program computes it; OBSERVATION_ONLY fields would configure observers
-# that never change a bit of the grid (none exist in this slice yet).
+# program computes it; OBSERVATION_ONLY fields configure observers and
+# the stream's dispatch order, which never change a bit of the grid
+# (``solver._observer_free`` resets them before any loop is built).
 # ``device`` is semantic: it selects the kernel or its plain version.
 SEMANTIC_FIELDS = (
     "nx", "ny", "nz", "cx", "cy", "cz",
@@ -61,7 +66,8 @@ SEMANTIC_FIELDS = (
     "mesh_shape", "overlap", "halo_depth", "halo_overlap",
     "scheme", "mg_tol", "mg_cycles", "mg_smooth", "mg_levels",
 )
-OBSERVATION_ONLY_FIELDS: Tuple[str, ...] = ()
+OBSERVATION_ONLY_FIELDS = ("guard_interval", "diag_interval",
+                           "pipeline_depth")
 
 # Fields of the JAX package's HeatConfig that this package does not
 # implement yet, with the JAX defaults. A spec that leaves them at these
@@ -70,9 +76,6 @@ OBSERVATION_ONLY_FIELDS: Tuple[str, ...] = ()
 JAX_ONLY_DEFAULTS = {
     "accumulate": "storage",
     "mg_partition": "auto",
-    "guard_interval": None,
-    "diag_interval": None,
-    "pipeline_depth": None,
 }
 
 # --- ensemble cache-key partition -----------------------------------------
@@ -247,6 +250,23 @@ class HeatConfig:
     mg_smooth: int = 1
     mg_levels: Optional[int] = None
 
+    # The runtime guard: steps between isfinite-all checks of the grid
+    # (None = off). `solve_stream` checks at the first chunk boundary
+    # at-or-after each multiple and at its last chunk, `solve` the final
+    # grid once. Observation-only: it reads the grid, never writes it.
+    guard_interval: Optional[int] = None
+    # Grid diagnostics: steps between grid-stats samples (min, max, total
+    # heat, L2/L-inf of the update since the previous sample;
+    # `solver.grid_stats`), on the guard's boundary rule. None = off.
+    # Observation-only; costs one retained grid copy (the baseline).
+    diag_interval: Optional[int] = None
+    # `solve_stream`'s dispatch depth: chunks in flight on the card at
+    # once. None = auto: 2 for fixed-step runs on the card, else 1. A
+    # depth > 1 with converge=True is an error (a converge chunk's
+    # verdict must be read before the next chunk is dispatched).
+    # Dispatch order only: grids and observations equal depth 1's.
+    pipeline_depth: Optional[int] = None
+
     def __post_init__(self):
         # A JSON spec gives the mesh as a list; keep the config hashable.
         if self.mesh_shape is not None:
@@ -341,6 +361,27 @@ class HeatConfig:
             raise ValueError(
                 f"mg_levels must be >= 1 (or None for full "
                 f"coarsening), got {self.mg_levels}")
+        if self.guard_interval is not None and self.guard_interval < 1:
+            raise ValueError(
+                f"guard_interval must be >= 1 (or None to disable the "
+                f"runtime guard), got {self.guard_interval}")
+        if self.diag_interval is not None and self.diag_interval < 1:
+            raise ValueError(
+                f"diag_interval must be >= 1 (or None to disable grid "
+                f"diagnostics), got {self.diag_interval}")
+        if self.pipeline_depth is not None:
+            if self.pipeline_depth < 1:
+                raise ValueError(
+                    f"pipeline_depth must be >= 1 (or None for auto), "
+                    f"got {self.pipeline_depth}")
+            if self.pipeline_depth > 1 and self.converge:
+                raise ValueError(
+                    "pipeline_depth > 1 is fixed-step only: converge "
+                    "mode must read each chunk's on-device convergence "
+                    "verdict before dispatching the next chunk, so "
+                    "dispatch-ahead would speculate past the stopping "
+                    "point (use pipeline_depth=1 or drop the flag — "
+                    "auto already resolves converge runs to 1)")
         self._validate_mesh()
         if self.scheme == "explicit":
             # Inert knobs stay at their defaults: a loud decline, not a

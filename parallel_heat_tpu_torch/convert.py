@@ -29,9 +29,11 @@ def from_jax(config_fields: dict, grid: Optional[np.ndarray],
     None)``.
 
     2D and 3D (``nz`` set) configs carry across, ``scheme``, the
-    ``mg_*`` knobs and the mesh fields (``mesh_shape``, ``overlap``,
-    ``halo_depth``, ``halo_overlap``) included. JAX-only fields set away
-    from their defaults (observers, ...) are refused, as
+    ``mg_*`` knobs, the mesh fields (``mesh_shape``, ``overlap``,
+    ``halo_depth``, ``halo_overlap``) and the observers
+    (``guard_interval``, ``diag_interval``, ``pipeline_depth``) included.
+    JAX-only fields set away from their defaults (``accumulate``,
+    ``mg_partition``) are refused, as
     :meth:`HeatConfig.from_dict` does. The grid, when given, is checked
     against the config's shape (``(B, *shape)`` for an ensemble of B
     members) and copied to ``device`` as float32; the global grid of a

@@ -23,6 +23,8 @@ from parallel_heat_tpu_torch.ensemble.engine import (  # noqa: F401
     EnsembleInterrupted,
     EnsembleResult,
     EnsembleSolver,
+    ensemble_all_finite,
+    ensemble_grid_stats,
     ensemble_path,
     packable,
 )

@@ -20,8 +20,11 @@ import numpy as np
 import torch
 
 from parallel_heat_tpu_torch.config import EnsembleConfig, HeatConfig
+from torch.profiler import record_function
+
 from parallel_heat_tpu_torch.solver import (
     HeatResult,
+    _observer_free,
     device_scope,
     resolve_backend,
     single_multistep,
@@ -42,6 +45,43 @@ class EnsembleInterrupted(Exception):
         super().__init__(reason)
         self.reason = reason
         self.state = state
+
+
+# ---------------------------------------------------------------------------
+# Batched observers (the member-axis counterparts of solver.grid_all_finite
+# and solver.grid_stats; observation only)
+# ---------------------------------------------------------------------------
+
+def ensemble_all_finite(grids) -> np.ndarray:
+    """Per-member runtime guard: ``(B,)`` bools, True where every cell of
+    the member is finite. One read of the stack (a member's extrema are
+    finite exactly when its cells are), the verdicts read on the host."""
+    with record_function("heat:ens_guard"):
+        mn, mx = torch.aminmax(grids.reshape(grids.shape[0], -1), dim=1)
+        return (torch.isfinite(mn) & torch.isfinite(mx)).cpu().numpy()
+
+
+def ensemble_grid_stats(grids, prev=None) -> List[dict]:
+    """Per-member grid diagnostics: a list of B dicts with the keys of
+    ``solver.grid_stats``. Sums accumulate in float32 per member; a
+    member's ``heat`` may differ in its last bits from a solo
+    ``grid_stats`` (another reduction order): diagnostics are
+    observations, not part of the bitwise member contract."""
+    with record_function("heat:ens_diag"):
+        B = grids.shape[0]
+        flat = grids.reshape(B, -1)
+        mn, mx = torch.aminmax(flat, dim=1)
+        cols = [mn, mx, flat.sum(dim=1)]
+        if prev is not None:
+            d = flat - prev.reshape(B, -1)
+            dmn, dmx = torch.aminmax(d, dim=1)
+            cols += [torch.linalg.vector_norm(d, dim=1),
+                     torch.maximum(dmx, -dmn)]
+        host = torch.stack(cols, dim=1).double().cpu().tolist()
+    return [{"min": r[0], "max": r[1], "heat": r[2],
+             "update_l2": r[3] if prev is not None else None,
+             "update_linf": r[4] if prev is not None else None}
+            for r in host]
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +201,10 @@ class EnsembleResult:
     converged: Optional[np.ndarray]  # (B,) bool, converge mode only
     residual: Optional[np.ndarray]   # (B,) float64, converge mode only
     elapsed_s: float
+    # (B,) runtime-guard verdicts (``guard_interval``), else None.
+    finite: Optional[np.ndarray] = None
+    # B grid_stats samples (``diag_interval``), else None.
+    diagnostics: Optional[List[dict]] = None
     # (step, from_members, to_members) per compaction event.
     compactions: List[tuple] = field(default_factory=list)
 
@@ -176,7 +220,11 @@ class EnsembleResult:
                        if self.converged is not None else None),
             residual=(float(self.residual[i])
                       if self.residual is not None else None),
-            elapsed_s=self.elapsed_s)
+            elapsed_s=self.elapsed_s,
+            finite=(bool(self.finite[i]) if self.finite is not None
+                    else None),
+            diagnostics=(self.diagnostics[i]
+                         if self.diagnostics is not None else None))
 
     def to_numpy(self) -> np.ndarray:
         """Copy the stacked final grids to host memory."""
@@ -268,7 +316,8 @@ class EnsembleSolver:
 
     # -- the run ---------------------------------------------------------
 
-    def solve(self, initials=None, chunk_steps: Optional[int] = None,
+    def solve(self, initials=None, telemetry=None,
+              chunk_steps: Optional[int] = None,
               on_boundary: Optional[Callable] = None,
               state: Optional[dict] = None) -> EnsembleResult:
         """Run every member to completion; returns an
@@ -288,8 +337,28 @@ class EnsembleSolver:
         raise :class:`EnsembleInterrupted` to stop at a consistent
         boundary. The kernels are built and loaded before the clock
         starts; ``elapsed_s`` ends with a device synchronisation.
+
+        ``telemetry`` (a ``utils.telemetry.Telemetry``) receives a
+        ``run_header`` with the ``ensemble`` block, an ``ensemble_window``
+        a dispatch, ``member_converged`` and ``ensemble_compaction`` in
+        converge mode, and per member a ``diagnostics`` event (with
+        ``member``, under ``diag_interval``) and a ``member_end``. The
+        guard (``guard_interval``) and the diagnostics check and sample
+        every member's final grid after the clock, against its initial
+        grid, as the JAX package does.
         """
         config = self.config
+        guard_interval = config.guard_interval
+        diag_interval = config.diag_interval
+        B = self.batch
+        if telemetry is not None:
+            telemetry.run_header(
+                config, ensemble={"members": B, "path": self.path,
+                                  "window_rounds":
+                                      self.ensemble.window_rounds,
+                                  "compact_threshold":
+                                      self.ensemble.compact_threshold})
+        config = _observer_free(config)
         with device_scope(self.device):
             ms, msr, path = _batched_multistep(config)
             if state is not None:
@@ -298,23 +367,53 @@ class EnsembleSolver:
             else:
                 u = self.initial_grids(initials)
                 k0 = 0
+            diag_prev = u.clone() if diag_interval is not None else None
             with Timer(self.device) as timer:
                 if not config.converge:
                     out = self._solve_fixed(ms, u, k0, chunk_steps,
-                                            on_boundary)
+                                            on_boundary, telemetry)
                 else:
                     # Kernel M leaves its input buffer as it was.
                     out = self._solve_converge(ms, msr, path == "M", u, k0,
-                                               state, on_boundary)
-        grids, steps_run, converged, residual, compactions = out
+                                               state, on_boundary, telemetry)
+            grids, steps_run, converged, residual, compactions = out
+            finite = None
+            if guard_interval is not None:
+                finite = ensemble_all_finite(grids)
+                if not finite.all():
+                    bad = [int(i) for i in np.where(~finite)[0]]
+                    warnings.warn(
+                        f"runtime guard: non-finite grid values in "
+                        f"ensemble member(s) {bad} (coefficient sum past "
+                        f"the stability bound? see "
+                        f"HeatConfig.stability_margin)", RuntimeWarning)
+            diagnostics = None
+            if diag_interval is not None:
+                diagnostics = ensemble_grid_stats(grids, prev=diag_prev)
+                for i, d in enumerate(diagnostics):
+                    d["step"] = int(steps_run[i])
+                    d["steps_since"] = int(steps_run[i]) - k0
+                    if telemetry is not None:
+                        telemetry.diagnostics(member=i, **d)
+        if telemetry is not None:
+            for i in range(B):
+                telemetry.emit(
+                    "member_end", member=i, step=int(steps_run[i]),
+                    steps=int(steps_run[i]) - k0,
+                    converged=(bool(converged[i])
+                               if converged is not None else None),
+                    residual=(float(residual[i])
+                              if residual is not None else None),
+                    finite=(bool(finite[i]) if finite is not None
+                            else None))
         return EnsembleResult(
             grids=grids, steps_run=steps_run, converged=converged,
-            residual=residual, elapsed_s=timer.elapsed_s,
-            compactions=compactions)
+            residual=residual, elapsed_s=timer.elapsed_s, finite=finite,
+            diagnostics=diagnostics, compactions=compactions)
 
     # -- fixed mode ------------------------------------------------------
 
-    def _solve_fixed(self, ms, u, k0, chunk_steps, on_boundary):
+    def _solve_fixed(self, ms, u, k0, chunk_steps, on_boundary, telemetry):
         B = self.batch
         total = self.config.steps
         remaining = total - k0
@@ -326,8 +425,13 @@ class EnsembleSolver:
         k = k0
         while k < total:
             c = min(chunk, total - k)
-            u, v = ms(u, v, c)
+            with record_function("heat:ens_chunk"):
+                u, v = ms(u, v, c)
             k += c
+            if telemetry is not None:
+                telemetry.emit("ensemble_window", step=k, batch=B,
+                               live=(B if k < total else 0),
+                               done=(0 if k < total else B))
             if on_boundary is not None:
 
                 def assemble(_u=u, _k=k):
@@ -346,7 +450,7 @@ class EnsembleSolver:
     # -- converge mode ---------------------------------------------------
 
     def _solve_converge(self, ms, msr, keeps_input, u, k0, state,
-                        on_boundary):
+                        on_boundary, telemetry):
         config = self.config
         dev = self.device
         B = self.batch
@@ -425,9 +529,10 @@ class EnsembleSolver:
             if w <= 0:
                 break
             k_d = torch.tensor(k, dtype=torch.int32, device=dev)
-            u, v, done_d, res_d, steps_d, k_d = _converge_dispatch(
-                msr, keeps_input, ci, eps, config.ndim, w, u, v, done_d,
-                res_d, steps_d, k_d)
+            with record_function("heat:ens_chunk"):
+                u, v, done_d, res_d, steps_d, k_d = _converge_dispatch(
+                    msr, keeps_input, ci, eps, config.ndim, w, u, v,
+                    done_d, res_d, steps_d, k_d)
             # The dispatch's one read: verdicts and step counter in one
             # float64 array (a float32 residual, NaN included, and an
             # int32 count are exact in float64).
@@ -439,11 +544,20 @@ class EnsembleSolver:
             done = host[0, :-1] != 0
             res_w = host[1, :-1]
             steps_w = host[2, :-1].astype(np.int64)
+            newly = [pos for pos in range(cur_B)
+                     if done[pos] and not done_h[order[pos]]]
             for pos, orig in enumerate(order):
                 res_h[orig] = res_w[pos]
                 steps_h[orig] = steps_w[pos]
                 done_h[orig] = done[pos]
             live = int((~done).sum())
+            if telemetry is not None:
+                telemetry.emit("ensemble_window", step=k, batch=cur_B,
+                               live=live, done=B - live)
+                for pos in newly:
+                    telemetry.emit("member_converged", member=order[pos],
+                                   step=int(steps_w[pos]),
+                                   residual=float(res_w[pos]))
             if on_boundary is not None:
                 on_boundary(EnsembleBoundary(
                     step=k, batch=cur_B, live=live, done_total=B - live,
@@ -469,6 +583,10 @@ class EnsembleSolver:
                 v = torch.empty_like(u)
                 new_order = [order[p] for p in live_pos]
                 compactions.append((k, cur_B, len(new_order)))
+                if telemetry is not None:
+                    telemetry.emit("ensemble_compaction", step=k,
+                                   from_members=cur_B,
+                                   to_members=len(new_order))
                 order = new_order
                 done_d, res_d, steps_d = verdicts_to_device()
 

@@ -624,6 +624,41 @@ def cycle_trace(config: HeatConfig, grid, max_cycles=None,
             "converged": bool(used[-1] <= tol if used else r0 <= tol)}
 
 
+def level_wall_shares(config: HeatConfig, repeats: int = 3) -> list:
+    """Measured wall share of one smoothing sweep a level, normalised to
+    sum to 1 (rounded to 4 places): each level's sweep (:func:`smooth`)
+    on ``config.device`` timed alone, the minimum of ``repeats``, by CUDA
+    events on the card and by ``perf_counter`` on the CPU. Observation
+    only; the first ``vcycle`` event of a stream carries it."""
+    import time
+
+    config = config.validate()
+    dev = torch.device(config.device)
+    walls = []
+    for shape, ax, ay in level_coefficients(config):
+        u = torch.zeros(shape, dtype=torch.float32, device=dev)
+        b = torch.ones(shape, dtype=torch.float32, device=dev)
+        smooth(u, b, ax, ay)  # first call outside the bracket
+        best = float("inf")
+        for _ in range(repeats):
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                smooth(u, b, ax, ay)
+                end.record()
+                end.synchronize()
+                wall = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                smooth(u, b, ax, ay)
+                wall = time.perf_counter() - t0
+            best = min(best, wall)
+        walls.append(best)
+    total = sum(walls) or 1.0
+    return [round(w / total, 4) for w in walls]
+
+
 def explain_hierarchy(config: HeatConfig, backend: str) -> dict:
     """The resolved implicit path for ``solver.explain``: scheme, theta,
     the level hierarchy, the smoother, the transfers and the stopping

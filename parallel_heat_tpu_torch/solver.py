@@ -30,12 +30,23 @@ On the CPU the same loops run eagerly, the host reading each stop test.
 The grid lives in two device buffers that the loop ping-pongs in place
 (the reference's ``old = 1-old`` swap): each launch reads one and writes
 the other, and no grid is allocated per step.
+
+:func:`solve_stream` runs the same loops in host-visible chunks and
+yields after each, with the observers of ``HeatConfig.guard_interval``
+(:func:`grid_all_finite`) and ``diag_interval`` (:func:`grid_stats`) and
+an optional telemetry sink; at ``pipeline_depth`` 2 (fixed mode on the
+card) it dispatches the next chunk before it drains the last one's
+observers. Observers read the grid and never write it: a run with them
+is bitwise the run without.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import math
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Optional
@@ -43,13 +54,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from torch.profiler import record_function
+
 from parallel_heat_tpu_torch import tune
-from parallel_heat_tpu_torch.config import HeatConfig
+from parallel_heat_tpu_torch.config import OBSERVATION_ONLY_FIELDS, HeatConfig
 from parallel_heat_tpu_torch.models import HeatPlate2D, HeatPlate3D
 from parallel_heat_tpu_torch.ops.stencil import (step_2d, step_2d_residual,
                                                  step_3d, step_3d_residual)
-from parallel_heat_tpu_torch.utils import device_loop
-from parallel_heat_tpu_torch.utils.timing import Timer
+from parallel_heat_tpu_torch.utils import device_loop, profiling
+from parallel_heat_tpu_torch.utils.timing import Timer, synchronize
 
 
 @dataclass
@@ -64,6 +77,13 @@ class HeatResult:
     # Seconds spent capturing and instantiating the run's graphs, before
     # the clock started (0 where no graph is made).
     capture_s: float = 0.0
+    # The runtime guard's verdict (``HeatConfig.guard_interval``) where
+    # it ran on this result's grid, else None. Observation only.
+    finite: Optional[bool] = None
+    # The grid_stats sample (``HeatConfig.diag_interval``: min, max,
+    # heat, update_l2, update_linf, step, steps_since; ``vcycle`` in an
+    # implicit run) where one ran on this result's grid, else None.
+    diagnostics: Optional[dict] = None
 
     def to_numpy(self) -> np.ndarray:
         """Copy the final grid to host memory."""
@@ -143,10 +163,11 @@ def torch_multistep(cx: float, cy: float, cz: Optional[float] = None):
 
 class _Loop:
     """The stepping and convergence policy of a run: :meth:`prepare`
-    ``(u, v)`` before the clock, then ``loop(u, v) -> (grid, steps_run,
-    converged, residual)``. ``u`` holds the initial state and ``v`` is a
-    spare of the same shape; ``converged``/``residual`` are None in fixed
-    mode.
+    ``(u, v)`` before the clock, then ``loop(u, v) -> (grid, spare,
+    steps_run, converged, residual)``. ``u`` holds the initial state and
+    ``v`` is a spare of the same shape; ``converged``/``residual`` are
+    None in fixed mode. A loop may run again from where the last run left
+    its buffers (a stream's next chunk).
 
     On the card the loops run through ``utils/device_loop.py``: converge
     mode's check windows replayed as graphs with the stop test on the
@@ -177,26 +198,35 @@ class _Loop:
             multi_step_residual, ci=ci, eps=self.eps,
             full_steps=self.steps // ci * ci)
 
-    def prepare(self, u, v) -> None:
+    def prepare(self, u, v, warm=None) -> None:
+        """Before the clock; ``warm`` (state, spare) are the buffers a
+        warm-up may run on where they are not ``(u, v)``
+        (``device_loop.warm_up``)."""
         if not self.converge:
             if self.fixed is not None:
-                self.fixed.prepare(u, v)
+                self.fixed.prepare(u, v, warm)
             return
-        self.windows.prepare(u, v)
+        self.windows.prepare(u, v, warm)
+
+    def flips(self) -> Optional[bool]:
+        """Does a run that does not stop early leave the state in ``v``?
+        None where no graph binds the loop to its buffers' order."""
+        loop = self.windows if self.converge else self.fixed
+        return loop.flips() if loop is not None else None
 
     def __call__(self, u, v):
         if not self.converge:
             if self.steps > 0:
                 u, v = (self.fixed.run(u, v) if self.fixed is not None
                         else self.multi_step(u, v, self.steps))
-            return u, self.steps, None, None
+            return u, v, self.steps, None, None
         u, v, k, res = self.windows.run(u, v)
         converged = res < self.eps
         if self.rem > 0 and not converged:
             # Tail steps past the last full window, uninspected.
             u, v = self.multi_step(u, v, self.rem)
             k += self.rem
-        return u, k, converged, res
+        return u, v, k, converged, res
 
 
 def _period(config: HeatConfig, dev: torch.device) -> Optional[int]:
@@ -404,6 +434,17 @@ def explain(config: HeatConfig, device: Optional[str] = None,
         "mode": "converge" if config.converge else "fixed",
         "scheme": config.scheme,
     }
+    if config.guard_interval is not None:
+        out["guard"] = (f"isfinite-all every {config.guard_interval} "
+                        f"steps (observation-only)")
+    if config.diag_interval is not None:
+        out["diagnostics"] = (f"fused grid stats every "
+                              f"{config.diag_interval} steps "
+                              f"(observation-only)")
+    if config.pipeline_depth is not None:
+        out["pipeline"] = (f"depth {config.pipeline_depth} dispatch-"
+                           f"ahead stream (dispatch-order only; "
+                           f"observer drain overlaps the next chunk)")
     if ensemble is not None:
         from parallel_heat_tpu_torch.ensemble.engine import (ensemble_path,
                                                              packable)
@@ -615,6 +656,191 @@ def _explain_3d(config: HeatConfig, out: dict, plain: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Observers: the runtime guard and the grid diagnostics
+# ---------------------------------------------------------------------------
+
+# Cells a slab of the update norms' temporary holds (64 MiB of float32):
+# ``u - prev`` of a 32768^2 grid at once would be a 4 GiB temporary.
+_SLAB_CELLS = 1 << 24
+
+
+def _observer_free(config: HeatConfig) -> HeatConfig:
+    """``config`` with every observation-only field
+    (``config.OBSERVATION_ONLY_FIELDS``) at its default: what the loops
+    are built from, so an observed or pipelined run builds the plain
+    run's loops and cannot diverge from it."""
+    defaults = {f.name: f.default for f in dataclasses.fields(config)}
+    kw = {name: defaults[name] for name in OBSERVATION_ONLY_FIELDS
+          if getattr(config, name) != defaults[name]}
+    return config.replace(**kw) if kw else config
+
+
+def _blocks(state) -> list:
+    return list(state) if isinstance(state, (list, tuple)) else [state]
+
+
+def _pairs(state, prev=None, origins=None) -> list:
+    """``[(block, prev block or None)]``: ``prev`` a tensor of the
+    state's shape, a list of blocks, or (with ``origins``) the assembled
+    grid, of which each block's cells are taken as a view."""
+    blocks = _blocks(state)
+    if prev is None:
+        return [(b, None) for b in blocks]
+    if isinstance(prev, (list, tuple)):
+        return list(zip(blocks, prev))
+    if origins is None:
+        return [(blocks[0], prev)]
+    return [(b, prev[tuple(slice(o, o + n) for o, n in zip(org, b.shape))])
+            for b, org in zip(blocks, origins)]
+
+
+def _finite_dev(state) -> torch.Tensor:
+    """The guard on the card: a 0-d bool, True iff every cell of every
+    block is finite. One read of the grid: the blocks' extrema are
+    finite exactly when every cell is (a NaN makes both NaN)."""
+    mm = torch.stack([torch.stack(torch.aminmax(b)) for b in _blocks(state)])
+    return torch.isfinite(mm).all()
+
+
+def _stats_dev(pairs) -> torch.Tensor:
+    """The diagnostics on the card, as float64: ``[min, max, heat]`` and,
+    where a baseline is paired, ``[update_l2, update_linf]`` after them.
+    Blocks and then slabs of ``_SLAB_CELLS`` along the first axis are
+    reduced one by one and their partials combined in that fixed order,
+    with no atomics, so a value is the same from run to run and from
+    depth to depth; sums accumulate in float32, as the JAX package's."""
+    part, delta = [], []
+    for u, p in pairs:
+        mn, mx = torch.aminmax(u)
+        part.append(torch.stack([mn, mx, torch.sum(u)]))
+        if p is None:
+            continue
+        rows = max(1, _SLAB_CELLS // max(1, u[0].numel()))
+        for r in range(0, u.shape[0], rows):
+            d = u[r:r + rows] - p[r:r + rows]
+            dmn, dmx = torch.aminmax(d)
+            delta.append(torch.stack([dmn, dmx,
+                                      torch.linalg.vector_norm(d)]))
+    a = torch.stack(part)
+    out = [a[:, 0].amin(), a[:, 1].amax(), a[:, 2].sum()]
+    if delta:
+        d = torch.stack(delta)
+        out += [d[:, 2].square().sum().sqrt(),
+                torch.maximum(d[:, 1], -d[:, 0]).amax()]
+    return torch.stack(out).double()
+
+
+def _stats_dict(vals) -> dict:
+    vals = [float(v) for v in vals]
+    l2, linf = (vals[3], vals[4]) if len(vals) == 5 else (None, None)
+    return {"min": vals[0], "max": vals[1], "heat": vals[2],
+            "update_l2": l2, "update_linf": linf}
+
+
+def grid_all_finite(grid) -> bool:
+    """The runtime guard: True iff every cell of ``grid`` (a tensor, or a
+    list of a mesh's blocks) is finite. Reads the grid once on its device
+    and the verdict on the host; writes nothing. The ``heat:guard``
+    range names it in a profiler trace."""
+    with record_function("heat:guard"):
+        return bool(_finite_dev(grid))
+
+
+def grid_stats(grid, prev=None) -> dict:
+    """Grid diagnostics: ``min``, ``max``, ``heat`` (the sum of the
+    cells) and, when ``prev`` (an earlier grid of the same shape, or its
+    blocks) is given, ``update_l2``/``update_linf``, the norms of the
+    change since ``prev``. Observation only, like
+    :func:`grid_all_finite`; the ``heat:diag`` range names it."""
+    return _sample(grid, prev)
+
+
+def _sample(state, prev=None, origins=None) -> dict:
+    """:func:`grid_stats` of ``state`` against ``prev`` (see
+    :func:`_pairs`), read on the host."""
+    with record_function("heat:diag"):
+        return _stats_dict(_stats_dev(_pairs(state, prev, origins))
+                           .tolist())
+
+
+def _warn_guard_tripped(step: int) -> None:
+    """The fixed-step counterpart of :func:`_warn_if_diverged`: the guard
+    found non-finite values, so every step from the first bad one on made
+    garbage (the boundary cells stay exact)."""
+    warnings.warn(
+        f"runtime guard: non-finite grid values detected at step {step} "
+        f"(coefficient sum past the stability bound? see "
+        f"HeatConfig.stability_margin); grid values are garbage from the "
+        f"first bad step on, boundary cells remain exact",
+        RuntimeWarning,
+    )
+
+
+def resolved_pipeline_depth(config: HeatConfig,
+                            pipeline_depth: Optional[int] = None) -> int:
+    """The dispatch depth :func:`solve_stream` runs ``config`` at: the
+    explicit argument, else ``config.pipeline_depth``, else auto: 2 for a
+    fixed-step run on the card, 1 otherwise. A converge chunk's verdict
+    must be read before the next chunk is dispatched, and on the CPU
+    there is no idle card for a chunk in flight to keep busy."""
+    depth = (pipeline_depth if pipeline_depth is not None
+             else config.pipeline_depth)
+    if depth is not None:
+        return depth
+    if config.converge:
+        return 1
+    return 2 if torch.device(config.device).type == "cuda" else 1
+
+
+class _Run:
+    """The state of one run, for :func:`solve` and :func:`solve_stream`:
+    the resolved config, the mesh (None on one block), the two buffers
+    ``u`` (the initial state) and ``v`` (its spare), and the step
+    functions; the kernels of a CUDA run are loaded here."""
+
+    def __init__(self, config: HeatConfig, initial, dev: torch.device):
+        self.dev = dev
+        self.backend = resolve_backend(config, dev)
+        self.mesh = self.origins = None
+        if config.is_sharded():
+            from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+            config = _resolved(config, self.backend)
+            self.mesh = HeatMesh(config.mesh_shape, dev)
+            self.ms, self.msr = sharded_multistep(config, self.mesh,
+                                                  self.backend)
+            self.u = _prepare_blocks(config, self.mesh, initial)
+            self.v = [torch.empty_like(b) for b in self.u]
+            bs = config.block_shape()
+            self.origins = [self.mesh.origin(b, bs)
+                            for b in range(self.mesh.size)]
+        else:
+            self.ms, self.msr = single_multistep(config, self.backend)
+            self.u = _prepare_initial(config, initial, dev)
+            self.v = torch.empty_like(self.u)
+        self.config = config
+
+    def loop(self, steps: int) -> _Loop:
+        return _Loop(self.ms, self.msr, self.config.replace(steps=steps),
+                     period=_period(self.config, self.dev))
+
+    def grid(self, state) -> torch.Tensor:
+        """The grid of ``state``: the buffer itself on one block, the
+        assembled blocks (a new tensor) on a mesh."""
+        return self.mesh.assemble(state) if self.mesh is not None else state
+
+    def copy(self, state):
+        """A copy of ``state`` that the run never writes."""
+        if self.mesh is not None:
+            return [b.clone() for b in state]
+        return state.clone()
+
+    def order(self, state) -> int:
+        """0 where the state sits in ``u``, 1 where it sits in ``v``."""
+        return 0 if device_loop._same(state, self.u) else 1
+
+
 def solve(config: HeatConfig, initial=None,
           device: Optional[str] = None) -> HeatResult:
     """Run one simulation end to end. The main entry point.
@@ -625,38 +851,378 @@ def solve(config: HeatConfig, initial=None,
     copied first. The kernels are built and loaded before the clock
     starts, so ``elapsed_s`` covers the step loop only, ended by a device
     synchronisation.
+
+    A run is one loop with no boundary to observe inside it, so the guard
+    (``guard_interval``) and the diagnostics (``diag_interval``) check
+    and sample the final grid once (``HeatResult.finite``,
+    ``.diagnostics``, against the initial grid), after the clock;
+    :func:`solve_stream` observes within a run.
+    """
+    config = config.validate()
+    guard_interval = config.guard_interval
+    diag_interval = config.diag_interval
+    config = _observer_free(config)
+    dev = resolve_device(config, device)
+    config = config.replace(device=str(dev))
+    with device_scope(dev):
+        run = _Run(config, initial, dev)
+        config = run.config
+        loop = run.loop(config.steps)
+        captured = device_loop.stats["capture_s"]
+        loop.prepare(run.u, run.v)
+        captured = device_loop.stats["capture_s"] - captured
+        baseline = run.copy(run.u) if diag_interval is not None else None
+        with record_function("heat:solve"), Timer(dev) as timer:
+            state, _, steps_run, converged, residual = loop(run.u, run.v)
+        device_loop.settle()
+        grid = run.grid(state)
+        _warn_if_diverged(residual, steps_run,
+                          config.converge
+                          and steps_run >= config.check_interval)
+        finite = None
+        if guard_interval is not None:
+            finite = grid_all_finite(state)
+            if not finite:
+                _warn_guard_tripped(steps_run)
+        diag = None
+        if diag_interval is not None:
+            diag = _sample(state, baseline)
+            diag["step"] = steps_run
+            diag["steps_since"] = steps_run
+            if config.scheme != "explicit":
+                from parallel_heat_tpu_torch.ops import multigrid
+
+                diag["vcycle"] = multigrid.cycle_trace(config, grid,
+                                                       backend=run.backend)
+    return HeatResult(grid=grid, steps_run=steps_run, converged=converged,
+                      residual=residual, elapsed_s=timer.elapsed_s,
+                      capture_s=captured, finite=finite, diagnostics=diag)
+
+
+class _Drain:
+    """What a dispatched chunk's observers left on the card, on its way
+    to the host: on the card, pinned host copies enqueued without
+    blocking and one event recorded after them; on the CPU, the values
+    themselves."""
+
+    def __init__(self, dev: torch.device, *values):
+        self.event = None
+        if dev.type != "cuda":
+            self.values = values
+            return
+        self.values = tuple(
+            None if v is None else torch.empty(v.shape, dtype=v.dtype,
+                                               pin_memory=True)
+            for v in values)
+        for host, v in zip(self.values, values):
+            if v is not None:
+                host.copy_(v, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(dev))
+
+    def ready(self) -> bool:
+        """Has the card finished everything up to this drain? (No
+        wait.)"""
+        return self.event is None or self.event.query()
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
+def solve_stream(config: HeatConfig, initial=None,
+                 chunk_steps: Optional[int] = None, telemetry=None,
+                 pipeline_depth: Optional[int] = None,
+                 device: Optional[str] = None):
+    """Iterate the simulation in host-visible chunks; yields a
+    :class:`HeatResult` after each chunk (cumulative ``steps_run`` and
+    ``elapsed_s``).
+
+    Each chunk of ``chunk_steps`` steps (default: the whole run) runs the
+    loop :func:`solve` runs, so a chunked run is bitwise the unchunked
+    one. In converge mode ``chunk_steps`` is rounded up to a multiple of
+    ``check_interval``, which keeps the check schedule of an unchunked
+    run (the tail of ``steps % check_interval`` steps runs in the last
+    chunk, where the unchunked run runs it); iteration stops at
+    convergence. Every loop the stream needs (on the card: each chunk
+    size, in each order of the two buffers a chunk may leave them in) is
+    built and captured before the first chunk's clock.
+
+    ``telemetry`` (a :class:`utils.telemetry.Telemetry`) receives a
+    ``run_header`` and one ``chunk`` event a yield; with
+    ``config.diag_interval``, a ``diagnostics`` event a sample
+    (:func:`grid_stats` at the first chunk boundary at-or-after each
+    multiple of the interval, and at the last chunk; also on
+    ``HeatResult.diagnostics``) and, in an implicit run at depth 1, a
+    ``vcycle`` event (``multigrid.cycle_trace`` of one step from the
+    boundary's grid; the first also carries ``level_wall_share``); with
+    ``config.guard_interval``, the guard's verdict on the same rule
+    (``HeatResult.finite``). The JAX package's ``profile`` events (its
+    work model, ``prof/``) are not emitted: ROADMAP queue 1 item 11.
+
+    ``pipeline_depth`` (the argument, else ``config.pipeline_depth``,
+    else :func:`resolved_pipeline_depth`'s auto: 2 for fixed-step runs on
+    the card, 1 otherwise). At depth 1 each chunk is dispatched, waited
+    for, observed and yielded; its yielded grid is the run's live buffer
+    on one block (consume it before advancing the generator). At depth
+    >= 2 (fixed mode only) up to ``depth`` chunks are in flight on the
+    run's CUDA stream: chunk n+1 is enqueued before chunk n's observers
+    are drained, their scalars travel to pinned host memory without
+    blocking, and one event a chunk says when they have landed. Each
+    yielded grid is then a copy enqueued before the next chunk, which
+    survives advancing. Grids, guard verdicts and diagnostics are bitwise
+    the depth-1 loop's; ``wall_s`` is then drain to drain, ``gap_s`` the
+    card's idle time a drain could prove (it found the newest chunk's
+    event complete), ``drain_wait_s`` the host's wait on a chunk.
+
+    A mesh's grid is yielded assembled (a new tensor, which at depth >= 2
+    is the protected copy); its guard and statistics reduce over the
+    blocks without assembling them.
     """
     config = config.validate()
     dev = resolve_device(config, device)
     config = config.replace(device=str(dev))
-    backend = resolve_backend(config, dev)
+    guard_interval = config.guard_interval
+    diag_interval = config.diag_interval
+    depth = resolved_pipeline_depth(config, pipeline_depth)
+    if depth < 1:
+        raise ValueError(f"pipeline_depth must be >= 1, got {depth}")
+    elif depth > 1 and config.converge:
+        raise ValueError(
+            "pipeline_depth > 1 is fixed-step only (converge mode must "
+            "read each chunk's convergence verdict before dispatching "
+            "the next chunk)")
+    config = _observer_free(config)
+    if chunk_steps is not None and chunk_steps < 1:
+        raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
+    total = config.steps
+    chunk = chunk_steps if chunk_steps else max(1, total)
+    if config.converge:
+        ci = config.check_interval
+        chunk = -(-chunk // ci) * ci
     with device_scope(dev):
-        if config.is_sharded():
-            from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+        run = _Run(config, initial, dev)
+        loops, captured = _stream_loops(run, total, chunk)
+    config = run.config
+    if telemetry is not None:
+        telemetry.run_header(config, pipeline_depth=depth)
+        cells = profiling.cell_count(config)
+        bytes_per_cell = profiling.bytes_per_cell(config)
 
-            config = _resolved(config, backend)
-            mesh = HeatMesh(config.mesh_shape, dev)
-            multi_step, multi_step_residual = sharded_multistep(
-                config, mesh, backend)
-            u = _prepare_blocks(config, mesh, initial)
-            v = [torch.empty_like(b) for b in u]
-        else:
-            multi_step, multi_step_residual = single_multistep(config,
-                                                               backend)
-            u = _prepare_initial(config, initial, dev)
-            v = torch.empty_like(u)
-        run = _Loop(multi_step, multi_step_residual, config,
-                    period=_period(config, dev))
-        captured = device_loop.stats["capture_s"]
-        run.prepare(u, v)
-        captured = device_loop.stats["capture_s"] - captured
-        with Timer(dev) as timer:
-            grid, steps_run, converged, residual = run(u, v)
+    def loop_for(c, state):
+        key = (c, run.order(state))
+        if key not in loops:
+            # A loop with no graph to capture: nothing binds it to the
+            # buffers' order, and its prepare does nothing.
+            loops[key] = run.loop(c)
+        return loops[key]
+
+    state, spare = run.u, run.v
+    done = 0
+    elapsed = 0.0
+    next_guard = guard_interval
+    next_diag = diag_interval
+    prev = run.copy(state) if next_diag is not None else None
+    prev_step = 0
+
+    if depth > 1:
+        inflight = collections.deque()
+        disp_done = 0
+        t_mark = time.perf_counter()
+        # Set by a drain that finds the newest dispatched chunk already
+        # complete: the card is idle from then until the next dispatch,
+        # which charges the window to its chunk's gap_s (a lower bound).
+        idle_mark = None
+
+        def _dispatch():  # heatlint: dispatch-region
+            # HL201: nothing here may wait for the card; a wait would
+            # serialise the pipeline this loop exists to fill.
+            nonlocal state, spare, disp_done, next_guard, next_diag
+            nonlocal prev, prev_step, idle_mark
+            c = min(chunk, total - disp_done)
+            loop = loop_for(c, state)
+            td0 = time.perf_counter()
+            with record_function("heat:chunk"):
+                state, spare, _, _, _ = loop(state, spare)
+            dispatch_s = time.perf_counter() - td0
+            gap_s = 0.0
+            if idle_mark is not None:
+                gap_s = max(0.0, td0 - idle_mark)
+                idle_mark = None
+            disp_done += c
+            end = disp_done
+            is_last = end >= total
+            # The yielded grid: a copy enqueued before the next chunk
+            # writes the buffers (the last chunk's buffer is never
+            # written again; a mesh's assembly is a new tensor anyway).
+            keep = (state if is_last and run.mesh is None
+                    else run.grid(state) if run.mesh is not None
+                    else state.clone())
+            fin = None
+            if next_guard is not None and (end >= next_guard or is_last):
+                with record_function("heat:guard"):
+                    fin = _finite_dev(state)
+                while next_guard <= end:
+                    next_guard += guard_interval
+            stats = steps_since = None
+            if next_diag is not None and (end >= next_diag or is_last):
+                with record_function("heat:diag"):
+                    stats = _stats_dev(_pairs(state, prev, run.origins))
+                steps_since = end - prev_step
+                prev, prev_step = keep, end
+                while next_diag <= end:
+                    next_diag += diag_interval
+            counted = device_loop.settle_later()
+            inflight.append((keep, _Drain(dev, fin, stats), counted,
+                             steps_since, c, dispatch_s, gap_s))
+
+        while True:
+            with device_scope(dev):
+                while len(inflight) < depth and disp_done < total:
+                    _dispatch()
+            if not inflight:
+                return
+            (keep, drain, counted, steps_since, c, dispatch_s,
+             gap_s) = inflight.popleft()
+            tw0 = time.perf_counter()
+            drain.wait()
+            now = time.perf_counter()
+            drain_wait_s = now - tw0
+            chunk_wall = now - t_mark
+            t_mark = now
+            elapsed += chunk_wall
+            done += c
+            if inflight and inflight[-1][1].ready():
+                idle_mark = now
+            counted()
+            fin, stats = drain.values
+            finite = None if fin is None else bool(fin)
+            if finite is False:
+                _warn_guard_tripped(done)
+            diag = None
+            if stats is not None:
+                diag = {**_stats_dict(stats.tolist()), "step": done,
+                        "steps_since": steps_since}
+            observe_s = time.perf_counter() - now
+            if telemetry is not None:
+                telemetry.chunk(step=done, steps=c, wall_s=chunk_wall,
+                                cells=cells, bytes_per_cell=bytes_per_cell,
+                                residual=None, converged=None,
+                                finite=finite, gap_s=gap_s,
+                                dispatch_s=dispatch_s,
+                                drain_wait_s=drain_wait_s,
+                                observe_s=observe_s)
+                if diag is not None:
+                    telemetry.diagnostics(**diag)
+            yield HeatResult(grid=keep, steps_run=done, converged=None,
+                             residual=None, elapsed_s=elapsed,
+                             capture_s=captured, finite=finite,
+                             diagnostics=diag)
+
+    vc_shares_sent = False
+    t_complete_prev = None
+    while done < total:
+        t_iter = time.perf_counter()
+        # The host's time between the previous chunk's completion and
+        # this dispatch: the observer and caller tax a chunk event
+        # carries, which pipelining hides.
+        gap_s = (t_iter - t_complete_prev
+                 if t_complete_prev is not None else 0.0)
+        c = min(chunk, total - done)
+        loop = loop_for(c, state)
+        t0 = time.perf_counter()
+        with device_scope(dev), record_function("heat:chunk"):
+            state, spare, k, conv, res = loop(state, spare)
+            synchronize(dev)
+        chunk_wall = time.perf_counter() - t0
+        t_complete_prev = t0 + chunk_wall
         device_loop.settle()
-        if config.is_sharded():
-            grid = mesh.assemble(grid)
-    _warn_if_diverged(residual, steps_run,
-                      config.converge and steps_run >= config.check_interval)
-    return HeatResult(grid=grid, steps_run=steps_run, converged=converged,
-                      residual=residual, elapsed_s=timer.elapsed_s,
-                      capture_s=captured)
+        elapsed += chunk_wall
+        done += k
+        out_conv = bool(conv) if config.converge else None
+        out_res = float(res) if config.converge else None
+        _warn_if_diverged(out_res, done, k >= config.check_interval)
+        # The last yield (all steps done, converged, or stopped early by
+        # a non-finite residual): the guard and the diagnostics must not
+        # leave the final grid unobserved.
+        is_last = done >= total or bool(out_conv) or k < c
+        with device_scope(dev):
+            grid = run.grid(state)
+            finite = None
+            if next_guard is not None and (done >= next_guard or is_last):
+                finite = grid_all_finite(state)
+                while next_guard <= done:
+                    next_guard += guard_interval
+                if not finite:
+                    _warn_guard_tripped(done)
+            diag = None
+            if next_diag is not None and (done >= next_diag or is_last):
+                diag = _sample(state, prev, run.origins)
+                diag["step"] = done
+                diag["steps_since"] = done - prev_step
+                prev, prev_step = run.copy(state), done
+                while next_diag <= done:
+                    next_diag += diag_interval
+                if config.scheme != "explicit":
+                    # The V-cycle sample: one step re-solved from this
+                    # boundary's grid, observation only.
+                    from parallel_heat_tpu_torch.ops import multigrid
+
+                    vc = multigrid.cycle_trace(config, grid,
+                                               backend=run.backend)
+                    if not vc_shares_sent:
+                        vc["level_wall_share"] = {
+                            f"l{i}": s for i, s in enumerate(
+                                multigrid.level_wall_shares(config))}
+                        vc_shares_sent = True
+                    diag["vcycle"] = vc
+                    if telemetry is not None:
+                        telemetry.emit("vcycle", step=done, **vc)
+        if telemetry is not None:
+            observe_s = time.perf_counter() - t_complete_prev
+            telemetry.chunk(step=done, steps=k, wall_s=chunk_wall,
+                            cells=cells, bytes_per_cell=bytes_per_cell,
+                            residual=out_res, converged=out_conv,
+                            finite=finite, gap_s=gap_s,
+                            observe_s=observe_s)
+            if diag is not None:
+                telemetry.diagnostics(**diag)
+        yield HeatResult(grid=grid, steps_run=done, converged=out_conv,
+                         residual=out_res, elapsed_s=elapsed,
+                         capture_s=captured, finite=finite,
+                         diagnostics=diag)
+        if out_conv or k < c:
+            return
+
+
+def _stream_loops(run: _Run, total: int, chunk: int):
+    """``({(steps, order): _Loop}, capture seconds)``: the loops a stream
+    of ``total`` steps in chunks of ``chunk`` meets, prepared (on the
+    card: warmed up and captured) before its clock. ``order`` says which
+    buffer holds the state when the chunk starts (``_Run.order``); a
+    chunk whose loop flips the buffers hands the next one the other
+    order, so full chunks may need both, the last chunk the one it
+    meets."""
+    loops = {}
+    captured = device_loop.stats["capture_s"]
+
+    def prepare(c, order):
+        if (c, order) not in loops:
+            bufs = (run.u, run.v)
+            loop = run.loop(c)
+            # A warm-up writes the spare: the run's spare, whichever
+            # order the loop is captured in.
+            loop.prepare(bufs[order], bufs[1 - order], warm=bufs)
+            loops[(c, order)] = loop
+        return loops[(c, order)]
+
+    full, rem = divmod(total, chunk)
+    order = 0
+    if full:
+        flips = prepare(chunk, 0).flips()
+        if flips and full > 1:
+            prepare(chunk, 1)
+        order = int(bool(flips)) * (full % 2)
+    if rem:
+        prepare(rem, order)
+    return loops, device_loop.stats["capture_s"] - captured

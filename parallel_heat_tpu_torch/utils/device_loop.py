@@ -387,17 +387,38 @@ def capture(device, fn: Callable[[], object]):
 def settle() -> None:
     """Read the counters of every graph launched since the last settle,
     in one read, and add each guarded body's share to the tallies."""
+    settle_later()()
+
+
+def settle_later() -> Callable[[], None]:
+    """:func:`settle` in two halves, for a caller that must not wait on
+    the card now: enqueue the counters' copy into pinned host memory, an
+    event after it and the counters' reset, and return the function that
+    waits for that event and adds the counts to the tallies."""
     graphs = list(_pending.values())
     _pending.clear()
     if not graphs:
-        return
-    counts = read(torch.cat([g.counter[:len(g.sites)] for g in graphs]))
-    i = 0
+        return lambda: None
+    counters = torch.cat([g.counter[:len(g.sites)] for g in graphs])
+    host = torch.empty(counters.shape, dtype=counters.dtype,
+                       pin_memory=True)
+    host.copy_(counters, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(counters.device))
     for g in graphs:
-        for site in g.sites:
-            _add(site.delta, int(counts[i]))
-            i += 1
         g.counter.zero_()
+
+    def finish():
+        copied.synchronize()
+        stats["reads"] += 1
+        counts = host.tolist()
+        i = 0
+        for g in graphs:
+            for site in g.sites:
+                _add(site.delta, int(counts[i]))
+                i += 1
+
+    return finish
 
 
 def _scratch(state):
@@ -414,7 +435,11 @@ def warm_up(fn: Callable, u, v):
     done once for real (a library's first call, a cache) is done without
     touching the run's state and with one grid of scratch. Returns
     ``(u', out, guards)``: the copy, what ``fn`` returned, and the
-    guarded bodies a capture of the call would hold."""
+    guarded bodies a capture of the call would hold. A loop captured on
+    buffers in the other order (the state in its second buffer, as a
+    stream meets it after a chunk that flipped them) warms up on the
+    buffers in the run's order: its ``prepare`` takes them as
+    ``warm``."""
     before, reads, planned = _snapshot(), stats["reads"], _planned[0]
     scratch = _scratch(u)
     with eager():
@@ -511,6 +536,7 @@ class WindowLoop:
         self.full_steps = full_steps
         self.copies = WINDOW_COPIES
         self.graph = self.flip = self.st = None
+        self.runs = 0
         # The windows the card ran are k / ci: no counter of their own.
         self.site = Site("converge window", counted=False)
 
@@ -565,31 +591,48 @@ class WindowLoop:
             guard(self.live, lambda i=i: body(i), self.site)
             i += 1
 
-    def prepare(self, u, v) -> None:
+    def prepare(self, u, v, warm=None) -> None:
         """Before the clock: the state on ``u``'s device and, on the card,
-        a warm-up on a scratch copy of ``u`` and the window graph on
+        a warm-up on a scratch copy of ``u`` (of ``warm[0]``, with
+        ``warm[1]`` the spare, where given) and the window graph on
         ``(u, v)``."""
         device = _first(u).device
         self.st = torch.tensor([0.0, float("inf")], dtype=torch.float64,
                                device=device)
         self.live = torch.tensor(self.full_steps > 0, device=device)
+        # The state a run starts from, copied in before every run but
+        # the first (a stream replays one loop chunk after chunk).
+        self.start = (self.st.clone(), self.live.clone())
         if self.full_steps <= 0 or not on_card(_first(u)):
             return
+        wu, wv = warm if warm is not None else (u, v)
         a, out, nested = warm_up(
-            lambda a, b: self.msr(a, b, self.ci), u, v)
+            lambda a, b: self.msr(a, b, self.ci), wu, wv)
         if nested:
             self.copies = 1
         self.copies = min(self.copies, self.full_steps // self.ci)
-        self._learn(_flips(a, v, out[:2]))
+        self._learn(_flips(a, wv, out[:2]))
         self.pinned = [torch.empty(2, dtype=torch.float64, pin_memory=True)
                        for _ in range(2)]
         self.graph, _ = capture(device, lambda: self._bodies(u, v))
+
+    def flips(self) -> Optional[bool]:
+        """Does a run that does not stop early leave the state in the
+        other buffer? None where no graph binds the order."""
+        if self.graph is None:
+            return None
+        return bool(self.flip and (self.full_steps // self.ci) % 2)
 
     def run(self, u, v):
         if self.st is None:
             self.prepare(u, v)
         if self.full_steps <= 0:
             return u, v, 0, float("inf")
+        if self.runs:
+            # Enqueued copies from the start state: no host read.
+            self.st.copy_(self.start[0])
+            self.live.copy_(self.start[1])
+        self.runs += 1
         k, res = (self._run_graph() if self.graph is not None
                   else self._run_eager(u, v))
         k = int(k)
@@ -645,13 +688,13 @@ class PeriodLoop:
         self.ms, self.steps, self.period = ms, steps, period
         self.graphs = None
 
-    def prepare(self, u, v) -> None:
+    def prepare(self, u, v, warm=None) -> None:
         if self.steps <= 0 or not on_card(_first(u)):
             return
         device = _first(u).device
         full, rem = divmod(self.steps, self.period)
         warm_up(lambda a, b: self.ms(a, b, self.period if full else rem),
-                u, v)
+                *(warm if warm is not None else (u, v)))
         self.graphs = []
         if full:
             g, out = capture(device, lambda: self.ms(u, v, self.period))
@@ -659,10 +702,17 @@ class PeriodLoop:
                 raise RuntimeError(f"{self.period} steps must leave the "
                                    f"buffers in their order")
             self.graphs += [g] * full
-        self.end = (u, v)
+        self.end, self.start = (u, v), u
         if rem:
             g, self.end = capture(device, lambda: self.ms(u, v, rem))
             self.graphs.append(g)
+
+    def flips(self) -> Optional[bool]:
+        """Does a run leave the state in the other buffer? None where no
+        graph binds the order."""
+        if self.graphs is None:
+            return None
+        return not _same(self.end[0], self.start)
 
     def run(self, u, v):
         if self.steps <= 0:

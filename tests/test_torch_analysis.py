@@ -949,11 +949,44 @@ def test_hl201_torch_blocking_calls(tmp_path):
     assert lines == [11, 12, 13, 14, 15, 16]
 
 
+@pytest.mark.parametrize("call,hits", [
+    ("r.to('cpu')", 1),
+    ("r.to('cpu:0')", 1),
+    ("r.to(torch.device('cpu'))", 1),
+    ("r.to(device='cpu')", 1),
+    ("r.to(cpu)", 1),
+    ("r.to(self_cpu, torch.float64)", 1),
+    ("r.to('cpu', non_blocking=True)", 0),
+    ("r.to(torch.device('cpu'), non_blocking=True)", 0),
+    ("r.to('cuda')", 0),
+    ("r.to(torch.float64)", 0),
+    ("synchronize()", 1),
+    ("done.synchronize()", 1),
+    ("done.query()", 0),
+])
+def test_hl201_torch_host_copies_and_bare_waits(tmp_path, call, hits):
+    # A copy to the host waits for the device unless it is non-blocking;
+    # an event's wait, imported or bound to a bare name, waits too.
+    path = _fixture(tmp_path, "t201c.py", f"""
+        import torch
+
+        def dispatch(fn, done, cpu, self_cpu, synchronize):
+            # heatlint: begin dispatch-region
+            r = fn()
+            {call}
+            # heatlint: end dispatch-region
+            return r
+    """)
+    lines = [f.line for f in astlint.lint_file(path) if f.rule == "HL201"]
+    assert lines == [7] * hits
+
+
 def test_hl201_repo_timers_marked_and_clean():
     # The timed loops carry dispatch-region markers; their timers'
     # closing syncs lie outside them.
     for rel in ("parallel_heat_tpu_torch/bench_kernels.py",
-                "parallel_heat_tpu_torch/tools/probing.py"):
+                "parallel_heat_tpu_torch/tools/probing.py",
+                "parallel_heat_tpu_torch/solver.py"):
         path = os.path.join(ROOT, rel)
         with open(path) as f:
             src = f.read()

@@ -922,3 +922,76 @@ def test_device_loop_fixed_reads_nothing_a_step(card, cfg):
     period = solver._period(solver._resolved(cfg, "cuda"), card)
     full, rem = divmod(cfg.steps, period)
     assert gd["launches"] == full + (rem > 0)
+
+
+def _stream_rows(cfg, **kw):
+    """Each yield of a stream on the card: its fields and a copy of its
+    grid made before the generator advances."""
+    from parallel_heat_tpu_torch.solver import solve_stream
+
+    return [(r.steps_run, r.converged, r.residual, r.finite, r.diagnostics,
+             r.grid.clone()) for r in solve_stream(cfg, **kw)]
+
+
+@pytest.mark.parametrize("cfg,chunk", [
+    (dict(nx=1000, ny=1000, steps=100, guard_interval=20,
+          diag_interval=40), 20),
+    (dict(nx=4096, ny=4096, steps=40, guard_interval=8, diag_interval=8), 8),
+    (dict(nx=512, ny=512, steps=60, mesh_shape=(2, 2), guard_interval=20,
+          diag_interval=20), 20),
+    (dict(nx=512, ny=512, steps=48, mesh_shape=(2, 4), guard_interval=8,
+          diag_interval=16), 8),
+    (dict(nx=128, ny=128, steps=9, scheme="backward_euler", cx=22.5,
+          cy=22.5, guard_interval=3, diag_interval=3), 3),
+], ids=["A", "E-uni", "2x2", "2x4-flips", "implicit"])
+def test_stream_depth_two_bitwise_depth_one(card, cfg, chunk):
+    # Dispatch order only: the grids, verdicts and samples of a pipelined
+    # stream are the synchronous stream's, and both are solve()'s.
+    cfg = HeatConfig(**cfg)
+    one = _stream_rows(cfg, chunk_steps=chunk, pipeline_depth=1)
+    two = _stream_rows(cfg, chunk_steps=chunk, pipeline_depth=2)
+    assert len(one) == len(two) == -(-cfg.steps // chunk)
+    for a, b in zip(one, two):
+        assert a[:4] == b[:4]
+        da = dict(a[4]) if a[4] is not None else None
+        if da is not None:
+            da.pop("vcycle", None)  # sampled at depth 1 only
+        assert da == b[4]
+        assert _bitwise(a[5], b[5])
+    ref = solve(cfg.replace(guard_interval=None, diag_interval=None))
+    assert _bitwise(one[-1][5], ref.grid)
+    assert all(r[3] is True for r in one if r[3] is not None)
+
+
+@pytest.mark.parametrize("cfg,chunk", [
+    (dict(nx=1000, ny=1000, steps=10000, converge=True, eps=1e-3), 1000),
+    (dict(nx=1000, ny=1000, steps=10000, converge=True, eps=1e-3), 300),
+    (dict(nx=20, ny=20, steps=1990, converge=True, eps=1e-6), 70),
+    (dict(nx=16, ny=16, cx=0.4, cy=0.4, steps=200, converge=True), 40),
+    (dict(nx=1000, ny=1000, steps=10000, converge=True, eps=1e-3,
+          mesh_shape=(2, 4)), 1000),
+    (dict(nx=34, ny=34, steps=60, converge=True, eps=50.0, check_interval=5,
+          scheme="backward_euler", cx=22.5, cy=22.5), 15),
+], ids=["A-1000", "A-300-flips", "20-tail", "nan", "2x4", "implicit"])
+def test_stream_converge_bitwise_solve(card, cfg, chunk):
+    # Chunks of whole check windows replay the graphs solve() replays:
+    # steps, verdict, residual and grid are solve()'s, bit for bit; no
+    # capture happens once the first chunk's clock has started.
+    from parallel_heat_tpu_torch.utils import device_loop as dl
+
+    cfg = HeatConfig(**cfg)
+    ref = solve(cfg)
+    dl.reset_stats()
+    rows = []
+    from parallel_heat_tpu_torch.solver import solve_stream
+
+    for r in solve_stream(cfg, chunk_steps=chunk):
+        rows.append((r.steps_run, r.converged, r.residual, r.grid.clone()))
+        if len(rows) == 1:
+            graphs = dl.stats["graphs"]
+    assert dl.stats["graphs"] == graphs
+    steps, conv, res, grid = rows[-1]
+    assert (steps, conv) == (ref.steps_run, ref.converged)
+    assert res == ref.residual or (math.isnan(res)
+                                   and math.isnan(ref.residual))
+    assert _bitwise(grid, ref.grid)

@@ -215,15 +215,25 @@ def test_from_jax_carries_a_grid_across():
         convert.from_jax(fields, np.zeros((3, 3), np.float32), device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("guard_interval", 5),
-                                         ("mg_partition", "replicated"),
-                                         ("accumulate", "f32"),
-                                         ("pipeline_depth", 2)])
+@pytest.mark.parametrize("field,value", [("mg_partition", "replicated"),
+                                         ("accumulate", "f32")])
 def test_from_jax_refuses_jax_only_features(field, value):
     fields = dataclasses.asdict(jx.HeatConfig(nx=16, ny=16))
     fields[field] = value
     with pytest.raises(ValueError, match=f"{field}=.*not implemented"):
         convert.from_jax(fields, None, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("guard_interval", 5),
+                                         ("pipeline_depth", 2),
+                                         ("diag_interval", 7)])
+def test_from_jax_carries_the_observers(field, value):
+    fields = dataclasses.asdict(jx.HeatConfig(nx=16, ny=16))
+    fields[field] = value
+    cfg, grid = convert.from_jax(fields, None, device="cpu")
+    assert getattr(cfg, field) == value and grid is None
+    spec = {"nx": 16, "ny": 16, field: value}
+    assert getattr(HeatConfig.from_dict(spec), field) == value
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64", "float16"])
@@ -278,3 +288,81 @@ def test_every_field_is_classified_once():
     defaults = {f.name: f.default for f in dataclasses.fields(jx.HeatConfig)}
     for name, value in tconfig.JAX_ONLY_DEFAULTS.items():
         assert defaults[name] == value, name
+    # The observers are the JAX package's, classified the same way.
+    assert obs == jconfig.OBSERVATION_ONLY_FIELDS
+
+
+def test_cli_metrics_file_reads_in_metrics_report(tmp_path, capsys):
+    import importlib.util
+    import os
+
+    path = tmp_path / "runs" / "m.jsonl"
+    rc, lines, err = _cli_lines(capsys, [
+        "--nx", "32", "--ny", "32", "--steps", "40", "--device", "cpu",
+        "--guard-interval", "10", "--diag-interval", "20",
+        "--metrics", str(path), "--heartbeat", str(tmp_path / "hb.json"),
+        "--monitor-hint"])
+    assert rc == 0, err
+    assert any(ln.startswith("Monitor with: python tools/monitor.py")
+               for ln in lines)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "metrics_report", os.path.join(root, "tools", "metrics_report.py"))
+    rep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rep)
+    events, bad, torn = rep.load_events(str(path))
+    assert (bad, torn) == (0, False)
+    doc = rep.summarize(events)
+    assert [e["event"] for e in events] == ["run_header", "chunk",
+                                            "diagnostics", "run_end"]
+    assert doc["chunks"]["steps_total"] == 40
+    assert doc["chunks"]["guard_checked"] == 1
+    assert doc["convergence"]["diag_samples"] == 1
+    assert events[-1]["outcome"] == "complete"
+    # The one-chunk stream is bitwise the plain run.
+    plain, traced = tmp_path / "a.dat", tmp_path / "b.dat"
+    for out, extra in ((plain, []), (traced, ["--metrics",
+                                              str(tmp_path / "n.jsonl")])):
+        assert cli.main(["--nx", "32", "--ny", "32", "--steps", "40",
+                         "--device", "cpu", "--quiet", "--out", str(out)]
+                        + extra) == 0
+    assert plain.read_bytes() == traced.read_bytes()
+
+
+def test_cli_observer_flags_in_explain_and_errors(capsys):
+    from parallel_heat_tpu import cli as jcli
+
+    base = ["--nx", "32", "--ny", "32", "--guard-interval", "10",
+            "--diag-interval", "5", "--pipeline-depth", "2", "--explain"]
+    rc, lines, _ = _cli_lines(capsys, base + ["--device", "cpu"])
+    assert rc == 0
+    assert jcli.main(base) == 0
+    theirs = capsys.readouterr().out.splitlines()
+    for key in ("guard: ", "diagnostics: ", "pipeline: "):
+        mine = [ln for ln in lines if ln.startswith(key)]
+        assert mine and mine == [ln for ln in theirs if ln.startswith(key)]
+    # --pipeline-depth 2 with --converge: the JAX CLI's error and code.
+    bad = ["--nx", "16", "--ny", "16", "--steps", "10", "--converge",
+           "--pipeline-depth", "2"]
+    rc, _, err = _cli_lines(capsys, bad + ["--device", "cpu"])
+    assert jcli.main(bad) == rc == 2
+    assert err == capsys.readouterr().err
+    assert "fixed-step only" in err
+    rc, _, err = _cli_lines(capsys, ["--nx", "16", "--device", "cpu",
+                                     "--pipeline-depth", "deep"])
+    assert rc == 2 and "--pipeline-depth" in err
+    rc, _, err = _cli_lines(capsys, ["--nx", "16", "--device", "cpu",
+                                     "--monitor-hint"])
+    assert rc == 2 and "--monitor-hint requires" in err
+
+
+@pytest.mark.parametrize("flag", ["--profile", "--trace"])
+def test_cli_profile_leaves_a_trace_file(tmp_path, capsys, flag):
+    out = tmp_path / "prof"
+    rc, lines, err = _cli_lines(capsys, ["--nx", "24", "--ny", "24",
+                                         "--steps", "10", "--device", "cpu",
+                                         flag, str(out)])
+    assert rc == 0, err
+    assert f"Profiler trace written to {out}" in lines
+    files = list(out.iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json"

@@ -71,6 +71,17 @@ prints the card's name and power limit, then one JSON line per phase:
    test-free rows and segments at the grid's first or last row). Last a
    NaN-seeded grid, which must give a NaN residual from every kernel
    with the boundary intact;
+2a. kernels_bf16 — the precision forms of A, E and E-uni (bfloat16
+   storage, and E's and E-uni's acc_f32: in one launch, and the first and
+   last launches of a chunk across a float32 level) bitwise their plain
+   versions, which round where the kernels round: E and E-uni at every
+   depth each form takes on 1001x1000, 1001x999 (E only: a width no
+   multiple of 8), 21x23 and 20x24, each grid asserted to run the tile
+   kinds it is there for, E-uni against E; A at K up to 20 on 1000^2,
+   1001x999, 107x210, 20x24 and 1859^2; every form on a NaN-seeded grid
+   (NaNs of payloads no conversion makes, on the ring too: the ring bit
+   for bit, a NaN residual); and E's and E-uni's main-path launches at
+   32768^2: storage at K = 8, and a 16-step chunk's two carry launches;
 2b. kernels_3d — D (``heat_d_step3d``) against its plain version and F
    (``heat_f_temporal3d``) at every compiled K (1 .. 8; past the default
    shape's deepest K at ``hopper_params.f_shape``'s), under each plane load
@@ -108,6 +119,25 @@ prints the card's name and power limit, then one JSON line per phase:
    against the CPU's plain versions. The default runs of this phase and
    of the main path are repeated once under ``torch.profiler`` for the
    card's busy time, and so its idle share;
+3c. main_path_bf16 — BASELINE config 4, ``solve(HeatConfig(nx=32768,
+   ny=32768, steps=200, dtype="bfloat16"))`` through the default pick
+   (E-uni) and forced E, then again under ``accumulate="f32chunk"``
+   (chunks of 16, in two launches of 8 across a float32 level): counts
+   set to 0 before each run and read after (the form's launches, nothing
+   else), the two kernels' grids bitwise equal in each mode, each run's
+   Mcells*steps/s, device ms a launch and idle share, and each mode's
+   error against a float64 oracle of the same 200 steps from the same
+   initial grid, run on the card (and the floor: the oracle rounded to
+   bfloat16); then both modes on a 4096^2 grid that moves, against the
+   oracle, f32chunk held near the floor and well under storage;
+3d. precision — 1000^2 bfloat16 to eps = 1e-3 on A through the window
+   graphs, bitwise the eager executor (it runs to its 10000-step cap:
+   the plate's bfloat16 ulps dwarf eps); a bfloat16 f32chunk
+   ``solve_stream`` at 4096^2 in chunks of 40 (rounded up to 48) with
+   the guard and the diagnostics, bitwise ``solve()``; the CLI at
+   1024^2 with ``--dtype bfloat16 --accumulate f32chunk``, its .dat the
+   solver's grid's; the float64 route (torch, no kernel) bitwise the
+   CPU's;
 4b. converge_3d — 10^3 with eps=1e-3, which converges at step 360 on
    the CPU, under F and D: steps_run, converged, the residual and the
    grid equal to the CPU's plain run;
@@ -115,6 +145,11 @@ prints the card's name and power limit, then one JSON line per phase:
    500 --out <tmp>.dat``, whose file must read back to the solver's
    grid, and ``--nx 64 --ny 64 --nz 64 --steps 100 --out <tmp>.npy``,
    whose array must equal the solver's grid;
+6b. timing_bf16 — the precision forms as timing does: A at 1000^2 (K =
+   20, residual), E-uni and E at 32768^2 (K = 8; the carry's first and
+   last launches), the yardstick ``conv2d`` in bfloat16, each bound from
+   the bytes of the function replaced (a bfloat16 grid read and written
+   once a launch in storage mode, once a 16-step chunk under f32chunk);
 6. timing — each kernel, its plain version and a PyTorch yardstick
    (``conv2d`` with the 5-point weights, TF32 off; it computes the
    interior update only) with CUDA events, at the shape and depth of the
@@ -400,7 +435,8 @@ prints the card's name and power limit, then one JSON line per phase:
 
 Then a ``{"phase_seconds": {...}, "total_s": t}`` line (each phase's
 wall seconds, from the line before its own), a ``{"kernels": [...]}``
-line (all twenty kernels, and the ten
+line (all twenty kernels, the five precision forms of A, E and E-uni
+with their launches in main_path_bf16 and precision, and the ten
 probes' kernels, each with its own run's launches: A's anatomy probe and
 neighbour forms with A's plain version, bound and yardstick, the E-uni
 probes with E-uni's, the overlap probe with F's, the roofline with its
@@ -683,6 +719,18 @@ def phase_build():
                        hp.g_k_default, hp.g_tile, hp.g_block)
     e_main = loop_main(("heat_e_temporal", "heat_e_uni_temporal"),
                        hp.e_k_default, hp.e_tile, hp.e_block)
+    # Nor may any instance of the precision forms of A, E and E-uni (one
+    # a form: heat_temporal.cuh kHeatForm*).
+    precision = {name: {i: row for i, row in ptxas[name].items()
+                        if "bf16" in i}
+                 for name in ("heat_a_resident", "heat_e_temporal",
+                              "heat_e_uni_temporal")}
+    check(len(precision["heat_a_resident"]) == 1
+          and all(len(precision[n]) == 4 for n in ("heat_e_temporal",
+                                                   "heat_e_uni_temporal"))
+          and all(row[1] == 0 and row[2] == 0 for rows in precision.values()
+                  for row in rows.values()),
+          f"a precision form's instance spills or is missing: {precision}")
     # Nor may F's instance that the one-device 3D main path (512^3, TMA)
     # launches, or its stack hold the plane loop's registers.
     from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
@@ -770,6 +818,7 @@ def phase_build():
                                hp.h_k_default,
                                *hp.h_band_shape(hp.h_k_default))},
           "main_path_g": g_main, "forced_i": i_main,
+          "precision_instances": precision,
           "spilling_instances": spilling, "ptxas": ptxas})
 
 
@@ -5176,6 +5225,612 @@ def phase_audit(dev):
             "library_ms": lib_ms, **bound}
 
 
+
+# ---------------------------------------------------------------------------
+# Precision: the bfloat16 forms of A, E and E-uni, f32chunk, float64
+# ---------------------------------------------------------------------------
+
+# BASELINE config 4: "32768x32768 grid, bf16 mixed-precision stencil".
+BF16_N = 32768
+# The precision forms' counts (ops/stencil_kernels.py counts), each with
+# its library's source and the TPU kernel's builder it replaces.
+KERNELS_BF16 = {
+    "heat_a_resident_bf16": ("heat_a_resident", TPU + ":117"),
+    "heat_e_uni_temporal_bf16": ("heat_e_uni_temporal", TPU + ":832"),
+    "heat_e_temporal_bf16": ("heat_e_temporal", TPU + ":607"),
+    "heat_e_uni_temporal_bf16_acc": ("heat_e_uni_temporal", TPU + ":832"),
+    "heat_e_temporal_bf16_acc": ("heat_e_temporal", TPU + ":607"),
+}
+BF16_NAN_PAYLOADS = (0x7FC1, -64, 0x7F81)   # -64 is 0xFFC0
+
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit, NaN payloads included, at any element size."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def _rand_bf16(dev, shape, seed, nan=False):
+    """A random bfloat16 grid (either sign, magnitudes to about 40); with
+    ``nan`` NaNs of payloads no conversion makes, inside and on the
+    ring."""
+    import torch
+
+    u = _rand_on(dev, shape, seed).to(torch.bfloat16)
+    if nan:
+        bits = u.view(torch.int16)
+        m, n = shape
+        for (i, j), b in zip(((m // 2, n // 3), (0, n // 2), (m - 1, 1),
+                              (m // 3, n - 1)),
+                             BF16_NAN_PAYLOADS + (0x7FC1,)):
+            bits[i, j] = b
+    return u
+
+
+def _ring_kept(out, u) -> bool:
+    return all(_bits_equal(a.contiguous(), b.contiguous()) for a, b in (
+        (out[0], u[0]), (out[-1], u[-1]), (out[:, 0], u[:, 0]),
+        (out[:, -1], u[:, -1])))
+
+
+def _check_bf16(launch, plain, u, out_dtype, k, kw, label, err, name):
+    """One launch of a bfloat16 form against its plain version, with and
+    without the residual: grid bit for bit, residual equal."""
+    import torch
+
+    got = torch.full(u.shape, float("nan"), dtype=out_dtype, device=u.device)
+    want = torch.full_like(got, float("nan"))
+    nores = torch.empty_like(got)
+    r = launch(u, got, k, True, **kw)
+    rp = plain(u, want, k, True, **kw)
+    launch(u, nores, k, False, **kw)
+    torch.cuda.synchronize()
+    d = float((got.float() - want.float()).abs().nan_to_num(0).max())
+    err[name] = max(err[name], d)
+    check(_bits_equal(got, want) and same_float(r, rp),
+          f"{label} != its plain version: max diff {d}, residual "
+          f"{float(r)} vs {float(rp)}")
+    check(_bits_equal(got, nores), f"{label}: grid depends on with_residual")
+    return got, r
+
+
+def _check_carry(launch, plain, u, kw, label, err, name):
+    """A 16-step carry chunk as the main path launches it
+    (stencil_kernels._carry_chunks): its first launch (bfloat16 in, the
+    float32 level out, e_k_default steps) and its last (the level in,
+    bfloat16 out), each bit for bit its plain version on the same input.
+    Returns the last launch's grid and residual."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.ops.stencil import F32CHUNK_DEPTH
+
+    k = params().e_k_default
+    kw = dict(kw, acc_f32=True)
+    level, _ = _check_bf16(launch, plain, u, torch.float32, k, kw,
+                           f"{label}, first launch (K={k})", err, name)
+    out = _check_bf16(launch, plain, level, torch.bfloat16,
+                      F32CHUNK_DEPTH - k, kw, f"{label}, last launch "
+                      f"(K={F32CHUNK_DEPTH - k})", err, name)
+    del level
+    return out
+
+
+def phase_kernels_bf16(dev):
+    """The bfloat16 forms of A, E and E-uni bitwise their plain versions
+    (which round at the kernels' points): E and E-uni at every depth
+    each form takes (storage and acc_f32 in one launch 1 .. e_k_max, a
+    chunk's first launch into a float32 level at 1 and e_k_default, its
+    last from one at 1 .. e_k_max), each grid asserted to run the tile
+    kinds it is there for, E on widths that are no multiple of 8, E
+    against E-uni; A at K in {1, 4, 7, 20} on the grids of the float32
+    phase; every form on a NaN-seeded grid (ring bit for bit, NaN
+    residual), the carry as a 16-step chunk across a float32 level; and
+    the main path's own launches on its 32768^2: storage at e_k_default,
+    and a 16-step chunk's two carry launches. Returns max |diff| each
+    (NaN cells excluded: they are held bit for bit)."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = {name: 0.0 for name in KERNELS_BF16}
+    equal = dict(cx=CX, cy=CY)
+    unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
+    e_pairs = (("heat_e_temporal", sk.temporal_steps,
+                sk.temporal_steps_plain),
+               ("heat_e_uni_temporal", sk.temporal_steps_uni,
+                sk.temporal_steps_uni_plain))
+    # (form, input dtype, output dtype, acc_f32, depths)
+    depths = range(1, p.e_k_max() + 1)
+    forms = ((0, bf16, bf16, False, depths), (1, bf16, bf16, True, depths),
+             (2, bf16, f32, True, (1, p.e_k_default)),
+             (3, f32, bf16, True, depths))
+    edges = ("top", "left", "bottom", "right", "ragged_rows", "ragged_cols",
+             "copies")
+    plan = [((1001, 1000), [equal, unequal],
+             ("inside", "interior") + edges),
+            ((1001, 999), [unequal], ("inside", "interior", "partial_group")
+             + edges),
+            ((21, 23), [unequal], edges + ("partial_group",)),
+            ((20, 24), [equal], edges)]
+    report = []
+    for shape, coeffs, need in plan:
+        base = _rand_bf16(dev, shape, shape[1])
+        kinds = {}
+        for form, dt_in, dt_out, acc, ks in forms:
+            u = base if dt_in == bf16 else base.float()
+            for k in ks:
+                got = p.e_tile_kinds(shape, k, p.e_tile)
+                kinds[f"{form}/{k}"] = got
+                check(all(got[kind] for kind in need),
+                      f"{shape} form {form} K={k} runs no tile of some kind "
+                      f"it is there for ({need}): {got}")
+                for kw in coeffs:
+                    grids = []
+                    for name, launch, plain in e_pairs:
+                        uni = name != "heat_e_temporal"
+                        if uni and not p.uni_fits(shape, bf16):
+                            continue
+                        count = name + ("_bf16" if form == 0
+                                        else "_bf16_acc")
+                        grids.append(_check_bf16(
+                            launch, plain, u, dt_out, k,
+                            dict(kw, acc_f32=acc),
+                            f"{count} form {form} (K={k}) at {shape} {kw}",
+                            err, count))
+                    if len(grids) == 2:
+                        check(_bits_equal(grids[0][0], grids[1][0])
+                              and same_float(grids[0][1], grids[1][1]),
+                              f"E-uni form {form} (K={k}) at {shape} {kw} "
+                              f"!= E")
+        report.append({"shape": list(shape), "coeffs": coeffs,
+                       "forms": {f: list(ks) for f, _, _, _, ks in forms},
+                       "uni": p.uni_fits(shape, bf16), "tile_kinds": kinds,
+                       "bitwise": True})
+        torch.cuda.empty_cache()
+    # A's bfloat16 form on the float32 phase's grids.
+    a_plan = (((CONV, CONV), (1, 4, 7, WINDOW)), ((1001, 999), (1, 5, WINDOW)),
+              ((107, 210), (1, 7, WINDOW)), ((20, 24), (1, 3, 9, WINDOW)),
+              ((A_LARGEST, A_LARGEST), (WINDOW,)))
+    for shape, ks in a_plan:
+        u = _rand_bf16(dev, shape, 3)
+        for k in ks:
+            for kw in (equal, unequal):
+                _check_bf16(sk.resident_steps, sk.resident_steps_plain, u,
+                            bf16, k, kw, f"heat_a_resident_bf16(K={k}) at "
+                            f"{shape} {kw}", err, "heat_a_resident_bf16")
+        report.append({"a_shape": list(shape), "k": list(ks),
+                       "bitwise": True})
+    # NaN-seeded grids: the ring keeps its bits, NaN payloads included;
+    # the residual is NaN; the grid is its plain version's, bit for bit.
+    nan_res = {}
+    u = _rand_bf16(dev, (515, 776), 5, nan=True)
+    runs = [("heat_a_resident_bf16", sk.resident_steps,
+             sk.resident_steps_plain, WINDOW, {})]
+    for name, launch, plain in e_pairs:
+        runs += [(name + "_bf16", launch, plain, p.e_k_default,
+                  {"acc_f32": False}),
+                 (name + "_bf16_acc", launch, plain, None, {})]
+    for name, launch, plain, k, kw in runs:
+        label = f"{name} on a NaN-seeded grid"
+        got, r = (_check_carry(launch, plain, u, equal, label, err, name)
+                  if k is None else
+                  _check_bf16(launch, plain, u, bf16, k, dict(equal, **kw),
+                              label, err, name))
+        nan_res[name] = float(r)
+        check(math.isnan(float(r)), f"NaN-seeded grid gave {name} residual "
+                                    f"{float(r)}, not NaN")
+        check(_ring_kept(got, u), f"{name} moved a bit of the ring")
+    # The main path's launches on its 32768^2: storage at e_k_default, and
+    # f32chunk's 16-step chunk as two carry launches across a float32
+    # level (its remainder of 8 is form 1 at e_k_default, checked above).
+    big = _plate_grid(dev, BF16_N)
+    main = {}
+    for name, launch, plain in e_pairs:
+        _check_bf16(launch, plain, big, bf16, p.e_k_default,
+                    dict(equal, acc_f32=False), f"{name}_bf16 at 32768^2",
+                    err, name + "_bf16")
+        torch.cuda.empty_cache()
+        _check_carry(launch, plain, big, equal, f"{name}_bf16_acc at "
+                     f"32768^2", err, name + "_bf16_acc")
+        main[name] = {"storage_k": p.e_k_default,
+                      "carry_launches_k": [p.e_k_default,
+                                           16 - p.e_k_default],
+                      "bitwise": True}
+        torch.cuda.empty_cache()
+    del big
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_bf16", "ok": True, "checks": report,
+          "nan_residual": nan_res, "main_path_32768": main,
+          "max_abs_err": err})
+    return err
+
+
+def _plate_grid(dev, n, dtype="bfloat16"):
+    from parallel_heat_tpu_torch.models import HeatPlate2D
+
+    return HeatPlate2D(n, n).init_grid(dev, dtype)
+
+
+def _step_f64(u, v, tmp, a0, cx, cy):
+    """One float64 step of ``u`` into ``v`` (whose ring holds u's), with
+    interior-shaped scratch ``tmp``: the oracle, on the card."""
+    import torch
+
+    inner = v[1:-1, 1:-1]
+    torch.add(u[2:, 1:-1], u[:-2, 1:-1], out=tmp)
+    torch.add(u[1:-1, 2:], u[1:-1, :-2], out=inner)
+    inner.mul_(cy).add_(tmp, alpha=cx).add_(u[1:-1, 1:-1], alpha=a0)
+
+
+def _oracle_err(start, grids, steps):
+    """The error of each grid of ``grids`` against a float64 oracle run
+    from ``start`` (the runs' initial bfloat16 grid, widened) for
+    ``steps`` steps on the card: ``max |got - ref| / max |ref|``, and the
+    largest and the mean per-cell relative error over the cells above
+    1e-3 of the grid's peak; and the same of the oracle rounded to
+    bfloat16, the floor no bfloat16 grid can go below."""
+    import torch
+
+    u = start.double()
+    v = u.clone()
+    tmp = torch.empty_like(u[1:-1, 1:-1])
+    a0 = 1.0 - 2.0 * CX - 2.0 * CY
+    for _ in range(steps):
+        _step_f64(u, v, tmp, a0, CX, CY)
+        u, v = v, u
+    del v, tmp
+    peak = float(u.abs().max())
+    out = {}
+    for label, g in dict(grids, oracle_rounded=None).items():
+        worst_abs = worst_rel = total = 0.0
+        count = 0
+        for r in range(0, u.shape[0], 2048):      # slabs: 0.5 GiB each
+            ref = u[r:r + 2048]
+            got = (ref.to(torch.bfloat16) if g is None
+                   else g[r:r + 2048]).double()
+            d = (got - ref).abs()
+            worst_abs = max(worst_abs, float(d.max()))
+            big = ref.abs() >= 1e-3 * peak
+            rel = d[big] / ref.abs()[big]
+            worst_rel = max(worst_rel, float(rel.max()))
+            total += float(rel.sum())
+            count += int(rel.numel())
+        out[label] = {"max_abs_over_peak": worst_abs / peak,
+                      "max_rel_above_1e-3_peak": worst_rel,
+                      "mean_rel_above_1e-3_peak": total / count}
+    return out
+
+
+def _bf16_run(cfg, kernel, force=None, profile=False):
+    """solve(cfg) by the default pick, or with ``force`` pinned, its
+    counts set to 0 just before and read just after: ``kernel`` launched,
+    no other kernel or plain version; with ``profile`` a second run under
+    the profiler for the card's busy share and the kernel's device ms a
+    launch."""
+    import contextlib
+
+    from parallel_heat_tpu_torch import solve, tune
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    pin = (tune.force("single_2d", force) if force
+           else contextlib.nullcontext())
+    with pin:
+        sk.reset_counts()
+        res = solve(cfg)
+        counts = {k: n for k, n in sk.counts.items() if n}
+        check(counts.get(kernel, 0) > 0 and set(counts) == {kernel},
+              f"{cfg.shape} {cfg.dtype}/{cfg.accumulate} "
+              f"{force or 'default'}: counts {counts}, {kernel} expected")
+        out = {"res": res, "launches": counts[kernel]}
+        if profile:
+            out["busy"] = _busy(lambda: solve(cfg), f"{kernel} profiled")
+            _, per = _profiled(lambda: solve(cfg))
+            fn = kernel.removesuffix("_acc")     # its __global__'s prefix
+            hits = [v for key, v in per.items()
+                    if re.search(rf"(^|\W){fn}_kernel\b", key)]
+            records = sum(n for _, n in hits)
+            out["device_ms_per_launch"] = (
+                sum(ms for ms, _ in hits) / records if records else None)
+            out["profiler_records"] = records
+    return out
+
+
+def _moving_grid_err(n=4096, steps=MAIN_STEPS):
+    """Storage and f32chunk told apart by the float64 oracle: an n x n
+    grid of values uniform in [0, 40), made from a seed, moves at every
+    cell, so per-step rounding (storage) drifts from the oracle and a
+    chunk's one rounding (f32chunk) stays near the floor of the oracle
+    rounded to bfloat16. Each mode's run by the default pick, through
+    solve(); f32chunk held under 8e-3 of the peak (its reading 3.6e-3,
+    storage's 0.10, on an H100, PERF.md section 5) and its mean relative
+    error under a fifth of storage's (readings 1.6e-3 and 4.4e-2), so
+    that a carry that rounded every level fails."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, solve
+
+    u0 = torch.from_numpy(np.random.default_rng(23).uniform(
+        0.0, 40.0, (n, n)).astype(np.float32)).to("cuda").to(torch.bfloat16)
+    grids = {}
+    for mode in ("storage", "f32chunk"):
+        cfg = HeatConfig(nx=n, ny=n, steps=steps, dtype="bfloat16",
+                         accumulate=mode, cx=CX, cy=CY)
+        grids[mode] = solve(cfg, initial=u0).grid
+    out = _oracle_err(u0, grids, steps)
+    carry, stored = out["f32chunk"], out["storage"]
+    check(carry["max_abs_over_peak"] < 8e-3
+          and carry["mean_rel_above_1e-3_peak"]
+          < stored["mean_rel_above_1e-3_peak"] / 5,
+          f"{n}^2 moving bf16 grid against the float64 oracle: {out}")
+    return {"shape": [n, n], "steps": steps, **out}
+
+
+def phase_main_path_bf16():
+    """BASELINE config 4 at full width: 32768^2 bfloat16, 200 fixed steps,
+    through the default pick (E-uni) and forced E, in storage mode and
+    under f32chunk; the counts set to 0 before each run and read after;
+    the two kernels' grids bitwise equal in each mode; each run's
+    Mcells*steps/s and device ms a launch, the default runs' idle share;
+    and each mode's error against a float64 oracle of the same 200 steps
+    from the same initial grid, run on the card; then the two modes held
+    apart on a grid that moves (:func:`_moving_grid_err`). Returns each
+    form's launches in its run."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig
+
+    n, steps = BF16_N, MAIN_STEPS
+    cells = n * n * steps / 1e6
+    runs, out, keep = {}, {}, {}
+    for mode in ("storage", "f32chunk"):
+        cfg = HeatConfig(nx=n, ny=n, steps=steps, dtype="bfloat16",
+                         accumulate=mode)
+        suffix = "_bf16" if mode == "storage" else "_bf16_acc"
+        first = None
+        for kind, force in (("E-uni", None), ("E", "E")):
+            name = ("heat_e_uni_temporal" if kind == "E-uni"
+                    else "heat_e_temporal") + suffix
+            r = _bf16_run(cfg, name, force, profile=True)
+            res = r["res"]
+            check(res.steps_run == steps and res.grid.dtype == torch.bfloat16
+                  and tuple(res.grid.shape) == (n, n),
+                  f"{name}: {res.steps_run} steps, {res.grid.dtype}")
+            check(bool(torch.isfinite(res.grid).all()),
+                  f"{name}: non-finite grid")
+            if first is None:
+                first = res.grid
+                keep[mode] = res.grid
+            else:
+                check(_bits_equal(res.grid, first),
+                      f"32768^2 {mode}: {name} differs from E-uni")
+            runs[name] = r["launches"]
+            out[f"{mode} {kind}"] = {
+                "kernel": name, "launches": r["launches"],
+                "elapsed_s": res.elapsed_s,
+                "mcells_steps_per_s": cells / res.elapsed_s,
+                "device_ms_per_launch": r["device_ms_per_launch"],
+                "profiler_records": r["profiler_records"],
+                "idle_share": r["busy"]["idle_share"], "busy": r["busy"]}
+            del res
+        torch.cuda.empty_cache()
+    # The plate barely moves in 200 steps: both modes sit on the floor of
+    # the oracle rounded to bfloat16, so this is printed, not held.
+    start = _plate_grid(torch.device("cuda", 0), n)
+    out["error_vs_f64_oracle"] = _oracle_err(start, keep, steps)
+    del keep, start
+    torch.cuda.empty_cache()
+    out["moving_grid_vs_f64_oracle"] = _moving_grid_err()
+    emit({"phase": "main_path_bf16", "ok": True, "shape": [n, n],
+          "steps": steps, "dtype": "bfloat16", "runs": out,
+          "bitwise_across_kernels": True})
+    return runs
+
+
+def phase_precision():
+    """The rest of the precision path on the card: 1000^2 bfloat16 to
+    eps = 1e-3 on A through the window graphs, bitwise the eager
+    executor (it runs to its cap: the plate's bfloat16 ulps dwarf eps);
+    a bfloat16 f32chunk solve_stream in chunks of 40 steps (rounded up to
+    48) bitwise solve(); the CLI at 1024^2 with --dtype bfloat16
+    --accumulate f32chunk, its .dat the solver's grid's; and the float64
+    route (torch, no kernel launched) bitwise the CPU's. Returns A's
+    bfloat16 launches in the converge run."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, solve
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.solver import explain, solve_stream
+    from parallel_heat_tpu_torch.utils.io import write_dat
+
+    out = {}
+    cfg = HeatConfig(nx=CONV, ny=CONV, steps=10000, converge=True,
+                     check_interval=WINDOW, eps=1e-3, dtype="bfloat16")
+    graph = _loop_run(cfg, False, True)
+    eager = _loop_run(cfg, True, False)
+    g, e = graph["res"], eager["res"]
+    check(set(graph["counts"]) == {"heat_a_resident_bf16"}
+          and graph["counts"] == eager["counts"],
+          f"1000^2 bf16 converge counts {graph['counts']} vs "
+          f"{eager['counts']}")
+    check((g.steps_run, g.converged) == (e.steps_run, e.converged)
+          and same_float(g.residual, e.residual)
+          and _bits_equal(g.grid, e.grid),
+          f"1000^2 bf16 converge: graphs {g.steps_run} {g.converged} "
+          f"{g.residual}, eager {e.steps_run} {e.converged} {e.residual}")
+    check(g.steps_run == 10000 and not g.converged,
+          f"1000^2 bf16 converge ran {g.steps_run} steps")
+    a_launches = graph["counts"]["heat_a_resident_bf16"]
+    out["1000^2 bf16 converge A"] = {
+        "steps_run": g.steps_run, "converged": g.converged,
+        "residual": g.residual, "elapsed_s": g.elapsed_s,
+        "eager_elapsed_s": e.elapsed_s, "launches": a_launches,
+        "graph_reads": graph["dl"].get("reads"),
+        "idle_share": graph["busy"]["idle_share"], "bitwise_eager": True}
+    del graph, eager, g, e
+    # A stream whose chunk is no multiple of the chunk depth: rounded up;
+    # the observers on a bfloat16 grid (the guard; the diagnostics, their
+    # sums in float32).
+    cfg = HeatConfig(nx=4096, ny=4096, steps=MAIN_STEPS, dtype="bfloat16",
+                     accumulate="f32chunk")
+    whole = solve(cfg).grid
+    seen, samples = [], []
+    for r in solve_stream(cfg.replace(guard_interval=48, diag_interval=96),
+                          chunk_steps=40):
+        seen.append(r.steps_run)
+        check(r.finite in (None, True), f"bf16 stream guard: {r.finite}")
+        if r.diagnostics is not None:
+            samples.append(r.diagnostics)
+        last = r.grid.clone()
+    check(seen == list(range(48, MAIN_STEPS, 48)) + [MAIN_STEPS]
+          and _bits_equal(last, whole) and samples
+          and all(math.isfinite(d["heat"]) for d in samples),
+          f"bf16 f32chunk stream yields {seen}, bitwise "
+          f"{_bits_equal(last, whole)}, samples {samples}")
+    out["4096^2 f32chunk stream"] = {"chunk_steps": 40, "yields": seen,
+                                     "bitwise_solve": True,
+                                     "diagnostics": samples}
+    del whole, last
+    # The CLI.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bf16.dat")
+        cmd = [sys.executable, "-m", "parallel_heat_tpu_torch", "--nx",
+               "1024", "--ny", "1024", "--steps", str(MAIN_STEPS), "--dtype",
+               "bfloat16", "--accumulate", "f32chunk", "--out", path]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0,
+              f"bf16 CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, "ref.dat")
+        cli_cfg = HeatConfig(nx=1024, ny=1024, steps=MAIN_STEPS,
+                             dtype="bfloat16", accumulate="f32chunk")
+        write_dat(ref, solve(cli_cfg).grid)
+        with open(path, "rb") as a, open(ref, "rb") as b:
+            check(a.read() == b.read(), "the bf16 CLI's .dat differs from "
+                                        "write_dat of the solver's grid")
+    out["cli"] = {"argv": cmd[3:-2], "stdout":
+                  proc.stdout.strip().splitlines()}
+    # The float64 route: the torch route on the card, no kernel.
+    cfg = HeatConfig(nx=1024, ny=1024, steps=MAIN_STEPS, dtype="float64")
+    sk.reset_counts()
+    gpu = solve(cfg)
+    launched = {k: n for k, n in sk.counts.items() if n}
+    cpu = solve(cfg, device="cpu")
+    check(not launched and gpu.grid.dtype == torch.float64
+          and _bits_equal(gpu.grid.cpu(), cpu.grid)
+          and explain(cfg)["backend"] == "torch",
+          f"float64 route: counts {launched}, bitwise the CPU "
+          f"{_bits_equal(gpu.grid.cpu(), cpu.grid)}")
+    out["float64 1024^2"] = {"route": explain(cfg)["path"],
+                             "elapsed_s": gpu.elapsed_s,
+                             "bitwise_cpu": True}
+    emit({"phase": "precision", "ok": True, **out})
+    return a_launches
+
+
+def phase_timing_bf16(dev):
+    """ms a launch of each bfloat16 form (CUDA events and the profiler's
+    device time), its plain version and the yardstick (``conv2d`` in
+    bfloat16 chained K times), at its main-path launch: A at 1000^2, a
+    20-step window with the residual; E-uni and E at 32768^2, K = 8, in
+    storage mode and in the carry's launches of a 16-step chunk (its
+    first and last, across a float32 level; ms a launch the mean of the
+    two). Each bound counts the bytes of the function replaced, a
+    bfloat16 grid read once and written once: 4 B a cell a launch in
+    storage mode, 4 B a cell a chunk under f32chunk, so 2 B to each of
+    its two launches; the float32 level's traffic (a carry launch moves
+    6 B a cell) is reported beside the bound, not in it."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.ops.stencil import coeffs_f32
+
+    p = params()
+    a0, cx, cy = coeffs_f32(CX, CY)
+    kw = dict(cx=CX, cy=CY)
+    bf16 = torch.bfloat16
+    w = torch.tensor([[0.0, cx, 0.0], [cy, a0, cy], [0.0, cx, 0.0]],
+                     dtype=bf16, device=dev).view(1, 1, 3, 3)
+
+    def conv_steps(x, n):
+        y = x
+        for _ in range(n):
+            y = F.conv2d(y, w)
+        return y
+
+    rows = {}
+    n = BF16_N
+    u = _plate_grid(dev, n)
+    v = torch.empty_like(u)
+    x = u.view(1, 1, n, n)
+    interior = (n - 2) * (n - 2)
+    k = p.e_k_default
+    library_k = _time_ms(lambda: conv_steps(x, k), 2)
+    del x
+    for name, launch, plain in (
+            ("heat_e_uni_temporal", sk.temporal_steps_uni,
+             sk.temporal_steps_uni_plain),
+            ("heat_e_temporal", sk.temporal_steps, sk.temporal_steps_plain)):
+        rows[name + "_bf16"] = {
+            "shape": [n, n], "k": k,
+            "ms": _time_ms(lambda: launch(u, v, k, False, **kw), 10, 2),
+            "plain_ms": _time_ms(lambda: plain(u, v, k, False, **kw), 1),
+            "library_ms": library_k,
+            **_bound(4 * n * n, OPS_PER_CELL_STEP * k * interior)}
+        rows[name + "_bf16"].update(_device_ms(
+            lambda: launch(u, v, k, False, **kw), name + "_bf16"))
+        # The main path's carry launches: a 16-step chunk's first
+        # (bfloat16 in, float32 level out) and last (the level in,
+        # bfloat16 out).
+        mid = torch.empty(u.shape, dtype=torch.float32, device=dev)
+        first = lambda: launch(u, mid, k, False, acc_f32=True, **kw)  # noqa
+        last = lambda: launch(mid, v, k, False, acc_f32=True, **kw)  # noqa
+        halves = [_device_ms(f, name + "_bf16") for f in (first, last)]
+        rows[name + "_bf16_acc"] = {
+            "shape": [n, n], "k": k,
+            "ms": (_time_ms(first, 10, 2) + _time_ms(last, 10, 2)) / 2,
+            "plain_ms": (_time_ms(lambda: plain(u, mid, k, False,
+                                                acc_f32=True, **kw), 1)
+                         + _time_ms(lambda: plain(mid, v, k, False,
+                                                  acc_f32=True, **kw), 1))
+            / 2, "library_ms": library_k,
+            "device_ms": sum(h["device_ms"] for h in halves) / 2,
+            "device_ms_first_last": [h["device_ms"] for h in halves],
+            "profiler_records": sum(h["profiler_records"] for h in halves),
+            "bytes_per_cell_bound": 2, "bytes_per_cell_moved": 6,
+            **_bound(2 * n * n, OPS_PER_CELL_STEP * k * interior)}
+        del mid
+        torch.cuda.empty_cache()
+    del u, v
+    torch.cuda.empty_cache()
+    u = _plate_grid(dev, CONV)
+    v = torch.empty_like(u)
+    x = u.view(1, 1, CONV, CONV)
+    interior = (CONV - 2) * (CONV - 2)
+    run = lambda: sk.resident_steps(u, v, WINDOW, True, **kw)  # noqa: E731
+    rows["heat_a_resident_bf16"] = {
+        "shape": [CONV, CONV], "k": WINDOW, "ms": _time_ms(run, 50, 5),
+        "plain_ms": _time_ms(
+            lambda: sk.resident_steps_plain(u, v, WINDOW, True, **kw), 5, 1),
+        "library_ms": _time_ms(lambda: conv_steps(x, WINDOW), 20, 2),
+        **_bound(4 * CONV * CONV,
+                 (OPS_PER_CELL_STEP * WINDOW + OPS_PER_RESIDUAL_CELL)
+                 * interior)}
+    rows["heat_a_resident_bf16"].update(_device_ms(run,
+                                                   "heat_a_resident_bf16"))
+    emit({"phase": "timing_bf16", "kernels": rows})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -5193,9 +5848,12 @@ def main() -> int:
     try:
         phase_build()
         err = phase_kernels(dev)
+        err.update(phase_kernels_bf16(dev))
         err.update(phase_kernels_3d(dev))
         launches = phase_main_path()
         launches["heat_a_resident"] = phase_converge()
+        launches.update(phase_main_path_bf16())
+        launches["heat_a_resident_bf16"] = phase_precision()
         launches.update(phase_main_path_3d())
         phase_converge_3d()
         phase_cli()
@@ -5214,6 +5872,7 @@ def main() -> int:
         phase_device_loop()
         phase_stream()
         t = phase_timing(dev)
+        t.update(phase_timing_bf16(dev))
         t.update(phase_timing_3d(dev))
         t.update(phase_timing_ens_mg(dev))
         t.update(phase_timing_g(dev))
@@ -5263,14 +5922,17 @@ def main() -> int:
     t["heat_probe_fixture"] = audit
     emit(phase_seconds(start))
     src = "parallel_heat_tpu_torch/csrc/"
+    sources = {name: owner for name, (owner, _) in KERNELS_BF16.items()}
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src + name + ".cu",
+        {"name": name, "route": "cuda",
+         "source": src + sources.get(name, name) + ".cu",
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": err[name], "ms": t[name]["device_ms"],
          "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
          "bound_by": t[name]["bound_by"],
          "library_ms": t[name]["library_ms"]}
-        for name, (_, replaces) in {**KERNELS, **PROBES}.items()]})
+        for name, (_, replaces) in {**KERNELS, **KERNELS_BF16,
+                                    **PROBES}.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -69,8 +69,9 @@ TMA_BOX_MAX = 256
 
 
 def _source_of(entry: str) -> str:
-    from parallel_heat_tpu_torch.kernels.build import KERNELS, TOOLS
+    from parallel_heat_tpu_torch.kernels.build import KERNELS, TOOLS, owner
 
+    entry = owner(entry)
     table = KERNELS if entry in KERNELS else TOOLS
     return f"parallel_heat_tpu_torch/csrc/{table[entry][0]}"
 
@@ -147,6 +148,12 @@ def _audit_windows(plan, spans, report):
                     if abs(start) > INT32_MAX:
                         report("HL401", f"{lname} box coordinate {start} "
                                         f"on axis {d} overflows int32")
+                    if d == ndim - 1 and start * arr.elem % 16:
+                        report("HL401",
+                               f"{lname} box starts at cell {start} of its "
+                               f"rows, {start * arr.elem} bytes: not on 16 "
+                               f"bytes (the copy faults as an illegal "
+                               f"instruction on the card)")
                     continue
                 lo, hi = start, start + ext
                 if guard is not None:
@@ -189,9 +196,10 @@ def _audit_windows(plan, spans, report):
                                        else 0)
         foot += extents[-1]
         for sname, (off, size, *_) in _slots_of(plan, load.slot).items():
-            if 4 * foot > size:
+            if load.cell_bytes * foot > size:
                 report("HL401",
-                       f"{lname} lands {4 * foot} bytes into slot {sname} "
+                       f"{lname} lands {load.cell_bytes * foot} bytes into "
+                       f"slot {sname} "
                        f"of {size} bytes — past its shared buffer")
     for sname, (off, size, *slack) in plan.slots.items():
         slack = slack[0] if slack else plan.align_slack
@@ -212,10 +220,10 @@ def _audit_box(plan, lname, load, arr, report):
         report("HL401", f"TMA box {lname} of {box} cells: a dimension "
                         f"exceeds {TMA_BOX_MAX} cells (cuTensorMapEncodeTiled "
                         f"refuses the map)")
-    if box[-1] * 4 % 16:
-        report("HL401", f"TMA box {lname}: inner extent {box[-1]} floats "
-                        f"is not a multiple of 16 bytes")
-    stride = 4
+    if box[-1] * arr.elem % 16:
+        report("HL401", f"TMA box {lname}: inner extent {box[-1]} cells of "
+                        f"{arr.elem} bytes is not a multiple of 16 bytes")
+    stride = arr.elem
     for n in reversed(arr.shape[1:]):
         stride *= n
         if stride % 16:
@@ -231,9 +239,10 @@ def _audit_box(plan, lname, load, arr, report):
                         f"({box[-1]} floats) but the slot's rows are "
                         f"{load.pitch[-1]} floats apart")
     for sname, (off, *_) in _slots_of(plan, load.slot).items():
-        if (off + 4 * load.dst) % 128:
+        if (off + load.cell_bytes * load.dst) % 128:
             report("HL401", f"TMA box {lname} lands at byte "
-                            f"{off + 4 * load.dst} of the aligned buffers "
+                            f"{off + load.cell_bytes * load.dst} of the "
+                            f"aligned buffers "
                             f"(slot {sname}): not 128-byte aligned")
 
 

@@ -52,13 +52,14 @@ RUNTIME = "runtime"
 
 @dataclass(frozen=True)
 class Array:
-    """A global array of float32 (or int32) cells: its extent per
-    dimension, outermost first, and the alignment of its base address in
-    bytes (PyTorch's allocator gives 256; a piece cut from a larger
-    tensor may give less)."""
+    """A global array of float32 (or int32) cells, or with ``elem`` 2 of
+    bfloat16 ones: its extent per dimension, outermost first, and the
+    alignment of its base address in bytes (PyTorch's allocator gives
+    256; a piece cut from a larger tensor may give less)."""
 
     shape: tuple
     align: int = 256
+    elem: int = 4
 
 
 @dataclass(frozen=True)
@@ -73,6 +74,9 @@ class Load:
     outer dimension (the innermost is contiguous). ``streamed`` outer
     dimensions arrive a cell at a time, each into a slot of its own (a
     ring of planes or rows): the slot holds only the inner dimensions.
+    ``cell_bytes``: the bytes a cell takes in its slot (2 where a
+    bfloat16 box lands as it is; a bfloat16 cell widened as it lands
+    takes 4), ``dst`` and ``pitch`` counting such cells.
     ``box`` is a TMA load's box extent per dimension. A ``cp16`` load's
     guarded spans take the kernel's 4-byte branch (zero-filled copies);
     its unguarded ones copy 16 bytes at a time. ``tiled``: the load's
@@ -87,6 +91,7 @@ class Load:
     streamed: int = 0
     box: tuple = ()
     tiled: bool = False
+    cell_bytes: int = 4
 
 
 @dataclass(frozen=True)
@@ -275,15 +280,24 @@ def _loop_kinds(spans):
     return names
 
 
-def plan_e(shape, k, uni=False) -> Plan:
+# The bytes of a cell in and out of each precision form of E and E-uni
+# (stencil_kernels.PRECISION_FORMS, csrc/heat_temporal.cuh kHeatForm*).
+_FORM_ELEMS = {0: (2, 2), 1: (2, 2), 2: (2, 4), 3: (4, 2)}
+
+
+def plan_e(shape, k, uni=False, form=None) -> Plan:
     """Kernel E (``heat_e_temporal``) or E-uni (``heat_e_uni_temporal``)
     at depth ``k`` on an ``(m, n)`` grid, at the tile and thread block
     ``stencil_kernels._temporal`` launches with (``e_tile``,
-    ``e_block``)."""
+    ``e_block``); with ``form`` their bfloat16 entry point under that
+    precision form (a bfloat16 grid widened as it lands: E by plain
+    loads, E-uni by a bfloat16 box into a stage over the second buffer,
+    ``csrc/heat_e_uni.cuh`` heat_e_uni_form_tile)."""
     p = _p()
     m, n = shape
     ty, tx = p.e_tile
     block = p.e_block
+    e_in, e_out = _FORM_ELEMS.get(form, (4, 4))
     sy, sw = ty + 2 * k, tx + 2 * k
     pad = (4 - k % 4) % 4
     sx = p.row_floats(k, tx)
@@ -295,7 +309,9 @@ def plan_e(shape, k, uni=False) -> Plan:
         def span(i):
             lo = i * t - k                      # gy0 / gx0
             start = lo - (0 if first else pad) if uni else lo
-            ext = sy if first else (sx if uni else sw)
+            if uni and e_in == 2 and not first:
+                start -= start % 8              # the bfloat16 box's shift
+            ext = sy if first else (p.e_box_cols(sx, e_in) if uni else sw)
             write = (i * t, min(i * t + t, dim))
             inside = lo >= 0 and lo + (sy if first else sw) <= dim
             guard = None if (uni or inside) else (0, dim)
@@ -306,7 +322,23 @@ def plan_e(shape, k, uni=False) -> Plan:
 
     axes = [axis(n_row, ty, m, True), axis(n_col, tx, n, False)]
     buf = sy * sx * 4
-    if uni:
+    if uni and e_in == 2:
+        # heat_e_uni.cuh heat_e_uni_stage_at, heat_e_uni_bar_at.
+        sxb = p.e_box_cols(sx, 2)
+        stage = -(-sy * sx // 32) * 32 * 4
+        bar = p.e_smem_bytes(k, (ty, tx), tma=True, elem=2) - 128 - 8
+        loads = {load: Load("tma", "u", "stage", 0, (sxb,), box=(sy, sxb),
+                            cell_bytes=2)}
+        slots = {"src": (0, buf), "dst": (buf, buf),
+                 "stage": (stage, 2 * sy * sxb), "bar": (bar, 8)}
+        dyn = p.e_smem_bytes(k, (ty, tx), tma=True, elem=2)
+
+        def schedule(spans):
+            (y0, _, _), (x0, _, _) = spans[0].reads[load], \
+                spans[1].reads[load]
+            return _sched_tma_once(2 * sy * sxb, 2 * sy * sxb, (x0, y0),
+                                   slot="stage")
+    elif uni:
         loads = {load: Load("tma", "u", "src", 0, (sx,), box=(sy, sx))}
         slots = {"src": (0, buf), "dst": (buf, buf), "bar": (2 * buf, 8)}
         dyn = p.e_smem_bytes(k, (ty, tx), tma=True)
@@ -315,6 +347,15 @@ def plan_e(shape, k, uni=False) -> Plan:
             (y0, _, _), (x0, _, _) = spans[0].reads[load], \
                 spans[1].reads[load]
             return _sched_tma_once(4 * sy * sx, 4 * sy * sx, (x0, y0))
+    elif e_in == 2:
+        # heat_e_temporal.cu heat_e_load_widen: a plain load a cell, then
+        # the block's barrier.
+        loads = {load: Load("ld", "u", "src", pad, (sx,))}
+        slots = {"src": (0, buf), "dst": (buf, buf)}
+        dyn = p.e_smem_bytes(k, (ty, tx))
+
+        def schedule(spans):
+            return [("read", "src")]
     else:
         loads = {load: Load("cp4", "u", "src", pad, (sx,))}
         slots = {"src": (0, buf), "dst": (buf, buf)}
@@ -323,12 +364,16 @@ def plan_e(shape, k, uni=False) -> Plan:
         def schedule(spans):
             return _sched_cp_once([4 * sy * sw])
     name = "heat_e_uni_temporal" if uni else "heat_e_temporal"
+    if form is not None:
+        name += "_bf16"
     return Plan(
         kernel=name + "_kernel", entry=name,
-        label=f"{'E-uni' if uni else 'E'} {m}x{n} K={k}",
+        label=f"{'E-uni' if uni else 'E'} {m}x{n} K={k}"
+              + ("" if form is None else f" form {form}"),
         grid=n_row * n_col, threads=block[0] * block[1], max_threads=512,
         dyn_smem=dyn, static_smem=p.static_smem_bytes,
-        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        arrays={"u": Array((m, n), elem=e_in),
+                "out": Array((m, n), elem=e_out)}, output="out",
         axes=axes, loads=loads, slots=slots, align_slack=128 if uni else 0,
         min_blocks_per_sm=p.e_min_blocks_per_sm, cover=_full(shape),
         schedule=schedule,
@@ -371,9 +416,12 @@ def _a_kinds(spans):
     return names
 
 
-def plan_a(shape, k=20) -> Plan:
-    """Kernel A (``heat_a_resident``): one cooperative launch of ``k``
-    steps at the tile and halo depth ``stencil_kernels.a_launch`` gives."""
+def plan_a(shape, k=20, bf16=False) -> Plan:
+    """Kernel A (``heat_a_resident``, or with ``bf16``
+    ``heat_a_resident_bf16``, its tile widened as it lands by plain
+    loads): one cooperative launch of ``k`` steps at the tile and halo
+    depth ``stencil_kernels.a_launch`` gives (the same at both dtypes:
+    the shared buffers hold float32)."""
     from parallel_heat_tpu_torch.ops.stencil_kernels import a_launch
 
     p = _p()
@@ -384,17 +432,23 @@ def plan_a(shape, k=20) -> Plan:
     buf = (tile[0] + 2 * d) * sx * 4
     axes = _a_axes(m, n, tile, d)
     sh = tile[0] + 2 * d
+    elem = 2 if bf16 else 4
     return Plan(
-        kernel="heat_a_resident_kernel", entry="heat_a_resident",
-        label=f"A {m}x{n} K={k}", grid=axes[0].count * axes[1].count,
+        kernel="heat_a_resident_bf16_kernel" if bf16 else
+        "heat_a_resident_kernel",
+        entry="heat_a_resident_bf16" if bf16 else "heat_a_resident",
+        label=f"A {m}x{n} K={k}" + (" bf16" if bf16 else ""),
+        grid=axes[0].count * axes[1].count,
         threads=block[0] * block[1], max_threads=512,
         dyn_smem=p.a_smem_bytes(tile, d), static_smem=p.static_smem_bytes,
-        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
-        axes=axes, loads={"cells": Load("cp4", "u", "src",
+        arrays={"u": Array((m, n), elem=elem),
+                "out": Array((m, n), elem=elem)}, output="out",
+        axes=axes, loads={"cells": Load("ld" if bf16 else "cp4", "u", "src",
                                         (4 - d % 4) % 4, (sx,))},
         slots={"src": (0, buf), "dst": (buf, buf)}, cooperative=True,
         cover=_full(shape),
-        schedule=lambda spans: _sched_cp_once([4 * sh * (tile[1] + 2 * d)]),
+        schedule=(lambda spans: [("read", "src")]) if bf16 else (
+            lambda spans: _sched_cp_once([4 * sh * (tile[1] + 2 * d)])),
         # heat_a_launch refuses 2 m n past int32: the exchange planes are
         # indexed (group & 1) * (m * n) + i * n + j in int.
         int32=[("exchange plane index", 2 * m * n - 1)],
@@ -1509,6 +1563,8 @@ def fixture_smem_bytes(window_rows: int) -> int:
 # The main paths' geometries (PERF.md section 4) and the ragged shapes
 # chip_smoke.py checks.
 MAIN_2D = (16384, 16384)
+# BASELINE config 4: the bfloat16 main path.
+MAIN_BF16 = (32768, 32768)
 A_SHAPE = (1000, 1000)
 F_SHAPE = (512, 512, 512)
 G_GRID, G_MESH = (32768, 32768), (2, 4)
@@ -1557,8 +1613,25 @@ def default_plans() -> List[Plan]:
             out.append(plan_e(shape, k))
             if p.uni_fits(shape):
                 out.append(plan_e(shape, k, uni=True))
+    # The bfloat16 forms: BASELINE config 4's 32768^2 at the depth its
+    # runs launch (storage; a carry chunk of 16 in two launches across the
+    # float32 level, a remainder of 8 in one), and every depth each form
+    # takes on the ragged grids.
+    for uni in (False, True):
+        for form in (0, 1, 2, 3):
+            out.append(plan_e(MAIN_BF16, p.e_k_default, uni, form=form))
+    for shape in RAGGED_2D:
+        for form, ks in ((0, range(1, p.e_k_max() + 1)),
+                         (1, range(1, p.e_k_max() + 1)),
+                         (2, (1, p.e_k_default)),
+                         (3, range(1, p.e_k_max() + 1))):
+            for k in ks:
+                out.append(plan_e(shape, k, form=form))
+                if p.uni_fits(shape, "bfloat16"):
+                    out.append(plan_e(shape, k, uni=True, form=form))
     for shape in (A_SHAPE, (1001, 999), (20, 24), (107, 210)):
         out.append(plan_a(shape))
+        out.append(plan_a(shape, bf16=True))
     out.append(plan_m(M_STACK[0], M_STACK[1], 400))
     out.append(plan_m(8, (20, 20), 20))
     out.append(plan_b(MAIN_2D))

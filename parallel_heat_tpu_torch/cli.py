@@ -11,8 +11,9 @@ flags select the implicit integrators; ``--mesh``, ``--no-overlap``,
 (``--mesh dx,dy``, or ``dx,dy,dz`` with ``--nz``), all on the run's one
 device (``auto`` is the one-device mesh). ``--initial-out`` writes the
 initial grid as ``--out`` writes the final one, ``--quiet`` prints no
-progress lines, and ``--dtype`` takes the JAX CLI's names, of which this
-package runs ``float32`` and refuses the others (``HeatConfig.validate``).
+progress lines, and ``--dtype`` and ``--accumulate`` take the JAX CLI's
+names (bfloat16 and float64 on the 2D single-block explicit path; the
+others refused by ``HeatConfig.validate``).
 
 The observers are the JAX CLI's too: ``--guard-interval`` and
 ``--diag-interval`` set the runtime guard and the grid diagnostics,
@@ -52,8 +53,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cz", type=float, default=0.1)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16", "float64"],
-                    help="storage dtype; only float32 runs in this package "
-                         "(bfloat16 and float64 are refused)")
+                    help="storage dtype (arithmetic is float32 at every "
+                         "dtype); bfloat16 and float64 run on the 2D "
+                         "single-block explicit path, float64 on the "
+                         "torch route")
+    ap.add_argument("--accumulate", default="storage",
+                    choices=("storage", "f32chunk"),
+                    help="sub-f32 accumulation semantics (SEMANTICS.md): "
+                         "'storage' rounds the state to the storage "
+                         "dtype every step; 'f32chunk' (bfloat16, 2D "
+                         "single-device) carries f32 across each 16-step "
+                         "chunk and rounds once per chunk")
     ap.add_argument("--scheme", default="explicit",
                     choices=("explicit", "backward_euler",
                              "crank_nicolson"),
@@ -212,7 +222,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         cy=args.cy, cz=args.cz, steps=args.steps,
                         converge=args.converge, eps=args.eps,
                         check_interval=args.check_interval,
-                        dtype=args.dtype, backend=args.backend, device=args.device,
+                        dtype=args.dtype, accumulate=args.accumulate,
+                        backend=args.backend, device=args.device,
                         scheme=args.scheme,
                         mesh_shape=_parse_mesh(
                             args.mesh, 2 if args.nz is None else 3),
@@ -353,8 +364,14 @@ def _run_ensemble(args, config) -> int:
           + (f"converge eps={config.eps:g}" if config.converge
              else f"{config.steps} steps"))
     try:
-        result = EnsembleSolver(config, args.ensemble).solve(
-            telemetry=telemetry)
+        solver = EnsembleSolver(config, args.ensemble)
+    except ValueError as e:
+        if telemetry is not None:
+            telemetry.close()
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        result = solver.solve(telemetry=telemetry)
         if telemetry is not None:
             telemetry.run_end(outcome="complete",
                               steps_done=int(result.steps_run.max()),
@@ -388,9 +405,13 @@ def _write_grid(path: str, grid) -> str:
     """Write the grid; returns the path actually written (a 3D grid has
     no .dat form and is stored as .npy, as the JAX CLI does)."""
     import numpy as np
+    import torch
 
     path = str(path)
-    arr = grid.detach().cpu().numpy()
+    grid = grid.detach().cpu()
+    # numpy has no bfloat16: a bfloat16 grid's .npy holds its float32
+    # values, exact; its .dat is the JAX CLI's bytes (utils/io.py).
+    arr = (grid.float() if grid.dtype == torch.bfloat16 else grid).numpy()
     if path.endswith(".npy") or arr.ndim != 2:
         if not path.endswith(".npy"):
             path += ".npy"

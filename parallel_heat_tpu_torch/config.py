@@ -9,7 +9,17 @@ implements, so one spec runs on either package. What differs:
   plain PyTorch) or ``"auto"`` (cuda on a GPU device, torch on the CPU);
 - ``device`` is new: where the grid lives and the steps run
   (``"cuda"`` means ``cuda:0``; ``"cpu"`` must be asked for);
-- ``dtype`` accepts only ``"float32"`` in this slice;
+- ``dtype`` takes the JAX package's three storage dtypes, and
+  ``accumulate`` its two sub-float32 modes, with its rules
+  (``SEMANTICS.md`` "Precision"): arithmetic is float32 at every dtype;
+  ``"storage"`` rounds the state to the dtype after every step;
+  ``"f32chunk"`` (bfloat16, 2D, one block) carries float32 through chunks
+  of :data:`~.ops.stencil.F32CHUNK_DEPTH` steps. In this slice bfloat16
+  and float64 run on the 2D single-block explicit path only, and float64
+  on the torch route only (the kernels store float32 and bfloat16):
+  ``backend="cuda"`` with float64 is refused, and ``"auto"`` takes the
+  torch route for it on the card too. Elsewhere they are refused, naming
+  the ROADMAP.md item;
 - ``nz`` set makes the run 3D (7-point stencil, coefficients
   ``cx, cy, cz``), as in the JAX package;
 - ``scheme`` and the ``mg_*`` knobs select the implicit integrators
@@ -27,8 +37,8 @@ implements, so one spec runs on either package. What differs:
   the observers of ``solver.solve_stream`` and ``solve`` (the runtime
   guard, the grid diagnostics, the stream's dispatch depth) with the JAX
   package's defaults and rules; they never change a bit of the grid;
-- the fields of the JAX package that this one does not implement yet
-  (f32chunk accumulation, the partitioned V-cycle) are rejected by
+- the field of the JAX package that this one does not implement yet
+  (the partitioned V-cycle's ``mg_partition``) is rejected by
   :meth:`HeatConfig.from_dict` when they are set away from their
   defaults, instead of being dropped silently.
 
@@ -43,7 +53,8 @@ import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-_VALID_DTYPES = ("float32",)
+_VALID_DTYPES = ("float32", "bfloat16", "float64")
+_VALID_ACCUMULATE = ("storage", "f32chunk")
 _VALID_BACKENDS = ("auto", "cuda", "torch")
 # "explicit" is the forward-Euler Jacobi update, whose step is capped by
 # the stability bound; the implicit schemes solve (I - theta*L) u' = b
@@ -63,7 +74,7 @@ SEMANTIC_FIELDS = (
     "nx", "ny", "nz", "cx", "cy", "cz",
     "steps", "converge", "eps", "check_interval",
     "dtype", "backend", "device",
-    "mesh_shape", "overlap", "halo_depth", "halo_overlap",
+    "mesh_shape", "overlap", "halo_depth", "halo_overlap", "accumulate",
     "scheme", "mg_tol", "mg_cycles", "mg_smooth", "mg_levels",
 )
 OBSERVATION_ONLY_FIELDS = ("guard_interval", "diag_interval",
@@ -74,7 +85,6 @@ OBSERVATION_ONLY_FIELDS = ("guard_interval", "diag_interval",
 # values means the same run on both packages; any other value names a
 # feature this package would silently drop, so from_dict refuses it.
 JAX_ONLY_DEFAULTS = {
-    "accumulate": "storage",
     "mg_partition": "auto",
 }
 
@@ -211,7 +221,8 @@ class HeatConfig:
     eps: float = 1e-3
     check_interval: int = 20
 
-    # Storage dtype; arithmetic is float32 either way.
+    # Storage dtype ("float32", "bfloat16", "float64"); arithmetic is
+    # float32 at every dtype.
     dtype: str = "float32"
 
     # "cuda" (Hopper kernels), "torch" (textbook stencil) or "auto".
@@ -234,6 +245,13 @@ class HeatConfig:
     # the kernel), "overlap" (the bulk between the phases, then the
     # bands) or None/"auto" (= "overlap"). Bitwise equal results.
     halo_overlap: Optional[str] = None
+
+    # Sub-float32 accumulation (SEMANTICS.md "Precision"): "storage" rounds
+    # the state to the storage dtype after every step, so a K-step kernel
+    # is bitwise K single steps; "f32chunk" (bfloat16, 2D, one block)
+    # carries float32 through chunks of ops.stencil.F32CHUNK_DEPTH steps
+    # and rounds once a chunk (and once after a remainder chunk).
+    accumulate: str = "storage"
 
     # Time integrator: "explicit", or "backward_euler" /
     # "crank_nicolson", which solve (I - theta*L) u' = b every step with
@@ -333,9 +351,13 @@ class HeatConfig:
             raise ValueError(f"eps must be > 0, got {self.eps}")
         if self.dtype not in _VALID_DTYPES:
             raise ValueError(
-                f"dtype must be 'float32' in this package for now, got "
-                f"{self.dtype!r}: bfloat16 and float64 storage are "
-                f"ROADMAP queue 1 item 3 (precision)")
+                f"dtype must be one of {_VALID_DTYPES}, got {self.dtype!r} "
+                f"(float16 is not a storage dtype of the JAX package "
+                f"either)")
+        if self.accumulate not in _VALID_ACCUMULATE:
+            raise ValueError(
+                f"accumulate must be 'storage' or 'f32chunk', got "
+                f"{self.accumulate!r}")
         if self.backend not in _VALID_BACKENDS:
             raise ValueError(
                 f"backend must be one of {_VALID_BACKENDS}, got "
@@ -396,13 +418,63 @@ class HeatConfig:
                     f"schemes (scheme='backward_euler' or "
                     f"'crank_nicolson'); scheme='explicit' takes no "
                     f"multigrid knobs")
-        elif self.ndim != 2:
-            raise ValueError(
-                f"scheme={self.scheme!r} is 2D-only in this "
-                f"build: the 3D multigrid transfer operators are "
-                f"not yet built (the 5-point V-cycle is — use "
-                f"nz=None)")
+        else:
+            if self.ndim != 2:
+                raise ValueError(
+                    f"scheme={self.scheme!r} is 2D-only in this "
+                    f"build: the 3D multigrid transfer operators are "
+                    f"not yet built (the 5-point V-cycle is — use "
+                    f"nz=None)")
+            if self.accumulate != "storage":
+                raise ValueError(
+                    "accumulate='f32chunk' applies to the explicit "
+                    "temporal kernels only; the implicit V-cycle "
+                    "already carries float32 through every step solve "
+                    "and rounds to storage once per step")
+        self._validate_precision()
         return self
+
+    def _validate_precision(self) -> None:
+        """The JAX package's f32chunk rules (same messages), then this
+        slice's: bfloat16 and float64 run on the 2D single-block explicit
+        path only, float64 on the torch route only."""
+        if self.accumulate == "f32chunk":
+            if self.dtype != "bfloat16":
+                raise ValueError(
+                    f"accumulate='f32chunk' only applies to sub-f32 "
+                    f"storage dtypes (got {self.dtype}: f32+ storage "
+                    f"already carries full f32 state — SEMANTICS.md)")
+            if self.ndim != 2:
+                raise ValueError(
+                    "accumulate='f32chunk' is 2D-only (the priced "
+                    "config-4 capability); 3D chunked accumulation is "
+                    "not yet built")
+            if self.is_sharded():
+                raise ValueError(
+                    "accumulate='f32chunk' is single-device only: "
+                    "sharded temporal rounds exchange storage-dtype "
+                    "halos, so the chunk carry cannot stay f32 across "
+                    "the mesh")
+        if self.dtype == "float32":
+            return
+        off = [what for what, on in (("3D", self.ndim != 2),
+                                     ("a mesh", self.is_sharded()),
+                                     (f"scheme={self.scheme!r}",
+                                      self.scheme != "explicit")) if on]
+        if off:
+            item = ("queue 2 item 24 (the bfloat16 forms of D, F, G, H, "
+                    "M and the transfer kernels)" if self.dtype == "bfloat16"
+                    else "queue 1 item 3 (precision)")
+            raise ValueError(
+                f"dtype={self.dtype!r} runs on the 2D single-block explicit "
+                f"path only in this package for now, not on "
+                f"{' or '.join(off)}: ROADMAP.md {item}")
+        if self.dtype == "float64" and self.backend == "cuda":
+            raise ValueError(
+                "backend='cuda' does not take dtype='float64': the kernels "
+                "store float32 and bfloat16 (arithmetic is float32 at every "
+                "dtype); float64 runs the plain torch route (backend='torch' "
+                "or 'auto', on the card or the CPU)")
 
     def _validate_mesh(self) -> None:
         """The mesh fields: the JAX package's rules, the cuda depth rule,

@@ -36,6 +36,14 @@
 // (the Dirichlet ring lies between) and are copied, never updated.
 // Nothing else of the buffers is read before it is written, so neither
 // buffer is cleared.
+//
+// Storage precision. The shared buffers and the exchange planes hold
+// float32 at every storage dtype: a bfloat16 grid (heat_a_resident_bf16)
+// is widened as its tile lands, every level rounds its updated cells to
+// bfloat16 (the tile loop's kRound, heat_temporal.cuh), so a band holds
+// values that are bfloat16 already and crosses the plane exactly, and the
+// last step stores bfloat16. A runs no f32chunk form: the JAX picker never
+// takes A under accumulate="f32chunk", and neither does the port's.
 
 #pragma once
 
@@ -92,6 +100,23 @@ __device__ __forceinline__ HeatATile heat_a_tile(int m, int n, int tile,
 // The framed tile of `u` into src: one 4-byte cp.async a cell, cells
 // outside the grid zero-filled; returns once it has landed for the whole
 // block.
+// A bfloat16 grid's tile is widened as it lands: a plain 2-byte load a
+// cell, then the block's barrier.
+__device__ __forceinline__ void heat_a_load(
+    const __nv_bfloat16* __restrict__ u, float* src, const HeatATile& t,
+    int m, int n) {
+  for (int r = threadIdx.y; r < t.sh; r += blockDim.y) {
+    const int gi = t.gy0 + r;
+    const bool row_in = gi >= 0 && gi < m;
+    float* s = src + r * t.sx + t.pad;
+    for (int c = threadIdx.x; c < t.sw; c += blockDim.x) {
+      const int gj = t.gx0 + c;
+      s[c] = row_in && gj >= 0 && gj < n ? heat_widen(u[gi * n + gj]) : 0.f;
+    }
+  }
+  __syncthreads();
+}
+
 __device__ __forceinline__ void heat_a_load(const float* __restrict__ u,
                                             float* src, const HeatATile& t,
                                             int m, int n) {
@@ -192,15 +217,14 @@ __device__ __forceinline__ void heat_a_frame_in(float* src,
 // writes the tile's cells to the m x n grid `out` (16 bytes a group where
 // the address allows it) and folds their residual's bit pattern into
 // rmax. Every thread of the block must call it. kLoop is the tile loop's
-// variant (kHeatLoopFull but in the neighbour-form probe).
-template <int kProbe, int kLoop = kHeatLoopFull, class Exchange>
-__device__ __forceinline__ void heat_a_steps(float* src, float* dst,
-                                             const HeatATile& t, int m,
-                                             int n, int k,
-                                             float* __restrict__ out,
-                                             float a0, float cx, float cy,
-                                             uint32_t& rmax,
-                                             Exchange exchange) {
+// variant (kHeatLoopFull but in the neighbour-form probe); Tout and kRound
+// its storage precision (heat_temporal.cuh).
+template <int kProbe, int kLoop = kHeatLoopFull, typename Tout = float,
+          bool kRound = false, class Exchange>
+__device__ __forceinline__ void heat_a_steps(
+    float* src, float* dst, const HeatATile& t, int m, int n, int k,
+    typename HeatSame<Tout>::type* __restrict__ out, float a0, float cx,
+    float cy, uint32_t& rmax, Exchange exchange) {
   constexpr int kVar = kProbe == kHeatACopyStep ? kHeatLoopCopyStep : kLoop;
   // The grid's interior in tile coordinates, this warp's run of rows,
   // and whether the framed tile reaches past the interior (uniform
@@ -216,21 +240,19 @@ __device__ __forceinline__ void heat_a_steps(float* src, float* dst,
       kProbe != kHeatANoEdge &&
       (r_lo > 0 || r_hi < t.sh - 1 || c_lo > 0 || c_hi < t.sw - 1);
   const int64_t base = static_cast<int64_t>(t.gy0) * n + t.gx0;
-  const bool vec_out =
-      n % 4 == 0 && (reinterpret_cast<uint64_t>(out) +
-                     4 * static_cast<uint64_t>(base - t.pad)) % 16 == 0;
+  const bool vec_out = heat_vec_out(out, n, base, t.pad);
   for (int done = 0, group = 0;; ++group) {
     const int j = min(t.d, k - done);
     for (int s = 1; s <= j; ++s) {
       const int e = t.d - (j - s);
       if (done + s == k) {
-        heat_rows_any<true, kVar>(
+        heat_rows_any<true, kVar, Tout, kRound>(
             edge, src, nullptr, out, t.sx, t.pad, base, n, vec_out,
             max(t_r0, t.d), min(t_r1, t.d + t.h), (t.pad + t.d) / 4,
             (t.pad + t.d + t.w + 3) / 4, t.d + t.w, r_lo, r_hi, c_lo, c_hi,
             a0, cx, cy, rmax);
       } else {
-        heat_rows_any<false, kVar>(
+        heat_rows_any<false, kVar, Tout, kRound>(
             edge, src, dst, nullptr, t.sx, t.pad, 0, 0, false, max(t_r0, e),
             min(t_r1, t.sh - e), (t.pad + e) / 4,
             (t.pad + t.sw - e + 3) / 4, 0, r_lo, r_hi, c_lo, c_hi, a0, cx,
@@ -255,10 +277,11 @@ __device__ __forceinline__ void heat_a_steps(float* src, float* dst,
 // frame back. The planes alternate by group, so one barrier a group is
 // enough: a plane is rewritten two groups later, after every block has
 // passed the barrier that ends its reads. heat_a_block is a block's work;
-// the kernels below are its instances.
-template <int kProbe, int kLoop = kHeatLoopFull>
+// the kernels below are its instances. T is the grid's storage type: a
+// bfloat16 grid rounds every level (heat_a_resident_bf16).
+template <int kProbe, int kLoop = kHeatLoopFull, typename T = float>
 __device__ __forceinline__ void heat_a_block(
-    const float* __restrict__ u, float* __restrict__ out, float* xch,
+    const T* __restrict__ u, T* __restrict__ out, float* xch,
     uint32_t* res, int m, int n, int n_col_tiles, int k, int depth,
     int tile_y, int tile_x, float a0, float cx, float cy) {
   extern __shared__ __align__(16) float smem[];
@@ -268,7 +291,7 @@ __device__ __forceinline__ void heat_a_block(
   float* const dst = smem + (tile_y + 2 * depth) * t.sx;
   heat_a_load(u, src, t, m, n);
   uint32_t rmax = 0u;
-  heat_a_steps<kProbe, kLoop>(
+  heat_a_steps<kProbe, kLoop, T, !std::is_same<T, float>::value>(
       src, dst, t, m, n, k, out, a0, cx, cy, rmax,
       [&](float* s, int group) {
         float* plane = xch + (group & 1) * (m * n);
@@ -293,6 +316,20 @@ heat_a_resident_kernel(const float* __restrict__ u, float* __restrict__ out,
                        tile_x, a0, cx, cy);
 }
 
+// Kernel A on a bfloat16 grid: every level rounded to bfloat16, the
+// buffers and planes float32 (the storage precision above). A template,
+// so that only a library that launches it compiles it.
+template <typename T>
+__global__ void __launch_bounds__(kHeatMaxThreads, 1)
+heat_a_resident_bf16_kernel(const T* __restrict__ u, T* __restrict__ out,
+                            float* xch, uint32_t* res, int m, int n,
+                            int n_col_tiles, int k, int depth, int tile_y,
+                            int tile_x, float a0, float cx, float cy) {
+  heat_a_block<kHeatAFull, kHeatLoopFull, T>(u, out, xch, res, m, n,
+                                             n_col_tiles, k, depth, tile_y,
+                                             tile_x, a0, cx, cy);
+}
+
 // Kernel A on the tile loop's variant kLoop (a neighbour form): a kernel
 // of its own, so that A's instances keep their names and machine code.
 template <int kLoop>
@@ -306,7 +343,8 @@ heat_a_loop_kernel(const float* __restrict__ u, float* __restrict__ out,
 }
 
 // Kernel A's launch (variant kProbe; with kLoop other than kHeatLoopFull,
-// heat_a_loop_kernel<kLoop>): K steps of the m x n float32 grid
+// heat_a_loop_kernel<kLoop>; with T bfloat16, heat_a_resident_bf16_kernel,
+// kProbe and kLoop the full ones): K steps of the m x n grid
 // `u` into `out` (distinct buffers, both on the current device) in one
 // cooperative launch of one block of block_x x block_y threads per
 // tile_y x tile_x tile, exchanging a `depth`-deep halo every `depth`
@@ -316,8 +354,8 @@ heat_a_loop_kernel(const float* __restrict__ u, float* __restrict__ out,
 // does not synchronise. Returns a cudaError_t: 0, or the reason the
 // launch was refused (cudaErrorCooperativeLaunchTooLarge when the blocks
 // do not all fit on the card at once).
-template <int kProbe, int kLoop = kHeatLoopFull>
-inline int heat_a_launch(const float* u, float* out, float* xch,
+template <int kProbe, int kLoop = kHeatLoopFull, typename T = float>
+inline int heat_a_launch(const T* u, T* out, float* xch,
                          uint32_t* res, int64_t m, int64_t n, int k,
                          int depth, int tile_y, int tile_x, int block_x,
                          int block_y, float a0, float cx, float cy,
@@ -331,7 +369,12 @@ inline int heat_a_launch(const float* u, float* out, float* xch,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = heat_loop_smem_bytes(depth, tile_y, tile_x);
   const void* kernel;
-  if constexpr (kLoop == kHeatLoopFull)
+  static_assert(std::is_same<T, float>::value ||
+                    (kProbe == kHeatAFull && kLoop == kHeatLoopFull),
+                "kernel A's bfloat16 form is the full kernel");
+  if constexpr (!std::is_same<T, float>::value)
+    kernel = reinterpret_cast<const void*>(heat_a_resident_bf16_kernel<T>);
+  else if constexpr (kLoop == kHeatLoopFull)
     kernel = reinterpret_cast<const void*>(heat_a_resident_kernel<kProbe>);
   else
     kernel = reinterpret_cast<const void*>(heat_a_loop_kernel<kLoop>);

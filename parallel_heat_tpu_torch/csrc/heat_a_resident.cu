@@ -3,7 +3,11 @@
 // last step.
 //
 // Replaces: parallel_heat_tpu/ops/pallas_stencil.py::_build_vmem_multistep
-// (pallas_call name "heat_a_vmem_multistep", defined at :117, call :219).
+// (pallas_call name "heat_a_vmem_multistep", defined at :117, call :219),
+// at storage dtypes float32 (heat_a_resident) and bfloat16
+// (heat_a_resident_bf16: the grid widened to float32 as it lands in shared
+// memory, each level rounded to bfloat16; heat_a.cuh). A bfloat16 launch
+// moves 4 B per cell over HBM instead of 8; the step phase is the same.
 //
 // Bound on the H100: a launch reads the grid once and writes it once for
 // all K steps, 8 B per cell over HBM, plus the halo exchange through L2.
@@ -75,6 +79,23 @@ extern "C" int heat_a_resident(const float* u, float* out, float* xch,
   return heat_a_launch<kHeatAFull>(u, out, xch, res, m, n, k, depth, tile_y,
                                    tile_x, block_x, block_y, a0, cx, cy,
                                    stream);
+}
+
+// heat_a_resident on a bfloat16 grid `u` into the bfloat16 `out`: every
+// step computes in float32 and rounds its updated cells to bfloat16, as a
+// launch of heat_b_step on a bfloat16 grid would store them; the residual
+// is the last step's float32 update against the float32 of the level it
+// read. `xch` is float32 scratch as above (its values are bfloat16 ones).
+// The counterpart of _build_vmem_multistep at dtype bfloat16.
+extern "C" int heat_a_resident_bf16(const __nv_bfloat16* u,
+                                    __nv_bfloat16* out, float* xch,
+                                    uint32_t* res, int64_t m, int64_t n,
+                                    int k, int depth, int tile_y, int tile_x,
+                                    int block_x, int block_y, float a0,
+                                    float cx, float cy, void* stream) {
+  return heat_a_launch<kHeatAFull, kHeatLoopFull, __nv_bfloat16>(
+      u, out, xch, res, m, n, k, depth, tile_y, tile_x, block_x, block_y, a0,
+      cx, cy, stream);
 }
 
 extern "C" const char* heat_a_resident_error_string(int code) {

@@ -23,8 +23,34 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Storage precision (SEMANTICS.md "Precision"). Arithmetic is float32 at
+// every storage dtype; a bfloat16 grid is widened to float32 on its way
+// into shared memory, so the kernels' shared buffers always hold float32.
+// The widening and the exact narrowing move bits (a bfloat16 is the upper
+// 16 bits of the float32 it widens to), so a cell that is copied and never
+// updated, the Dirichlet ring above all, keeps its bits, NaN payloads
+// included. An updated cell rounds with __float2bfloat16_rn, the
+// conversion torch's .to(torch.bfloat16) makes on the card.
+__device__ __forceinline__ float heat_widen(float v) { return v; }
+__device__ __forceinline__ float heat_widen(__nv_bfloat16 v) {
+  return __uint_as_float(static_cast<uint32_t>(__bfloat16_as_ushort(v))
+                         << 16);
+}
+// A float32 value rounded to bfloat16 and widened back: a storage-mode
+// step's level as the next step reads it.
+__device__ __forceinline__ float heat_bf16_round(float v) {
+  return heat_widen(__float2bfloat16_rn(v));
+}
+// The bfloat16 of a float32 that is one already (a widened cell): its
+// upper 16 bits, exact.
+__device__ __forceinline__ __nv_bfloat16 heat_bf16_exact(float v) {
+  return __ushort_as_bfloat16(
+      static_cast<unsigned short>(__float_as_uint(v) >> 16));
+}
 
 __device__ __forceinline__ float heat_combine(float c, float up, float down,
                                               float left, float right,

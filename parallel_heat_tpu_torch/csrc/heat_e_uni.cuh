@@ -327,3 +327,161 @@ inline int heat_e_uni_launch(Kernel kernel, const float* u, float* out,
         maps.body);
   return static_cast<int>(cudaGetLastError());
 }
+
+// --- E-uni's precision forms (heat_temporal.cuh kHeatForm*) --------------
+//
+// A bfloat16 grid's box lands as bfloat16. A box must start on 16 bytes
+// of its row (8 cells here; a start off it faults as an illegal
+// instruction), and E-uni's float32 box starts on 4 cells, so the
+// bfloat16 box starts up to 4 cells to its left (the tile's shift, 0 or
+// 4) and holds TY+2K rows of heat_e_uni_box_cols cells: the float32 row
+// and the shift, rounded up to 8 so that a box row is a multiple of 16
+// bytes (the grid's width must be a multiple of 8 cells for the same rule
+// on its row stride). It lands in a stage past the first float32 buffer,
+// over the second, which no step has written yet; once it has, the block
+// widens the row's cells from the shift on into the first buffer, 4 cells
+// a thread at a time, and steps as E-uni does. A float32 input (a carried
+// level, kHeatFormCarryIn) takes E-uni's own box.
+
+// Cells a box row holds for a grid of `elem`-byte cells: a bfloat16 box
+// holds the shift of up to 4 cells too.
+__host__ __device__ __forceinline__ int heat_e_uni_box_cols(int sx,
+                                                            int elem) {
+  return elem == 2 ? (sx + 4 + 7) / 8 * 8 : sx;
+}
+
+// Floats from the buffers' start to the bfloat16 stage: past the first
+// buffer, on a 128-byte boundary (the box's alignment).
+__host__ __device__ __forceinline__ int heat_e_uni_stage_at(int sy, int sx) {
+  return (sy * sx + 31) / 32 * 32;
+}
+
+// Floats from the buffers' start to the mbarrier: past both buffers and,
+// for a bfloat16 box, past its stage, on an 8-byte boundary.
+__host__ __device__ __forceinline__ int heat_e_uni_bar_at(int sy, int sx,
+                                                          int elem) {
+  if (elem != 2) return 2 * sy * sx;
+  const int stage_end = heat_e_uni_stage_at(sy, sx) +
+                        (sy * heat_e_uni_box_cols(sx, 2) + 1) / 2;
+  const int bar = (stage_end + 1) / 2 * 2;
+  return bar > 2 * sy * sx ? bar : 2 * sy * sx;
+}
+
+// Dynamic shared memory of one block of a form whose input cells are
+// `elem` bytes: 128 bytes to align the buffers, the buffers (and stage),
+// the mbarrier (ops/hopper_params.py e_smem_bytes).
+inline size_t heat_e_uni_form_smem(int k, int tile_y, int tile_x, int elem) {
+  return 128 + sizeof(float) * static_cast<size_t>(heat_e_uni_bar_at(
+                                   tile_y + 2 * k, heat_row_floats(k, tile_x),
+                                   elem)) +
+         sizeof(uint64_t);
+}
+
+// One block of E-uni under precision form kForm: tile blockIdx.x of the
+// grid behind `umap`, K steps, the tile's cells into `out` and their
+// residual into *res.
+template <int kForm>
+__device__ __forceinline__ void heat_e_uni_form_tile(
+    typename HeatForm<kForm>::Out* __restrict__ out, uint32_t* res,
+    int64_t m, int64_t n, int64_t n_col_tiles, int k, int tile_y, int tile_x,
+    float a0, float cx, float cy, const CUtensorMap* umap) {
+  using F = HeatForm<kForm>;
+  constexpr int kElem = sizeof(typename F::In);
+  extern __shared__ __align__(128) float smem[];
+  const int sy = tile_y + 2 * k;
+  const int sw = tile_x + 2 * k;
+  const int pad = heat_row_pad(k);
+  const int sx = heat_row_floats(k, tile_x);
+  const int sxb = heat_e_uni_box_cols(sx, kElem);
+  const int64_t gy0 = (blockIdx.x / n_col_tiles) * tile_y - k;
+  const int64_t gx0 = (blockIdx.x % n_col_tiles) * tile_x - k;
+  // The box's first cell, on 16 bytes: E-uni's start (on 4 cells) less
+  // the shift, 0 or 4 cells of a bfloat16 row.
+  const int x0 = static_cast<int>(gx0 - pad);
+  const int shift = kElem == 2 ? (x0 & 7) : 0;
+  float* buf = smem + ((128 - (heat_smem_addr(smem) & 127)) & 127) / 4;
+  float* land = kElem == 2 ? buf + heat_e_uni_stage_at(sy, sx) : buf;
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(buf + heat_e_uni_bar_at(sy, sx, kElem));
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    heat_mbar_init(bar);
+    heat_mbar_init_fence();
+    heat_mbar_expect(bar, static_cast<uint32_t>(kElem * sy * sxb));
+    heat_tma_load_2d(land, umap, bar, x0 - shift, static_cast<int>(gy0));
+  }
+  __syncthreads();  // the mbarrier is initialised for every thread
+  heat_e_steps<kHeatLoopFull, typename F::Out, F::kRound>(
+      buf, buf + sy * sx, sx, pad, sy, sw, gy0, gx0, m, n, k, tile_y, tile_x,
+      a0, cx, cy, out, res, [=] {
+        heat_mbar_wait(bar, 0);
+        if constexpr (kElem == 2) {
+          // Widen the stage into the first buffer: the upper 16 bits of
+          // each float are the bfloat16 (heat_common.cuh heat_widen).
+          const uint32_t* stage = reinterpret_cast<const uint32_t*>(land);
+          const int groups = sx / 4;
+          const int threads = blockDim.x * blockDim.y;
+          for (int f = threadIdx.y * blockDim.x + threadIdx.x;
+               f < sy * groups; f += threads) {
+            const int r = f / groups;
+            const int g = f - r * groups;
+            const uint2 b = *reinterpret_cast<const uint2*>(
+                stage + (r * sxb + shift + 4 * g) / 2);
+            *reinterpret_cast<float4*>(buf + r * sx + 4 * g) =
+                make_float4(__uint_as_float(b.x << 16),
+                            __uint_as_float(b.x & 0xffff0000u),
+                            __uint_as_float(b.y << 16),
+                            __uint_as_float(b.y & 0xffff0000u));
+          }
+          __syncthreads();
+        }
+      });
+}
+
+// E-uni's launch of `kernel` (heat_e_uni_temporal_bf16_kernel<kForm>)
+// under precision form kForm: the checks (the grid's rows a multiple of 16
+// bytes, the box within TMA's 256 cells a dimension), the tensor map of
+// `u` in its own dtype, the shared memory, the residual's reset and the
+// launch on `stream`. Returns a cudaError_t or a tensor-map encoding error.
+template <int kForm, typename Kernel>
+inline int heat_e_uni_form_launch(Kernel kernel, const void* u, void* out,
+                                  uint32_t* res, int64_t m, int64_t n, int k,
+                                  int tile_y, int tile_x, int block_x,
+                                  int block_y, float a0, float cx, float cy,
+                                  void* stream) {
+  using F = HeatForm<kForm>;
+  constexpr int kElem = sizeof(typename F::In);
+  int64_t n_col_tiles = 0, blocks = 0;
+  const int bad = heat_e_geometry(m, n, k, tile_y, tile_x, block_x, block_y,
+                                  &n_col_tiles, &blocks);
+  if (bad != 0) return bad;
+  const int sy = tile_y + 2 * k;
+  const int sxb = heat_e_uni_box_cols(heat_row_floats(k, tile_x), kElem);
+  if (n % (16 / kElem) != 0 || reinterpret_cast<uintptr_t>(u) % 16 != 0 ||
+      sy > 256 || sxb > 256 || m > 0x7fffffffLL || n > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(m)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * kElem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(sxb),
+                             static_cast<cuuint32_t>(sy)};
+  const int enc = heat_tma_encode(&map, u, 2, dims, strides, box,
+                                  kElem == 2
+                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (enc != 0) return enc;
+  const size_t smem = heat_e_uni_form_smem(k, tile_y, tile_x, kElem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (res != nullptr) {
+    err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), dim3(block_x, block_y), smem, s>>>(
+      static_cast<typename F::Out*>(out), res, m, n, n_col_tiles, k, tile_y,
+      tile_x, a0, cx, cy, map);
+  return static_cast<int>(cudaGetLastError());
+}

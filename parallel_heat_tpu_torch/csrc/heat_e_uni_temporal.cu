@@ -4,7 +4,10 @@
 //
 // Replaces: parallel_heat_tpu/ops/pallas_stencil.py::
 // _build_temporal_strip_uniform (pallas_call name
-// "heat_e_uni_temporal_strip", defined at :832, call :987).
+// "heat_e_uni_temporal_strip", defined at :832, call :987), in its float32
+// storage form (heat_e_uni_temporal) and its bfloat16 forms
+// (heat_e_uni_temporal_bf16: bfloat16 storage and the acc_f32 carry, the
+// box landing as bfloat16 and widened in shared memory, heat_e_uni.cuh).
 //
 // Bound on the H100: heat_e_temporal's, about 8*(1+2K/TY)*(1+2K/TX)/K
 // bytes per cell-step through HBM, and below that instruction issue in
@@ -74,6 +77,62 @@ extern "C" int heat_e_uni_temporal_occupancy(int k, int tile_y, int tile_x,
                                              int* blocks) {
   return heat_loop_occupancy(heat_e_uni_temporal_kernel, k, tile_y, tile_x,
                              block_x, block_y, kHeatEUniExtraSmem, blocks);
+}
+
+// E-uni under precision form kForm (heat_temporal.cuh kHeatForm*; the
+// load heat_e_uni.cuh heat_e_uni_form_tile).
+template <int kForm>
+__global__ void __launch_bounds__(kHeatMaxThreads)
+heat_e_uni_temporal_bf16_kernel(
+    typename HeatForm<kForm>::Out* __restrict__ out, uint32_t* res,
+    int64_t m, int64_t n, int64_t n_col_tiles, int k, int tile_y, int tile_x,
+    float a0, float cx, float cy, const __grid_constant__ CUtensorMap umap) {
+  heat_e_uni_form_tile<kForm>(out, res, m, n, n_col_tiles, k, tile_y, tile_x,
+                              a0, cx, cy, &umap);
+}
+
+template <int kForm>
+inline int heat_e_uni_bf16_launch(const void* u, void* out, uint32_t* res,
+                                  int64_t m, int64_t n, int k, int tile_y,
+                                  int tile_x, int block_x, int block_y,
+                                  float a0, float cx, float cy,
+                                  void* stream) {
+  return heat_e_uni_form_launch<kForm>(
+      heat_e_uni_temporal_bf16_kernel<kForm>, u, out, res, m, n, k, tile_y,
+      tile_x, block_x, block_y, a0, cx, cy, stream);
+}
+
+// K steps of the m x n grid `u` into `out` under precision form `form`
+// (as heat_e_temporal_bf16), each tile one TMA box of `u` in its own
+// dtype: a bfloat16 grid's width must be a multiple of 8 cells, a float32
+// one's of 4, and `u` 16-byte aligned. Returns a cudaError_t or a
+// tensor-map encoding error.
+extern "C" int heat_e_uni_temporal_bf16(const void* u, void* out,
+                                        uint32_t* res, int64_t m, int64_t n,
+                                        int k, int tile_y, int tile_x,
+                                        int block_x, int block_y, int form,
+                                        float a0, float cx, float cy,
+                                        void* stream) {
+  switch (form) {
+    case kHeatFormBf16:
+      return heat_e_uni_bf16_launch<kHeatFormBf16>(
+          u, out, res, m, n, k, tile_y, tile_x, block_x, block_y, a0, cx, cy,
+          stream);
+    case kHeatFormCarry:
+      return heat_e_uni_bf16_launch<kHeatFormCarry>(
+          u, out, res, m, n, k, tile_y, tile_x, block_x, block_y, a0, cx, cy,
+          stream);
+    case kHeatFormCarryOut:
+      return heat_e_uni_bf16_launch<kHeatFormCarryOut>(
+          u, out, res, m, n, k, tile_y, tile_x, block_x, block_y, a0, cx, cy,
+          stream);
+    case kHeatFormCarryIn:
+      return heat_e_uni_bf16_launch<kHeatFormCarryIn>(
+          u, out, res, m, n, k, tile_y, tile_x, block_x, block_y, a0, cx, cy,
+          stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* heat_e_uni_temporal_error_string(int code) {

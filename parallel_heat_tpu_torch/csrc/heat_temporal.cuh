@@ -34,6 +34,19 @@
 // rounds to float32 like a launch of heat_b_step: K steps of the loop are
 // bitwise K launches of B.
 //
+// Storage precision (heat_common.cuh). The shared buffers hold float32
+// whatever the grid's dtype: a kernel widens a bfloat16 tile as it lands.
+// The loop takes the grid's storage type as Tout, the type of the last
+// step's store, and kRound: with kRound (bfloat16 storage mode) every
+// intermediate level rounds its updated cells to bfloat16 before the next
+// step reads them, as a launch of B on a bfloat16 grid stores them, so K
+// steps of the loop are still bitwise K single steps; without it (the
+// float32 carry of accumulate="f32chunk") the levels stay float32 and only
+// the last store rounds. Either way the residual is the last step's
+// float32 update against the float32 level it read, before any rounding,
+// and the last store rounds the updated cells and narrows the copied ones
+// exactly.
+//
 // Launch shapes (heat_loop_takes; ops/hopper_params.py loop_takes is the
 // same rule): thread blocks of 32 x W threads, W <= 16, one warp per row
 // of threads, so that the shuffles stay inside a row of lanes; output
@@ -46,6 +59,8 @@
 #pragma once
 
 #include <cuda_pipeline.h>
+
+#include <type_traits>
 
 #include "heat_common.cuh"
 
@@ -174,10 +189,75 @@ constexpr int kHeatLoopRecord = 12;     // kHeatLoopFull, each load written
 // same group) and the forms the next row's first. That cell's new value
 // lies outside every step's valid region (the group ends the row's
 // padding, at or past tile column sw - 1), so no output bit differs.
-template <bool kLast, bool kEdge, int kVar = kHeatLoopFull>
+// A type named so that a call never deduces it: the tile loop's store type
+// is given, or float32 by default, so that a null output deduces nothing.
+template <typename T>
+struct HeatSame {
+  using type = T;
+};
+
+// The last step's store of one 4-column group at q: float32 as it is; a
+// bfloat16 grid's updated cells (in) rounded, its copied ones narrowed
+// exactly. 16 (float32) or 8 (bfloat16) bytes at once with `vec`.
+__device__ __forceinline__ void heat_store_group(float* q, float4 v, bool in0,
+                                                 bool in1, bool in2, bool in3,
+                                                 bool st0, bool st1, bool st2,
+                                                 bool st3, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(q) = v;
+    return;
+  }
+  if (st0) q[0] = v.x;
+  if (st1) q[1] = v.y;
+  if (st2) q[2] = v.z;
+  if (st3) q[3] = v.w;
+}
+__device__ __forceinline__ void heat_store_group(__nv_bfloat16* q, float4 v,
+                                                 bool in0, bool in1, bool in2,
+                                                 bool in3, bool st0, bool st1,
+                                                 bool st2, bool st3,
+                                                 bool vec) {
+  const __nv_bfloat16 b0 =
+      in0 ? __float2bfloat16_rn(v.x) : heat_bf16_exact(v.x);
+  const __nv_bfloat16 b1 =
+      in1 ? __float2bfloat16_rn(v.y) : heat_bf16_exact(v.y);
+  const __nv_bfloat16 b2 =
+      in2 ? __float2bfloat16_rn(v.z) : heat_bf16_exact(v.z);
+  const __nv_bfloat16 b3 =
+      in3 ? __float2bfloat16_rn(v.w) : heat_bf16_exact(v.w);
+  if (vec) {
+    uint2 pk;
+    pk.x = static_cast<uint32_t>(__bfloat16_as_ushort(b0)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(b1)) << 16);
+    pk.y = static_cast<uint32_t>(__bfloat16_as_ushort(b2)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(b3)) << 16);
+    *reinterpret_cast<uint2*>(q) = pk;
+    return;
+  }
+  if (st0) q[0] = b0;
+  if (st1) q[1] = b1;
+  if (st2) q[2] = b2;
+  if (st3) q[3] = b3;
+}
+
+// Can the last step store whole groups at once? The row stride a multiple
+// of 4 cells and the group of tile column -pad aligned to 4 cells.
+template <typename Tout>
+__device__ __forceinline__ bool heat_vec_out(const Tout* out, int64_t ld,
+                                             int64_t base, int pad) {
+  return ld % 4 == 0 &&
+         (reinterpret_cast<uint64_t>(out) +
+          sizeof(Tout) * static_cast<uint64_t>(base - pad)) %
+                 (4 * sizeof(Tout)) ==
+             0;
+}
+
+template <bool kLast, bool kEdge, int kVar = kHeatLoopFull,
+          typename Tout = float, bool kRound = false>
 __device__ __forceinline__ void heat_rows(
     const float* __restrict__ src, float* __restrict__ dst,
-    float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
+    typename HeatSame<Tout>::type* __restrict__ out, int sx, int pad,
+    int64_t base, int64_t ld,
     bool vec_out, int r0, int r1, int g0, int g1, int c_end, int r_lo,
     int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
     uint32_t& rmax) {
@@ -189,6 +269,10 @@ __device__ __forceinline__ void heat_rows(
   constexpr bool kSelect = kEdge && !kCoeff;
   constexpr bool kNoShfl =
       kVar == kHeatLoopPadSlice || kVar == kHeatLoopNbr4;
+  // The precision forms run the solver's function only.
+  static_assert((std::is_same<Tout, float>::value && !kRound) ||
+                    kVar == kHeatLoopFull,
+                "bfloat16 storage and the float32 carry take kHeatLoopFull");
   if (r0 >= r1) return;  // uniform across the warp
   const int lane = static_cast<int>(threadIdx.x);
   const int sx4 = sx >> 2;
@@ -237,8 +321,12 @@ __device__ __forceinline__ void heat_rows(
     float4 cc = p[r0 * sx4];
     float4 dn = p[(r0 + 1) * sx4];
     const float* pe = src + r0 * sx + e_col;
-    float* q = kLast ? out + (base + static_cast<int64_t>(r0) * ld + c)
-                     : dst + (r0 * sx + 4 * gl);
+    Tout* qo = nullptr;
+    float* q = nullptr;
+    if constexpr (kLast)
+      qo = out + (base + static_cast<int64_t>(r0) * ld + c);
+    else
+      q = dst + (r0 * sx + 4 * gl);
     // Row r from the rows above, at and below it in registers; the row
     // below the next is read ahead by the loop, which stops one row short
     // so that the read stays inside the rows (r1 < rows), and the last
@@ -305,6 +393,14 @@ __device__ __forceinline__ void heat_rows(
         in2 = rin && ci2;
         in3 = rin && ci3;
       }
+      if constexpr (kRound && !kLast) {
+        // bfloat16 storage: the level rounds before the next step reads
+        // it (the copied cells are restored just below).
+        v.x = heat_bf16_round(v.x);
+        v.y = heat_bf16_round(v.y);
+        v.z = heat_bf16_round(v.z);
+        v.w = heat_bf16_round(v.w);
+      }
       if (kSelect) {
         v.x = in0 ? v.x : cc.x;
         v.y = in1 ? v.y : cc.y;
@@ -318,16 +414,10 @@ __device__ __forceinline__ void heat_rows(
           if (st2 && in2) rmax = max(rmax, heat_diff_bits(v.z, cc.z));
           if (st3 && in3) rmax = max(rmax, heat_diff_bits(v.w, cc.w));
         }
-        if (!kStore) {
-        } else if (vec_out && st3) {
-          *reinterpret_cast<float4*>(q) = v;
-        } else {
-          if (st0) q[0] = v.x;
-          if (st1) q[1] = v.y;
-          if (st2) q[2] = v.z;
-          if (st3) q[3] = v.w;
-        }
-        q += ld;
+        if (kStore)
+          heat_store_group(qo, v, in0, in1, in2, in3, st0, st1, st2, st3,
+                           vec_out && st3);
+        qo += ld;
       } else {
         if (active) *reinterpret_cast<float4*>(q) = v;
         q += sx;
@@ -348,21 +438,22 @@ __device__ __forceinline__ void heat_rows(
 }
 
 // heat_rows with kEdge chosen at run time (uniform per block).
-template <bool kLast, int kVar = kHeatLoopFull>
+template <bool kLast, int kVar = kHeatLoopFull, typename Tout = float,
+          bool kRound = false>
 __device__ __forceinline__ void heat_rows_any(
     bool edge, const float* __restrict__ src, float* __restrict__ dst,
-    float* __restrict__ out, int sx, int pad, int64_t base, int64_t ld,
-    bool vec_out, int r0, int r1, int g0, int g1, int c_end, int r_lo,
-    int r_hi, int c_lo, int c_hi, float a0, float cx, float cy,
-    uint32_t& rmax) {
+    typename HeatSame<Tout>::type* __restrict__ out, int sx, int pad,
+    int64_t base, int64_t ld, bool vec_out, int r0, int r1, int g0, int g1,
+    int c_end, int r_lo, int r_hi, int c_lo, int c_hi, float a0, float cx,
+    float cy, uint32_t& rmax) {
   if (edge)
-    heat_rows<kLast, true, kVar>(src, dst, out, sx, pad, base, ld, vec_out,
-                                 r0, r1, g0, g1, c_end, r_lo, r_hi, c_lo,
-                                 c_hi, a0, cx, cy, rmax);
+    heat_rows<kLast, true, kVar, Tout, kRound>(
+        src, dst, out, sx, pad, base, ld, vec_out, r0, r1, g0, g1, c_end,
+        r_lo, r_hi, c_lo, c_hi, a0, cx, cy, rmax);
   else
-    heat_rows<kLast, false, kVar>(src, dst, out, sx, pad, base, ld, vec_out,
-                                  r0, r1, g0, g1, c_end, r_lo, r_hi, c_lo,
-                                  c_hi, a0, cx, cy, rmax);
+    heat_rows<kLast, false, kVar, Tout, kRound>(
+        src, dst, out, sx, pad, base, ld, vec_out, r0, r1, g0, g1, c_end,
+        r_lo, r_hi, c_lo, c_hi, a0, cx, cy, rmax);
 }
 
 // kHeatLoopRowCopy: tile row r of dst, if it lies in this warp's rows
@@ -398,12 +489,15 @@ struct HeatCpAsyncWait {
 // writes the last step's tile rows [w_r0, w_r1) and columns [k, w_c1) to
 // out[base + r * ld + c]; with `res` non-null it reduces the residual of
 // exactly those cells into *res. Every thread of the block must call it.
-// kVar is the loop's variant (heat_rows; kHeatLoopFull but in the probes).
-template <int kVar = kHeatLoopFull, class Wait>
+// kVar is the loop's variant (heat_rows; kHeatLoopFull but in the probes);
+// Tout and kRound its storage precision (above).
+template <int kVar = kHeatLoopFull, typename Tout = float, bool kRound = false,
+          class Wait>
 __device__ __forceinline__ void heat_tile_steps(
     float* src, float* dst, int sx, int pad, int sy, int sw, int64_t gy0,
     int64_t gx0, int64_t m, int64_t n, int k, int w_r0, int w_r1, int w_c1,
-    float a0, float cx, float cy, float* __restrict__ out, int64_t base,
+    float a0, float cx, float cy,
+    typename HeatSame<Tout>::type* __restrict__ out, int64_t base,
     int64_t ld, uint32_t* res, Wait wait_load) {
   // The grid's interior, rows 1 .. m-2 and columns 1 .. n-2, in tile
   // coordinates (clamped to the tile, so an empty range stays empty).
@@ -424,9 +518,7 @@ __device__ __forceinline__ void heat_tile_steps(
                         : r_lo > 0 || r_hi < sy - 1 || c_lo > 0 ||
                               c_hi < sw - 1;
   // Can the last step store a group as one 16-byte write? Uniform too.
-  const bool vec_out =
-      ld % 4 == 0 && (reinterpret_cast<uint64_t>(out) +
-                      4 * static_cast<uint64_t>(base - pad)) % 16 == 0;
+  const bool vec_out = heat_vec_out(out, ld, base, pad);
   wait_load();
 
   uint32_t rmax = 0u;
@@ -434,9 +526,9 @@ __device__ __forceinline__ void heat_tile_steps(
   for (int s = 1; s < k; ++s) {
     const int r0 = max(t_r0, s), r1 = min(t_r1, sy - s);
     const int g0 = (pad + s) / 4, g1 = (pad + sw - s + 3) / 4;
-    heat_rows_any<false, kVar>(edge, src, dst, nullptr, sx, pad, 0, 0, false,
-                               r0, r1, g0, g1, 0, r_lo, r_hi, c_lo, c_hi, a0,
-                               cx, cy, rmax);
+    heat_rows_any<false, kVar, Tout, kRound>(
+        edge, src, dst, nullptr, sx, pad, 0, 0, false, r0, r1, g0, g1, 0,
+        r_lo, r_hi, c_lo, c_hi, a0, cx, cy, rmax);
     if (kVar == kHeatLoopRowCopy && edge) {
       // The grid's ring rows, where the tile holds them.
       if (r_lo > 0) heat_restore_row(src, dst, sx, r_lo - 1, r0, r1, g0, g1);
@@ -451,10 +543,10 @@ __device__ __forceinline__ void heat_tile_steps(
 
   // Step K: the rows and columns asked for, written to global memory,
   // with the residual.
-  heat_rows_any<true, kVar>(edge, src, nullptr, out, sx, pad, base, ld,
-                            vec_out, max(t_r0, w_r0), min(t_r1, w_r1),
-                            (pad + k) / 4, (pad + w_c1 + 3) / 4, w_c1, r_lo,
-                            r_hi, c_lo, c_hi, a0, cx, cy, rmax);
+  heat_rows_any<true, kVar, Tout, kRound>(
+      edge, src, nullptr, out, sx, pad, base, ld, vec_out, max(t_r0, w_r0),
+      min(t_r1, w_r1), (pad + k) / 4, (pad + w_c1 + 3) / 4, w_c1, r_lo, r_hi,
+      c_lo, c_hi, a0, cx, cy, rmax);
   if (kVar != kHeatLoopNoResidual && res != nullptr)
     heat_block_max(rmax, res);
 }
@@ -466,18 +558,51 @@ __device__ __forceinline__ void heat_tile_steps(
 // global cell (gy0, gx0) = (row tile * TY - K, column tile * TX - K); the
 // central TY x TX tile, cut at the grid's edge, lands in `out`, an m x n
 // grid like the input.
-template <int kVar = kHeatLoopFull, class Wait>
+template <int kVar = kHeatLoopFull, typename Tout = float, bool kRound = false,
+          class Wait>
 __device__ __forceinline__ void heat_e_steps(
     float* src, float* dst, int sx, int pad, int sy, int sw, int64_t gy0,
     int64_t gx0, int64_t m, int64_t n, int k, int tile_y, int tile_x,
-    float a0, float cx, float cy, float* __restrict__ out, uint32_t* res,
+    float a0, float cx, float cy,
+    typename HeatSame<Tout>::type* __restrict__ out, uint32_t* res,
     Wait wait_load) {
   const int r_end = heat_clamp_local(m - gy0, 0, k + tile_y);
   const int c_end = heat_clamp_local(n - gx0, 0, k + tile_x);
-  heat_tile_steps<kVar>(src, dst, sx, pad, sy, sw, gy0, gx0, m, n, k, k,
-                        r_end, c_end, a0, cx, cy, out, gy0 * n + gx0, n, res,
-                        wait_load);
+  heat_tile_steps<kVar, Tout, kRound>(src, dst, sx, pad, sy, sw, gy0, gx0, m,
+                                      n, k, k, r_end, c_end, a0, cx, cy, out,
+                                      gy0 * n + gx0, n, res, wait_load);
 }
+
+// The wait of a load made with plain loads and stores (a bfloat16 tile
+// widened as it lands): the block's barrier.
+struct HeatSyncWait {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// The precision forms of the 2D K-step kernels (E, E-uni): the grid's
+// storage type in and out, and whether the levels round to bfloat16.
+//   kHeatFormBf16     bfloat16 in and out, every level rounded (storage);
+//   kHeatFormCarry    bfloat16 in and out, the levels float32 and the last
+//                     store rounded once (accumulate="f32chunk", a chunk in
+//                     one launch);
+//   kHeatFormCarryOut bfloat16 in, float32 out, nothing rounded (the first
+//                     launch of a chunk in two);
+//   kHeatFormCarryIn  float32 in (a carried level), bfloat16 out, rounded
+//                     once at the last store (the chunk's last launch).
+// ops/stencil_kernels.py PRECISION_FORMS is the same table.
+constexpr int kHeatFormBf16 = 0;
+constexpr int kHeatFormCarry = 1;
+constexpr int kHeatFormCarryOut = 2;
+constexpr int kHeatFormCarryIn = 3;
+
+template <int kForm>
+struct HeatForm {
+  using In = typename std::conditional<kForm == kHeatFormCarryIn, float,
+                                       __nv_bfloat16>::type;
+  using Out = typename std::conditional<kForm == kHeatFormCarryOut, float,
+                                        __nv_bfloat16>::type;
+  static constexpr bool kRound = kForm == kHeatFormBf16;
+};
 
 // The checks of an E or E-uni launch: the grid, K, the launch shape the
 // loop takes, and a grid of tiles that fits one launch. Sets

@@ -148,14 +148,16 @@ typedef CUresult (*HeatEncodeTiled)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// The tensor map of the float32 tensor at `data` of `rank` dimensions
-// `dims` (innermost first), strides in bytes `strides` (rank - 1 of them,
-// each a multiple of 16), boxes of `box` cells, zeros outside the tensor.
-// The driver's encoder is fetched through the runtime once. Returns 0 or
-// an error code (heat_tma_error_string).
-inline int heat_tma_encode(CUtensorMap* map, const float* data, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+// The tensor map of the float32 tensor (or, by `type`, the bfloat16 one) at
+// `data` of `rank` dimensions `dims` (innermost first), strides in bytes
+// `strides` (rank - 1 of them, each a multiple of 16), boxes of `box`
+// cells (the innermost box row a multiple of 16 bytes), zeros outside the
+// tensor. The driver's encoder is fetched through the runtime once.
+// Returns 0 or an error code (heat_tma_error_string).
+inline int heat_tma_encode(
+    CUtensorMap* map, const void* data, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   static HeatEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -174,8 +176,8 @@ inline int heat_tma_encode(CUtensorMap* map, const float* data, int rank,
   }
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, static_cast<cuuint32_t>(rank),
-      const_cast<float*>(data), dims, strides, box, unit,
+      map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(data),
+      dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kHeatTmaEncodeError + static_cast<int>(r);

@@ -119,6 +119,9 @@ def packable(config: HeatConfig):
         return False, f"invalid config: {e}"
     if config.is_sharded():
         return False, "sharded configs run solo (no member axis across a mesh)"
+    if config.dtype != "float32":
+        return False, (f"{config.dtype} configs run solo (no batched path "
+                       f"stores {config.dtype}: ROADMAP.md queue 2 item 24)")
     backend = resolve_backend(config, torch.device(config.device))
     if config.scheme != "explicit":
         return True, ("vmap over the implicit V-cycle multistep "
@@ -274,6 +277,12 @@ class EnsembleSolver:
                 "EnsembleSolver is single-device per member: sharded "
                 "mesh_shape configs run solo (the member axis does not "
                 "span a mesh)")
+        if config.dtype != "float32":
+            raise ValueError(
+                f"dtype={config.dtype!r} does not run in an ensemble in this "
+                f"package for now (the batched paths and kernel M store "
+                f"float32): ROADMAP.md queue 2 item 24; run the members "
+                f"solo")
         self.device = resolve_device(config, device)
         self.config = config.replace(device=str(self.device))
         self.ensemble = ensemble.validate()

@@ -120,6 +120,21 @@ KERNELS = {
                            [_P, _I32, _I32, _P] + [_I64] * 6 + [_I32] * 7
                            + [_F32] * 4 + [_P]),
 }
+# Entry points that live in another kernel's library: name -> (that
+# kernel, argtypes). The storage-precision forms of kernels A, E and E-uni
+# (bfloat16 storage and the float32 carry of accumulate="f32chunk") are
+# compiled into their float32 kernels' sources, so one nvcc builds both.
+ENTRIES = {
+    "heat_a_resident_bf16": ("heat_a_resident",
+                             KERNELS["heat_a_resident"][1]),
+    # u, out, res, (m, n), k, tile, thread block, form, coefficients, stream
+    "heat_e_temporal_bf16": ("heat_e_temporal",
+                             [_P, _P, _P, _I64, _I64] + [_I32] * 6
+                             + [_F32] * 3 + [_P]),
+    "heat_e_uni_temporal_bf16": ("heat_e_uni_temporal",
+                                 [_P, _P, _P, _I64, _I64] + [_I32] * 6
+                                 + [_F32] * 3 + [_P]),
+}
 # The measurement tools' kernels (parallel_heat_tpu_torch/tools/): built
 # and loaded like the kernels above, but no path of the solver runs them.
 TOOLS = {
@@ -268,7 +283,14 @@ def _entry(name: str):
     return HELPERS[name]
 
 
+def owner(name: str) -> str:
+    """The kernel whose library holds entry point ``name`` (itself but for
+    :data:`ENTRIES`)."""
+    return ENTRIES[name][0] if name in ENTRIES else name
+
+
 def library_path(name: str) -> Path:
+    name = owner(name)
     source, _ = _entry(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (source,) + _COMMON:
@@ -280,6 +302,7 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas's report) of the build of kernel ``name``'s
     current library, from this process or from the file an earlier build
     left beside the library; "" when neither has it."""
+    name = owner(name)
     if name in BUILD_LOG:
         return BUILD_LOG[name]
     log = library_path(name).with_suffix(".log")
@@ -294,7 +317,8 @@ def build(*names: str) -> Dict[str, Path]:
     path of each name; raises :class:`BuildError` with nvcc's stderr."""
     names = names or tuple(KERNELS)
     paths = {name: library_path(name) for name in names}
-    todo = [name for name in names if not paths[name].exists()]
+    todo = list(dict.fromkeys(owner(name) for name in names
+                              if not paths[name].exists()))
     if not todo:
         return paths
     compiler = nvcc()
@@ -302,7 +326,7 @@ def build(*names: str) -> Dict[str, Path]:
     procs = {}
     try:
         for name in todo:
-            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
             cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / _entry(name)[0])]
             procs[name] = (tmp, subprocess.Popen(
@@ -316,8 +340,9 @@ def build(*names: str) -> Dict[str, Path]:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n"
                               f"{err}")
             else:
-                paths[name].with_suffix(".log").write_text(out + err)
-                os.replace(tmp, paths[name])
+                path = library_path(name)
+                path.with_suffix(".log").write_text(out + err)
+                os.replace(tmp, path)
         if failed:
             raise BuildError("\n".join(failed))
     finally:
@@ -330,7 +355,16 @@ def build(*names: str) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name`` (of the kernel that holds it,
+    for an entry point of :data:`ENTRIES`, with that entry point bound),
+    built first if needed."""
+    if name in ENTRIES:
+        lib = load(owner(name))
+        with _lock:
+            fn = getattr(lib, name)
+            fn.argtypes = ENTRIES[name][1]
+            fn.restype = ctypes.c_int
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -355,8 +389,9 @@ def main(argv=None) -> int:
 
     names = tuple(sys.argv[1:] if argv is None else argv)
     for name in names or tuple(KERNELS):
-        if not any(name in t for t in (KERNELS, TOOLS, HELPERS)):
-            known = list(KERNELS) + list(TOOLS) + list(HELPERS)
+        if not any(name in t for t in (KERNELS, TOOLS, HELPERS, ENTRIES)):
+            known = (list(KERNELS) + list(TOOLS) + list(HELPERS)
+                     + list(ENTRIES))
             raise SystemExit(f"unknown kernel {name!r}; one of {known}")
     for name, path in build(*names).items():
         rows = ptxas_report(build_log(name))

@@ -37,7 +37,9 @@ class HeatPlate2D:
         Every operation is one correctly rounded float32 operation in the
         same order as the JAX package's ``init_grid``, so the two grids
         are bitwise equal (and equal to the float64 oracle while the
-        factors stay below 2^24, i.e. for nx, ny <= 8192).
+        factors stay below 2^24, i.e. for nx, ny <= 8192). ``dtype`` (a
+        torch dtype or a ``HeatConfig.dtype`` name) is the storage dtype
+        the float32 product is cast to at the end, as in the JAX package.
         """
         return self.init_block(device, (0, 0), (self.nx, self.ny), dtype)
 
@@ -48,6 +50,8 @@ class HeatPlate2D:
         on the same values (the global indices are exact in float32), so
         the blocks of a mesh are bitwise the slices of the full grid and
         no full-grid temporary is needed."""
+        from parallel_heat_tpu_torch.ops.stencil import storage_dtype
+
         nx, ny = self.nx, self.ny
         ix = torch.arange(origin[0], origin[0] + shape[0],
                           dtype=torch.float32, device=device)
@@ -55,4 +59,4 @@ class HeatPlate2D:
                           dtype=torch.float32, device=device)
         fx = ix * (nx - ix - 1)
         fy = iy * (ny - iy - 1)
-        return (fx[:, None] * fy[None, :]).to(dtype)
+        return (fx[:, None] * fy[None, :]).to(storage_dtype(dtype))

@@ -60,9 +60,11 @@ class HeatPlate3D:
         on the same values (the global indices are exact in float32), so
         the blocks of a mesh are bitwise the slices of the full grid and
         no full-grid temporary is needed."""
+        from parallel_heat_tpu_torch.ops.stencil import storage_dtype
+
         f = []
         for o, s, n in zip(origin, shape, self.shape):
             i = torch.arange(o, o + s, dtype=torch.float32, device=device)
             f.append(i * (n - i - 1))
         return (f[0][:, None, None] * f[1][None, :, None]
-                * f[2][None, None, :]).to(dtype)
+                * f[2][None, None, :]).to(storage_dtype(dtype))

@@ -97,6 +97,15 @@ class HopperParams:
     e_block: tuple = (32, 8)
     e_k_default: int = 8
     e_min_blocks_per_sm: int = 2
+    # The bfloat16 forms (csrc/heat_temporal.cuh kHeatForm*): the shared
+    # buffers hold float32 at every storage dtype (a bfloat16 tile is
+    # widened as it lands), so the loop's launch shapes and buffers are
+    # float32's; E-uni's bfloat16 box lands in a stage over the second
+    # buffer (e_smem_bytes). Under accumulate="f32chunk" a chunk is
+    # F32CHUNK_DEPTH = 16 steps (ops/stencil.py), deeper than e_k_max():
+    # it runs as two launches of e_k_default steps across a float32 grid
+    # (stencil_kernels._carry_chunks), which beat one launch of 16 at a
+    # shorter tile (PERF.md section 6).
 
     # --- kernels I and I-uni: heat_i_tile_temporal and
     # heat_i_uni_tile_temporal (measured) ------------------------------------
@@ -842,12 +851,32 @@ class HopperParams:
         ty, tx = tile
         return 2 * (ty + 2 * k) * self.row_floats(k, tx) * 4
 
-    def e_smem_bytes(self, k: int, tile=None, tma=False) -> int:
+    def e_smem_bytes(self, k: int, tile=None, tma=False, elem=4) -> int:
         """Dynamic shared memory of one E block (or with ``tma`` one E-uni
-        block) at depth ``k``: the loop's two buffers, and for E-uni's TMA
-        box 128 bytes to align them and its 8-byte mbarrier."""
-        return (self.loop_smem_bytes(k, tile or self.e_tile)
-                + (128 + 8 if tma else 0))
+        block) at depth ``k`` on a grid of ``elem``-byte cells: the loop's
+        two buffers, and for E-uni's TMA box 128 bytes to align them and
+        its 8-byte mbarrier; a bfloat16 box (``elem`` 2) lands in a stage
+        from the first 128-byte boundary past the first buffer, which may
+        reach past the second (``csrc/heat_e_uni.cuh``
+        ``heat_e_uni_form_smem``)."""
+        ty, tx = tile or self.e_tile
+        if not tma or elem == 4:
+            return (self.loop_smem_bytes(k, (ty, tx))
+                    + (128 + 8 if tma else 0))
+        sy, sx = ty + 2 * k, self.row_floats(k, tx)
+        stage_end = (-(-sy * sx // 32) * 32
+                     + (sy * self.e_box_cols(sx, elem) + 1) // 2)
+        return 128 + 4 * max(2 * sy * sx, (stage_end + 1) // 2 * 2) + 8
+
+    @staticmethod
+    def e_box_cols(sx: int, elem: int = 4) -> int:
+        """Cells a row of E-uni's box holds for a row of ``sx`` floats in
+        shared memory on a grid of ``elem``-byte cells: ``sx``, or for
+        bfloat16 ``sx`` and the box's shift of up to 4 cells (a box starts
+        on 16 bytes of its row, 8 bfloat16 cells: :meth:`e_box`) rounded
+        up to 8, so that a box row is a multiple of 16 bytes
+        (``csrc/heat_e_uni.cuh`` ``heat_e_uni_box_cols``)."""
+        return -(-(sx + 4) // 8) * 8 if elem == 2 else sx
 
     def _per_block_smem(self) -> int:
         """Shared memory a block may take so that ``e_min_blocks_per_sm``
@@ -857,33 +886,39 @@ class HopperParams:
                    - self.smem_reserved_per_block)
 
     @functools.lru_cache(maxsize=8)
-    def e_k_max(self, tile=None) -> int:
+    def e_k_max(self, tile=None, elem=4) -> int:
         """Deepest K at which E and E-uni keep ``e_min_blocks_per_sm``
         blocks resident on one SM and E-uni's box fits a TMA load
-        (:meth:`e_box_fits`)."""
+        (:meth:`e_box_fits`), on a grid of ``elem``-byte cells."""
         k = 0
-        while (self.e_smem_bytes(k + 1, tile, tma=True)
+        while (self.e_smem_bytes(k + 1, tile, tma=True, elem=elem)
                + self.static_smem_bytes <= self._per_block_smem()
-               and self.e_box_fits(k + 1, tile)):
+               and self.e_box_fits(k + 1, tile, elem)):
             k += 1
         return k
 
-    def e_box(self, k: int, row_tile=0, col_tile=0, tile=None):
+    def e_box(self, k: int, row_tile=0, col_tile=0, tile=None, elem=4):
         """E-uni's TMA box of tile ``(row_tile, col_tile)`` at depth ``k``:
         ``(y0, x0, rows, cols)``, its first grid cell and its extent. The
         framed tile, widened on the left by the pad that puts tile column
         ``k`` on a 16-byte boundary and on the right to a multiple of 4
-        floats: the shared buffer's layout (:meth:`row_floats`). Cells
-        outside the grid come as zeros."""
+        floats: the shared buffer's layout (:meth:`row_floats`). On a
+        bfloat16 grid (``elem`` 2) the box starts on 8 cells (16 bytes, as
+        TMA needs), up to 4 cells to the left, and holds those cells too
+        (:meth:`e_box_cols`). Cells outside the grid come as zeros."""
         ty, tx = tile or self.e_tile
         pad = (4 - k % 4) % 4
-        return (row_tile * ty - k, col_tile * tx - k - pad, ty + 2 * k,
-                self.row_floats(k, tx))
+        x0 = col_tile * tx - k - pad
+        if elem == 2:
+            x0 -= x0 % 8
+        return (row_tile * ty - k, x0, ty + 2 * k,
+                self.e_box_cols(self.row_floats(k, tx), elem))
 
-    def e_box_fits(self, k: int, tile=None) -> bool:
+    def e_box_fits(self, k: int, tile=None, elem=4) -> bool:
         """Does E-uni's box fit TMA's 256 cells a dimension at depth
-        ``k``? (``csrc/heat_e_uni_temporal.cu`` ``heat_e_uni_tma_fits``.)"""
-        _, _, rows, cols = self.e_box(k, tile=tile)
+        ``k``? (``csrc/heat_e_uni_temporal.cu`` ``heat_e_uni_tma_fits``,
+        ``csrc/heat_e_uni.cuh`` ``heat_e_uni_form_launch``.)"""
+        _, _, rows, cols = self.e_box(k, tile=tile, elem=elem)
         return rows <= 256 and cols <= 256
 
     def e_tile_kinds(self, shape, k: int, tile=None) -> dict:
@@ -1004,11 +1039,14 @@ class HopperParams:
         by = block_shape[1]
         return by % 4 == 0 and (by + 2 * k) % 4 == 0
 
-    def uni_fits(self, shape) -> bool:
+    def uni_fits(self, shape, dtype="float32") -> bool:
         """Do the uniform-load kernels (E-uni, I-uni) take an ``(m, n)``
-        grid? Their copies are 16 bytes wide, so the width must be a
-        multiple of 4 floats (E's tile width is one, by construction)."""
-        return shape[1] % 4 == 0
+        grid of storage ``dtype``? Their rows are 16-byte multiples (a TMA
+        box's row stride), so the width must be a multiple of 4 float32
+        cells or of 8 bfloat16 ones (E's tile width is a multiple of 4,
+        by construction)."""
+        return shape[1] % (8 if str(dtype) in ("bfloat16", "torch.bfloat16")
+                           else 4) == 0
 
     @staticmethod
     def i_pad(k: int) -> int:

@@ -22,6 +22,15 @@ Two combine forms coexist, as in the JAX package:
   every elementwise op, so a kernel and its plain version agree
   bitwise; the two forms agree to a few ulp. In 3D the same holds for
   :func:`step_3d` and :func:`combine_3d`.
+
+Precision (``SEMANTICS.md`` "Precision"). Arithmetic is float32 at every
+storage dtype. In ``accumulate="storage"`` mode a step rounds the interior
+to the storage dtype (the textbook steps here do, by ``.to(u.dtype)``), and
+the residual is the step's float32 update against the float32 of the old
+state. In ``"f32chunk"`` mode (bfloat16 only) the state carries float32
+through chunks of :data:`F32CHUNK_DEPTH` steps and rounds once a chunk
+(:func:`f32chunk_steps`; the chunking is ``stencil_kernels``'
+``_chunked_multistep``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,51 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+# The f32chunk mode's chunk depth K: steps the state carries float32
+# before it rounds to storage. The JAX package's ``_sub_rows`` of a 2-byte
+# dtype, the sublane count of its temporal kernels (16 for bfloat16); here
+# it is part of the semantics, not a tuning knob, and no launch depth of
+# the port's kernels moves it.
+F32CHUNK_DEPTH = 16
+
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float64": torch.float64}
+
+
+def storage_dtype(name) -> torch.dtype:
+    """The torch dtype of a storage dtype named as in ``HeatConfig.dtype``
+    (a torch dtype passes through)."""
+    return name if isinstance(name, torch.dtype) else _STORAGE[name]
+
+
+def widen_bits(t: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 tensor as float32 by its bits (the upper 16 bits of
+    each float32), exact for every value, NaN payloads included: the
+    kernels' widening (csrc/heat_common.cuh heat_widen)."""
+    return (t.view(torch.int16).to(torch.int32) << 16).view(torch.float32)
+
+
+def narrow_bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor that holds bfloat16 values (widened ones) as
+    bfloat16, by its upper 16 bits: the kernels' exact narrowing of
+    copied cells (heat_bf16_exact)."""
+    return (t.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16)
+
+
+def ring_exact(out: torch.Tensor, u: torch.Tensor) -> None:
+    """``out``'s Dirichlet ring from the 2D grid ``u``'s, bit for bit,
+    across a bfloat16 / float32 pair too, as the kernels copy it: a
+    conversion would turn a NaN's payload into the canonical one."""
+    for rows, cols in ((0, slice(None)), (-1, slice(None)),
+                       (slice(None), 0), (slice(None), -1)):
+        src = u[rows, cols]
+        if u.dtype == out.dtype:
+            out[rows, cols] = src
+        elif u.dtype == torch.bfloat16:
+            out[rows, cols] = widen_bits(src.contiguous())
+        else:
+            out[rows, cols] = narrow_bits(src.contiguous())
 
 
 def coeffs_f32(cx: float, cy: float) -> Tuple[float, float, float]:
@@ -131,3 +185,23 @@ def step_3d_residual(u: torch.Tensor, cx: float, cy: float, cz: float):
     out = u.clone()
     out[..., 1:-1, 1:-1, 1:-1] = new.to(u.dtype)
     return out, residual
+
+
+def f32chunk_steps(u: torch.Tensor, out: torch.Tensor, k: int,
+                   with_residual: bool, cx: float, cy: float):
+    """``k`` textbook steps of ``u`` into ``out`` with the state carried in
+    float32 and rounded to ``out``'s dtype once, at the end: one f32chunk
+    chunk (the counterpart of ``pallas_stencil.f32chunk_jnp_multistep``'s
+    chunk function). Returns the last step's residual, its float32 update
+    against the float32 level it read, or None without
+    ``with_residual``. The ring is copied from ``u``."""
+    v = u.to(torch.float32)
+    res = None
+    for s in range(k):
+        if with_residual and s == k - 1:
+            v, res = step_2d_residual(v, cx, cy)
+        else:
+            v = step_2d(v, cx, cy)
+    out[1:-1, 1:-1] = v[1:-1, 1:-1]
+    ring_exact(out, u)
+    return res

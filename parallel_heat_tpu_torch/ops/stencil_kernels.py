@@ -42,6 +42,17 @@ which path carried it.
 Every wrapper writes into a caller-allocated ``out`` (distinct from
 ``u``): the solver ping-pongs two device buffers instead of allocating
 a grid per step.
+
+Storage precision. A, E and E-uni also take bfloat16 grids, as the JAX
+builders take ``dtype_name`` (``heat_a_resident_bf16``,
+``heat_e_temporal_bf16``, ``heat_e_uni_temporal_bf16``): arithmetic is
+float32, and in storage mode every level rounds to bfloat16; E and E-uni
+also take ``acc_f32`` (the JAX builders' ``acc_f32``, the f32chunk mode),
+which carries the levels in float32 and rounds the last one, and may then
+take a float32 grid in or out (:data:`PRECISION_FORMS`). Their counts are
+by form: ``<kernel>_bf16`` and ``<kernel>_bf16_acc``. The other kernels
+take float32 grids only (ROADMAP.md queue 2 items 23 and 24) and raise
+TypeError for any other.
 """
 
 from __future__ import annotations
@@ -54,7 +65,9 @@ import torch
 from parallel_heat_tpu_torch import tune
 from parallel_heat_tpu_torch.ops.hopper_params import (
     I_MAX_STAGES, I_MAX_ROWS, I_MAX_WARPS, I_MIN_ROWS, params)
-from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
+from parallel_heat_tpu_torch.ops.stencil import (F32CHUNK_DEPTH, coeffs_f32,
+                                                 combine_2d, ring_exact,
+                                                 widen_bits)
 from parallel_heat_tpu_torch.utils import device_loop
 
 # Launches of each kernel and calls of each plain version, since the
@@ -64,6 +77,9 @@ from parallel_heat_tpu_torch.utils import device_loop
 # ops/stencil_kernels_block_3d.py (3D) count here too, so one registry
 # covers every kernel of the port.
 counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
+          "heat_a_resident_bf16": 0, "heat_e_temporal_bf16": 0,
+          "heat_e_temporal_bf16_acc": 0, "heat_e_uni_temporal_bf16": 0,
+          "heat_e_uni_temporal_bf16_acc": 0,
           "heat_e_temporal": 0, "heat_e_uni_temporal": 0,
           "heat_i_tile_temporal": 0, "heat_i_uni_tile_temporal": 0,
           "heat_d_step3d": 0, "heat_f_temporal3d": 0,
@@ -93,11 +109,28 @@ def reset_counts() -> None:
         counts[name] = 0
 
 
-def _check(u: torch.Tensor, out: torch.Tensor, ndim: int = 2) -> None:
+_F32, _BF16 = torch.float32, torch.bfloat16
+_FLOAT32_ONLY = ((_F32, _F32),)
+
+# The precision forms of E and E-uni (csrc/heat_temporal.cuh kHeatForm*):
+# (input dtype, output dtype, acc_f32) -> the form code their bfloat16
+# entry points take. A float32 grid in and out takes the float32 kernel
+# in either mode: its levels are float32 already.
+PRECISION_FORMS = {(_BF16, _BF16, False): 0, (_BF16, _BF16, True): 1,
+                   (_BF16, _F32, True): 2, (_F32, _BF16, True): 3}
+
+
+def _check(u: torch.Tensor, out: torch.Tensor, ndim: int = 2,
+           dtypes=_FLOAT32_ONLY) -> None:
+    """The checks every wrapper makes: device, ``(u.dtype, out.dtype)``
+    one of ``dtypes`` (TypeError otherwise), shape, contiguity, distinct
+    buffers, current device."""
     if u.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {u.device}")
-    if u.dtype != torch.float32 or out.dtype != torch.float32:
-        raise TypeError(f"float32 grids only, got {u.dtype} -> {out.dtype}")
+    if (u.dtype, out.dtype) not in dtypes:
+        raise TypeError(f"grids of {u.dtype} -> {out.dtype} are not taken "
+                        f"here; the pairs taken: {list(dtypes)} (the other "
+                        f"forms: ROADMAP.md queue 2 items 23 and 24)")
     if u.dim() != ndim or min(u.shape) < 3:
         raise ValueError(f"need a {ndim}D grid of at least 3 cells per "
                          f"axis, got {tuple(u.shape)}")
@@ -169,7 +202,34 @@ def _plain_steps(u, out, k, with_residual, step):
     return res if with_residual else None
 
 
-def _plain_steps_2d(u, out, k, with_residual, cx, cy):
+def _plain_steps_precision(u, out, k, with_residual, cx, cy, acc_f32):
+    """``k`` plain steps of a bfloat16 form (:data:`PRECISION_FORMS`) at
+    the kernels' rounding points: the levels float32, each rounded to
+    bfloat16 before the next step reads it in storage mode, none in the
+    carry; the last one stored in ``out``'s dtype (rounded once where that
+    is bfloat16); the residual the last step's float32 update against the
+    float32 level it read. The ring is copied exactly."""
+    a0, cxf, cyf = coeffs_f32(cx, cy)
+    v = widen_bits(u) if u.dtype == _BF16 else u.clone()
+    res = None
+    for s in range(k):
+        c = v[1:-1, 1:-1]
+        new = combine_2d(c, v[:-2, 1:-1], v[2:, 1:-1], v[1:-1, :-2],
+                         v[1:-1, 2:], a0, cxf, cyf)
+        if with_residual and s == k - 1:
+            res = (new - c).abs().max()
+        if not acc_f32 and s < k - 1:
+            new = widen_bits(new.to(_BF16))
+        v[1:-1, 1:-1] = new
+    out[1:-1, 1:-1] = v[1:-1, 1:-1]
+    ring_exact(out, u)
+    return res
+
+
+def _plain_steps_2d(u, out, k, with_residual, cx, cy, acc_f32=False):
+    if u.dtype != _F32 or out.dtype != _F32:
+        return _plain_steps_precision(u, out, k, with_residual, cx, cy,
+                                      acc_f32)
     coeffs = coeffs_f32(cx, cy)
     return _plain_steps(u, out, k, with_residual,
                         lambda src, dst: _plain_step(src, dst, *coeffs))
@@ -177,21 +237,24 @@ def _plain_steps_2d(u, out, k, with_residual, cx, cy):
 
 def temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
                          with_residual: bool = True, *, cx: float,
-                         cy: float) -> Optional[torch.Tensor]:
+                         cy: float,
+                         acc_f32: bool = False) -> Optional[torch.Tensor]:
     """Plain version of :func:`temporal_steps`: ``k`` plain steps of
-    ``u``, the last one landing in ``out``; the last step's residual, or
-    None without ``with_residual``."""
+    ``u``, the last one landing in ``out``, at the rounding points of the
+    grids' dtypes and ``acc_f32``; the last step's residual, or None
+    without ``with_residual``."""
     counts["temporal_steps_plain"] += 1
-    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy, acc_f32)
 
 
 def temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor, k: int,
                              with_residual: bool = True, *, cx: float,
-                             cy: float) -> Optional[torch.Tensor]:
+                             cy: float,
+                             acc_f32: bool = False) -> Optional[torch.Tensor]:
     """Plain version of :func:`temporal_steps_uni`: as
     :func:`temporal_steps_plain`."""
     counts["temporal_steps_uni_plain"] += 1
-    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy, acc_f32)
 
 
 def tile_temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
@@ -217,7 +280,7 @@ def resident_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
                          with_residual: bool = True, *, cx: float,
                          cy: float) -> Optional[torch.Tensor]:
     """Plain version of :func:`resident_steps`: as
-    :func:`temporal_steps_plain`, for any ``k >= 1``."""
+    :func:`temporal_steps_plain` (storage mode), for any ``k >= 1``."""
     counts["resident_steps_plain"] += 1
     return _plain_steps_2d(u, out, k, with_residual, cx, cy)
 
@@ -241,8 +304,9 @@ def _launch_a(u, out, k, xch, bits, cx, cy, depth, tile, block) -> None:
     refused. Checks nothing and counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
-    lib = load("heat_a_resident")
-    code = lib.heat_a_resident(
+    name = "heat_a_resident_bf16" if u.dtype == _BF16 else "heat_a_resident"
+    lib = load(name)
+    code = getattr(lib, name)(
         u.data_ptr(), out.data_ptr(), _ptr(xch), _ptr(bits), u.shape[0],
         u.shape[1], k, depth, tile[0], tile[1], block[0], block[1],
         *coeffs_f32(cx, cy), _stream(u))
@@ -276,16 +340,17 @@ def _launch_c(u, out, bits, cx, cy, tile, block) -> None:
 
 
 def _launch_e(u, out, k, bits, cx, cy, tile, block,
-              name="heat_e_temporal", variant=None) -> None:
+              name="heat_e_temporal", variant=None, form=None) -> None:
     """One launch of ``heat_e_temporal`` (or, by ``name``, of
     ``heat_e_uni_temporal``, which takes the same arguments, or of a
     probe's variant of E-uni's launch, ``heat_probe_temporal``,
     ``heat_probe_ab_temporal`` or ``heat_probe_split_copy``, which take
     the ``variant`` code first) at
-    the given tile and thread block (``bits`` None: no residual); raises
-    if the launch is refused. Checks only the launch shape
-    (:meth:`~.hopper_params.HopperParams.loop_takes`, the launchers' own
-    rule) and E-uni's TMA box; counts nothing."""
+    the given tile and thread block (``bits`` None: no residual); with
+    ``form`` (:data:`PRECISION_FORMS`) the kernel's bfloat16 entry point
+    under that form. Raises if the launch is refused. Checks only the
+    launch shape (:meth:`~.hopper_params.HopperParams.loop_takes`, the
+    launchers' own rule) and E-uni's TMA box; counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
     p = params()
@@ -295,15 +360,18 @@ def _launch_e(u, out, k, bits, cx, cy, tile, block,
                          f"{tuple(block)} (32 lanes by 1 to "
                          f"{p.loop_max_warps} warps, a tile width that is "
                          f"a multiple of 4)")
-    if name != "heat_e_temporal" and not p.e_box_fits(k, tuple(tile)):
+    elem = u.element_size()
+    if name != "heat_e_temporal" and not p.e_box_fits(k, tuple(tile), elem):
         raise ValueError(f"{name}: the TMA box of a {tuple(tile)} tile at "
-                         f"K={k}, {p.e_box(k, tile=tuple(tile))[2:]} cells, "
-                         f"exceeds 256 cells a dimension")
-    lib = load(name)
+                         f"K={k}, {p.e_box(k, tile=tuple(tile), elem=elem)[2:]}"
+                         f" cells, exceeds 256 cells a dimension")
+    entry = name if form is None else name + "_bf16"
+    lib = load(entry)
     lead = () if variant is None else (variant,)
-    code = getattr(lib, name)(
+    tail = () if form is None else (form,)
+    code = getattr(lib, entry)(
         *lead, u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0],
-        u.shape[1], k, tile[0], tile[1], block[0], block[1],
+        u.shape[1], k, tile[0], tile[1], block[0], block[1], *tail,
         *coeffs_f32(cx, cy), _stream(u))
     _raise_on_error(lib, name, code)
 
@@ -391,15 +459,18 @@ def resident_steps(u: torch.Tensor, out: torch.Tensor, k: int,
     """Kernel A: ``k`` steps of ``u`` into ``out`` in one launch, the
     whole grid resident in shared memory; returns the last step's
     residual (0-d float32 tensor) or None without ``with_residual``.
-    Raises ValueError for a grid that does not fit resident on the card
-    (:meth:`~.hopper_params.HopperParams.a_tile`)."""
+    Takes float32 and bfloat16 grids (``out`` of ``u``'s dtype; storage
+    mode: every level rounds). Raises ValueError for a grid that does not
+    fit resident on the card (:meth:`~.hopper_params.HopperParams.a_tile`:
+    the same grids at both dtypes, the shared buffers holding float32)."""
     launch = _a_checked(u, out, k)
     if u.device.type == "cpu":
         return resident_steps_plain(u, out, k, with_residual, cx=cx, cy=cy)
     xch, bits = a_scratch(u, k, launch, with_residual)
     _launch_a(u, out, k, xch, bits, cx, cy, launch["depth"], launch["tile"],
               launch["block"])
-    counts["heat_a_resident"] += 1
+    counts["heat_a_resident_bf16" if u.dtype == _BF16
+           else "heat_a_resident"] += 1
     return _residual_view(bits) if bits is not None else None
 
 
@@ -416,7 +487,7 @@ def a_launch(shape):
 def _a_checked(u, out, k):
     """The checks of a launch of A (or of its anatomy probe's variants)
     on ``u`` into ``out`` at depth ``k``; returns :func:`a_launch`."""
-    _check(u, out)
+    _check(u, out, dtypes=((_F32, _F32), (_BF16, _BF16)))
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
     launch = a_launch(tuple(u.shape))
@@ -468,53 +539,73 @@ def tiled_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
     return _residual_view(bits)
 
 
-def _e_checked(name, u, out, k) -> None:
+def _e_checked(name, u, out, k, acc_f32=False):
     """The checks of a launch of E or E-uni (or of a probe's variant of
     E-uni's launch, ``name`` not ``"heat_e_temporal"``) on ``u`` into
-    ``out`` at depth ``k``."""
-    _check(u, out)
+    ``out`` at depth ``k``; returns the precision form (None for float32
+    in and out)."""
+    _check(u, out, dtypes=((_F32, _F32),) + tuple(
+        (a, b) for a, b, acc in PRECISION_FORMS if acc == bool(acc_f32)))
+    form = PRECISION_FORMS.get((u.dtype, out.dtype, bool(acc_f32)))
     p = params()
-    if not 1 <= k <= p.e_k_max():
-        raise ValueError(f"k must be in [1, {p.e_k_max()}] (shared-memory "
+    deepest = p.e_k_max(elem=u.element_size())
+    if not 1 <= k <= deepest:
+        raise ValueError(f"k must be in [1, {deepest}] (shared-memory "
                          f"budget at tile {p.e_tile}), got {k}")
     uni = name != "heat_e_temporal"
-    if uni and not p.uni_fits(tuple(u.shape)):
-        raise ValueError(f"kernel E-uni needs a grid width that is a "
-                         f"multiple of 4, got {tuple(u.shape)}")
+    if uni and not p.uni_fits(tuple(u.shape), u.dtype):
+        raise ValueError(f"kernel E-uni needs a grid whose rows are 16-byte "
+                         f"multiples (a width that is a multiple of "
+                         f"{16 // u.element_size()} at {u.dtype}), got "
+                         f"{tuple(u.shape)}")
     if uni and u.device.type == "cuda" and u.data_ptr() % 16:
         raise ValueError("kernel E-uni needs a 16-byte aligned grid")
+    return form
 
 
-def _temporal(name, plain, u, out, k, with_residual, cx, cy):
-    _e_checked(name, u, out, k)
+def _form_count(name, form) -> str:
+    """The count a launch of kernel ``name`` under ``form`` adds to."""
+    if form is None:
+        return name
+    return name + ("_bf16" if form == 0 else "_bf16_acc")
+
+
+def _temporal(name, plain, u, out, k, with_residual, cx, cy, acc_f32=False):
+    form = _e_checked(name, u, out, k, acc_f32)
     if u.device.type == "cpu":
-        return plain(u, out, k, with_residual, cx=cx, cy=cy)
+        return plain(u, out, k, with_residual, cx=cx, cy=cy, acc_f32=acc_f32)
     p = params()
     bits = (torch.empty(1, dtype=torch.int32, device=u.device)
             if with_residual else None)
-    _launch_e(u, out, k, bits, cx, cy, p.e_tile, p.e_block, name)
-    counts[name] += 1
+    _launch_e(u, out, k, bits, cx, cy, p.e_tile, p.e_block, name, form=form)
+    counts[_form_count(name, form)] += 1
     return _residual_view(bits) if bits is not None else None
 
 
 def temporal_steps(u: torch.Tensor, out: torch.Tensor, k: int,
-                   with_residual: bool = True, *, cx: float,
-                   cy: float) -> Optional[torch.Tensor]:
+                   with_residual: bool = True, *, cx: float, cy: float,
+                   acc_f32: bool = False) -> Optional[torch.Tensor]:
     """Kernel E: ``k`` steps of ``u`` into ``out`` in one pass through
     global memory; returns the last step's residual (0-d float32 tensor)
-    or None without ``with_residual``."""
+    or None without ``with_residual``. Float32 or bfloat16 grids; with
+    ``acc_f32`` the levels carry float32 and only the last one rounds
+    (the f32chunk mode), and ``u`` or ``out`` may be a float32 level of a
+    bfloat16 run (:data:`PRECISION_FORMS`). ``k`` up to
+    :meth:`~.hopper_params.HopperParams.e_k_max`: a deeper f32chunk chunk
+    runs across a float32 level (:func:`_carry_chunks`)."""
     return _temporal("heat_e_temporal", temporal_steps_plain, u, out, k,
-                     with_residual, cx, cy)
+                     with_residual, cx, cy, acc_f32)
 
 
 def temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
-                       with_residual: bool = True, *, cx: float,
-                       cy: float) -> Optional[torch.Tensor]:
+                       with_residual: bool = True, *, cx: float, cy: float,
+                       acc_f32: bool = False) -> Optional[torch.Tensor]:
     """Kernel E-uni: :func:`temporal_steps` with a uniform load, each tile
     one TMA box of the grid; bitwise the same grid and residual. Takes
-    grids whose width is a multiple of 4 (ValueError otherwise)."""
+    grids whose rows are 16-byte multiples: a width that is a multiple of
+    4 at float32, of 8 at bfloat16 (ValueError otherwise)."""
     return _temporal("heat_e_uni_temporal", temporal_steps_uni_plain, u,
-                     out, k, with_residual, cx, cy)
+                     out, k, with_residual, cx, cy, acc_f32)
 
 
 def _tile_temporal(name, plain, u, out, k, with_residual, cx, cy):
@@ -564,44 +655,67 @@ def tile_temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
 # The decision site and the multistep
 # ---------------------------------------------------------------------------
 
-def pick_single_2d(shape):
+def pick_single_2d(shape, dtype="float32", accumulate="storage"):
     """The 2D single-device kernel decision: ``(kind, detail)`` with kind
-    in {"A", "E-uni", "E", "I-uni", "I", "B", "C", "torch"}.
+    in {"A", "E-uni", "E", "I-uni", "I", "B", "C", "torch"}, for a grid of
+    storage ``dtype`` under ``accumulate``.
 
     The one decision site: :func:`single_grid_multistep` executes its
     result and ``solver.explain`` reports it. By default a grid that fits
     resident in the card's shared memory takes A (as the JAX package's
     takes A where the grid fits in VMEM), any other grid E-uni where its
-    width allows, else E. A choice pinned with
+    width allows, else E. Under ``accumulate="f32chunk"`` A, B and C are
+    never taken (they round every step, as the JAX picker rules), so the
+    default is E-uni, else E, each chunk of ``F32CHUNK_DEPTH`` steps
+    carried in float32. A float64 grid takes the torch route (the kernels
+    store float32 and bfloat16). A choice pinned with
     ``tune.force("single_2d", ...)`` wins when it is feasible for the
-    geometry; an infeasible pin (A on a grid too large, E-uni or I-uni on
-    a width that is not a multiple of 4) warns and the default decides.
+    geometry, dtype and mode; an infeasible pin (A on a grid too large,
+    E-uni or I-uni on a width whose rows are not 16-byte multiples, a
+    kernel with no form for the dtype or mode) warns and the default
+    decides.
     """
+    dtype = str(dtype).replace("torch.", "")
+    if dtype == "float64":
+        return "torch", None
     choice = tune.forced("single_2d")
     if choice is not None:
-        resolved = _resolve_single_2d(choice, shape)
+        resolved = _resolve_single_2d(choice, shape, dtype, accumulate)
         if resolved is not None:
             return resolved
         warnings.warn(f"tune[single_2d]: forced choice {choice!r} "
-                      f"infeasible at {tuple(shape)}; using the default",
-                      RuntimeWarning, stacklevel=2)
-    return (_resolve_single_2d("A", shape)
-            or _resolve_single_2d("E-uni", shape)
-            or _resolve_single_2d("E", shape))
+                      f"infeasible at {tuple(shape)} {dtype}/{accumulate}; "
+                      f"using the default", RuntimeWarning, stacklevel=2)
+    return next(filter(None, (
+        _resolve_single_2d(kind, shape, dtype, accumulate)
+        for kind in ("A", "E-uni", "E"))))
 
 
-def _resolve_single_2d(choice, shape):
+# Kernels with no bfloat16 form yet (ROADMAP.md queue 2 item 24): a pin to
+# one of them is infeasible at bfloat16.
+_NO_BF16_FORM = ("B", "C", "I", "I-uni")
+
+
+def _resolve_single_2d(choice, shape, dtype="float32", accumulate="storage"):
     p = params()
+    acc = accumulate == "f32chunk"
     if choice == "torch":
         return "torch", None
+    if acc and choice in ("A", "B", "C"):
+        # Single-step kernels, and A, round every step: they can never
+        # honour the chunked-f32 contract.
+        return None
+    if dtype == "bfloat16" and choice in _NO_BF16_FORM:
+        return None
     if choice == "A":
         launch = a_launch(shape)
         return ("A", launch) if launch else None
-    if choice in ("E-uni", "I-uni") and not p.uni_fits(tuple(shape)):
+    if choice in ("E-uni", "I-uni") and not p.uni_fits(tuple(shape), dtype):
         return None
     if choice in ("E", "E-uni"):
-        return choice, {"k": p.e_k_default, "tile": p.e_tile,
-                        "block": p.e_block}
+        # Under f32chunk K is the semantics' chunk, run by _carry_chunks.
+        k = F32CHUNK_DEPTH if acc else p.e_k_default
+        return choice, {"k": k, "tile": p.e_tile, "block": p.e_block}
     if choice in ("I", "I-uni"):
         tile_x, seg_rows = p.i_launch(tuple(shape), p.i_k_default)
         return choice, {"k": p.i_k_default, "band": tile_x,
@@ -610,6 +724,25 @@ def _resolve_single_2d(choice, shape):
     if choice == "C":
         return "C", {"tile": p.c_tile, "block": p.c_block}
     return "B", {"block": p.b_block, "rows_per_thread": p.b_rows_per_thread}
+
+
+def _carry_chunks(launch):
+    """``temporal(u, v, k, want_res)`` for a bfloat16 run under f32chunk:
+    one chunk of ``k`` steps (at most ``2 * e_k_default``) carried in
+    float32 by ``launch`` (E or E-uni with ``acc_f32``): in one launch up
+    to ``e_k_default`` steps, else in two, the first ``e_k_default`` steps
+    into a float32 level and the rest from it, so the chunk rounds once,
+    at its last launch, and only that launch computes the residual."""
+    launch_k = params().e_k_default
+
+    def temporal(u, v, k, want_res):
+        if k <= launch_k:
+            return launch(u, v, k, want_res, acc_f32=True)
+        level = torch.empty(u.shape, dtype=_F32, device=u.device)
+        launch(u, level, launch_k, False, acc_f32=True)
+        return launch(level, v, k - launch_k, want_res, acc_f32=True)
+
+    return temporal
 
 
 def _chunked_multistep(temporal, K: int):
@@ -649,6 +782,14 @@ _KERNEL_OF = {"A": "heat_a_resident", "B": "heat_b_step",
               "I-uni": "heat_i_uni_tile_temporal"}
 
 
+def kernel_entry(kind, dtype="float32"):
+    """The entry point (``kernels/build.py`` name) a run of ``kind`` at
+    storage ``dtype`` launches: for a bfloat16 run of A, E or E-uni its
+    bfloat16 entry point."""
+    name = _KERNEL_OF[kind]
+    return name + "_bf16" if dtype == "bfloat16" else name
+
+
 def single_grid_multistep(config):
     """``(multi_step(u, v, n) -> (u, v), multi_step_residual(u, v, n) ->
     (u, v, res))`` for one device: ``u`` holds the state, ``v`` is the
@@ -659,16 +800,17 @@ def single_grid_multistep(config):
     """
     from parallel_heat_tpu_torch.solver import steps_to_multistep
 
-    kind, detail = pick_single_2d(config.shape)
+    kind, detail = pick_single_2d(config.shape, config.dtype,
+                                  config.accumulate)
     cx, cy = float(config.cx), float(config.cy)
     if kind == "torch":
         from parallel_heat_tpu_torch.solver import torch_multistep
 
-        return torch_multistep(cx, cy)
+        return torch_multistep(cx, cy, accumulate=config.accumulate)
     if torch.device(config.device).type == "cuda":
         from parallel_heat_tpu_torch.kernels.build import load
 
-        load(_KERNEL_OF[kind])
+        load(kernel_entry(kind, config.dtype))
     if kind == "A":
         # One launch per chunk, however many steps it holds.
         def multi_step(u, v, n):
@@ -685,9 +827,13 @@ def single_grid_multistep(config):
                   "I": tile_temporal_steps,
                   "I-uni": tile_temporal_steps_uni}[kind]
 
-        def temporal(u, v, k, want_res):
-            return launch(u, v, k, want_res, cx=cx, cy=cy)
+        def temporal(u, v, k, want_res, **kw):
+            return launch(u, v, k, want_res, cx=cx, cy=cy, **kw)
 
+        if config.accumulate == "f32chunk":
+            # K = F32CHUNK_DEPTH is the semantics' chunk: the launch depth
+            # (e_k_default) never moves a rounding point.
+            return _chunked_multistep(_carry_chunks(temporal), detail["k"])
         return _chunked_multistep(temporal, detail["k"])
     launch = strip_step if kind == "B" else tiled_step
 

@@ -27,6 +27,14 @@ captured before the clock starts (``HeatResult.capture_s``):
 
 On the CPU the same loops run eagerly, the host reading each stop test.
 
+Precision (``HeatConfig.dtype``, ``accumulate``): the grid lives in its
+storage dtype, float32, bfloat16 or float64, and arithmetic is float32.
+A bfloat16 run takes A, E or E-uni in their bfloat16 forms; under
+``accumulate="f32chunk"`` E or E-uni carry float32 through each chunk of
+``ops.stencil.F32CHUNK_DEPTH`` steps. A float64 run takes the torch
+route: ``backend="auto"`` resolves to it on the card too, and
+``backend="cuda"`` is refused by ``HeatConfig.validate``.
+
 The grid lives in two device buffers that the loop ping-pongs in place
 (the reference's ``old = 1-old`` swap): each launch reads one and writes
 the other, and no grid is allocated per step.
@@ -116,8 +124,13 @@ def resolve_device(config: HeatConfig,
 
 
 def resolve_backend(config: HeatConfig, dev: torch.device) -> str:
+    """``config.backend``, or for "auto" cuda on a GPU device and torch on
+    the CPU; float64 runs the torch route on either (the kernels store
+    float32 and bfloat16)."""
     if config.backend != "auto":
         return config.backend
+    if config.dtype == "float64":
+        return "torch"
     return "cuda" if dev.type == "cuda" else "torch"
 
 
@@ -142,9 +155,22 @@ def steps_to_multistep(step, step_residual):
     return multi_step, multi_step_residual
 
 
-def torch_multistep(cx: float, cy: float, cz: Optional[float] = None):
+def torch_multistep(cx: float, cy: float, cz: Optional[float] = None,
+                   accumulate: str = "storage"):
     """The "torch" backend: the textbook stencil of ``ops/stencil.py``,
-    3D when ``cz`` is given."""
+    3D when ``cz`` is given; under ``accumulate="f32chunk"`` (2D) in
+    chunks of ``F32CHUNK_DEPTH`` steps carried in float32, the counterpart
+    of the JAX package's ``f32chunk_jnp_multistep``."""
+    if accumulate == "f32chunk":
+        from parallel_heat_tpu_torch.ops.stencil import (F32CHUNK_DEPTH,
+                                                         f32chunk_steps)
+        from parallel_heat_tpu_torch.ops.stencil_kernels import (
+            _chunked_multistep)
+
+        def chunk(u, out, k, want_res):
+            return f32chunk_steps(u, out, k, want_res, cx, cy)
+
+        return _chunked_multistep(chunk, F32CHUNK_DEPTH)
     if cz is None:
         one, one_residual, coeffs = step_2d, step_2d_residual, (cx, cy)
     else:
@@ -341,27 +367,28 @@ def single_multistep(config: HeatConfig, backend: str):
         from parallel_heat_tpu_torch.ops import stencil_kernels
 
         return stencil_kernels.single_grid_multistep(config)
-    return torch_multistep(*map(float, config.coefficients))
+    return torch_multistep(*map(float, config.coefficients),
+                           accumulate=config.accumulate)
 
 
 def _prepare_blocks(config: HeatConfig, mesh, initial):
     """The blocks of a sharded run: built per block from the model (no
     full-grid temporary), split from a full ``initial`` grid, or copied
     from a list of ``initial`` blocks in the mesh's row-major order."""
+    from parallel_heat_tpu_torch.convert import to_tensor
+
     bs = config.block_shape()
     if initial is None:
         model = model_for(config)
-        return [model.init_block(mesh.device, mesh.origin(b, bs), bs)
+        return [model.init_block(mesh.device, mesh.origin(b, bs), bs,
+                                 config.dtype)
                 for b in range(mesh.size)]
     if isinstance(initial, (list, tuple)):
         if len(initial) != mesh.size or any(
                 tuple(t.shape) != bs for t in initial):
             raise ValueError(f"initial blocks must be {mesh.size} arrays of "
                              f"{bs}, the blocks of mesh {mesh.shape}")
-        return [torch.as_tensor(t).to(device=mesh.device,
-                                      dtype=torch.float32,
-                                      copy=True).contiguous()
-                for t in initial]
+        return [to_tensor(t, config.dtype, mesh.device) for t in initial]
     if tuple(initial.shape) != config.shape:
         raise ValueError(f"initial grid shape {tuple(initial.shape)} does "
                          f"not match config shape {config.shape}")
@@ -376,20 +403,23 @@ def make_initial_grid(config: HeatConfig,
     given none, bitwise the JAX package's ``make_initial_grid``. A
     sharded config's grid is the assembled one."""
     config = config.validate()
-    return model_for(config).init_grid(resolve_device(config, device))
+    return model_for(config).init_grid(resolve_device(config, device),
+                                       config.dtype)
 
 
 def _prepare_initial(config: HeatConfig, initial,
                      dev: torch.device) -> torch.Tensor:
-    """Default, validate, place, and copy (the loop writes the buffers in
-    place, so a caller's array is never touched)."""
+    """Default, validate, place, and copy in the config's storage dtype
+    (the loop writes the buffers in place, so a caller's array is never
+    touched; a bfloat16 numpy array crosses by its bits)."""
+    from parallel_heat_tpu_torch.convert import to_tensor
+
     if initial is None:
-        return model_for(config).init_grid(dev)
+        return model_for(config).init_grid(dev, config.dtype)
     if tuple(initial.shape) != config.shape:
         raise ValueError(f"initial grid shape {tuple(initial.shape)} does "
                          f"not match config shape {config.shape}")
-    return torch.as_tensor(initial).to(device=dev, dtype=torch.float32,
-                                       copy=True).contiguous()
+    return to_tensor(initial, config.dtype, dev)
 
 
 def device_scope(dev: torch.device):
@@ -430,6 +460,7 @@ def explain(config: HeatConfig, device: Optional[str] = None,
         "backend": backend,
         "device": str(dev),
         "dtype": config.dtype,
+        "accumulate": config.accumulate,
         "shape": config.shape,
         "mode": "converge" if config.converge else "fixed",
         "scheme": config.scheme,
@@ -469,28 +500,46 @@ def explain(config: HeatConfig, device: Optional[str] = None,
                        f"{mg['smoother']}, {mg['transfers']})")
         return out
     plain = " (plain version on the CPU)" if dev.type == "cpu" else ""
+    if config.accumulate == "f32chunk":
+        from parallel_heat_tpu_torch.ops.stencil import F32CHUNK_DEPTH
+
+        out["chunk_depth"] = (f"{F32CHUNK_DEPTH} steps carried in float32, "
+                              f"one rounding to {config.dtype} a chunk "
+                              f"(and after a remainder chunk)")
     if config.is_sharded():
         return _explain_sharded(config, out, backend, plain)
     if backend == "torch":
-        out["path"] = "textbook torch stencil"
+        out["path"] = "textbook torch stencil" + (
+            " (float64 storage, float32 arithmetic: the kernels store "
+            "float32 and bfloat16)" if config.dtype == "float64" else "")
         return out
     if config.ndim == 3:
         return _explain_3d(config, out, plain)
-    kind, detail = sk.pick_single_2d(config.shape)
+    kind, detail = sk.pick_single_2d(config.shape, config.dtype,
+                                     config.accumulate)
+    bf16 = "_bf16" if config.dtype == "bfloat16" else ""
+    form = ("" if not bf16 else ", float32 carry (acc_f32)"
+            if config.accumulate == "f32chunk" else ", bfloat16 storage")
     if kind == "A":
         ty, tx = detail["tile"]
         blocks = -(-config.shape[0] // ty) * -(-config.shape[1] // tx)
-        out["path"] = (f"kernel A (heat_a_resident, grid resident in shared "
-                       f"memory) tile={ty}x{tx} depth={detail['depth']} "
-                       f"blocks={blocks}" + plain)
+        out["path"] = (f"kernel A (heat_a_resident{bf16}, grid resident in "
+                       f"shared memory{form}) tile={ty}x{tx} "
+                       f"depth={detail['depth']} blocks={blocks}" + plain)
     elif kind in ("E", "E-uni"):
+        from parallel_heat_tpu_torch.ops.hopper_params import params
+
         ty, tx = detail["tile"]
         lanes, warps = detail["block"]
-        what = ("heat_e_temporal, K-step temporal, cp.async load"
-                if kind == "E" else "heat_e_uni_temporal, K-step temporal, "
-                "uniform TMA load")
-        out["path"] = (f"kernel {kind} ({what}) tile={ty}x{tx}, "
-                       f"{lanes}x{warps} threads K={detail['k']}" + plain)
+        what = (f"heat_e_temporal{bf16}, K-step temporal, "
+                f"{'cp.async' if not bf16 else 'widening'} load"
+                if kind == "E" else f"heat_e_uni_temporal{bf16}, K-step "
+                f"temporal, uniform TMA load")
+        launches = (f" in launches of at most {params().e_k_default}"
+                    if config.accumulate == "f32chunk" else "")
+        out["path"] = (f"kernel {kind} ({what}{form}) tile={ty}x{tx}, "
+                       f"{lanes}x{warps} threads K={detail['k']}{launches}"
+                       + plain)
     elif kind in ("I", "I-uni"):
         name = ("heat_i_tile_temporal" if kind == "I"
                 else "heat_i_uni_tile_temporal")
@@ -712,13 +761,17 @@ def _stats_dev(pairs) -> torch.Tensor:
     depth to depth; sums accumulate in float32, as the JAX package's."""
     part, delta = [], []
     for u, p in pairs:
+        # A bfloat16 grid sums in float32 (torch.sum of bfloat16 returns
+        # bfloat16), float32 and float64 natively, as the JAX package's.
+        acc = torch.float32 if u.element_size() < 4 else u.dtype
         mn, mx = torch.aminmax(u)
-        part.append(torch.stack([mn, mx, torch.sum(u)]))
+        heat = torch.sum(u, dtype=acc)
+        part.append(torch.stack([mn.to(acc), mx.to(acc), heat]))
         if p is None:
             continue
         rows = max(1, _SLAB_CELLS // max(1, u[0].numel()))
         for r in range(0, u.shape[0], rows):
-            d = u[r:r + rows] - p[r:r + rows]
+            d = u[r:r + rows].to(acc) - p[r:r + rows].to(acc)
             dmn, dmx = torch.aminmax(d)
             delta.append(torch.stack([dmn, dmx,
                                       torch.linalg.vector_norm(d)]))
@@ -944,7 +997,11 @@ def solve_stream(config: HeatConfig, initial=None,
     ``check_interval``, which keeps the check schedule of an unchunked
     run (the tail of ``steps % check_interval`` steps runs in the last
     chunk, where the unchunked run runs it); iteration stops at
-    convergence. Every loop the stream needs (on the card: each chunk
+    convergence. Under ``accumulate="f32chunk"`` in fixed mode it is
+    rounded up to a multiple of ``ops.stencil.F32CHUNK_DEPTH``, so that
+    the float32 carry rounds where the unchunked run's does (converge
+    mode's windows already restart it where the unchunked run does).
+    Every loop the stream needs (on the card: each chunk
     size, in each order of the two buffers a chunk may leave them in) is
     built and captured before the first chunk's clock.
 
@@ -1000,6 +1057,14 @@ def solve_stream(config: HeatConfig, initial=None,
     if config.converge:
         ci = config.check_interval
         chunk = -(-chunk // ci) * ci
+    elif config.accumulate == "f32chunk":
+        # A chunk boundary off the f32chunk grid would restart the float32
+        # carry mid-chunk and move the rounding points off the unchunked
+        # run's: round up to a multiple of the chunk depth, as the JAX
+        # package does.
+        from parallel_heat_tpu_torch.ops.stencil import F32CHUNK_DEPTH
+
+        chunk = -(-chunk // F32CHUNK_DEPTH) * F32CHUNK_DEPTH
     with device_scope(dev):
         run = _Run(config, initial, dev)
         loops, captured = _stream_loops(run, total, chunk)

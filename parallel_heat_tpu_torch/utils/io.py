@@ -16,8 +16,14 @@ import numpy as np
 
 
 def _as_numpy(u) -> np.ndarray:
+    """The grid as float32 values, as the JAX writer casts them: exact for
+    bfloat16 (numpy has no bfloat16, so a tensor of it is widened by
+    ``.float()`` first), rounded once for float64."""
     if hasattr(u, "detach"):  # a torch tensor, on any device
-        u = u.detach().cpu().numpy()
+        u = u.detach()
+        if str(u.dtype) == "torch.bfloat16":
+            u = u.float()
+        u = u.cpu().numpy()
     return np.asarray(u, dtype=np.float32)
 
 

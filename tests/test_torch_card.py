@@ -22,8 +22,16 @@ is each 3D one (H-fused, H, the deferred bulk with the band fix, the
 band's one launch over every block under each of its loads) against
 kernel F's; a sharded ``solve()``, 2D or 3D, is bitwise the one-block
 run on the card and the plain versions' run on the CPU.
+
+The bfloat16 forms of A, E and E-uni (storage, and E's and E-uni's
+``acc_f32`` in one launch or a chunk of 16 across a float32 level) are
+bitwise their plain versions, which round at the same points, on random
+grids at every depth each form takes, on widths that are no multiple of 8 (E) and on
+NaN-seeded grids, whose ring keeps its bits, NaN payloads included; E
+and E-uni bitwise each other; a bfloat16 ``solve()`` bitwise the CPU's.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -995,3 +1003,160 @@ def test_stream_converge_bitwise_solve(card, cfg, chunk):
     assert res == ref.residual or (math.isnan(res)
                                    and math.isnan(ref.residual))
     assert _bitwise(grid, ref.grid)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 forms of A, E and E-uni
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _rand_bf16(shape, seed, dev, nan=False):
+    """A random bfloat16 grid (values of either sign, magnitudes to 40);
+    with ``nan``, NaNs of three payloads in the interior and on the ring
+    (0x7FC1 and 0xFFC0 are no NaN that a conversion makes)."""
+    u = _rand(shape, seed, dev).to(BF16)
+    if nan:
+        bits = u.view(torch.int16)
+        for (i, j), b in (((shape[0] // 2, shape[1] // 3), 0x7FC1),
+                          ((0, shape[1] // 2), 0x7FC1),
+                          ((shape[0] - 1, 1), -64),    # 0xFFC0
+                          ((shape[0] // 3, shape[1] - 1), 0x7F81)):
+            bits[i, j] = b
+    return u
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+        b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+
+
+def _same_res(a, b):
+    a, b = float(a), float(b)
+    return a == b or (math.isnan(a) and math.isnan(b))
+
+
+def _ring(t):
+    return [t[0], t[-1], t[:, 0], t[:, -1]]
+
+
+E_BF16 = ((sk.temporal_steps, sk.temporal_steps_plain, False),
+          (sk.temporal_steps_uni, sk.temporal_steps_uni_plain, True))
+
+
+def _carry(launch):
+    """A carry chunk of E or E-uni (``launch``) as the main path runs it,
+    across a float32 level (``stencil_kernels._carry_chunks``), called as
+    its wrapper is."""
+    def run(u, out, k, with_residual, *, cx, cy, acc_f32):
+        assert acc_f32
+        return sk._carry_chunks(functools.partial(launch, cx=cx, cy=cy))(
+            u, out, k, with_residual)
+    return run
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("acc", [False, True], ids=["storage", "acc_f32"])
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+@pytest.mark.parametrize("shape", [(1001, 1000), (1001, 999), (70, 304),
+                                   (21, 23), (20, 24)])
+def test_e_bf16_forms_bitwise_plain_and_each_other(card, shape, k, acc, cx,
+                                                   cy):
+    u = _rand_bf16(shape, k, card)
+    grids = []
+    for launch, plain, uni in E_BF16:
+        if uni and not params().uni_fits(shape, "bfloat16"):
+            continue
+        got = torch.full_like(u, float("nan"))
+        want = torch.full_like(u, float("nan"))
+        r = launch(u, got, k, True, cx=cx, cy=cy, acc_f32=acc)
+        rp = plain(u, want, k, True, cx=cx, cy=cy, acc_f32=acc)
+        nores = torch.empty_like(u)
+        launch(u, nores, k, False, cx=cx, cy=cy, acc_f32=acc)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want) and _same_res(r, rp)
+        assert _same_bits(got, nores)
+        grids.append((got, r))
+    if len(grids) == 2:
+        assert _same_bits(grids[0][0], grids[1][0])
+        assert _same_res(grids[0][1], grids[1][1])
+
+
+@pytest.mark.parametrize("k", [9, 16])
+@pytest.mark.parametrize("shape", [(1001, 1000), (70, 304), (20, 24)])
+def test_e_bf16_chunk_across_a_float32_level_is_one_launch(card, shape, k):
+    # A carry chunk in two launches (bfloat16 -> float32 level -> bfloat16,
+    # stencil_kernels._carry_chunks) is bitwise the plain chunk, carried
+    # in one pass, and its level bitwise the plain version's.
+    u = _rand_bf16(shape, 5, card)
+    for launch, plain, uni in E_BF16:
+        if uni and not params().uni_fits(shape, "bfloat16"):
+            continue
+        want = torch.empty_like(u)
+        rp = plain(u, want, k, True, cx=0.1, cy=0.2, acc_f32=True)
+        mid = torch.full(u.shape, float("nan"), device=card)
+        two = torch.empty_like(u)
+        launch(u, mid, 8, False, cx=0.1, cy=0.2, acc_f32=True)
+        r2 = launch(mid, two, k - 8, True, cx=0.1, cy=0.2, acc_f32=True)
+        want_mid = torch.empty_like(mid)
+        plain(u, want_mid, 8, False, cx=0.1, cy=0.2, acc_f32=True)
+        chunk = torch.empty_like(u)
+        r3 = _carry(launch)(u, chunk, k, True, cx=0.1, cy=0.2, acc_f32=True)
+        torch.cuda.synchronize()
+        assert _same_bits(want, two) and _same_res(rp, r2)
+        assert _same_bits(mid, want_mid)
+        assert _same_bits(chunk, two) and _same_res(r3, r2)
+
+
+@pytest.mark.parametrize("cx,cy", COEFFS)
+@pytest.mark.parametrize("k", [1, 4, 7, 20])
+@pytest.mark.parametrize("shape", [(1001, 999), (70, 300), (20, 20),
+                                   (107, 210), (1000, 1000)])
+def test_a_bf16_bitwise_equal_to_plain(card, shape, k, cx, cy):
+    u = _rand_bf16(shape, 7, card)
+    got, want = torch.empty_like(u), torch.empty_like(u)
+    r = sk.resident_steps(u, got, k, True, cx=cx, cy=cy)
+    rp = sk.resident_steps_plain(u, want, k, True, cx=cx, cy=cy)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want) and _same_res(r, rp)
+
+
+def test_bf16_nan_keeps_the_ring_and_reaches_every_residual(card):
+    u = _rand_bf16((515, 776), 3, card, nan=True)
+    runs = [(sk.resident_steps, sk.resident_steps_plain, 20, {})]
+    for launch, plain, _ in E_BF16:
+        runs += [(launch, plain, 8, {"acc_f32": False}),
+                 (_carry(launch), plain, 16, {"acc_f32": True})]
+    for launch, plain, k, kw in runs:
+        got, want = torch.empty_like(u), torch.empty_like(u)
+        r = launch(u, got, k, True, cx=0.1, cy=0.1, **kw)
+        rp = plain(u, want, k, True, cx=0.1, cy=0.1, **kw)
+        torch.cuda.synchronize()
+        assert math.isnan(float(r)) and _same_bits(got, want)
+        assert all(_same_bits(a, b) for a, b in zip(_ring(got), _ring(u)))
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(nx=256, ny=256, steps=300, dtype="bfloat16"),
+    dict(nx=2000, ny=1000, steps=37, dtype="bfloat16"),
+    dict(nx=2000, ny=1001, steps=37, dtype="bfloat16"),
+    dict(nx=256, ny=256, steps=37, dtype="bfloat16", accumulate="f32chunk"),
+    dict(nx=20, ny=20, steps=10000, converge=True, eps=1e-3,
+         dtype="bfloat16"),
+    dict(nx=40, ny=48, steps=4000, converge=True, eps=1e-2,
+         dtype="bfloat16", accumulate="f32chunk"),
+    dict(nx=64, ny=64, steps=50, dtype="float64"),
+], ids=["A", "E-uni", "E", "f32chunk", "A-converge", "f32chunk-converge",
+        "float64"])
+def test_precision_solve_on_the_card_matches_the_cpu_bitwise(card, cfg):
+    cfg = HeatConfig(**cfg)
+    gpu = solve(cfg)
+    cpu = solve(cfg.replace(backend="cuda" if cfg.dtype == "bfloat16"
+                            else "auto"), device="cpu")
+    assert (gpu.steps_run, gpu.converged) == (cpu.steps_run, cpu.converged)
+    assert gpu.grid.dtype == cpu.grid.dtype
+    assert _same_bits(gpu.grid.cpu(), cpu.grid)
+    if cfg.converge:
+        assert _same_res(gpu.residual, cpu.residual)

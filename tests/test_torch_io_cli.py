@@ -129,11 +129,53 @@ def test_cli_flags_write_the_jax_clis_bytes(tmp_path, capsys, flags):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
 def test_cli_refuses_other_dtypes(capsys, dtype):
+    # bfloat16 and float64 run on the 2D single-block explicit path only:
+    # off it (3D here) the CLI refuses them, naming the ROADMAP.md item.
     rc, lines, err = _cli_lines(capsys, ["--nx", "20", "--ny", "20",
-                                         "--device", "cpu", "--dtype",
-                                         dtype])
+                                         "--nz", "8", "--device", "cpu",
+                                         "--dtype", dtype])
     assert rc == 2 and lines == []
-    assert "ROADMAP queue 1 item 3" in err
+    assert ("ROADMAP.md queue 2 item 24" if dtype == "bfloat16"
+            else "ROADMAP.md queue 1 item 3") in err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dtype", "bfloat16"],
+    ["--dtype", "bfloat16", "--accumulate", "f32chunk"],
+    ["--dtype", "bfloat16", "--accumulate", "f32chunk", "--converge",
+     "--initial-out"],
+    ["--dtype", "float64"]],
+    ids=["bf16", "bf16-f32chunk", "bf16-f32chunk-converge", "float64"])
+def test_cli_precision_flags_write_the_jax_clis_bytes(tmp_path, capsys,
+                                                      flags):
+    # The port's torch route and the JAX CLI's jnp path compute the same
+    # textbook tree at the same rounding points, so the .dat files (the
+    # float32 values of the grid, "%6.1f") are the same bytes. The JAX
+    # CLI turns on JAX's x64 mode for float64 and leaves it on: it is
+    # restored here.
+    import jax
+
+    from parallel_heat_tpu import cli as jcli
+
+    base = ["--nx", "20", "--ny", "24", "--steps", "300"]
+    extra = [f for f in flags if f != "--initial-out"]
+    was = jax.config.jax_enable_x64
+    try:
+        for name, main, tail in (("ours", cli.main,
+                                  ["--device", "cpu", "--backend", "torch"]),
+                                 ("theirs", jcli.main, ["--backend", "jnp"])):
+            argv = base + extra + tail + ["--out",
+                                          str(tmp_path / f"{name}.dat")]
+            if "--initial-out" in flags:
+                argv += ["--initial-out", str(tmp_path / f"{name}_0.dat")]
+            rc = main(argv)
+            out = capsys.readouterr()
+            assert rc == 0, out.err
+    finally:
+        jax.config.update("jax_enable_x64", was)
+    for stem in ["", "_0"] if "--initial-out" in flags else [""]:
+        ours = (tmp_path / f"ours{stem}.dat").read_bytes()
+        assert ours == (tmp_path / f"theirs{stem}.dat").read_bytes()
 
 
 def test_cli_ensemble_refuses_initial_out(capsys, tmp_path):
@@ -218,9 +260,14 @@ def test_from_jax_carries_a_grid_across():
 @pytest.mark.parametrize("field,value", [("mg_partition", "replicated"),
                                          ("accumulate", "f32")])
 def test_from_jax_refuses_jax_only_features(field, value):
+    # mg_partition is a JAX-only field; accumulate is this package's too,
+    # and a value neither package takes is refused by its own check.
     fields = dataclasses.asdict(jx.HeatConfig(nx=16, ny=16))
     fields[field] = value
-    with pytest.raises(ValueError, match=f"{field}=.*not implemented"):
+    match = (f"{field}=.*not implemented"
+             if field in tconfig.JAX_ONLY_DEFAULTS
+             else f"{field} must be 'storage' or 'f32chunk'")
+    with pytest.raises(ValueError, match=match):
         convert.from_jax(fields, None, device="cpu")
 
 
@@ -238,8 +285,14 @@ def test_from_jax_carries_the_observers(field, value):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64", "float16"])
 def test_validate_rejects_other_dtypes(dtype):
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
-        HeatConfig(dtype=dtype).validate()
+    # float16 is no storage dtype of either package; bfloat16 and float64
+    # are refused off the 2D single-block explicit path (3D here), naming
+    # the ROADMAP.md item.
+    match = {"float16": "dtype must be one of",
+             "bfloat16": "ROADMAP.md queue 2 item 24",
+             "float64": "ROADMAP.md queue 1 item 3"}[dtype]
+    with pytest.raises(ValueError, match=match):
+        HeatConfig(dtype=dtype, nz=8).validate()
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -263,10 +316,16 @@ def test_from_dict_and_json():
     assert HeatConfig.from_json(cfg.to_json()) == cfg
     with pytest.raises(ValueError, match="unknown HeatConfig fields"):
         HeatConfig.from_dict({"nx": 8, "colour": "red"})
-    with pytest.raises(ValueError, match="accumulate=.*not implemented"):
+    # accumulate is this package's field, under the JAX package's rules:
+    # f32chunk needs a sub-float32 dtype.
+    with pytest.raises(ValueError, match="only applies to sub-f32"):
         HeatConfig.from_dict({"nx": 8, "accumulate": "f32chunk"})
+    assert HeatConfig.from_dict({"nx": 8, "accumulate": "f32chunk",
+                                 "dtype": "bfloat16"}).accumulate == "f32chunk"
+    with pytest.raises(ValueError, match="mg_partition=.*not implemented"):
+        HeatConfig.from_dict({"nx": 8, "mg_partition": "partitioned"})
     # JAX-only fields at their JAX defaults mean the same run: accepted.
-    assert HeatConfig.from_dict({"nx": 8, "accumulate": "storage",
+    assert HeatConfig.from_dict({"nx": 8, "mg_partition": "auto",
                                  "scheme": "explicit"}).nx == 8
     # The mesh fields are this package's too; a JSON list becomes a tuple.
     assert HeatConfig.from_dict({"nx": 8, "ny": 8, "mesh_shape": [2, 4],

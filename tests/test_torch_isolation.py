@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: it imports nothing of JAX and nothing
 of the JAX package ``parallel_heat_tpu``, and neither does
-``chip_smoke.py``. Checked twice: statically, by walking every import
-statement, and live, in a subprocess where importing ``jax`` or
-``parallel_heat_tpu`` fails."""
+``chip_smoke.py``; nor does it import ``ml_dtypes`` (JAX's bfloat16 for
+numpy, which the card's machine lacks: the port carries bfloat16 grids
+by their bits). Checked twice: statically, by walking every import
+statement, and live, in a subprocess where importing ``jax``,
+``parallel_heat_tpu`` or ``ml_dtypes`` fails."""
 
 import ast
 import os
@@ -14,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "parallel_heat_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "parallel_heat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "parallel_heat_tpu", "ml_dtypes")
 
 
 def _sources():
@@ -58,7 +60,7 @@ def test_no_jax_import(path):
 
 _BLOCKED_RUN = """
 import sys
-for name in ("jax", "jaxlib", "parallel_heat_tpu"):
+for name in ("jax", "jaxlib", "parallel_heat_tpu", "ml_dtypes"):
     sys.modules[name] = None  # any import of these now raises
 import torch
 import parallel_heat_tpu_torch as pt
@@ -66,6 +68,21 @@ import chip_smoke  # noqa: F401
 res = pt.solve(pt.HeatConfig(nx=32, ny=32, steps=40, backend="cuda"),
                device="cpu")
 assert res.steps_run == 40 and tuple(res.grid.shape) == (32, 32)
+# The precision forms: bfloat16 storage and f32chunk through the kernels'
+# plain versions, float64 through the torch route, and a bfloat16 grid
+# handed over as an int16 view and written as .dat.
+import os
+import numpy as np
+from parallel_heat_tpu_torch.convert import to_tensor
+from parallel_heat_tpu_torch.utils.io import write_dat
+for kw in ({"dtype": "bfloat16"}, {"dtype": "bfloat16",
+                                   "accumulate": "f32chunk"},
+           {"dtype": "float64"}):
+    r = pt.solve(pt.HeatConfig(nx=32, ny=40, steps=20, **kw), device="cpu")
+    assert str(r.grid.dtype) == "torch." + kw["dtype"]
+bits = to_tensor(r.grid.float().numpy(), "bfloat16", "cpu")
+assert bits.dtype == torch.bfloat16
+write_dat(os.devnull, bits)
 # The ensemble engine (kernel M's module) and the implicit V-cycle (the
 # transfer kernels' module), each through its entry point.
 from parallel_heat_tpu_torch.ensemble import engine

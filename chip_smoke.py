@@ -81,7 +81,18 @@ prints the card's name and power limit, then one JSON line per phase:
    1001x999, 107x210, 20x24 and 1859^2; every form on a NaN-seeded grid
    (NaNs of payloads no conversion makes, on the ring too: the ring bit
    for bit, a NaN residual); and E's and E-uni's main-path launches at
-   32768^2: storage at K = 8, and a 16-step chunk's two carry launches;
+   32768^2: storage at K = 8, and a 16-step chunk's two carry launches.
+   Then the bfloat16 forms of B (``heat_b_step_bf16``) and C
+   (``heat_c_tiled_bf16``), each bitwise its plain version and C bitwise
+   B, on 1001x999, 20x24, the NaN-seeded grid and 32768^2; M
+   (``heat_m_ensemble_bf16``) at K in {1, 7, 20}, with and without the
+   residuals, on 3 x 107x210, 8 x 20^2 and 8 x 166^2 (one block a member)
+   and 3 x 512^2 and 3 x 1000^2 (cooperative tilings), each checked
+   member bitwise ``heat_a_resident_bf16`` on it alone, and on a stack
+   whose middle member is the NaN-seeded grid (only its residual NaN);
+   and the chains: A's bfloat16 form (K = 20 on 1000^2) and E's and
+   E-uni's storage form (K = 8 on 1001x1000) bitwise K launches of
+   ``heat_b_step_bf16``;
 2b. kernels_3d — D (``heat_d_step3d``) against its plain version and F
    (``heat_f_temporal3d``) at every compiled K (1 .. 8; past the default
    shape's deepest K at ``hopper_params.f_shape``'s), under each plane load
@@ -122,9 +133,10 @@ prints the card's name and power limit, then one JSON line per phase:
 3c. main_path_bf16 — BASELINE config 4, ``solve(HeatConfig(nx=32768,
    ny=32768, steps=200, dtype="bfloat16"))`` through the default pick
    (E-uni) and forced E, then again under ``accumulate="f32chunk"``
-   (chunks of 16, in two launches of 8 across a float32 level): counts
-   set to 0 before each run and read after (the form's launches, nothing
-   else), the two kernels' grids bitwise equal in each mode, each run's
+   (chunks of 16, in two launches of 8 across a float32 level), and in
+   storage mode pinned to B and to C (``tune.force("single_2d", ...)``):
+   counts set to 0 before each run and read after (the form's launches,
+   nothing else), the kernels' grids bitwise equal in each mode, each run's
    Mcells*steps/s, device ms a launch and idle share, and each mode's
    error against a float64 oracle of the same 200 steps from the same
    initial grid, run on the card (and the floor: the oracle rounded to
@@ -147,7 +159,9 @@ prints the card's name and power limit, then one JSON line per phase:
    whose array must equal the solver's grid;
 6b. timing_bf16 — the precision forms as timing does: A at 1000^2 (K =
    20, residual), E-uni and E at 32768^2 (K = 8; the carry's first and
-   last launches), the yardstick ``conv2d`` in bfloat16, each bound from
+   last launches), B and C at 32768^2 (one step, residual), M at
+   64 x 512^2 (K = 400), the yardstick ``conv2d`` in bfloat16 (chained K
+   times; zero-padded for M), each bound from
    the bytes of the function replaced (a bfloat16 grid read and written
    once a launch in storage mode, once a 16-step chunk under f32chunk);
 6. timing — each kernel, its plain version and a PyTorch yardstick
@@ -208,6 +222,21 @@ prints the card's name and power limit, then one JSON line per phase:
    (1.05: the float32 solve's rounding on top of its own verdict);
    cycles and host syncs per step, and each transfer kernel's launches
    as the cycles predict;
+10a. ensemble_bf16 — ``EnsembleSolver(HeatConfig(nx=512, ny=512,
+   steps=400, dtype="bfloat16"), 64)``: path M, exactly one launch of
+   ``heat_m_ensemble_bf16`` (counts set to 0 just before, read just
+   after), every member bitwise its solo bfloat16 ``solve()``; 8 members
+   of 256^2 bfloat16 noise to eps = 1e-2 on M (three stop at different
+   windows, the others at the cap), bitwise their solo runs; 8 x 512^2
+   bfloat16 under f32chunk and 4 x 512^2 float64, 400 steps, on the vmap
+   route (no kernel), every member bitwise a solo ``solve()`` with
+   ``backend="torch"`` on the card;
+10b. implicit_precision — the implicit phase's 512^2 backward Euler and
+   Crank-Nicolson at bfloat16 and float64 under ``backend="cuda"``:
+   through the transfer kernels (as the cycles predict, no plain
+   transfer) and the device loop's graphs, bitwise the eager executor and
+   the torch backend on the card (as at float32); the ring bit for bit; a
+   float64 run bitwise the float32 run, widened;
 11. timing_ens_mg — ms per launch (CUDA events, and the card's own time
    from ``torch.profiler``) of M at (64, 512, 512) with K = 400 (the
    main path's one launch; the ``kernels`` line takes this row) and with
@@ -719,13 +748,18 @@ def phase_build():
                        hp.g_k_default, hp.g_tile, hp.g_block)
     e_main = loop_main(("heat_e_temporal", "heat_e_uni_temporal"),
                        hp.e_k_default, hp.e_tile, hp.e_block)
-    # Nor may any instance of the precision forms of A, E and E-uni (one
-    # a form: heat_temporal.cuh kHeatForm*).
+    # Nor may any instance of the precision forms of A, B, C, E, E-uni
+    # (one a form: heat_temporal.cuh kHeatForm*) and M (its cooperative
+    # and its one-block form).
     precision = {name: {i: row for i, row in ptxas[name].items()
                         if "bf16" in i}
-                 for name in ("heat_a_resident", "heat_e_temporal",
-                              "heat_e_uni_temporal")}
-    check(len(precision["heat_a_resident"]) == 1
+                 for name in ("heat_a_resident", "heat_b_step",
+                              "heat_c_tiled", "heat_e_temporal",
+                              "heat_e_uni_temporal", "heat_m_ensemble")}
+    check(all(len(precision[n]) == 1 for n in ("heat_a_resident",
+                                                "heat_b_step",
+                                                "heat_c_tiled"))
+          and len(precision["heat_m_ensemble"]) == 2
           and all(len(precision[n]) == 4 for n in ("heat_e_temporal",
                                                    "heat_e_uni_temporal"))
           and all(row[1] == 0 and row[2] == 0 for rows in precision.values()
@@ -5240,6 +5274,10 @@ KERNELS_BF16 = {
     "heat_e_temporal_bf16": ("heat_e_temporal", TPU + ":607"),
     "heat_e_uni_temporal_bf16_acc": ("heat_e_uni_temporal", TPU + ":832"),
     "heat_e_temporal_bf16_acc": ("heat_e_temporal", TPU + ":607"),
+    "heat_b_step_bf16": ("heat_b_step", TPU + ":294"),
+    "heat_c_tiled_bf16": ("heat_c_tiled", TPU + ":3059"),
+    "heat_m_ensemble_bf16": ("heat_m_ensemble",
+                             "parallel_heat_tpu/ops/batched.py:97"),
 }
 BF16_NAN_PAYLOADS = (0x7FC1, -64, 0x7F81)   # -64 is 0xFFC0
 
@@ -5320,6 +5358,62 @@ def _check_carry(launch, plain, u, kw, label, err, name):
     return out
 
 
+def _one_step(fn):
+    """A one-step wrapper (B or C, or its plain version) called as the
+    K-step ones are."""
+    def run(u, out, k, with_residual, **kw):
+        return fn(u, out, **kw)
+    return run
+
+
+def _check_bc_bf16(sk, u, kw, where, err):
+    """B's and C's bfloat16 forms on ``u``, each bitwise its plain
+    version, and C bitwise B; returns B's grid and residual."""
+    got = []
+    for name, launch, plain in (
+            ("heat_b_step_bf16", sk.strip_step, sk.strip_step_plain),
+            ("heat_c_tiled_bf16", sk.tiled_step, sk.tiled_step_plain)):
+        got.append(_check_bf16(_one_step(launch), _one_step(plain), u,
+                               u.dtype, 1, kw, f"{name} {where}", err,
+                               name))
+    check(_bits_equal(got[0][0], got[1][0])
+          and same_float(got[0][1], got[1][1]),
+          f"heat_c_tiled_bf16 {where} != heat_b_step_bf16")
+    return got[0]
+
+
+def _check_m_bf16(u, k, kw, err, out=False):
+    """M's bfloat16 form at depth ``k`` on the stack ``u`` against its
+    plain version, with and without the residual, and its first, middle
+    and last member against A's bfloat16 form on that member alone; with
+    ``out`` returns its grid and residuals."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import batched
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    got = torch.full_like(u, float("nan"))
+    want = torch.full_like(u, float("nan"))
+    nores = torch.empty_like(u)
+    r = batched.ensemble_steps(u, got, k, True, **kw)
+    rp = batched.ensemble_steps_plain(u, want, k, True, **kw)
+    batched.ensemble_steps(u, nores, k, False, **kw)
+    torch.cuda.synchronize()
+    d = float((got.float() - want.float()).abs().nan_to_num(0).max())
+    err["heat_m_ensemble_bf16"] = max(err["heat_m_ensemble_bf16"], d)
+    where = f"heat_m_ensemble_bf16(K={k}) at {tuple(u.shape)} {kw}"
+    check(_bits_equal(got, want) and all(
+        same_float(a, b) for a, b in zip(r.tolist(), rp.tolist())),
+          f"{where} != its plain version: max diff {d}")
+    check(_bits_equal(got, nores), f"{where}: grid depends on with_residual")
+    for b in sorted({0, u.shape[0] // 2, u.shape[0] - 1}):
+        one = torch.empty_like(u[b])
+        ra = sk.resident_steps(u[b].contiguous(), one, k, True, **kw)
+        check(_bits_equal(one, got[b]) and same_float(ra, r[b]),
+              f"{where}: member {b} != heat_a_resident_bf16 on it alone")
+    return (got, r) if out else None
+
+
 def phase_kernels_bf16(dev):
     """The bfloat16 forms of A, E and E-uni bitwise their plain versions
     (which round at the kernels' points): E and E-uni at every depth
@@ -5331,8 +5425,12 @@ def phase_kernels_bf16(dev):
     phase; every form on a NaN-seeded grid (ring bit for bit, NaN
     residual), the carry as a 16-step chunk across a float32 level; and
     the main path's own launches on its 32768^2: storage at e_k_default,
-    and a 16-step chunk's two carry launches. Returns max |diff| each
-    (NaN cells excluded: they are held bit for bit)."""
+    and a 16-step chunk's two carry launches. B, C and M likewise: B and
+    C on the ragged grids and the main path's 32768^2, C bitwise B; M at
+    K in {1, 7, 20} from one block a member to the main path's 64 x 512^2
+    (and there at its K = 400), its members bitwise A's bfloat16 form
+    alone; the chains of A, E and E-uni to K launches of B. Returns max
+    |diff| each (NaN cells excluded: they are held bit for bit)."""
     import torch
 
     from parallel_heat_tpu_torch.ops import stencil_kernels as sk
@@ -5408,6 +5506,64 @@ def phase_kernels_bf16(dev):
                             f"{shape} {kw}", err, "heat_a_resident_bf16")
         report.append({"a_shape": list(shape), "k": list(ks),
                        "bitwise": True})
+    # B and C: each bitwise its plain version, and C bitwise B.
+    for shape in ((1001, 999), (20, 24)):
+        u = _rand_bf16(dev, shape, 9)
+        for kw in (equal, unequal):
+            _check_bc_bf16(sk, u, kw, f"at {shape} {kw}", err)
+        report.append({"bc_shape": list(shape), "bitwise": True,
+                       "c_is_b": True})
+    # M: bitwise its plain version, each checked member bitwise A's
+    # bfloat16 form on it alone; one block a member (107 x 210, 20^2,
+    # 166^2, the largest) and cooperative tilings (512^2, 1000^2), the
+    # main path's 64 members of 512^2 among them (fewer groups than
+    # members: the stack is walked in rounds).
+    for batch, shape in ((3, (107, 210)), (8, (20, 20)),
+                         (8, (M_SOLO_LARGEST, M_SOLO_LARGEST)),
+                         (3, (ENS_N, ENS_N)), (ENS_B, (ENS_N, ENS_N)),
+                         (3, (CONV, CONV))):
+        u = torch.stack([_rand_bf16(dev, shape, b) for b in range(batch)])
+        for k in (1, 7, WINDOW):
+            for kw in (equal, unequal):
+                _check_m_bf16(u, k, kw, err)
+        plan = p.m_plan(batch, shape)
+        report.append({"m_members": batch, "m_shape": list(shape),
+                       "k": [1, 7, WINDOW], "tiles": plan["tiles"],
+                       "groups": plan["groups"], "bitwise": True,
+                       "member_is_a_bf16": True})
+        if batch == ENS_B:
+            # The fixed main path's one launch: the full stack at K = 400.
+            _check_m_bf16(u, ENS_STEPS, equal, err)
+            report.append({"m_members": batch, "m_shape": list(shape),
+                           "k": [ENS_STEPS], "coeffs": [equal],
+                           "groups": plan["groups"], "bitwise": True,
+                           "member_is_a_bf16": True})
+        del u
+    torch.cuda.empty_cache()
+    # The chains on the card: A (K = 20 on 1000^2) and E's and E-uni's
+    # storage form (K = e_k_default on 1001 x 1000) are K launches of B,
+    # bit for bit (C is B, above; a member of M is A, above).
+    chains = {}
+    for name, launch, shape, k, kw in (
+            ("heat_a_resident_bf16", sk.resident_steps, (CONV, CONV),
+             WINDOW, {}),
+            ("heat_e_temporal_bf16", sk.temporal_steps, (1001, 1000),
+             p.e_k_default, {"acc_f32": False}),
+            ("heat_e_uni_temporal_bf16", sk.temporal_steps_uni,
+             (1001, 1000), p.e_k_default, {"acc_f32": False})):
+        u = _rand_bf16(dev, shape, 13)
+        got = torch.empty_like(u)
+        r = launch(u, got, k, True, **unequal, **kw)
+        src, dst = u.clone(), torch.empty_like(u)
+        for _ in range(k):
+            rb = sk.strip_step(src, dst, **unequal)
+            src, dst = dst, src
+        torch.cuda.synchronize()
+        check(_bits_equal(got, src) and same_float(r, rb),
+              f"{name} (K={k}) at {shape} != {k} launches of "
+              f"heat_b_step_bf16")
+        chains[name] = {"shape": list(shape), "k": k,
+                        "equals_k_launches_of": "heat_b_step_bf16"}
     # NaN-seeded grids: the ring keeps its bits, NaN payloads included;
     # the residual is NaN; the grid is its plain version's, bit for bit.
     nan_res = {}
@@ -5428,11 +5584,32 @@ def phase_kernels_bf16(dev):
         check(math.isnan(float(r)), f"NaN-seeded grid gave {name} residual "
                                     f"{float(r)}, not NaN")
         check(_ring_kept(got, u), f"{name} moved a bit of the ring")
+    got = _check_bc_bf16(sk, u, equal, "on a NaN-seeded grid", err)
+    nan_res["heat_b_step_bf16"] = nan_res["heat_c_tiled_bf16"] = float(
+        got[1])
+    check(math.isnan(float(got[1])) and _ring_kept(got[0], u),
+          f"B and C on a NaN-seeded grid: residual {float(got[1])}, ring "
+          f"kept {_ring_kept(got[0], u)}")
+    # M on a stack whose middle member is the NaN-seeded grid: only its
+    # residual is NaN, its ring keeps its bits.
+    stack = torch.stack([_rand_bf16(dev, (515, 776), 6), u,
+                         _rand_bf16(dev, (515, 776), 7)])
+    out, r = _check_m_bf16(stack, WINDOW, equal, err, out=True)
+    nan_res["heat_m_ensemble_bf16"] = [float(x) for x in r]
+    check([math.isnan(float(x)) for x in r] == [False, True, False]
+          and _ring_kept(out[1], u),
+          f"M on a stack with a NaN-seeded member: residuals {r.tolist()}")
+    del stack, out
     # The main path's launches on its 32768^2: storage at e_k_default, and
     # f32chunk's 16-step chunk as two carry launches across a float32
-    # level (its remainder of 8 is form 1 at e_k_default, checked above).
+    # level (its remainder of 8 is form 1 at e_k_default, checked above);
+    # B's and C's pinned step.
     big = _plate_grid(dev, BF16_N)
     main = {}
+    _check_bc_bf16(sk, big, equal, "at 32768^2", err)
+    main["heat_b_step"] = main["heat_c_tiled"] = {"bitwise": True,
+                                                  "c_is_b": True}
+    torch.cuda.empty_cache()
     for name, launch, plain in e_pairs:
         _check_bf16(launch, plain, big, bf16, p.e_k_default,
                     dict(equal, acc_f32=False), f"{name}_bf16 at 32768^2",
@@ -5448,8 +5625,8 @@ def phase_kernels_bf16(dev):
     del big
     torch.cuda.empty_cache()
     emit({"phase": "kernels_bf16", "ok": True, "checks": report,
-          "nan_residual": nan_res, "main_path_32768": main,
-          "max_abs_err": err})
+          "chains": chains, "nan_residual": nan_res,
+          "main_path_32768": main, "max_abs_err": err})
     return err
 
 
@@ -5576,8 +5753,9 @@ def _moving_grid_err(n=4096, steps=MAIN_STEPS):
 def phase_main_path_bf16():
     """BASELINE config 4 at full width: 32768^2 bfloat16, 200 fixed steps,
     through the default pick (E-uni) and forced E, in storage mode and
-    under f32chunk; the counts set to 0 before each run and read after;
-    the two kernels' grids bitwise equal in each mode; each run's
+    under f32chunk, and forced B and C in storage mode; the counts set to
+    0 before each run and read after; the kernels' grids bitwise equal in
+    each mode; each run's
     Mcells*steps/s and device ms a launch, the default runs' idle share;
     and each mode's error against a float64 oracle of the same 200 steps
     from the same initial grid, run on the card; then the two modes held
@@ -5595,9 +5773,12 @@ def phase_main_path_bf16():
                          accumulate=mode)
         suffix = "_bf16" if mode == "storage" else "_bf16_acc"
         first = None
-        for kind, force in (("E-uni", None), ("E", "E")):
-            name = ("heat_e_uni_temporal" if kind == "E-uni"
-                    else "heat_e_temporal") + suffix
+        # B and C (pinned) round every step: storage mode only.
+        pins = ((("E-uni", None), ("E", "E"))
+                + ((("B", "B"), ("C", "C")) if mode == "storage" else ()))
+        for kind, force in pins:
+            name = {"E-uni": "heat_e_uni_temporal", "E": "heat_e_temporal",
+                    "B": "heat_b_step", "C": "heat_c_tiled"}[kind] + suffix
             r = _bf16_run(cfg, name, force, profile=True)
             res = r["res"]
             check(res.steps_run == steps and res.grid.dtype == torch.bfloat16
@@ -5735,6 +5916,203 @@ def phase_precision():
     return a_launches
 
 
+# The bfloat16 converge ensemble: eight members of 256^2 noise in [0, 100)
+# times these scales, to eps = 1e-2: the three smallest stop at steps 20,
+# 40 and 80, the others run to the cap on the bfloat16 floor (their
+# residual's floor is an ulp of their values times the coefficients).
+ENS_BF16_SCALES = (1.0, 0.5, 0.2, 0.1, 0.05, 0.02, 0.01, 2.0)
+
+
+def phase_ensemble_bf16(dev):
+    """Ensembles at bfloat16, f32chunk and float64 on the card: 64 x 512^2
+    bfloat16, 400 fixed steps, path M in one launch of
+    ``heat_m_ensemble_bf16``, every member bitwise its solo bfloat16
+    ``solve()`` (A's bfloat16 form); 8 x 256^2 bfloat16 noise to eps on M,
+    bitwise each solo converge run; 8 x 512^2 bfloat16 under f32chunk, 400
+    steps, on the vmap route (no kernel), every member bitwise a solo
+    ``solve()`` with ``backend="torch"`` on the card; and 4 x 512^2
+    float64 on the vmap route, likewise. Counts set to 0 just before each
+    run and read just after. Returns M's bfloat16 launches in the 64 x
+    512^2 run."""
+    import torch
+
+    from parallel_heat_tpu_torch import EnsembleSolver, HeatConfig, solve
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    bf16 = torch.bfloat16
+    out = {}
+    cfg = HeatConfig(nx=ENS_N, ny=ENS_N, steps=ENS_STEPS, dtype="bfloat16")
+    inits = _member_inits(dev, ENS_N, [1.0 + i / ENS_B
+                                       for i in range(ENS_B)]).to(bf16)
+    es = EnsembleSolver(cfg, ENS_B)
+    check(es.path == "M", f"bf16 ensemble path {es.path!r}, not 'M'")
+    es.solve(initials=inits)     # the stack's buffers' first cudaMalloc
+    sk.reset_counts()
+    res = es.solve(initials=inits)
+    counts = {k: n for k, n in sk.counts.items() if n}
+    check(counts == {"heat_m_ensemble_bf16": 1},
+          f"{ENS_B} x {ENS_N}^2 bf16 fixed: counts {counts}, one launch of "
+          f"heat_m_ensemble_bf16 expected")
+    launches = counts["heat_m_ensemble_bf16"]
+    check(res.grids.dtype == bf16
+          and tuple(res.grids.shape) == (ENS_B, ENS_N, ENS_N)
+          and bool(torch.isfinite(res.grids).all())
+          and res.steps_run.tolist() == [ENS_STEPS] * ENS_B,
+          f"bf16 ensemble: {res.grids.dtype}, {tuple(res.grids.shape)}, "
+          f"steps {res.steps_run.tolist()}")
+    solo_s = 0.0
+    for i in range(ENS_B):
+        one = solve(cfg, initial=inits[i])
+        solo_s += one.elapsed_s
+        check(_bits_equal(res.grids[i], one.grid),
+              f"bf16 member {i} != its solo solve()")
+    cells = ENS_B * ENS_N * ENS_N * ENS_STEPS / 1e6
+    out[f"{ENS_B}x{ENS_N}^2 M"] = {
+        "launches": launches, "elapsed_s": res.elapsed_s,
+        "mcells_steps_per_s": cells / res.elapsed_s,
+        "solo_solves_s": solo_s, "members_bitwise_solo": True}
+    del res, inits
+    torch.cuda.empty_cache()
+    # Converge on M: per-member verdicts, bitwise each solo run.
+    n, cap = 256, 1990
+    ccfg = HeatConfig(nx=n, ny=n, steps=cap, converge=True,
+                      check_interval=WINDOW, eps=1e-2, dtype="bfloat16")
+    inits = _member_inits(dev, n, ENS_BF16_SCALES, "noise").to(bf16)
+    es = EnsembleSolver(ccfg, len(ENS_BF16_SCALES))
+    check(es.path == "M", f"bf16 converge ensemble path {es.path!r}")
+    sk.reset_counts()
+    res = es.solve(initials=inits)
+    counts = {k: n for k, n in sk.counts.items() if n}
+    check(set(counts) == {"heat_m_ensemble_bf16"},
+          f"bf16 converge ensemble counts {counts}")
+    for i in range(len(ENS_BF16_SCALES)):
+        one = solve(ccfg, initial=inits[i])
+        check(_bits_equal(res.grids[i], one.grid)
+              and int(res.steps_run[i]) == one.steps_run
+              and bool(res.converged[i]) == one.converged
+              and same_float(res.residual[i], one.residual),
+              f"bf16 converge member {i}: {int(res.steps_run[i])} steps, "
+              f"{float(res.residual[i])}; solo {one.steps_run}, "
+              f"{one.residual}")
+    check(len(set(res.steps_run.tolist())) > 2,
+          f"bf16 converge members stopped together: "
+          f"{res.steps_run.tolist()}")
+    out[f"{len(ENS_BF16_SCALES)}x{n}^2 M converge"] = {
+        "eps": 1e-2, "steps_run": res.steps_run.tolist(),
+        "converged": res.converged.tolist(),
+        "residual": res.residual.tolist(), "launches":
+        counts["heat_m_ensemble_bf16"], "elapsed_s": res.elapsed_s,
+        "members_bitwise_solo": True}
+    del res, inits
+    # f32chunk and float64: the vmap route, every member bitwise the solo
+    # torch route on the card.
+    for label, batch, kw in (("f32chunk", 8, dict(dtype="bfloat16",
+                                                  accumulate="f32chunk")),
+                             ("float64", 4, dict(dtype="float64"))):
+        vcfg = HeatConfig(nx=ENS_N, ny=ENS_N, steps=ENS_STEPS, **kw)
+        inits = _member_inits(dev, ENS_N, [1.0 + i for i in range(batch)]
+                              ).to(torch.bfloat16 if label == "f32chunk"
+                                   else torch.float64)
+        es = EnsembleSolver(vcfg, batch)
+        check(es.path == "vmap", f"{label} ensemble path {es.path!r}")
+        sk.reset_counts()
+        res = es.solve(initials=inits)
+        launched = {k: n for k, n in sk.counts.items()
+                    if n and k.startswith("heat_")}
+        check(not launched, f"{label} ensemble launched {launched}")
+        for i in range(batch):
+            one = solve(vcfg.replace(backend="torch"), initial=inits[i])
+            check(_bits_equal(res.grids[i], one.grid),
+                  f"{label} member {i} != its solo torch-route solve()")
+        check(res.grids.dtype == inits.dtype
+              and bool(torch.isfinite(res.grids).all()),
+              f"{label} ensemble grids {res.grids.dtype}")
+        out[f"{batch}x{ENS_N}^2 {label} vmap"] = {
+            "elapsed_s": res.elapsed_s, "members_bitwise_solo_torch": True}
+        del res, inits
+        torch.cuda.empty_cache()
+    emit({"phase": "ensemble_bf16", "ok": True, **out})
+    return {"heat_m_ensemble_bf16": launches}
+
+
+def phase_implicit_precision(dev):
+    """512^2 backward Euler and Crank-Nicolson, cx = cy = 22.5, 20 steps,
+    at bfloat16 and float64 under ``backend="cuda"``: through the transfer
+    kernels (counted: restrict and prolong, (levels - 1) a cycle, and no
+    plain transfer) and the device loop's graphs, bitwise the eager
+    executor; bitwise the torch backend on the card, as the float32
+    implicit phase is (the transfers are float32 and bitwise their plain
+    versions); the ring bit for bit; a float64 run bitwise the float32
+    run, widened (every stored level is a float32 value)."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, solve
+    from parallel_heat_tpu_torch.config import multigrid_level_shapes
+    from parallel_heat_tpu_torch.ops import multigrid as mg
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.utils import device_loop as dl
+
+    levels = len(multigrid_level_shapes((IMP_N, IMP_N)))
+    u32 = _rand_on(dev, (IMP_N, IMP_N), seed=11).abs() + 1.0
+    transfers = {"heat_mg_restrict", "heat_mg_prolong"}
+    out = {}
+    for scheme in ("backward_euler", "crank_nicolson"):
+        f32 = None
+        for dtype in ("bfloat16", "float64", "float32"):
+            cfg = HeatConfig(nx=IMP_N, ny=IMP_N, cx=IMP_C, cy=IMP_C,
+                             steps=IMP_STEPS, scheme=scheme, dtype=dtype,
+                             backend="cuda")
+            if dtype == "float32":
+                # The float32 run from the same grid, for comparison.
+                mg.reset_stats()
+                f32 = solve(cfg, initial=u32)
+                out[f"implicit {scheme} float32"] = {
+                    "elapsed_s": f32.elapsed_s,
+                    "cycles_per_step": mg.stats["cycles"] / IMP_STEPS}
+                continue
+            u0 = u32.to(torch.bfloat16 if dtype == "bfloat16"
+                        else torch.float64)
+            label = f"implicit {scheme} {dtype}"
+            sk.reset_counts()
+            mg.reset_stats()
+            dl.reset_stats()
+            res = solve(cfg, initial=u0)
+            counts = {k: n for k, n in sk.counts.items() if n}
+            stats, dls = dict(mg.stats), dict(dl.stats)
+            check(set(counts) == transfers and all(
+                counts[t] == stats["cycles"] * (levels - 1) > 0
+                for t in transfers),
+                f"{label}: counts {counts}, {stats['cycles']} cycles")
+            check(dls["graphs"] > 0 and dls["launches"] > 0,
+                  f"{label}: no graph ran: {dls}")
+            with dl.eager():
+                ee = solve(cfg, initial=u0)
+            check(_bits_equal(res.grid, ee.grid),
+                  f"{label}: graphs != the eager executor")
+            plain = solve(cfg.replace(backend="torch"), initial=u0)
+            check(_bits_equal(res.grid, plain.grid),
+                  f"{label}: backend cuda != backend torch on the card")
+            check(res.grid.dtype == u0.dtype and _ring_kept(res.grid, u0)
+                  and bool(torch.isfinite(res.grid).all()),
+                  f"{label}: dtype {res.grid.dtype}, ring or finiteness")
+            out[label] = {
+                "elapsed_s": res.elapsed_s, "eager_elapsed_s": ee.elapsed_s,
+                "cycles_per_step": stats["cycles"] / IMP_STEPS,
+                "launches": {t: counts[t] for t in sorted(transfers)},
+                "device_loop": dls, "bitwise_eager": True,
+                "bitwise_torch_backend": True}
+            if dtype == "float64":
+                out[label]["float64_is_float32_run"] = None
+                keep = res.grid
+            del res, ee, plain
+        check(_bits_equal(keep, f32.grid.double()),
+              f"implicit {scheme} float64 != the float32 run, widened")
+        out[f"implicit {scheme} float64"]["float64_is_float32_run"] = True
+    emit({"phase": "implicit_precision", "ok": True,
+          "shape": [IMP_N, IMP_N], "steps": IMP_STEPS, "cx": IMP_C,
+          "cy": IMP_C, **out})
+
+
 def phase_timing_bf16(dev):
     """ms a launch of each bfloat16 form (CUDA events and the profiler's
     device time), its plain version and the yardstick (``conv2d`` in
@@ -5742,7 +6120,8 @@ def phase_timing_bf16(dev):
     20-step window with the residual; E-uni and E at 32768^2, K = 8, in
     storage mode and in the carry's launches of a 16-step chunk (its
     first and last, across a float32 level; ms a launch the mean of the
-    two). Each bound counts the bytes of the function replaced, a
+    two); B and C pinned at 32768^2, one step with the residual; M at
+    64 x 512^2, K = 400, without it. Each bound counts the bytes of the function replaced, a
     bfloat16 grid read once and written once: 4 B a cell a launch in
     storage mode, 4 B a cell a chunk under f32chunk, so 2 B to each of
     its two launches; the float32 level's traffic (a carry launch moves
@@ -5750,6 +6129,7 @@ def phase_timing_bf16(dev):
     import torch
     import torch.nn.functional as F
 
+    from parallel_heat_tpu_torch.ops import batched
     from parallel_heat_tpu_torch.ops import stencil_kernels as sk
     from parallel_heat_tpu_torch.ops.hopper_params import params
     from parallel_heat_tpu_torch.ops.stencil import coeffs_f32
@@ -5775,6 +6155,7 @@ def phase_timing_bf16(dev):
     interior = (n - 2) * (n - 2)
     k = p.e_k_default
     library_k = _time_ms(lambda: conv_steps(x, k), 2)
+    library_1 = _time_ms(lambda: conv_steps(x, 1), 10, 2)
     del x
     for name, launch, plain in (
             ("heat_e_uni_temporal", sk.temporal_steps_uni,
@@ -5810,7 +6191,50 @@ def phase_timing_bf16(dev):
             **_bound(2 * n * n, OPS_PER_CELL_STEP * k * interior)}
         del mid
         torch.cuda.empty_cache()
+    # B and C, pinned on the main path: one step with the residual.
+    for name, launch, plain in (
+            ("heat_b_step", sk.strip_step, sk.strip_step_plain),
+            ("heat_c_tiled", sk.tiled_step, sk.tiled_step_plain)):
+        rows[name + "_bf16"] = {
+            "shape": [n, n], "k": 1,
+            "ms": _time_ms(lambda: launch(u, v, **kw), 20, 3),
+            "plain_ms": _time_ms(lambda: plain(u, v, **kw), 1),
+            "library_ms": library_1,
+            **_bound(4 * n * n,
+                     (OPS_PER_CELL_STEP + OPS_PER_RESIDUAL_CELL) * interior)}
+        rows[name + "_bf16"].update(_device_ms(lambda: launch(u, v, **kw),
+                                               name + "_bf16"))
+        torch.cuda.empty_cache()
     del u, v
+    torch.cuda.empty_cache()
+    # M at the ensemble main path's stack: the fixed run's one launch
+    # (K = 400, no residual); the yardstick zero-padded, as for float32.
+    u = _member_inits(dev, ENS_N, [1.0 + i / ENS_B
+                                   for i in range(ENS_B)]).to(bf16)
+    v = torch.empty_like(u)
+    x = u.view(ENS_B, 1, ENS_N, ENS_N)
+
+    def conv_members(steps):
+        y = x
+        for _ in range(steps):
+            y = F.conv2d(y, w, padding=1)
+        return y
+
+    def launch_m():
+        return batched.ensemble_steps(u, v, ENS_STEPS, False, **kw)
+
+    interior = ENS_B * (ENS_N - 2) * (ENS_N - 2)
+    rows["heat_m_ensemble_bf16"] = {
+        "shape": [ENS_B, ENS_N, ENS_N], "k": ENS_STEPS, "residual": False,
+        "ms": _time_ms(launch_m, 5, 2),
+        "plain_ms": _time_ms(lambda: batched.ensemble_steps_plain(
+            u, v, ENS_STEPS, False, **kw), 1),
+        "library_ms": _time_ms(lambda: conv_members(ENS_STEPS), 3, 1),
+        **_bound(4 * ENS_B * ENS_N * ENS_N,
+                 OPS_PER_CELL_STEP * ENS_STEPS * interior)}
+    rows["heat_m_ensemble_bf16"].update(_device_ms(launch_m,
+                                                   "heat_m_ensemble_bf16"))
+    del u, v, x
     torch.cuda.empty_cache()
     u = _plate_grid(dev, CONV)
     v = torch.empty_like(u)
@@ -5861,6 +6285,8 @@ def main() -> int:
         err.update(phase_kernels_mg(dev))
         launches.update(phase_ensemble(dev))
         launches.update(phase_implicit(dev))
+        launches.update(phase_ensemble_bf16(dev))
+        phase_implicit_precision(dev)
         err.update(phase_kernels_g(dev))
         launches.update(phase_sharded_main_path())
         phase_sharded_converge()

@@ -455,10 +455,13 @@ def plan_a(shape, k=20, bf16=False) -> Plan:
         kinds=p.a_tile_kinds(shape, d, tile), kinds_of=_a_kinds)
 
 
-def plan_m(batch, shape, k) -> Plan:
-    """Kernel M (``heat_m_ensemble``): ``batch`` members of ``(m, n)``
-    under ``hopper_params.m_plan`` (the plan ``batched.ensemble_steps``
-    launches). A group of ``tiles`` blocks takes a member a round."""
+def plan_m(batch, shape, k, bf16=False) -> Plan:
+    """Kernel M (``heat_m_ensemble``, or with ``bf16``
+    ``heat_m_ensemble_bf16``, each member's tile widened as it lands by
+    plain loads, as A's bfloat16 form does): ``batch`` members of ``(m,
+    n)`` under ``hopper_params.m_plan`` (the plan
+    ``batched.ensemble_steps`` launches, the same at both dtypes). A group
+    of ``tiles`` blocks takes a member a round."""
     p = _p()
     m, n = shape
     mp = p.m_plan(batch, tuple(shape))
@@ -472,18 +475,24 @@ def plan_m(batch, shape, k) -> Plan:
     def schedule(spans):
         ev = []
         for _ in range(rounds):
-            ev += _sched_cp_once([4 * sh * (tile[1] + 2 * d)])
+            ev += [("read", "src")] if bf16 else _sched_cp_once(
+                [4 * sh * (tile[1] + 2 * d)])
         return ev
 
+    elem = 2 if bf16 else 4
     return Plan(
-        kernel="heat_m_ensemble_kernel", entry="heat_m_ensemble",
-        label=f"M {batch}x{m}x{n} K={k}", grid=groups * tiles,
+        kernel="heat_m_ensemble_bf16_kernel" if bf16 else
+        "heat_m_ensemble_kernel",
+        entry="heat_m_ensemble_bf16" if bf16 else "heat_m_ensemble",
+        label=f"M {batch}x{m}x{n} K={k}" + (" bf16" if bf16 else ""),
+        grid=groups * tiles,
         threads=block[0] * block[1], max_threads=512,
         dyn_smem=p.m_smem_bytes(tile, d), static_smem=p.static_smem_bytes,
-        arrays={"u": Array((batch, m, n)), "out": Array((batch, m, n))},
+        arrays={"u": Array((batch, m, n), elem=elem),
+                "out": Array((batch, m, n), elem=elem)},
         output="out", axes=_a_axes(m, n, tile, d, batch),
-        loads={"cells": Load("cp4", "u", "src", (4 - d % 4) % 4,
-                             (m * n, sx))},
+        loads={"cells": Load("ld" if bf16 else "cp4", "u", "src",
+                             (4 - d % 4) % 4, (m * n, sx))},
         slots={"src": (0, buf), "dst": (buf, buf)},
         cooperative=tiles > 1, cover=_full((batch, m, n)),
         schedule=schedule,
@@ -494,10 +503,11 @@ def plan_m(batch, shape, k) -> Plan:
 # One-step kernels: B, C, D; the transfer kernels
 # ---------------------------------------------------------------------------
 
-def plan_b(shape) -> Plan:
-    """Kernel B (``heat_b_step``): one step, a thread a column of
-    ``b_rows_per_thread`` rows, neighbours read from global memory under
-    the kernel's tests (``heat_b_step.cu`` :32-60)."""
+def plan_b(shape, bf16=False) -> Plan:
+    """Kernel B (``heat_b_step``, or with ``bf16`` ``heat_b_step_bf16``):
+    one step, a thread a column of ``b_rows_per_thread`` rows, neighbours
+    read from global memory under the kernel's tests (``heat_b_step.cu``
+    heat_b_cells)."""
     p = _p()
     m, n = shape
     bx, by = p.b_block
@@ -510,21 +520,27 @@ def plan_b(shape) -> Plan:
                                             (0, dim))})
         return Axis(name, count, span)
 
+    elem = 2 if bf16 else 4
     return Plan(
-        kernel="heat_b_step_kernel", entry="heat_b_step",
-        label=f"B {m}x{n}", grid=_ceil(m, tr) * _ceil(n, bx),
+        kernel="heat_b_step_bf16_kernel" if bf16 else "heat_b_step_kernel",
+        entry="heat_b_step_bf16" if bf16 else "heat_b_step",
+        label=f"B {m}x{n}" + (" bf16" if bf16 else ""),
+        grid=_ceil(m, tr) * _ceil(n, bx),
         threads=bx * by, max_threads=1024, dyn_smem=0,
         static_smem=p.static_smem_bytes,
-        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        arrays={"u": Array((m, n), elem=elem),
+                "out": Array((m, n), elem=elem)}, output="out",
         axes=[axis(_ceil(m, tr), tr, m, "rows"),
               axis(_ceil(n, bx), bx, n, "cols")],
         loads={"nbrs": Load("ld", "u")}, cover=_full(shape))
 
 
-def plan_c(shape) -> Plan:
+def plan_c(shape, bf16=False) -> Plan:
     """Kernel C (``heat_c_tiled``): one step through tiles staged in
     shared memory with their one-cell ring, cp.async cell by cell with
-    zero fill (``heat_c_tiled.cu`` :35-58)."""
+    zero fill; with ``bf16`` (``heat_c_tiled_bf16``) by plain loads, each
+    cell widened as it lands into the same float32 tile, then the block's
+    barrier (``heat_c_tiled.cu`` heat_c_cells)."""
     p = _p()
     m, n = shape
     ty, tx = p.c_tile
@@ -537,17 +553,23 @@ def plan_c(shape) -> Plan:
         return Axis(name, count, span)
 
     buf = (ty + 2) * (tx + 2) * 4
+    elem = 2 if bf16 else 4
     return Plan(
-        kernel="heat_c_tiled_kernel", entry="heat_c_tiled",
-        label=f"C {m}x{n}", grid=_ceil(m, ty) * _ceil(n, tx),
+        kernel="heat_c_tiled_bf16_kernel" if bf16 else "heat_c_tiled_kernel",
+        entry="heat_c_tiled_bf16" if bf16 else "heat_c_tiled",
+        label=f"C {m}x{n}" + (" bf16" if bf16 else ""),
+        grid=_ceil(m, ty) * _ceil(n, tx),
         threads=bx * by, max_threads=1024, dyn_smem=buf,
         static_smem=p.static_smem_bytes,
-        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        arrays={"u": Array((m, n), elem=elem),
+                "out": Array((m, n), elem=elem)}, output="out",
         axes=[axis(_ceil(m, ty), ty, m, "rows"),
               axis(_ceil(n, tx), tx, n, "cols")],
-        loads={"cells": Load("cp4", "u", "src", 0, (tx + 2,))},
+        loads={"cells": Load("ld" if bf16 else "cp4", "u", "src", 0,
+                             (tx + 2,))},
         slots={"src": (0, buf)}, cover=_full(shape),
-        schedule=lambda spans: _sched_cp_once([buf]))
+        schedule=(lambda spans: [("read", "src")]) if bf16 else (
+            lambda spans: _sched_cp_once([buf])))
 
 
 def plan_d(shape) -> Plan:
@@ -1638,6 +1660,16 @@ def default_plans() -> List[Plan]:
     out.append(plan_c(MAIN_2D))
     out.append(plan_b((21, 23)))
     out.append(plan_c((21, 23)))
+    # The bfloat16 forms of M (the ensemble main path's stack and the
+    # one-block members chip_smoke.py checks), B and C (BASELINE config
+    # 4's 32768^2, pinned, and the ragged grids).
+    out.append(plan_m(M_STACK[0], M_STACK[1], 400, bf16=True))
+    for batch, shape in ((3, (107, 210)), (3, (24, 20)), (8, (20, 20)),
+                         (8, (166, 166))):
+        out.append(plan_m(batch, shape, 20, bf16=True))
+    for shape in (MAIN_BF16,) + RAGGED_2D:
+        out.append(plan_b(shape, bf16=True))
+        out.append(plan_c(shape, bf16=True))
     for uni in (False, True):
         out.append(plan_i(MAIN_2D, p.i_k_default, uni))
         out.append(plan_i((20, 24), 3, uni))

@@ -12,8 +12,11 @@ flags select the implicit integrators; ``--mesh``, ``--no-overlap``,
 device (``auto`` is the one-device mesh). ``--initial-out`` writes the
 initial grid as ``--out`` writes the final one, ``--quiet`` prints no
 progress lines, and ``--dtype`` and ``--accumulate`` take the JAX CLI's
-names (bfloat16 and float64 on the 2D single-block explicit path; the
-others refused by ``HeatConfig.validate``).
+names (bfloat16 and float64 in 2D on one block: the explicit scheme, the
+implicit schemes and ``--ensemble``; in 3D and on a mesh refused by
+``HeatConfig.validate``). ``--ensemble`` writes its stacked grids as the
+JAX CLI does, a bfloat16 stack by its raw cells (``utils/io.py``
+``save_npy``).
 
 The observers are the JAX CLI's too: ``--guard-interval`` and
 ``--diag-interval`` set the runtime guard and the grid diagnostics,
@@ -54,9 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16", "float64"],
                     help="storage dtype (arithmetic is float32 at every "
-                         "dtype); bfloat16 and float64 run on the 2D "
-                         "single-block explicit path, float64 on the "
-                         "torch route")
+                         "dtype); bfloat16 and float64 run in 2D on one "
+                         "block (explicit, implicit, --ensemble), an "
+                         "explicit float64 run on the torch route")
     ap.add_argument("--accumulate", default="storage",
                     choices=("storage", "f32chunk"),
                     help="sub-f32 accumulation semantics (SEMANTICS.md): "
@@ -353,8 +356,6 @@ def _telemetry(args):
 
 def _run_ensemble(args, config) -> int:
     """The --ensemble B path: one batched run, one line per member."""
-    import numpy as np
-
     from parallel_heat_tpu_torch import EnsembleSolver
 
     say = (lambda *a: None) if args.quiet else print
@@ -393,10 +394,12 @@ def _run_ensemble(args, config) -> int:
             f"step {k}: {a}->{b}" for k, a, b in result.compactions))
     say(f"Elapsed time {result.elapsed_s:.6f} secs")
     if args.out:
+        from parallel_heat_tpu_torch.utils.io import save_npy
+
         path = args.out
         if not path.endswith(".npy"):
             path += ".npy"
-        np.save(path, result.to_numpy())
+        save_npy(path, result.grids)
         say(f"Stacked member grids written to {path}")
     return 0
 

@@ -13,13 +13,17 @@ implements, so one spec runs on either package. What differs:
   ``accumulate`` its two sub-float32 modes, with its rules
   (``SEMANTICS.md`` "Precision"): arithmetic is float32 at every dtype;
   ``"storage"`` rounds the state to the dtype after every step;
-  ``"f32chunk"`` (bfloat16, 2D, one block) carries float32 through chunks
-  of :data:`~.ops.stencil.F32CHUNK_DEPTH` steps. In this slice bfloat16
-  and float64 run on the 2D single-block explicit path only, and float64
-  on the torch route only (the kernels store float32 and bfloat16):
-  ``backend="cuda"`` with float64 is refused, and ``"auto"`` takes the
-  torch route for it on the card too. Elsewhere they are refused, naming
-  the ROADMAP.md item;
+  ``"f32chunk"`` (bfloat16, 2D, one block, explicit) carries float32
+  through chunks of :data:`~.ops.stencil.F32CHUNK_DEPTH` steps. bfloat16
+  and float64 run in 2D on one block: the explicit scheme, ensembles, and
+  the implicit schemes (which widen the state to float32 once a step and
+  round the interior to storage once). The explicit scheme runs float64
+  on the torch route only (the stencil kernels store float32 and
+  bfloat16): ``backend="cuda"`` with float64 is refused there, and
+  ``"auto"`` takes the torch route for float64 on the card too; the
+  implicit schemes take ``backend="cuda"`` at float64, their transfer
+  kernels seeing float32 levels only. In 3D and on a mesh bfloat16 and
+  float64 are refused, naming the ROADMAP.md item;
 - ``nz`` set makes the run 3D (7-point stencil, coefficients
   ``cx, cy, cz``), as in the JAX package;
 - ``scheme`` and the ``mg_*`` knobs select the implicit integrators
@@ -436,8 +440,8 @@ class HeatConfig:
 
     def _validate_precision(self) -> None:
         """The JAX package's f32chunk rules (same messages), then this
-        slice's: bfloat16 and float64 run on the 2D single-block explicit
-        path only, float64 on the torch route only."""
+        package's: bfloat16 and float64 run in 2D on one block only, and
+        an explicit float64 run on the torch route only."""
         if self.accumulate == "f32chunk":
             if self.dtype != "bfloat16":
                 raise ValueError(
@@ -458,23 +462,24 @@ class HeatConfig:
         if self.dtype == "float32":
             return
         off = [what for what, on in (("3D", self.ndim != 2),
-                                     ("a mesh", self.is_sharded()),
-                                     (f"scheme={self.scheme!r}",
-                                      self.scheme != "explicit")) if on]
+                                     ("a mesh", self.is_sharded())) if on]
         if off:
-            item = ("queue 2 item 24 (the bfloat16 forms of D, F, G, H, "
-                    "M and the transfer kernels)" if self.dtype == "bfloat16"
-                    else "queue 1 item 3 (precision)")
+            item = ("queue 2 item 24 (the bfloat16 forms of D, F, G, H "
+                    "and the bands)" if self.dtype == "bfloat16"
+                    else "queue 1 item 3 (float64 in 3D and on a mesh)")
             raise ValueError(
-                f"dtype={self.dtype!r} runs on the 2D single-block explicit "
-                f"path only in this package for now, not on "
-                f"{' or '.join(off)}: ROADMAP.md {item}")
-        if self.dtype == "float64" and self.backend == "cuda":
+                f"dtype={self.dtype!r} runs in 2D on one block only in this "
+                f"package for now, not on {' or '.join(off)}: ROADMAP.md "
+                f"{item}")
+        if (self.dtype == "float64" and self.backend == "cuda"
+                and self.scheme == "explicit"):
             raise ValueError(
-                "backend='cuda' does not take dtype='float64': the kernels "
-                "store float32 and bfloat16 (arithmetic is float32 at every "
-                "dtype); float64 runs the plain torch route (backend='torch' "
-                "or 'auto', on the card or the CPU)")
+                "backend='cuda' does not take dtype='float64' for the "
+                "explicit scheme: the stencil kernels store float32 and "
+                "bfloat16 (arithmetic is float32 at every dtype); float64 "
+                "runs the plain torch route (backend='torch' or 'auto', on "
+                "the card or the CPU). The implicit schemes take it: their "
+                "transfer kernels see float32 levels only")
 
     def _validate_mesh(self) -> None:
         """The mesh fields: the JAX package's rules, the cuda depth rule,

@@ -83,10 +83,13 @@ extern "C" int heat_a_resident(const float* u, float* out, float* xch,
 
 // heat_a_resident on a bfloat16 grid `u` into the bfloat16 `out`: every
 // step computes in float32 and rounds its updated cells to bfloat16, as a
-// launch of heat_b_step on a bfloat16 grid would store them; the residual
-// is the last step's float32 update against the float32 of the level it
-// read. `xch` is float32 scratch as above (its values are bfloat16 ones).
-// The counterpart of _build_vmem_multistep at dtype bfloat16.
+// launch of heat_b_step_bf16 stores them, so K steps are bitwise K
+// launches of heat_b_step_bf16 (held on the card by chip_smoke.py's
+// kernels_bf16 phase, and a member of heat_m_ensemble_bf16 bitwise this
+// kernel on that member alone, there too); the residual is the last
+// step's float32 update against the float32 of the level it read. `xch`
+// is float32 scratch as above (its values are bfloat16 ones). The
+// counterpart of _build_vmem_multistep at dtype bfloat16.
 extern "C" int heat_a_resident_bf16(const __nv_bfloat16* u,
                                     __nv_bfloat16* out, float* xch,
                                     uint32_t* res, int64_t m, int64_t n,

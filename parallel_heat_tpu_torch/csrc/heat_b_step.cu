@@ -26,13 +26,23 @@
 //   - boundary cells are copied from the input: the Dirichlet ring never
 //     changes, whatever the interior does.
 // Offsets are computed in int64, so grids past 2^31 bytes index safely.
+//
+// Storage precision: heat_b_step_bf16 steps a bfloat16 grid, 4 B a cell
+// over HBM, in float32 arithmetic (heat_common.cuh): a warp reads 64-byte
+// rows, one column a lane, as the float32 kernel does.
+
+#include <type_traits>
 
 #include "heat_common.cuh"
 
-__global__ void __launch_bounds__(1024)
-heat_b_step_kernel(const float* __restrict__ u, float* __restrict__ out,
-                   uint32_t* res, int64_t m, int64_t n, int64_t n_col_tiles,
-                   int rows_per_thread, float a0, float cx, float cy) {
+// A block's cells of the step, at storage type T (float32, or bfloat16:
+// each load widened exactly, each updated cell rounded, each copied one
+// narrowed exactly, heat_common.cuh), and its residual into *res.
+template <typename T>
+__device__ __forceinline__ void heat_b_cells(
+    const T* __restrict__ u, T* __restrict__ out, uint32_t* res, int64_t m,
+    int64_t n, int64_t n_col_tiles, int rows_per_thread, float a0, float cx,
+    float cy) {
   const int64_t tile_r = blockIdx.x / n_col_tiles;
   const int64_t tile_c = blockIdx.x % n_col_tiles;
   const int64_t j = tile_c * blockDim.x + threadIdx.x;
@@ -40,17 +50,19 @@ heat_b_step_kernel(const float* __restrict__ u, float* __restrict__ out,
   uint32_t rmax = 0u;
   if (j < n && i0 < m) {
     const int64_t i_end = i0 + rows_per_thread < m ? i0 + rows_per_thread : m;
-    float up = i0 >= 1 ? u[(i0 - 1) * n + j] : 0.f;
-    float c = u[i0 * n + j];
+    float up = i0 >= 1 ? heat_widen(u[(i0 - 1) * n + j]) : 0.f;
+    float c = heat_widen(u[i0 * n + j]);
     for (int64_t i = i0; i < i_end; ++i) {
       const int64_t idx = i * n + j;
-      const float down = i + 1 < m ? u[idx + n] : 0.f;
+      const float down = i + 1 < m ? heat_widen(u[idx + n]) : 0.f;
       float v = c;
-      if (heat_is_interior(i, j, m, n)) {
-        v = heat_combine(c, up, down, u[idx - 1], u[idx + 1], a0, cx, cy);
+      const bool in = heat_is_interior(i, j, m, n);
+      if (in) {
+        v = heat_combine(c, up, down, heat_widen(u[idx - 1]),
+                         heat_widen(u[idx + 1]), a0, cx, cy);
         rmax = max(rmax, heat_diff_bits(v, c));
       }
-      out[idx] = v;
+      heat_store(out + idx, v, in);
       up = c;
       c = down;
     }
@@ -58,14 +70,28 @@ heat_b_step_kernel(const float* __restrict__ u, float* __restrict__ out,
   heat_block_max(rmax, res);
 }
 
-// One step of the m x n float32 grid `u` into `out` (distinct buffers,
-// both on the current device), with the residual's bit pattern in *res.
-// Launches on `stream` and does not synchronise. Returns a cudaError_t:
-// 0, or the reason the launch was refused.
-extern "C" int heat_b_step(const float* u, float* out, uint32_t* res,
-                           int64_t m, int64_t n, int block_x, int block_y,
-                           int rows_per_thread, float a0, float cx, float cy,
-                           void* stream) {
+__global__ void __launch_bounds__(1024)
+heat_b_step_kernel(const float* __restrict__ u, float* __restrict__ out,
+                   uint32_t* res, int64_t m, int64_t n, int64_t n_col_tiles,
+                   int rows_per_thread, float a0, float cx, float cy) {
+  heat_b_cells(u, out, res, m, n, n_col_tiles, rows_per_thread, a0, cx, cy);
+}
+
+// Kernel B on a bfloat16 grid: a kernel of its own, so that the float32
+// kernel keeps its name and machine code.
+__global__ void __launch_bounds__(1024)
+heat_b_step_bf16_kernel(const __nv_bfloat16* __restrict__ u,
+                        __nv_bfloat16* __restrict__ out, uint32_t* res,
+                        int64_t m, int64_t n, int64_t n_col_tiles,
+                        int rows_per_thread, float a0, float cx, float cy) {
+  heat_b_cells(u, out, res, m, n, n_col_tiles, rows_per_thread, a0, cx, cy);
+}
+
+template <typename T>
+static int heat_b_launch(const T* u, T* out, uint32_t* res, int64_t m,
+                         int64_t n, int block_x, int block_y,
+                         int rows_per_thread, float a0, float cx, float cy,
+                         void* stream) {
   const int threads = block_x * block_y;
   if (m < 3 || n < 3 || block_x < 1 || block_y < 1 || rows_per_thread < 1 ||
       threads % 32 != 0 || threads > 1024 || res == nullptr)
@@ -77,10 +103,40 @@ extern "C" int heat_b_step(const float* u, float* out, uint32_t* res,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  heat_b_step_kernel<<<static_cast<unsigned>(blocks), dim3(block_x, block_y),
-                       0, s>>>(u, out, res, m, n, n_col_tiles,
-                               rows_per_thread, a0, cx, cy);
+  const dim3 grid(static_cast<unsigned>(blocks)), block(block_x, block_y);
+  if constexpr (std::is_same<T, float>::value)
+    heat_b_step_kernel<<<grid, block, 0, s>>>(u, out, res, m, n, n_col_tiles,
+                                              rows_per_thread, a0, cx, cy);
+  else
+    heat_b_step_bf16_kernel<<<grid, block, 0, s>>>(
+        u, out, res, m, n, n_col_tiles, rows_per_thread, a0, cx, cy);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One step of the m x n float32 grid `u` into `out` (distinct buffers,
+// both on the current device), with the residual's bit pattern in *res.
+// Launches on `stream` and does not synchronise. Returns a cudaError_t:
+// 0, or the reason the launch was refused.
+extern "C" int heat_b_step(const float* u, float* out, uint32_t* res,
+                           int64_t m, int64_t n, int block_x, int block_y,
+                           int rows_per_thread, float a0, float cx, float cy,
+                           void* stream) {
+  return heat_b_launch(u, out, res, m, n, block_x, block_y, rows_per_thread,
+                       a0, cx, cy, stream);
+}
+
+// heat_b_step on a bfloat16 grid `u` into the bfloat16 `out`: the step
+// computes in float32, rounds its updated cells to bfloat16 and copies
+// the ring bit for bit; the residual is the float32 update against the
+// float32 of the cell it read, before rounding. The counterpart of
+// _build_strip_kernel at dtype bfloat16.
+extern "C" int heat_b_step_bf16(const __nv_bfloat16* u, __nv_bfloat16* out,
+                                uint32_t* res, int64_t m, int64_t n,
+                                int block_x, int block_y,
+                                int rows_per_thread, float a0, float cx,
+                                float cy, void* stream) {
+  return heat_b_launch(u, out, res, m, n, block_x, block_y, rows_per_thread,
+                       a0, cx, cy, stream);
 }
 
 extern "C" const char* heat_b_step_error_string(int code) {

@@ -27,15 +27,28 @@
 //     the residual as heat_b_step does (heat_common.cuh), so its grid and
 //     residual are bitwise heat_b_step's.
 // Offsets are computed in int64.
+//
+// Storage precision: heat_c_tiled_bf16 takes a bfloat16 grid, 4 B a cell
+// over HBM; its tile is widened as it lands, so the shared tile's shape
+// and the step are the float32 kernel's.
 
 #include <cuda_pipeline.h>
 
+#include <type_traits>
+
 #include "heat_common.cuh"
 
-__global__ void __launch_bounds__(1024)
-heat_c_tiled_kernel(const float* __restrict__ u, float* __restrict__ out,
-                    uint32_t* res, int64_t m, int64_t n, int64_t n_col_tiles,
-                    int tile_y, int tile_x, float a0, float cx, float cy) {
+// A block's tile of the step at storage type T, and its residual into
+// *res. A float32 tile lands by 4-byte cp.async copies; a bfloat16 one by
+// plain 2-byte loads, widened exactly into the same float32 shared tile
+// (heat_common.cuh), then the block's barrier. The step and the residual
+// are float32; a bfloat16 grid's updated cells round as they are stored,
+// its copied ones narrow exactly.
+template <typename T>
+__device__ __forceinline__ void heat_c_cells(
+    const T* __restrict__ u, T* __restrict__ out, uint32_t* res, int64_t m,
+    int64_t n, int64_t n_col_tiles, int tile_y, int tile_x, float a0,
+    float cx, float cy) {
   extern __shared__ float smem[];
   const int sy = tile_y + 2;
   const int sx = tile_x + 2;
@@ -48,12 +61,17 @@ heat_c_tiled_kernel(const float* __restrict__ u, float* __restrict__ out,
     for (int c = threadIdx.x; c < sx; c += blockDim.x) {
       const int64_t gj = gx0 + c;
       const bool in = row_in && gj >= 0 && gj < n;
-      __pipeline_memcpy_async(smem + r * sx + c, in ? u + gi * n + gj : u, 4,
-                              in ? 0 : 4);
+      if constexpr (std::is_same<T, float>::value)
+        __pipeline_memcpy_async(smem + r * sx + c, in ? u + gi * n + gj : u,
+                                4, in ? 0 : 4);
+      else
+        smem[r * sx + c] = in ? heat_widen(u[gi * n + gj]) : 0.f;
     }
   }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
+  if constexpr (std::is_same<T, float>::value) {
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  }
   __syncthreads();
 
   uint32_t rmax = 0u;
@@ -66,14 +84,68 @@ heat_c_tiled_kernel(const float* __restrict__ u, float* __restrict__ out,
       const float* p = smem + r * sx + c;
       const float cc = *p;
       float v = cc;
-      if (heat_is_interior(gi, gj, m, n)) {
+      const bool in = heat_is_interior(gi, gj, m, n);
+      if (in) {
         v = heat_combine(cc, p[-sx], p[sx], p[-1], p[1], a0, cx, cy);
         rmax = max(rmax, heat_diff_bits(v, cc));
       }
-      out[gi * n + gj] = v;
+      heat_store(out + gi * n + gj, v, in);
     }
   }
   heat_block_max(rmax, res);
+}
+
+__global__ void __launch_bounds__(1024)
+heat_c_tiled_kernel(const float* __restrict__ u, float* __restrict__ out,
+                    uint32_t* res, int64_t m, int64_t n, int64_t n_col_tiles,
+                    int tile_y, int tile_x, float a0, float cx, float cy) {
+  heat_c_cells(u, out, res, m, n, n_col_tiles, tile_y, tile_x, a0, cx, cy);
+}
+
+// Kernel C on a bfloat16 grid: a kernel of its own, so that the float32
+// kernel keeps its name and machine code.
+__global__ void __launch_bounds__(1024)
+heat_c_tiled_bf16_kernel(const __nv_bfloat16* __restrict__ u,
+                         __nv_bfloat16* __restrict__ out, uint32_t* res,
+                         int64_t m, int64_t n, int64_t n_col_tiles,
+                         int tile_y, int tile_x, float a0, float cx,
+                         float cy) {
+  heat_c_cells(u, out, res, m, n, n_col_tiles, tile_y, tile_x, a0, cx, cy);
+}
+
+template <typename T>
+static int heat_c_launch(const T* u, T* out, uint32_t* res, int64_t m,
+                         int64_t n, int tile_y, int tile_x, int block_x,
+                         int block_y, float a0, float cx, float cy,
+                         void* stream) {
+  const int threads = block_x * block_y;
+  if (m < 3 || n < 3 || tile_y < 1 || tile_x < 1 || block_x < 1 ||
+      block_y < 1 || threads % 32 != 0 || threads > 1024 || res == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_col_tiles = (n + tile_x - 1) / tile_x;
+  const int64_t blocks = n_col_tiles * ((m + tile_y - 1) / tile_y);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * static_cast<size_t>(tile_y + 2) *
+                      static_cast<size_t>(tile_x + 2);
+  const void* kernel =
+      std::is_same<T, float>::value
+          ? reinterpret_cast<const void*>(heat_c_tiled_kernel)
+          : reinterpret_cast<const void*>(heat_c_tiled_bf16_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(blocks)), block(block_x, block_y);
+  if constexpr (std::is_same<T, float>::value)
+    heat_c_tiled_kernel<<<grid, block, smem, s>>>(
+        u, out, res, m, n, n_col_tiles, tile_y, tile_x, a0, cx, cy);
+  else
+    heat_c_tiled_bf16_kernel<<<grid, block, smem, s>>>(
+        u, out, res, m, n, n_col_tiles, tile_y, tile_x, a0, cx, cy);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One step of the m x n float32 grid `u` into `out` (distinct buffers,
@@ -85,26 +157,21 @@ extern "C" int heat_c_tiled(const float* u, float* out, uint32_t* res,
                             int64_t m, int64_t n, int tile_y, int tile_x,
                             int block_x, int block_y, float a0, float cx,
                             float cy, void* stream) {
-  const int threads = block_x * block_y;
-  if (m < 3 || n < 3 || tile_y < 1 || tile_x < 1 || block_x < 1 ||
-      block_y < 1 || threads % 32 != 0 || threads > 1024 || res == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_col_tiles = (n + tile_x - 1) / tile_x;
-  const int64_t blocks = n_col_tiles * ((m + tile_y - 1) / tile_y);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * static_cast<size_t>(tile_y + 2) *
-                      static_cast<size_t>(tile_x + 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      heat_c_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  heat_c_tiled_kernel<<<static_cast<unsigned>(blocks), dim3(block_x, block_y),
-                        smem, s>>>(u, out, res, m, n, n_col_tiles, tile_y,
-                                   tile_x, a0, cx, cy);
-  return static_cast<int>(cudaGetLastError());
+  return heat_c_launch(u, out, res, m, n, tile_y, tile_x, block_x, block_y,
+                       a0, cx, cy, stream);
+}
+
+// heat_c_tiled on a bfloat16 grid `u` into the bfloat16 `out`, bitwise
+// heat_b_step_bf16: the tile widened into the same float32 shared tile,
+// the same rounding of updated cells and exact copy of the ring. The
+// counterpart of _build_tiled_kernel at dtype bfloat16.
+extern "C" int heat_c_tiled_bf16(const __nv_bfloat16* u, __nv_bfloat16* out,
+                                 uint32_t* res, int64_t m, int64_t n,
+                                 int tile_y, int tile_x, int block_x,
+                                 int block_y, float a0, float cx, float cy,
+                                 void* stream) {
+  return heat_c_launch(u, out, res, m, n, tile_y, tile_x, block_x, block_y,
+                       a0, cx, cy, stream);
 }
 
 extern "C" const char* heat_c_tiled_error_string(int code) {

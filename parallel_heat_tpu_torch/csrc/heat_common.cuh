@@ -51,6 +51,15 @@ __device__ __forceinline__ __nv_bfloat16 heat_bf16_exact(float v) {
   return __ushort_as_bfloat16(
       static_cast<unsigned short>(__float_as_uint(v) >> 16));
 }
+// One cell's store at the grid's storage type: float32 as it is; on a
+// bfloat16 grid an updated cell rounded, a copied one narrowed exactly.
+__device__ __forceinline__ void heat_store(float* p, float v, bool) {
+  *p = v;
+}
+__device__ __forceinline__ void heat_store(__nv_bfloat16* p, float v,
+                                           bool updated) {
+  *p = updated ? __float2bfloat16_rn(v) : heat_bf16_exact(v);
+}
 
 __device__ __forceinline__ float heat_combine(float c, float up, float down,
                                               float left, float right,

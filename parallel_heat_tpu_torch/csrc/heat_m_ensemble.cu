@@ -51,16 +51,22 @@
 //     tiling.
 // A member is at most a few million cells, so indices inside it are
 // int32; the member's base and the group's planes are int64 offsets.
+//
+// Storage precision: heat_m_ensemble_bf16 takes bfloat16 members, 4 B a
+// cell over HBM. Each member's tile is widened as it lands (heat_a_load),
+// every level rounds to bfloat16 in the tile loop, and the buffers and
+// exchange planes stay float32, exactly as heat_a_resident_bf16 does it,
+// so a member is bitwise that kernel on the member alone.
 
 #include "heat_a.cuh"
 
-template <bool kCoop>
-__global__ void __launch_bounds__(kHeatMaxThreads, 1)
-heat_m_ensemble_kernel(const float* __restrict__ u, float* __restrict__ out,
-                       float* xch, uint32_t* res, int batch, int m, int n,
-                       int n_col_tiles, int tiles, int n_groups, int k,
-                       int depth, int tile_y, int tile_x, float a0, float cx,
-                       float cy) {
+// A block's work: its tile of every member its group takes, at storage
+// type T (bfloat16: each level rounded, heat_a.cuh "Storage precision").
+template <bool kCoop, typename T>
+__device__ __forceinline__ void heat_m_block(
+    const T* __restrict__ u, T* __restrict__ out, float* xch, uint32_t* res,
+    int batch, int m, int n, int n_col_tiles, int tiles, int n_groups, int k,
+    int depth, int tile_y, int tile_x, float a0, float cx, float cy) {
   extern __shared__ __align__(16) float smem[];
   // This block's group and its tile of every member the group takes.
   const int group = static_cast<int>(blockIdx.x) / tiles;
@@ -78,7 +84,8 @@ heat_m_ensemble_kernel(const float* __restrict__ u, float* __restrict__ out,
     if (b < batch) {
       heat_a_load(u + cells * b, buf0, t, m, n);
       uint32_t rmax = 0u;
-      heat_a_steps<kHeatAFull>(
+      heat_a_steps<kHeatAFull, kHeatLoopFull, T,
+                   !std::is_same<T, float>::value>(
           buf0, buf1, t, m, n, k, out + cells * b, a0, cx, cy, rmax,
           [&](float* s, int) {
             if constexpr (kCoop) {
@@ -102,26 +109,39 @@ heat_m_ensemble_kernel(const float* __restrict__ u, float* __restrict__ out,
   }
 }
 
-// K steps of each of the `batch` m x n float32 members of `u` into `out`
-// (distinct contiguous (batch, m, n) buffers on the current device), each
-// member cut into tile_y x tile_x tiles with a `depth`-deep frame.
-//   - More than one tile a member: one cooperative launch of `n_groups`
-//     groups of one block per tile (n_groups * tiles blocks, which must
-//     all fit on the card at once), exchanging the halo every `depth`
-//     steps through `xch`, scratch of n_groups * 2 * m * n floats
-//     (unused, and may be null, when k <= depth).
-//   - One tile a member: an ordinary launch of one block per member;
-//     `n_groups` must equal `batch`, `depth` must be at least 1, and
-//     `xch` is unused.
-// With `res` non-null, member b's last-step residual bit pattern lands in
-// res[b]. Launches on `stream` and does not synchronise. Returns a
-// cudaError_t: 0, or the reason the launch was refused.
-extern "C" int heat_m_ensemble(const float* u, float* out, float* xch,
-                               uint32_t* res, int64_t batch, int64_t m,
-                               int64_t n, int k, int depth, int tile_y,
-                               int tile_x, int n_groups, int block_x,
-                               int block_y, float a0, float cx, float cy,
-                               void* stream) {
+template <bool kCoop>
+__global__ void __launch_bounds__(kHeatMaxThreads, 1)
+heat_m_ensemble_kernel(const float* __restrict__ u, float* __restrict__ out,
+                       float* xch, uint32_t* res, int batch, int m, int n,
+                       int n_col_tiles, int tiles, int n_groups, int k,
+                       int depth, int tile_y, int tile_x, float a0, float cx,
+                       float cy) {
+  heat_m_block<kCoop, float>(u, out, xch, res, batch, m, n, n_col_tiles,
+                             tiles, n_groups, k, depth, tile_y, tile_x, a0,
+                             cx, cy);
+}
+
+// Kernel M on bfloat16 members: a kernel of its own, so that the float32
+// kernel keeps its name and machine code.
+template <bool kCoop>
+__global__ void __launch_bounds__(kHeatMaxThreads, 1)
+heat_m_ensemble_bf16_kernel(const __nv_bfloat16* __restrict__ u,
+                            __nv_bfloat16* __restrict__ out, float* xch,
+                            uint32_t* res, int batch, int m, int n,
+                            int n_col_tiles, int tiles, int n_groups, int k,
+                            int depth, int tile_y, int tile_x, float a0,
+                            float cx, float cy) {
+  heat_m_block<kCoop, __nv_bfloat16>(u, out, xch, res, batch, m, n,
+                                     n_col_tiles, tiles, n_groups, k, depth,
+                                     tile_y, tile_x, a0, cx, cy);
+}
+
+template <typename T>
+static int heat_m_launch(const T* u, T* out, float* xch, uint32_t* res,
+                         int64_t batch, int64_t m, int64_t n, int k,
+                         int depth, int tile_y, int tile_x, int n_groups,
+                         int block_x, int block_y, float a0, float cx,
+                         float cy, void* stream) {
   if (batch < 1 || batch > 0x7fffffffLL || m < 3 || n < 3 || k < 1 ||
       depth < 1 || n_groups < 1 || n_groups > batch ||
       !heat_a_takes(n, tile_y, tile_x, block_x, block_y) ||
@@ -135,9 +155,17 @@ extern "C" int heat_m_ensemble(const float* u, float* out, float* xch,
   if (static_cast<int64_t>(n_groups) * tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = heat_loop_smem_bytes(depth, tile_y, tile_x);
-  const void* kernel =
-      coop ? reinterpret_cast<const void*>(heat_m_ensemble_kernel<true>)
-           : reinterpret_cast<const void*>(heat_m_ensemble_kernel<false>);
+  const void* kernel;
+  if constexpr (std::is_same<T, float>::value)
+    kernel = coop
+                 ? reinterpret_cast<const void*>(heat_m_ensemble_kernel<true>)
+                 : reinterpret_cast<const void*>(
+                       heat_m_ensemble_kernel<false>);
+  else
+    kernel = coop ? reinterpret_cast<const void*>(
+                        heat_m_ensemble_bf16_kernel<true>)
+                  : reinterpret_cast<const void*>(
+                        heat_m_ensemble_bf16_kernel<false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -160,6 +188,50 @@ extern "C" int heat_m_ensemble(const float* u, float* out, float* xch,
     err = cudaLaunchKernel(kernel, grid, block, args, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K steps of each of the `batch` m x n float32 members of `u` into `out`
+// (distinct contiguous (batch, m, n) buffers on the current device), each
+// member cut into tile_y x tile_x tiles with a `depth`-deep frame.
+//   - More than one tile a member: one cooperative launch of `n_groups`
+//     groups of one block per tile (n_groups * tiles blocks, which must
+//     all fit on the card at once), exchanging the halo every `depth`
+//     steps through `xch`, scratch of n_groups * 2 * m * n floats
+//     (unused, and may be null, when k <= depth).
+//   - One tile a member: an ordinary launch of one block per member;
+//     `n_groups` must equal `batch`, `depth` must be at least 1, and
+//     `xch` is unused.
+// With `res` non-null, member b's last-step residual bit pattern lands in
+// res[b]. Launches on `stream` and does not synchronise. Returns a
+// cudaError_t: 0, or the reason the launch was refused.
+extern "C" int heat_m_ensemble(const float* u, float* out, float* xch,
+                               uint32_t* res, int64_t batch, int64_t m,
+                               int64_t n, int k, int depth, int tile_y,
+                               int tile_x, int n_groups, int block_x,
+                               int block_y, float a0, float cx, float cy,
+                               void* stream) {
+  return heat_m_launch(u, out, xch, res, batch, m, n, k, depth, tile_y,
+                       tile_x, n_groups, block_x, block_y, a0, cx, cy,
+                       stream);
+}
+
+// heat_m_ensemble on bfloat16 members `u` into the bfloat16 `out`: every
+// level of every member rounded to bfloat16 as heat_a_resident_bf16
+// rounds it (the same step code), so a member of a launch is bitwise a
+// launch of heat_a_resident_bf16 on that member alone. The shared
+// buffers and `xch` hold float32 (bfloat16 values), so the launch plan is
+// the float32 one. The counterpart of _build_ensemble_vmem_multistep at
+// dtype bfloat16.
+extern "C" int heat_m_ensemble_bf16(const __nv_bfloat16* u,
+                                    __nv_bfloat16* out, float* xch,
+                                    uint32_t* res, int64_t batch, int64_t m,
+                                    int64_t n, int k, int depth, int tile_y,
+                                    int tile_x, int n_groups, int block_x,
+                                    int block_y, float a0, float cx,
+                                    float cy, void* stream) {
+  return heat_m_launch(u, out, xch, res, batch, m, n, k, depth, tile_y,
+                       tile_x, n_groups, block_x, block_y, a0, cx, cy,
+                       stream);
 }
 
 extern "C" const char* heat_m_ensemble_error_string(int code) {

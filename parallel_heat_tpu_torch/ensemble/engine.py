@@ -63,21 +63,24 @@ def ensemble_all_finite(grids) -> np.ndarray:
 
 def ensemble_grid_stats(grids, prev=None) -> List[dict]:
     """Per-member grid diagnostics: a list of B dicts with the keys of
-    ``solver.grid_stats``. Sums accumulate in float32 per member; a
+    ``solver.grid_stats``. Sums accumulate per member in the storage
+    dtype, and in float32 for bfloat16, as the JAX package's do; a
     member's ``heat`` may differ in its last bits from a solo
     ``grid_stats`` (another reduction order): diagnostics are
     observations, not part of the bitwise member contract."""
     with record_function("heat:ens_diag"):
         B = grids.shape[0]
         flat = grids.reshape(B, -1)
+        acc = flat if flat.element_size() >= 4 else flat.float()
         mn, mx = torch.aminmax(flat, dim=1)
-        cols = [mn, mx, flat.sum(dim=1)]
+        cols = [mn, mx, acc.sum(dim=1)]
         if prev is not None:
-            d = flat - prev.reshape(B, -1)
+            d = acc - prev.reshape(B, -1).to(acc.dtype)
             dmn, dmx = torch.aminmax(d, dim=1)
             cols += [torch.linalg.vector_norm(d, dim=1),
                      torch.maximum(dmx, -dmn)]
-        host = torch.stack(cols, dim=1).double().cpu().tolist()
+        host = torch.stack([c.double() for c in cols],
+                           dim=1).cpu().tolist()
     return [{"min": r[0], "max": r[1], "heat": r[2],
              "update_l2": r[3] if prev is not None else None,
              "update_linf": r[4] if prev is not None else None}
@@ -101,7 +104,8 @@ def ensemble_path(config: HeatConfig) -> str:
     if backend == "cuda" and config.ndim == 2:
         from parallel_heat_tpu_torch.ops import batched
 
-        return batched.pick_ensemble_2d(config.shape)
+        return batched.pick_ensemble_2d(config.shape, config.dtype,
+                                        config.accumulate)
     return "vmap"
 
 
@@ -111,17 +115,16 @@ def packable(config: HeatConfig):
     exactly when the batched path computes what the solo ``solve()``
     would: the torch backend, an implicit scheme (the batched V-cycle is
     the solo one over a member axis, transfers included), or the cuda
-    backend where the solo picker takes kernel A (M steps with A's own
-    code). Streaming kernels have no batched twin and run solo."""
+    backend where the solo picker takes kernel A at the config's storage
+    dtype (M steps with A's own code, bfloat16 included). Streaming
+    kernels, and the float32 carry of ``accumulate="f32chunk"`` (E and
+    E-uni), have no batched twin and run solo."""
     try:
         config = config.validate()
     except (ValueError, NotImplementedError) as e:
         return False, f"invalid config: {e}"
     if config.is_sharded():
         return False, "sharded configs run solo (no member axis across a mesh)"
-    if config.dtype != "float32":
-        return False, (f"{config.dtype} configs run solo (no batched path "
-                       f"stores {config.dtype}: ROADMAP.md queue 2 item 24)")
     backend = resolve_backend(config, torch.device(config.device))
     if config.scheme != "explicit":
         return True, ("vmap over the implicit V-cycle multistep "
@@ -132,6 +135,9 @@ def packable(config: HeatConfig):
         return True, "vmap over the torch multistep family (member-bitwise)"
     if ensemble_path(config) == "M":
         return True, "member-batched kernel M (bitwise the solo kernel A)"
+    if config.accumulate == "f32chunk":
+        return False, ("solo cuda f32chunk runs carry float32 through E or "
+                       "E-uni, which have no member-bitwise batched twin")
     return False, ("solo cuda path has no member-bitwise batched twin "
                    "(streaming kernel, or kernel M's launch plan declined "
                    "the geometry)")
@@ -151,7 +157,10 @@ def _batched_multistep(config: HeatConfig):
         backend = resolve_backend(config, torch.device(config.device))
         ms, msr = single_multistep(config, backend)
     else:
-        ms, msr = torch_multistep(*map(float, config.coefficients))
+        # The solo torch route, at the state's dtype and the config's
+        # accumulation mode.
+        ms, msr = torch_multistep(*map(float, config.coefficients),
+                                  accumulate=config.accumulate)
     return ms, msr, "vmap"
 
 
@@ -277,12 +286,6 @@ class EnsembleSolver:
                 "EnsembleSolver is single-device per member: sharded "
                 "mesh_shape configs run solo (the member axis does not "
                 "span a mesh)")
-        if config.dtype != "float32":
-            raise ValueError(
-                f"dtype={config.dtype!r} does not run in an ensemble in this "
-                f"package for now (the batched paths and kernel M store "
-                f"float32): ROADMAP.md queue 2 item 24; run the members "
-                f"solo")
         self.device = resolve_device(config, device)
         self.config = config.replace(device=str(self.device))
         self.ensemble = ensemble.validate()
@@ -305,17 +308,20 @@ class EnsembleSolver:
         """The stacked ``(B, *shape)`` start state on the run's device.
         ``initials`` may be None (every member gets the model's initial
         condition), a single grid (broadcast to every member), or a
-        stacked ``(B, *shape)`` array of per-member grids. Always a copy:
-        the run writes its buffers in place."""
+        stacked ``(B, *shape)`` array of per-member grids. Always a copy
+        in the config's storage dtype (a bfloat16 numpy array crosses by
+        its bits): the run writes its buffers in place."""
+        from parallel_heat_tpu_torch.convert import to_tensor
+
         B = self.batch
         shape = self.config.shape
         if initials is None:
-            one = model_for(self.config).init_grid(self.device)
+            one = model_for(self.config).init_grid(self.device,
+                                                   self.config.dtype)
         else:
-            one = torch.as_tensor(initials).to(device=self.device,
-                                               dtype=torch.float32)
+            one = to_tensor(initials, self.config.dtype, self.device)
             if tuple(one.shape) == (B,) + shape:
-                return one.clone().contiguous()
+                return one
             if tuple(one.shape) != shape:
                 raise ValueError(
                     f"initials shape {tuple(one.shape)} matches neither "
@@ -430,6 +436,12 @@ class EnsembleSolver:
             raise ValueError(
                 f"resume state at step {k0} is past the target {total}")
         chunk = chunk_steps if chunk_steps else max(1, remaining)
+        if self.config.accumulate == "f32chunk" and chunk_steps:
+            from parallel_heat_tpu_torch.ops.stencil import F32CHUNK_DEPTH
+
+            # Chunk boundaries are rounding points (SEMANTICS.md): rounded
+            # up to the carry's depth, as solve_stream does.
+            chunk = -(-chunk // F32CHUNK_DEPTH) * F32CHUNK_DEPTH
         v = torch.empty_like(u)
         k = k0
         while k < total:

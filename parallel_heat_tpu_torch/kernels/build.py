@@ -121,12 +121,17 @@ KERNELS = {
                            + [_F32] * 4 + [_P]),
 }
 # Entry points that live in another kernel's library: name -> (that
-# kernel, argtypes). The storage-precision forms of kernels A, E and E-uni
-# (bfloat16 storage and the float32 carry of accumulate="f32chunk") are
-# compiled into their float32 kernels' sources, so one nvcc builds both.
+# kernel, argtypes). The storage-precision forms of kernels A, B, C, E,
+# E-uni and M (bfloat16 storage, and E's and E-uni's float32 carry of
+# accumulate="f32chunk") are compiled into their float32 kernels' sources,
+# so one nvcc builds both.
 ENTRIES = {
     "heat_a_resident_bf16": ("heat_a_resident",
                              KERNELS["heat_a_resident"][1]),
+    "heat_b_step_bf16": ("heat_b_step", KERNELS["heat_b_step"][1]),
+    "heat_c_tiled_bf16": ("heat_c_tiled", KERNELS["heat_c_tiled"][1]),
+    "heat_m_ensemble_bf16": ("heat_m_ensemble",
+                             KERNELS["heat_m_ensemble"][1]),
     # u, out, res, (m, n), k, tile, thread block, form, coefficients, stream
     "heat_e_temporal_bf16": ("heat_e_temporal",
                              [_P, _P, _P, _I64, _I64] + [_I32] * 6

@@ -10,9 +10,21 @@ Parity contract: a member of a launch is bitwise a launch of kernel A
 (:func:`~.stencil_kernels.resident_steps`) on that member alone, with
 the same grid and residual; the CUDA source steps with A's own device
 code. :func:`pick_ensemble_2d` admits M where the solo picker takes A
-for the member shape and M's own launch plan
-(:meth:`~.hopper_params.HopperParams.m_plan`) fits the card, so the
-batched and the solo path compute the same thing wherever M runs.
+for the member shape and storage dtype, under ``accumulate="storage"``,
+and M's own launch plan (:meth:`~.hopper_params.HopperParams.m_plan`)
+fits the card, so the batched and the solo path compute the same thing
+wherever M runs.
+
+Storage precision: M takes float32 and bfloat16 stacks
+(``heat_m_ensemble_bf16``, the counterpart of the JAX builder at
+``dtype_name="bfloat16"``): every level of every member rounds to
+bfloat16 as A's bfloat16 form rounds it, the residual is the last step's
+float32 update against the float32 of the level it read. The chains are
+held on the card by ``chip_smoke.py``: its ``kernels_ens`` phase holds a
+member of a float32 launch against A on it alone, and its
+``kernels_bf16`` phase a member of a bfloat16 launch against
+``heat_a_resident_bf16`` on it alone, and A's bfloat16 form against K
+launches of ``heat_b_step_bf16``.
 
 :func:`ensemble_steps` takes its plain version only because the tensor it
 was given lies on the CPU. For a CUDA tensor it launches the kernel or
@@ -32,19 +44,22 @@ from parallel_heat_tpu_torch.ops.hopper_params import params
 from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
 
 
-def pick_ensemble_2d(shape) -> str:
-    """The batched-kernel decision: ``"M"`` when the member shape is one
-    the solo picker gives kernel A and M has a launch plan for it (a
-    member fits resident under M's own tiling, whatever the number of
-    members), ``"vmap"`` (the general path: the textbook
-    torch stencil over a leading member axis) otherwise. One decision
-    site, shared by the ensemble engine and ``solver.explain``.
+def pick_ensemble_2d(shape, dtype="float32", accumulate="storage") -> str:
+    """The batched-kernel decision: ``"M"`` under ``accumulate="storage"``
+    when the member shape at storage ``dtype`` is one the solo picker
+    gives kernel A and M has a launch plan for it (a member fits resident
+    under M's own tiling, whatever the number of members), ``"vmap"``
+    (the general path: the solo torch multistep over a leading member
+    axis) otherwise: under ``"f32chunk"`` (the solo run takes E or E-uni,
+    which have no batched twin) and at float64 (the torch route). The JAX
+    rule (``batched.py`` pick_ensemble_2d). One decision site, shared by
+    the ensemble engine and ``solver.explain``.
 
     A choice pinned with ``tune.force("ensemble_2d", ...)`` may demote M
     to vmap freely; it promotes to M only where M admits, and warns
     otherwise."""
-    admits = (len(shape) == 2
-              and sk.pick_single_2d(shape)[0] == "A"
+    admits = (accumulate == "storage" and len(shape) == 2
+              and sk.pick_single_2d(shape, dtype, accumulate)[0] == "A"
               and params().m_plan(1, tuple(shape)) is not None)
     choice = tune.forced("ensemble_2d")
     if choice is not None:
@@ -62,8 +77,9 @@ def _check(u: torch.Tensor, out: torch.Tensor, k: int) -> None:
                          f"least 3 cells per axis, got {tuple(u.shape)}")
     if u.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {u.device}")
-    if u.dtype != torch.float32 or out.dtype != torch.float32:
-        raise TypeError(f"float32 grids only, got {u.dtype} -> {out.dtype}")
+    if (u.dtype, out.dtype) not in sk.STORAGE_PAIRS:
+        raise TypeError(f"float32 or bfloat16 stacks in and out, got "
+                        f"{u.dtype} -> {out.dtype}")
     if out.shape != u.shape:
         raise ValueError(f"out shape {tuple(out.shape)} != stack shape "
                          f"{tuple(u.shape)}")
@@ -88,8 +104,12 @@ def ensemble_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
     every member of the ``(B, M, N)`` stack ``u``, the last one landing
     in ``out``; each member's last-step interior max-norm residual, a
     ``(B,)`` float32 tensor (NaN-propagating), or None without
-    ``with_residual``."""
+    ``with_residual``. A bfloat16 stack rounds every level, as the
+    kernel does (``stencil_kernels._plain_steps_precision``)."""
     sk.counts["ensemble_steps_plain"] += 1
+    if u.dtype == torch.bfloat16:
+        return sk._plain_steps_precision(u, out, k, with_residual, cx, cy,
+                                         False)
     a0, cxf, cyf = coeffs_f32(cx, cy)
 
     def step(src, dst):
@@ -104,14 +124,16 @@ def ensemble_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
 
 
 def _launch_m(u, out, k, xch, bits, cx, cy, plan) -> None:
-    """One launch of ``heat_m_ensemble`` under ``plan`` (an ``m_plan``
-    dict; ``bits`` None: no residual; ``xch`` the groups' exchange
-    planes, None when the plan or ``k`` needs none); raises if the launch
-    is refused. Checks nothing and counts nothing."""
+    """One launch of ``heat_m_ensemble`` (``heat_m_ensemble_bf16`` on a
+    bfloat16 stack) under ``plan`` (an ``m_plan`` dict; ``bits`` None: no
+    residual; ``xch`` the groups' exchange planes, None when the plan or
+    ``k`` needs none); raises if the launch is refused. Checks nothing and
+    counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
-    lib = load("heat_m_ensemble")
-    code = lib.heat_m_ensemble(
+    name = sk.kernel_entry("M", u.dtype)
+    lib = load(name)
+    code = getattr(lib, name)(
         u.data_ptr(), out.data_ptr(), sk._ptr(xch), sk._ptr(bits),
         u.shape[0], u.shape[1], u.shape[2], k, plan["depth"],
         plan["tile"][0], plan["tile"][1], plan["groups"], plan["block"][0],
@@ -120,9 +142,10 @@ def _launch_m(u, out, k, xch, bits, cx, cy, plan) -> None:
 
 
 def exchange_planes(u: torch.Tensor, k: int, plan) -> Optional[torch.Tensor]:
-    """Scratch for a launch of M under ``plan``: two planes of a member's
-    size for each group, or None when no halo is exchanged (one tile a
-    member, or ``k`` within one halo depth)."""
+    """Scratch for a launch of M under ``plan``: two float32 planes of a
+    member's size for each group (at either storage dtype: a bfloat16
+    launch's planes hold bfloat16 values), or None when no halo is
+    exchanged (one tile a member, or ``k`` within one halo depth)."""
     if plan["tiles"] == 1 or k <= plan["depth"]:
         return None
     return torch.empty((plan["groups"], 2) + tuple(u.shape[1:]),
@@ -135,9 +158,11 @@ def ensemble_steps(u: torch.Tensor, out: torch.Tensor, k: int,
     """Kernel M: ``k`` steps of every member of the ``(B, M, N)`` stack
     ``u`` into ``out`` in one launch; returns each member's last-step
     residual (a ``(B,)`` float32 tensor) or None without
-    ``with_residual``. Raises ValueError for a member that does not fit
-    resident on the card
-    (:meth:`~.hopper_params.HopperParams.m_plan`)."""
+    ``with_residual``. Takes float32 and bfloat16 stacks (``out`` of
+    ``u``'s dtype; at bfloat16 every level rounds). Raises ValueError for
+    a member that does not fit resident on the card
+    (:meth:`~.hopper_params.HopperParams.m_plan`, the same plan at both
+    dtypes: the shared buffers hold float32)."""
     _check(u, out, k)
     plan = params().m_plan(int(u.shape[0]), tuple(u.shape[1:]))
     if plan is None:
@@ -152,7 +177,7 @@ def ensemble_steps(u: torch.Tensor, out: torch.Tensor, k: int,
     bits = (torch.empty(u.shape[0], dtype=torch.int32, device=u.device)
             if with_residual else None)
     _launch_m(u, out, k, xch, bits, cx, cy, plan)
-    sk.counts["heat_m_ensemble"] += 1
+    sk.counts[sk.kernel_entry("M", u.dtype)] += 1
     return bits.view(torch.float32) if bits is not None else None
 
 
@@ -167,7 +192,7 @@ def ensemble_multistep(config):
     if torch.device(config.device).type == "cuda":
         from parallel_heat_tpu_torch.kernels.build import load
 
-        load("heat_m_ensemble")
+        load(sk.kernel_entry("M", config.dtype))
 
     def multi_step(u, v, n):
         ensemble_steps(u, v, n, False, cx=cx, cy=cy)

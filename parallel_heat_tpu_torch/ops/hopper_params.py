@@ -420,7 +420,12 @@ class HopperParams:
         == 1``, ``groups == batch``). Otherwise ``groups`` groups of
         ``tiles`` blocks take the members in rounds, and the plan is the
         tiling of :meth:`m_tilings`, over the depths ``m_depths``, with
-        the least cost, then the fewest blocks, then the tallest tile."""
+        the least cost, then the fewest blocks, then the tallest tile.
+
+        The plan is the same at both storage dtypes: a bfloat16 launch
+        (``heat_m_ensemble_bf16``) widens each tile as it lands, and its
+        shared buffers and exchange planes hold float32, as a float32
+        launch's do."""
         solo = self.m_solo_plan(batch, tuple(shape))
         if solo is not None:
             return solo

@@ -14,8 +14,11 @@ full-weighting restriction centred on the vertex map ``fine = 2*coarse +
 1``, bilinear prolongation, rediscretised coarse operators (level ``l``
 carries ``theta*c / 4**l``) and ``_COARSE_SWEEPS`` extra sweeps on the
 coarsest level. Cycles repeat until ``max|b - A u| <= mg_tol * max|b|``
-or ``mg_cycles`` ran. Everything is float32, and the state is written
-once per step, interior only.
+or ``mg_cycles`` ran. Every level is float32 at every storage dtype: a
+step widens the state to float32 once, and writes the interior once,
+rounded to the storage dtype (bfloat16, float32 or float64), as the JAX
+package's step does; the converge residual is the stored level, widened,
+against the level the step read.
 
 As in the JAX package, the smoother, the residual and the norms are plain
 array code; the two transfer operators are kernels:
@@ -541,19 +544,23 @@ def _solve(config: HeatConfig, backend: str, tally=stats,
 def _step_fn(config: HeatConfig, backend: str):
     """One implicit step ``step(u, out) -> res`` from ``u`` into the
     distinct buffer ``out``, where ``res`` is the interior max-norm of
-    the update (per member), the converge mode's quantity. Builds b,
-    cycles to the verdict, and writes the interior once; the ring is
-    carried over."""
+    the update (per member), the converge mode's quantity. Widens ``u``
+    to float32 once, builds b, cycles to the verdict, and writes the
+    interior once, rounded to ``u``'s storage dtype; the ring is carried
+    over bit for bit. The residual is taken after the rounding, as the
+    JAX package takes it: the stored level, widened, against the float32
+    of the level the step read (at float32 the two are one)."""
     solve = _solve(config, backend)
     rhs, finish = _rhs_fn(config)
 
     def step(u, out):
-        b = rhs(u)
+        uf = u.float()
+        b = rhs(uf)
         x = solve(b)[0]
-        new = finish(x, u)[..., 1:-1, 1:-1]
-        res = _max_abs(new - u[..., 1:-1, 1:-1])
         out.copy_(u)
-        out[..., 1:-1, 1:-1] = new
+        out[..., 1:-1, 1:-1] = finish(x, uf)[..., 1:-1, 1:-1]
+        res = _max_abs(out[..., 1:-1, 1:-1].float()
+                       - uf[..., 1:-1, 1:-1])
         stats["steps"] += 1
         return res
 

@@ -72,18 +72,19 @@ def narrow_bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def ring_exact(out: torch.Tensor, u: torch.Tensor) -> None:
-    """``out``'s Dirichlet ring from the 2D grid ``u``'s, bit for bit,
-    across a bfloat16 / float32 pair too, as the kernels copy it: a
-    conversion would turn a NaN's payload into the canonical one."""
+    """``out``'s Dirichlet ring from the 2D grid ``u``'s (each member's,
+    for a stack with leading member axes), bit for bit, across a
+    bfloat16 / float32 pair too, as the kernels copy it: a conversion
+    would turn a NaN's payload into the canonical one."""
     for rows, cols in ((0, slice(None)), (-1, slice(None)),
                        (slice(None), 0), (slice(None), -1)):
-        src = u[rows, cols]
+        src = u[..., rows, cols]
         if u.dtype == out.dtype:
-            out[rows, cols] = src
+            out[..., rows, cols] = src
         elif u.dtype == torch.bfloat16:
-            out[rows, cols] = widen_bits(src.contiguous())
+            out[..., rows, cols] = widen_bits(src.contiguous())
         else:
-            out[rows, cols] = narrow_bits(src.contiguous())
+            out[..., rows, cols] = narrow_bits(src.contiguous())
 
 
 def coeffs_f32(cx: float, cy: float) -> Tuple[float, float, float]:
@@ -194,7 +195,8 @@ def f32chunk_steps(u: torch.Tensor, out: torch.Tensor, k: int,
     chunk (the counterpart of ``pallas_stencil.f32chunk_jnp_multistep``'s
     chunk function). Returns the last step's residual, its float32 update
     against the float32 level it read, or None without
-    ``with_residual``. The ring is copied from ``u``."""
+    ``with_residual``. The ring is copied from ``u``. Leading member axes
+    are taken, as by the steps it chains."""
     v = u.to(torch.float32)
     res = None
     for s in range(k):
@@ -202,6 +204,6 @@ def f32chunk_steps(u: torch.Tensor, out: torch.Tensor, k: int,
             v, res = step_2d_residual(v, cx, cy)
         else:
             v = step_2d(v, cx, cy)
-    out[1:-1, 1:-1] = v[1:-1, 1:-1]
+    out[..., 1:-1, 1:-1] = v[..., 1:-1, 1:-1]
     ring_exact(out, u)
     return res

@@ -43,16 +43,16 @@ Every wrapper writes into a caller-allocated ``out`` (distinct from
 ``u``): the solver ping-pongs two device buffers instead of allocating
 a grid per step.
 
-Storage precision. A, E and E-uni also take bfloat16 grids, as the JAX
-builders take ``dtype_name`` (``heat_a_resident_bf16``,
-``heat_e_temporal_bf16``, ``heat_e_uni_temporal_bf16``): arithmetic is
-float32, and in storage mode every level rounds to bfloat16; E and E-uni
-also take ``acc_f32`` (the JAX builders' ``acc_f32``, the f32chunk mode),
-which carries the levels in float32 and rounds the last one, and may then
-take a float32 grid in or out (:data:`PRECISION_FORMS`). Their counts are
-by form: ``<kernel>_bf16`` and ``<kernel>_bf16_acc``. The other kernels
-take float32 grids only (ROADMAP.md queue 2 items 23 and 24) and raise
-TypeError for any other.
+Storage precision. A, B, C, E and E-uni also take bfloat16 grids, as the
+JAX builders take ``dtype_name`` (``heat_a_resident_bf16``,
+``heat_b_step_bf16``, ``heat_c_tiled_bf16``, ``heat_e_temporal_bf16``,
+``heat_e_uni_temporal_bf16``): arithmetic is float32, and in storage mode
+every level rounds to bfloat16; E and E-uni also take ``acc_f32`` (the
+JAX builders' ``acc_f32``, the f32chunk mode), which carries the levels in
+float32 and rounds the last one, and may then take a float32 grid in or
+out (:data:`PRECISION_FORMS`). Their counts are by form: ``<kernel>_bf16``
+and ``<kernel>_bf16_acc``. I and I-uni take float32 grids only (ROADMAP.md
+queue 2 items 23 and 24) and raise TypeError for any other.
 """
 
 from __future__ import annotations
@@ -77,13 +77,15 @@ from parallel_heat_tpu_torch.utils import device_loop
 # ops/stencil_kernels_block_3d.py (3D) count here too, so one registry
 # covers every kernel of the port.
 counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
-          "heat_a_resident_bf16": 0, "heat_e_temporal_bf16": 0,
+          "heat_a_resident_bf16": 0, "heat_b_step_bf16": 0,
+          "heat_c_tiled_bf16": 0, "heat_e_temporal_bf16": 0,
           "heat_e_temporal_bf16_acc": 0, "heat_e_uni_temporal_bf16": 0,
           "heat_e_uni_temporal_bf16_acc": 0,
           "heat_e_temporal": 0, "heat_e_uni_temporal": 0,
           "heat_i_tile_temporal": 0, "heat_i_uni_tile_temporal": 0,
           "heat_d_step3d": 0, "heat_f_temporal3d": 0,
-          "heat_m_ensemble": 0, "heat_mg_restrict": 0, "heat_mg_prolong": 0,
+          "heat_m_ensemble": 0, "heat_m_ensemble_bf16": 0,
+          "heat_mg_restrict": 0, "heat_mg_prolong": 0,
           "heat_g_block_padded": 0, "heat_g_block_circular": 0,
           "heat_g_block_fused": 0, "heat_g_block_uniform": 0,
           "heat_g_band_fix": 0, "heat_h_block_3d": 0,
@@ -111,6 +113,8 @@ def reset_counts() -> None:
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 _FLOAT32_ONLY = ((_F32, _F32),)
+# Storage forms: a float32 or a bfloat16 grid in and out.
+STORAGE_PAIRS = ((_F32, _F32), (_BF16, _BF16))
 
 # The precision forms of E and E-uni (csrc/heat_temporal.cuh kHeatForm*):
 # (input dtype, output dtype, acc_f32) -> the form code their bfloat16
@@ -177,16 +181,19 @@ def _plain_step(u, out, a0, cx, cy) -> torch.Tensor:
 def strip_step_plain(u: torch.Tensor, out: torch.Tensor, *, cx: float,
                      cy: float) -> torch.Tensor:
     """Plain version of :func:`strip_step`: one step of ``u`` into
-    ``out``; returns the interior max-norm residual (0-d, NaN-propagating)."""
+    ``out``; returns the interior max-norm residual (0-d, NaN-propagating).
+    A bfloat16 grid steps in float32, its interior rounded once and its
+    ring copied bit for bit; the residual is the float32 update against
+    the widened cell, before rounding."""
     counts["strip_step_plain"] += 1
-    return _plain_step(u, out, *coeffs_f32(cx, cy))
+    return _plain_steps_2d(u, out, 1, True, cx, cy)
 
 
 def tiled_step_plain(u: torch.Tensor, out: torch.Tensor, *, cx: float,
                      cy: float) -> torch.Tensor:
     """Plain version of :func:`tiled_step`: as :func:`strip_step_plain`."""
     counts["tiled_step_plain"] += 1
-    return _plain_step(u, out, *coeffs_f32(cx, cy))
+    return _plain_steps_2d(u, out, 1, True, cx, cy)
 
 
 def _plain_steps(u, out, k, with_residual, step):
@@ -208,20 +215,21 @@ def _plain_steps_precision(u, out, k, with_residual, cx, cy, acc_f32):
     bfloat16 before the next step reads it in storage mode, none in the
     carry; the last one stored in ``out``'s dtype (rounded once where that
     is bfloat16); the residual the last step's float32 update against the
-    float32 level it read. The ring is copied exactly."""
+    float32 level it read. The ring is copied exactly. Leading member axes
+    are taken: a ``(B, M, N)`` stack gives ``(B,)`` residuals."""
     a0, cxf, cyf = coeffs_f32(cx, cy)
     v = widen_bits(u) if u.dtype == _BF16 else u.clone()
     res = None
     for s in range(k):
-        c = v[1:-1, 1:-1]
-        new = combine_2d(c, v[:-2, 1:-1], v[2:, 1:-1], v[1:-1, :-2],
-                         v[1:-1, 2:], a0, cxf, cyf)
+        c = v[..., 1:-1, 1:-1]
+        new = combine_2d(c, v[..., :-2, 1:-1], v[..., 2:, 1:-1],
+                         v[..., 1:-1, :-2], v[..., 1:-1, 2:], a0, cxf, cyf)
         if with_residual and s == k - 1:
-            res = (new - c).abs().max()
+            res = (new - c).abs().amax(dim=(-2, -1))
         if not acc_f32 and s < k - 1:
             new = widen_bits(new.to(_BF16))
-        v[1:-1, 1:-1] = new
-    out[1:-1, 1:-1] = v[1:-1, 1:-1]
+        v[..., 1:-1, 1:-1] = new
+    out[..., 1:-1, 1:-1] = v[..., 1:-1, 1:-1]
     ring_exact(out, u)
     return res
 
@@ -304,7 +312,7 @@ def _launch_a(u, out, k, xch, bits, cx, cy, depth, tile, block) -> None:
     refused. Checks nothing and counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
-    name = "heat_a_resident_bf16" if u.dtype == _BF16 else "heat_a_resident"
+    name = kernel_entry("A", u.dtype)
     lib = load(name)
     code = getattr(lib, name)(
         u.data_ptr(), out.data_ptr(), _ptr(xch), _ptr(bits), u.shape[0],
@@ -314,12 +322,14 @@ def _launch_a(u, out, k, xch, bits, cx, cy, depth, tile, block) -> None:
 
 
 def _launch_b(u, out, bits, cx, cy, block, rows_per_thread) -> None:
-    """One launch of ``heat_b_step`` at the given thread block; raises
-    if the launch is refused. Checks nothing and counts nothing."""
+    """One launch of ``heat_b_step`` (``heat_b_step_bf16`` on a bfloat16
+    grid) at the given thread block; raises if the launch is refused.
+    Checks nothing and counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
-    lib = load("heat_b_step")
-    code = lib.heat_b_step(
+    name = kernel_entry("B", u.dtype)
+    lib = load(name)
+    code = getattr(lib, name)(
         u.data_ptr(), out.data_ptr(), bits.data_ptr(), u.shape[0],
         u.shape[1], block[0], block[1], rows_per_thread,
         *coeffs_f32(cx, cy), _stream(u))
@@ -327,12 +337,14 @@ def _launch_b(u, out, bits, cx, cy, block, rows_per_thread) -> None:
 
 
 def _launch_c(u, out, bits, cx, cy, tile, block) -> None:
-    """One launch of ``heat_c_tiled`` at the given tile and thread block;
-    raises if the launch is refused. Checks nothing and counts nothing."""
+    """One launch of ``heat_c_tiled`` (``heat_c_tiled_bf16`` on a bfloat16
+    grid) at the given tile and thread block; raises if the launch is
+    refused. Checks nothing and counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
 
-    lib = load("heat_c_tiled")
-    code = lib.heat_c_tiled(
+    name = kernel_entry("C", u.dtype)
+    lib = load(name)
+    code = getattr(lib, name)(
         u.data_ptr(), out.data_ptr(), bits.data_ptr(), u.shape[0],
         u.shape[1], tile[0], tile[1], block[0], block[1],
         *coeffs_f32(cx, cy), _stream(u))
@@ -469,8 +481,7 @@ def resident_steps(u: torch.Tensor, out: torch.Tensor, k: int,
     xch, bits = a_scratch(u, k, launch, with_residual)
     _launch_a(u, out, k, xch, bits, cx, cy, launch["depth"], launch["tile"],
               launch["block"])
-    counts["heat_a_resident_bf16" if u.dtype == _BF16
-           else "heat_a_resident"] += 1
+    counts[kernel_entry("A", u.dtype)] += 1
     return _residual_view(bits) if bits is not None else None
 
 
@@ -487,7 +498,7 @@ def a_launch(shape):
 def _a_checked(u, out, k):
     """The checks of a launch of A (or of its anatomy probe's variants)
     on ``u`` into ``out`` at depth ``k``; returns :func:`a_launch`."""
-    _check(u, out, dtypes=((_F32, _F32), (_BF16, _BF16)))
+    _check(u, out, dtypes=STORAGE_PAIRS)
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
     launch = a_launch(tuple(u.shape))
@@ -513,14 +524,16 @@ def a_scratch(u, k, launch, with_residual):
 def strip_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
                cy: float) -> torch.Tensor:
     """Kernel B: one step of ``u`` into ``out`` plus the interior
-    max-norm residual, a 0-d float32 tensor on ``u``'s device."""
-    _check(u, out)
+    max-norm residual, a 0-d float32 tensor on ``u``'s device. Takes
+    float32 and bfloat16 grids (``out`` of ``u``'s dtype; the updated
+    cells round to bfloat16, the residual is taken before)."""
+    _check(u, out, dtypes=STORAGE_PAIRS)
     if u.device.type == "cpu":
         return strip_step_plain(u, out, cx=cx, cy=cy)
     p = params()
     bits = torch.empty(1, dtype=torch.int32, device=u.device)
     _launch_b(u, out, bits, cx, cy, p.b_block, p.b_rows_per_thread)
-    counts["heat_b_step"] += 1
+    counts[kernel_entry("B", u.dtype)] += 1
     return _residual_view(bits)
 
 
@@ -528,14 +541,15 @@ def tiled_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
                cy: float) -> torch.Tensor:
     """Kernel C: one step of ``u`` into ``out`` through 2D tiles staged
     in shared memory, plus the interior max-norm residual, a 0-d float32
-    tensor on ``u``'s device."""
-    _check(u, out)
+    tensor on ``u``'s device. Takes float32 and bfloat16 grids, as
+    :func:`strip_step`, and is bitwise it at both."""
+    _check(u, out, dtypes=STORAGE_PAIRS)
     if u.device.type == "cpu":
         return tiled_step_plain(u, out, cx=cx, cy=cy)
     p = params()
     bits = torch.empty(1, dtype=torch.int32, device=u.device)
     _launch_c(u, out, bits, cx, cy, p.c_tile, p.c_block)
-    counts["heat_c_tiled"] += 1
+    counts[kernel_entry("C", u.dtype)] += 1
     return _residual_view(bits)
 
 
@@ -693,7 +707,7 @@ def pick_single_2d(shape, dtype="float32", accumulate="storage"):
 
 # Kernels with no bfloat16 form yet (ROADMAP.md queue 2 item 24): a pin to
 # one of them is infeasible at bfloat16.
-_NO_BF16_FORM = ("B", "C", "I", "I-uni")
+_NO_BF16_FORM = ("I", "I-uni")
 
 
 def _resolve_single_2d(choice, shape, dtype="float32", accumulate="storage"):
@@ -779,15 +793,15 @@ def _chunked_multistep(temporal, K: int):
 _KERNEL_OF = {"A": "heat_a_resident", "B": "heat_b_step",
               "C": "heat_c_tiled", "E": "heat_e_temporal",
               "E-uni": "heat_e_uni_temporal", "I": "heat_i_tile_temporal",
-              "I-uni": "heat_i_uni_tile_temporal"}
+              "I-uni": "heat_i_uni_tile_temporal", "M": "heat_m_ensemble"}
 
 
 def kernel_entry(kind, dtype="float32"):
     """The entry point (``kernels/build.py`` name) a run of ``kind`` at
-    storage ``dtype`` launches: for a bfloat16 run of A, E or E-uni its
-    bfloat16 entry point."""
+    storage ``dtype`` (a name or a torch dtype) launches: for a bfloat16
+    run of A, B, C, E, E-uni or M its bfloat16 entry point."""
     name = _KERNEL_OF[kind]
-    return name + "_bf16" if dtype == "bfloat16" else name
+    return name + "_bf16" if dtype in ("bfloat16", _BF16) else name
 
 
 def single_grid_multistep(config):

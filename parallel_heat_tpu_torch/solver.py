@@ -28,12 +28,17 @@ captured before the clock starts (``HeatResult.capture_s``):
 On the CPU the same loops run eagerly, the host reading each stop test.
 
 Precision (``HeatConfig.dtype``, ``accumulate``): the grid lives in its
-storage dtype, float32, bfloat16 or float64, and arithmetic is float32.
-A bfloat16 run takes A, E or E-uni in their bfloat16 forms; under
-``accumulate="f32chunk"`` E or E-uni carry float32 through each chunk of
-``ops.stencil.F32CHUNK_DEPTH`` steps. A float64 run takes the torch
-route: ``backend="auto"`` resolves to it on the card too, and
-``backend="cuda"`` is refused by ``HeatConfig.validate``.
+storage dtype, float32, bfloat16 or float64, and arithmetic is float32,
+in 2D on one block. An explicit bfloat16 run takes A, E or E-uni in their
+bfloat16 forms (B and C when pinned); under ``accumulate="f32chunk"`` E or
+E-uni carry float32 through each chunk of ``ops.stencil.F32CHUNK_DEPTH``
+steps. An explicit float64 run takes the torch route: ``backend="auto"``
+resolves to it on the card too, and ``backend="cuda"`` is refused by
+``HeatConfig.validate``. An implicit step widens the state to float32
+once and rounds the interior to storage once, at every dtype and on
+either backend (``ops/multigrid.py``). Ensembles take every dtype and
+mode too (``ensemble/engine.py``: kernel M in its bfloat16 form where the
+solo run takes A, else the torch route over a member axis).
 
 The grid lives in two device buffers that the loop ping-pongs in place
 (the reference's ``old = 1-old`` swap): each launch reads one and writes
@@ -479,14 +484,29 @@ def explain(config: HeatConfig, device: Optional[str] = None,
     if ensemble is not None:
         from parallel_heat_tpu_torch.ensemble.engine import (ensemble_path,
                                                              packable)
+        from parallel_heat_tpu_torch.ops.stencil_kernels import kernel_entry
 
         ok, reason = packable(config)
+        if ensemble_path(config) == "M":
+            path = (f"kernel M ({kernel_entry('M', config.dtype)}, "
+                    f"member-batched resident multi-step"
+                    + (", bfloat16 storage" if config.dtype == "bfloat16"
+                       else "") + ")")
+        elif config.scheme != "explicit":
+            path = "vmap over the implicit V-cycle multistep"
+        else:
+            from parallel_heat_tpu_torch.ops.stencil import F32CHUNK_DEPTH
+
+            path = "vmap over the torch multistep family" + {
+                "bfloat16": (f", f32chunk: float32 carry through chunks of "
+                             f"{F32CHUNK_DEPTH} steps"
+                             if config.accumulate == "f32chunk"
+                             else ", bfloat16 storage"),
+                "float64": ", float64 storage, float32 arithmetic",
+            }.get(config.dtype, "")
         out["ensemble"] = {
             "members": int(ensemble),
-            "path": ("kernel M (heat_m_ensemble, member-batched resident "
-                     "multi-step)"
-                     if ensemble_path(config) == "M"
-                     else "vmap over the torch multistep family"),
+            "path": path,
             "packable": ok,
             "packable_reason": reason,
         }
@@ -498,6 +518,10 @@ def explain(config: HeatConfig, device: Optional[str] = None,
         out["path"] = (f"implicit {config.scheme}: multigrid V-cycle per "
                        f"step ({len(mg['levels'])} levels, "
                        f"{mg['smoother']}, {mg['transfers']})")
+        if config.dtype != "float32":
+            out["path"] += (f"; the {config.dtype} state widened to float32 "
+                            f"once a step, the interior rounded to "
+                            f"{config.dtype} once, float32 levels")
         return out
     plain = " (plain version on the CPU)" if dev.type == "cpu" else ""
     if config.accumulate == "f32chunk":

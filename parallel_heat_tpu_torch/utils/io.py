@@ -27,6 +27,24 @@ def _as_numpy(u) -> np.ndarray:
     return np.asarray(u, dtype=np.float32)
 
 
+def save_npy(path: str | os.PathLike, t) -> None:
+    """``np.save`` of the tensor ``t`` with the JAX CLI's bytes: a
+    bfloat16 tensor as its raw 2-byte cells under the ``'<V2'`` descr that
+    ``np.save`` gives an ``ml_dtypes`` bfloat16 array (numpy has no
+    bfloat16 of its own), any other dtype as ``np.save`` writes it."""
+    t = t.detach().cpu().contiguous()
+    if str(t.dtype) != "torch.bfloat16":
+        np.save(path, t.numpy())
+        return
+    import torch
+
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(t.shape)})
+        f.write(t.view(torch.int16).numpy().tobytes())
+
+
 def _format_dat_python(u: np.ndarray) -> str:
     nx, ny = u.shape
     lines = []

@@ -379,12 +379,14 @@ def test_hl4xx_real_plans_clean_and_all_kernels_covered():
                                             findings.load_baseline())
     assert active == [] and stale == []
     names = pk.source_kernel_names()
-    # 31 kernels, the bfloat16 forms of A, E and E-uni (a __global__
-    # each), and the device loop's two one-thread helpers
+    # 31 kernels, the bfloat16 forms of A, B, C, E, E-uni and M (a
+    # __global__ each), and the device loop's two one-thread helpers
     # (csrc/heat_graph_loop.cu, baselined).
-    assert len(names) == 36 and "heat_probe_fixture_kernel" in names
+    assert len(names) == 39 and "heat_probe_fixture_kernel" in names
     assert {"heat_a_resident_bf16_kernel", "heat_e_temporal_bf16_kernel",
-            "heat_e_uni_temporal_bf16_kernel"} <= set(names)
+            "heat_e_uni_temporal_bf16_kernel", "heat_b_step_bf16_kernel",
+            "heat_c_tiled_bf16_kernel",
+            "heat_m_ensemble_bf16_kernel"} <= set(names)
     assert {"heat_graph_set_cond_kernel", "heat_graph_window_kernel"} <= set(
         names)
     from parallel_heat_tpu_torch.kernels.build import KERNELS

@@ -29,6 +29,12 @@ bitwise their plain versions, which round at the same points, on random
 grids at every depth each form takes, on widths that are no multiple of 8 (E) and on
 NaN-seeded grids, whose ring keeps its bits, NaN payloads included; E
 and E-uni bitwise each other; a bfloat16 ``solve()`` bitwise the CPU's.
+So are the bfloat16 forms of B, C and M, and the chains hold at
+bfloat16: C is B, A(K) and E's and E-uni's storage form (K) are K
+launches of B, a member of M is A on that member alone. bfloat16 and
+float64 ensembles and implicit runs are bitwise their solo runs and the
+CPU's, and an implicit run under ``backend="cuda"`` is the one under
+``backend="torch"`` at every dtype.
 """
 
 import functools
@@ -1160,3 +1166,118 @@ def test_precision_solve_on_the_card_matches_the_cpu_bitwise(card, cfg):
     assert _same_bits(gpu.grid.cpu(), cpu.grid)
     if cfg.converge:
         assert _same_res(gpu.residual, cpu.residual)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 forms of B, C and M; the chains; ensembles and the implicit
+# schemes at bfloat16 and float64
+# ---------------------------------------------------------------------------
+
+def _b_bf16_launches(u, k):
+    src, dst = u.clone(), torch.empty_like(u)
+    for _ in range(k):
+        rb = sk.strip_step(src, dst, cx=0.1, cy=0.2)
+        src, dst = dst, src
+    return src, rb
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["random", "nan"])
+@pytest.mark.parametrize("shape", [(1001, 999), (20, 24), (3, 3),
+                                   (300, 4096)])
+def test_b_and_c_bf16_bitwise_plain_and_each_other(card, shape, nan):
+    u = _rand_bf16(shape, 8, card, nan=nan and min(shape) > 3)
+    grids = []
+    for launch, plain in ((sk.strip_step, sk.strip_step_plain),
+                          (sk.tiled_step, sk.tiled_step_plain)):
+        got = torch.full_like(u, float("nan"))
+        want = torch.full_like(u, float("nan"))
+        r = launch(u, got, cx=0.1, cy=0.2)
+        rp = plain(u, want, cx=0.1, cy=0.2)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want) and _same_res(r, rp)
+        assert all(_same_bits(a, b) for a, b in zip(_ring(got), _ring(u)))
+        grids.append((got, r))
+    assert _same_bits(grids[0][0], grids[1][0])
+    assert _same_res(grids[0][1], grids[1][1])
+
+
+@pytest.mark.parametrize("k", [1, 7, 20])
+@pytest.mark.parametrize("batch,shape", [
+    (3, (107, 210)), (8, (20, 20)), (8, (166, 166)), (3, (512, 512)),
+    (2, (1000, 1000)), (64, (512, 512))])
+def test_m_bf16_bitwise_plain_and_a_bf16_per_member(card, batch, shape, k):
+    u = torch.stack([_rand_bf16(shape, b, card) for b in range(batch)])
+    got, want, nores = (torch.empty_like(u) for _ in range(3))
+    r = batched.ensemble_steps(u, got, k, cx=0.1, cy=0.2)
+    rp = batched.ensemble_steps_plain(u, want, k, cx=0.1, cy=0.2)
+    batched.ensemble_steps(u, nores, k, False, cx=0.1, cy=0.2)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want) and torch.equal(r, rp)
+    assert _same_bits(got, nores)
+    for b in {0, batch // 2, batch - 1}:
+        one = torch.empty_like(u[b])
+        ra = sk.resident_steps(u[b].contiguous(), one, k, cx=0.1, cy=0.2)
+        assert _same_bits(one, got[b]) and _same_res(ra, r[b])
+
+
+def test_bf16_chains_are_k_launches_of_b(card):
+    # A (K = 20 on 1000^2), E and E-uni in storage form (K = 8) are K
+    # launches of B, bit for bit; C is B (the test above).
+    u = _rand_bf16((1000, 1000), 9, card)
+    for launch, k, kw in ((sk.resident_steps, 20, {}),
+                          (sk.temporal_steps, 8, {"acc_f32": False}),
+                          (sk.temporal_steps_uni, 8, {"acc_f32": False})):
+        got = torch.empty_like(u)
+        r = launch(u, got, k, True, cx=0.1, cy=0.2, **kw)
+        want, rb = _b_bf16_launches(u, k)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want) and _same_res(r, rb)
+
+
+@pytest.mark.parametrize("cfg", [
+    HeatConfig(nx=512, ny=512, steps=40, dtype="bfloat16"),
+    HeatConfig(nx=100, ny=120, steps=2000, converge=True, eps=1e-2,
+               dtype="bfloat16"),
+    HeatConfig(nx=256, ny=256, steps=40, dtype="bfloat16",
+               accumulate="f32chunk"),
+    HeatConfig(nx=64, ny=64, steps=40, dtype="float64"),
+], ids=["M", "M-converge", "f32chunk", "float64"])
+def test_precision_ensembles_match_solo_and_the_cpu_bitwise(card, cfg):
+    base = solve(cfg.replace(steps=0, converge=False)).grid
+    inits = torch.stack([base * s for s in (1, 0.5, 0.01)])
+    es = EnsembleSolver(cfg, 3)
+    assert es.path == ("M" if cfg.dtype == "bfloat16"
+                       and cfg.accumulate == "storage" else "vmap")
+    sk.reset_counts()
+    got = es.solve(initials=inits)
+    if es.path == "M":
+        assert sk.counts["heat_m_ensemble_bf16"] > 0
+    assert sk.counts["ensemble_steps_plain"] == 0
+    cpu = EnsembleSolver(cfg.replace(
+        backend="torch" if cfg.dtype == "float64" else "cuda"), 3,
+        device="cpu").solve(initials=inits.cpu())
+    assert _same_bits(got.grids.cpu(), cpu.grids)
+    assert got.steps_run.tolist() == cpu.steps_run.tolist()
+    solo_cfg = cfg if es.path == "M" else cfg.replace(backend="torch")
+    for i in range(3):
+        solo = solve(solo_cfg, initial=inits[i])
+        assert _same_bits(got.grids[i], solo.grid)
+        assert int(got.steps_run[i]) == solo.steps_run
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+@pytest.mark.parametrize("scheme", ["backward_euler", "crank_nicolson"])
+def test_implicit_precision_cuda_equals_torch_and_the_cpu(card, scheme,
+                                                          dtype):
+    cfg = HeatConfig(nx=130, ny=97, cx=22.5, cy=22.5, steps=4, scheme=scheme,
+                     dtype=dtype)
+    sk.reset_counts()
+    a = solve(cfg.replace(backend="cuda"))
+    assert sk.counts["heat_mg_restrict"] > 0
+    assert sk.counts["restrict_full_weighting"] == 0
+    b = solve(cfg.replace(backend="torch"))
+    cpu = solve(cfg.replace(backend="torch"), device="cpu")
+    assert a.grid.dtype == b.grid.dtype == cpu.grid.dtype
+    assert _same_bits(a.grid, b.grid)
+    assert _same_bits(a.grid.cpu(), cpu.grid)
+

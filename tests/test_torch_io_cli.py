@@ -129,8 +129,8 @@ def test_cli_flags_write_the_jax_clis_bytes(tmp_path, capsys, flags):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
 def test_cli_refuses_other_dtypes(capsys, dtype):
-    # bfloat16 and float64 run on the 2D single-block explicit path only:
-    # off it (3D here) the CLI refuses them, naming the ROADMAP.md item.
+    # bfloat16 and float64 run in 2D on one block only: off it (3D here)
+    # the CLI refuses them, naming the ROADMAP.md item.
     rc, lines, err = _cli_lines(capsys, ["--nx", "20", "--ny", "20",
                                          "--nz", "8", "--device", "cpu",
                                          "--dtype", dtype])

@@ -294,14 +294,14 @@ def test_wrappers_count_their_calls_on_the_cpu():
     skb3.h_band_fix(us3[0], zt, yt, xlo, xhi, out3, 2, **kw3)
     skb3.h_block(ext3, out3, 2, **kw3)
     # On the CPU the plain versions run; the kernels never launch. One
-    # registry holds all twenty kernels, the counts of A's, E's and
-    # E-uni's bfloat16 forms (storage, and E's and E-uni's acc_f32), and
-    # the plain versions.
+    # registry holds all twenty kernels, the counts of A's, B's, C's, E's,
+    # E-uni's and M's bfloat16 forms (storage, and E's and E-uni's
+    # acc_f32), and the plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
                if not name.startswith("heat_"))
-    assert len(sk.counts) == 45
+    assert len(sk.counts) == 48
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",

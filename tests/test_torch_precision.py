@@ -165,22 +165,34 @@ def test_accumulate_and_dtypes_accepted_where_the_jax_package_takes_them():
     (dict(nx=32, ny=32, dtype="bfloat16", mesh_shape=(2, 2)),
      "queue 2 item 24"),
     (dict(cx=22.5, cy=22.5, dtype="bfloat16", scheme="backward_euler"),
-     "queue 2 item 24"),
+     None),
     (dict(nz=8, dtype="float64"), "queue 1 item 3"),
     (dict(nx=32, ny=32, dtype="float64", mesh_shape=(2, 2)),
      "queue 1 item 3"),
     (dict(cx=22.5, cy=22.5, dtype="float64", scheme="crank_nicolson"),
-     "queue 1 item 3"),
+     None),
 ], ids=["bf16-3d", "bf16-mesh", "bf16-implicit", "f64-3d", "f64-mesh",
         "f64-implicit"])
 def test_precision_refused_off_the_2d_single_block_path(kw, item):
+    # 3D and meshes are off the path and refused, naming their items; the
+    # implicit schemes (item None) run on it, at both dtypes and on both
+    # backends (their transfer kernels see float32 levels only).
+    cfg = HeatConfig(**{"nx": 16, "ny": 16, **kw})
+    if item is None:
+        for backend in ("auto", "torch", "cuda"):
+            assert cfg.replace(backend=backend).validate().dtype == \
+                kw["dtype"]
+        return
     with pytest.raises(ValueError, match=f"ROADMAP.md {item}"):
-        HeatConfig(**{"nx": 16, "ny": 16, **kw}).validate()
+        cfg.validate()
 
 
 def test_float64_runs_the_torch_route_and_refuses_backend_cuda():
     with pytest.raises(ValueError, match="backend='cuda' does not take"):
         HeatConfig(dtype="float64", backend="cuda").validate()
+    # ... for the explicit scheme: an implicit step's kernels see float32.
+    HeatConfig(cx=22.5, cy=22.5, dtype="float64", backend="cuda",
+               scheme="backward_euler").validate()
     cfg = HeatConfig(nx=64, ny=64, dtype="float64")
     out = explain(cfg, device="cuda")
     assert out["backend"] == "torch" and "float64 storage" in out["path"]
@@ -188,11 +200,21 @@ def test_float64_runs_the_torch_route_and_refuses_backend_cuda():
 
 
 def test_bfloat16_ensembles_are_refused():
+    # Off the 2D single-device path: in 3D and on meshes HeatConfig.validate
+    # refuses the dtype itself, naming the item that holds it.
     cfg = HeatConfig(nx=16, ny=16, steps=4, dtype="bfloat16", device="cpu")
-    with pytest.raises(ValueError, match="queue 2 item 24"):
-        EnsembleSolver(cfg, 2)
-    ok, why = packable(cfg)
-    assert not ok and "queue 2 item 24" in why
+    for kw in (dict(nz=8), dict(nx=32, ny=32, mesh_shape=(2, 2))):
+        with pytest.raises(ValueError, match="queue 2 item 24"):
+            EnsembleSolver(cfg.replace(**kw), 2)
+
+
+def test_bfloat16_ensembles_run_in_2d():
+    # A 2D stack runs, stays bfloat16, and is packable on the torch route.
+    cfg = HeatConfig(nx=16, ny=16, steps=4, dtype="bfloat16", device="cpu")
+    res = EnsembleSolver(cfg, 2).solve()
+    assert res.grids.dtype == BF16 and res.steps_run.tolist() == [4, 4]
+    ok, _ = packable(cfg)
+    assert ok
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +244,16 @@ def test_pick_never_chooses_single_step_kernels_under_f32chunk(shape):
 
 def test_pick_at_bfloat16_storage():
     # A's domain is float32's (its shared buffers hold float32); E-uni
-    # needs widths of a multiple of 8 cells; kernels with no bfloat16 form
-    # are infeasible pins.
+    # needs widths of a multiple of 8 cells; B and C take a pin; kernels
+    # with no bfloat16 form (I, I-uni) are infeasible pins.
     assert sk.pick_single_2d((1000, 1000), "bfloat16")[0] == "A"
     assert sk.pick_single_2d((4096, 4096), "bfloat16")[0] == "E-uni"
     assert sk.pick_single_2d((4096, 4100), "bfloat16")[0] == "E"
     assert sk.pick_single_2d((4096, 4100), "float32")[0] == "E-uni"
-    for pin in ("B", "C", "I", "I-uni"):
+    for pin in ("B", "C"):
+        with tune.force("single_2d", pin):
+            assert sk.pick_single_2d((4096, 4096), "bfloat16")[0] == pin
+    for pin in ("I", "I-uni"):
         with tune.force("single_2d", pin), pytest.warns(
                 RuntimeWarning, match="infeasible"):
             assert sk.pick_single_2d((4096, 4096), "bfloat16")[0] == "E-uni"
@@ -339,8 +364,10 @@ def test_forms_refuse_what_they_do_not_take():
         sk.temporal_steps(ut, out, 9, cx=0.1, cy=0.1, acc_f32=True)
     with pytest.raises(TypeError):
         sk.temporal_steps(ut, torch.empty(20, 24), 4, cx=0.1, cy=0.1)
-    with pytest.raises(TypeError):
-        sk.strip_step(ut, out, cx=0.1, cy=0.1)               # no B form
+    with pytest.raises(TypeError):                           # B and C:
+        sk.strip_step(ut, torch.empty(20, 24), cx=0.1, cy=0.1)  # storage
+    with pytest.raises(TypeError):                           # forms only
+        sk.tiled_step(ut.float(), out, cx=0.1, cy=0.1)
     with pytest.raises(TypeError):
         sk.tile_temporal_steps(ut, out, 4, cx=0.1, cy=0.1)   # no I form
     narrow = _pair(_rand((20, 20), 1))[1]

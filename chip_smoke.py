@@ -27,8 +27,10 @@ prints the card's name and power limit, then one JSON line per phase:
    ``heat_probe_gather_dma``, ``heat_probe_sweep_width``,
    ``heat_probe_store_align``, ``heat_probe_roll_pad``,
    ``heat_probe_xslab_overlap``, built here too), nor any of I's and
-   I-uni's instances below K = 8, and their K = 8 instances may not
-   spill more than ``I_SPILL_K8`` (the registers, spills and blocks an SM
+   I-uni's instances below K = 8 (their bfloat16 forms' too), and their
+   K = 8 instances may not spill more than ``I_SPILL_K8``, the bfloat16
+   forms' no more than their float32 sibling's (each source's build
+   seconds are printed; the registers, spills and blocks an SM
    of the instance a forced run launches are printed, with the instances
    that spill), nor the 3D band's instance the H-defer round launches
    more than ``BAND_SPILL_3D``;
@@ -92,7 +94,18 @@ prints the card's name and power limit, then one JSON line per phase:
    whose middle member is the NaN-seeded grid (only its residual NaN);
    and the chains: A's bfloat16 form (K = 20 on 1000^2) and E's and
    E-uni's storage form (K = 8 on 1001x1000) bitwise K launches of
-   ``heat_b_step_bf16``;
+   ``heat_b_step_bf16``. Last I's and I-uni's forms
+   (``heat_i_tile_temporal_bf16``, ``heat_i_uni_tile_temporal_bf16``),
+   each bitwise its plain version: storage and the carry in one launch at
+   every K 1 .. 8, a chunk's first launch into a float32 level at K = 1
+   and 8, its last from one at every K, on the float32 phase's I grids
+   but 16384^2 and on 130x250 (a width of 4k + 2) and 200x136 (I-uni's
+   shifted box at K <= 4), every K's grids asserted to run every kind of
+   band and segment; I-uni bitwise I; I and I-uni in storage form at
+   K = 3 and 8 on 1001x1000 bitwise ``heat_e_temporal_bf16``'s storage
+   form and K launches of ``heat_b_step_bf16``, in the carry form bitwise
+   E's; the NaN-seeded grid in both modes; and their main-path launches
+   at 32768^2 (storage at K = 8, a 16-step chunk's two carry launches);
 2b. kernels_3d — D (``heat_d_step3d``) against its plain version and F
    (``heat_f_temporal3d``) at every compiled K (1 .. 8; past the default
    shape's deepest K at ``hopper_params.f_shape``'s), under each plane load
@@ -135,6 +148,11 @@ prints the card's name and power limit, then one JSON line per phase:
    (E-uni) and forced E, then again under ``accumulate="f32chunk"``
    (chunks of 16, in two launches of 8 across a float32 level), and in
    storage mode pinned to B and to C (``tune.force("single_2d", ...)``):
+   and to I and I-uni in both modes (25 launches a run: 200 / 8 in
+   storage, 12 chunks of two carry launches and a remainder's one under
+   f32chunk), a pinned f32chunk ``solve_stream`` (chunks of 80) and a
+   pinned converge run (the stop test every 40 steps to 200) bitwise
+   their E-uni runs;
    counts set to 0 before each run and read after (the form's launches,
    nothing else), the kernels' grids bitwise equal in each mode, each run's
    Mcells*steps/s, device ms a launch and idle share, and each mode's
@@ -158,8 +176,8 @@ prints the card's name and power limit, then one JSON line per phase:
    grid, and ``--nx 64 --ny 64 --nz 64 --steps 100 --out <tmp>.npy``,
    whose array must equal the solver's grid;
 6b. timing_bf16 — the precision forms as timing does: A at 1000^2 (K =
-   20, residual), E-uni and E at 32768^2 (K = 8; the carry's first and
-   last launches), B and C at 32768^2 (one step, residual), M at
+   20, residual), E-uni, E, I-uni and I at 32768^2 (K = 8; the carry's
+   first and last launches), B and C at 32768^2 (one step, residual), M at
    64 x 512^2 (K = 400), the yardstick ``conv2d`` in bfloat16 (chained K
    times; zero-padded for M), each bound from
    the bytes of the function replaced (a bfloat16 grid read and written
@@ -464,8 +482,9 @@ prints the card's name and power limit, then one JSON line per phase:
 
 Then a ``{"phase_seconds": {...}, "total_s": t}`` line (each phase's
 wall seconds, from the line before its own), a ``{"kernels": [...]}``
-line (all twenty kernels, the five precision forms of A, E and E-uni
-with their launches in main_path_bf16 and precision, and the ten
+line (all twenty kernels, the twelve precision forms of A, B, C, E,
+E-uni, I, I-uni and M with their launches in main_path_bf16, precision
+and ensemble_bf16, and the ten
 probes' kernels, each with its own run's launches: A's anatomy probe and
 neighbour forms with A's plain version, bound and yardstick, the E-uni
 probes with E-uni's, the overlap probe with F's, the roofline with its
@@ -833,7 +852,29 @@ def phase_build():
                         "stages": hp.i_stages,
                         "blocks_per_sm": sk.i_occupancy(name,
                                                         hp.i_k_default)}
+    # I's and I-uni's precision forms, a library each (<K, form>), held to
+    # their float32 siblings' gate: no spill below K = 8, at K = 8 no more
+    # than I_SPILL_K8. Printed: their registers and spills, and the blocks
+    # an SM of each form's instance at the pinned runs' depth.
+    i_bf16 = {}
+    for name in ("heat_i_tile_temporal", "heat_i_uni_tile_temporal"):
+        rows = ptxas[name + "_bf16"]
+        deep = I_SPILL_K8[name]
+        check(len(rows) == 4 * hp.i_k_max and all(
+            (row[1] == 0 and row[2] == 0) if int(inst.split(",")[0]) < 8
+            else (row[1] <= deep[0] and row[2] <= deep[1])
+            for inst, row in rows.items()),
+              f"an instance of {name}_bf16 spills past its float32 "
+              f"sibling's gate ({deep} bytes at K = 8, none below) or is "
+              f"missing: {rows}")
+        i_bf16[name + "_bf16"] = {
+            "instances": rows,
+            "spilling": [i for i, row in rows.items() if row[1]],
+            "blocks_per_sm": {form: sk.i_occupancy(name, hp.i_k_default,
+                                                   form=form)
+                              for form in range(4)}}
     emit({"phase": "build", "seconds": seconds,
+          "source_seconds": dict(build.BUILD_SECONDS),
           "a_and_m_instances": resident, "probe_instances": probes,
           "band_instances": band,
           "libraries": {n: os.path.relpath(str(p), ROOT)
@@ -852,6 +893,7 @@ def phase_build():
                                hp.h_k_default,
                                *hp.h_band_shape(hp.h_k_default))},
           "main_path_g": g_main, "forced_i": i_main,
+          "forced_i_bf16": i_bf16,
           "precision_instances": precision,
           "spilling_instances": spilling, "ptxas": ptxas})
 
@@ -5278,7 +5320,21 @@ KERNELS_BF16 = {
     "heat_c_tiled_bf16": ("heat_c_tiled", TPU + ":3059"),
     "heat_m_ensemble_bf16": ("heat_m_ensemble",
                              "parallel_heat_tpu/ops/batched.py:97"),
+    "heat_i_uni_tile_temporal_bf16": ("heat_i_uni_tile_temporal_bf16",
+                                      TPU + ":3456"),
+    "heat_i_tile_temporal_bf16": ("heat_i_tile_temporal_bf16",
+                                  TPU + ":3294"),
+    "heat_i_uni_tile_temporal_bf16_acc": ("heat_i_uni_tile_temporal_bf16",
+                                          TPU + ":3456"),
+    "heat_i_tile_temporal_bf16_acc": ("heat_i_tile_temporal_bf16",
+                                      TPU + ":3294"),
 }
+# I's and I-uni's bfloat16 check grids: the float32 phase's I grids but
+# the main path's 16384^2, a width of 4k + 2 (I's 8-byte copy on every
+# other row, its 2-byte loads on the rest) and 200 x 136 (I-uni's box
+# shifted 4 cells left at K <= 4, over two bands).
+I_PLAN_BF16 = I_PLAN[:-1] + (((130, 250), (_UNEQ,)),
+                             ((200, 136), (_UNEQ,)))
 BF16_NAN_PAYLOADS = (0x7FC1, -64, 0x7F81)   # -64 is 0xFFC0
 
 
@@ -5336,18 +5392,18 @@ def _check_bf16(launch, plain, u, out_dtype, k, kw, label, err, name):
     return got, r
 
 
-def _check_carry(launch, plain, u, kw, label, err, name):
+def _check_carry(launch, plain, u, kw, label, err, name, k=None):
     """A 16-step carry chunk as the main path launches it
     (stencil_kernels._carry_chunks): its first launch (bfloat16 in, the
-    float32 level out, e_k_default steps) and its last (the level in,
-    bfloat16 out), each bit for bit its plain version on the same input.
-    Returns the last launch's grid and residual."""
+    float32 level out, ``k`` steps: e_k_default where None) and its last
+    (the level in, bfloat16 out), each bit for bit its plain version on
+    the same input. Returns the last launch's grid and residual."""
     import torch
 
     from parallel_heat_tpu_torch.ops.hopper_params import params
     from parallel_heat_tpu_torch.ops.stencil import F32CHUNK_DEPTH
 
-    k = params().e_k_default
+    k = k or params().e_k_default
     kw = dict(kw, acc_f32=True)
     level, _ = _check_bf16(launch, plain, u, torch.float32, k, kw,
                            f"{label}, first launch (K={k})", err, name)
@@ -5624,10 +5680,144 @@ def phase_kernels_bf16(dev):
         torch.cuda.empty_cache()
     del big
     torch.cuda.empty_cache()
+    i_report = _kernels_i_bf16(dev, err, nan_res)
     emit({"phase": "kernels_bf16", "ok": True, "checks": report,
           "chains": chains, "nan_residual": nan_res,
-          "main_path_32768": main, "max_abs_err": err})
+          "main_path_32768": main, "i_forms": i_report,
+          "max_abs_err": err})
     return err
+
+
+def _kernels_i_bf16(dev, err, nan_res):
+    """I's and I-uni's precision forms, each bitwise its plain version
+    (``_check_bf16``): storage and the carry in one launch at every K,
+    a chunk's first launch into a float32 level at K = 1 and
+    i_k_default, its last from one at every K, on the grids of
+    I_PLAN_BF16 (I-uni where its rows are 16-byte multiples), every K's
+    grids asserted to run every kind of band and segment; I-uni bitwise
+    I; the chains (storage at K = 3 and i_k_default on 1001 x 1000
+    bitwise E's storage form and K launches of heat_b_step_bf16, the
+    carry bitwise E's); the NaN-seeded grid (the ring bit for bit, a NaN
+    residual) in both modes; the main path's launches at 32768^2."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    bf16, f32 = torch.bfloat16, torch.float32
+    equal = dict(cx=CX, cy=CY)
+    pairs = (("heat_i_tile_temporal", sk.tile_temporal_steps,
+              sk.tile_temporal_steps_plain),
+             ("heat_i_uni_tile_temporal", sk.tile_temporal_steps_uni,
+              sk.tile_temporal_steps_uni_plain))
+    depths = range(1, p.i_k_max + 1)
+    forms = ((0, bf16, bf16, False, depths), (1, bf16, bf16, True, depths),
+             (2, bf16, f32, True, (1, p.i_k_default)),
+             (3, f32, bf16, True, depths))
+    report, kinds_at = [], {}
+    for shape, coeffs in I_PLAN_BF16:
+        base = _rand_bf16(dev, shape, shape[1] + 7)
+        for k in depths:
+            for kind, count in p.i_band_kinds(shape, k).items():
+                kinds_at.setdefault(k, {}).setdefault(kind, 0)
+                kinds_at[k][kind] += count
+        for form, dt_in, dt_out, acc, ks in forms:
+            u = base if dt_in == bf16 else base.float()
+            for k in ks:
+                for kw in coeffs:
+                    grids = []
+                    for name, launch, plain in pairs:
+                        if "uni" in name and not p.uni_fits(shape, dt_in):
+                            continue
+                        count = name + ("_bf16" if form == 0
+                                        else "_bf16_acc")
+                        grids.append(_check_bf16(
+                            launch, plain, u, dt_out, k,
+                            dict(kw, acc_f32=acc),
+                            f"{count} form {form} (K={k}) at {shape} {kw}",
+                            err, count))
+                    if len(grids) == 2:
+                        check(_bits_equal(grids[0][0], grids[1][0])
+                              and same_float(grids[0][1], grids[1][1]),
+                              f"I-uni form {form} (K={k}) at {shape} {kw} "
+                              f"!= I")
+        report.append({"shape": list(shape), "coeffs": list(coeffs),
+                       "forms": {f: list(ks) for f, _, _, _, ks in forms},
+                       "uni": p.uni_fits(shape, bf16), "bitwise": True})
+        del base
+    torch.cuda.empty_cache()
+    for k, kinds in kinds_at.items():
+        check(all(kinds[kind] for kind in I_BAND_KINDS),
+              f"I's bfloat16 check grids at K={k} run no band or segment "
+              f"of some kind: {kinds}")
+    # The chains: storage bitwise E's storage form and K launches of B,
+    # the carry in one launch bitwise E's carry.
+    chains = {}
+    u = _rand_bf16(dev, (1001, 1000), 17)
+    unequal = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
+    for k in (3, p.i_k_default):
+        src, dst = u.clone(), torch.empty_like(u)
+        for _ in range(k):
+            rb = sk.strip_step(src, dst, **unequal)
+            src, dst = dst, src
+        for acc in (False, True):
+            e_out = torch.empty_like(u)
+            re_ = sk.temporal_steps(u, e_out, k, True, acc_f32=acc,
+                                    **unequal)
+            for name, launch, _ in pairs:
+                got = torch.full_like(u, float("nan"))
+                r = launch(u, got, k, True, acc_f32=acc, **unequal)
+                torch.cuda.synchronize()
+                label = f"{name}_bf16{'_acc' if acc else ''} (K={k})"
+                check(_bits_equal(got, e_out) and same_float(r, re_),
+                      f"{label} at 1001x1000 != heat_e_temporal_bf16's "
+                      f"form {int(acc)}")
+                if not acc:
+                    check(_bits_equal(got, src) and same_float(r, rb),
+                          f"{label} at 1001x1000 != {k} launches of "
+                          f"heat_b_step_bf16")
+                chains.setdefault(name, []).append(
+                    {"k": k, "form": int(acc),
+                     "equals": ["heat_e_temporal_bf16"]
+                     + ([] if acc else [f"{k} x heat_b_step_bf16"])})
+    del u, src, dst, e_out, got
+    # NaN-seeded grid: the ring keeps its bits, the residual is NaN.
+    u = _rand_bf16(dev, (515, 776), 5, nan=True)
+    for name, launch, plain in pairs:
+        for count, acc in ((name + "_bf16", False),
+                           (name + "_bf16_acc", True)):
+            label = f"{count} on a NaN-seeded grid"
+            got, r = (_check_carry(launch, plain, u, equal, label, err,
+                                   count, p.i_k_default) if acc else
+                      _check_bf16(launch, plain, u, bf16, p.i_k_default,
+                                  dict(equal, acc_f32=False), label, err,
+                                  count))
+            nan_res[count] = float(r)
+            check(math.isnan(float(r)), f"NaN-seeded grid gave {count} "
+                                        f"residual {float(r)}, not NaN")
+            check(_ring_kept(got, u), f"{count} moved a bit of the ring")
+    del u, got
+    torch.cuda.empty_cache()
+    # The main path's launches on its 32768^2.
+    big = _plate_grid(dev, BF16_N)
+    main = {}
+    for name, launch, plain in pairs:
+        _check_bf16(launch, plain, big, bf16, p.i_k_default,
+                    dict(equal, acc_f32=False), f"{name}_bf16 at 32768^2",
+                    err, name + "_bf16")
+        torch.cuda.empty_cache()
+        _check_carry(launch, plain, big, equal, f"{name}_bf16_acc at "
+                     f"32768^2", err, name + "_bf16_acc", p.i_k_default)
+        main[name] = {"storage_k": p.i_k_default,
+                      "carry_launches_k": [p.i_k_default,
+                                           16 - p.i_k_default],
+                      "bitwise": True}
+        torch.cuda.empty_cache()
+    del big
+    torch.cuda.empty_cache()
+    return {"checks": report, "band_kinds": kinds_at, "chains": chains,
+            "main_path_32768": main}
 
 
 def _plate_grid(dev, n, dtype="bfloat16"):
@@ -5750,12 +5940,33 @@ def _moving_grid_err(n=4096, steps=MAIN_STEPS):
     return {"shape": [n, n], "steps": steps, **out}
 
 
+def _launches_bf16(kind, mode, steps):
+    """The launches a 32768^2 bfloat16 run of ``steps`` makes under
+    ``kind`` (B and C one a step; E, E-uni, I and I-uni a launch of their
+    default depth in storage mode, a carry chunk of F32CHUNK_DEPTH in two
+    launches and a remainder in one or two under f32chunk)."""
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.ops.stencil import F32CHUNK_DEPTH
+
+    if kind in ("B", "C"):
+        return steps
+    p = params()
+    k = p.i_k_default if kind in ("I", "I-uni") else p.e_k_default
+    if mode == "storage":
+        return -(-steps // k)
+    chunks, rem = divmod(steps, F32CHUNK_DEPTH)
+    return chunks * -(-F32CHUNK_DEPTH // k) + -(-rem // k)
+
+
 def phase_main_path_bf16():
     """BASELINE config 4 at full width: 32768^2 bfloat16, 200 fixed steps,
-    through the default pick (E-uni) and forced E, in storage mode and
-    under f32chunk, and forced B and C in storage mode; the counts set to
-    0 before each run and read after; the kernels' grids bitwise equal in
-    each mode; each run's
+    through the default pick (E-uni) and forced E, I and I-uni, in
+    storage mode and under f32chunk, and forced B and C in storage mode;
+    the counts set to 0 before each run and read after, each run's
+    launches exactly its form's count (:func:`_launches_bf16`); a pinned
+    f32chunk solve_stream (I-uni, chunks of 80) and a pinned f32chunk
+    converge run (I, the stop test every 40 steps) bitwise their E-uni
+    runs; the kernels' grids bitwise equal in each mode; each run's
     Mcells*steps/s and device ms a launch, the default runs' idle share;
     and each mode's error against a float64 oracle of the same 200 steps
     from the same initial grid, run on the card; then the two modes held
@@ -5774,16 +5985,21 @@ def phase_main_path_bf16():
         suffix = "_bf16" if mode == "storage" else "_bf16_acc"
         first = None
         # B and C (pinned) round every step: storage mode only.
-        pins = ((("E-uni", None), ("E", "E"))
+        pins = ((("E-uni", None), ("E", "E"), ("I", "I"), ("I-uni", "I-uni"))
                 + ((("B", "B"), ("C", "C")) if mode == "storage" else ()))
         for kind, force in pins:
             name = {"E-uni": "heat_e_uni_temporal", "E": "heat_e_temporal",
+                    "I": "heat_i_tile_temporal",
+                    "I-uni": "heat_i_uni_tile_temporal",
                     "B": "heat_b_step", "C": "heat_c_tiled"}[kind] + suffix
             r = _bf16_run(cfg, name, force, profile=True)
             res = r["res"]
             check(res.steps_run == steps and res.grid.dtype == torch.bfloat16
                   and tuple(res.grid.shape) == (n, n),
                   f"{name}: {res.steps_run} steps, {res.grid.dtype}")
+            want = _launches_bf16(kind, mode, steps)
+            check(r["launches"] == want, f"{name}: {r['launches']} "
+                                         f"launches in a run, not {want}")
             check(bool(torch.isfinite(res.grid).all()),
                   f"{name}: non-finite grid")
             if first is None:
@@ -5802,6 +6018,8 @@ def phase_main_path_bf16():
                 "idle_share": r["busy"]["idle_share"], "busy": r["busy"]}
             del res
         torch.cuda.empty_cache()
+    out["f32chunk pinned stream and converge"] = _pinned_i_runs(
+        keep["f32chunk"])
     # The plate barely moves in 200 steps: both modes sit on the floor of
     # the oracle rounded to bfloat16, so this is printed, not held.
     start = _plate_grid(torch.device("cuda", 0), n)
@@ -5813,6 +6031,58 @@ def phase_main_path_bf16():
           "steps": steps, "dtype": "bfloat16", "runs": out,
           "bitwise_across_kernels": True})
     return runs
+
+
+def _pinned_i_runs(whole):
+    """32768^2 bfloat16 under f32chunk, 200 steps: solve_stream pinned to
+    I-uni in chunks of 80, its last grid bitwise ``whole`` (the default
+    E-uni solve()); a converge run (eps far below the plate's ulps, the
+    stop test every 40 steps: it runs to its cap) pinned to I, bitwise
+    the default's converge run, its steps, stop and residual equal. The
+    counts are set to 0 just before each run and read just after."""
+    from parallel_heat_tpu_torch import HeatConfig, solve, tune
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.solver import solve_stream
+
+    n, steps = BF16_N, MAIN_STEPS
+    cfg = HeatConfig(nx=n, ny=n, steps=steps, dtype="bfloat16",
+                     accumulate="f32chunk")
+    out = {}
+    with tune.force("single_2d", "I-uni"):
+        sk.reset_counts()
+        seen, last = [], None
+        for r in solve_stream(cfg, chunk_steps=80):
+            seen.append(r.steps_run)
+            last = r.grid
+        counts = {k: c for k, c in sk.counts.items() if c}
+    kernel = "heat_i_uni_tile_temporal_bf16_acc"
+    check(seen == [80, 160, 200] and set(counts) == {kernel}
+          and _bits_equal(last, whole),
+          f"32768^2 f32chunk stream pinned to I-uni: yields {seen}, counts "
+          f"{counts}, bitwise E-uni's solve() {_bits_equal(last, whole)}")
+    out["stream I-uni"] = {"chunk_steps": 80, "yields": seen,
+                           "launches": counts[kernel], "bitwise_solve": True}
+    del last
+    conv = cfg.replace(converge=True, eps=1e-30, check_interval=40)
+    ref = solve(conv)
+    with tune.force("single_2d", "I"):
+        sk.reset_counts()
+        got = solve(conv)
+        counts = {k: c for k, c in sk.counts.items() if c}
+    kernel = "heat_i_tile_temporal_bf16_acc"
+    check(set(counts) == {kernel} and _bits_equal(got.grid, ref.grid)
+          and (got.steps_run, got.converged) == (ref.steps_run,
+                                                 ref.converged) == (steps,
+                                                                    False)
+          and same_float(got.residual, ref.residual),
+          f"32768^2 f32chunk converge pinned to I: {got.steps_run} "
+          f"{got.converged} {got.residual}, counts {counts}; E-uni's "
+          f"{ref.steps_run} {ref.converged} {ref.residual}")
+    out["converge I"] = {"check_interval": 40, "steps_run": got.steps_run,
+                         "converged": got.converged,
+                         "residual": got.residual,
+                         "launches": counts[kernel], "bitwise_e_uni": True}
+    return out
 
 
 def phase_precision():
@@ -6117,7 +6387,8 @@ def phase_timing_bf16(dev):
     """ms a launch of each bfloat16 form (CUDA events and the profiler's
     device time), its plain version and the yardstick (``conv2d`` in
     bfloat16 chained K times), at its main-path launch: A at 1000^2, a
-    20-step window with the residual; E-uni and E at 32768^2, K = 8, in
+    20-step window with the residual; E-uni, E, I-uni and I at 32768^2,
+    K = 8, in
     storage mode and in the carry's launches of a 16-step chunk (its
     first and last, across a float32 level; ms a launch the mean of the
     two); B and C pinned at 32768^2, one step with the residual; M at
@@ -6153,6 +6424,8 @@ def phase_timing_bf16(dev):
     v = torch.empty_like(u)
     x = u.view(1, 1, n, n)
     interior = (n - 2) * (n - 2)
+    check(p.i_k_default == p.e_k_default,
+          "I's and E's launch depths differ: one yardstick for both")
     k = p.e_k_default
     library_k = _time_ms(lambda: conv_steps(x, k), 2)
     library_1 = _time_ms(lambda: conv_steps(x, 1), 10, 2)
@@ -6160,7 +6433,11 @@ def phase_timing_bf16(dev):
     for name, launch, plain in (
             ("heat_e_uni_temporal", sk.temporal_steps_uni,
              sk.temporal_steps_uni_plain),
-            ("heat_e_temporal", sk.temporal_steps, sk.temporal_steps_plain)):
+            ("heat_e_temporal", sk.temporal_steps, sk.temporal_steps_plain),
+            ("heat_i_uni_tile_temporal", sk.tile_temporal_steps_uni,
+             sk.tile_temporal_steps_uni_plain),
+            ("heat_i_tile_temporal", sk.tile_temporal_steps,
+             sk.tile_temporal_steps_plain)):
         rows[name + "_bf16"] = {
             "shape": [n, n], "k": k,
             "ms": _time_ms(lambda: launch(u, v, k, False, **kw), 10, 2),

@@ -708,7 +708,7 @@ def _sched_stages(n_stages, stages, fill, count):
     return ev
 
 
-def plan_i(shape, k, uni=False) -> Plan:
+def plan_i(shape, k, uni=False, form=None) -> Plan:
     """Kernel I (``heat_i_tile_temporal``) or I-uni at depth ``k`` on an
     ``(m, n)`` grid, at ``i_launch``'s segments and the ``i_*`` defaults
     (``heat_i_loop.cuh``). A warp streams one band of 128 columns, so a
@@ -721,15 +721,24 @@ def plan_i(shape, k, uni=False) -> Plan:
     every copy tested against the grid (a 16-byte copy where the lane's
     cells lie inside on a 16-byte boundary, a run-time choice; else 4
     bytes a cell, zero-filled), and every lane's
-    ``cp.async.mbarrier.arrive.noinc``."""
+    ``cp.async.mbarrier.arrive.noinc``. With ``form`` their bfloat16
+    entry point under that precision form: a bfloat16 input's ring holds
+    2-byte cells, rows of 136 from the band's first cell rounded down to
+    8 (``i_row_cells``, stages on 128 bytes), filled by I-uni's bfloat16
+    box of rows x 136 from that cell, by I's 8-byte copies where a lane's
+    cells lie inside on 8 bytes and its plain 2-byte loads elsewhere
+    (every load tested against the grid); form 3's float32 level takes
+    the float32 ring."""
     p = _p()
     m, n = shape
     tile_x, seg = p.i_launch(tuple(shape), k)
     pad = p.i_pad(k)
     warps, rows, stages = p.i_warps, p.i_rows, p.i_stages
+    e_in, e_out = _FORM_ELEMS.get(form, (4, 4))
+    cols = p.i_row_cells(e_in)
     n_bands, n_seg = _ceil(n, tile_x), _ceil(m, seg)
-    stage_f = rows * 128
-    stage_bytes = 4 * stage_f
+    stage_bytes = p.i_stage_bytes(rows, e_in)
+    box_bytes = rows * cols * e_in
 
     def n_stages(r0, r1):
         return _ceil((r1 - r0) + 2 * k, rows)
@@ -741,26 +750,34 @@ def plan_i(shape, k, uni=False) -> Plan:
                                        else (0, m))},
                     (r1 - r0, r0 - k < 1, r0 + ext - k > m - 1))
 
+    # heat_i_loop.cuh shift(): a bfloat16 ring row starts at the band's
+    # first cell rounded down to 16 bytes, 0 or 4 cells left of it (-pad
+    # modulo 8, the same for every band: tile_x is a multiple of 8). The
+    # box reads the whole row from there; I's lanes read their band's
+    # 128 cells into it from the shift on.
+    shift = -pad % 8 if e_in == 2 else 0
+
     def bands(b):
         gx0 = b * tile_x - pad
         write = (b * tile_x, min(b * tile_x + tile_x, n))
-        return Span(write, {"row": (gx0, 128, None if uni else (0, n))},
+        read = (gx0 - shift, cols, None) if uni else (gx0, 128, (0, n))
+        return Span(write, {"row": read},
                     (gx0 < 1, gx0 + 128 > n - 1,
                      write[1] - write[0] < tile_x))
 
     def schedule(spans):
         r0, r1 = spans[0].write
-        gx0 = spans[1].reads["row"][0]
+        x0 = spans[1].reads["row"][0]
         if uni:
             def fill(slot, bar, q):
-                return [("expect_tx", bar, stage_bytes),
-                        ("tma", slot, bar, stage_bytes,
-                         (gx0, r0 - k + q * rows), 0)]
+                return [("expect_tx", bar, box_bytes),
+                        ("tma", slot, bar, box_bytes,
+                         (x0, r0 - k + q * rows), 0)]
             count = 1
         else:
             def fill(slot, bar, q):
-                return [("cp_async", slot, stage_bytes,
-                         (gx0, r0 - k + q * rows)),
+                return [("cp_async", slot, box_bytes,
+                         (x0, r0 - k + q * rows)),
                         ("cp_async_arrive_noinc", bar, 32)]
             count = 32
         return _sched_stages(n_stages(r0, r1), stages, fill, count)
@@ -771,18 +788,27 @@ def plan_i(shape, k, uni=False) -> Plan:
     slot_map["bars"] = (warps * stages * stage_bytes + 8 * (warps - 1)
                         * stages, 8 * stages)
     name = "heat_i_uni_tile_temporal" if uni else "heat_i_tile_temporal"
+    if form is not None:
+        name += "_bf16"
+    if uni:
+        kind = "tma"
+    else:
+        kind = "ld" if e_in == 2 else "cp4"
     return Plan(
         kernel=name + "_kernel", entry=name,
-        label=f"{'I-uni' if uni else 'I'} {m}x{n} K={k}",
+        label=f"{'I-uni' if uni else 'I'} {m}x{n} K={k}"
+              + ("" if form is None else f" form {form}"),
         grid=_ceil(n_bands, warps) * n_seg, threads=32 * warps,
         max_threads=256,
-        dyn_smem=p.i_smem_bytes(warps, rows, stages),
+        dyn_smem=p.i_smem_bytes(warps, rows, stages, e_in),
         static_smem=0,
-        arrays={"u": Array((m, n)), "out": Array((m, n))}, output="out",
+        arrays={"u": Array((m, n), elem=e_in),
+                "out": Array((m, n), elem=e_out)}, output="out",
         axes=[Axis("segments", n_seg, segs), Axis("bands", n_bands, bands)],
-        loads={"row": Load("tma" if uni else "cp4", "u", "ring", 0, (128,),
+        loads={"row": Load(kind, "u", "ring", 0 if uni else shift, (cols,),
                            streamed=0 if uni else 1,
-                           box=(rows, 128) if uni else ())},
+                           box=(rows, cols) if uni else (),
+                           cell_bytes=e_in)},
         slots=slot_map, align_slack=128,
         min_blocks_per_sm=p.i_blocks_per_sm, cover=_full(shape),
         schedule=schedule,
@@ -1674,6 +1700,20 @@ def default_plans() -> List[Plan]:
         out.append(plan_i(MAIN_2D, p.i_k_default, uni))
         out.append(plan_i((20, 24), 3, uni))
     out.append(plan_i((1001, 999), 5))
+    # I's and I-uni's bfloat16 forms: BASELINE config 4's 32768^2 at the
+    # depth its pinned runs launch (storage; a carry chunk's two launches
+    # and a remainder's one), every depth on grids where the box shifts
+    # (K <= 4) and where it does not, and I on an odd width and one of
+    # 4k + 2 (its 2-byte loads).
+    for uni in (False, True):
+        for form in (0, 1, 2, 3):
+            out.append(plan_i(MAIN_BF16, p.i_k_default, uni, form=form))
+            for k in range(1, p.i_k_max + 1):
+                out.append(plan_i((200, 136), k, uni, form=form))
+    for shape in ((1001, 999), (130, 250), (37, 257)):
+        for form in (0, 1, 2, 3):
+            out.append(plan_i(shape, 3, form=form))
+            out.append(plan_i(shape, p.i_k_default, form=form))
     out.append(plan_d(F_SHAPE))
     out.append(plan_d((24, 20, 28)))
     for load in ("tma", "cp.async"):

@@ -4,7 +4,8 @@
 //
 // Replaces: parallel_heat_tpu/ops/pallas_stencil.py::_build_tile_temporal_2d
 // (pallas_call name "heat_i_tile_temporal", defined at :3294, call :3419)
-// in its storage-dtype form. The acc_f32 variant is not ported yet.
+// in its float32 form; its bfloat16 forms, storage and acc_f32, are
+// heat_i_tile_temporal_bf16.cu.
 //
 // Bound on the H100: a pass reads the grid once and writes it once for K
 // steps, plus the column margin and the rows recomputed where a segment

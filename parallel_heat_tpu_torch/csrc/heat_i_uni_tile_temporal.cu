@@ -3,7 +3,8 @@
 //
 // Replaces: parallel_heat_tpu/ops/pallas_stencil.py::
 // _build_tile_temporal_2d_uniform (pallas_call name
-// "heat_i_uni_tile_temporal", defined at :3456, call :3608).
+// "heat_i_uni_tile_temporal", defined at :3456, call :3608) in its
+// float32 form; its bfloat16 forms are heat_i_uni_tile_temporal_bf16.cu.
 //
 // Bound on the H100: heat_i_tile_temporal's (heat_i_loop.cuh), whose
 // band stream it shares.

@@ -28,6 +28,8 @@ import re
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -67,6 +69,16 @@ KERNELS = {
     "heat_i_uni_tile_temporal": ("heat_i_uni_tile_temporal.cu",
                                  [_P, _P, _P, _I64, _I64, _I32, _I64, _I32,
                                   _I32, _I32, _F32, _F32, _F32, _P]),
+    # I's and I-uni's precision forms, a library each (32 instances, built
+    # beside the float32 ones): their arguments, then the form
+    # (csrc/heat_temporal.cuh kHeatForm*) before the coefficients.
+    "heat_i_tile_temporal_bf16": ("heat_i_tile_temporal_bf16.cu",
+                                  [_P, _P, _P, _I64, _I64, _I32, _I64, _I32,
+                                   _I32, _I32, _I32, _F32, _F32, _F32, _P]),
+    "heat_i_uni_tile_temporal_bf16": ("heat_i_uni_tile_temporal_bf16.cu",
+                                      [_P, _P, _P, _I64, _I64, _I32, _I64,
+                                       _I32, _I32, _I32, _I32, _F32, _F32,
+                                       _F32, _P]),
     "heat_d_step3d": ("heat_d_step3d.cu",
                       [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                        _F32, _F32, _F32, _F32, _P]),
@@ -124,7 +136,8 @@ KERNELS = {
 # kernel, argtypes). The storage-precision forms of kernels A, B, C, E,
 # E-uni and M (bfloat16 storage, and E's and E-uni's float32 carry of
 # accumulate="f32chunk") are compiled into their float32 kernels' sources,
-# so one nvcc builds both.
+# so one nvcc builds both; I's and I-uni's have sources of their own
+# (KERNELS).
 ENTRIES = {
     "heat_a_resident_bf16": ("heat_a_resident",
                              KERNELS["heat_a_resident"][1]),
@@ -197,6 +210,9 @@ _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_i_loop.cuh",
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.
 BUILD_LOG: Dict[str, str] = {}
+# Seconds from the start of each build in this process to the end of its
+# nvcc, by kernel name (the nvccs run at once).
+BUILD_SECONDS: Dict[str, float] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -330,6 +346,7 @@ def build(*names: str) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     try:
+        start = time.perf_counter()
         for name in todo:
             tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
             cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
@@ -337,9 +354,18 @@ def build(*names: str) -> Dict[str, Path]:
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
+
+        def finish(name):
+            # One thread a process, so that each one's end is timed.
+            outs = procs[name][1].communicate(timeout=600)
+            BUILD_SECONDS[name] = time.perf_counter() - start
+            return outs
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = dict(zip(procs, pool.map(finish, procs)))
         failed = []
         for name, (tmp, proc) in procs.items():
-            out, err = proc.communicate(timeout=600)
+            out, err = done[name]
             BUILD_LOG[name] = out + err
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n"

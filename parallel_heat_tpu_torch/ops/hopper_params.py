@@ -1064,21 +1064,41 @@ class HopperParams:
         warp's 128 columns less a margin each side (``heat_i_tile_x``)."""
         return 128 - 2 * self.i_pad(k)
 
-    def i_takes(self, k: int, warps: int, rows: int, stages: int) -> bool:
+    def i_takes(self, k: int, warps: int, rows: int, stages: int,
+                elem: int = 4) -> bool:
         """Does kernel I's launcher take depth ``k``, ``warps`` warps a
-        block and a ring of ``stages`` stages of ``rows`` rows
+        block and a ring of ``stages`` stages of ``rows`` rows of
+        ``elem``-byte cells, within a block's shared memory
         (``heat_i_geometry``)?"""
         return (1 <= k <= self.i_k_max and 1 <= warps <= I_MAX_WARPS
                 and I_MIN_ROWS <= rows <= I_MAX_ROWS
-                and 2 <= stages <= I_MAX_STAGES)
+                and 2 <= stages <= I_MAX_STAGES
+                and self.i_smem_bytes(warps, rows, stages, elem)
+                <= self.smem_per_block_max)
 
     @staticmethod
-    def i_smem_bytes(warps: int, rows: int, stages: int) -> int:
+    def i_row_cells(elem: int = 4) -> int:
+        """Cells of a row of kernel I's ring for a grid of ``elem``-byte
+        cells (``heat_i_row_cells``): the band's 128, or at bfloat16 136,
+        from the band's first cell rounded down to 16 bytes (a TMA box's
+        start)."""
+        return 136 if elem == 2 else 128
+
+    @classmethod
+    def i_stage_bytes(cls, rows: int, elem: int = 4) -> int:
+        """Bytes of one stage of ``rows`` ring rows, rounded up to 128 (a
+        box's alignment; ``heat_i_stage_bytes``)."""
+        return -(-rows * elem * cls.i_row_cells(elem) // 128) * 128
+
+    @classmethod
+    def i_smem_bytes(cls, warps: int, rows: int, stages: int,
+                     elem: int = 4) -> int:
         """Dynamic shared memory of one block of kernel I
         (``heat_i_smem_bytes``): 128 bytes to align the rings, ``stages``
-        stages of ``rows`` rows of 128 floats a warp, an 8-byte mbarrier a
-        stage."""
-        return 4 * warps * stages * rows * 128 + 128 + 8 * warps * stages
+        stages of ``rows`` rows of ``elem``-byte cells a warp
+        (:meth:`i_stage_bytes`), an 8-byte mbarrier a stage."""
+        return (warps * stages * cls.i_stage_bytes(rows, elem) + 128
+                + 8 * warps * stages)
 
     def i_launch(self, shape, k, warps=None):
         """Kernel I's ``(band output columns, segment rows)`` at depth
@@ -1102,7 +1122,8 @@ class HopperParams:
         columns inside the grid's interior: the test-free step), ``first``
         and ``last`` bands (past the first or the last interior column),
         ``partial`` bands (fewer output columns than a band holds),
-        ``unaligned`` bands (I's 16-byte copy refused on some row: the
+        ``unaligned`` bands (I's whole-group copy, 16 bytes at float32
+        and 8 at bfloat16, refused on some row: the
         width is no multiple of 4), ``idle`` warps (past the last band),
         ``free_rows`` segments (some rows stepped test-free) and
         ``edge_rows`` segments (their rows reach the grid's first or last

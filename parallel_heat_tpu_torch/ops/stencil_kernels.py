@@ -43,16 +43,16 @@ Every wrapper writes into a caller-allocated ``out`` (distinct from
 ``u``): the solver ping-pongs two device buffers instead of allocating
 a grid per step.
 
-Storage precision. A, B, C, E and E-uni also take bfloat16 grids, as the
+Storage precision. Every kernel here also takes bfloat16 grids, as the
 JAX builders take ``dtype_name`` (``heat_a_resident_bf16``,
 ``heat_b_step_bf16``, ``heat_c_tiled_bf16``, ``heat_e_temporal_bf16``,
-``heat_e_uni_temporal_bf16``): arithmetic is float32, and in storage mode
-every level rounds to bfloat16; E and E-uni also take ``acc_f32`` (the
-JAX builders' ``acc_f32``, the f32chunk mode), which carries the levels in
-float32 and rounds the last one, and may then take a float32 grid in or
-out (:data:`PRECISION_FORMS`). Their counts are by form: ``<kernel>_bf16``
-and ``<kernel>_bf16_acc``. I and I-uni take float32 grids only (ROADMAP.md
-queue 2 items 23 and 24) and raise TypeError for any other.
+``heat_e_uni_temporal_bf16``, ``heat_i_tile_temporal_bf16``,
+``heat_i_uni_tile_temporal_bf16``): arithmetic is float32, and in storage
+mode every level rounds to bfloat16; E, E-uni, I and I-uni also take
+``acc_f32`` (the JAX builders' ``acc_f32``, the f32chunk mode), which
+carries the levels in float32 and rounds the last one, and may then take
+a float32 grid in or out (:data:`PRECISION_FORMS`). Their counts are by
+form: ``<kernel>_bf16`` and ``<kernel>_bf16_acc``.
 """
 
 from __future__ import annotations
@@ -83,6 +83,9 @@ counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "heat_e_uni_temporal_bf16_acc": 0,
           "heat_e_temporal": 0, "heat_e_uni_temporal": 0,
           "heat_i_tile_temporal": 0, "heat_i_uni_tile_temporal": 0,
+          "heat_i_tile_temporal_bf16": 0, "heat_i_tile_temporal_bf16_acc": 0,
+          "heat_i_uni_tile_temporal_bf16": 0,
+          "heat_i_uni_tile_temporal_bf16_acc": 0,
           "heat_d_step3d": 0, "heat_f_temporal3d": 0,
           "heat_m_ensemble": 0, "heat_m_ensemble_bf16": 0,
           "heat_mg_restrict": 0, "heat_mg_prolong": 0,
@@ -116,7 +119,8 @@ _FLOAT32_ONLY = ((_F32, _F32),)
 # Storage forms: a float32 or a bfloat16 grid in and out.
 STORAGE_PAIRS = ((_F32, _F32), (_BF16, _BF16))
 
-# The precision forms of E and E-uni (csrc/heat_temporal.cuh kHeatForm*):
+# The precision forms of E, E-uni, I and I-uni (csrc/heat_temporal.cuh
+# kHeatForm*):
 # (input dtype, output dtype, acc_f32) -> the form code their bfloat16
 # entry points take. A float32 grid in and out takes the float32 kernel
 # in either mode: its levels are float32 already.
@@ -267,21 +271,23 @@ def temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor, k: int,
 
 def tile_temporal_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
                               with_residual: bool = True, *, cx: float,
-                              cy: float) -> Optional[torch.Tensor]:
+                              cy: float,
+                              acc_f32: bool = False) -> Optional[torch.Tensor]:
     """Plain version of :func:`tile_temporal_steps`: as
     :func:`temporal_steps_plain`."""
     counts["tile_temporal_steps_plain"] += 1
-    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy, acc_f32)
 
 
 def tile_temporal_steps_uni_plain(u: torch.Tensor, out: torch.Tensor,
                                   k: int, with_residual: bool = True, *,
-                                  cx: float,
-                                  cy: float) -> Optional[torch.Tensor]:
+                                  cx: float, cy: float,
+                                  acc_f32: bool = False
+                                  ) -> Optional[torch.Tensor]:
     """Plain version of :func:`tile_temporal_steps_uni`: as
     :func:`temporal_steps_plain`."""
     counts["tile_temporal_steps_uni_plain"] += 1
-    return _plain_steps_2d(u, out, k, with_residual, cx, cy)
+    return _plain_steps_2d(u, out, k, with_residual, cx, cy, acc_f32)
 
 
 def resident_steps_plain(u: torch.Tensor, out: torch.Tensor, k: int,
@@ -411,15 +417,16 @@ def loop_occupancy(name: str, k: int, tile, block) -> int:
 
 
 def _launch_i(u, out, k, bits, cx, cy, seg_rows, warps=None, rows=None,
-              stages=None, name="heat_i_tile_temporal") -> None:
+              stages=None, name="heat_i_tile_temporal", form=None) -> None:
     """One launch of ``heat_i_tile_temporal`` (or, by ``name``, of
     ``heat_i_uni_tile_temporal``, which takes the same arguments) over
     bands of ``hopper_params.i_tile_x(k)`` columns, a warp each,
     ``warps`` to a block, and segments of ``seg_rows`` rows, each warp's
     rows in a ring of ``stages`` stages of ``rows`` rows (each
     ``hopper_params``' ``i_*`` default where None; ``bits`` None: no
-    residual); raises if the launch is refused.
-    Checks only the launch shape
+    residual); with ``form`` (:data:`PRECISION_FORMS`) the kernel's
+    bfloat16 entry point under that form. Raises if the launch is
+    refused. Checks only the launch shape
     (:meth:`~.hopper_params.HopperParams.i_takes`, the launcher's own
     rule); counts nothing."""
     from parallel_heat_tpu_torch.kernels.build import load
@@ -428,23 +435,29 @@ def _launch_i(u, out, k, bits, cx, cy, seg_rows, warps=None, rows=None,
     warps = warps or p.i_warps
     rows = rows or p.i_rows
     stages = stages or p.i_stages
-    if not p.i_takes(k, warps, rows, stages):
+    if not p.i_takes(k, warps, rows, stages, u.element_size()):
         raise ValueError(f"{name}: the launcher does not take K={k}, "
                          f"{warps} warps a block and a ring of {stages} "
                          f"stages of {rows} rows (K 1 to {p.i_k_max}, 1 to "
                          f"{I_MAX_WARPS} warps, {I_MIN_ROWS} to "
-                         f"{I_MAX_ROWS} rows, 2 to {I_MAX_STAGES} stages)")
-    lib = load(name)
-    code = getattr(lib, name)(
+                         f"{I_MAX_ROWS} rows, 2 to {I_MAX_STAGES} stages, "
+                         f"within {p.smem_per_block_max} bytes of shared "
+                         f"memory)")
+    entry = name if form is None else name + "_bf16"
+    tail = () if form is None else (form,)
+    lib = load(entry)
+    code = getattr(lib, entry)(
         u.data_ptr(), out.data_ptr(), _ptr(bits), u.shape[0], u.shape[1],
-        k, seg_rows, warps, rows, stages, *coeffs_f32(cx, cy), _stream(u))
-    _raise_on_error(lib, name, code)
+        k, seg_rows, warps, rows, stages, *tail, *coeffs_f32(cx, cy),
+        _stream(u))
+    _raise_on_error(lib, entry, code)
 
 
 def i_occupancy(name: str, k: int, warps=None, rows=None,
-                stages=None) -> int:
+                stages=None, form=None) -> int:
     """Thread blocks of kernel ``name`` (``heat_i_tile_temporal`` or
-    ``heat_i_uni_tile_temporal``) that one SM of the current card holds
+    ``heat_i_uni_tile_temporal``; with ``form`` its bfloat16 entry's
+    instance of that form) that one SM of the current card holds
     at once at depth ``k`` and the launch's warps and ring (the
     ``hopper_params`` ``i_*`` defaults where None): the CUDA occupancy
     calculator at the launch's shared memory, registers included. Builds
@@ -454,14 +467,16 @@ def i_occupancy(name: str, k: int, warps=None, rows=None,
     from parallel_heat_tpu_torch.kernels.build import load
 
     p = params()
-    lib = load(name)
-    fn = getattr(lib, f"{name}_occupancy")
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    entry = name if form is None else name + "_bf16"
+    lead = () if form is None else (form,)
+    lib = load(entry)
+    fn = getattr(lib, f"{entry}_occupancy")
+    fn.argtypes = [ctypes.c_int] * (4 + len(lead)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    code = fn(k, warps or p.i_warps, rows or p.i_rows, stages or p.i_stages,
-              ctypes.byref(blocks))
-    _raise_on_error(lib, name, code)
+    code = fn(*lead, k, warps or p.i_warps, rows or p.i_rows,
+              stages or p.i_stages, ctypes.byref(blocks))
+    _raise_on_error(lib, entry, code)
     return blocks.value
 
 
@@ -553,14 +568,21 @@ def tiled_step(u: torch.Tensor, out: torch.Tensor, *, cx: float,
     return _residual_view(bits)
 
 
+def _form_checked(u, out, acc_f32):
+    """The dtype checks of a kernel with precision forms: float32 in and
+    out, or a pair of :data:`PRECISION_FORMS` in ``acc_f32``'s mode;
+    returns the form (None for float32 in and out)."""
+    _check(u, out, dtypes=((_F32, _F32),) + tuple(
+        (a, b) for a, b, acc in PRECISION_FORMS if acc == bool(acc_f32)))
+    return PRECISION_FORMS.get((u.dtype, out.dtype, bool(acc_f32)))
+
+
 def _e_checked(name, u, out, k, acc_f32=False):
     """The checks of a launch of E or E-uni (or of a probe's variant of
     E-uni's launch, ``name`` not ``"heat_e_temporal"``) on ``u`` into
     ``out`` at depth ``k``; returns the precision form (None for float32
     in and out)."""
-    _check(u, out, dtypes=((_F32, _F32),) + tuple(
-        (a, b) for a, b, acc in PRECISION_FORMS if acc == bool(acc_f32)))
-    form = PRECISION_FORMS.get((u.dtype, out.dtype, bool(acc_f32)))
+    form = _form_checked(u, out, acc_f32)
     p = params()
     deepest = p.e_k_max(elem=u.element_size())
     if not 1 <= k <= deepest:
@@ -622,47 +644,54 @@ def temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
                      out, k, with_residual, cx, cy, acc_f32)
 
 
-def _tile_temporal(name, plain, u, out, k, with_residual, cx, cy):
-    _check(u, out)
+def _tile_temporal(name, plain, u, out, k, with_residual, cx, cy,
+                   acc_f32=False):
+    form = _form_checked(u, out, acc_f32)
     p = params()
     if not 1 <= k <= p.i_k_max:
         raise ValueError(f"k must be in [1, {p.i_k_max}], got {k}")
     uni = name == "heat_i_uni_tile_temporal"
-    if uni and not p.uni_fits(tuple(u.shape)):
-        raise ValueError(f"kernel I-uni needs a grid width that is a "
-                         f"multiple of 4, got {tuple(u.shape)}")
+    if uni and not p.uni_fits(tuple(u.shape), u.dtype):
+        raise ValueError(f"kernel I-uni needs a grid whose rows are 16-byte "
+                         f"multiples (a width that is a multiple of "
+                         f"{16 // u.element_size()} at {u.dtype}), got "
+                         f"{tuple(u.shape)}")
     if u.device.type == "cpu":
-        return plain(u, out, k, with_residual, cx=cx, cy=cy)
+        return plain(u, out, k, with_residual, cx=cx, cy=cy, acc_f32=acc_f32)
     if uni and u.data_ptr() % 16:
         raise ValueError("kernel I-uni needs a 16-byte aligned grid")
     bits = (torch.empty(1, dtype=torch.int32, device=u.device)
             if with_residual else None)
     _, seg_rows = p.i_launch(tuple(u.shape), k)
-    _launch_i(u, out, k, bits, cx, cy, seg_rows, name=name)
-    counts[name] += 1
+    _launch_i(u, out, k, bits, cx, cy, seg_rows, name=name, form=form)
+    counts[_form_count(name, form)] += 1
     return _residual_view(bits) if bits is not None else None
 
 
 def tile_temporal_steps(u: torch.Tensor, out: torch.Tensor, k: int,
                         with_residual: bool = True, *, cx: float,
-                        cy: float) -> Optional[torch.Tensor]:
+                        cy: float,
+                        acc_f32: bool = False) -> Optional[torch.Tensor]:
     """Kernel I: ``k`` steps (at most 8) of ``u`` into ``out`` in one pass
     through global memory, over column bands of 128 columns each streamed
     down the grid by one warp; bitwise the grid and residual of
-    :func:`temporal_steps`."""
+    :func:`temporal_steps`, at every precision form it takes (float32 or
+    bfloat16 grids, ``acc_f32`` as :func:`temporal_steps`)."""
     return _tile_temporal("heat_i_tile_temporal", tile_temporal_steps_plain,
-                          u, out, k, with_residual, cx, cy)
+                          u, out, k, with_residual, cx, cy, acc_f32)
 
 
 def tile_temporal_steps_uni(u: torch.Tensor, out: torch.Tensor, k: int,
                             with_residual: bool = True, *, cx: float,
-                            cy: float) -> Optional[torch.Tensor]:
+                            cy: float,
+                            acc_f32: bool = False) -> Optional[torch.Tensor]:
     """Kernel I-uni: :func:`tile_temporal_steps` with a uniform load, each
-    stage of a band's rows one TMA box of the grid. Takes grids whose
-    width is a multiple of 4 (ValueError otherwise)."""
+    stage of a band's rows one TMA box of the grid. Takes grids whose rows
+    are 16-byte multiples: a width that is a multiple of 4 at float32, of
+    8 at bfloat16 (ValueError otherwise)."""
     return _tile_temporal("heat_i_uni_tile_temporal",
                           tile_temporal_steps_uni_plain, u, out, k,
-                          with_residual, cx, cy)
+                          with_residual, cx, cy, acc_f32)
 
 
 # ---------------------------------------------------------------------------
@@ -685,9 +714,8 @@ def pick_single_2d(shape, dtype="float32", accumulate="storage"):
     store float32 and bfloat16). A choice pinned with
     ``tune.force("single_2d", ...)`` wins when it is feasible for the
     geometry, dtype and mode; an infeasible pin (A on a grid too large,
-    E-uni or I-uni on a width whose rows are not 16-byte multiples, a
-    kernel with no form for the dtype or mode) warns and the default
-    decides.
+    E-uni or I-uni on a width whose rows are not 16-byte multiples, A, B
+    or C under f32chunk) warns and the default decides.
     """
     dtype = str(dtype).replace("torch.", "")
     if dtype == "float64":
@@ -705,11 +733,6 @@ def pick_single_2d(shape, dtype="float32", accumulate="storage"):
         for kind in ("A", "E-uni", "E"))))
 
 
-# Kernels with no bfloat16 form yet (ROADMAP.md queue 2 item 24): a pin to
-# one of them is infeasible at bfloat16.
-_NO_BF16_FORM = ("I", "I-uni")
-
-
 def _resolve_single_2d(choice, shape, dtype="float32", accumulate="storage"):
     p = params()
     acc = accumulate == "f32chunk"
@@ -718,8 +741,6 @@ def _resolve_single_2d(choice, shape, dtype="float32", accumulate="storage"):
     if acc and choice in ("A", "B", "C"):
         # Single-step kernels, and A, round every step: they can never
         # honour the chunked-f32 contract.
-        return None
-    if dtype == "bfloat16" and choice in _NO_BF16_FORM:
         return None
     if choice == "A":
         launch = a_launch(shape)
@@ -732,7 +753,8 @@ def _resolve_single_2d(choice, shape, dtype="float32", accumulate="storage"):
         return choice, {"k": k, "tile": p.e_tile, "block": p.e_block}
     if choice in ("I", "I-uni"):
         tile_x, seg_rows = p.i_launch(tuple(shape), p.i_k_default)
-        return choice, {"k": p.i_k_default, "band": tile_x,
+        k = F32CHUNK_DEPTH if acc else p.i_k_default
+        return choice, {"k": k, "band": tile_x,
                         "segment": seg_rows, "warps": p.i_warps,
                         "rows": p.i_rows, "stages": p.i_stages}
     if choice == "C":
@@ -740,14 +762,16 @@ def _resolve_single_2d(choice, shape, dtype="float32", accumulate="storage"):
     return "B", {"block": p.b_block, "rows_per_thread": p.b_rows_per_thread}
 
 
-def _carry_chunks(launch):
+def _carry_chunks(launch, launch_k=None):
     """``temporal(u, v, k, want_res)`` for a bfloat16 run under f32chunk:
-    one chunk of ``k`` steps (at most ``2 * e_k_default``) carried in
-    float32 by ``launch`` (E or E-uni with ``acc_f32``): in one launch up
-    to ``e_k_default`` steps, else in two, the first ``e_k_default`` steps
-    into a float32 level and the rest from it, so the chunk rounds once,
-    at its last launch, and only that launch computes the residual."""
-    launch_k = params().e_k_default
+    one chunk of ``k`` steps (at most ``2 * launch_k``) carried in
+    float32 by ``launch`` (E, E-uni, I or I-uni with ``acc_f32``, whose
+    default depth is ``launch_k``: ``e_k_default`` where None): in one
+    launch up to ``launch_k`` steps, else in two, the first ``launch_k``
+    steps into a float32 level and the rest from it, so the chunk rounds
+    once, at its last launch, and only that launch computes the
+    residual."""
+    launch_k = launch_k or params().e_k_default
 
     def temporal(u, v, k, want_res):
         if k <= launch_k:
@@ -799,7 +823,7 @@ _KERNEL_OF = {"A": "heat_a_resident", "B": "heat_b_step",
 def kernel_entry(kind, dtype="float32"):
     """The entry point (``kernels/build.py`` name) a run of ``kind`` at
     storage ``dtype`` (a name or a torch dtype) launches: for a bfloat16
-    run of A, B, C, E, E-uni or M its bfloat16 entry point."""
+    run its bfloat16 entry point."""
     name = _KERNEL_OF[kind]
     return name + "_bf16" if dtype in ("bfloat16", _BF16) else name
 
@@ -846,8 +870,12 @@ def single_grid_multistep(config):
 
         if config.accumulate == "f32chunk":
             # K = F32CHUNK_DEPTH is the semantics' chunk: the launch depth
-            # (e_k_default) never moves a rounding point.
-            return _chunked_multistep(_carry_chunks(temporal), detail["k"])
+            # (e_k_default, i_k_default) never moves a rounding point.
+            p = params()
+            launch_k = (p.i_k_default if kind in ("I", "I-uni")
+                        else p.e_k_default)
+            return _chunked_multistep(_carry_chunks(temporal, launch_k),
+                                      detail["k"])
         return _chunked_multistep(temporal, detail["k"])
     launch = strip_step if kind == "B" else tiled_step
 

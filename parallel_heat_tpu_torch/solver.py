@@ -565,12 +565,17 @@ def explain(config: HeatConfig, device: Optional[str] = None,
                        f"{lanes}x{warps} threads K={detail['k']}{launches}"
                        + plain)
     elif kind in ("I", "I-uni"):
+        from parallel_heat_tpu_torch.ops.hopper_params import params
+
         name = ("heat_i_tile_temporal" if kind == "I"
                 else "heat_i_uni_tile_temporal")
-        out["path"] = (f"kernel {kind} ({name}, K-step temporal over "
-                       f"column bands) band={detail['band']} "
-                       f"segment={detail['segment']} K={detail['k']}"
-                       + plain)
+        load = "cp.async" if kind == "I" else "uniform TMA"
+        launches = (f" in launches of at most {params().i_k_default}"
+                    if config.accumulate == "f32chunk" else "")
+        out["path"] = (f"kernel {kind} ({name}{bf16}, K-step temporal over "
+                       f"column bands, {load} load{form}) "
+                       f"band={detail['band']} segment={detail['segment']} "
+                       f"K={detail['k']}{launches}" + plain)
     elif kind == "B":
         bx, by = detail["block"]
         out["path"] = (f"kernel B (heat_b_step, one step) tile="

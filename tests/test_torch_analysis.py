@@ -379,13 +379,14 @@ def test_hl4xx_real_plans_clean_and_all_kernels_covered():
                                             findings.load_baseline())
     assert active == [] and stale == []
     names = pk.source_kernel_names()
-    # 31 kernels, the bfloat16 forms of A, B, C, E, E-uni and M (a
-    # __global__ each), and the device loop's two one-thread helpers
+    # 31 kernels, the bfloat16 forms of A, B, C, E, E-uni, I, I-uni and M
+    # (a __global__ each), and the device loop's two one-thread helpers
     # (csrc/heat_graph_loop.cu, baselined).
-    assert len(names) == 39 and "heat_probe_fixture_kernel" in names
+    assert len(names) == 41 and "heat_probe_fixture_kernel" in names
     assert {"heat_a_resident_bf16_kernel", "heat_e_temporal_bf16_kernel",
             "heat_e_uni_temporal_bf16_kernel", "heat_b_step_bf16_kernel",
-            "heat_c_tiled_bf16_kernel",
+            "heat_c_tiled_bf16_kernel", "heat_i_tile_temporal_bf16_kernel",
+            "heat_i_uni_tile_temporal_bf16_kernel",
             "heat_m_ensemble_bf16_kernel"} <= set(names)
     assert {"heat_graph_set_cond_kernel", "heat_graph_window_kernel"} <= set(
         names)
@@ -566,6 +567,67 @@ def test_plan_m_and_g_and_h_main_paths_are_the_wrappers():
     assert h.grid == (-(-512 // seg) * -(-512 // (wy - 6))
                       * -(-512 // (bz - 6)))
     assert h.dyn_smem == max(p.h_smem_bytes(3), p.h_tma_smem_bytes(3))
+
+
+@pytest.mark.parametrize("uni", [False, True])
+@pytest.mark.parametrize("form", [0, 1, 2, 3])
+def test_plan_i_forms_are_the_wrappers(form, uni):
+    # BASELINE config 4's 32768^2 at the pinned runs' depth: the entry and
+    # __global__ of the form, the ring of the input's cells (136 bfloat16
+    # a row from 16 bytes of the grid's row, stages on 128 bytes), I-uni's
+    # box of the whole row, I's tested loads, the dtypes in and out.
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    plan = pp.plan_i((32768, 32768), p.i_k_default, uni, form=form)
+    elem_in, elem_out = (4 if form == 3 else 2), (4 if form == 2 else 2)
+    entry = ("heat_i_uni_tile_temporal_bf16" if uni
+             else "heat_i_tile_temporal_bf16")
+    assert (plan.entry, plan.kernel) == (entry, entry + "_kernel")
+    assert plan.dyn_smem == p.i_smem_bytes(p.i_warps, p.i_rows,
+                                           p.i_stages, elem_in)
+    assert (plan.arrays["u"].elem, plan.arrays["out"].elem) == (elem_in,
+                                                               elem_out)
+    load = plan.loads["row"]
+    cols = 136 if elem_in == 2 else 128
+    assert load.cell_bytes == elem_in and load.pitch == (cols,)
+    if uni:
+        assert load.kind == "tma" and load.box == (p.i_rows, cols)
+    else:
+        assert load.kind == ("ld" if elem_in == 2 else "cp4")
+    assert p.i_stage_bytes(p.i_rows, elem_in) % 128 == 0
+    assert pk.audit_kernels([plan], check_coverage=False) == []
+
+
+@pytest.mark.parametrize("fault", ["unshifted box", "256-byte rows"])
+def test_plan_i_bf16_audit_catches_a_box_off_16_bytes_or_past_its_stage(
+        fault):
+    # At K <= 4 a band starts 4 cells past 16 bytes: a box from the band's
+    # own first cell faults on the card, and a ring of 128-cell rows is
+    # too short for the 136-cell box.
+    import dataclasses
+
+    plan = pp.plan_i((200, 136), 3, True, form=0)
+    assert pk.audit_kernels([plan], check_coverage=False) == []
+    if fault == "unshifted box":
+        bands = plan.axes[1]
+
+        def unshifted(b, span=bands.span):
+            s = span(b)
+            start, ext, guard = s.reads["row"]
+            return dataclasses.replace(s, reads={"row": (start + 4, ext,
+                                                         guard)})
+
+        plan.axes[1] = pp.Axis(bands.name, bands.count, unshifted)
+        phrase = "not on 16"
+    else:
+        rows = plan.loads["row"].box[0]
+        plan.slots = {name: ((off, rows * 256) if name.startswith("ring")
+                             else (off, size))
+                      for name, (off, size) in plan.slots.items()}
+        phrase = "past its shared buffer"
+    assert any(phrase in f.message
+               for f in pk.audit_kernels([plan], check_coverage=False))
 
 
 # The transfer plans: the 512^2 hierarchy's top and bottom pairs, a

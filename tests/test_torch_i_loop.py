@@ -22,7 +22,12 @@ kernels repeat operation for operation (every operation rounded to
 float32 in both), and every output cell must be written exactly once.
 The emulation is also held to the JAX package's ``heat_i_tile_temporal``
 in interpret mode, within the few-ulp contract of
-``tests/test_torch_kernels.py``.
+``tests/test_torch_kernels.py``. The bfloat16 forms
+(``heat_i_tile_temporal_bf16``, ``heat_i_uni_tile_temporal_bf16``) are
+emulated too: their ring of 136-cell rows from 16 bytes of the grid's row
+(NaN in every cell no lane or box fills), the levels rounded in storage
+mode, the output rounded where it is bfloat16, each held bitwise to the
+plain version of its form.
 """
 
 import jax.numpy as jnp
@@ -50,12 +55,31 @@ def _combine(c, up, dn, left, right, a0, cx, cy):
     return ((a0 * c) + (cx * (up + dn))) + (cy * (left + right))
 
 
+def _bf16(x):
+    """float32 values rounded to bfloat16 (round to nearest even, as the
+    plain versions' ``.to(torch.bfloat16)``), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=f32)).to(
+        torch.bfloat16).float().numpy()
+
+
 def _emulate(u, k, *, seg_rows=None, warps=None, rows=None, stages=None,
-             coeffs=(CX, CY), uni=None):
+             coeffs=(CX, CY), uni=None, form=None):
     """The kernels' output grid, residual (float32), write count per cell
     and what each band did, for ``u`` under the launch ``i_launch`` and
-    the ``i_*`` defaults give (or the arguments)."""
+    the ``i_*`` defaults give (or the arguments). With ``form`` a
+    bfloat16 form's (``stencil_kernels.PRECISION_FORMS``; ``u`` holds the
+    input's values as float32, the output is returned so): a bfloat16
+    input's ring rows of 136 cells from the band's first cell rounded
+    down to 8 (I-uni's box fills the whole row, I's lanes their own 4
+    cells; every other cell stays NaN), read from the shift on; in storage
+    mode each level below K rounded before the copied cells are restored;
+    a bfloat16 output's updated cells rounded, its copied ones kept."""
     p = params()
+    (_, dout, _), = ([key for key, f in sk.PRECISION_FORMS.items()
+                        if f == form] if form is not None
+                       else [(None, torch.float32, True)])
+    ring_bf16 = form in (0, 1, 2)
+    rnd_levels = form == 0
     a0, cx, cy = (f32(c) for c in coeffs_f32(*coeffs))
     m, n = u.shape
     uni = n % 4 == 0 if uni is None else uni
@@ -103,8 +127,45 @@ def _emulate(u, k, *, seg_rows=None, warps=None, rows=None, stages=None,
         ring = np.full((B, S, R, LANES, 4), np.nan, dtype=f32)
         filled = [None] * S          # the stage each slot holds
         unaligned = np.zeros(B, dtype=bool)
+        if ring_bf16:
+            # Rows of 136 cells from gx0 - shift (shift = gx0 mod 8).
+            shift = gx0 % 8
+            cells = (shift[:, None, None] + 4 * lane[None, :, None]
+                     + np.arange(4))
+            wide = np.full((B, S, R, 136), np.nan, dtype=f32)
+            col = (gx0 - shift)[:, None] + np.arange(136)
+
+        def fill_bf16(q, slot):
+            filled[slot] = q
+            for r in range(R):
+                t = t0 + q * R + r
+                row = np.zeros((B, 136), dtype=f32)
+                if 0 <= t < m:
+                    ok = (col >= 0) & (col < n)
+                    row[ok] = u[t, col[ok]]
+                    g = gx[:, :, 0]
+                    whole = (g >= 0) & (g + 4 <= n) & ((t * n + g) % 4 == 0)
+                    unaligned[:] |= ((g >= 0) & (g + 4 <= n)
+                                     & ~whole).any(axis=1)
+                if uni:
+                    wide[:, slot, r] = row
+                else:
+                    # Each lane its own 4 cells (the 8-byte copy, or 2-byte
+                    # loads and zeros: the same values); the rest of the
+                    # row is never written.
+                    wide[:, slot, r] = np.nan
+                    for b in range(B):
+                        wide[b, slot, r, cells[b].ravel()] = row[
+                            b, cells[b].ravel()]
+            ring[:, slot] = np.take_along_axis(
+                wide[:, slot].reshape(B, R, 136),
+                np.broadcast_to(cells.reshape(B, 1, LANES * 4),
+                                (B, R, LANES * 4)), axis=2).reshape(
+                B, R, LANES, 4)
 
         def fill(q, slot):
+            if ring_bf16:
+                return fill_bf16(q, slot)
             filled[slot] = q
             for r in range(R):
                 t = t0 + q * R + r
@@ -122,7 +183,7 @@ def _emulate(u, k, *, seg_rows=None, warps=None, rows=None, stages=None,
                                          & ~whole).any(axis=1)
                 ring[:, slot, r] = vals
 
-        def step(up, c, dn, q_row, free):
+        def step(up, c, dn, q_row, free, rnd=False):
             # The cells left and right of each lane's group: the
             # neighbouring lanes' by shuffle, NaN past lanes 0 and 31.
             lf = np.full((B, LANES), np.nan, dtype=f32)
@@ -132,6 +193,8 @@ def _emulate(u, k, *, seg_rows=None, warps=None, rows=None, stages=None,
             left = np.concatenate([lf[..., None], c[..., :3]], axis=-1)
             right = np.concatenate([c[..., 1:], rt[..., None]], axis=-1)
             v = _combine(c, up, dn, left, right, a0, cx, cy)
+            if rnd:
+                v = _bf16(v)
             checked = np.where((1 <= q_row <= m - 2) & cin, v, c)
             return np.where(free[:, None, None], v, checked)
 
@@ -144,6 +207,9 @@ def _emulate(u, k, *, seg_rows=None, warps=None, rows=None, stages=None,
             if fold.any():
                 bits = np.abs(v - c)[fold].view(np.uint32)
                 rmax = max(rmax, bits.max())
+            if dout == torch.bfloat16:
+                # Updated cells rounded; copied ones are bfloat16 already.
+                v = _bf16(v)
             out[q_row, gx[sout]] = v[sout]
             np.add.at(writes[q_row], gx[sout], 1)
 
@@ -178,7 +244,7 @@ def _emulate(u, k, *, seg_rows=None, warps=None, rows=None, stages=None,
             for s in range(1, k + 1):
                 up, c, dn = ((up0, c0, dn0) if s == 1
                              else (U[s - 1], M[s - 1], D[s - 1]))
-                v = step(up, c, dn, t - s, free)
+                v = step(up, c, dn, t - s, free, rnd_levels and s < k)
                 if s == k:
                     emit(v, c, t - k, free)
                 if s > 1:
@@ -217,6 +283,37 @@ def test_band_stream_emulation_is_the_plain_version(shape, k, coeffs):
     np.testing.assert_array_equal(writes, 1)
     assert np.array_equal(got, want), np.nanmax(np.abs(got - want))
     assert _same_float(res, wres), (res, wres)
+
+
+def _plain_form(u, k, form, coeffs=(CX, CY)):
+    (din, dout, acc), = [key for key, f in sk.PRECISION_FORMS.items()
+                         if f == form]
+    out = torch.empty(u.shape, dtype=dout)
+    res = sk.tile_temporal_steps_plain(torch.from_numpy(u).to(din), out, k,
+                                       True, cx=coeffs[0], cy=coeffs[1],
+                                       acc_f32=acc)
+    return out.float().numpy(), f32(float(res))
+
+
+@pytest.mark.parametrize("form", [0, 1, 2, 3])
+@pytest.mark.parametrize("k", [2, 4, 5, 8])
+@pytest.mark.parametrize("shape", SHAPES + [(37, 250)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_band_stream_emulation_of_the_bf16_forms_is_the_plain_version(
+        shape, k, form):
+    # heat_i_loop.cuh's precision forms: the bfloat16 ring (rows of 136
+    # cells from 16 bytes of the grid's row, I-uni's box shifted 4 cells
+    # left at K <= 4), the levels rounded in storage mode, the output
+    # rounded where it is bfloat16; I and, where its rows are 16-byte
+    # multiples, I-uni. A width of 4k + 2 takes I's 8-byte copy on every
+    # other row.
+    u = _bf16(_rand(shape, seed=60 + k))
+    want, wres = _plain_form(u, k, form)
+    for uni in (False, shape[1] % (4 if form == 3 else 8) == 0):
+        got, res, writes, _ = _emulate(u, k, form=form, uni=uni)
+        np.testing.assert_array_equal(writes, 1)
+        assert np.array_equal(got, want), (uni, np.nanmax(np.abs(got - want)))
+        assert _same_float(res, wres), (uni, res, wres)
 
 
 # Launches the defaults do not take: several bands a block and idle

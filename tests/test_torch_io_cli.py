@@ -178,6 +178,28 @@ def test_cli_precision_flags_write_the_jax_clis_bytes(tmp_path, capsys,
         assert ours == (tmp_path / f"theirs{stem}.dat").read_bytes()
 
 
+def test_cli_bf16_f32chunk_pinned_to_i_uni_writes_e_unis_bytes(tmp_path,
+                                                               capsys):
+    # A pin to I-uni under --dtype bfloat16 --accumulate f32chunk runs
+    # through the CLI on I-uni's carry form (its plain version here) and
+    # writes the bytes of the run pinned to E-uni.
+    from parallel_heat_tpu_torch import tune
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+
+    argv = ["--nx", "24", "--ny", "32", "--steps", "70", "--device", "cpu",
+            "--backend", "cuda", "--dtype", "bfloat16", "--accumulate",
+            "f32chunk"]
+    for pin, plain in (("E-uni", "temporal_steps_uni_plain"),
+                       ("I-uni", "tile_temporal_steps_uni_plain")):
+        with tune.force("single_2d", pin):
+            sk.reset_counts()
+            rc = cli.main(argv + ["--out", str(tmp_path / f"{pin}.dat")])
+            assert {n for n, c in sk.counts.items() if c} == {plain}
+        assert rc == 0, capsys.readouterr().err
+    assert (tmp_path / "I-uni.dat").read_bytes() == (
+        tmp_path / "E-uni.dat").read_bytes()
+
+
 def test_cli_ensemble_refuses_initial_out(capsys, tmp_path):
     rc, _, err = _cli_lines(capsys, ["--nx", "20", "--ny", "20",
                                      "--device", "cpu", "--ensemble", "2",

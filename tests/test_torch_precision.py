@@ -36,6 +36,7 @@ here are positive, so a relative ulp is meaningful):
   NaN payloads included.
 """
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -230,22 +231,28 @@ def test_chunk_depth_is_the_jax_sublane_count():
 def test_pick_never_chooses_single_step_kernels_under_f32chunk(shape):
     # A, B and C round every step: under f32chunk the picker takes E-uni
     # (rows of 16-byte multiples) or E, each chunk F32CHUNK_DEPTH steps,
-    # whatever a pin or the launch depth says.
+    # whatever a pin or the launch depth says. I and I-uni carry their
+    # levels in float32 too: a pin to either resolves, I-uni only on rows
+    # of 16-byte multiples, each chunk F32CHUNK_DEPTH steps.
     kind, detail = sk.pick_single_2d(shape, "bfloat16", "f32chunk")
     want = "E-uni" if shape[1] % 8 == 0 else "E"
     assert (kind, detail["k"]) == (want, F32CHUNK_DEPTH)
     for pin in ("A", "B", "C", "I", "I-uni"):
+        feasible = pin == "I" or (pin == "I-uni" and shape[1] % 8 == 0)
         with tune.force("single_2d", pin), warnings.catch_warnings(
                 record=True) as seen:
             warnings.simplefilter("always")
-            assert sk.pick_single_2d(shape, "bfloat16", "f32chunk")[0] == want
-        assert any("infeasible" in str(w.message) for w in seen)
+            kind, detail = sk.pick_single_2d(shape, "bfloat16", "f32chunk")
+        assert (kind, detail["k"]) == ((pin if feasible else want),
+                                       F32CHUNK_DEPTH)
+        assert any("infeasible" in str(w.message)
+                   for w in seen) == (not feasible)
 
 
 def test_pick_at_bfloat16_storage():
     # A's domain is float32's (its shared buffers hold float32); E-uni
-    # needs widths of a multiple of 8 cells; B and C take a pin; kernels
-    # with no bfloat16 form (I, I-uni) are infeasible pins.
+    # needs widths of a multiple of 8 cells; B and C take a pin; so do I
+    # and I-uni, I-uni where E-uni does.
     assert sk.pick_single_2d((1000, 1000), "bfloat16")[0] == "A"
     assert sk.pick_single_2d((4096, 4096), "bfloat16")[0] == "E-uni"
     assert sk.pick_single_2d((4096, 4100), "bfloat16")[0] == "E"
@@ -254,9 +261,13 @@ def test_pick_at_bfloat16_storage():
         with tune.force("single_2d", pin):
             assert sk.pick_single_2d((4096, 4096), "bfloat16")[0] == pin
     for pin in ("I", "I-uni"):
-        with tune.force("single_2d", pin), pytest.warns(
-                RuntimeWarning, match="infeasible"):
-            assert sk.pick_single_2d((4096, 4096), "bfloat16")[0] == "E-uni"
+        with tune.force("single_2d", pin):
+            kind, detail = sk.pick_single_2d((4096, 4096), "bfloat16")
+            assert (kind, detail["k"]) == (
+                pin, hopper_params.params().i_k_default)
+    with tune.force("single_2d", "I-uni"), pytest.warns(
+            RuntimeWarning, match="infeasible"):
+        assert sk.pick_single_2d((4096, 4100), "bfloat16")[0] == "E"
     with tune.force("single_2d", "E"):
         assert sk.pick_single_2d((1000, 1000), "bfloat16")[0] == "E"
 
@@ -368,8 +379,9 @@ def test_forms_refuse_what_they_do_not_take():
         sk.strip_step(ut, torch.empty(20, 24), cx=0.1, cy=0.1)  # storage
     with pytest.raises(TypeError):                           # forms only
         sk.tiled_step(ut.float(), out, cx=0.1, cy=0.1)
-    with pytest.raises(TypeError):
-        sk.tile_temporal_steps(ut, out, 4, cx=0.1, cy=0.1)   # no I form
+    with pytest.raises(TypeError):                           # I: the
+        sk.tile_temporal_steps(ut, torch.empty(20, 24), 4,   # forms' pairs
+                               cx=0.1, cy=0.1)
     narrow = _pair(_rand((20, 20), 1))[1]
     with pytest.raises(ValueError, match="multiple of 8"):
         sk.temporal_steps_uni(narrow, torch.empty_like(narrow), 4, cx=0.1,
@@ -607,9 +619,22 @@ def test_grid_stats_sum_bf16_in_float32():
      ("heat_e_uni_temporal_bf16", "float32 carry", "K=16")),
     (dict(nx=64, ny=100, accumulate="f32chunk"),
      ("heat_e_temporal_bf16", "K=16")),
-], ids=["A", "E-uni", "E", "E-uni-f32chunk", "E-f32chunk"])
+    (dict(nx=4096, ny=4100, pin="I"),
+     ("heat_i_tile_temporal_bf16", "bfloat16 storage", "K=8")),
+    (dict(nx=4096, ny=4096, pin="I-uni", accumulate="f32chunk"),
+     ("heat_i_uni_tile_temporal_bf16", "float32 carry", "K=16",
+      "launches of at most 8")),
+], ids=["A", "E-uni", "E", "E-uni-f32chunk", "E-f32chunk", "I-pinned",
+        "I-uni-f32chunk-pinned"])
 def test_explain_reports_the_precision_path(kw, expect):
-    out = explain(HeatConfig(dtype="bfloat16", **kw), device="cuda")
+    kw = dict(kw)
+    pin = kw.pop("pin", None)
+    with (tune.force("single_2d", pin) if pin
+          else contextlib.nullcontext()):
+        out = explain(HeatConfig(dtype="bfloat16", **kw), device="cuda")
+    if pin:
+        assert out["decided_by"]["single_2d"] == {"source": "forced",
+                                                  "choice": pin}
     assert out["dtype"] == "bfloat16" and out["backend"] == "cuda"
     assert out["accumulate"] == kw.get("accumulate", "storage")
     assert all(e in out["path"] for e in expect), out["path"]

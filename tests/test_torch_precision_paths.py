@@ -200,9 +200,12 @@ def test_pins_at_bfloat16():
                 assert sk.pick_single_2d((64, 256), "bfloat16",
                                          "f32chunk")[0] == "E-uni"
     for pin in ("I", "I-uni"):
-        with tune.force("single_2d", pin), pytest.warns(
-                RuntimeWarning, match="infeasible"):
-            assert sk.pick_single_2d((64, 256), "bfloat16")[0] == "A"
+        with tune.force("single_2d", pin):
+            kind, _ = sk.pick_single_2d((64, 256), "bfloat16")
+            assert kind == pin
+            assert sk.kernel_entry(kind, "bfloat16") == (
+                "heat_i_tile_temporal_bf16" if pin == "I"
+                else "heat_i_uni_tile_temporal_bf16")
     # A run pinned to B or C at bfloat16 is bitwise A's run (one step a
     # launch, every level rounded).
     cfg = HeatConfig(nx=40, ny=48, steps=9, dtype="bfloat16", backend="cuda",

@@ -33,7 +33,10 @@ prints the card's name and power limit, then one JSON line per phase:
    seconds are printed; the registers, spills and blocks an SM
    of the instance a forced run launches are printed, with the instances
    that spill), nor the 3D band's instance the H-defer round launches
-   more than ``BAND_SPILL_3D``;
+   more than ``BAND_SPILL_3D``; and no instance of D's and F's bfloat16
+   forms (``heat_d_step3d_bf16``, the 48 of ``heat_f_temporal3d_bf16``,
+   its own library) may spill more, stores or loads, than its float32
+   twin of the same K, rows and load;
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -105,7 +108,17 @@ prints the card's name and power limit, then one JSON line per phase:
    K = 3 and 8 on 1001x1000 bitwise ``heat_e_temporal_bf16``'s storage
    form and K launches of ``heat_b_step_bf16``, in the carry form bitwise
    E's; the NaN-seeded grid in both modes; and their main-path launches
-   at 32768^2 (storage at K = 8, a 16-step chunk's two carry launches);
+   at 32768^2 (storage at K = 8, a 16-step chunk's two carry launches).
+   Last D's and F's bfloat16 forms (``heat_d_step3d_bf16``,
+   ``heat_f_temporal3d_bf16``) into NaN-filled outputs, each bitwise its
+   plain version: D on each grid, F at every K 1 .. 8 under each load
+   its grid takes (TMA where nz % 8 == 0, and cp.async), with and
+   without the residual, and bitwise K launches of D, on the main path's
+   512^3, 67x130x204 (cp.async at bfloat16), 67x130x200 (TMA),
+   67x130x201 (partial last groups) and 5x3x300, each grid asserted to
+   run at every K the tile kinds it is there for (``f_tile_kinds`` at
+   2-byte cells); and a NaN-seeded grid under both loads (faces bit for
+   bit, NaN residual);
 2b. kernels_3d — D (``heat_d_step3d``) against its plain version and F
    (``heat_f_temporal3d``) at every compiled K (1 .. 8; past the default
    shape's deepest K at ``hopper_params.f_shape``'s), under each plane load
@@ -168,6 +181,19 @@ prints the card's name and power limit, then one JSON line per phase:
    1024^2 with ``--dtype bfloat16 --accumulate f32chunk``, its .dat the
    solver's grid's; the float64 route (torch, no kernel) bitwise the
    CPU's;
+3e. main_path_3d_bf16 — BASELINE config 5 at bfloat16,
+   ``solve(HeatConfig(nx=512, ny=512, nz=512, steps=200,
+   dtype="bfloat16"))`` by the default pick (``heat_f_temporal3d_bf16``,
+   exactly 67 launches) and pinned to D (exactly 200 launches of
+   ``heat_d_step3d_bf16``), counts set to 0 before each run and read
+   after, the two grids bitwise equal, each run's Mcells*steps/s (F's
+   device ms a launch and idle share); its ``solve_stream`` in chunks of
+   40, bitwise ``solve()``; 64^3 to eps = 1e-3 (to its 1000-step cap)
+   under each, bitwise between them and the CPU's plain versions;
+   float64 at 512^3 on the torch route (no kernel launched) and at 64^3
+   bitwise the CPU's; 8 x 64^3 bfloat16 members on the vmap route, each
+   bitwise its solo torch-route ``solve()``; the CLI with ``--nx 64 --ny
+   64 --nz 64 --dtype bfloat16``, its .npy the solver's grid's bytes;
 4b. converge_3d — 10^3 with eps=1e-3, which converges at step 360 on
    the CPU, under F and D: steps_run, converged, the residual and the
    grid equal to the CPU's plain run;
@@ -182,6 +208,10 @@ prints the card's name and power limit, then one JSON line per phase:
    times; zero-padded for M), each bound from
    the bytes of the function replaced (a bfloat16 grid read and written
    once a launch in storage mode, once a 16-step chunk under f32chunk);
+   D (one step, residual) and F (K = 3 under the load its grid takes,
+   and under the other) at 512^3 with ``conv3d`` in bfloat16 chained K
+   times, bound 2 x 512^3 x 2 B a launch, beside their float32 forms'
+   times on the same plate;
 6. timing — each kernel, its plain version and a PyTorch yardstick
    (``conv2d`` with the 5-point weights, TF32 off; it computes the
    interior update only) with CUDA events, at the shape and depth of the
@@ -482,9 +512,9 @@ prints the card's name and power limit, then one JSON line per phase:
 
 Then a ``{"phase_seconds": {...}, "total_s": t}`` line (each phase's
 wall seconds, from the line before its own), a ``{"kernels": [...]}``
-line (all twenty kernels, the twelve precision forms of A, B, C, E,
-E-uni, I, I-uni and M with their launches in main_path_bf16, precision
-and ensemble_bf16, and the ten
+line (all twenty kernels, the fourteen precision forms of A, B, C, D,
+E, E-uni, F, I, I-uni and M with their launches in main_path_bf16,
+main_path_3d_bf16, precision and ensemble_bf16, and the ten
 probes' kernels, each with its own run's launches: A's anatomy probe and
 neighbour forms with A's plain version, bound and yardstick, the E-uni
 probes with E-uni's, the overlap probe with F's, the roofline with its
@@ -873,8 +903,25 @@ def phase_build():
             "blocks_per_sm": {form: sk.i_occupancy(name, hp.i_k_default,
                                                    form=form)
                               for form in range(4)}}
+    # D's and F's bfloat16 forms: no instance may spill more (stores or
+    # loads) than its float32 twin of the same K, rows and load.
+    d_rows = ptxas["heat_d_step3d"]
+    twins = {"heat_d_step3d_bf16_kernel": (
+        d_rows.get("heat_d_step3d_bf16_kernel"),
+        d_rows.get("heat_d_step3d_kernel"))}
+    f_bf16 = ptxas["heat_f_temporal3d_bf16"]
+    for inst, row in f_bf16.items():
+        twins[f"heat_f_temporal3d_bf16_kernel<{inst}>"] = (
+            row, ptxas["heat_f_temporal3d"].get(inst))
+    check(len(f_bf16) == 3 * 2 * hp.f_k_compiled and all(
+        mine is not None and twin is not None and mine[1] <= twin[1]
+        and mine[2] <= twin[2] for mine, twin in twins.values()),
+          f"a bfloat16 instance of D or F spills more than its float32 twin "
+          f"or is missing: {twins}")
     emit({"phase": "build", "seconds": seconds,
           "source_seconds": dict(build.BUILD_SECONDS),
+          "bf16_3d_instances": {inst: {"bf16": mine, "float32": twin}
+                                for inst, (mine, twin) in twins.items()},
           "a_and_m_instances": resident, "probe_instances": probes,
           "band_instances": band,
           "libraries": {n: os.path.relpath(str(p), ROOT)
@@ -5328,7 +5375,20 @@ KERNELS_BF16 = {
                                           TPU + ":3456"),
     "heat_i_tile_temporal_bf16_acc": ("heat_i_tile_temporal_bf16",
                                       TPU + ":3294"),
+    "heat_d_step3d_bf16": ("heat_d_step3d", TPU + ":3708"),
+    "heat_f_temporal3d_bf16": ("heat_f_temporal3d_bf16", TPU + ":3932"),
 }
+# F's bfloat16 launch shapes for the shape rule's check on the card:
+# (lanes, warps), rows, K, legal and not (heat_f_takes at 2-byte cells
+# against hopper_params.f_takes(..., elem=2)).
+F_SHAPE_RULE_BF16 = [((32, 16), 2, 3), ((32, 16), 2, 4), ((32, 12), 2, 4),
+                     ((32, 16), 1, 4), ((32, 12), 1, 7), ((32, 8), 4, 8),
+                     ((32, 16), 4, 3), ((32, 12), 2, 9)]
+# D's and F's bfloat16 check grids beside the main path's 512^3: rows of
+# 8k + 4 cells (F's cp.async load at bfloat16, TMA at float32), of 8k
+# (TMA), of 8k + 1 (partial last groups) and a slab thinner than a tile.
+RAGGED_3D_BF16 = ((67, 130, 204), (67, 130, 200), (67, 130, 201),
+                  (5, 3, 300))
 # I's and I-uni's bfloat16 check grids: the float32 phase's I grids but
 # the main path's 16384^2, a width of 4k + 2 (I's 8-byte copy on every
 # other row, its 2-byte loads on the rest) and 200 x 136 (I-uni's box
@@ -5681,10 +5741,11 @@ def phase_kernels_bf16(dev):
     del big
     torch.cuda.empty_cache()
     i_report = _kernels_i_bf16(dev, err, nan_res)
+    report_3d = _kernels_3d_bf16(dev, err, nan_res)
     emit({"phase": "kernels_bf16", "ok": True, "checks": report,
           "chains": chains, "nan_residual": nan_res,
           "main_path_32768": main, "i_forms": i_report,
-          "max_abs_err": err})
+          "d_and_f_forms": report_3d, "max_abs_err": err})
     return err
 
 
@@ -5820,6 +5881,161 @@ def _kernels_i_bf16(dev, err, nan_res):
             "main_path_32768": main}
 
 
+def _rand_bf16_3d(dev, shape, seed, nan=False):
+    """A random bfloat16 grid of ``shape`` (either sign, magnitudes to
+    about 40); with ``nan`` NaNs of payloads no conversion makes, inside
+    and on the faces."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = (torch.randn(shape, generator=gen, device=dev) * 10).to(
+        torch.bfloat16)
+    if nan:
+        bits = u.view(torch.int16)
+        nx, ny, nz = shape
+        for at, b in zip(((nx // 2, ny // 2, nz // 3), (0, ny // 2, nz // 2),
+                          (nx // 2, ny - 1, 1), (nx // 3, 1, nz - 1)),
+                         BF16_NAN_PAYLOADS + (0x7FC1,)):
+            bits[at] = b
+    return u
+
+
+def _faces_kept(out, u) -> bool:
+    return all(_bits_equal(out[sl].contiguous(), u[sl].contiguous())
+               for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1],
+                          np.s_[:, :, 0], np.s_[:, :, -1]))
+
+
+def _check_f_bf16(sk3, u, k, kw, load, err, label):
+    """F's bfloat16 form at depth ``k`` under ``load`` against its plain
+    version and K launches of D's bfloat16 form (each bitwise, grid and
+    residual), with and without the residual, into NaN-filled outputs.
+    Returns the grid and residual."""
+    import torch
+
+    got = torch.full_like(u, float("nan"))
+    want = torch.full_like(u, float("nan"))
+    nores = torch.full_like(u, float("nan"))
+    r = sk3.xslab_steps_3d(u, got, k, True, load=load, **kw)
+    rp = sk3.xslab_steps_3d_plain(u, want, k, True, **kw)
+    sk3.xslab_steps_3d(u, nores, k, False, load=load, **kw)
+    chain, rd = _d_launches(sk3, u, k, kw)
+    torch.cuda.synchronize()
+    d = float((got.float() - want.float()).abs().nan_to_num(0).max())
+    err["heat_f_temporal3d_bf16"] = max(err["heat_f_temporal3d_bf16"], d)
+    where = (f"{label}: heat_f_temporal3d_bf16(K={k}, {load}) at "
+             f"{tuple(u.shape)} {kw}")
+    check(_bits_equal(got, want) and same_float(r, rp),
+          f"{where} != its plain version: max diff {d}, residual "
+          f"{float(r)} vs {float(rp)}")
+    check(_bits_equal(got, chain) and same_float(r, rd),
+          f"{where} != {k} launches of heat_d_step3d_bf16")
+    check(_bits_equal(got, nores), f"{where}: grid depends on with_residual")
+    del want, nores, chain
+    return got, r
+
+
+def _check_d_bf16(sk3, u, kw, err, label):
+    """D's bfloat16 form against its plain version, bitwise, into
+    NaN-filled outputs; returns the grid and residual."""
+    import torch
+
+    got = torch.full_like(u, float("nan"))
+    want = torch.full_like(u, float("nan"))
+    r = sk3.slab_step_3d(u, got, **kw)
+    rp = sk3.slab_step_3d_plain(u, want, **kw)
+    torch.cuda.synchronize()
+    d = float((got.float() - want.float()).abs().nan_to_num(0).max())
+    err["heat_d_step3d_bf16"] = max(err["heat_d_step3d_bf16"], d)
+    check(_bits_equal(got, want) and same_float(r, rp),
+          f"{label}: heat_d_step3d_bf16 at {tuple(u.shape)} {kw} != its "
+          f"plain version: max diff {d}, residual {float(r)} vs "
+          f"{float(rp)}")
+    return got, r
+
+
+def _kernels_3d_bf16(dev, err, nan_res):
+    """D's and F's bfloat16 forms (``heat_d_step3d_bf16``,
+    ``heat_f_temporal3d_bf16``), each bitwise its plain version: D on
+    each grid, F at every K 1 .. 8 (at ``hopper_params.f_shape``'s launch
+    shape for bfloat16) under each load the grid takes, F(K) bitwise K
+    launches of D, on the main path's 512^3 and RAGGED_3D_BF16, each
+    grid asserted to run at every K the tile kinds it is there for
+    (``f_tile_kinds`` at 2-byte cells); a NaN-seeded grid under both
+    loads (faces bit for bit, NaN residual)."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+
+    p = params()
+    every_k = list(range(1, p.f_k_compiled + 1))
+    equal = dict(cx=CX, cy=CY, cz=CX)
+    unequal = dict(zip(("cx", "cy", "cz"), UNEQUAL_3D))
+    sides = ("edge", "top", "left", "bottom", "right", "ragged_z")
+    need = {(CUBE,) * 3: ("interior",) + sides,
+            (67, 130, 201): sides + ("partial_group",)}
+    report = []
+    for shape in ((CUBE,) * 3,) + RAGGED_3D_BF16:
+        coeffs = [equal] if shape[0] == CUBE else [equal, unequal]
+        u = _rand_bf16_3d(dev, shape, sum(shape))
+        loads = ["cp.async"] + (["tma"] if sk3.f_load(shape, u) == "tma"
+                                else [])
+        kinds = {}
+        for k in every_k:
+            block, rows, _ = p.f_shape(k, 2)
+            kinds[k] = p.f_tile_kinds(shape, k, block, rows, elem=2)
+            want = need.get(shape, sides)
+            check(all(kinds[k][kind] for kind in want),
+                  f"{shape} bf16 at K={k} runs no tile of some kind it is "
+                  f"there for ({want}): {kinds[k]}")
+        for kw in coeffs:
+            _check_d_bf16(sk3, u, kw, err, "kernels_bf16")
+            for k in every_k:
+                for load in loads:
+                    _check_f_bf16(sk3, u, k, kw, load, err, "kernels_bf16")
+        report.append({"shape": list(shape), "coeffs": coeffs,
+                       "k": every_k, "loads": loads, "tile_kinds": kinds,
+                       "shapes": {k: p.f_shape(k, 2) for k in every_k},
+                       "bitwise": True, "f_is_k_launches_of_d": True})
+        del u
+        torch.cuda.empty_cache()
+    # The bfloat16 form's launcher takes hopper_params.f_takes' shapes at
+    # 2-byte cells (12 warps at most for 1 or 2 rows at K >= 4).
+    u = _rand_bf16_3d(dev, (8, 40, 48), 4)
+    o = torch.empty_like(u)
+    for block, rows, k in F_SHAPE_RULE_BF16:
+        try:
+            sk3._launch_f(u, o, k, None, CX, CY, CX, block, rows, 8,
+                          "cp.async", 2)
+            taken = True
+        except RuntimeError:
+            taken = False
+        check(taken == p.f_takes(block, rows, k, elem=2),
+              f"F bf16's launcher {'took' if taken else 'refused'} {block} "
+              f"x {rows} rows at K={k}; f_takes says "
+              f"{p.f_takes(block, rows, k, elem=2)}")
+    torch.cuda.synchronize()
+    report.append({"shape_rule_bf16": F_SHAPE_RULE_BF16, "agrees": True})
+    # A NaN-seeded grid: NaN residual, the faces bit for bit.
+    u = _rand_bf16_3d(dev, (60, 70, 96), 5, nan=True)
+    got, r = _check_d_bf16(sk3, u, equal, err, "NaN-seeded grid")
+    nan_res["heat_d_step3d_bf16"] = float(r)
+    check(math.isnan(float(r)) and _faces_kept(got, u),
+          f"D bf16 on a NaN-seeded grid: residual {float(r)}, faces kept "
+          f"{_faces_kept(got, u)}")
+    for load in ("tma", "cp.async"):
+        got, r = _check_f_bf16(sk3, u, p.f_k_default, equal, load, err,
+                               "NaN-seeded grid")
+        nan_res[f"heat_f_temporal3d_bf16 {load}"] = float(r)
+        check(math.isnan(float(r)) and _faces_kept(got, u),
+              f"F bf16 ({load}) on a NaN-seeded grid: residual {float(r)}, "
+              f"faces kept {_faces_kept(got, u)}")
+    del u, got
+    torch.cuda.empty_cache()
+    return report
+
+
 def _plate_grid(dev, n, dtype="bfloat16"):
     from parallel_heat_tpu_torch.models import HeatPlate2D
 
@@ -5876,18 +6092,18 @@ def _oracle_err(start, grids, steps):
     return out
 
 
-def _bf16_run(cfg, kernel, force=None, profile=False):
-    """solve(cfg) by the default pick, or with ``force`` pinned, its
-    counts set to 0 just before and read just after: ``kernel`` launched,
-    no other kernel or plain version; with ``profile`` a second run under
-    the profiler for the card's busy share and the kernel's device ms a
-    launch."""
+def _bf16_run(cfg, kernel, force=None, profile=False, site="single_2d"):
+    """solve(cfg) by the default pick, or with ``force`` pinned at
+    ``site``, its counts set to 0 just before and read just after:
+    ``kernel`` launched, no other kernel or plain version; with
+    ``profile`` a second run under the profiler for the card's busy share
+    and the kernel's device ms a launch."""
     import contextlib
 
     from parallel_heat_tpu_torch import solve, tune
     from parallel_heat_tpu_torch.ops import stencil_kernels as sk
 
-    pin = (tune.force("single_2d", force) if force
+    pin = (tune.force(site, force) if force
            else contextlib.nullcontext())
     with pin:
         sk.reset_counts()
@@ -6031,6 +6247,158 @@ def phase_main_path_bf16():
           "steps": steps, "dtype": "bfloat16", "runs": out,
           "bitwise_across_kernels": True})
     return runs
+
+
+def phase_main_path_3d_bf16():
+    """BASELINE config 5 at bfloat16: ``solve(HeatConfig(nx=512, ny=512,
+    nz=512, steps=200, dtype="bfloat16"))`` by the default pick (F's
+    bfloat16 form, exactly ceil(200 / K) launches) and pinned to D
+    (exactly 200), counts set to 0 before each run and read after, the two
+    grids bitwise equal; a 64^3 converge run under each, bitwise between
+    them and the CPU's plain versions; a bfloat16 ``solve_stream`` of the
+    512^3 run in chunks of 40, bitwise ``solve()``; float64 on the torch
+    route (no kernel launched) at 512^3, and at 64^3 bitwise the CPU's;
+    an 8 x 64^3 bfloat16 ensemble on the vmap route, every member bitwise
+    its solo torch-route ``solve()``; the CLI with ``--nz 64 --dtype
+    bfloat16``, its .npy the solver's grid's bytes. Returns the two
+    kernels' launches in the 512^3 runs."""
+    import torch
+
+    from parallel_heat_tpu_torch import EnsembleSolver, HeatConfig, solve
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.solver import explain, solve_stream
+
+    p = params()
+    bf16 = torch.bfloat16
+    out, launches = {}, {}
+    cfg = HeatConfig(nx=CUBE, ny=CUBE, nz=CUBE, steps=MAIN_STEPS,
+                     dtype="bfloat16")
+    cells = CUBE ** 3 * MAIN_STEPS / 1e6
+    f = _bf16_run(cfg, "heat_f_temporal3d_bf16", profile=True)
+    d = _bf16_run(cfg, "heat_d_step3d_bf16", force="D", site="single_3d")
+    fr, dr = f["res"], d["res"]
+    check(f["launches"] == -(-MAIN_STEPS // p.f_k_default)
+          and d["launches"] == MAIN_STEPS,
+          f"512^3 bf16 launches: F {f['launches']}, D {d['launches']}")
+    check(fr.grid.dtype == bf16 and tuple(fr.grid.shape) == (CUBE,) * 3
+          and fr.steps_run == dr.steps_run == MAIN_STEPS
+          and bool(torch.isfinite(fr.grid).all()),
+          f"512^3 bf16: {fr.grid.dtype}, {tuple(fr.grid.shape)}, steps "
+          f"{fr.steps_run}")
+    check(_bits_equal(fr.grid, dr.grid), "512^3 bf16: F's grid != D's")
+    for name, run in (("heat_f_temporal3d_bf16", f),
+                      ("heat_d_step3d_bf16", d)):
+        launches[name] = run["launches"]
+        out[f"512^3 {name}"] = {
+            "launches": run["launches"], "elapsed_s": run["res"].elapsed_s,
+            "mcells_steps_per_s": cells / run["res"].elapsed_s,
+            **({"idle_share": run["busy"]["idle_share"],
+                "device_ms_per_launch": run["device_ms_per_launch"],
+                "profiler_records": run["profiler_records"]}
+               if "busy" in run else {})}
+    out["bitwise_f_d"] = True
+    # The stream of the same run, in chunks of 40.
+    seen = []
+    for r in solve_stream(cfg, chunk_steps=40):
+        seen.append(r.steps_run)
+        last = r.grid
+    check(seen == list(range(40, MAIN_STEPS + 1, 40))
+          and _bits_equal(last, fr.grid),
+          f"512^3 bf16 stream yields {seen}, bitwise "
+          f"{_bits_equal(last, fr.grid)}")
+    out["512^3 stream"] = {"chunk_steps": 40, "yields": seen,
+                           "bitwise_solve": True}
+    del f, d, fr, dr, last
+    torch.cuda.empty_cache()
+    # Converge at 64^3 under each kernel, bitwise between them and the
+    # CPU's plain versions.
+    ccfg = HeatConfig(nx=64, ny=64, nz=64, steps=1000, converge=True,
+                      check_interval=WINDOW, eps=1e-3, dtype="bfloat16")
+    cpu = solve(ccfg.replace(backend="cuda"), device="cpu")
+    conv = {}
+    for name, force in (("heat_f_temporal3d_bf16", None),
+                        ("heat_d_step3d_bf16", "D")):
+        run = _bf16_run(ccfg, name, force=force, site="single_3d")
+        r = run["res"]
+        check((r.steps_run, r.converged) == (cpu.steps_run, cpu.converged)
+              and same_float(r.residual, cpu.residual)
+              and _bits_equal(r.grid.cpu(), cpu.grid),
+              f"64^3 bf16 converge under {name}: {r.steps_run} steps, "
+              f"{r.converged}, {r.residual}; the CPU: {cpu.steps_run}, "
+              f"{cpu.converged}, {cpu.residual}")
+        conv[name] = {"steps_run": r.steps_run, "converged": r.converged,
+                      "residual": r.residual, "launches": run["launches"],
+                      "elapsed_s": r.elapsed_s}
+    out["64^3 converge"] = {**conv, "bitwise_cpu": True}
+    # float64: the torch route on the card, no kernel.
+    f64 = HeatConfig(nx=CUBE, ny=CUBE, nz=CUBE, steps=MAIN_STEPS,
+                     dtype="float64")
+    sk.reset_counts()
+    res = solve(f64)
+    launched = {k: n for k, n in sk.counts.items() if n}
+    check(not launched and res.grid.dtype == torch.float64
+          and bool(torch.isfinite(res.grid).all())
+          and explain(f64)["backend"] == "torch",
+          f"512^3 float64: counts {launched}, {res.grid.dtype}")
+    out["512^3 float64"] = {"route": explain(f64)["path"],
+                            "elapsed_s": res.elapsed_s,
+                            "mcells_steps_per_s": cells / res.elapsed_s,
+                            "launched": launched}
+    del res
+    torch.cuda.empty_cache()
+    small = f64.replace(nx=64, ny=64, nz=64)
+    gpu, host = solve(small), solve(small, device="cpu")
+    check(_bits_equal(gpu.grid.cpu(), host.grid),
+          "64^3 float64 on the card != the CPU's")
+    out["64^3 float64"] = {"bitwise_cpu": True}
+    # A bfloat16 ensemble on the vmap route: every member bitwise its
+    # solo torch-route solve().
+    ecfg = HeatConfig(nx=64, ny=64, nz=64, steps=MAIN_STEPS,
+                      dtype="bfloat16")
+    batch = 8
+    inits = torch.stack([_rand_bf16_3d("cuda", (64,) * 3, b).abs()
+                         for b in range(batch)])
+    es = EnsembleSolver(ecfg, batch)
+    check(es.path == "vmap", f"3D bf16 ensemble path {es.path!r}")
+    sk.reset_counts()
+    ens = es.solve(initials=inits)
+    launched = {k: n for k, n in sk.counts.items()
+                if n and k.startswith("heat_")}
+    check(not launched and ens.grids.dtype == bf16
+          and ens.steps_run.tolist() == [MAIN_STEPS] * batch,
+          f"3D bf16 ensemble: launched {launched}, {ens.grids.dtype}, "
+          f"steps {ens.steps_run.tolist()}")
+    for i in range(batch):
+        one = solve(ecfg.replace(backend="torch"), initial=inits[i])
+        check(_bits_equal(ens.grids[i], one.grid),
+              f"3D bf16 member {i} != its solo torch-route solve()")
+    out[f"{batch}x64^3 bf16 vmap"] = {"elapsed_s": ens.elapsed_s,
+                                      "members_bitwise_solo_torch": True}
+    # The CLI: its .npy the solver's grid's bytes ('<V2' cells).
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v.npy")
+        cmd = [sys.executable, "-m", "parallel_heat_tpu_torch", "--nx", "64",
+               "--ny", "64", "--nz", "64", "--steps", str(MAIN_STEPS),
+               "--dtype", "bfloat16", "--out", path]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0,
+              f"3D bf16 CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        want = solve(ecfg).grid.cpu().contiguous()
+        with open(path, "rb") as fp:
+            np.lib.format.read_magic(fp)
+            header = np.lib.format.read_array_header_1_0(fp)
+            body = fp.read()
+        check(header[0] == (64, 64, 64) and header[2] == np.dtype("V2")
+              and body == want.view(torch.int16).numpy().tobytes(),
+              f"the 3D bf16 CLI's .npy ({header}) differs from the solver's "
+              f"grid")
+    out["cli"] = {"argv": cmd[3:-2], "stdout":
+                  proc.stdout.strip().splitlines()}
+    emit({"phase": "main_path_3d_bf16", "ok": True, "shape": [CUBE] * 3,
+          "steps": MAIN_STEPS, **out})
+    return launches
 
 
 def _pinned_i_runs(whole):
@@ -6528,7 +6896,81 @@ def phase_timing_bf16(dev):
                  * interior)}
     rows["heat_a_resident_bf16"].update(_device_ms(run,
                                                    "heat_a_resident_bf16"))
+    del u, v, x
+    torch.cuda.empty_cache()
+    rows.update(_timing_3d_bf16(dev))
     emit({"phase": "timing_bf16", "kernels": rows})
+    return rows
+
+
+def _timing_3d_bf16(dev):
+    """D's and F's bfloat16 forms at the 3D main path's 512^3 plate: F at
+    K_default without the residual under the load ``f_load`` picks (and
+    under the other), D one step with it; each with CUDA events and the
+    profiler's device time, its plain version, the yardstick ``conv3d``
+    in bfloat16 chained K times, the bound of a bfloat16 grid read and
+    written once a launch (2 x 512^3 x 2 B), and its float32 form's times
+    on the same plate in float32, measured here too."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallel_heat_tpu_torch.models import HeatPlate3D
+    from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32
+
+    k = params().f_k_default
+    kw = dict(cx=CX, cy=CY, cz=CX)
+    a0, cx, cy, cz = coeffs3_f32(CX, CY, CX)
+    w = torch.zeros((3, 3, 3), dtype=torch.bfloat16, device=dev)
+    w[1, 1, 1] = a0
+    w[0, 1, 1] = w[2, 1, 1] = cx
+    w[1, 0, 1] = w[1, 2, 1] = cy
+    w[1, 1, 0] = w[1, 1, 2] = cz
+    w = w.view(1, 1, 3, 3, 3)
+
+    def conv_steps(x, n):
+        y = x
+        for _ in range(n):
+            y = F.conv3d(y, w)
+        return y
+
+    u = HeatPlate3D(CUBE, CUBE, CUBE).init_grid(dev, "bfloat16")
+    v = torch.empty_like(u)
+    u32 = u.float()
+    v32 = torch.empty_like(u32)
+    x = u.view(1, 1, CUBE, CUBE, CUBE)
+    interior = (CUBE - 2) ** 3
+    load = sk3.f_load(u.shape, u)
+    other = "cp.async" if load == "tma" else "tma"
+    rows = {}
+    for name, steps, kernel, plain, twin, ops in (
+            ("heat_d_step3d_bf16", 1,
+             lambda: sk3.slab_step_3d(u, v, **kw),
+             lambda: sk3.slab_step_3d_plain(u, v, **kw),
+             lambda: sk3.slab_step_3d(u32, v32, **kw),
+             (OPS_PER_CELL_STEP_3D + OPS_PER_RESIDUAL_CELL) * interior),
+            ("heat_f_temporal3d_bf16", k,
+             lambda: sk3.xslab_steps_3d(u, v, k, False, **kw),
+             lambda: sk3.xslab_steps_3d_plain(u, v, k, False, **kw),
+             lambda: sk3.xslab_steps_3d(u32, v32, k, False, **kw),
+             OPS_PER_CELL_STEP_3D * k * interior)):
+        f32 = name.removesuffix("_bf16")
+        rows[name] = {
+            "shape": [CUBE] * 3, "k": steps, "ms": _time_ms(kernel, 20, 3),
+            "plain_ms": _time_ms(plain, 3),
+            "library_ms": _time_ms(lambda: conv_steps(x, steps), 5, 1),
+            **_bound(4 * CUBE ** 3, ops),
+            "float32_ms": _time_ms(twin, 20, 3),
+            "float32_device_ms": _device_ms(twin, f32)["device_ms"]}
+        rows[name].update(_device_ms(kernel, name))
+    f_row = rows["heat_f_temporal3d_bf16"]
+    f_row["load"] = load
+    f_row["other_load"] = {other: _device_ms(
+        lambda: sk3.xslab_steps_3d(u, v, k, False, load=other, **kw),
+        "heat_f_temporal3d_bf16")["device_ms"]}
+    del u, v, u32, v32, x
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -6556,6 +6998,7 @@ def main() -> int:
         launches.update(phase_main_path_bf16())
         launches["heat_a_resident_bf16"] = phase_precision()
         launches.update(phase_main_path_3d())
+        launches.update(phase_main_path_3d_bf16())
         phase_converge_3d()
         phase_cli()
         err.update(phase_kernels_ens(dev))

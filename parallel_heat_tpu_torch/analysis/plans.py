@@ -572,11 +572,13 @@ def plan_c(shape, bf16=False) -> Plan:
             lambda spans: _sched_cp_once([buf])))
 
 
-def plan_d(shape) -> Plan:
-    """Kernel D (``heat_d_step3d``): one 7-point step, a thread a run of
-    ``d_planes`` X planes of one (y, z) column (``heat_d_step3d.cu``
-    :39-90)."""
+def plan_d(shape, bf16=False) -> Plan:
+    """Kernel D (``heat_d_step3d``, or with ``bf16``
+    ``heat_d_step3d_bf16``, each cell widened as it is loaded): one
+    7-point step, a thread a run of ``d_planes`` X planes of one (y, z)
+    column (``heat_d_step3d.cu`` heat_d_cells)."""
     p = _p()
+    elem = 2 if bf16 else 4
     nx, ny, nz = shape
     bz, by = p.d_block
     planes = p.d_planes
@@ -591,13 +593,15 @@ def plan_d(shape) -> Plan:
     axes = [axis(_ceil(nx, planes), planes, nx, "x"),
             axis(_ceil(ny, by), by, ny, "y"), axis(_ceil(nz, bz), bz, nz,
                                                    "z")]
+    name = "heat_d_step3d_bf16" if bf16 else "heat_d_step3d"
     return Plan(
-        kernel="heat_d_step3d_kernel", entry="heat_d_step3d",
-        label=f"D {nx}x{ny}x{nz}",
+        kernel=name + "_kernel", entry=name,
+        label=f"D {nx}x{ny}x{nz}" + (" bf16" if bf16 else ""),
         grid=axes[0].count * axes[1].count * axes[2].count,
-        threads=bz * by, max_threads=1024, dyn_smem=0,
+        threads=bz * by, max_threads=512 if bf16 else 1024, dyn_smem=0,
         static_smem=p.static_smem_bytes,
-        arrays={"u": Array(shape), "out": Array(shape)}, output="out",
+        arrays={"u": Array(shape, elem=elem),
+                "out": Array(shape, elem=elem)}, output="out",
         axes=axes, loads={"nbrs": Load("ld", "u")}, cover=_full(shape))
 
 
@@ -834,25 +838,33 @@ def _f_kinds(spans):
     return names
 
 
-def plan_f(shape, k, load="tma") -> Plan:
-    """Kernel F (``heat_f_temporal3d``) at depth ``k`` on an ``(X, Y,
-    Z)`` grid under ``load`` ("tma" or "cp.async"), at the launch
+def plan_f(shape, k, load="tma", bf16=False) -> Plan:
+    """Kernel F (``heat_f_temporal3d``, or with ``bf16``
+    ``heat_f_temporal3d_bf16``) at depth ``k`` on an ``(X, Y, Z)`` grid
+    under ``load`` ("tma" or "cp.async"), at the launch
     ``stencil_kernels_3d.f_geometry`` gives (``heat_f_block.inc``,
-    ``heat_temporal3d.cuh`` HeatFLoop)."""
+    ``heat_temporal3d.cuh`` HeatFLoop). A bfloat16 ring holds 2-byte
+    cells, its tile's halo along Z is 8 cells (``f_pad``), and it fills by
+    a bfloat16 box or by each lane's 8-byte copies where its cells lie
+    inside on 8 bytes, plain 2-byte loads elsewhere (every load tested
+    against the grid); the level buffers stay float32."""
     from parallel_heat_tpu_torch.ops.stencil_kernels_3d import f_geometry
 
     p = _p()
     nx, ny, nz = shape
-    block, rows, prefetch, seg = f_geometry(shape, k)
+    elem = 2 if bf16 else 4
+    block, rows, prefetch, seg = f_geometry(shape, k,
+                                            "bfloat16" if bf16 else
+                                            "float32")
     warps = block[1]
     wy, wz = p.f_extent(block, rows)
-    P = p.f_pad(k)
+    P = p.f_pad(k, elem)
     ty_out, tz_out = wy - 2 * k, wz - 2 * P
     tiles_y, tiles_z = _ceil(ny, ty_out), _ceil(nz, tz_out)
     n_seg = _ceil(nx, seg)
     slots = prefetch + 2
     slot_f = (wy + 2) * wz
-    box_bytes = 4 * wz * wy
+    box_bytes = elem * wz * wy
     threads = 32 * warps
     tma = load == "tma"
 
@@ -891,27 +903,31 @@ def plan_f(shape, k, load="tma") -> Plan:
                                 count)
 
     edge = (min(rows, 2) * warps + 2) * wz
-    slot_map = {f"ring{i}": (4 * i * slot_f, 4 * slot_f)
+    slot_map = {f"ring{i}": (elem * i * slot_f, elem * slot_f)
                 for i in range(slots)}
-    slot_map["levels"] = (4 * slots * slot_f, 4 * 2 * (k - 1) * edge)
-    slot_map["bars"] = (4 * (slots * slot_f + 2 * (k - 1) * edge),
+    slot_map["levels"] = (elem * slots * slot_f, 4 * 2 * (k - 1) * edge)
+    slot_map["bars"] = (elem * slots * slot_f + 4 * 2 * (k - 1) * edge,
                         8 * slots)
+    name = "heat_f_temporal3d_bf16" if bf16 else "heat_f_temporal3d"
+    kind = "tma" if tma else "ld" if bf16 else "cp4"
     return Plan(
-        kernel="heat_f_temporal3d_kernel", entry="heat_f_temporal3d",
-        label=f"F {nx}x{ny}x{nz} K={k} {load}",
+        kernel=name + "_kernel", entry=name,
+        label=f"F {nx}x{ny}x{nz} K={k} {load}" + (" bf16" if bf16 else ""),
         grid=n_seg * tiles_y * tiles_z, threads=threads,
-        max_threads=32 * (8 if rows == 4 else 16),
-        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch),
+        max_threads=32 * p.f_max_warps(rows, k, elem),
+        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch, elem),
         static_smem=p.static_smem_bytes,
-        arrays={"u": Array(shape), "out": Array(shape)}, output="out",
+        arrays={"u": Array(shape, elem=elem),
+                "out": Array(shape, elem=elem)}, output="out",
         axes=[Axis("x", n_seg, xs), Axis("y", tiles_y, ys),
               Axis("z", tiles_z, zs)],
-        loads={"plane": Load("tma" if tma else "cp4", "u", "ring", wz,
-                             (0, wz), streamed=1, box=(1, wy, wz))},
+        loads={"plane": Load(kind, "u", "ring", wz, (0, wz), streamed=1,
+                             box=(1, wy, wz), cell_bytes=elem)},
         slots=slot_map, align_slack=128, cover=_full(shape),
         schedule=schedule,
         int32=[("TMA box coordinate", max(nx, ny, nz))],
-        kinds=p.f_tile_kinds(shape, k, block, rows), kinds_of=_f_kinds)
+        kinds=p.f_tile_kinds(shape, k, block, rows, elem),
+        kinds_of=_f_kinds)
 
 
 # ---------------------------------------------------------------------------
@@ -1622,6 +1638,10 @@ MG_PATH = ((512, 512), (257, 257), (129, 129), (65, 65), (33, 33),
            (17, 17), (9, 9), (5, 5))
 RAGGED_2D = ((1001, 999), (21, 23), (20, 24), (1001, 1000))
 RAGGED_3D = ((24, 20, 28), (67, 130, 201))
+# The bfloat16 forms' ragged grids: rows of 8k + 4 cells (cp.async at
+# bfloat16, TMA at float32), of 8k (TMA) and a thin odd one.
+RAGGED_3D_BF16 = ((67, 130, 204), (67, 130, 200), (5, 3, 300),
+                  (24, 20, 28))
 
 
 def _mesh_origins(grid_shape, mesh):
@@ -1725,6 +1745,21 @@ def default_plans() -> List[Plan]:
                 continue
             for load in loads:
                 out.append(plan_f(shape, k, load))
+    # D's and F's bfloat16 forms: BASELINE config 5's 512^3 (F at its
+    # default depth under both loads), and every depth the picker admits
+    # on the ragged grids under each load the grid takes.
+    out.append(plan_d(F_SHAPE, bf16=True))
+    for load in ("tma", "cp.async"):
+        out.append(plan_f(F_SHAPE, p.f_k_default, load, bf16=True))
+    for shape in RAGGED_3D_BF16:
+        out.append(plan_d(shape, bf16=True))
+        loads = (("tma", "cp.async") if p.f_tma_fits(shape, "bfloat16")
+                 else ("cp.async",))
+        for k in range(1, p.f_k_compiled + 1):
+            if p.f_shape(k, 2) is None:
+                continue
+            for load in loads:
+                out.append(plan_f(shape, k, load, bf16=True))
     # The transfers: every pair of the implicit main path's hierarchy
     # (512 -> 257 -> ... -> 5), and a ragged stack of three.
     for fine, coarse in zip(MG_PATH[:-1], MG_PATH[1:]):

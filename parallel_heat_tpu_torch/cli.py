@@ -12,11 +12,11 @@ flags select the implicit integrators; ``--mesh``, ``--no-overlap``,
 device (``auto`` is the one-device mesh). ``--initial-out`` writes the
 initial grid as ``--out`` writes the final one, ``--quiet`` prints no
 progress lines, and ``--dtype`` and ``--accumulate`` take the JAX CLI's
-names (bfloat16 and float64 in 2D on one block: the explicit scheme, the
-implicit schemes and ``--ensemble``; in 3D and on a mesh refused by
-``HeatConfig.validate``). ``--ensemble`` writes its stacked grids as the
-JAX CLI does, a bfloat16 stack by its raw cells (``utils/io.py``
-``save_npy``).
+names (bfloat16 and float64 on one block, 2D or 3D: the explicit scheme,
+the implicit schemes in 2D and ``--ensemble``; on a mesh refused by
+``HeatConfig.validate``). ``--out`` and ``--ensemble`` write a ``.npy``
+as the JAX CLI does, a bfloat16 grid or stack by its raw cells
+(``utils/io.py`` ``save_npy``).
 
 The observers are the JAX CLI's too: ``--guard-interval`` and
 ``--diag-interval`` set the runtime guard and the grid diagnostics,
@@ -57,9 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16", "float64"],
                     help="storage dtype (arithmetic is float32 at every "
-                         "dtype); bfloat16 and float64 run in 2D on one "
-                         "block (explicit, implicit, --ensemble), an "
-                         "explicit float64 run on the torch route")
+                         "dtype); bfloat16 and float64 run on one block, "
+                         "2D or 3D (explicit, implicit in 2D, "
+                         "--ensemble), an explicit float64 run on the "
+                         "torch route")
     ap.add_argument("--accumulate", default="storage",
                     choices=("storage", "f32chunk"),
                     help="sub-f32 accumulation semantics (SEMANTICS.md): "
@@ -407,22 +408,18 @@ def _run_ensemble(args, config) -> int:
 def _write_grid(path: str, grid) -> str:
     """Write the grid; returns the path actually written (a 3D grid has
     no .dat form and is stored as .npy, as the JAX CLI does)."""
-    import numpy as np
-    import torch
+    from parallel_heat_tpu_torch.utils.io import save_npy, write_dat
 
     path = str(path)
     grid = grid.detach().cpu()
-    # numpy has no bfloat16: a bfloat16 grid's .npy holds its float32
-    # values, exact; its .dat is the JAX CLI's bytes (utils/io.py).
-    arr = (grid.float() if grid.dtype == torch.bfloat16 else grid).numpy()
-    if path.endswith(".npy") or arr.ndim != 2:
+    # Both writers give the JAX CLI's bytes (utils/io.py): a bfloat16
+    # grid's .npy holds its raw 2-byte cells, its .dat its values.
+    if path.endswith(".npy") or grid.dim() != 2:
         if not path.endswith(".npy"):
             path += ".npy"
-        np.save(path, arr)
+        save_npy(path, grid)
         return path
-    from parallel_heat_tpu_torch.utils.io import write_dat
-
-    write_dat(path, arr)
+    write_dat(path, grid)
     return path
 
 

@@ -1,5 +1,5 @@
 // Shared device code of the heat kernels (2D: heat_a ... heat_i; 3D:
-// heat_d_step3d.cu, heat_f_temporal3d.cu).
+// heat_d_step3d.cu, heat_f_temporal3d.cu and their bfloat16 forms).
 //
 // Arithmetic contract: every kernel evaluates the factored 5-point
 // combine of ops/stencil.py::combine_2d,
@@ -59,6 +59,66 @@ __device__ __forceinline__ void heat_store(float* p, float v, bool) {
 __device__ __forceinline__ void heat_store(__nv_bfloat16* p, float v,
                                            bool updated) {
   *p = updated ? __float2bfloat16_rn(v) : heat_bf16_exact(v);
+}
+
+// A group of 4 bfloat16 cells packed in a uint2 (cell 0 in the low half
+// of x), widened exactly, as heat_widen does one.
+__device__ __forceinline__ float4 heat_widen_group(uint2 b) {
+  return make_float4(__uint_as_float(b.x << 16),
+                     __uint_as_float(b.x & 0xffff0000u),
+                     __uint_as_float(b.y << 16),
+                     __uint_as_float(b.y & 0xffff0000u));
+}
+
+// Four bfloat16 cells at p (8 bytes, 8-byte aligned, in any memory
+// space) widened exactly: a lane's group of a bfloat16 ring row.
+__device__ __forceinline__ float4 heat_widen4(const __nv_bfloat16* p) {
+  return heat_widen_group(*reinterpret_cast<const uint2*>(p));
+}
+
+// Two float32 values rounded to bfloat16, round to nearest even (NaN to
+// the canonical NaN), as __float2bfloat16_rn rounds each, packed lo |
+// hi << 16 by one cvt.rn.bf16x2.f32 (which puts its first operand in the
+// upper half).
+__device__ __forceinline__ uint32_t heat_bf16x2_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// The bfloat16 bits of a group of 4 float32 values that hold bfloat16
+// ones (widened cells), packed as heat_widen_group reads them: exact.
+__device__ __forceinline__ uint2 heat_bf16x2_exact(float4 v) {
+  return make_uint2(__byte_perm(__float_as_uint(v.x), __float_as_uint(v.y),
+                                0x7632),
+                    __byte_perm(__float_as_uint(v.z), __float_as_uint(v.w),
+                                0x7632));
+}
+
+// A packed group of 4 bfloat16 cells stored at q: its cells whose bit in
+// `st` is set, or all 8 bytes at once with `vec`.
+__device__ __forceinline__ void heat_bf16_store_group(uint16_t* q, uint2 p,
+                                                      unsigned st,
+                                                      bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint2*>(q) = p;
+    return;
+  }
+  if (st & 1u) q[0] = static_cast<uint16_t>(p.x);
+  if (st & 2u) q[1] = static_cast<uint16_t>(p.x >> 16);
+  if (st & 4u) q[2] = static_cast<uint16_t>(p.y);
+  if (st & 8u) q[3] = static_cast<uint16_t>(p.y >> 16);
+}
+
+// The group `p` with the cells whose bit in `upd` (bit j: cell j) is
+// clear taken from `old`, bit for bit.
+__device__ __forceinline__ uint2 heat_bf16_keep(uint2 p, uint2 old,
+                                                unsigned upd) {
+  const uint32_t mx = (upd & 1u ? 0x0000ffffu : 0u) |
+                      (upd & 2u ? 0xffff0000u : 0u);
+  const uint32_t my = (upd & 4u ? 0x0000ffffu : 0u) |
+                      (upd & 8u ? 0xffff0000u : 0u);
+  return make_uint2((p.x & mx) | (old.x & ~mx), (p.y & my) | (old.y & ~my));
 }
 
 __device__ __forceinline__ float heat_combine(float c, float up, float down,

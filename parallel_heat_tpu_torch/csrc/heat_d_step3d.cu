@@ -29,6 +29,12 @@
 //   - the six Dirichlet faces are copied from the input, never computed.
 // Any nx, ny, nz >= 3 works (ragged tiles are masked); offsets are int64,
 // so grids past 2^31 cells index safely.
+//
+// Storage precision: heat_d_step3d_bf16 steps a bfloat16 grid, 4 B a cell
+// over HBM, in float32 arithmetic (heat_common.cuh): a warp reads 64-byte
+// rows, one z cell a lane, as the float32 kernel does.
+
+#include <type_traits>
 
 #include "heat_common.cuh"
 
@@ -36,11 +42,14 @@
 // independent, so each thread keeps kDGroup planes' reads in flight.
 constexpr int kDGroup = 4;
 
-__global__ void __launch_bounds__(1024)
-heat_d_step3d_kernel(const float* __restrict__ u, float* __restrict__ out,
-                     uint32_t* res, int64_t nx, int64_t ny, int64_t nz,
-                     int64_t tiles_z, int64_t tiles_y, int planes, float a0,
-                     float cx, float cy, float cz) {
+// A block's cells of the step, at storage type T (float32, or bfloat16:
+// each load widened exactly, each updated cell rounded, each copied one
+// narrowed exactly, heat_common.cuh), and its residual into *res.
+template <typename T>
+__device__ __forceinline__ void heat_d_cells(
+    const T* __restrict__ u, T* __restrict__ out, uint32_t* res, int64_t nx,
+    int64_t ny, int64_t nz, int64_t tiles_z, int64_t tiles_y, int planes,
+    float a0, float cx, float cy, float cz) {
   const int64_t b = blockIdx.x;
   const int64_t tz = b % tiles_z;
   const int64_t ty = (b / tiles_z) % tiles_y;
@@ -54,8 +63,8 @@ heat_d_step3d_kernel(const float* __restrict__ u, float* __restrict__ out,
     const int64_t x_end = x0 + planes < nx ? x0 + planes : nx;
     const bool yz_in = y >= 1 && y <= ny - 2 && z >= 1 && z <= nz - 2;
     int64_t idx = (x0 * ny + y) * nz + z;
-    float xm = x0 >= 1 ? u[idx - plane] : 0.f;
-    float c = u[idx];
+    float xm = x0 >= 1 ? heat_widen(u[idx - plane]) : 0.f;
+    float c = heat_widen(u[idx]);
     for (int64_t x = x0; x < x_end; x += kDGroup, idx += kDGroup * plane) {
       float xp[kDGroup], ym[kDGroup], yp[kDGroup], zm[kDGroup], zp[kDGroup];
       bool in[kDGroup];
@@ -63,11 +72,12 @@ heat_d_step3d_kernel(const float* __restrict__ u, float* __restrict__ out,
       for (int i = 0; i < kDGroup; ++i) {
         const int64_t at = idx + i * plane;
         in[i] = yz_in && x + i >= 1 && x + i <= nx - 2 && x + i < x_end;
-        xp[i] = x + i + 1 < nx && x + i < x_end ? u[at + plane] : 0.f;
-        ym[i] = in[i] ? u[at - nz] : 0.f;
-        yp[i] = in[i] ? u[at + nz] : 0.f;
-        zm[i] = in[i] ? u[at - 1] : 0.f;
-        zp[i] = in[i] ? u[at + 1] : 0.f;
+        xp[i] = x + i + 1 < nx && x + i < x_end ? heat_widen(u[at + plane])
+                                                : 0.f;
+        ym[i] = in[i] ? heat_widen(u[at - nz]) : 0.f;
+        yp[i] = in[i] ? heat_widen(u[at + nz]) : 0.f;
+        zm[i] = in[i] ? heat_widen(u[at - 1]) : 0.f;
+        zp[i] = in[i] ? heat_widen(u[at + 1]) : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < kDGroup; ++i) {
@@ -78,7 +88,7 @@ heat_d_step3d_kernel(const float* __restrict__ u, float* __restrict__ out,
                               cx, cy, cz);
             rmax = max(rmax, heat_diff_bits(v, c));
           }
-          out[idx + i * plane] = v;
+          heat_store(out + (idx + i * plane), v, in[i]);
           xm = c;
           c = xp[i];
         }
@@ -86,6 +96,62 @@ heat_d_step3d_kernel(const float* __restrict__ u, float* __restrict__ out,
     }
   }
   heat_block_max(rmax, res);
+}
+
+__global__ void __launch_bounds__(1024)
+heat_d_step3d_kernel(const float* __restrict__ u, float* __restrict__ out,
+                     uint32_t* res, int64_t nx, int64_t ny, int64_t nz,
+                     int64_t tiles_z, int64_t tiles_y, int planes, float a0,
+                     float cx, float cy, float cz) {
+  heat_d_cells(u, out, res, nx, ny, nz, tiles_z, tiles_y, planes, a0, cx, cy,
+               cz);
+}
+
+// The largest thread block of kernel D's bfloat16 form: its widened loads
+// take more than the 64 registers a 1024-thread bound leaves (ptxas
+// spilled 16 bytes there), so it is bound at 512 threads, up to 128
+// registers. The default block (hopper_params.d_block) is 128 threads.
+constexpr int kDBf16MaxThreads = 512;
+
+// Kernel D on a bfloat16 grid: a kernel of its own, so that the float32
+// kernel keeps its name and machine code.
+__global__ void __launch_bounds__(kDBf16MaxThreads)
+heat_d_step3d_bf16_kernel(const __nv_bfloat16* __restrict__ u,
+                          __nv_bfloat16* __restrict__ out, uint32_t* res,
+                          int64_t nx, int64_t ny, int64_t nz,
+                          int64_t tiles_z, int64_t tiles_y, int planes,
+                          float a0, float cx, float cy, float cz) {
+  heat_d_cells(u, out, res, nx, ny, nz, tiles_z, tiles_y, planes, a0, cx, cy,
+               cz);
+}
+
+template <typename T>
+static int heat_d_launch(const T* u, T* out, uint32_t* res, int64_t nx,
+                         int64_t ny, int64_t nz, int block_z, int block_y,
+                         int planes, float a0, float cx, float cy, float cz,
+                         void* stream) {
+  const int threads = block_z * block_y;
+  const int max_threads =
+      std::is_same<T, float>::value ? 1024 : kDBf16MaxThreads;
+  if (nx < 3 || ny < 3 || nz < 3 || block_z < 1 || block_y < 1 ||
+      planes < 1 || threads % 32 != 0 || threads > max_threads ||
+      res == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles_z = (nz + block_z - 1) / block_z;
+  const int64_t tiles_y = (ny + block_y - 1) / block_y;
+  const int64_t blocks = tiles_z * tiles_y * ((nx + planes - 1) / planes);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(blocks)), block(block_z, block_y);
+  if constexpr (std::is_same<T, float>::value)
+    heat_d_step3d_kernel<<<grid, block, 0, s>>>(
+        u, out, res, nx, ny, nz, tiles_z, tiles_y, planes, a0, cx, cy, cz);
+  else
+    heat_d_step3d_bf16_kernel<<<grid, block, 0, s>>>(
+        u, out, res, nx, ny, nz, tiles_z, tiles_y, planes, a0, cx, cy, cz);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One step of the nx x ny x nz float32 grid `u` (z contiguous) into `out`
@@ -98,21 +164,23 @@ extern "C" int heat_d_step3d(const float* u, float* out, uint32_t* res,
                              int64_t nx, int64_t ny, int64_t nz, int block_z,
                              int block_y, int planes, float a0, float cx,
                              float cy, float cz, void* stream) {
-  const int threads = block_z * block_y;
-  if (nx < 3 || ny < 3 || nz < 3 || block_z < 1 || block_y < 1 ||
-      planes < 1 || threads % 32 != 0 || threads > 1024 || res == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t tiles_z = (nz + block_z - 1) / block_z;
-  const int64_t tiles_y = (ny + block_y - 1) / block_y;
-  const int64_t blocks = tiles_z * tiles_y * ((nx + planes - 1) / planes);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(res, 0, sizeof(uint32_t), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  heat_d_step3d_kernel<<<static_cast<unsigned>(blocks),
-                         dim3(block_z, block_y), 0, s>>>(
-      u, out, res, nx, ny, nz, tiles_z, tiles_y, planes, a0, cx, cy, cz);
-  return static_cast<int>(cudaGetLastError());
+  return heat_d_launch(u, out, res, nx, ny, nz, block_z, block_y, planes, a0,
+                       cx, cy, cz, stream);
+}
+
+// heat_d_step3d on a bfloat16 grid `u` into the bfloat16 `out` (blocks
+// of at most kDBf16MaxThreads threads): the step computes in float32,
+// rounds its updated cells to bfloat16 and copies the six faces bit for
+// bit; the residual is the float32 update against the float32 of the cell
+// it read, before rounding. The counterpart of _build_slab_kernel_3d at
+// dtype bfloat16.
+extern "C" int heat_d_step3d_bf16(const __nv_bfloat16* u, __nv_bfloat16* out,
+                                  uint32_t* res, int64_t nx, int64_t ny,
+                                  int64_t nz, int block_z, int block_y,
+                                  int planes, float a0, float cx, float cy,
+                                  float cz, void* stream) {
+  return heat_d_launch(u, out, res, nx, ny, nz, block_z, block_y, planes, a0,
+                       cx, cy, cz, stream);
 }
 
 extern "C" const char* heat_d_step3d_error_string(int code) {

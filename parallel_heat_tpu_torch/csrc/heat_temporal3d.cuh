@@ -54,6 +54,8 @@
 
 #include <cuda_pipeline.h>
 
+#include <type_traits>
+
 #include "heat_common.cuh"
 #include "heat_tma.cuh"
 
@@ -408,29 +410,39 @@ constexpr int kFWidth = 4 * kFLanes;  // cells of the extended tile along Z
 constexpr int kFMaxK = 8;             // ops/hopper_params.py f_k_compiled
 constexpr int kFMaxPrefetch = 8;      // ops/hopper_params.py f_prefetch_max
 
-// The halo along Z at depth k: k rounded up to a whole group.
-__host__ __device__ constexpr int heat_f_pad(int k) { return (k + 3) / 4 * 4; }
-
-// Warps a thread block of `rows` rows a thread may have: 16 (512
-// threads, up to 128 registers), or 8 at 4 rows, whose instances take up
-// to 255 (their launch bound).
-__host__ __device__ constexpr int heat_f_max_warps(int rows) {
-  return rows == 4 ? 8 : 16;
+// The halo along Z at depth k on a grid of `elem`-byte cells: k rounded
+// up to 16 bytes of cells, a whole group of float32 cells or two of
+// bfloat16 ones, so that a tile's box starts on 16 bytes.
+__host__ __device__ constexpr int heat_f_pad(int k, int elem = 4) {
+  return elem == 2 ? (k + 7) / 8 * 8 : (k + 3) / 4 * 4;
 }
 
-// The launch shapes the loop takes (ops/hopper_params.py f_takes is the
-// same rule): 32 lanes by W warps of 1, 2 or 4 rows a thread, at most
-// heat_f_max_warps(rows) warps, depth 1 .. kFMaxK, and at least one
-// output row (2k < W R; along Z the tile has 128 - 2 heat_f_pad(k) >= 112
-// output cells).
-inline bool heat_f_takes(int block_x, int block_y, int rows, int k) {
+// Warps a thread block of `rows` rows a thread may have at depth k on a
+// grid of `elem`-byte cells: 16 (512 threads, up to 128 registers), or 8
+// at 4 rows, whose instances take up to 255 (their launch bound); the
+// bfloat16 form's instances of 1 or 2 rows at K >= 4 are bound at 12
+// (384 threads, up to 168 registers): at 128 they spilled more than
+// their float32 twins (PERF.md §6).
+__host__ __device__ constexpr int heat_f_max_warps(int rows, int k = 1,
+                                                   int elem = 4) {
+  return rows == 4 ? 8 : elem == 2 && k >= 4 ? 12 : 16;
+}
+
+// The launch shapes the loop takes on a grid of `elem`-byte cells
+// (ops/hopper_params.py f_takes is the same rule): 32 lanes by W warps of
+// 1, 2 or 4 rows a thread, at most heat_f_max_warps(rows, k, elem) warps,
+// depth 1 .. kFMaxK, and at least one output row (2k < W R; along Z the
+// tile has 128 - 2 heat_f_pad(k, elem) >= 112 output cells).
+inline bool heat_f_takes(int block_x, int block_y, int rows, int k,
+                         int elem = 4) {
   return block_x == kFLanes && (rows == 1 || rows == 2 || rows == 4) &&
-         block_y >= 1 && block_y <= heat_f_max_warps(rows) && k >= 1 &&
-         k <= kFMaxK && 2 * k < block_y * rows;
+         block_y >= 1 && block_y <= heat_f_max_warps(rows, k, elem) &&
+         k >= 1 && k <= kFMaxK && 2 * k < block_y * rows;
 }
 
-// Floats of a ring slot (a lead row, wy rows, a tail row) and of a level
-// buffer (min(R, 2) edge rows a warp and two pad rows).
+// Cells of a ring slot (a lead row, wy rows, a tail row: floats, or the
+// grid's bfloat16 cells) and floats of a level buffer (min(R, 2) edge
+// rows a warp and two pad rows).
 __host__ __device__ constexpr int heat_f_slot_floats(int wy) {
   return (wy + 2) * kFWidth;
 }
@@ -438,13 +450,15 @@ __host__ __device__ constexpr int heat_f_edge_floats(int warps, int rows) {
   return ((rows < 2 ? rows : 2) * warps + 2) * kFWidth;
 }
 
-// Dynamic shared memory of one F block (ops/hopper_params.py
-// f_smem_bytes): 128 bytes to align the ring, prefetch + 2 slots, two
-// level buffers for each level 1 .. k-1, an 8-byte mbarrier a slot.
-inline int heat_f_smem_bytes(int k, int warps, int rows, int prefetch) {
-  return 4 * ((prefetch + 2) * heat_f_slot_floats(warps * rows) +
-              2 * (k - 1) * heat_f_edge_floats(warps, rows)) +
-         128 + 8 * (prefetch + 2);
+// Dynamic shared memory of one F block on a grid of `elem`-byte cells
+// (ops/hopper_params.py f_smem_bytes): 128 bytes to align the ring,
+// prefetch + 2 slots of the grid's cells, two float32 level buffers for
+// each level 1 .. k-1, an 8-byte mbarrier a slot.
+inline int heat_f_smem_bytes(int k, int warps, int rows, int prefetch,
+                             int elem = 4) {
+  return elem * (prefetch + 2) * heat_f_slot_floats(warps * rows) +
+         4 * 2 * (k - 1) * heat_f_edge_floats(warps, rows) + 128 +
+         8 * (prefetch + 2);
 }
 
 // The plane loop's compile-time variants. F runs kHeatFFull; the others
@@ -468,6 +482,17 @@ constexpr int kHeatFRecord = 3;
 // The loop's planes from a sharded block's pieces, one band a thread
 // block (HeatFLoop's kBand; heat_h_band_fix_3d.cu).
 constexpr int kHeatFBand = 1;
+// The layouts of a bfloat16 loop's levels (HeatFLoop's kBf16). Both
+// compute the same function, bit for bit; they differ in what ptxas makes
+// of them at the register budget, and the bfloat16 kernel takes one a
+// (K, rows, load) instance (heat_f_temporal3d_bf16.cu heat_f_bf16_layout).
+// Measured and dropped (PERF.md §6): float4 levels rounded a cell at a
+// time, packed levels widened where each is read, widened by a volatile
+// asm (spill no smaller), and the cp.async load as one zero-filled copy of
+// a group's prefix (slower).
+constexpr int kHeatFBf16None = 0;    // the float32 loop
+constexpr int kHeatFBf16Pair = 1;    // float4 levels, rounded two at once
+constexpr int kHeatFBf16Packed = 2;  // packed levels, a level widened once
 
 // One thread's state of the loop. The kernel fills the geometry; run()
 // streams the planes. kProbe is the loop's variant (kHeatFFull but in the
@@ -479,23 +504,58 @@ constexpr int kHeatFBand = 1;
 // output's cone not stepped. Only fetch() differs for
 // kCirc, and levels() for kBand, under `if constexpr`, so F's instances
 // keep their code.
+//
+// Storage precision (kernel F's bfloat16 form, heat_f_temporal3d_bf16.cu).
+// Tin and Tout are the grid's cells in and out, kBf16 the layout of a
+// bfloat16 loop's levels (kHeatFBf16*, above), every level below K
+// rounded to bfloat16 (storage mode, the only bfloat16 mode in 3D: the JAX
+// kernel stores each level in the grid's dtype); the defaults are the
+// float32 loop, whose expressions stay as they were under `if constexpr`.
+// The ring holds Tin: a bfloat16 row is 256 bytes, and a lane widens its
+// 4 cells on its one 8-byte shared load, of the current plane (level 0's
+// cells) and of the previous one (level 0's Y neighbours past the
+// thread's rows). The arithmetic and the level buffers stay float32, the
+// levels' registers float4 (kHeatFBf16Pair) or packed bfloat16
+// (kHeatFBf16Packed, levels_packed); a level s < K is rounded, two cells
+// by one cvt.rn.bf16x2.f32, before the copied cells are restored (they
+// keep their bits), so K levels are bitwise K launches of
+// heat_d_step3d_bf16. Level K's float32 update against level K - 1 is the
+// residual, before the store rounds the updated cells and narrows the
+// copied ones exactly, 8 bytes a group where the rows allow it. A
+// bfloat16 tile's halo along Z is 8 cells (heat_f_pad), so that its TMA
+// box (128 cells, 256-byte rows) starts on 16 bytes; by cp.async a lane
+// copies its 4 cells as one 8-byte copy where they lie inside the grid on
+// 8 bytes, else as plain 2-byte loads and zeros (cp.async has no 2-byte
+// copy), stored before the lane arrives on the slot's barrier and read by
+// other threads only past a later block barrier.
 template <int K, int R, bool kTma, int kProbe = kHeatFFull,
-          bool kCirc = false, int kBand = 0>
+          bool kCirc = false, int kBand = 0, typename Tin = float,
+          typename Tout = float, int kBf16 = kHeatFBf16None>
 struct HeatFLoop {
   static constexpr int kEdgeRows = R < 2 ? R : 2;
   static constexpr bool kRecords = kProbe == kHeatFRecord;
-  const float* u;            // the grid (the cp.async load)
+  static constexpr bool kF32In = std::is_same<Tin, float>::value;
+  static constexpr bool kF32Out = std::is_same<Tout, float>::value;
+  static constexpr int kPad = heat_f_pad(K, sizeof(Tin));
+  static constexpr bool kRound = kBf16 != kHeatFBf16None;
+  // The packed layout keeps the levels as bfloat16 bits, 4 cells of a
+  // group in a uint2 (every level below K is a bfloat16 value): half the
+  // registers of the float4 levels (levels_packed).
+  static constexpr bool kPacked = kBf16 == kHeatFBf16Packed;
+  using In = Tin;
+  using Reg = typename std::conditional<kPacked, uint2, float4>::type;
+  const Tin* u;              // the grid (the cp.async load)
   const CUtensorMap* map;    // its tensor map (the TMA load)
-  float* out;
+  Tout* out;
   int64_t nx, nz, plane;     // plane: ny * nz
   int64_t x0, x1;            // output planes of this block
   int z0, y0;                // the tile's first cell (TMA coordinates)
   float a0, cx, cy, cz;
   bool vec_out, leader, has_out;
-  float* ring;               // slot 0, 128-byte aligned
+  Tin* ring;                 // slot 0, 128-byte aligned
   float* lev;                // level 1's buffer of parity 0
   uint64_t* full;            // the slots' mbarriers
-  int slots, prefetch, slot_f, edge_f;
+  int slots, prefetch, slot_f, edge_f;  // slot_f: cells of a slot
   int own;                   // this thread's first cell in a slot
   int lev_first, lev_last;   // its first and last row in a level buffer
   int lev_up, lev_dn;        // the rows above its first and below its last
@@ -522,11 +582,18 @@ struct HeatFLoop {
         heat_tma_load_3d(ring + slot * slot_f + kFWidth, map, &full[slot],
                          z0, y0, static_cast<int>(t + xsh));
       }
-    } else if constexpr (kTma) {
+    } else if constexpr (kTma && kF32In) {
       if (leader) {
         heat_mbar_expect(&full[slot], box_bytes);
         heat_tma_load_3d(ring + slot * slot_f + kFWidth, map, &full[slot],
                          z0, y0, static_cast<int>(t));
+      }
+    } else if constexpr (kTma) {
+      if (leader) {
+        heat_mbar_expect(&full[slot], box_bytes);
+        heat_tma_load_3d(
+            reinterpret_cast<float*>(ring + slot * slot_f + kFWidth), map,
+            &full[slot], z0, y0, static_cast<int>(t));
       }
     } else if constexpr (kCirc) {
       float* dst = ring + slot * slot_f + own;
@@ -543,7 +610,7 @@ struct HeatFLoop {
                                   in ? 0 : 4);
         }
       heat_cp_async_arrive(&full[slot]);
-    } else {
+    } else if constexpr (kF32In) {
       float* dst = ring + slot * slot_f + own;
       const bool t_in = t >= 0 && t < nx;
       const int64_t base = t * plane + src;
@@ -556,6 +623,29 @@ struct HeatFLoop {
                                   in ? u + (base + r * nz + j) : u, 4,
                                   in ? 0 : 4);
         }
+      heat_cp_async_arrive(&full[slot]);
+    } else {
+      // bfloat16: one 8-byte copy where the lane's 4 cells of a row lie
+      // inside the grid on 8 bytes; else a plain 2-byte load a cell
+      // inside the grid and zeros outside it.
+      uint16_t* dst = reinterpret_cast<uint16_t*>(ring + slot * slot_f + own);
+      const uint16_t* g = reinterpret_cast<const uint16_t*>(u);
+      const bool t_in = t >= 0 && t < nx;
+      const int64_t base = t * plane + src;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        uint16_t* d = dst + r * kFWidth;
+        const unsigned in = t_in ? (cin >> (4 * r)) & 0xfu : 0u;
+        const int64_t at = base + r * nz;
+        if (in == 0xfu && ((reinterpret_cast<uintptr_t>(g) +
+                            2 * static_cast<uintptr_t>(at)) & 7u) == 0) {
+          __pipeline_memcpy_async(d, g + at, 8);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            d[j] = (in >> j) & 1u ? g[at + j] : uint16_t{0};
+        }
+      }
       heat_cp_async_arrive(&full[slot]);
     }
     if constexpr (kRecords) {
@@ -580,58 +670,189 @@ struct HeatFLoop {
   // outside the global interior (a tile at the grid's edge, or a plane
   // at its X faces); without it every cell is updated.
   template <bool kCheck>
-  __device__ __forceinline__ void levels(float4 (&U)[K][R],
-                                         float4 (&M)[K][R],
-                                         float4 (&D)[K][R], int prev,
+  __device__ __forceinline__ void levels(Reg (&U)[K][R], Reg (&M)[K][R],
+                                         Reg (&D)[K][R], int prev,
                                          int64_t t) {
-    const float4* cur4 =
-        reinterpret_cast<const float4*>(ring + cur * slot_f + own);
+    if constexpr (kPacked) {
+      levels_packed<kCheck>(U, M, D, prev, t);
+    } else {
+      if constexpr (kF32In) {
+        const float4* cur4 =
+            reinterpret_cast<const float4*>(ring + cur * slot_f + own);
 #pragma unroll
-    for (int r = 0; r < R; ++r) D[0][r] = cur4[r * (kFWidth / 4)];
-    const float* prev_p = ring + prev * slot_f + own;
-    const int par = static_cast<int>(t & 1);
-    float* out_p = has_out && t - K >= x0 && t - K < x1
-                       ? out + ((t - K) * plane + src)
-                       : nullptr;
+        for (int r = 0; r < R; ++r) D[0][r] = cur4[r * (kFWidth / 4)];
+      } else {
 #pragma unroll
-    for (int s = 1; s <= K; ++s) {
-      // kBand: a region is K output planes from 3K input planes, so the
-      // output's cone holds level s only at planes [x0 - K + s, x1 + K -
-      // s); the levels outside it are not stepped (their cells reach no
-      // output, as the cone's garbage never does), 2K^2 - K plane-levels
-      // a region of the 3K^2 the loop would step. The level below is
-      // passed on in its place, so that every register of a level is
-      // written each plane, as in the stepped loop. Uniform across the
-      // block.
-      if constexpr (kBand != 0) {
-        if (t < x0 - K + 2 * s) {
-          if (s < K) {
+        for (int r = 0; r < R; ++r)
+          D[0][r] = heat_widen4(ring + cur * slot_f + own + r * kFWidth);
+      }
+      const Tin* prev_p = ring + prev * slot_f + own;
+      const int par = static_cast<int>(t & 1);
+      Tout* out_p = has_out && t - K >= x0 && t - K < x1
+                        ? out + ((t - K) * plane + src)
+                        : nullptr;
 #pragma unroll
-            for (int r = 0; r < R; ++r) D[s][r] = M[s - 1][r];
+      for (int s = 1; s <= K; ++s) {
+        // kBand: a region is K output planes from 3K input planes, so the
+        // output's cone holds level s only at planes [x0 - K + s, x1 + K -
+        // s); the levels outside it are not stepped (their cells reach no
+        // output, as the cone's garbage never does), 2K^2 - K plane-levels
+        // a region of the 3K^2 the loop would step. The level below is
+        // passed on in its place, so that every register of a level is
+        // written each plane, as in the stepped loop. Uniform across the
+        // block.
+        if constexpr (kBand != 0) {
+          if (t < x0 - K + 2 * s) {
+            if (s < K) {
+#pragma unroll
+              for (int r = 0; r < R; ++r) D[s][r] = M[s - 1][r];
+            }
+            continue;
           }
-          continue;
+        }
+        // Level s-1 at plane t - s: M[s-1]; the neighbours of its first and
+        // last rows in the warps above and below, from shared memory.
+        float4 yu, yd;
+        if (s == 1) {
+          if constexpr (kF32In) {
+            yu = *reinterpret_cast<const float4*>(prev_p - kFWidth);
+            yd = *reinterpret_cast<const float4*>(prev_p + R * kFWidth);
+          } else {
+            yu = heat_widen4(prev_p - kFWidth);
+            yd = heat_widen4(prev_p + R * kFWidth);
+          }
+        } else {
+          const float* nb = lev + ((s - 2) * 2 + (par ^ 1)) * edge_f;
+          yu = *reinterpret_cast<const float4*>(nb + lev_up);
+          yd = *reinterpret_cast<const float4*>(nb + lev_dn);
+        }
+        const bool x_in = !kCheck || (t - s >= 1 && t - s <= nx - 2);
+        float4 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 c = M[s - 1][r];
+          const float4 xm = U[s - 1][r];
+          const float4 xp = D[s - 1][r];
+          const float4 ym = r > 0 ? M[s - 1][r - 1] : yu;
+          const float4 yp = r + 1 < R ? M[s - 1][r + 1] : yd;
+          const float zl = __shfl_up_sync(0xffffffffu, c.w, 1);
+          const float zr = __shfl_down_sync(0xffffffffu, c.x, 1);
+          float4 n;
+          n.x = heat_combine3(c.x, xm.x, xp.x, ym.x, yp.x, zl, c.y, a0, cx,
+                              cy, cz);
+          n.y = heat_combine3(c.y, xm.y, xp.y, ym.y, yp.y, c.x, c.z, a0, cx,
+                              cy, cz);
+          n.z = heat_combine3(c.z, xm.z, xp.z, ym.z, yp.z, c.y, c.w, a0, cx,
+                              cy, cz);
+          n.w = heat_combine3(c.w, xm.w, xp.w, ym.w, yp.w, c.z, zr, a0, cx,
+                              cy, cz);
+          if constexpr (kRound) {
+            // Before the copied cells are restored: they keep their bits.
+            if (s < K)
+              n = heat_widen_group(make_uint2(heat_bf16x2_rn(n.x, n.y),
+                                              heat_bf16x2_rn(n.z, n.w)));
+          }
+          if (kCheck) {
+            const bool row_in = x_in && ((yin >> r) & 1u);
+            n.x = row_in && (zin & 1u) ? n.x : c.x;
+            n.y = row_in && (zin & 2u) ? n.y : c.y;
+            n.z = row_in && (zin & 4u) ? n.z : c.z;
+            n.w = row_in && (zin & 8u) ? n.w : c.w;
+          }
+          v[r] = n;
+        }
+        if (s < K) {
+          float* dst = lev + ((s - 1) * 2 + par) * edge_f;
+          *reinterpret_cast<float4*>(dst + lev_first) = v[0];
+          if (R > 1) *reinterpret_cast<float4*>(dst + lev_last) = v[R - 1];
+#pragma unroll
+          for (int r = 0; r < R; ++r) D[s][r] = v[r];
+        } else if (out_p != nullptr) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (!((yout >> r) & 1u)) continue;
+            const float4 c = M[K - 1][r];
+            const unsigned in =
+                kCheck ? (x_in && ((yin >> r) & 1u) ? zout & zin : 0u) : zout;
+            if (in & 1u) rmax = max(rmax, heat_diff_bits(v[r].x, c.x));
+            if (in & 2u) rmax = max(rmax, heat_diff_bits(v[r].y, c.y));
+            if (in & 4u) rmax = max(rmax, heat_diff_bits(v[r].z, c.z));
+            if (in & 8u) rmax = max(rmax, heat_diff_bits(v[r].w, c.w));
+            Tout* q = out_p + r * nz;
+            if constexpr (kF32Out) {
+              if (vec_out && zout == 0xfu) {
+                *reinterpret_cast<float4*>(q) = v[r];
+              } else {
+                if (zout & 1u) q[0] = v[r].x;
+                if (zout & 2u) q[1] = v[r].y;
+                if (zout & 4u) q[2] = v[r].z;
+                if (zout & 8u) q[3] = v[r].w;
+              }
+            } else {
+              // Updated cells rounded, copied ones (the faces) narrowed
+              // exactly.
+              const unsigned upd =
+                  kCheck ? (x_in && ((yin >> r) & 1u) ? zin : 0u) : 0xfu;
+              heat_bf16_store_group(
+                  reinterpret_cast<uint16_t*>(q),
+                  heat_bf16_keep(make_uint2(heat_bf16x2_rn(v[r].x, v[r].y),
+                                            heat_bf16x2_rn(v[r].z, v[r].w)),
+                                 heat_bf16x2_exact(c), upd),
+                  zout, vec_out && zout == 0xfu);
+            }
+          }
         }
       }
-      // Level s-1 at plane t - s: M[s-1]; the neighbours of its first and
-      // last rows in the warps above and below, from shared memory.
+    }
+  }
+
+  // The bfloat16 storage form's levels (kPacked): levels() with every
+  // level below K held as bfloat16 bits, 4 cells in a uint2 (U, M, D), and
+  // level 0's cells taken from the ring as they lie. Each level is
+  // widened exactly where it is read and computed in float32 as levels()
+  // computes it; a level s < K is rounded to bfloat16 (two cells by one
+  // cvt.rn.bf16x2.f32, as __float2bfloat16_rn rounds each) and its copied
+  // cells restored from the level below by their bits, so it is
+  // levels()'s rounded level bit for bit; level K's float32 update gives
+  // the residual, and its store rounds the updated cells and keeps the
+  // copied ones' bits.
+  template <bool kCheck>
+  __device__ __forceinline__ void levels_packed(uint2 (&U)[K][R],
+                                                uint2 (&M)[K][R],
+                                                uint2 (&D)[K][R], int prev,
+                                                int64_t t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      D[0][r] = *reinterpret_cast<const uint2*>(ring + cur * slot_f + own +
+                                                r * kFWidth);
+    const Tin* prev_p = ring + prev * slot_f + own;
+    const int par = static_cast<int>(t & 1);
+    Tout* out_p = has_out && t - K >= x0 && t - K < x1
+                      ? out + ((t - K) * plane + src)
+                      : nullptr;
+#pragma unroll
+    for (int s = 1; s <= K; ++s) {
       float4 yu, yd;
       if (s == 1) {
-        yu = *reinterpret_cast<const float4*>(prev_p - kFWidth);
-        yd = *reinterpret_cast<const float4*>(prev_p + R * kFWidth);
+        yu = heat_widen4(prev_p - kFWidth);
+        yd = heat_widen4(prev_p + R * kFWidth);
       } else {
         const float* nb = lev + ((s - 2) * 2 + (par ^ 1)) * edge_f;
         yu = *reinterpret_cast<const float4*>(nb + lev_up);
         yd = *reinterpret_cast<const float4*>(nb + lev_dn);
       }
       const bool x_in = !kCheck || (t - s >= 1 && t - s <= nx - 2);
-      float4 v[R];
+      // Level s-1's rows, widened once.
+      float4 mid[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) mid[r] = heat_widen_group(M[s - 1][r]);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float4 c = M[s - 1][r];
-        const float4 xm = U[s - 1][r];
-        const float4 xp = D[s - 1][r];
-        const float4 ym = r > 0 ? M[s - 1][r - 1] : yu;
-        const float4 yp = r + 1 < R ? M[s - 1][r + 1] : yd;
+        const float4 c = mid[r];
+        const float4 ym = r > 0 ? mid[r - 1] : yu;
+        const float4 yp = r + 1 < R ? mid[r + 1] : yd;
+        const float4 xm = heat_widen_group(U[s - 1][r]);
+        const float4 xp = heat_widen_group(D[s - 1][r]);
         const float zl = __shfl_up_sync(0xffffffffu, c.w, 1);
         const float zr = __shfl_down_sync(0xffffffffu, c.x, 1);
         float4 n;
@@ -643,41 +864,33 @@ struct HeatFLoop {
                             cy, cz);
         n.w = heat_combine3(c.w, xm.w, xp.w, ym.w, yp.w, c.z, zr, a0, cx,
                             cy, cz);
-        if (kCheck) {
-          const bool row_in = x_in && ((yin >> r) & 1u);
-          n.x = row_in && (zin & 1u) ? n.x : c.x;
-          n.y = row_in && (zin & 2u) ? n.y : c.y;
-          n.z = row_in && (zin & 4u) ? n.z : c.z;
-          n.w = row_in && (zin & 8u) ? n.w : c.w;
-        }
-        v[r] = n;
-      }
-      if (s < K) {
-        float* dst = lev + ((s - 1) * 2 + par) * edge_f;
-        *reinterpret_cast<float4*>(dst + lev_first) = v[0];
-        if (R > 1) *reinterpret_cast<float4*>(dst + lev_last) = v[R - 1];
-#pragma unroll
-        for (int r = 0; r < R; ++r) D[s][r] = v[r];
-      } else if (out_p != nullptr) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (!((yout >> r) & 1u)) continue;
-          const float4 c = M[K - 1][r];
-          const unsigned in =
-              kCheck ? (x_in && ((yin >> r) & 1u) ? zout & zin : 0u) : zout;
-          if (in & 1u) rmax = max(rmax, heat_diff_bits(v[r].x, c.x));
-          if (in & 2u) rmax = max(rmax, heat_diff_bits(v[r].y, c.y));
-          if (in & 4u) rmax = max(rmax, heat_diff_bits(v[r].z, c.z));
-          if (in & 8u) rmax = max(rmax, heat_diff_bits(v[r].w, c.w));
-          float* q = out_p + r * nz;
-          if (vec_out && zout == 0xfu) {
-            *reinterpret_cast<float4*>(q) = v[r];
-          } else {
-            if (zout & 1u) q[0] = v[r].x;
-            if (zout & 2u) q[1] = v[r].y;
-            if (zout & 4u) q[2] = v[r].z;
-            if (zout & 8u) q[3] = v[r].w;
+        // The cells this level updates; the others keep level s-1's bits.
+        const unsigned upd =
+            kCheck ? (x_in && ((yin >> r) & 1u) ? zin : 0u) : 0xfu;
+        if (s < K) {
+          const uint2 p =
+              heat_bf16_keep(make_uint2(heat_bf16x2_rn(n.x, n.y),
+                                        heat_bf16x2_rn(n.z, n.w)),
+                             M[s - 1][r], upd);
+          D[s][r] = p;
+          if (r == 0 || r == R - 1) {
+            float* dst = lev + ((s - 1) * 2 + par) * edge_f;
+            *reinterpret_cast<float4*>(dst + (r == 0 ? lev_first
+                                                     : lev_last)) =
+                heat_widen_group(p);
           }
+        } else if (out_p != nullptr && ((yout >> r) & 1u)) {
+          const unsigned in = upd & zout;
+          if (in & 1u) rmax = max(rmax, heat_diff_bits(n.x, c.x));
+          if (in & 2u) rmax = max(rmax, heat_diff_bits(n.y, c.y));
+          if (in & 4u) rmax = max(rmax, heat_diff_bits(n.z, c.z));
+          if (in & 8u) rmax = max(rmax, heat_diff_bits(n.w, c.w));
+          heat_bf16_store_group(
+              reinterpret_cast<uint16_t*>(out_p + r * nz),
+              heat_bf16_keep(make_uint2(heat_bf16x2_rn(n.x, n.y),
+                                        heat_bf16x2_rn(n.z, n.w)),
+                             M[s - 1][r], upd),
+              zout, vec_out && zout == 0xfu);
         }
       }
     }
@@ -709,9 +922,9 @@ struct HeatFLoop {
   // One input plane t: wait for it, refill the slot freed by the last
   // plane, step. kEdge: the tile reaches past the global interior.
   template <bool kEdge>
-  __device__ __forceinline__ void plane_step(float4 (&U)[K][R],
-                                             float4 (&M)[K][R],
-                                             float4 (&D)[K][R], int64_t t,
+  __device__ __forceinline__ void plane_step(Reg (&U)[K][R],
+                                             Reg (&M)[K][R],
+                                             Reg (&D)[K][R], int64_t t,
                                              int64_t t1) {
     // Plane t has landed, for every thread once past the barrier, which
     // also ends the last plane's reads of the slot refilled next.
@@ -817,8 +1030,12 @@ struct HeatFLoop {
     // Input plane t0 + i lives in ring slot i % slots.
     for (int i = 0; i < prefetch; ++i)
       if (t0 + i < t1) fetch(i, t0 + i);
-    float4 A[K][R], B[K][R], C[K][R];
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    Reg A[K][R], B[K][R], C[K][R];
+    Reg zero;
+    if constexpr (kPacked)
+      zero = make_uint2(0u, 0u);  // bfloat16 zeros
+    else
+      zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int s = 0; s < K; ++s)
 #pragma unroll

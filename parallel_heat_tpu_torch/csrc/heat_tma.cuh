@@ -183,20 +183,23 @@ inline int heat_tma_encode(
   return r == CUDA_SUCCESS ? 0 : kHeatTmaEncodeError + static_cast<int>(r);
 }
 
-// The tensor map of the n0 x n1 x n2 float32 array `data` (n2 innermost
-// and contiguous, n2 % 4 == 0 so that its strides are multiples of 16
+// The tensor map of the n0 x n1 x n2 float32 array `data` (or, by
+// `type`, the bfloat16 one; n2 innermost and contiguous, a multiple of 4
+// float32 or 8 bfloat16 cells so that its strides are multiples of 16
 // bytes), boxes of box[0] x box[1] x box[2] cells (innermost first),
 // zeros outside the array (heat_f.cuh's heat_f_launch). Returns 0 or an
 // error code.
-inline int heat_tma_encode_3d_box(CUtensorMap* map, const float* data,
-                                  int64_t n0, int64_t n1, int64_t n2,
-                                  const cuuint32_t box[3]) {
+inline int heat_tma_encode_3d_box(
+    CUtensorMap* map, const void* data, int64_t n0, int64_t n1, int64_t n2,
+    const cuuint32_t box[3],
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
+  const cuuint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 4;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n2),
                               static_cast<cuuint64_t>(n1),
                               static_cast<cuuint64_t>(n0)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n2) * 4,
-                                 static_cast<cuuint64_t>(n1 * n2) * 4};
-  return heat_tma_encode(map, data, 3, dims, strides, box);
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n2) * elem,
+                                 static_cast<cuuint64_t>(n1 * n2) * elem};
+  return heat_tma_encode(map, data, 3, dims, strides, box, type);
 }
 
 // As heat_tma_encode_3d_box, boxes of box_z x box_y x 1 cells: a plane's

@@ -86,6 +86,11 @@ KERNELS = {
     "heat_f_temporal3d": ("heat_f_temporal3d.cu",
                           [_P, _P, _P, _I64, _I64, _I64] + [_I32] * 7
                           + [_F32] * 4 + [_P]),
+    # F's bfloat16 form, a library of its own (48 plane-loop instances, as
+    # F's), so that its nvcc runs beside F's: F's arguments.
+    "heat_f_temporal3d_bf16": ("heat_f_temporal3d_bf16.cu",
+                               [_P, _P, _P, _I64, _I64, _I64] + [_I32] * 7
+                               + [_F32] * 4 + [_P]),
     "heat_m_ensemble": ("heat_m_ensemble.cu",
                         [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
                          _I32, _I32, _I32, _I32, _F32, _F32, _F32, _P]),
@@ -133,10 +138,10 @@ KERNELS = {
                            + [_F32] * 4 + [_P]),
 }
 # Entry points that live in another kernel's library: name -> (that
-# kernel, argtypes). The storage-precision forms of kernels A, B, C, E,
-# E-uni and M (bfloat16 storage, and E's and E-uni's float32 carry of
+# kernel, argtypes). The storage-precision forms of kernels A, B, C, D,
+# E, E-uni and M (bfloat16 storage, and E's and E-uni's float32 carry of
 # accumulate="f32chunk") are compiled into their float32 kernels' sources,
-# so one nvcc builds both; I's and I-uni's have sources of their own
+# so one nvcc builds both; F's, I's and I-uni's have sources of their own
 # (KERNELS).
 ENTRIES = {
     "heat_a_resident_bf16": ("heat_a_resident",
@@ -145,6 +150,7 @@ ENTRIES = {
     "heat_c_tiled_bf16": ("heat_c_tiled", KERNELS["heat_c_tiled"][1]),
     "heat_m_ensemble_bf16": ("heat_m_ensemble",
                              KERNELS["heat_m_ensemble"][1]),
+    "heat_d_step3d_bf16": ("heat_d_step3d", KERNELS["heat_d_step3d"][1]),
     # u, out, res, (m, n), k, tile, thread block, form, coefficients, stream
     "heat_e_temporal_bf16": ("heat_e_temporal",
                              [_P, _P, _P, _I64, _I64] + [_I32] * 6

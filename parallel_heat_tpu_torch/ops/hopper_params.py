@@ -24,6 +24,12 @@ I_MAX_ROWS = 32
 I_MAX_STAGES = 8
 
 
+def elem_size(dtype) -> int:
+    """Bytes of a cell of storage ``dtype`` (a name or a torch dtype) on
+    the kernels' paths: 2 at bfloat16, else 4."""
+    return 2 if str(dtype) in ("bfloat16", "torch.bfloat16") else 4
+
+
 @dataclass(frozen=True)
 class HopperParams:
     # --- the card (data sheet) ---------------------------------------------
@@ -440,95 +446,116 @@ class HopperParams:
         return warps * (rows or self.f_rows), self.f_width
 
     @staticmethod
-    def f_pad(k: int) -> int:
-        """Kernel F's halo along Z at depth ``k``: ``k`` rounded up to a
-        group of 4 cells, so that a tile's box starts on 16 bytes
-        (``csrc/heat_temporal3d.cuh`` ``heat_f_pad``)."""
-        return -(-k // 4) * 4
+    def f_pad(k: int, elem: int = 4) -> int:
+        """Kernel F's halo along Z at depth ``k`` on a grid of
+        ``elem``-byte cells: ``k`` rounded up to 16 bytes of cells (a
+        group of 4 float32 cells, 8 bfloat16 ones), so that a tile's box
+        starts on 16 bytes (``csrc/heat_temporal3d.cuh`` ``heat_f_pad``).
+        """
+        cells = 16 // elem
+        return -(-k // cells) * cells
 
-    def f_tile(self, k: int, block=None, rows=None):
+    def f_tile(self, k: int, block=None, rows=None, elem: int = 4):
         """Kernel F's output tile ``(rows along Y, cells along Z)`` at
-        depth ``k``."""
+        depth ``k`` on a grid of ``elem``-byte cells."""
         wy, wz = self.f_extent(block, rows)
-        return wy - 2 * k, wz - 2 * self.f_pad(k)
+        return wy - 2 * k, wz - 2 * self.f_pad(k, elem)
 
-    def f_takes(self, block, rows, k: int) -> bool:
+    @staticmethod
+    def f_max_warps(rows: int, k: int = 1, elem: int = 4) -> int:
+        """Warps an F block of ``rows`` rows a thread may have at depth
+        ``k`` on a grid of ``elem``-byte cells, its instances' launch
+        bound (``csrc/heat_temporal3d.cuh`` ``heat_f_max_warps``): 16
+        (up to 128 registers), 8 at 4 rows (up to 255), and 12 for the
+        bfloat16 form's 1- and 2-row instances at K >= 4 (up to 168: at
+        128 they spilled more than their float32 twins)."""
+        return 8 if rows == 4 else 12 if elem == 2 and k >= 4 else 16
+
+    def f_takes(self, block, rows, k: int, elem: int = 4) -> bool:
         """Does F's plane loop take thread blocks of ``block`` ``(lanes,
-        warps)`` with ``rows`` rows a thread at depth ``k``? 32 lanes (a
-        warp spans the tile's 128 cells along Z), 1, 2 or 4 rows, at most
-        16 warps (8 at 4 rows, whose instances may take up to 255
-        registers), a compiled depth, and an output row (2k < warps *
-        rows). ``csrc/heat_temporal3d.cuh`` ``heat_f_takes`` is the same
-        rule."""
+        warps)`` with ``rows`` rows a thread at depth ``k`` on a grid of
+        ``elem``-byte cells? 32 lanes (a warp spans the tile's 128 cells
+        along Z), 1, 2 or 4 rows, at most :meth:`f_max_warps` warps, a
+        compiled depth, and an output row (2k < warps * rows).
+        ``csrc/heat_temporal3d.cuh`` ``heat_f_takes`` is the same rule."""
         lanes, warps = block
         return (lanes == 32 and rows in (1, 2, 4)
-                and 1 <= warps <= (8 if rows == 4 else 16)
+                and 1 <= warps <= self.f_max_warps(rows, k, elem)
                 and 1 <= k <= self.f_k_compiled and 2 * k < warps * rows)
 
     def f_smem_bytes(self, k: int, block=None, rows=None,
-                     prefetch=None) -> int:
-        """Dynamic shared memory of one F block at depth ``k``
-        (``csrc/heat_temporal3d.cuh`` ``heat_f_smem_bytes``): 128 bytes
-        to align the ring; ``prefetch + 2`` input planes of the extended
-        tile, each with a lead and a tail row; two buffers for each level
-        1 .. K-1 of ``min(rows, 2)`` edge rows a warp and two pad rows;
-        an 8-byte mbarrier a plane."""
+                     prefetch=None, elem: int = 4) -> int:
+        """Dynamic shared memory of one F block at depth ``k`` on a grid
+        of ``elem``-byte cells (``csrc/heat_temporal3d.cuh``
+        ``heat_f_smem_bytes``): 128 bytes to align the ring;
+        ``prefetch + 2`` input planes of the extended tile in the grid's
+        cells, each with a lead and a tail row; two float32 buffers for
+        each level 1 .. K-1 of ``min(rows, 2)`` edge rows a warp and two
+        pad rows; an 8-byte mbarrier a plane."""
         _, warps = block or self.f_block
         rows = rows or self.f_rows
         slots = (prefetch or self.f_prefetch) + 2
         wy, wz = self.f_extent(block, rows)
         edge = (min(rows, 2) * warps + 2) * wz
-        return (4 * (slots * (wy + 2) * wz + 2 * (k - 1) * edge) + 128
+        return (elem * slots * (wy + 2) * wz + 4 * 2 * (k - 1) * edge + 128
                 + 8 * slots)
 
     @functools.lru_cache(maxsize=64)
-    def f_k_max(self, block=None, rows=None, prefetch=None) -> int:
+    def f_k_max(self, block=None, rows=None, prefetch=None,
+                elem: int = 4) -> int:
         """Deepest K that F's shape takes (:meth:`f_takes`, so compiled
         and leaving an output row) and whose planes fit one block's shared
-        memory."""
+        memory, on a grid of ``elem``-byte cells."""
         block, rows = block or self.f_block, rows or self.f_rows
         k = 0
-        while (self.f_takes(block, rows, k + 1)
-               and self.f_smem_bytes(k + 1, block, rows, prefetch)
+        while (self.f_takes(block, rows, k + 1, elem)
+               and self.f_smem_bytes(k + 1, block, rows, prefetch, elem)
                + self.static_smem_bytes <= self.smem_per_block_max):
             k += 1
         return k
 
     @functools.lru_cache(maxsize=16)
-    def f_shape(self, k: int):
-        """``(block, rows, prefetch)``: F's launch shape at depth ``k``,
-        the default (``f_block``, ``f_rows``, ``f_prefetch``) where it
-        takes ``k``, else the first of ``f_deep_shapes`` that does with
-        the most planes in flight that fit, up to ``f_prefetch``; None
-        where no shape takes ``k``."""
-        if 1 <= k <= self.f_k_max():
+    def f_shape(self, k: int, elem: int = 4):
+        """``(block, rows, prefetch)``: F's launch shape at depth ``k`` on
+        a grid of ``elem``-byte cells, the default (``f_block``,
+        ``f_rows``, ``f_prefetch``) where it takes ``k``, else the first
+        of ``f_deep_shapes`` that does with the most planes in flight that
+        fit, up to ``f_prefetch``; None where no shape takes ``k``. The
+        default shape's depths at bfloat16 are at most the float32 grid's
+        (its registers, not its shared memory, bound it: K = 4 already
+        spills at 2 rows a thread), and its 16 warps take the bfloat16
+        form to K = 3 (:meth:`f_max_warps`), so at K = 4 a bfloat16
+        launch takes the first deep shape."""
+        if 1 <= k <= min(self.f_k_max(), self.f_k_max(elem=elem)):
             return self.f_block, self.f_rows, self.f_prefetch
         for block, rows in self.f_deep_shapes:
             for prefetch in range(self.f_prefetch, 0, -1):
-                if k <= self.f_k_max(block, rows, prefetch):
+                if k <= self.f_k_max(block, rows, prefetch, elem):
                     return block, rows, prefetch
         return None
 
-    def f_tma_fits(self, shape) -> bool:
-        """Does an ``(X, Y, Z)`` grid take F's TMA plane load? A tensor
-        map's strides are multiples of 16 bytes, so ``nz % 4 == 0`` (the
+    def f_tma_fits(self, shape, dtype="float32") -> bool:
+        """Does an ``(X, Y, Z)`` grid of ``dtype`` take F's TMA plane
+        load? A tensor map's strides are multiples of 16 bytes, so
+        ``nz % 4 == 0`` at float32 and ``nz % 8 == 0`` at bfloat16 (the
         box, 128 cells by the tile's rows, always fits TMA's 256 a
         dimension); the launch also needs the grid 16-byte aligned."""
-        return shape[2] % 4 == 0
+        return shape[2] % (16 // elem_size(dtype)) == 0
 
-    def f_launch(self, shape, k, block=None, rows=None):
+    def f_launch(self, shape, k, block=None, rows=None, elem: int = 4):
         """Kernel F's ``(tile_y, tile_z, segment planes)`` at depth ``k``
-        for an ``(X, Y, Z)`` grid, at :meth:`f_shape`'s block and rows by
-        default."""
+        for an ``(X, Y, Z)`` grid of ``elem``-byte cells, at
+        :meth:`f_shape`'s block and rows by default."""
         if block is None:
-            block, rows, _ = self.f_shape(k)
+            block, rows, _ = self.f_shape(k, elem)
         x, y, z = shape
-        tile_y, tile_z = self.f_tile(k, block, rows)
+        tile_y, tile_z = self.f_tile(k, block, rows, elem)
         tiles = -(-y // tile_y) * -(-z // tile_z)
         segments = -(-self.sm_count * self.f_waves // tiles)
         return tile_y, tile_z, max(self.f_seg_planes_min, -(-x // segments))
 
-    def f_tile_kinds(self, shape, k: int, block=None, rows=None) -> dict:
+    def f_tile_kinds(self, shape, k: int, block=None, rows=None,
+                     elem: int = 4) -> dict:
         """The tiles of an F launch at depth ``k`` on an ``(X, Y, Z)``
         grid, counted by the branches they run: ``interior`` (the extended
         tile lies inside the grid's interior: the test-free step) and
@@ -540,8 +567,8 @@ class HopperParams:
         fewer than 4 cells: cell-by-cell stores)."""
         _, ny, nz = shape
         wy, wz = self.f_extent(block, rows)
-        ty, tz = self.f_tile(k, block, rows)
-        pad = self.f_pad(k)
+        ty, tz = self.f_tile(k, block, rows, elem)
+        pad = self.f_pad(k, elem)
         kinds = dict.fromkeys(("tiles", "interior", "edge", "top", "left",
                                "bottom", "right", "ragged_y", "ragged_z",
                                "partial_group"), 0)

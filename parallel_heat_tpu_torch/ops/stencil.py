@@ -78,13 +78,30 @@ def ring_exact(out: torch.Tensor, u: torch.Tensor) -> None:
     would turn a NaN's payload into the canonical one."""
     for rows, cols in ((0, slice(None)), (-1, slice(None)),
                        (slice(None), 0), (slice(None), -1)):
-        src = u[..., rows, cols]
-        if u.dtype == out.dtype:
-            out[..., rows, cols] = src
-        elif u.dtype == torch.bfloat16:
-            out[..., rows, cols] = widen_bits(src.contiguous())
-        else:
-            out[..., rows, cols] = narrow_bits(src.contiguous())
+        _copy_exact(out, u, (Ellipsis, rows, cols))
+
+
+def faces_exact(out: torch.Tensor, u: torch.Tensor) -> None:
+    """:func:`ring_exact` in 3D: ``out``'s six Dirichlet faces from the
+    grid ``u``'s (each member's, for a stack with leading member axes),
+    bit for bit, across a bfloat16 / float32 pair too."""
+    every = slice(None)
+    for at in (0, -1):
+        for index in ((Ellipsis, at, every, every),
+                      (Ellipsis, every, at, every),
+                      (Ellipsis, every, every, at)):
+            _copy_exact(out, u, index)
+
+
+def _copy_exact(out: torch.Tensor, u: torch.Tensor, index) -> None:
+    """``out[index] = u[index]`` by bits where the dtypes differ."""
+    src = u[index]
+    if u.dtype == out.dtype:
+        out[index] = src
+    elif u.dtype == torch.bfloat16:
+        out[index] = widen_bits(src.contiguous())
+    else:
+        out[index] = narrow_bits(src.contiguous())
 
 
 def coeffs_f32(cx: float, cy: float) -> Tuple[float, float, float]:

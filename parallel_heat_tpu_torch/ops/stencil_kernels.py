@@ -87,6 +87,7 @@ counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "heat_i_uni_tile_temporal_bf16": 0,
           "heat_i_uni_tile_temporal_bf16_acc": 0,
           "heat_d_step3d": 0, "heat_f_temporal3d": 0,
+          "heat_d_step3d_bf16": 0, "heat_f_temporal3d_bf16": 0,
           "heat_m_ensemble": 0, "heat_m_ensemble_bf16": 0,
           "heat_mg_restrict": 0, "heat_mg_prolong": 0,
           "heat_g_block_padded": 0, "heat_g_block_circular": 0,
@@ -138,7 +139,7 @@ def _check(u: torch.Tensor, out: torch.Tensor, ndim: int = 2,
     if (u.dtype, out.dtype) not in dtypes:
         raise TypeError(f"grids of {u.dtype} -> {out.dtype} are not taken "
                         f"here; the pairs taken: {list(dtypes)} (the other "
-                        f"forms: ROADMAP.md queue 2 items 23 and 24)")
+                        f"forms: ROADMAP.md queue 2 item 24)")
     if u.dim() != ndim or min(u.shape) < 3:
         raise ValueError(f"need a {ndim}D grid of at least 3 cells per "
                          f"axis, got {tuple(u.shape)}")
@@ -817,7 +818,8 @@ def _chunked_multistep(temporal, K: int):
 _KERNEL_OF = {"A": "heat_a_resident", "B": "heat_b_step",
               "C": "heat_c_tiled", "E": "heat_e_temporal",
               "E-uni": "heat_e_uni_temporal", "I": "heat_i_tile_temporal",
-              "I-uni": "heat_i_uni_tile_temporal", "M": "heat_m_ensemble"}
+              "I-uni": "heat_i_uni_tile_temporal", "M": "heat_m_ensemble",
+              "D": "heat_d_step3d", "F": "heat_f_temporal3d"}
 
 
 def kernel_entry(kind, dtype="float32"):

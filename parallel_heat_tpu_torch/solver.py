@@ -29,8 +29,9 @@ On the CPU the same loops run eagerly, the host reading each stop test.
 
 Precision (``HeatConfig.dtype``, ``accumulate``): the grid lives in its
 storage dtype, float32, bfloat16 or float64, and arithmetic is float32,
-in 2D on one block. An explicit bfloat16 run takes A, E or E-uni in their
-bfloat16 forms (B and C when pinned); under ``accumulate="f32chunk"`` E or
+on one block, 2D or 3D. An explicit bfloat16 run takes A, E or E-uni in
+their bfloat16 forms (B and C when pinned), in 3D F (D when pinned);
+under ``accumulate="f32chunk"`` (2D only) E or
 E-uni carry float32 through each chunk of ``ops.stencil.F32CHUNK_DEPTH``
 steps. An explicit float64 run takes the torch route: ``backend="auto"``
 resolves to it on the card too, and ``backend="cuda"`` is refused by
@@ -38,7 +39,7 @@ resolves to it on the card too, and ``backend="cuda"`` is refused by
 once and rounds the interior to storage once, at every dtype and on
 either backend (``ops/multigrid.py``). Ensembles take every dtype and
 mode too (``ensemble/engine.py``: kernel M in its bfloat16 form where the
-solo run takes A, else the torch route over a member axis).
+solo run takes A, else, and in 3D, the torch route over a member axis).
 
 The grid lives in two device buffers that the loop ping-pongs in place
 (the reference's ``old = 1-old`` swap): each launch reads one and writes
@@ -704,26 +705,32 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
 
 
 def _explain_3d(config: HeatConfig, out: dict, plain: str) -> dict:
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
     from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
     from parallel_heat_tpu_torch.ops.hopper_params import params
 
-    kind, detail = sk3.pick_single_3d(config.shape)
+    kind, detail = sk3.pick_single_3d(config.shape, config.dtype)
+    bf16 = config.dtype == "bfloat16"
+    form = ", bfloat16 storage" if bf16 else ""
     if kind == "F":
         ty, tz = detail["tile"]
         lanes, warps = detail["block"]
         wy, wz = params().f_extent(detail["block"], detail["rows"])
         load = (f"load=tma (one {wy}x{wz} (Y, Z) box a plane)"
                 if detail["load"] == "tma" else
-                f"load=cp.async (per cell; TMA needs nz % 4 == 0, got "
+                f"load=cp.async (per {'group' if bf16 else 'cell'}; TMA "
+                f"needs nz % {8 if bf16 else 4} == 0, got "
                 f"nz={config.shape[2]})")
-        out["path"] = (f"kernel F (heat_f_temporal3d, K-step temporal, "
-                       f"(Y, Z) tiles streamed down X) tile={ty}x{tz} "
+        out["path"] = (f"kernel F ({sk.kernel_entry('F', config.dtype)}, "
+                       f"K-step temporal{form}, (Y, Z) tiles streamed down "
+                       f"X) tile={ty}x{tz} "
                        f"block={lanes}x{warps} rows={detail['rows']} "
                        f"segment={detail['segment']} K={detail['k']} "
                        f"{load}" + plain)
     elif kind == "D":
         bz, by = detail["block"]
-        out["path"] = (f"kernel D (heat_d_step3d, one step) block={bz}x{by} "
+        out["path"] = (f"kernel D ({sk.kernel_entry('D', config.dtype)}, "
+                       f"one step{form}) block={bz}x{by} "
                        f"planes={detail['planes']}" + plain)
     else:
         out["path"] = "textbook torch stencil"

@@ -379,15 +379,16 @@ def test_hl4xx_real_plans_clean_and_all_kernels_covered():
                                             findings.load_baseline())
     assert active == [] and stale == []
     names = pk.source_kernel_names()
-    # 31 kernels, the bfloat16 forms of A, B, C, E, E-uni, I, I-uni and M
-    # (a __global__ each), and the device loop's two one-thread helpers
-    # (csrc/heat_graph_loop.cu, baselined).
-    assert len(names) == 41 and "heat_probe_fixture_kernel" in names
+    # 31 kernels, the bfloat16 forms of A, B, C, D, E, E-uni, F, I, I-uni
+    # and M (a __global__ each), and the device loop's two one-thread
+    # helpers (csrc/heat_graph_loop.cu, baselined).
+    assert len(names) == 43 and "heat_probe_fixture_kernel" in names
     assert {"heat_a_resident_bf16_kernel", "heat_e_temporal_bf16_kernel",
             "heat_e_uni_temporal_bf16_kernel", "heat_b_step_bf16_kernel",
             "heat_c_tiled_bf16_kernel", "heat_i_tile_temporal_bf16_kernel",
             "heat_i_uni_tile_temporal_bf16_kernel",
-            "heat_m_ensemble_bf16_kernel"} <= set(names)
+            "heat_m_ensemble_bf16_kernel", "heat_d_step3d_bf16_kernel",
+            "heat_f_temporal3d_bf16_kernel"} <= set(names)
     assert {"heat_graph_set_cond_kernel", "heat_graph_window_kernel"} <= set(
         names)
     from parallel_heat_tpu_torch.kernels.build import KERNELS
@@ -409,6 +410,9 @@ def test_plans_cover_every_k_the_pickers_admit():
     assert ks["heat_g_block_fused"] >= set(range(1, p.g_k_max() + 1))
     assert ks["heat_f_temporal3d"] >= {k for k in range(1, 9)
                                        if p.f_shape(k) is not None}
+    bf16 = {int(pl_.label.split("K=")[1].split()[0]) for pl_ in plans
+            if pl_.entry == "heat_f_temporal3d_bf16"}
+    assert bf16 >= {k for k in range(1, 9) if p.f_shape(k, 2) is not None}
 
 
 def test_unproved_tile_class_is_a_soundness_finding():

@@ -23,6 +23,12 @@ band's one launch over every block under each of its loads) against
 kernel F's; a sharded ``solve()``, 2D or 3D, is bitwise the one-block
 run on the card and the plain versions' run on the CPU.
 
+D's and F's bfloat16 forms are bitwise their plain versions at every K
+and load, NaN-seeded grids included (faces bit for bit), F(K) bitwise K
+launches of D's; a 3D bfloat16 ``solve()`` under either is bitwise the
+CPU's, and 3D bfloat16 and float64 ensembles (the vmap route) are
+bitwise their members' solo torch-route runs.
+
 The bfloat16 forms of A, E and E-uni (storage, and E's and E-uni's
 ``acc_f32`` in one launch or a chunk of 16 across a float32 level) are
 bitwise their plain versions, which round at the same points, on random
@@ -1281,3 +1287,113 @@ def test_implicit_precision_cuda_equals_torch_and_the_cpu(card, scheme,
     assert _same_bits(a.grid, b.grid)
     assert _same_bits(a.grid.cpu(), cpu.grid)
 
+
+
+# ---------------------------------------------------------------------------
+# D's and F's bfloat16 forms; 3D runs and ensembles at bfloat16 and float64
+# ---------------------------------------------------------------------------
+
+def _rand_bf16_3d(shape, seed, dev, nan=False):
+    """A random bfloat16 grid of ``shape``; with ``nan``, NaNs of three
+    payloads inside and on the faces."""
+    u = _rand(shape, seed, dev).to(BF16)
+    if nan:
+        bits = u.view(torch.int16)
+        nx, ny, nz = shape
+        for at, b in (((nx // 2, ny // 2, nz // 3), 0x7FC1),
+                      ((0, ny // 2, nz // 2), -64),      # 0xFFC0
+                      ((nx // 2, ny - 1, 1), 0x7F81)):
+            bits[at] = b
+    return u
+
+
+_FACES = (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0],
+          np.s_[:, :, -1])
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("shape", [(67, 130, 204), (67, 130, 200),
+                                   (5, 3, 300), (24, 20, 28)])
+def test_d_and_f_bf16_bitwise_plain_and_k_launches_of_d(card, shape, k,
+                                                        nan):
+    kw = dict(cx=0.1, cy=0.15, cz=0.05)
+    u = _rand_bf16_3d(shape, k, card, nan=nan)
+    def same_res(a, b):
+        return (math.isnan(a) and math.isnan(b)) or a == b
+
+    got, want = torch.empty_like(u), torch.empty_like(u)
+    r = sk3.slab_step_3d(u, got, **kw)
+    rp = sk3.slab_step_3d_plain(u, want, **kw)
+    assert _same_bits(got, want) and same_res(float(r), float(rp))
+    chain, rd = _d_launches(u, k, kw)
+    loads = ["cp.async"] + (["tma"] if sk3.f_load(shape, u) == "tma"
+                            else [])
+    for load in loads:
+        got = torch.full_like(u, float("nan"))
+        want = torch.full_like(u, float("nan"))
+        r = sk3.xslab_steps_3d(u, got, k, load=load, **kw)
+        rp = sk3.xslab_steps_3d_plain(u, want, k, **kw)
+        assert _same_bits(got, want) and same_res(float(r), float(rp))
+        assert _same_bits(got, chain) and same_res(float(r), float(rd))
+        for sl in _FACES:
+            assert _same_bits(got[sl].contiguous(), u[sl].contiguous())
+        assert math.isnan(float(r)) == nan
+
+
+def test_3d_bf16_main_path_launch_counts(card):
+    # BASELINE config 5 at bfloat16: 200 steps are 67 launches of F's
+    # bfloat16 form (K = 3), or 200 of D's pinned, bitwise the same grid.
+    cfg = HeatConfig(nx=512, ny=512, nz=512, steps=200, dtype="bfloat16")
+    runs = {}
+    for choice, kernel, launches in (("F", "heat_f_temporal3d_bf16", 67),
+                                     ("D", "heat_d_step3d_bf16", 200)):
+        sk.reset_counts()
+        with tune.force("single_3d", choice):
+            runs[choice] = solve(cfg).grid
+        ran = {k: n for k, n in sk.counts.items() if n}
+        assert ran == {kernel: launches}
+    assert _same_bits(runs["F"], runs["D"])
+
+
+@pytest.mark.parametrize("cfg", [
+    HeatConfig(nx=30, ny=20, nz=40, steps=57, converge=True, eps=1e-9,
+               dtype="bfloat16"),
+    HeatConfig(nx=40, ny=33, nz=72, cx=0.1, cy=0.15, cz=0.05, steps=50,
+               dtype="bfloat16"),
+    HeatConfig(nx=40, ny=33, nz=71, steps=50, dtype="float64"),
+], ids=["bf16-tail", "bf16-unequal", "f64"])
+def test_solve_3d_precision_on_the_card_matches_the_cpu_bitwise(card, cfg):
+    bf16 = cfg.dtype == "bfloat16"
+    cpu = solve(cfg.replace(backend="cuda" if bf16 else "torch"),
+                device="cpu")
+    for choice in (("F", "D") if bf16 else (None,)):
+        sk.reset_counts()
+        if choice:
+            with tune.force("single_3d", choice):
+                res = solve(cfg)
+        else:
+            res = solve(cfg)
+        kernel = sk.kernel_entry(choice, cfg.dtype) if choice else None
+        ran = {k for k, n in sk.counts.items() if n}
+        assert ran == ({kernel} if kernel else set())
+        assert (res.steps_run, res.converged) == (cpu.steps_run,
+                                                 cpu.converged)
+        assert res.residual == cpu.residual
+        assert _same_bits(res.grid.cpu(), cpu.grid)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_3d_precision_ensembles_bitwise_their_solo_torch_runs(card, dtype):
+    cfg = HeatConfig(nx=20, ny=24, nz=28, steps=33, dtype=dtype)
+    inits = torch.stack([_rand((20, 24, 28), b, card).abs()
+                         for b in range(3)]).to(BF16 if dtype == "bfloat16"
+                                                else torch.float64)
+    es = EnsembleSolver(cfg, 3)
+    assert es.path == "vmap"
+    sk.reset_counts()
+    got = es.solve(initials=inits)
+    assert not {k for k, n in sk.counts.items() if n and k.startswith("heat_")}
+    for i in range(3):
+        solo = solve(cfg.replace(backend="torch"), initial=inits[i])
+        assert _same_bits(got.grids[i], solo.grid)

@@ -129,10 +129,11 @@ def test_cli_flags_write_the_jax_clis_bytes(tmp_path, capsys, flags):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
 def test_cli_refuses_other_dtypes(capsys, dtype):
-    # bfloat16 and float64 run in 2D on one block only: off it (3D here)
-    # the CLI refuses them, naming the ROADMAP.md item.
+    # bfloat16 and float64 run on one block only (2D or 3D): on a mesh
+    # (3D here) the CLI refuses them, naming the ROADMAP.md item.
     rc, lines, err = _cli_lines(capsys, ["--nx", "20", "--ny", "20",
-                                         "--nz", "8", "--device", "cpu",
+                                         "--nz", "8", "--mesh", "2,2,2",
+                                         "--device", "cpu",
                                          "--dtype", dtype])
     assert rc == 2 and lines == []
     assert ("ROADMAP.md queue 2 item 24" if dtype == "bfloat16"
@@ -308,13 +309,14 @@ def test_from_jax_carries_the_observers(field, value):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64", "float16"])
 def test_validate_rejects_other_dtypes(dtype):
     # float16 is no storage dtype of either package; bfloat16 and float64
-    # are refused off the 2D single-block explicit path (3D here), naming
-    # the ROADMAP.md item.
+    # are refused off the single-block path (a 3D mesh here), naming the
+    # ROADMAP.md item.
     match = {"float16": "dtype must be one of",
              "bfloat16": "ROADMAP.md queue 2 item 24",
              "float64": "ROADMAP.md queue 1 item 3"}[dtype]
     with pytest.raises(ValueError, match=match):
-        HeatConfig(dtype=dtype, nz=8).validate()
+        HeatConfig(dtype=dtype, nx=8, ny=8, nz=8,
+                   mesh_shape=(2, 2, 2)).validate()
 
 
 @pytest.mark.parametrize("kw,match", [

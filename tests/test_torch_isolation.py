@@ -107,6 +107,19 @@ from parallel_heat_tpu_torch.parallel import halo3d, temporal3d
 cfg3 = pt.HeatConfig(nx=12, ny=12, nz=12, steps=7, backend="cuda")
 shard3 = pt.solve(cfg3.replace(mesh_shape=(2, 2, 2)), device="cpu")
 assert torch.equal(shard3.grid, pt.solve(cfg3, device="cpu").grid)
+# 3D precision on one block: bfloat16 through D's and F's plain versions
+# (bitwise each other), float64 through the torch route, and the 3D
+# bfloat16 grid written as the JAX CLI's .npy.
+from parallel_heat_tpu_torch import tune
+from parallel_heat_tpu_torch.utils.io import save_npy
+f3 = pt.solve(cfg3.replace(dtype="bfloat16"), device="cpu")
+with tune.force("single_3d", "D"):
+    d3 = pt.solve(cfg3.replace(dtype="bfloat16"), device="cpu")
+assert f3.grid.dtype == torch.bfloat16
+assert torch.equal(f3.grid.view(torch.int16), d3.grid.view(torch.int16))
+assert pt.solve(cfg3.replace(dtype="float64", backend="auto"),
+                device="cpu").grid.dtype == torch.float64
+save_npy(os.devnull, f3.grid)
 # The measurement probes (tools/), each through a function it computes.
 from parallel_heat_tpu_torch.tools import (ab_temporal, kernel_probe,
                                            probe_temporal, vpu_roofline)

@@ -294,14 +294,15 @@ def test_wrappers_count_their_calls_on_the_cpu():
     skb3.h_band_fix(us3[0], zt, yt, xlo, xhi, out3, 2, **kw3)
     skb3.h_block(ext3, out3, 2, **kw3)
     # On the CPU the plain versions run; the kernels never launch. One
-    # registry holds all twenty kernels, the counts of A's, B's, C's, E's,
-    # E-uni's, I's, I-uni's and M's bfloat16 forms (storage, and E's,
-    # E-uni's, I's and I-uni's acc_f32), and the plain versions.
+    # registry holds all twenty kernels, the counts of A's, B's, C's, D's,
+    # E's, E-uni's, F's, I's, I-uni's and M's bfloat16 forms (storage, and
+    # E's, E-uni's, I's and I-uni's acc_f32), and the plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
                if not name.startswith("heat_"))
-    assert len(sk.counts) == 52
+    assert {"heat_d_step3d_bf16", "heat_f_temporal3d_bf16"} <= set(sk.counts)
+    assert len(sk.counts) == 54
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",
@@ -452,7 +453,7 @@ def test_library_path_tracks_source_digest():
     b = build.library_path("heat_e_temporal")
     assert a.parent == build.BUILD_DIR and a != b
     names = {build.library_path(name).name for name in build.KERNELS}
-    assert len(names) == len(build.KERNELS) == 22
+    assert len(names) == len(build.KERNELS) == 23
     assert a.name.startswith("libheat_b_step-") and a.suffix == ".so"
     assert build.library_path("heat_b_step") == a
 

@@ -340,7 +340,11 @@ def test_f_shape_rule_is_the_launchers():
     assert f"constexpr int kFMaxK = {params().f_k_compiled};" in src
     assert (f"constexpr int kFMaxPrefetch = {params().f_prefetch_max};"
             in src)
-    assert "return rows == 4 ? 8 : 16;" in src
+    assert "return rows == 4 ? 8 : elem == 2 && k >= 4 ? 12 : 16;" in src
+    p = params()
+    assert [p.f_max_warps(r) for r in (1, 2, 4)] == [16, 16, 8]
+    assert [p.f_max_warps(r, 4, 2) for r in (1, 2, 4)] == [12, 12, 8]
+    assert p.f_max_warps(2, 3, 2) == 16
     assert params().f_width == 128
 
 

@@ -162,12 +162,12 @@ def test_accumulate_and_dtypes_accepted_where_the_jax_package_takes_them():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(nz=8, dtype="bfloat16"), "queue 2 item 24"),
+    (dict(nz=8, dtype="bfloat16"), None),
     (dict(nx=32, ny=32, dtype="bfloat16", mesh_shape=(2, 2)),
      "queue 2 item 24"),
     (dict(cx=22.5, cy=22.5, dtype="bfloat16", scheme="backward_euler"),
      None),
-    (dict(nz=8, dtype="float64"), "queue 1 item 3"),
+    (dict(nz=8, dtype="float64"), None),
     (dict(nx=32, ny=32, dtype="float64", mesh_shape=(2, 2)),
      "queue 1 item 3"),
     (dict(cx=22.5, cy=22.5, dtype="float64", scheme="crank_nicolson"),
@@ -175,12 +175,16 @@ def test_accumulate_and_dtypes_accepted_where_the_jax_package_takes_them():
 ], ids=["bf16-3d", "bf16-mesh", "bf16-implicit", "f64-3d", "f64-mesh",
         "f64-implicit"])
 def test_precision_refused_off_the_2d_single_block_path(kw, item):
-    # 3D and meshes are off the path and refused, naming their items; the
-    # implicit schemes (item None) run on it, at both dtypes and on both
-    # backends (their transfer kernels see float32 levels only).
+    # Meshes are off the path and refused, naming their items; 3D on one
+    # block and the implicit schemes (item None) run, at both dtypes (the
+    # implicit schemes on both backends: their transfer kernels see
+    # float32 levels only; an explicit float64 run on the torch route).
     cfg = HeatConfig(**{"nx": 16, "ny": 16, **kw})
     if item is None:
-        for backend in ("auto", "torch", "cuda"):
+        backends = (("auto", "torch") if "nz" in kw
+                    and kw["dtype"] == "float64" else
+                    ("auto", "torch", "cuda"))
+        for backend in backends:
             assert cfg.replace(backend=backend).validate().dtype == \
                 kw["dtype"]
         return
@@ -201,10 +205,12 @@ def test_float64_runs_the_torch_route_and_refuses_backend_cuda():
 
 
 def test_bfloat16_ensembles_are_refused():
-    # Off the 2D single-device path: in 3D and on meshes HeatConfig.validate
-    # refuses the dtype itself, naming the item that holds it.
+    # Off the single-block path: on meshes, 2D and 3D, HeatConfig.validate
+    # refuses the dtype itself, naming the item that holds it (3D on one
+    # block runs: tests/test_torch_precision_3d.py).
     cfg = HeatConfig(nx=16, ny=16, steps=4, dtype="bfloat16", device="cpu")
-    for kw in (dict(nz=8), dict(nx=32, ny=32, mesh_shape=(2, 2))):
+    for kw in (dict(nz=8, mesh_shape=(2, 2, 2)),
+               dict(nx=32, ny=32, mesh_shape=(2, 2))):
         with pytest.raises(ValueError, match="queue 2 item 24"):
             EnsembleSolver(cfg.replace(**kw), 2)
 

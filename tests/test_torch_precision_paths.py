@@ -356,12 +356,18 @@ def test_packable_answers():
               **STIFF), True, "V-cycle"),
         (dict(nx=4096, ny=4096, dtype="bfloat16", backend="cuda"), False,
          "no member-bitwise"),
+        # 3D on one block: the vmap route, as in the JAX package.
+        (dict(nz=8, dtype="bfloat16", backend="torch"), True, "torch"),
+        (dict(nz=8, dtype="bfloat16", backend="cuda"), False,
+         "no member-bitwise"),
+        (dict(nz=8, dtype="float64"), True, "torch"),
     ]
     for kw, ok, why in cases:
         cfg = HeatConfig(**{"nx": 64, "ny": 64, "device": "cpu", **kw})
         got, reason = packable(cfg)
         assert got == ok and why in reason, (kw, got, reason)
-    for kw, item in ((dict(nz=8, dtype="bfloat16"), "queue 2 item 24"),
+    for kw, item in ((dict(dtype="bfloat16", mesh_shape=(2, 2)),
+                      "queue 2 item 24"),
                      (dict(dtype="float64", mesh_shape=(2, 2)),
                       "queue 1 item 3")):
         got, reason = packable(HeatConfig(nx=64, ny=64, **kw))

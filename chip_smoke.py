@@ -211,7 +211,12 @@ prints the card's name and power limit, then one JSON line per phase:
    D (one step, residual) and F (K = 3 under the load its grid takes,
    and under the other) at 512^3 with ``conv3d`` in bfloat16 chained K
    times, bound 2 x 512^3 x 2 B a launch, beside their float32 forms'
-   times on the same plate;
+   times on the same plate; the G family's bfloat16 forms at the main
+   path's 16384 x 8192 block of the 32768^2 plate on (2, 4), K = 8, no
+   residual (G-uni's deferred bulk, G-fuse's form as the same bulk, G-fuse,
+   G-circ and G monolithic, the band's launch over the 8 blocks), bound at
+   2 B a cell, yardstick ``conv2d`` in bfloat16 chained K times, and whole
+   bfloat16 rounds under each schedule;
 6. timing — each kernel, its plain version and a PyTorch yardstick
    (``conv2d`` with the 5-point weights, TF32 off; it computes the
    interior update only) with CUDA events, at the shape and depth of the
@@ -339,6 +344,28 @@ prints the card's name and power limit, then one JSON line per phase:
    steps_run, converged, residual and grid identical to one block;
 15. cli_sharded — ``--nx 256 --ny 256 --steps 100 --mesh 2,2 --out
    <tmp>.dat`` writes the one-block grid's bytes;
+15a. kernels_g_bf16 — the bfloat16 forms of G-uni, G-fuse, G-circ, G
+   and the band (``<kernel>_bf16``) against their plain versions, each
+   other and E's bfloat16 K steps of the global grid, all bitwise (grids
+   and residuals), at every compiled K on 500 x 256 (G-uni's form),
+   500 x 252 (G-uni's form refused) and 500 x 250 blocks on (2, 4), at
+   K = 8 on the main path's 16384 x 8192 blocks and on 16 x 24 (exactly
+   2K rows), cx = 0.1, cy = 0.2, every grid seeded with NaNs of payloads
+   no conversion makes and each grid's blocks asserted to run every tile
+   kind they are there for; the bulk plus the band the monolithic form;
+   the band's one launch under the per-cell and the row load;
+15b. sharded_main_path_bf16 — ``solve(HeatConfig(nx=32768, ny=32768,
+   steps=200, dtype="bfloat16", mesh_shape=(2, 4)))`` by default (K = 8,
+   overlap: 200 ``heat_g_block_uniform_bf16`` and 25
+   ``heat_g_band_fix_bf16`` launches), under ``phase`` and pinned to
+   G-fuse, G-circ and G, exactly each run's launches, every grid bitwise
+   the one-block bfloat16 run (E-uni's form); the default run's busy
+   share and its stream in chunks of 40 at pipeline depth 2, bitwise
+   ``solve()``; 1000^2 on (2, 4) to eps (G-fuse's form) with the
+   one-block run's steps_run, converged, residual and grid; float64 on
+   the torch rounds at 1024^2 on (2, 4) and 64^3 on (2, 2, 2), bitwise
+   one block, no kernel launched; and the CLI with ``--mesh 2,4 --dtype
+   bfloat16``, the one-block grid's bytes;
 16. timing_g — ms per launch (CUDA events, and the card's own time from
    ``torch.profiler``) of each G kernel at the main path's block, 16384 x
    8192 at K = 8 without the residual: the deferred bulk of G-uni (the
@@ -512,9 +539,10 @@ prints the card's name and power limit, then one JSON line per phase:
 
 Then a ``{"phase_seconds": {...}, "total_s": t}`` line (each phase's
 wall seconds, from the line before its own), a ``{"kernels": [...]}``
-line (all twenty kernels, the fourteen precision forms of A, B, C, D,
-E, E-uni, F, I, I-uni and M with their launches in main_path_bf16,
-main_path_3d_bf16, precision and ensemble_bf16, and the ten
+line (all twenty kernels, the nineteen precision forms of A, B, C, D,
+E, E-uni, F, I, I-uni, M, G-uni, G-fuse, G-circ, G and the 2D band with
+their launches in main_path_bf16, main_path_3d_bf16, precision,
+ensemble_bf16 and sharded_main_path_bf16, and the ten
 probes' kernels, each with its own run's launches: A's anatomy probe and
 neighbour forms with A's plain version, bound and yardstick, the E-uni
 probes with E-uni's, the overlap probe with F's, the roofline with its
@@ -918,10 +946,35 @@ def phase_build():
         and mine[2] <= twin[2] for mine, twin in twins.values()),
           f"a bfloat16 instance of D or F spills more than its float32 twin "
           f"or is missing: {twins}")
+    # The sharded 2D kernels' bfloat16 forms (one instance each, the band
+    # one a load): none may spill more than its float32 twin; their
+    # registers, and the main path's bulk's blocks an SM.
+    g_twins = {}
+    for name in ("heat_g_block_padded", "heat_g_block_circular",
+                 "heat_g_block_fused", "heat_g_block_uniform"):
+        rows = ptxas[name]
+        g_twins[name + "_bf16_kernel"] = (rows.get(name + "_bf16_kernel"),
+                                          rows.get(name + "_kernel"))
+    for load in (0, 1):
+        g_twins[f"heat_g_band_fix_bf16_kernel<{load}>"] = (
+            band.get(f"heat_g_band_fix_bf16_kernel<{load}>"),
+            band.get(f"heat_g_band_fix_kernel<{load}>"))
+    check(all(mine is not None and twin is not None and mine[1] <= twin[1]
+              and mine[2] <= twin[2] for mine, twin in g_twins.values()),
+          f"a bfloat16 instance of the G family spills more than its "
+          f"float32 twin or is missing: {g_twins}")
+    g_main_bf16 = {
+        name: {"registers": g_twins[name + "_kernel"][0][0],
+               "blocks_per_sm": sk.loop_occupancy(name, hp.g_k_default,
+                                                  hp.g_tile, hp.g_block)}
+        for name in ("heat_g_block_uniform_bf16", "heat_g_block_fused_bf16")}
     emit({"phase": "build", "seconds": seconds,
           "source_seconds": dict(build.BUILD_SECONDS),
           "bf16_3d_instances": {inst: {"bf16": mine, "float32": twin}
                                 for inst, (mine, twin) in twins.items()},
+          "bf16_g_instances": {inst: {"bf16": mine, "float32": twin}
+                               for inst, (mine, twin) in g_twins.items()},
+          "main_path_g_bf16": g_main_bf16,
           "a_and_m_instances": resident, "probe_instances": probes,
           "band_instances": band,
           "libraries": {n: os.path.relpath(str(p), ROOT)
@@ -3072,52 +3125,64 @@ def _g_plain(skb, kind):
 
 def _check_g_block(dev, xch, b, us, k, kw, e_out, err):
     """Every G kind at depth ``k`` on block ``b`` (the exchange ``xch``
-    has run both phases) against its plain version, the others, and
-    ``heat_e_temporal``'s K steps of the global grid on the same cells;
-    and the deferred bulk plus the band, spliced in place, against the
-    monolithic kernel, grid and max residual."""
+    has run both phases), in the blocks' dtype (its bfloat16 forms for
+    bfloat16 blocks), against its plain version (grid with and without
+    the residual, residual), the others, and ``heat_e_temporal``'s K
+    steps of the global grid on the same cells, all bit for bit; G-uni
+    refusing a width its 16-byte load does not take; and the deferred
+    bulk plus the band, spliced in place, against the monolithic kernel,
+    grid and max residual. Returns the residual."""
     import torch
 
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
     bx, by = us[b].shape
+    bf16 = us[b].dtype == torch.bfloat16
     o = xch.mesh.origin(b, (bx, by))
     g_kw = dict(origin=o, **kw)
-    want = e_out[o[0]:o[0] + bx, o[1]:o[1] + by]
+    want = e_out[o[0]:o[0] + bx, o[1]:o[1] + by].contiguous()
+    band = skb.entry(skb.BAND, us[b].dtype)
     exts = {}
     for kind, how in (("G-circ", xch.assemble_circular),
                       ("G", xch.assemble_padded)):
-        exts[kind] = torch.empty((bx + 2 * k, by + 2 * k), device=dev)
+        exts[kind] = us[b].new_empty((bx + 2 * k, by + 2 * k))
         how(b, us[b], exts[kind])
     first = None
-    for kind, name in skb.KERNEL_OF.items():
-        if kind == "G-uni" and by % 4:
-            continue
+    for kind, name in (skb.KERNEL_OF_BF16 if bf16 else skb.KERNEL_OF).items():
+        if kind == "G-uni" and by % (8 if bf16 else 4):
+            try:
+                skb.block_uniform(us[b], *xch.pieces(b), torch.empty_like(
+                    us[b]), k, **g_kw)
+            except ValueError:
+                continue
+            raise SmokeFailure(f"{name} took blocks {bx} x {by}, whose "
+                               f"width its 16-byte load does not take")
         args = (exts[kind],) if kind in exts else (us[b], *xch.pieces(b))
-        got, ref, nores = (torch.empty((bx, by), device=dev)
+        got, ref, nores = (torch.full_like(us[b], float("nan"))
                            for _ in range(3))
         r = skb.LAUNCH[kind](*args, got, k, True, **g_kw)
         skb.LAUNCH[kind](*args, nores, k, False, **g_kw)
         rp = _g_plain(skb, kind)(*args, ref, k, True, **g_kw)
         torch.cuda.synchronize()
-        d = max(float((got - ref).abs().max()),
-                float((got - want).abs().max()))
+        d = max(float((got.float() - ref.float()).abs().nan_to_num(0).max()),
+                float((got.float() - want.float()).abs().nan_to_num(0)
+                      .max()))
         err[name] = max(err[name], d)
         where = f"{name}(K={k}) on block {o} of {kw['grid_shape']} {kw}"
-        check(torch.equal(got, ref) and same_float(r, rp),
+        check(_bits_equal(got, ref) and same_float(r, rp),
               f"{where} != its plain version: max diff {d}, residual "
               f"{float(r)} vs {float(rp)}")
-        check(torch.equal(got, want),
+        check(_bits_equal(got, want),
               f"{where} != heat_e_temporal(K={k}) on the global grid")
-        check(torch.equal(got, nores), f"{where}: grid depends on "
-              f"with_residual")
+        check(r.dtype == torch.float32 and _bits_equal(got, nores),
+              f"{where}: grid depends on with_residual")
         if first is None:
             first = r
         check(same_float(r, first), f"{where}: residual {float(r)} differs "
               f"from the other kinds' {float(first)}")
         if kind in ("G-uni", "G-fuse") and bx >= 2 * k:
-            split = torch.full((bx, by), float("nan"), device=dev)
-            plain = torch.full((bx, by), float("nan"), device=dev)
+            split, plain = (torch.full_like(us[b], float("nan"))
+                            for _ in range(2))
             tail = xch.tail[b]
             rb = skb.LAUNCH[kind](us[b], tail, None, None, split, k, True,
                                   **g_kw)
@@ -3127,31 +3192,34 @@ def _check_g_block(dev, xch, b, us, k, kw, e_out, err):
             rpf = skb.band_fix_plain(us[b], *xch.pieces(b), plain, k, True,
                                      **g_kw)
             torch.cuda.synchronize()
-            err["heat_g_band_fix"] = max(err["heat_g_band_fix"],
-                                         float((split - plain).abs().max()))
-            check(torch.equal(split, plain) and same_float(rb, rpb)
+            err[band] = max(err[band], float(
+                (split.float() - plain.float()).abs().nan_to_num(0).max()))
+            check(_bits_equal(split, plain) and same_float(rb, rpb)
                   and same_float(rf, rpf),
                   f"{where}: deferred bulk or band != its plain version")
-            check(torch.equal(split, got)
+            check(_bits_equal(split, got)
                   and same_float(torch.maximum(rb, rf), r),
                   f"{where}: deferred bulk + band != the monolithic kernel "
                   f"(residuals {float(rb)}, {float(rf)} vs {float(r)})")
+    return first
 
 
 def _check_band_blocks(dev, mesh, us, xch, k, kw, err):
     """The band kernel over every block of ``mesh`` in one launch (the
-    exchange ``xch`` has run both phases), under each load the blocks
-    take (the per-cell load always, the row load where it fits), against
-    each block's plain version and the batched plain version, NaN between
-    the bands in all; returns the residual and outputs of the load the
-    launch picks, and adds the loads run to ``err["band loads"]``."""
+    exchange ``xch`` has run both phases; its bfloat16 form for bfloat16
+    blocks), under each load the blocks take (the per-cell load always,
+    the row load where it fits), bit for bit each block's plain version
+    and the batched plain version, NaN between the bands in all; returns
+    the residual and outputs of the load the launch picks, and adds the
+    loads run to ``err["band loads"]``."""
     import torch
 
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
     bs = tuple(us[0].shape)
+    band = skb.entry(skb.BAND, us[0].dtype)
     origins = [mesh.origin(b, bs) for b in range(mesh.size)]
-    one, plain = ([torch.full(bs, float("nan"), device=dev) for _ in us]
+    one, plain = ([torch.full_like(u, float("nan")) for u in us]
                   for _ in range(2))
     rs = [skb.band_fix_plain(us[b], *xch.pieces(b), one[b], k, True,
                              origin=origins[b], **kw)
@@ -3162,18 +3230,20 @@ def _check_band_blocks(dev, mesh, us, xch, k, kw, err):
                             origins=origins, **kw).load
     out = None
     for load in sorted({"cells", picked}):
-        got = [torch.full(bs, float("nan"), device=dev) for _ in us]
-        r = skb.BandLaunch(us, xch.tail, xch.halo_n, xch.halo_s, got, k,
-                           origins=origins, load=load, **kw)(True)
+        got = [torch.full_like(u, float("nan")) for u in us]
+        launch = skb.BandLaunch(us, xch.tail, xch.halo_n, xch.halo_s, got, k,
+                                origins=origins, load=load, **kw)
+        check(launch.name == band, f"{us[0].dtype} blocks launch "
+                                   f"{launch.name}")
+        r = launch(True)
         torch.cuda.synchronize()
         err["band loads"].add(load)
-        where = (f"the band kernel ({load} load) over the {mesh.size} "
-                 f"blocks {bs} of {kw['grid_shape']} at K={k} {kw}")
+        where = (f"{band} ({load} load) over the {mesh.size} blocks {bs} of "
+                 f"{kw['grid_shape']} at K={k} {kw}")
         for a, b_, c in zip(got, one, plain):
-            a7, b7 = a.nan_to_num(7.0), b_.nan_to_num(7.0)
-            err["heat_g_band_fix"] = max(err["heat_g_band_fix"],
-                                         float((a7 - b7).abs().max()))
-            check(torch.equal(a7, b7) and torch.equal(a7, c.nan_to_num(7.0)),
+            err[band] = max(err[band], float(
+                (a.float() - b_.float()).abs().nan_to_num(0).max()))
+            check(_bits_equal(a, b_) and _bits_equal(a, c),
                   f"{where} != the per-block plain versions")
             check(bool(a[k:bs[0] - k].isnan().all()),
                   f"{where} wrote rows between the bands")
@@ -3529,11 +3599,17 @@ G_UNI_EARLIER_MS = 1.263
 G_FUSE_EARLIER_MS = 1.335
 
 
-def phase_timing_g(dev):
-    """ms per launch of each G kernel at the main path's block (16384 x
-    8192, K = 8, no residual, as the rounds between check windows launch
-    them), its plain version, its bound and a conv2d yardstick; and the
-    exchange's own time per round."""
+def _g_timing_rows(dev, dtype):
+    """ms a launch of each G kernel at the main path's block (16384 x 8192
+    of the 32768^2 plate on (2, 4), K = 8, no residual, as the rounds
+    between check windows launch them) at storage ``dtype`` (its bfloat16
+    forms for bfloat16), by CUDA events and the profiler's device time,
+    its plain version, its bound (each input read once and each output
+    written once, at the dtype's bytes a cell) and a yardstick (``conv2d``
+    in the dtype, chained K times, TF32 off): G-uni's deferred bulk (the
+    main path's launch), G-fuse's form as the same bulk, G-uni, G-fuse,
+    G-circ and G monolithic, the band's launch over the 8 blocks. Returns
+    the rows and the blocks, spares, exchange and origins they ran on."""
     import torch
     import torch.nn.functional as F
 
@@ -3551,29 +3627,23 @@ def phase_timing_g(dev):
     mesh = HeatMesh(SHARD_MESH, dev)
     bx, by = mesh.block_shape(grid)
     plate = HeatPlate2D(*grid)
-    us = [plate.init_block(dev, mesh.origin(b, (bx, by)), (bx, by))
+    us = [plate.init_block(dev, mesh.origin(b, (bx, by)), (bx, by), dtype)
           for b in range(mesh.size)]
-    xch = temporal.DeepExchange2D(mesh, (bx, by), k, dev)
-
-    def exchange():
-        xch.phase1(us)
-        xch.phase2(us)
-
-    exchange_ms = _time_ms(exchange, 20, 2)
+    xch = temporal.DeepExchange2D(mesh, (bx, by), k, dev, dtype)
+    xch.phase1(us)
+    xch.phase2(us)
     b = mesh.index((1, 1))
     o = mesh.origin(b, (bx, by))
     kw = dict(origin=o, grid_shape=grid, cx=CX, cy=CY)
     tail, hn, hs = xch.pieces(b)
-    ext_c = torch.empty((bx + 2 * k, by + 2 * k), device=dev)
+    ext_c = us[b].new_empty((bx + 2 * k, by + 2 * k))
     ext_p = torch.empty_like(ext_c)
     xch.assemble_circular(b, us[b], ext_c)
     xch.assemble_padded(b, us[b], ext_p)
-    assemble_ms = _time_ms(lambda: xch.assemble_circular(b, us[b], ext_c),
-                           10, 2)
-    v = torch.empty((bx, by), device=dev)
+    v = torch.empty_like(us[b])
     a0, cx, cy = coeffs_f32(CX, CY)
     w = torch.tensor([[0.0, cx, 0.0], [cy, a0, cy], [0.0, cx, 0.0]],
-                     dtype=torch.float32, device=dev).view(1, 1, 3, 3)
+                     dtype=dtype, device=dev).view(1, 1, 3, 3)
 
     def conv_steps(x):
         for _ in range(k):
@@ -3585,7 +3655,7 @@ def phase_timing_g(dev):
     # Every block's two band windows, (3K) x (by + 2K) of its padded
     # frame, for the band launch's yardstick.
     origins = [mesh.origin(i, (bx, by)) for i in range(mesh.size)]
-    bands = torch.empty((2 * mesh.size, 1, 3 * k, by + 2 * k), device=dev)
+    bands = ext_p.new_empty((2 * mesh.size, 1, 3 * k, by + 2 * k))
     padded = torch.empty_like(ext_p)
     for i in range(mesh.size):
         xch.assemble_padded(i, us[i], padded)
@@ -3596,10 +3666,12 @@ def phase_timing_g(dev):
     band_launch = skb.BandLaunch(us, xch.tail, xch.halo_n, xch.halo_s, vs,
                                  k, origins=origins, grid_shape=grid, cx=CX,
                                  cy=CY)
-    check(band_launch.load == "rows", f"the main path's band launch takes "
-          f"the {band_launch.load} load, not the row load")
-    f = 4  # bytes a float32
-    piece_bytes = f * (bx * 2 * k + 2 * k * (by + 2 * k))
+    band = skb.entry(skb.BAND, dtype)
+    check(band_launch.name == band and band_launch.load == "rows",
+          f"the main path's band launch is {band_launch.name}, "
+          f"{band_launch.load} load, not {band}'s row load")
+    e = us[b].element_size()  # bytes a cell
+    piece_bytes = e * (bx * 2 * k + 2 * k * (by + 2 * k))
     ops = OPS_PER_CELL_STEP * k
     inner = _interior_cells(o, (bx, by), grid)
     bulk_inner = _interior_cells((o[0] + k, o[1]), (bx - 2 * k, by), grid)
@@ -3607,56 +3679,103 @@ def phase_timing_g(dev):
         _interior_cells(oi, (bx, by), grid)
         - _interior_cells((oi[0] + k, oi[1]), (bx - 2 * k, by), grid)
         for oi in origins)
-    mono = (f * 2 * bx * by + piece_bytes, ops * inner)
-    assembled = (f * ((bx + 2 * k) * (by + 2 * k) + bx * by), ops * inner)
+    bulk = (e * (bx * by + bx * 2 * k + (bx - 2 * k) * by), ops * bulk_inner)
+    mono = (e * 2 * bx * by + piece_bytes, ops * inner)
+    assembled = (e * ((bx + 2 * k) * (by + 2 * k) + bx * by), ops * inner)
+    name = {kind: skb.entry(n, dtype) for kind, n in skb.KERNEL_OF.items()}
     timed = {
         # The main path's launch of G-uni: the deferred bulk.
-        "heat_g_block_uniform": (
+        name["G-uni"]: (
             lambda: skb.block_uniform(us[b], tail, None, None, v, k, False,
                                       **kw),
             lambda: skb.block_uniform_plain(us[b], tail, None, None, v, k,
                                             False, **kw),
-            lambda: conv_steps(lead),
-            (f * (bx * by + bx * 2 * k + (bx - 2 * k) * by),
-             ops * bulk_inner)),
-        "heat_g_block_uniform@monolithic": (
+            lambda: conv_steps(lead), bulk),
+        name["G-uni"] + "@monolithic": (
             lambda: skb.block_uniform(us[b], tail, hn, hs, v, k, False, **kw),
             lambda: skb.block_uniform_plain(us[b], tail, hn, hs, v, k, False,
                                             **kw),
             lambda: conv_steps(frame), mono),
-        "heat_g_block_fused": (
+        # G-fuse's form as the same bulk: its per-cell loads against
+        # G-uni's 16-byte copies.
+        name["G-fuse"] + "@bulk": (
+            lambda: skb.block_fused(us[b], tail, None, None, v, k, False,
+                                    **kw),
+            lambda: skb.block_fused_plain(us[b], tail, None, None, v, k,
+                                          False, **kw),
+            lambda: conv_steps(lead), bulk),
+        name["G-fuse"]: (
             lambda: skb.block_fused(us[b], tail, hn, hs, v, k, False, **kw),
             lambda: skb.block_fused_plain(us[b], tail, hn, hs, v, k, False,
                                           **kw),
             lambda: conv_steps(frame), mono),
-        "heat_g_block_circular": (
+        name["G-circ"]: (
             lambda: skb.block_circular(ext_c, v, k, False, **kw),
             lambda: skb.block_circular_plain(ext_c, v, k, False, **kw),
             lambda: conv_steps(frame), assembled),
-        "heat_g_block_padded": (
+        name["G"]: (
             lambda: skb.block_padded(ext_p, v, k, False, **kw),
             lambda: skb.block_padded_plain(ext_p, v, k, False, **kw),
             lambda: conv_steps(frame), assembled),
         # The round's band launch: every block's bands at once.
-        "heat_g_band_fix": (
+        band: (
             lambda: band_launch(False),
             lambda: skb.band_fix_blocks_plain(
                 us, xch.tail, xch.halo_n, xch.halo_s, vs, k, False,
                 origins=origins, grid_shape=grid, cx=CX, cy=CY),
             lambda: conv_steps(bands),
-            (mesh.size * f * (2 * 2 * k * by + 2 * 2 * k * 2 * k
+            (mesh.size * e * (2 * 2 * k * by + 2 * 2 * k * 2 * k
                               + 2 * k * (by + 2 * k) + 2 * k * by),
              ops * band_inner)),
     }
     rows = {}
     for key, (kernel, plain, library, (nbytes, nops)) in timed.items():
-        name = key.split("@")[0]
-        rows[key] = {"block": [bx, by], "k": k,
+        rows[key] = {"block": [bx, by], "k": k, "dtype": str(dtype),
                      "ms": _time_ms(kernel, 20, 3),
                      "plain_ms": _time_ms(plain, 2, 1),
                      "library_ms": _time_ms(library, 5, 1),
                      **_bound(nbytes, nops)}
-        rows[key].update(_device_ms(kernel, name))
+        rows[key].update(_device_ms(kernel, key.split("@")[0]))
+    rows[band].update(blocks=mesh.size, load=band_launch.load)
+    return rows, (mesh, us, vs, xch, origins, grid, k, ext_c)
+
+
+def _round_ms(xch, us, vs, grid):
+    """ms of one whole round of the blocks by CUDA events under each
+    schedule: overlap (phase 1, the bulks, phase 2, one band launch) and
+    phase (both phases, the monolithic launches)."""
+    from parallel_heat_tpu_torch.parallel import temporal
+
+    out = {}
+    for mode in ("overlap", "phase"):
+        round_fn = temporal._cuda_round_2d(xch, "G-uni", mode,
+                                           grid_shape=grid, cx=CX, cy=CY)
+        out[mode] = _time_ms(lambda: round_fn(us, vs, False), 10, 2)
+    return out
+
+
+def phase_timing_g(dev):
+    """The G kernels' rows at the main path's block (:func:`_g_timing_rows`
+    in float32), beside their earlier designs' device times; the band's
+    per-block design (one launch a block); the exchange's and an
+    assembly's own times; whole rounds of the 8 blocks under each
+    schedule and the device operations the host issues a round."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel import temporal
+
+    rows, (mesh, us, vs, xch, origins, grid, k, ext_c) = _g_timing_rows(
+        dev, torch.float32)
+
+    def exchange():
+        xch.phase1(us)
+        xch.phase2(us)
+
+    exchange_ms = _time_ms(exchange, 20, 2)
+    b = mesh.index((1, 1))
+    assemble_ms = _time_ms(lambda: xch.assemble_circular(b, us[b], ext_c),
+                           10, 2)
     rows["heat_g_block_uniform"]["earlier_design_device_ms"] = \
         G_UNI_EARLIER_MS
     rows["heat_g_block_fused"]["earlier_design_device_ms"] = \
@@ -3664,8 +3783,6 @@ def phase_timing_g(dev):
     # The per-block design, one launch a block (a one-entry table): its
     # device time summed over the 8 blocks and its events for the 8.
     band = rows["heat_g_band_fix"]
-    band["blocks"] = mesh.size
-    band["load"] = band_launch.load
     band["earlier_design_device_ms"] = sum(
         _device_ms(lambda i=i: skb.band_fix(
             us[i], *xch.pieces(i), vs[i], k, False, origin=origins[i],
@@ -3674,19 +3791,18 @@ def phase_timing_g(dev):
     band["earlier_design_ms"] = _time_ms(lambda: [skb.band_fix(
         us[i], *xch.pieces(i), vs[i], k, False, origin=origins[i],
         grid_shape=grid, cx=CX, cy=CY) for i in range(mesh.size)], 20, 3)
-    # One whole round of the 8 blocks by events, under each schedule:
-    # overlap (phase 1, 8 bulks, phase 2, one band launch) and phase
-    # (both phases, 8 monolithic launches); and the device operations
-    # (kernels, copies, memsets) the host issues a round, by the profiler.
-    round_ms, host_ops = {}, {}
+    # Whole rounds by events, and the device operations (kernels, copies,
+    # memsets) the host issues a round, by the profiler.
+    round_ms = _round_ms(xch, us, vs, grid)
+    host_ops = {}
     for mode in ("overlap", "phase"):
         round_fn = temporal._cuda_round_2d(xch, "G-uni", mode,
                                            grid_shape=grid, cx=CX, cy=CY)
-        round_ms[mode] = _time_ms(lambda: round_fn(us, vs, False), 10, 2)
         _, per = _profiled(lambda: [round_fn(us, vs, False)
                                     for _ in range(5)])
         host_ops[mode] = sum(n for _, n in per.values()) / 5
-    del us, vs, xch, ext_c, ext_p, v, frame, lead, bands, band_launch
+    bx, by = us[0].shape
+    del us, vs, xch, ext_c
     torch.cuda.empty_cache()
     emit({"phase": "timing_g", "kernels": rows,
           "exchange_ms_per_round": exchange_ms,
@@ -3696,6 +3812,285 @@ def phase_timing_g(dev):
           "redundant_cell_share": 2 * k * (bx + by + 2 * k) / (bx * by),
           "band_share_of_cells": 2 * k / bx})
     return {name: row for name, row in rows.items() if "@" not in name}
+
+
+# ---------------------------------------------------------------------------
+# The sharded 2D path at bfloat16 (the G family's bfloat16 forms)
+# ---------------------------------------------------------------------------
+
+# The sharded 2D kernels' bfloat16 forms (ops/stencil_kernels_block.py
+# KERNEL_OF_BF16, BAND_BF16), each with its library's source and the TPU
+# builder it replaces (its dtype_name="bfloat16" form).
+KERNELS_G_BF16 = {
+    "heat_g_block_uniform_bf16": ("heat_g_block_uniform", TPU + ":1827"),
+    "heat_g_block_fused_bf16": ("heat_g_block_fused", TPU + ":1560"),
+    "heat_g_block_circular_bf16": ("heat_g_block_circular", TPU + ":1343"),
+    "heat_g_block_padded_bf16": ("heat_g_block_padded", TPU + ":1135"),
+    "heat_g_band_fix_bf16": ("heat_g_band_fix", TPU + ":2093"),
+}
+# The tile kinds of csrc/heat_g.cuh every check grid's blocks run
+# (hopper_params.g_tile_kinds, as phase_kernels_g counts them).
+G_TILE_KINDS = ("inside", "block_edge", "ragged_rows", "ragged_cols",
+                "global_edge")
+
+
+def phase_kernels_g_bf16(dev):
+    """The bfloat16 forms of G-uni, G-fuse, G-circ, G and the band on the
+    card, each bit for bit its plain version on the same inputs, the other
+    forms and E's bfloat16 K steps of the global grid, at every compiled K
+    (1 .. g_k_max) on 500 x 256 blocks (G-uni's form), 500 x 252 (a width
+    of 4k but not 8k: G-uni's form refused, G-fuse's taken) and 500 x 250
+    (a last group cut short), at K = 8 on the main path's 16384 x 8192
+    blocks and on 16 x 24 blocks (exactly 2K rows: the bulk empty); each
+    grid's blocks running every tile kind they are there for; the bulk
+    plus the band bit for bit the monolithic form; the band's one launch
+    under each load the blocks take; every grid seeded with NaNs of
+    payloads no conversion makes, on the ring and inside. Returns max
+    |diff| each (0.0)."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    err = {name: 0.0 for name in KERNELS_G_BF16}
+    err["band loads"] = set()
+    p = params()
+    every_k = list(range(1, p.g_k_max() + 1))
+    kw = dict(cx=UNEQUAL[0], cy=UNEQUAL[1])
+    plan = [((SHARD_N, SHARD_N), SHARD_MESH, [p.g_k_default], [0, 6],
+             G_TILE_KINDS),
+            ((CONV, 1024), SHARD_CONV, every_k, list(range(8)),
+             G_TILE_KINDS),
+            ((CONV, 1008), SHARD_CONV, every_k, list(range(8)),
+             G_TILE_KINDS),
+            ((CONV, CONV), SHARD_CONV, every_k, list(range(8)),
+             G_TILE_KINDS + ("partial_group",)),
+            ((32, 48), (2, 2), [8], list(range(4)),
+             ("block_edge", "global_edge"))]
+    report, nan_res = [], {}
+    for seed, (grid, mesh_shape, ks, blocks, need) in enumerate(plan):
+        g = _rand_bf16(dev, grid, 40 + seed, nan=True)
+        mesh = HeatMesh(mesh_shape, dev)
+        us = mesh.split(g)
+        bx, by = mesh.block_shape(grid)
+        tiles = {}
+        for k in ks:
+            kinds = dict.fromkeys(need, 0)
+            for b in blocks:
+                o = mesh.origin(b, (bx, by))
+                counted = [p.g_tile_kinds((bx, by), k, origin=o,
+                                          grid_shape=grid)]
+                if bx >= 2 * k:
+                    counted += [
+                        p.g_tile_kinds((bx, by), k, [(k, bx - 2 * k)],
+                                       origin=o, grid_shape=grid),
+                        p.g_tile_kinds((bx, by), k, [(0, k), (bx - k, k)],
+                                       (k, p.g_band_tile_x), o, grid)]
+                for c in counted:
+                    for kind in need:
+                        kinds[kind] += c[kind]
+            check(all(kinds.values()), f"the bfloat16 check blocks of "
+                  f"{grid} on {mesh_shape} at K={k} run no tile of some "
+                  f"kind they are there for: {kinds}")
+            tiles[k] = kinds
+            xch = temporal.DeepExchange2D(mesh, (bx, by), k, dev,
+                                          torch.bfloat16)
+            xch.phase1(us)
+            xch.phase2(us)
+            e_out = torch.empty_like(g)
+            sk.temporal_steps(g, e_out, k, False, **kw)
+            res = [_check_g_block(dev, xch, b, us, k,
+                                  dict(grid_shape=grid, **kw), e_out, err)
+                   for b in blocks]
+            nan_res[f"{grid} K={k}"] = float(torch.stack(res).amax())
+            del e_out
+            if bx >= 2 * k:
+                _check_band_blocks(dev, mesh, us, xch, k,
+                                   dict(grid_shape=grid, **kw), err)
+            del xch
+        report.append({"grid": list(grid), "mesh": list(mesh_shape),
+                       "block": [bx, by], "k": ks, "blocks": blocks,
+                       "tile_kinds": tiles})
+        del g, us
+        torch.cuda.empty_cache()
+    loads = sorted(err.pop("band loads"))
+    check(loads == ["cells", "rows"], f"the bfloat16 band launches checked "
+          f"took the loads {loads}, not both")
+    emit({"phase": "kernels_g_bf16", "ok": True, "coeffs": kw,
+          "checks": report, "residual_max": nan_res, "max_abs_err": err,
+          "band_loads": loads, "nan_seeded": True,
+          "bitwise_plain_each_other_and_e": True,
+          "deferred_plus_band_is_monolithic": True})
+    return err
+
+
+def phase_sharded_main_path_bf16():
+    """BASELINE's north star at config 4's dtype: 32768^2 bfloat16 on a
+    (2, 4) mesh, 200 steps, by the default resolution (K = 8, overlap:
+    G-uni's bfloat16 bulk and the bfloat16 band), the phase schedule and
+    G-fuse, G-circ and G pinned; the counts set to 0 before each run and
+    read after, exactly each run's launches; every grid bit for bit the
+    one-block bfloat16 run (E-uni's form). Then 1000^2 on (2, 4) to eps
+    (blocks 250 wide: G-fuse's form) with the one-block run's steps_run,
+    converged, residual and grid; the 32768^2 mesh run's stream in chunks
+    of 40 at pipeline depth 2, bit for bit solve(); float64 on the torch
+    rounds at 1024^2 on (2, 4) and 64^3 on (2, 2, 2), bit for bit their
+    one-block runs, no kernel launched; the CLI with --mesh 2,4 --dtype
+    bfloat16, the one-block run's .dat bytes. Returns each kernel's
+    launches."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, explain, solve
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.solver import solve_stream
+    from parallel_heat_tpu_torch.utils.io import write_dat
+
+    k = params().g_k_default
+    one_cfg = HeatConfig(nx=SHARD_N, ny=SHARD_N, steps=MAIN_STEPS,
+                         dtype="bfloat16")
+    cfg = one_cfg.replace(mesh_shape=SHARD_MESH)
+    resolved = explain(cfg)
+    check(resolved["halo_depth"] == f"{k} (auto)"
+          and resolved["halo_overlap"] == "overlap (auto)"
+          and resolved["decided_by"]["block_temporal_2d"]["choice"]
+          == "G-uni" and "heat_g_block_uniform_bf16" in resolved["path"],
+          f"32768^2 bf16 on (2, 4) resolved to {resolved}")
+    one = solve(one_cfg)
+    check(one.grid.dtype == torch.bfloat16
+          and bool(torch.isfinite(one.grid).all()),
+          "the one-block 32768^2 bf16 grid is not finite bfloat16")
+    cells = SHARD_N * SHARD_N * MAIN_STEPS / 1e6
+    n = (MAIN_STEPS // k) * math.prod(SHARD_MESH)
+    rounds = MAIN_STEPS // k
+    runs = [("default", cfg, None, {"heat_g_block_uniform_bf16": n,
+                                     "heat_g_band_fix_bf16": rounds}),
+            ("phase", cfg.replace(halo_overlap="phase"), None,
+             {"heat_g_block_uniform_bf16": n}),
+            ("G-fuse", cfg, "G-fuse", {"heat_g_block_fused_bf16": n,
+                                       "heat_g_band_fix_bf16": rounds}),
+            ("G-circ", cfg, "G-circ", {"heat_g_block_circular_bf16": n}),
+            ("G", cfg, "G", {"heat_g_block_padded_bf16": n})]
+    out, launches = {}, {}
+    for label, c, force, expect in runs:
+        res, counts = _sharded_run(c, expect, f"32768^2 bf16 (2, 4) {label}",
+                                   force)
+        check(res.steps_run == MAIN_STEPS and res.grid.dtype == torch.bfloat16
+              and _bits_equal(res.grid, one.grid),
+              f"32768^2 bf16 (2, 4) {label} differs from the one-block run")
+        out[label] = {"elapsed_s": res.elapsed_s,
+                      "mcells_steps_per_s": cells / res.elapsed_s,
+                      "launches": {name: counts[name] for name in expect}}
+        if label != "phase":
+            for name in expect:
+                launches.setdefault(name, counts[name])
+        del res
+        torch.cuda.empty_cache()
+    busy = _busy(lambda: solve(cfg), "32768^2 bf16 (2, 4) profiled")
+    # The stream of the default run, chunks of 40 at pipeline depth 2.
+    seen = []
+    for r in solve_stream(cfg, chunk_steps=40, pipeline_depth=2):
+        seen.append(r.steps_run)
+        last = r.grid
+    check(seen == list(range(40, MAIN_STEPS + 1, 40))
+          and _bits_equal(last, one.grid),
+          f"32768^2 bf16 (2, 4) stream yields {seen}, bitwise "
+          f"{_bits_equal(last, one.grid)}")
+    one_s = one.elapsed_s
+    del one, last
+    torch.cuda.empty_cache()
+    # 1000^2 on (2, 4) to eps from values in [0, 1): blocks of 500 x 250,
+    # G-fuse's bfloat16 form, rounds of 8 + 8 + 4 a window of 20.
+    init = torch.from_numpy(np.random.default_rng(31).uniform(
+        0, 1, (CONV, CONV)).astype(np.float32)).to(torch.bfloat16)
+    ccfg = HeatConfig(nx=CONV, ny=CONV, steps=2000, converge=True, eps=0.01,
+                      check_interval=WINDOW, dtype="bfloat16")
+    cone = solve(ccfg, initial=init)
+    windows = cone.steps_run // WINDOW
+    sk.reset_counts()
+    cmesh = solve(ccfg.replace(mesh_shape=SHARD_CONV), initial=init)
+    counts = {name: c for name, c in sk.counts.items() if c}
+    check(counts == {"heat_g_block_fused_bf16": windows * 3 * 8,
+                     "heat_g_band_fix_bf16": windows * 3},
+          f"1000^2 bf16 (2, 4) converge: counts {counts} for {windows} "
+          f"windows")
+    check((cmesh.steps_run, cmesh.converged) == (cone.steps_run,
+                                                  cone.converged)
+          and same_float(cmesh.residual, cone.residual)
+          and _bits_equal(cmesh.grid, cone.grid),
+          f"1000^2 bf16 (2, 4) converge: {cmesh.steps_run} steps, "
+          f"{cmesh.converged}, {cmesh.residual}; one block: "
+          f"{cone.steps_run}, {cone.converged}, {cone.residual}")
+    converge = {"steps_run": cmesh.steps_run, "converged": cmesh.converged,
+                "residual": cmesh.residual, "elapsed_s": cmesh.elapsed_s,
+                "one_block_elapsed_s": cone.elapsed_s, "launches": counts}
+    # float64 on the torch rounds: no kernel, bit for bit one block.
+    f64 = {}
+    for label, c in (("1024^2 (2, 4)", HeatConfig(
+            nx=1024, ny=1024, steps=MAIN_STEPS, dtype="float64",
+            mesh_shape=SHARD_MESH)),
+                     ("64^3 (2, 2, 2)", HeatConfig(
+                         nx=64, ny=64, nz=64, steps=MAIN_STEPS,
+                         dtype="float64", mesh_shape=(2, 2, 2)))):
+        ref = solve(c.replace(mesh_shape=None))
+        sk.reset_counts()
+        res = solve(c)
+        ran = {name: n for name, n in sk.counts.items() if n}
+        check(not ran and res.grid.dtype == torch.float64
+              and _bits_equal(res.grid, ref.grid),
+              f"{label} float64: counts {ran}, bitwise "
+              f"{_bits_equal(res.grid, ref.grid)}")
+        f64[label] = {"elapsed_s": res.elapsed_s,
+                      "one_block_elapsed_s": ref.elapsed_s,
+                      "explain": explain(c)["path"]}
+    # The CLI on a (2, 4) mesh at bfloat16: the one-block run's bytes.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.dat")
+        cmd = [sys.executable, "-m", "parallel_heat_tpu_torch", "--nx",
+               "1024", "--ny", "1024", "--steps", "100", "--mesh", "2,4",
+               "--dtype", "bfloat16", "--out", path]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0,
+              f"bf16 sharded CLI exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, "ref.dat")
+        write_dat(ref, solve(HeatConfig(nx=1024, ny=1024, steps=100,
+                                        dtype="bfloat16")).grid.cpu())
+        with open(path, "rb") as a, open(ref, "rb") as b:
+            check(a.read() == b.read(), "the bf16 sharded CLI's .dat "
+                                        "differs from the one-block grid")
+    emit({"phase": "sharded_main_path_bf16", "ok": True,
+          "shape": [SHARD_N, SHARD_N], "mesh": list(SHARD_MESH),
+          "dtype": "bfloat16", "steps": MAIN_STEPS,
+          "resolved": resolved["path"],
+          "one_block": {"elapsed_s": one_s,
+                        "mcells_steps_per_s": cells / one_s},
+          "runs": out, "bitwise_one_block": True,
+          "profiled_default": busy,
+          "stream": {"chunk_steps": 40, "pipeline_depth": 2, "yields": seen,
+                     "bitwise_solve": True},
+          "converge_1000_2x4": converge, "float64_torch_rounds": f64,
+          "cli": proc.stdout.strip().splitlines()})
+    return launches
+
+
+def _timing_g_bf16(dev):
+    """The bfloat16 forms' rows at the main path's block
+    (:func:`_g_timing_rows` at bfloat16: bounds at 2 B a cell, the
+    yardstick ``conv2d`` in bfloat16), and whole bfloat16 rounds of the 8
+    blocks under each schedule."""
+    import torch
+
+    rows, (_, us, vs, xch, _, grid, _, _) = _g_timing_rows(dev,
+                                                           torch.bfloat16)
+    rows["heat_g_block_uniform_bf16"]["round_ms"] = _round_ms(xch, us, vs,
+                                                              grid)
+    del us, vs, xch
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -5377,6 +5772,7 @@ KERNELS_BF16 = {
                                       TPU + ":3294"),
     "heat_d_step3d_bf16": ("heat_d_step3d", TPU + ":3708"),
     "heat_f_temporal3d_bf16": ("heat_f_temporal3d_bf16", TPU + ":3932"),
+    **KERNELS_G_BF16,
 }
 # F's bfloat16 launch shapes for the shape rule's check on the card:
 # (lanes, warps), rows, K, legal and not (heat_f_takes at 2-byte cells
@@ -6899,6 +7295,7 @@ def phase_timing_bf16(dev):
     del u, v, x
     torch.cuda.empty_cache()
     rows.update(_timing_3d_bf16(dev))
+    rows.update(_timing_g_bf16(dev))
     emit({"phase": "timing_bf16", "kernels": rows})
     return rows
 
@@ -7008,9 +7405,11 @@ def main() -> int:
         launches.update(phase_ensemble_bf16(dev))
         phase_implicit_precision(dev)
         err.update(phase_kernels_g(dev))
+        err.update(phase_kernels_g_bf16(dev))
         launches.update(phase_sharded_main_path())
         phase_sharded_converge()
         phase_cli_sharded()
+        launches.update(phase_sharded_main_path_bf16())
         err.update(phase_kernels_h(dev))
         launches.update(phase_sharded_main_path_3d())
         phase_sharded_converge_3d()

@@ -165,22 +165,25 @@ def _audit_windows(plan, spans, report):
                            f"{shape[d]}-extent array (shape {shape}) at "
                            f"span {i} — on the card this copy reads "
                            f"past the allocation silently")
+                vec = 16 // arr.elem       # cells of a 16-byte copy
                 if (load.kind == "cp16" and guard is None
-                        and d == ndim - 1 and (start % 4 or ext % 4)):
+                        and d == ndim - 1 and (start % vec or ext % vec)):
                     report("HL401",
                            f"16-byte cp.async window {lname} starts at "
                            f"column {start} over {ext} columns: not on "
                            f"16 bytes")
         if load.kind == "cp16":
-            if shape[-1] % 4 or arr.align % 16:
+            if shape[-1] % (16 // arr.elem) or arr.align % 16:
                 report("HL401", f"16-byte cp.async from {load.array}: "
-                                f"rows of {shape[-1]} floats or a base "
-                                f"aligned to {arr.align} bytes break the "
-                                f"copy's 16-byte alignment")
-            if load.dst % 4 or any(q % 4 for q in load.pitch):
-                report("HL401", f"16-byte cp.async {lname} lands at float "
-                                f"{load.dst}, pitch {load.pitch}: not on "
-                                f"16 bytes")
+                                f"rows of {shape[-1]} cells of "
+                                f"{arr.elem} bytes or a base aligned to "
+                                f"{arr.align} bytes break the copy's "
+                                f"16-byte alignment")
+            cb = load.cell_bytes
+            if (load.dst * cb) % 16 or any(q * cb % 16 for q in load.pitch):
+                report("HL401", f"16-byte cp.async {lname} lands at cell "
+                                f"{load.dst}, pitch {load.pitch} ({cb} "
+                                f"bytes a cell): not on 16 bytes")
         if load.kind == "tma":
             _audit_box(plan, lname, load, arr, report)
             extents = list(load.box)

@@ -940,7 +940,7 @@ G_KERNELS = {"G": "heat_g_block_padded", "G-circ": "heat_g_block_circular",
 
 
 def plan_g(kind, block_shape, k, origin=(0, 0), grid_shape=None,
-           defer=False) -> Plan:
+           defer=False, bf16=False) -> Plan:
     """A G kernel (``kind`` of :data:`G_KERNELS`) on a ``(bx, by)`` block
     at ``origin`` of a grid: monolithic, the deferred bulk (``defer``,
     rows ``[k, bx - k)``), or the band kernel on this block alone (rows
@@ -948,10 +948,15 @@ def plan_g(kind, block_shape, k, origin=(0, 0), grid_shape=None,
     Loads are in frame coordinates, the block's cells shifted by ``k``
     (the layout of the pieces, ``heat_g_src``, maps the frame onto them);
     a tile inside the block under G-uni copies its core columns 16 bytes
-    at a time from ``u``."""
+    at a time from ``u``. With ``bf16`` the bfloat16 form
+    (``<kernel>_bf16``, heat_g.cuh heat_g_tile_bf16): the frame by plain
+    loads, each cell widened as it lands; G-uni's core columns (and the
+    band's row load) 16 bytes at a time into a stage over the second
+    buffer, widened after their wait."""
     if kind == "band":
-        return plan_g_band(block_shape, k, [origin], grid_shape)
-    return _plan_g_block(kind, block_shape, k, origin, grid_shape, defer)
+        return plan_g_band(block_shape, k, [origin], grid_shape, bf16)
+    return _plan_g_block(kind, block_shape, k, origin, grid_shape, defer,
+                         bf16=bf16)
 
 
 def _guards(block_shape, k, origin, grid_shape):
@@ -962,7 +967,8 @@ def _guards(block_shape, k, origin, grid_shape):
             (max(0, k - origin[1]), min(by + 2 * k, gn - origin[1] + k)))
 
 
-def plan_g_band(block_shape, k, origins, grid_shape=None) -> Plan:
+def plan_g_band(block_shape, k, origins, grid_shape=None,
+                bf16=False) -> Plan:
     """The band kernel's launch over a round's blocks of ``block_shape``
     at ``origins`` (``heat_g_band_fix.cu``: one table entry a block, the
     grid (column tiles, 2 regions, blocks)): a ``blocks`` axis over the
@@ -971,7 +977,8 @@ def plan_g_band(block_shape, k, origins, grid_shape=None) -> Plan:
     its entries (along each axis the loosest: a window must lie in its
     array wherever the kernel copies); its :attr:`~Plan.parts` are each
     entry's share as a plan of that block, so that each joins its
-    block's deferred bulk in the coverage check."""
+    block's deferred bulk in the coverage check. ``bf16``: the bfloat16
+    launch (``heat_g_band_fix_bf16``), as :func:`plan_g`."""
     bx, by = block_shape
     grid_shape = grid_shape or block_shape
     n = len(origins)
@@ -979,8 +986,8 @@ def plan_g_band(block_shape, k, origins, grid_shape=None) -> Plan:
     loose = tuple((min(g[d][0] for g in guards), max(g[d][1] for g in guards))
                   for d in range(2))
     base = _plan_g_block("band", block_shape, k, origins[0], grid_shape,
-                         guards=loose)
-    parts = [_plan_g_block("band", block_shape, k, o, grid_shape)
+                         guards=loose, bf16=bf16)
+    parts = [_plan_g_block("band", block_shape, k, o, grid_shape, bf16=bf16)
              for o in origins]
 
     def entry(i):
@@ -989,7 +996,7 @@ def plan_g_band(block_shape, k, origins, grid_shape=None) -> Plan:
 
     return dataclasses.replace(
         base, label=f"band {bx}x{by} x{n} blocks at {tuple(origins[0])}.. "
-                    f"K={k}",
+                    f"K={k}" + (" bf16" if bf16 else ""),
         grid=n * base.grid,
         arrays={name: Array((n,) + a.shape) for name, a in
                 base.arrays.items()},
@@ -1003,7 +1010,7 @@ def plan_g_band(block_shape, k, origins, grid_shape=None) -> Plan:
 
 
 def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
-                  defer=False, guards=None) -> Plan:
+                  defer=False, guards=None, bf16=False) -> Plan:
     """:func:`plan_g` on one block; ``guards`` overrides the loads' row
     and column guards (:func:`_guards` of ``origin``)."""
     from parallel_heat_tpu_torch.ops.stencil_kernels_block import (
@@ -1028,7 +1035,9 @@ def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
     # columns inside the block, 16 bytes at a time, from the piece that
     # holds the row ("pieces": frame rows by the halos' row of by + 2k
     # floats, the core at column 0 of each piece's row).
-    rowload = band and p.g_band_row_load(block_shape, k)
+    elem = 2 if bf16 else 4
+    rowload = (band and p.g_band_row_load(block_shape, k, elem)
+               and tx % (16 // elem) == 0)
     n_col = _ceil(by, tx)
     rtiles = [(begin + i * ty, begin + rows)
               for begin, rows in regions for i in range(_ceil(rows, ty))]
@@ -1062,22 +1071,46 @@ def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
 
     def schedule(spans):
         inside = spans[0].kind[0] and spans[1].kind[0]
+        core = spans[1].write[1] - spans[1].write[0]
+        if bf16:
+            # Plain widening loads into src; the staged 16-byte copies
+            # into the stage, waited and widened into src.
+            staged = (2 * sy * tx if uni and inside
+                      else 2 * sy * (core - core % 8) if rowload else 0)
+            if not staged:
+                return [("read", "src")]
+            return _sched_cp_once([staged], slot="stage") + [("read", "src")]
         if uni and inside:
             return _sched_cp_once([4 * sy * tx, 4 * sy * 2 * k])
         if rowload:
-            core = spans[1].write[1] - spans[1].write[0]
             return _sched_cp_once([4 * sy * core, 4 * sy * (sw - core)])
         return _sched_cp_once([4 * sy * sw])
 
-    loads = {"frame": Load("cp4", "frame", "src", pad, (sx,))}
-    arrays = {"frame": Array((bx + 2 * k, by + 2 * k)),
-              "u": Array((bx, by)), "out": Array((bx, by))}
-    if uni:
-        loads["core"] = Load("cp16", "u", "src", pad + k, (sx,))
-    if rowload:
-        loads["rows"] = Load("cp16", "pieces", "src", pad + k, (sx,))
-        arrays["pieces"] = Array((bx + 2 * k, by + 2 * k))
     buf = sy * sx * 4
+    arrays = {"frame": Array((bx + 2 * k, by + 2 * k), elem=elem),
+              "u": Array((bx, by), elem=elem),
+              "out": Array((bx, by), elem=elem)}
+    slots = {"src": (0, buf), "dst": (buf, buf)}
+    if bf16:
+        loads = {"frame": Load("ld", "frame", "src", pad, (sx,))}
+        if uni or rowload:
+            # heat_g_tile_bf16 / heat_g_band_rows_bf16: rows of tx cells
+            # from the second buffer's start.
+            slots["stage"] = (buf, 2 * sy * tx)
+        if uni:
+            loads["core"] = Load("cp16", "u", "stage", 0, (tx,),
+                                 cell_bytes=2)
+        if rowload:
+            loads["rows"] = Load("cp16", "pieces", "stage", 0, (tx,),
+                                 cell_bytes=2)
+    else:
+        loads = {"frame": Load("cp4", "frame", "src", pad, (sx,))}
+        if uni:
+            loads["core"] = Load("cp16", "u", "src", pad + k, (sx,))
+        if rowload:
+            loads["rows"] = Load("cp16", "pieces", "src", pad + k, (sx,))
+    if rowload:
+        arrays["pieces"] = Array((bx + 2 * k, by + 2 * k), elem=elem)
     if band:
         cover = [((0, k), (0, by)), ((bx - k, bx), (0, by))]
         leave = [((k, bx - k), (0, by))]
@@ -1086,22 +1119,23 @@ def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
                                                    ((bx - k, bx), (0, by))]
     else:
         cover, leave = _full(block_shape), []
-    name = G_KERNELS[kind]
+    name = G_KERNELS[kind] + ("_bf16" if bf16 else "")
     what = "band" if band else (kind + (" deferred bulk" if defer else ""))
     return Plan(
         kernel=name + "_kernel", entry=name,
-        label=f"{what} {bx}x{by} at {tuple(origin)} K={k}",
+        label=f"{what} {bx}x{by} at {tuple(origin)} K={k}"
+              + (" bf16" if bf16 else ""),
         grid=len(rtiles) * n_col, threads=block[0] * block[1],
         max_threads=512, dyn_smem=p.g_smem_bytes(k, (ty, tx)),
         static_smem=p.static_smem_bytes,
         arrays=arrays, output="out",
         axes=[Axis("rows", len(rtiles), rows_span),
               Axis("cols", n_col, cols_span)],
-        loads=loads, slots={"src": (0, buf), "dst": (buf, buf)},
+        loads=loads, slots=slots,
         min_blocks_per_sm=p.e_min_blocks_per_sm, cover=cover, leave=leave,
         schedule=schedule,
         group=(f"G {bx}x{by} at {tuple(origin)} K={k}"
-               if band or defer else None))
+               + (" bf16" if bf16 else "") if band or defer else None))
 
 
 # ---------------------------------------------------------------------------
@@ -1787,6 +1821,30 @@ def default_plans() -> List[Plan]:
             out.append(plan_g("G-fuse", bshape, k, (0, 0), grid, defer=True))
             out.append(plan_g_band(bshape, k,
                                    mesh_block_origins(grid, (2, 4)), grid))
+    # The bfloat16 forms: the default round on the main path's mesh, every
+    # pinned kind there, every K on ragged blocks (widths of 8k, 4k but
+    # not 8k, and neither).
+    for o in origins:
+        out.append(plan_g("G-uni", block, p.g_k_default, o, G_GRID,
+                          defer=True, bf16=True))
+    out.append(plan_g_band(block, p.g_k_default,
+                           mesh_block_origins(G_GRID, G_MESH), G_GRID,
+                           bf16=True))
+    for kind in ("G", "G-circ", "G-fuse", "G-uni"):
+        out.append(plan_g(kind, block, p.g_k_default, origins[0], G_GRID,
+                          bf16=True))
+    for bshape in ((500, 256), (500, 252), (500, 250)):
+        grid = (bshape[0] * 2, bshape[1] * 4)
+        for k in range(1, p.g_k_max() + 1):
+            for kind in ("G-fuse", "G", "G-circ") + (
+                    ("G-uni",) if bshape[1] % 8 == 0 else ()):
+                out.append(plan_g(kind, bshape, k, (bshape[0], 0), grid,
+                                  bf16=True))
+            out.append(plan_g("G-fuse", bshape, k, (0, 0), grid, defer=True,
+                              bf16=True))
+            out.append(plan_g_band(bshape, k,
+                                   mesh_block_origins(grid, (2, 4)), grid,
+                                   bf16=True))
     # Sharded 3D: H-fused on the main path's mesh (its load as h_load
     # picks it), H-defer's bulk and band, H pinned.
     block3, origins3 = _mesh_origins(H_GRID, H_MESH)

@@ -13,10 +13,10 @@ device (``auto`` is the one-device mesh). ``--initial-out`` writes the
 initial grid as ``--out`` writes the final one, ``--quiet`` prints no
 progress lines, and ``--dtype`` and ``--accumulate`` take the JAX CLI's
 names (bfloat16 and float64 on one block, 2D or 3D: the explicit scheme,
-the implicit schemes in 2D and ``--ensemble``; on a mesh refused by
-``HeatConfig.validate``). ``--out`` and ``--ensemble`` write a ``.npy``
-as the JAX CLI does, a bfloat16 grid or stack by its raw cells
-(``utils/io.py`` ``save_npy``).
+the implicit schemes in 2D and ``--ensemble``; on a 2D mesh both, on a
+3D mesh float64, bfloat16 there refused by ``HeatConfig.validate``).
+``--out`` and ``--ensemble`` write a ``.npy`` as the JAX CLI does, a
+bfloat16 grid or stack by its raw cells (``utils/io.py`` ``save_npy``).
 
 The observers are the JAX CLI's too: ``--guard-interval`` and
 ``--diag-interval`` set the runtime guard and the grid diagnostics,
@@ -59,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="storage dtype (arithmetic is float32 at every "
                          "dtype); bfloat16 and float64 run on one block, "
                          "2D or 3D (explicit, implicit in 2D, "
-                         "--ensemble), an explicit float64 run on the "
+                         "--ensemble), and on a --mesh (bfloat16 on 2D "
+                         "meshes only); an explicit float64 run on the "
                          "torch route")
     ap.add_argument("--accumulate", default="storage",
                     choices=("storage", "f32chunk"),

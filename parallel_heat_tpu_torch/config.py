@@ -17,13 +17,14 @@ implements, so one spec runs on either package. What differs:
   through chunks of :data:`~.ops.stencil.F32CHUNK_DEPTH` steps. bfloat16
   and float64 run on one block, 2D or 3D: the explicit scheme, ensembles,
   and the implicit schemes in 2D (which widen the state to float32 once a
-  step and round the interior to storage once). The explicit scheme runs
+  step and round the interior to storage once); on meshes the explicit
+  scheme, float64 in 2D and 3D, bfloat16 in 2D. The explicit scheme runs
   float64 on the torch route only (the stencil kernels store float32 and
   bfloat16): ``backend="cuda"`` with float64 is refused there, and
   ``"auto"`` takes the torch route for float64 on the card too; the
   implicit schemes take ``backend="cuda"`` at float64, their transfer
-  kernels seeing float32 levels only. On a mesh bfloat16 and float64 are
-  refused, naming the ROADMAP.md item;
+  kernels seeing float32 levels only. On a 3D mesh bfloat16 is refused,
+  naming the ROADMAP.md item;
 - ``nz`` set makes the run 3D (7-point stencil, coefficients
   ``cx, cy, cz``), as in the JAX package;
 - ``scheme`` and the ``mg_*`` knobs select the implicit integrators
@@ -440,8 +441,9 @@ class HeatConfig:
 
     def _validate_precision(self) -> None:
         """The JAX package's f32chunk rules (same messages), then this
-        package's: bfloat16 and float64 run on one block only (2D or 3D),
-        and an explicit float64 run on the torch route only."""
+        package's: bfloat16 runs on one block (2D or 3D) and on 2D meshes,
+        not yet on 3D meshes (the H family's bfloat16 forms); float64 runs
+        everywhere, an explicit float64 run on the torch route only."""
         if self.accumulate == "f32chunk":
             if self.dtype != "bfloat16":
                 raise ValueError(
@@ -461,13 +463,13 @@ class HeatConfig:
                     "the mesh")
         if self.dtype == "float32":
             return
-        if self.is_sharded():
-            item = ("queue 2 item 24 (the bfloat16 forms of G, H and the "
-                    "bands)" if self.dtype == "bfloat16"
-                    else "queue 1 item 3 (float64 on a mesh)")
+        if (self.dtype == "bfloat16" and self.is_sharded()
+                and self.ndim == 3):
             raise ValueError(
-                f"dtype={self.dtype!r} runs on one block only in this "
-                f"package for now, not on a mesh: ROADMAP.md {item}")
+                "dtype='bfloat16' runs on one block and on 2D meshes in "
+                "this package for now, not on a 3D mesh: ROADMAP.md queue 2 "
+                "item 24.4 (the bfloat16 forms of H, H-fused and the 3D "
+                "band)")
         if (self.dtype == "float64" and self.backend == "cuda"
                 and self.scheme == "explicit"):
             raise ValueError(

@@ -5,7 +5,8 @@
 //
 // Replaces: parallel_heat_tpu/ops/pallas_stencil.py::
 // _build_temporal_block_fused (pallas_call name "heat_g_block_fused",
-// defined at :1560, call :1784), with and without defer_ns.
+// defined at :1560, call :1784), with and without defer_ns, in its
+// float32 and bfloat16 storage forms (heat_g_block_fused_bf16).
 //
 // Bound on the H100, and the design: heat_g.cuh. This form reads u, the
 // tail [hi | lo] and the halo rows straight into shared memory, one
@@ -53,6 +54,41 @@ extern "C" int heat_g_block_fused_occupancy(int k, int tile_y,
                                             int block_y, int* blocks) {
   return heat_loop_occupancy(heat_g_block_fused_kernel, k, tile_y, tile_x,
                              block_x, block_y, 0, blocks);
+}
+
+// The bfloat16 form (the builder's dtype_name="bfloat16"): the pieces and
+// `out` bfloat16, every level rounded, the residual float32 (heat_g.cuh
+// heat_g_tile_bf16).
+__global__ void __launch_bounds__(kHeatMaxThreads)
+    heat_g_block_fused_bf16_kernel(HEAT_G_PARAMS_OF(__nv_bfloat16)) {
+  heat_g_tile_bf16<kHeatGFused, false>(HEAT_G_ARGS);
+}
+
+// heat_g_block_fused on bfloat16 pieces. Returns a cudaError_t.
+extern "C" int heat_g_block_fused_bf16(
+    const void* u, const void* tail, const void* halo_n, const void* halo_s,
+    void* out, uint32_t* res, int64_t m, int64_t n, int64_t bx, int64_t by,
+    int64_t row_off, int64_t col_off, int k, int tile_y, int tile_x,
+    int block_x, int block_y, float a0, float cx, float cy, void* stream) {
+  if ((halo_n == nullptr) != (halo_s == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using T = __nv_bfloat16;
+  const bool defer = halo_n == nullptr;
+  return heat_g_launch(
+      heat_g_block_fused_bf16_kernel, false, static_cast<const T*>(u),
+      static_cast<const T*>(tail), static_cast<const T*>(halo_n),
+      static_cast<const T*>(halo_s), static_cast<T*>(out), res, m, n, bx, by,
+      row_off, col_off, k, defer ? k : 0, 0, defer ? bx - 2 * k : bx, 1,
+      tile_y, tile_x, block_x, block_y, a0, cx, cy, stream);
+}
+
+// Thread blocks of the bfloat16 form that one SM holds at once, as
+// heat_g_block_fused_occupancy.
+extern "C" int heat_g_block_fused_bf16_occupancy(int k, int tile_y,
+                                                 int tile_x, int block_x,
+                                                 int block_y, int* blocks) {
+  return heat_loop_occupancy(heat_g_block_fused_bf16_kernel, k, tile_y,
+                             tile_x, block_x, block_y, 0, blocks);
 }
 
 extern "C" const char* heat_g_block_fused_error_string(int code) {

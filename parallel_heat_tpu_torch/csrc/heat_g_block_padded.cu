@@ -3,7 +3,8 @@
 // of the last step.
 //
 // Replaces: parallel_heat_tpu/ops/pallas_stencil.py::_build_temporal_block
-// (pallas_call name "heat_g_block_padded", defined at :1135, call :1299).
+// (pallas_call name "heat_g_block_padded", defined at :1135, call :1299),
+// in its float32 and bfloat16 storage forms (heat_g_block_padded_bf16).
 //
 // Bound on the H100, and the design: heat_g.cuh. The caller writes the
 // (bx+2K) x (by+2K) block [lo | u | hi] between the halo rows to HBM
@@ -32,6 +33,27 @@ extern "C" int heat_g_block_padded(
       heat_g_block_padded_kernel, false, ext, nullptr, nullptr, nullptr, out,
       res, m, n, bx, by, row_off, col_off, k, 0, 0, bx, 1, tile_y, tile_x,
       block_x, block_y, a0, cx, cy, stream);
+}
+
+// The bfloat16 form (the builder's dtype_name="bfloat16"): bfloat16 in
+// and out, every level rounded (heat_g.cuh heat_g_tile_bf16).
+__global__ void __launch_bounds__(kHeatMaxThreads)
+    heat_g_block_padded_bf16_kernel(HEAT_G_PARAMS_OF(__nv_bfloat16)) {
+  heat_g_tile_bf16<kHeatGPadded, false>(HEAT_G_ARGS);
+}
+
+// heat_g_block_padded on bfloat16 buffers: `ext` and `out` bfloat16, the
+// residual float32. Returns a cudaError_t.
+extern "C" int heat_g_block_padded_bf16(
+    const void* ext, void* out, uint32_t* res, int64_t m, int64_t n,
+    int64_t bx, int64_t by, int64_t row_off, int64_t col_off, int k,
+    int tile_y, int tile_x, int block_x, int block_y, float a0, float cx,
+    float cy, void* stream) {
+  return heat_g_launch(
+      heat_g_block_padded_bf16_kernel, false,
+      static_cast<const __nv_bfloat16*>(ext), nullptr, nullptr, nullptr,
+      static_cast<__nv_bfloat16*>(out), res, m, n, bx, by, row_off, col_off,
+      k, 0, 0, bx, 1, tile_y, tile_x, block_x, block_y, a0, cx, cy, stream);
 }
 
 extern "C" const char* heat_g_block_padded_error_string(int code) {

@@ -139,10 +139,10 @@ KERNELS = {
 }
 # Entry points that live in another kernel's library: name -> (that
 # kernel, argtypes). The storage-precision forms of kernels A, B, C, D,
-# E, E-uni and M (bfloat16 storage, and E's and E-uni's float32 carry of
-# accumulate="f32chunk") are compiled into their float32 kernels' sources,
-# so one nvcc builds both; F's, I's and I-uni's have sources of their own
-# (KERNELS).
+# E, E-uni, M and of the sharded 2D family G (bfloat16 storage, and E's
+# and E-uni's float32 carry of accumulate="f32chunk") are compiled into
+# their float32 kernels' sources, so one nvcc builds both; F's, I's and
+# I-uni's have sources of their own (KERNELS).
 ENTRIES = {
     "heat_a_resident_bf16": ("heat_a_resident",
                              KERNELS["heat_a_resident"][1]),
@@ -151,6 +151,12 @@ ENTRIES = {
     "heat_m_ensemble_bf16": ("heat_m_ensemble",
                              KERNELS["heat_m_ensemble"][1]),
     "heat_d_step3d_bf16": ("heat_d_step3d", KERNELS["heat_d_step3d"][1]),
+    # The sharded 2D block kernels' bfloat16 forms: their float32
+    # siblings' arguments.
+    **{name + "_bf16": (name, KERNELS[name][1])
+       for name in ("heat_g_block_padded", "heat_g_block_circular",
+                    "heat_g_block_fused", "heat_g_block_uniform",
+                    "heat_g_band_fix")},
     # u, out, res, (m, n), k, tile, thread block, form, coefficients, stream
     "heat_e_temporal_bf16": ("heat_e_temporal",
                              [_P, _P, _P, _I64, _I64] + [_I32] * 6

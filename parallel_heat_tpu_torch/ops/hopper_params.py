@@ -1061,15 +1061,17 @@ class HopperParams:
         return k
 
     @staticmethod
-    def g_band_row_load(block_shape, k: int) -> bool:
+    def g_band_row_load(block_shape, k: int, elem: int = 4) -> bool:
         """Does the band kernel copy its windows' core columns 16 bytes at
         a time from the piece that holds each row (the row load of
         ``csrc/heat_g_band_fix.cu``)? Where the block's width and its halo
-        rows, ``by + 2k`` floats, are multiples of 4 (so K even); the
+        rows, ``by + 2k`` cells, are multiples of the cells of 16 bytes at
+        ``elem`` bytes a cell: 4 float32 (so K even), 8 bfloat16 (K a
+        multiple of 4, and the band's tile width a multiple of 8); the
         launcher also needs 16-byte aligned pieces
         (``heat_g_band_row_load``). Elsewhere the per-cell load."""
-        by = block_shape[1]
-        return by % 4 == 0 and (by + 2 * k) % 4 == 0
+        by, vec = block_shape[1], 16 // elem
+        return by % vec == 0 and (by + 2 * k) % vec == 0
 
     def uni_fits(self, shape, dtype="float32") -> bool:
         """Do the uniform-load kernels (E-uni, I-uni) take an ``(m, n)``

@@ -92,7 +92,10 @@ counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "heat_mg_restrict": 0, "heat_mg_prolong": 0,
           "heat_g_block_padded": 0, "heat_g_block_circular": 0,
           "heat_g_block_fused": 0, "heat_g_block_uniform": 0,
-          "heat_g_band_fix": 0, "heat_h_block_3d": 0,
+          "heat_g_band_fix": 0, "heat_g_block_padded_bf16": 0,
+          "heat_g_block_circular_bf16": 0, "heat_g_block_fused_bf16": 0,
+          "heat_g_block_uniform_bf16": 0, "heat_g_band_fix_bf16": 0,
+          "heat_h_block_3d": 0,
           "heat_h_block_3d_fused": 0, "heat_h_band_fix_3d": 0,
           "resident_steps_plain": 0,
           "strip_step_plain": 0,

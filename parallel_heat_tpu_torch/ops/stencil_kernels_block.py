@@ -36,7 +36,16 @@ returns the residual of the last step over the rows it writes:
   ``k`` masked steps of :func:`~.stencil.combine_2d`, cells outside the
   global interior copied, exactly the kernels' rounding, so a kernel and
   its plain version agree bitwise on the card, and a block's K steps are
-  bitwise kernel E's on the same cells of the global grid.
+  bitwise kernel E's on the same cells of the global grid;
+- every kernel has a bfloat16 form (``<name>_bf16``, the TPU builders'
+  ``dtype_name="bfloat16"``), taken when the operands are bfloat16: the
+  cells widened to float32 exactly as they load, float32 arithmetic,
+  every level rounded to bfloat16 before the next step reads it, the
+  last store rounded, the copied cells (the Dirichlet ring) narrowed
+  exactly, the residual float32 against the float32 level the last step
+  read. The plain versions step a bfloat16 frame the same way, so the
+  bits still agree, and a block's K steps are bitwise K launches of
+  kernel B's bfloat16 form on the same cells of the global grid.
 
 ``origin`` is the global ``(row, col)`` of the block's cell (0, 0) for
 every form (the JAX padded builder takes the padded origin instead).
@@ -58,7 +67,8 @@ import torch
 
 from parallel_heat_tpu_torch import tune
 from parallel_heat_tpu_torch.ops.hopper_params import params
-from parallel_heat_tpu_torch.ops.stencil import coeffs_f32, combine_2d
+from parallel_heat_tpu_torch.ops.stencil import (coeffs_f32, combine_2d,
+                                                 narrow_bits, widen_bits)
 from parallel_heat_tpu_torch.ops.stencil_kernels import (_ptr,
                                                          _raise_on_error,
                                                          _residual_view,
@@ -70,6 +80,18 @@ G_KINDS = ("G-uni", "G-fuse", "G-circ", "G", "torch")
 KERNEL_OF = {"G-uni": "heat_g_block_uniform", "G-fuse": "heat_g_block_fused",
              "G-circ": "heat_g_block_circular", "G": "heat_g_block_padded"}
 BAND = "heat_g_band_fix"
+# The bfloat16 forms' entry points (kernels/build.py ENTRIES: each in its
+# float32 kernel's library).
+KERNEL_OF_BF16 = {kind: name + "_bf16" for kind, name in KERNEL_OF.items()}
+BAND_BF16 = BAND + "_bf16"
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+def entry(name: str, dtype) -> str:
+    """The entry point of kernel ``name`` (a float32 name of
+    :data:`KERNEL_OF` or :data:`BAND`) for blocks of storage ``dtype``
+    (a torch dtype or its name): its bfloat16 form's for bfloat16."""
+    return name + "_bf16" if dtype in (_BF16, "bfloat16") else name
 
 
 # ---------------------------------------------------------------------------
@@ -112,22 +134,34 @@ def _in_grid(ext, origin, grid_shape, k):
     return torch.where(inside, ext, torch.zeros((), device=dev))
 
 
-def _frontier(win, k, start, grid_shape, combine, coeffs, with_residual):
+def _interior(shape, start, grid_shape, device):
+    """Boolean mask of a region of ``shape`` whose cell (0, ...) is at
+    global index ``start``: True on the global interior. Any rank."""
+    mask = None
+    for axis, (s, n) in enumerate(zip(start, grid_shape)):
+        idx = s + torch.arange(shape[axis], device=device)
+        m = ((idx >= 1) & (idx <= n - 2)).view(
+            [-1 if a == axis else 1 for a in range(len(shape))])
+        mask = m if mask is None else mask & m
+    return mask
+
+
+def _frontier(win, k, start, grid_shape, combine, coeffs, with_residual,
+              round_levels=False):
     """``k`` steps of the window ``win`` in place, its outer shell never
     updated and cells outside the global interior copied (``start`` is
     the global index of its cell (0, ...)); ``combine(c, lo0, hi0, lo1,
     hi1, ..., *coeffs)`` is the update, its neighbours axis by axis. The
     last step's ``|new - old|`` over the window's inner region, 0 where
-    copied, or None without ``with_residual``."""
+    copied, or None without ``with_residual``. With ``round_levels`` (a
+    float32 window of widened bfloat16 cells) every level but the last
+    rounds its updated cells to bfloat16 before the next step reads
+    them, as the kernels' storage mode does."""
     dev = win.device
     nd = win.dim()
     inner = (slice(1, -1),) * nd
-    mask = None
-    for axis, (s, n) in enumerate(zip(start, grid_shape)):
-        idx = s + 1 + torch.arange(win.shape[axis] - 2, device=dev)
-        m = ((idx >= 1) & (idx <= n - 2)).view(
-            [-1 if a == axis else 1 for a in range(nd)])
-        mask = m if mask is None else mask & m
+    mask = _interior([b - 2 for b in win.shape], [s + 1 for s in start],
+                     grid_shape, dev)
 
     def shifted(axis, lo):
         sl = list(inner)
@@ -138,7 +172,10 @@ def _frontier(win, k, start, grid_shape, combine, coeffs, with_residual):
     for s in range(k):
         c = win[inner]
         pairs = [shifted(a, lo) for a in range(nd) for lo in (True, False)]
-        new = torch.where(mask, combine(c, *pairs, *coeffs), c)
+        new = combine(c, *pairs, *coeffs)
+        if round_levels and s < k - 1:
+            new = widen_bits(new.to(_BF16))
+        new = torch.where(mask, new, c)
         if with_residual and s == k - 1:
             diff = torch.where(mask, (new - c).abs(),
                                torch.zeros((), device=dev))
@@ -146,13 +183,28 @@ def _frontier(win, k, start, grid_shape, combine, coeffs, with_residual):
     return diff
 
 
+def _stored(values, start, grid_shape, dtype):
+    """The last level's float32 ``values`` (a region whose cell (0, ...)
+    is at global ``start``) stored at ``dtype``: float32 as they are; at
+    bfloat16 the global interior's cells rounded and the copied ones
+    narrowed exactly (NaN payloads kept), as the kernels' last store."""
+    if dtype != _BF16:
+        return values
+    return torch.where(_interior(values.shape, start, grid_shape,
+                                 values.device),
+                       values.to(_BF16), narrow_bits(values.contiguous()))
+
+
 def _steps_plain(ext, out, k, with_residual, origin, grid_shape, windows,
                  combine, coeffs):
     """Run ``k`` steps on each window ``(w0, w1)`` of the padded frame's
     leading axis (a copy) and write its slabs ``[w0 + k, w1 - k)``, block
     slabs ``[w0, w1 - 2k)``, into ``out``; the max residual over the
-    written cells, or None. Any rank."""
-    ext = _in_grid(ext, origin, grid_shape, k)
+    written cells, or None. Any rank. A bfloat16 frame is widened exactly
+    and stepped in float32, each level rounded to bfloat16 (storage
+    mode), the slabs stored by :func:`_stored`."""
+    bf16 = ext.dtype == _BF16
+    ext = _in_grid(widen_bits(ext) if bf16 else ext, origin, grid_shape, k)
     core = tuple(slice(k, k + b) for b in out.shape[1:])
     inner = tuple(slice(k - 1, k - 1 + b) for b in out.shape[1:])
     res = []
@@ -160,8 +212,10 @@ def _steps_plain(ext, out, k, with_residual, origin, grid_shape, windows,
         win = ext[w0:w1].clone()
         diff = _frontier(win, k, (origin[0] - k + w0,)
                          + tuple(o - k for o in origin[1:]), grid_shape,
-                         combine, coeffs, with_residual)
-        out[w0:w1 - 2 * k] = win[(slice(k, w1 - w0 - k),) + core]
+                         combine, coeffs, with_residual, bf16)
+        out[w0:w1 - 2 * k] = _stored(
+            win[(slice(k, w1 - w0 - k),) + core],
+            (origin[0] + w0,) + tuple(origin[1:]), grid_shape, out.dtype)
         if with_residual:
             res.append(diff[(slice(k - 1, w1 - w0 - k - 1),) + inner].max())
     return torch.stack(res).amax() if with_residual else None
@@ -199,7 +253,8 @@ def _pieces_plain(u, tail, halo_n, halo_s, out, k, with_residual, origin,
                   grid_shape, cx, cy):
     defer = halo_n is None
     if defer and u.shape[0] == 2 * k:
-        return u.new_zeros(()) if with_residual else None
+        return (torch.zeros((), dtype=_F32, device=u.device)
+                if with_residual else None)
     return _steps_plain_2d(_frame_of_pieces(u, tail, halo_n, halo_s, k), out,
                            k, with_residual, origin, grid_shape, cx, cy,
                            _block_rows(u.shape[0], k, defer))
@@ -260,8 +315,11 @@ def band_fix_blocks_plain(us, tails, halos_n, halos_s, outs, k,
     counts["band_fix_plain"] += 1
     bx, by = outs[0].shape
     m, n = grid_shape
+    bf16 = outs[0].dtype == _BF16
     win = torch.cat([_band_windows(*x, k) for x in zip(us, tails, halos_n,
                                                          halos_s)])
+    if bf16:
+        win = widen_bits(win)
     rows0 = [o[0] - k + w0 for o in origins for w0 in (0, bx - k)]
     cols0 = [o[1] - k for o in origins for _ in range(2)]
     dev = win.device
@@ -279,16 +337,22 @@ def band_fix_blocks_plain(us, tails, halos_n, halos_s, outs, k,
     diff = None
     for step in range(k):
         cur = win[:, 1:-1, 1:-1]
-        new = torch.where(interior, combine_2d(
-            cur, win[:, :-2, 1:-1], win[:, 2:, 1:-1], win[:, 1:-1, :-2],
-            win[:, 1:-1, 2:], *coeffs), cur)
+        new = combine_2d(cur, win[:, :-2, 1:-1], win[:, 2:, 1:-1],
+                         win[:, 1:-1, :-2], win[:, 1:-1, 2:], *coeffs)
+        if bf16 and step < k - 1:
+            new = widen_bits(new.to(_BF16))
+        new = torch.where(interior, new, cur)
         if with_residual and step == k - 1:
             diff = torch.where(interior, (new - cur).abs(),
                                torch.zeros((), device=dev))
         win[:, 1:-1, 1:-1] = new
+    band = win[:, k:2 * k, k:k + by]
+    if bf16:
+        band = torch.where(interior[:, k - 1:2 * k - 1, k - 1:k - 1 + by],
+                           band.to(_BF16), narrow_bits(band.contiguous()))
     for i, out in enumerate(outs):
-        out[:k] = win[2 * i, k:2 * k, k:k + by]
-        out[bx - k:] = win[2 * i + 1, k:2 * k, k:k + by]
+        out[:k] = band[2 * i]
+        out[bx - k:] = band[2 * i + 1]
     if not with_residual:
         return None
     return diff[:, k - 1:2 * k - 1, k - 1:k - 1 + by].amax()
@@ -300,7 +364,8 @@ def band_fix_blocks_plain(us, tails, halos_n, halos_s, outs, k,
 
 def _check_block(out, k, origin, grid_shape, tensors):
     """Shape, type, device and layout checks common to the five kernels;
-    ``tensors`` maps a name to ``(tensor or None, expected shape)``."""
+    ``tensors`` maps a name to ``(tensor or None, expected shape)``. Every
+    operand float32, or every one bfloat16 (the bfloat16 forms)."""
     if out.dim() != 2:
         raise ValueError(f"out must be a 2D block, got {tuple(out.shape)}")
     bx, by = out.shape
@@ -312,11 +377,15 @@ def _check_block(out, k, origin, grid_shape, tensors):
             or origin[1] + by > n):
         raise ValueError(f"block {tuple(out.shape)} at {tuple(origin)} does "
                          f"not lie in the grid {tuple(grid_shape)}")
+    if out.dtype not in (_F32, _BF16):
+        raise TypeError(f"float32 or bfloat16 blocks only, got out "
+                        f"{out.dtype} (float64 runs the torch rounds)")
     for name, (t, shape) in {"out": (out, (bx, by)), **tensors}.items():
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"float32 only, got {name} {t.dtype}")
+        if t.dtype != out.dtype:
+            raise TypeError(f"every operand of one launch at one dtype: "
+                            f"{name} {t.dtype}, out {out.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
         if t.device != out.device:
@@ -359,10 +428,11 @@ def _check_loop_shape(name, tile, block):
 
 def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
             cy, geometry):
-    """Launch kernel ``name`` on ``args`` (its leading pointers) into
-    ``out``; ``geometry`` the launch's int arguments after k (tile and
-    thread block; the band kernel's tile is k rows of its tile_x, launched
-    as a one-entry table). Checks only the launch shape
+    """Launch kernel ``name`` (its bfloat16 form for bfloat16 blocks) on
+    ``args`` (its leading pointers) into ``out``; ``geometry`` the
+    launch's int arguments after k (tile and thread block; the band
+    kernel's tile is k rows of its tile_x, launched as a one-entry table).
+    Checks only the launch shape
     (:meth:`~.hopper_params.HopperParams.loop_takes`, the launcher's own
     rule); counts the launch. Returns the residual view or None."""
     from parallel_heat_tpu_torch.kernels.build import load
@@ -373,15 +443,16 @@ def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
         return BandLaunch([args[0]], [args[1]], [args[2]], [args[3]], [out],
                           k, origins=[origin], grid_shape=grid_shape, cx=cx,
                           cy=cy, geometry=geometry)(with_residual)
-    lib = load(name)
+    form = entry(name, out.dtype)
+    lib = load(form)
     bits = (torch.empty(1, dtype=torch.int32, device=out.device)
             if with_residual else None)
-    code = getattr(lib, name)(
+    code = getattr(lib, form)(
         *[_ptr(t) for t in args], out.data_ptr(), _ptr(bits),
         grid_shape[0], grid_shape[1], out.shape[0], out.shape[1], origin[0],
         origin[1], k, *geometry, *coeffs_f32(cx, cy), _stream(out))
     _raise_on_error(lib, name, code)
-    counts[name] += 1
+    counts[form] += 1
     return _residual_view(bits) if bits is not None else None
 
 
@@ -431,9 +502,11 @@ def _from_pieces(name, plain, u, tail, halo_n, halo_s, out, k, with_residual,
     if halo_n is None and bx < 2 * k:
         raise ValueError(f"the deferred bulk needs at least 2k = {2 * k} "
                          f"rows, got a block of {bx}")
-    if name == "heat_g_block_uniform" and not params().uni_fits((bx, by)):
+    if name == "heat_g_block_uniform" and not params().uni_fits(
+            (bx, by), out.dtype):
         raise ValueError(f"kernel G-uni needs a block width that is a "
-                         f"multiple of 4, got {(bx, by)}")
+                         f"multiple of 4 (8 at bfloat16), got {(bx, by)} "
+                         f"at {out.dtype}")
     if out.device.type == "cpu":
         return plain(u, tail, halo_n, halo_s, out, k, with_residual,
                      origin=origin, grid_shape=grid_shape, cx=cx, cy=cy)
@@ -441,7 +514,7 @@ def _from_pieces(name, plain, u, tail, halo_n, halo_s, out, k, with_residual,
         raise ValueError("kernel G-uni needs a 16-byte aligned block")
     if halo_n is None and bx == 2 * k:
         # The bands are the whole block: the bulk has no row to write.
-        return (torch.zeros((), dtype=torch.float32, device=out.device)
+        return (torch.zeros((), dtype=_F32, device=out.device)
                 if with_residual else None)
     return _launch(name, (u, tail, halo_n, halo_s), out, k, with_residual,
                    origin=origin, grid_shape=grid_shape, cx=cx, cy=cy,
@@ -471,7 +544,7 @@ def block_uniform(u: torch.Tensor, tail: torch.Tensor,
                   cx: float, cy: float) -> Optional[torch.Tensor]:
     """Kernel G-uni: :func:`block_fused` with a uniform, vectorised load;
     bitwise the same outputs. Takes blocks whose width is a multiple of 4
-    (ValueError otherwise)."""
+    float32 or 8 bfloat16 cells (ValueError otherwise)."""
     return _from_pieces("heat_g_block_uniform", block_uniform_plain, u, tail,
                         halo_n, halo_s, out, k, with_residual, origin,
                         grid_shape, cx, cy)
@@ -534,7 +607,9 @@ class BandLaunch:
     blocks and the pieces are 16-byte aligned, else ``"cells"``; ``load``
     pins one of :data:`BAND_LOADS` (``"rows"`` where it does not fit
     raises ValueError; ``"none"`` issues no load, a measurement of the
-    steps alone whose output is not the band, on the card only)."""
+    steps alone whose output is not the band, on the card only, float32
+    only). Bfloat16 blocks launch :data:`BAND_BF16` on the same table
+    (:attr:`name`)."""
 
     def __init__(self, us, tails, halos_n, halos_s, outs, k: int, *,
                  origins, grid_shape, cx: float, cy: float, geometry=None,
@@ -555,6 +630,9 @@ class BandLaunch:
                          _pieces(out, u, tail, hn, hs, k))
             if hn is None:
                 raise ValueError("the band kernel needs both halo rows")
+            if out.dtype != outs[0].dtype:
+                raise TypeError(f"blocks of one dtype only: {out.dtype} and "
+                                f"{outs[0].dtype}")
         if outs[0].shape[0] < 2 * k:
             raise ValueError(f"the band kernel needs at least 2k = {2 * k} "
                              f"rows, got blocks of {outs[0].shape[0]}")
@@ -562,6 +640,7 @@ class BandLaunch:
         self.geometry = tuple(geometry or (p.g_band_tile_x,)
                               + tuple(p.g_band_block))
         _check_loop_shape(BAND, (k, self.geometry[0]), self.geometry[1:])
+        self.name = entry(BAND, outs[0].dtype)
         self.k, self.grid_shape = k, tuple(grid_shape)
         self.cx, self.cy = cx, cy
         self.blocks = n
@@ -569,18 +648,23 @@ class BandLaunch:
         self.shape = tuple(outs[0].shape)
         # The load the launcher takes (csrc/heat_g_band_fix.cu
         # heat_g_band_row_load): "rows" or "cells".
-        rows = p.g_band_row_load(self.shape, k) and not any(
-            t.data_ptr() % 16 for t in (*us, *halos_n, *halos_s))
+        elem = outs[0].element_size()
+        rows = (p.g_band_row_load(self.shape, k, elem)
+                and self.geometry[0] % (16 // elem) == 0
+                and not any(t.data_ptr() % 16
+                            for t in (*us, *halos_n, *halos_s)))
         if load not in (None,) + BAND_LOADS:
             raise ValueError(f"load must be one of {BAND_LOADS}, got "
                              f"{load!r}")
         if load == "rows" and not rows:
             raise ValueError(f"the band's row load needs blocks whose width "
-                             f"and halo rows (by + 2k) are multiples of 4 "
+                             f"and halo rows (by + 2k) are multiples of "
+                             f"{16 // elem} cells (the tile's width too) "
                              f"and 16-byte aligned pieces: blocks "
-                             f"{self.shape} at K={k}")
-        if load == "none" and self.device.type == "cpu":
-            raise ValueError("load='none' is a measurement on the card")
+                             f"{self.shape} of {outs[0].dtype} at K={k}")
+        if load == "none" and (self.device.type == "cpu" or elem == 2):
+            raise ValueError("load='none' is a measurement on the card, "
+                             "of the float32 band")
         self.load = load or ("rows" if rows else "cells")
         if self.device.type == "cpu":
             self._operands = tuple(list(x) for x in (
@@ -604,15 +688,15 @@ class BandLaunch:
                 cy=self.cy)
         from parallel_heat_tpu_torch.kernels.build import load
 
-        lib = load(BAND)
+        lib = load(self.name)
         bits = (torch.empty(1, dtype=torch.int32, device=self.device)
                 if with_residual else None)
-        code = lib.heat_g_band_fix(
+        code = getattr(lib, self.name)(
             ctypes.addressof(self._table), self.blocks,
             BAND_LOADS.index(self.load), _ptr(bits),
             *self._args, torch.cuda.current_stream(self.device).cuda_stream)
         _raise_on_error(lib, BAND, code)
-        counts[BAND] += -(-self.blocks // BAND_TABLE)  # one a chunk
+        counts[self.name] += -(-self.blocks // BAND_TABLE)  # one a chunk
         return _residual_view(bits) if bits is not None else None
 
 
@@ -636,43 +720,48 @@ LAUNCH = {"G-uni": block_uniform, "G-fuse": block_fused,
 # The decision sites
 # ---------------------------------------------------------------------------
 
-def pick_block_temporal_2d(block_shape, k: int):
+def pick_block_temporal_2d(block_shape, k: int, dtype="float32"):
     """The sharded 2D round's kernel decision at depth ``k`` for blocks of
-    ``block_shape``: ``(kind, detail)`` with kind in :data:`G_KINDS`.
+    ``block_shape`` at storage ``dtype`` (float32 or bfloat16, a name or
+    a torch dtype): ``(kind, detail)`` with kind in :data:`G_KINDS`;
+    ``detail["kernel"]`` is the entry point the round launches (the
+    bfloat16 form's for bfloat16).
 
     The one decision site: ``parallel/temporal.py`` executes its result
     and ``solver.explain`` reports it. By default G-uni where the block's
-    width is a multiple of 4 (its 16-byte loads), else G-fuse. G-circ
-    and G read a caller-assembled extended block, one more full-block
-    copy a round, and run only when pinned with
-    ``tune.force("block_temporal_2d", ...)``; so do the torch rounds. A
-    pinned choice that the geometry refuses raises ValueError.
+    width is a multiple of 4 float32 or 8 bfloat16 cells (its 16-byte
+    loads), else G-fuse. G-circ and G read a caller-assembled extended
+    block, one more full-block copy a round, and run only when pinned
+    with ``tune.force("block_temporal_2d", ...)``; so do the torch
+    rounds. A pinned choice that the geometry refuses raises ValueError.
     """
     choice = tune.forced("block_temporal_2d")
+    shape = tuple(block_shape)
     if choice is not None:
-        resolved = _resolve_block_temporal_2d(choice, tuple(block_shape), k)
+        resolved = _resolve_block_temporal_2d(choice, shape, k, dtype)
         if resolved is None:
             raise ValueError(
                 f"tune[block_temporal_2d]: forced choice {choice!r} is "
-                f"infeasible for blocks {tuple(block_shape)} at K={k} (K "
+                f"infeasible for blocks {shape} of {dtype} at K={k} (K "
                 f"must be in [1, {params().g_k_max()}] and at most the "
                 f"smallest block extent; G-uni needs a width that is a "
-                f"multiple of 4)")
+                f"multiple of 4, 8 at bfloat16)")
         return resolved
-    return (_resolve_block_temporal_2d("G-uni", tuple(block_shape), k)
-            or _resolve_block_temporal_2d("G-fuse", tuple(block_shape), k))
+    return (_resolve_block_temporal_2d("G-uni", shape, k, dtype)
+            or _resolve_block_temporal_2d("G-fuse", shape, k, dtype))
 
 
-def _resolve_block_temporal_2d(choice, block_shape, k):
+def _resolve_block_temporal_2d(choice, block_shape, k, dtype="float32"):
     p = params()
     if choice == "torch":
         return "torch", None
     if not 1 <= k <= min(p.g_k_max(), *block_shape):
         return None
-    if choice == "G-uni" and not p.uni_fits(block_shape):
+    if choice == "G-uni" and not p.uni_fits(block_shape, dtype):
         return None
     return choice, {"k": k, "tile": p.g_tile, "block": p.g_block,
-                    "rows_per_warp": p.g_run(k), "kernel": KERNEL_OF[choice]}
+                    "rows_per_warp": p.g_run(k),
+                    "kernel": entry(KERNEL_OF[choice], dtype)}
 
 
 def pick_block_temporal_2d_deferred(kind: str, block_shape, k: int,

@@ -13,6 +13,12 @@ split); without it the block is padded with its halos first. Both
 evaluate the same expression per cell, so the grid is bitwise a
 one-device torch run either way.
 
+Arithmetic is float32 at every storage dtype, as in the JAX package
+(``_ACC``): every operand is widened to float32 first, the updated cells
+are rounded to the blocks' dtype once, as they are stored, the held
+cells are kept bit for bit, and the residual is the float32
+``|new - float32(old)|``.
+
 This is the plain reference path of the torch backend: it allocates its
 halos each step. Under ``backend="cuda"`` a depth-1 run takes kernel G
 at K = 1 in the K-deep rounds of ``parallel/temporal.py``, whose
@@ -64,18 +70,25 @@ def _pad_block(u, halos):
     return torch.cat([wcol, rows, ecol], dim=1)
 
 
+def _f32(t):
+    return t.to(torch.float32)
+
+
 def _row_update(center, up, down, lw, re, cx, cy):
-    """Textbook update of one row; ``lw``/``re`` its outer neighbours."""
-    left = torch.cat([lw.reshape(1), center[:-1]])
-    right = torch.cat([center[1:], re.reshape(1)])
+    """Textbook update of one row, in float32; ``lw``/``re`` its outer
+    neighbours."""
+    center, up, down = _f32(center), _f32(up), _f32(down)
+    left = torch.cat([_f32(lw).reshape(1), center[:-1]])
+    right = torch.cat([center[1:], _f32(re).reshape(1)])
     return (center + cx * (up + down - 2.0 * center)
             + cy * (left + right - 2.0 * center))
 
 
 def _col_update(center, left, right, up1, dn1, cx, cy):
-    """Textbook update of one column's rows 1 .. bx-2."""
-    up = torch.cat([up1.reshape(1), center[:-1]])
-    down = torch.cat([center[1:], dn1.reshape(1)])
+    """Textbook update of one column's rows 1 .. bx-2, in float32."""
+    center, left, right = _f32(center), _f32(left), _f32(right)
+    up = torch.cat([_f32(up1).reshape(1), center[:-1]])
+    down = torch.cat([center[1:], _f32(dn1).reshape(1)])
     return (center + cx * (up + down - 2.0 * center)
             + cy * (left + right - 2.0 * center))
 
@@ -123,7 +136,7 @@ def block_step_2d(mesh: HeatMesh, blocks, outs, *, grid_shape, cx, cy,
     for u, out, (new, mask) in zip(
             blocks, outs, _exchanged_update_2d(mesh, blocks, grid_shape,
                                                cx, cy, overlap)):
-        out.copy_(torch.where(mask, new, u))
+        out.copy_(torch.where(mask, new.to(u.dtype), u))
 
 
 def block_step_2d_residual(mesh: HeatMesh, blocks, outs, *, grid_shape, cx,
@@ -134,7 +147,7 @@ def block_step_2d_residual(mesh: HeatMesh, blocks, outs, *, grid_shape, cx,
     for u, out, (new, mask) in zip(
             blocks, outs, _exchanged_update_2d(mesh, blocks, grid_shape,
                                                cx, cy, overlap)):
-        res.append(torch.where(mask, (new - u).abs(),
+        res.append(torch.where(mask, (new - _f32(u)).abs(),
                                torch.zeros((), device=u.device)).max())
-        out.copy_(torch.where(mask, new, u))
+        out.copy_(torch.where(mask, new.to(u.dtype), u))
     return torch.stack(res).amax()

@@ -8,7 +8,11 @@ Each step exchanges the six one-cell face halos of every block
 ``ops/stencil.py`` and holds the cells outside the global interior at
 their values (:func:`interior_mask_3d`), so the grid is bitwise a
 one-device torch run. As in the JAX package, ``overlap`` is accepted and
-ignored: the 3D update always takes the padded form.
+ignored: the 3D update always takes the padded form. Arithmetic is
+float32 at every storage dtype (the JAX package's ``_ACC``): the updated
+cells are rounded to the blocks' dtype once, as they are stored, the held
+cells kept bit for bit, and the residual is the float32 ``|new -
+float32(old)|``.
 
 This is the plain reference path of the torch backend at
 ``halo_depth=1``: it allocates its halos each step. Under
@@ -87,7 +91,7 @@ def block_step_3d(mesh: HeatMesh, blocks, outs, *, grid_shape, cx, cy, cz,
     for u, out, (new, mask) in zip(
             blocks, outs, _exchanged_update_3d(mesh, blocks, grid_shape,
                                                cx, cy, cz)):
-        out.copy_(torch.where(mask, new, u))
+        out.copy_(torch.where(mask, new.to(u.dtype), u))
 
 
 def block_step_3d_residual(mesh: HeatMesh, blocks, outs, *, grid_shape, cx,
@@ -99,7 +103,7 @@ def block_step_3d_residual(mesh: HeatMesh, blocks, outs, *, grid_shape, cx,
     for u, out, (new, mask) in zip(
             blocks, outs, _exchanged_update_3d(mesh, blocks, grid_shape,
                                                cx, cy, cz)):
-        res.append(torch.where(mask, (new - u).abs(),
+        res.append(torch.where(mask, (new - u.to(torch.float32)).abs(),
                                torch.zeros((), device=u.device)).max())
-        out.copy_(torch.where(mask, new, u))
+        out.copy_(torch.where(mask, new.to(u.dtype), u))
     return torch.stack(res).amax()

@@ -113,13 +113,13 @@ class HeatMesh:
 
     def split(self, grid: torch.Tensor) -> List[torch.Tensor]:
         """One contiguous copy of each block of ``grid``, on the mesh's
-        device."""
+        device, in the grid's own dtype (its storage dtype: bit for bit)."""
         bs = self.block_shape(grid.shape)
         out = []
         for b in range(self.size):
             idx = tuple(slice(o, o + s)
                         for o, s in zip(self.origin(b, bs), bs))
-            out.append(grid[idx].to(device=self.device, dtype=torch.float32,
+            out.append(grid[idx].to(device=self.device,
                                     copy=True).contiguous())
         return out
 

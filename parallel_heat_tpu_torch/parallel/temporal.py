@@ -68,7 +68,8 @@ from typing import List, Sequence
 
 import torch
 
-from parallel_heat_tpu_torch.ops.stencil import stencil_interior_2d
+from parallel_heat_tpu_torch.ops.stencil import (stencil_interior_2d,
+                                                 storage_dtype)
 from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
 
@@ -76,7 +77,9 @@ class DeepExchange2D:
     """The K-deep exchange's buffers for every block of ``mesh``, blocks of
     ``block_shape``: ``tail[b]`` ``(bx, 2k)`` and ``halo_n[b]``,
     ``halo_s[b]`` ``(k, by + 2k)``, zeroed once and rewritten in place by
-    :meth:`phase1` and :meth:`phase2`."""
+    :meth:`phase1` and :meth:`phase2`. The buffers are of the blocks'
+    storage ``dtype``, so a bfloat16 run moves bfloat16 halos (the JAX
+    package's ``.astype(dt)`` on every piece)."""
 
     def __init__(self, mesh: HeatMesh, block_shape, k: int, device,
                  dtype=torch.float32):
@@ -86,6 +89,7 @@ class DeepExchange2D:
                              f"blocks {tuple(block_shape)}")
         self.mesh, self.k, self.bx, self.by = mesh, k, bx, by
         self.block_shape = (bx, by)
+        self.dtype = dtype
         size = mesh.size
         self.tail = [torch.zeros((bx, 2 * k), dtype=dtype, device=device)
                      for _ in range(size)]
@@ -220,11 +224,14 @@ def _region_inner_mask(shape, starts, grid_shape,
 
 
 def _frontier_steps(win, k, starts, grid_shape, stencil, need_diff):
-    """``k`` masked textbook steps (``stencil(win)`` is the update of the
-    inner region) of the window ``win`` in place, only its inner region
-    updated: cells within L1 distance ``k - j`` of the data it was seeded
-    with stay exact through step j. Returns the last step's masked
-    ``|new - old|`` over the inner region with ``need_diff``."""
+    """``k`` masked textbook steps (``stencil(win)`` is the float32 update
+    of the inner region) of the window ``win`` in place, only its inner
+    region updated: cells within L1 distance ``k - j`` of the data it was
+    seeded with stay exact through step j. Each level is stored at the
+    window's dtype (the storage dtype: updated cells rounded, held cells
+    kept bit for bit, as the JAX package's ``jnp.where(mask,
+    new.astype(u.dtype), u)``). Returns the last step's masked float32
+    ``|new - float32(old)|`` over the inner region with ``need_diff``."""
     mask = _region_inner_mask(win.shape, starts, grid_shape, win.device)
     inner = (slice(1, -1),) * win.dim()
     zero = torch.zeros((), device=win.device)
@@ -233,8 +240,9 @@ def _frontier_steps(win, k, starts, grid_shape, stencil, need_diff):
         new = stencil(win)
         cur = win[inner]
         if need_diff and j == k - 1:
-            diff = torch.where(mask, (new - cur).abs(), zero)
-        win[inner] = torch.where(mask, new, cur)
+            diff = torch.where(mask, (new - cur.to(torch.float32)).abs(),
+                               zero)
+        win[inner] = torch.where(mask, new.to(win.dtype), cur)
     return diff
 
 
@@ -320,7 +328,8 @@ def _torch_round(xch, mode: str, *, grid_shape, stencil):
     residual or None``, through padded blocks allocated here, once."""
     k, mesh = xch.k, xch.mesh
     exts = [torch.zeros(tuple(b + 2 * k for b in xch.block_shape),
-                        device=mesh.device) for _ in range(mesh.size)]
+                        dtype=xch.dtype, device=mesh.device)
+            for _ in range(mesh.size)]
 
     def fn(us, vs, want_res):
         return block_multistep(xch, exts, us, vs, grid_shape=grid_shape,
@@ -351,7 +360,9 @@ def _cuda_round_2d(xch: DeepExchange2D, kind: str, mode: str, *, grid_shape,
     block assembled into a buffer of their own, one more full-block copy
     a round. The overlapped round fixes every block's bands in one launch
     (``stencil_kernels_block.BandLaunch``), built on the first round over
-    each pair of buffers ``(us, vs)`` (a run alternates two) and kept."""
+    each pair of buffers ``(us, vs)`` (a run alternates two) and kept.
+    Blocks of bfloat16 (the exchange's dtype) launch the kernels'
+    bfloat16 forms."""
     from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
     k, mesh = xch.k, xch.mesh
@@ -364,7 +375,7 @@ def _cuda_round_2d(xch: DeepExchange2D, kind: str, mode: str, *, grid_shape,
     if kind in ("G-circ", "G"):
         assemble = (xch.assemble_circular if kind == "G-circ"
                     else xch.assemble_padded)
-        exts = [torch.zeros((bx + 2 * k, by + 2 * k), dtype=torch.float32,
+        exts = [torch.zeros((bx + 2 * k, by + 2 * k), dtype=xch.dtype,
                             device=mesh.device) for _ in range(mesh.size)]
     bands = {}
 
@@ -409,14 +420,16 @@ def block_temporal_multistep(config, mesh: HeatMesh, backend: str):
     (spares), by K-deep rounds, ``K = config.halo_depth``, in 2D or in 3D
     (``parallel/temporal3d.py``) by ``config.ndim``.
 
-    ``backend`` is resolved ("cuda" or "torch"). The kernel is picked
-    once; a round of each depth the run's chunks need (K, and the
-    remainders) is built here with its exchange buffers and kept for the
-    run (any other depth on its first use).
+    ``backend`` is resolved ("cuda" or "torch"). The blocks, the
+    exchange's buffers and the padded blocks are of ``config.dtype``. The
+    kernel is picked once; a round of each depth the run's chunks need
+    (K, and the remainders) is built here with its exchange buffers and
+    kept for the run (any other depth on its first use).
     """
     K = config.halo_depth
     mode = resolve_halo_overlap(config, backend)
     block_shape = mesh.block_shape(config.shape)
+    dtype = storage_dtype(config.dtype)
     coeffs = tuple(float(c) for c in config.coefficients)
     kw = dict(zip(("cx", "cy", "cz"), coeffs), grid_shape=config.shape)
     if config.ndim == 3:
@@ -431,13 +444,16 @@ def block_temporal_multistep(config, mesh: HeatMesh, backend: str):
         from parallel_heat_tpu_torch.ops import stencil_kernels_block as sk
 
         exchange, cuda_round = DeepExchange2D, _cuda_round_2d
-        pick, interior = sk.pick_block_temporal_2d, stencil_interior_2d
+        interior = stencil_interior_2d
+
+        def pick(shape, k):
+            return sk.pick_block_temporal_2d(shape, k, dtype)
     kind = pick(block_shape, K)[0] if backend == "cuda" else "torch"
     rounds = {}
 
     def round_of(depth):
         if depth not in rounds:
-            xch = exchange(mesh, block_shape, depth, mesh.device)
+            xch = exchange(mesh, block_shape, depth, mesh.device, dtype)
             rounds[depth] = (
                 _torch_round(xch, mode, grid_shape=config.shape,
                              stencil=lambda w: interior(w, *coeffs))

@@ -29,8 +29,9 @@ On the CPU the same loops run eagerly, the host reading each stop test.
 
 Precision (``HeatConfig.dtype``, ``accumulate``): the grid lives in its
 storage dtype, float32, bfloat16 or float64, and arithmetic is float32,
-on one block, 2D or 3D. An explicit bfloat16 run takes A, E or E-uni in
-their bfloat16 forms (B and C when pinned), in 3D F (D when pinned);
+on one block, 2D or 3D, and on meshes (bfloat16 on 2D meshes only). An
+explicit bfloat16 run takes A, E or E-uni in their bfloat16 forms (B and
+C when pinned), in 3D F (D when pinned), on a 2D mesh the G family's;
 under ``accumulate="f32chunk"`` (2D only) E or
 E-uni carry float32 through each chunk of ``ops.stencil.F32CHUNK_DEPTH``
 steps. An explicit float64 run takes the torch route: ``backend="auto"``
@@ -344,15 +345,17 @@ def sharded_multistep(config: HeatConfig, mesh, backend: str):
             from parallel_heat_tpu_torch.ops import (
                 stencil_kernels_block_3d as skb)
 
-            pick = skb.pick_block_temporal_3d
+            pick, band = skb.pick_block_temporal_3d, skb.BAND
         else:
             from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
-            pick = skb.pick_block_temporal_2d
+            def pick(shape, k):
+                return skb.pick_block_temporal_2d(shape, k, config.dtype)
+            band = skb.entry(skb.BAND, config.dtype)
         kind, detail = pick(config.block_shape(), config.halo_depth)
         if detail is not None:
             load(detail["kernel"])
-            load(skb.BAND)
+            load(band)
     return temporal.block_temporal_multistep(config, mesh, backend)
 
 
@@ -378,9 +381,10 @@ def single_multistep(config: HeatConfig, backend: str):
 
 
 def _prepare_blocks(config: HeatConfig, mesh, initial):
-    """The blocks of a sharded run: built per block from the model (no
-    full-grid temporary), split from a full ``initial`` grid, or copied
-    from a list of ``initial`` blocks in the mesh's row-major order."""
+    """The blocks of a sharded run, at the config's storage dtype: built
+    per block from the model (no full-grid temporary), split from a full
+    ``initial`` grid, or copied from a list of ``initial`` blocks in the
+    mesh's row-major order (a bfloat16 array crosses by its bits)."""
     from parallel_heat_tpu_torch.convert import to_tensor
 
     bs = config.block_shape()
@@ -398,7 +402,7 @@ def _prepare_blocks(config: HeatConfig, mesh, initial):
     if tuple(initial.shape) != config.shape:
         raise ValueError(f"initial grid shape {tuple(initial.shape)} does "
                          f"not match config shape {config.shape}")
-    return mesh.split(torch.as_tensor(initial))
+    return mesh.split(to_tensor(initial, config.dtype, mesh.device))
 
 
 def make_initial_grid(config: HeatConfig,
@@ -609,32 +613,44 @@ def _explain_sharded(config: HeatConfig, out: dict, backend: str,
     out["halo_overlap"] = (f"{mode} (auto)"
                            if config.halo_overlap in (None, "auto")
                            else mode)
+    store = {"bfloat16": ", bfloat16 storage, float32 arithmetic",
+             "float64": ", float64 storage, float32 arithmetic"}.get(
+                 res.dtype, "")
     if backend == "torch" and k == 1:
         form = ("interior/edge split" if config.overlap and res.ndim == 2
                 else "padded block")
         out["path"] = (f"per-step 1-deep halo exchange, textbook torch "
-                       f"stencil ({form})")
+                       f"stencil ({form}){store}")
+        return out
+    if backend == "torch":
+        out["path"] = (f"K-deep {'3D ' if res.ndim == 3 else ''}rounds "
+                       f"(K={k}), textbook torch stencil, {mode} "
+                       f"schedule{store}")
         return out
     if res.ndim == 3:
         return _explain_sharded_3d(res, out, k, mode, plain)
     bx, by = res.block_shape()
-    kind, detail = skb.pick_block_temporal_2d((bx, by), k)
+    kind, detail = skb.pick_block_temporal_2d((bx, by), k, res.dtype)
     forced = tune.forced("block_temporal_2d")
     out["decided_by"] = {"block_temporal_2d": {
         "source": "forced" if forced == kind else "default-order",
         "choice": kind}}
     if kind == "torch":
         out["path"] = (f"K-deep rounds (K={k}), textbook torch stencil, "
-                       f"{mode} schedule")
+                       f"{mode} schedule{store}")
         return out
     why = ""
+    bf16 = res.dtype == "bfloat16"
     if kind == "G-fuse" and forced is None:
         why = (f"; G-fuse, not G-uni: block width {by} is not a multiple "
-               f"of 4 (G-uni's 16-byte loads)")
+               f"of {8 if bf16 else 4} (G-uni's 16-byte loads)")
+    if bf16:
+        why += ("; bfloat16 storage (bfloat16 halos, every level rounded, "
+                "float32 arithmetic)")
     if skb.pick_block_temporal_2d_deferred(kind, (bx, by), k, mode):
         round_ = (f"overlapped round: deferred bulk {detail['kernel']} "
                   f"(rows [{k}, {bx - k}) from u and the column tail) + "
-                  f"band kernel {skb.BAND}")
+                  f"band kernel {skb.entry(skb.BAND, res.dtype)}")
     else:
         reason = (f"; the block has {bx} rows, fewer than 2K = {2 * k}, so "
                   f"the monolithic round runs" if mode == "overlap"

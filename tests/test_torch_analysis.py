@@ -379,16 +379,23 @@ def test_hl4xx_real_plans_clean_and_all_kernels_covered():
                                             findings.load_baseline())
     assert active == [] and stale == []
     names = pk.source_kernel_names()
-    # 31 kernels, the bfloat16 forms of A, B, C, D, E, E-uni, F, I, I-uni
-    # and M (a __global__ each), and the device loop's two one-thread
-    # helpers (csrc/heat_graph_loop.cu, baselined).
-    assert len(names) == 43 and "heat_probe_fixture_kernel" in names
+    # 31 kernels, the bfloat16 forms of A, B, C, D, E, E-uni, F, I, I-uni,
+    # M, G, G-circ, G-fuse, G-uni and the 2D band (a __global__ each), and
+    # the device loop's two one-thread helpers (csrc/heat_graph_loop.cu,
+    # baselined).
+    assert len(names) == 48 and "heat_probe_fixture_kernel" in names
+    g_bf16 = {"heat_g_block_padded_bf16_kernel",
+              "heat_g_block_circular_bf16_kernel",
+              "heat_g_block_fused_bf16_kernel",
+              "heat_g_block_uniform_bf16_kernel",
+              "heat_g_band_fix_bf16_kernel"}
     assert {"heat_a_resident_bf16_kernel", "heat_e_temporal_bf16_kernel",
             "heat_e_uni_temporal_bf16_kernel", "heat_b_step_bf16_kernel",
             "heat_c_tiled_bf16_kernel", "heat_i_tile_temporal_bf16_kernel",
             "heat_i_uni_tile_temporal_bf16_kernel",
             "heat_m_ensemble_bf16_kernel", "heat_d_step3d_bf16_kernel",
-            "heat_f_temporal3d_bf16_kernel"} <= set(names)
+            "heat_f_temporal3d_bf16_kernel"} | g_bf16 <= set(names)
+    assert g_bf16 <= {p.kernel for p in plans}
     assert {"heat_graph_set_cond_kernel", "heat_graph_window_kernel"} <= set(
         names)
     from parallel_heat_tpu_torch.kernels.build import KERNELS

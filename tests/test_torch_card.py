@@ -41,6 +41,12 @@ launches of B, a member of M is A on that member alone. bfloat16 and
 float64 ensembles and implicit runs are bitwise their solo runs and the
 CPU's, and an implicit run under ``backend="cuda"`` is the one under
 ``backend="torch"`` at every dtype.
+
+The bfloat16 forms of G-uni, G-fuse, G-circ, G and the band are bitwise
+their plain versions, each other and E's bfloat16 K steps on the same
+cells, NaN-seeded blocks included, the band under each load; a sharded
+bfloat16 ``solve()`` is bitwise the one-block run and the CPU's, and a
+sharded float64 run (the torch rounds, 2D and 3D) the one-block run.
 """
 
 import functools
@@ -1397,3 +1403,131 @@ def test_3d_precision_ensembles_bitwise_their_solo_torch_runs(card, dtype):
     for i in range(3):
         solo = solve(cfg.replace(backend="torch"), initial=inits[i])
         assert _same_bits(got.grids[i], solo.grid)
+
+
+# ---------------------------------------------------------------------------
+# The G family's bfloat16 forms and bfloat16 / float64 meshes
+# ---------------------------------------------------------------------------
+
+# Blocks 16 x 24 (exactly 2K rows at K = 8), 500 x 256 (G-uni's bfloat16
+# form), 500 x 252 (a width of 4k: G-uni's form refused) and 333 x 143.
+G_BF16_CASES = [((32, 48), (2, 2), 8), ((1000, 1024), (2, 4), 3),
+                ((1000, 1008), (2, 4), 8), ((999, 286), (3, 2), 5)]
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("grid,mesh_shape,k", G_BF16_CASES)
+def test_g_bf16_forms_bitwise_plain_each_other_and_e(card, grid, mesh_shape,
+                                                     k, nan):
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    cx, cy = COEFFS[1]
+    g = _rand_bf16(grid, 41, card, nan=nan)
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(g)
+    bs = mesh.block_shape(grid)
+    pieces = temporal.exchange_halos_fused_2d(mesh, us, k)
+    exts = {"G-circ": temporal.exchange_halos_circular_2d(mesh, us, k),
+            "G": temporal.exchange_halos_deep_2d(mesh, us, k)}
+    assert pieces[0][0].dtype == exts["G"][0].dtype == BF16
+    e_out = torch.empty_like(g)
+    sk.temporal_steps(g, e_out, k, cx=cx, cy=cy)
+    plain = {"G-uni": skb.block_uniform_plain, "G-fuse": skb.block_fused_plain,
+             "G-circ": skb.block_circular_plain, "G": skb.block_padded_plain}
+    for b in range(mesh.size):
+        o = mesh.origin(b, bs)
+        kw = dict(origin=o, grid_shape=grid, cx=cx, cy=cy)
+        want = e_out[o[0]:o[0] + bs[0], o[1]:o[1] + bs[1]].contiguous()
+        res = None
+        for kind, name in skb.KERNEL_OF_BF16.items():
+            if kind == "G-uni" and bs[1] % 8:
+                continue
+            args = (exts[kind][b],) if kind in exts else (us[b], *pieces[b])
+            got, ref = (torch.full(bs, float("nan"), dtype=BF16,
+                                   device=card) for _ in range(2))
+            sk.reset_counts()
+            r = skb.LAUNCH[kind](*args, got, k, **kw)
+            assert sk.counts[name] == 1
+            rp = plain[kind](*args, ref, k, **kw)
+            assert _same_bits(got, ref) and _same_res(r, rp), kind
+            assert _same_bits(got, want), kind
+            res = r if res is None else res
+            assert _same_res(r, res), kind
+            if kind in ("G-uni", "G-fuse") and bs[0] >= 2 * k:
+                split = torch.full(bs, float("nan"), dtype=BF16, device=card)
+                rb = skb.LAUNCH[kind](us[b], pieces[b][0], None, None, split,
+                                      k, **kw)
+                rf = skb.band_fix(us[b], *pieces[b], split, k, **kw)
+                assert _same_bits(split, got)
+                assert _same_res(torch.maximum(rb, rf), r)
+
+
+@pytest.mark.parametrize("grid,mesh_shape,k", G_BF16_CASES)
+def test_band_bf16_blocks_bitwise_plain_under_each_load(card, grid,
+                                                        mesh_shape, k):
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
+    from parallel_heat_tpu_torch.parallel import temporal
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(_rand_bf16(grid, 43, card, nan=True))
+    bs = mesh.block_shape(grid)
+    if bs[0] < 2 * k:
+        pytest.skip(f"blocks of {bs[0]} rows have no band at K={k}")
+    tails, hns, hss = zip(*temporal.exchange_halos_fused_2d(mesh, us, k))
+    origins = [mesh.origin(b, bs) for b in range(mesh.size)]
+    kw = dict(origins=origins, grid_shape=grid, cx=0.1, cy=0.2)
+    plain = [torch.full(bs, float("nan"), dtype=BF16, device=card)
+             for _ in us]
+    rp = skb.band_fix_blocks_plain(us, tails, hns, hss, plain, k, **kw)
+    picked = skb.BandLaunch(us, tails, hns, hss, plain, k, **kw).load
+    for load in sorted({"cells", picked}):
+        got = [torch.full(bs, float("nan"), dtype=BF16, device=card)
+               for _ in us]
+        sk.reset_counts()
+        r = skb.BandLaunch(us, tails, hns, hss, got, k, load=load,
+                           **kw)(True)
+        assert sk.counts["heat_g_band_fix_bf16"] == 1
+        for a, c in zip(got, plain):
+            assert _same_bits(a, c)
+            assert a[k:bs[0] - k].isnan().all()
+        assert _same_res(r, rp)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(nx=1000, ny=1024, steps=101, mesh_shape=(2, 4)),
+    dict(nx=512, ny=512, steps=200, mesh_shape=(2, 2), halo_overlap="phase"),
+    dict(nx=1000, ny=1000, steps=400, converge=True, check_interval=20,
+         eps=1e-9, mesh_shape=(2, 4)),
+    dict(nx=256, ny=256, steps=50, mesh_shape=(2, 2), halo_depth=1)])
+def test_sharded_bf16_solve_on_the_card_matches_one_block_bitwise(card, cfg):
+    cfg = dict(cfg, dtype="bfloat16")
+    sk.reset_counts()
+    got = solve(HeatConfig(**cfg))
+    ran = {name for name, n in sk.counts.items() if n}
+    assert ran and all(name.startswith("heat_g_") and name.endswith("_bf16")
+                       for name in ran), ran
+    one = solve(HeatConfig(**{**cfg, "mesh_shape": None,
+                              "halo_overlap": None, "halo_depth": None}))
+    cpu = solve(HeatConfig(**cfg, backend="cuda"), device="cpu")
+    assert _same_bits(got.grid, one.grid)
+    assert _same_bits(got.grid.cpu(), cpu.grid)
+    assert (got.steps_run, got.converged) == (one.steps_run, one.converged)
+    if cfg.get("converge"):
+        assert got.residual == one.residual == cpu.residual
+
+
+@pytest.mark.parametrize("dims", [dict(nx=256, ny=256, mesh_shape=(2, 4)),
+                                  dict(nx=32, ny=32, nz=32,
+                                       mesh_shape=(2, 2, 2))])
+@pytest.mark.parametrize("depth", [1, 4])
+def test_sharded_float64_on_the_card_is_one_block_bitwise(card, dims, depth):
+    cfg = HeatConfig(steps=37, dtype="float64", halo_depth=depth, **dims)
+    sk.reset_counts()
+    got = solve(cfg)
+    assert not any(sk.counts.values())
+    one = solve(cfg.replace(mesh_shape=None, halo_depth=None))
+    assert got.grid.dtype == torch.float64
+    assert torch.equal(got.grid.view(torch.int64), one.grid.view(torch.int64))

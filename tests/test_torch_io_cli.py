@@ -129,15 +129,17 @@ def test_cli_flags_write_the_jax_clis_bytes(tmp_path, capsys, flags):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
 def test_cli_refuses_other_dtypes(capsys, dtype):
-    # bfloat16 and float64 run on one block only (2D or 3D): on a mesh
-    # (3D here) the CLI refuses them, naming the ROADMAP.md item.
+    # What stays refused on a 3D mesh: bfloat16 (the CLI names the
+    # ROADMAP.md item), and float64 under --backend cuda (it runs the
+    # torch rounds).
+    extra = ["--backend", "cuda"] if dtype == "float64" else []
     rc, lines, err = _cli_lines(capsys, ["--nx", "20", "--ny", "20",
                                          "--nz", "8", "--mesh", "2,2,2",
                                          "--device", "cpu",
-                                         "--dtype", dtype])
+                                         "--dtype", dtype] + extra)
     assert rc == 2 and lines == []
-    assert ("ROADMAP.md queue 2 item 24" if dtype == "bfloat16"
-            else "ROADMAP.md queue 1 item 3") in err
+    assert ("ROADMAP.md queue 2 item 24.4" if dtype == "bfloat16"
+            else "backend='cuda' does not take") in err
 
 
 @pytest.mark.parametrize("flags", [
@@ -308,15 +310,16 @@ def test_from_jax_carries_the_observers(field, value):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float64", "float16"])
 def test_validate_rejects_other_dtypes(dtype):
-    # float16 is no storage dtype of either package; bfloat16 and float64
-    # are refused off the single-block path (a 3D mesh here), naming the
-    # ROADMAP.md item.
+    # float16 is no storage dtype of either package; bfloat16 is refused on
+    # a 3D mesh, naming the ROADMAP.md item, and float64 on a mesh under
+    # backend="cuda" (it runs the torch rounds).
     match = {"float16": "dtype must be one of",
-             "bfloat16": "ROADMAP.md queue 2 item 24",
-             "float64": "ROADMAP.md queue 1 item 3"}[dtype]
+             "bfloat16": "ROADMAP.md queue 2 item 24.4",
+             "float64": "backend='cuda' does not take"}[dtype]
     with pytest.raises(ValueError, match=match):
-        HeatConfig(dtype=dtype, nx=8, ny=8, nz=8,
-                   mesh_shape=(2, 2, 2)).validate()
+        HeatConfig(dtype=dtype, nx=8, ny=8, nz=8, mesh_shape=(2, 2, 2),
+                   backend="cuda" if dtype == "float64" else "auto"
+                   ).validate()
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -295,14 +295,16 @@ def test_wrappers_count_their_calls_on_the_cpu():
     skb3.h_block(ext3, out3, 2, **kw3)
     # On the CPU the plain versions run; the kernels never launch. One
     # registry holds all twenty kernels, the counts of A's, B's, C's, D's,
-    # E's, E-uni's, F's, I's, I-uni's and M's bfloat16 forms (storage, and
-    # E's, E-uni's, I's and I-uni's acc_f32), and the plain versions.
+    # E's, E-uni's, F's, I's, I-uni's, M's and the G family's bfloat16
+    # forms (storage, and E's, E-uni's, I's and I-uni's acc_f32), and the
+    # plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
                if not name.startswith("heat_"))
-    assert {"heat_d_step3d_bf16", "heat_f_temporal3d_bf16"} <= set(sk.counts)
-    assert len(sk.counts) == 54
+    assert {"heat_d_step3d_bf16", "heat_f_temporal3d_bf16",
+            *skb.KERNEL_OF_BF16.values(), skb.BAND_BF16} <= set(sk.counts)
+    assert len(sk.counts) == 59
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",

@@ -163,27 +163,27 @@ def test_accumulate_and_dtypes_accepted_where_the_jax_package_takes_them():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(nz=8, dtype="bfloat16"), None),
-    (dict(nx=32, ny=32, dtype="bfloat16", mesh_shape=(2, 2)),
-     "queue 2 item 24"),
+    (dict(nx=32, ny=32, dtype="bfloat16", mesh_shape=(2, 2)), None),
     (dict(cx=22.5, cy=22.5, dtype="bfloat16", scheme="backward_euler"),
      None),
     (dict(nz=8, dtype="float64"), None),
-    (dict(nx=32, ny=32, dtype="float64", mesh_shape=(2, 2)),
-     "queue 1 item 3"),
+    (dict(nx=32, ny=32, dtype="float64", mesh_shape=(2, 2)), None),
     (dict(cx=22.5, cy=22.5, dtype="float64", scheme="crank_nicolson"),
      None),
+    (dict(nx=32, ny=32, nz=32, dtype="bfloat16", mesh_shape=(2, 2, 2)),
+     "queue 2 item 24.4"),
 ], ids=["bf16-3d", "bf16-mesh", "bf16-implicit", "f64-3d", "f64-mesh",
-        "f64-implicit"])
+        "f64-implicit", "bf16-3d-mesh"])
 def test_precision_refused_off_the_2d_single_block_path(kw, item):
-    # Meshes are off the path and refused, naming their items; 3D on one
-    # block and the implicit schemes (item None) run, at both dtypes (the
-    # implicit schemes on both backends: their transfer kernels see
-    # float32 levels only; an explicit float64 run on the torch route).
+    # bfloat16 on a 3D mesh is refused, naming its item; 3D on one block,
+    # 2D meshes and the implicit schemes (item None) run, at both dtypes
+    # (the implicit schemes on both backends: their transfer kernels see
+    # float32 levels only; an explicit float64 run, on one block or a
+    # mesh, on the torch route).
     cfg = HeatConfig(**{"nx": 16, "ny": 16, **kw})
     if item is None:
-        backends = (("auto", "torch") if "nz" in kw
-                    and kw["dtype"] == "float64" else
-                    ("auto", "torch", "cuda"))
+        backends = (("auto", "torch") if kw["dtype"] == "float64"
+                    and "scheme" not in kw else ("auto", "torch", "cuda"))
         for backend in backends:
             assert cfg.replace(backend=backend).validate().dtype == \
                 kw["dtype"]
@@ -205,13 +205,15 @@ def test_float64_runs_the_torch_route_and_refuses_backend_cuda():
 
 
 def test_bfloat16_ensembles_are_refused():
-    # Off the single-block path: on meshes, 2D and 3D, HeatConfig.validate
-    # refuses the dtype itself, naming the item that holds it (3D on one
-    # block runs: tests/test_torch_precision_3d.py).
+    # On meshes: on a 3D one HeatConfig.validate refuses the dtype itself,
+    # naming the item that holds it; a 2D one runs bfloat16 solo, and the
+    # ensemble says so (3D on one block runs:
+    # tests/test_torch_precision_3d.py).
     cfg = HeatConfig(nx=16, ny=16, steps=4, dtype="bfloat16", device="cpu")
-    for kw in (dict(nz=8, mesh_shape=(2, 2, 2)),
-               dict(nx=32, ny=32, mesh_shape=(2, 2))):
-        with pytest.raises(ValueError, match="queue 2 item 24"):
+    for kw, match in ((dict(nz=8, mesh_shape=(2, 2, 2)), "queue 2 item 24.4"),
+                      (dict(nx=32, ny=32, mesh_shape=(2, 2)),
+                       "mesh_shape configs run solo")):
+        with pytest.raises(ValueError, match=match):
             EnsembleSolver(cfg.replace(**kw), 2)
 
 

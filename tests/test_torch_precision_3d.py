@@ -325,9 +325,10 @@ def test_3d_bf16_and_float64_validate_on_one_block():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(dtype="bfloat16", mesh_shape=(2, 2, 2)), "queue 2 item 24"),
-    (dict(dtype="float64", mesh_shape=(2, 2, 2)), "queue 1 item 3"),
-    (dict(dtype="bfloat16", mesh_shape=(1, 2, 1)), "not on a mesh"),
+    (dict(dtype="bfloat16", mesh_shape=(2, 2, 2)), "queue 2 item 24.4"),
+    (dict(dtype="float64", mesh_shape=(2, 2, 2), backend="cuda"),
+     "backend='cuda' does not take"),
+    (dict(dtype="bfloat16", mesh_shape=(1, 2, 1)), "not on a 3D mesh"),
     (dict(dtype="bfloat16", accumulate="f32chunk"), "2D-only"),
     (dict(dtype="float64", backend="cuda"), "backend='cuda' does not take"),
 ], ids=["bf16-mesh", "f64-mesh", "bf16-mesh-1d", "f32chunk", "f64-cuda"])

@@ -36,7 +36,11 @@ prints the card's name and power limit, then one JSON line per phase:
    more than ``BAND_SPILL_3D``; and no instance of D's and F's bfloat16
    forms (``heat_d_step3d_bf16``, the 48 of ``heat_f_temporal3d_bf16``,
    its own library) may spill more, stores or loads, than its float32
-   twin of the same K, rows and load;
+   twin of the same K, rows and load; nor any of the H family's (the 24
+   of ``heat_h_block_3d_bf16``, the 24 of ``heat_h_block_3d_fused_bf16``,
+   whose twins are H-fused's cp.async instances, and the 32 of
+   ``heat_h_band_fix_3d_bf16``, a library each), and H-fused's bfloat16
+   main-path instance not at all;
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -216,7 +220,13 @@ prints the card's name and power limit, then one JSON line per phase:
    residual (G-uni's deferred bulk, G-fuse's form as the same bulk, G-fuse,
    G-circ and G monolithic, the band's launch over the 8 blocks), bound at
    2 B a cell, yardstick ``conv2d`` in bfloat16 chained K times, and whole
-   bfloat16 rounds under each schedule;
+   bfloat16 rounds under each schedule; the H family's bfloat16 forms at
+   the 512^3 block of 1024^3 on (2, 2, 2), K = 3, no residual (H-fused
+   monolithic and its deferred bulk, H on the padded circular block, the
+   band's launch over the 8 blocks), each in turns with its float32 twin
+   on the same blocks in float32, bound at 2 B a cell, yardstick
+   ``conv3d`` in bfloat16 chained K times, and whole bfloat16 rounds of
+   the 8 blocks under each kind;
 6. timing — each kernel, its plain version and a PyTorch yardstick
    (``conv2d`` with the 5-point weights, TF32 off; it computes the
    interior update only) with CUDA events, at the shape and depth of the
@@ -409,6 +419,20 @@ prints the card's name and power limit, then one JSON line per phase:
    the round's 8 deferred bulks plus that launch bitwise the monolithic
    kernel with max(bulk, band) its residual; every kind of the band's
    tiles (``h_band_tile_kinds``) must have run;
+17a. kernels_h_bf16 — the bfloat16 forms of H-fused
+   (``heat_h_block_3d_fused_bf16``, its one load), H
+   (``heat_h_block_3d_bf16``, contiguous and padded circular blocks, both
+   loads) and the band (``heat_h_band_fix_3d_bf16``, one launch over
+   every block under each load) into NaN-filled outputs, each bitwise its
+   plain version, the others, F's bfloat16 K steps and K launches of
+   ``heat_d_step3d_bf16`` on the global grid (grid and residual), the
+   bulk plus the band bitwise the monolithic form: the main path's 512^3
+   blocks at K = 3, every compiled K on 67x128x92 and 20x128x252 on
+   (3, 3, 3), 6x128x72 (K <= 6) on (2, 2, 2) and 40x128x96 on (2, 4, 1),
+   K = 1, 3, 6 on 6x50x70 (lanes straddling the z tail), every tile kind
+   of H (``hc_tile_kinds`` at 2-byte cells) and of the band asserted run;
+   NaN-seeded 40^3 and 20x128x128 blocks (payloads kept, NaN residual,
+   faces bit for bit);
 18. sharded_main_path_3d — ``solve(HeatConfig(nx=ny=nz=1024, steps=200,
    mesh_shape=(2, 2, 2)))`` under the default resolution (H-fused, the
    monolithic round), with ``halo_overlap="phase"``, and pinned to H and
@@ -426,6 +450,14 @@ prints the card's name and power limit, then one JSON line per phase:
    to one block;
 20. cli_sharded_3d — ``--nx 64 --ny 64 --nz 64 --steps 100 --mesh 2,2,2
    --out <tmp>.npy`` writes the one-block grid;
+20a. sharded_main_path_3d_bf16 — 1024^3 bfloat16
+   on (2, 2, 2), 200 steps: the default (H-fused's bfloat16 form, 536
+   launches), the phase schedule, H and H-defer pinned (67 bfloat16 band
+   launches), counts exact, every grid bitwise the one-block bfloat16 run
+   (F's form); the default run's stream in chunks of 40 at depth 2
+   bitwise solve(); 512^3 bfloat16 on (2, 4, 1), 64^3 bfloat16 on
+   (2, 2, 2) to eps (steps, verdict, residual and grid of the one-block
+   run) and the CLI at 64^3 (the one-block run's .npy bytes);
 20b. device_loop — the loops on the card (``utils/device_loop.py``:
    converge windows, implicit V-cycles and fixed sharded rounds replayed
    as graphs, the stop test on the card) against the eager executor
@@ -539,10 +571,11 @@ prints the card's name and power limit, then one JSON line per phase:
 
 Then a ``{"phase_seconds": {...}, "total_s": t}`` line (each phase's
 wall seconds, from the line before its own), a ``{"kernels": [...]}``
-line (all twenty kernels, the nineteen precision forms of A, B, C, D,
-E, E-uni, F, I, I-uni, M, G-uni, G-fuse, G-circ, G and the 2D band with
-their launches in main_path_bf16, main_path_3d_bf16, precision,
-ensemble_bf16 and sharded_main_path_bf16, and the ten
+line (all twenty kernels, the twenty-two precision forms of A, B, C, D,
+E, E-uni, F, I, I-uni, M, G-uni, G-fuse, G-circ, G, the 2D band, H-fused,
+H and the 3D band with their launches in main_path_bf16,
+main_path_3d_bf16, precision, ensemble_bf16, sharded_main_path_bf16 and
+sharded_main_path_3d_bf16, and the ten
 probes' kernels, each with its own run's launches: A's anatomy probe and
 neighbour forms with A's plain version, bound and yardstick, the E-uni
 probes with E-uni's, the overlap probe with F's, the roofline with its
@@ -651,6 +684,14 @@ KERNELS_H = {
 }
 KERNELS = {**KERNELS_2D, **KERNELS_3D, **KERNELS_ENS_MG, **KERNELS_G,
            **KERNELS_H}
+# The sharded 3D family's bfloat16 forms, a library each: name -> (its
+# source, the TPU kernel's builder it replaces at dtype bfloat16).
+KERNELS_H_BF16 = {
+    "heat_h_block_3d_fused_bf16": ("heat_h_block_3d_fused_bf16",
+                                   TPU + ":4579"),
+    "heat_h_block_3d_bf16": ("heat_h_block_3d_bf16", TPU + ":4353"),
+    "heat_h_band_fix_3d_bf16": ("heat_h_band_fix_3d_bf16", TPU + ":4934"),
+}
 # The measurement tools' kernels: kernel A's anatomy probe, the
 # issue-rate roofline, E-uni's anatomy, its boundary A/B and its load
 # split, loads alone, the shared-memory sweep's widths and offsets, A's
@@ -963,6 +1004,37 @@ def phase_build():
               and mine[2] <= twin[2] for mine, twin in g_twins.values()),
           f"a bfloat16 instance of the G family spills more than its "
           f"float32 twin or is missing: {g_twins}")
+    # The sharded 3D kernels' bfloat16 forms (a library each, <K, rows>,
+    # the band's <K, rows, load>): none may spill more than its float32
+    # twin (H-fused's of the cp.async load), nor H-fused's main-path
+    # instance at all; their registers, and the blocks an SM of H-fused's
+    # and H's main-path instances.
+    h_twins = {}
+    for name, suffix in (("heat_h_block_3d", ""),
+                         ("heat_h_block_3d_fused", ", false"),
+                         ("heat_h_band_fix_3d", "")):
+        for inst, row in ptxas[name + "_bf16"].items():
+            h_twins[f"{name}_bf16_kernel<{inst}>"] = (
+                row, ptxas[name].get(inst + suffix))
+    h_fused_main = h_twins.get(f"heat_h_block_3d_fused_bf16_kernel<"
+                               f"{hp.h_k_default}, {hp.h_rows}>",
+                               (None, None))[0]
+    check(len(h_twins) == (3 + 3 + 4) * hp.h_k_compiled
+          and h_fused_main is not None and h_fused_main[1] == 0
+          and all(mine is not None and twin is not None
+                  and mine[1] <= twin[1] and mine[2] <= twin[2]
+                  for mine, twin in h_twins.values()),
+          f"a bfloat16 instance of the H family spills more than its "
+          f"float32 twin, H-fused's main-path one spills, or one is "
+          f"missing: {h_twins}")
+    h_main_bf16 = {
+        "heat_h_block_3d_fused_bf16": {
+            "instance": f"{hp.h_k_default}, {hp.h_rows}",
+            "registers": h_fused_main[0],
+            "blocks_per_sm": skb3.h_fused_occupancy(
+                hp.h_k_default, "plain", dtype="bfloat16")},
+        "heat_h_block_3d_bf16": {
+            "blocks_per_sm": skb3.h_occupancy(hp.h_k_default, "bfloat16")}}
     g_main_bf16 = {
         name: {"registers": g_twins[name + "_kernel"][0][0],
                "blocks_per_sm": sk.loop_occupancy(name, hp.g_k_default,
@@ -974,6 +1046,9 @@ def phase_build():
                                 for inst, (mine, twin) in twins.items()},
           "bf16_g_instances": {inst: {"bf16": mine, "float32": twin}
                                for inst, (mine, twin) in g_twins.items()},
+          "bf16_h_instances": {inst: {"bf16": mine, "float32": twin}
+                               for inst, (mine, twin) in h_twins.items()},
+          "main_path_h_bf16": h_main_bf16,
           "main_path_g_bf16": g_main_bf16,
           "a_and_m_instances": resident, "probe_instances": probes,
           "band_instances": band,
@@ -4459,6 +4534,274 @@ def phase_kernels_h(dev):
     return err
 
 
+# ---------------------------------------------------------------------------
+# The sharded 3D family's bfloat16 forms (H-fused, H and the 3D band)
+# ---------------------------------------------------------------------------
+
+def _d_chain_bf16(sk3, g, k, kw):
+    """K launches of heat_d_step3d_bf16 on the global grid ``g``: the grid
+    (the last level) and the last step's residual."""
+    import torch
+
+    u, r = g, None
+    for _ in range(k):
+        out = torch.empty_like(u)
+        r = sk3.slab_step_3d(u, out, **kw)
+        u = out
+    return u, r
+
+
+def _check_h_block_bf16(dev, xch, b, us, k, kw, want, want_res, err):
+    """Every bfloat16 H form at depth ``k`` on block ``b`` (the bfloat16
+    exchange ``xch`` has run all three phases), into NaN-filled outputs:
+    H-fused (its one load), H on the contiguous circular block and on the
+    padded one under both loads; each bitwise its plain version, the
+    others and ``want``, the K launches of heat_d_step3d_bf16 (and F's
+    bfloat16 K steps) on the same cells; its grid independent of
+    with_residual; and where x is sharded and the block has 2K x-planes,
+    the deferred bulk plus the band, spliced in place, bitwise the
+    monolithic form, grid and max residual. Returns the block's
+    residual."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+
+    bs = tuple(us[b].shape)
+    o = xch.mesh.origin(b, bs)
+    h_kw = dict(origin=o, **kw)
+    cell = want[tuple(slice(a, a + n) for a, n in zip(o, bs))]
+    contiguous = torch.empty(xch.circular_shape, dtype=torch.bfloat16,
+                             device=dev)
+    xch.assemble_circular(b, us[b], contiguous)
+    padded = xch.new_circular()
+    xch.assemble_circular(b, us[b], padded)
+    check(skb3.h_block_load(padded) == "tma",
+          f"the padded bfloat16 circular block {tuple(padded.stride())} "
+          f"takes no TMA load")
+    pieces = xch.pieces(b)
+    nan = float("nan")
+    runs = {
+        ("heat_h_block_3d_fused_bf16", "plain"): (
+            lambda out, r: skb3.h_block_fused(us[b], *pieces, out, k, r,
+                                              **h_kw),
+            lambda out: skb3.h_block_fused_plain(us[b], *pieces, out, k,
+                                                 **h_kw)),
+        **{("heat_h_block_3d_bf16", f"{load} {what}"): (
+            lambda out, r, e=e, load=load: skb3.h_block(e, out, k, r,
+                                                        load=load, **h_kw),
+            lambda out, e=e: skb3.h_block_plain(e, out, k, **h_kw))
+           for what, e, load in (
+               ("contiguous", contiguous, skb3.h_block_load(contiguous)),
+               ("padded", padded, "cp.async"), ("padded", padded, "tma"))}}
+    first = None
+    for (name, load), (launch, plain) in runs.items():
+        where = (f"{name} (K={k}, {load}) on block {o} of "
+                 f"{kw['grid_shape']} {kw}")
+        got, ref, nores = (torch.full(bs, nan, dtype=torch.bfloat16,
+                                      device=dev) for _ in range(3))
+        r = launch(got, True)
+        launch(nores, False)
+        rp = plain(ref)
+        torch.cuda.synchronize()
+        d = float((got.float() - ref.float()).abs().nan_to_num(0).max())
+        err[name] = max(err[name], d)
+        check(_bits_equal(got, ref) and same_float(r, rp),
+              f"{where} != its plain version: max diff {d}, residual "
+              f"{float(r)} vs {float(rp)}")
+        check(_bits_equal(got, cell), f"{where} != {k} launches of "
+              f"heat_d_step3d_bf16 on the global grid")
+        check(_bits_equal(got, nores),
+              f"{where}: grid depends on with_residual")
+        first = r if first is None else first
+        check(same_float(r, first), f"{where}: residual {float(r)} differs "
+              f"from H-fused's {float(first)}")
+    if xch.halos[0] and bs[0] >= 2 * k:
+        zt, yt, _, _ = pieces
+        split = torch.full(bs, nan, dtype=torch.bfloat16, device=dev)
+        rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k, True,
+                                defer_x=True, **h_kw)
+        torch.cuda.synchronize()
+        check(bool(split[:k].isnan().all()
+                   and split[bs[0] - k:].isnan().all()),
+              f"the bfloat16 deferred bulk (K={k}) on block {o} wrote a "
+              f"band plane")
+        rf = skb3.h_band_fix(us[b], *pieces, split, k, True, **h_kw)
+        torch.cuda.synchronize()
+        err["heat_h_band_fix_3d_bf16"] = max(
+            err["heat_h_band_fix_3d_bf16"],
+            float((split.float() - cell.float()).abs().nan_to_num(0).max()))
+        check(_bits_equal(split, cell)
+              and same_float(torch.maximum(rb, rf), first),
+              f"the bfloat16 deferred bulk + band (K={k}) on block {o} != "
+              f"the monolithic form (residuals {float(rb)}, {float(rf)} vs "
+              f"{float(first)})")
+    del contiguous, padded
+    return first
+
+
+def _check_h_band_blocks_bf16(dev, xch, us, k, kw, want, err):
+    """The bfloat16 band over every block of ``xch``'s mesh in one launch,
+    under each load the blocks take (``cells`` always, ``vec`` where
+    bz % 8 == 0), into NaN-filled outputs: bitwise the batched plain
+    version and ``want`` on the band planes, nothing written between the
+    bands. Returns the loads run."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+
+    mesh = xch.mesh
+    bs = tuple(us[0].shape)
+    origins = [mesh.origin(b, bs) for b in range(mesh.size)]
+    pieces = (xch.ztail, xch.ytail, xch.xlo, xch.xhi)
+    nan = float("nan")
+
+    def fresh():
+        return [torch.full(bs, nan, dtype=torch.bfloat16, device=dev)
+                for _ in us]
+
+    plain = fresh()
+    rp = skb3.band_fix_blocks_3d_plain(us, *pieces, plain, k, True,
+                                       origins=origins, **kw)
+    picked = skb3.BandLaunch3D(us, *pieces, plain, k, origins=origins,
+                               **kw).load
+    loads = sorted({"cells", picked})
+    for load in loads:
+        got = fresh()
+        launch = skb3.BandLaunch3D(us, *pieces, got, k, origins=origins,
+                                   load=load, **kw)
+        check(launch.name == "heat_h_band_fix_3d_bf16",
+              f"a bfloat16 band launches {launch.name}")
+        r = launch(True)
+        torch.cuda.synchronize()
+        where = (f"the bfloat16 band ({load} load) over the {mesh.size} "
+                 f"blocks {bs} of {kw['grid_shape']} at K={k}")
+        for b, (a, c) in enumerate(zip(got, plain)):
+            cell = want[tuple(slice(o, o + n)
+                              for o, n in zip(origins[b], bs))]
+            err["heat_h_band_fix_3d_bf16"] = max(
+                err["heat_h_band_fix_3d_bf16"],
+                float((a.float() - c.float()).abs().nan_to_num(0).max()))
+            check(_bits_equal(a, c), f"{where} != the plain version on "
+                                     f"block {b}")
+            check(_bits_equal(a[:k], cell[:k])
+                  and _bits_equal(a[bs[0] - k:], cell[bs[0] - k:]),
+                  f"{where} != heat_d_step3d_bf16's K steps on block {b}'s "
+                  f"band planes")
+            check(bool(a[k:bs[0] - k].isnan().all()),
+                  f"{where} wrote planes between the bands of block {b}")
+        check(same_float(r, rp), f"{where}: residual {float(r)} != the "
+              f"plain version's {float(rp)}")
+        del got
+    del plain
+    return loads
+
+
+def phase_kernels_h_bf16(dev):
+    """The bfloat16 forms of H-fused, H and the 3D band on the card, each
+    bit for bit its plain version, the other forms, F's bfloat16 K steps
+    and K launches of ``heat_d_step3d_bf16`` on the same cells of the
+    global grid: at the main path's 512^3 blocks of 1024^3 (K = 3); at
+    every compiled K on 67 x 128 x 92 ((3, 3, 3)), 20 x 128 x 252
+    ((3, 3, 3)), 6 x 128 x 72 ((2, 2, 2), K <= 6) and 40 x 128 x 96
+    ((2, 4, 1)); at K = 1, 3, 6 on 6 x 50 x 70 ((2, 2, 2): lanes that
+    straddle the z tail); on contiguous and padded circular blocks; every
+    tile kind of H (``hc_tile_kinds`` at 2-byte cells) and of the band
+    (``h_band_tile_kinds``) asserted run; the bulk plus the band bit for
+    bit the monolithic form; the band's one launch under both loads; and
+    NaN-seeded 80^3 and 40 x 256 x 256 on (2, 2, 2) (40^3 and 20 x 128 x
+    128 blocks: payloads kept, NaN residuals, faces bit for bit). Returns
+    max |diff| each (0.0)."""
+    import torch
+
+    from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    p = params()
+    err = {name: 0.0 for name in KERNELS_H_BF16}
+    every_k = list(range(1, p.h_k_max() + 1))
+    h_every = list(range(1, p.hc_k_max(2) + 1))
+    kw3 = dict(zip(("cx", "cy", "cz"), UNEQUAL_3D))
+    plan = [(SHARD3_MESH, (SHARD3_N // 2,) * 3, [p.h_k_default], [0, 7],
+             False),
+            ((3, 3, 3), (67, 128, 92), every_k, [0, 9, 12, 13], False),
+            ((3, 3, 3), (20, 128, 252), h_every, [0, 13, 26], False),
+            ((2, 2, 2), (6, 128, 72), [k for k in h_every if k <= 6],
+             list(range(8)), False),
+            ((2, 4, 1), (40, 128, 96), h_every, [0, 5], False),
+            ((2, 2, 2), (6, 50, 70), [1, 3, 6], list(range(8)), False),
+            (SHARD3_MESH, (40, 40, 40), [p.h_k_default], list(range(8)),
+             True),
+            (SHARD3_MESH, (20, 128, 128), [p.h_k_default], list(range(8)),
+             True)]
+    h_kinds, band_kinds = {}, {}
+    band_loads, report, nan_res = set(), [], {}
+    for seed, (mesh_shape, block, depths, blocks, nan) in enumerate(plan):
+        grid = tuple(m * n for m, n in zip(mesh_shape, block))
+        g = _rand_bf16_3d(dev, grid, 60 + seed, nan=nan)
+        mesh = HeatMesh(mesh_shape, dev)
+        us = mesh.split(g)
+        kw = dict(grid_shape=grid, **kw3)
+        for k in depths:
+            want, want_res = _d_chain_bf16(sk3, g, k, kw3)
+            f_out = torch.empty_like(g)
+            rf = sk3.xslab_steps_3d(g, f_out, k, True, **kw3)
+            check(_bits_equal(f_out, want) and same_float(rf, want_res),
+                  f"heat_f_temporal3d_bf16(K={k}) on {grid} != {k} launches "
+                  f"of heat_d_step3d_bf16")
+            del f_out
+            xch = temporal3d.DeepExchange3D(mesh, block, k, dev,
+                                            torch.bfloat16)
+            xch.lead(us)
+            xch.last(us)
+            res = [_check_h_block_bf16(dev, xch, b, us, k, kw, want,
+                                       want_res, err) for b in blocks]
+            if len(blocks) == mesh.size:
+                check(same_float(torch.stack(res).amax(), want_res),
+                      f"the bfloat16 blocks' residual on {grid} at K={k} != "
+                      f"the D chain's {float(want_res)}")
+            if nan:
+                key = f"{'x'.join(map(str, block))} K={k}"
+                nan_res[key] = float(torch.stack(res).amax())
+                check(math.isnan(nan_res[key]) and _faces_kept(want, g),
+                      f"the NaN-seeded {block} blocks gave a residual "
+                      f"{nan_res[key]}, or a face moved")
+            if xch.halos[0] and block[0] >= 2 * k:
+                band_loads.update(_check_h_band_blocks_bf16(
+                    dev, xch, us, k, kw, want, err))
+            for b in blocks:
+                o = mesh.origin(b, block)
+                for kind, n in p.hc_tile_kinds(block, k, xch.halos, o, grid,
+                                               elem=2).items():
+                    h_kinds[kind] = h_kinds.get(kind, 0) + n
+                if xch.halos[0] and block[0] >= 2 * k:
+                    for kind, n in p.h_band_tile_kinds(
+                            block, k, xch.halos, o, grid, elem=2).items():
+                        band_kinds[kind] = band_kinds.get(kind, 0) + n
+            del want, xch
+        report.append({"grid": list(grid), "mesh": list(mesh_shape),
+                       "block": list(block), "k": depths, "blocks": blocks,
+                       "nan_seeded": nan})
+        del g, us
+        torch.cuda.empty_cache()
+    missing = sorted(kind for kind, n in h_kinds.items() if n == 0)
+    check(not missing, f"kernels_h_bf16: no H tile of the kinds {missing} "
+                       f"ran ({h_kinds})")
+    missing = sorted(kind for kind, n in band_kinds.items() if n == 0)
+    check(not missing and band_loads == set(skb3.BAND_LOADS_3D),
+          f"kernels_h_bf16: no band tile of the kinds {missing} ran "
+          f"({band_kinds}), or the loads {sorted(band_loads)} ran")
+    emit({"phase": "kernels_h_bf16", "ok": True, "coeffs": kw3,
+          "checks": report, "h_tile_kinds": h_kinds,
+          "band_tile_kinds": band_kinds, "band_loads": sorted(band_loads),
+          "nan_residual": nan_res, "max_abs_err": err,
+          "bitwise_plain_each_other_f_and_d_chain": True,
+          "deferred_plus_band_is_monolithic": True})
+    return err
+
+
 def _sharded_run_3d(cfg, expect, label, force=None):
     """solve(cfg) with the counts set to 0 just before and read just
     after, pinned at site block_temporal_3d when ``force`` is given; the
@@ -4640,6 +4983,148 @@ def phase_cli_sharded_3d():
               "the 3D sharded CLI's .npy differs from the one-block grid")
     emit({"phase": "cli_sharded_3d", "ok": True,
           "stdout": proc.stdout.strip().splitlines()})
+
+
+def phase_sharded_main_path_3d_bf16():
+    """1024^3 bfloat16 on (2, 2, 2), 200 steps: the default resolution
+    (K = 3, H-fused's bfloat16 form, monolithic), the phase schedule, H
+    and H-defer pinned (the bfloat16 band once a round), the counts set to
+    0 before each run and read after, exactly each run's launches; every
+    grid bit for bit the one-block bfloat16 run (kernel F's bfloat16
+    form); the default run's stream in chunks of 40 at pipeline depth 2,
+    bit for bit solve(). Then 512^3 bfloat16 on (2, 4, 1) bit for bit its
+    one-block run; 64^3 bfloat16 on (2, 2, 2) to eps with the one-block
+    run's steps_run, converged, residual and grid; and the CLI with
+    --mesh 2,2,2 --dtype bfloat16 at 64^3, the one-block run's .npy
+    bytes. Returns each bfloat16 H kernel's launches."""
+    import torch
+
+    from parallel_heat_tpu_torch import HeatConfig, explain, solve
+    from parallel_heat_tpu_torch.ops import stencil_kernels as sk
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.solver import solve_stream
+    from parallel_heat_tpu_torch.utils.io import save_npy
+
+    k = params().h_k_default
+    n = SHARD3_N
+    one_cfg = HeatConfig(nx=n, ny=n, nz=n, steps=MAIN_STEPS,
+                         dtype="bfloat16")
+    cfg = one_cfg.replace(mesh_shape=SHARD3_MESH)
+    resolved = explain(cfg)
+    check(resolved["halo_depth"] == f"{k} (auto)"
+          and resolved["decided_by"]["block_temporal_3d"]["choice"]
+          == "H-fused" and "heat_h_block_3d_fused_bf16" in resolved["path"],
+          f"{n}^3 bf16 on {SHARD3_MESH} resolved to {resolved}")
+    one = solve(one_cfg)
+    check(one.grid.dtype == torch.bfloat16
+          and bool(torch.isfinite(one.grid).all()),
+          f"the one-block {n}^3 bf16 grid is not finite bfloat16")
+    cells = n ** 3 * MAIN_STEPS / 1e6
+    blocks = math.prod(SHARD3_MESH)
+    rounds = -(-MAIN_STEPS // k)
+    per = rounds * blocks
+    fused, band = "heat_h_block_3d_fused_bf16", "heat_h_band_fix_3d_bf16"
+    runs = [("default", cfg, None, {fused: per}),
+            ("phase", cfg.replace(halo_overlap="phase"), None, {fused: per}),
+            ("H", cfg, "H", {"heat_h_block_3d_bf16": per}),
+            ("H-defer", cfg.replace(halo_overlap="overlap"), "H-defer",
+             {fused: per, band: rounds})]
+    out, launches = {}, {}
+    one_s = one.elapsed_s
+    for label, c, force, expect in runs:
+        res, counts = _sharded_run_3d(c, expect, f"{n}^3 bf16 {label}",
+                                      force)
+        check(res.steps_run == MAIN_STEPS and res.grid.dtype == torch.bfloat16
+              and _bits_equal(res.grid, one.grid),
+              f"{n}^3 bf16 on {SHARD3_MESH} {label} differs from the "
+              f"one-block run")
+        out[label] = {"elapsed_s": res.elapsed_s,
+                      "mcells_steps_per_s": cells / res.elapsed_s,
+                      "ratio_to_one_block": res.elapsed_s / one_s,
+                      "launches": {name: counts[name] for name in expect}}
+        if label != "phase":
+            for name in expect:
+                launches.setdefault(name, counts[name])
+        del res
+        torch.cuda.empty_cache()
+    busy = _busy(lambda: solve(cfg), f"{n}^3 bf16 on {SHARD3_MESH} profiled")
+    seen = []
+    for r in solve_stream(cfg, chunk_steps=40, pipeline_depth=2):
+        seen.append(r.steps_run)
+        last = r.grid
+    check(seen == list(range(40, MAIN_STEPS + 1, 40))
+          and _bits_equal(last, one.grid),
+          f"{n}^3 bf16 on {SHARD3_MESH} stream yields {seen}, bitwise "
+          f"{_bits_equal(last, one.grid)}")
+    del one, last
+    torch.cuda.empty_cache()
+    # 512^3 on the z-free (2, 4, 1).
+    cube = HeatConfig(nx=CUBE, ny=CUBE, nz=CUBE, steps=MAIN_STEPS,
+                      dtype="bfloat16")
+    ref = solve(cube)
+    res, _ = _sharded_run_3d(cube.replace(mesh_shape=(2, 4, 1)),
+                             {fused: rounds * 8}, f"{CUBE}^3 bf16 (2, 4, 1)")
+    check(_bits_equal(res.grid, ref.grid),
+          f"{CUBE}^3 bf16 on (2, 4, 1) differs from the one-block run")
+    small = {"elapsed_s": res.elapsed_s,
+             "one_block_elapsed_s": ref.elapsed_s,
+             "ratio_to_one_block": res.elapsed_s / ref.elapsed_s}
+    del res, ref
+    torch.cuda.empty_cache()
+    # 64^3 on (2, 2, 2) to eps from values in [0, 1): rounds of 3 + ... +
+    # 2 a window of 20; at bfloat16 the residual stops at 2^-9 (an ulp at
+    # 0.5), which eps = 2e-3 is just above.
+    init = torch.from_numpy(np.random.default_rng(32).uniform(
+        0, 1, (64, 64, 64)).astype(np.float32)).to(torch.bfloat16)
+    ccfg = HeatConfig(nx=64, ny=64, nz=64, steps=2000, converge=True,
+                      eps=2e-3, check_interval=WINDOW, dtype="bfloat16")
+    cone = solve(ccfg, initial=init)
+    windows = cone.steps_run // WINDOW
+    sk.reset_counts()
+    cmesh = solve(ccfg.replace(mesh_shape=SHARD3_MESH), initial=init)
+    counts = {name: c for name, c in sk.counts.items() if c}
+    check(cone.converged and counts == {fused: windows * -(-WINDOW // k) * 8},
+          f"64^3 bf16 (2, 2, 2) converge: counts {counts} for {windows} "
+          f"windows, converged {cone.converged}")
+    check((cmesh.steps_run, cmesh.converged) == (cone.steps_run,
+                                                  cone.converged)
+          and same_float(cmesh.residual, cone.residual)
+          and _bits_equal(cmesh.grid, cone.grid),
+          f"64^3 bf16 (2, 2, 2) converge: {cmesh.steps_run} steps, "
+          f"{cmesh.converged}, {cmesh.residual}; one block: "
+          f"{cone.steps_run}, {cone.converged}, {cone.residual}")
+    converge = {"steps_run": cmesh.steps_run, "converged": cmesh.converged,
+                "residual": cmesh.residual, "elapsed_s": cmesh.elapsed_s,
+                "one_block_elapsed_s": cone.elapsed_s, "launches": counts}
+    # The CLI on (2, 2, 2) at bfloat16: the one-block run's .npy bytes.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh3d.npy")
+        cmd = [sys.executable, "-m", "parallel_heat_tpu_torch", "--nx", "64",
+               "--ny", "64", "--nz", "64", "--steps", "100", "--mesh",
+               "2,2,2", "--dtype", "bfloat16", "--out", path]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0,
+              f"bf16 3D sharded CLI exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, "ref.npy")
+        save_npy(ref, solve(HeatConfig(nx=64, ny=64, nz=64, steps=100,
+                                       dtype="bfloat16")).grid.cpu())
+        with open(path, "rb") as a, open(ref, "rb") as b:
+            check(a.read() == b.read(), "the bf16 3D sharded CLI's .npy "
+                                        "differs from the one-block grid")
+    emit({"phase": "sharded_main_path_3d_bf16", "ok": True,
+          "shape": [n] * 3, "mesh": list(SHARD3_MESH), "dtype": "bfloat16",
+          "block": [n // d for d in SHARD3_MESH], "steps": MAIN_STEPS,
+          "k": k, "resolved": resolved["path"],
+          "one_block": {"elapsed_s": one_s,
+                        "mcells_steps_per_s": cells / one_s},
+          "runs": out, "bitwise_one_block": True, "profiled_default": busy,
+          "stream": {"chunk_steps": 40, "pipeline_depth": 2, "yields": seen,
+                     "bitwise_solve": True},
+          "cube_512_2x4x1": small, "converge_64_2x2x2": converge,
+          "cli": proc.stdout.strip().splitlines()})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5773,6 +6258,7 @@ KERNELS_BF16 = {
     "heat_d_step3d_bf16": ("heat_d_step3d", TPU + ":3708"),
     "heat_f_temporal3d_bf16": ("heat_f_temporal3d_bf16", TPU + ":3932"),
     **KERNELS_G_BF16,
+    **KERNELS_H_BF16,
 }
 # F's bfloat16 launch shapes for the shape rule's check on the card:
 # (lanes, warps), rows, K, legal and not (heat_f_takes at 2-byte cells
@@ -7296,6 +7782,7 @@ def phase_timing_bf16(dev):
     torch.cuda.empty_cache()
     rows.update(_timing_3d_bf16(dev))
     rows.update(_timing_g_bf16(dev))
+    rows.update(_timing_h_bf16(dev))
     emit({"phase": "timing_bf16", "kernels": rows})
     return rows
 
@@ -7371,6 +7858,176 @@ def _timing_3d_bf16(dev):
     return rows
 
 
+def _timing_h_bf16(dev):
+    """The bfloat16 H family at the sharded 3D main path's block (512^3
+    of 1024^3 on (2, 2, 2), K = h_k_default, no residual), beside its
+    float32 twins on the same blocks in float32, timed here in turns:
+    H-fused's bfloat16 form (the monolithic round's launch), its deferred
+    bulk, H's on the padded circular block (TMA) and the bfloat16 band's
+    launch over the round's 8 blocks; each with CUDA events and the
+    profiler's device time, its plain version, ``conv3d`` in bfloat16
+    chained K times on the framed block (the band's on its 16 windows)
+    and its bound at 2 B a cell (half the float32 bytes); and whole
+    bfloat16 rounds of the 8 blocks under each kind."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallel_heat_tpu_torch import tune
+    from parallel_heat_tpu_torch.models import HeatPlate3D
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.ops.hopper_params import params
+    from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    k = params().h_k_default
+    grid = (SHARD3_N,) * 3
+    mesh = HeatMesh(SHARD3_MESH, dev)
+    bs = mesh.block_shape(grid)
+    bx, by, bz = bs
+    plate = HeatPlate3D(*grid)
+    origins = [mesh.origin(i, bs) for i in range(mesh.size)]
+    b = mesh.size - 1
+    o = origins[b]
+    kw = dict(origin=o, grid_shape=grid, cx=CX, cy=CY, cz=CX)
+    a0, cx, cy, cz = coeffs3_f32(CX, CY, CX)
+    w = torch.zeros((3, 3, 3), dtype=torch.bfloat16, device=dev)
+    w[1, 1, 1] = a0
+    w[0, 1, 1] = w[2, 1, 1] = cx
+    w[1, 0, 1] = w[1, 2, 1] = cy
+    w[1, 1, 0] = w[1, 1, 2] = cz
+    w = w.view(1, 1, 3, 3, 3)
+
+    def conv_steps(x):
+        for _ in range(k):
+            x = F.conv3d(x, w)
+        return x
+
+    # Both dtypes' blocks, exchanges and buffers, so that each bfloat16
+    # launch is timed beside its float32 twin.
+    state = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        us = [plate.init_block(dev, oi, bs, str(dtype).split(".")[1])
+              for oi in origins]
+        xch = temporal3d.DeepExchange3D(mesh, bs, k, dev, dtype)
+        xch.lead(us)
+        xch.last(us)
+        ext = xch.new_circular()
+        xch.assemble_circular(b, us[b], ext)
+        vs = [torch.empty_like(u) for u in us]
+        pieces = (xch.ztail, xch.ytail, xch.xlo, xch.xhi)
+        state[dtype] = (us, xch, ext, vs, pieces, skb3.BandLaunch3D(
+            us, *pieces, vs, k, origins=origins, grid_shape=grid, cx=CX,
+            cy=CY, cz=CX))
+    us, xch, ext, vs, pieces, band_launch = state[torch.bfloat16]
+    zt, yt, xlo, xhi = xch.pieces(b)
+    v = vs[b]
+    frame = torch.zeros(tuple(n + 2 * k for n in bs), dtype=torch.bfloat16,
+                        device=dev)
+    xch.assemble_padded(b, us[b], frame)
+    framed = frame.view(1, 1, *frame.shape)
+    lead = frame[k:k + bx].contiguous().view(1, 1, bx, by + 2 * k,
+                                             bz + 2 * k)
+    bands = torch.empty((2 * mesh.size, 1, 3 * k, by + 2 * k, bz + 2 * k),
+                        dtype=torch.bfloat16, device=dev)
+    padded = torch.zeros_like(frame)
+    for i in range(mesh.size):
+        xch.assemble_padded(i, us[i], padded)
+        bands[2 * i, 0] = padded[:3 * k]
+        bands[2 * i + 1, 0] = padded[bx - k:]
+    del padded
+    f = 2  # bytes a bfloat16 cell
+    ops = OPS_PER_CELL_STEP_3D * k
+    inner = _interior_cells_3d(o, bs, grid)
+    bulk_inner = _interior_cells_3d((o[0] + k,) + o[1:], (bx - 2 * k, by, bz),
+                                    grid)
+    plane = by * bz
+    tails = bx * by * 2 * k + bx * 2 * k * (bz + 2 * k)
+    slabs = 2 * k * (by + 2 * k) * (bz + 2 * k)
+
+    def twin(dtype, key):
+        us_, xch_, ext_, vs_, _, band_ = state[dtype]
+        zt_, yt_, xlo_, xhi_ = xch_.pieces(b)
+        return {"heat_h_block_3d_fused": lambda: skb3.h_block_fused(
+                    us_[b], zt_, yt_, xlo_, xhi_, vs_[b], k, False, **kw),
+                "heat_h_block_3d_fused@bulk": lambda: skb3.h_block_fused(
+                    us_[b], zt_, yt_, None, None, vs_[b], k, False,
+                    defer_x=True, **kw),
+                "heat_h_block_3d": lambda: skb3.h_block(ext_, vs_[b], k,
+                                                        False, **kw),
+                "heat_h_band_fix_3d": lambda: band_(False)}[key]
+
+    timed = {
+        "heat_h_block_3d_fused": (
+            lambda: skb3.h_block_fused_plain(us[b], zt, yt, xlo, xhi, v, k,
+                                             False, **kw),
+            lambda: conv_steps(framed),
+            (f * (2 * bx * plane + tails + slabs), ops * inner)),
+        "heat_h_block_3d_fused@bulk": (
+            lambda: skb3.h_block_fused_plain(us[b], zt, yt, None, None, v,
+                                             k, False, defer_x=True, **kw),
+            lambda: conv_steps(lead),
+            (f * ((2 * bx - 2 * k) * plane + tails), ops * bulk_inner)),
+        "heat_h_block_3d": (
+            lambda: skb3.h_block_plain(ext, v, k, False, **kw),
+            lambda: conv_steps(framed),
+            (f * (math.prod(xch.circular_shape) + bx * plane), ops * inner)),
+        "heat_h_band_fix_3d": (
+            lambda: skb3.band_fix_blocks_3d_plain(
+                us, *pieces, vs, k, False, origins=origins, grid_shape=grid,
+                cx=CX, cy=CY, cz=CX),
+            lambda: conv_steps(bands),
+            (mesh.size * f * (4 * k * plane + tails * 4 * k // bx + slabs
+                              + 2 * k * plane),
+             ops * sum(_interior_cells_3d(oi, bs, grid)
+                       - _interior_cells_3d((oi[0] + k,) + oi[1:],
+                                            (bx - 2 * k, by, bz), grid)
+                       for oi in origins))),
+    }
+    rows = {}
+    for key, (plain, library, (nbytes, nops)) in timed.items():
+        f32, _, part = key.partition("@")
+        name = f32 + "_bf16"
+        kernel, twin32 = twin(torch.bfloat16, key), twin(torch.float32, key)
+        # The two dtypes in turns, twice.
+        ms, ms32 = [], []
+        for order in ((kernel, ms), (twin32, ms32)), ((twin32, ms32),
+                                                      (kernel, ms)):
+            for fn, acc in order:
+                acc.append(_time_ms(fn, 20, 3))
+        row = {"block": list(bs), "k": k, "ms": sum(ms) / 2, "ms_runs": ms,
+               "plain_ms": _time_ms(plain, 2, 1),
+               "library_ms": _time_ms(library, 5, 1),
+               **_bound(nbytes, nops),
+               "float32_ms": sum(ms32) / 2, "float32_ms_runs": ms32,
+               "float32_device_ms": _device_ms(twin32, f32)["device_ms"]}
+        row.update(_device_ms(kernel, name))
+        rows[name + ("@" + part if part else "")] = row
+    rows["heat_h_block_3d_fused_bf16"]["load"] = skb3.h_load(bs, k, us[b])
+    rows["heat_h_block_3d_bf16"]["load"] = skb3.h_block_load(ext)
+    rows["heat_h_band_fix_3d_bf16"].update(blocks=mesh.size,
+                                           load=band_launch.load,
+                                           shape=list(band_launch.shape))
+    rows["heat_h_block_3d_fused_bf16"]["blocks_per_sm"] = (
+        skb3.h_fused_occupancy(k, "plain", dtype="bfloat16"))
+    rows["heat_h_block_3d_bf16"]["blocks_per_sm"] = skb3.h_occupancy(
+        k, "bfloat16")
+    # Whole bfloat16 rounds of the 8 blocks under each kind, in turns.
+    with tune.force("block_temporal_3d", "H-defer"):
+        round_fns = {kind: temporal3d.cuda_round_3d(
+            xch, kind, "overlap", grid_shape=grid, cx=CX, cy=CY, cz=CX)
+            for kind in ("H-fused", "H", "H-defer")}
+    round_runs = {kind: [] for kind in round_fns}
+    for order in (list(round_fns), list(round_fns)[::-1]):
+        for kind in order:
+            round_runs[kind].append(_time_ms(
+                lambda fn=round_fns[kind]: fn(us, vs, False), 10, 2))
+    rows["heat_h_block_3d_fused_bf16"]["round_ms_runs"] = round_runs
+    del state, us, vs, xch, ext, v, frame, framed, lead, bands, band_launch
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -7411,9 +8068,11 @@ def main() -> int:
         phase_cli_sharded()
         launches.update(phase_sharded_main_path_bf16())
         err.update(phase_kernels_h(dev))
+        err.update(phase_kernels_h_bf16(dev))
         launches.update(phase_sharded_main_path_3d())
         phase_sharded_converge_3d()
         phase_cli_sharded_3d()
+        launches.update(phase_sharded_main_path_3d_bf16())
         phase_device_loop()
         phase_stream()
         t = phase_timing(dev)

@@ -1143,9 +1143,6 @@ def _plan_g_block(kind, block_shape, k, origin=(0, 0), grid_shape=None,
 # ---------------------------------------------------------------------------
 
 H_KERNELS = {"H-fuse": "heat_h_block_3d_fused"}
-# The 3D band's __global__ function (csrc/heat_h_band_fix_3d.cu, the
-# round's launch on F's plane loop: plan_h_band).
-H_BAND_KERNEL = "heat_h_band_fix_3d_kernel"
 
 
 def _hc_kinds(spans):
@@ -1162,7 +1159,7 @@ def _hc_kinds(spans):
 
 
 def plan_hc(block_shape, k, origin=(0, 0, 0), grid_shape=None,
-            load="tma") -> Plan:
+            load="tma", bf16=False) -> Plan:
     """Kernel H (``heat_h_block_3d``, F's plane loop on the assembled
     circular block) on a ``(bx, by, bz)`` block at ``origin`` under
     ``load``: with "tma" the block's rows padded to a multiple of 4
@@ -1172,24 +1169,29 @@ def plan_hc(block_shape, k, origin=(0, 0, 0), grid_shape=None,
     under "cp.async", a 4-byte cp.async a cell, written here in frame
     coordinates (the circular block's cells in the padded ``[lo | u |
     hi]`` order, guarded by the K-deep frame), as ``hc_launch`` launches
-    it (``csrc/heat_h_block_3d.cu``)."""
+    it (``csrc/heat_h_block_3d.cu``). With ``bf16`` the bfloat16 form
+    (``heat_h_block_3d_bf16``): a ring of 2-byte cells, a halo of 8 cells
+    along Z, rows padded to 8 cells, bfloat16 boxes, and the wrapped
+    tiles' 8-byte copies or plain 2-byte loads (each tested against the
+    frame), as F's bfloat16 form."""
     p = _p()
+    elem = 2 if bf16 else 4
     bx, by, bz = block_shape
     grid_shape = grid_shape or block_shape
     halos = tuple(k if b < n else 0 for b, n in zip(block_shape, grid_shape))
     hx, hy, hz = halos
-    block, rows, prefetch, seg = p.hc_launch(block_shape, k)
+    block, rows, prefetch, seg = p.hc_launch(block_shape, k, elem=elem)
     warps = block[1]
     wy, wz = p.f_extent(block, rows)
-    P = p.f_pad(k)
+    P = p.f_pad(k, elem)
     ty_out, tz_out = wy - 2 * k, wz - 2 * P
     tiles_y, tiles_z = _ceil(by, ty_out), _ceil(bz, tz_out)
     n_seg = _ceil(bx, seg)
     ext_x, ye, ze = bx + 2 * hx, by + 2 * hy, bz + 2 * hz
-    pitch = p.hc_pitch(ze) if load == "tma" else ze
+    pitch = p.hc_pitch(ze, elem) if load == "tma" else ze
     slots = prefetch + 2
     slot_f = (wy + 2) * wz
-    box_bytes = 4 * wz * wy
+    box_bytes = elem * wz * wy
     threads = 32 * warps
     tma = load == "tma"
     oy, oz = origin[1], origin[2]
@@ -1241,24 +1243,28 @@ def plan_hc(block_shape, k, origin=(0, 0, 0), grid_shape=None,
                                 count)
 
     edge = (min(rows, 2) * warps + 2) * wz
-    slot_map = {f"ring{i}": (4 * i * slot_f, 4 * slot_f)
+    slot_map = {f"ring{i}": (elem * i * slot_f, elem * slot_f)
                 for i in range(slots)}
-    slot_map["levels"] = (4 * slots * slot_f, 4 * 2 * (k - 1) * edge)
-    slot_map["bars"] = (4 * (slots * slot_f + 2 * (k - 1) * edge),
+    slot_map["levels"] = (elem * slots * slot_f, 4 * 2 * (k - 1) * edge)
+    slot_map["bars"] = (elem * slots * slot_f + 4 * 2 * (k - 1) * edge,
                         8 * slots)
-    loads = {"plane": Load("cp4", "frame", "ring", wz, (0, wz), streamed=1)}
+    loads = {"plane": Load("ld" if bf16 else "cp4", "frame", "ring", wz,
+                           (0, wz), streamed=1, cell_bytes=elem)}
     if tma:
         loads["box"] = Load("tma", "ext", "ring", wz, (0, wz), streamed=1,
-                            box=(1, wy, wz))
+                            box=(1, wy, wz), cell_bytes=elem)
+    name = "heat_h_block_3d_bf16" if bf16 else "heat_h_block_3d"
     return Plan(
-        kernel="heat_h_block_3d_kernel", entry="heat_h_block_3d",
-        label=f"H {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}",
+        kernel=name + "_kernel", entry=name,
+        label=f"H {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}"
+              + (" bf16" if bf16 else ""),
         grid=n_seg * tiles_y * tiles_z, threads=threads,
-        max_threads=32 * (8 if rows == 4 else 16),
-        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch),
+        max_threads=32 * p.f_max_warps(rows, k, elem),
+        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch, elem),
         static_smem=p.static_smem_bytes,
-        arrays={"ext": Array((ext_x, ye, pitch)),
-                "frame": Array((ext_x, ye, ze)), "out": Array(block_shape)},
+        arrays={"ext": Array((ext_x, ye, pitch), elem=elem),
+                "frame": Array((ext_x, ye, ze), elem=elem),
+                "out": Array(block_shape, elem=elem)},
         output="out",
         axes=[Axis("x", n_seg, xs), Axis("y", tiles_y, ys),
               Axis("z", tiles_z, zs)],
@@ -1269,12 +1275,12 @@ def plan_hc(block_shape, k, origin=(0, 0, 0), grid_shape=None,
         int32=[("TMA box coordinate", max(ext_x, ye, ze)),
                ("row offset yc * pitch + zc", ye * pitch)],
         kinds=p.hc_tile_kinds(block_shape, k, halos, origin, grid_shape,
-                              tma, block, rows),
+                              tma, block, rows, elem),
         kinds_of=_hc_kinds)
 
 
 def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
-           defer=False, load="cp.async") -> Plan:
+           defer=False, load="cp.async", bf16=False) -> Plan:
     """An H-fused-family kernel (``kind`` of :data:`H_KERNELS`) on a
     ``(bx, by, bz)`` block at ``origin``: monolithic or H-fused's deferred
     bulk (``defer``, planes ``[k, bx - k)``), at the launch
@@ -1282,7 +1288,10 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
     load each plane as a TMA box under ``load="tma"`` (H-fused only), the
     x slabs' planes by cp.async; elsewhere the per-cell cp.async ring
     (``heat_t3d_stream``). Loads are in frame coordinates, the block's
-    cells shifted by ``k``."""
+    cells shifted by ``k``. With ``bf16`` the bfloat16 form
+    (``heat_h_block_3d_fused_bf16``, ``load="plain"``): every tile by
+    plain 2-byte loads widened into the float32 ring, no copy in
+    flight."""
     from parallel_heat_tpu_torch.ops.stencil_kernels_block_3d import (
         _geometry)
 
@@ -1290,6 +1299,7 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
     bx, by, bz = block_shape
     grid_shape = grid_shape or block_shape
     tma = load == "tma"
+    elem = 2 if bf16 else 4
     planes = bx - 2 * k if defer else bx
     bzt, byt, rows, seg = _geometry(block_shape, k, planes)
     regions = [(k, bx - 2 * k)] if defer else [(0, bx)]
@@ -1344,14 +1354,16 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
                                     groups=True)
         return _sched_ring_groups(
             t0, t1, p.h_prefetch, p.h_prefetch + 2,
-            lambda slot, t: [("cp_async", slot, 4 * wy * wz)])
+            lambda slot, t: [] if bf16 else [("cp_async", slot,
+                                               4 * wy * wz)])
 
     plane_b = 4 * (wy + 2) * wz
     # The cp.async ring starts at the buffer itself (heat_t3d_stream),
     # the TMA ring at its first 128-byte boundary.
     slots = {f"ring{i}": (i * plane_b, plane_b, 0)
              for i in range(p.h_prefetch + 2)}
-    loads = {"plane": Load("cp4", "frame", "ring", wz, (0, wz), streamed=1)}
+    loads = {"plane": Load("ld" if bf16 else "cp4", "frame", "ring", wz,
+                           (0, wz), streamed=1)}
     dyn = p.h_smem_bytes(k, (bzt, byt), rows)
     slack = 0
     if tma:
@@ -1367,22 +1379,23 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
     else:
         cover, leave = _full(block_shape), []
     ye, ze = by + 2 * k, bz + 2 * k
-    name = H_KERNELS[kind]
+    name = H_KERNELS[kind] + ("_bf16" if bf16 else "")
     what = kind + (" deferred bulk" if defer else "")
     return Plan(
         kernel=name + "_kernel", entry=name,
         label=f"{what} {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}",
         grid=len(xsegs) * tiles_y * tiles_z, threads=bzt * byt,
         max_threads=512, dyn_smem=dyn, static_smem=p.static_smem_bytes,
-        arrays={"frame": Array((bx + 2 * k, ye, ze)),
-                "u": Array(block_shape), "out": Array(block_shape)},
+        arrays={"frame": Array((bx + 2 * k, ye, ze), elem=elem),
+                "u": Array(block_shape, elem=elem),
+                "out": Array(block_shape, elem=elem)},
         output="out",
         axes=[Axis("x", len(xsegs), xs), Axis("y", tiles_y, ys),
               Axis("z", tiles_z, zs)],
         loads=loads, slots=slots, align_slack=slack, cover=cover,
         leave=leave, schedule=schedule,
         group=(f"H {bx}x{by}x{bz} at {tuple(origin)} K={k}"
-               if defer else None),
+               + (" bf16" if bf16 else "") if defer else None),
         # HeatHStrides and the per-row offsets are int32 (heat_h.cuh:80,
         # :243); heat_h_launch refuses ye * ze past it.
         int32=[("plane stride by * bz", by * bz),
@@ -1391,7 +1404,7 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
 
 
 def plan_h_band(block_shape, k, origins, grid_shape=None, load=None,
-                grouped=True) -> Plan:
+                grouped=True, bf16=False) -> Plan:
     """The 3D band kernel's launch over a round's blocks of
     ``block_shape`` at ``origins`` (``heat_h_band_fix_3d.cu``: one table
     entry a block, the grid (tiles, 2 regions a block), each tile on F's
@@ -1405,19 +1418,21 @@ def plan_h_band(block_shape, k, origins, grid_shape=None, load=None,
     :attr:`~Plan.parts` are each entry's share as a plan of that block,
     so that each joins its block's deferred bulk in the coverage check
     (not ``grouped``: a load the round does not take, whose coverage is
-    checked alone)."""
+    checked alone). ``bf16``: the bfloat16 launch
+    (``heat_h_band_fix_3d_bf16``), as :func:`plan_hc`'s."""
     p = _p()
     grid_shape = grid_shape or block_shape
     if load is None:
-        load = "vec" if p.h_band_vec_fits(block_shape) else "cells"
+        load = ("vec" if p.h_band_vec_fits(block_shape, 2 if bf16 else 4)
+                else "cells")
     n = len(origins)
     guards = [_guards_3d(block_shape, k, o, grid_shape) for o in origins]
     loose = tuple((min(g[d][0] for g in guards), max(g[d][1] for g in guards))
                   for d in range(3))
     base = _plan_h_band_block(block_shape, k, origins[0], grid_shape, load,
-                              guards=loose)
-    parts = [_plan_h_band_block(block_shape, k, o, grid_shape, load)
-             for o in origins]
+                              guards=loose, bf16=bf16)
+    parts = [_plan_h_band_block(block_shape, k, o, grid_shape, load,
+                                bf16=bf16) for o in origins]
     if not grouped:
         parts = [dataclasses.replace(part, group=None) for part in parts]
     bx, by, bz = block_shape
@@ -1429,7 +1444,8 @@ def plan_h_band(block_shape, k, origins, grid_shape=None, load=None,
     tiles = base.grid // 2
     return dataclasses.replace(
         base, label=f"band {bx}x{by}x{bz} x{n} blocks at "
-                    f"{tuple(origins[0])}.. K={k} {load}",
+                    f"{tuple(origins[0])}.. K={k} {load}"
+                    + (" bf16" if bf16 else ""),
         # heat_h_band_fix_3d: (tiles, 2 regions a block) a chunk of
         # BAND_TABLE_3D, so 2 n tiles in all.
         grid=2 * n * tiles,
@@ -1453,26 +1469,29 @@ def _guards_3d(block_shape, k, origin, grid_shape):
 
 
 def _plan_h_band_block(block_shape, k, origin, grid_shape, load,
-                       guards=None) -> Plan:
+                       guards=None, bf16=False) -> Plan:
     """:func:`plan_h_band` on one block; ``guards`` overrides the loads'
     guards (:func:`_guards_3d` of ``origin``). The per-cell load is
     written in frame coordinates (the block's cells shifted by ``k``;
     the pieces' layout, fixed per row in the kernel, maps the frame onto
     them); the 16-byte load's windows in the block's own, the part of
-    each tile's window that lies inside it."""
+    each tile's window that lies inside it. ``bf16``: a ring of 2-byte
+    cells, a halo of 8 cells along Z, 8-byte copies or plain 2-byte loads
+    (the vector load's runs of u untested)."""
     p = _p()
+    elem = 2 if bf16 else 4
     bx, by, bz = block_shape
-    block, rows, prefetch = p.h_band_shape(k)
+    block, rows, prefetch = p.h_band_shape(k, elem)
     warps = block[1]
     wy, wz = p.f_extent(block, rows)
-    P = p.f_pad(k)
+    P = p.f_pad(k, elem)
     ty_out, tz_out = wy - 2 * k, wz - 2 * P
-    tiles_y, tiles_z = p.h_band_tiles(block_shape, k)
+    tiles_y, tiles_z = p.h_band_tiles(block_shape, k, elem=elem)
     g = guards or _guards_3d(block_shape, k, origin, grid_shape)
     vec = load == "vec"
     slots = prefetch + 2
     slot_f = (wy + 2) * wz
-    box_bytes = 4 * wz * wy
+    box_bytes = elem * wz * wy
     threads = 32 * warps
     regions = [0, bx - k]            # heat_h_band_fix_3d_kernel
 
@@ -1518,31 +1537,37 @@ def _plan_h_band_block(block_shape, k, origin, grid_shape, load,
                                 threads)
 
     edge = (min(rows, 2) * warps + 2) * wz
-    slot_map = {f"ring{i}": (4 * i * slot_f, 4 * slot_f)
+    slot_map = {f"ring{i}": (elem * i * slot_f, elem * slot_f)
                 for i in range(slots)}
-    slot_map["levels"] = (4 * slots * slot_f, 4 * 2 * (k - 1) * edge)
-    slot_map["bars"] = (4 * (slots * slot_f + 2 * (k - 1) * edge),
+    slot_map["levels"] = (elem * slots * slot_f, 4 * 2 * (k - 1) * edge)
+    slot_map["bars"] = (elem * slots * slot_f + 4 * 2 * (k - 1) * edge,
                         8 * slots)
-    loads = {"plane": Load("cp4", "frame", "ring", wz, (0, wz), streamed=1)}
+    loads = {"plane": Load("ld" if bf16 else "cp4", "frame", "ring", wz,
+                           (0, wz), streamed=1, cell_bytes=elem)}
     if vec:
-        loads["core"] = Load("cp16", "u", "ring", wz, (0, wz), streamed=1)
+        loads["core"] = Load("ld" if bf16 else "cp16", "u", "ring", wz,
+                             (0, wz), streamed=1, cell_bytes=elem)
     ye, ze = by + 2 * k, bz + 2 * k
+    name = "heat_h_band_fix_3d" + ("_bf16" if bf16 else "")
     return Plan(
-        kernel=H_BAND_KERNEL, entry="heat_h_band_fix_3d",
-        label=f"band {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}",
+        kernel=name + "_kernel", entry=name,
+        label=f"band {bx}x{by}x{bz} at {tuple(origin)} K={k} {load}"
+              + (" bf16" if bf16 else ""),
         grid=2 * tiles_y * tiles_z, threads=threads,
-        max_threads=32 * (8 if rows == 4 else 16),
-        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch),
+        max_threads=32 * p.f_max_warps(rows, k, elem),
+        dyn_smem=p.f_smem_bytes(k, block, rows, prefetch, elem),
         static_smem=p.static_smem_bytes,
-        arrays={"frame": Array((bx + 2 * k, ye, ze)),
-                "u": Array(block_shape), "out": Array(block_shape)},
+        arrays={"frame": Array((bx + 2 * k, ye, ze), elem=elem),
+                "u": Array(block_shape, elem=elem),
+                "out": Array(block_shape, elem=elem)},
         output="out",
         axes=[Axis("x", 2, xs), Axis("y", tiles_y, ys),
               Axis("z", tiles_z, zs)],
         loads=loads, slots=slot_map, align_slack=128,
         cover=[((0, k), (0, by), (0, bz)), ((bx - k, bx), (0, by), (0, bz))],
         leave=[((k, bx - k), (0, by), (0, bz))], schedule=schedule,
-        group=f"H {bx}x{by}x{bz} at {tuple(origin)} K={k}",
+        group=f"H {bx}x{by}x{bz} at {tuple(origin)} K={k}"
+              + (" bf16" if bf16 else ""),
         # The pieces' plane strides and each row's offsets are int32
         # (HeatFLoop's pst, moff, zoff, coff); the launcher refuses
         # ye * ze and by * bz past it.
@@ -1876,6 +1901,36 @@ def default_plans() -> List[Plan]:
             for o in ((0, 0, 0), bshape):
                 out.append(plan_hc(bshape, k, o, grid, "tma"))
             out.append(plan_hc(bshape, k, (0, 0, 0), grid, "cp.async"))
+    # The bfloat16 forms: the default round (H-fused's one load) on the
+    # main path's mesh, H-defer's bulk and band and H pinned there; every K
+    # the pickers admit on the ragged blocks (bz a multiple of 8, of 4 but
+    # not 8, and neither).
+    for o in origins3:
+        out.append(plan_h("H-fuse", block3, k3, o, H_GRID, load="plain",
+                          bf16=True))
+        out.append(plan_h("H-fuse", block3, k3, o, H_GRID, defer=True,
+                          load="plain", bf16=True))
+    out.append(plan_h_band(block3, k3, every3, H_GRID, bf16=True))
+    out.append(plan_h_band(block3, k3, every3, H_GRID, "cells", False,
+                           bf16=True))
+    for o in (origins3[0], origins3[-1]):
+        for load in ("tma", "cp.async"):
+            out.append(plan_hc(block3, k3, o, H_GRID, load, bf16=True))
+    for bshape in ((67, 128, 92), (40, 128, 96), (20, 128, 250)):
+        grid = tuple(2 * b for b in bshape)
+        for k in range(1, p.h_k_max() + 1):
+            out.append(plan_h("H-fuse", bshape, k, (0, 0, 0), grid,
+                              load="plain", bf16=True))
+        for k in range(1, p.h_band_k_max(2) + 1):
+            if bshape[0] >= 2 * k:
+                out.append(plan_h_band(
+                    bshape, k, mesh_block_origins(grid, (2, 2, 2)), grid,
+                    bf16=True))
+        for k in range(1, p.hc_k_max(2) + 1):
+            for o in ((0, 0, 0), bshape):
+                out.append(plan_hc(bshape, k, o, grid, "tma", bf16=True))
+            out.append(plan_hc(bshape, k, (0, 0, 0), grid, "cp.async",
+                               bf16=True))
     out.append(plan_fixture("clean", 16))
     out.append(plan_fixture("clean_tma", 16))
     out.append(plan_fixture("clean_tma", 262144, n_strips=32768))

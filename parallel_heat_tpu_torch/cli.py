@@ -13,8 +13,8 @@ device (``auto`` is the one-device mesh). ``--initial-out`` writes the
 initial grid as ``--out`` writes the final one, ``--quiet`` prints no
 progress lines, and ``--dtype`` and ``--accumulate`` take the JAX CLI's
 names (bfloat16 and float64 on one block, 2D or 3D: the explicit scheme,
-the implicit schemes in 2D and ``--ensemble``; on a 2D mesh both, on a
-3D mesh float64, bfloat16 there refused by ``HeatConfig.validate``).
+the implicit schemes in 2D and ``--ensemble``; on 2D and 3D meshes
+both).
 ``--out`` and ``--ensemble`` write a ``.npy`` as the JAX CLI does, a
 bfloat16 grid or stack by its raw cells (``utils/io.py`` ``save_npy``).
 

@@ -1,8 +1,8 @@
-// The body of the sharded 3D block kernel heat_h_block_3d_fused.cu: K
-// 7-point Jacobi steps on one bx x by x bz block of an nx x ny x nz grid
-// cut over a device mesh, from the block and the K-deep halo its
-// neighbours sent (parallel/temporal3d.py), with the residual of the
-// last step.
+// The body of the sharded 3D block kernel heat_h_block_3d_fused.cu (and
+// of its bfloat16 form, heat_h_block_3d_fused_bf16.cu): K 7-point Jacobi
+// steps on one bx x by x bz block of an nx x ny x nz grid cut over a
+// device mesh, from the block and the K-deep halo its neighbours sent
+// (parallel/temporal3d.py), with the residual of the last step.
 //
 // Replaces one of the kernel-H family of
 // parallel_heat_tpu/ops/pallas_stencil.py (_build_temporal_block_3d_fused).
@@ -86,16 +86,18 @@ struct HeatHStrides {
 // of `seg` planes. The fused form's kernel takes one more parameter,
 // `umap`, the block's tensor map for the TMA load (read by its kTma
 // instances only), a __grid_constant__ parameter whose address the TMA
-// instruction takes.
-#define HEAT_H_PARAMS                                                       \
-  const float *__restrict__ u, const float *__restrict__ zt,                \
-      const float *__restrict__ yt, const float *__restrict__ xlo,          \
-      const float *__restrict__ xhi, float *__restrict__ out,               \
-      uint32_t *res, int64_t nx, int64_t ny, int64_t nz, int64_t bx,        \
-      int64_t by, int64_t bz, int64_t ox, int64_t oy, int64_t oz, int hx,   \
-      int hy, int hz, int64_t r_begin0, int64_t r_begin1, int64_t rows,     \
+// instruction takes. HEAT_H_PARAMS_OF(T): on blocks of T cells (float,
+// or __nv_bfloat16 for the bfloat16 form, heat_h_block_3d_fused_bf16.cu).
+#define HEAT_H_PARAMS_OF(T)                                                 \
+  const T *__restrict__ u, const T *__restrict__ zt,                        \
+      const T *__restrict__ yt, const T *__restrict__ xlo,                  \
+      const T *__restrict__ xhi, T *__restrict__ out, uint32_t *res,        \
+      int64_t nx, int64_t ny, int64_t nz, int64_t bx, int64_t by,           \
+      int64_t bz, int64_t ox, int64_t oy, int64_t oz, int hx, int hy,       \
+      int hz, int64_t r_begin0, int64_t r_begin1, int64_t rows,             \
       int64_t seg, int64_t tiles_z, int64_t tiles_y, HeatHStrides st,       \
       float a0, float cx, float cy, float cz
+#define HEAT_H_PARAMS HEAT_H_PARAMS_OF(float)
 #define HEAT_H_ARGS                                                         \
   u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz, hx,    \
       hy, hz, r_begin0, r_begin1, rows, seg, tiles_z, tiles_y, st, a0, cx,  \
@@ -108,14 +110,16 @@ typedef void (*HeatHKernel)(const float*, const float*, const float*,
                             int, int64_t, int64_t, int64_t, int64_t,
                             int64_t, int64_t, HeatHStrides, float, float,
                             float, float);
-typedef void (*HeatHFusedKernel)(const float*, const float*, const float*,
-                                 const float*, const float*, float*,
-                                 uint32_t*, int64_t, int64_t, int64_t,
-                                 int64_t, int64_t, int64_t, int64_t,
-                                 int64_t, int64_t, int, int, int, int64_t,
-                                 int64_t, int64_t, int64_t, int64_t,
-                                 int64_t, HeatHStrides, float, float, float,
-                                 float, const CUtensorMap);
+template <typename T>
+using HeatHFusedKernelOf = void (*)(const T*, const T*, const T*, const T*,
+                                    const T*, T*, uint32_t*, int64_t,
+                                    int64_t, int64_t, int64_t, int64_t,
+                                    int64_t, int64_t, int64_t, int64_t, int,
+                                    int, int, int64_t, int64_t, int64_t,
+                                    int64_t, int64_t, int64_t, HeatHStrides,
+                                    float, float, float, float,
+                                    const CUtensorMap);
+using HeatHFusedKernel = HeatHFusedKernelOf<float>;
 
 // The compiled depths 1 .. kHMaxK (ops/hopper_params.py h_k_compiled)
 // and rows per thread 1, 2, 4; the TMA load only at kHTmaRows rows
@@ -126,9 +130,15 @@ constexpr int kHTmaRows = 4;
 // One thread block: the (Y, Z) tile, segment and region of blockIdx;
 // blockDim is (wz, by) and the extended tile wz x (by * R) cells. kTma:
 // the tiles inside the block load by TMA from `umap` (null elsewhere).
-template <int K, int R, bool kTma = false>
-__device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
+// T: the blocks' cells. At bfloat16 (the bfloat16 form) every tile loads
+// by one plain 2-byte load a cell, widened exactly into the float32 ring
+// (zero where it has no data), and heat_t3d_stream rounds each level
+// below K and narrows the store (heat_f_levels); there is no TMA form.
+template <int K, int R, bool kTma = false, typename T = float>
+__device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS_OF(T),
                                             const CUtensorMap* umap) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(kF32 || !kTma, "the bfloat16 form has no TMA load");
   const int wz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
   const int row0 = threadIdx.y * R;          // this thread's first row
@@ -187,22 +197,27 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
                                 bz, a0, cx, cy, cz, res);
       return;
     }
-    const float* core = u + ly0 * bz + lz;
+    const T* core = u + ly0 * bz + lz;
     const int64_t core_plane = st.u;
     const int64_t core_row = bz;
     auto load = [&](float* dst, int64_t t) {
       const bool in_block = t >= 0 && t < bx;
       const bool x_in = ox + t >= 0 && ox + t < nx;
-      const float* p = in_block ? core + t * core_plane
-                       : !x_in ? nullptr
-                       : (t < 0 ? xlo + (t + K) * st.slab
-                                : xhi + (t - bx) * st.slab) +
-                             slab_col;
+      const T* p = in_block ? core + t * core_plane
+                   : !x_in ? nullptr
+                   : (t < 0 ? xlo + (t + K) * st.slab
+                            : xhi + (t - bx) * st.slab) +
+                         slab_col;
       const int64_t row = in_block ? core_row : ze;
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        __pipeline_memcpy_async(dst + r * wz, p != nullptr ? p + r * row : u,
-                                4, p != nullptr ? 0 : 4);
+      for (int r = 0; r < R; ++r) {
+        if constexpr (kF32)
+          __pipeline_memcpy_async(dst + r * wz,
+                                  p != nullptr ? p + r * row : u, 4,
+                                  p != nullptr ? 0 : 4);
+        else
+          dst[r * wz] = p != nullptr ? heat_widen(p[r * row]) : 0.f;
+      }
     };
     heat_t3d_stream<K, R>(load, x0, x1, ox, nx, yz_in, out_rows, out,
                           by * bz, ly0 * bz + lz, bz, a0, cx, cy, cz, res);
@@ -213,7 +228,7 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
   // piece (u, ztail or ytail) and that piece's plane stride, and the
   // cell's offset in an x-slab plane. A cell outside the grid or the
   // K-deep frame is zero-filled.
-  const float* src[R];
+  const T* src[R];
   int32_t pstride[R], xoff[R];
   const int64_t ye = by + 2 * hy;
 #pragma unroll
@@ -241,23 +256,31 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
   auto load = [&](float* dst, int64_t t) {
     const bool x_in = ox + t >= 0 && ox + t < nx;
     if (t < 0 || t >= bx) {
-      const float* slab = t < 0 ? xlo + (t + K) * st.slab
-                                : xhi + (t - bx) * st.slab;
+      const T* slab = t < 0 ? xlo + (t + K) * st.slab
+                            : xhi + (t - bx) * st.slab;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const bool in = x_in && src[r] != nullptr;
-        __pipeline_memcpy_async(dst + r * wz, in ? slab + xoff[r] : u, 4,
-                                in ? 0 : 4);
+        if constexpr (kF32)
+          __pipeline_memcpy_async(dst + r * wz, in ? slab + xoff[r] : u, 4,
+                                  in ? 0 : 4);
+        else
+          dst[r * wz] = in ? heat_widen(slab[xoff[r]]) : 0.f;
       }
     } else {
       const int32_t ti = static_cast<int32_t>(t);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const bool in = src[r] != nullptr;
-        __pipeline_memcpy_async(
-            dst + r * wz,
-            in ? src[r] + static_cast<int64_t>(ti) * pstride[r] : u, 4,
-            in ? 0 : 4);
+        if constexpr (kF32)
+          __pipeline_memcpy_async(
+              dst + r * wz,
+              in ? src[r] + static_cast<int64_t>(ti) * pstride[r] : u, 4,
+              in ? 0 : 4);
+        else
+          dst[r * wz] =
+              in ? heat_widen(src[r][static_cast<int64_t>(ti) * pstride[r]])
+                 : 0.f;
       }
     }
   };
@@ -310,7 +333,7 @@ inline bool heat_h_holds_tile(int64_t n, int w, int k) {
 // inside the block takes it, so the block must hold one. The launcher
 // takes TMA only when the caller asks (the wrappers ask by this same
 // rule, ops/hopper_params.py h_tma_fits) and refuses it elsewhere.
-inline bool heat_h_tma_fits(const float* u, int64_t by, int64_t bz,
+inline bool heat_h_tma_fits(const void* u, int64_t by, int64_t bz,
                             int block_z, int block_y, int rows, int k) {
   return bz % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
          rows == kHTmaRows && block_z + 4 <= 256 && bz >= block_z + 4 &&
@@ -340,7 +363,8 @@ inline int heat_h_smem_bytes(int k, int wy, int block_z, bool tma) {
 }
 
 // Checks the arguments, zeroes *res, and launches `kernel`, the entry
-// point's instance for (k, rows) (null where none is compiled), over
+// point's instance for (k, rows) on T cells (null where none is
+// compiled; at bfloat16 TMA is refused), over
 // `regions` (1 or 2) regions of `rows_x` output planes each, starting at
 // planes r_begin0 and r_begin1, in segments of `seg` planes, with thread
 // blocks of block_z x block_y threads of `rows` rows each, on `stream`.
@@ -348,10 +372,10 @@ inline int heat_h_smem_bytes(int k, int wy, int block_z, bool tma) {
 // instance; heat_h_tma_fits must hold), zeros and unread otherwise.
 // Returns a cudaError_t: 0, or the reason the launch was refused; or an
 // encoding error (heat_tma_error_string).
-template <typename Kernel>
-inline int heat_h_launch(Kernel kernel, bool tma, const float* u,
-                         const float* zt, const float* yt, const float* xlo,
-                         const float* xhi, float* out, uint32_t* res,
+template <typename T, typename Kernel>
+inline int heat_h_launch(Kernel kernel, bool tma, const T* u, const T* zt,
+                         const T* yt, const T* xlo, const T* xhi, T* out,
+                         uint32_t* res,
                          int64_t nx, int64_t ny, int64_t nz, int64_t bx,
                          int64_t by, int64_t bz, int64_t ox, int64_t oy,
                          int64_t oz, int hx, int hy, int hz, int k,
@@ -359,7 +383,8 @@ inline int heat_h_launch(Kernel kernel, bool tma, const float* u,
                          int regions, int block_z, int block_y, int rows,
                          int64_t seg, float a0, float cx, float cy, float cz,
                          void* stream) {
-  constexpr bool kFused = std::is_same<Kernel, HeatHFusedKernel>::value;
+  constexpr bool kFused = std::is_same<Kernel, HeatHFusedKernelOf<T>>::value;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   const int wy = block_y * rows;
   const auto halo_ok = [k](int h) { return h == 0 || h == k; };
   const int64_t ye = by + 2 * hy, ze = bz + 2 * hz;
@@ -370,8 +395,8 @@ inline int heat_h_launch(Kernel kernel, bool tma, const float* u,
       block_z <= 2 * k || wy <= 2 * k || block_z * block_y > 512 ||
       seg < 1 || rows_x < 1 || r_begin0 < 0 || r_begin1 + rows_x > bx ||
       regions < 1 || regions > 2 || ye * ze > 0x7fffffffLL ||
-      (tma && (!kFused || !heat_h_tma_fits(u, by, bz, block_z, block_y,
-                                           rows, k))))
+      (tma && (!kFused || !kF32 ||
+               !heat_h_tma_fits(u, by, bz, block_z, block_y, rows, k))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles_z = (bz + block_z - 2 * k - 1) / (block_z - 2 * k);
   const int64_t tiles_y = (by + wy - 2 * k - 1) / (wy - 2 * k);
@@ -382,10 +407,12 @@ inline int heat_h_launch(Kernel kernel, bool tma, const float* u,
                            static_cast<int32_t>(2 * k * ze),
                            static_cast<int32_t>(ye * ze)};
   CUtensorMap map = {};
-  if (tma) {
-    const int err = heat_h_encode_map(&map, u, bx, by, bz, block_z, block_y,
-                                      rows);
-    if (err != 0) return err;
+  if constexpr (kF32) {
+    if (tma) {
+      const int err = heat_h_encode_map(&map, u, bx, by, bz, block_z,
+                                        block_y, rows);
+      if (err != 0) return err;
+    }
   }
   const int smem = heat_h_smem_bytes(k, wy, block_z, tma);
   cudaError_t err = cudaFuncSetAttribute(

@@ -19,6 +19,8 @@
 // [K, bx-K) and their residual (heat_h_band_fix_3d writes the rest), and
 // so reads nothing of the exchange's third phase.
 
+// The bfloat16 form, on the same body: heat_h_block_3d_fused_bf16.cu.
+
 #include "heat_h.cuh"
 
 template <int K, int R, bool kTma>

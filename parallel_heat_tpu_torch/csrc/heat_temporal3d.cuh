@@ -80,13 +80,22 @@ constexpr int kFSlots = kFPrefetch + 2;
 // grid and are not tested. `out_cell` is where row 0's level K goes (row
 // r's at r * out_row past it), or null when plane t - K is not this
 // block's to write.
-template <int K, int R, bool kPlanesIn>
+// Storage precision: T is the grid's cell (float, or __nv_bfloat16 for
+// H-fused's bfloat16 form). At bfloat16 the planes in shared memory and
+// registers stay float32, of widened cells; a level s < K is rounded to
+// bfloat16 (heat_bf16_round, as __float2bfloat16_rn) before it lands in
+// the level planes and registers, the copied cells keeping their bits;
+// level K's float32 update gives the residual, and its store rounds the
+// updated cells and narrows the copied ones exactly (heat_store). The
+// float32 expressions stay as they were under `if constexpr`.
+template <int K, int R, bool kPlanesIn, typename T = float>
 __device__ __forceinline__ void heat_f_levels(
     float (&up)[K][R], float (&mid)[K][R], float (&down)[K][R],
     const float* prev0, float* lev, int ps, int me, int bz, int par,
     int64_t t, int64_t nx, unsigned yz_in, unsigned out_rows,
-    float* out_cell, int64_t out_row, float a0, float cx, float cy, float cz,
+    T* out_cell, int64_t out_row, float a0, float cx, float cy, float cz,
     uint32_t* rmax) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
 #pragma unroll
   for (int s = 1; s <= K; ++s) {
     // Level s-1 at plane t - s: this thread's cells in mid[s-1], the
@@ -101,10 +110,17 @@ __device__ __forceinline__ void heat_f_levels(
       const float ym = r > 0 ? mid[s - 1][r - 1] : nb[-bz];
       const float yp = r + 1 < R ? mid[s - 1][r + 1] : nb[R * bz];
       const bool in = x_in && ((yz_in >> r) & 1u);
-      v[r] = in ? heat_combine3(cc, up[s - 1][r], down[s - 1][r], ym, yp,
-                                nb[r * bz - 1], nb[r * bz + 1], a0, cx, cy,
-                                cz)
-                : cc;
+      if constexpr (kF32) {
+        v[r] = in ? heat_combine3(cc, up[s - 1][r], down[s - 1][r], ym, yp,
+                                  nb[r * bz - 1], nb[r * bz + 1], a0, cx, cy,
+                                  cz)
+                  : cc;
+      } else {
+        const float n = heat_combine3(cc, up[s - 1][r], down[s - 1][r], ym,
+                                      yp, nb[r * bz - 1], nb[r * bz + 1], a0,
+                                      cx, cy, cz);
+        v[r] = in ? (s < K ? heat_bf16_round(n) : n) : cc;
+      }
     }
     if (s < K) {
       float* dst = lev + ((s - 1) * 2 + par) * ps + me;
@@ -119,7 +135,11 @@ __device__ __forceinline__ void heat_f_levels(
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if ((out_rows >> r) & 1u) {
-          out_cell[r * out_row] = v[r];
+          if constexpr (kF32)
+            out_cell[r * out_row] = v[r];
+          else
+            heat_store(out_cell + r * out_row, v[r],
+                       x_in && ((yz_in >> r) & 1u));
           if (x_in && ((yz_in >> r) & 1u))
             *rmax = max(*rmax, heat_diff_bits(v[r], mid[K - 1][r]));
         }
@@ -135,10 +155,14 @@ __device__ __forceinline__ void heat_f_levels(
 // thread's row 0; row r's r * out_row further) where out_rows says so.
 // The residual of the cells written, over the global interior, is folded
 // into *res when res is not null. Every thread of the block calls it.
-template <int K, int R, class Load>
+// T is the grid's cell (heat_f_levels): at bfloat16 `load` widens its
+// cells into the float32 ring by plain loads (no cp.async; the commits
+// and waits below then have nothing in flight), stored before the block
+// barrier that publishes the plane, and `out` is the bfloat16 block.
+template <int K, int R, class Load, typename T = float>
 __device__ __forceinline__ void heat_t3d_stream(
     Load load, int64_t x0, int64_t x1, int64_t gx, int64_t nx,
-    unsigned yz_in, unsigned out_rows, float* out, int64_t out_plane,
+    unsigned yz_in, unsigned out_rows, T* out, int64_t out_plane,
     int64_t out_col, int64_t out_row, float a0, float cx, float cy, float cz,
     uint32_t* res) {
   extern __shared__ __align__(128) float smem[];
@@ -180,9 +204,9 @@ __device__ __forceinline__ void heat_t3d_stream(
       mid[0][r] = down[0][r];
       down[0][r] = ring[cur * ps + me + r * bz];
     }
-    float* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
-                          ? out + (t - K) * out_plane + out_col
-                          : nullptr;
+    T* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
+                      ? out + (t - K) * out_plane + out_col
+                      : nullptr;
     const int par = static_cast<int>(t & 1);
     const int64_t g = gx + t;
     if (g - K >= 1 && g - 1 <= nx - 2)
@@ -505,7 +529,11 @@ constexpr int kHeatFBf16Packed = 2;  // packed levels, a level widened once
 // kCirc, and levels() for kBand, under `if constexpr`, so F's instances
 // keep their code.
 //
-// Storage precision (kernel F's bfloat16 form, heat_f_temporal3d_bf16.cu).
+// Storage precision (kernel F's bfloat16 form, heat_f_temporal3d_bf16.cu,
+// and the bfloat16 forms of kernel H and the band, heat_h_block_3d_bf16.cu
+// and heat_h_band_fix_3d_bf16.cu: kCirc's fetch has a bfloat16 branch,
+// the band's Seg loads bfloat16 pieces, and both layouts skip the band's
+// levels outside the cone).
 // Tin and Tout are the grid's cells in and out, kBf16 the layout of a
 // bfloat16 loop's levels (kHeatFBf16*, above), every level below K
 // rounded to bfloat16 (storage mode, the only bfloat16 mode in 3D: the JAX
@@ -579,8 +607,9 @@ struct HeatFLoop {
     if constexpr (kTma && kCirc) {
       if (leader) {
         heat_mbar_expect(&full[slot], box_bytes);
-        heat_tma_load_3d(ring + slot * slot_f + kFWidth, map, &full[slot],
-                         z0, y0, static_cast<int>(t + xsh));
+        heat_tma_load_3d(
+            reinterpret_cast<float*>(ring + slot * slot_f + kFWidth), map,
+            &full[slot], z0, y0, static_cast<int>(t + xsh));
       }
     } else if constexpr (kTma && kF32In) {
       if (leader) {
@@ -595,6 +624,32 @@ struct HeatFLoop {
             reinterpret_cast<float*>(ring + slot * slot_f + kFWidth), map,
             &full[slot], z0, y0, static_cast<int>(t));
       }
+    } else if constexpr (kCirc && !kF32In) {
+      // bfloat16 (kernel H's form): one 8-byte copy where the lane's 4
+      // cells of a row lie in the K-deep frame on 8 bytes (they lie on one
+      // side of the lo seam: a lane's first cell is a multiple of 4, and
+      // its cells are all below 0 or none); else a plain 2-byte load a
+      // cell in the frame and zeros outside it, as the grid fetch below.
+      uint16_t* dst = reinterpret_cast<uint16_t*>(ring + slot * slot_f + own);
+      const uint16_t* g = reinterpret_cast<const uint16_t*>(u);
+      const int64_t e = t + xsh;
+      const bool t_in = e >= 0 && e < ext_x;
+      const int64_t base = t_in ? e * xpitch : 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        uint16_t* d = dst + r * kFWidth;
+        const unsigned in = t_in ? (cin >> (4 * r)) & 0xfu : 0u;
+        const int64_t at = base + coff[r];
+        if (in == 0xfu && ((reinterpret_cast<uintptr_t>(g) +
+                            2 * static_cast<uintptr_t>(at)) & 7u) == 0) {
+          __pipeline_memcpy_async(d, g + at, 8);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            d[j] = (in >> j) & 1u ? g[at + j] : uint16_t{0};
+        }
+      }
+      heat_cp_async_arrive(&full[slot]);
     } else if constexpr (kCirc) {
       float* dst = ring + slot * slot_f + own;
       const int64_t e = t + xsh;
@@ -832,6 +887,17 @@ struct HeatFLoop {
                       : nullptr;
 #pragma unroll
     for (int s = 1; s <= K; ++s) {
+      // kBand: the levels outside the output's cone are not stepped, as
+      // in levels().
+      if constexpr (kBand != 0) {
+        if (t < x0 - K + 2 * s) {
+          if (s < K) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) D[s][r] = M[s - 1][r];
+          }
+          continue;
+        }
+      }
       float4 yu, yd;
       if (s == 1) {
         yu = heat_widen4(prev_p - kFWidth);
@@ -973,9 +1039,8 @@ struct HeatFLoop {
 
   // kBand: plane_step for input plane i in [0, 3K) of the band.
   template <bool kEdge, class Seg>
-  __device__ __forceinline__ void band_step(float4 (&U)[K][R],
-                                            float4 (&M)[K][R],
-                                            float4 (&D)[K][R], int i,
+  __device__ __forceinline__ void band_step(Reg (&U)[K][R], Reg (&M)[K][R],
+                                            Reg (&D)[K][R], int i,
                                             const Seg& seg) {
     const int64_t t = x0 - K + i;
     heat_mbar_wait(&full[cur], lap);
@@ -1005,8 +1070,12 @@ struct HeatFLoop {
     seg.enter(*this);
     for (int i = 0; i < prefetch; ++i)
       if (i < 3 * K) band_fetch(i, i, seg);
-    float4 A[K][R], B[K][R], C[K][R];
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    Reg A[K][R], B[K][R], C[K][R];
+    Reg zero;
+    if constexpr (kPacked)
+      zero = make_uint2(0u, 0u);  // bfloat16 zeros
+    else
+      zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int s = 0; s < K; ++s)
 #pragma unroll

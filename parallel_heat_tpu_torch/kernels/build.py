@@ -136,13 +136,27 @@ KERNELS = {
     "heat_h_band_fix_3d": ("heat_h_band_fix_3d.cu",
                            [_P, _I32, _I32, _P] + [_I64] * 6 + [_I32] * 7
                            + [_F32] * 4 + [_P]),
+    # The bfloat16 forms of the sharded 3D family, a library each (as
+    # F's), so that their nvccs run beside their float32 twins': their
+    # twins' arguments.
+    "heat_h_block_3d_bf16": ("heat_h_block_3d_bf16.cu",
+                             [_P] * 3 + [_I64] * 9 + [_I32] * 3 + [_I64]
+                             + [_I32] * 4 + [_I64] + [_I32] * 2
+                             + [_F32] * 4 + [_P]),
+    "heat_h_block_3d_fused_bf16": ("heat_h_block_3d_fused_bf16.cu",
+                                   [_P] * 7 + [_I64] * 9 + [_I32] * 9
+                                   + [_I64] + [_F32] * 4 + [_P]),
+    "heat_h_band_fix_3d_bf16": ("heat_h_band_fix_3d_bf16.cu",
+                                [_P, _I32, _I32, _P] + [_I64] * 6
+                                + [_I32] * 7 + [_F32] * 4 + [_P]),
 }
 # Entry points that live in another kernel's library: name -> (that
 # kernel, argtypes). The storage-precision forms of kernels A, B, C, D,
 # E, E-uni, M and of the sharded 2D family G (bfloat16 storage, and E's
 # and E-uni's float32 carry of accumulate="f32chunk") are compiled into
-# their float32 kernels' sources, so one nvcc builds both; F's, I's and
-# I-uni's have sources of their own (KERNELS).
+# their float32 kernels' sources, so one nvcc builds both; F's, I's,
+# I-uni's and the sharded 3D family's (H, H-fused, the 3D band) have
+# sources of their own (KERNELS).
 ENTRIES = {
     "heat_a_resident_bf16": ("heat_a_resident",
                              KERNELS["heat_a_resident"][1]),
@@ -217,7 +231,8 @@ HELPERS = {
 _COMMON = ("heat_common.cuh", "heat_temporal.cuh", "heat_i_loop.cuh",
            "heat_g.cuh", "heat_tma.cuh", "heat_temporal3d.cuh", "heat_h.cuh",
            "heat_a.cuh", "heat_e_uni.cuh", "heat_probe_sweep.cuh",
-           "heat_f.cuh", "heat_f_block.inc", "heat_mg.cuh")
+           "heat_f.cuh", "heat_f_block.inc", "heat_mg.cuh", "heat_hc.cuh",
+           "heat_hb.cuh")
 
 # nvcc's output of each build in this process (ptxas register and
 # shared-memory report), by kernel name; also written beside the library.

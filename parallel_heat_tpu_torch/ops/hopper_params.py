@@ -631,19 +631,22 @@ class HopperParams:
         slots = self.h_tma_prefetch + 2
         return 4 * (slots + 2 * (k - 1)) * plane + 128 + 8 * slots
 
-    def h_tma_fits(self, block_shape, k: int, block=None,
-                   rows=None) -> bool:
-        """Do the tiles inside a ``(bx, by, bz)`` block take H-fused's TMA
-        plane load at depth ``k``? TMA copies rows of a multiple of 16
-        bytes, so ``bz % 4 == 0``; its instances take ``h_tma_rows`` rows
-        a thread; and at least one tile must lie inside the block
-        (:meth:`h_tiles`), or no tile would run it. Elsewhere the tiles
-        take the per-cell cp.async load. ``csrc/heat_h.cuh``
-        ``heat_h_tma_fits`` is the same rule, with the block's address a
-        multiple of 16 bytes."""
+    def h_tma_fits(self, block_shape, k: int, block=None, rows=None,
+                   elem: int = 4) -> bool:
+        """Do the tiles inside a ``(bx, by, bz)`` block of ``elem``-byte
+        cells take H-fused's TMA plane load at depth ``k``? TMA copies
+        rows of a multiple of 16 bytes, so ``bz % 4 == 0``; its instances
+        take ``h_tma_rows`` rows a thread; and at least one tile must lie
+        inside the block (:meth:`h_tiles`), or no tile would run it.
+        Elsewhere the tiles take the per-cell cp.async load. Never at
+        bfloat16 (``elem`` 2): the bfloat16 form's one load is the
+        widening plain load (``csrc/heat_h_block_3d_fused_bf16.cu``).
+        ``csrc/heat_h.cuh`` ``heat_h_tma_fits`` is the same rule, with the
+        block's address a multiple of 16 bytes."""
         _, by, bz = block_shape
         wy, wz = self.h_tma_box(block, rows)
-        return (bz % 4 == 0 and (rows or self.h_rows) == self.h_tma_rows
+        return (elem == 4 and bz % 4 == 0
+                and (rows or self.h_rows) == self.h_tma_rows
                 and bz >= wz and wz <= 256
                 and self.h_tiles(block_shape, k, block, rows)[0] > 0)
 
@@ -684,46 +687,50 @@ class HopperParams:
         return max(self.h_seg_planes_min, -(-planes // segments))
 
     @staticmethod
-    def hc_pitch(ze: int) -> int:
-        """Kernel H's circular block row pitch for rows of ``ze`` floats:
-        rounded up to 4 floats (16 bytes), what a tensor map's strides
-        need."""
-        return -(-ze // 4) * 4
+    def hc_pitch(ze: int, elem: int = 4) -> int:
+        """Kernel H's circular block row pitch for rows of ``ze`` cells of
+        ``elem`` bytes: rounded up to 16 bytes (4 float32 cells, 8
+        bfloat16 ones), what a tensor map's strides need."""
+        cells = 16 // elem
+        return -(-ze // cells) * cells
 
-    @functools.lru_cache(maxsize=16)
-    def hc_shape(self, k: int):
+    @functools.lru_cache(maxsize=32)
+    def hc_shape(self, k: int, elem: int = 4):
         """``(block, rows, prefetch)``: kernel H's launch shape at depth
-        ``k``, the first of ``hc_shapes`` that takes ``k`` (:meth:`f_takes`
-        and one block's shared memory, :meth:`f_k_max`) with the most
-        planes in flight that fit, up to ``hc_prefetch``; None where no
-        shape takes ``k``."""
+        ``k`` on blocks of ``elem``-byte cells, the first of ``hc_shapes``
+        that takes ``k`` (:meth:`f_takes` and one block's shared memory,
+        :meth:`f_k_max`, F's rules at ``elem``) with the most planes in
+        flight that fit, up to ``hc_prefetch``; None where no shape takes
+        ``k``."""
         for block, rows in self.hc_shapes:
             for prefetch in range(self.hc_prefetch, 0, -1):
-                if 1 <= k <= self.f_k_max(block, rows, prefetch):
+                if 1 <= k <= self.f_k_max(block, rows, prefetch, elem):
                     return block, rows, prefetch
         return None
 
-    def hc_k_max(self) -> int:
-        """Deepest K that kernel H takes at some shape (:meth:`hc_shape`)."""
+    def hc_k_max(self, elem: int = 4) -> int:
+        """Deepest K that kernel H takes at some shape (:meth:`hc_shape`)
+        on blocks of ``elem``-byte cells."""
         return max(k for k in range(1, self.f_k_compiled + 1)
-                   if self.hc_shape(k) is not None)
+                   if self.hc_shape(k, elem) is not None)
 
-    def hc_launch(self, block_shape, k, shape=None):
+    def hc_launch(self, block_shape, k, shape=None, elem: int = 4):
         """Kernel H's ``(block, rows, prefetch, segment planes)`` at depth
-        ``k`` on a ``(bx, by, bz)`` block: :meth:`hc_shape` unless
-        ``shape`` ``(block, rows, prefetch)`` is given, and X segments of
-        about ``hc_waves`` blocks an SM, at least ``hc_seg_planes_min``
-        planes."""
-        block, rows, prefetch = shape or self.hc_shape(k)
+        ``k`` on a ``(bx, by, bz)`` block of ``elem``-byte cells:
+        :meth:`hc_shape` unless ``shape`` ``(block, rows, prefetch)`` is
+        given, and X segments of about ``hc_waves`` blocks an SM, at
+        least ``hc_seg_planes_min`` planes."""
+        block, rows, prefetch = shape or self.hc_shape(k, elem)
         bx, by, bz = block_shape
-        ty, tz = self.f_tile(k, block, rows)
+        ty, tz = self.f_tile(k, block, rows, elem)
         tiles = -(-by // ty) * -(-bz // tz)
         segments = -(-self.sm_count * self.hc_waves // tiles)
         return (block, rows, prefetch,
                 max(self.hc_seg_planes_min, -(-bx // segments)))
 
     def hc_tile_kinds(self, block_shape, k: int, halos, origin,
-                      grid_shape, tma=True, block=None, rows=None) -> dict:
+                      grid_shape, tma=True, block=None, rows=None,
+                      elem: int = 4) -> dict:
         """The (Y, Z) tiles of a kernel H launch at depth ``k`` on a
         ``(bx, by, bz)`` block at ``origin`` of ``grid_shape`` with
         ``halos`` ``(hx, hy, hz)``, counted by what they run: ``boxed``
@@ -734,17 +741,18 @@ class HopperParams:
         extended tile inside the global interior or not), ``top``,
         ``left``, ``bottom``, ``right`` (the extended tile reaches past
         that side of the block along Y or Z), ``ragged_y``, ``ragged_z``
-        and ``partial_group``, as :meth:`f_tile_kinds`. The tile grid is
+        and ``partial_group``, as :meth:`f_tile_kinds`, on blocks of
+        ``elem``-byte cells. The tile grid is
         ``csrc/heat_h_block_3d.cu``'s."""
         _, by, bz = block_shape
         _, hy, hz = halos
         _, oy, oz = origin
         _, ny, nz = grid_shape
         if block is None:
-            block, rows, _ = self.hc_shape(k)
+            block, rows, _ = self.hc_shape(k, elem)
         wy, wz = self.f_extent(block, rows)
-        ty, tz = self.f_tile(k, block, rows)
-        pad = self.f_pad(k)
+        ty, tz = self.f_tile(k, block, rows, elem)
+        pad = self.f_pad(k, elem)
         kinds = dict.fromkeys(("tiles", "boxed", "wrapped", "interior",
                                "edge", "top", "left", "bottom", "right",
                                "ragged_y", "ragged_z", "partial_group"), 0)
@@ -766,53 +774,55 @@ class HopperParams:
                 kinds["partial_group"] += min(tz, bz - c) % 4 != 0
         return kinds
 
-    def h_band_takes(self, block, rows, k: int) -> bool:
+    def h_band_takes(self, block, rows, k: int, elem: int = 4) -> bool:
         """Does the band's launch take thread blocks of ``block`` ``(32
-        lanes, warps)`` with ``rows`` rows a thread at depth ``k``? F's
-        rule (:meth:`f_takes`) at the compiled rows 2 and 4
-        (``csrc/heat_h_band_fix_3d.cu``)."""
-        return rows in (2, 4) and self.f_takes(block, rows, k)
+        lanes, warps)`` with ``rows`` rows a thread at depth ``k`` on
+        blocks of ``elem``-byte cells? F's rule (:meth:`f_takes`) at the
+        compiled rows 2 and 4 (``csrc/heat_h_band_fix_3d.cu``)."""
+        return rows in (2, 4) and self.f_takes(block, rows, k, elem)
 
-    @functools.lru_cache(maxsize=16)
-    def h_band_shape(self, k: int):
+    @functools.lru_cache(maxsize=32)
+    def h_band_shape(self, k: int, elem: int = 4):
         """``(block, rows, prefetch)``: the band's launch shape at depth
-        ``k``, the first of ``h_band_shapes`` that takes ``k`` (and one
-        block's shared memory, :meth:`f_k_max`) with the most planes in
-        flight that fit, up to ``h_band_prefetch``; None where no shape
-        takes ``k``."""
+        ``k`` on blocks of ``elem``-byte cells, the first of
+        ``h_band_shapes`` that takes ``k`` (and one block's shared memory,
+        :meth:`f_k_max`) with the most planes in flight that fit, up to
+        ``h_band_prefetch``; None where no shape takes ``k``."""
         for block, rows in self.h_band_shapes:
             for prefetch in range(self.h_band_prefetch, 0, -1):
-                if (self.h_band_takes(block, rows, k)
-                        and k <= self.f_k_max(block, rows, prefetch)):
+                if (self.h_band_takes(block, rows, k, elem)
+                        and k <= self.f_k_max(block, rows, prefetch, elem)):
                     return block, rows, prefetch
         return None
 
-    def h_band_k_max(self) -> int:
-        """Deepest K the band takes at some shape (:meth:`h_band_shape`)."""
+    def h_band_k_max(self, elem: int = 4) -> int:
+        """Deepest K the band takes at some shape (:meth:`h_band_shape`)
+        on blocks of ``elem``-byte cells."""
         return max(k for k in range(1, self.f_k_compiled + 1)
-                   if self.h_band_shape(k) is not None)
+                   if self.h_band_shape(k, elem) is not None)
 
     @staticmethod
-    def h_band_vec_fits(block_shape) -> bool:
-        """Do ``(bx, by, bz)`` blocks take the band's 16-byte load? Rows of
-        a multiple of 4 floats (``bz % 4 == 0``); the launch also needs
-        every block 16-byte aligned (``csrc/heat_h_band_fix_3d.cu``
-        ``heat_hb_aligned``)."""
-        return block_shape[2] % 4 == 0
+    def h_band_vec_fits(block_shape, elem: int = 4) -> bool:
+        """Do ``(bx, by, bz)`` blocks of ``elem``-byte cells take the
+        band's vector load? Rows of a multiple of 16 bytes (``bz % 4 ==
+        0`` at float32, ``bz % 8 == 0`` at bfloat16, whose lanes then copy
+        8 aligned bytes); the launch also needs every block 16-byte
+        aligned (``csrc/heat_hb.cuh`` ``heat_hb_aligned``)."""
+        return block_shape[2] % (16 // elem) == 0
 
-    def h_band_tiles(self, block_shape, k: int, shape=None):
+    def h_band_tiles(self, block_shape, k: int, shape=None, elem: int = 4):
         """``(tiles_y, tiles_z)`` of the band's launch at depth ``k`` on a
-        ``(bx, by, bz)`` block (F's tiles over the block face), at
-        :meth:`h_band_shape`'s block and rows unless ``shape`` ``(block,
-        rows, prefetch)`` is given. The grid is ``(tiles_y * tiles_z, 2,
-        blocks)``."""
-        block, rows, _ = shape or self.h_band_shape(k)
+        ``(bx, by, bz)`` block of ``elem``-byte cells (F's tiles over the
+        block face), at :meth:`h_band_shape`'s block and rows unless
+        ``shape`` ``(block, rows, prefetch)`` is given. The grid is
+        ``(tiles_y * tiles_z, 2, blocks)``."""
+        block, rows, _ = shape or self.h_band_shape(k, elem)
         _, by, bz = block_shape
-        ty, tz = self.f_tile(k, block, rows)
+        ty, tz = self.f_tile(k, block, rows, elem)
         return -(-by // ty), -(-bz // tz)
 
     def h_band_tile_kinds(self, block_shape, k: int, halos, origin,
-                          grid_shape, shape=None) -> dict:
+                          grid_shape, shape=None, elem: int = 4) -> dict:
         """The (Y, Z) tiles of a band launch at depth ``k`` on a ``(bx,
         by, bz)`` block at ``origin`` of ``grid_shape`` with ``halos``
         ``(hx, hy, hz)``, counted by what their load and steps run:
@@ -823,15 +833,16 @@ class HopperParams:
         lane's four cells span the block's last z and the z tail: bz % 4
         != 0), and :meth:`f_tile_kinds`' ``interior``, ``edge``,
         ``ragged_y``, ``ragged_z`` and ``partial_group`` in the block's
-        global place. Tiles are counted once for both regions."""
-        block, rows, _ = shape or self.h_band_shape(k)
+        global place. Tiles are counted once for both regions, on blocks
+        of ``elem``-byte cells."""
+        block, rows, _ = shape or self.h_band_shape(k, elem)
         _, by, bz = block_shape
         _, hy, hz = halos
         _, oy, oz = origin
         _, ny, nz = grid_shape
         wy, wz = self.f_extent(block, rows)
-        ty, tz = self.f_tile(k, block, rows)
-        pad = self.f_pad(k)
+        ty, tz = self.f_tile(k, block, rows, elem)
+        pad = self.f_pad(k, elem)
         kinds = dict.fromkeys(("tiles", "inside", "lo_y", "lo_z", "hi_y",
                                "hi_z", "straddle", "interior", "edge",
                                "ragged_y", "ragged_z", "partial_group"), 0)

@@ -97,6 +97,8 @@ counts = {"heat_a_resident": 0, "heat_b_step": 0, "heat_c_tiled": 0,
           "heat_g_block_uniform_bf16": 0, "heat_g_band_fix_bf16": 0,
           "heat_h_block_3d": 0,
           "heat_h_block_3d_fused": 0, "heat_h_band_fix_3d": 0,
+          "heat_h_block_3d_bf16": 0, "heat_h_block_3d_fused_bf16": 0,
+          "heat_h_band_fix_3d_bf16": 0,
           "resident_steps_plain": 0,
           "strip_step_plain": 0,
           "tiled_step_plain": 0, "temporal_steps_plain": 0,

@@ -37,7 +37,18 @@ package:
   :func:`~.stencil.combine_3d`, cells outside the global interior copied,
   exactly the kernels' rounding, so a kernel and its plain version agree
   bitwise on the card, and a block's K steps are bitwise kernel F's on
-  the same cells of the global grid.
+  the same cells of the global grid;
+- every kernel has a bfloat16 form (``<name>_bf16``, the TPU builders'
+  ``dtype_name="bfloat16"``), taken when the operands are bfloat16: the
+  cells widened to float32 exactly as they load, float32 arithmetic,
+  every level rounded to bfloat16 before the next step reads it, the
+  last store rounded, the copied cells (the six faces) narrowed exactly,
+  the residual float32 against the float32 level the last step read.
+  The plain versions step a bfloat16 frame the same way, so the bits
+  still agree, and a block's K steps are bitwise K launches of kernel
+  D's bfloat16 form on the same cells of the global grid. H-fused's
+  bfloat16 form has one load on every tile, the widening plain load
+  (``"plain"``, :func:`h_load`).
 
 ``origin`` is the global ``(x, y, z)`` of the block's cell (0, 0, 0) for
 every form. Each wrapper takes its plain version only for a tensor that
@@ -59,8 +70,9 @@ import torch
 
 from parallel_heat_tpu_torch import tune
 from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
-from parallel_heat_tpu_torch.ops.hopper_params import params
-from parallel_heat_tpu_torch.ops.stencil import coeffs3_f32, combine_3d
+from parallel_heat_tpu_torch.ops.hopper_params import elem_size, params
+from parallel_heat_tpu_torch.ops.stencil import (coeffs3_f32, combine_3d,
+                                                 narrow_bits, widen_bits)
 from parallel_heat_tpu_torch.ops.stencil_kernels import (_ptr,
                                                          _raise_on_error,
                                                          _residual_view,
@@ -73,15 +85,37 @@ H_KINDS = ("H-fused", "H", "H-defer", "torch")
 KERNEL_OF = {"H-fused": "heat_h_block_3d_fused", "H": "heat_h_block_3d",
              "H-defer": "heat_h_block_3d_fused"}
 BAND = "heat_h_band_fix_3d"
+# The bfloat16 forms' entry points (kernels/build.py KERNELS: a library
+# each, beside their float32 twins').
+KERNEL_OF_BF16 = {kind: name + "_bf16" for kind, name in KERNEL_OF.items()}
+BAND_BF16 = BAND + "_bf16"
 LOADS = ("tma", "cp.async")
+# H-fused's bfloat16 form has one load: a plain 2-byte load a cell,
+# widened into its float32 ring.
+LOADS_BF16 = ("plain",)
+_F32, _BF16 = torch.float32, torch.bfloat16
 
 
-def h_load(block_shape, k: int, u: Optional[torch.Tensor] = None) -> str:
+def entry(name: str, dtype) -> str:
+    """The entry point of kernel ``name`` (a float32 name of
+    :data:`KERNEL_OF` or :data:`BAND`) for blocks of storage ``dtype``
+    (a torch dtype or its name): its bfloat16 form's for bfloat16."""
+    return name + "_bf16" if elem_size(dtype) == 2 else name
+
+
+def h_load(block_shape, k: int, u: Optional[torch.Tensor] = None,
+           dtype="float32") -> str:
     """The plane load of H-fused's tiles inside a ``block_shape`` block
-    (of ``u``, when given) at depth ``k``: ``"tma"`` where
+    (of ``u``, when given, whose dtype then decides) of storage ``dtype``
+    at depth ``k``: ``"tma"`` where
     :meth:`~.hopper_params.HopperParams.h_tma_fits` holds and u's address
-    is a multiple of 16 bytes, else ``"cp.async"``. Geometry alone
-    decides; the launch refuses TMA elsewhere and nothing falls back."""
+    is a multiple of 16 bytes, else ``"cp.async"``; at bfloat16 always
+    ``"plain"``, the bfloat16 form's one load. Geometry alone decides;
+    the launch refuses TMA elsewhere and nothing falls back."""
+    if u is not None:
+        dtype = u.dtype
+    if elem_size(dtype) == 2:
+        return "plain"
     fits = params().h_tma_fits(tuple(block_shape), k)
     return ("tma" if fits and (u is None or u.data_ptr() % 16 == 0)
             else "cp.async")
@@ -99,12 +133,13 @@ def pitched_ok(t: torch.Tensor) -> bool:
 
 def h_block_load(ext: torch.Tensor) -> str:
     """Kernel H's plane load of the circular block ``ext``: ``"tma"``
-    where its row pitch is a multiple of 4 floats and its address of 16
-    bytes (a tensor map can be encoded over it; the tiles that need no
-    ``lo`` cell then take one box a plane), else ``"cp.async"``. Geometry
-    alone decides; the launch refuses TMA elsewhere and nothing falls
-    back."""
-    return ("tma" if ext.stride(1) % 4 == 0 and ext.data_ptr() % 16 == 0
+    where its row pitch is a multiple of 16 bytes (4 float32 cells, 8
+    bfloat16 ones) and its address of 16 bytes (a tensor map can be
+    encoded over it; the tiles that need no ``lo`` cell then take one box
+    a plane), else ``"cp.async"``. Geometry alone decides; the launch
+    refuses TMA elsewhere and nothing falls back."""
+    cells = 16 // elem_size(ext.dtype)
+    return ("tma" if ext.stride(1) % cells == 0 and ext.data_ptr() % 16 == 0
             else "cp.async")
 
 
@@ -212,7 +247,8 @@ def h_block_fused_plain(u, ztail, ytail, xlo, xhi, out, k,
     """Plain version of :func:`h_block_fused`."""
     counts["h_block_fused_plain"] += 1
     if defer_x and u.shape[0] == 2 * k:
-        return u.new_zeros(()) if with_residual else None
+        return (torch.zeros((), dtype=_F32, device=u.device)
+                if with_residual else None)
     return _steps_plain(
         _frame_of_pieces(u, ztail, ytail, None if defer_x else xlo,
                          None if defer_x else xhi, k),
@@ -271,11 +307,17 @@ def band_fix_blocks_3d_plain(us, ztails, ytails, xlos, xhis, outs, k,
     windows of every block's frame stacked into one batch and stepped
     together, each cell zeroed outside the global grid and masked by its
     own global position, as :func:`h_band_fix_plain` steps one block's;
-    the max residual over all the bands."""
+    the max residual over all the bands. Bfloat16 blocks are widened
+    exactly and stepped in float32, each level but the last rounded to
+    bfloat16, the bands stored as the kernels store them (the global
+    interior's cells rounded, the copied ones narrowed exactly)."""
     counts["h_band_fix_plain"] += 1
     bx, by, bz = outs[0].shape
+    bf16 = outs[0].dtype == _BF16
     win = torch.cat([_band_windows_3d(*x, k) for x in zip(
         us, ztails, ytails, xlos, xhis)])
+    if bf16:
+        win = widen_bits(win)
     dev = win.device
     # The global index of each window's cell (0, 0, 0), axis by axis.
     starts = [[o[0] + w0 for o in origins for w0 in (-k, bx - 2 * k)],
@@ -304,18 +346,25 @@ def band_fix_blocks_3d_plain(us, ztails, ytails, xlos, xhis, outs, k,
     diff = None
     for step in range(k):
         c = win[inner]
-        new = torch.where(interior, combine_3d(
+        new = combine_3d(
             c, win[:, :-2, 1:-1, 1:-1], win[:, 2:, 1:-1, 1:-1],
             win[:, 1:-1, :-2, 1:-1], win[:, 1:-1, 2:, 1:-1],
-            win[:, 1:-1, 1:-1, :-2], win[:, 1:-1, 1:-1, 2:], *coeffs), c)
+            win[:, 1:-1, 1:-1, :-2], win[:, 1:-1, 1:-1, 2:], *coeffs)
+        if bf16 and step < k - 1:
+            new = widen_bits(new.to(_BF16))
+        new = torch.where(interior, new, c)
         if with_residual and step == k - 1:
             diff = torch.where(interior, (new - c).abs(),
                                torch.zeros((), device=dev))
         win[inner] = new
-    core = (slice(k, 2 * k), slice(k, k + by), slice(k, k + bz))
+    band = win[:, k:2 * k, k:k + by, k:k + bz]
+    if bf16:
+        band = torch.where(
+            interior[:, k - 1:2 * k - 1, k - 1:k - 1 + by, k - 1:k - 1 + bz],
+            band.to(_BF16), narrow_bits(band.contiguous()))
     for i, out in enumerate(outs):
-        out[:k] = win[(2 * i,) + core]
-        out[bx - k:] = win[(2 * i + 1,) + core]
+        out[:k] = band[2 * i]
+        out[bx - k:] = band[2 * i + 1]
     if not with_residual:
         return None
     return diff[:, k - 1:2 * k - 1, k - 1:k - 1 + by, k - 1:k - 1 + bz].amax()
@@ -330,8 +379,9 @@ def _check_block(out, k, origin, grid_shape, tensors, k_max=None,
     """Shape, type, device and layout checks common to the three kernels;
     ``tensors`` maps a name to ``(tensor or None, expected shape or None
     when the tensor must be None)``; the names in ``pitched`` may have
-    padded rows (:func:`pitched_ok`). On the card ``k`` is at most
-    ``k_max`` (the H-fused family's :meth:`h_k_max` by default)."""
+    padded rows (:func:`pitched_ok`). Every operand float32, or every one
+    bfloat16 (the bfloat16 forms). On the card ``k`` is at most ``k_max``
+    (the H-fused family's :meth:`h_k_max` by default)."""
     if out.dim() != 3:
         raise ValueError(f"out must be a 3D block, got {tuple(out.shape)}")
     if len(grid_shape) != 3 or min(grid_shape) < 3:
@@ -344,6 +394,9 @@ def _check_block(out, k, origin, grid_shape, tensors, k_max=None,
            for o, b, n in zip(origin, out.shape, grid_shape)):
         raise ValueError(f"block {tuple(out.shape)} at {tuple(origin)} does "
                          f"not lie in the grid {tuple(grid_shape)}")
+    if out.dtype not in (_F32, _BF16):
+        raise TypeError(f"float32 or bfloat16 blocks only, got out "
+                        f"{out.dtype} (float64 runs the torch rounds)")
     for name, (t, shape) in {"out": (out, tuple(out.shape)),
                              **tensors}.items():
         if shape is None:
@@ -354,8 +407,9 @@ def _check_block(out, k, origin, grid_shape, tensors, k_max=None,
         if t is None:
             raise ValueError(f"{name} {shape} is needed: the block does not "
                              f"span the grid along its axis")
-        if t.dtype != torch.float32:
-            raise TypeError(f"float32 only, got {name} {t.dtype}")
+        if t.dtype != out.dtype:
+            raise TypeError(f"every operand of one launch at one dtype: "
+                            f"{name} {t.dtype}, out {out.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
         if t.device != out.device:
@@ -364,7 +418,7 @@ def _check_block(out, k, origin, grid_shape, tensors, k_max=None,
             if not pitched_ok(t):
                 raise ValueError(
                     f"{name} must have contiguous rows of at least "
-                    f"{shape[2]} floats, packed into planes; got strides "
+                    f"{shape[2]} cells, packed into planes; got strides "
                     f"{t.stride()}")
         elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -396,62 +450,65 @@ def _pieces(out, u, ztail, ytail, xlo, xhi, k, halos, with_x=True):
 
 def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
             cy, cz, mid, geometry):
-    """Launch kernel ``name`` (H or H-fused) on ``args`` (its leading
-    pointers) into ``out``; ``mid`` the int arguments between the origin
-    and k (halos, and defer_x and tma for the fused form), ``geometry``
-    those after k (thread block, rows per thread, X segment and, for H,
-    prefetch and load). Checks nothing; counts the launch. Returns the
-    residual view or None."""
+    """Launch kernel ``name`` (H or H-fused; its bfloat16 form for
+    bfloat16 blocks) on ``args`` (its leading pointers) into ``out``;
+    ``mid`` the int arguments between the origin and k (halos, and defer_x
+    and tma for the fused form), ``geometry`` those after k (thread block,
+    rows per thread, X segment and, for H, prefetch and load). Checks
+    nothing; counts the launch. Returns the residual view or None."""
     from parallel_heat_tpu_torch.kernels.build import load
 
-    lib = load(name)
+    form = entry(name, out.dtype)
+    lib = load(form)
     bits = (torch.empty(1, dtype=torch.int32, device=out.device)
             if with_residual else None)
-    code = getattr(lib, name)(
+    code = getattr(lib, form)(
         *[_ptr(t) for t in args], out.data_ptr(), _ptr(bits), *grid_shape,
         *out.shape, *origin, *mid, k, *geometry, *coeffs3_f32(cx, cy, cz),
         _stream(out))
-    _raise_on_error(lib, name, code)
-    counts[name] += 1
+    _raise_on_error(lib, form, code)
+    counts[form] += 1
     return _residual_view(bits) if bits is not None else None
 
 
-def h_fused_occupancy(k: int, load: str, block=None, rows=None) -> int:
-    """Thread blocks of H-fused's ``(k, rows, load)`` instance that one SM
-    of the current card holds at once (the CUDA occupancy calculator at
-    the launch's shared memory); builds the kernel if needed."""
-    import ctypes
-
+def h_fused_occupancy(k: int, load: str, block=None, rows=None,
+                      dtype="float32") -> int:
+    """Thread blocks of H-fused's ``(k, rows, load)`` instance (its
+    bfloat16 form's at ``dtype`` bfloat16, whose load is ``"plain"``)
+    that one SM of the current card holds at once (the CUDA occupancy
+    calculator at the launch's shared memory); builds the kernel if
+    needed."""
     from parallel_heat_tpu_torch.kernels.build import load as load_lib
 
     p = params()
     (bz, by), rows = block or p.h_block, rows or p.h_rows
-    lib = load_lib("heat_h_block_3d_fused")
-    fn = lib.heat_h_block_3d_fused_occupancy
+    name = entry("heat_h_block_3d_fused", dtype)
+    lib = load_lib(name)
+    fn = getattr(lib, name + "_occupancy")
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    _raise_on_error(lib, "heat_h_block_3d_fused",
+    _raise_on_error(lib, name,
                     fn(k, rows, int(load == "tma"), bz, by,
                        ctypes.addressof(blocks)))
     return blocks.value
 
 
-def h_occupancy(k: int) -> int:
+def h_occupancy(k: int, dtype="float32") -> int:
     """Thread blocks of kernel H's instance at depth ``k`` (its shape of
-    :meth:`~.hopper_params.HopperParams.hc_shape`) that one SM of the
-    current card holds at once; builds the kernel if needed."""
-    import ctypes
-
+    :meth:`~.hopper_params.HopperParams.hc_shape`; its bfloat16 form's at
+    ``dtype`` bfloat16) that one SM of the current card holds at once;
+    builds the kernel if needed."""
     from parallel_heat_tpu_torch.kernels.build import load as load_lib
 
-    (_, warps), rows, prefetch = params().hc_shape(k)
-    lib = load_lib("heat_h_block_3d")
-    fn = lib.heat_h_block_3d_occupancy
+    (_, warps), rows, prefetch = params().hc_shape(k, elem_size(dtype))
+    name = entry("heat_h_block_3d", dtype)
+    lib = load_lib(name)
+    fn = getattr(lib, name + "_occupancy")
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    _raise_on_error(lib, "heat_h_block_3d",
+    _raise_on_error(lib, name,
                     fn(k, warps, rows, prefetch, ctypes.addressof(blocks)))
     return blocks.value
 
@@ -472,12 +529,14 @@ def h_block(ext: torch.Tensor, out: torch.Tensor, k: int,
     ``out`` ``(bx, by, bz)``; the block's residual (0-d float32) or None.
     ``load`` (one of :data:`LOADS`) pins the plane load, which
     :func:`h_block_load` chooses by default; ``"tma"`` where the layout
-    refuses it raises. Both loads give the same bits."""
+    refuses it raises. Both loads give the same bits. Bfloat16 blocks
+    launch ``heat_h_block_3d_bf16`` (rows padded to 8 cells for TMA)."""
     p = params()
     halos = halos_of(out.shape, grid_shape, k)
+    elem = elem_size(out.dtype)
     _check_block(out, k, origin, grid_shape, {
         "ext": (ext, tuple(b + 2 * h for b, h in zip(out.shape, halos)))},
-        k_max=p.hc_k_max(), pitched=("ext",))
+        k_max=p.hc_k_max(elem), pitched=("ext",))
     fits = h_block_load(ext)
     if load is None:
         load = fits
@@ -486,13 +545,14 @@ def h_block(ext: torch.Tensor, out: torch.Tensor, k: int,
     elif load == "tma" and fits != "tma":
         raise ValueError(
             f"the TMA load needs the circular block's rows padded to a "
-            f"multiple of 4 floats and a 16-byte aligned block; got strides "
-            f"{ext.stride()} at an address of {ext.data_ptr() % 16} mod 16")
+            f"multiple of 16 bytes ({16 // elem} cells of {out.dtype}) and a "
+            f"16-byte aligned block; got strides {ext.stride()} at an "
+            f"address of {ext.data_ptr() % 16} mod 16")
     if out.device.type == "cpu":
         return h_block_plain(ext, out, k, with_residual, origin=origin,
                              grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
     return _launch_h(ext, out, k, with_residual, load,
-                     p.hc_launch(out.shape, k), origin=origin,
+                     p.hc_launch(out.shape, k, elem=elem), origin=origin,
                      grid_shape=grid_shape, cx=cx, cy=cy, cz=cz)
 
 
@@ -522,7 +582,9 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
     x slab (give None for both); ``bx`` must be at least ``2k``. ``load``
     (one of :data:`LOADS`) pins the plane load of the tiles inside the
     block, which :func:`h_load` chooses by default; ``"tma"`` where the
-    geometry refuses it raises. Both loads give the same bits."""
+    geometry refuses it raises. Both loads give the same bits. Bfloat16
+    blocks launch ``heat_h_block_3d_fused_bf16``, whose one load is
+    ``"plain"`` (:data:`LOADS_BF16`): ``"tma"`` or ``"cp.async"`` raise."""
     halos = halos_of(u.shape, grid_shape, k)
     _check_block(out, k, origin, grid_shape,
                  _pieces(out, u, ztail, ytail, xlo, xhi, k, halos,
@@ -532,7 +594,13 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
         raise ValueError(f"the deferred bulk needs at least 2k = {2 * k} "
                          f"x-planes, got a block of {bx}")
     fits = h_load(u.shape, k, u)
-    if load is None:
+    if fits == "plain":
+        if load not in (None,) + LOADS_BF16:
+            raise ValueError(f"the bfloat16 form's one load is "
+                             f"{LOADS_BF16}, got {load!r} (a bfloat16 box "
+                             f"does not widen as it lands)")
+        load = fits
+    elif load is None:
         load = fits
     elif load not in LOADS:
         raise ValueError(f"load must be one of {LOADS}, got {load!r}")
@@ -620,11 +688,12 @@ class BandLaunch3D:
     shapes).
 
     :attr:`load` is the load the launch takes: ``"vec"`` (16 bytes a lane
-    where its four cells are one aligned run of the block) where
-    :meth:`~.hopper_params.HopperParams.h_band_vec_fits` takes the blocks
-    and every block is 16-byte aligned, else ``"cells"``; ``load`` pins
-    one of :data:`BAND_LOADS_3D` (``"vec"`` where it does not fit raises
-    ValueError)."""
+    where its four cells are one aligned run of the block; 8 at
+    bfloat16) where :meth:`~.hopper_params.HopperParams.h_band_vec_fits`
+    takes the blocks and every block is 16-byte aligned, else
+    ``"cells"``; ``load`` pins one of :data:`BAND_LOADS_3D` (``"vec"``
+    where it does not fit raises ValueError). Bfloat16 blocks launch
+    :data:`BAND_BF16` on the same table (:attr:`name`)."""
 
     def __init__(self, us, ztails, ytails, xlos, xhis, outs, k: int, *,
                  origins, grid_shape, cx: float, cy: float, cz: float,
@@ -637,6 +706,7 @@ class BandLaunch3D:
                              "block")
         p = params()
         bs = tuple(outs[0].shape)
+        elem = elem_size(outs[0].dtype)
         halos = halos_of(bs, grid_shape, k)
         if not halos[0]:
             raise ValueError("the band kernel needs the x slabs: the block "
@@ -647,25 +717,33 @@ class BandLaunch3D:
                 raise ValueError(f"blocks of one shape on one device only: "
                                  f"{tuple(out.shape)} on {out.device}, {bs} "
                                  f"on {outs[0].device}")
+            if out.dtype != outs[0].dtype:
+                raise TypeError(f"blocks of one dtype only: {out.dtype} and "
+                                f"{outs[0].dtype}")
             _check_block(out, k, tuple(o), grid_shape,
                          _pieces(out, u, zt, yt, lo, hi, k, halos),
-                         k_max=p.h_band_k_max())
+                         k_max=p.h_band_k_max(elem))
         if bs[0] < 2 * k:
             raise ValueError(f"the band kernel needs at least 2k = {2 * k} "
                              f"x-planes, got blocks of {bs[0]}")
-        self.shape = tuple(shape or p.h_band_shape(k) or ())
-        if not self.shape or not p.h_band_takes(*self.shape[:2], k) or (
-                k > p.f_k_max(*self.shape)):
+        self.shape = tuple(shape or p.h_band_shape(k, elem) or ())
+        if not self.shape or not p.h_band_takes(*self.shape[:2], k, elem) or (
+                k > p.f_k_max(*self.shape, elem)):
             raise ValueError(f"the band's plane loop does not take the shape "
-                             f"{self.shape} (block, rows, prefetch) at K={k}")
-        vec = p.h_band_vec_fits(bs) and not any(u.data_ptr() % 16
-                                                for u in us)
+                             f"{self.shape} (block, rows, prefetch) at K={k} "
+                             f"on {outs[0].dtype} blocks")
+        vec = p.h_band_vec_fits(bs, elem) and not any(u.data_ptr() % 16
+                                                      for u in us)
         if load not in (None,) + BAND_LOADS_3D:
             raise ValueError(f"load must be one of {BAND_LOADS_3D}, got "
                              f"{load!r}")
         if load == "vec" and not vec:
-            raise ValueError(f"the band's 16-byte load needs bz % 4 == 0 and "
-                             f"16-byte aligned blocks: blocks {bs}")
+            raise ValueError(f"the band's 16-byte load (8 bytes a lane at "
+                             f"bfloat16) needs rows of a multiple of 16 "
+                             f"bytes (bz % {16 // elem} == 0 at "
+                             f"{outs[0].dtype}) and 16-byte aligned blocks: "
+                             f"blocks {bs}")
+        self.name = entry(BAND, outs[0].dtype)
         self.load = load or ("vec" if vec else "cells")
         self.k, self.grid_shape, self.blocks = k, tuple(grid_shape), n
         self.cx, self.cy, self.cz = cx, cy, cz
@@ -693,15 +771,15 @@ class BandLaunch3D:
                 cy=self.cy, cz=self.cz)
         from parallel_heat_tpu_torch.kernels.build import load
 
-        lib = load(BAND)
+        lib = load(self.name)
         bits = (torch.empty(1, dtype=torch.int32, device=self.device)
                 if with_residual else None)
-        code = lib.heat_h_band_fix_3d(
+        code = getattr(lib, self.name)(
             ctypes.addressof(self._table), self.blocks,
             BAND_LOADS_3D.index(self.load), _ptr(bits), *self._args,
             torch.cuda.current_stream(self.device).cuda_stream)
-        _raise_on_error(lib, BAND, code)
-        counts[BAND] += -(-self.blocks // BAND_TABLE_3D)  # one a chunk
+        _raise_on_error(lib, self.name, code)
+        counts[self.name] += -(-self.blocks // BAND_TABLE_3D)  # one a chunk
         return _residual_view(bits) if bits is not None else None
 
 
@@ -723,9 +801,14 @@ def band_fix_blocks_3d(us, ztails, ytails, xlos, xhis, outs, k: int,
 # The decision sites
 # ---------------------------------------------------------------------------
 
-def pick_block_temporal_3d(block_shape, k: int):
+def pick_block_temporal_3d(block_shape, k: int, dtype="float32"):
     """The sharded 3D round's kernel decision at depth ``k`` for blocks of
-    ``block_shape``: ``(kind, detail)`` with kind in :data:`H_KINDS`.
+    ``block_shape`` at storage ``dtype`` (float32 or bfloat16, a name or a
+    torch dtype): ``(kind, detail)`` with kind in :data:`H_KINDS`;
+    ``detail["kernel"]`` is the entry point the round launches (the
+    bfloat16 form's for bfloat16) and, for H-fused and H-defer,
+    ``detail["load"]`` the load of the tiles inside the block
+    (:func:`h_load`: ``"plain"`` at bfloat16).
 
     The one decision site: ``parallel/temporal3d.py`` executes its result
     and ``solver.explain`` reports it. By default H-fused, whose round is
@@ -739,18 +822,20 @@ def pick_block_temporal_3d(block_shape, k: int):
     if choice == "torch":
         return "torch", None
     p = params()
-    k_max = p.hc_k_max() if choice == "H" else p.h_k_max()
+    elem = elem_size(dtype)
+    k_max = p.hc_k_max(elem) if choice == "H" else p.h_k_max()
     if not 1 <= k <= min(k_max, *block_shape):
         raise ValueError(
             f"tune[block_temporal_3d]: choice {choice!r} is infeasible for "
-            f"blocks {tuple(block_shape)} at K={k} (K must be in [1, "
-            f"{k_max}] and at most the smallest block extent)")
+            f"blocks {tuple(block_shape)} of {dtype} at K={k} (K must be in "
+            f"[1, {k_max}] and at most the smallest block extent)")
     if choice == "H":
-        (lanes, warps), rows, _ = p.hc_shape(k)
+        (lanes, warps), rows, _ = p.hc_shape(k, elem)
         return choice, {"k": k, "block": (lanes, warps), "rows": rows,
-                        "kernel": KERNEL_OF[choice]}
+                        "kernel": entry(KERNEL_OF[choice], dtype)}
     detail = {"k": k, "block": p.h_block, "rows": p.h_rows,
-              "kernel": KERNEL_OF[choice], "load": h_load(block_shape, k)}
+              "kernel": entry(KERNEL_OF[choice], dtype),
+              "load": h_load(block_shape, k, dtype=dtype)}
     return choice, detail
 
 

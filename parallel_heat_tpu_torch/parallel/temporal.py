@@ -444,11 +444,8 @@ def block_temporal_multistep(config, mesh: HeatMesh, backend: str):
         from parallel_heat_tpu_torch.ops import stencil_kernels_block as sk
 
         exchange, cuda_round = DeepExchange2D, _cuda_round_2d
-        interior = stencil_interior_2d
-
-        def pick(shape, k):
-            return sk.pick_block_temporal_2d(shape, k, dtype)
-    kind = pick(block_shape, K)[0] if backend == "cuda" else "torch"
+        pick, interior = sk.pick_block_temporal_2d, stencil_interior_2d
+    kind = pick(block_shape, K, dtype)[0] if backend == "cuda" else "torch"
     rounds = {}
 
     def round_of(depth):

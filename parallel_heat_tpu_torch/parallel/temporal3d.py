@@ -31,7 +31,7 @@ depth, and the slots no neighbour fills are never written. Each round
 writes the rest with ``copy_`` into slices; nothing in the round loop
 concatenates. The circular block kernel H reads
 (:meth:`DeepExchange3D.assemble_circular`, into a buffer whose rows are
-padded to a multiple of 4 floats, :meth:`DeepExchange3D.new_circular`,
+padded to a multiple of 16 bytes, :meth:`DeepExchange3D.new_circular`,
 so that its planes load by TMA) and the padded block of the
 textbook rounds (:meth:`~DeepExchange3D.assemble_padded_lead`,
 :meth:`~DeepExchange3D.assemble_padded_rows`) are assembled from these
@@ -41,7 +41,9 @@ pieces.
 ``parallel/temporal.py`` (:func:`~.temporal.block_multistep`), bitwise a
 one-block torch run. ``backend="cuda"`` (:func:`cuda_round_3d`, the
 counterpart of ``_pallas_round_3d``): the kernel that
-``ops/stencil_kernels_block_3d.pick_block_temporal_3d`` names. The
+``ops/stencil_kernels_block_3d.pick_block_temporal_3d`` names, in its
+bfloat16 form for a bfloat16 run (the exchange moves the blocks' dtype,
+and the plain versions round each level as the kernels do). The
 remainder round of an n-step advance runs the same kernel at depth
 ``n % K``, where the JAX package runs its jnp rounds
 (``temporal.py:914-918``), so the whole run stays on the kernels.
@@ -162,13 +164,16 @@ class DeepExchange3D:
 
     def new_circular(self) -> torch.Tensor:
         """A zeroed buffer for one circular block: a view of
-        :attr:`circular_shape` whose rows are padded to a multiple of 4
-        floats (``hopper_params.hc_pitch``), so that kernel H can encode a
-        tensor map over it; the pad cells are never read."""
-        from parallel_heat_tpu_torch.ops.hopper_params import params
+        :attr:`circular_shape` whose rows are padded to a multiple of 16
+        bytes (4 float32 cells, 8 bfloat16 ones: ``hopper_params.hc_pitch``),
+        so that kernel H can encode a tensor map over it; the pad cells are
+        never read."""
+        from parallel_heat_tpu_torch.ops.hopper_params import (elem_size,
+                                                               params)
 
         x, y, z = self.circular_shape
-        return torch.zeros((x, y, params().hc_pitch(z)), dtype=self.dtype,
+        pitch = params().hc_pitch(z, elem_size(self.dtype))
+        return torch.zeros((x, y, pitch), dtype=self.dtype,
                            device=self.device)[..., :z]
 
     def assemble_circular(self, b: int, u: torch.Tensor,

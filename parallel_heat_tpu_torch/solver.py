@@ -29,9 +29,11 @@ On the CPU the same loops run eagerly, the host reading each stop test.
 
 Precision (``HeatConfig.dtype``, ``accumulate``): the grid lives in its
 storage dtype, float32, bfloat16 or float64, and arithmetic is float32,
-on one block, 2D or 3D, and on meshes (bfloat16 on 2D meshes only). An
-explicit bfloat16 run takes A, E or E-uni in their bfloat16 forms (B and
-C when pinned), in 3D F (D when pinned), on a 2D mesh the G family's;
+on one block, 2D or 3D, and on 2D and 3D meshes. An explicit bfloat16
+run takes A, E or E-uni in their bfloat16 forms (B and C when pinned),
+in 3D F (D when pinned), on a 2D mesh the G family's, on a 3D mesh the
+H family's (H-fused by default; H and H-defer with the band when
+pinned);
 under ``accumulate="f32chunk"`` (2D only) E or
 E-uni carry float32 through each chunk of ``ops.stencil.F32CHUNK_DEPTH``
 steps. An explicit float64 run takes the torch route: ``backend="auto"``
@@ -345,17 +347,16 @@ def sharded_multistep(config: HeatConfig, mesh, backend: str):
             from parallel_heat_tpu_torch.ops import (
                 stencil_kernels_block_3d as skb)
 
-            pick, band = skb.pick_block_temporal_3d, skb.BAND
+            pick = skb.pick_block_temporal_3d
         else:
             from parallel_heat_tpu_torch.ops import stencil_kernels_block as skb
 
-            def pick(shape, k):
-                return skb.pick_block_temporal_2d(shape, k, config.dtype)
-            band = skb.entry(skb.BAND, config.dtype)
-        kind, detail = pick(config.block_shape(), config.halo_depth)
+            pick = skb.pick_block_temporal_2d
+        kind, detail = pick(config.block_shape(), config.halo_depth,
+                            config.dtype)
         if detail is not None:
             load(detail["kernel"])
-            load(band)
+            load(skb.entry(skb.BAND, config.dtype))
     return temporal.block_temporal_multistep(config, mesh, backend)
 
 
@@ -673,22 +674,25 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
     from parallel_heat_tpu_torch.ops.hopper_params import params
 
     bs = res.block_shape()
-    kind, detail = skb3.pick_block_temporal_3d(bs, k)
+    kind, detail = skb3.pick_block_temporal_3d(bs, k, res.dtype)
     forced = tune.forced("block_temporal_3d")
     out["decided_by"] = {"block_temporal_3d": {
         "source": "forced" if forced == kind else "default-order",
         "choice": kind}}
+    store = (", bfloat16 storage, float32 arithmetic"
+             if res.dtype == "bfloat16" else "")
     if kind == "torch":
         out["path"] = (f"K-deep 3D rounds (K={k}), textbook torch stencil, "
-                       f"{mode} schedule")
+                       f"{mode} schedule{store}")
         return out
     halos = skb3.halos_of(bs, res.shape, k)
     if skb3.pick_block_temporal_3d_deferred(kind, bs, res.mesh_shape, k,
                                             mode):
         round_ = (f"overlapped round: deferred bulk {detail['kernel']} "
                   f"(x-planes [{k}, {bs[0] - k}) from u and the z and y "
-                  f"tails) + band kernel {skb3.BAND} (every block's x "
-                  f"bands in one launch, on F's plane loop)")
+                  f"tails) + band kernel {skb3.entry(skb3.BAND, res.dtype)} "
+                  f"(every block's x bands in one launch, on F's plane "
+                  f"loop)")
     elif kind == "H":
         round_ = (f"monolithic round: {detail['kernel']} on the assembled "
                   f"circular block")
@@ -702,7 +706,11 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
                   f"in the kernel; {why}")
     bz, by = detail["block"]
     load = ""
-    if "load" in detail:
+    if detail.get("load") == "plain":
+        load = (", every tile loads by one plain 2-byte load a cell, "
+                "widened into the float32 ring (the bfloat16 form's one "
+                "load: TMA needs 16-byte rows and a box that widens)")
+    elif "load" in detail:
         hp = params()
         wy, wz = hp.h_tma_box(detail["block"], detail["rows"])
         ty, tz = hp.h_extent(detail["block"], detail["rows"])
@@ -714,6 +722,9 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
                 f"(TMA needs bz % 4 == 0 and a block of at least {least} "
                 f"(Y, Z) cells at K={k}, which holds a tile, got "
                 f"{bs[1]}x{bs[2]})")
+    if res.dtype == "bfloat16":
+        load += ("; bfloat16 storage (bfloat16 halos, every level rounded, "
+                 "float32 arithmetic)")
     out["path"] = (f"kernel {kind} ({round_}), K-deep 3D rounds K={k}, "
                    f"halos={halos}, block={bz}x{by} threads of "
                    f"{detail['rows']} rows{load}" + plain)

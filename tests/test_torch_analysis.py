@@ -380,15 +380,18 @@ def test_hl4xx_real_plans_clean_and_all_kernels_covered():
     assert active == [] and stale == []
     names = pk.source_kernel_names()
     # 31 kernels, the bfloat16 forms of A, B, C, D, E, E-uni, F, I, I-uni,
-    # M, G, G-circ, G-fuse, G-uni and the 2D band (a __global__ each), and
-    # the device loop's two one-thread helpers (csrc/heat_graph_loop.cu,
-    # baselined).
-    assert len(names) == 48 and "heat_probe_fixture_kernel" in names
+    # M, G, G-circ, G-fuse, G-uni, the 2D band, H, H-fused and the 3D band
+    # (a __global__ each), and the device loop's two one-thread helpers
+    # (csrc/heat_graph_loop.cu, baselined).
+    assert len(names) == 51 and "heat_probe_fixture_kernel" in names
     g_bf16 = {"heat_g_block_padded_bf16_kernel",
               "heat_g_block_circular_bf16_kernel",
               "heat_g_block_fused_bf16_kernel",
               "heat_g_block_uniform_bf16_kernel",
-              "heat_g_band_fix_bf16_kernel"}
+              "heat_g_band_fix_bf16_kernel",
+              "heat_h_block_3d_bf16_kernel",
+              "heat_h_block_3d_fused_bf16_kernel",
+              "heat_h_band_fix_3d_bf16_kernel"}
     assert {"heat_a_resident_bf16_kernel", "heat_e_temporal_bf16_kernel",
             "heat_e_uni_temporal_bf16_kernel", "heat_b_step_bf16_kernel",
             "heat_c_tiled_bf16_kernel", "heat_i_tile_temporal_bf16_kernel",
@@ -420,6 +423,15 @@ def test_plans_cover_every_k_the_pickers_admit():
     bf16 = {int(pl_.label.split("K=")[1].split()[0]) for pl_ in plans
             if pl_.entry == "heat_f_temporal3d_bf16"}
     assert bf16 >= {k for k in range(1, 9) if p.f_shape(k, 2) is not None}
+    h_bf16 = {e: {int(pl_.label.split("K=")[1].split()[0]) for pl_ in plans
+                  if pl_.entry == e}
+              for e in ("heat_h_block_3d_fused_bf16", "heat_h_block_3d_bf16",
+                        "heat_h_band_fix_3d_bf16")}
+    assert h_bf16["heat_h_block_3d_fused_bf16"] >= set(
+        range(1, p.h_k_max() + 1))
+    assert h_bf16["heat_h_block_3d_bf16"] >= set(range(1, p.hc_k_max(2) + 1))
+    assert h_bf16["heat_h_band_fix_3d_bf16"] >= set(
+        range(1, p.h_band_k_max(2) + 1))
 
 
 def test_unproved_tile_class_is_a_soundness_finding():

@@ -46,7 +46,10 @@ The bfloat16 forms of G-uni, G-fuse, G-circ, G and the band are bitwise
 their plain versions, each other and E's bfloat16 K steps on the same
 cells, NaN-seeded blocks included, the band under each load; a sharded
 bfloat16 ``solve()`` is bitwise the one-block run and the CPU's, and a
-sharded float64 run (the torch rounds, 2D and 3D) the one-block run.
+sharded float64 run (the torch rounds, 2D and 3D) the one-block run. In
+3D the bfloat16 forms of H-fused, H and the 3D band likewise, against K
+launches of D's bfloat16 form, and a sharded 3D bfloat16 ``solve()``
+under each kind.
 """
 
 import functools
@@ -1531,3 +1534,130 @@ def test_sharded_float64_on_the_card_is_one_block_bitwise(card, dims, depth):
     one = solve(cfg.replace(mesh_shape=None, halo_depth=None))
     assert got.grid.dtype == torch.float64
     assert torch.equal(got.grid.view(torch.int64), one.grid.view(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# The H family's bfloat16 forms and bfloat16 3D meshes
+# ---------------------------------------------------------------------------
+
+# Blocks 6 x 50 x 70 (lanes straddling the z tail), 20 x 128 x 136 (the
+# band's vector load, TMA boxes inside), 20 x 128 x 252 on (3, 3, 3) and
+# z-free 40 x 128 x 96.
+H_BF16_CASES = [((12, 100, 140), (2, 2, 2), 3), ((40, 256, 272), (2, 2, 2),
+                                                  8),
+                ((60, 384, 756), (3, 3, 3), 5), ((80, 512, 96), (2, 4, 1),
+                                                 4)]
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("grid,mesh_shape,k", H_BF16_CASES)
+def test_h_bf16_forms_bitwise_plain_each_other_and_d(card, grid, mesh_shape,
+                                                     k, nan):
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    kw3 = dict(cx=0.1, cy=0.15, cz=0.05)
+    g = _rand_bf16_3d(grid, 47, card, nan=nan)
+    want = g
+    for _ in range(k):
+        out = torch.empty_like(want)
+        sk3.slab_step_3d(want, out, **kw3)
+        want = out
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(g)
+    bs = mesh.block_shape(grid)
+    xch = temporal3d.DeepExchange3D(mesh, bs, k, card, BF16)
+    xch.lead(us)
+    xch.last(us)
+    for b in range(mesh.size):
+        o = mesh.origin(b, bs)
+        kw = dict(origin=o, grid_shape=grid, **kw3)
+        cell = want[tuple(slice(a, a + n) for a, n in zip(o, bs))]
+        ext = xch.new_circular()
+        xch.assemble_circular(b, us[b], ext)
+        runs = {"heat_h_block_3d_fused_bf16": (
+                    lambda out: skb3.h_block_fused(us[b], *xch.pieces(b),
+                                                   out, k, **kw),
+                    lambda out: skb3.h_block_fused_plain(
+                        us[b], *xch.pieces(b), out, k, **kw)),
+                "heat_h_block_3d_bf16": (
+                    lambda out: skb3.h_block(ext, out, k, **kw),
+                    lambda out: skb3.h_block_plain(ext, out, k, **kw))}
+        res = None
+        for name, (launch, plain) in runs.items():
+            got, ref = (torch.full(bs, float("nan"), dtype=BF16,
+                                   device=card) for _ in range(2))
+            sk.reset_counts()
+            r = launch(got)
+            assert sk.counts[name] == 1
+            rp = plain(ref)
+            assert _same_bits(got, ref) and _same_res(r, rp), name
+            assert _same_bits(got, cell), name
+            res = r if res is None else res
+            assert _same_res(r, res), name
+        if bs[0] >= 2 * k and xch.halos[0]:
+            zt, yt, _, _ = xch.pieces(b)
+            split = torch.full(bs, float("nan"), dtype=BF16, device=card)
+            rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k,
+                                    defer_x=True, **kw)
+            rf = skb3.h_band_fix(us[b], *xch.pieces(b), split, k, **kw)
+            assert _same_bits(split, cell)
+            assert _same_res(torch.maximum(rb, rf), res)
+
+
+@pytest.mark.parametrize("grid,mesh_shape,k", H_BF16_CASES)
+def test_h_band_bf16_blocks_bitwise_plain_under_each_load(card, grid,
+                                                          mesh_shape, k):
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(_rand_bf16_3d(grid, 49, card, nan=True))
+    bs = mesh.block_shape(grid)
+    xch = temporal3d.DeepExchange3D(mesh, bs, k, card, BF16)
+    xch.lead(us)
+    xch.last(us)
+    pieces = (xch.ztail, xch.ytail, xch.xlo, xch.xhi)
+    origins = [mesh.origin(b, bs) for b in range(mesh.size)]
+    kw = dict(origins=origins, grid_shape=grid, cx=0.1, cy=0.15, cz=0.05)
+    plain = [torch.full(bs, float("nan"), dtype=BF16, device=card)
+             for _ in us]
+    rp = skb3.band_fix_blocks_3d_plain(us, *pieces, plain, k, **kw)
+    picked = skb3.BandLaunch3D(us, *pieces, plain, k, **kw).load
+    for load in sorted({"cells", picked}):
+        got = [torch.full(bs, float("nan"), dtype=BF16, device=card)
+               for _ in us]
+        sk.reset_counts()
+        r = skb3.BandLaunch3D(us, *pieces, got, k, load=load, **kw)(True)
+        assert sk.counts["heat_h_band_fix_3d_bf16"] == 1
+        for a, c in zip(got, plain):
+            assert _same_bits(a, c)
+            assert a[k:bs[0] - k].isnan().all()
+        assert _same_res(r, rp)
+
+
+@pytest.mark.parametrize("kind", ["H-fused", "H", "H-defer"])
+@pytest.mark.parametrize("cfg", [
+    dict(nx=128, ny=128, nz=136, steps=50, mesh_shape=(2, 2, 2)),
+    dict(nx=64, ny=64, nz=64, steps=400, converge=True, check_interval=20,
+         eps=1e-9, mesh_shape=(2, 2, 2)),
+    dict(nx=96, ny=160, nz=100, steps=31, mesh_shape=(2, 4, 1))])
+def test_sharded_3d_bf16_solve_on_the_card_matches_one_block_bitwise(
+        card, cfg, kind):
+    cfg = dict(cfg, dtype="bfloat16", halo_overlap="overlap")
+    with tune.force("block_temporal_3d", kind):
+        sk.reset_counts()
+        got = solve(HeatConfig(**cfg))
+        ran = {name for name, n in sk.counts.items() if n}
+        cpu = solve(HeatConfig(**cfg, backend="cuda"), device="cpu")
+    assert ran and all(name.startswith("heat_h_") and name.endswith("_bf16")
+                       for name in ran), ran
+    one = solve(HeatConfig(**{**cfg, "mesh_shape": None,
+                              "halo_overlap": None}))
+    assert _same_bits(got.grid, one.grid)
+    assert _same_bits(got.grid.cpu(), cpu.grid)
+    assert (got.steps_run, got.converged) == (one.steps_run, one.converged)
+    if cfg.get("converge"):
+        assert got.residual == one.residual == cpu.residual

@@ -50,8 +50,10 @@ from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
 
 f32 = np.float32
 WIDTH = 128   # F's extended tile along Z (csrc/heat_temporal3d.cuh kFWidth)
+# The band's table, arguments and loads (shared by its float32 and
+# bfloat16 forms).
 SRC = (Path(__file__).resolve().parent.parent / "parallel_heat_tpu_torch"
-       / "csrc" / "heat_h_band_fix_3d.cu")
+       / "csrc" / "heat_hb.cuh")
 COEFFS = dict(cx=0.1, cy=0.15, cz=0.05)
 
 

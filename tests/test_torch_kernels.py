@@ -295,16 +295,17 @@ def test_wrappers_count_their_calls_on_the_cpu():
     skb3.h_block(ext3, out3, 2, **kw3)
     # On the CPU the plain versions run; the kernels never launch. One
     # registry holds all twenty kernels, the counts of A's, B's, C's, D's,
-    # E's, E-uni's, F's, I's, I-uni's, M's and the G family's bfloat16
-    # forms (storage, and E's, E-uni's, I's and I-uni's acc_f32), and the
-    # plain versions.
+    # E's, E-uni's, F's, I's, I-uni's, M's, the G family's and the H
+    # family's bfloat16 forms (storage, and E's, E-uni's, I's and I-uni's
+    # acc_f32), and the plain versions.
     assert all(n == 0 for name, n in sk.counts.items()
                if name.startswith("heat_"))
     assert all(n == 1 for name, n in sk.counts.items()
                if not name.startswith("heat_"))
     assert {"heat_d_step3d_bf16", "heat_f_temporal3d_bf16",
-            *skb.KERNEL_OF_BF16.values(), skb.BAND_BF16} <= set(sk.counts)
-    assert len(sk.counts) == 59
+            *skb.KERNEL_OF_BF16.values(), skb.BAND_BF16,
+            *skb3.KERNEL_OF_BF16.values(), skb3.BAND_BF16} <= set(sk.counts)
+    assert len(sk.counts) == 62
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "alias", "strided",
@@ -455,7 +456,7 @@ def test_library_path_tracks_source_digest():
     b = build.library_path("heat_e_temporal")
     assert a.parent == build.BUILD_DIR and a != b
     names = {build.library_path(name).name for name in build.KERNELS}
-    assert len(names) == len(build.KERNELS) == 23
+    assert len(names) == len(build.KERNELS) == 26
     assert a.name.startswith("libheat_b_step-") and a.suffix == ".so"
     assert build.library_path("heat_b_step") == a
 

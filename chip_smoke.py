@@ -37,10 +37,10 @@ prints the card's name and power limit, then one JSON line per phase:
    forms (``heat_d_step3d_bf16``, the 48 of ``heat_f_temporal3d_bf16``,
    its own library) may spill more, stores or loads, than its float32
    twin of the same K, rows and load; nor any of the H family's (the 24
-   of ``heat_h_block_3d_bf16``, the 24 of ``heat_h_block_3d_fused_bf16``,
-   whose twins are H-fused's cp.async instances, and the 32 of
-   ``heat_h_band_fix_3d_bf16``, a library each), and H-fused's bfloat16
-   main-path instance not at all;
+   of ``heat_h_block_3d_bf16``, the 32 of ``heat_h_block_3d_fused_bf16``,
+   whose twins are H-fused's instances of the same K, rows and box load,
+   and the 32 of ``heat_h_band_fix_3d_bf16``, a library each), and
+   H-fused's bfloat16 main-path instance not at all;
 2. kernels — each kernel against its plain PyTorch version on the card,
    bitwise, with cx = cy = 0.1 and, where marked, also cx=0.1, cy=0.2
    (so a swap of the axes cannot pass). The one-step kernels B
@@ -420,7 +420,9 @@ prints the card's name and power limit, then one JSON line per phase:
    kernel with max(bulk, band) its residual; every kind of the band's
    tiles (``h_band_tile_kinds``) must have run;
 17a. kernels_h_bf16 — the bfloat16 forms of H-fused
-   (``heat_h_block_3d_fused_bf16``, its one load), H
+   (``heat_h_block_3d_fused_bf16``, under each load of ``LOADS_BF16`` the
+   block takes; its tiles inside the block by TMA boxes, inside tiles by
+   cp.async pairs where no box fits, and its edge tiles asserted run), H
    (``heat_h_block_3d_bf16``, contiguous and padded circular blocks, both
    loads) and the band (``heat_h_band_fix_3d_bf16``, one launch over
    every block under each load) into NaN-filled outputs, each bitwise its
@@ -1005,21 +1007,24 @@ def phase_build():
           f"a bfloat16 instance of the G family spills more than its "
           f"float32 twin or is missing: {g_twins}")
     # The sharded 3D kernels' bfloat16 forms (a library each, <K, rows>,
-    # the band's <K, rows, load>): none may spill more than its float32
-    # twin (H-fused's of the cp.async load), nor H-fused's main-path
-    # instance at all; their registers, and the blocks an SM of H-fused's
-    # and H's main-path instances.
+    # H-fused's <K, rows, box load> like its twin's, the band's <K, rows,
+    # load>): none may spill more than its float32 twin, nor H-fused's
+    # main-path instance at all; their registers, and the blocks an SM of
+    # H-fused's and H's main-path instances.
     h_twins = {}
-    for name, suffix in (("heat_h_block_3d", ""),
-                         ("heat_h_block_3d_fused", ", false"),
-                         ("heat_h_band_fix_3d", "")):
+    for name in ("heat_h_block_3d", "heat_h_block_3d_fused",
+                 "heat_h_band_fix_3d"):
         for inst, row in ptxas[name + "_bf16"].items():
-            h_twins[f"{name}_bf16_kernel<{inst}>"] = (
-                row, ptxas[name].get(inst + suffix))
-    h_fused_main = h_twins.get(f"heat_h_block_3d_fused_bf16_kernel<"
-                               f"{hp.h_k_default}, {hp.h_rows}>",
-                               (None, None))[0]
-    check(len(h_twins) == (3 + 3 + 4) * hp.h_k_compiled
+            h_twins[f"{name}_bf16_kernel<{inst}>"] = (row,
+                                                      ptxas[name].get(inst))
+    h_load_bf16 = skb3.h_load((SHARD3_N // 2,) * 3, hp.h_k_default,
+                              dtype="bfloat16")
+    h_fused_inst = (f"{hp.h_k_default}, {hp.h_rows}, "
+                    f"{'true' if h_load_bf16.startswith('tma') else 'false'}")
+    h_fused_main = h_twins.get(
+        f"heat_h_block_3d_fused_bf16_kernel<{h_fused_inst}>",
+        (None, None))[0]
+    check(len(h_twins) == (3 + 3 + 1 + 4) * hp.h_k_compiled
           and h_fused_main is not None and h_fused_main[1] == 0
           and all(mine is not None and twin is not None
                   and mine[1] <= twin[1] and mine[2] <= twin[2]
@@ -1029,10 +1034,10 @@ def phase_build():
           f"missing: {h_twins}")
     h_main_bf16 = {
         "heat_h_block_3d_fused_bf16": {
-            "instance": f"{hp.h_k_default}, {hp.h_rows}",
+            "instance": h_fused_inst, "load": h_load_bf16,
             "registers": h_fused_main[0],
             "blocks_per_sm": skb3.h_fused_occupancy(
-                hp.h_k_default, "plain", dtype="bfloat16")},
+                hp.h_k_default, h_load_bf16, dtype="bfloat16")},
         "heat_h_block_3d_bf16": {
             "blocks_per_sm": skb3.h_occupancy(hp.h_k_default, "bfloat16")}}
     g_main_bf16 = {
@@ -4554,8 +4559,10 @@ def _d_chain_bf16(sk3, g, k, kw):
 def _check_h_block_bf16(dev, xch, b, us, k, kw, want, want_res, err):
     """Every bfloat16 H form at depth ``k`` on block ``b`` (the bfloat16
     exchange ``xch`` has run all three phases), into NaN-filled outputs:
-    H-fused (its one load), H on the contiguous circular block and on the
-    padded one under both loads; each bitwise its plain version, the
+    H-fused under each of its loads the block takes (``LOADS_BF16``: the
+    box loads where ``h_load`` picks "tma"), H on the contiguous circular
+    block and on the padded one under both loads; each bitwise its plain
+    version, the
     others and ``want``, the K launches of heat_d_step3d_bf16 (and F's
     bfloat16 K steps) on the same cells; its grid independent of
     with_residual; and where x is sharded and the block has 2K x-planes,
@@ -4580,12 +4587,15 @@ def _check_h_block_bf16(dev, xch, b, us, k, kw, want, want_res, err):
           f"takes no TMA load")
     pieces = xch.pieces(b)
     nan = float("nan")
+    boxed = skb3.h_load(bs, k, us[b]) == "tma"
     runs = {
-        ("heat_h_block_3d_fused_bf16", "plain"): (
-            lambda out, r: skb3.h_block_fused(us[b], *pieces, out, k, r,
-                                              **h_kw),
+        **{("heat_h_block_3d_fused_bf16", load): (
+            lambda out, r, load=load: skb3.h_block_fused(
+                us[b], *pieces, out, k, r, load=load, **h_kw),
             lambda out: skb3.h_block_fused_plain(us[b], *pieces, out, k,
-                                                 **h_kw)),
+                                                 **h_kw))
+           for load in skb3.LOADS_BF16
+           if boxed or not load.startswith("tma")},
         **{("heat_h_block_3d_bf16", f"{load} {what}"): (
             lambda out, r, e=e, load=load: skb3.h_block(e, out, k, r,
                                                         load=load, **h_kw),
@@ -4618,8 +4628,10 @@ def _check_h_block_bf16(dev, xch, b, us, k, kw, want, want_res, err):
     if xch.halos[0] and bs[0] >= 2 * k:
         zt, yt, _, _ = pieces
         split = torch.full(bs, nan, dtype=torch.bfloat16, device=dev)
+        # The deferred bulk under the other step-2 load than h_load's.
         rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k, True,
-                                defer_x=True, **h_kw)
+                                defer_x=True, load="tma+prefetch"
+                                if boxed else "prefetch", **h_kw)
         torch.cuda.synchronize()
         check(bool(split[:k].isnan().all()
                    and split[bs[0] - k:].isnan().all()),
@@ -4706,11 +4718,13 @@ def phase_kernels_h_bf16(dev):
     ((2, 4, 1)); at K = 1, 3, 6 on 6 x 50 x 70 ((2, 2, 2): lanes that
     straddle the z tail); on contiguous and padded circular blocks; every
     tile kind of H (``hc_tile_kinds`` at 2-byte cells) and of the band
-    (``h_band_tile_kinds``) asserted run; the bulk plus the band bit for
-    bit the monolithic form; the band's one launch under both loads; and
-    NaN-seeded 80^3 and 40 x 256 x 256 on (2, 2, 2) (40^3 and 20 x 128 x
-    128 blocks: payloads kept, NaN residuals, faces bit for bit). Returns
-    max |diff| each (0.0)."""
+    (``h_band_tile_kinds``) asserted run, and H-fused's (``h_tiles``):
+    tiles inside the block by TMA boxes, inside tiles by cp.async pairs
+    where no box fits, and edge tiles; H-fused under each of its loads;
+    the bulk plus the band bit for bit the monolithic form; the band's one
+    launch under both loads; and NaN-seeded 80^3 and 40 x 256 x 256 on
+    (2, 2, 2) (40^3 and 20 x 128 x 128 blocks: payloads kept, NaN
+    residuals, faces bit for bit). Returns max |diff| each (0.0)."""
     import torch
 
     from parallel_heat_tpu_torch.ops import stencil_kernels_3d as sk3
@@ -4737,6 +4751,7 @@ def phase_kernels_h_bf16(dev):
             (SHARD3_MESH, (20, 128, 128), [p.h_k_default], list(range(8)),
              True)]
     h_kinds, band_kinds = {}, {}
+    fused_kinds = {"tma_inside": 0, "staged_inside": 0, "edge": 0}
     band_loads, report, nan_res = set(), [], {}
     for seed, (mesh_shape, block, depths, blocks, nan) in enumerate(plan):
         grid = tuple(m * n for m, n in zip(mesh_shape, block))
@@ -4771,6 +4786,11 @@ def phase_kernels_h_bf16(dev):
             if xch.halos[0] and block[0] >= 2 * k:
                 band_loads.update(_check_h_band_blocks_bf16(
                     dev, xch, us, k, kw, want, err))
+            inside, edge = p.h_tiles(block, k)
+            boxed = skb3.h_load(block, k, dtype="bfloat16") == "tma"
+            fused_kinds["tma_inside" if boxed else "staged_inside"] += (
+                inside * len(blocks))
+            fused_kinds["edge"] += edge * len(blocks)
             for b in blocks:
                 o = mesh.origin(b, block)
                 for kind, n in p.hc_tile_kinds(block, k, xch.halos, o, grid,
@@ -4793,8 +4813,12 @@ def phase_kernels_h_bf16(dev):
     check(not missing and band_loads == set(skb3.BAND_LOADS_3D),
           f"kernels_h_bf16: no band tile of the kinds {missing} ran "
           f"({band_kinds}), or the loads {sorted(band_loads)} ran")
+    check(all(fused_kinds.values()),
+          f"kernels_h_bf16: an H-fused tile kind did not run: {fused_kinds}")
     emit({"phase": "kernels_h_bf16", "ok": True, "coeffs": kw3,
           "checks": report, "h_tile_kinds": h_kinds,
+          "h_fused_tile_kinds": fused_kinds,
+          "h_fused_loads": list(skb3.LOADS_BF16),
           "band_tile_kinds": band_kinds, "band_loads": sorted(band_loads),
           "nan_residual": nan_res, "max_abs_err": err,
           "bitwise_plain_each_other_f_and_d_chain": True,
@@ -7862,9 +7886,11 @@ def _timing_h_bf16(dev):
     """The bfloat16 H family at the sharded 3D main path's block (512^3
     of 1024^3 on (2, 2, 2), K = h_k_default, no residual), beside its
     float32 twins on the same blocks in float32, timed here in turns:
-    H-fused's bfloat16 form (the monolithic round's launch), its deferred
-    bulk, H's on the padded circular block (TMA) and the bfloat16 band's
-    launch over the round's 8 blocks; each with CUDA events and the
+    H-fused's bfloat16 form (the monolithic round's launch; also under
+    each of its loads, in turns with pinned H's bfloat16 form), its
+    deferred bulk, H's on the padded circular block (TMA) and the
+    bfloat16 band's launch over the round's 8 blocks; each with CUDA
+    events and the
     profiler's device time, its plain version, ``conv3d`` in bfloat16
     chained K times on the framed block (the band's on its 16 windows)
     and its bound at 2 B a cell (half the float32 bytes); and whole
@@ -8004,12 +8030,29 @@ def _timing_h_bf16(dev):
         row.update(_device_ms(kernel, name))
         rows[name + ("@" + part if part else "")] = row
     rows["heat_h_block_3d_fused_bf16"]["load"] = skb3.h_load(bs, k, us[b])
+    # H-fused bf16 under each of its loads and pinned H bf16 (its round's
+    # kernel), in turns and back; each load's device time too.
+    turns = {load: (lambda load=load: skb3.h_block_fused(
+        us[b], zt, yt, xlo, xhi, v, k, False, load=load, **kw))
+        for load in skb3.LOADS_BF16}
+    turns["heat_h_block_3d_bf16"] = lambda: skb3.h_block(ext, v, k, False,
+                                                         **kw)
+    turn_ms = {key: [] for key in turns}
+    for order in (list(turns), list(turns)[::-1]):
+        for key in order:
+            turn_ms[key].append(_time_ms(turns[key], 20, 3))
+    rows["heat_h_block_3d_fused_bf16"]["turns_ms_runs"] = turn_ms
+    rows["heat_h_block_3d_fused_bf16"]["loads_device_ms"] = {
+        load: _device_ms(turns[load],
+                         "heat_h_block_3d_fused_bf16")["device_ms"]
+        for load in skb3.LOADS_BF16}
     rows["heat_h_block_3d_bf16"]["load"] = skb3.h_block_load(ext)
     rows["heat_h_band_fix_3d_bf16"].update(blocks=mesh.size,
                                            load=band_launch.load,
                                            shape=list(band_launch.shape))
     rows["heat_h_block_3d_fused_bf16"]["blocks_per_sm"] = (
-        skb3.h_fused_occupancy(k, "plain", dtype="bfloat16"))
+        skb3.h_fused_occupancy(k, rows["heat_h_block_3d_fused_bf16"]["load"],
+                               dtype="bfloat16"))
     rows["heat_h_block_3d_bf16"]["blocks_per_sm"] = skb3.h_occupancy(
         k, "bfloat16")
     # Whole bfloat16 rounds of the 8 blocks under each kind, in turns.

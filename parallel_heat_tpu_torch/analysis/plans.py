@@ -1289,9 +1289,12 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
     x slabs' planes by cp.async; elsewhere the per-cell cp.async ring
     (``heat_t3d_stream``). Loads are in frame coordinates, the block's
     cells shifted by ``k``. With ``bf16`` the bfloat16 form
-    (``heat_h_block_3d_fused_bf16``, ``load="plain"``): every tile by
-    plain 2-byte loads widened into the float32 ring, no copy in
-    flight."""
+    (``heat_h_block_3d_fused_bf16``, ``load`` one of
+    ``stencil_kernels_block_3d.LOADS_BF16``) on its own loop
+    (``heat_t3d_stream_bf16``): h_tma_prefetch staging slots, each plane
+    a bfloat16 box (tiles inside the block under a "tma" load) or the
+    pairs' 4-byte cp.async copies (the "cp.async" and "tma" loads), landed
+    at the top of its own iteration; the register loads take no slot."""
     from parallel_heat_tpu_torch.ops.stencil_kernels_block_3d import (
         _geometry)
 
@@ -1331,6 +1334,10 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
         return Span(write, {"plane": (lo + k, wz, g[2])},
                     (inside(lo, wz, bz),))
 
+    if bf16:
+        return _plan_h_bf16(kind, block_shape, k, origin, grid_shape, defer,
+                            load, (bzt, byt), rows, xsegs, (xs, ys, zs),
+                            tiles_y, tiles_z)
     tma_ps = _tma_plane(wy, wz)
     box_bytes = 4 * wy * (wz + 4)
 
@@ -1354,16 +1361,14 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
                                     groups=True)
         return _sched_ring_groups(
             t0, t1, p.h_prefetch, p.h_prefetch + 2,
-            lambda slot, t: [] if bf16 else [("cp_async", slot,
-                                               4 * wy * wz)])
+            lambda slot, t: [("cp_async", slot, 4 * wy * wz)])
 
     plane_b = 4 * (wy + 2) * wz
     # The cp.async ring starts at the buffer itself (heat_t3d_stream),
     # the TMA ring at its first 128-byte boundary.
     slots = {f"ring{i}": (i * plane_b, plane_b, 0)
              for i in range(p.h_prefetch + 2)}
-    loads = {"plane": Load("ld" if bf16 else "cp4", "frame", "ring", wz,
-                           (0, wz), streamed=1)}
+    loads = {"plane": Load("cp4", "frame", "ring", wz, (0, wz), streamed=1)}
     dyn = p.h_smem_bytes(k, (bzt, byt), rows)
     slack = 0
     if tma:
@@ -1379,7 +1384,7 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
     else:
         cover, leave = _full(block_shape), []
     ye, ze = by + 2 * k, bz + 2 * k
-    name = H_KERNELS[kind] + ("_bf16" if bf16 else "")
+    name = H_KERNELS[kind]
     what = kind + (" deferred bulk" if defer else "")
     return Plan(
         kernel=name + "_kernel", entry=name,
@@ -1395,12 +1400,117 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
         loads=loads, slots=slots, align_slack=slack, cover=cover,
         leave=leave, schedule=schedule,
         group=(f"H {bx}x{by}x{bz} at {tuple(origin)} K={k}"
-               + (" bf16" if bf16 else "") if defer else None),
-        # HeatHStrides and the per-row offsets are int32 (heat_h.cuh:80,
-        # :243); heat_h_launch refuses ye * ze past it.
-        int32=[("plane stride by * bz", by * bz),
-               ("slab stride ye * ze", ye * ze),
-               ("row offset yc * ze + zc", ye * ze - 1)])
+               if defer else None),
+        int32=_h_int32(by, bz, ye, ze))
+
+
+def _h_int32(by, bz, ye, ze):
+    # HeatHStrides and the per-row offsets are int32 (heat_h.cuh
+    # HeatHStrides, the edge tiles' xoff); heat_h_launch refuses ye * ze
+    # past it.
+    return [("plane stride by * bz", by * bz),
+            ("slab stride ye * ze", ye * ze),
+            ("row offset yc * ze + zc", ye * ze - 1)]
+
+
+def _sched_land_ring(t0, t1, prefetch, fill, bars):
+    """H-fused's bfloat16 plane loop (``heat_temporal3d.cuh``
+    heat_t3d_stream_bf16): ``prefetch`` staging slots, input ``t`` into
+    slot ``(t - t0) % prefetch``; each iteration waits for its plane's
+    commit group (and, with ``bars``, its slot's mbarrier phase), lands
+    the slot (reads it), then refills it with the plane ``prefetch``
+    ahead. ``fill(slot, bar, t)`` gives the events of input ``t``."""
+    ev = ([("mbar_init", f"full{i}", 1) for i in range(prefetch)]
+          if bars else [])
+    for i in range(prefetch):
+        if t0 + i < t1:
+            ev += fill(f"stage{i}", f"full{i}", t0 + i)
+        ev.append(("commit",))
+    cur, lap = 0, 0
+    for t in range(t0, t1):
+        ev.append(("wait_prior", prefetch - 1))
+        if bars:
+            ev.append(("wait", f"full{cur}", lap))
+        ev.append(("read", f"stage{cur}"))
+        if t + prefetch < t1:
+            ev += fill(f"stage{cur}", f"full{cur}", t + prefetch)
+        ev.append(("commit",))
+        cur += 1
+        if cur == prefetch:
+            cur, lap = 0, lap ^ 1
+    return ev
+
+
+def _plan_h_bf16(kind, block_shape, k, origin, grid_shape, defer, load,
+                 block, rows, xsegs, spans_of, tiles_y, tiles_z) -> Plan:
+    """plan_h's bfloat16 form: its launch geometry and spans, the loop's
+    staging slots (4 bytes a thread and row: a pair of cells, or a box's
+    2 (wz + 8) wy bytes), three float32 ring planes, the levels and an
+    mbarrier a slot (``hopper_params.h_bf16_smem_bytes``)."""
+    p = _p()
+    bx, by, bz = block_shape
+    wy, wz = block[1] * rows, block[0]
+    slots_n = p.h_tma_prefetch
+    slot_b = 4 * wz * wy
+    box_bytes = 2 * wy * (wz + 8)
+    boxes = load.startswith("tma")
+    pairs = load in ("cp.async", "tma")
+
+    def schedule(spans):
+        x0, x1 = spans[0].write
+        box = boxes and spans[1].kind[0] and spans[2].kind[0]
+        ty0 = spans[1].reads["plane"][0] - k
+        tz0 = spans[2].reads["plane"][0] - k
+
+        def fill(slot, bar, t):
+            in_grid = 0 <= origin[0] + t < grid_shape[0]
+            if box and (0 <= t < bx or not in_grid):
+                return [("expect_tx", bar, box_bytes),
+                        ("tma", slot, bar, box_bytes,
+                         (tz0 - (tz0 & 7), ty0, t), 0)]
+            ev = ([("cp_async", slot, slot_b)]
+                  if pairs and (0 <= t < bx or in_grid) else [])
+            return ev + ([("arrive", bar)] if box else [])
+        return _sched_land_ring(x0 - k, x1 + k, slots_n, fill, box)
+
+    ring_b = 4 * (wy + 2) * wz
+    slots = {f"stage{i}": (i * slot_b, slot_b) for i in range(slots_n)}
+    at = slots_n * slot_b
+    slots.update({f"ring{i}": (at + i * ring_b, ring_b) for i in range(3)})
+    slots["levels"] = (at + 3 * ring_b, 2 * (k - 1) * ring_b)
+    slots["bars"] = (at + (3 + 2 * (k - 1)) * ring_b, 8 * slots_n)
+    loads = {"plane": Load("cp4" if pairs else "ld", "frame",
+                           "stage" if pairs else None, 0, (0, wz),
+                           streamed=1)}
+    if boxes:
+        loads["box"] = Load("tma", "u", "stage", 0, (0, wz + 8), streamed=1,
+                            box=(1, wy, wz + 8), cell_bytes=2)
+    if defer:
+        cover = [((k, bx - k), (0, by), (0, bz))]
+        leave = [((0, k), (0, by), (0, bz)), ((bx - k, bx), (0, by), (0, bz))]
+    else:
+        cover, leave = _full(block_shape), []
+    ye, ze = by + 2 * k, bz + 2 * k
+    xs, ys, zs = spans_of
+    what = kind + (" deferred bulk" if defer else "")
+    return Plan(
+        kernel=H_KERNELS[kind] + "_bf16_kernel",
+        entry=H_KERNELS[kind] + "_bf16",
+        label=f"{what} {bx}x{by}x{bz} at {tuple(origin)} K={k} {load} bf16",
+        grid=len(xsegs) * tiles_y * tiles_z, threads=block[0] * block[1],
+        max_threads=512, dyn_smem=p.h_bf16_smem_bytes(k, block, rows),
+        static_smem=p.static_smem_bytes,
+        arrays={"frame": Array((bx + 2 * k, ye, ze), elem=2),
+                "u": Array(block_shape, elem=2),
+                "out": Array(block_shape, elem=2)},
+        output="out",
+        axes=[Axis("x", len(xsegs), xs), Axis("y", tiles_y, ys),
+              Axis("z", tiles_z, zs)],
+        loads=loads, slots=slots, align_slack=128, cover=cover, leave=leave,
+        schedule=schedule,
+        group=(f"H {bx}x{by}x{bz} at {tuple(origin)} K={k} bf16"
+               if defer else None),
+        int32=_h_int32(by, bz, ye, ze))
 
 
 def plan_h_band(block_shape, k, origins, grid_shape=None, load=None,
@@ -1901,15 +2011,22 @@ def default_plans() -> List[Plan]:
             for o in ((0, 0, 0), bshape):
                 out.append(plan_hc(bshape, k, o, grid, "tma"))
             out.append(plan_hc(bshape, k, (0, 0, 0), grid, "cp.async"))
-    # The bfloat16 forms: the default round (H-fused's one load) on the
-    # main path's mesh, H-defer's bulk and band and H pinned there; every K
-    # the pickers admit on the ragged blocks (bz a multiple of 8, of 4 but
-    # not 8, and neither).
+    # The bfloat16 forms: the default round (H-fused under the load h_load
+    # picks, its other loads on two blocks) on the main path's mesh,
+    # H-defer's bulk and band and H pinned there; every K the pickers admit
+    # on the ragged blocks (bz a multiple of 8, of 4 but not 8, and
+    # neither).
+    main_bf16 = skb3.h_load(block3, k3, dtype="bfloat16")
     for o in origins3:
-        out.append(plan_h("H-fuse", block3, k3, o, H_GRID, load="plain",
+        out.append(plan_h("H-fuse", block3, k3, o, H_GRID, load=main_bf16,
                           bf16=True))
         out.append(plan_h("H-fuse", block3, k3, o, H_GRID, defer=True,
-                          load="plain", bf16=True))
+                          load=main_bf16, bf16=True))
+    for o in (origins3[0], origins3[-1]):
+        for load in skb3.LOADS_BF16:
+            if load != main_bf16:
+                out.append(plan_h("H-fuse", block3, k3, o, H_GRID,
+                                  load=load, bf16=True))
     out.append(plan_h_band(block3, k3, every3, H_GRID, bf16=True))
     out.append(plan_h_band(block3, k3, every3, H_GRID, "cells", False,
                            bf16=True))
@@ -1919,8 +2036,12 @@ def default_plans() -> List[Plan]:
     for bshape in ((67, 128, 92), (40, 128, 96), (20, 128, 250)):
         grid = tuple(2 * b for b in bshape)
         for k in range(1, p.h_k_max() + 1):
-            out.append(plan_h("H-fuse", bshape, k, (0, 0, 0), grid,
-                              load="plain", bf16=True))
+            # The load h_load picks, and the register load on every tile.
+            for load in dict.fromkeys((skb3.h_load(bshape, k,
+                                                   dtype="bfloat16"),
+                                       "prefetch")):
+                out.append(plan_h("H-fuse", bshape, k, (0, 0, 0), grid,
+                                  load=load, bf16=True))
         for k in range(1, p.h_band_k_max(2) + 1):
             if bshape[0] >= 2 * k:
                 out.append(plan_h_band(

@@ -1,5 +1,6 @@
-// The body of the sharded 3D block kernel heat_h_block_3d_fused.cu (and
-// of its bfloat16 form, heat_h_block_3d_fused_bf16.cu): K 7-point Jacobi
+// The body of the sharded 3D block kernel heat_h_block_3d_fused.cu (and,
+// heat_h_body_bf16 below, of its bfloat16 form,
+// heat_h_block_3d_fused_bf16.cu): K 7-point Jacobi
 // steps on one bx x by x bz block of an nx x ny x nz grid cut over a
 // device mesh, from the block and the K-deep halo its neighbours sent
 // (parallel/temporal3d.py), with the residual of the last step.
@@ -120,6 +121,15 @@ using HeatHFusedKernelOf = void (*)(const T*, const T*, const T*, const T*,
                                     float, float, float, float,
                                     const CUtensorMap);
 using HeatHFusedKernel = HeatHFusedKernelOf<float>;
+// The bfloat16 form's kernels take one more argument, `stage`
+// (heat_t3d_stream_bf16).
+using HeatHFusedBf16Kernel = void (*)(
+    const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+    const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, uint32_t*,
+    int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+    int64_t, int, int, int, int64_t, int64_t, int64_t, int64_t, int64_t,
+    int64_t, HeatHStrides, float, float, float, float, const CUtensorMap,
+    int);
 
 // The compiled depths 1 .. kHMaxK (ops/hopper_params.py h_k_compiled)
 // and rows per thread 1, 2, 4; the TMA load only at kHTmaRows rows
@@ -130,15 +140,9 @@ constexpr int kHTmaRows = 4;
 // One thread block: the (Y, Z) tile, segment and region of blockIdx;
 // blockDim is (wz, by) and the extended tile wz x (by * R) cells. kTma:
 // the tiles inside the block load by TMA from `umap` (null elsewhere).
-// T: the blocks' cells. At bfloat16 (the bfloat16 form) every tile loads
-// by one plain 2-byte load a cell, widened exactly into the float32 ring
-// (zero where it has no data), and heat_t3d_stream rounds each level
-// below K and narrows the store (heat_f_levels); there is no TMA form.
-template <int K, int R, bool kTma = false, typename T = float>
-__device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS_OF(T),
+template <int K, int R, bool kTma = false>
+__device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
                                             const CUtensorMap* umap) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  static_assert(kF32 || !kTma, "the bfloat16 form has no TMA load");
   const int wz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
   const int row0 = threadIdx.y * R;          // this thread's first row
@@ -197,27 +201,23 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS_OF(T),
                                 bz, a0, cx, cy, cz, res);
       return;
     }
-    const T* core = u + ly0 * bz + lz;
+    const float* core = u + ly0 * bz + lz;
     const int64_t core_plane = st.u;
     const int64_t core_row = bz;
     auto load = [&](float* dst, int64_t t) {
       const bool in_block = t >= 0 && t < bx;
       const bool x_in = ox + t >= 0 && ox + t < nx;
-      const T* p = in_block ? core + t * core_plane
+      const float* p = in_block ? core + t * core_plane
                    : !x_in ? nullptr
                    : (t < 0 ? xlo + (t + K) * st.slab
                             : xhi + (t - bx) * st.slab) +
                          slab_col;
       const int64_t row = in_block ? core_row : ze;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if constexpr (kF32)
-          __pipeline_memcpy_async(dst + r * wz,
-                                  p != nullptr ? p + r * row : u, 4,
-                                  p != nullptr ? 0 : 4);
-        else
-          dst[r * wz] = p != nullptr ? heat_widen(p[r * row]) : 0.f;
-      }
+      for (int r = 0; r < R; ++r)
+        __pipeline_memcpy_async(dst + r * wz,
+                                p != nullptr ? p + r * row : u, 4,
+                                p != nullptr ? 0 : 4);
     };
     heat_t3d_stream<K, R>(load, x0, x1, ox, nx, yz_in, out_rows, out,
                           by * bz, ly0 * bz + lz, bz, a0, cx, cy, cz, res);
@@ -228,7 +228,7 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS_OF(T),
   // piece (u, ztail or ytail) and that piece's plane stride, and the
   // cell's offset in an x-slab plane. A cell outside the grid or the
   // K-deep frame is zero-filled.
-  const T* src[R];
+  const float* src[R];
   int32_t pstride[R], xoff[R];
   const int64_t ye = by + 2 * hy;
 #pragma unroll
@@ -256,36 +256,193 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS_OF(T),
   auto load = [&](float* dst, int64_t t) {
     const bool x_in = ox + t >= 0 && ox + t < nx;
     if (t < 0 || t >= bx) {
-      const T* slab = t < 0 ? xlo + (t + K) * st.slab
-                            : xhi + (t - bx) * st.slab;
+      const float* slab = t < 0 ? xlo + (t + K) * st.slab
+                                : xhi + (t - bx) * st.slab;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const bool in = x_in && src[r] != nullptr;
-        if constexpr (kF32)
-          __pipeline_memcpy_async(dst + r * wz, in ? slab + xoff[r] : u, 4,
-                                  in ? 0 : 4);
-        else
-          dst[r * wz] = in ? heat_widen(slab[xoff[r]]) : 0.f;
+        __pipeline_memcpy_async(dst + r * wz, in ? slab + xoff[r] : u, 4,
+                                in ? 0 : 4);
       }
     } else {
       const int32_t ti = static_cast<int32_t>(t);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const bool in = src[r] != nullptr;
-        if constexpr (kF32)
-          __pipeline_memcpy_async(
-              dst + r * wz,
-              in ? src[r] + static_cast<int64_t>(ti) * pstride[r] : u, 4,
-              in ? 0 : 4);
-        else
-          dst[r * wz] =
-              in ? heat_widen(src[r][static_cast<int64_t>(ti) * pstride[r]])
-                 : 0.f;
+        __pipeline_memcpy_async(
+            dst + r * wz,
+            in ? src[r] + static_cast<int64_t>(ti) * pstride[r] : u, 4,
+            in ? 0 : 4);
       }
     }
   };
   heat_t3d_stream<K, R>(load, x0, x1, ox, nx, yz_in, out_rows, out, by * bz,
                         ly0 * bz + lz, bz, a0, cx, cy, cz, res);
+}
+
+// The bfloat16 form's cells of one thread (heat_t3d_stream_bf16's rows)
+// on a tile whose extended tile lies inside the block: row r of plane t
+// at core + t * plane + r * bz in u, or at slab_col + r * ze of an x slab
+// inside the grid; zero past the grid. Its rows are runs of the block or
+// of a slab, so a thread's cell and the next thread's lie side by side
+// in every plane. With a box (kTma), u's planes and those past the grid
+// come as boxes.
+struct HeatHBf16Inner {
+  const uint16_t *core, *xlo, *xhi;
+  int64_t plane, bz, ze, slab_col, bx, ox, nx;
+  int32_t slab;  // an x slab's plane stride
+  int k;
+  unsigned nxt, lft;  // all rows, or none (the tile's last and first z)
+
+  __device__ __forceinline__ const uint16_t* cell(int r, int64_t t) const {
+    if (t >= 0 && t < bx) return core + t * plane + r * bz;
+    if (ox + t < 0 || ox + t >= nx) return nullptr;
+    return (t < 0 ? xlo + (t + k) * slab : xhi + (t - bx) * slab) +
+           slab_col + r * ze;
+  }
+  __device__ __forceinline__ bool box(int64_t t) const {
+    return (t >= 0 && t < bx) || ox + t < 0 || ox + t >= nx;
+  }
+  __device__ __forceinline__ unsigned next(int64_t) const { return nxt; }
+  __device__ __forceinline__ unsigned left(int64_t) const { return lft; }
+};
+
+// The same on a tile at the block's (Y, Z) edge: per row, fixed for the
+// run, its cell's piece (u, ztail or ytail) as a pointer at the piece's
+// plane 0 and the piece's plane stride, and its offset in an x-slab
+// plane, as heat_h_body's edge tiles keep them (src null: no data); and
+// which rows' cells lie next to the next thread's in every plane of the
+// pieces (nxt_u) and of the slabs (nxt_s), and the previous thread's
+// (lft_u, lft_s), found once by warp shuffles.
+template <int R>
+struct HeatHBf16Edge {
+  const uint16_t* src[R];
+  int32_t pstride[R], xoff[R];
+  const uint16_t *xlo, *xhi;
+  int64_t bx, ox, nx;
+  int32_t slab;
+  int k;
+  unsigned nxt_u, lft_u, nxt_s, lft_s;
+
+  __device__ __forceinline__ const uint16_t* cell(int r, int64_t t) const {
+    if (src[r] == nullptr) return nullptr;
+    if (t >= 0 && t < bx) return src[r] + t * pstride[r];
+    if (ox + t < 0 || ox + t >= nx) return nullptr;
+    return (t < 0 ? xlo + (t + k) * slab : xhi + (t - bx) * slab) +
+           xoff[r];
+  }
+  __device__ __forceinline__ bool box(int64_t) const { return false; }
+  __device__ __forceinline__ unsigned next(int64_t t) const {
+    return t >= 0 && t < bx ? nxt_u : nxt_s;
+  }
+  __device__ __forceinline__ unsigned left(int64_t t) const {
+    return t >= 0 && t < bx ? lft_u : lft_s;
+  }
+};
+
+// heat_h_body on bfloat16 blocks (heat_h_block_3d_fused_bf16.cu): the
+// same tiles, pieces and step phase (heat_f_levels, each level below K
+// rounded to bfloat16, the copied cells narrowed exactly), its planes
+// through heat_t3d_stream_bf16. kTma: the tiles inside the block take
+// u's planes as boxes of `umap`, the bfloat16 block's tensor map;
+// `stage`: cells that pair up with the next thread's come by cp.async.
+template <int K, int R, bool kTma>
+__device__ __forceinline__ void heat_h_body_bf16(
+    HEAT_H_PARAMS_OF(__nv_bfloat16), const CUtensorMap* umap, bool stage) {
+  const int wz = blockDim.x;
+  const int wy = blockDim.y * R;             // extended tile rows
+  const int row0 = threadIdx.y * R;          // this thread's first row
+  const int64_t b = blockIdx.x;
+  const int64_t tz = b % tiles_z;
+  const int64_t ty = (b / tiles_z) % tiles_y;
+  const int64_t region = blockIdx.y == 0 ? r_begin0 : r_begin1;
+  const int64_t x0 = region + b / tiles_z / tiles_y * seg;
+  const int64_t x1 = x0 + seg < region + rows ? x0 + seg : region + rows;
+  const int64_t lz = tz * (wz - 2 * K) - K + threadIdx.x;
+  const int64_t ly0 = ty * (wy - 2 * K) - K + row0;
+  const bool z_out = threadIdx.x >= K && threadIdx.x < wz - K;
+  const int64_t ze = bz + 2 * hz;
+  const int64_t gz = oz + lz;
+  const int k2 = 2 * K;
+  unsigned cell_in = 0u, yz_in = 0u, out_rows = 0u;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t ly = ly0 + r;
+    const int64_t gy = oy + ly;
+    const bool c_in = ly >= -K && ly < by + K && lz >= -K && lz < bz + K &&
+                      gy >= 0 && gy < ny && gz >= 0 && gz < nz;
+    cell_in |= static_cast<unsigned>(c_in) << r;
+    yz_in |= static_cast<unsigned>(gy >= 1 && gy <= ny - 2 && gz >= 1 &&
+                                   gz <= nz - 2) << r;
+    out_rows |= static_cast<unsigned>(c_in && z_out && row0 + r >= K &&
+                                      row0 + r < wy - K && ly < by &&
+                                      lz < bz) << r;
+  }
+  const uint16_t* xl = reinterpret_cast<const uint16_t*>(xlo);
+  const uint16_t* xh = reinterpret_cast<const uint16_t*>(xhi);
+  const unsigned all = (1u << R) - 1u;
+  const int64_t ty0 = ty * (wy - 2 * K) - K, tz0 = tz * (wz - 2 * K) - K;
+  if (ty0 >= 0 && ty0 + wy <= by && tz0 >= 0 && tz0 + wz <= bz) {
+    const HeatHBf16Inner in = {
+        reinterpret_cast<const uint16_t*>(u) + ly0 * bz + lz, xl, xh, st.u,
+        bz, ze, ly0 * ze + lz, bx, ox, nx, st.slab, K,
+        static_cast<int>(threadIdx.x) + 1 < wz ? all : 0u,
+        threadIdx.x > 0 ? all : 0u};
+    heat_t3d_stream_bf16<K, R, kTma>(
+        in, stage, umap, static_cast<int>(tz0), static_cast<int>(ty0), x0,
+        x1, ox, nx, yz_in, out_rows, out, by * bz, ly0 * bz + lz, bz, a0, cx,
+        cy, cz, res);
+    return;
+  }
+  HeatHBf16Edge<R> e;
+  e.xlo = xl;
+  e.xhi = xh;
+  e.bx = bx;
+  e.ox = ox;
+  e.nx = nx;
+  e.slab = st.slab;
+  e.k = K;
+  e.nxt_u = e.nxt_s = 0u;
+  const uint16_t* ub = reinterpret_cast<const uint16_t*>(u);
+  const uint16_t* zb = reinterpret_cast<const uint16_t*>(zt);
+  const uint16_t* yb = reinterpret_cast<const uint16_t*>(yt);
+  const int64_t ye = by + 2 * hy;
+  const bool last_lane = (threadIdx.x & 31) == 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t ly = ly0 + r;
+    const int64_t yc = ly < 0 ? ly + ye : ly;  // circular y
+    const int64_t zc = lz < 0 ? lz + ze : lz;  // circular z
+    e.xoff[r] = static_cast<int32_t>(yc * ze + zc);
+    if (ly >= 0 && ly < by) {
+      if (lz >= 0 && lz < bz) {
+        e.src[r] = ub + (ly * bz + lz);
+        e.pstride[r] = st.u;
+      } else {
+        e.src[r] = zb + (ly * k2 + (lz >= bz ? lz - bz : lz + k2));
+        e.pstride[r] = st.zt;
+      }
+    } else {
+      e.src[r] = yb + ((ly >= by ? ly - by : ly + k2) * ze + zc);
+      e.pstride[r] = st.yt;
+    }
+    if (!((cell_in >> r) & 1u)) e.src[r] = nullptr;
+    // The next thread's cell, from its lane (lane 31 sees its own).
+    const uint16_t* n = reinterpret_cast<const uint16_t*>(__shfl_down_sync(
+        0xffffffffu, reinterpret_cast<unsigned long long>(e.src[r]), 1));
+    const int32_t n_stride = __shfl_down_sync(0xffffffffu, e.pstride[r], 1);
+    const int32_t n_off = __shfl_down_sync(0xffffffffu, e.xoff[r], 1);
+    const bool both = !last_lane && e.src[r] != nullptr && n != nullptr;
+    e.nxt_u |= static_cast<unsigned>(both && n == e.src[r] + 1 &&
+                                     n_stride == e.pstride[r]) << r;
+    e.nxt_s |= static_cast<unsigned>(both && n_off == e.xoff[r] + 1) << r;
+  }
+  e.lft_u = __shfl_up_sync(0xffffffffu, e.nxt_u, 1);
+  e.lft_s = __shfl_up_sync(0xffffffffu, e.nxt_s, 1);
+  if ((threadIdx.x & 31) == 0) e.lft_u = e.lft_s = 0u;
+  heat_t3d_stream_bf16<K, R, false>(e, stage, umap, 0, 0, x0, x1, ox, nx,
+                                    yz_in, out_rows, out, by * bz,
+                                    ly0 * bz + lz, bz, a0, cx, cy, cz, res);
 }
 
 // The instance table of one entry point: kHeatH[r_index][k - 1]; the
@@ -341,15 +498,36 @@ inline bool heat_h_tma_fits(const void* u, int64_t by, int64_t bz,
          heat_h_holds_tile(bz, block_z, k);
 }
 
-// The tensor map of the bx x by x bz block u (innermost z first), boxes
+// heat_h_tma_fits for the bfloat16 form's box: rows of a multiple of 16
+// bytes are bz % 8 == 0, and a box is the extended tile 8 cells wider.
+inline bool heat_h_tma_fits_bf16(const void* u, int64_t by, int64_t bz,
+                                 int block_z, int block_y, int rows, int k) {
+  return bz % 8 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+         rows == kHTmaRows && block_z + 8 <= 256 && bz >= block_z + 8 &&
+         heat_h_holds_tile(by, block_y * rows, k) &&
+         heat_h_holds_tile(bz, block_z, k);
+}
+
+// The tensor map of the bx x by x bz block u (innermost z first), boxes// The tensor map of the bx x by x bz block u (innermost z first), boxes
 // of (block_z + 4) x (block_y * rows) x 1 cells (heat_t3d_stream_tma),
 // zeros outside the block. Returns 0 or an error code
-// (heat_tma_error_string).
+// (heat_tma_error_string). The bfloat16 block's is below.
 inline int heat_h_encode_map(CUtensorMap* map, const float* u, int64_t bx,
                              int64_t by, int64_t bz, int block_z,
                              int block_y, int rows) {
   return heat_tma_encode_3d(map, u, bx, by, bz, block_z + 4,
                             block_y * rows);
+}
+
+// The bfloat16 block's: boxes of (block_z + 8) x (block_y * rows) x 1
+// cells (heat_t3d_stream_bf16).
+inline int heat_h_encode_map(CUtensorMap* map, const __nv_bfloat16* u,
+                                  int64_t bx, int64_t by, int64_t bz,
+                                  int block_z, int block_y, int rows) {
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(block_z + 8),
+                             static_cast<cuuint32_t>(block_y * rows), 1};
+  return heat_tma_encode_3d_box(map, u, bx, by, bz, box,
+                                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // Dynamic shared memory of an H launch: the step phase's planes; for the
@@ -364,16 +542,19 @@ inline int heat_h_smem_bytes(int k, int wy, int block_z, bool tma) {
 
 // Checks the arguments, zeroes *res, and launches `kernel`, the entry
 // point's instance for (k, rows) on T cells (null where none is
-// compiled; at bfloat16 TMA is refused), over
+// compiled), over
 // `regions` (1 or 2) regions of `rows_x` output planes each, starting at
 // planes r_begin0 and r_begin1, in segments of `seg` planes, with thread
 // blocks of block_z x block_y threads of `rows` rows each, on `stream`.
 // A HeatHFusedKernel also takes u's tensor map: encoded for tma (a kTma
-// instance; heat_h_tma_fits must hold), zeros and unread otherwise.
+// instance; heat_h_tma_fits must hold), zeros and unread otherwise; a
+// HeatHFusedBf16Kernel the bfloat16 block's (heat_h_tma_fits_bf16) and
+// `stage` (heat_t3d_stream_bf16), on the bfloat16 loop's shared memory.
 // Returns a cudaError_t: 0, or the reason the launch was refused; or an
 // encoding error (heat_tma_error_string).
 template <typename T, typename Kernel>
-inline int heat_h_launch(Kernel kernel, bool tma, const T* u, const T* zt,
+inline int heat_h_launch(Kernel kernel, bool tma, int stage, const T* u,
+                         const T* zt,
                          const T* yt, const T* xlo, const T* xhi, T* out,
                          uint32_t* res,
                          int64_t nx, int64_t ny, int64_t nz, int64_t bx,
@@ -383,8 +564,9 @@ inline int heat_h_launch(Kernel kernel, bool tma, const T* u, const T* zt,
                          int regions, int block_z, int block_y, int rows,
                          int64_t seg, float a0, float cx, float cy, float cz,
                          void* stream) {
-  constexpr bool kFused = std::is_same<Kernel, HeatHFusedKernelOf<T>>::value;
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr bool kBf16 = std::is_same<Kernel, HeatHFusedBf16Kernel>::value;
+  constexpr bool kFused =
+      kBf16 || std::is_same<Kernel, HeatHFusedKernel>::value;
   const int wy = block_y * rows;
   const auto halo_ok = [k](int h) { return h == 0 || h == k; };
   const int64_t ye = by + 2 * hy, ze = bz + 2 * hz;
@@ -395,8 +577,11 @@ inline int heat_h_launch(Kernel kernel, bool tma, const T* u, const T* zt,
       block_z <= 2 * k || wy <= 2 * k || block_z * block_y > 512 ||
       seg < 1 || rows_x < 1 || r_begin0 < 0 || r_begin1 + rows_x > bx ||
       regions < 1 || regions > 2 || ye * ze > 0x7fffffffLL ||
-      (tma && (!kFused || !kF32 ||
-               !heat_h_tma_fits(u, by, bz, block_z, block_y, rows, k))))
+      (tma && (!kFused ||
+               !(kBf16 ? heat_h_tma_fits_bf16(u, by, bz, block_z, block_y,
+                                              rows, k)
+                       : heat_h_tma_fits(u, by, bz, block_z, block_y, rows,
+                                         k)))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles_z = (bz + block_z - 2 * k - 1) / (block_z - 2 * k);
   const int64_t tiles_y = (by + wy - 2 * k - 1) / (wy - 2 * k);
@@ -407,14 +592,13 @@ inline int heat_h_launch(Kernel kernel, bool tma, const T* u, const T* zt,
                            static_cast<int32_t>(2 * k * ze),
                            static_cast<int32_t>(ye * ze)};
   CUtensorMap map = {};
-  if constexpr (kF32) {
-    if (tma) {
-      const int err = heat_h_encode_map(&map, u, bx, by, bz, block_z,
-                                        block_y, rows);
-      if (err != 0) return err;
-    }
+  if (tma) {
+    const int err = heat_h_encode_map(&map, u, bx, by, bz, block_z, block_y,
+                                      rows);
+    if (err != 0) return err;
   }
-  const int smem = heat_h_smem_bytes(k, wy, block_z, tma);
+  const int smem = kBf16 ? heat_h_bf16_smem_bytes(k, wy, block_z)
+                         : heat_h_smem_bytes(k, wy, block_z, tma);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -425,7 +609,12 @@ inline int heat_h_launch(Kernel kernel, bool tma, const T* u, const T* zt,
   }
   const dim3 grid(static_cast<unsigned>(blocks), regions);
   const dim3 block(block_z, block_y);
-  if constexpr (kFused)
+  if constexpr (kBf16)
+    kernel<<<grid, block, smem, s>>>(
+        u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz,
+        hx, hy, hz, r_begin0, r_begin1, rows_x, seg, tiles_z, tiles_y, st,
+        a0, cx, cy, cz, map, stage);
+  else if constexpr (kFused)
     kernel<<<grid, block, smem, s>>>(
         u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz,
         hx, hy, hz, r_begin0, r_begin1, rows_x, seg, tiles_z, tiles_y, st,

@@ -15,73 +15,103 @@
 // a cell: 0.163 ms at a 512^3 block and K = 3 against 0.060 ms for the
 // operations.
 //
-// Design: H-fused's (heat_h_block_3d_fused.cu, heat_h.cuh heat_h_body) on
-// the same tiles, pieces and step loop (heat_temporal3d.cuh
-// heat_t3d_stream), a library of its own so that its nvcc runs beside
-// H-fused's. The ring and the level planes stay float32: each thread's
-// cell of a plane is widened as it loads, by one plain 2-byte load from
-// u, the z tail, the y tail or an x slab (zero outside the grid and the
-// K-deep frame), stored before the block barrier that publishes the
-// plane. Each level below K is rounded to bfloat16 before it lands in the
-// level planes and registers, the copied cells keeping their bits, so K
-// steps are bitwise K launches of heat_d_step3d_bf16; level K's float32
-// update against level K - 1 is the residual, and the store rounds the
-// updated cells and narrows the copied ones exactly. Every tile takes this
-// one load (the launch refuses tma): a bfloat16 row of a block is a
-// multiple of 16 bytes only at bz % 8 == 0, and a bfloat16 box does not
-// widen as it lands.
+// Design: H-fused's tiles, pieces and step phase (heat_h.cuh
+// heat_h_body_bf16, heat_temporal3d.cuh heat_f_levels) on a plane loop of
+// its own, heat_t3d_stream_bf16, in a library of its own so that its nvcc
+// runs beside H-fused's. The ring and the level planes stay float32; each
+// level below K is rounded to bfloat16 before it lands in the level
+// planes and registers, the copied cells keeping their bits, so K steps
+// are bitwise K launches of heat_d_step3d_bf16; level K's float32 update
+// against level K - 1 is the residual, and the store rounds the updated
+// cells and narrows the copied ones exactly. What a plain 2-byte load a
+// cell cost here (each thread waited out a device-memory round trip on
+// every plane: 1.329 ms at the 512^3 block, K = 3, against float32's
+// 1.044; PERF.md) the loop removes: no thread waits on a load before the
+// step of its plane. The tiles inside the block take each plane of u as
+// one bfloat16 TMA box (tma != 0, where bz % 8 == 0 and the block holds
+// such a tile: heat_h_tma_fits_bf16), widened in shared memory; every
+// other cell comes by a 4-byte cp.async of a pair of cells where it and
+// its neighbour along z are one aligned run (stage != 0), or by a 2-byte
+// load into a register issued a plane ahead and stored after that
+// plane's step.
 
 #include "heat_h.cuh"
 
-template <int K, int R>
+template <int K, int R, bool kTma>
 __global__ void __launch_bounds__(512)
     heat_h_block_3d_fused_bf16_kernel(
         HEAT_H_PARAMS_OF(__nv_bfloat16),
-        const __grid_constant__ CUtensorMap umap) {
-  heat_h_body<K, R, false>(HEAT_H_ARGS, &umap);
+        const __grid_constant__ CUtensorMap umap, int stage) {
+  heat_h_body_bf16<K, R, kTma>(HEAT_H_ARGS, &umap, stage != 0);
 }
 
-using HeatHFusedBf16Kernel = HeatHFusedKernelOf<__nv_bfloat16>;
-
 static const HeatHFusedBf16Kernel kHeatHFusedBf16[3][kHMaxK] =
-    HEAT_H_TABLE(heat_h_block_3d_fused_bf16_kernel);
+    HEAT_H_TABLE_OF(heat_h_block_3d_fused_bf16_kernel, false);
+static const HeatHFusedBf16Kernel kHeatHFusedBf16Tma[kHMaxK] =
+    HEAT_H_DEPTHS_OF(heat_h_block_3d_fused_bf16_kernel, kHTmaRows, true);
+
+// The instance of (k, rows) under the box load `tma` asks for, or null.
+static HeatHFusedBf16Kernel heat_h_fused_bf16_pick(int k, int rows,
+                                                   bool tma) {
+  if (!tma) return heat_h_pick(kHeatHFusedBf16, k, rows);
+  return rows == kHTmaRows && k >= 1 && k <= kHMaxK
+             ? kHeatHFusedBf16Tma[k - 1]
+             : nullptr;
+}
+
+// The load codes of `load` below (ops/stencil_kernels_block_3d.py
+// LOADS_BF16 by index): every cell by cp.async pairs and registers; the
+// tiles inside the block by TMA boxes, the rest so; every cell by a
+// register; the tiles inside by boxes, the rest by registers.
+constexpr int kHBf16LoadStage = 0;
+constexpr int kHBf16LoadTma = 1;
+constexpr int kHBf16LoadRegs = 2;
+constexpr int kHBf16LoadTmaRegs = 3;
 
 // heat_h_block_3d_fused on bfloat16 blocks and pieces into the bfloat16
 // `out`, with the same arguments: K steps in float32, each level below K
 // rounded to bfloat16 (storage mode), the cells outside the global
 // interior copied bit for bit; the residual of the planes written, the
 // last step's float32 update against the level it read, lands in *res
-// when res is non-null. tma must be 0 (this form has one load). Returns
-// 0 or a cudaError_t saying why the launch was refused.
+// when res is non-null. `load` (in the place of tma) is one of the codes
+// above; a box load is refused unless heat_h_tma_fits_bf16. Returns 0, a
+// cudaError_t saying why the launch was refused, or a tensor-map encoding
+// error.
 extern "C" int heat_h_block_3d_fused_bf16(
     const __nv_bfloat16* u, const __nv_bfloat16* ztail,
     const __nv_bfloat16* ytail, const __nv_bfloat16* xlo,
     const __nv_bfloat16* xhi, __nv_bfloat16* out, uint32_t* res, int64_t nx,
     int64_t ny, int64_t nz, int64_t bx, int64_t by, int64_t bz, int64_t ox,
-    int64_t oy, int64_t oz, int hx, int hy, int hz, int defer_x, int tma,
+    int64_t oy, int64_t oz, int hx, int hy, int hz, int defer_x, int load,
     int k, int block_z, int block_y, int rows, int64_t seg, float a0,
     float cx, float cy, float cz, void* stream) {
   if ((hz != 0) != (ztail != nullptr) || (hy != 0) != (ytail != nullptr) ||
       (!defer_x && (hx != 0) != (xlo != nullptr && xhi != nullptr)) ||
-      (defer_x && bx <= 2 * k) || tma != 0)
+      (defer_x && bx <= 2 * k) || load < kHBf16LoadStage ||
+      load > kHBf16LoadTmaRegs)
     return static_cast<int>(cudaErrorInvalidValue);
-  return heat_h_launch(heat_h_pick(kHeatHFusedBf16, k, rows), false, u,
-                       ztail, ytail, xlo, xhi, out, res, nx, ny, nz, bx, by,
-                       bz, ox, oy, oz, hx, hy, hz, k, defer_x ? k : 0, 0,
-                       defer_x ? bx - 2 * k : bx, 1, block_z, block_y, rows,
-                       seg, a0, cx, cy, cz, stream);
+  const bool tma = load == kHBf16LoadTma || load == kHBf16LoadTmaRegs;
+  const bool stage = load == kHBf16LoadStage || load == kHBf16LoadTma;
+  return heat_h_launch(heat_h_fused_bf16_pick(k, rows, tma), tma,
+                       stage ? 1 : 0, u, ztail, ytail, xlo, xhi, out, res,
+                       nx, ny, nz, bx, by, bz, ox, oy, oz, hx, hy, hz, k,
+                       defer_x ? k : 0, 0, defer_x ? bx - 2 * k : bx, 1,
+                       block_z, block_y, rows, seg, a0, cx, cy, cz, stream);
 }
 
-// Thread blocks of the bfloat16 (k, rows) instance that one SM holds at
-// once under thread blocks of block_z x block_y threads, into *blocks
-// (tma must be 0). Returns a cudaError_t.
-extern "C" int heat_h_block_3d_fused_bf16_occupancy(int k, int rows, int tma,
-                                                    int block_z, int block_y,
+// Thread blocks of the bfloat16 (k, rows, load) instance that one SM
+// holds at once under thread blocks of block_z x block_y threads, into
+// *blocks. Returns a cudaError_t.
+extern "C" int heat_h_block_3d_fused_bf16_occupancy(int k, int rows,
+                                                    int load, int block_z,
+                                                    int block_y,
                                                     int* blocks) {
-  const HeatHFusedBf16Kernel kernel = heat_h_pick(kHeatHFusedBf16, k, rows);
-  if (kernel == nullptr || blocks == nullptr || tma != 0)
+  const HeatHFusedBf16Kernel kernel = heat_h_fused_bf16_pick(
+      k, rows, load == kHBf16LoadTma || load == kHBf16LoadTmaRegs);
+  if (kernel == nullptr || blocks == nullptr || load < kHBf16LoadStage ||
+      load > kHBf16LoadTmaRegs)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = heat_h_smem_bytes(k, block_y * rows, block_z, false);
+  const int smem = heat_h_bf16_smem_bytes(k, block_y * rows, block_z);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -155,14 +155,10 @@ __device__ __forceinline__ void heat_f_levels(
 // thread's row 0; row r's r * out_row further) where out_rows says so.
 // The residual of the cells written, over the global interior, is folded
 // into *res when res is not null. Every thread of the block calls it.
-// T is the grid's cell (heat_f_levels): at bfloat16 `load` widens its
-// cells into the float32 ring by plain loads (no cp.async; the commits
-// and waits below then have nothing in flight), stored before the block
-// barrier that publishes the plane, and `out` is the bfloat16 block.
-template <int K, int R, class Load, typename T = float>
+template <int K, int R, class Load>
 __device__ __forceinline__ void heat_t3d_stream(
     Load load, int64_t x0, int64_t x1, int64_t gx, int64_t nx,
-    unsigned yz_in, unsigned out_rows, T* out, int64_t out_plane,
+    unsigned yz_in, unsigned out_rows, float* out, int64_t out_plane,
     int64_t out_col, int64_t out_row, float a0, float cx, float cy, float cz,
     uint32_t* res) {
   extern __shared__ __align__(128) float smem[];
@@ -204,9 +200,9 @@ __device__ __forceinline__ void heat_t3d_stream(
       mid[0][r] = down[0][r];
       down[0][r] = ring[cur * ps + me + r * bz];
     }
-    T* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
-                      ? out + (t - K) * out_plane + out_col
-                      : nullptr;
+    float* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
+                          ? out + (t - K) * out_plane + out_col
+                          : nullptr;
     const int par = static_cast<int>(t & 1);
     const int64_t g = gx + t;
     if (g - K >= 1 && g - 1 <= nx - 2)
@@ -368,6 +364,258 @@ inline int heat_t3d_tma_smem_bytes(int k, int wy, int wz) {
 inline int heat_t3d_smem_bytes(int k, int wy, int bz) {
   return static_cast<int>(sizeof(float)) * (kFSlots + 2 * (k - 1)) *
          (wy + 2) * bz;
+}
+
+// --- H-fused's bfloat16 plane loop (heat_h.cuh heat_h_body_bf16) --------
+//
+// heat_f_levels on bfloat16 planes, with no load that a thread waits for
+// before the step of its plane. A plane reaches the float32 ring, where
+// the step reads it as at float32, in two halves: loads issued ahead, and
+// a landing at the top of its own iteration, where each thread widens
+// its cells into the ring before the barrier that publishes the plane.
+// Three kinds of load, the caller's `rows` saying which cells take which:
+//   - a TMA box (kTma; the tiles inside the block, `rows.box(t)`): one
+//     thread asks for the plane's extended tile as one (wz + 8) x wy box
+//     of the block's bfloat16 tensor map, from a z that is a multiple of 8
+//     cells (16 bytes), kHBf16Prefetch planes ahead, into a staging slot
+//     on its mbarrier; every thread widens its R cells from the slot;
+//   - a 4-byte cp.async of a pair (with `stage`): where this thread's cell
+//     and the next thread's are one 4-byte aligned run of memory in every
+//     plane of the piece (`rows.next(t)`), this thread copies both into its
+//     own 4 bytes of the staging slot, kHBf16Prefetch planes ahead, and
+//     widens both as they land; the next thread, which finds its cell on
+//     an odd half-word with a pair on its left (`rows.left(t)`), leaves
+//     its cell to it;
+//   - a 2-byte load into a register (every other cell, and every cell
+//     without `stage`), issued after the barrier of the plane before, so
+//     that it is in flight while that plane steps, and stored widened at
+//     the top of its own iteration, after that step.
+// Cells with no data (outside the grid or the K-deep frame) land as
+// zeros. The float32 ring holds three planes: plane t lands while slower
+// threads may still step plane t - 1, reading it and plane t - 2. A
+// staging slot is refilled after the barrier that ends its landing (the
+// leader's proxy fence orders those reads before a box's write). The
+// levels, their rounding and the stores are heat_f_levels', so the bits
+// are those of heat_t3d_stream on the same cells.
+
+// Planes in flight by TMA box or cp.async (ops/hopper_params.py
+// h_tma_prefetch), one staging slot each.
+constexpr int kHBf16Prefetch = kTmaPrefetch;
+
+// Bytes of a staging slot for an extended tile of wy x wz cells (wz a
+// multiple of 32): 4 bytes a thread and row, which also holds a box,
+// 2 (wz + 8) wy bytes.
+__host__ __device__ constexpr int heat_h_bf16_slot_bytes(int wy, int wz) {
+  return 4 * wz * wy;
+}
+
+// Dynamic shared memory of one heat_t3d_stream_bf16 block at depth k,
+// extended tile wy x wz: 128 bytes to align the staging slots, the slots,
+// the three ring planes and two planes for each level 1 .. k-1 (each
+// padded by a row above and below), an mbarrier a slot.
+inline int heat_h_bf16_smem_bytes(int k, int wy, int wz) {
+  return 128 + kHBf16Prefetch * heat_h_bf16_slot_bytes(wy, wz) +
+         static_cast<int>(sizeof(float)) * (3 + 2 * (k - 1)) * (wy + 2) *
+             wz +
+         static_cast<int>(sizeof(uint64_t)) * kHBf16Prefetch;
+}
+
+// heat_t3d_stream's plane loop for the bfloat16 block `out` (its
+// arguments), the input planes brought as above. `rows` gives this
+// thread's cells: rows.cell(r, t), the bfloat16 cell of row r in input
+// plane t (null: no data); rows.box(t), whether plane t comes as a box
+// of `map` at (z0 - z0 % 8, y0, t) (kTma only); rows.next(t) and
+// rows.left(t), bit r set where row r's cell and the next thread's, or
+// the previous thread's and this one's, lie next to each other in every
+// plane of plane t's piece. `stage`: pairs by cp.async (else every cell
+// not in a box by a register).
+template <int K, int R, bool kTma, class Rows>
+__device__ __forceinline__ void heat_t3d_stream_bf16(
+    const Rows& rows, bool stage, const CUtensorMap* map, int z0, int y0,
+    int64_t x0, int64_t x1, int64_t gx, int64_t nx, unsigned yz_in,
+    unsigned out_rows, __nv_bfloat16* out, int64_t out_plane,
+    int64_t out_col, int64_t out_row, float a0, float cx, float cy,
+    float cz, uint32_t* res) {
+  extern __shared__ __align__(128) float smem[];
+  constexpr int P = kHBf16Prefetch;
+  const int wz = blockDim.x;
+  const int wy = blockDim.y * R;             // extended tile rows
+  const int ps = (wy + 2) * wz;              // a plane and its two pad rows
+  const int slot_w = heat_h_bf16_slot_bytes(wy, wz) / 4;  // 32-bit words
+  // The slots from the first 128-byte boundary, the ring, the levels and
+  // the mbarriers; offsets into smem, so that the compiler keeps them in
+  // shared memory.
+  uint32_t* slots = reinterpret_cast<uint32_t*>(
+      smem + ((128 - (heat_smem_addr(smem) & 127)) & 127) / 4);
+  float* ring = reinterpret_cast<float*>(slots + P * slot_w);
+  float* lev = ring + 3 * ps;                // levels 1 .. K-1, two each
+  uint64_t* full = reinterpret_cast<uint64_t*>(lev + 2 * (K - 1) * ps);
+  const int x = threadIdx.x;
+  const int row0 = threadIdx.y * R;
+  const int me = wz + row0 * wz + x;         // row 0 is the pad row
+  const int pair_at = row0 * wz + x;         // this thread's words in a slot
+  const int zoff = z0 & 7;
+  const int bw = wz + 8;                     // cells of a box row
+  const int box_at = row0 * bw + zoff + x;   // its cells in a box
+  const uint32_t box_bytes = static_cast<uint32_t>(2 * bw * wy);
+  const bool leader = x == 0 && threadIdx.y == 0;
+  const int64_t t0 = x0 - K, t1 = x1 + K;
+  if constexpr (kTma) {
+    if (leader) {
+      for (int i = 0; i < P; ++i) heat_mbar_init(&full[i]);
+      heat_mbar_init_fence();
+    }
+    __syncthreads();
+  }
+
+  // Row r of plane t: bit r of `pair` where this thread copies its cell
+  // and the next, of `one` where it loads its cell alone, of `zero`
+  // where the cell has no data; in none of them, the previous thread's
+  // pair holds the cell.
+  auto modes = [&](int64_t t, unsigned& pair, unsigned& one,
+                   unsigned& zero) {
+    const unsigned nxt = stage ? rows.next(t) : 0u;
+    const unsigned lft = stage ? rows.left(t) : 0u;
+    pair = one = zero = 0u;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint16_t* p = rows.cell(r, t);
+      const bool even = (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
+      const unsigned bit = 1u << r;
+      if (p == nullptr)
+        zero |= bit;
+      else if ((nxt & bit) && even)
+        pair |= bit;
+      else if (!((lft & bit) && !even))
+        one |= bit;
+    }
+  };
+  // The box or the pairs of plane t into slot s.
+  auto issue = [&](int s, int64_t t) {
+    if constexpr (kTma) {
+      if (rows.box(t)) {
+        if (leader) {
+          heat_mbar_expect(&full[s], box_bytes);
+          heat_tma_load_3d(reinterpret_cast<float*>(slots + s * slot_w), map,
+                           &full[s], z0 - zoff, y0, static_cast<int>(t));
+        }
+        return;
+      }
+      if (leader) heat_mbar_arrive(&full[s]);
+    }
+    if (!stage) return;
+    unsigned pair, one, zero;
+    modes(t, pair, one, zero);
+    uint32_t* dst = slots + s * slot_w + pair_at;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((pair >> r) & 1u)
+        __pipeline_memcpy_async(dst + r * wz, rows.cell(r, t), 4);
+  };
+  // Plane t's single cells into registers, and its modes for the landing.
+  uint16_t held[R];
+  unsigned h_pair = 0u, h_one = 0u, h_zero = 0u;
+  bool h_box = false;
+  auto prefetch = [&](int64_t t) {
+    if constexpr (kTma) {
+      h_box = rows.box(t);
+      if (h_box) return;
+    }
+    modes(t, h_pair, h_one, h_zero);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((h_one >> r) & 1u)
+        held[r] = __ldg(reinterpret_cast<const unsigned short*>(
+            rows.cell(r, t)));
+  };
+  // Plane t from slot s, widened into ring plane f.
+  auto land = [&](int f, int s, int64_t t, uint32_t lap) {
+    float* dst = ring + f * ps + me;
+    if constexpr (kTma) {
+      // Every plane completes a phase of its slot's barrier (a box's
+      // bytes, or the leader's arrival for one of pairs and registers).
+      heat_mbar_wait(&full[s], lap);
+      if (h_box) {
+        const uint16_t* box =
+            reinterpret_cast<const uint16_t*>(slots + s * slot_w) + box_at;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          dst[r * wz] = __uint_as_float(static_cast<uint32_t>(box[r * bw])
+                                        << 16);
+        return;
+      }
+    }
+    const uint32_t* src = slots + s * slot_w + pair_at;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if ((h_pair >> r) & 1u) {
+        const uint32_t v = src[r * wz];
+        dst[r * wz] = __uint_as_float(v << 16);
+        dst[r * wz + 1] = __uint_as_float(v & 0xffff0000u);
+      } else if ((h_one >> r) & 1u) {
+        dst[r * wz] = __uint_as_float(static_cast<uint32_t>(held[r]) << 16);
+      } else if ((h_zero >> r) & 1u) {
+        dst[r * wz] = 0.f;
+      }
+    }
+  };
+
+  // Input plane t0 + i lives in staging slot i % P and ring plane i % 3.
+  for (int i = 0; i < P; ++i) {
+    if (t0 + i < t1) issue(i, t0 + i);
+    __pipeline_commit();
+  }
+  prefetch(t0);
+  float up[K][R], mid[K][R], down[K][R];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+#pragma unroll
+    for (int r = 0; r < R; ++r) up[s][r] = mid[s][r] = down[s][r] = 0.f;
+  uint32_t rmax = 0u;
+  int cur = 0;          // staging slot of plane t
+  uint32_t lap = 0u;    // parity of slot cur's use
+  int f = 0, fprev = 2;  // ring planes of t and t - 1
+  for (int64_t t = t0; t < t1; ++t) {
+    // This thread's copies of plane t have landed; its cells go into the
+    // ring, published by the barrier, which also ends every thread's
+    // landing from slot cur and its reads of ring plane (t + 1) % 3.
+    __pipeline_wait_prior(P - 1);
+    land(f, cur, t, lap);
+    __syncthreads();
+    if (t + P < t1) {
+      if (kTma && leader)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(cur, t + P);
+    }
+    __pipeline_commit();
+    if (t + 1 < t1) prefetch(t + 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      up[0][r] = mid[0][r];
+      mid[0][r] = down[0][r];
+      down[0][r] = ring[f * ps + me + r * wz];
+    }
+    __nv_bfloat16* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
+                                  ? out + (t - K) * out_plane + out_col
+                                  : nullptr;
+    const int par = static_cast<int>(t & 1);
+    const int64_t g = gx + t;
+    if (g - K >= 1 && g - 1 <= nx - 2)
+      heat_f_levels<K, R, true>(up, mid, down, ring + fprev * ps + me, lev,
+                                ps, me, wz, par, g, nx, yz_in, out_rows,
+                                out_cell, out_row, a0, cx, cy, cz, &rmax);
+    else
+      heat_f_levels<K, R, false>(up, mid, down, ring + fprev * ps + me, lev,
+                                 ps, me, wz, par, g, nx, yz_in, out_rows,
+                                 out_cell, out_row, a0, cx, cy, cz, &rmax);
+    fprev = f;
+    f = f == 2 ? 0 : f + 1;
+    if (++cur == P) {
+      cur = 0;
+      lap ^= 1u;
+    }
+  }
+  if (res != nullptr) heat_block_max(rmax, res);
 }
 
 // --- Kernel F's register-blocked plane loop (heat_f_temporal3d.cu) ------

@@ -611,10 +611,24 @@ class HopperParams:
         k = 0
         while (k + 1 <= self.h_k_compiled and 2 * (k + 1) < min(wy, wz)
                and max(self.h_smem_bytes(k + 1, block, rows),
-                       self.h_tma_smem_bytes(k + 1, block, rows))
+                       self.h_tma_smem_bytes(k + 1, block, rows),
+                       self.h_bf16_smem_bytes(k + 1, block, rows))
                + self.static_smem_bytes <= self.smem_per_block_max):
             k += 1
         return k
+
+    def h_bf16_smem_bytes(self, k: int, block=None, rows=None) -> int:
+        """Dynamic shared memory of one block of H-fused's bfloat16 form
+        at depth ``k``, under every load (csrc/heat_temporal3d.cuh
+        heat_h_bf16_smem_bytes): 128 bytes of alignment, h_tma_prefetch
+        staging slots of 4 bytes a thread and row (a pair of cells, or a
+        box of the extended tile 8 cells wider), three float32 ring
+        planes and two for each level 1 .. K-1, each padded by one row
+        above and below, and one 8-byte mbarrier a slot."""
+        wy, wz = self.h_extent(block, rows)
+        slots = self.h_tma_prefetch
+        return (128 + slots * 4 * wz * wy
+                + 4 * (3 + 2 * (k - 1)) * (wy + 2) * wz + 8 * slots)
 
     def h_tma_smem_bytes(self, k: int, block=None, rows=None) -> int:
         """Dynamic shared memory of one H-fused block at depth ``k`` under
@@ -635,17 +649,18 @@ class HopperParams:
                    elem: int = 4) -> bool:
         """Do the tiles inside a ``(bx, by, bz)`` block of ``elem``-byte
         cells take H-fused's TMA plane load at depth ``k``? TMA copies
-        rows of a multiple of 16 bytes, so ``bz % 4 == 0``; its instances
-        take ``h_tma_rows`` rows a thread; and at least one tile must lie
-        inside the block (:meth:`h_tiles`), or no tile would run it.
-        Elsewhere the tiles take the per-cell cp.async load. Never at
-        bfloat16 (``elem`` 2): the bfloat16 form's one load is the
-        widening plain load (``csrc/heat_h_block_3d_fused_bf16.cu``).
-        ``csrc/heat_h.cuh`` ``heat_h_tma_fits`` is the same rule, with the
-        block's address a multiple of 16 bytes."""
+        rows of a multiple of 16 bytes, so ``bz % 4 == 0`` (``bz % 8 ==
+        0`` at bfloat16, ``elem`` 2); its instances take ``h_tma_rows``
+        rows a thread; the block is at least a box wide
+        (:meth:`h_tma_box`); and at least one tile must lie inside the
+        block (:meth:`h_tiles`), or no tile would run it. Elsewhere the
+        tiles take the cp.async load (at bfloat16 its pairs and
+        registers). ``csrc/heat_h.cuh`` ``heat_h_tma_fits`` (and
+        ``heat_h_tma_fits_bf16``) is the same rule, with the block's
+        address a multiple of 16 bytes."""
         _, by, bz = block_shape
-        wy, wz = self.h_tma_box(block, rows)
-        return (elem == 4 and bz % 4 == 0
+        wy, wz = self.h_tma_box(block, rows, elem)
+        return (bz % (16 // elem) == 0
                 and (rows or self.h_rows) == self.h_tma_rows
                 and bz >= wz and wz <= 256
                 and self.h_tiles(block_shape, k, block, rows)[0] > 0)
@@ -669,12 +684,13 @@ class HopperParams:
         (ny, iy), (nz, iz) = inside(by, wy), inside(bz, wz)
         return iy * iz, ny * nz - iy * iz
 
-    def h_tma_box(self, block=None, rows=None):
-        """The TMA load's box ``(rows along Y, cells along Z)``: the
-        extended tile, 4 cells wider, since a box starts at a z that is a
-        multiple of 4 cells."""
+    def h_tma_box(self, block=None, rows=None, elem: int = 4):
+        """The TMA load's box ``(rows along Y, cells along Z)`` on
+        ``elem``-byte cells: the extended tile, 16 bytes of cells wider
+        (4 float32, 8 bfloat16), since a box starts at a z that is a
+        multiple of 16 bytes."""
         wy, wz = self.h_extent(block, rows)
-        return wy, wz + 4
+        return wy, wz + 16 // elem
 
     def h_launch(self, block_shape, k, planes, block=None, rows=None) -> int:
         """The X segment of an H launch at depth ``k`` over ``planes``

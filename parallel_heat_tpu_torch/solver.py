@@ -706,22 +706,26 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
                   f"in the kernel; {why}")
     bz, by = detail["block"]
     load = ""
-    if detail.get("load") == "plain":
-        load = (", every tile loads by one plain 2-byte load a cell, "
-                "widened into the float32 ring (the bfloat16 form's one "
-                "load: TMA needs 16-byte rows and a box that widens)")
-    elif "load" in detail:
+    if "load" in detail:
         hp = params()
-        wy, wz = hp.h_tma_box(detail["block"], detail["rows"])
+        elem = 2 if res.dtype == "bfloat16" else 4
+        wy, wz = hp.h_tma_box(detail["block"], detail["rows"], elem)
         ty, tz = hp.h_extent(detail["block"], detail["rows"])
         least = f"{2 * ty - 3 * k}x{max(2 * tz - 3 * k, wz)}"
+        how = ("by cp.async per cell" if elem == 4 else
+               "by 4-byte cp.async pairs of cells, a 2-byte load into a "
+               "register a plane ahead where a cell pairs with none")
         load = (f", tiles inside the block load by TMA (one {wy}x{wz} "
-                f"(Y, Z) box a plane; bz % 4 == 0 and a tile inside the "
-                f"block)" if detail["load"] == "tma"
-                else f", tiles inside the block load by cp.async per cell "
-                f"(TMA needs bz % 4 == 0 and a block of at least {least} "
+                f"(Y, Z) box a plane; bz % {16 // elem} == 0 and a tile "
+                f"inside the block)" if detail["load"] == "tma"
+                else f", tiles inside the block load {how} (TMA needs "
+                f"bz % {16 // elem} == 0 and a block of at least {least} "
                 f"(Y, Z) cells at K={k}, which holds a tile, got "
                 f"{bs[1]}x{bs[2]})")
+        if elem == 2:
+            load += (f"; the other tiles and the x slabs {how}, widened "
+                     f"into the float32 ring after the step of the plane "
+                     f"before" if detail["load"] == "tma" else "")
     if res.dtype == "bfloat16":
         load += ("; bfloat16 storage (bfloat16 halos, every level rounded, "
                  "float32 arithmetic)")

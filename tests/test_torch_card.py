@@ -1606,6 +1606,61 @@ def test_h_bf16_forms_bitwise_plain_each_other_and_d(card, grid, mesh_shape,
             assert _same_res(torch.maximum(rb, rf), res)
 
 
+# H-fused's bfloat16 loads at every compiled K: 20 x 128 x 136 blocks
+# (bz % 8 == 0, a tile inside the block at every K: TMA boxes inside,
+# pairs at the edge) and 6 x 50 x 70 ones (bz % 8 != 0: no box), NaN-seeded.
+H_FUSED_BF16_GRIDS = [((40, 256, 272), (2, 2, 2)), ((12, 100, 140),
+                                                     (2, 2, 2))]
+
+
+@pytest.mark.parametrize("grid,mesh_shape", H_FUSED_BF16_GRIDS)
+def test_h_fused_bf16_each_load_bitwise_plain_at_every_k(card, grid,
+                                                         mesh_shape):
+    from parallel_heat_tpu_torch.ops import stencil_kernels_block_3d as skb3
+    from parallel_heat_tpu_torch.parallel import temporal3d
+    from parallel_heat_tpu_torch.parallel.mesh import HeatMesh
+
+    kw3 = dict(cx=0.1, cy=0.15, cz=0.05)
+    mesh = HeatMesh(mesh_shape, card)
+    us = mesh.split(_rand_bf16_3d(grid, 53, card, nan=True))
+    bs = mesh.block_shape(grid)
+    boxed, depths = set(), range(1, min(params().h_k_max(), *bs) + 1)
+    for k in depths:
+        xch = temporal3d.DeepExchange3D(mesh, bs, k, card, BF16)
+        xch.lead(us)
+        xch.last(us)
+        fits = skb3.h_load(bs, k, dtype="bfloat16") == "tma"
+        loads = [x for x in skb3.LOADS_BF16
+                 if fits or not x.startswith("tma")]
+        for b in (0, mesh.size - 1):
+            kw = dict(origin=mesh.origin(b, bs), grid_shape=grid, **kw3)
+            zt, yt, lo, hi = xch.pieces(b)
+            for defer in (False, True):
+                if defer and bs[0] <= 2 * k:
+                    continue
+                x = (None, None) if defer else (lo, hi)
+                ref = torch.full(bs, float("nan"), dtype=BF16, device=card)
+                rp = skb3.h_block_fused_plain(us[b], zt, yt, *x, ref, k,
+                                              defer_x=defer, **kw)
+                for load in loads:
+                    got = torch.full(bs, float("nan"), dtype=BF16,
+                                     device=card)
+                    sk.reset_counts()
+                    r = skb3.h_block_fused(us[b], zt, yt, *x, got, k,
+                                           defer_x=defer, load=load, **kw)
+                    assert sk.counts["heat_h_block_3d_fused_bf16"] == 1
+                    assert _same_bits(got, ref) and _same_res(r, rp), (
+                        k, b, load, defer)
+                    if load.startswith("tma"):
+                        boxed.add(k)
+            if not fits:
+                with pytest.raises(ValueError):
+                    skb3.h_block_fused(us[b], zt, yt, lo, hi,
+                                       torch.empty_like(us[b]), k,
+                                       load="tma", **kw)
+    assert boxed == (set(depths) if bs[2] % 8 == 0 else set())
+
+
 @pytest.mark.parametrize("grid,mesh_shape,k", H_BF16_CASES)
 def test_h_band_bf16_blocks_bitwise_plain_under_each_load(card, grid,
                                                           mesh_shape, k):

@@ -449,8 +449,12 @@ def test_bf16_entry_points_and_pickers():
     block = (512, 512, 512)
     kind, detail = skb3.pick_block_temporal_3d(block, 3, "bfloat16")
     assert (kind, detail["kernel"], detail["load"]) == (
-        "H-fused", "heat_h_block_3d_fused_bf16", "plain")
+        "H-fused", "heat_h_block_3d_fused_bf16", "tma")
     assert skb3.pick_block_temporal_3d(block, 3)[1]["load"] == "tma"
+    # Rows of 92 cells: 184 bytes, no bfloat16 box (float32 takes one).
+    kind, detail = skb3.pick_block_temporal_3d((40, 128, 92), 3, BF16)
+    assert (kind, detail["load"]) == ("H-fused", "cp.async")
+    assert skb3.pick_block_temporal_3d((40, 128, 92), 3)[1]["load"] == "tma"
     with tune.force("block_temporal_3d", "H"):
         kind, detail = skb3.pick_block_temporal_3d(block, 4, BF16)
         assert detail["kernel"] == "heat_h_block_3d_bf16"
@@ -462,10 +466,68 @@ def test_bf16_entry_points_and_pickers():
             "heat_h_block_3d_fused_bf16"
 
 
+# H-fused's bfloat16 load by block and K: the box where bz % 8 == 0 and
+# the block holds a tile inside it at that K (a box is the 32 x 64 (Z, Y)
+# extended tile 8 cells wider: bz >= 40), the pairs and registers
+# ("cp.async") elsewhere.
+H_BF16_LOAD_CASES = [((512, 512, 512), 3, "tma"), ((512, 512, 512), 8, "tma"),
+                     ((40, 128, 92), 3, "cp.async"),
+                     ((40, 128, 96), 3, "tma"),
+                     ((40, 100, 96), 3, "cp.async"),   # no tile inside in y
+                     ((40, 128, 48), 8, "tma"),
+                     ((40, 128, 48), 1, "cp.async"),   # none inside in z
+                     ((20, 128, 136), 5, "tma"), ((6, 50, 70), 3, "cp.async")]
+
+
+@pytest.mark.parametrize("block,k,load", H_BF16_LOAD_CASES)
+def test_bf16_h_load_rule(block, k, load):
+    p = params()
+    assert p.h_tma_fits(block, k, elem=2) == (load == "tma")
+    assert skb3.h_load(block, k, dtype="bfloat16") == load
+    assert skb3.h_load(block, k, u=torch.empty(block, dtype=BF16)) == load
+    # Float32 boxes need 16-byte rows of 4 cells, and are 4 cells wider.
+    assert p.h_tma_fits(block, k) == (
+        block[2] % 4 == 0 and block[2] >= 36 and p.h_tiles(block, k)[0] > 0)
+    if load == "tma":
+        assert p.h_tiles(block, k)[0] > 0 and block[2] % 8 == 0
+    assert p.h_tma_box(elem=2) == (64, 40) and p.h_tma_box() == (64, 36)
+
+
+def test_bf16_h_fused_loads_give_the_same_bits_and_tma_refusals():
+    # Blocks of 8 x 120 x 56 at K = 3 hold a tile inside them (from
+    # 119 x 55), their rows 112 bytes: every load of LOADS_BF16 runs (on
+    # the CPU through the plain version) and gives the same bits;
+    # 8 x 120 x 52 (104-byte rows) and 8 x 100 x 56 (no tile inside along
+    # y) refuse a pinned box and run the other two.
+    for grid, boxed in (((16, 240, 112), True), ((16, 240, 104), False),
+                        ((16, 200, 112), False)):
+        g = _rand_bf16(grid, seed=8, nan=True)
+        _, us, bs, xch = _exchanged(g, (2, 2, 2), 3)
+        assert (skb3.h_load(bs, 3, us[0]) == "tma") == boxed
+        kw = dict(origin=(0, 0, 0), grid_shape=grid, **COEFFS)
+        ref = torch.full(bs, float("nan"), dtype=BF16)
+        rp = skb3.h_block_fused_plain(us[0], *xch.pieces(0), ref, 3, **kw)
+        for load in skb3.LOADS_BF16:
+            out = torch.full(bs, float("nan"), dtype=BF16)
+            if load.startswith("tma") and not boxed:
+                with pytest.raises(ValueError, match="TMA load needs bz % 8"):
+                    skb3.h_block_fused(us[0], *xch.pieces(0), out, 3,
+                                       load=load, **kw)
+                continue
+            r = skb3.h_block_fused(us[0], *xch.pieces(0), out, 3, load=load,
+                                   **kw)
+            assert _same_bits(out, ref) and _same_bits(r, rp), load
+        with pytest.raises(ValueError, match="load must be one of"):
+            skb3.h_block_fused(us[0], *xch.pieces(0), ref, 3, load="plain",
+                               **kw)
+
+
 def test_bf16_loads_and_their_refusals():
     p = params()
-    assert not p.h_tma_fits((512, 512, 512), 3, elem=2)
-    assert skb3.h_load((512, 512, 512), 3, dtype="bfloat16") == "plain"
+    assert p.h_tma_fits((512, 512, 512), 3, elem=2)
+    assert skb3.h_load((512, 512, 512), 3, dtype="bfloat16") == "tma"
+    assert not p.h_tma_fits((40, 128, 92), 3, elem=2)
+    assert skb3.h_load((40, 128, 92), 3, dtype="bfloat16") == "cp.async"
     # The circular block's rows: 16 bytes, so 8 bfloat16 cells.
     assert p.hc_pitch(518) == 520 and p.hc_pitch(518, 2) == 520
     assert p.hc_pitch(522) == 524 and p.hc_pitch(522, 2) == 528
@@ -483,12 +545,13 @@ def test_bf16_loads_and_their_refusals():
     g = _rand_bf16(grid, seed=4)
     _, us, bs, xch = _exchanged(g, (2, 2, 2), 2)
     kw = dict(origin=(0, 0, 0), grid_shape=grid, **COEFFS)
-    for load in ("tma", "cp.async"):
-        with pytest.raises(ValueError, match="one load"):
+    for load in ("tma", "tma+prefetch"):
+        with pytest.raises(ValueError, match="TMA load needs bz % 8"):
             skb3.h_block_fused(us[0], *xch.pieces(0), torch.empty_like(us[0]),
                                2, load=load, **kw)
-    skb3.h_block_fused(us[0], *xch.pieces(0), torch.empty_like(us[0]), 2,
-                       load="plain", **kw)
+    for load in ("cp.async", "prefetch"):
+        skb3.h_block_fused(us[0], *xch.pieces(0), torch.empty_like(us[0]), 2,
+                           load=load, **kw)
     contiguous = torch.empty(xch.circular_shape, dtype=BF16)
     assert skb3.h_block_load(contiguous) == "cp.async"   # rows of 12
     assert skb3.h_block_load(xch.new_circular()) == "tma"
@@ -513,7 +576,8 @@ def test_explain_names_the_bf16_forms():
     out = explain(HeatConfig(**base), device="cpu")
     assert out["decided_by"]["block_temporal_3d"]["choice"] == "H-fused"
     assert "heat_h_block_3d_fused_bf16" in out["path"]
-    assert "plain 2-byte load" in out["path"]
+    assert "cp.async pairs of cells" in out["path"]
+    assert "plain 2-byte load" not in out["path"]
     assert "bfloat16 storage" in out["path"]
     with tune.force("block_temporal_3d", "H-defer"):
         out = explain(HeatConfig(halo_overlap="overlap", **base),

@@ -37,7 +37,7 @@ prints the card's name and power limit, then one JSON line per phase:
    forms (``heat_d_step3d_bf16``, the 48 of ``heat_f_temporal3d_bf16``,
    its own library) may spill more, stores or loads, than its float32
    twin of the same K, rows and load; nor any of the H family's (the 24
-   of ``heat_h_block_3d_bf16``, the 32 of ``heat_h_block_3d_fused_bf16``,
+   of ``heat_h_block_3d_bf16``, the 16 of ``heat_h_block_3d_fused_bf16``,
    whose twins are H-fused's instances of the same K, rows and box load,
    and the 32 of ``heat_h_band_fix_3d_bf16``, a library each), and
    H-fused's bfloat16 main-path instance not at all;
@@ -420,9 +420,9 @@ prints the card's name and power limit, then one JSON line per phase:
    kernel with max(bulk, band) its residual; every kind of the band's
    tiles (``h_band_tile_kinds``) must have run;
 17a. kernels_h_bf16 — the bfloat16 forms of H-fused
-   (``heat_h_block_3d_fused_bf16``, under each load of ``LOADS_BF16`` the
-   block takes; its tiles inside the block by TMA boxes, inside tiles by
-   cp.async pairs where no box fits, and its edge tiles asserted run), H
+   (``heat_h_block_3d_fused_bf16``, under each load the block takes; its
+   tiles inside the block by TMA boxes, inside tiles by cp.async where no
+   box fits, and its edge tiles asserted run), H
    (``heat_h_block_3d_bf16``, contiguous and padded circular blocks, both
    loads) and the band (``heat_h_band_fix_3d_bf16``, one launch over
    every block under each load) into NaN-filled outputs, each bitwise its
@@ -1024,7 +1024,7 @@ def phase_build():
     h_fused_main = h_twins.get(
         f"heat_h_block_3d_fused_bf16_kernel<{h_fused_inst}>",
         (None, None))[0]
-    check(len(h_twins) == (3 + 3 + 1 + 4) * hp.h_k_compiled
+    check(len(h_twins) == (3 + 2 + 4) * hp.h_k_compiled
           and h_fused_main is not None and h_fused_main[1] == 0
           and all(mine is not None and twin is not None
                   and mine[1] <= twin[1] and mine[2] <= twin[2]
@@ -4559,8 +4559,8 @@ def _d_chain_bf16(sk3, g, k, kw):
 def _check_h_block_bf16(dev, xch, b, us, k, kw, want, want_res, err):
     """Every bfloat16 H form at depth ``k`` on block ``b`` (the bfloat16
     exchange ``xch`` has run all three phases), into NaN-filled outputs:
-    H-fused under each of its loads the block takes (``LOADS_BF16``: the
-    box loads where ``h_load`` picks "tma"), H on the contiguous circular
+    H-fused under each load the block takes ("tma" where ``h_load``
+    picks it, "cp.async" always), H on the contiguous circular
     block and on the padded one under both loads; each bitwise its plain
     version, the
     others and ``want``, the K launches of heat_d_step3d_bf16 (and F's
@@ -4594,8 +4594,7 @@ def _check_h_block_bf16(dev, xch, b, us, k, kw, want, want_res, err):
                 us[b], *pieces, out, k, r, load=load, **h_kw),
             lambda out: skb3.h_block_fused_plain(us[b], *pieces, out, k,
                                                  **h_kw))
-           for load in skb3.LOADS_BF16
-           if boxed or not load.startswith("tma")},
+           for load in skb3.LOADS if boxed or load != "tma"},
         **{("heat_h_block_3d_bf16", f"{load} {what}"): (
             lambda out, r, e=e, load=load: skb3.h_block(e, out, k, r,
                                                         load=load, **h_kw),
@@ -4628,10 +4627,8 @@ def _check_h_block_bf16(dev, xch, b, us, k, kw, want, want_res, err):
     if xch.halos[0] and bs[0] >= 2 * k:
         zt, yt, _, _ = pieces
         split = torch.full(bs, nan, dtype=torch.bfloat16, device=dev)
-        # The deferred bulk under the other step-2 load than h_load's.
         rb = skb3.h_block_fused(us[b], zt, yt, None, None, split, k, True,
-                                defer_x=True, load="tma+prefetch"
-                                if boxed else "prefetch", **h_kw)
+                                defer_x=True, **h_kw)
         torch.cuda.synchronize()
         check(bool(split[:k].isnan().all()
                    and split[bs[0] - k:].isnan().all()),
@@ -4719,7 +4716,7 @@ def phase_kernels_h_bf16(dev):
     straddle the z tail); on contiguous and padded circular blocks; every
     tile kind of H (``hc_tile_kinds`` at 2-byte cells) and of the band
     (``h_band_tile_kinds``) asserted run, and H-fused's (``h_tiles``):
-    tiles inside the block by TMA boxes, inside tiles by cp.async pairs
+    tiles inside the block by TMA boxes, inside tiles by cp.async words
     where no box fits, and edge tiles; H-fused under each of its loads;
     the bulk plus the band bit for bit the monolithic form; the band's one
     launch under both loads; and NaN-seeded 80^3 and 40 x 256 x 256 on
@@ -4818,7 +4815,7 @@ def phase_kernels_h_bf16(dev):
     emit({"phase": "kernels_h_bf16", "ok": True, "coeffs": kw3,
           "checks": report, "h_tile_kinds": h_kinds,
           "h_fused_tile_kinds": fused_kinds,
-          "h_fused_loads": list(skb3.LOADS_BF16),
+          "h_fused_loads": list(skb3.LOADS),
           "band_tile_kinds": band_kinds, "band_loads": sorted(band_loads),
           "nan_residual": nan_res, "max_abs_err": err,
           "bitwise_plain_each_other_f_and_d_chain": True,
@@ -5037,7 +5034,8 @@ def phase_sharded_main_path_3d_bf16():
     resolved = explain(cfg)
     check(resolved["halo_depth"] == f"{k} (auto)"
           and resolved["decided_by"]["block_temporal_3d"]["choice"]
-          == "H-fused" and "heat_h_block_3d_fused_bf16" in resolved["path"],
+          == "H-fused" and "heat_h_block_3d_fused_bf16" in resolved["path"]
+          and "inside the block load by TMA" in resolved["path"],
           f"{n}^3 bf16 on {SHARD3_MESH} resolved to {resolved}")
     one = solve(one_cfg)
     check(one.grid.dtype == torch.bfloat16
@@ -8034,7 +8032,7 @@ def _timing_h_bf16(dev):
     # kernel), in turns and back; each load's device time too.
     turns = {load: (lambda load=load: skb3.h_block_fused(
         us[b], zt, yt, xlo, xhi, v, k, False, load=load, **kw))
-        for load in skb3.LOADS_BF16}
+        for load in skb3.LOADS}
     turns["heat_h_block_3d_bf16"] = lambda: skb3.h_block(ext, v, k, False,
                                                          **kw)
     turn_ms = {key: [] for key in turns}
@@ -8045,7 +8043,7 @@ def _timing_h_bf16(dev):
     rows["heat_h_block_3d_fused_bf16"]["loads_device_ms"] = {
         load: _device_ms(turns[load],
                          "heat_h_block_3d_fused_bf16")["device_ms"]
-        for load in skb3.LOADS_BF16}
+        for load in skb3.LOADS}
     rows["heat_h_block_3d_bf16"]["load"] = skb3.h_block_load(ext)
     rows["heat_h_band_fix_3d_bf16"].update(blocks=mesh.size,
                                            load=band_launch.load,

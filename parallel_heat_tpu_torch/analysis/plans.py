@@ -1289,12 +1289,10 @@ def plan_h(kind, block_shape, k, origin=(0, 0, 0), grid_shape=None,
     x slabs' planes by cp.async; elsewhere the per-cell cp.async ring
     (``heat_t3d_stream``). Loads are in frame coordinates, the block's
     cells shifted by ``k``. With ``bf16`` the bfloat16 form
-    (``heat_h_block_3d_fused_bf16``, ``load`` one of
-    ``stencil_kernels_block_3d.LOADS_BF16``) on its own loop
+    (``heat_h_block_3d_fused_bf16``) on its own loop
     (``heat_t3d_stream_bf16``): h_tma_prefetch staging slots, each plane
-    a bfloat16 box (tiles inside the block under a "tma" load) or the
-    pairs' 4-byte cp.async copies (the "cp.async" and "tma" loads), landed
-    at the top of its own iteration; the register loads take no slot."""
+    a bfloat16 box (tiles inside the block under "tma") or a 4-byte
+    cp.async a cell, landed at the top of its own iteration."""
     from parallel_heat_tpu_torch.ops.stencil_kernels_block_3d import (
         _geometry)
 
@@ -1444,17 +1442,16 @@ def _sched_land_ring(t0, t1, prefetch, fill, bars):
 def _plan_h_bf16(kind, block_shape, k, origin, grid_shape, defer, load,
                  block, rows, xsegs, spans_of, tiles_y, tiles_z) -> Plan:
     """plan_h's bfloat16 form: its launch geometry and spans, the loop's
-    staging slots (4 bytes a thread and row: a pair of cells, or a box's
-    2 (wz + 8) wy bytes), three float32 ring planes, the levels and an
-    mbarrier a slot (``hopper_params.h_bf16_smem_bytes``)."""
+    staging slots (a 4-byte word a thread and row, or a box's 2 (wz + 8)
+    wy bytes), three float32 ring planes, the levels and an mbarrier a
+    slot (``hopper_params.h_bf16_smem_bytes``)."""
     p = _p()
     bx, by, bz = block_shape
     wy, wz = block[1] * rows, block[0]
     slots_n = p.h_tma_prefetch
     slot_b = 4 * wz * wy
     box_bytes = 2 * wy * (wz + 8)
-    boxes = load.startswith("tma")
-    pairs = load in ("cp.async", "tma")
+    boxes = load == "tma"
 
     def schedule(spans):
         x0, x1 = spans[0].write
@@ -1468,8 +1465,8 @@ def _plan_h_bf16(kind, block_shape, k, origin, grid_shape, defer, load,
                 return [("expect_tx", bar, box_bytes),
                         ("tma", slot, bar, box_bytes,
                          (tz0 - (tz0 & 7), ty0, t), 0)]
-            ev = ([("cp_async", slot, slot_b)]
-                  if pairs and (0 <= t < bx or in_grid) else [])
+            ev = ([("cp_async", slot, slot_b)] if 0 <= t < bx or in_grid
+                  else [])
             return ev + ([("arrive", bar)] if box else [])
         return _sched_land_ring(x0 - k, x1 + k, slots_n, fill, box)
 
@@ -1479,9 +1476,7 @@ def _plan_h_bf16(kind, block_shape, k, origin, grid_shape, defer, load,
     slots.update({f"ring{i}": (at + i * ring_b, ring_b) for i in range(3)})
     slots["levels"] = (at + 3 * ring_b, 2 * (k - 1) * ring_b)
     slots["bars"] = (at + (3 + 2 * (k - 1)) * ring_b, 8 * slots_n)
-    loads = {"plane": Load("cp4" if pairs else "ld", "frame",
-                           "stage" if pairs else None, 0, (0, wz),
-                           streamed=1)}
+    loads = {"plane": Load("cp4", "frame", "stage", 0, (0, wz), streamed=1)}
     if boxes:
         loads["box"] = Load("tma", "u", "stage", 0, (0, wz + 8), streamed=1,
                             box=(1, wy, wz + 8), cell_bytes=2)
@@ -2023,7 +2018,7 @@ def default_plans() -> List[Plan]:
         out.append(plan_h("H-fuse", block3, k3, o, H_GRID, defer=True,
                           load=main_bf16, bf16=True))
     for o in (origins3[0], origins3[-1]):
-        for load in skb3.LOADS_BF16:
+        for load in skb3.LOADS:
             if load != main_bf16:
                 out.append(plan_h("H-fuse", block3, k3, o, H_GRID,
                                   load=load, bf16=True))
@@ -2036,10 +2031,10 @@ def default_plans() -> List[Plan]:
     for bshape in ((67, 128, 92), (40, 128, 96), (20, 128, 250)):
         grid = tuple(2 * b for b in bshape)
         for k in range(1, p.h_k_max() + 1):
-            # The load h_load picks, and the register load on every tile.
+            # The load h_load picks, and cp.async on every tile.
             for load in dict.fromkeys((skb3.h_load(bshape, k,
                                                    dtype="bfloat16"),
-                                       "prefetch")):
+                                       "cp.async")):
                 out.append(plan_h("H-fuse", bshape, k, (0, 0, 0), grid,
                                   load=load, bf16=True))
         for k in range(1, p.h_band_k_max(2) + 1):

@@ -121,15 +121,6 @@ using HeatHFusedKernelOf = void (*)(const T*, const T*, const T*, const T*,
                                     float, float, float, float,
                                     const CUtensorMap);
 using HeatHFusedKernel = HeatHFusedKernelOf<float>;
-// The bfloat16 form's kernels take one more argument, `stage`
-// (heat_t3d_stream_bf16).
-using HeatHFusedBf16Kernel = void (*)(
-    const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-    const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, uint32_t*,
-    int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
-    int64_t, int, int, int, int64_t, int64_t, int64_t, int64_t, int64_t,
-    int64_t, HeatHStrides, float, float, float, float, const CUtensorMap,
-    int);
 
 // The compiled depths 1 .. kHMaxK (ops/hopper_params.py h_k_compiled)
 // and rows per thread 1, 2, 4; the TMA load only at kHTmaRows rows
@@ -208,10 +199,10 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
       const bool in_block = t >= 0 && t < bx;
       const bool x_in = ox + t >= 0 && ox + t < nx;
       const float* p = in_block ? core + t * core_plane
-                   : !x_in ? nullptr
-                   : (t < 0 ? xlo + (t + K) * st.slab
-                            : xhi + (t - bx) * st.slab) +
-                         slab_col;
+                       : !x_in  ? nullptr
+                                : (t < 0 ? xlo + (t + K) * st.slab
+                                         : xhi + (t - bx) * st.slab) +
+                                      slab_col;
       const int64_t row = in_block ? core_row : ze;
 #pragma unroll
       for (int r = 0; r < R; ++r)
@@ -283,16 +274,13 @@ __device__ __forceinline__ void heat_h_body(HEAT_H_PARAMS,
 // The bfloat16 form's cells of one thread (heat_t3d_stream_bf16's rows)
 // on a tile whose extended tile lies inside the block: row r of plane t
 // at core + t * plane + r * bz in u, or at slab_col + r * ze of an x slab
-// inside the grid; zero past the grid. Its rows are runs of the block or
-// of a slab, so a thread's cell and the next thread's lie side by side
-// in every plane. With a box (kTma), u's planes and those past the grid
-// come as boxes.
+// inside the grid; zero past the grid. With a box (kTma), u's planes and
+// those past the grid come as boxes.
 struct HeatHBf16Inner {
   const uint16_t *core, *xlo, *xhi;
   int64_t plane, bz, ze, slab_col, bx, ox, nx;
   int32_t slab;  // an x slab's plane stride
   int k;
-  unsigned nxt, lft;  // all rows, or none (the tile's last and first z)
 
   __device__ __forceinline__ const uint16_t* cell(int r, int64_t t) const {
     if (t >= 0 && t < bx) return core + t * plane + r * bz;
@@ -303,17 +291,12 @@ struct HeatHBf16Inner {
   __device__ __forceinline__ bool box(int64_t t) const {
     return (t >= 0 && t < bx) || ox + t < 0 || ox + t >= nx;
   }
-  __device__ __forceinline__ unsigned next(int64_t) const { return nxt; }
-  __device__ __forceinline__ unsigned left(int64_t) const { return lft; }
 };
 
 // The same on a tile at the block's (Y, Z) edge: per row, fixed for the
 // run, its cell's piece (u, ztail or ytail) as a pointer at the piece's
 // plane 0 and the piece's plane stride, and its offset in an x-slab
-// plane, as heat_h_body's edge tiles keep them (src null: no data); and
-// which rows' cells lie next to the next thread's in every plane of the
-// pieces (nxt_u) and of the slabs (nxt_s), and the previous thread's
-// (lft_u, lft_s), found once by warp shuffles.
+// plane, as heat_h_body's edge tiles keep them (src null: no data).
 template <int R>
 struct HeatHBf16Edge {
   const uint16_t* src[R];
@@ -322,7 +305,6 @@ struct HeatHBf16Edge {
   int64_t bx, ox, nx;
   int32_t slab;
   int k;
-  unsigned nxt_u, lft_u, nxt_s, lft_s;
 
   __device__ __forceinline__ const uint16_t* cell(int r, int64_t t) const {
     if (src[r] == nullptr) return nullptr;
@@ -332,12 +314,6 @@ struct HeatHBf16Edge {
            xoff[r];
   }
   __device__ __forceinline__ bool box(int64_t) const { return false; }
-  __device__ __forceinline__ unsigned next(int64_t t) const {
-    return t >= 0 && t < bx ? nxt_u : nxt_s;
-  }
-  __device__ __forceinline__ unsigned left(int64_t t) const {
-    return t >= 0 && t < bx ? lft_u : lft_s;
-  }
 };
 
 // heat_h_body on bfloat16 blocks (heat_h_block_3d_fused_bf16.cu): the
@@ -345,10 +321,10 @@ struct HeatHBf16Edge {
 // rounded to bfloat16, the copied cells narrowed exactly), its planes
 // through heat_t3d_stream_bf16. kTma: the tiles inside the block take
 // u's planes as boxes of `umap`, the bfloat16 block's tensor map;
-// `stage`: cells that pair up with the next thread's come by cp.async.
-template <int K, int R, bool kTma>
+// kPacked: the levels' registers packed (the same bits).
+template <int K, int R, bool kTma, bool kPacked>
 __device__ __forceinline__ void heat_h_body_bf16(
-    HEAT_H_PARAMS_OF(__nv_bfloat16), const CUtensorMap* umap, bool stage) {
+    HEAT_H_PARAMS_OF(__nv_bfloat16), const CUtensorMap* umap) {
   const int wz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
   const int row0 = threadIdx.y * R;          // this thread's first row
@@ -380,18 +356,15 @@ __device__ __forceinline__ void heat_h_body_bf16(
   }
   const uint16_t* xl = reinterpret_cast<const uint16_t*>(xlo);
   const uint16_t* xh = reinterpret_cast<const uint16_t*>(xhi);
-  const unsigned all = (1u << R) - 1u;
   const int64_t ty0 = ty * (wy - 2 * K) - K, tz0 = tz * (wz - 2 * K) - K;
   if (ty0 >= 0 && ty0 + wy <= by && tz0 >= 0 && tz0 + wz <= bz) {
     const HeatHBf16Inner in = {
         reinterpret_cast<const uint16_t*>(u) + ly0 * bz + lz, xl, xh, st.u,
-        bz, ze, ly0 * ze + lz, bx, ox, nx, st.slab, K,
-        static_cast<int>(threadIdx.x) + 1 < wz ? all : 0u,
-        threadIdx.x > 0 ? all : 0u};
-    heat_t3d_stream_bf16<K, R, kTma>(
-        in, stage, umap, static_cast<int>(tz0), static_cast<int>(ty0), x0,
-        x1, ox, nx, yz_in, out_rows, out, by * bz, ly0 * bz + lz, bz, a0, cx,
-        cy, cz, res);
+        bz, ze, ly0 * ze + lz, bx, ox, nx, st.slab, K};
+    heat_t3d_stream_bf16<K, R, kTma, kPacked>(
+        in, umap, static_cast<int>(tz0), static_cast<int>(ty0), x0, x1, ox,
+        nx, yz_in, out_rows, out, by * bz, ly0 * bz + lz, bz, a0, cx, cy, cz,
+        res);
     return;
   }
   HeatHBf16Edge<R> e;
@@ -402,12 +375,10 @@ __device__ __forceinline__ void heat_h_body_bf16(
   e.nx = nx;
   e.slab = st.slab;
   e.k = K;
-  e.nxt_u = e.nxt_s = 0u;
   const uint16_t* ub = reinterpret_cast<const uint16_t*>(u);
   const uint16_t* zb = reinterpret_cast<const uint16_t*>(zt);
   const uint16_t* yb = reinterpret_cast<const uint16_t*>(yt);
   const int64_t ye = by + 2 * hy;
-  const bool last_lane = (threadIdx.x & 31) == 31;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int64_t ly = ly0 + r;
@@ -427,22 +398,10 @@ __device__ __forceinline__ void heat_h_body_bf16(
       e.pstride[r] = st.yt;
     }
     if (!((cell_in >> r) & 1u)) e.src[r] = nullptr;
-    // The next thread's cell, from its lane (lane 31 sees its own).
-    const uint16_t* n = reinterpret_cast<const uint16_t*>(__shfl_down_sync(
-        0xffffffffu, reinterpret_cast<unsigned long long>(e.src[r]), 1));
-    const int32_t n_stride = __shfl_down_sync(0xffffffffu, e.pstride[r], 1);
-    const int32_t n_off = __shfl_down_sync(0xffffffffu, e.xoff[r], 1);
-    const bool both = !last_lane && e.src[r] != nullptr && n != nullptr;
-    e.nxt_u |= static_cast<unsigned>(both && n == e.src[r] + 1 &&
-                                     n_stride == e.pstride[r]) << r;
-    e.nxt_s |= static_cast<unsigned>(both && n_off == e.xoff[r] + 1) << r;
   }
-  e.lft_u = __shfl_up_sync(0xffffffffu, e.nxt_u, 1);
-  e.lft_s = __shfl_up_sync(0xffffffffu, e.nxt_s, 1);
-  if ((threadIdx.x & 31) == 0) e.lft_u = e.lft_s = 0u;
-  heat_t3d_stream_bf16<K, R, false>(e, stage, umap, 0, 0, x0, x1, ox, nx,
-                                    yz_in, out_rows, out, by * bz,
-                                    ly0 * bz + lz, bz, a0, cx, cy, cz, res);
+  heat_t3d_stream_bf16<K, R, false, kPacked>(
+      e, umap, 0, 0, x0, x1, ox, nx, yz_in, out_rows, out, by * bz,
+      ly0 * bz + lz, bz, a0, cx, cy, cz, res);
 }
 
 // The instance table of one entry point: kHeatH[r_index][k - 1]; the
@@ -482,29 +441,22 @@ inline bool heat_h_holds_tile(int64_t n, int w, int k) {
   return first * step - k + w <= n;
 }
 
-// Does the TMA plane load run for a block of by x bz cells at u under
-// thread blocks of block_z x block_y threads of `rows` rows at depth k?
-// TMA needs u's rows and address to be multiples of 16 bytes, and its
+// Does the TMA plane load run for a block of by x bz cells of `elem`
+// bytes at u under thread blocks of block_z x block_y threads of `rows`
+// rows at depth k? TMA needs u's rows and address to be multiples of 16
+// bytes (bz % 4 == 0 in float32, bz % 8 == 0 in bfloat16), and its
 // instances are compiled at kHTmaRows rows. A box is the extended tile
-// 4 cells wider (at most 256), and only a tile whose extended tile lies
-// inside the block takes it, so the block must hold one. The launcher
-// takes TMA only when the caller asks (the wrappers ask by this same
-// rule, ops/hopper_params.py h_tma_fits) and refuses it elsewhere.
+// 16 bytes of cells wider (at most 256), and only a tile whose extended
+// tile lies inside the block takes it, so the block must hold one. The
+// launcher takes TMA only when the caller asks (the wrappers ask by this
+// same rule, ops/hopper_params.py h_tma_fits) and refuses it elsewhere.
 inline bool heat_h_tma_fits(const void* u, int64_t by, int64_t bz,
-                            int block_z, int block_y, int rows, int k) {
-  return bz % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
-         rows == kHTmaRows && block_z + 4 <= 256 && bz >= block_z + 4 &&
-         heat_h_holds_tile(by, block_y * rows, k) &&
-         heat_h_holds_tile(bz, block_z, k);
-}
-
-// heat_h_tma_fits for the bfloat16 form's box: rows of a multiple of 16
-// bytes are bz % 8 == 0, and a box is the extended tile 8 cells wider.
-inline bool heat_h_tma_fits_bf16(const void* u, int64_t by, int64_t bz,
-                                 int block_z, int block_y, int rows, int k) {
-  return bz % 8 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
-         rows == kHTmaRows && block_z + 8 <= 256 && bz >= block_z + 8 &&
-         heat_h_holds_tile(by, block_y * rows, k) &&
+                            int block_z, int block_y, int rows, int k,
+                            int elem = 4) {
+  const int cells = 16 / elem;
+  return bz % cells == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+         rows == kHTmaRows && block_z + cells <= 256 &&
+         bz >= block_z + cells && heat_h_holds_tile(by, block_y * rows, k) &&
          heat_h_holds_tile(bz, block_z, k);
 }
 
@@ -547,14 +499,13 @@ inline int heat_h_smem_bytes(int k, int wy, int block_z, bool tma) {
 // planes r_begin0 and r_begin1, in segments of `seg` planes, with thread
 // blocks of block_z x block_y threads of `rows` rows each, on `stream`.
 // A HeatHFusedKernel also takes u's tensor map: encoded for tma (a kTma
-// instance; heat_h_tma_fits must hold), zeros and unread otherwise; a
-// HeatHFusedBf16Kernel the bfloat16 block's (heat_h_tma_fits_bf16) and
-// `stage` (heat_t3d_stream_bf16), on the bfloat16 loop's shared memory.
+// instance; heat_h_tma_fits must hold), zeros and unread otherwise; the
+// bfloat16 form runs on the shared memory of its own loop
+// (heat_h_bf16_smem_bytes).
 // Returns a cudaError_t: 0, or the reason the launch was refused; or an
 // encoding error (heat_tma_error_string).
 template <typename T, typename Kernel>
-inline int heat_h_launch(Kernel kernel, bool tma, int stage, const T* u,
-                         const T* zt,
+inline int heat_h_launch(Kernel kernel, bool tma, const T* u, const T* zt,
                          const T* yt, const T* xlo, const T* xhi, T* out,
                          uint32_t* res,
                          int64_t nx, int64_t ny, int64_t nz, int64_t bx,
@@ -564,9 +515,8 @@ inline int heat_h_launch(Kernel kernel, bool tma, int stage, const T* u,
                          int regions, int block_z, int block_y, int rows,
                          int64_t seg, float a0, float cx, float cy, float cz,
                          void* stream) {
-  constexpr bool kBf16 = std::is_same<Kernel, HeatHFusedBf16Kernel>::value;
-  constexpr bool kFused =
-      kBf16 || std::is_same<Kernel, HeatHFusedKernel>::value;
+  constexpr bool kFused = std::is_same<Kernel, HeatHFusedKernelOf<T>>::value;
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   const int wy = block_y * rows;
   const auto halo_ok = [k](int h) { return h == 0 || h == k; };
   const int64_t ye = by + 2 * hy, ze = bz + 2 * hz;
@@ -577,11 +527,8 @@ inline int heat_h_launch(Kernel kernel, bool tma, int stage, const T* u,
       block_z <= 2 * k || wy <= 2 * k || block_z * block_y > 512 ||
       seg < 1 || rows_x < 1 || r_begin0 < 0 || r_begin1 + rows_x > bx ||
       regions < 1 || regions > 2 || ye * ze > 0x7fffffffLL ||
-      (tma && (!kFused ||
-               !(kBf16 ? heat_h_tma_fits_bf16(u, by, bz, block_z, block_y,
-                                              rows, k)
-                       : heat_h_tma_fits(u, by, bz, block_z, block_y, rows,
-                                         k)))))
+      (tma && (!kFused || !heat_h_tma_fits(u, by, bz, block_z, block_y,
+                                            rows, k, sizeof(T)))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles_z = (bz + block_z - 2 * k - 1) / (block_z - 2 * k);
   const int64_t tiles_y = (by + wy - 2 * k - 1) / (wy - 2 * k);
@@ -609,12 +556,7 @@ inline int heat_h_launch(Kernel kernel, bool tma, int stage, const T* u,
   }
   const dim3 grid(static_cast<unsigned>(blocks), regions);
   const dim3 block(block_z, block_y);
-  if constexpr (kBf16)
-    kernel<<<grid, block, smem, s>>>(
-        u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz,
-        hx, hy, hz, r_begin0, r_begin1, rows_x, seg, tiles_z, tiles_y, st,
-        a0, cx, cy, cz, map, stage);
-  else if constexpr (kFused)
+  if constexpr (kFused)
     kernel<<<grid, block, smem, s>>>(
         u, zt, yt, xlo, xhi, out, res, nx, ny, nz, bx, by, bz, ox, oy, oz,
         hx, hy, hz, r_begin0, r_begin1, rows_x, seg, tiles_z, tiles_y, st,

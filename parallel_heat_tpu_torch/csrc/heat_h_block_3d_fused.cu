@@ -63,9 +63,9 @@ extern "C" int heat_h_block_3d_fused(
       (!defer_x && (hx != 0) != (xlo != nullptr && xhi != nullptr)) ||
       (defer_x && bx <= 2 * k))
     return static_cast<int>(cudaErrorInvalidValue);
-  return heat_h_launch(heat_h_fused_pick(k, rows, tma != 0), tma != 0, 0,
-                       u, ztail, ytail, xlo, xhi, out, res, nx, ny, nz, bx,
-                       by, bz, ox, oy, oz, hx, hy, hz, k, defer_x ? k : 0, 0,
+  return heat_h_launch(heat_h_fused_pick(k, rows, tma != 0), tma != 0, u,
+                       ztail, ytail, xlo, xhi, out, res, nx, ny, nz, bx, by,
+                       bz, ox, oy, oz, hx, hy, hz, k, defer_x ? k : 0, 0,
                        defer_x ? bx - 2 * k : bx, 1, block_z, block_y, rows,
                        seg, a0, cx, cy, cz, stream);
 }

@@ -23,93 +23,86 @@
 // planes and registers, the copied cells keeping their bits, so K steps
 // are bitwise K launches of heat_d_step3d_bf16; level K's float32 update
 // against level K - 1 is the residual, and the store rounds the updated
-// cells and narrows the copied ones exactly. What a plain 2-byte load a
-// cell cost here (each thread waited out a device-memory round trip on
-// every plane: 1.329 ms at the 512^3 block, K = 3, against float32's
-// 1.044; PERF.md) the loop removes: no thread waits on a load before the
-// step of its plane. The tiles inside the block take each plane of u as
-// one bfloat16 TMA box (tma != 0, where bz % 8 == 0 and the block holds
-// such a tile: heat_h_tma_fits_bf16), widened in shared memory; every
-// other cell comes by a 4-byte cp.async of a pair of cells where it and
-// its neighbour along z are one aligned run (stage != 0), or by a 2-byte
-// load into a register issued a plane ahead and stored after that
-// plane's step.
+// cells and narrows the copied ones exactly. No thread waits on a load
+// before the step of its plane (a plain 2-byte load a cell, which each
+// thread waited out on every plane, cost 1.329 ms at the 512^3 block and
+// K = 3 against float32's 1.044: PERF.md): every plane is copied
+// kHBf16Prefetch planes ahead into a staging slot and widened into the
+// float32 ring at the top of its own iteration. The tiles inside the
+// block take u's planes as one bfloat16 TMA box each (tma != 0, where
+// bz % 8 == 0 and the block holds such a tile: heat_h_tma_fits);
+// every other cell comes by a 4-byte cp.async of the word that holds it.
+// Compiled at kHTmaRows rows a thread (h_rows, the rows the pickers
+// take), every depth, each with and without the box.
 
 #include "heat_h.cuh"
+
+// The levels' layout of the (K, rows) instances: packed from K = 7, where
+// the float layout spilled past the float32 twins' (ptxas at 128
+// registers: <7, 4, true> 68 bytes stored against none, <8, 4, false>
+// 164 against 68; PERF.md), floats below, where nothing spills.
+__host__ __device__ constexpr bool heat_h_bf16_packed(int k) {
+  return k >= 7;
+}
 
 template <int K, int R, bool kTma>
 __global__ void __launch_bounds__(512)
     heat_h_block_3d_fused_bf16_kernel(
         HEAT_H_PARAMS_OF(__nv_bfloat16),
-        const __grid_constant__ CUtensorMap umap, int stage) {
-  heat_h_body_bf16<K, R, kTma>(HEAT_H_ARGS, &umap, stage != 0);
+        const __grid_constant__ CUtensorMap umap) {
+  heat_h_body_bf16<K, R, kTma, heat_h_bf16_packed(K)>(HEAT_H_ARGS, &umap);
 }
 
-static const HeatHFusedBf16Kernel kHeatHFusedBf16[3][kHMaxK] =
-    HEAT_H_TABLE_OF(heat_h_block_3d_fused_bf16_kernel, false);
-static const HeatHFusedBf16Kernel kHeatHFusedBf16Tma[kHMaxK] =
-    HEAT_H_DEPTHS_OF(heat_h_block_3d_fused_bf16_kernel, kHTmaRows, true);
+using HeatHFusedBf16Kernel = HeatHFusedKernelOf<__nv_bfloat16>;
 
-// The instance of (k, rows) under the box load `tma` asks for, or null.
+static const HeatHFusedBf16Kernel kHeatHFusedBf16[2][kHMaxK] = {
+    HEAT_H_DEPTHS_OF(heat_h_block_3d_fused_bf16_kernel, kHTmaRows, false),
+    HEAT_H_DEPTHS_OF(heat_h_block_3d_fused_bf16_kernel, kHTmaRows, true)};
+
+// The instance of (k, rows) under the load `tma` asks for, or null.
 static HeatHFusedBf16Kernel heat_h_fused_bf16_pick(int k, int rows,
                                                    bool tma) {
-  if (!tma) return heat_h_pick(kHeatHFusedBf16, k, rows);
   return rows == kHTmaRows && k >= 1 && k <= kHMaxK
-             ? kHeatHFusedBf16Tma[k - 1]
+             ? kHeatHFusedBf16[tma ? 1 : 0][k - 1]
              : nullptr;
 }
-
-// The load codes of `load` below (ops/stencil_kernels_block_3d.py
-// LOADS_BF16 by index): every cell by cp.async pairs and registers; the
-// tiles inside the block by TMA boxes, the rest so; every cell by a
-// register; the tiles inside by boxes, the rest by registers.
-constexpr int kHBf16LoadStage = 0;
-constexpr int kHBf16LoadTma = 1;
-constexpr int kHBf16LoadRegs = 2;
-constexpr int kHBf16LoadTmaRegs = 3;
 
 // heat_h_block_3d_fused on bfloat16 blocks and pieces into the bfloat16
 // `out`, with the same arguments: K steps in float32, each level below K
 // rounded to bfloat16 (storage mode), the cells outside the global
 // interior copied bit for bit; the residual of the planes written, the
 // last step's float32 update against the level it read, lands in *res
-// when res is non-null. `load` (in the place of tma) is one of the codes
-// above; a box load is refused unless heat_h_tma_fits_bf16. Returns 0, a
-// cudaError_t saying why the launch was refused, or a tensor-map encoding
-// error.
+// when res is non-null. tma != 0: the tiles inside the block load by TMA
+// boxes, refused unless heat_h_tma_fits. Returns 0, a cudaError_t
+// saying why the launch was refused, or a tensor-map encoding error.
 extern "C" int heat_h_block_3d_fused_bf16(
     const __nv_bfloat16* u, const __nv_bfloat16* ztail,
     const __nv_bfloat16* ytail, const __nv_bfloat16* xlo,
     const __nv_bfloat16* xhi, __nv_bfloat16* out, uint32_t* res, int64_t nx,
     int64_t ny, int64_t nz, int64_t bx, int64_t by, int64_t bz, int64_t ox,
-    int64_t oy, int64_t oz, int hx, int hy, int hz, int defer_x, int load,
+    int64_t oy, int64_t oz, int hx, int hy, int hz, int defer_x, int tma,
     int k, int block_z, int block_y, int rows, int64_t seg, float a0,
     float cx, float cy, float cz, void* stream) {
   if ((hz != 0) != (ztail != nullptr) || (hy != 0) != (ytail != nullptr) ||
       (!defer_x && (hx != 0) != (xlo != nullptr && xhi != nullptr)) ||
-      (defer_x && bx <= 2 * k) || load < kHBf16LoadStage ||
-      load > kHBf16LoadTmaRegs)
+      (defer_x && bx <= 2 * k))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool tma = load == kHBf16LoadTma || load == kHBf16LoadTmaRegs;
-  const bool stage = load == kHBf16LoadStage || load == kHBf16LoadTma;
-  return heat_h_launch(heat_h_fused_bf16_pick(k, rows, tma), tma,
-                       stage ? 1 : 0, u, ztail, ytail, xlo, xhi, out, res,
-                       nx, ny, nz, bx, by, bz, ox, oy, oz, hx, hy, hz, k,
-                       defer_x ? k : 0, 0, defer_x ? bx - 2 * k : bx, 1,
-                       block_z, block_y, rows, seg, a0, cx, cy, cz, stream);
+  return heat_h_launch(heat_h_fused_bf16_pick(k, rows, tma != 0), tma != 0,
+                       u, ztail, ytail, xlo, xhi, out, res, nx, ny, nz, bx,
+                       by, bz, ox, oy, oz, hx, hy, hz, k, defer_x ? k : 0, 0,
+                       defer_x ? bx - 2 * k : bx, 1, block_z, block_y, rows,
+                       seg, a0, cx, cy, cz, stream);
 }
 
-// Thread blocks of the bfloat16 (k, rows, load) instance that one SM
+// Thread blocks of the bfloat16 (k, rows, tma) instance that one SM
 // holds at once under thread blocks of block_z x block_y threads, into
 // *blocks. Returns a cudaError_t.
-extern "C" int heat_h_block_3d_fused_bf16_occupancy(int k, int rows,
-                                                    int load, int block_z,
-                                                    int block_y,
+extern "C" int heat_h_block_3d_fused_bf16_occupancy(int k, int rows, int tma,
+                                                    int block_z, int block_y,
                                                     int* blocks) {
-  const HeatHFusedBf16Kernel kernel = heat_h_fused_bf16_pick(
-      k, rows, load == kHBf16LoadTma || load == kHBf16LoadTmaRegs);
-  if (kernel == nullptr || blocks == nullptr || load < kHBf16LoadStage ||
-      load > kHBf16LoadTmaRegs)
+  const HeatHFusedBf16Kernel kernel =
+      heat_h_fused_bf16_pick(k, rows, tma != 0);
+  if (kernel == nullptr || blocks == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = heat_h_bf16_smem_bytes(k, block_y * rows, block_z);
   cudaError_t err = cudaFuncSetAttribute(

@@ -3,7 +3,8 @@
 // steps on the same cells:
 //   - heat_f_levels with its plane loops heat_t3d_stream and
 //     heat_t3d_stream_tma, one z cell a thread: H-fused (heat_h.cuh,
-//     heat_h_block_3d_fused.cu);
+//     heat_h_block_3d_fused.cu), and heat_t3d_stream_bf16, its bfloat16
+//     form's (heat_h_block_3d_fused_bf16.cu);
 //   - HeatFLoop (below), the register-blocked plane loop of kernel F
 //     (heat_f_temporal3d.cu), of kernel H (heat_h_block_3d.cu, on the
 //     assembled circular block) and of the band (heat_h_band_fix_3d.cu,
@@ -142,6 +143,67 @@ __device__ __forceinline__ void heat_f_levels(
                        x_in && ((yz_in >> r) & 1u));
           if (x_in && ((yz_in >> r) & 1u))
             *rmax = max(*rmax, heat_diff_bits(v[r], mid[K - 1][r]));
+        }
+      }
+    }
+  }
+}
+
+// heat_f_levels at bfloat16 with the levels' registers packed: levels 0
+// .. K-1 hold bfloat16 values (level 0 widened cells, each level below K
+// rounded, copied cells keeping their bits), so rows 2i and 2i + 1 of a
+// plane share one word (row 2i in the low half), half the registers of
+// the float layout, widened exactly where they are read. The arithmetic,
+// its order and the stores are heat_f_levels', so the bits are.
+template <int K, int R, bool kPlanesIn>
+__device__ __forceinline__ void heat_f_levels_packed(
+    uint32_t (&up)[K][R / 2], uint32_t (&mid)[K][R / 2],
+    uint32_t (&down)[K][R / 2], const float* prev0, float* lev, int ps,
+    int me, int bz, int par, int64_t t, int64_t nx, unsigned yz_in,
+    unsigned out_rows, __nv_bfloat16* out_cell, int64_t out_row, float a0,
+    float cx, float cy, float cz, uint32_t* rmax) {
+  static_assert(R % 2 == 0, "packed levels pair the rows");
+  const auto cell = [](const uint32_t(&w)[R / 2], int r) {
+    return __uint_as_float(r & 1 ? w[r >> 1] & 0xffff0000u
+                                 : w[r >> 1] << 16);
+  };
+#pragma unroll
+  for (int s = 1; s <= K; ++s) {
+    const float* nb =
+        s == 1 ? prev0 : lev + ((s - 2) * 2 + (par ^ 1)) * ps + me;
+    const bool x_in = kPlanesIn || (t - s >= 1 && t - s <= nx - 2);
+    float v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float cc = cell(mid[s - 1], r);
+      const float ym = r > 0 ? cell(mid[s - 1], r - 1) : nb[-bz];
+      const float yp = r + 1 < R ? cell(mid[s - 1], r + 1) : nb[R * bz];
+      const bool in = x_in && ((yz_in >> r) & 1u);
+      const float n = heat_combine3(cc, cell(up[s - 1], r),
+                                    cell(down[s - 1], r), ym, yp,
+                                    nb[r * bz - 1], nb[r * bz + 1], a0, cx,
+                                    cy, cz);
+      v[r] = in ? (s < K ? heat_bf16_round(n) : n) : cc;
+    }
+    if (s < K) {
+      float* dst = lev + ((s - 1) * 2 + par) * ps + me;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dst[r * bz] = v[r];
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) {
+        up[s][i] = mid[s][i];
+        mid[s][i] = down[s][i];
+        down[s][i] = (__float_as_uint(v[2 * i]) >> 16) |
+                     (__float_as_uint(v[2 * i + 1]) & 0xffff0000u);
+      }
+    } else if (out_cell != nullptr) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if ((out_rows >> r) & 1u) {
+          heat_store(out_cell + r * out_row, v[r],
+                     x_in && ((yz_in >> r) & 1u));
+          if (x_in && ((yz_in >> r) & 1u))
+            *rmax = max(*rmax, heat_diff_bits(v[r], cell(mid[K - 1], r)));
         }
       }
     }
@@ -370,26 +432,21 @@ inline int heat_t3d_smem_bytes(int k, int wy, int bz) {
 //
 // heat_f_levels on bfloat16 planes, with no load that a thread waits for
 // before the step of its plane. A plane reaches the float32 ring, where
-// the step reads it as at float32, in two halves: loads issued ahead, and
-// a landing at the top of its own iteration, where each thread widens
-// its cells into the ring before the barrier that publishes the plane.
-// Three kinds of load, the caller's `rows` saying which cells take which:
+// the step reads it as at float32, in two halves: its copies, issued
+// kHBf16Prefetch planes ahead into a staging slot, and its landing at the
+// top of its own iteration, where each thread widens its cells from the
+// slot into the ring before the barrier that publishes the plane. The
+// caller's `rows` says which copy a plane takes:
 //   - a TMA box (kTma; the tiles inside the block, `rows.box(t)`): one
 //     thread asks for the plane's extended tile as one (wz + 8) x wy box
 //     of the block's bfloat16 tensor map, from a z that is a multiple of 8
-//     cells (16 bytes), kHBf16Prefetch planes ahead, into a staging slot
-//     on its mbarrier; every thread widens its R cells from the slot;
-//   - a 4-byte cp.async of a pair (with `stage`): where this thread's cell
-//     and the next thread's are one 4-byte aligned run of memory in every
-//     plane of the piece (`rows.next(t)`), this thread copies both into its
-//     own 4 bytes of the staging slot, kHBf16Prefetch planes ahead, and
-//     widens both as they land; the next thread, which finds its cell on
-//     an odd half-word with a pair on its left (`rows.left(t)`), leaves
-//     its cell to it;
-//   - a 2-byte load into a register (every other cell, and every cell
-//     without `stage`), issued after the barrier of the plane before, so
-//     that it is in flight while that plane steps, and stored widened at
-//     the top of its own iteration, after that step.
+//     cells (16 bytes), on the slot's mbarrier; every thread widens its R
+//     cells from the box;
+//   - otherwise a 4-byte cp.async a cell: each thread copies the aligned
+//     4-byte word that holds its cell (cp.async has no 2-byte copy) into
+//     its own word of the slot, and widens the word's half that is its
+//     cell as it lands. The word never leaves the cell's allocation,
+//     whose base is 4-byte aligned and whose size is rounded up past it.
 // Cells with no data (outside the grid or the K-deep frame) land as
 // zeros. The float32 ring holds three planes: plane t lands while slower
 // threads may still step plane t - 1, reading it and plane t - 2. A
@@ -398,12 +455,12 @@ inline int heat_t3d_smem_bytes(int k, int wy, int bz) {
 // levels, their rounding and the stores are heat_f_levels', so the bits
 // are those of heat_t3d_stream on the same cells.
 
-// Planes in flight by TMA box or cp.async (ops/hopper_params.py
-// h_tma_prefetch), one staging slot each.
+// Planes in flight (ops/hopper_params.py h_tma_prefetch), a staging slot
+// each.
 constexpr int kHBf16Prefetch = kTmaPrefetch;
 
 // Bytes of a staging slot for an extended tile of wy x wz cells (wz a
-// multiple of 32): 4 bytes a thread and row, which also holds a box,
+// multiple of 32): a word a thread and row, which also holds a box,
 // 2 (wz + 8) wy bytes.
 __host__ __device__ constexpr int heat_h_bf16_slot_bytes(int wy, int wz) {
   return 4 * wz * wy;
@@ -423,25 +480,21 @@ inline int heat_h_bf16_smem_bytes(int k, int wy, int wz) {
 // heat_t3d_stream's plane loop for the bfloat16 block `out` (its
 // arguments), the input planes brought as above. `rows` gives this
 // thread's cells: rows.cell(r, t), the bfloat16 cell of row r in input
-// plane t (null: no data); rows.box(t), whether plane t comes as a box
-// of `map` at (z0 - z0 % 8, y0, t) (kTma only); rows.next(t) and
-// rows.left(t), bit r set where row r's cell and the next thread's, or
-// the previous thread's and this one's, lie next to each other in every
-// plane of plane t's piece. `stage`: pairs by cp.async (else every cell
-// not in a box by a register).
-template <int K, int R, bool kTma, class Rows>
+// plane t (null: no data), and rows.box(t), whether plane t comes as a
+// box of `map` at (z0 - z0 % 8, y0, t) (kTma only). kPacked: the levels'
+// registers packed (heat_f_levels_packed), the same bits.
+template <int K, int R, bool kTma, bool kPacked, class Rows>
 __device__ __forceinline__ void heat_t3d_stream_bf16(
-    const Rows& rows, bool stage, const CUtensorMap* map, int z0, int y0,
-    int64_t x0, int64_t x1, int64_t gx, int64_t nx, unsigned yz_in,
-    unsigned out_rows, __nv_bfloat16* out, int64_t out_plane,
-    int64_t out_col, int64_t out_row, float a0, float cx, float cy,
-    float cz, uint32_t* res) {
+    const Rows& rows, const CUtensorMap* map, int z0, int y0, int64_t x0,
+    int64_t x1, int64_t gx, int64_t nx, unsigned yz_in, unsigned out_rows,
+    __nv_bfloat16* out, int64_t out_plane, int64_t out_col, int64_t out_row,
+    float a0, float cx, float cy, float cz, uint32_t* res) {
   extern __shared__ __align__(128) float smem[];
   constexpr int P = kHBf16Prefetch;
   const int wz = blockDim.x;
   const int wy = blockDim.y * R;             // extended tile rows
   const int ps = (wy + 2) * wz;              // a plane and its two pad rows
-  const int slot_w = heat_h_bf16_slot_bytes(wy, wz) / 4;  // 32-bit words
+  const int slot_w = heat_h_bf16_slot_bytes(wy, wz) / 4;  // words
   // The slots from the first 128-byte boundary, the ring, the levels and
   // the mbarriers; offsets into smem, so that the compiler keeps them in
   // shared memory.
@@ -450,15 +503,14 @@ __device__ __forceinline__ void heat_t3d_stream_bf16(
   float* ring = reinterpret_cast<float*>(slots + P * slot_w);
   float* lev = ring + 3 * ps;                // levels 1 .. K-1, two each
   uint64_t* full = reinterpret_cast<uint64_t*>(lev + 2 * (K - 1) * ps);
-  const int x = threadIdx.x;
   const int row0 = threadIdx.y * R;
-  const int me = wz + row0 * wz + x;         // row 0 is the pad row
-  const int pair_at = row0 * wz + x;         // this thread's words in a slot
+  const int me = wz + row0 * wz + threadIdx.x;  // row 0 is the pad row
+  const int word = row0 * wz + threadIdx.x;     // its words in a slot
   const int zoff = z0 & 7;
-  const int bw = wz + 8;                     // cells of a box row
-  const int box_at = row0 * bw + zoff + x;   // its cells in a box
+  const int bw = wz + 8;                        // cells of a box row
+  const int box_at = row0 * bw + zoff + threadIdx.x;  // its box cells
   const uint32_t box_bytes = static_cast<uint32_t>(2 * bw * wy);
-  const bool leader = x == 0 && threadIdx.y == 0;
+  const bool leader = threadIdx.x == 0 && threadIdx.y == 0;
   const int64_t t0 = x0 - K, t1 = x1 + K;
   if constexpr (kTma) {
     if (leader) {
@@ -468,29 +520,7 @@ __device__ __forceinline__ void heat_t3d_stream_bf16(
     __syncthreads();
   }
 
-  // Row r of plane t: bit r of `pair` where this thread copies its cell
-  // and the next, of `one` where it loads its cell alone, of `zero`
-  // where the cell has no data; in none of them, the previous thread's
-  // pair holds the cell.
-  auto modes = [&](int64_t t, unsigned& pair, unsigned& one,
-                   unsigned& zero) {
-    const unsigned nxt = stage ? rows.next(t) : 0u;
-    const unsigned lft = stage ? rows.left(t) : 0u;
-    pair = one = zero = 0u;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const uint16_t* p = rows.cell(r, t);
-      const bool even = (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
-      const unsigned bit = 1u << r;
-      if (p == nullptr)
-        zero |= bit;
-      else if ((nxt & bit) && even)
-        pair |= bit;
-      else if (!((lft & bit) && !even))
-        one |= bit;
-    }
-  };
-  // The box or the pairs of plane t into slot s.
+  // The box, or this thread's words, of plane t into slot s.
   auto issue = [&](int s, int64_t t) {
     if constexpr (kTma) {
       if (rows.box(t)) {
@@ -503,39 +533,26 @@ __device__ __forceinline__ void heat_t3d_stream_bf16(
       }
       if (leader) heat_mbar_arrive(&full[s]);
     }
-    if (!stage) return;
-    unsigned pair, one, zero;
-    modes(t, pair, one, zero);
-    uint32_t* dst = slots + s * slot_w + pair_at;
+    uint32_t* dst = slots + s * slot_w + word;
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      if ((pair >> r) & 1u)
-        __pipeline_memcpy_async(dst + r * wz, rows.cell(r, t), 4);
-  };
-  // Plane t's single cells into registers, and its modes for the landing.
-  uint16_t held[R];
-  unsigned h_pair = 0u, h_one = 0u, h_zero = 0u;
-  bool h_box = false;
-  auto prefetch = [&](int64_t t) {
-    if constexpr (kTma) {
-      h_box = rows.box(t);
-      if (h_box) return;
+    for (int r = 0; r < R; ++r) {
+      const uint16_t* p = rows.cell(r, t);
+      // The word's first cell: the one before p where p is 2 mod 4.
+      if (p != nullptr)
+        __pipeline_memcpy_async(
+            dst + r * wz, p - ((reinterpret_cast<uintptr_t>(p) >> 1) & 1u),
+            4);
     }
-    modes(t, h_pair, h_one, h_zero);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if ((h_one >> r) & 1u)
-        held[r] = __ldg(reinterpret_cast<const unsigned short*>(
-            rows.cell(r, t)));
   };
-  // Plane t from slot s, widened into ring plane f.
+  // Plane t from slot s (its phase of parity `lap`), widened into ring
+  // plane f.
   auto land = [&](int f, int s, int64_t t, uint32_t lap) {
     float* dst = ring + f * ps + me;
     if constexpr (kTma) {
       // Every plane completes a phase of its slot's barrier (a box's
-      // bytes, or the leader's arrival for one of pairs and registers).
+      // bytes, or the leader's arrival for a plane of words).
       heat_mbar_wait(&full[s], lap);
-      if (h_box) {
+      if (rows.box(t)) {
         const uint16_t* box =
             reinterpret_cast<const uint16_t*>(slots + s * slot_w) + box_at;
 #pragma unroll
@@ -545,18 +562,16 @@ __device__ __forceinline__ void heat_t3d_stream_bf16(
         return;
       }
     }
-    const uint32_t* src = slots + s * slot_w + pair_at;
+    const uint16_t* src =
+        reinterpret_cast<const uint16_t*>(slots + s * slot_w + word);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if ((h_pair >> r) & 1u) {
-        const uint32_t v = src[r * wz];
-        dst[r * wz] = __uint_as_float(v << 16);
-        dst[r * wz + 1] = __uint_as_float(v & 0xffff0000u);
-      } else if ((h_one >> r) & 1u) {
-        dst[r * wz] = __uint_as_float(static_cast<uint32_t>(held[r]) << 16);
-      } else if ((h_zero >> r) & 1u) {
-        dst[r * wz] = 0.f;
-      }
+      const uint16_t* p = rows.cell(r, t);
+      // The cell is the word's upper half at an address of 2 mod 4.
+      const int half =
+          static_cast<int>(reinterpret_cast<uintptr_t>(p) >> 1) & 1;
+      const uint32_t c = src[2 * r * wz + half];
+      dst[r * wz] = p == nullptr ? 0.f : __uint_as_float(c << 16);
     }
   };
 
@@ -565,15 +580,18 @@ __device__ __forceinline__ void heat_t3d_stream_bf16(
     if (t0 + i < t1) issue(i, t0 + i);
     __pipeline_commit();
   }
-  prefetch(t0);
-  float up[K][R], mid[K][R], down[K][R];
+  // Levels 0 .. K-1 of this thread's cells, three planes each: floats, or
+  // pairs of rows packed in a word.
+  constexpr int kW = kPacked ? R / 2 : R;
+  using Lv = typename std::conditional<kPacked, uint32_t, float>::type;
+  Lv up[K][kW], mid[K][kW], down[K][kW];
 #pragma unroll
   for (int s = 0; s < K; ++s)
 #pragma unroll
-    for (int r = 0; r < R; ++r) up[s][r] = mid[s][r] = down[s][r] = 0.f;
+    for (int r = 0; r < kW; ++r) up[s][r] = mid[s][r] = down[s][r] = Lv{0};
   uint32_t rmax = 0u;
-  int cur = 0;          // staging slot of plane t
-  uint32_t lap = 0u;    // parity of slot cur's use
+  int cur = 0;           // staging slot of plane t
+  uint32_t lap = 0u;     // parity of slot cur's use
   int f = 0, fprev = 2;  // ring planes of t and t - 1
   for (int64_t t = t0; t < t1; ++t) {
     // This thread's copies of plane t have landed; its cells go into the
@@ -588,26 +606,45 @@ __device__ __forceinline__ void heat_t3d_stream_bf16(
       issue(cur, t + P);
     }
     __pipeline_commit();
-    if (t + 1 < t1) prefetch(t + 1);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
+    for (int r = 0; r < kW; ++r) {
       up[0][r] = mid[0][r];
       mid[0][r] = down[0][r];
-      down[0][r] = ring[f * ps + me + r * wz];
+      if constexpr (kPacked)
+        down[0][r] =
+            (__float_as_uint(ring[f * ps + me + 2 * r * wz]) >> 16) |
+            (__float_as_uint(ring[f * ps + me + (2 * r + 1) * wz]) &
+             0xffff0000u);
+      else
+        down[0][r] = ring[f * ps + me + r * wz];
     }
     __nv_bfloat16* out_cell = out_rows != 0u && t - K >= x0 && t - K < x1
                                   ? out + (t - K) * out_plane + out_col
                                   : nullptr;
     const int par = static_cast<int>(t & 1);
     const int64_t g = gx + t;
-    if (g - K >= 1 && g - 1 <= nx - 2)
-      heat_f_levels<K, R, true>(up, mid, down, ring + fprev * ps + me, lev,
-                                ps, me, wz, par, g, nx, yz_in, out_rows,
-                                out_cell, out_row, a0, cx, cy, cz, &rmax);
-    else
-      heat_f_levels<K, R, false>(up, mid, down, ring + fprev * ps + me, lev,
-                                 ps, me, wz, par, g, nx, yz_in, out_rows,
-                                 out_cell, out_row, a0, cx, cy, cz, &rmax);
+    const float* prev0 = ring + fprev * ps + me;
+    if constexpr (kPacked) {
+      if (g - K >= 1 && g - 1 <= nx - 2)
+        heat_f_levels_packed<K, R, true>(up, mid, down, prev0, lev, ps, me,
+                                         wz, par, g, nx, yz_in, out_rows,
+                                         out_cell, out_row, a0, cx, cy, cz,
+                                         &rmax);
+      else
+        heat_f_levels_packed<K, R, false>(up, mid, down, prev0, lev, ps, me,
+                                          wz, par, g, nx, yz_in, out_rows,
+                                          out_cell, out_row, a0, cx, cy, cz,
+                                          &rmax);
+    } else {
+      if (g - K >= 1 && g - 1 <= nx - 2)
+        heat_f_levels<K, R, true>(up, mid, down, prev0, lev, ps, me, wz, par,
+                                  g, nx, yz_in, out_rows, out_cell, out_row,
+                                  a0, cx, cy, cz, &rmax);
+      else
+        heat_f_levels<K, R, false>(up, mid, down, prev0, lev, ps, me, wz,
+                                   par, g, nx, yz_in, out_rows, out_cell,
+                                   out_row, a0, cx, cy, cz, &rmax);
+    }
     fprev = f;
     f = f == 2 ? 0 : f + 1;
     if (++cur == P) {

@@ -287,7 +287,9 @@ class HopperParams:
     # cells wider than the extended tile, since a box starts at a z that
     # is a multiple of 4 cells (h_tma_smem_bytes has the layout); its
     # instances are compiled at h_tma_rows rows a thread only
-    # (csrc/heat_h.cuh's kHTmaRows must equal it).
+    # (csrc/heat_h.cuh's kHTmaRows must equal it). The bfloat16 form
+    # keeps h_tma_prefetch planes in flight under both loads (its boxes 8
+    # cells wider; h_bf16_smem_bytes) and is compiled at h_tma_rows only.
     h_tma_prefetch: int = 4
     h_tma_rows: int = 4
 
@@ -621,10 +623,10 @@ class HopperParams:
         """Dynamic shared memory of one block of H-fused's bfloat16 form
         at depth ``k``, under every load (csrc/heat_temporal3d.cuh
         heat_h_bf16_smem_bytes): 128 bytes of alignment, h_tma_prefetch
-        staging slots of 4 bytes a thread and row (a pair of cells, or a
-        box of the extended tile 8 cells wider), three float32 ring
-        planes and two for each level 1 .. K-1, each padded by one row
-        above and below, and one 8-byte mbarrier a slot."""
+        staging slots of 4 bytes a thread and row (the word that holds
+        its cell, or a box of the extended tile 8 cells wider), three
+        float32 ring planes and two for each level 1 .. K-1, each padded
+        by one row above and below, and one 8-byte mbarrier a slot."""
         wy, wz = self.h_extent(block, rows)
         slots = self.h_tma_prefetch
         return (128 + slots * 4 * wz * wy
@@ -654,10 +656,9 @@ class HopperParams:
         rows a thread; the block is at least a box wide
         (:meth:`h_tma_box`); and at least one tile must lie inside the
         block (:meth:`h_tiles`), or no tile would run it. Elsewhere the
-        tiles take the cp.async load (at bfloat16 its pairs and
-        registers). ``csrc/heat_h.cuh`` ``heat_h_tma_fits`` (and
-        ``heat_h_tma_fits_bf16``) is the same rule, with the block's
-        address a multiple of 16 bytes."""
+        tiles take the cp.async load (at bfloat16 a 4-byte word a cell).
+        ``csrc/heat_h.cuh`` ``heat_h_tma_fits`` is the same
+        rule, with the block's address a multiple of 16 bytes."""
         _, by, bz = block_shape
         wy, wz = self.h_tma_box(block, rows, elem)
         return (bz % (16 // elem) == 0

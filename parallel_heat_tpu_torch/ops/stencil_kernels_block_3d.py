@@ -47,13 +47,12 @@ package:
   The plain versions step a bfloat16 frame the same way, so the bits
   still agree, and a block's K steps are bitwise K launches of kernel
   D's bfloat16 form on the same cells of the global grid. H-fused's
-  bfloat16 form (:data:`LOADS_BF16`) loads no cell that a thread waits
-  for before the step of its plane: the tiles inside the block take a
-  bfloat16 TMA box a plane where ``bz % 8 == 0`` (``"tma"``), every other
-  cell a 4-byte ``cp.async`` of a pair of cells where it and its
-  neighbour along z are one aligned run, else a 2-byte load into a
-  register a plane ahead (``"cp.async"``); ``"prefetch"`` and
-  ``"tma+prefetch"`` take the register load for every such cell.
+  bfloat16 form loads no cell that a thread waits for before the step of
+  its plane, under the float32 form's two names (:data:`LOADS`): the
+  tiles inside the block take a bfloat16 TMA box a plane where
+  ``bz % 8 == 0`` and the block holds such a tile (``"tma"``), every
+  other cell a 4-byte ``cp.async`` of the word that holds it
+  (``"cp.async"``), each a few planes ahead.
 
 ``origin`` is the global ``(x, y, z)`` of the block's cell (0, 0, 0) for
 every form. Each wrapper takes its plain version only for a tensor that
@@ -95,12 +94,6 @@ BAND = "heat_h_band_fix_3d"
 KERNEL_OF_BF16 = {kind: name + "_bf16" for kind, name in KERNEL_OF.items()}
 BAND_BF16 = BAND + "_bf16"
 LOADS = ("tma", "cp.async")
-# H-fused's bfloat16 loads, by their code in
-# csrc/heat_h_block_3d_fused_bf16.cu: the cells by cp.async pairs (and
-# registers where a cell pairs with no neighbour); the tiles inside the
-# block by TMA boxes, the others so; every cell by a register loaded a
-# plane ahead; the tiles inside by boxes, the others by registers.
-LOADS_BF16 = ("cp.async", "tma", "prefetch", "tma+prefetch")
 _F32, _BF16 = torch.float32, torch.bfloat16
 
 
@@ -118,8 +111,7 @@ def h_load(block_shape, k: int, u: Optional[torch.Tensor] = None,
     at depth ``k``: ``"tma"`` where
     :meth:`~.hopper_params.HopperParams.h_tma_fits` holds at the dtype's
     cell size and u's address is a multiple of 16 bytes, else
-    ``"cp.async"`` (at bfloat16 the pairs and registers of
-    :data:`LOADS_BF16`). Geometry alone decides; the launch refuses TMA
+    ``"cp.async"``. Geometry alone decides; the launch refuses TMA
     elsewhere and nothing falls back."""
     if u is not None:
         dtype = u.dtype
@@ -481,10 +473,10 @@ def _launch(name, args, out, k, with_residual, *, origin, grid_shape, cx,
 def h_fused_occupancy(k: int, load: str, block=None, rows=None,
                       dtype="float32") -> int:
     """Thread blocks of H-fused's ``(k, rows, load)`` instance (its
-    bfloat16 form's at ``dtype`` bfloat16, ``load`` one of
-    :data:`LOADS_BF16`) that one SM of the current card holds at once
-    (the CUDA occupancy calculator at the launch's shared memory); builds
-    the kernel if needed."""
+    bfloat16 form's at ``dtype`` bfloat16, compiled at ``h_rows`` only)
+    that one SM of the current card holds at once (the CUDA occupancy
+    calculator at the launch's shared memory); builds the kernel if
+    needed."""
     from parallel_heat_tpu_torch.kernels.build import load as load_lib
 
     p = params()
@@ -496,9 +488,8 @@ def h_fused_occupancy(k: int, load: str, block=None, rows=None,
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     _raise_on_error(lib, name,
-                    fn(k, rows, LOADS_BF16.index(load)
-                       if elem_size(dtype) == 2 else int(load == "tma"),
-                       bz, by, ctypes.addressof(blocks)))
+                    fn(k, rows, int(load == "tma"), bz, by,
+                       ctypes.addressof(blocks)))
     return blocks.value
 
 
@@ -591,9 +582,8 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
     (one of :data:`LOADS`) pins the plane load of the tiles inside the
     block, which :func:`h_load` chooses by default; ``"tma"`` where the
     geometry refuses it raises. Both loads give the same bits. Bfloat16
-    blocks launch ``heat_h_block_3d_fused_bf16`` under one of
-    :data:`LOADS_BF16` (a box load where the geometry refuses it raises);
-    all four give the same bits."""
+    blocks launch ``heat_h_block_3d_fused_bf16`` under the same two
+    loads (its box ``"tma"`` needs ``bz % 8 == 0``)."""
     halos = halos_of(u.shape, grid_shape, k)
     _check_block(out, k, origin, grid_shape,
                  _pieces(out, u, ztail, ytail, xlo, xhi, k, halos,
@@ -603,14 +593,12 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
         raise ValueError(f"the deferred bulk needs at least 2k = {2 * k} "
                          f"x-planes, got a block of {bx}")
     elem = elem_size(u.dtype)
-    loads = LOADS_BF16 if elem == 2 else LOADS
     fits = h_load(u.shape, k, u)
     if load is None:
         load = fits
-    elif load not in loads:
-        raise ValueError(f"load must be one of {loads} on {u.dtype} "
-                         f"blocks, got {load!r}")
-    elif load.startswith("tma") and fits != "tma":
+    elif load not in LOADS:
+        raise ValueError(f"load must be one of {LOADS}, got {load!r}")
+    elif load == "tma" and fits != "tma":
         p = params()
         raise ValueError(
             f"the TMA load needs bz % {16 // elem} == 0 ({u.dtype}), "
@@ -627,10 +615,10 @@ def h_block_fused(u: torch.Tensor, ztail: Optional[torch.Tensor],
         return (torch.zeros((), dtype=torch.float32, device=out.device)
                 if with_residual else None)
     planes = bx - 2 * k if defer_x else bx
-    code = LOADS_BF16.index(load) if elem == 2 else int(load == "tma")
     return _launch("heat_h_block_3d_fused", (u, ztail, ytail, xlo, xhi), out,
                    k, with_residual, origin=origin, grid_shape=grid_shape,
-                   cx=cx, cy=cy, cz=cz, mid=halos + (int(defer_x), code),
+                   cx=cx, cy=cy, cz=cz,
+                   mid=halos + (int(defer_x), int(load == "tma")),
                    geometry=_geometry(out.shape, k, planes))
 
 
@@ -814,7 +802,7 @@ def pick_block_temporal_3d(block_shape, k: int, dtype="float32"):
     ``detail["kernel"]`` is the entry point the round launches (the
     bfloat16 form's for bfloat16) and, for H-fused and H-defer,
     ``detail["load"]`` the load of the tiles inside the block
-    (:func:`h_load`, at bfloat16 of :data:`LOADS_BF16`).
+    (:func:`h_load`).
 
     The one decision site: ``parallel/temporal3d.py`` executes its result
     and ``solver.explain`` reports it. By default H-fused, whose round is

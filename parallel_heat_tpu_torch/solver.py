@@ -713,8 +713,8 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
         ty, tz = hp.h_extent(detail["block"], detail["rows"])
         least = f"{2 * ty - 3 * k}x{max(2 * tz - 3 * k, wz)}"
         how = ("by cp.async per cell" if elem == 4 else
-               "by 4-byte cp.async pairs of cells, a 2-byte load into a "
-               "register a plane ahead where a cell pairs with none")
+               "by a 4-byte cp.async of the word that holds each cell, "
+               "widened into the float32 ring")
         load = (f", tiles inside the block load by TMA (one {wy}x{wz} "
                 f"(Y, Z) box a plane; bz % {16 // elem} == 0 and a tile "
                 f"inside the block)" if detail["load"] == "tma"
@@ -722,10 +722,8 @@ def _explain_sharded_3d(res: HeatConfig, out: dict, k: int, mode: str,
                 f"bz % {16 // elem} == 0 and a block of at least {least} "
                 f"(Y, Z) cells at K={k}, which holds a tile, got "
                 f"{bs[1]}x{bs[2]})")
-        if elem == 2:
-            load += (f"; the other tiles and the x slabs {how}, widened "
-                     f"into the float32 ring after the step of the plane "
-                     f"before" if detail["load"] == "tma" else "")
+        if elem == 2 and detail["load"] == "tma":
+            load += f"; the other tiles and the x slabs {how}"
     if res.dtype == "bfloat16":
         load += ("; bfloat16 storage (bfloat16 halos, every level rounded, "
                  "float32 arithmetic)")

@@ -653,15 +653,13 @@ def test_plan_i_bf16_audit_catches_a_box_off_16_bytes_or_past_its_stage(
                for f in pk.audit_kernels([plan], check_coverage=False))
 
 
-@pytest.mark.parametrize("load", ["cp.async", "tma", "prefetch",
-                                  "tma+prefetch"])
+@pytest.mark.parametrize("load", ["cp.async", "tma"])
 def test_plan_h_bf16_loads_are_the_wrappers(load):
     # H-fused's bfloat16 form at the main path's 512^3 block, K = 3, under
     # each load: its own loop's shared memory (staging slots, three ring
     # planes, the levels, an mbarrier a slot), a bfloat16 box 8 cells
-    # wider than the extended tile under the box loads, the pairs'
-    # 4-byte copies into the staging slots under "cp.async" and "tma",
-    # no slot for the register loads; clean, and a schedule without its
+    # wider than the extended tile under "tma", each cell's 4-byte word by
+    # cp.async into the staging slots; clean, and a schedule without its
     # commit-group wait caught.
     import dataclasses
 
@@ -676,21 +674,19 @@ def test_plan_h_bf16_loads_are_the_wrappers(load):
     assert p.h_bf16_smem_bytes(3) < min(p.h_smem_bytes(3),
                                         p.h_tma_smem_bytes(3))
     box = plan.loads.get("box")
-    assert (box is not None) == load.startswith("tma")
+    assert (box is not None) == (load == "tma")
     if box is not None:
         assert (box.kind, box.box, box.cell_bytes) == ("tma", (1, 64, 40), 2)
     cells = plan.loads["plane"]
-    assert (cells.kind, cells.slot) == (
-        ("cp4", "stage") if load in ("cp.async", "tma") else ("ld", None))
+    assert (cells.kind, cells.slot, cells.cell_bytes) == ("cp4", "stage", 4)
     assert sorted(n for n in plan.slots if n.startswith("stage")) == [
         f"stage{i}" for i in range(p.h_tma_prefetch)]
     assert pk.audit_kernels([plan], check_coverage=False) == []
     inner = plan.schedule
     plan = dataclasses.replace(plan, schedule=lambda spans: [
         e for e in inner(spans) if e[0] != "wait_prior"])
-    faults = pk.audit_kernels([plan], check_coverage=False)
-    assert (any(f.rule == "HL403" for f in faults)
-            == (load in ("cp.async", "tma")))
+    assert any(f.rule == "HL403"
+               for f in pk.audit_kernels([plan], check_coverage=False))
 
 
 # The transfer plans: the 512^2 hierarchy's top and bottom pairs, a

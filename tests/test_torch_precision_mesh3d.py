@@ -495,10 +495,10 @@ def test_bf16_h_load_rule(block, k, load):
 
 def test_bf16_h_fused_loads_give_the_same_bits_and_tma_refusals():
     # Blocks of 8 x 120 x 56 at K = 3 hold a tile inside them (from
-    # 119 x 55), their rows 112 bytes: every load of LOADS_BF16 runs (on
-    # the CPU through the plain version) and gives the same bits;
-    # 8 x 120 x 52 (104-byte rows) and 8 x 100 x 56 (no tile inside along
-    # y) refuse a pinned box and run the other two.
+    # 119 x 55), their rows 112 bytes: both loads run (on the CPU through
+    # the plain version) and give the same bits; 8 x 120 x 52 (104-byte
+    # rows) and 8 x 100 x 56 (no tile inside along y) refuse a pinned box
+    # and run cp.async.
     for grid, boxed in (((16, 240, 112), True), ((16, 240, 104), False),
                         ((16, 200, 112), False)):
         g = _rand_bf16(grid, seed=8, nan=True)
@@ -507,9 +507,9 @@ def test_bf16_h_fused_loads_give_the_same_bits_and_tma_refusals():
         kw = dict(origin=(0, 0, 0), grid_shape=grid, **COEFFS)
         ref = torch.full(bs, float("nan"), dtype=BF16)
         rp = skb3.h_block_fused_plain(us[0], *xch.pieces(0), ref, 3, **kw)
-        for load in skb3.LOADS_BF16:
+        for load in skb3.LOADS:
             out = torch.full(bs, float("nan"), dtype=BF16)
-            if load.startswith("tma") and not boxed:
+            if load == "tma" and not boxed:
                 with pytest.raises(ValueError, match="TMA load needs bz % 8"):
                     skb3.h_block_fused(us[0], *xch.pieces(0), out, 3,
                                        load=load, **kw)
@@ -545,13 +545,11 @@ def test_bf16_loads_and_their_refusals():
     g = _rand_bf16(grid, seed=4)
     _, us, bs, xch = _exchanged(g, (2, 2, 2), 2)
     kw = dict(origin=(0, 0, 0), grid_shape=grid, **COEFFS)
-    for load in ("tma", "tma+prefetch"):
-        with pytest.raises(ValueError, match="TMA load needs bz % 8"):
-            skb3.h_block_fused(us[0], *xch.pieces(0), torch.empty_like(us[0]),
-                               2, load=load, **kw)
-    for load in ("cp.async", "prefetch"):
-        skb3.h_block_fused(us[0], *xch.pieces(0), torch.empty_like(us[0]), 2,
-                           load=load, **kw)
+    with pytest.raises(ValueError, match="TMA load needs bz % 8"):
+        skb3.h_block_fused(us[0], *xch.pieces(0), torch.empty_like(us[0]),
+                           2, load="tma", **kw)
+    skb3.h_block_fused(us[0], *xch.pieces(0), torch.empty_like(us[0]), 2,
+                       load="cp.async", **kw)
     contiguous = torch.empty(xch.circular_shape, dtype=BF16)
     assert skb3.h_block_load(contiguous) == "cp.async"   # rows of 12
     assert skb3.h_block_load(xch.new_circular()) == "tma"
@@ -576,7 +574,7 @@ def test_explain_names_the_bf16_forms():
     out = explain(HeatConfig(**base), device="cpu")
     assert out["decided_by"]["block_temporal_3d"]["choice"] == "H-fused"
     assert "heat_h_block_3d_fused_bf16" in out["path"]
-    assert "cp.async pairs of cells" in out["path"]
+    assert "4-byte cp.async of the word" in out["path"]
     assert "plain 2-byte load" not in out["path"]
     assert "bfloat16 storage" in out["path"]
     with tune.force("block_temporal_3d", "H-defer"):
